@@ -1,0 +1,171 @@
+"""Precomputed embedding banks (port of ``sky_embeddings_tpu/eval/bank.py``).
+
+:func:`build_bank` streams batches through the encoder, pools each image to
+one feature row, standardises by the bank's own statistics and stores bf16
+rows. :class:`EmbeddingBank` answers queries with the weighted-cosine
+scorer (``ops/kernels/simscore.bank_topk``). Save/load use the JAX
+package's HDF5 layout, so a bank built by either package loads in the other
+(bf16 features stored as uint16 bits with ``feat_dtype = "bfloat16"``).
+
+``query`` covers the single-pass path. Where the JAX code would take the
+two-stage int8 path or the chunked out-of-memory path, this raises
+``NotImplementedError`` (ROADMAP: retrieval) rather than answer differently.
+The double standardisation quirk is kept: ``build_bank`` divides by
+``std + 1e-8`` and ``query`` by ``(std + 1e-8) + 1e-8`` (``bank.py:164,306-307``).
+"""
+
+from __future__ import annotations
+
+from typing import Iterable
+
+import numpy as np
+import torch
+
+from sky_embeddings_tpu_torch.eval.eval_fns import make_encoder, model_device
+from sky_embeddings_tpu_torch.ops.kernels.simscore import bank_topk
+from sky_embeddings_tpu_torch.ops.similarity import target_features
+from sky_embeddings_tpu_torch.utils.device import resolve_device
+from sky_embeddings_tpu_torch.utils.misc import select_centre
+
+# the JAX package's routing thresholds (bank.py:52,56)
+DEVICE_ROWS_LIMIT = 2_500_000
+TWO_STAGE_MIN_ROWS = 1 << 16
+
+
+def _features_to_numpy(feats: torch.Tensor) -> tuple[np.ndarray, str]:
+    """HDF5 has no bf16: store the raw bits as uint16."""
+    if feats.dtype == torch.bfloat16:
+        return feats.view(torch.int16).numpy().view(np.uint16), "bfloat16"
+    return feats.numpy(), str(feats.numpy().dtype)
+
+
+def _features_from_numpy(arr: np.ndarray, feat_dtype: str) -> torch.Tensor:
+    if feat_dtype == "bfloat16":
+        return torch.from_numpy(np.ascontiguousarray(arr).view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(np.ascontiguousarray(arr))
+
+
+class EmbeddingBank:
+    """(N, D) standardised pooled features (a CPU tensor, copied to
+    ``device`` on first query) + (N, 2) ra/dec + bank stats."""
+
+    def __init__(self, features: torch.Tensor, ra_decs: np.ndarray, mean: np.ndarray,
+                 std: np.ndarray, pool: str = "mean", n_extra: int = 1,
+                 device: str | torch.device = "cuda"):
+        self.device = resolve_device(device)
+        self.features = features
+        self.ra_decs = ra_decs
+        self.mean = np.asarray(mean, np.float32)
+        self.std = np.asarray(std, np.float32)
+        self.pool = pool
+        self.n_extra = int(n_extra)
+        self._device_bank = None
+
+    # -- persistence ---------------------------------------------------
+    def save(self, path: str) -> None:
+        import h5py
+
+        feats, feat_dtype = _features_to_numpy(self.features.cpu())
+        with h5py.File(path, "w") as f:
+            f.create_dataset(
+                "features", data=feats, chunks=(min(len(feats), 1 << 14), feats.shape[1]),
+            )
+            f.create_dataset("ra_decs", data=self.ra_decs)
+            f.create_dataset("mean", data=self.mean)
+            f.create_dataset("std", data=self.std)
+            f.attrs["pool"] = self.pool
+            f.attrs["n_extra"] = self.n_extra
+            f.attrs["feat_dtype"] = feat_dtype
+
+    @classmethod
+    def load(cls, path: str, device: str | torch.device = "cuda") -> "EmbeddingBank":
+        import h5py
+
+        with h5py.File(path, "r") as f:
+            feat_dtype = str(f.attrs.get("feat_dtype", "float32"))
+            return cls(
+                _features_from_numpy(f["features"][:], feat_dtype), f["ra_decs"][:],
+                f["mean"][:], f["std"][:], pool=str(f.attrs.get("pool", "mean")),
+                n_extra=int(f.attrs.get("n_extra", 1)), device=device,
+            )
+
+    # -- queries -------------------------------------------------------
+    def query(self, target_latent, k: int = 300, exact: bool = False) -> tuple[np.ndarray, np.ndarray]:
+        """(scores, indices) of the best-k rows for a (Bt, Lt, D) target group."""
+        n = self.features.shape[0]
+        if n > DEVICE_ROWS_LIMIT:
+            raise NotImplementedError(
+                f"bank of {n} rows exceeds DEVICE_ROWS_LIMIT: the chunked scorer is not "
+                "ported yet (ROADMAP: int8 two-stage, chunked and multi-query retrieval)"
+            )
+        if not exact and n >= TWO_STAGE_MIN_ROWS:
+            raise NotImplementedError(
+                f"bank of {n} rows would take the int8 two-stage scorer, which is not "
+                "ported yet (ROADMAP: int8 two-stage, chunked and multi-query retrieval); "
+                "pass exact=True for the single-pass scorer"
+            )
+        flat = self._pool_target(target_latent)
+        mean = torch.as_tensor(self.mean, device=self.device)
+        std = torch.as_tensor(self.std, device=self.device)
+        flat = (flat - mean) / (std + 1e-8)
+        tgt, w = target_features(flat)
+        vals, idx = bank_topk(self._device(), tgt, w, min(k, n))
+        return vals.cpu().numpy(), idx.cpu().numpy()
+
+    def _pool_target(self, target_latent) -> torch.Tensor:
+        """Target tokens in the bank's feature space: ``central`` banks hold
+        the central-4-patch flattened features, so targets collapse the same
+        way; other pool modes keep the token-level collapse."""
+        flat = torch.as_tensor(np.asarray(target_latent, np.float32), device=self.device)
+        if self.pool == "central":
+            sel = select_centre(flat[:, self.n_extra:], 4)
+            flat = sel.reshape(sel.shape[0], -1)
+        return flat
+
+    def _device(self) -> torch.Tensor:
+        if self._device_bank is None:
+            self._device_bank = self.features.to(self.device).contiguous()
+        return self._device_bank
+
+
+@torch.inference_mode()
+def build_bank(
+    model,
+    batches: Iterable[dict],
+    pool: str = "mean",
+    dtype: torch.dtype = torch.bfloat16,
+) -> EmbeddingBank:
+    """Encode a survey stream into an :class:`EmbeddingBank` on the model's device.
+
+    ``pool``: 'mean' | 'max' over patch tokens, 'cls' for the cls token, or
+    'central' -- the central-4-patch flattened features (4·D rows).
+    """
+    n_extra = model.num_extra_tokens
+    device = model_device(model)
+    encode = make_encoder(model)
+
+    def pooled(imgs):
+        latent = encode(imgs).float()
+        if pool == "cls":
+            return latent[:, 0]
+        patches = latent[:, n_extra:]
+        if pool == "central":
+            sel = select_centre(patches, 4)
+            return sel.reshape(sel.shape[0], -1)
+        return patches.max(dim=1).values if pool == "max" else patches.mean(dim=1)
+
+    rows, ra_decs = [], []
+    for batch in batches:
+        imgs = torch.as_tensor(np.asarray(batch["cutouts"]), device=device)
+        rows.append(pooled(imgs).cpu().numpy())
+        ra_decs.append(np.asarray(batch["ra_dec"], np.float32))
+    if not rows:
+        raise ValueError("build_bank received no batches")
+    feats = np.concatenate(rows, axis=0)
+    mean = feats.mean(axis=0)
+    std = feats.std(axis=0) + 1e-8
+    feats = (feats - mean) / std
+    return EmbeddingBank(
+        torch.from_numpy(feats).to(dtype), np.concatenate(ra_decs, axis=0), mean, std,
+        pool=pool, n_extra=n_extra, device=device,
+    )

@@ -1,0 +1,76 @@
+"""Embedding extraction (port of ``make_encoder`` / ``extract_latents`` from
+``sky_embeddings_tpu/eval/eval_fns.py``, reference ``mae_latent``).
+
+The model holds its weights, so where the JAX functions take ``(model,
+variables)`` these take the model alone; batches are dicts of numpy arrays
+(``cutouts`` (B, C, H, W), ``ra_dec`` (B, 2)) moved to the model's device.
+"""
+
+from __future__ import annotations
+
+from typing import Iterable, Optional
+
+import numpy as np
+import torch
+
+from sky_embeddings_tpu_torch.data.augment import augment_batch
+
+
+def model_device(model) -> torch.device:
+    return next(model.parameters()).device
+
+
+def make_encoder(model):
+    """An ``imgs -> tokens`` closure for repeated extraction (the JAX one
+    also takes ra/dec, which only ``ra_dec = True`` models read)."""
+
+    @torch.inference_mode()
+    def encode(imgs):
+        return model.encode(imgs)[0]
+
+    return encode
+
+
+def extract_latents(
+    model,
+    batches: Iterable[dict],
+    remove_prefix: bool = True,
+    apply_augmentations: bool = False,
+    num_augmentations: int = 16,
+    generator: Optional[torch.Generator] = None,
+    return_images: bool = False,
+    batch_transform=None,
+):
+    """Batched encoder-only embeddings, as a numpy array.
+
+    With ``apply_augmentations`` each sample contributes 1 original +
+    ``num_augmentations`` augmented copies, interleaved so the copies of one
+    sample are adjacent (``(1+A, B, ...) -> (B·(1+A), ...)``, as
+    ``eval_fns.py:173-176``); ``generator`` (seed 0 when None) draws the
+    augmentations. ``remove_prefix`` strips the cls token.
+    ``batch_transform`` (tokens -> tensor) is applied per batch before
+    accumulation.
+    """
+    encode = make_encoder(model)
+    device = model_device(model)
+    if apply_augmentations and generator is None:
+        generator = torch.Generator().manual_seed(0)
+
+    latents, images = [], []
+    for batch in batches:
+        imgs = torch.as_tensor(np.asarray(batch["cutouts"]), device=device)
+        if apply_augmentations:
+            reps = [imgs] + [augment_batch(generator, imgs) for _ in range(num_augmentations)]
+            imgs = torch.stack(reps, dim=1).reshape(-1, *imgs.shape[1:])
+        tokens = encode(imgs)
+        if remove_prefix:
+            tokens = tokens[:, model.num_extra_tokens:]
+        if batch_transform is not None:
+            tokens = batch_transform(tokens)
+        latents.append(tokens.float().cpu().numpy())
+        if return_images:
+            images.append(imgs.cpu().numpy())
+    latents = np.concatenate(latents)
+    if return_images:
+        return latents, np.concatenate(images)
+    return latents
