@@ -1,4 +1,4 @@
-"""Pre-norm ViT layers, forward only (port of ``sky_embeddings_tpu/models/layers.py``).
+"""Pre-norm ViT layers (port of ``sky_embeddings_tpu/models/layers.py``).
 
 Parameters keep the JAX tree's names and layouts so that a state dict maps
 onto the JAX params leaf for leaf (``models/weights.py``): Linear weights are
@@ -9,9 +9,15 @@ Parameters are fp32; ``dtype`` is the activation and GEMM-operand dtype.
 Each ``Block`` calls the attention-block kernel and then the MLP-block
 kernel (``ops/kernels/``) for every batch size; their wrappers take the plain
 PyTorch versions for CPU tensors and raise on CUDA for what the kernels do not
-take (fp32, N > 256). ``Encoder.plain = True`` sends the blocks through the
-plain versions on any device: the reference path that a check on the card
-holds the kernel path against.
+take (fp32, N > 256). With grad enabled the two calls go through their
+``torch.autograd.Function``s: the attention stash forward and backward
+(``stash=True``, the default, as in JAX) and the MLP forward with its
+recompute backward (``stash_mlp=False``). The other combinations need TPU
+kernels not ported yet (4 for ``stash=False``, 6 and 7 for ``stash_mlp``):
+with grad they raise on CUDA and differentiate the plain versions on the CPU.
+``Encoder.plain = True`` sends the blocks through the plain versions on any
+device: the reference path that a check on the card holds the kernel path
+against.
 
 Not ported yet (ROADMAP): the scan layout, remat, ``CrossAttention`` and
 ``AttentionPoolLatent``.
@@ -25,8 +31,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from sky_embeddings_tpu_torch.ops.kernels.attn_block import attn_block_plain, fused_attn_block
-from sky_embeddings_tpu_torch.ops.kernels.mlp_block import fused_mlp_block, mlp_block_plain
+from sky_embeddings_tpu_torch.ops.kernels.attn_block import fused_attn_block
+from sky_embeddings_tpu_torch.ops.kernels.mlp_block import fused_mlp_block
 
 
 def xavier_uniform_(t: torch.Tensor, generator: torch.Generator) -> None:
@@ -115,9 +121,10 @@ class AttnParams(nn.Module):
 class MlpBlock(nn.Module):
     """LN -> fc1 -> exact GELU -> fc2 -> residual (``ffn`` scope)."""
 
-    def __init__(self, dim: int, hidden_dim: int, dtype: torch.dtype):
+    def __init__(self, dim: int, hidden_dim: int, dtype: torch.dtype, stash: bool = False):
         super().__init__()
         self.dtype = dtype
+        self.stash = stash
         self.norm_scale = nn.Parameter(torch.ones(dim))
         self.norm_bias = nn.Parameter(torch.zeros(dim))
         self.fc1_kernel = nn.Parameter(torch.empty(dim, hidden_dim))
@@ -134,11 +141,11 @@ class MlpBlock(nn.Module):
         nn.init.zeros_(self.fc2_bias)
 
     def forward(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
-        fn = mlp_block_plain if plain else fused_mlp_block
-        return fn(
+        return fused_mlp_block(
             x.to(self.dtype), self.norm_scale, self.norm_bias,
             self.fc1_kernel.to(self.dtype), self.fc1_bias,
             self.fc2_kernel.to(self.dtype), self.fc2_bias,
+            stash=self.stash, plain=plain,
         )
 
 
@@ -146,21 +153,22 @@ class Block(nn.Module):
     """Pre-norm transformer block: x + attn(ln(x)); x + mlp(ln(x))."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, stash: bool = True,
+                 stash_mlp: bool = False):
         super().__init__()
         self.num_heads = num_heads
         self.dtype = dtype
+        self.stash = stash
         self.norm1 = LayerNorm(dim)
         self.attn = AttnParams(dim)
-        self.ffn = MlpBlock(dim, int(dim * mlp_ratio), dtype)
+        self.ffn = MlpBlock(dim, int(dim * mlp_ratio), dtype, stash=stash_mlp)
 
     def forward(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
-        fn = attn_block_plain if plain else fused_attn_block
-        x = fn(
+        x = fused_attn_block(
             x.to(self.dtype), self.norm1.scale, self.norm1.bias,
             self.attn.qkv.kernel.to(self.dtype), self.attn.qkv.bias,
             self.attn.proj.kernel.to(self.dtype), self.attn.proj.bias,
-            self.num_heads,
+            self.num_heads, stash=self.stash, plain=plain,
         )
         return self.ffn(x, plain)
 
@@ -169,12 +177,13 @@ class Encoder(nn.Module):
     """``depth`` blocks under the loop layout's ``block0``..``blockN`` scopes."""
 
     def __init__(self, depth: int, dim: int, num_heads: int, mlp_ratio: float = 4.0,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, stash: bool = True,
+                 stash_mlp: bool = False):
         super().__init__()
         self.depth = depth
         self.plain = False
         for i in range(depth):
-            self.add_module(f"block{i}", Block(dim, num_heads, mlp_ratio, dtype))
+            self.add_module(f"block{i}", Block(dim, num_heads, mlp_ratio, dtype, stash, stash_mlp))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for i in range(self.depth):

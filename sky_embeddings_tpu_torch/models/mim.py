@@ -1,11 +1,14 @@
-"""SimMIM ViT, encoder forward (port of ``sky_embeddings_tpu/models/mim.py``).
+"""SimMIM ViT (port of ``sky_embeddings_tpu/models/mim.py``, ``simmim=True``).
 
-``SkyMIM.encode`` mirrors the JAX ``SkyMIM.encode`` for ``simmim=True``:
-NaN pixels (and optionally masked pixels) take the trainable
-``patch_mask_values``, then patch embed, the frozen sin-cos pos-embed, the
-cls token, the encoder and the final LayerNorm. The decoder parameters
-(``decoder_pred``, ``mask_token``) are held so that weights round-trip with
-the JAX tree; decoding, the loss and training come with the training slice.
+``SkyMIM.encode`` mirrors the JAX ``SkyMIM.encode``: NaN pixels (and masked
+pixels) take the trainable ``patch_mask_values``, then patch embed, the
+frozen sin-cos pos-embed, the cls token, the encoder and the final
+LayerNorm. ``decode`` is the SimMIM linear decoder (one Dense per token
+predicting its patch, upsample = ``patch_size``), ``loss`` the NaN-guarded
+masked L1/MSE on normalized (optionally per-patch normalized) targets, and
+``forward(imgs, mask)`` returns ``(loss, pred, mask)`` as the JAX
+``__call__`` does. ``mask_token`` is held so that weights round-trip with the
+JAX tree (SimMIM does not use it).
 
 Not ported yet, each raising ``NotImplementedError`` (ROADMAP): the MAE model
 types, ``ra_dec = True`` and ``attn_pool = True``.
@@ -18,13 +21,21 @@ from typing import Optional
 import torch
 from torch import nn
 
-from sky_embeddings_tpu_torch.models.layers import Encoder, LayerNorm, Linear, PatchEmbed
+from sky_embeddings_tpu_torch.models.layers import (
+    Encoder,
+    LayerNorm,
+    Linear,
+    PatchEmbed,
+    patchify,
+    unpatchify,
+)
 from sky_embeddings_tpu_torch.models.pos_embed import sincos_pos_embed_2d
+from sky_embeddings_tpu_torch.ops.losses import masked_recon_loss, normalize_patches
 from sky_embeddings_tpu_torch.utils.device import resolve_device
 
 
 class SkyMIM(nn.Module):
-    """SimMIM ViT over multi-band sky cutouts (encoder forward)."""
+    """SimMIM ViT over multi-band sky cutouts."""
 
     def __init__(
         self,
@@ -37,7 +48,11 @@ class SkyMIM(nn.Module):
         mlp_ratio: float = 4.0,
         pixel_mean: float = 0.0,
         pixel_std: float = 1.0,
+        norm_pix_loss: bool = False,
+        loss_fn: str = "l1",
         dtype: torch.dtype = torch.float32,
+        stash: bool = True,
+        stash_mlp: bool = False,
     ):
         super().__init__()
         self.img_size = img_size
@@ -46,6 +61,8 @@ class SkyMIM(nn.Module):
         self.embed_dim = embed_dim
         self.pixel_mean = pixel_mean
         self.pixel_std = pixel_std
+        self.norm_pix_loss = norm_pix_loss
+        self.loss_fn = loss_fn
         self.dtype = dtype
         self.patch_embed = PatchEmbed(patch_size, in_chans, embed_dim)
         self.cls_token = nn.Parameter(torch.zeros(1, 1, embed_dim))
@@ -54,7 +71,7 @@ class SkyMIM(nn.Module):
             torch.from_numpy(sincos_pos_embed_2d(embed_dim, self.grid_size, self.num_extra_tokens)),
             persistent=False,
         )
-        self.encoder = Encoder(depth, embed_dim, num_heads, mlp_ratio, dtype)
+        self.encoder = Encoder(depth, embed_dim, num_heads, mlp_ratio, dtype, stash, stash_mlp)
         self.norm = LayerNorm(embed_dim)
         self.patch_mask_values = nn.Parameter(torch.zeros(in_chans, patch_size, patch_size))
         # SimMIM linear decoder: one Dense per token predicting its patch
@@ -103,6 +120,35 @@ class SkyMIM(nn.Module):
         tokens = self.encoder(tokens)
         return self.norm(tokens, self.dtype), None, None
 
+    def decode(self, tokens: torch.Tensor) -> torch.Tensor:
+        """Encoder tokens (B, 1 + L, D) -> (B, C, H, W) reconstruction: each
+        grid token predicts its own patch_size² x C tile (JAX ``decode``)."""
+        grid = tokens[:, self.num_extra_tokens:]
+        B, L, _ = grid.shape
+        h = w = int(round(L ** 0.5))
+        S = self.patch_size
+        pred = self.decoder_pred(grid, self.dtype)
+        pred = pred.reshape(B, h, w, self.in_chans, S, S).permute(0, 3, 1, 4, 2, 5)
+        return pred.reshape(B, self.in_chans, h * S, w * S)
+
+    def loss(self, imgs: torch.Tensor, pred: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        """Masked NaN-guarded reconstruction loss on normalized targets."""
+        target = (imgs - self.pixel_mean) / self.pixel_std
+        eff_mask = (~torch.isnan(target)).to(target.dtype) * mask
+        if self.norm_pix_loss:
+            patches = patchify(target, self.patch_size)
+            target = unpatchify(normalize_patches(patches), self.patch_size, self.in_chans)
+        return masked_recon_loss(target, pred.float(), eff_mask, self.loss_fn)
+
+    def forward(self, imgs: torch.Tensor, mask: Optional[torch.Tensor] = None):
+        """Full forward: ``(loss, pred, mask)``; ``mask`` is the (B, C, H, W)
+        pixel mask (zeros when None)."""
+        tokens, _, _ = self.encode(imgs, mask=mask)
+        pred = self.decode(tokens)
+        if mask is None:
+            mask = torch.zeros_like(imgs)
+        return self.loss(imgs, pred, mask), pred, mask
+
 
 _SIZES = {
     "base": dict(depth=12, num_heads=12),
@@ -132,6 +178,7 @@ def build_mim_model(
     with weights drawn from ``generator`` (seed 0 when None), on ``device``."""
     dev = resolve_device(device)
     arch = config["ARCHITECTURE"]
+    training = config["TRAINING"]
     model_type = arch.str("model_type")
     if model_type not in MODEL_TYPES:
         raise ValueError(f"unknown model_type {model_type!r}; options: {sorted(MODEL_TYPES)}")
@@ -163,7 +210,12 @@ def build_mim_model(
         embed_dim=embed_dim,
         pixel_mean=arch.float("pixel_mean", 0.0),
         pixel_std=arch.float("pixel_std", 1.0),
+        norm_pix_loss=training.bool("norm_pix_loss", False),
+        loss_fn=training.str("loss_fn", "L1").lower(),
         dtype=dtype,
+        # the JAX defaults: attention stash except at ViT-H, MLP stash at ViT-L
+        stash=arch.bool("stash", size_key != "huge"),
+        stash_mlp=arch.bool("stash_mlp", size_key == "large"),
         **extra,
     )
     if generator is None:

@@ -2,9 +2,15 @@
 //
 //   out = x + (MHA(LN(x) @ Wqkv + bqkv)) @ Wproj + bproj
 //
-// Replaces the TPU kernel sky_embeddings_tpu/ops/kernels/attn_block.py:
+// Replaces the TPU kernels sky_embeddings_tpu/ops/kernels/attn_block.py:
 // _pallas_fwd (_fwd_kernel / _fwd_kernel_loop), the primal of
-// fused_attn_block, with seg_len = 0.
+// fused_attn_block, with seg_len = 0 (entry sky_attn_block_fwd); and
+// _pallas_fwd_stash (_fwd_stash_kernel / _fwd_stash_kernel_loop), the
+// training forward (entry sky_attn_block_fwd_stash), which also hands back
+// qkv (B, N, 3D) and the softmax probabilities (B, H, N, N), both bf16, for
+// the stash backward (attn_block_bwd.cu). The two differ only there: the
+// stash forward's qkv buffer is an output instead of scratch, and the
+// attention core also stores each probability row it rounds to bf16.
 //
 // Four launches behind one C entry point:
 //   0. LayerNorm                          -> y (B, N, D) bf16
@@ -22,7 +28,8 @@
 // compute-bound at the serving shapes; the attention core is small
 // (N = 65: 4*N*N*hd FLOP per head) and bound by its loads and softmax.
 // Keeping qkv and ctx on chip and moving the GEMMs to wgmma are the first
-// speed changes.
+// speed changes. The stash adds B*H*N*N*2 bytes of probability writes (6.5 MB
+// at B = 64, N = 65), which the backward then need not recompute.
 #include <math_constants.h>
 
 #include "gemm.cuh"
@@ -52,8 +59,8 @@ struct AttnPlan {
 };
 
 __global__ void __launch_bounds__(ATTN_THREADS)
-attn_core_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ ctx, int N, int D, int H, int hd,
-                 float scale) {
+attn_core_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ ctx, bf16* __restrict__ probs,
+                 int N, int D, int H, int hd, float scale) {
   using namespace nvcuda;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const AttnPlan pl(N, hd);
@@ -109,7 +116,8 @@ attn_core_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ ctx, int N, in
     __syncthreads();
 
     // fp32 softmax of scale * S over the N real keys, one warp per row;
-    // probabilities rounded to bf16, zero past N
+    // probabilities rounded to bf16, zero past N; with `probs` (the stash
+    // forward) each real row is also stored at probs[b, h, q0 + r, :]
     for (int r = warp; r < QB; r += NW) {
       float* srow = Ss + r * SL;
       bf16* prow = Ps + r * PL;
@@ -127,7 +135,12 @@ attn_core_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ ctx, int N, in
         sum += e;
       }
       sum = warp_sum(sum);
-      for (int j = lane; j < NP; j += 32) prow[j] = __float2bfloat16_rn(j < N ? srow[j] / sum : 0.f);
+      bf16* grow = probs && q0 + r < N ? probs + (((size_t)b * H + h) * N + q0 + r) * N : nullptr;
+      for (int j = lane; j < NP; j += 32) {
+        const bf16 pv = __float2bfloat16_rn(j < N ? srow[j] / sum : 0.f);
+        prow[j] = pv;
+        if (grow && j < N) grow[j] = pv;
+      }
     }
     __syncthreads();
 
@@ -165,13 +178,14 @@ attn_core_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ ctx, int N, in
 
 }  // namespace sky
 
-// Returns 0, or the first CUDA error a launch reported. Scratch buffers qkv
-// (B, N, 3D) and ctx (B, N, D) are allocated by the caller; the LN output
-// is staged in `out`, which the last launch overwrites once it is dead.
-extern "C" int sky_attn_block_fwd(const void* x, const void* ln_scale, const void* ln_bias,
-                                  const void* wqkv, const void* bqkv, const void* wproj,
-                                  const void* bproj, void* qkv, void* ctx, void* out, int B, int N,
-                                  int D, int H, void* stream) {
+// Returns 0, or the first CUDA error a launch reported. qkv (B, N, 3D) and
+// ctx (B, N, D) are allocated by the caller; the LN output is staged in
+// `out`, which the last launch overwrites once it is dead. With `probs`
+// (B, H, N, N) the core also stores the bf16 probabilities.
+static int attn_block_fwd(const void* x, const void* ln_scale, const void* ln_bias,
+                          const void* wqkv, const void* bqkv, const void* wproj, const void* bproj,
+                          void* qkv, void* ctx, void* probs, void* out, int B, int N, int D, int H,
+                          void* stream) {
   using namespace sky;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int M = B * N;
@@ -186,11 +200,28 @@ extern "C" int sky_attn_block_fwd(const void* x, const void* ln_scale, const voi
                              static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   attn_core_kernel<<<B * H, ATTN_THREADS, smem, s>>>(static_cast<const bf16*>(qkv),
-                                                     static_cast<bf16*>(ctx), N, D, H, hd,
+                                                     static_cast<bf16*>(ctx),
+                                                     static_cast<bf16*>(probs), N, D, H, hd,
                                                      1.0f / sqrtf(static_cast<float>(hd)));
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
   err = launch_gemm<EPI_BIAS_RESIDUAL>(gemm_args(ctx, wproj, bproj, x, out, M, D, D), s);
   return static_cast<int>(err);
+}
+
+extern "C" int sky_attn_block_fwd(const void* x, const void* ln_scale, const void* ln_bias,
+                                  const void* wqkv, const void* bqkv, const void* wproj,
+                                  const void* bproj, void* qkv, void* ctx, void* out, int B, int N,
+                                  int D, int H, void* stream) {
+  return attn_block_fwd(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj, qkv, ctx, nullptr, out, B,
+                        N, D, H, stream);
+}
+
+extern "C" int sky_attn_block_fwd_stash(const void* x, const void* ln_scale, const void* ln_bias,
+                                        const void* wqkv, const void* bqkv, const void* wproj,
+                                        const void* bproj, void* qkv, void* ctx, void* probs,
+                                        void* out, int B, int N, int D, int H, void* stream) {
+  return attn_block_fwd(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj, qkv, ctx, probs, out, B,
+                        N, D, H, stream);
 }

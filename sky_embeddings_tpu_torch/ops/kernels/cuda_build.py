@@ -19,7 +19,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = CSRC / "build"
-SOURCES = ("attn_block", "mlp_block")
+SOURCES = ("attn_block", "attn_block_bwd", "mlp_block", "mlp_block_bwd")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

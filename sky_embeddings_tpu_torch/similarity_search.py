@@ -2,8 +2,9 @@
 
     python -m sky_embeddings_tpu_torch.similarity_search <model_name> [-tgt_fn F] ... [--device cuda]
 
-Builds the SimMIM model from ``configs/<model_name>.ini`` with the weights in
-``models/<model_name>.pt`` (a ``torch.save``d state dict of this package;
+Builds the SimMIM model from ``configs/<model_name>.ini`` with the params of
+the pretraining checkpoint that ``pretrain_mim`` writes
+(``models/<model_name>_best.ckpt.pt``, else ``models/<model_name>.ckpt.pt``;
 without one it warns and uses fresh seeded weights), S/N-filters the test
 set, embeds the target set with 64 augmentations, then either streams the
 test set through the encoder (``mim_simsearch``) or answers from an
@@ -29,6 +30,7 @@ from sky_embeddings_tpu_torch.eval.bank import EmbeddingBank, build_bank
 from sky_embeddings_tpu_torch.eval.eval_fns import extract_latents
 from sky_embeddings_tpu_torch.eval.simsearch import mim_simsearch
 from sky_embeddings_tpu_torch.models.mim import build_mim_model
+from sky_embeddings_tpu_torch.utils.checkpoint import checkpoint_path, load_checkpoint
 from sky_embeddings_tpu_torch.utils.misc import h5_snr
 
 REPO_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -61,7 +63,8 @@ def parse_args(argv=None):
 
 
 def build_model_from_config(config_dir, model_dir, model_name, device):
-    """SimMIM model with restored (or fresh seeded) weights, and its config."""
+    """SimMIM model with the params of the pretraining checkpoint (``best``,
+    then the latest; fresh seeded weights without one), and its config."""
     config = load_config(model_name, config_dir)
     if "TRAINING" in config and (
         "pretained_mae" in config.training or "pretrained_mae" in config.training
@@ -72,9 +75,11 @@ def build_model_from_config(config_dir, model_dir, model_name, device):
         )
     dtype = torch.bfloat16 if config.training.str("dtype", "float32") == "bfloat16" else torch.float32
     model = build_mim_model(config, dtype=dtype, device=device)
-    path = os.path.join(model_dir, f"{model_name}.pt")
-    if os.path.exists(path):
-        model.load_state_dict(torch.load(path, map_location=model.cls_token.device))
+    for best in (True, False):
+        payload = load_checkpoint(checkpoint_path(model_dir, model_name, best=best))
+        if payload is not None:
+            model.load_state_dict(payload["params"])
+            break
     else:
         print(f"WARNING: no checkpoint for {model_name}; using fresh weights.")
     return model, config

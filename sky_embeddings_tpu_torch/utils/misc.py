@@ -1,10 +1,12 @@
-"""Central-patch selection and channel-wise S/N (copies of
-``select_centre`` and ``h5_snr`` from ``sky_embeddings_tpu/utils/misc.py``,
-reference ``utils/misc.py``). Framework-free: ``select_centre`` indexes numpy
-arrays and torch tensors alike."""
+"""The training CLI's argument parser, central-patch selection and
+channel-wise S/N (copies of ``build_train_argparser``, ``select_centre`` and
+``h5_snr`` from ``sky_embeddings_tpu/utils/misc.py``, reference
+``utils/misc.py``). Framework-free: ``select_centre`` indexes numpy arrays
+and torch tensors alike."""
 
 from __future__ import annotations
 
+import argparse
 from typing import Optional
 
 import numpy as np
@@ -13,6 +15,26 @@ try:
     import h5py
 except ImportError:  # pragma: no cover - hosts without h5py skip the S/N filter
     h5py = None
+
+
+def build_train_argparser(description: str = "Training") -> argparse.ArgumentParser:
+    """The shared train/test CLI surface (reference ``misc.py:9-33``):
+    ``<model_name> [-v verbose_iters] [-ct cp_time_minutes] [-dd data_dir]``."""
+    parser = argparse.ArgumentParser(description, add_help=False)
+    parser.add_argument("model_name", help="Name of model (keys configs/<name>.ini).", type=str)
+    parser.add_argument(
+        "-v", "--verbose_iters", type=int, default=10000,
+        help="Batch iterations between validation/eval reports.",
+    )
+    parser.add_argument(
+        "-ct", "--cp_time", type=float, default=15,
+        help="Minutes between checkpoint saves.",
+    )
+    parser.add_argument(
+        "-dd", "--data_dir", type=str, default=None,
+        help="Data directory (defaults to <repo>/data/).",
+    )
+    return parser
 
 
 def central_patch_indices(grid_size: int, n_patches: int) -> np.ndarray:

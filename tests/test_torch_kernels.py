@@ -1,17 +1,21 @@
 """The port's kernel modules (sky_embeddings_tpu_torch/ops/kernels) against
 the JAX package: the plain PyTorch versions against the ``xla_*`` oracles
 and against the Pallas kernels run with ``interpret=True``, on the same
-numpy inputs. On CPU tensors the wrappers must take the plain versions and
-launch nothing.
+numpy inputs; the training kernels' plain versions (attention stash
+forward and backward, MLP backward) against ``jax.vjp`` of the Pallas
+``fused_attn_block(stash=True)`` and ``fused_mlp_block(stash=False)``. On
+CPU tensors the wrappers and their autograd Functions must take the plain
+versions and launch nothing.
 
 Bars: fp32 atol 2e-5 (the bar tests/test_kernels.py uses; the Pallas MLP's
 A-S erf passes it too); bf16 max|a-b|/max|b| <= 2e-2 (TOL_FWD of
-tools/kernel_parity.py).
+tools/kernel_parity.py) for outputs and 3e-2 (TOL_BWD) for each gradient.
 """
 
 import numpy as np
 import pytest
 
+import jax
 import jax.numpy as jnp
 import torch
 
@@ -24,18 +28,19 @@ from sky_embeddings_tpu_torch.ops.kernels import simscore as tss
 
 TOL_F32 = 2e-5
 TOL_BF16 = 2e-2
+TOL_BWD = 3e-2
 _JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 _TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
-def _assert_close(got, want, dtype):
+def _assert_close(got, want, dtype, bar=TOL_BF16):
     got = np.asarray(got, np.float32)
     want = np.asarray(want, np.float32)
     if dtype == "float32":
         np.testing.assert_allclose(got, want, atol=TOL_F32)
     else:
         rel = np.abs(got - want).max() / (np.abs(want).max() + 1e-12)
-        assert rel <= TOL_BF16, f"max-rel {rel:.3g} > {TOL_BF16}"
+        assert rel <= bar, f"max-rel {rel:.3g} > {bar}"
 
 
 def _block_inputs(kind, dtype, B=8, N=17, D=48, F=192, seed=2):
@@ -131,3 +136,86 @@ def test_cpu_tensors_take_plain_path_and_launch_nothing():
         tss.weighted_bank_scores(*t), tss.weighted_bank_scores_plain(*t), rtol=0, atol=0
     )
     assert [f.launches for f in counters] == before == [0, 0, 0]
+
+
+# -- training kernels: stash forward/backward, MLP backward --------------------
+
+_GRADS = {"attn": ("dx", "dscale", "dbias", "dwqkv", "dbqkv", "dwproj", "dbproj"),
+          "mlp": ("dx", "dscale", "dbias", "dw1", "db1", "dw2", "db2")}
+
+
+def _train_inputs(kind, dtype, seed):
+    """B=4, N=17, D=64, H=4, F=256 block inputs and an output gradient g."""
+    j, t = _block_inputs(kind, dtype, B=4, N=17, D=64, F=256, seed=seed)
+    g = np.random.default_rng(seed + 100).normal(size=(4, 17, 64)).astype(np.float32)
+    return j, t, jnp.asarray(g).astype(_JDT[dtype]), torch.from_numpy(g).to(_TDT[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_attn_stash_plain_matches_jax_vjp(dtype):
+    j, t, jg, tg = _train_inputs("attn", dtype, seed=21)
+    out, vjp = jax.vjp(lambda *a: jab.fused_attn_block(*a, 4, 4, 4, True, True), *j)
+    want = vjp(jg)
+    got_out, qkv, probs = tab.attn_block_fwd_stash_plain(*t, 4)
+    _assert_close(got_out.float().numpy(), _as_np(out), dtype)
+    # the stash itself against the Pallas stash forward
+    _, jqkv, jprobs = jab._pallas_fwd_stash(
+        j[0], j[1].reshape(1, -1), j[2].reshape(1, -1), j[3], j[4].reshape(1, -1), j[5],
+        j[6].reshape(1, -1), 4, 4, True)
+    assert qkv.shape == (4, 17, 192) and probs.shape == (4, 4, 17, 17)
+    _assert_close(qkv.float().numpy(), _as_np(jqkv), dtype)
+    _assert_close(probs.float().numpy(), _as_np(jprobs), dtype)
+    got = tab.attn_block_bwd_stash_plain(t[0], t[1], t[2], t[3], t[5], qkv, probs, tg, 4)
+    for name, a, b, leaf in zip(_GRADS["attn"], got, want, t):
+        assert a.dtype == leaf.dtype and a.shape == leaf.shape, name
+        _assert_close(a.float().numpy(), _as_np(b), dtype, TOL_BWD)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mlp_bwd_plain_matches_jax_vjp(dtype):
+    j, t, jg, tg = _train_inputs("mlp", dtype, seed=22)
+    _, vjp = jax.vjp(lambda *a: jmb.fused_mlp_block(*a, 4, True, False), *j)
+    want = vjp(jg)
+    got = tmb.mlp_block_bwd_plain(*t[:6], tg)
+    for name, a, b, leaf in zip(_GRADS["mlp"], got, want, t):
+        assert a.dtype == leaf.dtype and a.shape == leaf.shape, name
+        _assert_close(a.float().numpy(), _as_np(b), dtype, TOL_BWD)
+
+
+@pytest.mark.parametrize("kind", ["attn", "mlp"])
+def test_autograd_functions_take_plain_versions_on_cpu(kind):
+    """``fused_*`` with grad on CPU tensors: the Function's backward equals the
+    plain backward exactly, and nothing is launched."""
+    _, t, _, tg = _train_inputs(kind, "bfloat16", seed=23)
+    leaves = [a.detach().clone().requires_grad_() for a in t]
+    counters = (tab.fused_attn_block, tab.attn_block_fwd_stash, tab.attn_block_bwd_stash,
+                tmb.fused_mlp_block, tmb.mlp_block_bwd)
+    before = [f.launches for f in counters]
+    if kind == "attn":
+        out = tab.fused_attn_block(*leaves, 4)
+        want = tab.attn_block_bwd_stash_plain(t[0], t[1], t[2], t[3], t[5],
+                                              *tab.attn_block_fwd_stash_plain(*t, 4)[1:], tg, 4)
+    else:
+        out = tmb.fused_mlp_block(*leaves)
+        want = tmb.mlp_block_bwd_plain(*t[:6], tg)
+    out.backward(tg)
+    got = [leaf.grad for leaf in leaves]
+    for name, a, b in zip(_GRADS[kind], got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=0, msg=name)
+    assert [f.launches for f in counters] == before
+
+
+def test_unported_backwards_differentiate_the_plain_versions_on_cpu():
+    """``stash=False`` (attention) and ``stash=True`` (MLP) need TPU kernels
+    not ported yet; on the CPU they run through autograd of the plain
+    forwards, which in fp32 gives the same gradients as the kernels' path."""
+    for kind, kw, alt in (("attn", {"stash": False}, {}), ("mlp", {"stash": True}, {})):
+        _, t, _, tg = _train_inputs(kind, "float32", seed=24)
+        fn = (lambda *a, **k: tab.fused_attn_block(*a, 4, **k)) if kind == "attn" else tmb.fused_mlp_block
+        grads = []
+        for opts in (kw, alt):
+            leaves = [a.detach().clone().requires_grad_() for a in t]
+            fn(*leaves, **opts).backward(tg)
+            grads.append([leaf.grad for leaf in leaves])
+        for name, a, b in zip(_GRADS[kind], *grads):
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=TOL_F32, msg=f"{kind} {name}")
