@@ -8,16 +8,19 @@ failing loudly (any failure exits non-zero and prints no result line):
 
 1. device: card name and power limit; TF32 off for the plain fp32 products;
 2. build: nvcc builds the CUDA kernels (attention block forward and stash
-   forward, attention stash backward, MLP block forward, MLP backward) from
-   the sources in the checkout, one nvcc per source, all at once; Triton
-   compiles the bank scorer;
+   forward; attention stash and recompute backward; MLP block forward and
+   stash forward; MLP recompute and stash backward) from the sources in the
+   checkout, one nvcc per source, all at once; Triton compiles the bank
+   scorer;
 3. kernel parity, each kernel against its plain PyTorch version on the same
    inputs: the serving kernels at the serving path's shapes (ViT-B: N=65,
    D=768, H=12, F=3072 at B=64 and B=1024; a 1M x 768 bank in bf16 and fp32),
    max|a-b|/max|b| within the bars of tools/kernel_parity.py (2e-2; bank fp32
-   5e-3); the training kernels at ``mim_1`` training shapes (B=64, B=512 and
-   the ragged B=63), every output (out, qkv, probs; the seven gradients)
-   within TOL_BWD = 3e-2 and finite;
+   5e-3); the training kernels at their paths' shapes, every output within
+   TOL_BWD = 3e-2 and finite: kernels 2, 3, 8 at ``mim_1`` (B=64, 512 and
+   the ragged 63), kernels 6, 7 at ``mim_25_large`` (ViT-L, N=65, D=768,
+   F=3072; B=64, 512, 63), kernel 4 at ``mim_32`` (ViT-L with the RA/Dec
+   token, N=66, D=1024, H=16; B=32, 256, 31);
 4. the serving path, through the entry points ``similarity_search`` calls, on
    ``configs/mim_1.ini`` (SimMIM ViT-B, bf16, full depth, seeded weights) and
    synthetic cutouts with whole-band NaNs: ``extract_latents`` of 2 targets
@@ -26,17 +29,28 @@ failing loudly (any failure exits non-zero and prints no result line):
    ``weighted_bank_scores`` / ``bank_topk`` on a seeded 1M x 768 bf16 bank.
    Launch counters are zeroed just before and read just after; the kernel
    path's tokens and top-300 are compared with the plain path on the card;
-5. the training path, through the entry points ``pretrain_mim`` calls:
-   ``MIMPretrainer`` on ``configs/mim_1.ini`` (full ViT-B, depth 12, bf16,
-   batch 64, seeded weights) on synthetic cutouts with whole-band NaNs: 20
-   ``train_batch`` steps, a validation pass of 4 ``eval_batch`` calls, then
-   ``save`` and ``restore`` into a fresh trainer (params and optimizer state
-   bit-equal). Counters zeroed just before, read just after: each training
-   kernel 12 x 20 launches, K1 12 x 24, K2 12 x 4. Then the kernel path
-   against the plain path on the card from the same params and masks: one
-   step's loss and per-leaf gradients, and the losses of 5 steps;
-6. times with CUDA events after warm-up: per kernel, the encoder, the train
-   step at B=64 and B=512, queries; torch.profiler device breakdowns.
+5. the training paths, through the entry points ``pretrain_mim`` calls
+   (``MIMPretrainer.train_batch`` / ``eval_batch``), bf16, full width and
+   depth, seeded weights, synthetic cutouts with whole-band NaNs. Counters
+   are zeroed just before each path and read just after:
+   - ``configs/mim_1.ini`` (ViT-B, depth 12, batch 64): 20 steps, 4
+     validation batches, then ``save`` and ``restore`` into a fresh trainer
+     (params and optimizer state bit-equal); kernels 2, 3 and 8 at 12 x 20
+     launches, K1 12 x 24, K2 12 x 4;
+   - ``configs/mim_25_large.ini`` (ViT-L, D=768, depth 24, batch 64, the
+     MLP stash): 10 steps, 2 validation batches; kernels 2, 3, 6 and 7 at
+     24 x 10, K1 and K2 at 24 x 2, kernels 4 and 8 at 0;
+   - ``configs/mim_32.ini`` (ViT-L, D=1024, depth 24, 9 bands, the RA/Dec
+     token, batch 32, remat): 10 steps, 2 validation batches; kernels 4 and 8
+     at 24 x 10, K1 and K2 at 24 x (2 x 10 + 2), the stash kernels at 0; and
+     the gradients with remat bit-equal to those of the same model without
+     remat (both stashes off).
+   For each config, the kernel path against the plain path on the card from
+   the same params and masks: one step's loss and per-leaf gradients, and
+   the losses of 5 steps; then train-step times, device busy share and peak
+   memory;
+6. times with CUDA events after warm-up: per kernel at its path's shapes,
+   the encoder, queries; torch.profiler device breakdowns.
 
 Lines before the last: the nvidia-smi name/power line, one line per check,
 JSON lines of results (``{"kernels": [...]}`` among them). The last line is
@@ -76,6 +90,15 @@ TOL_TOKENS = 5e-2
 # masking or layout fault in a backward gives O(1) errors.
 TOL_GRAD = 2.5e-2
 TOL_LOSS = 4e-4
+# the same at ViT-L depth 24, where the flips compound through twice the
+# layers. Measured on the H100 (PERF.md): mim_25_large gradients
+# 9.4e-3 at worst (patch_embed.proj.kernel; median 4.1e-3), one step's loss
+# 1.1e-6, five steps' losses 2.4e-4; mim_32 gradients 3.1e-2 at worst (the
+# RA/Dec SIREN's first layer, whose sin(30 x) scales every flip by 30;
+# median 5.3e-3), loss 3.8e-5, five steps 3.6e-4. The bars are about twice
+# those, per config.
+TOL_GRAD_L, TOL_LOSS_L = 2e-2, 5e-4
+TOL_GRAD_R, TOL_LOSS_R = 6e-2, 8e-4
 
 CONFIG = "mim_1"
 DEVICE = "cuda"
@@ -85,6 +108,12 @@ N_BATCHES, BATCH = 32, 64
 N_AUG, N_SAVE = 64, 300
 TRAIN_STEPS, VAL_BATCHES, TRAJ_STEPS = 20, 4, 5
 TRAIN_B = (64, 512, 63)  # the config's batch, a large one, a ragged one
+# the ViT-L training paths: (config, steps, validation batches, kernel-parity
+# batches: the config's, a large one, a ragged one); their shapes come from
+# the configs (mim_25_large: N=65, D=768, H=16, F=3072; mim_32: the RA/Dec
+# token makes N=66, D=1024, H=16, F=4096)
+LARGE = ("mim_25_large", 10, 2, (64, 512, 63))
+REMAT = ("mim_32", 10, 2, (32, 256, 31))
 
 
 def check(ok: bool, what: str) -> None:
@@ -104,14 +133,16 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; needs a CUDA card", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
-    from sky_embeddings_tpu_torch.configuration import load_config
+    from sky_embeddings_tpu_torch.configuration import Config, load_config
     from sky_embeddings_tpu_torch.data.synthetic import make_cutouts
     from sky_embeddings_tpu_torch.eval.bank import EmbeddingBank, build_bank
-    from sky_embeddings_tpu_torch.eval.eval_fns import extract_latents
+    from sky_embeddings_tpu_torch.eval.eval_fns import batch_ra_dec, extract_latents
     from sky_embeddings_tpu_torch.eval.simsearch import mim_simsearch
     from sky_embeddings_tpu_torch.models.mim import build_mim_model
     from sky_embeddings_tpu_torch.ops.kernels import cuda_build
     from sky_embeddings_tpu_torch.ops.kernels.attn_block import (
+        attn_block_bwd,
+        attn_block_bwd_plain,
         attn_block_bwd_stash,
         attn_block_bwd_stash_plain,
         attn_block_fwd_stash,
@@ -123,6 +154,10 @@ def main() -> int:
         fused_mlp_block,
         mlp_block_bwd,
         mlp_block_bwd_plain,
+        mlp_block_bwd_stash,
+        mlp_block_bwd_stash_plain,
+        mlp_block_fwd_stash,
+        mlp_block_fwd_stash_plain,
         mlp_block_plain,
     )
     from sky_embeddings_tpu_torch.train.pretrain import MIMPretrainer
@@ -168,12 +203,12 @@ def main() -> int:
         a, b = a.float(), b.float()
         return float((a - b).abs().max()) / (float(b.abs().max()) + 1e-12), float((a - b).abs().max())
 
-    def block_args(kind_, B):
-        x = (torch.randn(B, N_TOK, D, generator=gen, device=dev) * 0.5).to(torch.bfloat16)
-        scale = 1.0 + 0.1 * torch.randn(D, generator=gen, device=dev)
-        bias = 0.1 * torch.randn(D, generator=gen, device=dev)
-        (d_in, d_mid) = (D, 3 * D) if kind_ == "attn" else (D, F)
-        (e_in, e_out) = (D, D) if kind_ == "attn" else (F, D)
+    def block_args(kind_, B, n=N_TOK, d=D, f=F):
+        x = (torch.randn(B, n, d, generator=gen, device=dev) * 0.5).to(torch.bfloat16)
+        scale = 1.0 + 0.1 * torch.randn(d, generator=gen, device=dev)
+        bias = 0.1 * torch.randn(d, generator=gen, device=dev)
+        (d_in, d_mid) = (d, 3 * d) if kind_ == "attn" else (d, f)
+        (e_in, e_out) = (d, d) if kind_ == "attn" else (f, d)
         wa = (torch.randn(d_in, d_mid, generator=gen, device=dev) * d_in ** -0.5).to(torch.bfloat16)
         ba = 0.01 * torch.randn(d_mid, generator=gen, device=dev)
         wb = (torch.randn(e_in, e_out, generator=gen, device=dev) * e_in ** -0.5).to(torch.bfloat16)
@@ -275,21 +310,7 @@ def main() -> int:
                               3 * M * D * 2 + 2 * w_mlp + (2 * D + F) * 4 + (3 * D + F) * 4),
         }
 
-    for B in TRAIN_B:
-        x, scale, bias, wq, bq, wp, bp = block_args("attn", B)
-        x1, s1, b1_, w1, bb1, w2, _ = block_args("mlp", B)
-        g = (torch.randn(B, N_TOK, D, generator=gen, device=dev) * 0.1).to(torch.bfloat16)
-        _, qkv_p, probs_p = attn_block_fwd_stash_plain(x, scale, bias, wq, bq, wp, bp, H)
-        cases = (
-            ("attn_block_fwd_stash", attn_block_fwd_stash, attn_block_fwd_stash_plain,
-             (x, scale, bias, wq, bq, wp, bp, H), ("out", "qkv", "probs")),
-            ("attn_block_bwd_stash", attn_block_bwd_stash, attn_block_bwd_stash_plain,
-             (x, scale, bias, wq, wp, qkv_p, probs_p, g, H),
-             ("dx", "dscale", "dbias", "dwqkv", "dbqkv", "dwproj", "dbproj")),
-            ("mlp_block_bwd", mlp_block_bwd, mlp_block_bwd_plain, (x1, s1, b1_, w1, bb1, w2, g),
-             ("dx", "dscale", "dbias", "dw1", "db1", "dw2", "db2")),
-        )
-        bounds = train_bounds(B)
+    def run_cases(cases, B, bounds, timed):
         for name, kern, plain, args, outs in cases:
             got, want = kern(*args), plain(*args)
             torch.cuda.synchronize()
@@ -300,18 +321,73 @@ def main() -> int:
                   + ", ".join(f"{o} {r:.2e}" for o, (r, _) in errs.items())
                   + f" (bar {TOL_BWD}), finite {finite}", flush=True)
             check(finite and worst <= TOL_BWD, f"{name} B={B} parity")
-            if B == 63:
-                continue
-            iters = 20 if B == 64 else 5
-            b_ms, b_by = bound_ms(*bounds[name], PEAK_BF16)
-            timings[(name, B)] = {
-                "max_rel_err": worst, "max_abs_err": max(a for _, a in errs.values()),
-                "ms": cuda_ms(lambda: kern(*args), iters),
-                "plain_ms": cuda_ms(lambda: plain(*args), max(iters // 4, 2)),
-                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-            }
+            if timed:
+                iters = 20 if B <= 64 else 5
+                b_ms, b_by = bound_ms(*bounds[name], PEAK_BF16)
+                timings[(name, B)] = {
+                    "max_rel_err": worst, "max_abs_err": max(a for _, a in errs.values()),
+                    "ms": cuda_ms(lambda: kern(*args), iters),
+                    "plain_ms": cuda_ms(lambda: plain(*args), max(iters // 4, 2)),
+                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                }
             del got, want
+
+    grads_attn = ("dx", "dscale", "dbias", "dwqkv", "dbqkv", "dwproj", "dbproj")
+    grads_mlp = ("dx", "dscale", "dbias", "dw1", "db1", "dw2", "db2")
+    for B in TRAIN_B:
+        x, scale, bias, wq, bq, wp, bp = block_args("attn", B)
+        x1, s1, b1_, w1, bb1, w2, _ = block_args("mlp", B)
+        g = (torch.randn(B, N_TOK, D, generator=gen, device=dev) * 0.1).to(torch.bfloat16)
+        _, qkv_p, probs_p = attn_block_fwd_stash_plain(x, scale, bias, wq, bq, wp, bp, H)
+        cases = (
+            ("attn_block_fwd_stash", attn_block_fwd_stash, attn_block_fwd_stash_plain,
+             (x, scale, bias, wq, bq, wp, bp, H), ("out", "qkv", "probs")),
+            ("attn_block_bwd_stash", attn_block_bwd_stash, attn_block_bwd_stash_plain,
+             (x, scale, bias, wq, wp, qkv_p, probs_p, g, H), grads_attn),
+            ("mlp_block_bwd", mlp_block_bwd, mlp_block_bwd_plain, (x1, s1, b1_, w1, bb1, w2, g),
+             grads_mlp),
+        )
+        run_cases(cases, B, train_bounds(B), B != 63)
         del x, qkv_p, probs_p, g, cases, x1
+
+    # the ViT-L paths' kernels at their configs' shapes: the MLP stash
+    # forward and backward (mim_25_large), the attention recompute backward
+    # (mim_32). The stash backward takes the plain stash forward's a.
+    def vitl_bounds(B, n, d, h, f):
+        M, hd = B * n, d // h
+        return {
+            "mlp_block_fwd_stash": (4 * M * d * f,
+                                    2 * M * d * 2 + M * f * 2 + 2 * d * f * 2 + (3 * d + f) * 4),
+            "mlp_block_bwd_stash": (8 * M * d * f,
+                                    3 * M * d * 2 + M * f * 2 + 4 * d * f * 2 + (5 * d + f) * 4),
+            "attn_block_bwd": (22 * M * d * d + 12 * B * h * n * n * hd,
+                               3 * M * d * 2 + 8 * d * d * 2 + (5 * d + 6 * d) * 4),
+        }
+
+    cfg_l, cfg_r = (load_config(c[0], os.path.join(ROOT, "configs")) for c in (LARGE, REMAT))
+    shape_l = (N_TOK, cfg_l.architecture.int("embed_dim"), 16)
+    shape_r = (N_TOK + 1, cfg_r.architecture.int("embed_dim"), 16)  # + the RA/Dec token
+    for B in LARGE[3]:
+        n, d, h = shape_l
+        x, s_, b_, w1, bb1, w2, bb2 = block_args("mlp", B, n, d, 4 * d)
+        g = (torch.randn(B, n, d, generator=gen, device=dev) * 0.1).to(torch.bfloat16)
+        _, a_p = mlp_block_fwd_stash_plain(x, s_, b_, w1, bb1, w2, bb2)
+        cases = (
+            ("mlp_block_fwd_stash", mlp_block_fwd_stash, mlp_block_fwd_stash_plain,
+             (x, s_, b_, w1, bb1, w2, bb2), ("out", "a")),
+            ("mlp_block_bwd_stash", mlp_block_bwd_stash, mlp_block_bwd_stash_plain,
+             (x, s_, b_, w1, w2, a_p, g), grads_mlp),
+        )
+        run_cases(cases, B, vitl_bounds(B, n, d, h, 4 * d), B != LARGE[3][-1])
+        del x, g, a_p, cases
+    for B in REMAT[3]:
+        n, d, h = shape_r
+        x, s_, b_, wq, bq, wp, _ = block_args("attn", B, n, d)
+        g = (torch.randn(B, n, d, generator=gen, device=dev) * 0.1).to(torch.bfloat16)
+        cases = (("attn_block_bwd", attn_block_bwd, attn_block_bwd_plain,
+                  (x, s_, b_, wq, bq, wp, g, h), grads_attn),)
+        run_cases(cases, B, vitl_bounds(B, n, d, h, 4 * d), B != REMAT[3][-1])
+        del x, g, cases
     torch.cuda.empty_cache()
 
     # ---- 4. serving path ------------------------------------------------------
@@ -333,9 +409,15 @@ def main() -> int:
     target_batches = as_batches(tdata, 2)
 
     counters = (fused_attn_block, fused_mlp_block, weighted_bank_scores, attn_block_fwd_stash,
-                attn_block_bwd_stash, mlp_block_bwd)
-    for fn in counters:
-        fn.launches = 0
+                attn_block_bwd_stash, mlp_block_bwd, attn_block_bwd, mlp_block_fwd_stash,
+                mlp_block_bwd_stash)
+    training_kernels = [f.__name__ for f in counters[3:]]
+
+    def zero_counters():
+        for fn in counters:
+            fn.launches = 0
+
+    zero_counters()
     torch.cuda.synchronize()
     t_main = time.perf_counter()
     target_latent = extract_latents(
@@ -367,8 +449,7 @@ def main() -> int:
     check(launches["fused_attn_block"] == n_layers * encoder_calls, "attn launches = 12 x encoder calls")
     check(launches["fused_mlp_block"] == n_layers * encoder_calls, "mlp launches = 12 x encoder calls")
     check(launches["weighted_bank_scores"] >= queries, "bank-scorer launches >= queries")
-    check(launches["attn_block_fwd_stash"] == launches["attn_block_bwd_stash"]
-          == launches["mlp_block_bwd"] == 0, "serving launches no training kernel")
+    check(all(launches[k] == 0 for k in training_kernels), "serving launches no training kernel")
     check(bool((top_v[:-1] >= top_v[1:]).all()), "top-k sorted")
 
     # kernel path vs plain path on the card
@@ -386,92 +467,10 @@ def main() -> int:
           f"(bar {TOL_TOKENS}), max-abs {tok_abs:.3e}; top-{N_SAVE} overlap {overlap}/{N_SAVE}", flush=True)
     check(tok_rel <= TOL_TOKENS, "encoder tokens kernel vs plain")
 
-    # ---- 5. training path ---------------------------------------------------
+    # ---- 5. training paths ----------------------------------------------------
     del bank
     torch.cuda.empty_cache()
-    tdata = make_cutouts((TRAIN_STEPS + VAL_BATCHES) * BATCH, seed=3, **geom)
-    check(bool(np.isnan(tdata["cutouts"]).any()), "training cutouts hold NaN bands")
-    train_batches = as_batches(tdata, BATCH)
-    trainer = MIMPretrainer(cfg, dtype=torch.bfloat16, seed=0, device=dev)
-    check(trainer.batch_size == BATCH and trainer.model.encoder.depth == 12
-          and trainer.model.embed_dim == D, "mim_1 trains ViT-B at batch 64")
-    for fn in counters:
-        fn.launches = 0
-    torch.cuda.synchronize()
-    t_train = time.perf_counter()
-    train_losses = [trainer.train_batch(b) for b in train_batches[:TRAIN_STEPS]]
-    val_losses = [trainer.eval_batch(b, idx=i) for i, b in enumerate(train_batches[TRAIN_STEPS:])]
-    torch.cuda.synchronize()
-    t_train = time.perf_counter() - t_train
-    train_launches = {f.__name__: f.launches for f in counters}
-    train_losses = [float(v) for v in train_losses]
-    val_losses = [float(v) for v in val_losses]
-    print(f"training path: {TRAIN_STEPS} steps + {VAL_BATCHES} val batches in {t_train:.2f} s, "
-          f"launches {train_launches}", flush=True)
-    print(f"train losses {[round(v, 4) for v in train_losses]}; val {[round(v, 4) for v in val_losses]}",
-          flush=True)
-    check(all(np.isfinite(train_losses + val_losses)), "training and validation losses finite")
-    for name in ("attn_block_fwd_stash", "attn_block_bwd_stash", "mlp_block_bwd"):
-        check(train_launches[name] == n_layers * TRAIN_STEPS, f"{name} launches = 12 x train steps")
-    check(train_launches["fused_mlp_block"] == n_layers * (TRAIN_STEPS + VAL_BATCHES),
-          "K1 launches = 12 x (train steps + val batches)")
-    check(train_launches["fused_attn_block"] == n_layers * VAL_BATCHES, "K2 launches = 12 x val batches")
-    check(train_launches["weighted_bank_scores"] == 0, "training launches no bank scorer")
 
-    ckpt_path = os.path.join(ROOT, "models", "chip_smoke_mim_1.ckpt.pt")  # gitignored
-    trainer.save(ckpt_path)
-    restored = MIMPretrainer(cfg, dtype=torch.bfloat16, seed=1, device=dev)
-    check(restored.restore(ckpt_path), "restore found the checkpoint")
-    same_params = all(torch.equal(a, b) for a, b in zip(trainer.model.state_dict().values(),
-                                                       restored.model.state_dict().values()))
-    sa, sb = trainer.optimizer.state_dict()["state"], restored.optimizer.state_dict()["state"]
-    same_opt = sa.keys() == sb.keys() and all(
-        torch.equal(sa[k][f], sb[k][f].to(sa[k][f].device)) for k in sa for f in sa[k])
-    same_rng = torch.equal(trainer.mask_gen.get_state(), restored.mask_gen.get_state())
-    ckpt_mb = os.path.getsize(ckpt_path) / 2**20
-    os.remove(ckpt_path)
-    print(f"save/restore: {ckpt_mb:.0f} MB, params bit-equal {same_params}, optimizer state "
-          f"bit-equal {same_opt}, mask rng equal {same_rng}, step {restored.cur_iter}", flush=True)
-    check(same_params and same_opt and same_rng and restored.cur_iter == TRAIN_STEPS,
-          "save/restore round trip")
-    del restored
-    torch.cuda.empty_cache()
-
-    # kernel path vs plain path on the card, from the same params and masks
-    pair = [MIMPretrainer(cfg, dtype=torch.bfloat16, seed=0, device=dev) for _ in range(2)]
-    pair[1].model.encoder.plain = True
-    mgen = torch.Generator(device=dev).manual_seed(7)
-    masks = [pair[0].draw_mask(BATCH, mgen) for _ in range(TRAJ_STEPS)]
-    x0 = torch.as_tensor(train_batches[0]["cutouts"], device=dev).clamp_min(trainer.pixel_min)
-    step_grads, step_loss = [], []
-    for tr in pair:
-        loss = tr.model(x0, masks[0])[0]
-        loss.backward()
-        step_loss.append(float(loss.detach()))
-        step_grads.append({n: p.grad.float().clone() for n, p in tr.model.named_parameters()
-                           if p.grad is not None})
-        tr.optimizer.zero_grad(set_to_none=True)
-    grad_rel = {n: float((a - step_grads[1][n]).norm() / (step_grads[1][n].norm() + 1e-30))
-                for n, a in step_grads[0].items()}
-    worst_leaf = max(grad_rel, key=grad_rel.get)
-    loss_rel = abs(step_loss[0] - step_loss[1]) / abs(step_loss[1])
-    traj = [[float(tr.train_batch(b, mask=m)) for b, m in zip(train_batches, masks)] for tr in pair]
-    traj_rel = max(abs(a - b) / abs(b) for a, b in zip(*traj))
-    print(f"training kernel vs plain path (B=64, 12 layers): loss rel {loss_rel:.3e}; gradient "
-          f"||a-b||/||b|| max {grad_rel[worst_leaf]:.3e} ({worst_leaf}), median "
-          f"{float(np.median(list(grad_rel.values()))):.3e} over {len(grad_rel)} leaves "
-          f"(bar {TOL_GRAD}); {TRAJ_STEPS}-step losses kernel {[round(v, 5) for v in traj[0]]} "
-          f"plain {[round(v, 5) for v in traj[1]]}, max rel {traj_rel:.3e} (bar {TOL_LOSS})",
-          flush=True)
-    check(len(grad_rel) == sum(1 for n, _ in trainer.model.named_parameters() if n != "mask_token"),
-          "every parameter but mask_token gets a gradient")
-    check(all(np.isfinite(list(grad_rel.values()))), "gradients finite")
-    check(grad_rel[worst_leaf] <= TOL_GRAD, "gradients kernel vs plain")
-    check(loss_rel <= TOL_LOSS and traj_rel <= TOL_LOSS, "losses kernel vs plain")
-    del pair, step_grads
-    torch.cuda.empty_cache()
-
-    # ---- 6. times -------------------------------------------------------------
     def device_breakdown(fn, reps=3):
         """Device time by kernel name over ``reps`` calls (torch.profiler /
         CUPTI) and the device-busy share of the same window's wall time."""
@@ -498,6 +497,214 @@ def main() -> int:
         top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:14])
         return {"device_ms_per_call": busy, "busy_share": busy / (wall_ms / reps), "top_ms": top}
 
+    def ra_dec_of(model_, batch):
+        return batch_ra_dec(batch, dev) if model_.ra_dec else None
+
+    def training_phase(cfg_, steps, val, expect, tol_grad, tol_loss, time_batches, seed,
+                       extra=None):
+        """One config's training path: ``steps`` train steps and ``val``
+        validation batches with the launch counts ``expect`` (kernel ->
+        launches per layer per step, per validation batch); ``extra``
+        (trainer, batches) runs config-specific checks; then the kernel path
+        against the plain path and train-step times at ``time_batches``."""
+        tag = cfg_.name
+        trainer = MIMPretrainer(cfg_, dtype=torch.bfloat16, seed=0, device=dev)
+        m = trainer.model
+        bs = trainer.batch_size
+        layers = m.encoder.depth
+        gdata = make_cutouts((steps + val) * bs, seed=seed, channels=m.in_chans, img_size=m.img_size)
+        check(bool(np.isnan(gdata["cutouts"]).any()), f"{tag}: training cutouts hold NaN bands")
+        tbatches = as_batches(gdata, bs)
+        zero_counters()
+        torch.cuda.synchronize()
+        t_run = time.perf_counter()
+        train_losses = [trainer.train_batch(b) for b in tbatches[:steps]]
+        val_losses = [trainer.eval_batch(b, idx=i) for i, b in enumerate(tbatches[steps:])]
+        torch.cuda.synchronize()
+        t_run = time.perf_counter() - t_run
+        run_launches = {f.__name__: f.launches for f in counters}
+        train_losses = [float(v) for v in train_losses]
+        val_losses = [float(v) for v in val_losses]
+        print(f"training path {tag} (D={m.embed_dim}, depth {layers}, batch {bs}, remat "
+              f"{m.encoder.remat}, ra_dec {m.ra_dec}): {steps} steps + {val} val batches in "
+              f"{t_run:.2f} s, launches {run_launches}", flush=True)
+        print(f"{tag} train losses {[round(v, 4) for v in train_losses]}; "
+              f"val {[round(v, 4) for v in val_losses]}", flush=True)
+        check(all(np.isfinite(train_losses + val_losses)), f"{tag}: losses finite")
+        for name_ in run_launches:
+            per_step, per_val = expect.get(name_, (0, 0))
+            want_n = layers * (per_step * steps + per_val * val)
+            check(run_launches[name_] == want_n,
+                  f"{tag}: {name_} launches {run_launches[name_]} == {layers} x "
+                  f"({per_step} x {steps} + {per_val} x {val}) = {want_n}")
+        result = {"layers": layers, "embed_dim": m.embed_dim, "batch": bs, "channels": m.in_chans,
+                  "remat": m.encoder.remat, "ra_dec": m.ra_dec,
+                  "seconds": t_run, "steps": steps, "val_batches": val, "launches": run_launches,
+                  "train_losses": train_losses, "val_losses": val_losses}
+        if extra is not None:
+            result.update(extra(trainer, tbatches))
+
+        # kernel path vs plain path on the card, from the same params and masks
+        pair = [MIMPretrainer(cfg_, dtype=torch.bfloat16, seed=0, device=dev) for _ in range(2)]
+        pair[1].model.encoder.plain = True
+        mgen = torch.Generator(device=dev).manual_seed(7)
+        masks = [pair[0].draw_mask(bs, mgen) for _ in range(TRAJ_STEPS)]
+        x0 = torch.as_tensor(tbatches[0]["cutouts"], device=dev).clamp_min(trainer.pixel_min)
+        step_grads, step_loss = [], []
+        for tr in pair:
+            loss = tr.model(x0, masks[0], ra_dec=ra_dec_of(tr.model, tbatches[0]))[0]
+            loss.backward()
+            step_loss.append(float(loss.detach()))
+            step_grads.append({n: p.grad.float().clone() for n, p in tr.model.named_parameters()
+                               if p.grad is not None})
+            tr.optimizer.zero_grad(set_to_none=True)
+        grad_rel = {n: float((a - step_grads[1][n]).norm() / (step_grads[1][n].norm() + 1e-30))
+                    for n, a in step_grads[0].items()}
+        worst_leaf = max(grad_rel, key=grad_rel.get)
+        loss_rel = abs(step_loss[0] - step_loss[1]) / abs(step_loss[1])
+        traj = [[float(tr.train_batch(b, mask=mk)) for b, mk in zip(tbatches, masks)] for tr in pair]
+        traj_rel = max(abs(a - b) / abs(b) for a, b in zip(*traj))
+        print(f"{tag} training kernel vs plain path (B={bs}, {layers} layers): loss rel "
+              f"{loss_rel:.3e}; gradient ||a-b||/||b|| max {grad_rel[worst_leaf]:.3e} ({worst_leaf}), "
+              f"median {float(np.median(list(grad_rel.values()))):.3e} over {len(grad_rel)} leaves "
+              f"(bar {tol_grad}); {TRAJ_STEPS}-step losses kernel {[round(v, 5) for v in traj[0]]} "
+              f"plain {[round(v, 5) for v in traj[1]]}, max rel {traj_rel:.3e} (bar {tol_loss})",
+              flush=True)
+        check(len(grad_rel) == sum(1 for n, _ in m.named_parameters() if n != "mask_token"),
+              f"{tag}: every parameter but mask_token gets a gradient")
+        check(all(np.isfinite(list(grad_rel.values()))), f"{tag}: gradients finite")
+        check(grad_rel[worst_leaf] <= tol_grad, f"{tag}: gradients kernel vs plain")
+        check(loss_rel <= tol_loss and traj_rel <= tol_loss, f"{tag}: losses kernel vs plain")
+        result.update({
+            "loss_rel_vs_plain": loss_rel, "grad_rel_vs_plain_max": grad_rel[worst_leaf],
+            "grad_rel_worst_leaf": worst_leaf,
+            "grad_rel_vs_plain_median": float(np.median(list(grad_rel.values()))),
+            "trajectory_kernel": traj[0], "trajectory_plain": traj[1], "trajectory_max_rel": traj_rel,
+        })
+        del pair, step_grads
+        torch.cuda.empty_cache()
+
+        # train-step times at the config's batch (and larger ones)
+        timg = np.concatenate([b["cutouts"] for b in tbatches])
+        trd = np.concatenate([b["ra_dec"] for b in tbatches])
+        step_t = {}
+        for B_, iters in time_batches:
+            reps = -(-B_ // len(timg))
+            tb = {"cutouts": torch.as_tensor(np.concatenate([timg] * reps)[:B_], device=dev),
+                  "ra_dec": np.concatenate([trd] * reps)[:B_]}
+            ms = cuda_ms(lambda: trainer.train_batch(tb), iters, warmup=2)
+            held = torch.cuda.memory_allocated() / 1e9  # other phases' tensors included
+            torch.cuda.reset_peak_memory_stats()
+            trainer.train_batch(tb)
+            prof = device_breakdown(lambda: trainer.train_batch(tb), reps=2)
+            dev_ms = prof["device_ms_per_call"]
+            # kernel time per step over the event-timed step: the profiled
+            # window's own busy_share is lower, the profiler adding host time
+            busy = dev_ms / ms if isinstance(dev_ms, float) else "not measured"
+            step_t[f"B={B_}"] = {"ms": ms, "images_per_s": B_ / ms * 1e3, "device_busy_share": busy,
+                                 "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+                                 "held_before_step_gb": held, "profile": prof}
+            print(f"{tag} train step B={B_}: {ms:.2f} ms, {B_ / ms * 1e3:.0f} images/s, peak "
+                  f"{step_t[f'B={B_}']['peak_memory_gb']:.1f} GB ({held:.1f} GB held before the "
+                  f"step), device busy {busy} of the step, {prof.get('busy_share', 'not measured')} "
+                  f"of the profiled window", flush=True)
+        result["train_step"] = step_t
+        del trainer, tb
+        torch.cuda.empty_cache()
+        return result
+
+    def save_restore(trainer, tbatches):
+        """mim_1: the checkpoint restores params, optimizer state and the mask
+        stream bit-equal into a fresh trainer."""
+        ckpt_path = os.path.join(ROOT, "models", "chip_smoke_mim_1.ckpt.pt")  # gitignored
+        trainer.save(ckpt_path)
+        restored = MIMPretrainer(cfg, dtype=torch.bfloat16, seed=1, device=dev)
+        check(restored.restore(ckpt_path), "restore found the checkpoint")
+        same_params = all(torch.equal(a, b) for a, b in zip(trainer.model.state_dict().values(),
+                                                           restored.model.state_dict().values()))
+        sa, sb = trainer.optimizer.state_dict()["state"], restored.optimizer.state_dict()["state"]
+        same_opt = sa.keys() == sb.keys() and all(
+            torch.equal(sa[k][f], sb[k][f].to(sa[k][f].device)) for k in sa for f in sa[k])
+        same_rng = torch.equal(trainer.mask_gen.get_state(), restored.mask_gen.get_state())
+        ckpt_mb = os.path.getsize(ckpt_path) / 2**20
+        os.remove(ckpt_path)
+        print(f"save/restore: {ckpt_mb:.0f} MB, params bit-equal {same_params}, optimizer state "
+              f"bit-equal {same_opt}, mask rng equal {same_rng}, step {restored.cur_iter}", flush=True)
+        check(same_params and same_opt and same_rng and restored.cur_iter == TRAIN_STEPS,
+              "save/restore round trip")
+        return {"checkpoint_mb": ckpt_mb}
+
+    def remat_check(trainer, tbatches):
+        """mim_32: gradients with remat (checkpointed blocks, stashes off) equal,
+        bit for bit, those of the same model stored without remat."""
+        d_ = {sec: dict(cfg_r[sec].items()) for sec in cfg_r.sections()}
+        d_["ARCHITECTURE"].update(stash="False", stash_mlp="False")
+        ref = build_mim_model(Config.from_dict(d_, name="mim_32"), dtype=torch.bfloat16,
+                              device=dev, remat=False)
+        ref.load_state_dict(trainer.model.state_dict())
+        ref.train()
+        check(trainer.model.encoder.remat and not ref.encoder.remat, "remat on, reference off")
+        b = tbatches[0]
+        x0 = torch.as_tensor(b["cutouts"], device=dev).clamp_min(trainer.pixel_min)
+        mk = trainer.draw_mask(x0.shape[0], torch.Generator(device=dev).manual_seed(11))
+        grads, losses = [], []
+        for mod in (trainer.model, ref):
+            mod.zero_grad(set_to_none=True)
+            loss = mod(x0, mk, ra_dec=ra_dec_of(mod, b))[0]
+            loss.backward()
+            losses.append(loss.detach())
+            grads.append({n: p.grad.clone() for n, p in mod.named_parameters() if p.grad is not None})
+            mod.zero_grad(set_to_none=True)
+        same = grads[0].keys() == grads[1].keys() and all(
+            torch.equal(grads[0][n], grads[1][n]) for n in grads[0])
+        print(f"remat vs stored (mim_32, one step): loss bit-equal {torch.equal(*losses)}, "
+              f"{len(grads[0])} gradients bit-equal {same}", flush=True)
+        check(torch.equal(*losses) and same, "remat gradients bit-equal to the stored path")
+
+        # what remat costs: forward + backward time and peak memory, each way
+        def fwd_bwd(mod):
+            mod(x0, mk, ra_dec=ra_dec_of(mod, b))[0].backward()
+            mod.zero_grad(set_to_none=True)
+
+        cost = {}
+        for key, mod in (("remat", trainer.model), ("stored", ref)):
+            ms = cuda_ms(lambda: fwd_bwd(mod), 5, warmup=1)
+            held = torch.cuda.memory_allocated() / 1e9
+            torch.cuda.reset_peak_memory_stats()
+            fwd_bwd(mod)
+            cost[key] = {"fwd_bwd_ms": ms, "peak_above_held_gb":
+                         torch.cuda.max_memory_allocated() / 1e9 - held}
+        print(f"remat cost (mim_32, B={x0.shape[0]}): forward + backward {cost['remat']['fwd_bwd_ms']:.2f} "
+              f"vs {cost['stored']['fwd_bwd_ms']:.2f} ms stored; peak above what is held "
+              f"{cost['remat']['peak_above_held_gb']:.2f} vs {cost['stored']['peak_above_held_gb']:.2f} GB",
+              flush=True)
+        del ref
+        return {"remat_grads_bit_equal": same, "remat_cost": cost}
+
+    # launches per layer: (per train step, per validation batch)
+    expect_b = {"attn_block_fwd_stash": (1, 0), "attn_block_bwd_stash": (1, 0),
+                "mlp_block_bwd": (1, 0), "fused_mlp_block": (1, 1), "fused_attn_block": (0, 1)}
+    expect_l = {"attn_block_fwd_stash": (1, 0), "attn_block_bwd_stash": (1, 0),
+                "mlp_block_fwd_stash": (1, 0), "mlp_block_bwd_stash": (1, 0),
+                "fused_mlp_block": (0, 1), "fused_attn_block": (0, 1)}
+    # remat: each block's forward kernels run again in the backward
+    expect_r = {"attn_block_bwd": (1, 0), "mlp_block_bwd": (1, 0),
+                "fused_mlp_block": (2, 1), "fused_attn_block": (2, 1)}
+    check(cfg.training.int("batch_size") == BATCH, "mim_1 trains at batch 64")
+    paths = {}
+    paths[CONFIG] = training_phase(cfg, TRAIN_STEPS, VAL_BATCHES, expect_b, TOL_GRAD, TOL_LOSS,
+                                   ((64, 10), (512, 3)), seed=3, extra=save_restore)
+    paths[LARGE[0]] = training_phase(cfg_l, LARGE[1], LARGE[2], expect_l, TOL_GRAD_L, TOL_LOSS_L,
+                                     ((64, 10),), seed=4)
+    paths[REMAT[0]] = training_phase(cfg_r, REMAT[1], REMAT[2], expect_r, TOL_GRAD_R, TOL_LOSS_R,
+                                     ((32, 10),), seed=5, extra=remat_check)
+    shapes = {c: tuple(r[k] for k in ("layers", "embed_dim", "batch", "channels", "remat", "ra_dec"))
+              for c, r in paths.items()}
+    check(shapes == {CONFIG: (12, 768, 64, 5, False, False), LARGE[0]: (24, 768, 64, 5, False, False),
+                     REMAT[0]: (24, 1024, 32, 9, True, True)},
+          f"the configs train at full width and depth: {shapes}")
+
+    # ---- 6. times -------------------------------------------------------------
     enc = {}
     with torch.inference_mode():
         for B, iters in ((64, 20), (1024, 5)):
@@ -505,18 +712,6 @@ def main() -> int:
             ms = cuda_ms(lambda: model.encode(imgs), iters, warmup=2)
             enc[B] = {"ms": ms, "images_per_s": B / ms * 1e3,
                       "profile": device_breakdown(lambda: model.encode(imgs))}
-    train_t = {}
-    timg = np.concatenate([b["cutouts"] for b in train_batches])
-    for B, iters in ((64, 10), (512, 3)):
-        tb = {"cutouts": torch.as_tensor(timg[:B], device=dev)}
-        ms = cuda_ms(lambda: trainer.train_batch(tb), iters, warmup=2)
-        torch.cuda.reset_peak_memory_stats()
-        trainer.train_batch(tb)
-        train_t[B] = {"ms": ms, "images_per_s": B / ms * 1e3,
-                      "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
-                      "profile": device_breakdown(lambda: trainer.train_batch(tb), reps=2)}
-        print(f"train step B={B}: {ms:.2f} ms, {B / ms * 1e3:.0f} images/s", flush=True)
-    del trainer, tb
     torch.cuda.empty_cache()
     big = EmbeddingBank(bank_bf16, np.zeros((BANK_ROWS, 2), np.float32), np.zeros(D, np.float32),
                         np.ones(D, np.float32), device=dev)
@@ -540,16 +735,24 @@ def main() -> int:
         "weighted_bank_scores": ("triton", src + "simscore_triton.py", jsrc + "simscore.py:95",
                                  "weighted_bank_scores", "bfloat16"),
         "attn_block_fwd_stash": ("cuda", src + "csrc/attn_block.cu", jsrc + "attn_block.py:940",
-                                 "attn_block_fwd_stash", 64),
+                                 "attn_block_fwd_stash", TRAIN_B[0]),
         "attn_block_bwd_stash": ("cuda", src + "csrc/attn_block_bwd.cu", jsrc + "attn_block.py:988",
-                                 "attn_block_bwd_stash", 64),
+                                 "attn_block_bwd_stash", TRAIN_B[0]),
         "mlp_block_bwd": ("cuda", src + "csrc/mlp_block_bwd.cu", jsrc + "mlp_block.py:834",
-                          "mlp_block_bwd", 64),
+                          "mlp_block_bwd", TRAIN_B[0]),
+        "attn_block_bwd": ("cuda", src + "csrc/attn_block_bwd.cu", jsrc + "attn_block.py:1052",
+                           "attn_block_bwd", REMAT[3][0]),
+        "mlp_block_fwd_stash": ("cuda", src + "csrc/mlp_block.cu", jsrc + "mlp_block.py:687",
+                                "mlp_block_fwd_stash", LARGE[3][0]),
+        "mlp_block_bwd_stash": ("cuda", src + "csrc/mlp_block_bwd.cu", jsrc + "mlp_block.py:774",
+                                "mlp_block_bwd_stash", LARGE[3][0]),
     }
     kernels = []
     for name, (route, source, replaces, counter, shape) in meta.items():
         t = timings[(name, shape)]
-        by_path = {"serving": launches[counter], "training": train_launches[counter]}
+        by_path = {f"serving_{CONFIG}": launches[counter],
+                   **{f"training_{c}": r["launches"][counter] for c, r in paths.items()}}
+        check(sum(by_path.values()) > 0, f"{name} launched on a main path")
         kernels.append({
             "name": name, "route": route, "source": source, "replaces": replaces,
             "launches": sum(by_path.values()), "launches_by_path": by_path,
@@ -557,22 +760,13 @@ def main() -> int:
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
         })
-    emit({"kernel_times": [{"name": n, "shape": s, **v} for (n, s), v in timings.items()]})
+    emit({"kernel_times": [{"name": n, "shape": s_, **v} for (n, s_), v in timings.items()]})
     emit({
         "main_path": {"seconds": t_main, "encoder_calls": encoder_calls, "launches": launches,
                       "tokens_max_rel_vs_plain": tok_rel, "tokens_max_abs_vs_plain": tok_abs,
                       "top300_overlap_vs_plain": overlap},
         "encoder": {f"B={b}": v for b, v in enc.items()},
-        "training_path": {
-            "seconds": t_train, "steps": TRAIN_STEPS, "val_batches": VAL_BATCHES,
-            "launches": train_launches, "train_losses": train_losses, "val_losses": val_losses,
-            "checkpoint_mb": ckpt_mb, "loss_rel_vs_plain": loss_rel,
-            "grad_rel_vs_plain_max": grad_rel[worst_leaf], "grad_rel_worst_leaf": worst_leaf,
-            "grad_rel_vs_plain_median": float(np.median(list(grad_rel.values()))),
-            "trajectory_kernel": traj[0], "trajectory_plain": traj[1],
-            "trajectory_max_rel": traj_rel,
-        },
-        "train_step": {f"B={b}": v for b, v in train_t.items()},
+        "training_paths": paths,
         "bank_1M_bf16": {"query_ms_host": q_host_ms, "queries_per_s": 1e3 / q_host_ms,
                          "bank_topk_ms": topk_ms},
         "build_s": build_s,

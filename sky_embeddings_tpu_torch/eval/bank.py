@@ -21,7 +21,7 @@ from typing import Iterable
 import numpy as np
 import torch
 
-from sky_embeddings_tpu_torch.eval.eval_fns import make_encoder, model_device
+from sky_embeddings_tpu_torch.eval.eval_fns import batch_ra_dec, make_encoder, model_device
 from sky_embeddings_tpu_torch.ops.kernels.simscore import bank_topk
 from sky_embeddings_tpu_torch.ops.similarity import target_features
 from sky_embeddings_tpu_torch.utils.device import resolve_device
@@ -144,8 +144,8 @@ def build_bank(
     device = model_device(model)
     encode = make_encoder(model)
 
-    def pooled(imgs):
-        latent = encode(imgs).float()
+    def pooled(imgs, ra_dec):
+        latent = encode(imgs, ra_dec).float()
         if pool == "cls":
             return latent[:, 0]
         patches = latent[:, n_extra:]
@@ -157,7 +157,7 @@ def build_bank(
     rows, ra_decs = [], []
     for batch in batches:
         imgs = torch.as_tensor(np.asarray(batch["cutouts"]), device=device)
-        rows.append(pooled(imgs).cpu().numpy())
+        rows.append(pooled(imgs, batch_ra_dec(batch, device)).cpu().numpy())
         ra_decs.append(np.asarray(batch["ra_dec"], np.float32))
     if not rows:
         raise ValueError("build_bank received no batches")

@@ -21,14 +21,19 @@ def model_device(model) -> torch.device:
 
 
 def make_encoder(model):
-    """An ``imgs -> tokens`` closure for repeated extraction (the JAX one
-    also takes ra/dec, which only ``ra_dec = True`` models read)."""
+    """An ``(imgs, ra_dec) -> tokens`` closure for repeated extraction;
+    ``ra_dec`` is read only by an ``ra_dec = True`` model."""
 
     @torch.inference_mode()
-    def encode(imgs):
-        return model.encode(imgs)[0]
+    def encode(imgs, ra_dec=None):
+        return model.encode(imgs, ra_dec=ra_dec if model.ra_dec else None)[0]
 
     return encode
+
+
+def batch_ra_dec(batch: dict, device) -> torch.Tensor:
+    """A batch's (B, 2) RA/Dec degrees as fp32 on ``device``."""
+    return torch.as_tensor(np.asarray(batch["ra_dec"], np.float32), device=device)
 
 
 def extract_latents(
@@ -46,8 +51,9 @@ def extract_latents(
     With ``apply_augmentations`` each sample contributes 1 original +
     ``num_augmentations`` augmented copies, interleaved so the copies of one
     sample are adjacent (``(1+A, B, ...) -> (B·(1+A), ...)``, as
-    ``eval_fns.py:173-176``); ``generator`` (seed 0 when None) draws the
-    augmentations. ``remove_prefix`` strips the cls token.
+    ``eval_fns.py:173-176``), each copy with its sample's RA/Dec;
+    ``generator`` (seed 0 when None) draws the augmentations.
+    ``remove_prefix`` strips the cls (and RA/Dec) tokens.
     ``batch_transform`` (tokens -> tensor) is applied per batch before
     accumulation.
     """
@@ -59,10 +65,13 @@ def extract_latents(
     latents, images = [], []
     for batch in batches:
         imgs = torch.as_tensor(np.asarray(batch["cutouts"]), device=device)
+        ra_dec = batch_ra_dec(batch, device) if model.ra_dec else None
         if apply_augmentations:
             reps = [imgs] + [augment_batch(generator, imgs) for _ in range(num_augmentations)]
             imgs = torch.stack(reps, dim=1).reshape(-1, *imgs.shape[1:])
-        tokens = encode(imgs)
+            if ra_dec is not None:
+                ra_dec = ra_dec.repeat_interleave(1 + num_augmentations, dim=0)
+        tokens = encode(imgs, ra_dec)
         if remove_prefix:
             tokens = tokens[:, model.num_extra_tokens:]
         if batch_transform is not None:

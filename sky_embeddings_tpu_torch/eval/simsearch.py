@@ -21,7 +21,7 @@ from typing import Iterable
 import numpy as np
 import torch
 
-from sky_embeddings_tpu_torch.eval.eval_fns import make_encoder, model_device
+from sky_embeddings_tpu_torch.eval.eval_fns import batch_ra_dec, make_encoder, model_device
 from sky_embeddings_tpu_torch.ops.similarity import (
     compute_similarity,
     topk_finalize,
@@ -66,15 +66,15 @@ def mim_simsearch(
         n_extra, cls_token, max_pool,
     )
 
-    def features(imgs):
-        return _select_tokens(encode(imgs).float(), n_extra, cls_token, max_pool)
+    def features(imgs, ra_dec):
+        return _select_tokens(encode(imgs, ra_dec).float(), n_extra, cls_token, max_pool)
 
     topk = None
     mean = std = target_std = None
     for i, batch in enumerate(batches):
         imgs = torch.as_tensor(np.asarray(batch["cutouts"]), device=device)
-        ra_dec = torch.as_tensor(np.asarray(batch["ra_dec"], np.float32), device=device)
-        latent = features(imgs)
+        ra_dec = batch_ra_dec(batch, device)
+        latent = features(imgs, ra_dec)
         if i == 0:
             mean = latent.mean(dim=(0, 1))
             n = latent.shape[0] * latent.shape[1]
@@ -97,7 +97,7 @@ def mim_simsearch(
         raise ValueError("similarity search received no batches")
 
     scores, payload = topk_finalize(topk, largest=largest)
-    best_latent = encode(payload["images"])
+    best_latent = encode(payload["images"], payload["ra_decs"])
     return (
         payload["images"].cpu().numpy(),
         best_latent.float().cpu().numpy(),

@@ -11,15 +11,19 @@ kernel (``ops/kernels/``) for every batch size; their wrappers take the plain
 PyTorch versions for CPU tensors and raise on CUDA for what the kernels do not
 take (fp32, N > 256). With grad enabled the two calls go through their
 ``torch.autograd.Function``s: the attention stash forward and backward
-(``stash=True``, the default, as in JAX) and the MLP forward with its
-recompute backward (``stash_mlp=False``). The other combinations need TPU
-kernels not ported yet (4 for ``stash=False``, 6 and 7 for ``stash_mlp``):
-with grad they raise on CUDA and differentiate the plain versions on the CPU.
-``Encoder.plain = True`` sends the blocks through the plain versions on any
-device: the reference path that a check on the card holds the kernel path
-against.
+(``stash=True``, the default, as in JAX) or K2 with the recompute backward
+(``stash=False``), and the MLP forward with its recompute backward
+(``stash_mlp=False``) or the MLP stash forward and backward
+(``stash_mlp=True``, the ViT-L default). ``Encoder.plain = True`` sends the
+blocks through the plain versions on any device: the reference path that a
+check on the card holds the kernel path against.
 
-Not ported yet (ROADMAP): the scan layout, remat, ``CrossAttention`` and
+``Encoder(remat=True)`` runs each block under
+``torch.utils.checkpoint.checkpoint`` (JAX ``nn.remat(Block)``): the block's
+forward kernels run again in the backward, and both stashes are off, as JAX
+turns them off under remat (``layers.py:422-425``).
+
+Not ported yet (ROADMAP): the scan layout, ``CrossAttention`` and
 ``AttentionPoolLatent``.
 """
 
@@ -30,6 +34,7 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from sky_embeddings_tpu_torch.ops.kernels.attn_block import fused_attn_block
 from sky_embeddings_tpu_torch.ops.kernels.mlp_block import fused_mlp_block
@@ -174,18 +179,28 @@ class Block(nn.Module):
 
 
 class Encoder(nn.Module):
-    """``depth`` blocks under the loop layout's ``block0``..``blockN`` scopes."""
+    """``depth`` blocks under the loop layout's ``block0``..``blockN`` scopes;
+    with ``remat`` each block is checkpointed and both stashes are off."""
 
     def __init__(self, depth: int, dim: int, num_heads: int, mlp_ratio: float = 4.0,
                  dtype: torch.dtype = torch.float32, stash: bool = True,
-                 stash_mlp: bool = False):
+                 stash_mlp: bool = False, remat: bool = False):
         super().__init__()
         self.depth = depth
+        self.remat = remat
         self.plain = False
+        # the forward is replayed in the backward anyway: the stash writes
+        # would be paid twice for no recompute saved
+        stash, stash_mlp = stash and not remat, stash_mlp and not remat
         for i in range(depth):
             self.add_module(f"block{i}", Block(dim, num_heads, mlp_ratio, dtype, stash, stash_mlp))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        remat = self.remat and torch.is_grad_enabled()
         for i in range(self.depth):
-            x = getattr(self, f"block{i}")(x, self.plain)
+            block = getattr(self, f"block{i}")
+            if remat:
+                x = checkpoint(block, x, self.plain, use_reentrant=False)
+            else:
+                x = block(x, self.plain)
         return x

@@ -2,16 +2,18 @@
 
 ``SkyMIM.encode`` mirrors the JAX ``SkyMIM.encode``: NaN pixels (and masked
 pixels) take the trainable ``patch_mask_values``, then patch embed, the
-frozen sin-cos pos-embed, the cls token, the encoder and the final
-LayerNorm. ``decode`` is the SimMIM linear decoder (one Dense per token
-predicting its patch, upsample = ``patch_size``), ``loss`` the NaN-guarded
-masked L1/MSE on normalized (optionally per-patch normalized) targets, and
-``forward(imgs, mask)`` returns ``(loss, pred, mask)`` as the JAX
-``__call__`` does. ``mask_token`` is held so that weights round-trip with the
-JAX tree (SimMIM does not use it).
+frozen sin-cos pos-embed, the cls token (and, with ``ra_dec``, the RA/Dec
+token of ``models/location.LocationEncoder`` after it), the encoder and the
+final LayerNorm. ``decode`` is the SimMIM linear decoder (one Dense per
+token predicting its patch, upsample = ``patch_size``), ``loss`` the
+NaN-guarded masked L1/MSE on normalized (optionally per-patch normalized)
+targets, and ``forward(imgs, mask, ra_dec=...)`` returns ``(loss, pred,
+mask)`` as the JAX ``__call__`` does. ``mask_token`` is held so that weights
+round-trip with the JAX tree (SimMIM does not use it). ``remat``
+checkpoints each encoder block (``models/layers.Encoder``).
 
 Not ported yet, each raising ``NotImplementedError`` (ROADMAP): the MAE model
-types, ``ra_dec = True`` and ``attn_pool = True``.
+types, ``attn_pool = True`` and the scan layout (``scan_blocks = True``).
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from sky_embeddings_tpu_torch.models.layers import (
     patchify,
     unpatchify,
 )
+from sky_embeddings_tpu_torch.models.location import LocationEncoder
 from sky_embeddings_tpu_torch.models.pos_embed import sincos_pos_embed_2d
 from sky_embeddings_tpu_torch.ops.losses import masked_recon_loss, normalize_patches
 from sky_embeddings_tpu_torch.utils.device import resolve_device
@@ -53,8 +56,11 @@ class SkyMIM(nn.Module):
         dtype: torch.dtype = torch.float32,
         stash: bool = True,
         stash_mlp: bool = False,
+        ra_dec: bool = False,
+        remat: bool = False,
     ):
         super().__init__()
+        self.ra_dec = ra_dec
         self.img_size = img_size
         self.patch_size = patch_size
         self.in_chans = in_chans
@@ -71,7 +77,10 @@ class SkyMIM(nn.Module):
             torch.from_numpy(sincos_pos_embed_2d(embed_dim, self.grid_size, self.num_extra_tokens)),
             persistent=False,
         )
-        self.encoder = Encoder(depth, embed_dim, num_heads, mlp_ratio, dtype, stash, stash_mlp)
+        if ra_dec:
+            self.ra_dec_embed = LocationEncoder(out_dim=embed_dim)
+        self.encoder = Encoder(depth, embed_dim, num_heads, mlp_ratio, dtype, stash, stash_mlp,
+                               remat)
         self.norm = LayerNorm(embed_dim)
         self.patch_mask_values = nn.Parameter(torch.zeros(in_chans, patch_size, patch_size))
         # SimMIM linear decoder: one Dense per token predicting its patch
@@ -84,7 +93,7 @@ class SkyMIM(nn.Module):
 
     @property
     def num_extra_tokens(self) -> int:
-        return 1
+        return 2 if self.ra_dec else 1
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         """flax's initializers, drawn from ``generator``: xavier-uniform
@@ -103,10 +112,12 @@ class SkyMIM(nn.Module):
         tiled = self.patch_mask_values.tile(1, g, g)
         return tiled.expand(batch, self.in_chans, self.img_size, self.img_size)
 
-    def encode(self, imgs: torch.Tensor, mask: Optional[torch.Tensor] = None):
-        """(B, C, H, W) images -> ``(tokens, None, None)``, tokens (B, 1 + L, D)
-        in ``dtype`` with the cls token first (the JAX return layout; the MAE
-        mask and restore indices are None in SimMIM mode)."""
+    def encode(self, imgs: torch.Tensor, ra_dec: Optional[torch.Tensor] = None,
+               mask: Optional[torch.Tensor] = None):
+        """(B, C, H, W) images (and (B, 2) RA/Dec degrees on an ``ra_dec``
+        model) -> ``(tokens, None, None)``, tokens (B, extra + L, D) in
+        ``dtype`` ordered [cls, ra_dec, patches] (the JAX return layout; the
+        MAE mask and restore indices are None in SimMIM mode)."""
         B = imgs.shape[0]
         x = (imgs - self.pixel_mean) / self.pixel_std
         fill = self._fill_values(B).to(x.dtype)
@@ -114,10 +125,14 @@ class SkyMIM(nn.Module):
         if mask is not None:
             x = x * (1.0 - mask) + fill * mask
         tokens = self.patch_embed(x, self.dtype)
-        tokens = tokens + self.pos_embed[1:].to(tokens.dtype)
-        cls = (self.cls_token + self.pos_embed[:1]).to(tokens.dtype)
-        tokens = torch.cat([cls.expand(B, 1, self.embed_dim), tokens], dim=1)
-        tokens = self.encoder(tokens)
+        tokens = tokens + self.pos_embed[self.num_extra_tokens:].to(tokens.dtype)
+        prefix = [(self.cls_token + self.pos_embed[:1]).to(tokens.dtype).expand(B, 1, self.embed_dim)]
+        if self.ra_dec:
+            if ra_dec is None:
+                raise ValueError("model was built with ra_dec=True but got ra_dec=None")
+            loc = self.ra_dec_embed(ra_dec.float()).to(tokens.dtype)
+            prefix.append((loc + self.pos_embed[1].to(tokens.dtype))[:, None, :])
+        tokens = self.encoder(torch.cat(prefix + [tokens], dim=1))
         return self.norm(tokens, self.dtype), None, None
 
     def decode(self, tokens: torch.Tensor) -> torch.Tensor:
@@ -140,10 +155,12 @@ class SkyMIM(nn.Module):
             target = unpatchify(normalize_patches(patches), self.patch_size, self.in_chans)
         return masked_recon_loss(target, pred.float(), eff_mask, self.loss_fn)
 
-    def forward(self, imgs: torch.Tensor, mask: Optional[torch.Tensor] = None):
+    def forward(self, imgs: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                ra_dec: Optional[torch.Tensor] = None):
         """Full forward: ``(loss, pred, mask)``; ``mask`` is the (B, C, H, W)
-        pixel mask (zeros when None)."""
-        tokens, _, _ = self.encode(imgs, mask=mask)
+        pixel mask (zeros when None), ``ra_dec`` the (B, 2) RA/Dec degrees
+        that an ``ra_dec`` model reads."""
+        tokens, _, _ = self.encode(imgs, ra_dec=ra_dec, mask=mask)
         pred = self.decode(tokens)
         if mask is None:
             mask = torch.zeros_like(imgs)
@@ -173,9 +190,11 @@ def build_mim_model(
     dtype: torch.dtype = torch.float32,
     device: str | torch.device = "cuda",
     generator: Optional[torch.Generator] = None,
+    remat: bool = False,
 ) -> SkyMIM:
     """Construct a :class:`SkyMIM` from an INI config (JAX ``build_mim_model``)
-    with weights drawn from ``generator`` (seed 0 when None), on ``device``."""
+    with weights drawn from ``generator`` (seed 0 when None), on ``device``;
+    ``remat`` checkpoints each encoder block."""
     dev = resolve_device(device)
     arch = config["ARCHITECTURE"]
     training = config["TRAINING"]
@@ -187,10 +206,13 @@ def build_mim_model(
         raise NotImplementedError(
             f"model_type={model_type!r} is MAE mode (ROADMAP: MAE mode with the seg_len mask)"
         )
-    if arch.bool("ra_dec", False):
-        raise NotImplementedError("ra_dec = True is not ported yet (ROADMAP: ra_dec/attn_pool)")
     if arch.bool("attn_pool", False):
-        raise NotImplementedError("attn_pool = True is not ported yet (ROADMAP: ra_dec/attn_pool)")
+        raise NotImplementedError("attn_pool = True is not ported yet (ROADMAP 1.8: attn_pool)")
+    if arch.bool("scan_blocks", False):
+        # the JAX scan layout stacks the block params under encoder/blocks/block:
+        # refuse it rather than build the loop layout under other names
+        raise NotImplementedError("scan_blocks = True (the scan layout) is not ported yet "
+                                  "(ROADMAP 1.12: scan layout)")
     extra = dict(_SIZES[size_key])
     embed_dim = arch.int("embed_dim")
     if embed_dim % extra["num_heads"]:
@@ -216,6 +238,8 @@ def build_mim_model(
         # the JAX defaults: attention stash except at ViT-H, MLP stash at ViT-L
         stash=arch.bool("stash", size_key != "huge"),
         stash_mlp=arch.bool("stash_mlp", size_key == "large"),
+        ra_dec=arch.bool("ra_dec", False),
+        remat=remat,
         **extra,
     )
     if generator is None:

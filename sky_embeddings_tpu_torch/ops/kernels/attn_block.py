@@ -1,7 +1,7 @@
 """Attention block ``x + MHA(LN(x)·Wqkv + bqkv)·Wproj + bproj``, forward and
-stash backward.
+backward.
 
-Three kernels, all in CUDA C++:
+Four kernels, all in CUDA C++:
 
 - K2, the primal forward: replaces the TPU kernel
   ``sky_embeddings_tpu/ops/kernels/attn_block.py`` ``_pallas_fwd``
@@ -14,23 +14,29 @@ Three kernels, all in CUDA C++:
   (B, N, 3D) and the softmax probabilities (B, H, N, N), bf16, in JAX's
   layout.
 - Kernel 3, the stash backward: replaces ``_pallas_bwd_stash``.
-  ``csrc/attn_block_bwd.cu``: dctx GEMM, a backward core per (sample, head)
-  from the stashed qkv and probabilities (no qkv, logits or softmax
-  recompute), dy and weight-gradient GEMMs, LN backward, deterministic
-  two-pass column sums.
+  ``csrc/attn_block_bwd.cu`` entry ``sky_attn_block_bwd_stash``: dctx GEMM,
+  a backward core per (sample, head) from the stashed qkv and probabilities
+  (no qkv, logits or softmax recompute), dy and weight-gradient GEMMs, LN
+  backward, deterministic two-pass column sums.
+- Kernel 4, the recompute backward: replaces ``_pallas_bwd`` (``_bwd_kernel``
+  and ``_bwd_kernel_loop``). Entry ``sky_attn_block_bwd`` of the same file:
+  kernel 3's launches behind the forward's LN and qkv GEMM; its core
+  computes the logits and the fp32 softmax itself and keeps the fp32 P (for
+  the softmax backward) beside the bf16 P (for ctx and dV).
 
-:class:`AttnBlockStashFn` is the ``torch.autograd.Function`` of the
-training default ``stash=True``; inference never writes the stash, as in
-JAX (``attn_block.py:1127-1131``).
+:class:`AttnBlockStashFn` (kernels 2 and 3) is the ``torch.autograd.Function``
+of the training default ``stash=True``; :class:`AttnBlockFn` (K2 and kernel
+4) that of ``stash=False`` and remat, saving only the inputs. Inference
+never writes the stash, as in JAX (``attn_block.py:1127-1131``).
 
 What bounds them on the H100: tensor-core FLOPs of the GEMMs (8·M·D² forward,
-16·M·D² backward at M = B·N rows); the cores add 4·B·H·N²·hd and
-8·B·H·N²·hd. qkv, ctx and dqkv go through device memory at the points where
-the TPU kernels round them; keeping them on chip and wgmma are later work.
+16·M·D² stash backward, 22·M·D² recompute backward at M = B·N rows); the
+cores add 4·B·H·N²·hd, 8·B·H·N²·hd and 10·B·H·N²·hd. qkv, ctx and dqkv go
+through device memory at the points where the TPU kernels round them;
+keeping them on chip and wgmma are later work.
 
 Not ported yet (ROADMAP): the packed-segment mask (``seg_len > 0``, MAE
-training) and the recompute backward (TPU kernel 4, ``stash=False``), which
-raises with grad on CUDA.
+training).
 
 Numerics (kernel and plain versions alike): fp32 LN statistics, bf16 GEMM
 operands with fp32 accumulation, qkv rounded to bf16 after its bias, fp32
@@ -38,7 +44,8 @@ logits scaled by hd^-0.5 and fp32 softmax, probs rounded to bf16 before the
 PV product, ctx rounded to bf16, residual added in fp32 and cast to x's
 dtype. Backward: dctx, ds and dqkv rounded to bf16 before the products that
 take them, dbqkv summed from the fp32 dqkv, weight gradients cast to the
-weight dtype.
+weight dtype. The softmax backward takes the stashed bf16 probabilities in
+kernel 3 and the recomputed fp32 ones in kernel 4, as the TPU kernels do.
 """
 
 from __future__ import annotations
@@ -60,21 +67,29 @@ from sky_embeddings_tpu_torch.ops.kernels.mlp_block import (
 MAX_TOKENS = 256  # the TPU kernel's dispatch bound (layers.py:341)
 
 
+def _qkv_probs(x, scale, bias, wqkv, bqkv, num_heads: int):
+    """The forward up to the softmax: qkv (B, N, 3D) rounded to wqkv's dtype
+    and the fp32 probabilities (B, H, N, N)."""
+    B, N, D = x.shape
+    hd = D // num_heads
+    y = _ln_forward(x.float(), scale, bias)[0]
+    qkv = (_dot(y.to(wqkv.dtype), wqkv) + bqkv).to(wqkv.dtype)
+    q, k, _ = qkv.reshape(B, N, 3, num_heads, hd).unbind(2)
+    logits = torch.einsum("bnhd,bmhd->bhnm", q.float(), k.float())
+    return qkv, torch.softmax(logits * hd ** -0.5, dim=-1)
+
+
 def attn_block_fwd_stash_plain(x, scale, bias, wqkv, bqkv, wproj, bproj, num_heads: int):
     """Plain version of the stash forward: ``(out, qkv, probs)``, qkv
     (B, N, 3D) and probs (B, H, N, N) in x's dtype; ``out`` is the JAX
     oracle ``xla_attn_block`` with ``seg_len = 0``."""
     B, N, D = x.shape
-    hd = D // num_heads
-    x2 = x.float()
-    y = _ln_forward(x2, scale, bias)[0]
-    qkv = (_dot(y.to(wqkv.dtype), wqkv) + bqkv).to(wqkv.dtype)
-    q, k, v = qkv.reshape(B, N, 3, num_heads, hd).unbind(2)
-    logits = torch.einsum("bnhd,bmhd->bhnm", q.float(), k.float())
-    probs = torch.softmax(logits * hd ** -0.5, dim=-1).to(wqkv.dtype)
+    qkv, probs = _qkv_probs(x, scale, bias, wqkv, bqkv, num_heads)
+    probs = probs.to(wqkv.dtype)
+    v = qkv.reshape(B, N, 3, num_heads, D // num_heads)[:, :, 2]
     ctx = torch.einsum("bhnm,bmhd->bnhd", probs.float(), v.float())
     out = _dot(ctx.reshape(B, N, D).to(wproj.dtype), wproj) + bproj
-    return (x2 + out).to(x.dtype), qkv.to(x.dtype), probs.to(x.dtype)
+    return (x.float() + out).to(x.dtype), qkv.to(x.dtype), probs.to(x.dtype)
 
 
 def attn_block_plain(x, scale, bias, wqkv, bqkv, wproj, bproj, num_heads: int):
@@ -82,11 +97,11 @@ def attn_block_plain(x, scale, bias, wqkv, bqkv, wproj, bproj, num_heads: int):
     return attn_block_fwd_stash_plain(x, scale, bias, wqkv, bqkv, wproj, bproj, num_heads)[0]
 
 
-def attn_block_bwd_stash_plain(x, scale, bias, wqkv, wproj, qkv, probs, g, num_heads: int):
-    """Plain version of kernel 3: mirrors ``_bwd_stash_kernel``
-    (attn_block.py:282-356) rounding point by rounding point. Returns
-    (dx, dscale, dbias, dwqkv, dbqkv, dwproj, dbproj) in the dtypes of
-    (x, scale, bias, wqkv, fp32, wproj, fp32)."""
+def _attn_bwd_from(x, scale, bias, wqkv, wproj, qkv, p_soft, p_c, g, num_heads: int):
+    """The attention-block backward from qkv (B, N, 3D), the probabilities
+    ``p_soft`` (fp32) that the softmax backward takes and ``p_c`` (their
+    rounded values, upcast) that ctx and dV take; the rounding points of
+    ``_bwd_kernel`` / ``_bwd_stash_kernel``."""
     B, N, D = x.shape
     H = num_heads
     hd = D // H
@@ -98,12 +113,11 @@ def attn_block_bwd_stash_plain(x, scale, bias, wqkv, wproj, qkv, probs, g, num_h
     g_c = g2.to(wproj.dtype)
     dc = _dot(g_c, wproj.t()).to(dt).float().reshape(B, N, H, hd)
     q, k, v = qkv.float().reshape(B, N, 3, H, hd).unbind(2)
-    p = probs.float()
-    ctx = torch.einsum("bhnm,bmhd->bnhd", p, v).to(dt)
-    dv = torch.einsum("bhnm,bnhd->bmhd", p, dc)
+    ctx = torch.einsum("bhnm,bmhd->bnhd", p_c, v).to(dt)
+    dv = torch.einsum("bhnm,bnhd->bmhd", p_c, dc)
     dp = torch.einsum("bnhd,bmhd->bhnm", dc, v)
-    tmp = dp * p
-    ds = ((tmp - p * tmp.sum(-1, keepdim=True)) * hd ** -0.5).to(dt).float()
+    tmp = dp * p_soft
+    ds = ((tmp - p_soft * tmp.sum(-1, keepdim=True)) * hd ** -0.5).to(dt).float()
     dq = torch.einsum("bhnm,bmhd->bnhd", ds, k)
     dk = torch.einsum("bhnm,bnhd->bmhd", ds, q)
     dqkv = torch.stack([dq, dk, dv], dim=2).reshape(B * N, 3 * D)
@@ -115,6 +129,27 @@ def attn_block_bwd_stash_plain(x, scale, bias, wqkv, wproj, qkv, probs, g, num_h
         _dot(y_c.t(), dqkv_c).to(wqkv.dtype), dqkv.sum(0),
         _dot(ctx.reshape(B * N, D).t(), g_c).to(wproj.dtype), g2.sum(0),
     )
+
+
+def attn_block_bwd_stash_plain(x, scale, bias, wqkv, wproj, qkv, probs, g, num_heads: int):
+    """Plain version of kernel 3: mirrors ``_bwd_stash_kernel``
+    (attn_block.py:282-356) rounding point by rounding point: the stashed
+    bf16 probabilities in the softmax backward and the products alike.
+    Returns (dx, dscale, dbias, dwqkv, dbqkv, dwproj, dbproj) in the dtypes
+    of (x, scale, bias, wqkv, fp32, wproj, fp32)."""
+    p = probs.float()
+    return _attn_bwd_from(x, scale, bias, wqkv, wproj, qkv, p, p, g, num_heads)
+
+
+def attn_block_bwd_plain(x, scale, bias, wqkv, bqkv, wproj, g, num_heads: int):
+    """Plain version of kernel 4: mirrors ``_bwd_kernel`` (attn_block.py:156-235)
+    rounding point by rounding point. LN, qkv (rounded after its bias), the
+    logits and the fp32 softmax are recomputed; the softmax backward takes
+    the fp32 probabilities, ctx and dV their bf16 rounding. Outputs as
+    :func:`attn_block_bwd_stash_plain`."""
+    qkv, probs = _qkv_probs(x, scale, bias, wqkv, bqkv, num_heads)
+    p_c = probs.to(wqkv.dtype).float()
+    return _attn_bwd_from(x, scale, bias, wqkv, wproj, qkv, probs, p_c, g, num_heads)
 
 
 def _lib(name: str, entry: str, n_ptr: int) -> ctypes.CDLL:
@@ -152,7 +187,7 @@ def _check_cuda_args(x, scale, bias, wqkv, bqkv, wproj, bproj, num_heads):
         "wproj": (wproj, (D, D), torch.bfloat16), "bproj": (bproj, (D,), torch.float32),
     }
     for name, (t, shape, dtype) in want.items():
-        if t is None:  # the backward reads neither bias
+        if t is None:  # a backward reads bproj never, bqkv only to recompute qkv
             continue
         if tuple(t.shape) != shape or t.dtype != dtype or not t.is_contiguous():
             raise ValueError(f"{name}: want contiguous {shape} {dtype}, got {tuple(t.shape)} {t.dtype}")
@@ -202,21 +237,21 @@ def attn_block_fwd_stash(x, scale, bias, wqkv, bqkv, wproj, bproj, num_heads: in
 attn_block_fwd_stash.launches = 0
 
 
-def attn_block_bwd_stash(x, scale, bias, wqkv, wproj, qkv, probs, g, num_heads: int):
-    """Kernel 3: the block's gradients from x, the stash and the output
-    gradient ``g`` (outputs as :func:`attn_block_bwd_stash_plain`). CPU
-    tensors take the plain version; CUDA tensors launch
-    ``csrc/attn_block_bwd.cu`` or raise."""
-    if x.device.type == "cpu":
-        return attn_block_bwd_stash_plain(x, scale, bias, wqkv, wproj, qkv, probs, g, num_heads)
-    _check_cuda_args(x, scale, bias, wqkv, None, wproj, None, num_heads)
+def _check_bwd_inputs(x, num_heads, **tensors):
     B, N, D = x.shape
-    for name, t, shape in (("qkv", qkv, (B, N, 3 * D)), ("probs", probs, (B, num_heads, N, N)),
-                           ("g", g, (B, N, D))):
+    shapes = {"qkv": (B, N, 3 * D), "probs": (B, num_heads, N, N), "g": (B, N, D)}
+    for name, t in tensors.items():
+        shape = shapes[name]
         if tuple(t.shape) != shape or t.dtype != torch.bfloat16 or not t.is_contiguous() \
                 or t.device != x.device:
             raise ValueError(f"{name}: want a contiguous {shape} bf16 tensor on {x.device}, "
                              f"got {tuple(t.shape)} {t.dtype} on {t.device}")
+
+
+def _launch_bwd(entry, x, ins, num_heads, qkv=None):
+    """Kernel 3 (``ins`` holds the stash) or kernel 4 (``qkv`` is scratch for
+    the recompute) on CUDA tensors; allocates the scratch and the outputs."""
+    B, N, D = x.shape
     M = B * N
     parts = -(-M // ROWS_PER_PARTIAL)
     f32 = dict(dtype=torch.float32, device=x.device)
@@ -230,19 +265,51 @@ def attn_block_bwd_stash(x, scale, bias, wqkv, wproj, qkv, probs, g, num_heads: 
     dscale, dbias, dbproj = (torch.empty(D, **f32) for _ in range(3))
     dwqkv, dbqkv = torch.empty((D, 3 * D), **bf), torch.empty(3 * D, **f32)
     dwproj = torch.empty((D, D), **bf)
-    ptrs = [t.data_ptr() for t in (x, scale, bias, wqkv, wproj, qkv, probs, g, y, dc, ctx, dqkv,
-                                   dqkv_c, dy, part, ws, dx, dscale, dbias, dwqkv, dbqkv, dwproj,
-                                   dbproj)]
-    entry = "sky_attn_block_bwd_stash"
+    scratch = (y,) if qkv is None else (y, qkv)
+    ptrs = [t.data_ptr() for t in (*ins, *scratch, dc, ctx, dqkv, dqkv_c, dy, part, ws, dx,
+                                   dscale, dbias, dwqkv, dbqkv, dwproj, dbproj)]
     with torch.cuda.device(x.device):
         err = getattr(_lib("attn_block_bwd", entry, len(ptrs)), entry)(
             *ptrs, B, N, D, num_heads, torch.cuda.current_stream().cuda_stream)
     cuda_build.check(err, entry)
-    attn_block_bwd_stash.launches += 1
     return dx, dscale, dbias, dwqkv, dbqkv, dwproj, dbproj
 
 
+def attn_block_bwd_stash(x, scale, bias, wqkv, wproj, qkv, probs, g, num_heads: int):
+    """Kernel 3: the block's gradients from x, the stash and the output
+    gradient ``g`` (outputs as :func:`attn_block_bwd_stash_plain`). CPU
+    tensors take the plain version; CUDA tensors launch
+    ``csrc/attn_block_bwd.cu`` or raise."""
+    if x.device.type == "cpu":
+        return attn_block_bwd_stash_plain(x, scale, bias, wqkv, wproj, qkv, probs, g, num_heads)
+    _check_cuda_args(x, scale, bias, wqkv, None, wproj, None, num_heads)
+    _check_bwd_inputs(x, num_heads, qkv=qkv, probs=probs, g=g)
+    grads = _launch_bwd("sky_attn_block_bwd_stash", x,
+                        (x, scale, bias, wqkv, wproj, qkv, probs, g), num_heads)
+    attn_block_bwd_stash.launches += 1
+    return grads
+
+
 attn_block_bwd_stash.launches = 0
+
+
+def attn_block_bwd(x, scale, bias, wqkv, bqkv, wproj, g, num_heads: int):
+    """Kernel 4: the block's gradients from x and the output gradient ``g``
+    alone, the forward recomputed (outputs as :func:`attn_block_bwd_plain`).
+    CPU tensors take the plain version; CUDA tensors launch
+    ``csrc/attn_block_bwd.cu`` (recompute entry) or raise."""
+    if x.device.type == "cpu":
+        return attn_block_bwd_plain(x, scale, bias, wqkv, bqkv, wproj, g, num_heads)
+    _check_cuda_args(x, scale, bias, wqkv, bqkv, wproj, None, num_heads)
+    _check_bwd_inputs(x, num_heads, g=g)
+    qkv = torch.empty((*x.shape[:2], 3 * x.shape[2]), dtype=torch.bfloat16, device=x.device)
+    grads = _launch_bwd("sky_attn_block_bwd", x, (x, scale, bias, wqkv, bqkv, wproj, g),
+                        num_heads, qkv=qkv)
+    attn_block_bwd.launches += 1
+    return grads
+
+
+attn_block_bwd.launches = 0
 
 
 class AttnBlockStashFn(torch.autograd.Function):
@@ -267,28 +334,42 @@ class AttnBlockStashFn(torch.autograd.Function):
         return (*grads, None, None)
 
 
+class AttnBlockFn(torch.autograd.Function):
+    """K2 forward, kernel 4 backward (JAX ``fused_attn_block`` with
+    ``stash=False``: only the inputs are saved, ``_fab_fwd`` computes the
+    primal). ``plain`` runs the plain versions of both on any device."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, wqkv, bqkv, wproj, bproj, num_heads, plain):
+        args = (x, scale, bias, wqkv, bqkv, wproj, bproj, num_heads)
+        if plain or x.device.type == "cpu":
+            out = attn_block_plain(*args)
+        else:
+            out = _launch_fwd(*args, stash=False)[0]
+        ctx.save_for_backward(x, scale, bias, wqkv, bqkv, wproj)
+        ctx.num_heads, ctx.plain = num_heads, plain
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, scale, bias, wqkv, bqkv, wproj = ctx.saved_tensors
+        bwd = attn_block_bwd_plain if ctx.plain else attn_block_bwd
+        grads = bwd(x, scale, bias, wqkv, bqkv, wproj, g.contiguous(), ctx.num_heads)
+        return (*grads, None, None)
+
+
 def fused_attn_block(x, scale, bias, wqkv, bqkv, wproj, bproj, num_heads: int,
                      stash: bool = True, plain: bool = False):
     """(B, N, D) -> (B, N, D). Without grad: CPU tensors (or ``plain``) take
-    :func:`attn_block_plain`, CUDA tensors launch K2 or raise. With grad and
-    ``stash``, the call goes through :class:`AttnBlockStashFn` (kernels 2 and
-    3); ``stash=False`` needs TPU kernel 4, not ported yet: it raises on
-    CUDA and differentiates the plain version on the CPU."""
+    :func:`attn_block_plain`, CUDA tensors launch K2 or raise. With grad, the
+    call goes through :class:`AttnBlockStashFn` (kernels 2 and 3) or, with
+    ``stash=False``, :class:`AttnBlockFn` (K2 and kernel 4)."""
     args = (x, scale, bias, wqkv, bqkv, wproj, bproj)
-    on_plain = plain or x.device.type == "cpu"
     if not _needs_grad(*args):
-        if on_plain:
+        if plain or x.device.type == "cpu":
             return attn_block_plain(*args, num_heads)
         return _launch_fwd(*args, num_heads, stash=False)[0]
-    if stash:
-        return AttnBlockStashFn.apply(*args, num_heads, plain)
-    if on_plain:
-        return attn_block_plain(*args, num_heads)
-    raise NotImplementedError(
-        "fused_attn_block(stash=False) with grad on CUDA needs the recompute backward "
-        "(TPU kernel 4, attn_block.py _pallas_bwd), not ported yet (ROADMAP 1.1: "
-        "attention recompute backward, for remat and ViT-H)"
-    )
+    return (AttnBlockStashFn if stash else AttnBlockFn).apply(*args, num_heads, plain)
 
 
 fused_attn_block.launches = 0

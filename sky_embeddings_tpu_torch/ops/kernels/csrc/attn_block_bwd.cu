@@ -1,21 +1,34 @@
-// Attention-block backward from the stash, for Hopper (sm_90a).
+// Attention-block backward for Hopper (sm_90a): from the stash (kernel 3)
+// and with the forward recomputed (kernel 4).
 //
-// Replaces the TPU kernel sky_embeddings_tpu/ops/kernels/attn_block.py:
-// _pallas_bwd_stash (_bwd_stash_kernel / _bwd_stash_kernel_loop): the
-// gradients of out = x + MHA(LN(x) @ Wqkv + bqkv) @ Wproj + bproj from x,
-// the output gradient g, and the qkv and probabilities that the stash
-// forward (attn_block.cu, sky_attn_block_fwd_stash) kept. Nothing of the
-// qkv GEMM, the logits or the softmax is recomputed: only the LN and
-// ctx = P V (for dWproj).
+// Replaces the TPU kernels sky_embeddings_tpu/ops/kernels/attn_block.py:
+// - _pallas_bwd_stash (_bwd_stash_kernel / _bwd_stash_kernel_loop), entry
+//   sky_attn_block_bwd_stash: the gradients of
+//   out = x + MHA(LN(x) @ Wqkv + bqkv) @ Wproj + bproj from x, the output
+//   gradient g, and the qkv and probabilities that the stash forward
+//   (attn_block.cu, sky_attn_block_fwd_stash) kept. Nothing of the qkv GEMM,
+//   the logits or the softmax is recomputed: only the LN and ctx = P V (for
+//   dWproj).
+// - _pallas_bwd (_bwd_kernel, attn_block.py:156-235, and _bwd_kernel_loop,
+//   :768-821, with _loop_heads_bwd(probs_ref=None)), entry
+//   sky_attn_block_bwd: the same gradients from x and g alone (stash =
+//   False, remat). LN, qkv (rounded to bf16 after its bias), the logits and
+//   the fp32 softmax are recomputed. Not kernel 3 with recomputed
+//   probabilities: ctx and dV take the bf16 P, but the softmax backward
+//   takes the fp32 P (attn_block.py:192-201).
 //
-// Launches behind one C entry point, at the TPU kernel's rounding points
-// (attn_block.py:282-356):
+// Launches behind each C entry point, at the TPU kernel's rounding points
+// (attn_block.py:282-356 and :156-235):
 //   1. LayerNorm of x                         -> y = bf16 LN output   (:298-299)
+//   1b. kernel 4 only: qkv = bf16(y @ Wqkv + bqkv)                     (:174-175)
 //   2. dctx = g @ Wproj^T, rounded            -> dc bf16              (:302-303, :320)
 //   3. backward core, one CTA per (sample, head), query blocks of QB rows:
-//        ctx = bf16(P V)                                              (:318)
+//        kernel 4: S = Q K^T (fp32), P = softmax(S * hd^-0.5) in fp32, kept
+//        in shared memory beside its bf16 copy (K2's arithmetic)    (:191-193)
+//        ctx = bf16(P_bf16 V)                                         (:318)
 //        dp = dc V^T;  ds = bf16((dp * P - P * rowsum(dp * P)) * hd^-0.5)
-//        dq = ds K;  dk = ds^T Q;  dv = P^T dc, all fp32   -> dqkv fp32 (:321-328)
+//        with P fp32 (kernel 4) or the stashed bf16 P (kernel 3)
+//        dq = ds K;  dk = ds^T Q;  dv = P_bf16^T dc, all fp32 -> dqkv fp32 (:321-328)
 //      P^T and ds^T are read from the row-major tiles as col_major wmma
 //      fragments. dk and dv sum over every query block: the CTA owns its
 //      (sample, head) slice of dqkv, so it adds each block's products into
@@ -30,10 +43,18 @@
 // Parameter gradient sums are two-pass (bwd_common.cuh), so runs give the
 // same bits.
 //
-// Bound on the H100: ~8 M D^2 FLOP in the four GEMMs plus 8 B H N^2 hd in
-// the core: operation-bound; the first version runs on the wmma GEMM of
-// gemm.cuh, and dqkv's fp32 round trip (M * 3D * 4 bytes written and read
-// twice) is the first byte cost to remove.
+// Bound on the H100: ~8 M D^2 FLOP in the four GEMMs (kernel 4: 6 M D^2 more
+// for the qkv recompute) plus 8 B H N^2 hd in the core (kernel 4: 10):
+// operation-bound; the first version runs on the wmma GEMM of gemm.cuh, and
+// dqkv's fp32 round trip (M * 3D * 4 bytes written and read twice) is the
+// first byte cost to remove.
+//
+// Shared memory: kernel 3's core needs 226 KB of the 227 KB a CTA may use at
+// N = 256, hd = 64; kernel 4 keeps an fp32 P tile beside the bf16 one, so it
+// takes smaller query blocks (64 rows past N = 64, 32 past N = 128): 183 KB
+// at N = 256, 107 KB at N = 66 (two CTAs per SM).
+#include <math_constants.h>
+
 #include "bwd_common.cuh"
 
 namespace sky {
@@ -41,17 +62,22 @@ namespace sky {
 constexpr int ATTN_BWD_THREADS = 256;
 
 // Shared-memory plan of one (sample, head) CTA. N is padded to NP (a
-// multiple of 16); queries go in blocks of QB rows (all of them at N <= 128).
+// multiple of 16); queries go in blocks of QB rows.
 //   Ks, Vs    NP x (hd + 8) bf16     keys and values, zero past N
 //   Qs, dCs   QB x (hd + 8) bf16     one query block of q and dc, zero past N
-//   Ps, dSs   QB x (NP + 8) bf16     stashed probabilities, then ds
+//   Ps, dSs   QB x (NP + 8) bf16     probabilities (stashed or recomputed), then ds
 //   Ss        fp32: dp (QB x (NP + 4)), then per-warp 16 x 16 staging tiles
-// At N = 256, hd = 64: 226,304 bytes, inside the 232,448 a CTA may use.
+//   Pf        RECOMPUTE only: fp32 logits, then fp32 P (QB x (NP + 4))
+// Kernel 3 at N = 256, hd = 64: 226,304 bytes, inside the 232,448 a CTA may use.
+template <bool RECOMPUTE>
 struct AttnBwdPlan {
   int NP, QB, HL, PL, SL, SS;
   __host__ __device__ AttnBwdPlan(int N, int hd) {
     NP = (N + 15) & ~15;
-    QB = NP <= 128 ? NP : 64;
+    if (RECOMPUTE)
+      QB = NP <= 64 ? NP : (NP <= 128 ? 64 : 32);
+    else
+      QB = NP <= 128 ? NP : 64;
     HL = hd + 8;
     PL = NP + 8;
     SL = NP + 4;
@@ -59,17 +85,19 @@ struct AttnBwdPlan {
     SS = QB * SL > staging ? QB * SL : staging;
   }
   __host__ __device__ size_t bytes() const {
-    return (size_t)(2 * NP * HL + 2 * QB * HL + 2 * QB * PL) * sizeof(bf16) + (size_t)SS * sizeof(float);
+    return (size_t)(2 * NP * HL + 2 * QB * HL + 2 * QB * PL) * sizeof(bf16) +
+           (size_t)(SS + (RECOMPUTE ? QB * SL : 0)) * sizeof(float);
   }
 };
 
+template <bool RECOMPUTE>
 __global__ void __launch_bounds__(ATTN_BWD_THREADS)
 attn_bwd_core_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ probs,
                      const bf16* __restrict__ dc, bf16* __restrict__ ctx, float* __restrict__ dqkv,
                      int N, int D, int H, int hd, float scale) {
   using namespace nvcuda;
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  const AttnBwdPlan pl(N, hd);
+  const AttnBwdPlan<RECOMPUTE> pl(N, hd);
   const int NP = pl.NP, QB = pl.QB, HL = pl.HL, PL = pl.PL, SL = pl.SL;
   bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
   bf16* Vs = Ks + NP * HL;
@@ -78,6 +106,7 @@ attn_bwd_core_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ prob
   bf16* Ps = dCs + QB * HL;
   bf16* dSs = Ps + QB * PL;
   float* Ss = reinterpret_cast<float*>(dSs + QB * PL);
+  float* Pf = Ss + pl.SS;  // RECOMPUTE only
 
   const int b = blockIdx.x / H;
   const int h = blockIdx.x % H;
@@ -87,7 +116,7 @@ attn_bwd_core_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ prob
   const int vpr = hd / 8;  // 16-byte vectors per head row
   const size_t D3 = 3 * (size_t)D;
   const bf16* src = qkv + (size_t)b * N * D3 + (size_t)h * hd;
-  const bf16* psrc = probs + ((size_t)b * H + h) * N * N;
+  const bf16* psrc = RECOMPUTE ? nullptr : probs + ((size_t)b * H + h) * N * N;
   const bf16* dcsrc = dc + (size_t)b * N * D + (size_t)h * hd;
   float* dst = dqkv + (size_t)b * N * D3 + (size_t)h * hd;  // + 0 / D / 2D: dq / dk / dv
   const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
@@ -115,13 +144,68 @@ attn_bwd_core_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ prob
           n < N ? *reinterpret_cast<const uint4*>(dcsrc + (size_t)n * D + c) : zero;
     }
     // probability rows are N long, not 16-byte aligned in general: bf16 loads
-    for (int idx = threadIdx.x; idx < QB * NP; idx += ATTN_BWD_THREADS) {
-      const int r = idx / NP;
-      const int j = idx % NP;
-      const int n = q0 + r;
-      Ps[r * PL + j] = n < N && j < N ? psrc[(size_t)n * N + j] : __float2bfloat16_rn(0.f);
+    if (!RECOMPUTE) {
+      for (int idx = threadIdx.x; idx < QB * NP; idx += ATTN_BWD_THREADS) {
+        const int r = idx / NP;
+        const int j = idx % NP;
+        const int n = q0 + r;
+        Ps[r * PL + j] = n < N && j < N ? psrc[(size_t)n * N + j] : __float2bfloat16_rn(0.f);
+      }
     }
     __syncthreads();
+
+    if (RECOMPUTE) {
+      // logits S = Q K^T, fp32 (QB x NP), into Pf
+      for (int t = warp; t < tm * tn; t += NW) {
+        const int i = t / tn, j = t % tn;
+        wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
+        wmma::fill_fragment(acc, 0.0f);
+        for (int k = 0; k < hd; k += 16) {
+          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
+          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;  // K^T
+          wmma::load_matrix_sync(fa, Qs + 16 * i * HL + k, HL);
+          wmma::load_matrix_sync(fb, Ks + 16 * j * HL + k, HL);
+          wmma::mma_sync(acc, fa, fb, acc);
+        }
+        wmma::store_matrix_sync(Pf + 16 * i * SL + 16 * j, acc, SL, wmma::mem_row_major);
+      }
+      __syncthreads();
+      // fp32 softmax of scale * S over the N real keys, one warp per row, as
+      // the forward core computes it; P stays fp32 in Pf (for ds) and bf16 in
+      // Ps (for ctx and dv), zero past N and on query rows past N
+      for (int r = warp; r < QB; r += NW) {
+        float* srow = Pf + r * SL;
+        bf16* prow = Ps + r * PL;
+        if (q0 + r >= N) {  // warp-uniform
+          for (int j = lane; j < NP; j += 32) {
+            srow[j] = 0.f;
+            prow[j] = __float2bfloat16_rn(0.f);
+          }
+          continue;
+        }
+        float mx = -CUDART_INF_F;
+        for (int j = lane; j < N; j += 32) {
+          const float z = srow[j] * scale;
+          srow[j] = z;
+          mx = fmaxf(mx, z);
+        }
+        mx = warp_max(mx);
+        float sum = 0.f;
+        for (int j = lane; j < N; j += 32) {
+          const float e = expf(srow[j] - mx);
+          srow[j] = e;
+          sum += e;
+        }
+        sum = warp_sum(sum);
+        for (int j = lane; j < NP; j += 32) {
+          const float p = j < N ? srow[j] / sum : 0.f;
+          srow[j] = p;
+          prow[j] = __float2bfloat16_rn(p);
+        }
+      }
+      // the dp pass below reads neither Pf nor Ps; the barrier after it
+      // orders both for the ds pass
+    }
 
     // dp = dC V^T, fp32 (QB x NP)
     for (int t = warp; t < tm * tn; t += NW) {
@@ -140,19 +224,22 @@ attn_bwd_core_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ prob
     __syncthreads();
 
     // softmax backward, one warp per row, over the N real keys:
-    // ds = (dp * p - p * sum(dp * p)) * scale, rounded to bf16, zero past N
+    // ds = (dp * p - p * sum(dp * p)) * scale, rounded to bf16, zero past N;
+    // p is the recomputed fp32 P (kernel 4) or the stashed bf16 P (kernel 3)
     for (int r = warp; r < QB; r += NW) {
       float* srow = Ss + r * SL;
       const bf16* prow = Ps + r * PL;
+      const float* pfrow = Pf + r * SL;
       float s = 0.f;
       for (int j = lane; j < N; j += 32) {
-        const float t = srow[j] * __bfloat162float(prow[j]);
+        const float t = srow[j] * (RECOMPUTE ? pfrow[j] : __bfloat162float(prow[j]));
         srow[j] = t;
         s += t;
       }
       s = warp_sum(s);
       for (int j = lane; j < NP; j += 32) {
-        const float v = j < N ? (srow[j] - __bfloat162float(prow[j]) * s) * scale : 0.f;
+        const float p = j < N ? (RECOMPUTE ? pfrow[j] : __bfloat162float(prow[j])) : 0.f;
+        const float v = j < N ? (srow[j] - p * s) * scale : 0.f;
         dSs[r * PL + j] = __float2bfloat16_rn(v);
       }
     }
@@ -231,12 +318,15 @@ attn_bwd_core_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ prob
 // the scratch (y, dc, ctx: (M, D) bf16; dqkv: (M, 3D) fp32; dqkv_c: (M, 3D)
 // bf16; dy: (M, D) fp32; part: (4D + 2D) * ceil(M / 32) fp32; ws: 8 * 3D^2
 // fp32) and the outputs (dx (B, N, D) bf16; dscale, dbias, dbproj (D,) and
-// dbqkv (3D,) fp32; dwqkv (D, 3D) and dwproj (D, D) bf16).
-extern "C" int sky_attn_block_bwd_stash(
-    const void* x, const void* ln_scale, const void* ln_bias, const void* wqkv, const void* wproj,
-    const void* qkv, const void* probs, const void* g, void* y, void* dc, void* ctx, void* dqkv,
-    void* dqkv_c, void* dy, void* part, void* ws, void* dx, void* dscale, void* dbias, void* dwqkv,
-    void* dbqkv, void* dwproj, void* dbproj, int B, int N, int D, int H, void* stream) {
+// dbqkv (3D,) fp32; dwqkv (D, 3D) and dwproj (D, D) bf16). Kernel 3 reads
+// the stashed `qkv` and `probs`; kernel 4 (`recompute`) writes `qkv` (scratch,
+// (M, 3D) bf16) from `bqkv` and reads no probabilities.
+static int attn_block_bwd(const void* x, const void* ln_scale, const void* ln_bias,
+                          const void* wqkv, const void* bqkv, const void* wproj, void* qkv,
+                          const void* probs, const void* g, void* y, void* dc, void* ctx,
+                          void* dqkv, void* dqkv_c, void* dy, void* part, void* ws, void* dx,
+                          void* dscale, void* dbias, void* dwqkv, void* dbqkv, void* dwproj,
+                          void* dbproj, int B, int N, int D, int H, bool recompute, void* stream) {
   using namespace sky;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int M = B * N;
@@ -249,15 +339,27 @@ extern "C" int sky_attn_block_bwd_stash(
   float* dyf = static_cast<float*>(dy);
 
   SKY_TRY(launch_layernorm(x, ln_scale, ln_bias, y, M, D, s));
+  if (recompute)
+    SKY_TRY(launch_gemm<EPI_BIAS>(gemm_args(y, wqkv, bqkv, nullptr, qkv, M, 3 * D, D), s));
   SKY_TRY((launch_gemm<EPI_STORE, false, true>(gemm_args(g, wproj, nullptr, nullptr, dc, M, D, D), s)));
 
-  const size_t smem = AttnBwdPlan(N, hd).bytes();
-  SKY_TRY(cudaFuncSetAttribute(attn_bwd_core_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem)));
-  attn_bwd_core_kernel<<<B * H, ATTN_BWD_THREADS, smem, s>>>(
-      static_cast<const bf16*>(qkv), static_cast<const bf16*>(probs), static_cast<const bf16*>(dc),
-      static_cast<bf16*>(ctx), static_cast<float*>(dqkv), N, D, H, hd,
-      1.0f / sqrtf(static_cast<float>(hd)));
+  const float scale = 1.0f / sqrtf(static_cast<float>(hd));
+  if (recompute) {
+    const size_t smem = AttnBwdPlan<true>(N, hd).bytes();
+    SKY_TRY(cudaFuncSetAttribute(attn_bwd_core_kernel<true>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem)));
+    attn_bwd_core_kernel<true><<<B * H, ATTN_BWD_THREADS, smem, s>>>(
+        static_cast<const bf16*>(qkv), nullptr, static_cast<const bf16*>(dc),
+        static_cast<bf16*>(ctx), static_cast<float*>(dqkv), N, D, H, hd, scale);
+  } else {
+    const size_t smem = AttnBwdPlan<false>(N, hd).bytes();
+    SKY_TRY(cudaFuncSetAttribute(attn_bwd_core_kernel<false>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem)));
+    attn_bwd_core_kernel<false><<<B * H, ATTN_BWD_THREADS, smem, s>>>(
+        static_cast<const bf16*>(qkv), static_cast<const bf16*>(probs),
+        static_cast<const bf16*>(dc), static_cast<bf16*>(ctx), static_cast<float*>(dqkv), N, D, H,
+        hd, scale);
+  }
   SKY_TRY(cudaGetLastError());
 
   SKY_TRY(launch_colsum_partial<float>(dqkv, M, 3 * D, part_qkv, dqkv_c, s));
@@ -274,4 +376,26 @@ extern "C" int sky_attn_block_bwd_stash(
   SKY_TRY(launch_colsum_final(part_scale, parts, D, dscale, s));
   SKY_TRY(launch_colsum_final(part_bias, parts, D, dbias, s));
   return 0;
+}
+
+// Kernel 3: the gradients from the stashed qkv (B, N, 3D) and probs (B, H, N, N).
+extern "C" int sky_attn_block_bwd_stash(
+    const void* x, const void* ln_scale, const void* ln_bias, const void* wqkv, const void* wproj,
+    const void* qkv, const void* probs, const void* g, void* y, void* dc, void* ctx, void* dqkv,
+    void* dqkv_c, void* dy, void* part, void* ws, void* dx, void* dscale, void* dbias, void* dwqkv,
+    void* dbqkv, void* dwproj, void* dbproj, int B, int N, int D, int H, void* stream) {
+  return attn_block_bwd(x, ln_scale, ln_bias, wqkv, nullptr, wproj, const_cast<void*>(qkv), probs,
+                        g, y, dc, ctx, dqkv, dqkv_c, dy, part, ws, dx, dscale, dbias, dwqkv, dbqkv,
+                        dwproj, dbproj, B, N, D, H, false, stream);
+}
+
+// Kernel 4: the gradients from x and g alone; qkv is (B, N, 3D) bf16 scratch.
+extern "C" int sky_attn_block_bwd(
+    const void* x, const void* ln_scale, const void* ln_bias, const void* wqkv, const void* bqkv,
+    const void* wproj, const void* g, void* y, void* qkv, void* dc, void* ctx, void* dqkv,
+    void* dqkv_c, void* dy, void* part, void* ws, void* dx, void* dscale, void* dbias, void* dwqkv,
+    void* dbqkv, void* dwproj, void* dbproj, int B, int N, int D, int H, void* stream) {
+  return attn_block_bwd(x, ln_scale, ln_bias, wqkv, bqkv, wproj, qkv, nullptr, g, y, dc, ctx, dqkv,
+                        dqkv_c, dy, part, ws, dx, dscale, dbias, dwqkv, dbqkv, dwproj, dbproj, B, N,
+                        D, H, true, stream);
 }

@@ -45,6 +45,11 @@
 //   EPI_GELU_BWD       da = acc * gelu'(a) with a read from out_f32, which
 //                      then holds da (fp32, for db1); out = bf16(da),
 //                      out2 = bf16(gelu(a))          (mlp_block.py:323-329)
+//   EPI_BIAS_GELU_STASH  as EPI_BIAS_GELU, and out2 = bf16(acc + bias), the
+//                      fc1 pre-activation stash; GELU reads the fp32 value
+//                      before that rounding           (mlp_block.py:365-370)
+//   EPI_GELU_BWD_STASH as EPI_GELU_BWD with a read from the bf16 stash in
+//                      `resid`; out_f32 = da         (mlp_block.py:393-399)
 //
 // layernorm_bf16 computes the LN that opens both blocks: fp32 two-pass
 // statistics per row (eps 1e-6), output rounded to bf16 -- the rounding
@@ -98,16 +103,18 @@ enum Epilogue {
   EPI_STORE_F32 = 4,
   EPI_BIAS_F32 = 5,
   EPI_GELU_BWD = 6,
+  EPI_BIAS_GELU_STASH = 7,
+  EPI_GELU_BWD_STASH = 8,
 };
 
 struct GemmArgs {
   const bf16* a;      // (M, K), or (K, M) with TA
   const bf16* b;      // (K, N), or (N, K) with TB
   const float* bias;  // (N,), the EPI_BIAS* epilogues only
-  const bf16* resid;  // (M, N), EPI_BIAS_RESIDUAL only
+  const bf16* resid;  // (M, N): EPI_BIAS_RESIDUAL; the stashed a for EPI_GELU_BWD_STASH
   bf16* out;          // (M, N) bf16 (not for EPI_STORE_F32 / EPI_BIAS_F32)
-  float* out_f32;     // (M, N) fp32: EPI_STORE_F32, EPI_BIAS_F32, EPI_GELU_BWD
-  bf16* out2;         // (M, N) bf16: EPI_GELU_BWD only
+  float* out_f32;     // (M, N) fp32: EPI_STORE_F32, EPI_BIAS_F32, EPI_GELU_BWD(_STASH)
+  bf16* out2;         // (M, N) bf16: EPI_GELU_BWD(_STASH), EPI_BIAS_GELU_STASH
   int M, N, K;
   int k_split;        // with TA: K per blockIdx.z slice, a multiple of BK (K when
                       // unsplit); slice z writes its fp32 partial at out_f32 + z * M * N
@@ -272,11 +279,18 @@ __global__ void __launch_bounds__(GEMM_THREADS, 2) gemm_bf16_kernel(GemmArgs p) 
 #pragma unroll
         for (int e = 0; e < 8; ++e) v[e] = st[r * 16 + c + e];
         if (EPI == EPI_BIAS || EPI == EPI_BIAS_GELU || EPI == EPI_BIAS_RESIDUAL ||
-            EPI == EPI_BIAS_F32) {
+            EPI == EPI_BIAS_F32 || EPI == EPI_BIAS_GELU_STASH) {
 #pragma unroll
           for (int e = 0; e < 8; ++e) v[e] += p.bias[n + e];
         }
-        if (EPI == EPI_BIAS_GELU) {
+        if (EPI == EPI_BIAS_GELU_STASH) {
+          uint4 av;
+          bf16* ae = reinterpret_cast<bf16*>(&av);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) ae[e] = __float2bfloat16_rn(v[e]);
+          *reinterpret_cast<uint4*>(p.out2 + at) = av;
+        }
+        if (EPI == EPI_BIAS_GELU || EPI == EPI_BIAS_GELU_STASH) {
 #pragma unroll
           for (int e = 0; e < 8; ++e) v[e] = gelu_erf(v[e]);
         }
@@ -286,10 +300,19 @@ __global__ void __launch_bounds__(GEMM_THREADS, 2) gemm_bf16_kernel(GemmArgs p) 
 #pragma unroll
           for (int e = 0; e < 8; ++e) v[e] = __bfloat162float(re[e]) + v[e];
         }
-        if (EPI == EPI_GELU_BWD) {
-          float4* ap = reinterpret_cast<float4*>(out_f32 + at);
-          const float4 a0 = ap[0], a1 = ap[1];
-          const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+        if (EPI == EPI_GELU_BWD || EPI == EPI_GELU_BWD_STASH) {
+          float a[8];
+          if (EPI == EPI_GELU_BWD) {
+            const float4* ap = reinterpret_cast<const float4*>(out_f32 + at);
+            const float4 a0 = ap[0], a1 = ap[1];
+            a[0] = a0.x; a[1] = a0.y; a[2] = a0.z; a[3] = a0.w;
+            a[4] = a1.x; a[5] = a1.y; a[6] = a1.z; a[7] = a1.w;
+          } else {
+            const uint4 sv = *reinterpret_cast<const uint4*>(p.resid + at);
+            const bf16* se = reinterpret_cast<const bf16*>(&sv);
+#pragma unroll
+            for (int e = 0; e < 8; ++e) a[e] = __bfloat162float(se[e]);
+          }
           uint4 hv;
           bf16* he = reinterpret_cast<bf16*>(&hv);
 #pragma unroll
@@ -299,7 +322,8 @@ __global__ void __launch_bounds__(GEMM_THREADS, 2) gemm_bf16_kernel(GemmArgs p) 
           }
           *reinterpret_cast<uint4*>(p.out2 + at) = hv;
         }
-        if (EPI == EPI_STORE_F32 || EPI == EPI_BIAS_F32 || EPI == EPI_GELU_BWD) {
+        if (EPI == EPI_STORE_F32 || EPI == EPI_BIAS_F32 || EPI == EPI_GELU_BWD ||
+            EPI == EPI_GELU_BWD_STASH) {
           float4* op = reinterpret_cast<float4*>(out_f32 + at);
           op[0] = make_float4(v[0], v[1], v[2], v[3]);
           op[1] = make_float4(v[4], v[5], v[6], v[7]);

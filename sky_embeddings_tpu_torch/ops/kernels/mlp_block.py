@@ -13,19 +13,26 @@ own their whole reduction, with deterministic two-pass column sums for the
 bias and LN gradients. :class:`MlpBlockFn` is the ``torch.autograd.Function``
 that pairs the two.
 
+Stash forward and backward (kernels 6 and 7, ``stash=True``, the ViT-L
+default): replace ``_pallas_fwd_stash`` and ``_pallas_bwd_stash``. Kernel 6
+is K1's launches with an fc1 epilogue that also stores the pre-activation
+``a`` (B·N, F) in bf16 (``csrc/mlp_block.cu`` entry
+``sky_mlp_block_fwd_stash``); kernel 7 is kernel 8 without the fc1 GEMM,
+its dh epilogue reading the bf16 ``a`` (``csrc/mlp_block_bwd.cu`` entry
+``sky_mlp_block_bwd_stash``). :class:`MlpBlockStashFn` pairs them.
+
 What bounds them on the H100: tensor-core FLOPs (4·M·D·F forward, 10·M·D·F
-backward at M = B·65 rows), not bytes. The first versions move h, a and da
-through device memory at the TPU kernel's rounding points; keeping them on
-chip and wgmma are later work.
+backward, 8·M·D·F for kernel 7, at M = B·65 rows), not bytes. The first
+versions move h, a and da through device memory at the TPU kernel's
+rounding points; keeping them on chip and wgmma are later work.
 
 Numerics (kernel and plain versions alike): fp32 LN statistics (eps 1e-6),
 bf16 GEMM operands with fp32 accumulation, exact-erf GELU and GELU' in fp32,
 h and da rounded to bf16 before the products that take them, db1 summed from
 the fp32 da, weight gradients cast to the weight dtype, residual gradient
-added in fp32 and cast to x's dtype.
-
-The stashed backward (TPU kernels 6 and 7, ``stash=True``, the ViT-L
-default) is not ported yet: with grad on CUDA it raises (ROADMAP).
+added in fp32 and cast to x's dtype. Kernel 6 takes GELU of the fp32 ``a``
+(its ``out`` is K1's); kernel 7 takes GELU and GELU' of the stashed,
+rounded ``a``, so its h (for dW2) is not the forward's.
 """
 
 from __future__ import annotations
@@ -81,26 +88,30 @@ def gelu_grad(a: torch.Tensor) -> torch.Tensor:
     return 0.5 * (1.0 + torch.erf(a * _INV_SQRT2)) + a * torch.exp(-0.5 * a * a) * _INV_SQRT2PI
 
 
-def mlp_block_plain(x, scale, bias, w1, b1, w2, b2):
-    """Plain PyTorch version (CPU path and parity reference); the same math
-    as the JAX oracle ``xla_mlp_block``."""
+def mlp_block_fwd_stash_plain(x, scale, bias, w1, b1, w2, b2):
+    """Plain version of kernel 6 (``_fwd_stash_kernel``, mlp_block.py:357-375):
+    ``(out, a)``, ``out`` the JAX oracle ``xla_mlp_block`` (GELU of the fp32
+    pre-activation) and ``a`` the fc1 pre-activation (B·N, F) in x's dtype."""
     x2 = x.float()
     y = layer_norm(x2, scale, bias)
     a = _dot(y.to(w1.dtype), w1) + b1
     out = _dot(gelu(a).to(w2.dtype), w2) + b2
-    return (x2 + out).to(x.dtype)
+    return (x2 + out).to(x.dtype), a.reshape(-1, a.shape[-1]).to(x.dtype)
 
 
-def mlp_block_bwd_plain(x, scale, bias, w1, b1, w2, g):
-    """Plain version of kernel 8: mirrors ``_bwd_kernel`` (mlp_block.py:309-354)
-    rounding point by rounding point. Returns (dx, dscale, dbias, dw1, db1,
-    dw2, db2) in the dtypes of (x, scale, bias, w1, b1, w2, b2)."""
+def mlp_block_plain(x, scale, bias, w1, b1, w2, b2):
+    """Plain PyTorch version of the primal (CPU path and parity reference)."""
+    return mlp_block_fwd_stash_plain(x, scale, bias, w1, b1, w2, b2)[0]
+
+
+def _mlp_bwd_from(x, scale, bias, w1, w2, a, g):
+    """The MLP backward from the fp32 pre-activation ``a`` (M, F), at the
+    rounding points of ``_bwd_kernel`` / ``_bwd_stash_kernel``."""
     D = x.shape[-1]
     x2 = x.reshape(-1, D).float()
     g2 = g.reshape(-1, D).float()
     y, xhat, rstd = _ln_forward(x2, scale, bias)
     y_c = y.to(w1.dtype)
-    a = _dot(y_c, w1) + b1
     h_c = gelu(a).to(w2.dtype)
     g_c = g2.to(w2.dtype)
     dh = _dot(g_c, w2.t())
@@ -115,22 +126,31 @@ def mlp_block_bwd_plain(x, scale, bias, w1, b1, w2, g):
     )
 
 
-def _lib() -> ctypes.CDLL:
-    lib = cuda_build.load("mlp_block")
-    fn = lib.sky_mlp_block_fwd
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return lib
+def mlp_block_bwd_plain(x, scale, bias, w1, b1, w2, g):
+    """Plain version of kernel 8: mirrors ``_bwd_kernel`` (mlp_block.py:309-354)
+    rounding point by rounding point: LN and fc1 recomputed, GELU of the fp32
+    pre-activation. Returns (dx, dscale, dbias, dw1, db1, dw2, db2) in the
+    dtypes of (x, scale, bias, w1, b1, w2, b2)."""
+    y = layer_norm(x.reshape(-1, x.shape[-1]).float(), scale, bias)
+    return _mlp_bwd_from(x, scale, bias, w1, w2, _dot(y.to(w1.dtype), w1) + b1, g)
 
 
-def _lib_bwd() -> ctypes.CDLL:
-    lib = cuda_build.load("mlp_block_bwd")
-    fn = lib.sky_mlp_block_bwd
+def mlp_block_bwd_stash_plain(x, scale, bias, w1, w2, a, g):
+    """Plain version of kernel 7: mirrors ``_bwd_stash_kernel``
+    (mlp_block.py:378-423): GELU and GELU' of the stashed ``a`` (B·N, F) in
+    x's dtype, upcast to fp32; no fc1 recompute. Outputs as
+    :func:`mlp_block_bwd_plain`."""
+    return _mlp_bwd_from(x, scale, bias, w1, w2, a.float(), g)
+
+
+def _entry(name: str, entry: str, n_ptr: int):
+    """The C function ``entry`` of ``lib<name>``: ``n_ptr`` pointers, then
+    M, D, F and the stream."""
+    fn = getattr(cuda_build.load(name), entry)
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 21 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 3 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    return lib
+    return fn
 
 
 def _check_cuda_args(x, scale, bias, w1, b1, w2, b2=None):
@@ -148,9 +168,9 @@ def _check_cuda_args(x, scale, bias, w1, b1, w2, b2=None):
         "w1": (w1, (D, F), torch.bfloat16), "b1": (b1, (F,), torch.float32),
         "w2": (w2, (F, D), torch.bfloat16), "b2": (b2, (D,), torch.float32),
     }
-    if b2 is None:  # the backward does not read b2
-        del want["b2"]
     for name, (t, shape, dtype) in want.items():
+        if t is None:  # the backwards read no b2, the stash backward no b1
+            continue
         if tuple(t.shape) != shape or t.dtype != dtype or not t.is_contiguous():
             raise ValueError(f"{name}: want contiguous {shape} {dtype}, got {tuple(t.shape)} {t.dtype}")
         if t.device != x.device:
@@ -161,22 +181,75 @@ def _check_cuda_args(x, scale, bias, w1, b1, w2, b2=None):
         raise ValueError("too many rows for one launch grid")
 
 
-def _launch_fwd(x, scale, bias, w1, b1, w2, b2):
-    """K1 on CUDA tensors (counted on ``fused_mlp_block.launches``)."""
+def _launch_fwd(x, scale, bias, w1, b1, w2, b2, stash: bool = False):
+    """K1 (counted on ``fused_mlp_block.launches``) or, with ``stash``, kernel 6
+    (counted on ``mlp_block_fwd_stash.launches``) on CUDA tensors: ``(out,
+    a)``, ``a`` None without the stash."""
     _check_cuda_args(x, scale, bias, w1, b1, w2, b2)
     B, N, D = x.shape
     F = w1.shape[1]
     h = torch.empty((B * N, F), dtype=torch.bfloat16, device=x.device)
     out = torch.empty_like(x)
+    ptrs = [t.data_ptr() for t in (x, scale, bias, w1, b1, w2, b2, h)]
+    a = None
+    if stash:
+        a = torch.empty((B * N, F), dtype=torch.bfloat16, device=x.device)
+        ptrs.append(a.data_ptr())
+        entry = "sky_mlp_block_fwd_stash"
+    else:
+        entry = "sky_mlp_block_fwd"
     with torch.cuda.device(x.device):
-        err = _lib().sky_mlp_block_fwd(
-            x.data_ptr(), scale.data_ptr(), bias.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-            w2.data_ptr(), b2.data_ptr(), h.data_ptr(), out.data_ptr(), B * N, D, F,
-            torch.cuda.current_stream().cuda_stream,
-        )
-    cuda_build.check(err, "mlp_block")
-    fused_mlp_block.launches += 1
-    return out
+        err = _entry("mlp_block", entry, len(ptrs) + 1)(
+            *ptrs, out.data_ptr(), B * N, D, F, torch.cuda.current_stream().cuda_stream)
+    cuda_build.check(err, entry)
+    if stash:
+        mlp_block_fwd_stash.launches += 1
+    else:
+        fused_mlp_block.launches += 1
+    return out, a
+
+
+def mlp_block_fwd_stash(x, scale, bias, w1, b1, w2, b2):
+    """Kernel 6: ``(out, a)`` as :func:`mlp_block_fwd_stash_plain`. CPU
+    tensors take the plain version; CUDA tensors launch ``csrc/mlp_block.cu``
+    (stash entry) or raise."""
+    if x.device.type == "cpu":
+        return mlp_block_fwd_stash_plain(x, scale, bias, w1, b1, w2, b2)
+    return _launch_fwd(x, scale, bias, w1, b1, w2, b2, stash=True)
+
+
+mlp_block_fwd_stash.launches = 0
+
+
+def _check_g(x, g):
+    if g.shape != x.shape or g.dtype != x.dtype or not g.is_contiguous() or g.device != x.device:
+        raise ValueError(f"g: want a contiguous {tuple(x.shape)} {x.dtype} tensor on {x.device}")
+
+
+def _launch_bwd(entry, x, scale, bias, w1, b1, w2, a, g):
+    """Kernel 8 (``a`` None: fc1 recomputed from ``b1``) or kernel 7 (the bf16
+    stash ``a``) on CUDA tensors; allocates the scratch and the outputs."""
+    B, N, D = x.shape
+    F = w1.shape[1]
+    M = B * N
+    parts = -(-M // ROWS_PER_PARTIAL)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    bf = dict(dtype=torch.bfloat16, device=x.device)
+    y, dy = torch.empty((M, D), **bf), torch.empty((M, D), **f32)
+    af, da_c, h_c = torch.empty((M, F), **f32), torch.empty((M, F), **bf), torch.empty((M, F), **bf)
+    part = torch.empty(parts * (F + 3 * D), **f32)
+    ws = torch.empty(MAX_SPLITS * D * F, **f32)
+    dx = torch.empty_like(x)
+    dscale, dbias, db2 = (torch.empty(D, **f32) for _ in range(3))
+    dw1, db1, dw2 = torch.empty((D, F), **bf), torch.empty(F, **f32), torch.empty((F, D), **bf)
+    ins = (x, scale, bias, w1, b1, w2, g) if a is None else (x, scale, bias, w1, w2, a, g)
+    ptrs = [t.data_ptr() for t in (*ins, y, af, da_c, h_c, dy, part, ws,
+                                   dx, dscale, dbias, dw1, db1, dw2, db2)]
+    with torch.cuda.device(x.device):
+        err = _entry("mlp_block_bwd", entry, len(ptrs))(
+            *ptrs, M, D, F, torch.cuda.current_stream().cuda_stream)
+    cuda_build.check(err, entry)
+    return dx, dscale, dbias, dw1, db1, dw2, db2
 
 
 def mlp_block_bwd(x, scale, bias, w1, b1, w2, g):
@@ -186,31 +259,35 @@ def mlp_block_bwd(x, scale, bias, w1, b1, w2, g):
     if x.device.type == "cpu":
         return mlp_block_bwd_plain(x, scale, bias, w1, b1, w2, g)
     _check_cuda_args(x, scale, bias, w1, b1, w2)
-    if g.shape != x.shape or g.dtype != x.dtype or not g.is_contiguous() or g.device != x.device:
-        raise ValueError(f"g: want a contiguous {tuple(x.shape)} {x.dtype} tensor on {x.device}")
-    B, N, D = x.shape
-    F = w1.shape[1]
-    M = B * N
-    parts = -(-M // ROWS_PER_PARTIAL)
-    f32 = dict(dtype=torch.float32, device=x.device)
-    bf = dict(dtype=torch.bfloat16, device=x.device)
-    y, dy = torch.empty((M, D), **bf), torch.empty((M, D), **f32)
-    a, da_c, h_c = torch.empty((M, F), **f32), torch.empty((M, F), **bf), torch.empty((M, F), **bf)
-    part = torch.empty(parts * (F + 3 * D), **f32)
-    ws = torch.empty(MAX_SPLITS * D * F, **f32)
-    dx = torch.empty_like(x)
-    dscale, dbias, db2 = (torch.empty(D, **f32) for _ in range(3))
-    dw1, db1, dw2 = torch.empty((D, F), **bf), torch.empty(F, **f32), torch.empty((F, D), **bf)
-    ptrs = [t.data_ptr() for t in (x, scale, bias, w1, b1, w2, g, y, a, da_c, h_c, dy, part, ws,
-                                   dx, dscale, dbias, dw1, db1, dw2, db2)]
-    with torch.cuda.device(x.device):
-        err = _lib_bwd().sky_mlp_block_bwd(*ptrs, M, D, F, torch.cuda.current_stream().cuda_stream)
-    cuda_build.check(err, "mlp_block_bwd")
+    _check_g(x, g)
+    grads = _launch_bwd("sky_mlp_block_bwd", x, scale, bias, w1, b1, w2, None, g)
     mlp_block_bwd.launches += 1
-    return dx, dscale, dbias, dw1, db1, dw2, db2
+    return grads
 
 
 mlp_block_bwd.launches = 0
+
+
+def mlp_block_bwd_stash(x, scale, bias, w1, w2, a, g):
+    """Kernel 7: the gradients of the block from x, the bf16 stash ``a``
+    (B·N, F) of kernel 6 and the output gradient ``g`` (outputs as
+    :func:`mlp_block_bwd_stash_plain`). CPU tensors take the plain version;
+    CUDA tensors launch ``csrc/mlp_block_bwd.cu`` (stash entry) or raise."""
+    if x.device.type == "cpu":
+        return mlp_block_bwd_stash_plain(x, scale, bias, w1, w2, a, g)
+    _check_cuda_args(x, scale, bias, w1, None, w2)
+    _check_g(x, g)
+    M, F = x.shape[0] * x.shape[1], w1.shape[1]
+    if tuple(a.shape) != (M, F) or a.dtype != torch.bfloat16 or not a.is_contiguous() \
+            or a.device != x.device:
+        raise ValueError(f"a: want a contiguous {(M, F)} bf16 tensor on {x.device}, "
+                         f"got {tuple(a.shape)} {a.dtype} on {a.device}")
+    grads = _launch_bwd("sky_mlp_block_bwd_stash", x, scale, bias, w1, None, w2, a, g)
+    mlp_block_bwd_stash.launches += 1
+    return grads
+
+
+mlp_block_bwd_stash.launches = 0
 
 
 class MlpBlockFn(torch.autograd.Function):
@@ -221,8 +298,10 @@ class MlpBlockFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, scale, bias, w1, b1, w2, b2, plain):
-        on_plain = plain or x.device.type == "cpu"
-        out = (mlp_block_plain if on_plain else _launch_fwd)(x, scale, bias, w1, b1, w2, b2)
+        if plain or x.device.type == "cpu":
+            out = mlp_block_plain(x, scale, bias, w1, b1, w2, b2)
+        else:
+            out = _launch_fwd(x, scale, bias, w1, b1, w2, b2)[0]
         ctx.save_for_backward(x, scale, bias, w1, b1, w2)
         ctx.plain = plain
         return out
@@ -234,6 +313,26 @@ class MlpBlockFn(torch.autograd.Function):
         return (*bwd(x, scale, bias, w1, b1, w2, g.contiguous()), None)
 
 
+class MlpBlockStashFn(torch.autograd.Function):
+    """Kernel 6 forward, kernel 7 backward (JAX ``fused_mlp_block`` with
+    ``stash=True``: x, the weights and the bf16 pre-activation ``a`` are
+    saved). ``plain`` runs the plain versions of both on any device."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, w1, b1, w2, b2, plain):
+        fwd = mlp_block_fwd_stash_plain if plain else mlp_block_fwd_stash
+        out, a = fwd(x, scale, bias, w1, b1, w2, b2)
+        ctx.save_for_backward(x, scale, bias, w1, w2, a)
+        ctx.plain = plain
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, scale, bias, w1, w2, a = ctx.saved_tensors
+        bwd = mlp_block_bwd_stash_plain if ctx.plain else mlp_block_bwd_stash
+        return (*bwd(x, scale, bias, w1, w2, a, g.contiguous()), None)
+
+
 def _needs_grad(*tensors) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
@@ -241,22 +340,14 @@ def _needs_grad(*tensors) -> bool:
 def fused_mlp_block(x, scale, bias, w1, b1, w2, b2, stash: bool = False, plain: bool = False):
     """(B, N, D) -> (B, N, D). Without grad: CPU tensors (or ``plain``) take
     :func:`mlp_block_plain`, CUDA tensors launch K1 or raise. With grad, the
-    call goes through :class:`MlpBlockFn` (K1 forward, kernel 8 backward);
-    ``stash=True`` needs TPU kernels 6 and 7, not ported yet: it raises on
-    CUDA and differentiates the plain version on the CPU."""
+    call goes through :class:`MlpBlockFn` (K1 forward, kernel 8 backward) or,
+    with ``stash``, :class:`MlpBlockStashFn` (kernels 6 and 7)."""
     args = (x, scale, bias, w1, b1, w2, b2)
-    on_plain = plain or x.device.type == "cpu"
     if not _needs_grad(*args):
-        return mlp_block_plain(*args) if on_plain else _launch_fwd(*args)
-    if not stash:
-        return MlpBlockFn.apply(*args, plain)
-    if on_plain:
-        return mlp_block_plain(*args)
-    raise NotImplementedError(
-        "fused_mlp_block(stash=True) with grad on CUDA needs the MLP stash forward and "
-        "backward (TPU kernels 6 and 7), not ported yet (ROADMAP 1.1: MLP stash, "
-        "configs/mim_25_large.ini)"
-    )
+        if plain or x.device.type == "cpu":
+            return mlp_block_plain(*args)
+        return _launch_fwd(*args)[0]
+    return (MlpBlockStashFn if stash else MlpBlockFn).apply(*args, plain)
 
 
 fused_mlp_block.launches = 0

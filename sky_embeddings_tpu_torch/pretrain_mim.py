@@ -10,7 +10,7 @@ validation batches stream from the h5 files the config names
 pixel clip applied on the device inside the step. ``--device cpu`` runs it
 on the CPU.
 
-Not ported yet: FITS tile training data (``train_data_paths``, ROADMAP 1.5),
+Not ported yet: FITS tile training data (``train_data_paths``, ROADMAP 1.6),
 the device-resident data cache, multi-process runs, and the linear probes
 and figures (``train_network`` says so when the config names them).
 """
@@ -55,7 +55,7 @@ def main(argv=None) -> str:
     data = config.data
     if "train_data_file" not in data:
         raise NotImplementedError(
-            "FITS tile training data (train_data_paths) is not ported yet (ROADMAP 1.5)")
+            "FITS tile training data (train_data_paths) is not ported yet (ROADMAP 1.6)")
     img_size = config.architecture.int("img_size")
     # the pixel clip runs on the device inside the step
     batcher = dict(batch_size=pretrainer.batch_size, img_size=img_size, shuffle=True,

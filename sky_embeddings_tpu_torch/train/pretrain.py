@@ -2,18 +2,20 @@
 ``sky_embeddings_tpu/train/pretrain.py``).
 
 One training step clips the pixels, takes a (B, C, H, W) SimMIM mask, runs
-the forward and ``loss.backward()`` through the encoder's kernels (the
-attention stash forward/backward and the MLP recompute backward, see
-``models/layers.py``), and an AdamW step whose learning rate follows the
-cosine schedule with optax's step indexing. The step takes the mask as an
-argument: :class:`MIMPretrainer` draws it from its own ``torch.Generator`` on
-the device, and tests hand the same numpy mask to this port and to JAX.
-Validation masks vary across val batches and across eval passes, as the JAX
-step makes them by folding the batch index and the step into its key.
+the forward and ``loss.backward()`` through the encoder's kernels (see
+``models/layers.py``: the attention stash with the MLP recompute backward
+at ViT-B, both stashes at ViT-L, both recompute backwards under
+``[TRAINING] remat``), and an AdamW step whose
+learning rate follows the cosine schedule with optax's step indexing. An
+``ra_dec`` model also reads the batch's ``ra_dec``. The step takes the mask
+as an argument: :class:`MIMPretrainer` draws it from its own
+``torch.Generator`` on the device, and tests hand the same numpy mask to
+this port and to JAX. Validation masks vary across val batches and across
+eval passes, as the JAX step makes them by folding the batch index and the
+step into its key.
 
-Not ported yet (ROADMAP): remat, tensor parallelism and ZeRO (they raise),
-and the linear probes and figures of ``train_network`` (skipped with a
-message).
+Not ported yet (ROADMAP): tensor parallelism and ZeRO (they raise), and the
+linear probes and figures of ``train_network`` (skipped with a message).
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from sky_embeddings_tpu_torch.eval.eval_fns import batch_ra_dec
 from sky_embeddings_tpu_torch.models.mim import SkyMIM, build_mim_model
 from sky_embeddings_tpu_torch.ops.masking import simmim_batch_mask
 from sky_embeddings_tpu_torch.train.optim import pretrain_optimizer
@@ -44,10 +47,12 @@ def make_mim_step(
     pixel_min: Optional[float] = None,
     pixel_max: Optional[float] = None,
 ):
-    """The step function: ``(cutouts, mask, step) -> loss`` when training
-    (forward, backward, AdamW step at ``lr = schedule(step)``), ``(cutouts,
-    mask) -> loss`` in eval (forward only). ``pixel_min``/``pixel_max`` apply
-    the loader's pixel clip on the device. The loss is a 0-d device tensor."""
+    """The step function: ``(cutouts, mask, step, ra_dec) -> loss`` when
+    training (forward, backward, AdamW step at ``lr = schedule(step)``),
+    ``(cutouts, mask, ra_dec) -> loss`` in eval (forward only); ``ra_dec``
+    is read only by an ``ra_dec`` model, as in JAX. ``pixel_min``/``pixel_max``
+    apply the loader's pixel clip on the device. The loss is a 0-d device
+    tensor."""
 
     def prep(cutouts: torch.Tensor) -> torch.Tensor:
         if pixel_min is not None:
@@ -57,14 +62,14 @@ def make_mim_step(
         return cutouts.float()
 
     if not train:
-        def eval_step(cutouts: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        def eval_step(cutouts: torch.Tensor, mask: torch.Tensor, ra_dec=None) -> torch.Tensor:
             with torch.no_grad():
-                return model(prep(cutouts), mask)[0]
+                return model(prep(cutouts), mask, ra_dec=ra_dec if model.ra_dec else None)[0]
 
         return eval_step
 
-    def train_step(cutouts: torch.Tensor, mask: torch.Tensor, step: int) -> torch.Tensor:
-        loss = model(prep(cutouts), mask)[0]
+    def train_step(cutouts: torch.Tensor, mask: torch.Tensor, step: int, ra_dec=None) -> torch.Tensor:
+        loss = model(prep(cutouts), mask, ra_dec=ra_dec if model.ra_dec else None)[0]
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
         for group in optimizer.param_groups:
@@ -89,15 +94,16 @@ class MIMPretrainer:
         self.config = config
         self.device = resolve_device(device)
         training = config.training
-        if training.bool("remat", False):
-            raise NotImplementedError("remat is not ported yet (ROADMAP 1.12: scan layout and remat)")
         if training.int("tensor_parallel", 1) > 1 or training.bool("zero_optimizer", False):
             raise NotImplementedError(
                 "tensor_parallel / zero_optimizer are not ported yet (ROADMAP 1.12: parallel/)")
         if dtype is None:
             dtype = _DTYPES[training.str("dtype", "float32")]
+        # [TRAINING] remat: checkpoint each block (one extra forward for
+        # O(depth) less live memory), as the JAX trainer reads it
         self.model = build_mim_model(config, dtype=dtype, device=self.device,
-                                     generator=torch.Generator().manual_seed(seed)).train()
+                                     generator=torch.Generator().manual_seed(seed),
+                                     remat=training.bool("remat", False)).train()
         self.total_batch_iters = training.int("total_batch_iters")
         self.batch_size = training.int("batch_size")
         self.max_mask_ratio = training.float("max_mask_ratio", 0.9)
@@ -128,13 +134,16 @@ class MIMPretrainer:
     def _cutouts(self, batch: dict) -> torch.Tensor:
         return torch.as_tensor(batch["cutouts"], device=self.device)
 
+    def _ra_dec(self, batch: dict) -> Optional[torch.Tensor]:
+        return batch_ra_dec(batch, self.device) if self.model.ra_dec else None
+
     def train_batch(self, batch: dict, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """One optimizer step on ``batch``; the mask is drawn from the
         trainer's generator unless given."""
         cutouts = self._cutouts(batch)
         if mask is None:
             mask = self.draw_mask(cutouts.shape[0], self.mask_gen)
-        loss = self._train_step(cutouts, mask, self.step)
+        loss = self._train_step(cutouts, mask, self.step, self._ra_dec(batch))
         self.step += 1
         return loss
 
@@ -146,7 +155,7 @@ class MIMPretrainer:
         if mask is None:
             seed = int(np.random.SeedSequence([self.seed, self.step, idx]).generate_state(1)[0])
             mask = self.draw_mask(cutouts.shape[0], torch.Generator(device=self.device).manual_seed(seed))
-        return self._eval_step(cutouts, mask)
+        return self._eval_step(cutouts, mask, self._ra_dec(batch))
 
     def save(self, path: str) -> None:
         ckpt.save_checkpoint(path, {
@@ -193,7 +202,7 @@ def train_network(
         log_fn("Training already complete for this config; nothing to do.")
         return
     if lp_class_data_file or lp_regress_data_file:
-        log_fn("Linear probes (ROADMAP 1.12) and progress figures (ROADMAP 1.8) are not "
+        log_fn("Linear probes (ROADMAP 1.12) and progress figures (ROADMAP 1.9) are not "
                "ported yet; skipping them.")
 
     timer = StepTimer(batch_size=pretrainer.batch_size, device=pretrainer.device)

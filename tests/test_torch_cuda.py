@@ -3,10 +3,12 @@ on the card, at ragged shapes that the main paths' fixed shapes
 (``chip_smoke.py``) do not reach: odd batch and token counts, heads of 16
 to 64, sequences over 128 tokens (the attention cores' query blocks), bank
 rows and widths that do not fill a block. The training kernels (attention
-stash forward and backward, MLP backward) are held to their plain versions
-output by output. Also what the wrappers must refuse on CUDA, that each
-launch is counted, and that ``loss.backward()`` through the model on the
-card reaches every parameter.
+stash forward and backward, attention recompute backward, MLP backward, MLP
+stash forward and backward) are held to their plain versions output by
+output. Also what the wrappers must refuse on CUDA, that each launch is
+counted, that ``loss.backward()`` through the model on the card reaches
+every parameter (ViT-B's stash path, ViT-L's MLP stash path, the remat path
+with the RA/Dec token), and that remat leaves the gradients bit-equal.
 
 Every test is marked ``cuda`` and skips where there is no card. This file
 imports neither JAX nor the JAX package, so it runs on a host without them:
@@ -35,6 +37,13 @@ TOL_SCORE_F32 = 5e-3
 # slices with a ragged last one (launch_weight_grad, csrc/gemm.cuh)
 ATTN_SHAPES = [(3, 17, 64, 4), (2, 65, 768, 12), (5, 33, 96, 3), (2, 129, 128, 2),
                (3, 200, 96, 6), (1, 256, 64, 1), (1, 256, 256, 4), (9, 65, 128, 2)]
+# the recompute backward's query blocks: one block up to N = 64, 64 rows up
+# to 128, 32 beyond; ViT-L's heads of 48 (mim_25_large) and 64 at N = 66
+# (mim_32, the RA/Dec token)
+RECOMPUTE_SHAPES = ATTN_SHAPES + [(3, 66, 768, 16), (2, 66, 1024, 16), (3, 113, 192, 4),
+                                  (1, 145, 64, 4)]
+MLP_SHAPES = [(3, 17, 64, 256), (5, 33, 96, 200), (2, 65, 768, 3072), (3, 129, 128, 512),
+              (9, 65, 128, 512)]
 
 
 @pytest.fixture
@@ -137,6 +146,44 @@ def test_mlp_backward_kernel_matches_plain(dev, B, N, D, F):
         assert _max_rel(a, b) <= TOL_BWD, name
 
 
+@pytest.mark.parametrize("B,N,D,H", RECOMPUTE_SHAPES)
+def test_attn_recompute_backward_kernel_matches_plain(dev, B, N, D, H):
+    x, scale, bias, wqkv, bqkv, wproj, _ = _block_args(dev, B, N, D, (D, 3 * D), (D, D), seed=13)
+    g = torch.from_numpy(np.random.default_rng(14).normal(size=(B, N, D)).astype(np.float32))
+    bwd_args = (x, scale, bias, wqkv, bqkv, wproj, g.to(dev, torch.bfloat16), H)
+    got = tab.attn_block_bwd(*bwd_args)
+    want = tab.attn_block_bwd_plain(*bwd_args)
+    names = ("dx", "dscale", "dbias", "dwqkv", "dbqkv", "dwproj", "dbproj")
+    for name, a, b in zip(names, got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype, name
+        assert _max_rel(a, b) <= TOL_BWD, name
+
+
+@pytest.mark.parametrize("B,N,D,F", MLP_SHAPES)
+def test_mlp_stash_forward_kernel_matches_plain(dev, B, N, D, F):
+    args = _block_args(dev, B, N, D, (D, F), (F, D), seed=15)
+    out, a = tmb.mlp_block_fwd_stash(*args)
+    want_out, want_a = tmb.mlp_block_fwd_stash_plain(*args)
+    assert out.shape == (B, N, D) and a.shape == (B * N, F) and a.dtype == torch.bfloat16
+    assert _max_rel(out, want_out) <= TOL_FWD and _max_rel(a, want_a) <= TOL_FWD
+    # GELU reads the fp32 pre-activation: the output is K1's, bit for bit
+    assert torch.equal(out, tmb.fused_mlp_block(*args))
+
+
+@pytest.mark.parametrize("B,N,D,F", MLP_SHAPES)
+def test_mlp_stash_backward_kernel_matches_plain(dev, B, N, D, F):
+    x, scale, bias, w1, b1, w2, b2 = _block_args(dev, B, N, D, (D, F), (F, D), seed=16)
+    _, a = tmb.mlp_block_fwd_stash_plain(x, scale, bias, w1, b1, w2, b2)
+    g = torch.from_numpy(np.random.default_rng(17).normal(size=(B, N, D)).astype(np.float32))
+    bwd_args = (x, scale, bias, w1, w2, a, g.to(dev, torch.bfloat16))
+    got = tmb.mlp_block_bwd_stash(*bwd_args)
+    want = tmb.mlp_block_bwd_stash_plain(*bwd_args)
+    names = ("dx", "dscale", "dbias", "dw1", "db1", "dw2", "db2")
+    for name, a_, b in zip(names, got, want):
+        assert a_.shape == b.shape and a_.dtype == b.dtype, name
+        assert _max_rel(a_, b) <= TOL_BWD, name
+
+
 def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     args = _block_args(dev, 2, 17, 64, (64, 256), (256, 64), seed=4)
     with pytest.raises(ValueError, match="bf16"):
@@ -175,13 +222,29 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
         tab.attn_block_bwd_stash(wide[0], wide[1], wide[2], wide[3], wide[5], qkv24, probs24,
                                  torch.ones_like(wide[0]), 4)  # hd = 24
 
-    # with grad, the combinations that need unported TPU kernels refuse
-    leaf = args[0].detach().requires_grad_()
-    with pytest.raises(NotImplementedError, match="kernel 4"):
-        tab.fused_attn_block(leaf, *args[1:], 4, stash=False)
+    # the recompute backward and the MLP stash kernels refuse the same
+    with pytest.raises(ValueError, match="bf16"):
+        tab.attn_block_bwd(args[0].float(), *args[1:6], g, 4)
+    with pytest.raises(ValueError, match="head dim"):
+        tab.attn_block_bwd(wide[0], *wide[1:6], torch.ones_like(wide[0]), 4)
+    with pytest.raises(ValueError, match="exceeds"):
+        tab.attn_block_bwd(big[0], *big[1:6], torch.ones_like(big[0]), 4)
     mlp = _block_args(dev, 2, 17, 64, (64, 256), (256, 64), seed=5)
-    with pytest.raises(NotImplementedError, match="kernels 6 and 7"):
-        tmb.fused_mlp_block(leaf, *mlp[1:], stash=True)
+    with pytest.raises(ValueError, match="bf16"):
+        tmb.mlp_block_fwd_stash(mlp[0].float(), *mlp[1:])
+    _, a = tmb.mlp_block_fwd_stash_plain(*mlp)
+    with pytest.raises(ValueError, match="a:"):
+        tmb.mlp_block_bwd_stash(*mlp[:4], mlp[5], a.float(), g)
+    with pytest.raises(ValueError, match="a:"):
+        tmb.mlp_block_bwd_stash(*mlp[:4], mlp[5], a[:-1], g)
+    # with grad, both stash settings take their kernels: fp32 is refused,
+    # never sent to the plain versions
+    leaf = args[0].float().detach().requires_grad_()
+    for stash in (True, False):
+        with pytest.raises(ValueError, match="bf16"):
+            tab.fused_attn_block(leaf, *args[1:], 4, stash=stash)
+        with pytest.raises(ValueError, match="bf16"):
+            tmb.fused_mlp_block(mlp[0].float().requires_grad_(), *mlp[1:], stash=stash)
 
     bank = torch.zeros(10, 16, dtype=torch.float16, device=dev)
     ones = torch.ones(16, device=dev)
@@ -193,7 +256,8 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
 
 def test_each_cuda_call_counts_one_launch(dev):
     counters = (tmb.fused_mlp_block, tab.fused_attn_block, tss.weighted_bank_scores,
-                tab.attn_block_fwd_stash, tab.attn_block_bwd_stash, tmb.mlp_block_bwd)
+                tab.attn_block_fwd_stash, tab.attn_block_bwd_stash, tmb.mlp_block_bwd,
+                tab.attn_block_bwd, tmb.mlp_block_fwd_stash, tmb.mlp_block_bwd_stash)
     before = [f.launches for f in counters]
     mlp = _block_args(dev, 2, 17, 64, (64, 256), (256, 64), seed=6)
     attn = _block_args(dev, 2, 17, 64, (64, 192), (64, 64), seed=6)
@@ -207,9 +271,16 @@ def test_each_cuda_call_counts_one_launch(dev):
     x = attn[0].detach().requires_grad_()
     y = tmb.fused_mlp_block(tab.fused_attn_block(x, *attn[1:], 4), *mlp[1:])
     y.float().sum().backward()
+    # and the other pair: K2 forward with the recompute backward, the MLP
+    # stash forward and backward
+    x2 = attn[0].detach().requires_grad_()
+    y = tmb.fused_mlp_block(tab.fused_attn_block(x2, *attn[1:], 4, stash=False), *mlp[1:],
+                            stash=True)
+    y.float().sum().backward()
     torch.cuda.synchronize()
-    assert [f.launches - b for f, b in zip(counters, before)] == [2, 2, 1, 1, 1, 1]
+    assert [f.launches - b for f, b in zip(counters, before)] == [2, 3, 1, 1, 1, 1, 1, 1, 1]
     assert x.grad is not None and torch.isfinite(x.grad.float()).all()
+    assert x2.grad is not None and torch.isfinite(x2.grad.float()).all()
 
 
 def test_encoder_kernel_path_matches_plain_path(dev):
@@ -271,3 +342,69 @@ def test_loss_backward_reaches_every_parameter(dev):
         # three layers of bf16 rounding flips in both directions
         rel = float((grad - want[name]).norm() / (want[name].norm() + 1e-12))
         assert rel <= 5e-2, (name, rel)
+
+
+def _vitl_grads(dev, plain, **kw):
+    """One bf16 training forward and ``loss.backward()`` of a small ViT-L-style
+    SimMIM model (16 heads) on the card: (gradients by name, model)."""
+    from sky_embeddings_tpu_torch.models.mim import SkyMIM
+
+    model = SkyMIM(img_size=32, patch_size=4, in_chans=kw.pop("in_chans", 5), embed_dim=256,
+                   depth=3, num_heads=16, norm_pix_loss=True, dtype=torch.bfloat16, **kw)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    model = model.to(dev).train()
+    model.encoder.plain = plain
+    rng = np.random.default_rng(18)
+    imgs = rng.normal(size=(5, model.in_chans, 32, 32)).astype(np.float32)
+    imgs[1, 2] = np.nan
+    mask = (rng.random(imgs.shape) < 0.5).astype(np.float32)
+    rd = np.stack([rng.uniform(0, 360, 5), rng.uniform(-90, 90, 5)], axis=1).astype(np.float32)
+    loss = model(torch.from_numpy(imgs).to(dev), torch.from_numpy(mask).to(dev),
+                 ra_dec=torch.from_numpy(rd).to(dev) if model.ra_dec else None)[0]
+    loss.backward()
+    return {n: p.grad for n, p in model.named_parameters()}, model
+
+
+@pytest.mark.parametrize("path", ["stash_mlp", "remat_ra_dec"])
+def test_loss_backward_reaches_every_parameter_on_the_vitl_paths(dev, path):
+    """The MLP stash path (kernels 2, 3, 6, 7) and the remat path with the
+    RA/Dec token and 9 bands (K2 and K1 twice per block, kernels 4 and 8):
+    every parameter gets a finite gradient, every block parameter a nonzero
+    one, one launch per block of each backward kernel; the gradients agree
+    with the plain path's."""
+    kw = (dict(stash_mlp=True) if path == "stash_mlp"
+          else dict(remat=True, ra_dec=True, in_chans=9))
+    counters = (tab.attn_block_fwd_stash, tab.attn_block_bwd_stash, tmb.mlp_block_fwd_stash,
+                tmb.mlp_block_bwd_stash, tab.fused_attn_block, tmb.fused_mlp_block,
+                tab.attn_block_bwd, tmb.mlp_block_bwd)
+    before = [f.launches for f in counters]
+    got, model = _vitl_grads(dev, False, **dict(kw))
+    want = (([3, 3, 3, 3, 0, 0, 0, 0]) if path == "stash_mlp" else [0, 0, 0, 0, 6, 6, 3, 3])
+    assert [f.launches - b for f, b in zip(counters, before)] == want
+    assert model.num_extra_tokens == (2 if path == "remat_ra_dec" else 1)
+    ref, _ = _vitl_grads(dev, True, **dict(kw))
+    rels = {}
+    for name, grad in got.items():
+        if name == "mask_token":
+            continue
+        assert grad is not None and torch.isfinite(grad).all(), name
+        if ".block" in name or "ra_dec_embed" in name:
+            assert grad.abs().max() > 0, name
+        rels[name] = float((grad - ref[name]).norm() / (ref[name].norm() + 1e-12))
+    # three layers of bf16 rounding flips at 16 heads of 16 and batch 5; the
+    # patch embedding's gradient sums them over every token. Measured on the
+    # H100 (the same in two runs): 5.5e-2 (stash_mlp) and 6.0e-2
+    # (remat_ra_dec) on patch_embed.proj.kernel, every other leaf <= 3.6e-2
+    worst = max(rels, key=rels.get)
+    assert rels[worst] <= 1.2e-1, (worst, rels[worst])
+
+
+def test_remat_gradients_equal_the_stored_path_on_the_card(dev):
+    """Remat replays each block's forward kernels in the backward; the kernels
+    are deterministic, so the gradients equal those of the same model stored
+    without remat (stash off, the same kernels 4 and 8), bit for bit."""
+    got, _ = _vitl_grads(dev, False, remat=True, ra_dec=True)
+    want, _ = _vitl_grads(dev, False, remat=False, stash=False, ra_dec=True)
+    assert got.keys() == want.keys()
+    for name, grad in got.items():
+        assert (grad is None and want[name] is None) or torch.equal(grad, want[name]), name

@@ -1,11 +1,13 @@
 """The port's kernel modules (sky_embeddings_tpu_torch/ops/kernels) against
 the JAX package: the plain PyTorch versions against the ``xla_*`` oracles
 and against the Pallas kernels run with ``interpret=True``, on the same
-numpy inputs; the training kernels' plain versions (attention stash
-forward and backward, MLP backward) against ``jax.vjp`` of the Pallas
-``fused_attn_block(stash=True)`` and ``fused_mlp_block(stash=False)``. On
-CPU tensors the wrappers and their autograd Functions must take the plain
-versions and launch nothing.
+numpy inputs; the training kernels' plain versions (attention stash forward
+and backward, attention recompute backward on both of its bodies, MLP
+backward, MLP stash forward and backward) against the Pallas kernels and
+against ``jax.vjp`` of the Pallas ``fused_attn_block`` and
+``fused_mlp_block`` with each ``stash`` setting. On CPU tensors the wrappers
+and their autograd Functions must take the plain versions and launch
+nothing.
 
 Bars: fp32 atol 2e-5 (the bar tests/test_kernels.py uses; the Pallas MLP's
 A-S erf passes it too); bf16 max|a-b|/max|b| <= 2e-2 (TOL_FWD of
@@ -182,40 +184,95 @@ def test_mlp_bwd_plain_matches_jax_vjp(dtype):
         _assert_close(a.float().numpy(), _as_np(b), dtype, TOL_BWD)
 
 
-@pytest.mark.parametrize("kind", ["attn", "mlp"])
+def _mlp_stash_inputs(dtype, seed):
+    """Block inputs, g, and the JAX stash forward's (out, a) on them."""
+    j, t, jg, tg = _train_inputs("mlp", dtype, seed)
+    jout, ja = jmb._pallas_fwd_stash(j[0], j[1].reshape(1, -1), j[2].reshape(1, -1), j[3],
+                                     j[4].reshape(1, -1), j[5], j[6].reshape(1, -1), 4, True)
+    return j, t, jg, tg, jout, ja
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mlp_stash_forward_plain_matches_pallas(dtype):
+    """Kernel 6: ``(out, a)`` against ``_pallas_fwd_stash`` in interpret mode."""
+    _, t, _, _, jout, ja = _mlp_stash_inputs(dtype, seed=25)
+    out, a = tmb.mlp_block_fwd_stash_plain(*t)
+    assert out.dtype == a.dtype == _TDT[dtype] and a.shape == (4 * 17, 256)
+    _assert_close(out.float().numpy(), _as_np(jout), dtype)
+    _assert_close(a.float().numpy(), _as_np(ja), dtype)
+    torch.testing.assert_close(out, tmb.mlp_block_plain(*t), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("oracle", ["pallas_interpret", "vjp"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mlp_stash_bwd_plain_matches_jax(dtype, oracle):
+    """Kernel 7 from the same stashed ``a``: against ``_pallas_bwd_stash``;
+    and, each side from its own stash forward, against ``jax.vjp`` of
+    ``fused_mlp_block(stash=True)``."""
+    j, t, jg, tg, _, ja = _mlp_stash_inputs(dtype, seed=26)
+    if oracle == "pallas_interpret":
+        want = jmb._pallas_bwd_stash(j[0], j[1].reshape(1, -1), j[2].reshape(1, -1), j[3], j[5],
+                                     ja, jg, 4, True)
+        want = [w.reshape(-1, *w.shape[2:]) if w.shape[0] == 1 else w for w in want]
+        a = torch.from_numpy(np.array(_as_np(ja))).to(_TDT[dtype])
+    else:
+        _, vjp = jax.vjp(lambda *a: jmb.fused_mlp_block(*a, 4, True, True), *j)
+        want = vjp(jg)
+        a = tmb.mlp_block_fwd_stash_plain(*t)[1]
+    got = tmb.mlp_block_bwd_stash_plain(t[0], t[1], t[2], t[3], t[5], a, tg)
+    for name, a_, b, leaf in zip(_GRADS["mlp"], got, want, t):
+        assert a_.shape == leaf.shape, name
+        if oracle == "vjp":
+            assert a_.dtype == leaf.dtype, name
+        _assert_close(a_.float().numpy(), _as_np(b), dtype, TOL_BWD)
+
+
+@pytest.mark.parametrize("body", ["unrolled", "loop_heads"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_attn_recompute_bwd_plain_matches_jax_vjp(dtype, body):
+    """Kernel 4 against ``jax.vjp`` of ``fused_attn_block(stash=False)``: D=64
+    with 4 heads of 16 takes ``_bwd_kernel``; D=128 with 4 heads of 32 (a
+    group of 4 heads per 128 lanes) takes ``_bwd_kernel_loop``."""
+    D = 64 if body == "unrolled" else 128
+    assert jab._use_loop_heads(4, D // 4) == (body == "loop_heads")
+    j, t = _block_inputs("attn", dtype, B=4, N=17, D=D, seed=27)
+    g = np.random.default_rng(127).normal(size=(4, 17, D)).astype(np.float32)
+    jg, tg = jnp.asarray(g).astype(_JDT[dtype]), torch.from_numpy(g).to(_TDT[dtype])
+    _, vjp = jax.vjp(lambda *a: jab.fused_attn_block(*a, 4, 4, 4, True, False), *j)
+    want = vjp(jg)
+    got = tab.attn_block_bwd_plain(t[0], t[1], t[2], t[3], t[4], t[5], tg, 4)
+    for name, a, b, leaf in zip(_GRADS["attn"], got, want, t):
+        assert a.dtype == leaf.dtype and a.shape == leaf.shape, name
+        _assert_close(a.float().numpy(), _as_np(b), dtype, TOL_BWD)
+
+
+@pytest.mark.parametrize("kind", ["attn", "mlp", "attn_recompute", "mlp_stash"])
 def test_autograd_functions_take_plain_versions_on_cpu(kind):
-    """``fused_*`` with grad on CPU tensors: the Function's backward equals the
-    plain backward exactly, and nothing is launched."""
-    _, t, _, tg = _train_inputs(kind, "bfloat16", seed=23)
+    """``fused_*`` with grad on CPU tensors, each ``stash`` setting: the
+    Function's backward equals the plain backward exactly, and nothing is
+    launched."""
+    _, t, _, tg = _train_inputs(kind.split("_")[0], "bfloat16", seed=23)
     leaves = [a.detach().clone().requires_grad_() for a in t]
     counters = (tab.fused_attn_block, tab.attn_block_fwd_stash, tab.attn_block_bwd_stash,
-                tmb.fused_mlp_block, tmb.mlp_block_bwd)
+                tab.attn_block_bwd, tmb.fused_mlp_block, tmb.mlp_block_bwd,
+                tmb.mlp_block_fwd_stash, tmb.mlp_block_bwd_stash)
     before = [f.launches for f in counters]
     if kind == "attn":
         out = tab.fused_attn_block(*leaves, 4)
         want = tab.attn_block_bwd_stash_plain(t[0], t[1], t[2], t[3], t[5],
                                               *tab.attn_block_fwd_stash_plain(*t, 4)[1:], tg, 4)
-    else:
+    elif kind == "attn_recompute":
+        out = tab.fused_attn_block(*leaves, 4, stash=False)
+        want = tab.attn_block_bwd_plain(*t[:6], tg, 4)
+    elif kind == "mlp":
         out = tmb.fused_mlp_block(*leaves)
         want = tmb.mlp_block_bwd_plain(*t[:6], tg)
+    else:
+        out = tmb.fused_mlp_block(*leaves, stash=True)
+        a = tmb.mlp_block_fwd_stash_plain(*t)[1]
+        want = tmb.mlp_block_bwd_stash_plain(t[0], t[1], t[2], t[3], t[5], a, tg)
     out.backward(tg)
     got = [leaf.grad for leaf in leaves]
-    for name, a, b in zip(_GRADS[kind], got, want):
+    for name, a, b in zip(_GRADS[kind.split("_")[0]], got, want):
         torch.testing.assert_close(a, b, rtol=0, atol=0, msg=name)
     assert [f.launches for f in counters] == before
-
-
-def test_unported_backwards_differentiate_the_plain_versions_on_cpu():
-    """``stash=False`` (attention) and ``stash=True`` (MLP) need TPU kernels
-    not ported yet; on the CPU they run through autograd of the plain
-    forwards, which in fp32 gives the same gradients as the kernels' path."""
-    for kind, kw, alt in (("attn", {"stash": False}, {}), ("mlp", {"stash": True}, {})):
-        _, t, _, tg = _train_inputs(kind, "float32", seed=24)
-        fn = (lambda *a, **k: tab.fused_attn_block(*a, 4, **k)) if kind == "attn" else tmb.fused_mlp_block
-        grads = []
-        for opts in (kw, alt):
-            leaves = [a.detach().clone().requires_grad_() for a in t]
-            fn(*leaves, **opts).backward(tg)
-            grads.append([leaf.grad for leaf in leaves])
-        for name, a, b in zip(_GRADS[kind], *grads):
-            torch.testing.assert_close(a, b, rtol=1e-4, atol=TOL_F32, msg=f"{kind} {name}")

@@ -1,7 +1,8 @@
 """The port's serving path against the JAX package on the CPU: similarity
 scoring and running top-k, streaming search, embedding banks (and their
-files), the HDF5 loader, the TTA apply steps and the CLI twin. Inputs come
-from numpy seeds and go through both packages with the same weights."""
+files), serving a model with the RA/Dec token, the HDF5 loader, the TTA
+apply steps and the CLI twin. Inputs come from numpy seeds and go through
+both packages with the same weights."""
 
 import os
 
@@ -121,6 +122,43 @@ def test_build_bank_and_exact_query_match_jax(models, pool):
     ts, ti = tbank.query(target, k=9, exact=True)
     np.testing.assert_array_equal(ti, np.asarray(ji))
     np.testing.assert_allclose(ts, np.asarray(js), atol=1e-5)
+
+
+def test_ra_dec_model_serving_matches_jax():
+    """A model with the RA/Dec token reads each batch's ra_dec in
+    ``extract_latents`` (each TTA copy with its own sample's), in the
+    streaming search (and the winners' re-encoding) and in ``build_bank``."""
+    from sky_embeddings_tpu.eval.bank import build_bank as jax_build
+    from sky_embeddings_tpu.eval.eval_fns import extract_latents as jax_extract
+    from sky_embeddings_tpu.eval.simsearch import mim_simsearch as jax_search
+    from sky_embeddings_tpu_torch.eval.bank import build_bank
+    from sky_embeddings_tpu_torch.eval.eval_fns import extract_latents
+    from sky_embeddings_tpu_torch.eval.simsearch import mim_simsearch
+
+    jmodel = JaxSkyMIM(**TINY, decoder_embed_dim=32, decoder_depth=1, decoder_num_heads=2,
+                       ra_dec=True)
+    port = SkyMIM(**TINY, ra_dec=True).eval()
+    port.reset_parameters(torch.Generator().manual_seed(4))
+    variables = {"params": jax.tree_util.tree_map(jnp.asarray, params_to_jax(port.state_dict()))}
+    batches = [dict(b, ra_dec=b["ra_dec"] * [360.0, 180.0] - [0.0, 90.0]) for b in _batches(4, seed=6)]
+    want = jax_extract(jmodel, variables, batches[:1], remove_prefix=False)
+    got = extract_latents(port, batches[:1], remove_prefix=False)
+    assert got.shape == want.shape == (8, 18, 48)
+    np.testing.assert_allclose(got, np.asarray(want), atol=1e-4)
+    # with TTA the un-augmented copy of each sample leads its group of 1 + A
+    tta = extract_latents(port, batches[:1], remove_prefix=False, apply_augmentations=True,
+                          num_augmentations=2)
+    np.testing.assert_allclose(tta[::3], np.asarray(want), atol=1e-4)
+    target = got[:3]
+    jres = jax_search(jmodel, variables, target, batches, n_save=10, log_every=0)
+    tres = mim_simsearch(port, target, batches, n_save=10, log_every=0)
+    np.testing.assert_array_equal(tres[2], jres[2])
+    np.testing.assert_allclose(tres[3], jres[3], atol=1e-5)
+    np.testing.assert_allclose(tres[1], jres[1], atol=1e-4)
+    jbank = jax_build(jmodel, variables, batches, pool="mean", dtype=jnp.float32)
+    tbank = build_bank(port, batches, pool="mean", dtype=torch.float32)
+    assert tbank.n_extra == 2
+    np.testing.assert_allclose(tbank.features.numpy(), jbank.features, atol=1e-4)
 
 
 def test_bank_files_load_in_both_packages(models, tmp_path):

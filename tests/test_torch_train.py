@@ -1,7 +1,9 @@
 """The port's SimMIM pretraining slice against the JAX package, on the CPU:
 losses and masking ops, the learning-rate schedule and the weight-decay
-groups, three AdamW steps of ``configs/mim_tiny.ini`` from the same params,
-batch and masks, the trainer's validation masks, its checkpoint round trip,
+groups, three AdamW steps from the same params, batches and masks of
+``configs/mim_tiny.ini``, of a ViT-L (``mimlarge``) model with the MLP stash
+and of one with remat and the RA/Dec token, the trainer's validation masks,
+its checkpoint round trip,
 the serving CLI twin restoring what the trainer saved, and the pretraining
 CLI twin on synthetic h5 files.
 
@@ -21,15 +23,18 @@ import jax.numpy as jnp
 import optax
 import torch
 
+from sky_embeddings_tpu.configuration import Config as JaxConfig
 from sky_embeddings_tpu.configuration import load_config as jax_load_config
+from sky_embeddings_tpu.models import mim as jax_mim
 from sky_embeddings_tpu.models.mim import build_mim_model as jax_build_mim_model
 from sky_embeddings_tpu.ops import losses as jlosses
 from sky_embeddings_tpu.ops.masking import upsample_patch_mask as jax_upsample
 from sky_embeddings_tpu.train.optim import decay_mask as jax_decay_mask
 from sky_embeddings_tpu.train.optim import pretrain_optimizer as jax_pretrain_optimizer
 from sky_embeddings_tpu.train.schedules import cosine_annealing as jax_cosine
-from sky_embeddings_tpu_torch.configuration import load_config
+from sky_embeddings_tpu_torch.configuration import Config, load_config
 from sky_embeddings_tpu_torch.data.synthetic import make_cutouts
+from sky_embeddings_tpu_torch.models import mim as port_mim
 from sky_embeddings_tpu_torch.models.weights import params_from_jax
 from sky_embeddings_tpu_torch.ops import losses as tlosses
 from sky_embeddings_tpu_torch.ops.masking import simmim_batch_mask, upsample_patch_mask
@@ -131,22 +136,44 @@ def test_cosine_annealing_matches_optax():
 
 # -- optimizer and whole slice ------------------------------------------------
 
-def _jax_setup(seed=0):
-    """The JAX mim_tiny model (fp32) and its params, every leaf perturbed so
-    that biases, LN scales, the fill values and the tokens all matter."""
-    cfg = jax_load_config("mim_tiny", CONFIGS)
-    model = jax_build_mim_model(cfg, dtype=jnp.float32)
-    imgs = jnp.zeros((2, 3, 16, 16), jnp.float32)
-    params = jax.jit(model.init)(jax.random.PRNGKey(seed), imgs, mask=jnp.zeros_like(imgs))["params"]
+# The trainer paths of test_three_adamw_steps_match_jax: configs/mim_tiny.ini;
+# configs/mim_tiny_large.ini (mimlarge: 16 heads, the MLP stash on); the
+# same with [TRAINING] remat, [ARCHITECTURE] ra_dec and 5 bands
+PATHS = {
+    "mim_tiny": ("mim_tiny", {}),
+    "mimlarge_stash_mlp": ("mim_tiny_large", {}),
+    "remat_ra_dec": ("mim_tiny_large", {"TRAINING": {"remat": "True"},
+                                        "ARCHITECTURE": {"ra_dec": "True", "num_channels": "5"}}),
+}
+
+
+def _config(path="mim_tiny"):
+    """(JAX config, port config) of a trainer path, overrides applied."""
+    name, over = PATHS[path]
+    base = jax_load_config(name, CONFIGS)
+    d = {sec: {**dict(base[sec].items()), **over.get(sec, {})} for sec in base.sections()}
+    return JaxConfig.from_dict(d), Config.from_dict(d)
+
+
+def _jax_setup(seed=0, path="mim_tiny"):
+    """The JAX model of a trainer path (fp32) and its params, every leaf
+    perturbed so that biases, LN scales, the fill values and the tokens all
+    matter."""
+    cfg, _ = _config(path)
+    model = jax_build_mim_model(cfg, dtype=jnp.float32,
+                                remat=cfg.training.bool("remat", False))
+    imgs = jnp.zeros((2, model.in_chans, 16, 16), jnp.float32)
+    kw = {"ra_dec": jnp.zeros((2, 2), jnp.float32)} if model.ra_dec else {}
+    params = jax.jit(model.init)(jax.random.PRNGKey(seed), imgs, mask=jnp.zeros_like(imgs),
+                                 **kw)["params"]
     rng = np.random.default_rng(seed)
     params = jax.tree_util.tree_map(
         lambda a: (np.asarray(a) + 0.02 * rng.normal(size=a.shape)).astype(np.float32), params)
     return cfg, model, params
 
 
-def _port_trainer(params=None, seed=0):
-    trainer = MIMPretrainer(load_config("mim_tiny", CONFIGS), dtype=torch.float32, seed=seed,
-                            device="cpu")
+def _port_trainer(params=None, seed=0, path="mim_tiny"):
+    trainer = MIMPretrainer(_config(path)[1], dtype=torch.float32, seed=seed, device="cpu")
     if params is not None:
         trainer.model.load_state_dict(params_from_jax(params))
     return trainer
@@ -173,20 +200,29 @@ def test_pretrain_optimizer_groups():
     assert len(decayed["params"]) + len(plain["params"]) == len(mask)
 
 
-def _batches(n_steps, seed=7):
-    data = make_cutouts(16 * n_steps, channels=3, img_size=16, seed=seed)  # whole-band NaNs
+def _batches(n_steps, seed=7, channels=3):
+    """``n_steps`` batches of 16 cutouts (whole-band NaNs) with their RA/Dec,
+    and a pixel mask for each."""
+    data = make_cutouts(16 * n_steps, channels=channels, img_size=16, seed=seed)
     assert np.isnan(data["cutouts"]).any()
     rng = np.random.default_rng(seed)
-    masks = [(rng.random((16, 3, 4, 4)) < rng.uniform(0.2, 0.9)).astype(np.float32)
+    masks = [(rng.random((16, channels, 4, 4)) < rng.uniform(0.2, 0.9)).astype(np.float32)
              for _ in range(n_steps)]
     masks = [np.asarray(jax_upsample(jnp.asarray(m), 4)) for m in masks]
-    return [data["cutouts"][16 * i:16 * (i + 1)] for i in range(n_steps)], masks
+    ra_dec = np.stack([data["ra"], data["dec"]], axis=1)
+    return [{"cutouts": data["cutouts"][16 * i:16 * (i + 1)], "ra_dec": ra_dec[16 * i:16 * (i + 1)]}
+            for i in range(n_steps)], masks
 
 
-def test_three_adamw_steps_match_jax():
-    """Three AdamW steps of mim_tiny (depth 12, D=48, fp32) from the same
-    params, batches (with NaN bands) and masks: JAX ``SkyMIM.apply`` +
-    ``pretrain_optimizer`` + optax against ``MIMPretrainer.train_batch``.
+@pytest.mark.parametrize("path", list(PATHS))
+def test_three_adamw_steps_match_jax(path, monkeypatch):
+    """Three AdamW steps (fp32) from the same params, batches (with NaN
+    bands, and their RA/Dec where the model reads it) and masks: JAX
+    ``SkyMIM.apply`` + ``pretrain_optimizer`` + optax against
+    ``MIMPretrainer.train_batch``, on mim_tiny (depth 12, D=48), a ViT-L
+    model with the MLP stash, and a ViT-L model with remat, the RA/Dec token
+    and 5 bands. The ViT-L models are cut to depth 2 in both frameworks
+    (their 16 heads and D=64 kept), so that JAX compiles in seconds.
 
     Params bound 1e-4 absolute, a tenth of lr: each step moves a parameter
     by lr (1e-3) times Adam's normalised step m/(sqrt(v) + eps), which is
@@ -195,23 +231,31 @@ def test_three_adamw_steps_match_jax():
     on leaves whose gradient is near eps; measured 6.5e-5 at most. A fault
     in the schedule, the betas, the decay groups or the step indexing moves
     some leaf by about lr or more."""
-    cfg, jmodel, params = _jax_setup()
-    imgs, masks = _batches(3)
-    tx = jax_pretrain_optimizer(params, jax_cosine(1e-3, 40, 1e7), 0.05)
+    for mod in (jax_mim, port_mim):
+        monkeypatch.setitem(mod._SIZES["large"], "depth", 2)
+    cfg, jmodel, params = _jax_setup(path=path)
+    batches, masks = _batches(3, channels=jmodel.in_chans)
+    tx = jax_pretrain_optimizer(params, jax_cosine(1e-3, cfg.training.int("total_batch_iters"), 1e7),
+                                0.05)
     jp = jax.tree_util.tree_map(jnp.asarray, params)
     opt_state = tx.init(jp)
 
     @jax.jit
-    def jstep(p, s, x, m):
-        loss, grads = jax.value_and_grad(lambda q: jmodel.apply({"params": q}, x, mask=m)[0])(p)
+    def jstep(p, s, x, m, rd):
+        kw = {"ra_dec": rd} if jmodel.ra_dec else {}
+        loss, grads = jax.value_and_grad(
+            lambda q: jmodel.apply({"params": q}, x, mask=m, **kw)[0])(p)
         updates, s = tx.update(grads, s, p)
         return optax.apply_updates(p, updates), s, loss
 
-    trainer = _port_trainer(params)
-    for x, m in zip(imgs, masks):
+    trainer = _port_trainer(params, path=path)
+    assert trainer.model.ra_dec == jmodel.ra_dec and trainer.model.encoder.remat == jmodel.remat
+    assert trainer.model.encoder.depth == 2 or path == "mim_tiny"
+    for batch, m in zip(batches, masks):
         m = np.array(m)  # writable, for torch.from_numpy
-        jp, opt_state, jloss = jstep(jp, opt_state, jnp.maximum(jnp.asarray(x), -3.0), jnp.asarray(m))
-        loss = trainer.train_batch({"cutouts": x}, mask=torch.from_numpy(m))
+        jp, opt_state, jloss = jstep(jp, opt_state, jnp.maximum(jnp.asarray(batch["cutouts"]), -3.0),
+                                     jnp.asarray(m), jnp.asarray(batch["ra_dec"]))
+        loss = trainer.train_batch(batch, mask=torch.from_numpy(m))
         np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-5)
     assert trainer.cur_iter == 3
     want = _flat(jax.tree_util.tree_map(np.asarray, jp))
@@ -229,8 +273,8 @@ def test_validation_masks_vary_across_batches_and_passes():
     drawn = []
     draw = trainer.draw_mask
     trainer.draw_mask = lambda b, g: drawn.append(draw(b, g)) or drawn[-1]
-    imgs, _ = _batches(1)
-    batch = {"cutouts": imgs[0]}
+    batches, _ = _batches(1)
+    batch = batches[0]
     for idx in (0, 1, 0):
         assert np.isfinite(float(trainer.eval_batch(batch, idx=idx)))
     trainer.train_batch(batch)
@@ -246,9 +290,9 @@ def test_validation_masks_vary_across_batches_and_passes():
 
 def test_checkpoint_round_trip(tmp_path):
     trainer = _port_trainer(seed=3)
-    imgs, _ = _batches(3, seed=9)
-    for x in imgs[:2]:
-        trainer.losses["train_loss"].append(float(trainer.train_batch({"cutouts": x})))
+    batches, _ = _batches(3, seed=9)
+    for batch in batches[:2]:
+        trainer.losses["train_loss"].append(float(trainer.train_batch(batch)))
     path = checkpoint_path(str(tmp_path), "mim_tiny")
     assert path.endswith("mim_tiny.ckpt.pt")
     trainer.save(path)
@@ -263,8 +307,8 @@ def test_checkpoint_round_trip(tmp_path):
         for key in sa["state"][k]:
             assert torch.equal(sa["state"][k][key], sb["state"][k][key]), (k, key)
     # the restored run continues exactly: same mask stream, same update
-    la = trainer.train_batch({"cutouts": imgs[2]})
-    lb = other.train_batch({"cutouts": imgs[2]})
+    la = trainer.train_batch(batches[2])
+    lb = other.train_batch(batches[2])
     assert float(la) == float(lb)
 
 
@@ -274,9 +318,9 @@ def test_serving_twin_restores_the_trainer_checkpoint(tmp_path):
     from sky_embeddings_tpu_torch import similarity_search as cli
 
     trainer = _port_trainer()
-    imgs, _ = _batches(2, seed=11)
-    for x in imgs:
-        trainer.train_batch({"cutouts": x})
+    batches, _ = _batches(2, seed=11)
+    for batch in batches:
+        trainer.train_batch(batch)
     model_dir = str(tmp_path)
     trainer.save(checkpoint_path(model_dir, "mim_tiny"))
     model, _ = cli.build_model_from_config(CONFIGS, model_dir, "mim_tiny", "cpu")
