@@ -9,13 +9,15 @@ failing loudly (any failure exits non-zero and prints no result line):
 1. device: card name and power limit; TF32 off for the plain fp32 products;
 2. build: nvcc builds the CUDA kernels (attention block forward and stash
    forward; attention stash and recompute backward; MLP block forward and
-   stash forward; MLP recompute and stash backward) from the sources in the
+   stash forward; MLP recompute and stash backward; the multi-query bank
+   scorer) from the sources in the
    checkout, one nvcc per source, all at once; Triton compiles the bank
    scorer;
 3. kernel parity, each kernel against its plain PyTorch version on the same
    inputs: the serving kernels at the serving path's shapes (ViT-B: N=65,
-   D=768, H=12, F=3072 at B=64 and B=1024; a 1M x 768 bank in bf16 and fp32),
-   max|a-b|/max|b| within the bars of tools/kernel_parity.py (2e-2; bank fp32
+   D=768, H=12, F=3072 at B=64 and B=1024; a 1M x 768 bank in bf16 and fp32;
+   kernel 11 on it at Q = 1, 8, 64 and on ragged 1 000 003-row banks of
+   width 3072 and 37 at Q = 130), max|a-b|/max|b| within the bars of tools/kernel_parity.py (2e-2; bank fp32
    5e-3); the training kernels at their paths' shapes, every output within
    TOL_BWD = 3e-2 and finite: kernels 2, 3, 8 at ``mim_1`` (B=64, 512 and
    the ragged 63), kernels 6, 7 at ``mim_25_large`` (ViT-L, N=65, D=768,
@@ -29,6 +31,19 @@ failing loudly (any failure exits non-zero and prints no result line):
    ``weighted_bank_scores`` / ``bank_topk`` on a seeded 1M x 768 bf16 bank.
    Launch counters are zeroed just before and read just after; the kernel
    path's tokens and top-300 are compared with the plain path on the card;
+4b. the retrieval path, through the functions ``sky_sim_search`` calls, on
+   ``configs/mim_1.ini``: a synthetic FITS survey (4 tiles x 5 bands,
+   1024 x 1024, TAN WCS) streamed at overlap 0.4 (729 cutouts a tile, 44
+   batches of 64) through ``mim_simsearch_multi`` for 4 target groups (64
+   augmentations each); then the 1M x 768 bf16 bank through
+   ``EmbeddingBank.query`` (int8 two-stage and exact), ``query_multi`` at
+   Q = 8 (exact: kernel 11, once; int8) and the chunked scorer (the bank on
+   the host behind a row-sliceable view, through ``query``'s chunked route
+   and in 300 000-row slabs). Counters are zeroed just before and read just
+   after; then each group against a single-group ``mim_simsearch``, the
+   int8 routes' agreement with the exact ranking, ``query_multi`` against 8
+   single queries, the chunked results against the single pass; queries/s,
+   the chunked query's time and the FITS search's images/s;
 5. the training paths, through the entry points ``pretrain_mim`` calls
    (``MIMPretrainer.train_batch`` / ``eval_batch``), bf16, full width and
    depth, seeded weights, synthetic cutouts with whole-band NaNs. Counters
@@ -61,8 +76,10 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -114,6 +131,14 @@ TRAIN_B = (64, 512, 63)  # the config's batch, a large one, a ragged one
 # token makes N=66, D=1024, H=16, F=4096)
 LARGE = ("mim_25_large", 10, 2, (64, 512, 63))
 REMAT = ("mim_32", 10, 2, (32, 256, 31))
+# the retrieval path: a FITS survey of FITS_TILES tiles of FITS_SIZE^2 pixels
+# per band, searched at FITS_OVERLAP for N_GROUPS target groups; kernel 11 at
+# MULTI_Q queries on the 1M bank and at RAGGED (rows, width, queries); the
+# chunked scorer in SLAB_ROWS-row slabs
+FITS_TILES, FITS_SIZE, FITS_OVERLAP, N_GROUPS = 4, 1024, 0.4, 4
+MULTI_Q = (1, 8, 64)
+RAGGED = ((1_000_003, 3072, 130), (1_000_003, 37, 130))
+SLAB_ROWS = 300_000
 
 
 def check(ok: bool, what: str) -> None:
@@ -134,10 +159,12 @@ def main() -> int:
         return 2
     sys.path.insert(0, ROOT)
     from sky_embeddings_tpu_torch.configuration import Config, load_config
+    from sky_embeddings_tpu_torch.data.fits_io import TanWCS, write_image
+    from sky_embeddings_tpu_torch.data.fits_loader import build_fits_batcher, overlap_coords
     from sky_embeddings_tpu_torch.data.synthetic import make_cutouts
     from sky_embeddings_tpu_torch.eval.bank import EmbeddingBank, build_bank
     from sky_embeddings_tpu_torch.eval.eval_fns import batch_ra_dec, extract_latents
-    from sky_embeddings_tpu_torch.eval.simsearch import mim_simsearch
+    from sky_embeddings_tpu_torch.eval.simsearch import mim_simsearch, mim_simsearch_multi
     from sky_embeddings_tpu_torch.models.mim import build_mim_model
     from sky_embeddings_tpu_torch.ops.kernels import cuda_build
     from sky_embeddings_tpu_torch.ops.kernels.attn_block import (
@@ -163,7 +190,13 @@ def main() -> int:
     from sky_embeddings_tpu_torch.train.pretrain import MIMPretrainer
     from sky_embeddings_tpu_torch.ops.kernels.simscore import (
         bank_topk,
+        bank_topk_chunked,
+        bank_topk_int8,
+        bank_topk_multi,
+        bank_topk_multi_int8,
         weighted_bank_scores,
+        weighted_bank_scores_multi,
+        weighted_bank_scores_multi_plain,
         weighted_bank_scores_plain,
     )
 
@@ -292,6 +325,55 @@ def main() -> int:
         }
         del bank, got, want
 
+    # kernel 11 on the same 1M bank at Q = 1, 8, 64 (timed at 8 and 64 on the
+    # bf16 bank: the retrieval path's Q and a wide batch of targets), then on
+    # ragged banks: 1 000 003 rows (not a whole number of 128-row blocks) of
+    # width 3072 (central-pool banks) and 37 (the scalar loads) at Q = 130
+    def multi_bound(n, d, q, elt):
+        return 4 * n * d * q, n * d * elt + 2 * q * d * 4 + q * 4 + n * q * 4
+
+    def multi_case(bank, targets, w, tol, label, timed):
+        n, d = bank.shape
+        got = weighted_bank_scores_multi(bank, targets, w)
+        want = weighted_bank_scores_multi_plain(bank, targets, w)
+        torch.cuda.synchronize()
+        rel, abs_err = rel_err(got, want)
+        finite = bool(torch.isfinite(got).all())
+        print(f"parity weighted_bank_scores_multi {label} {n}x{d} Q={targets.shape[0]}: max-rel "
+              f"{rel:.3e} (bar {tol}), max-abs {abs_err:.3e}, finite {finite}", flush=True)
+        check(finite and rel <= tol and got.shape == (n, targets.shape[0]),
+              f"kernel 11 {label} {n}x{d} Q={targets.shape[0]} parity")
+        del got, want
+        if timed:
+            b_ms, b_by = bound_ms(*multi_bound(n, d, targets.shape[0], bank.element_size()),
+                                  PEAK_FP32)
+            timings[("weighted_bank_scores_multi", targets.shape[0])] = {
+                "max_rel_err": rel, "max_abs_err": abs_err,
+                "ms": cuda_ms(lambda: weighted_bank_scores_multi(bank, targets, w), 10),
+                "plain_ms": cuda_ms(lambda: weighted_bank_scores_multi_plain(bank, targets, w), 3),
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            }
+
+    def multi_queries(q, d):
+        targets = torch.randn(q, d, generator=gen, device=dev)
+        w = torch.rand(q, d, generator=gen, device=dev) + 0.5
+        return targets, w / w.sum(dim=1, keepdim=True)
+
+    mq_targets, mq_w = multi_queries(max(MULTI_Q), D)
+    for dt, tol in ((torch.float32, TOL_SCORE_F32), (torch.bfloat16, TOL_SCORE_BF16)):
+        bank = bank_bf16.to(dt)
+        for q in MULTI_Q:
+            multi_case(bank, mq_targets[:q], mq_w[:q], tol, str(dt).replace("torch.", ""),
+                       timed=dt == torch.bfloat16 and q > 1)
+        del bank
+    for n, d, q in RAGGED:
+        rag_bank = torch.randn(n, d, generator=gen, device=dev)
+        targets, w = multi_queries(q, d)
+        for dt, tol in ((torch.float32, TOL_SCORE_F32), (torch.bfloat16, TOL_SCORE_BF16)):
+            multi_case(rag_bank.to(dt), targets, w, tol, str(dt).replace("torch.", ""), False)
+        del rag_bank
+    torch.cuda.empty_cache()
+
     # training kernels at mim_1 training shapes: kernel vs plain version on
     # every output. The stash backward takes the plain stash forward's qkv
     # and probs, so both versions see the same inputs.
@@ -408,10 +490,10 @@ def main() -> int:
     batches = as_batches(data, BATCH)
     target_batches = as_batches(tdata, 2)
 
-    counters = (fused_attn_block, fused_mlp_block, weighted_bank_scores, attn_block_fwd_stash,
-                attn_block_bwd_stash, mlp_block_bwd, attn_block_bwd, mlp_block_fwd_stash,
-                mlp_block_bwd_stash)
-    training_kernels = [f.__name__ for f in counters[3:]]
+    counters = (fused_attn_block, fused_mlp_block, weighted_bank_scores,
+                weighted_bank_scores_multi, attn_block_fwd_stash, attn_block_bwd_stash,
+                mlp_block_bwd, attn_block_bwd, mlp_block_fwd_stash, mlp_block_bwd_stash)
+    training_kernels = [f.__name__ for f in counters[4:]]
 
     def zero_counters():
         for fn in counters:
@@ -466,6 +548,194 @@ def main() -> int:
     print(f"tokens kernel vs plain path (B=64, 12 layers): max-rel {tok_rel:.3e} "
           f"(bar {TOL_TOKENS}), max-abs {tok_abs:.3e}; top-{N_SAVE} overlap {overlap}/{N_SAVE}", flush=True)
     check(tok_rel <= TOL_TOKENS, "encoder tokens kernel vs plain")
+
+    # ---- 4b. retrieval path (sky_sim_search) ----------------------------------
+    class HostRows:
+        """A row-sliceable host view of a bank, as ``load(lazy=True)`` gives."""
+
+        def __init__(self, rows):
+            self.rows, self.shape = rows, rows.shape
+
+        def __getitem__(self, sl):
+            return self.rows[sl]
+
+    def host_ms(fn, reps):
+        fn()  # warm-up; every call ends in a copy of its result to the host
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        return (time.perf_counter() - t0) / reps * 1e3
+
+    def retrieval_phase(tile_dir):
+        """The functions ``sky_sim_search`` calls, at ``mim_1`` width: the
+        multi-target FITS stream, then the 1M bank's query routes. Returns
+        (results, launches on the path)."""
+        bands = cfg.data.list("bands")
+        img = model.img_size
+        # a synthetic survey: FITS_TILES neighbouring tiles, one fp32 file per
+        # band with TAN WCS cards (HSC's 0.168"/pixel), noise plus 64
+        # Gaussian sources a tile; each target group is 2 windows around
+        # sources of its own tile, clipped at -3 as the batcher clips
+        rng = np.random.default_rng(6)
+        scale = 0.168 / 3600.0
+        yy, xx = np.mgrid[-8:9, -8:9]
+        windows = []
+        for i in range(FITS_TILES):
+            wcs = TanWCS(crpix=(FITS_SIZE / 2 + 0.5,) * 2, crval=(150.0 + 0.05 * i, 2.2),
+                         cd=[[-scale, 0.0], [0.0, scale]])
+            tile = rng.standard_normal((len(bands), FITS_SIZE, FITS_SIZE), dtype=np.float32)
+            centres = rng.integers(40, FITS_SIZE - 40, size=(64, 2))
+            for (cy, cx), sigma in zip(centres, rng.uniform(1.5, 4.0, size=64)):
+                blob = np.exp(-(yy ** 2 + xx ** 2) / (2 * sigma ** 2)).astype(np.float32)
+                tile[:, cy - 8:cy + 9, cx - 8:cx + 9] += rng.uniform(5, 20, (len(bands), 1, 1)) * blob
+            for band, plane in zip(bands, tile):
+                write_image(os.path.join(tile_dir, f"calexp-HSC-{band}-9813-{i},0.fits"), plane,
+                            wcs.to_cards())
+            picks = centres[:2] - img // 2
+            cut = np.stack([tile[:, y:y + img, x:x + img] for y, x in picks]).clip(min=-3.0)
+            ra, dec = wcs.pixel_to_world(picks[:, 1] + img // 2, picks[:, 0] + img // 2)
+            windows.append({"cutouts": cut, "ra_dec": np.stack([ra, dec], 1).astype(np.float32)})
+
+        def stream():
+            return build_fits_batcher(
+                [tile_dir], bands=bands, min_bands=cfg.data.int("min_bands", 2), batch_size=BATCH,
+                img_size=img, use_calexp=cfg.data.bool("use_calexp", True), shuffle=False,
+                use_overlap=True, overlap=FITS_OVERLAP)
+
+        per_tile = len(overlap_coords((FITS_SIZE, FITS_SIZE), img, FITS_OVERLAP))
+        n_batches = FITS_TILES * (per_tile // BATCH)
+        n_rows = bank_bf16.shape[0]
+        n_slabs = -(-n_rows // SLAB_ROWS)
+        stats = (np.zeros((n_rows, 2), np.float32), np.zeros(D, np.float32), np.ones(D, np.float32))
+        big = EmbeddingBank(bank_bf16, *stats, device=dev)
+        host_bank = bank_bf16.cpu()
+        held = EmbeddingBank(HostRows(host_bank), *stats, device=dev)
+
+        zero_counters()
+        torch.cuda.synchronize()
+        t_path = time.perf_counter()
+        groups = [extract_latents(model, [windows[g]], remove_prefix=False, apply_augmentations=True,
+                                  num_augmentations=N_AUG,
+                                  generator=torch.Generator(device=dev).manual_seed(g))
+                  for g in range(N_GROUPS)]
+        t_stream = time.perf_counter()
+        multi = mim_simsearch_multi(model, groups, stream(), n_save=N_SAVE, max_pool=True,
+                                    log_every=0)
+        torch.cuda.synchronize()
+        t_stream = time.perf_counter() - t_stream
+        encoder_calls = 2 * N_GROUPS + n_batches  # targets, the stream, re-encoding winners
+        # 8 queries: each group's 2 targets apart, each with its 64 augmentations
+        q8 = [g[i * (1 + N_AUG):(i + 1) * (1 + N_AUG)] for g in groups for i in range(2)]
+        s_int8, i_int8 = big.query(q8[0], k=N_SAVE)
+        s_exact, i_exact = big.query(q8[0], k=N_SAVE, exact=True)
+        m_exact = big.query_multi(q8, k=N_SAVE, exact=True)
+        m_int8 = big.query_multi(q8, k=N_SAVE)
+        c_route = held.query(q8[0], k=N_SAVE)
+        tgt0, w0 = big._query_target(q8[0], True)
+        c_slabs = bank_topk_chunked(host_bank, tgt0, w0, N_SAVE, slab_rows=SLAB_ROWS)
+        torch.cuda.synchronize()
+        t_path = time.perf_counter() - t_path
+        path_launches = {f.__name__: f.launches for f in counters}
+        print(f"retrieval path: {t_path:.2f} s, {encoder_calls} encoder calls, FITS stream "
+              f"{n_batches} batches of {BATCH} ({per_tile} cutouts a tile) in {t_stream:.2f} s, "
+              f"launches {path_launches}", flush=True)
+        check(per_tile == 729 and n_batches == 44, f"{per_tile} cutouts a tile, {n_batches} batches")
+        check(q8[0].shape == (1 + N_AUG, N_TOK, D) and len(q8) == 8, "8 target groups")
+        for name_, want_n in (("fused_attn_block", n_layers * encoder_calls),
+                              ("fused_mlp_block", n_layers * encoder_calls),
+                              ("weighted_bank_scores", 2 + n_slabs),  # exact query, 1 + 4 slabs
+                              ("weighted_bank_scores_multi", 1)):  # the exact query_multi
+            check(path_launches[name_] == want_n,
+                  f"retrieval: {name_} launches {path_launches[name_]} == {want_n}")
+        check(all(path_launches[k] == 0 for k in training_kernels), "retrieval launches no training kernel")
+
+        # each group of the one-pass search against a single-group search
+        group_checks = []
+        for g, (imgs_g, lat_g, ra_g, sc_g) in enumerate(multi):
+            check(imgs_g.shape == (N_SAVE, model.in_chans, img, img) and lat_g.shape == (N_SAVE, N_TOK, D)
+                  and bool(np.isfinite(sc_g).all()) and bool((sc_g[:-1] >= sc_g[1:]).all()),
+                  f"group {g}: shapes, finite sorted scores")
+            _, _, ra_1, sc_1 = mim_simsearch(model, groups[g], stream(), n_save=N_SAVE, max_pool=True,
+                                             log_every=0)
+            ov = len({tuple(r) for r in ra_g.tolist()} & {tuple(r) for r in ra_1.tolist()})
+            diff = float(np.abs(sc_g - sc_1).max())
+            group_checks.append({"overlap": ov, "max_score_diff": diff})
+            print(f"FITS group {g}: top-{N_SAVE} overlap with a single-group search {ov}/{N_SAVE}, "
+                  f"max score diff {diff:.2e}, best {sc_g[0]:.4f}", flush=True)
+            check(ov >= N_SAVE - 1 and diff <= 1e-5, f"FITS group {g} against a single-group search")
+
+        # the int8 route against the exact ranking (K3 over the whole bank)
+        full = weighted_bank_scores(bank_bf16, tgt0, w0)
+        chosen = full[torch.as_tensor(i_int8, device=dev)]
+        agree = float((chosen >= float(s_exact[-1]) - 5e-3).float().mean())
+        int8_rel = rel_err(torch.as_tensor(s_int8, device=dev), chosen)[0]
+        print(f"query int8 vs exact: agreement {agree:.4f} (bar 0.999), returned scores vs K3 "
+              f"max-rel {int8_rel:.2e} (bar {TOL_SCORE_F32})", flush=True)
+        check(agree >= 0.999 and int8_rel <= TOL_SCORE_F32 and bool(np.isfinite(s_int8).all()),
+              "query int8 agreement")
+        # query_multi (kernel 11) against 8 single queries (K3), and its int8 route
+        pairs = [big._query_target(t_, True) for t_ in q8]
+        full_m = weighted_bank_scores_multi(bank_bf16, *(torch.stack([p_[i] for p_ in pairs])
+                                                         for i in (0, 1)))
+        multi_checks = []
+        for q in range(8):
+            s1, i1 = big.query(q8[q], k=N_SAVE, exact=True)
+            ov = len(set(i1.tolist()) & set(m_exact[1][q].tolist()))
+            r_exact = rel_err(torch.as_tensor(m_exact[0][q]), torch.as_tensor(s1))[0]
+            chosen = full_m[torch.as_tensor(m_int8[1][q], device=dev), q]
+            agree_q = float((chosen >= float(m_exact[0][q][-1]) - 5e-3).float().mean())
+            r_int8 = rel_err(torch.as_tensor(m_int8[0][q], device=dev), chosen)[0]
+            multi_checks.append({"exact_overlap": ov, "exact_max_rel": r_exact,
+                                 "int8_agreement": agree_q, "int8_max_rel": r_int8})
+            check(ov >= N_SAVE - 1 and r_exact <= TOL_SCORE_F32 and agree_q >= 0.99
+                  and r_int8 <= TOL_SCORE_F32, f"query_multi query {q}: {multi_checks[-1]}")
+        print(f"query_multi Q=8: exact overlap with single queries min "
+              f"{min(c['exact_overlap'] for c in multi_checks)}/{N_SAVE}, int8 agreement min "
+              f"{min(c['int8_agreement'] for c in multi_checks):.4f} (bar 0.99)", flush=True)
+        # the chunked scorer: the single pass's winners, bit for bit
+        want_v, want_i = (a.cpu().numpy() for a in bank_topk(bank_bf16, tgt0, w0, N_SAVE))
+        for name_, (v_, i_) in (("chunked route", c_route), (f"{SLAB_ROWS}-row slabs", c_slabs)):
+            same = bool(np.array_equal(i_, want_i) and np.array_equal(v_, want_v))
+            print(f"{name_}: indices and scores equal to the single pass: {same}", flush=True)
+            check(same, f"{name_} against the single pass")
+
+        times = {
+            "query_int8_ms": host_ms(lambda: big.query(q8[0], k=N_SAVE), 20),
+            "query_exact_ms": host_ms(lambda: big.query(q8[0], k=N_SAVE, exact=True), 20),
+            "query_multi8_int8_ms": host_ms(lambda: big.query_multi(q8, k=N_SAVE), 10),
+            "query_multi8_exact_ms": host_ms(lambda: big.query_multi(q8, k=N_SAVE, exact=True), 10),
+            "chunked_query_ms": host_ms(lambda: held.query(q8[0], k=N_SAVE), 2),
+        }
+        qps = {k_.replace("_ms", "_per_s"): (8 if "multi8" in k_ else 1) * 1e3 / v_
+               for k_, v_ in times.items() if k_.startswith("query")}
+        # the scorers alone (CUDA events), targets already pooled on the card:
+        # what a query costs beyond moving its (65, 65, 768) target group
+        bank8, rnorm = big._device_int8()
+        t8, w8 = (torch.stack([p_[i] for p_ in pairs]) for i in (0, 1))
+        times.update({
+            "scorer_exact_ms": cuda_ms(lambda: bank_topk(bank_bf16, tgt0, w0, N_SAVE), 20),
+            "scorer_int8_ms": cuda_ms(lambda: bank_topk_int8(
+                bank8, rnorm, bank_bf16, tgt0, w0, N_SAVE, oversample=min(8192, n_rows)), 20),
+            "scorer_multi8_exact_ms": cuda_ms(lambda: bank_topk_multi(bank_bf16, t8, w8, N_SAVE), 10),
+            "scorer_multi8_int8_ms": cuda_ms(lambda: bank_topk_multi_int8(
+                bank8, rnorm, bank_bf16, t8, w8, N_SAVE, oversample=min(2048, n_rows)), 10),
+        })
+        fits_ips = n_batches * BATCH / t_stream
+        print(f"retrieval times (host clock, result on the host): {times}; queries/s {qps}; FITS "
+              f"multi-search {fits_ips:.0f} images/s (host reading included)", flush=True)
+        result = {"seconds": t_path, "encoder_calls": encoder_calls, "launches": path_launches,
+                  "fits_batches": n_batches, "fits_stream_s": t_stream, "fits_images_per_s": fits_ips,
+                  "groups": group_checks, "query_int8_agreement": agree, "query_int8_max_rel": int8_rel,
+                  "query_multi": multi_checks, **times, **qps}
+        del big, held, host_bank, full, full_m
+        return result, path_launches
+
+    tile_dir = tempfile.mkdtemp(prefix="chip_smoke_fits_")
+    try:
+        retrieval, retrieval_launches = retrieval_phase(tile_dir)
+    finally:
+        shutil.rmtree(tile_dir)
+    torch.cuda.empty_cache()
 
     # ---- 5. training paths ----------------------------------------------------
     del bank
@@ -746,11 +1016,14 @@ def main() -> int:
                                 "mlp_block_fwd_stash", LARGE[3][0]),
         "mlp_block_bwd_stash": ("cuda", src + "csrc/mlp_block_bwd.cu", jsrc + "mlp_block.py:774",
                                 "mlp_block_bwd_stash", LARGE[3][0]),
+        "weighted_bank_scores_multi": ("cuda", src + "csrc/simscore_multi.cu",
+                                       jsrc + "simscore.py:183", "weighted_bank_scores_multi", 8),
     }
     kernels = []
     for name, (route, source, replaces, counter, shape) in meta.items():
         t = timings[(name, shape)]
         by_path = {f"serving_{CONFIG}": launches[counter],
+                   f"retrieval_{CONFIG}": retrieval_launches[counter],
                    **{f"training_{c}": r["launches"][counter] for c, r in paths.items()}}
         check(sum(by_path.values()) > 0, f"{name} launched on a main path")
         kernels.append({
@@ -767,6 +1040,7 @@ def main() -> int:
                       "top300_overlap_vs_plain": overlap},
         "encoder": {f"B={b}": v for b, v in enc.items()},
         "training_paths": paths,
+        "retrieval_path": retrieval,
         "bank_1M_bf16": {"query_ms_host": q_host_ms, "queries_per_s": 1e3 / q_host_ms,
                          "bank_topk_ms": topk_ms},
         "build_s": build_s,

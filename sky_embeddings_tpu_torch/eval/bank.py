@@ -3,13 +3,16 @@
 :func:`build_bank` streams batches through the encoder, pools each image to
 one feature row, standardises by the bank's own statistics and stores bf16
 rows. :class:`EmbeddingBank` answers queries with the weighted-cosine
-scorer (``ops/kernels/simscore.bank_topk``). Save/load use the JAX
-package's HDF5 layout, so a bank built by either package loads in the other
-(bf16 features stored as uint16 bits with ``feat_dtype = "bfloat16"``).
+scorers of ``ops/kernels/simscore``, routed as JAX routes them: banks under
+:data:`TWO_STAGE_MIN_ROWS` rows, or ``exact=True``, through the single-pass
+scorer (K3; kernel 11 for ``query_multi``); larger device-resident banks
+through the int8 two-stage scorer; banks over :data:`DEVICE_ROWS_LIMIT`
+rows, or features that are not an in-memory tensor (``load(lazy=True)``),
+through the chunked scorer, slab by slab from the host. Save/load use the
+JAX package's HDF5 layout, so a bank built by either package loads in the
+other (bf16 features stored as uint16 bits with ``feat_dtype =
+"bfloat16"``); ``h5py`` is imported only there.
 
-``query`` covers the single-pass path. Where the JAX code would take the
-two-stage int8 path or the chunked out-of-memory path, this raises
-``NotImplementedError`` (ROADMAP: retrieval) rather than answer differently.
 The double standardisation quirk is kept: ``build_bank`` divides by
 ``std + 1e-8`` and ``query`` by ``(std + 1e-8) + 1e-8`` (``bank.py:164,306-307``).
 """
@@ -22,7 +25,14 @@ import numpy as np
 import torch
 
 from sky_embeddings_tpu_torch.eval.eval_fns import batch_ra_dec, make_encoder, model_device
-from sky_embeddings_tpu_torch.ops.kernels.simscore import bank_topk
+from sky_embeddings_tpu_torch.ops.kernels.simscore import (
+    bank_topk,
+    bank_topk_chunked,
+    bank_topk_int8,
+    bank_topk_multi,
+    bank_topk_multi_int8,
+    quantize_bank_int8,
+)
 from sky_embeddings_tpu_torch.ops.similarity import target_features
 from sky_embeddings_tpu_torch.utils.device import resolve_device
 from sky_embeddings_tpu_torch.utils.misc import select_centre
@@ -45,11 +55,28 @@ def _features_from_numpy(arr: np.ndarray, feat_dtype: str) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(arr))
 
 
+class _DiskFeatures:
+    """Row-sliceable view of an on-disk feature dataset (bf16 stored as raw
+    uint16 bits); feeds ``bank_topk_chunked`` without loading the bank."""
+
+    def __init__(self, dataset, feat_dtype: str):
+        self._ds = dataset
+        self._dtype = feat_dtype
+
+    @property
+    def shape(self):
+        return self._ds.shape
+
+    def __getitem__(self, sl) -> torch.Tensor:
+        return _features_from_numpy(self._ds[sl], self._dtype)
+
+
 class EmbeddingBank:
     """(N, D) standardised pooled features (a CPU tensor, copied to
-    ``device`` on first query) + (N, 2) ra/dec + bank stats."""
+    ``device`` on first query, or a row-sliceable host view that queries
+    stream in slabs) + (N, 2) ra/dec + bank stats."""
 
-    def __init__(self, features: torch.Tensor, ra_decs: np.ndarray, mean: np.ndarray,
+    def __init__(self, features, ra_decs: np.ndarray, mean: np.ndarray,
                  std: np.ndarray, pool: str = "mean", n_extra: int = 1,
                  device: str | torch.device = "cuda"):
         self.device = resolve_device(device)
@@ -60,6 +87,7 @@ class EmbeddingBank:
         self.pool = pool
         self.n_extra = int(n_extra)
         self._device_bank = None
+        self._device_int8_bank = None
 
     # -- persistence ---------------------------------------------------
     def save(self, path: str) -> None:
@@ -78,39 +106,86 @@ class EmbeddingBank:
             f.attrs["feat_dtype"] = feat_dtype
 
     @classmethod
-    def load(cls, path: str, device: str | torch.device = "cuda") -> "EmbeddingBank":
+    def load(cls, path: str, device: str | torch.device = "cuda",
+             lazy: bool = False) -> "EmbeddingBank":
+        """``lazy=True`` keeps the features as a slab-sliceable view of the
+        open file (banks larger than host memory: queries stream slabs from
+        disk through the chunked scorer)."""
         import h5py
 
-        with h5py.File(path, "r") as f:
+        f = h5py.File(path, "r")  # a lazy bank's features keep it open
+        try:
             feat_dtype = str(f.attrs.get("feat_dtype", "float32"))
-            return cls(
-                _features_from_numpy(f["features"][:], feat_dtype), f["ra_decs"][:],
-                f["mean"][:], f["std"][:], pool=str(f.attrs.get("pool", "mean")),
-                n_extra=int(f.attrs.get("n_extra", 1)), device=device,
-            )
+            if lazy:
+                feats = _DiskFeatures(f["features"], feat_dtype)
+            else:
+                feats = _features_from_numpy(f["features"][:], feat_dtype)
+            return cls(feats, f["ra_decs"][:], f["mean"][:], f["std"][:],
+                       pool=str(f.attrs.get("pool", "mean")),
+                       n_extra=int(f.attrs.get("n_extra", 1)), device=device)
+        finally:
+            if not lazy:
+                f.close()
 
     # -- queries -------------------------------------------------------
-    def query(self, target_latent, k: int = 300, exact: bool = False) -> tuple[np.ndarray, np.ndarray]:
-        """(scores, indices) of the best-k rows for a (Bt, Lt, D) target group."""
+    def query(self, target_latent, k: int = 300, use_weights: bool = True,
+              exact: bool = False) -> tuple[np.ndarray, np.ndarray]:
+        """(scores, indices) of the best-k rows for a (Bt, Lt, D) target
+        group. Device-resident banks of :data:`TWO_STAGE_MIN_ROWS` rows or
+        more take the int8 two-stage scorer unless ``exact``; the others the
+        single-pass scorer; banks over :data:`DEVICE_ROWS_LIMIT` rows or
+        lazy ones the chunked scorer."""
+        tgt, w = self._query_target(target_latent, use_weights)
         n = self.features.shape[0]
-        if n > DEVICE_ROWS_LIMIT:
-            raise NotImplementedError(
-                f"bank of {n} rows exceeds DEVICE_ROWS_LIMIT: the chunked scorer is not "
-                "ported yet (ROADMAP: int8 two-stage, chunked and multi-query retrieval)"
+        if not self._device_resident():
+            return bank_topk_chunked(self.features, tgt, w, k)
+        bank = self._device()
+        if exact or n < TWO_STAGE_MIN_ROWS:
+            vals, idx = bank_topk(bank, tgt, w, min(k, n))
+        else:
+            bank8, rnorm = self._device_int8()
+            vals, idx = bank_topk_int8(bank8, rnorm, bank, tgt, w, min(k, n),
+                                       oversample=min(max(8192, k), n))
+        return vals.cpu().numpy(), idx.cpu().numpy()
+
+    def query_multi(self, target_latents, k: int = 300, use_weights: bool = True,
+                    exact: bool = False) -> tuple[np.ndarray, np.ndarray]:
+        """Batched :meth:`query`: Q target groups, one bank pass (kernel 11,
+        or the int8 two-stage scorer on the same routing as :meth:`query`).
+        Returns (Q, k) scores and indices. Needs a device-resident bank."""
+        if not self._device_resident():
+            raise ValueError(
+                "query_multi needs a device-resident bank; for out-of-memory "
+                "banks loop bank_topk_chunked per target"
             )
-        if not exact and n >= TWO_STAGE_MIN_ROWS:
-            raise NotImplementedError(
-                f"bank of {n} rows would take the int8 two-stage scorer, which is not "
-                "ported yet (ROADMAP: int8 two-stage, chunked and multi-query retrieval); "
-                "pass exact=True for the single-pass scorer"
-            )
+        pairs = [self._query_target(latent, use_weights) for latent in target_latents]
+        targets = torch.stack([t for t, _ in pairs])
+        weights = torch.stack([w for _, w in pairs])
+        n = self.features.shape[0]
+        bank = self._device()
+        if exact or n < TWO_STAGE_MIN_ROWS:
+            vals, idx = bank_topk_multi(bank, targets, weights, min(k, n))
+        else:
+            bank8, rnorm = self._device_int8()
+            vals, idx = bank_topk_multi_int8(bank8, rnorm, bank, targets, weights, min(k, n),
+                                             oversample=min(max(2048, k), n))
+        return vals.cpu().numpy(), idx.cpu().numpy()
+
+    def _device_resident(self) -> bool:
+        return (self.features.shape[0] <= DEVICE_ROWS_LIMIT
+                and isinstance(self.features, torch.Tensor))
+
+    def _query_target(self, target_latent, use_weights: bool):
+        """A target group's mean feature and weights in the bank's space:
+        standardised by the bank stats before the mean/inverse-variance
+        collapse, as the streaming path orders it."""
         flat = self._pool_target(target_latent)
         mean = torch.as_tensor(self.mean, device=self.device)
         std = torch.as_tensor(self.std, device=self.device)
-        flat = (flat - mean) / (std + 1e-8)
-        tgt, w = target_features(flat)
-        vals, idx = bank_topk(self._device(), tgt, w, min(k, n))
-        return vals.cpu().numpy(), idx.cpu().numpy()
+        tgt, w = target_features((flat - mean) / (std + 1e-8))
+        if not use_weights:
+            w = torch.ones_like(w) / w.shape[0]
+        return tgt, w
 
     def _pool_target(self, target_latent) -> torch.Tensor:
         """Target tokens in the bank's feature space: ``central`` banks hold
@@ -126,6 +201,12 @@ class EmbeddingBank:
         if self._device_bank is None:
             self._device_bank = self.features.to(self.device).contiguous()
         return self._device_bank
+
+    def _device_int8(self):
+        """The device bank quantised for the stage-1 int8 cut, made once."""
+        if self._device_int8_bank is None:
+            self._device_int8_bank = quantize_bank_int8(self._device())
+        return self._device_int8_bank
 
 
 @torch.inference_mode()

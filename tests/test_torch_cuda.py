@@ -10,6 +10,11 @@ counted, that ``loss.backward()`` through the model on the card reaches
 every parameter (ViT-B's stash path, ViT-L's MLP stash path, the remat path
 with the RA/Dec token), and that remat leaves the gradients bit-equal.
 
+Kernel 11 (the multi-query bank scorer) is held to its plain version at
+ragged bank rows, widths and query counts, and the retrieval routes on the
+card: one launch per ``query_multi``, the chunked scorer against the single
+pass, the int8 two-stage scorers' agreement with the exact ranking.
+
 Every test is marked ``cuda`` and skips where there is no card. This file
 imports neither JAX nor the JAX package, so it runs on a host without them:
 
@@ -408,3 +413,111 @@ def test_remat_gradients_equal_the_stored_path_on_the_card(dev):
     assert got.keys() == want.keys()
     for name, grad in got.items():
         assert (grad is None and want[name] is None) or torch.equal(grad, want[name]), name
+
+
+# -- kernel 11 (multi-query bank scorer) and the retrieval routes ------------------
+
+MULTI_SHAPES = [(1000, 48, 5), (4097, 768, 8), (3, 200, 1), (1025, 37, 130), (333, 3072, 17),
+                (513, 64, 33), (130, 7, 64)]
+
+
+def _multi_args(dev, N, D, Q, dtype, seed):
+    rng = np.random.default_rng(seed)
+    bank = torch.from_numpy(rng.normal(size=(N, D)).astype(np.float32)).to(dev, dtype)
+    targets = torch.from_numpy(rng.normal(size=(Q, D)).astype(np.float32)).to(dev)
+    w = torch.from_numpy(rng.uniform(0.5, 1.5, size=(Q, D)).astype(np.float32)).to(dev)
+    return bank, targets, w / w.sum(dim=1, keepdim=True)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, TOL_SCORE_F32), (torch.bfloat16, TOL_FWD)])
+@pytest.mark.parametrize("N,D,Q", MULTI_SHAPES)
+def test_multi_scores_kernel_matches_plain(dev, N, D, Q, dtype, tol):
+    """Ragged N (not a multiple of the 128-row block), D (odd widths take the
+    scalar loads, 3072 the central-pool width) and Q (past one 64-query block)."""
+    bank, targets, w = _multi_args(dev, N, D, Q, dtype, seed=20)
+    got = tss.weighted_bank_scores_multi(bank, targets, w)
+    assert got.shape == (N, Q) and got.dtype == torch.float32
+    assert _max_rel(got, tss.weighted_bank_scores_multi_plain(bank, targets, w)) <= tol
+    vals, idx = tss.bank_topk_multi(bank, targets, w, min(5, N))
+    assert vals.shape == (Q, min(5, N))
+    assert torch.equal(vals, torch.gather(got.t(), 1, idx))
+    # an unaligned bank (a row-offset view of another) takes the scalar loads
+    if dtype == torch.float32 and D % 4 == 0 and N > 1:
+        tail = bank[1:].contiguous().view(-1)[: (N - 1) * D]
+        shifted = torch.cat([tail.new_zeros(1), tail])[1:].view(N - 1, D)
+        assert shifted.data_ptr() % 16 != 0
+        assert _max_rel(tss.weighted_bank_scores_multi(shifted, targets, w), got[1:]) <= tol
+
+
+def test_multi_scorer_refuses_what_it_does_not_take(dev):
+    bank, targets, w = _multi_args(dev, 64, 32, 3, torch.float32, seed=21)
+    with pytest.raises(ValueError, match="not supported"):
+        tss.weighted_bank_scores_multi(bank.half(), targets, w)
+    with pytest.raises(ValueError, match="contiguous"):
+        tss.weighted_bank_scores_multi(bank.t(), targets, w)
+    with pytest.raises(ValueError, match="on cpu"):
+        tss.weighted_bank_scores_multi(bank, targets.cpu(), w)
+    with pytest.raises(ValueError, match="weights"):
+        tss.weighted_bank_scores_multi(bank, targets, w.double())
+    with pytest.raises(ValueError, match="targets"):
+        tss.weighted_bank_scores_multi(bank, targets[0], w)
+    narrow = bank[:, :30].contiguous()  # quantising takes it, torch._int_mm does not
+    with pytest.raises(ValueError, match="D % 8"):
+        tss.bank_topk_int8(*tss.quantize_bank_int8(narrow), narrow, targets[0, :30],
+                           w[0, :30].contiguous(), 5, oversample=20)
+
+
+def test_multi_scorer_counts_one_launch_per_call(dev):
+    from sky_embeddings_tpu_torch.eval.bank import EmbeddingBank
+
+    bank, _, _ = _multi_args(dev, 5000, 64, 1, torch.bfloat16, seed=22)
+    before = (tss.weighted_bank_scores_multi.launches, tss.weighted_bank_scores.launches)
+    eb = EmbeddingBank(bank.cpu(), np.zeros((5000, 2), np.float32), np.zeros(64), np.ones(64),
+                       device=dev)
+    groups = [np.random.default_rng(g).normal(size=(3, 4, 64)) for g in range(4)]
+    scores, rows = eb.query_multi(groups, k=10)
+    eb.query_multi(groups, k=10, exact=True)
+    torch.cuda.synchronize()
+    assert scores.shape == rows.shape == (4, 10)
+    assert (tss.weighted_bank_scores_multi.launches - before[0],
+            tss.weighted_bank_scores.launches - before[1]) == (2, 0)
+
+
+def test_chunked_scorer_equals_single_pass_on_the_card(dev):
+    """A host bank in 4 slabs (a ragged tail) through K3 on the card: the
+    single pass's indices and, row by row the same K3 code, its scores bit
+    for bit; one K3 launch per slab."""
+    rng = np.random.default_rng(23)
+    host = torch.from_numpy(rng.normal(size=(10_000, 64)).astype(np.float32)).to(torch.bfloat16)
+    target = torch.from_numpy(rng.normal(size=64).astype(np.float32)).to(dev)
+    w = torch.full((64,), 1 / 64, device=dev)
+    before = tss.weighted_bank_scores.launches
+    vals, idx = tss.bank_topk_chunked(host, target, w, 300, slab_rows=3000)
+    assert tss.weighted_bank_scores.launches - before == 4
+    want_v, want_i = tss.bank_topk(host.to(dev), target, w, 300)
+    np.testing.assert_array_equal(idx, want_i.cpu().numpy())
+    np.testing.assert_array_equal(vals, want_v.cpu().numpy())
+
+
+def test_int8_routes_agree_with_the_exact_scorers(dev):
+    """The two-stage scorers on a 100 000-row bf16 bank: top-300 agreement
+    with the exact ranking (share of returned rows whose exact score reaches
+    the exact cut - 5e-3) at least 0.999 (one target) and 0.99 (each of 8),
+    and the returned scores are the exact scores of those rows."""
+    rng = np.random.default_rng(24)
+    bank = torch.from_numpy(rng.normal(size=(100_000, 768)).astype(np.float32)).to(dev, torch.bfloat16)
+    targets = torch.from_numpy(rng.normal(size=(8, 768)).astype(np.float32)).to(dev)
+    w = torch.from_numpy(rng.uniform(0.5, 1.5, size=(8, 768)).astype(np.float32)).to(dev)
+    w = w / w.sum(dim=1, keepdim=True)
+    bank8, rnorm = tss.quantize_bank_int8(bank)
+    exact = tss.weighted_bank_scores_multi(bank, targets, w)  # (N, 8)
+    vals, idx = tss.bank_topk_int8(bank8, rnorm, bank, targets[0], w[0], 300, oversample=8192)
+    cut = torch.topk(exact[:, 0], 300).values[-1]
+    assert float((exact[idx, 0] >= cut - 5e-3).float().mean()) >= 0.999
+    assert _max_rel(vals, exact[idx, 0]) <= TOL_SCORE_F32
+    mvals, midx = tss.bank_topk_multi_int8(bank8, rnorm, bank, targets, w, 300, oversample=2048)
+    assert mvals.shape == midx.shape == (8, 300)
+    for q in range(8):
+        cut = torch.topk(exact[:, q], 300).values[-1]
+        assert float((exact[midx[q], q] >= cut - 5e-3).float().mean()) >= 0.99, q
+        assert _max_rel(mvals[q], exact[midx[q], q]) <= TOL_SCORE_F32

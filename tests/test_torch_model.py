@@ -207,6 +207,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "print(len(sys.modules))\n"
     )
     assert len(mods) >= 15
+    for new in ("data.fits_io", "data.fits_loader", "sky_sim_search", "eval.bank",
+                "eval.simsearch", "ops.kernels.simscore"):
+        assert f"{pkg.__name__}.{new}" in mods
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
 
 

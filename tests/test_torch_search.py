@@ -194,18 +194,29 @@ def test_bank_files_load_in_both_packages(models, tmp_path):
     np.testing.assert_allclose(np.sort(ts), np.sort(np.asarray(js)), atol=3e-3)
 
 
-def test_query_raises_where_jax_takes_unported_routes():
+def test_query_raises_where_jax_takes_unported_routes(monkeypatch):
+    """The routes that raised before the retrieval slice now answer as JAX's
+    do: a bank of ``TWO_STAGE_MIN_ROWS`` rows takes the int8 two-stage
+    scorer by default, and one over ``DEVICE_ROWS_LIMIT`` rows (lowered here
+    in both packages) the chunked scorer; each gives JAX's winners."""
+    from sky_embeddings_tpu.eval import bank as jbank_mod
     from sky_embeddings_tpu_torch.eval import bank as bank_mod
 
     n = bank_mod.TWO_STAGE_MIN_ROWS
-    feats = torch.zeros(n, 8, dtype=torch.bfloat16)
-    bank = bank_mod.EmbeddingBank(feats, np.zeros((n, 2), np.float32), np.zeros(8), np.ones(8),
-                                  device="cpu")
-    target = np.random.default_rng(0).normal(size=(2, 3, 8))
-    with pytest.raises(NotImplementedError, match="two-stage"):
-        bank.query(target, k=5)
-    _, idx = bank.query(target, k=5, exact=True)
-    assert idx.shape == (5,)
+    rng = np.random.default_rng(0)
+    feats = rng.normal(size=(n, 8)).astype(np.float32)
+    args = (rng.uniform(size=(n, 2)).astype(np.float32), np.zeros(8), np.ones(8))
+    bank = bank_mod.EmbeddingBank(torch.from_numpy(feats), *args, device="cpu")
+    jbank = jbank_mod.EmbeddingBank(feats, *args)
+    target = rng.normal(size=(2, 3, 8))
+    for limit in (bank_mod.DEVICE_ROWS_LIMIT, n - 1):
+        monkeypatch.setattr(bank_mod, "DEVICE_ROWS_LIMIT", limit)
+        monkeypatch.setattr(jbank_mod, "DEVICE_ROWS_LIMIT", limit)
+        ts, ti = bank.query(target, k=5)
+        js, ji = jbank.query(target, k=5)
+        np.testing.assert_array_equal(ti, np.asarray(ji))
+        np.testing.assert_allclose(ts, np.asarray(js), atol=2e-5)
+    assert bank._device_int8_bank is not None  # the first pass took the int8 route
 
 
 # -- data ------------------------------------------------------------------------
