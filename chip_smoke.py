@@ -9,8 +9,8 @@ failing loudly (any failure exits non-zero and prints no result line):
 1. device: card name and power limit; TF32 off for the plain fp32 products;
 2. build: nvcc builds the CUDA kernels (attention block forward and stash
    forward; attention stash and recompute backward; MLP block forward and
-   stash forward; MLP recompute and stash backward; the multi-query bank
-   scorer) from the sources in the
+   stash forward; MLP recompute, stash and weight-streaming backward; the
+   multi-query bank scorer) from the sources in the
    checkout, one nvcc per source, all at once; Triton compiles the bank
    scorer;
 3. kernel parity, each kernel against its plain PyTorch version on the same
@@ -22,7 +22,10 @@ failing loudly (any failure exits non-zero and prints no result line):
    TOL_BWD = 3e-2 and finite: kernels 2, 3, 8 at ``mim_1`` (B=64, 512 and
    the ragged 63), kernels 6, 7 at ``mim_25_large`` (ViT-L, N=65, D=768,
    F=3072; B=64, 512, 63), kernel 4 at ``mim_32`` (ViT-L with the RA/Dec
-   token, N=66, D=1024, H=16; B=32, 256, 31);
+   token, N=66, D=1024, H=16; B=32, 256, 31); at ViT-H's shapes (N=66,
+   D=1280, 16 heads of 80, F=5120; B=32, 256, 31) kernel 9 against its
+   plain version and against kernel 8 (the gap printed), K2 and kernel 4 at
+   hd = 80, and at N = 256;
 4. the serving path, through the entry points ``similarity_search`` calls, on
    ``configs/mim_1.ini`` (SimMIM ViT-B, bf16, full depth, seeded weights) and
    synthetic cutouts with whole-band NaNs: ``extract_latents`` of 2 targets
@@ -59,11 +62,15 @@ failing loudly (any failure exits non-zero and prints no result line):
      token, batch 32, remat): 10 steps, 2 validation batches; kernels 4 and 8
      at 24 x 10, K1 and K2 at 24 x (2 x 10 + 2), the stash kernels at 0; and
      the gradients with remat bit-equal to those of the same model without
-     remat (both stashes off).
+     remat (both stashes off);
+   - ViT-H (``mim_32`` with ``bench.py`` ``bench_vit_h``'s model: mimhuge,
+     D=1280, depth 32, 16 heads of 80, F=5120, no remat, stash off; batch
+     32), built in memory: 10 steps, 2 validation batches; kernels 4 and 9
+     at 32 x 10, K1 and K2 at 32 x (10 + 2), kernels 2, 3, 6, 7, 8 at 0.
    For each config, the kernel path against the plain path on the card from
    the same params and masks: one step's loss and per-leaf gradients, and
-   the losses of 5 steps; then train-step times, device busy share and peak
-   memory;
+   the losses of 5 steps; then train-step times (ViT-H also at B=256,
+   ``bench_vit_h``'s batch), device busy share and peak memory;
 6. times with CUDA events after warm-up: per kernel at its path's shapes,
    the encoder, queries; torch.profiler device breakdowns.
 
@@ -116,6 +123,11 @@ TOL_LOSS = 4e-4
 # those, per config.
 TOL_GRAD_L, TOL_LOSS_L = 2e-2, 5e-4
 TOL_GRAD_R, TOL_LOSS_R = 6e-2, 8e-4
+# ViT-H (depth 32, the RA/Dec token, stash off). Measured on the H100
+# (PERF.md): gradients 2.2e-2 at worst (the RA/Dec SIREN's first layer;
+# median 6.4e-3), one step's loss 2.3e-5, five steps' losses 2.3e-4. The
+# bars are about twice those.
+TOL_GRAD_H, TOL_LOSS_H = 4.5e-2, 5e-4
 
 CONFIG = "mim_1"
 DEVICE = "cuda"
@@ -131,6 +143,13 @@ TRAIN_B = (64, 512, 63)  # the config's batch, a large one, a ragged one
 # token makes N=66, D=1024, H=16, F=4096)
 LARGE = ("mim_25_large", 10, 2, (64, 512, 63))
 REMAT = ("mim_32", 10, 2, (32, 256, 31))
+# the ViT-H training path: mim_32 with bench.py bench_vit_h's model
+# (mimhuge: depth 32, D=1280, 16 heads of 80, F=5120; no remat; stash off at
+# huge), built in memory; (name, steps, validation batches, kernel-parity
+# batches, train-step batches with their timed iterations)
+VITH = ("mim_32_vith", 10, 2, (32, 256, 31), ((32, 10), (256, 3)))
+VITH_OVERRIDES = {"ARCHITECTURE": {"model_type": "mimhuge", "embed_dim": "1280"},
+                  "TRAINING": {"remat": "False"}}
 # the retrieval path: a FITS survey of FITS_TILES tiles of FITS_SIZE^2 pixels
 # per band, searched at FITS_OVERLAP for N_GROUPS target groups; kernel 11 at
 # MULTI_Q queries on the 1M bank and at RAGGED (rows, width, queries); the
@@ -183,6 +202,8 @@ def main() -> int:
         mlp_block_bwd_plain,
         mlp_block_bwd_stash,
         mlp_block_bwd_stash_plain,
+        mlp_block_bwd_stream,
+        mlp_block_bwd_stream_plain,
         mlp_block_fwd_stash,
         mlp_block_fwd_stash_plain,
         mlp_block_plain,
@@ -472,6 +493,58 @@ def main() -> int:
         del x, g, cases
     torch.cuda.empty_cache()
 
+    # the ViT-H path's kernels at its shapes (N=66 with the RA/Dec token,
+    # D=1280, 16 heads of 80, F=5120): kernel 9 (four slabs of 1280) against
+    # its plain version and against kernel 8, which differs from it only in
+    # the order of fp32 sums; K2 and kernel 4 at hd = 80, and at N = 256
+    # (the largest N, where the shared-memory plans are tightest)
+    d_h = {sec: dict(cfg_r[sec].items()) for sec in cfg_r.sections()}
+    for sec, over in VITH_OVERRIDES.items():
+        d_h[sec].update(over)
+    cfg_h = Config.from_dict(d_h, name=VITH[0])
+    n_h, dm_h, h_h = N_TOK + 1, cfg_h.architecture.int("embed_dim"), 16
+    f_h = 4 * dm_h
+
+    def vith_bounds(B, n):
+        M, hd = B * n, dm_h // h_h
+        return {
+            "mlp_block_bwd_stream": (10 * M * dm_h * f_h, 3 * M * dm_h * 2 + 4 * dm_h * f_h * 2
+                                     + (2 * dm_h + f_h) * 4 + (3 * dm_h + f_h) * 4),
+            "attn_block_fwd_hd80": (8 * M * dm_h * dm_h + 4 * B * h_h * n * n * hd,
+                                    2 * M * dm_h * 2 + 4 * dm_h * dm_h * 2 + 6 * dm_h * 4),
+            "attn_block_bwd_hd80": vitl_bounds(B, n, dm_h, h_h, f_h)["attn_block_bwd"],
+        }
+
+    stream_gap = {}
+    for B in VITH[3]:
+        args = block_args("mlp", B, n_h, dm_h, f_h)[:6]
+        g = (torch.randn(B, n_h, dm_h, generator=gen, device=dev) * 0.1).to(torch.bfloat16)
+        args = (*args, g)
+        cases = (("mlp_block_bwd_stream", mlp_block_bwd_stream, mlp_block_bwd_stream_plain, args,
+                  grads_mlp),)
+        run_cases(cases, B, vith_bounds(B, n_h), B != VITH[3][-1])
+        got, k8 = mlp_block_bwd_stream(*args), mlp_block_bwd(*args)
+        torch.cuda.synchronize()
+        gap = {o: rel_err(a, b)[0] for o, a, b in zip(grads_mlp, got, k8)}
+        stream_gap[B] = gap
+        print(f"kernel 9 vs kernel 8 B={B}: max-rel per output "
+              + ", ".join(f"{o} {r:.2e}" for o, r in gap.items()) + f" (bar {TOL_BWD})", flush=True)
+        check(max(gap.values()) <= TOL_BWD, f"kernel 9 vs kernel 8 B={B}")
+        if B == VITH[3][0]:  # kernel 8 at the same shapes, for the table's note
+            timings[("mlp_block_bwd", "vith32")] = {"ms": cuda_ms(lambda: mlp_block_bwd(*args), 20)}
+        del args, g, got, k8, cases
+    for B, n in [(b, n_h) for b in VITH[3]] + [(8, 256)]:
+        x, s_, b_, wq, bq, wp, bp = block_args("attn", B, n, dm_h)
+        g = (torch.randn(B, n, dm_h, generator=gen, device=dev) * 0.1).to(torch.bfloat16)
+        cases = (("attn_block_fwd_hd80", lambda *a: (fused_attn_block(*a),),
+                  lambda *a: (attn_block_plain(*a),), (x, s_, b_, wq, bq, wp, bp, h_h), ("out",)),
+                 ("attn_block_bwd_hd80", attn_block_bwd, attn_block_bwd_plain,
+                  (x, s_, b_, wq, bq, wp, g, h_h), grads_attn))
+        run_cases(cases, B if n == n_h else f"{B} N={n}", vith_bounds(B, n),
+                  n == n_h and B != VITH[3][-1])
+        del x, g, cases
+    torch.cuda.empty_cache()
+
     # ---- 4. serving path ------------------------------------------------------
     cfg = load_config(CONFIG, os.path.join(ROOT, "configs"))
     model = build_mim_model(cfg, dtype=torch.bfloat16, device=dev,
@@ -492,7 +565,8 @@ def main() -> int:
 
     counters = (fused_attn_block, fused_mlp_block, weighted_bank_scores,
                 weighted_bank_scores_multi, attn_block_fwd_stash, attn_block_bwd_stash,
-                mlp_block_bwd, attn_block_bwd, mlp_block_fwd_stash, mlp_block_bwd_stash)
+                mlp_block_bwd, attn_block_bwd, mlp_block_fwd_stash, mlp_block_bwd_stash,
+                mlp_block_bwd_stream)
     training_kernels = [f.__name__ for f in counters[4:]]
 
     def zero_counters():
@@ -778,7 +852,10 @@ def main() -> int:
         (trainer, batches) runs config-specific checks; then the kernel path
         against the plain path and train-step times at ``time_batches``."""
         tag = cfg_.name
+        t_init = time.perf_counter()
         trainer = MIMPretrainer(cfg_, dtype=torch.bfloat16, seed=0, device=dev)
+        torch.cuda.synchronize()
+        t_init = time.perf_counter() - t_init  # seeded init on the host, then the copy
         m = trainer.model
         bs = trainer.batch_size
         layers = m.encoder.depth
@@ -808,7 +885,7 @@ def main() -> int:
                   f"{tag}: {name_} launches {run_launches[name_]} == {layers} x "
                   f"({per_step} x {steps} + {per_val} x {val}) = {want_n}")
         result = {"layers": layers, "embed_dim": m.embed_dim, "batch": bs, "channels": m.in_chans,
-                  "remat": m.encoder.remat, "ra_dec": m.ra_dec,
+                  "remat": m.encoder.remat, "ra_dec": m.ra_dec, "trainer_init_s": t_init,
                   "seconds": t_run, "steps": steps, "val_batches": val, "launches": run_launches,
                   "train_losses": train_losses, "val_losses": val_losses}
         if extra is not None:
@@ -851,7 +928,7 @@ def main() -> int:
             "grad_rel_vs_plain_median": float(np.median(list(grad_rel.values()))),
             "trajectory_kernel": traj[0], "trajectory_plain": traj[1], "trajectory_max_rel": traj_rel,
         })
-        del pair, step_grads
+        del pair, step_grads, tr, loss  # `tr` still held the plain-path trainer
         torch.cuda.empty_cache()
 
         # train-step times at the config's batch (and larger ones)
@@ -951,6 +1028,18 @@ def main() -> int:
         del ref
         return {"remat_grads_bit_equal": same, "remat_cost": cost}
 
+    def vith_init(trainer, tbatches):
+        """mim_32_vith: bench_vit_h's model, every block wide (kernel 9) with
+        the attention stash off (kernel 4), about 632M parameters."""
+        m = trainer.model
+        blocks = [getattr(m.encoder, f"block{i}") for i in range(m.encoder.depth)]
+        n_params = sum(p.numel() for p in m.parameters())
+        check(all(b.ffn.wide and not b.stash and b.num_heads == 16 for b in blocks)
+              and 6.2e8 < n_params < 6.5e8, f"ViT-H: wide blocks, stash off, {n_params} params")
+        print(f"{VITH[0]}: {n_params} parameters, {len(blocks)} wide blocks of 16 heads of "
+              f"{m.embed_dim // 16}", flush=True)
+        return {"parameters": n_params}
+
     # launches per layer: (per train step, per validation batch)
     expect_b = {"attn_block_fwd_stash": (1, 0), "attn_block_bwd_stash": (1, 0),
                 "mlp_block_bwd": (1, 0), "fused_mlp_block": (1, 1), "fused_attn_block": (0, 1)}
@@ -960,6 +1049,10 @@ def main() -> int:
     # remat: each block's forward kernels run again in the backward
     expect_r = {"attn_block_bwd": (1, 0), "mlp_block_bwd": (1, 0),
                 "fused_mlp_block": (2, 1), "fused_attn_block": (2, 1)}
+    # ViT-H: stash off at huge (K2 forward, kernel 4 backward), the wide MLP
+    # (K1 forward, kernel 9 backward)
+    expect_h = {"fused_attn_block": (1, 1), "attn_block_bwd": (1, 0),
+                "fused_mlp_block": (1, 1), "mlp_block_bwd_stream": (1, 0)}
     check(cfg.training.int("batch_size") == BATCH, "mim_1 trains at batch 64")
     paths = {}
     paths[CONFIG] = training_phase(cfg, TRAIN_STEPS, VAL_BATCHES, expect_b, TOL_GRAD, TOL_LOSS,
@@ -968,10 +1061,12 @@ def main() -> int:
                                      ((64, 10),), seed=4)
     paths[REMAT[0]] = training_phase(cfg_r, REMAT[1], REMAT[2], expect_r, TOL_GRAD_R, TOL_LOSS_R,
                                      ((32, 10),), seed=5, extra=remat_check)
+    paths[VITH[0]] = training_phase(cfg_h, VITH[1], VITH[2], expect_h, TOL_GRAD_H, TOL_LOSS_H,
+                                    VITH[4], seed=6, extra=vith_init)
     shapes = {c: tuple(r[k] for k in ("layers", "embed_dim", "batch", "channels", "remat", "ra_dec"))
               for c, r in paths.items()}
     check(shapes == {CONFIG: (12, 768, 64, 5, False, False), LARGE[0]: (24, 768, 64, 5, False, False),
-                     REMAT[0]: (24, 1024, 32, 9, True, True)},
+                     REMAT[0]: (24, 1024, 32, 9, True, True), VITH[0]: (32, 1280, 32, 9, False, True)},
           f"the configs train at full width and depth: {shapes}")
 
     # ---- 6. times -------------------------------------------------------------
@@ -1018,6 +1113,8 @@ def main() -> int:
                                 "mlp_block_bwd_stash", LARGE[3][0]),
         "weighted_bank_scores_multi": ("cuda", src + "csrc/simscore_multi.cu",
                                        jsrc + "simscore.py:183", "weighted_bank_scores_multi", 8),
+        "mlp_block_bwd_stream": ("cuda", src + "csrc/mlp_block_bwd.cu", jsrc + "mlp_block.py:532",
+                                 "mlp_block_bwd_stream", VITH[3][0]),
     }
     kernels = []
     for name, (route, source, replaces, counter, shape) in meta.items():
@@ -1033,7 +1130,8 @@ def main() -> int:
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
         })
-    emit({"kernel_times": [{"name": n, "shape": s_, **v} for (n, s_), v in timings.items()]})
+    emit({"kernel_times": [{"name": n, "shape": s_, **v} for (n, s_), v in timings.items()],
+          "kernel9_vs_kernel8_max_rel": {str(b): v for b, v in stream_gap.items()}})
     emit({
         "main_path": {"seconds": t_main, "encoder_calls": encoder_calls, "launches": launches,
                       "tokens_max_rel_vs_plain": tok_rel, "tokens_max_abs_vs_plain": tok_abs,

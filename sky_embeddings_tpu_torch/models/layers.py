@@ -9,14 +9,19 @@ Parameters are fp32; ``dtype`` is the activation and GEMM-operand dtype.
 Each ``Block`` calls the attention-block kernel and then the MLP-block
 kernel (``ops/kernels/``) for every batch size; their wrappers take the plain
 PyTorch versions for CPU tensors and raise on CUDA for what the kernels do not
-take (fp32, N > 256). With grad enabled the two calls go through their
+take (fp32, N > 256, a head too wide for the attention core's shared
+memory). With grad enabled the two calls go through their
 ``torch.autograd.Function``s: the attention stash forward and backward
 (``stash=True``, the default, as in JAX) or K2 with the recompute backward
-(``stash=False``), and the MLP forward with its recompute backward
-(``stash_mlp=False``) or the MLP stash forward and backward
-(``stash_mlp=True``, the ViT-L default). ``Encoder.plain = True`` sends the
-blocks through the plain versions on any device: the reference path that a
-check on the card holds the kernel path against.
+(``stash=False``, the ViT-H default), and the MLP forward with its recompute
+backward (``stash_mlp=False``) or the MLP stash forward and backward
+(``stash_mlp=True``, the ViT-L default). A wide MLP block (D·F > 1024·4096,
+ViT-H) always takes the MLP forward with the weight-streaming backward
+(kernel 9), JAX's width rule without its TPU-only gates (the backend, B % 16,
+``SKY_MLP_STREAM``): on the card it never runs the plain MLP.
+``Encoder.plain = True`` sends the blocks through the plain versions on any
+device: the reference path that a check on the card holds the kernel path
+against.
 
 ``Encoder(remat=True)`` runs each block under
 ``torch.utils.checkpoint.checkpoint`` (JAX ``nn.remat(Block)``): the block's
@@ -124,12 +129,16 @@ class AttnParams(nn.Module):
 
 
 class MlpBlock(nn.Module):
-    """LN -> fc1 -> exact GELU -> fc2 -> residual (``ffn`` scope)."""
+    """LN -> fc1 -> exact GELU -> fc2 -> residual (``ffn`` scope). A wide
+    block (D·F > 1024·4096, JAX ``layers.py:238``: ViT-H) takes the
+    weight-streaming backward (``stash="stream"``, kernel 9) whatever
+    ``stash`` says, as JAX's does (``layers.py:249``)."""
 
     def __init__(self, dim: int, hidden_dim: int, dtype: torch.dtype, stash: bool = False):
         super().__init__()
         self.dtype = dtype
         self.stash = stash
+        self.wide = dim * hidden_dim > 1024 * 4096
         self.norm_scale = nn.Parameter(torch.ones(dim))
         self.norm_bias = nn.Parameter(torch.zeros(dim))
         self.fc1_kernel = nn.Parameter(torch.empty(dim, hidden_dim))
@@ -150,7 +159,7 @@ class MlpBlock(nn.Module):
             x.to(self.dtype), self.norm_scale, self.norm_bias,
             self.fc1_kernel.to(self.dtype), self.fc1_bias,
             self.fc2_kernel.to(self.dtype), self.fc2_bias,
-            stash=self.stash, plain=plain,
+            stash="stream" if self.wide else self.stash, plain=plain,
         )
 
 

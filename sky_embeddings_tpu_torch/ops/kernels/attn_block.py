@@ -35,6 +35,13 @@ cores add 4·B·H·N²·hd, 8·B·H·N²·hd and 10·B·H·N²·hd. qkv, ctx and
 through device memory at the points where the TPU kernels round them;
 keeping them on chip and wgmma are later work.
 
+Head dims: any multiple of 16 whose core fits a block's shared memory at
+the given N. The check asks the CUDA source for its plan's bytes
+(``sky_attn_fwd_plan_bytes``, ``sky_attn_bwd_plan_bytes``), so the wrapper
+and the kernel cannot disagree; a plan shrinks its query blocks before it
+gives up. ViT-H's 80 fits every core up to N = 256; 192 at N = 256 fits
+none and is refused.
+
 Not ported yet (ROADMAP): the packed-segment mask (``seg_len > 0``, MAE
 training).
 
@@ -65,6 +72,7 @@ from sky_embeddings_tpu_torch.ops.kernels.mlp_block import (
 )
 
 MAX_TOKENS = 256  # the TPU kernel's dispatch bound (layers.py:341)
+SMEM_PER_BLOCK = 232448  # dynamic shared memory a block may use, csrc/gemm.cuh SMEM_OPTIN_MAX
 
 
 def _qkv_probs(x, scale, bias, wqkv, bqkv, num_heads: int):
@@ -161,7 +169,22 @@ def _lib(name: str, entry: str, n_ptr: int) -> ctypes.CDLL:
     return lib
 
 
-def _check_cuda_args(x, scale, bias, wqkv, bqkv, wproj, bproj, num_heads):
+def _plan_bytes(core: str, N: int, hd: int) -> int:
+    """Shared-memory bytes of a core's plan at (N, hd), as the CUDA source
+    computes them: ``"fwd"`` (K2, kernel 2), ``"stash"`` (kernel 3) or
+    ``"recompute"`` (kernel 4)."""
+    if core == "fwd":
+        lib, entry, args = "attn_block", "sky_attn_fwd_plan_bytes", (N, hd)
+    else:
+        lib, entry, args = "attn_block_bwd", "sky_attn_bwd_plan_bytes", (N, hd, int(core == "recompute"))
+    fn = getattr(cuda_build.load(lib), entry)
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int] * len(args)
+        fn.restype = ctypes.c_longlong
+    return int(fn(*args))
+
+
+def _check_cuda_args(x, scale, bias, wqkv, bqkv, wproj, bproj, num_heads, core: str):
     if x.dtype != torch.bfloat16:
         raise ValueError(
             f"fused_attn_block on CUDA takes bf16 activations, got {x.dtype} "
@@ -175,8 +198,8 @@ def _check_cuda_args(x, scale, bias, wqkv, bqkv, wproj, bproj, num_heads):
     if D % num_heads:
         raise ValueError(f"D={D} not divisible by num_heads={num_heads}")
     hd = D // num_heads
-    if hd % 16 or hd > 64:
-        raise ValueError(f"head dim {hd} must be a multiple of 16 and <= 64")
+    if hd % 16:
+        raise ValueError(f"head dim {hd} must be a multiple of 16")
     if D % 8:
         raise ValueError(f"D={D} must be a multiple of 8 (16-byte loads)")
     if B * N > 65535 * ROWS_PER_PARTIAL or B * num_heads > 2**31 - 1:
@@ -193,13 +216,17 @@ def _check_cuda_args(x, scale, bias, wqkv, bqkv, wproj, bproj, num_heads):
             raise ValueError(f"{name}: want contiguous {shape} {dtype}, got {tuple(t.shape)} {t.dtype}")
         if t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+    smem = _plan_bytes(core, N, hd)
+    if smem > SMEM_PER_BLOCK:
+        raise ValueError(f"head dim {hd} at N={N}: the {core} core's shared-memory plan needs "
+                         f"{smem} bytes, more than the {SMEM_PER_BLOCK} a block may use")
 
 
 def _launch_fwd(x, scale, bias, wqkv, bqkv, wproj, bproj, num_heads, stash: bool):
     """K2 (``stash=False``, counted on ``fused_attn_block.launches``) or
     kernel 2 (counted on ``attn_block_fwd_stash.launches``) on CUDA tensors:
     ``(out, qkv, probs)``, probs None without the stash."""
-    _check_cuda_args(x, scale, bias, wqkv, bqkv, wproj, bproj, num_heads)
+    _check_cuda_args(x, scale, bias, wqkv, bqkv, wproj, bproj, num_heads, "fwd")
     B, N, D = x.shape
     qkv = torch.empty((B, N, 3 * D), dtype=torch.bfloat16, device=x.device)
     ctx = torch.empty((B, N, D), dtype=torch.bfloat16, device=x.device)
@@ -282,7 +309,7 @@ def attn_block_bwd_stash(x, scale, bias, wqkv, wproj, qkv, probs, g, num_heads: 
     ``csrc/attn_block_bwd.cu`` or raise."""
     if x.device.type == "cpu":
         return attn_block_bwd_stash_plain(x, scale, bias, wqkv, wproj, qkv, probs, g, num_heads)
-    _check_cuda_args(x, scale, bias, wqkv, None, wproj, None, num_heads)
+    _check_cuda_args(x, scale, bias, wqkv, None, wproj, None, num_heads, "stash")
     _check_bwd_inputs(x, num_heads, qkv=qkv, probs=probs, g=g)
     grads = _launch_bwd("sky_attn_block_bwd_stash", x,
                         (x, scale, bias, wqkv, wproj, qkv, probs, g), num_heads)
@@ -300,7 +327,7 @@ def attn_block_bwd(x, scale, bias, wqkv, bqkv, wproj, g, num_heads: int):
     ``csrc/attn_block_bwd.cu`` (recompute entry) or raise."""
     if x.device.type == "cpu":
         return attn_block_bwd_plain(x, scale, bias, wqkv, bqkv, wproj, g, num_heads)
-    _check_cuda_args(x, scale, bias, wqkv, bqkv, wproj, None, num_heads)
+    _check_cuda_args(x, scale, bias, wqkv, bqkv, wproj, None, num_heads, "recompute")
     _check_bwd_inputs(x, num_heads, g=g)
     qkv = torch.empty((*x.shape[:2], 3 * x.shape[2]), dtype=torch.bfloat16, device=x.device)
     grads = _launch_bwd("sky_attn_block_bwd", x, (x, scale, bias, wqkv, bqkv, wproj, g),

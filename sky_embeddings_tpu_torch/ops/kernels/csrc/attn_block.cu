@@ -39,11 +39,16 @@ namespace sky {
 constexpr int ATTN_THREADS = 128;
 
 // Shared-memory plan of one (sample, head) CTA. N is padded to NP (a
-// multiple of 16); queries go in blocks of QB rows (all of them at N <= 128).
+// multiple of 16); queries go in blocks of QB rows (all of them at N <= 128,
+// else 64; fewer, down to 16, where a wide head would not fit the block's
+// 227 KB otherwise: 32 at hd = 128, N = 256).
 //   Ks, Vs  NP x (hd + 8) bf16     keys and values, zero past N
 //   Qs      QB x (hd + 8) bf16     one query block, zero past N
 //   Ps      QB x (NP + 8) bf16     probabilities, rounded to bf16
 //   Ss      QB x SL fp32           logits, then the fp32 context
+// Every row pitch is a multiple of 8 bf16 (hd % 16 == 0), so each wmma tile
+// of 16 rows starts 32-byte aligned: hd = 80 gives HL = 88, five 16-wide
+// tiles and ten 16-byte vectors per head row.
 struct AttnPlan {
   int NP, QB, HL, PL, SL;
   __host__ __device__ AttnPlan(int N, int hd) {
@@ -52,6 +57,7 @@ struct AttnPlan {
     HL = hd + 8;
     PL = NP + 8;
     SL = (NP > hd ? NP : hd) + 4;
+    while (bytes() > SMEM_OPTIN_MAX && QB > 16) QB = QB > 64 ? 64 : QB / 2;
   }
   __host__ __device__ size_t bytes() const {
     return (size_t)(2 * NP * HL + QB * HL + QB * PL) * sizeof(bf16) + (size_t)QB * SL * sizeof(float);
@@ -196,6 +202,7 @@ static int attn_block_fwd(const void* x, const void* ln_scale, const void* ln_bi
   if (err != cudaSuccess) return static_cast<int>(err);
 
   const size_t smem = AttnPlan(N, hd).bytes();
+  if (smem > SMEM_OPTIN_MAX) return static_cast<int>(cudaErrorInvalidValue);
   err = cudaFuncSetAttribute(attn_core_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -208,6 +215,12 @@ static int attn_block_fwd(const void* x, const void* ln_scale, const void* ln_bi
 
   err = launch_gemm<EPI_BIAS_RESIDUAL>(gemm_args(ctx, wproj, bproj, x, out, M, D, D), s);
   return static_cast<int>(err);
+}
+
+// Shared-memory bytes of the core's plan at (N, hd); the wrappers refuse
+// what exceeds the block's limit.
+extern "C" long long sky_attn_fwd_plan_bytes(int N, int hd) {
+  return static_cast<long long>(sky::AttnPlan(N, hd).bytes());
 }
 
 extern "C" int sky_attn_block_fwd(const void* x, const void* ln_scale, const void* ln_bias,

@@ -68,10 +68,17 @@ constexpr int ATTN_BWD_THREADS = 256;
 //   Ps, dSs   QB x (NP + 8) bf16     probabilities (stashed or recomputed), then ds
 //   Ss        fp32: dp (QB x (NP + 4)), then per-warp 16 x 16 staging tiles
 //   Pf        RECOMPUTE only: fp32 logits, then fp32 P (QB x (NP + 4))
-// Kernel 3 at N = 256, hd = 64: 226,304 bytes, inside the 232,448 a CTA may use.
+// Kernel 3 at N = 256, hd = 64: 226,304 bytes, inside the 232,448 a CTA may
+// use. Where a wide head would not fit, QB shrinks (to 64, 32, then 16):
+// kernel 3 at hd = 80, N = 256 takes QB = 32 (168,448 bytes), at hd = 128
+// too (223,744); kernel 4 at hd = 80 needs 116,224 bytes at N = 66 and
+// 201,728 at N = 256, at hd = 128, N = 256 QB = 16 (198,144). At hd = 192,
+// N = 256 no plan fits, and the wrappers refuse it. dk and dv then sum over more query blocks, in
+// order. Row pitches stay multiples of 8 bf16, so wmma tiles start 32-byte
+// aligned at any hd % 16 == 0 (hd = 80: pitch 88, five 16-wide tiles).
 template <bool RECOMPUTE>
 struct AttnBwdPlan {
-  int NP, QB, HL, PL, SL, SS;
+  int NP, QB, HL, PL, SL;
   __host__ __device__ AttnBwdPlan(int N, int hd) {
     NP = (N + 15) & ~15;
     if (RECOMPUTE)
@@ -81,12 +88,16 @@ struct AttnBwdPlan {
     HL = hd + 8;
     PL = NP + 8;
     SL = NP + 4;
+    while (bytes() > SMEM_OPTIN_MAX && QB > 16) QB = QB > 64 ? 64 : QB / 2;
+  }
+  // fp32 elements of Ss: dp, or the warps' 16 x 16 staging tiles
+  __host__ __device__ int ss() const {
     const int staging = (ATTN_BWD_THREADS / 32) * 256;
-    SS = QB * SL > staging ? QB * SL : staging;
+    return QB * SL > staging ? QB * SL : staging;
   }
   __host__ __device__ size_t bytes() const {
     return (size_t)(2 * NP * HL + 2 * QB * HL + 2 * QB * PL) * sizeof(bf16) +
-           (size_t)(SS + (RECOMPUTE ? QB * SL : 0)) * sizeof(float);
+           (size_t)(ss() + (RECOMPUTE ? QB * SL : 0)) * sizeof(float);
   }
 };
 
@@ -106,7 +117,7 @@ attn_bwd_core_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ prob
   bf16* Ps = dCs + QB * HL;
   bf16* dSs = Ps + QB * PL;
   float* Ss = reinterpret_cast<float*>(dSs + QB * PL);
-  float* Pf = Ss + pl.SS;  // RECOMPUTE only
+  float* Pf = Ss + pl.ss();  // RECOMPUTE only
 
   const int b = blockIdx.x / H;
   const int h = blockIdx.x % H;
@@ -346,6 +357,7 @@ static int attn_block_bwd(const void* x, const void* ln_scale, const void* ln_bi
   const float scale = 1.0f / sqrtf(static_cast<float>(hd));
   if (recompute) {
     const size_t smem = AttnBwdPlan<true>(N, hd).bytes();
+    if (smem > SMEM_OPTIN_MAX) return static_cast<int>(cudaErrorInvalidValue);
     SKY_TRY(cudaFuncSetAttribute(attn_bwd_core_kernel<true>,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem)));
     attn_bwd_core_kernel<true><<<B * H, ATTN_BWD_THREADS, smem, s>>>(
@@ -353,6 +365,7 @@ static int attn_block_bwd(const void* x, const void* ln_scale, const void* ln_bi
         static_cast<bf16*>(ctx), static_cast<float*>(dqkv), N, D, H, hd, scale);
   } else {
     const size_t smem = AttnBwdPlan<false>(N, hd).bytes();
+    if (smem > SMEM_OPTIN_MAX) return static_cast<int>(cudaErrorInvalidValue);
     SKY_TRY(cudaFuncSetAttribute(attn_bwd_core_kernel<false>,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem)));
     attn_bwd_core_kernel<false><<<B * H, ATTN_BWD_THREADS, smem, s>>>(
@@ -376,6 +389,13 @@ static int attn_block_bwd(const void* x, const void* ln_scale, const void* ln_bi
   SKY_TRY(launch_colsum_final(part_scale, parts, D, dscale, s));
   SKY_TRY(launch_colsum_final(part_bias, parts, D, dbias, s));
   return 0;
+}
+
+// Shared-memory bytes of kernel 3's (recompute = 0) or kernel 4's core plan
+// at (N, hd); the wrappers refuse what exceeds the block's limit.
+extern "C" long long sky_attn_bwd_plan_bytes(int N, int hd, int recompute) {
+  return static_cast<long long>(recompute ? sky::AttnBwdPlan<true>(N, hd).bytes()
+                                          : sky::AttnBwdPlan<false>(N, hd).bytes());
 }
 
 // Kernel 3: the gradients from the stashed qkv (B, N, 3D) and probs (B, H, N, N).

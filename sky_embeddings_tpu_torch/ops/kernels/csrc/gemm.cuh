@@ -21,8 +21,12 @@
 // (cp.async zero-fill), and the epilogue stores only in-range rows and
 // columns. The contiguous axis of each stored operand (K or M for A, N or
 // K for B) and N must be multiples of 8 (16-byte vectors), which the
-// Python wrappers check. Every output element is one thread's fp32 sum in
-// a fixed order, so a product is bit-reproducible run to run.
+// Python wrappers check. B's rows may lie `ldb` elements apart and the
+// outputs' rows `ldc` apart (both default to the contiguous pitch), so a
+// product can read a column slab of a wider weight and write one of a wider
+// gradient in place (the streaming MLP backward). Every output element is
+// one thread's fp32 sum in a fixed order, so a product is bit-reproducible
+// run to run.
 //
 // Split-K (launch_weight_grad): the weight-gradient products have a small
 // (in, out) output -- 36 to 144 tiles of 128 x 128 at ViT-B, fewer than the
@@ -50,6 +54,8 @@
 //                      before that rounding           (mlp_block.py:365-370)
 //   EPI_GELU_BWD_STASH as EPI_GELU_BWD with a read from the bf16 stash in
 //                      `resid`; out_f32 = da         (mlp_block.py:393-399)
+//   EPI_ADD_F32        out_f32 = acc + out_f32       (the streaming backward's
+//                                                     cross-slab dy, mlp_block.py:499-501)
 //
 // layernorm_bf16 computes the LN that opens both blocks: fp32 two-pass
 // statistics per row (eps 1e-6), output rounded to bf16 -- the rounding
@@ -80,6 +86,9 @@ constexpr int GEMM_THREADS = 256;
 constexpr int WARPS_N = 4;    // 2 x 4 warps, each a 64x32 warp tile
 constexpr int FM = 4;         // 16-row fragments per warp tile
 constexpr int FN = 2;         // 16-col fragments per warp tile
+// dynamic shared memory one block may use on sm_90 (the opt-in limit);
+// mirrored by SMEM_PER_BLOCK in the Python attention wrappers
+constexpr size_t SMEM_OPTIN_MAX = 232448;
 
 // Shared-memory tiles of one ring slot, as stored: A (BM x BK), or with TA
 // its transpose (BK x BM); B (BK x BN), or with TB (BN x BK). Rows are
@@ -105,19 +114,23 @@ enum Epilogue {
   EPI_GELU_BWD = 6,
   EPI_BIAS_GELU_STASH = 7,
   EPI_GELU_BWD_STASH = 8,
+  EPI_ADD_F32 = 9,
 };
 
 struct GemmArgs {
   const bf16* a;      // (M, K), or (K, M) with TA
-  const bf16* b;      // (K, N), or (N, K) with TB
+  const bf16* b;      // (K, N), or (N, K) with TB; rows ldb apart
   const float* bias;  // (N,), the EPI_BIAS* epilogues only
   const bf16* resid;  // (M, N): EPI_BIAS_RESIDUAL; the stashed a for EPI_GELU_BWD_STASH
   bf16* out;          // (M, N) bf16 (not for EPI_STORE_F32 / EPI_BIAS_F32)
   float* out_f32;     // (M, N) fp32: EPI_STORE_F32, EPI_BIAS_F32, EPI_GELU_BWD(_STASH)
   bf16* out2;         // (M, N) bf16: EPI_GELU_BWD(_STASH), EPI_BIAS_GELU_STASH
   int M, N, K;
+  int ldb;            // elements between rows of the stored B; 0: contiguous (N, or K with TB)
+  int ldc;            // elements between rows of out, out_f32, out2 and resid (N when contiguous)
   int k_split;        // with TA: K per blockIdx.z slice, a multiple of BK (K when
                       // unsplit); slice z writes its fp32 partial at out_f32 + z * M * N
+                      // (then ldc must be N)
 };
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -182,12 +195,12 @@ __device__ __forceinline__ void load_slab(const GemmArgs& p, int m0, int n0, int
       const int r = v >> 4, c = (v & 15) * 8;  // B: 32 rows (k) x 16 vectors (n)
       const int k = k0 + r, n = n0 + c;
       const bool ok = k < k_end && n < p.N;
-      cp_async16(Bs + r * L::B_LD + c, ok ? p.b + (size_t)k * p.N + n : p.b, ok);
+      cp_async16(Bs + r * L::B_LD + c, ok ? p.b + (size_t)k * p.ldb + n : p.b, ok);
     } else {
       const int r = v >> 2, c = (v & 3) * 8;  // B^T: 128 rows (n) x 4 vectors (k)
       const int n = n0 + r, k = k0 + c;
       const bool ok = n < p.N && k < k_end;
-      cp_async16(Bs + r * L::B_LD + c, ok ? p.b + (size_t)n * p.K + k : p.b, ok);
+      cp_async16(Bs + r * L::B_LD + c, ok ? p.b + (size_t)n * p.ldb + k : p.b, ok);
     }
   }
 }
@@ -274,7 +287,7 @@ __global__ void __launch_bounds__(GEMM_THREADS, 2) gemm_bf16_kernel(GemmArgs p) 
       const int m = m0 + wm + 16 * i + r;
       const int n = n0 + wn + 16 * j + c;
       if (m < p.M && n < p.N) {  // N % 8 == 0: the 8 columns are all in range
-        const size_t at = (size_t)m * p.N + n;
+        const size_t at = (size_t)m * p.ldc + n;
         float v[8];
 #pragma unroll
         for (int e = 0; e < 8; ++e) v[e] = st[r * 16 + c + e];
@@ -323,12 +336,17 @@ __global__ void __launch_bounds__(GEMM_THREADS, 2) gemm_bf16_kernel(GemmArgs p) 
           *reinterpret_cast<uint4*>(p.out2 + at) = hv;
         }
         if (EPI == EPI_STORE_F32 || EPI == EPI_BIAS_F32 || EPI == EPI_GELU_BWD ||
-            EPI == EPI_GELU_BWD_STASH) {
+            EPI == EPI_GELU_BWD_STASH || EPI == EPI_ADD_F32) {
           float4* op = reinterpret_cast<float4*>(out_f32 + at);
+          if (EPI == EPI_ADD_F32) {
+            const float4 o0 = op[0], o1 = op[1];
+            v[0] += o0.x; v[1] += o0.y; v[2] += o0.z; v[3] += o0.w;
+            v[4] += o1.x; v[5] += o1.y; v[6] += o1.z; v[7] += o1.w;
+          }
           op[0] = make_float4(v[0], v[1], v[2], v[3]);
           op[1] = make_float4(v[4], v[5], v[6], v[7]);
         }
-        if (EPI != EPI_STORE_F32 && EPI != EPI_BIAS_F32) {
+        if (EPI != EPI_STORE_F32 && EPI != EPI_BIAS_F32 && EPI != EPI_ADD_F32) {
           uint4 ov;
           bf16* oe = reinterpret_cast<bf16*>(&ov);
 #pragma unroll
@@ -355,17 +373,20 @@ inline GemmArgs gemm_args(const void* a, const void* b, const void* bias, const 
   p.M = M;
   p.N = N;
   p.K = K;
+  p.ldb = 0;  // contiguous: launch_gemm sets N, or K with TB
+  p.ldc = N;
   p.k_split = K;
   return p;
 }
 
 template <int EPI, bool TA = false, bool TB = false>
-cudaError_t launch_gemm(const GemmArgs& p, cudaStream_t stream) {
+cudaError_t launch_gemm(GemmArgs p, cudaStream_t stream) {
   constexpr size_t smem = GemmLayout<TA, TB>::SMEM;
   cudaError_t err = cudaFuncSetAttribute(gemm_bf16_kernel<EPI, TA, TB>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
+  if (p.ldb == 0) p.ldb = TB ? p.K : p.N;
   const dim3 grid((p.N + BN - 1) / BN, (p.M + BM - 1) / BM, (p.K + p.k_split - 1) / p.k_split);
   gemm_bf16_kernel<EPI, TA, TB><<<grid, GEMM_THREADS, smem, stream>>>(p);
   return cudaGetLastError();
@@ -373,11 +394,13 @@ cudaError_t launch_gemm(const GemmArgs& p, cudaStream_t stream) {
 
 constexpr int MAX_SPLITS = 8;  // mirrored by MAX_SPLITS in the Python wrappers
 
-// out[i] = bf16(sum over the slices z of ws[z * MN + i]), in order; 4 per thread.
-__global__ void splitk_reduce_kernel(const float4* __restrict__ ws, int splits, size_t n4,
-                                     uint2* __restrict__ out) {
+// out[r, c] = bf16(sum over the slices z of ws[z * MN + r * N + c]), in
+// order; out's rows ldc apart; 4 per thread (N % 4 == 0, ldc % 4 == 0).
+__global__ void splitk_reduce_kernel(const float4* __restrict__ ws, int splits, size_t n4, int N,
+                                     int ldc, bf16* __restrict__ out) {
   const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n4) return;
+  const size_t r = 4 * i / N, c = 4 * i % N;
   float4 s = ws[i];
   for (int z = 1; z < splits; ++z) {
     const float4 v = ws[(size_t)z * n4 + i];
@@ -392,14 +415,15 @@ __global__ void splitk_reduce_kernel(const float4* __restrict__ ws, int splits, 
   oe[1] = __float2bfloat16_rn(s.y);
   oe[2] = __float2bfloat16_rn(s.z);
   oe[3] = __float2bfloat16_rn(s.w);
-  out[i] = o;
+  *reinterpret_cast<uint2*>(out + r * ldc + c) = o;
 }
 
 // out[M, N] = bf16(A^T @ B) for A stored (K, M) and B (K, N): a weight
-// gradient summed over K = B*N token rows. The slices fill about two CTAs
-// per SM, each at least 8 slabs long; ws holds MAX_SPLITS * M * N floats.
+// gradient summed over K = B*N token rows, out's rows ldc apart (0: N). The
+// slices fill about two CTAs per SM, each at least 8 slabs long; ws holds
+// MAX_SPLITS * M * N floats.
 inline cudaError_t launch_weight_grad(const void* a, const void* b, void* out, int M, int N, int K,
-                                      float* ws, cudaStream_t stream) {
+                                      float* ws, cudaStream_t stream, int ldc = 0) {
   static int sms = 0;
   if (sms == 0) {
     int dev = 0;
@@ -413,15 +437,19 @@ inline cudaError_t launch_weight_grad(const void* a, const void* b, void* out, i
   splits = min(splits, min(MAX_SPLITS, max(1, nk / 8)));
   const int k_split = ((nk + splits - 1) / splits) * BK;
   splits = (K + k_split - 1) / k_split;
+  if (ldc == 0) ldc = N;
   GemmArgs p = gemm_args(a, b, nullptr, nullptr, out, M, N, K);
-  if (splits == 1) return launch_gemm<EPI_STORE, true, false>(p, stream);
-  p.out_f32 = ws;
+  if (splits == 1) {
+    p.ldc = ldc;
+    return launch_gemm<EPI_STORE, true, false>(p, stream);
+  }
+  p.out_f32 = ws;  // the slices' partials stay contiguous
   p.k_split = k_split;
   cudaError_t err = launch_gemm<EPI_STORE_F32, true, false>(p, stream);
   if (err != cudaSuccess) return err;
   const size_t n4 = (size_t)M * N / 4;
   splitk_reduce_kernel<<<(unsigned)((n4 + 255) / 256), 256, 0, stream>>>(
-      reinterpret_cast<const float4*>(ws), splits, n4, static_cast<uint2*>(out));
+      reinterpret_cast<const float4*>(ws), splits, n4, N, ldc, static_cast<bf16*>(out));
   return cudaGetLastError();
 }
 

@@ -33,6 +33,18 @@ the fp32 da, weight gradients cast to the weight dtype, residual gradient
 added in fp32 and cast to x's dtype. Kernel 6 takes GELU of the fp32 ``a``
 (its ``out`` is K1's); kernel 7 takes GELU and GELU' of the stashed,
 rounded ``a``, so its h (for dW2) is not the forward's.
+
+Weight-streaming backward (kernel 9, ``stash="stream"``, the backward of
+wide blocks, D·F > 1024·4096: ViT-H): replaces ``_pallas_bwd_stream``
+(``_bwd_stream_slab_kernel``). Kernel 8's gradients computed over
+``nj = F / fs`` column slabs of W1 (rows of W2), ``fs`` from
+:func:`_stream_slab` (JAX's partition: fs = 1280, nj = 4 at ViT-H), with the
+fp32 ``dy`` summed slab by slab in JAX's order
+(``csrc/mlp_block_bwd.cu`` entry ``sky_mlp_block_bwd_stream``). On the TPU
+the slabs bound the VMEM-resident weights; here they bound the (B·N, fs)
+scratch in device memory. With one slab JAX runs kernel 8, and so does
+:func:`mlp_block_bwd_stream`. :class:`MlpBlockFn` pairs K1 with kernel 8 or,
+with ``stream``, kernel 9; only the inputs are saved either way.
 """
 
 from __future__ import annotations
@@ -143,12 +155,67 @@ def mlp_block_bwd_stash_plain(x, scale, bias, w1, w2, a, g):
     return _mlp_bwd_from(x, scale, bias, w1, w2, a.float(), g)
 
 
-def _entry(name: str, entry: str, n_ptr: int):
+_STREAM_FIXED_BUDGET = 24 * 1024 * 1024  # JAX mlp_block.py:430
+
+
+def _stream_slab(D: int, F: int) -> int:
+    """F-column slab width of the streaming backward, JAX's partition
+    (``_stream_slab``, mlp_block.py:433-446): the whole F when 12·D·F bytes
+    fit the budget (one slab), else the largest 128-multiple divisor of F
+    that fits; plain divisors as a last resort for odd test geometries."""
+    budget = _STREAM_FIXED_BUDGET
+    if 12 * D * F <= budget:
+        return F
+    for fs in range(F - F % 128, 0, -128):
+        if F % fs == 0 and 12 * D * fs <= budget:
+            return fs
+    for fs in range(F, 0, -1):
+        if F % fs == 0 and 12 * D * fs <= budget:
+            return fs
+    return 1
+
+
+def mlp_block_bwd_stream_plain(x, scale, bias, w1, b1, w2, g):
+    """Plain version of kernel 9: mirrors ``_bwd_stream_slab_kernel``
+    (mlp_block.py:459-529) slab by slab over :func:`_stream_slab`'s
+    partition: each slab's fc1, GELU and GELU', dh, da and weight gradients
+    at kernel 8's rounding points, and ``dy`` summed over the slabs in fp32
+    in JAX's order (``dy_j + dy``). Outputs as :func:`mlp_block_bwd_plain`."""
+    D, F = x.shape[-1], w1.shape[1]
+    fs = _stream_slab(D, F)
+    x2 = x.reshape(-1, D).float()
+    g2 = g.reshape(-1, D).float()
+    y, xhat, rstd = _ln_forward(x2, scale, bias)
+    y_c = y.to(w1.dtype)
+    g_c = g2.to(w2.dtype)
+    dy = None
+    dw1, db1, dw2 = [], [], []
+    for j in range(F // fs):
+        cols = slice(j * fs, (j + 1) * fs)
+        w1j, w2j = w1[:, cols], w2[cols]
+        a = _dot(y_c, w1j) + b1[cols]
+        h_c = gelu(a).to(w2.dtype)
+        da = _dot(g_c, w2j.t()) * gelu_grad(a)
+        da_c = da.to(w1.dtype)
+        dy_j = _dot(da_c, w1j.t())
+        dy = dy_j if dy is None else dy_j + dy
+        dw1.append(_dot(y_c.t(), da_c))
+        db1.append(da.sum(0))
+        dw2.append(_dot(h_c.t(), g_c))
+    dx, dscale, dbias = _ln_backward(g2, dy, xhat, rstd, scale)
+    return (
+        dx.to(x.dtype).reshape(x.shape), dscale, dbias,
+        torch.cat(dw1, dim=1).to(w1.dtype), torch.cat(db1),
+        torch.cat(dw2, dim=0).to(w2.dtype), g2.sum(0),
+    )
+
+
+def _entry(name: str, entry: str, n_ptr: int, n_int: int = 3):
     """The C function ``entry`` of ``lib<name>``: ``n_ptr`` pointers, then
-    M, D, F and the stream."""
+    ``n_int`` ints (M, D, F[, fs]) and the stream."""
     fn = getattr(cuda_build.load(name), entry)
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -226,28 +293,32 @@ def _check_g(x, g):
         raise ValueError(f"g: want a contiguous {tuple(x.shape)} {x.dtype} tensor on {x.device}")
 
 
-def _launch_bwd(entry, x, scale, bias, w1, b1, w2, a, g):
-    """Kernel 8 (``a`` None: fc1 recomputed from ``b1``) or kernel 7 (the bf16
-    stash ``a``) on CUDA tensors; allocates the scratch and the outputs."""
+def _launch_bwd(entry, x, scale, bias, w1, b1, w2, a, g, fs=None):
+    """Kernel 8 (``a`` None: fc1 recomputed from ``b1``), kernel 7 (the bf16
+    stash ``a``) or, with a slab width ``fs``, kernel 9 on CUDA tensors;
+    allocates the scratch (its (B·N, ·) buffers one slab wide) and the
+    outputs."""
     B, N, D = x.shape
     F = w1.shape[1]
     M = B * N
+    w = fs or F
     parts = -(-M // ROWS_PER_PARTIAL)
     f32 = dict(dtype=torch.float32, device=x.device)
     bf = dict(dtype=torch.bfloat16, device=x.device)
     y, dy = torch.empty((M, D), **bf), torch.empty((M, D), **f32)
-    af, da_c, h_c = torch.empty((M, F), **f32), torch.empty((M, F), **bf), torch.empty((M, F), **bf)
-    part = torch.empty(parts * (F + 3 * D), **f32)
-    ws = torch.empty(MAX_SPLITS * D * F, **f32)
+    af, da_c, h_c = torch.empty((M, w), **f32), torch.empty((M, w), **bf), torch.empty((M, w), **bf)
+    part = torch.empty(parts * (w + 3 * D), **f32)
+    ws = torch.empty(MAX_SPLITS * D * w, **f32)
     dx = torch.empty_like(x)
     dscale, dbias, db2 = (torch.empty(D, **f32) for _ in range(3))
     dw1, db1, dw2 = torch.empty((D, F), **bf), torch.empty(F, **f32), torch.empty((F, D), **bf)
     ins = (x, scale, bias, w1, b1, w2, g) if a is None else (x, scale, bias, w1, w2, a, g)
     ptrs = [t.data_ptr() for t in (*ins, y, af, da_c, h_c, dy, part, ws,
                                    dx, dscale, dbias, dw1, db1, dw2, db2)]
+    ints = (M, D, F) if fs is None else (M, D, F, fs)
     with torch.cuda.device(x.device):
-        err = _entry("mlp_block_bwd", entry, len(ptrs))(
-            *ptrs, M, D, F, torch.cuda.current_stream().cuda_stream)
+        err = _entry("mlp_block_bwd", entry, len(ptrs), len(ints))(
+            *ptrs, *ints, torch.cuda.current_stream().cuda_stream)
     cuda_build.check(err, entry)
     return dx, dscale, dbias, dw1, db1, dw2, db2
 
@@ -290,27 +361,57 @@ def mlp_block_bwd_stash(x, scale, bias, w1, w2, a, g):
 mlp_block_bwd_stash.launches = 0
 
 
+def mlp_block_bwd_stream(x, scale, bias, w1, b1, w2, g):
+    """Kernel 9: the gradients of the block (outputs as
+    :func:`mlp_block_bwd_plain`) over :func:`_stream_slab`'s column slabs.
+    With one slab it is kernel 8 (:func:`mlp_block_bwd`, counted there), as
+    JAX dispatches (mlp_block.py:544-549). Otherwise CPU tensors take
+    :func:`mlp_block_bwd_stream_plain` and CUDA tensors launch
+    ``csrc/mlp_block_bwd.cu`` (stream entry) or raise."""
+    D, F = x.shape[-1], w1.shape[1]
+    fs = _stream_slab(D, F)
+    if F % fs:
+        raise ValueError(f"stream slab {fs} does not divide F={F}")
+    if fs == F:
+        return mlp_block_bwd(x, scale, bias, w1, b1, w2, g)
+    if x.device.type == "cpu":
+        return mlp_block_bwd_stream_plain(x, scale, bias, w1, b1, w2, g)
+    _check_cuda_args(x, scale, bias, w1, b1, w2)
+    _check_g(x, g)
+    if fs % 8:
+        raise ValueError(f"stream slab {fs} must be a multiple of 8 (16-byte loads)")
+    grads = _launch_bwd("sky_mlp_block_bwd_stream", x, scale, bias, w1, b1, w2, None, g, fs)
+    mlp_block_bwd_stream.launches += 1
+    return grads
+
+
+mlp_block_bwd_stream.launches = 0
+
+
 class MlpBlockFn(torch.autograd.Function):
-    """K1 forward, kernel 8 backward (JAX ``fused_mlp_block`` with
-    ``stash=False``: only the inputs are saved). ``plain`` runs the plain
-    versions of both on any device: the reference path a check on the card
-    holds the kernels against."""
+    """K1 forward, kernel 8 backward or, with ``stream``, kernel 9 (JAX
+    ``fused_mlp_block`` with ``stash=False`` or ``"stream"``: only the
+    inputs are saved). ``plain`` runs the plain versions on any device: the
+    reference path a check on the card holds the kernels against."""
 
     @staticmethod
-    def forward(ctx, x, scale, bias, w1, b1, w2, b2, plain):
+    def forward(ctx, x, scale, bias, w1, b1, w2, b2, plain, stream):
         if plain or x.device.type == "cpu":
             out = mlp_block_plain(x, scale, bias, w1, b1, w2, b2)
         else:
             out = _launch_fwd(x, scale, bias, w1, b1, w2, b2)[0]
         ctx.save_for_backward(x, scale, bias, w1, b1, w2)
-        ctx.plain = plain
+        ctx.plain, ctx.stream = plain, stream
         return out
 
     @staticmethod
     def backward(ctx, g):
         x, scale, bias, w1, b1, w2 = ctx.saved_tensors
-        bwd = mlp_block_bwd_plain if ctx.plain else mlp_block_bwd
-        return (*bwd(x, scale, bias, w1, b1, w2, g.contiguous()), None)
+        if ctx.stream:
+            bwd = mlp_block_bwd_stream_plain if ctx.plain else mlp_block_bwd_stream
+        else:
+            bwd = mlp_block_bwd_plain if ctx.plain else mlp_block_bwd
+        return (*bwd(x, scale, bias, w1, b1, w2, g.contiguous()), None, None)
 
 
 class MlpBlockStashFn(torch.autograd.Function):
@@ -337,17 +438,23 @@ def _needs_grad(*tensors) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
-def fused_mlp_block(x, scale, bias, w1, b1, w2, b2, stash: bool = False, plain: bool = False):
+def fused_mlp_block(x, scale, bias, w1, b1, w2, b2, stash: bool | str = False,
+                    plain: bool = False):
     """(B, N, D) -> (B, N, D). Without grad: CPU tensors (or ``plain``) take
     :func:`mlp_block_plain`, CUDA tensors launch K1 or raise. With grad, the
-    call goes through :class:`MlpBlockFn` (K1 forward, kernel 8 backward) or,
-    with ``stash``, :class:`MlpBlockStashFn` (kernels 6 and 7)."""
+    call goes through :class:`MlpBlockFn` (K1 forward, kernel 8 backward;
+    kernel 9 with ``stash="stream"``) or, with ``stash=True``,
+    :class:`MlpBlockStashFn` (kernels 6 and 7)."""
     args = (x, scale, bias, w1, b1, w2, b2)
     if not _needs_grad(*args):
         if plain or x.device.type == "cpu":
             return mlp_block_plain(*args)
         return _launch_fwd(*args)[0]
-    return (MlpBlockStashFn if stash else MlpBlockFn).apply(*args, plain)
+    if stash == "stream":
+        return MlpBlockFn.apply(*args, plain, True)
+    if stash:
+        return MlpBlockStashFn.apply(*args, plain)
+    return MlpBlockFn.apply(*args, plain, False)
 
 
 fused_mlp_block.launches = 0

@@ -6,8 +6,12 @@ weighted cosine / MSE / MAE over (sample, patch), combined per sample by
 mean/min/max; a running best-k set is kept while the survey streams. Plain
 PyTorch: JAX runs this scorer in XLA, not in a Pallas kernel.
 
-Ties in the running top-k break as ``lax.top_k`` does, lowest index first
-(``torch.sort(..., stable=True)``; ``torch.topk`` promises no tie order).
+The running top-k ranks as ``lax.top_k`` does: by the float total order,
+where a NaN with the sign bit set sorts below -inf and one without it above
++inf (``torch.sort`` puts every NaN first), and ties break lowest index
+first (a stable sort; ``torch.topk`` promises no tie order). A target group
+with zero variance scores NaN everywhere; on x86 that NaN is negative, so
+such a search keeps its empty slots in both packages.
 """
 
 from __future__ import annotations
@@ -108,19 +112,25 @@ def topk_init(k: int, payload_shapes: dict, device, largest: bool = True) -> Top
     return TopK(scores, payload)
 
 
+def _total_order_key(x: torch.Tensor) -> torch.Tensor:
+    """int32 keys that order fp32 values as the float total order does:
+    -NaN < -inf < ... < -0 < +0 < ... < +inf < +NaN."""
+    bits = x.float().view(torch.int32)
+    return bits ^ ((bits >> 31) & 0x7FFFFFFF)
+
+
 def topk_update(state: TopK, scores: torch.Tensor, payload: dict, largest: bool = True) -> TopK:
     """Merge a batch of candidates into the running best-k (reference
     ``update_best_scores``, ``similarity.py:18-35``)."""
     oriented = scores if largest else -scores
     all_scores = torch.cat([state.scores, oriented.to(state.scores.dtype)])
     k = state.scores.shape[0]
-    top_vals, order = torch.sort(all_scores, descending=True, stable=True)
-    top_idx = order[:k]
+    top_idx = torch.sort(_total_order_key(all_scores), descending=True, stable=True)[1][:k]
     merged = {
         name: torch.cat([state.payload[name], payload[name].to(state.payload[name].dtype)])[top_idx]
         for name in state.payload
     }
-    return TopK(top_vals[:k], merged)
+    return TopK(all_scores[top_idx], merged)
 
 
 def topk_finalize(state: TopK, largest: bool = True):

@@ -10,6 +10,13 @@ counted, that ``loss.backward()`` through the model on the card reaches
 every parameter (ViT-B's stash path, ViT-L's MLP stash path, the remat path
 with the RA/Dec token), and that remat leaves the gradients bit-equal.
 
+The attention kernels also run at heads of 80 (ViT-H) and 128, up to
+N = 256, and refuse a head no shared-memory plan fits. Kernel 9 (the
+weight-streaming MLP backward) is held to its plain version and to kernel 8
+at ViT-H's slabs, ragged rows and slab widths; with one slab it launches
+kernel 8; a depth-2 ViT-H's ``loss.backward()`` reaches every parameter
+through K2, kernel 4, K1 and kernel 9.
+
 Kernel 11 (the multi-query bank scorer) is held to its plain version at
 ragged bank rows, widths and query counts, and the retrieval routes on the
 card: one launch per ``query_multi``, the chunked scorer against the single
@@ -40,8 +47,13 @@ TOL_BWD = 3e-2
 TOL_SCORE_F32 = 5e-3
 # (9, 65, 128, 2): 585 token rows split the weight-gradient GEMMs into K
 # slices with a ragged last one (launch_weight_grad, csrc/gemm.cuh)
+# hd = 80 (ViT-H: (3, 66, 1280, 16); N = 256 shrinks kernel 3's query
+# blocks to 32) and hd = 128 at N = 256 (the forward's blocks to 32, kernel
+# 4's to 16)
 ATTN_SHAPES = [(3, 17, 64, 4), (2, 65, 768, 12), (5, 33, 96, 3), (2, 129, 128, 2),
-               (3, 200, 96, 6), (1, 256, 64, 1), (1, 256, 256, 4), (9, 65, 128, 2)]
+               (3, 200, 96, 6), (1, 256, 64, 1), (1, 256, 256, 4), (9, 65, 128, 2),
+               (3, 66, 1280, 16), (5, 17, 80, 1), (2, 256, 160, 2), (3, 131, 240, 3),
+               (1, 256, 256, 2)]
 # the recompute backward's query blocks: one block up to N = 64, 64 rows up
 # to 128, 32 beyond; ViT-L's heads of 48 (mim_25_large) and 64 at N = 66
 # (mim_32, the RA/Dec token)
@@ -88,7 +100,8 @@ def test_mlp_block_kernel_matches_plain(dev, B, N, D, F):
 
 @pytest.mark.parametrize(
     "B,N,D,H",
-    [(3, 17, 64, 4), (2, 65, 768, 12), (2, 129, 128, 2), (3, 200, 96, 6), (1, 256, 64, 1)],
+    [(3, 17, 64, 4), (2, 65, 768, 12), (2, 129, 128, 2), (3, 200, 96, 6), (1, 256, 64, 1),
+     (3, 66, 1280, 16), (31, 66, 1280, 16), (2, 256, 160, 2), (1, 256, 256, 2)],
 )
 def test_attn_block_kernel_matches_plain(dev, B, N, D, H):
     args = _block_args(dev, B, N, D, (D, 3 * D), (D, D), seed=2)
@@ -413,6 +426,151 @@ def test_remat_gradients_equal_the_stored_path_on_the_card(dev):
     assert got.keys() == want.keys()
     for name, grad in got.items():
         assert (grad is None and want[name] is None) or torch.equal(grad, want[name]), name
+
+
+# -- kernel 9 (the weight-streaming MLP backward) and ViT-H ---------------------------
+
+_MLP_GRADS = ("dx", "dscale", "dbias", "dw1", "db1", "dw2", "db2")
+
+
+def _stream_case(dev, B, N, D, F, seed):
+    x, scale, bias, w1, b1, w2, _ = _block_args(dev, B, N, D, (D, F), (F, D), seed=seed)
+    g = torch.from_numpy(np.random.default_rng(seed + 1).normal(size=(B, N, D)).astype(np.float32))
+    return x, scale, bias, w1, b1, w2, g.to(dev, torch.bfloat16)
+
+
+# (B, N, D, F, forced slab width or None for JAX's partition): ViT-H's
+# (fs = 1280, nj = 4) at M = 32 x 66 and a ragged M; F = 2000 (fs = 1000,
+# no 128-multiple); forced narrow slabs at ragged M, D and F
+STREAM_SHAPES = [(32, 66, 1280, 5120, None), (3, 33, 1280, 5120, None), (5, 17, 1280, 2000, None),
+                 (3, 33, 96, 200, 40), (7, 65, 128, 512, 128), (1, 9, 64, 256, 64)]
+
+
+@pytest.mark.parametrize("B,N,D,F,fs", STREAM_SHAPES)
+def test_stream_backward_kernel_matches_plain_and_kernel_8(dev, B, N, D, F, fs, monkeypatch):
+    if fs is not None:
+        monkeypatch.setattr(tmb, "_stream_slab", lambda D_, F_, **kw: fs)
+    nj = F // tmb._stream_slab(D, F)
+    assert nj > 1
+    args = _stream_case(dev, B, N, D, F, seed=40)
+    before = (tmb.mlp_block_bwd_stream.launches, tmb.mlp_block_bwd.launches)
+    got = tmb.mlp_block_bwd_stream(*args)
+    torch.cuda.synchronize()
+    assert (tmb.mlp_block_bwd_stream.launches - before[0], tmb.mlp_block_bwd.launches - before[1]) == (1, 0)
+    want = tmb.mlp_block_bwd_stream_plain(*args)
+    k8 = tmb.mlp_block_bwd(*args)
+    for name, a, b, c in zip(_MLP_GRADS, got, want, k8):
+        assert a.shape == b.shape and a.dtype == b.dtype, name
+        assert _max_rel(a, b) <= TOL_BWD, name
+        # kernel 8 differs in the order of dy's fp32 sums and the weight
+        # gradients' K slices; the bias gradients are the same bits
+        assert _max_rel(a, c) <= TOL_BWD, name
+        if name in ("db1", "db2"):
+            assert torch.equal(a, c), name
+
+
+def test_stream_backward_with_one_slab_launches_kernel_8(dev):
+    args = _stream_case(dev, 3, 17, 64, 256, seed=41)
+    assert tmb._stream_slab(64, 256) == 256
+    before = (tmb.mlp_block_bwd_stream.launches, tmb.mlp_block_bwd.launches)
+    got = tmb.mlp_block_bwd_stream(*args)
+    assert (tmb.mlp_block_bwd_stream.launches - before[0], tmb.mlp_block_bwd.launches - before[1]) == (0, 1)
+    for name, a, b in zip(_MLP_GRADS, got, tmb.mlp_block_bwd(*args)):
+        assert torch.equal(a, b), name
+
+
+def test_stream_backward_refuses_and_counts(dev, monkeypatch):
+    x, scale, bias, w1, b1, w2, g = _stream_case(dev, 2, 17, 1280, 5120, seed=42)
+    with pytest.raises(ValueError, match="bf16"):
+        tmb.mlp_block_bwd_stream(x.float(), scale, bias, w1, b1, w2, g)
+    with pytest.raises(ValueError, match="g:"):
+        tmb.mlp_block_bwd_stream(x, scale, bias, w1, b1, w2, g.float())
+    with pytest.raises(ValueError, match="w1"):
+        tmb.mlp_block_bwd_stream(x, scale, bias, w1.float(), b1, w2, g)
+    monkeypatch.setattr(tmb, "_stream_slab", lambda D_, F_, **kw: 1000)
+    with pytest.raises(ValueError, match="does not divide"):
+        tmb.mlp_block_bwd_stream(x, scale, bias, w1, b1, w2, g)
+    monkeypatch.setattr(tmb, "_stream_slab", lambda D_, F_, **kw: 20)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        tmb.mlp_block_bwd_stream(x, scale, bias, w1, b1, w2, g)
+    monkeypatch.undo()
+    # with grad, stash="stream": K1 forward, kernel 9 backward, one launch each
+    counters = (tmb.fused_mlp_block, tmb.mlp_block_bwd_stream, tmb.mlp_block_bwd)
+    before = [f.launches for f in counters]
+    leaf = x.detach().requires_grad_()
+    tmb.fused_mlp_block(leaf, scale, bias, w1, b1, w2, torch.zeros_like(scale),
+                        stash="stream").float().sum().backward()
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(counters, before)] == [1, 1, 0]
+    assert torch.isfinite(leaf.grad.float()).all()
+
+
+def test_attention_refuses_a_head_no_plan_fits(dev):
+    """hd = 192 at N = 256: no query-block size fits any core in 227 KB
+    (236 288 bytes for the forward at 16 rows); hd = 128 at N = 256 fits
+    with smaller query blocks and is taken (ATTN_SHAPES)."""
+    args = _block_args(dev, 1, 256, 192, (192, 576), (192, 192), seed=43)
+    g = torch.ones_like(args[0])
+    for call in (lambda: tab.fused_attn_block(*args, 1),
+                 lambda: tab.attn_block_fwd_stash(*args, 1),
+                 lambda: tab.attn_block_bwd(*args[:6], g, 1)):
+        with pytest.raises(ValueError, match="shared-memory plan"):
+            call()
+    _, qkv, probs = tab.attn_block_fwd_stash_plain(*args, 1)
+    with pytest.raises(ValueError, match="shared-memory plan"):
+        tab.attn_block_bwd_stash(args[0], args[1], args[2], args[3], args[5], qkv, probs, g, 1)
+    assert tab._plan_bytes("recompute", 66, 80) == 116224
+    assert tab._plan_bytes("stash", 256, 80) <= tab.SMEM_PER_BLOCK
+
+
+def test_loss_backward_reaches_every_parameter_of_vith(dev, monkeypatch):
+    """A depth-2 ViT-H (``mimhuge``: D = 1280, 16 heads of 80, F = 5120, the
+    RA/Dec token, 9 bands, ``stash = False``) on the card: K2 and kernel 4
+    in the attention, K1 and kernel 9 in the MLP, one launch per block each;
+    every parameter gets a finite gradient, every block parameter a nonzero
+    one, and the gradients agree with the plain path's."""
+    from sky_embeddings_tpu_torch.configuration import Config
+    from sky_embeddings_tpu_torch.models import mim as port_mim
+
+    monkeypatch.setitem(port_mim._SIZES["huge"], "depth", 2)
+    cfg = Config.from_dict({
+        "ARCHITECTURE": {"model_type": "mimhuge", "embed_dim": "1280", "img_size": "64",
+                         "patch_size": "8", "num_channels": "9", "ra_dec": "True"},
+        "TRAINING": {"norm_pix_loss": "True", "loss_fn": "L1"},
+    })
+    rng = np.random.default_rng(44)
+    imgs = rng.normal(size=(6, 9, 64, 64)).astype(np.float32)
+    imgs[1, 2] = np.nan
+    mask = (rng.random(imgs.shape) < 0.5).astype(np.float32)
+    rd = np.stack([rng.uniform(0, 360, 6), rng.uniform(-90, 90, 6)], axis=1).astype(np.float32)
+
+    def grads(plain):
+        model = port_mim.build_mim_model(cfg, dtype=torch.bfloat16, device=dev).train()
+        model.encoder.plain = plain
+        loss = model(torch.from_numpy(imgs).to(dev), torch.from_numpy(mask).to(dev),
+                     ra_dec=torch.from_numpy(rd).to(dev))[0]
+        loss.backward()
+        return {n: p.grad for n, p in model.named_parameters()}, model
+
+    counters = (tab.fused_attn_block, tab.attn_block_bwd, tmb.fused_mlp_block,
+                tmb.mlp_block_bwd_stream, tab.attn_block_fwd_stash, tmb.mlp_block_bwd)
+    before = [f.launches for f in counters]
+    got, model = grads(False)
+    assert [f.launches - b for f, b in zip(counters, before)] == [2, 2, 2, 2, 0, 0]
+    assert model.encoder.block0.ffn.wide and not model.encoder.block0.stash
+    ref, _ = grads(True)
+    rels = {}
+    for name, grad in got.items():
+        if name == "mask_token":
+            continue
+        assert grad is not None and torch.isfinite(grad).all(), name
+        if ".block" in name:
+            assert grad.abs().max() > 0, name
+        rels[name] = float((grad - ref[name]).norm() / (ref[name].norm() + 1e-12))
+    # two layers of bf16 rounding flips; the ViT-L paths measured up to
+    # 6.0e-2 at three layers (see above)
+    worst = max(rels, key=rels.get)
+    assert rels[worst] <= 1.2e-1, (worst, rels[worst])
 
 
 # -- kernel 11 (multi-query bank scorer) and the retrieval routes ------------------

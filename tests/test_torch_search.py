@@ -86,6 +86,35 @@ def test_topk_update_tie_order_matches_lax_top_k(largest):
     np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
 
 
+def _f32(bits):
+    return np.array([bits], np.uint32).view(np.float32)[0]
+
+
+@pytest.mark.parametrize("largest", [True, False])
+def test_topk_update_nan_order_matches_lax_top_k(largest):
+    """NaN scores rank by the float total order, as ``lax.top_k`` ranks
+    them: a NaN with the sign bit set (x86's 0/0) below -inf, one without it
+    above +inf; the kept scores keep their bits, NaN signs included."""
+    neg_nan, pos_nan = _f32(0xFFC00000), _f32(0x7FC00000)
+    inf = np.float32(np.inf)
+    scores = [np.array([-inf, -inf, neg_nan, 0.2, pos_nan, inf, -0.0, 0.0], np.float32),
+              np.array([neg_nan, neg_nan, 0.5, pos_nan, -inf, 0.2], np.float32)]
+    ids = [np.arange(8, dtype=np.int32), np.arange(8, 14, dtype=np.int32)]
+    jstate = jsim.topk_init(7, {"id": jax.ShapeDtypeStruct((), jnp.int32)})
+    tstate = tsim.topk_init(7, {"id": ((), torch.int32)}, "cpu")
+    for s, i in zip(scores, ids):
+        jstate = jsim.topk_update(jstate, jnp.asarray(s), {"id": jnp.asarray(i)}, largest)
+        tstate = tsim.topk_update(tstate, torch.from_numpy(s), {"id": torch.from_numpy(i)}, largest)
+        np.testing.assert_array_equal(tstate.payload["id"].numpy(), np.asarray(jstate.payload["id"]))
+        np.testing.assert_array_equal(tstate.scores.numpy().view(np.uint32),
+                                      np.asarray(jstate.scores).view(np.uint32))
+    # the zero-variance case: x86's 0/0 is the negative NaN, so the empty
+    # slots (-inf, payload zeros) outrank it
+    state = tsim.topk_init(3, {"id": ((), torch.int32)}, "cpu")
+    state = tsim.topk_update(state, torch.zeros(4) / torch.zeros(4), {"id": torch.arange(1, 5, dtype=torch.int32)})
+    assert state.payload["id"].tolist() == [0, 0, 0] and bool(torch.isinf(state.scores).all())
+
+
 # -- streaming search and banks --------------------------------------------------
 
 def test_mim_simsearch_matches_jax(models):
@@ -102,6 +131,25 @@ def test_mim_simsearch_matches_jax(models):
     np.testing.assert_allclose(got[3], want[3], atol=1e-5)  # scores
     np.testing.assert_allclose(got[1], want[1], atol=1e-4)  # re-encoded features
     np.testing.assert_array_equal(got[0], want[0])  # images
+
+
+def test_mim_simsearch_zero_variance_target_matches_jax(models):
+    """One max-pooled target sample without augmentation has zero variance:
+    its weights and every score are NaN in both packages, and the port keeps
+    JAX's winners (the empty slots), not the NaN-scored cutouts."""
+    from sky_embeddings_tpu.eval.simsearch import mim_simsearch as jax_search
+    from sky_embeddings_tpu_torch.eval.eval_fns import extract_latents
+    from sky_embeddings_tpu_torch.eval.simsearch import mim_simsearch
+
+    jmodel, variables, port = models
+    target = extract_latents(port, _batches(1, bs=1, seed=4, nan_frac=0.0), remove_prefix=False)
+    batches = _batches(3)
+    kw = dict(n_save=6, max_pool=True, log_every=0)
+    want = jax_search(jmodel, variables, target, batches, **kw)
+    got = mim_simsearch(port, target, batches, **kw)
+    np.testing.assert_array_equal(got[2], want[2])  # winners' ra/dec
+    np.testing.assert_array_equal(got[3], want[3])  # scores, NaN where JAX has NaN
+    np.testing.assert_array_equal(got[0], want[0])
 
 
 @pytest.mark.parametrize("pool", ["mean", "max", "cls", "central"])
