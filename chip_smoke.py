@@ -25,7 +25,12 @@ failing loudly (any failure exits non-zero and prints no result line):
    token, N=66, D=1024, H=16; B=32, 256, 31); at ViT-H's shapes (N=66,
    D=1280, 16 heads of 80, F=5120; B=32, 256, 31) kernel 9 against its
    plain version and against kernel 8 (the gap printed), K2 and kernel 4 at
-   hd = 80, and at N = 256;
+   hd = 80, and at N = 256; at the MAE path's shapes (bench_mae: four
+   samples of 17 tokens packed to N = 68, seg_len = 17, D=768, H=12; B=256,
+   64 and the ragged 63 packed sequences) K2, kernel 2 and kernel 4 masked
+   and kernel 3 from the packed stash, each masked kernel also against the
+   unmasked one on the same samples one to a sequence (the gap printed), and
+   K2 and kernels 2-4 at maesimple's decoder head of 512 (N=65);
 4. the serving path, through the entry points ``similarity_search`` calls, on
    ``configs/mim_1.ini`` (SimMIM ViT-B, bf16, full depth, seeded weights) and
    synthetic cutouts with whole-band NaNs: ``extract_latents`` of 2 targets
@@ -66,11 +71,25 @@ failing loudly (any failure exits non-zero and prints no result line):
    - ViT-H (``mim_32`` with ``bench.py`` ``bench_vit_h``'s model: mimhuge,
      D=1280, depth 32, 16 heads of 80, F=5120, no remat, stash off; batch
      32), built in memory: 10 steps, 2 validation batches; kernels 4 and 9
-     at 32 x 10, K1 and K2 at 32 x (10 + 2), kernels 2, 3, 6, 7, 8 at 0.
+     at 32 x 10, K1 and K2 at 32 x (10 + 2), kernels 2, 3, 6, 7, 8 at 0;
+   - MAE (``mim_1`` with ``bench.py`` ``bench_mae``'s model: base, ViT-B
+     over 16 of 64 patches plus cls, four samples packed per encoder
+     sequence (N=68, seg_len=17); the 512-wide, 8-deep decoder of 16 heads
+     over all 65 tokens with its attention stash; batch 1024), built in
+     memory: 10 steps, 2 validation batches (MAE masks its validation
+     batches too); kernel 2 (masked) and kernel 3 at 12 x 10 in the encoder
+     plus 8 x 10 (unmasked) in the decoder, kernel 8 at (12 + 8) x 10, K1 at
+     (12 + 8) x (10 + 2), K2 at (12 + 8) x 2 of which 12 x 2 masked,
+     kernels 4, 6, 7, 9 at 0; then the same model with remat at batch 256
+     for 3 steps (K2 masked 12 x 2 x 3, kernel 4 masked 12 x 3, the
+     decoder's kernels 2 and 3 8 x 3, K1 (2 x 12 + 8) x 3, kernel 8 20 x 3)
+     and its gradients bit-equal to those stored without remat (the
+     encoder's stash off).
    For each config, the kernel path against the plain path on the card from
-   the same params and masks: one step's loss and per-leaf gradients, and
-   the losses of 5 steps; then train-step times (ViT-H also at B=256,
-   ``bench_vit_h``'s batch), device busy share and peak memory;
+   the same params and masks (MAE: the same noise): one step's loss and
+   per-leaf gradients, and the losses of 5 steps; then train-step times
+   (ViT-H also at B=256, ``bench_vit_h``'s batch; MAE at 1024), device busy
+   share and peak memory;
 6. times with CUDA events after warm-up: per kernel at its path's shapes,
    the encoder, queries; torch.profiler device breakdowns.
 
@@ -128,6 +147,12 @@ TOL_GRAD_R, TOL_LOSS_R = 6e-2, 8e-4
 # median 6.4e-3), one step's loss 2.3e-5, five steps' losses 2.3e-4. The
 # bars are about twice those.
 TOL_GRAD_H, TOL_LOSS_H = 4.5e-2, 5e-4
+# MAE at ViT-B (bench_mae: 12 encoder and 8 decoder layers, batch 1024,
+# the encoder packed). Measured on the H100 (PERF.md): gradients 2.1e-3 at
+# worst (patch_embed.proj.kernel; median 6.5e-4), one step's loss 6.8e-7,
+# five steps' losses 2.2e-5 (the batch of 1024 averages the flips out).
+# The bars are about twice those.
+TOL_GRAD_M, TOL_LOSS_M = 4.5e-3, 5e-5
 
 CONFIG = "mim_1"
 DEVICE = "cuda"
@@ -150,6 +175,17 @@ REMAT = ("mim_32", 10, 2, (32, 256, 31))
 VITH = ("mim_32_vith", 10, 2, (32, 256, 31), ((32, 10), (256, 3)))
 VITH_OVERRIDES = {"ARCHITECTURE": {"model_type": "mimhuge", "embed_dim": "1280"},
                   "TRAINING": {"remat": "False"}}
+# the MAE training path: mim_1 with bench.py bench_mae's model (base: ViT-B
+# encoder over 16 of 64 patches plus cls, n = 17 tokens, four samples packed
+# to N = 68 sequences with seg_len = 17; the 512-wide, 8-deep decoder of 16
+# heads over all 65 tokens with its attention stash), built in memory;
+# (name, steps, validation batches, kernel-parity batches in packed
+# sequences: bench_mae's 1024 images, a smaller one, a ragged one; the
+# remat run's batch and steps; distinct synthetic batches, cycled; the
+# train-step batches with their timed iterations)
+MAE = ("mim_1_mae", 10, 2, (256, 64, 63), (256, 3), 4, ((1024, 5),))
+MAE_OVERRIDES = {"ARCHITECTURE": {"model_type": "base"}, "TRAINING": {"batch_size": "1024"}}
+MAE_SEG, MAE_PACK = 17, 4
 # the retrieval path: a FITS survey of FITS_TILES tiles of FITS_SIZE^2 pixels
 # per band, searched at FITS_OVERLAP for N_GROUPS target groups; kernel 11 at
 # MULTI_Q queries on the 1M bank and at RAGGED (rows, width, queries); the
@@ -545,6 +581,97 @@ def main() -> int:
         del x, g, cases
     torch.cuda.empty_cache()
 
+    # the MAE path's kernels (bench_mae: four samples of n = 17 tokens packed
+    # to N = 68, seg_len = 17, D = 768, 12 heads): K2, kernel 2 and kernel 4
+    # masked, and kernel 3 from the packed stash (it takes no mask), against
+    # their plain versions at B = 256 packed sequences (bench_mae's 1024
+    # images), 64 and the ragged 63; each masked kernel's output against the
+    # unmasked kernel's on the same samples, one to a sequence, the gap
+    # printed; K2 and kernels 2-4 at maesimple's decoder head of 512 (N = 65)
+    n_mae = MAE_SEG * MAE_PACK
+
+    def mae_bounds(B):
+        # the attention core needs only each sample's block: B H N seg hd
+        M, hd = B * n_mae, D // H
+        core = B * H * n_mae * MAE_SEG * hd
+        probs = B * H * n_mae * n_mae * 2
+        return {
+            "attn_block_fwd_seg": (8 * M * D * D + 4 * core, 2 * M * D * 2 + 4 * D * D * 2 + 6 * D * 4),
+            "attn_block_fwd_stash_seg": (8 * M * D * D + 4 * core, 2 * M * D * 2 + 4 * D * D * 2
+                                         + 6 * D * 4 + M * 3 * D * 2 + probs),
+            "attn_block_bwd_seg": (22 * M * D * D + 12 * core,
+                                   3 * M * D * 2 + 8 * D * D * 2 + 11 * D * 4),
+            "attn_block_bwd_stash_packed": (16 * M * D * D + 10 * core,
+                                            2 * M * D * 2 + M * 3 * D * 2 + probs + 8 * D * D * 2
+                                            + 8 * D * 4 + M * D * 2),
+        }
+
+    def seg_fwd(*a):
+        return (fused_attn_block(*a[:8], seg_len=a[8]),)
+
+    pack_gap = {}
+    for B in MAE[3]:
+        x, s_, b_, wq, bq, wp, bp = block_args("attn", B, n_mae)
+        g = (torch.randn(B, n_mae, D, generator=gen, device=dev) * 0.1).to(torch.bfloat16)
+        fwd_args = (x, s_, b_, wq, bq, wp, bp, H, MAE_SEG)
+        _, qkv_s, probs_s = attn_block_fwd_stash_plain(*fwd_args)
+        cases = (
+            ("attn_block_fwd_seg", seg_fwd, lambda *a: (attn_block_plain(*a),), fwd_args, ("out",)),
+            ("attn_block_fwd_stash_seg", attn_block_fwd_stash, attn_block_fwd_stash_plain, fwd_args,
+             ("out", "qkv", "probs")),
+            ("attn_block_bwd_seg", attn_block_bwd, attn_block_bwd_plain,
+             (x, s_, b_, wq, bq, wp, g, H, MAE_SEG), grads_attn),
+            ("attn_block_bwd_stash_packed", attn_block_bwd_stash, attn_block_bwd_stash_plain,
+             (x, s_, b_, wq, wp, qkv_s, probs_s, g, H), grads_attn),
+        )
+        run_cases(cases, B, mae_bounds(B), B == MAE[3][0])
+        # the same samples one to a sequence through the unmasked kernels
+        Bu = B * MAE_PACK
+        xu, gu = x.reshape(Bu, MAE_SEG, D), g.reshape(Bu, MAE_SEG, D)
+        w_ = (s_, b_, wq, bq, wp, bp)
+        out_p, qkv_p, probs_p = attn_block_fwd_stash(*fwd_args)
+        out_u, qkv_u, probs_u = attn_block_fwd_stash(xu, *w_, H)
+        diag = torch.stack([probs_p[:, :, i * MAE_SEG:(i + 1) * MAE_SEG, i * MAE_SEG:(i + 1) * MAE_SEG]
+                            for i in range(MAE_PACK)], 1).reshape(Bu, H, MAE_SEG, MAE_SEG)
+        gap = {"K2 out": rel_err(fused_attn_block(*fwd_args[:8], seg_len=MAE_SEG).reshape(Bu, MAE_SEG, D),
+                                 fused_attn_block(xu, *w_, H))[0],
+               "kernel 2 out": rel_err(out_p.reshape(Bu, MAE_SEG, D), out_u)[0],
+               "kernel 2 qkv": rel_err(qkv_p.reshape(Bu, MAE_SEG, 3 * D), qkv_u)[0],
+               "kernel 2 probs": rel_err(diag, probs_u)[0]}
+        got_p = attn_block_bwd(x, s_, b_, wq, bq, wp, g, H, MAE_SEG)
+        got_u = attn_block_bwd(xu, s_, b_, wq, bq, wp, gu, H)
+        gap.update({f"kernel 4 {o}": rel_err(a.reshape(b.shape), b)[0]
+                    for o, a, b in zip(grads_attn, got_p, got_u)})
+        pack_gap[B] = gap
+        print(f"packed (seg_len {MAE_SEG}, B={B} sequences) vs unpacked (B={Bu}, N={MAE_SEG}): max-rel "
+              + ", ".join(f"{k} {v:.2e}" for k, v in gap.items()) + f" (bars {TOL_FWD} / {TOL_BWD})",
+              flush=True)
+        check(max(v for k, v in gap.items() if not k.startswith("kernel 4")) <= TOL_FWD
+              and max(v for k, v in gap.items() if k.startswith("kernel 4")) <= TOL_BWD,
+              f"packed against unpacked B={B}")
+        if B == MAE[3][0]:  # the unmasked kernels at the unpacked shape, for PERF.md
+            timings[("mae_unpacked", Bu)] = {
+                "attn_block_fwd_ms": cuda_ms(lambda: fused_attn_block(xu, *w_, H), 5),
+                "attn_block_fwd_stash_ms": cuda_ms(lambda: attn_block_fwd_stash(xu, *w_, H), 5),
+                "attn_block_bwd_ms": cuda_ms(lambda: attn_block_bwd(xu, s_, b_, wq, bq, wp, gu, H), 5),
+            }
+        del x, g, xu, gu, cases, qkv_s, probs_s, out_p, qkv_p, probs_p, out_u, qkv_u, probs_u, got_p, got_u
+    # maesimple's decoder: one head of 512 at N = 65, query blocks of 16 rows
+    x, s_, b_, wq, bq, wp, bp = block_args("attn", 64, N_TOK, 512)
+    g = (torch.randn(64, N_TOK, 512, generator=gen, device=dev) * 0.1).to(torch.bfloat16)
+    _, qkv_s, probs_s = attn_block_fwd_stash_plain(x, s_, b_, wq, bq, wp, bp, 1)
+    cases = (("attn_block_fwd_hd512", lambda *a: (fused_attn_block(*a),), lambda *a: (attn_block_plain(*a),),
+              (x, s_, b_, wq, bq, wp, bp, 1), ("out",)),
+             ("attn_block_fwd_stash_hd512", attn_block_fwd_stash, attn_block_fwd_stash_plain,
+              (x, s_, b_, wq, bq, wp, bp, 1), ("out", "qkv", "probs")),
+             ("attn_block_bwd_stash_hd512", attn_block_bwd_stash, attn_block_bwd_stash_plain,
+              (x, s_, b_, wq, wp, qkv_s, probs_s, g, 1), grads_attn),
+             ("attn_block_bwd_hd512", attn_block_bwd, attn_block_bwd_plain,
+              (x, s_, b_, wq, bq, wp, g, 1), grads_attn))
+    run_cases(cases, "64 N=65 hd=512", {}, False)
+    del x, g, qkv_s, probs_s, cases
+    torch.cuda.empty_cache()
+
     # ---- 4. serving path ------------------------------------------------------
     cfg = load_config(CONFIG, os.path.join(ROOT, "configs"))
     model = build_mim_model(cfg, dtype=torch.bfloat16, device=dev,
@@ -567,11 +694,19 @@ def main() -> int:
                 weighted_bank_scores_multi, attn_block_fwd_stash, attn_block_bwd_stash,
                 mlp_block_bwd, attn_block_bwd, mlp_block_fwd_stash, mlp_block_bwd_stash,
                 mlp_block_bwd_stream)
-    training_kernels = [f.__name__ for f in counters[4:]]
+    # K2, kernel 2 and kernel 4 also count their launches with packed segments
+    seg_counters = (fused_attn_block, attn_block_fwd_stash, attn_block_bwd)
+    training_kernels = [f.__name__ for f in counters[4:]] + ["fused_attn_block_seg"]
 
     def zero_counters():
         for fn in counters:
             fn.launches = 0
+        for fn in seg_counters:
+            fn.seg_launches = 0
+
+    def launch_counts():
+        return {**{f.__name__: f.launches for f in counters},
+                **{f.__name__ + "_seg": f.seg_launches for f in seg_counters}}
 
     zero_counters()
     torch.cuda.synchronize()
@@ -593,7 +728,7 @@ def main() -> int:
     queries += 2
     torch.cuda.synchronize()
     t_main = time.perf_counter() - t_main
-    launches = {f.__name__: f.launches for f in counters}
+    launches = launch_counts()
     print(f"serving path: {t_main:.2f} s, {encoder_calls} encoder calls, launches {launches}", flush=True)
     check(target_latent.shape == (2 * (1 + N_AUG), N_TOK, D), f"target latent shape {target_latent.shape}")
     check(lat_s.shape == (N_SAVE, N_TOK, D) and scores_s.shape == (N_SAVE,), "simsearch shapes")
@@ -709,7 +844,7 @@ def main() -> int:
         c_slabs = bank_topk_chunked(host_bank, tgt0, w0, N_SAVE, slab_rows=SLAB_ROWS)
         torch.cuda.synchronize()
         t_path = time.perf_counter() - t_path
-        path_launches = {f.__name__: f.launches for f in counters}
+        path_launches = launch_counts()
         print(f"retrieval path: {t_path:.2f} s, {encoder_calls} encoder calls, FITS stream "
               f"{n_batches} batches of {BATCH} ({per_tile} cutouts a tile) in {t_stream:.2f} s, "
               f"launches {path_launches}", flush=True)
@@ -729,8 +864,11 @@ def main() -> int:
             check(imgs_g.shape == (N_SAVE, model.in_chans, img, img) and lat_g.shape == (N_SAVE, N_TOK, D)
                   and bool(np.isfinite(sc_g).all()) and bool((sc_g[:-1] >= sc_g[1:]).all()),
                   f"group {g}: shapes, finite sorted scores")
-            _, _, ra_1, sc_1 = mim_simsearch(model, groups[g], stream(), n_save=N_SAVE, max_pool=True,
-                                             log_every=0)
+            # a one-group pass of the same search: mim_simsearch rounds its
+            # target statistics as JAX's single search does, which in bf16
+            # ranks otherwise than the multi-target search (as in JAX)
+            _, _, ra_1, sc_1 = mim_simsearch_multi(model, [groups[g]], stream(), n_save=N_SAVE,
+                                                   max_pool=True, log_every=0)[0]
             ov = len({tuple(r) for r in ra_g.tolist()} & {tuple(r) for r in ra_1.tolist()})
             diff = float(np.abs(sc_g - sc_1).max())
             group_checks.append({"overlap": ov, "max_score_diff": diff})
@@ -844,13 +982,26 @@ def main() -> int:
     def ra_dec_of(model_, batch):
         return batch_ra_dec(batch, dev) if model_.ra_dec else None
 
+    def draw_masking(tr, bs_, gen_):
+        """The step's masking: a SimMIM pixel mask, or an MAE model's token noise."""
+        return tr.draw_mask(bs_, gen_) if tr.model.simmim else tr.draw_noise(bs_, gen_)
+
+    def model_loss(mod, x_, mk, batch):
+        rd = ra_dec_of(mod, batch)
+        return mod(x_, mk, ra_dec=rd)[0] if mod.simmim else mod(x_, ra_dec=rd, mae_noise=mk)[0]
+
+    def train_with(tr, batch, mk):
+        return tr.train_batch(batch, mask=mk) if tr.model.simmim else tr.train_batch(batch, noise=mk)
+
     def training_phase(cfg_, steps, val, expect, tol_grad, tol_loss, time_batches, seed,
-                       extra=None):
+                       extra=None, expect_dec=None, distinct=None):
         """One config's training path: ``steps`` train steps and ``val``
         validation batches with the launch counts ``expect`` (kernel ->
-        launches per layer per step, per validation batch); ``extra``
-        (trainer, batches) runs config-specific checks; then the kernel path
-        against the plain path and train-step times at ``time_batches``."""
+        launches per encoder layer per step, per validation batch; for an
+        MAE model ``expect_dec`` per decoder layer); ``extra`` (trainer,
+        batches) runs config-specific checks; then the kernel path against
+        the plain path and train-step times at ``time_batches``. ``distinct``
+        synthetic batches are made and cycled (all different by default)."""
         tag = cfg_.name
         t_init = time.perf_counter()
         trainer = MIMPretrainer(cfg_, dtype=torch.bfloat16, seed=0, device=dev)
@@ -859,9 +1010,12 @@ def main() -> int:
         m = trainer.model
         bs = trainer.batch_size
         layers = m.encoder.depth
-        gdata = make_cutouts((steps + val) * bs, seed=seed, channels=m.in_chans, img_size=m.img_size)
+        dec_layers = 0 if m.simmim else m.decoder.depth
+        n_data = distinct or steps + val
+        gdata = make_cutouts(n_data * bs, seed=seed, channels=m.in_chans, img_size=m.img_size)
         check(bool(np.isnan(gdata["cutouts"]).any()), f"{tag}: training cutouts hold NaN bands")
         tbatches = as_batches(gdata, bs)
+        tbatches = [tbatches[i % n_data] for i in range(steps + val)]
         zero_counters()
         torch.cuda.synchronize()
         t_run = time.perf_counter()
@@ -869,37 +1023,42 @@ def main() -> int:
         val_losses = [trainer.eval_batch(b, idx=i) for i, b in enumerate(tbatches[steps:])]
         torch.cuda.synchronize()
         t_run = time.perf_counter() - t_run
-        run_launches = {f.__name__: f.launches for f in counters}
+        run_launches = launch_counts()
         train_losses = [float(v) for v in train_losses]
         val_losses = [float(v) for v in val_losses]
-        print(f"training path {tag} (D={m.embed_dim}, depth {layers}, batch {bs}, remat "
-              f"{m.encoder.remat}, ra_dec {m.ra_dec}): {steps} steps + {val} val batches in "
-              f"{t_run:.2f} s, launches {run_launches}", flush=True)
+        print(f"training path {tag} (D={m.embed_dim}, depth {layers}, decoder depth {dec_layers}, "
+              f"batch {bs}, remat {m.encoder.remat}, ra_dec {m.ra_dec}): {steps} steps + {val} val "
+              f"batches in {t_run:.2f} s, launches {run_launches}", flush=True)
         print(f"{tag} train losses {[round(v, 4) for v in train_losses]}; "
               f"val {[round(v, 4) for v in val_losses]}", flush=True)
         check(all(np.isfinite(train_losses + val_losses)), f"{tag}: losses finite")
         for name_ in run_launches:
             per_step, per_val = expect.get(name_, (0, 0))
-            want_n = layers * (per_step * steps + per_val * val)
+            dec_step, dec_val = (expect_dec or {}).get(name_, (0, 0))
+            want_n = layers * (per_step * steps + per_val * val) + dec_layers * (dec_step * steps
+                                                                              + dec_val * val)
             check(run_launches[name_] == want_n,
                   f"{tag}: {name_} launches {run_launches[name_]} == {layers} x "
-                  f"({per_step} x {steps} + {per_val} x {val}) = {want_n}")
-        result = {"layers": layers, "embed_dim": m.embed_dim, "batch": bs, "channels": m.in_chans,
+                  f"({per_step} x {steps} + {per_val} x {val}) + {dec_layers} x "
+                  f"({dec_step} x {steps} + {dec_val} x {val}) = {want_n}")
+        result = {"layers": layers, "decoder_layers": dec_layers, "embed_dim": m.embed_dim,
+                  "batch": bs, "channels": m.in_chans,
                   "remat": m.encoder.remat, "ra_dec": m.ra_dec, "trainer_init_s": t_init,
                   "seconds": t_run, "steps": steps, "val_batches": val, "launches": run_launches,
                   "train_losses": train_losses, "val_losses": val_losses}
         if extra is not None:
             result.update(extra(trainer, tbatches))
 
-        # kernel path vs plain path on the card, from the same params and masks
+        # kernel path vs plain path on the card, from the same params and
+        # masks (MAE: noise); the plain path's decoder too
         pair = [MIMPretrainer(cfg_, dtype=torch.bfloat16, seed=0, device=dev) for _ in range(2)]
-        pair[1].model.encoder.plain = True
+        pair[1].model.plain = True
         mgen = torch.Generator(device=dev).manual_seed(7)
-        masks = [pair[0].draw_mask(bs, mgen) for _ in range(TRAJ_STEPS)]
+        masks = [draw_masking(pair[0], bs, mgen) for _ in range(TRAJ_STEPS)]
         x0 = torch.as_tensor(tbatches[0]["cutouts"], device=dev).clamp_min(trainer.pixel_min)
         step_grads, step_loss = [], []
         for tr in pair:
-            loss = tr.model(x0, masks[0], ra_dec=ra_dec_of(tr.model, tbatches[0]))[0]
+            loss = model_loss(tr.model, x0, masks[0], tbatches[0])
             loss.backward()
             step_loss.append(float(loss.detach()))
             step_grads.append({n: p.grad.float().clone() for n, p in tr.model.named_parameters()
@@ -909,7 +1068,7 @@ def main() -> int:
                     for n, a in step_grads[0].items()}
         worst_leaf = max(grad_rel, key=grad_rel.get)
         loss_rel = abs(step_loss[0] - step_loss[1]) / abs(step_loss[1])
-        traj = [[float(tr.train_batch(b, mask=mk)) for b, mk in zip(tbatches, masks)] for tr in pair]
+        traj = [[float(train_with(tr, b, mk)) for b, mk in zip(tbatches, masks)] for tr in pair]
         traj_rel = max(abs(a - b) / abs(b) for a, b in zip(*traj))
         print(f"{tag} training kernel vs plain path (B={bs}, {layers} layers): loss rel "
               f"{loss_rel:.3e}; gradient ||a-b||/||b|| max {grad_rel[worst_leaf]:.3e} ({worst_leaf}), "
@@ -917,8 +1076,8 @@ def main() -> int:
               f"(bar {tol_grad}); {TRAJ_STEPS}-step losses kernel {[round(v, 5) for v in traj[0]]} "
               f"plain {[round(v, 5) for v in traj[1]]}, max rel {traj_rel:.3e} (bar {tol_loss})",
               flush=True)
-        check(len(grad_rel) == sum(1 for n, _ in m.named_parameters() if n != "mask_token"),
-              f"{tag}: every parameter but mask_token gets a gradient")
+        check(len(grad_rel) == sum(1 for n, _ in m.named_parameters() if n != "mask_token" or not m.simmim),
+              f"{tag}: every parameter (SimMIM: but mask_token) gets a gradient")
         check(all(np.isfinite(list(grad_rel.values()))), f"{tag}: gradients finite")
         check(grad_rel[worst_leaf] <= tol_grad, f"{tag}: gradients kernel vs plain")
         check(loss_rel <= tol_loss and traj_rel <= tol_loss, f"{tag}: losses kernel vs plain")
@@ -1040,6 +1199,63 @@ def main() -> int:
               f"{m.embed_dim // 16}", flush=True)
         return {"parameters": n_params}
 
+    def mae_remat(trainer, tbatches):
+        """mim_1_mae: the same model with remat, MAE[4] steps at a smaller
+        batch, so that kernel 4 runs masked on its real path (K2 masked twice
+        per encoder block, the forward and its replay; the decoder keeps its
+        stash); then its gradients bit-equal to those of the same model
+        stored without remat (the encoder's stash off)."""
+        d_ = {sec: dict(cfg_m[sec].items()) for sec in cfg_m.sections()}
+        Br, steps_r = MAE[4]
+        d_["TRAINING"].update(remat="True", batch_size=str(Br))
+        cfg_rm = Config.from_dict(d_, name="mim_1_mae_remat")
+        tr = MIMPretrainer(cfg_rm, dtype=torch.bfloat16, seed=0, device=dev)
+        tr.model.load_state_dict(trainer.model.state_dict())
+        rbatches = [{"cutouts": b["cutouts"][:Br]} for b in tbatches[:steps_r]]
+        zero_counters()
+        torch.cuda.synchronize()
+        t_r = time.perf_counter()
+        losses_r = [float(tr.train_batch(b)) for b in rbatches]
+        torch.cuda.synchronize()
+        t_r = time.perf_counter() - t_r
+        rl = launch_counts()
+        enc, dec = tr.model.encoder.depth, tr.model.decoder.depth
+        want = {"fused_attn_block": 2 * enc * steps_r, "fused_attn_block_seg": 2 * enc * steps_r,
+                "attn_block_bwd": enc * steps_r, "attn_block_bwd_seg": enc * steps_r,
+                "attn_block_fwd_stash": dec * steps_r, "attn_block_bwd_stash": dec * steps_r,
+                "fused_mlp_block": (2 * enc + dec) * steps_r, "mlp_block_bwd": (enc + dec) * steps_r}
+        print(f"{cfg_rm.name} (remat, batch {Br}): {steps_r} steps in {t_r:.2f} s, losses "
+              f"{[round(v, 4) for v in losses_r]}, launches {rl}", flush=True)
+        check(tr.model.encoder.remat and all(np.isfinite(losses_r)), "MAE remat run")
+        for k_, n_ in rl.items():
+            check(n_ == want.get(k_, 0), f"{cfg_rm.name}: {k_} launches {n_} == {want.get(k_, 0)}")
+        d_["TRAINING"].update(remat="False")
+        d_["ARCHITECTURE"].update(stash="False")
+        ref = build_mim_model(Config.from_dict(d_, name="mim_1_mae_stored"), dtype=torch.bfloat16,
+                              device=dev, remat=False)
+        ref.load_state_dict(tr.model.state_dict())
+        ref.train()
+        x0 = torch.as_tensor(rbatches[0]["cutouts"], device=dev).clamp_min(tr.pixel_min)
+        nz = tr.draw_noise(Br, torch.Generator(device=dev).manual_seed(12))
+        grads, losses = [], []
+        for mod in (tr.model, ref):
+            mod.zero_grad(set_to_none=True)
+            loss = mod(x0, mae_noise=nz)[0]
+            loss.backward()
+            losses.append(loss.detach())
+            grads.append({n: p.grad.clone() for n, p in mod.named_parameters() if p.grad is not None})
+            mod.zero_grad(set_to_none=True)
+        same = grads[0].keys() == grads[1].keys() and all(
+            torch.equal(grads[0][n], grads[1][n]) for n in grads[0])
+        print(f"MAE remat vs stored (one step, B={Br}): loss bit-equal {torch.equal(*losses)}, "
+              f"{len(grads[0])} gradients bit-equal {same}", flush=True)
+        check(torch.equal(*losses) and same and len(grads[0]) == sum(1 for _ in ref.parameters()),
+              "MAE remat gradients bit-equal to the stored path")
+        del tr, ref, grads
+        torch.cuda.empty_cache()
+        return {"remat_run": {"batch": Br, "steps": steps_r, "seconds": t_r, "losses": losses_r,
+                          "launches": rl, "grads_bit_equal_to_stored": same}}
+
     # launches per layer: (per train step, per validation batch)
     expect_b = {"attn_block_fwd_stash": (1, 0), "attn_block_bwd_stash": (1, 0),
                 "mlp_block_bwd": (1, 0), "fused_mlp_block": (1, 1), "fused_attn_block": (0, 1)}
@@ -1063,11 +1279,28 @@ def main() -> int:
                                      ((32, 10),), seed=5, extra=remat_check)
     paths[VITH[0]] = training_phase(cfg_h, VITH[1], VITH[2], expect_h, TOL_GRAD_H, TOL_LOSS_H,
                                     VITH[4], seed=6, extra=vith_init)
+    # MAE (bench_mae): the packed encoder masked (kernel 2 and, in
+    # validation, K2 with seg_len), the decoder unmasked (kernels 2 and 3 in
+    # training, K2 in validation); the MLPs K1 and kernel 8 throughout
+    d_m = {sec: dict(cfg[sec].items()) for sec in cfg.sections()}
+    for sec, over in MAE_OVERRIDES.items():
+        d_m[sec].update(over)
+    cfg_m = Config.from_dict(d_m, name=MAE[0])
+    expect_m = {"attn_block_fwd_stash": (1, 0), "attn_block_fwd_stash_seg": (1, 0),
+                "attn_block_bwd_stash": (1, 0), "mlp_block_bwd": (1, 0), "fused_mlp_block": (1, 1),
+                "fused_attn_block": (0, 1), "fused_attn_block_seg": (0, 1)}
+    expect_m_dec = {"attn_block_fwd_stash": (1, 0), "attn_block_bwd_stash": (1, 0),
+                    "mlp_block_bwd": (1, 0), "fused_mlp_block": (1, 1), "fused_attn_block": (0, 1)}
+    paths[MAE[0]] = training_phase(cfg_m, MAE[1], MAE[2], expect_m, TOL_GRAD_M, TOL_LOSS_M,
+                                   MAE[6], seed=7, extra=mae_remat, expect_dec=expect_m_dec,
+                                   distinct=MAE[5])
     shapes = {c: tuple(r[k] for k in ("layers", "embed_dim", "batch", "channels", "remat", "ra_dec"))
               for c, r in paths.items()}
     check(shapes == {CONFIG: (12, 768, 64, 5, False, False), LARGE[0]: (24, 768, 64, 5, False, False),
-                     REMAT[0]: (24, 1024, 32, 9, True, True), VITH[0]: (32, 1280, 32, 9, False, True)},
+                     REMAT[0]: (24, 1024, 32, 9, True, True), VITH[0]: (32, 1280, 32, 9, False, True),
+                     MAE[0]: (12, 768, 1024, 5, False, False)},
           f"the configs train at full width and depth: {shapes}")
+    check(paths[MAE[0]]["decoder_layers"] == 8, "bench_mae's decoder is 8 deep")
 
     # ---- 6. times -------------------------------------------------------------
     enc = {}
@@ -1115,13 +1348,21 @@ def main() -> int:
                                        jsrc + "simscore.py:183", "weighted_bank_scores_multi", 8),
         "mlp_block_bwd_stream": ("cuda", src + "csrc/mlp_block_bwd.cu", jsrc + "mlp_block.py:532",
                                  "mlp_block_bwd_stream", VITH[3][0]),
+        # the packed-segment launches of kernels 1, 2 and 4 (seg_len = 17, N = 68)
+        "attn_block_fwd_seg": ("cuda", src + "csrc/attn_block.cu", jsrc + "attn_block.py:899",
+                               "fused_attn_block_seg", MAE[3][0]),
+        "attn_block_fwd_stash_seg": ("cuda", src + "csrc/attn_block.cu", jsrc + "attn_block.py:940",
+                                     "attn_block_fwd_stash_seg", MAE[3][0]),
+        "attn_block_bwd_seg": ("cuda", src + "csrc/attn_block_bwd.cu", jsrc + "attn_block.py:1052",
+                               "attn_block_bwd_seg", MAE[3][0]),
     }
     kernels = []
     for name, (route, source, replaces, counter, shape) in meta.items():
         t = timings[(name, shape)]
         by_path = {f"serving_{CONFIG}": launches[counter],
                    f"retrieval_{CONFIG}": retrieval_launches[counter],
-                   **{f"training_{c}": r["launches"][counter] for c, r in paths.items()}}
+                   **{f"training_{c}": r["launches"][counter] for c, r in paths.items()},
+                   f"training_{MAE[0]}_remat": paths[MAE[0]]["remat_run"]["launches"][counter]}
         check(sum(by_path.values()) > 0, f"{name} launched on a main path")
         kernels.append({
             "name": name, "route": route, "source": source, "replaces": replaces,
@@ -1131,7 +1372,8 @@ def main() -> int:
             "library_ms": t["library_ms"],
         })
     emit({"kernel_times": [{"name": n, "shape": s_, **v} for (n, s_), v in timings.items()],
-          "kernel9_vs_kernel8_max_rel": {str(b): v for b, v in stream_gap.items()}})
+          "kernel9_vs_kernel8_max_rel": {str(b): v for b, v in stream_gap.items()},
+          "packed_vs_unpacked_max_rel": {str(b): v for b, v in pack_gap.items()}})
     emit({
         "main_path": {"seconds": t_main, "encoder_calls": encoder_calls, "launches": launches,
                       "tokens_max_rel_vs_plain": tok_rel, "tokens_max_abs_vs_plain": tok_abs,

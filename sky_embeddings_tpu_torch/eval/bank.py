@@ -226,14 +226,16 @@ def build_bank(
     encode = make_encoder(model)
 
     def pooled(imgs, ra_dec):
-        latent = encode(imgs, ra_dec).float()
+        # pooled in the tokens' dtype (a bf16 mean rounds to bf16), as JAX
+        # pools, then widened to fp32 for the bank's statistics
+        latent = encode(imgs, ra_dec)
         if pool == "cls":
-            return latent[:, 0]
+            return latent[:, 0].float()
         patches = latent[:, n_extra:]
         if pool == "central":
             sel = select_centre(patches, 4)
-            return sel.reshape(sel.shape[0], -1)
-        return patches.max(dim=1).values if pool == "max" else patches.mean(dim=1)
+            return sel.reshape(sel.shape[0], -1).float()
+        return (patches.max(dim=1).values if pool == "max" else patches.mean(dim=1)).float()
 
     rows, ra_decs = [], []
     for batch in batches:

@@ -28,6 +28,11 @@ against.
 forward kernels run again in the backward, and both stashes are off, as JAX
 turns them off under remat (``layers.py:422-425``).
 
+``Encoder.forward(x, seg_len)`` runs N // seg_len samples packed along the
+sequence (MAE sequence packing): every block's attention is masked to the
+block diagonal (``ops/kernels/attn_block.py``), the per-token LN and MLP
+need no change; remat replays each block with the same ``seg_len``.
+
 Not ported yet (ROADMAP): the scan layout, ``CrossAttention`` and
 ``AttentionPoolLatent``.
 """
@@ -177,12 +182,12 @@ class Block(nn.Module):
         self.attn = AttnParams(dim)
         self.ffn = MlpBlock(dim, int(dim * mlp_ratio), dtype, stash=stash_mlp)
 
-    def forward(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, plain: bool = False, seg_len: int = 0) -> torch.Tensor:
         x = fused_attn_block(
             x.to(self.dtype), self.norm1.scale, self.norm1.bias,
             self.attn.qkv.kernel.to(self.dtype), self.attn.qkv.bias,
             self.attn.proj.kernel.to(self.dtype), self.attn.proj.bias,
-            self.num_heads, stash=self.stash, plain=plain,
+            self.num_heads, stash=self.stash, plain=plain, seg_len=seg_len,
         )
         return self.ffn(x, plain)
 
@@ -204,12 +209,14 @@ class Encoder(nn.Module):
         for i in range(depth):
             self.add_module(f"block{i}", Block(dim, num_heads, mlp_ratio, dtype, stash, stash_mlp))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, seg_len: int = 0) -> torch.Tensor:
+        """(B, N, D) -> (B, N, D); ``seg_len > 0`` masks attention to packed
+        segments of ``seg_len`` tokens."""
         remat = self.remat and torch.is_grad_enabled()
         for i in range(self.depth):
             block = getattr(self, f"block{i}")
             if remat:
-                x = checkpoint(block, x, self.plain, use_reentrant=False)
+                x = checkpoint(block, x, self.plain, seg_len, use_reentrant=False)
             else:
-                x = block(x, self.plain)
+                x = block(x, self.plain, seg_len)
         return x

@@ -5,7 +5,7 @@ Four kernels, all in CUDA C++:
 
 - K2, the primal forward: replaces the TPU kernel
   ``sky_embeddings_tpu/ops/kernels/attn_block.py`` ``_pallas_fwd``
-  (``_fwd_kernel`` / ``_fwd_kernel_loop``), for ``seg_len = 0``.
+  (``_fwd_kernel`` / ``_fwd_kernel_loop``).
   ``csrc/attn_block.cu`` entry ``sky_attn_block_fwd``: LN, qkv GEMM, an
   attention core with one CTA per (sample, head) holding q, k and v in
   shared memory, then proj GEMM + residual.
@@ -42,8 +42,14 @@ and the kernel cannot disagree; a plan shrinks its query blocks before it
 gives up. ViT-H's 80 fits every core up to N = 256; 192 at N = 256 fits
 none and is refused.
 
-Not ported yet (ROADMAP): the packed-segment mask (``seg_len > 0``, MAE
-training).
+Packed segments: ``seg_len > 0`` declares the N tokens to be N // seg_len
+samples packed along the sequence (MAE sequence packing,
+``models/mim.SkyMIM.encode``), and K2, kernel 2 and kernel 4 restrict
+attention to the block diagonal, as JAX's ``_seg_bias`` does with a -1e9
+logit bias: each softmax row runs over its own segment's keys and the
+probabilities are exactly 0 elsewhere, in the stash too. Kernel 3 takes no
+``seg_len``: the stashed probabilities carry the zeros. ``seg_len = 0`` or
+``>= N`` means no mask. The plain versions add JAX's bias.
 
 Numerics (kernel and plain versions alike): fp32 LN statistics, bf16 GEMM
 operands with fp32 accumulation, qkv rounded to bf16 after its bias, fp32
@@ -75,24 +81,39 @@ MAX_TOKENS = 256  # the TPU kernel's dispatch bound (layers.py:341)
 SMEM_PER_BLOCK = 232448  # dynamic shared memory a block may use, csrc/gemm.cuh SMEM_OPTIN_MAX
 
 
-def _qkv_probs(x, scale, bias, wqkv, bqkv, num_heads: int):
+def _seg_bias(N: int, seg_len: int, device) -> torch.Tensor | None:
+    """JAX ``_seg_bias``: the (N, N) fp32 logit bias of packed segments, 0
+    within a segment and -1e9 across (exp underflows to exactly 0); None
+    without a mask (``seg_len`` 0 or >= N)."""
+    if not seg_len or seg_len >= N:
+        return None
+    ids = torch.arange(N, device=device) // seg_len
+    return torch.where(ids[:, None] == ids[None, :], 0.0, -1e9)
+
+
+def _qkv_probs(x, scale, bias, wqkv, bqkv, num_heads: int, seg_len: int = 0):
     """The forward up to the softmax: qkv (B, N, 3D) rounded to wqkv's dtype
-    and the fp32 probabilities (B, H, N, N)."""
+    and the fp32 probabilities (B, H, N, N), masked to packed segments of
+    ``seg_len`` tokens."""
     B, N, D = x.shape
     hd = D // num_heads
     y = _ln_forward(x.float(), scale, bias)[0]
     qkv = (_dot(y.to(wqkv.dtype), wqkv) + bqkv).to(wqkv.dtype)
     q, k, _ = qkv.reshape(B, N, 3, num_heads, hd).unbind(2)
-    logits = torch.einsum("bnhd,bmhd->bhnm", q.float(), k.float())
-    return qkv, torch.softmax(logits * hd ** -0.5, dim=-1)
+    z = torch.einsum("bnhd,bmhd->bhnm", q.float(), k.float()) * hd ** -0.5
+    seg = _seg_bias(N, seg_len, x.device)
+    if seg is not None:
+        z = z + seg
+    return qkv, torch.softmax(z, dim=-1)
 
 
-def attn_block_fwd_stash_plain(x, scale, bias, wqkv, bqkv, wproj, bproj, num_heads: int):
+def attn_block_fwd_stash_plain(x, scale, bias, wqkv, bqkv, wproj, bproj, num_heads: int,
+                               seg_len: int = 0):
     """Plain version of the stash forward: ``(out, qkv, probs)``, qkv
     (B, N, 3D) and probs (B, H, N, N) in x's dtype; ``out`` is the JAX
-    oracle ``xla_attn_block`` with ``seg_len = 0``."""
+    oracle ``xla_attn_block(..., seg_len)``."""
     B, N, D = x.shape
-    qkv, probs = _qkv_probs(x, scale, bias, wqkv, bqkv, num_heads)
+    qkv, probs = _qkv_probs(x, scale, bias, wqkv, bqkv, num_heads, seg_len)
     probs = probs.to(wqkv.dtype)
     v = qkv.reshape(B, N, 3, num_heads, D // num_heads)[:, :, 2]
     ctx = torch.einsum("bhnm,bmhd->bnhd", probs.float(), v.float())
@@ -100,9 +121,11 @@ def attn_block_fwd_stash_plain(x, scale, bias, wqkv, bqkv, wproj, bproj, num_hea
     return (x.float() + out).to(x.dtype), qkv.to(x.dtype), probs.to(x.dtype)
 
 
-def attn_block_plain(x, scale, bias, wqkv, bqkv, wproj, bproj, num_heads: int):
+def attn_block_plain(x, scale, bias, wqkv, bqkv, wproj, bproj, num_heads: int,
+                     seg_len: int = 0):
     """Plain PyTorch version of the primal (CPU path and parity reference)."""
-    return attn_block_fwd_stash_plain(x, scale, bias, wqkv, bqkv, wproj, bproj, num_heads)[0]
+    return attn_block_fwd_stash_plain(x, scale, bias, wqkv, bqkv, wproj, bproj, num_heads,
+                                      seg_len)[0]
 
 
 def _attn_bwd_from(x, scale, bias, wqkv, wproj, qkv, p_soft, p_c, g, num_heads: int):
@@ -142,29 +165,31 @@ def _attn_bwd_from(x, scale, bias, wqkv, wproj, qkv, p_soft, p_c, g, num_heads: 
 def attn_block_bwd_stash_plain(x, scale, bias, wqkv, wproj, qkv, probs, g, num_heads: int):
     """Plain version of kernel 3: mirrors ``_bwd_stash_kernel``
     (attn_block.py:282-356) rounding point by rounding point: the stashed
-    bf16 probabilities in the softmax backward and the products alike.
+    bf16 probabilities in the softmax backward and the products alike. It
+    takes no ``seg_len``: packed probabilities carry their zeros.
     Returns (dx, dscale, dbias, dwqkv, dbqkv, dwproj, dbproj) in the dtypes
     of (x, scale, bias, wqkv, fp32, wproj, fp32)."""
     p = probs.float()
     return _attn_bwd_from(x, scale, bias, wqkv, wproj, qkv, p, p, g, num_heads)
 
 
-def attn_block_bwd_plain(x, scale, bias, wqkv, bqkv, wproj, g, num_heads: int):
+def attn_block_bwd_plain(x, scale, bias, wqkv, bqkv, wproj, g, num_heads: int,
+                         seg_len: int = 0):
     """Plain version of kernel 4: mirrors ``_bwd_kernel`` (attn_block.py:156-235)
     rounding point by rounding point. LN, qkv (rounded after its bias), the
-    logits and the fp32 softmax are recomputed; the softmax backward takes
-    the fp32 probabilities, ctx and dV their bf16 rounding. Outputs as
-    :func:`attn_block_bwd_stash_plain`."""
-    qkv, probs = _qkv_probs(x, scale, bias, wqkv, bqkv, num_heads)
+    logits and the fp32 softmax (masked to packed segments of ``seg_len``)
+    are recomputed; the softmax backward takes the fp32 probabilities, ctx
+    and dV their bf16 rounding. Outputs as :func:`attn_block_bwd_stash_plain`."""
+    qkv, probs = _qkv_probs(x, scale, bias, wqkv, bqkv, num_heads, seg_len)
     p_c = probs.to(wqkv.dtype).float()
     return _attn_bwd_from(x, scale, bias, wqkv, wproj, qkv, probs, p_c, g, num_heads)
 
 
-def _lib(name: str, entry: str, n_ptr: int) -> ctypes.CDLL:
+def _lib(name: str, entry: str, n_ptr: int, n_int: int) -> ctypes.CDLL:
     lib = cuda_build.load(name)
     fn = getattr(lib, entry)
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
 
@@ -184,7 +209,10 @@ def _plan_bytes(core: str, N: int, hd: int) -> int:
     return int(fn(*args))
 
 
-def _check_cuda_args(x, scale, bias, wqkv, bqkv, wproj, bproj, num_heads, core: str):
+def _check_cuda_args(x, scale, bias, wqkv, bqkv, wproj, bproj, num_heads, core: str,
+                     seg_len: int = 0):
+    if seg_len < 0:
+        raise ValueError(f"seg_len={seg_len} must be >= 0")
     if x.dtype != torch.bfloat16:
         raise ValueError(
             f"fused_attn_block on CUDA takes bf16 activations, got {x.dtype} "
@@ -222,11 +250,13 @@ def _check_cuda_args(x, scale, bias, wqkv, bqkv, wproj, bproj, num_heads, core: 
                          f"{smem} bytes, more than the {SMEM_PER_BLOCK} a block may use")
 
 
-def _launch_fwd(x, scale, bias, wqkv, bqkv, wproj, bproj, num_heads, stash: bool):
+def _launch_fwd(x, scale, bias, wqkv, bqkv, wproj, bproj, num_heads, stash: bool,
+                seg_len: int = 0):
     """K2 (``stash=False``, counted on ``fused_attn_block.launches``) or
     kernel 2 (counted on ``attn_block_fwd_stash.launches``) on CUDA tensors:
-    ``(out, qkv, probs)``, probs None without the stash."""
-    _check_cuda_args(x, scale, bias, wqkv, bqkv, wproj, bproj, num_heads, "fwd")
+    ``(out, qkv, probs)``, probs None without the stash. A launch with packed
+    segments also counts on the wrapper's ``seg_launches``."""
+    _check_cuda_args(x, scale, bias, wqkv, bqkv, wproj, bproj, num_heads, "fwd", seg_len)
     B, N, D = x.shape
     qkv = torch.empty((B, N, 3 * D), dtype=torch.bfloat16, device=x.device)
     ctx = torch.empty((B, N, D), dtype=torch.bfloat16, device=x.device)
@@ -242,26 +272,29 @@ def _launch_fwd(x, scale, bias, wqkv, bqkv, wproj, bproj, num_heads, stash: bool
         entry = "sky_attn_block_fwd"
     ptrs.append(out.data_ptr())
     with torch.cuda.device(x.device):
-        err = getattr(_lib("attn_block", entry, len(ptrs)), entry)(
-            *ptrs, B, N, D, num_heads, torch.cuda.current_stream().cuda_stream)
+        err = getattr(_lib("attn_block", entry, len(ptrs), 5), entry)(
+            *ptrs, B, N, D, num_heads, seg_len, torch.cuda.current_stream().cuda_stream)
     cuda_build.check(err, entry)
-    if stash:
-        attn_block_fwd_stash.launches += 1
-    else:
-        fused_attn_block.launches += 1
+    counted = attn_block_fwd_stash if stash else fused_attn_block
+    counted.launches += 1
+    counted.seg_launches += int(0 < seg_len < N)
     return out, qkv, probs
 
 
-def attn_block_fwd_stash(x, scale, bias, wqkv, bqkv, wproj, bproj, num_heads: int):
+def attn_block_fwd_stash(x, scale, bias, wqkv, bqkv, wproj, bproj, num_heads: int,
+                         seg_len: int = 0):
     """Kernel 2: ``(out, qkv, probs)`` as :func:`attn_block_fwd_stash_plain`.
     CPU tensors take the plain version; CUDA tensors launch
     ``csrc/attn_block.cu`` (stash entry) or raise."""
     if x.device.type == "cpu":
-        return attn_block_fwd_stash_plain(x, scale, bias, wqkv, bqkv, wproj, bproj, num_heads)
-    return _launch_fwd(x, scale, bias, wqkv, bqkv, wproj, bproj, num_heads, stash=True)
+        return attn_block_fwd_stash_plain(x, scale, bias, wqkv, bqkv, wproj, bproj, num_heads,
+                                          seg_len)
+    return _launch_fwd(x, scale, bias, wqkv, bqkv, wproj, bproj, num_heads, stash=True,
+                       seg_len=seg_len)
 
 
 attn_block_fwd_stash.launches = 0
+attn_block_fwd_stash.seg_launches = 0  # those of the launches with packed segments
 
 
 def _check_bwd_inputs(x, num_heads, **tensors):
@@ -275,9 +308,10 @@ def _check_bwd_inputs(x, num_heads, **tensors):
                              f"got {tuple(t.shape)} {t.dtype} on {t.device}")
 
 
-def _launch_bwd(entry, x, ins, num_heads, qkv=None):
+def _launch_bwd(entry, x, ins, num_heads, qkv=None, seg_len=0):
     """Kernel 3 (``ins`` holds the stash) or kernel 4 (``qkv`` is scratch for
-    the recompute) on CUDA tensors; allocates the scratch and the outputs."""
+    the recompute, ``seg_len`` its mask) on CUDA tensors; allocates the
+    scratch and the outputs."""
     B, N, D = x.shape
     M = B * N
     parts = -(-M // ROWS_PER_PARTIAL)
@@ -295,9 +329,10 @@ def _launch_bwd(entry, x, ins, num_heads, qkv=None):
     scratch = (y,) if qkv is None else (y, qkv)
     ptrs = [t.data_ptr() for t in (*ins, *scratch, dc, ctx, dqkv, dqkv_c, dy, part, ws, dx,
                                    dscale, dbias, dwqkv, dbqkv, dwproj, dbproj)]
+    ints = (B, N, D, num_heads) if qkv is None else (B, N, D, num_heads, seg_len)
     with torch.cuda.device(x.device):
-        err = getattr(_lib("attn_block_bwd", entry, len(ptrs)), entry)(
-            *ptrs, B, N, D, num_heads, torch.cuda.current_stream().cuda_stream)
+        err = getattr(_lib("attn_block_bwd", entry, len(ptrs), len(ints)), entry)(
+            *ptrs, *ints, torch.cuda.current_stream().cuda_stream)
     cuda_build.check(err, entry)
     return dx, dscale, dbias, dwqkv, dbqkv, dwproj, dbproj
 
@@ -320,35 +355,38 @@ def attn_block_bwd_stash(x, scale, bias, wqkv, wproj, qkv, probs, g, num_heads: 
 attn_block_bwd_stash.launches = 0
 
 
-def attn_block_bwd(x, scale, bias, wqkv, bqkv, wproj, g, num_heads: int):
+def attn_block_bwd(x, scale, bias, wqkv, bqkv, wproj, g, num_heads: int, seg_len: int = 0):
     """Kernel 4: the block's gradients from x and the output gradient ``g``
     alone, the forward recomputed (outputs as :func:`attn_block_bwd_plain`).
     CPU tensors take the plain version; CUDA tensors launch
     ``csrc/attn_block_bwd.cu`` (recompute entry) or raise."""
     if x.device.type == "cpu":
-        return attn_block_bwd_plain(x, scale, bias, wqkv, bqkv, wproj, g, num_heads)
-    _check_cuda_args(x, scale, bias, wqkv, bqkv, wproj, None, num_heads, "recompute")
+        return attn_block_bwd_plain(x, scale, bias, wqkv, bqkv, wproj, g, num_heads, seg_len)
+    _check_cuda_args(x, scale, bias, wqkv, bqkv, wproj, None, num_heads, "recompute", seg_len)
     _check_bwd_inputs(x, num_heads, g=g)
     qkv = torch.empty((*x.shape[:2], 3 * x.shape[2]), dtype=torch.bfloat16, device=x.device)
     grads = _launch_bwd("sky_attn_block_bwd", x, (x, scale, bias, wqkv, bqkv, wproj, g),
-                        num_heads, qkv=qkv)
+                        num_heads, qkv=qkv, seg_len=seg_len)
     attn_block_bwd.launches += 1
+    attn_block_bwd.seg_launches += int(0 < seg_len < x.shape[1])
     return grads
 
 
 attn_block_bwd.launches = 0
+attn_block_bwd.seg_launches = 0
 
 
 class AttnBlockStashFn(torch.autograd.Function):
     """Kernel 2 forward, kernel 3 backward (JAX ``fused_attn_block`` with
-    ``stash=True``: x, the weights, qkv and probs are saved). ``plain`` runs
-    the plain versions of both on any device: the reference path a check on
-    the card holds the kernels against."""
+    ``stash=True``: x, the weights, qkv and probs are saved; the stashed
+    probabilities carry the ``seg_len`` mask into the backward). ``plain``
+    runs the plain versions of both on any device: the reference path a
+    check on the card holds the kernels against."""
 
     @staticmethod
-    def forward(ctx, x, scale, bias, wqkv, bqkv, wproj, bproj, num_heads, plain):
+    def forward(ctx, x, scale, bias, wqkv, bqkv, wproj, bproj, num_heads, plain, seg_len):
         fwd = attn_block_fwd_stash_plain if plain else attn_block_fwd_stash
-        out, qkv, probs = fwd(x, scale, bias, wqkv, bqkv, wproj, bproj, num_heads)
+        out, qkv, probs = fwd(x, scale, bias, wqkv, bqkv, wproj, bproj, num_heads, seg_len)
         ctx.save_for_backward(x, scale, bias, wqkv, wproj, qkv, probs)
         ctx.num_heads, ctx.plain = num_heads, plain
         return out
@@ -358,7 +396,7 @@ class AttnBlockStashFn(torch.autograd.Function):
         x, scale, bias, wqkv, wproj, qkv, probs = ctx.saved_tensors
         bwd = attn_block_bwd_stash_plain if ctx.plain else attn_block_bwd_stash
         grads = bwd(x, scale, bias, wqkv, wproj, qkv, probs, g.contiguous(), ctx.num_heads)
-        return (*grads, None, None)
+        return (*grads, None, None, None)
 
 
 class AttnBlockFn(torch.autograd.Function):
@@ -367,36 +405,39 @@ class AttnBlockFn(torch.autograd.Function):
     primal). ``plain`` runs the plain versions of both on any device."""
 
     @staticmethod
-    def forward(ctx, x, scale, bias, wqkv, bqkv, wproj, bproj, num_heads, plain):
+    def forward(ctx, x, scale, bias, wqkv, bqkv, wproj, bproj, num_heads, plain, seg_len):
         args = (x, scale, bias, wqkv, bqkv, wproj, bproj, num_heads)
         if plain or x.device.type == "cpu":
-            out = attn_block_plain(*args)
+            out = attn_block_plain(*args, seg_len)
         else:
-            out = _launch_fwd(*args, stash=False)[0]
+            out = _launch_fwd(*args, stash=False, seg_len=seg_len)[0]
         ctx.save_for_backward(x, scale, bias, wqkv, bqkv, wproj)
-        ctx.num_heads, ctx.plain = num_heads, plain
+        ctx.num_heads, ctx.plain, ctx.seg_len = num_heads, plain, seg_len
         return out
 
     @staticmethod
     def backward(ctx, g):
         x, scale, bias, wqkv, bqkv, wproj = ctx.saved_tensors
         bwd = attn_block_bwd_plain if ctx.plain else attn_block_bwd
-        grads = bwd(x, scale, bias, wqkv, bqkv, wproj, g.contiguous(), ctx.num_heads)
-        return (*grads, None, None)
+        grads = bwd(x, scale, bias, wqkv, bqkv, wproj, g.contiguous(), ctx.num_heads, ctx.seg_len)
+        return (*grads, None, None, None)
 
 
 def fused_attn_block(x, scale, bias, wqkv, bqkv, wproj, bproj, num_heads: int,
-                     stash: bool = True, plain: bool = False):
-    """(B, N, D) -> (B, N, D). Without grad: CPU tensors (or ``plain``) take
-    :func:`attn_block_plain`, CUDA tensors launch K2 or raise. With grad, the
-    call goes through :class:`AttnBlockStashFn` (kernels 2 and 3) or, with
-    ``stash=False``, :class:`AttnBlockFn` (K2 and kernel 4)."""
+                     stash: bool = True, plain: bool = False, seg_len: int = 0):
+    """(B, N, D) -> (B, N, D), attention masked to packed segments of
+    ``seg_len`` tokens when it is > 0. Without grad: CPU tensors (or
+    ``plain``) take :func:`attn_block_plain`, CUDA tensors launch K2 or
+    raise. With grad, the call goes through :class:`AttnBlockStashFn`
+    (kernels 2 and 3) or, with ``stash=False``, :class:`AttnBlockFn` (K2 and
+    kernel 4)."""
     args = (x, scale, bias, wqkv, bqkv, wproj, bproj)
     if not _needs_grad(*args):
         if plain or x.device.type == "cpu":
-            return attn_block_plain(*args, num_heads)
-        return _launch_fwd(*args, num_heads, stash=False)[0]
-    return (AttnBlockStashFn if stash else AttnBlockFn).apply(*args, num_heads, plain)
+            return attn_block_plain(*args, num_heads, seg_len)
+        return _launch_fwd(*args, num_heads, stash=False, seg_len=seg_len)[0]
+    return (AttnBlockStashFn if stash else AttnBlockFn).apply(*args, num_heads, plain, seg_len)
 
 
 fused_attn_block.launches = 0
+fused_attn_block.seg_launches = 0

@@ -4,13 +4,23 @@
 //
 // Replaces the TPU kernels sky_embeddings_tpu/ops/kernels/attn_block.py:
 // _pallas_fwd (_fwd_kernel / _fwd_kernel_loop), the primal of
-// fused_attn_block, with seg_len = 0 (entry sky_attn_block_fwd); and
-// _pallas_fwd_stash (_fwd_stash_kernel / _fwd_stash_kernel_loop), the
-// training forward (entry sky_attn_block_fwd_stash), which also hands back
-// qkv (B, N, 3D) and the softmax probabilities (B, H, N, N), both bf16, for
-// the stash backward (attn_block_bwd.cu). The two differ only there: the
-// stash forward's qkv buffer is an output instead of scratch, and the
-// attention core also stores each probability row it rounds to bf16.
+// fused_attn_block (entry sky_attn_block_fwd); and _pallas_fwd_stash
+// (_fwd_stash_kernel / _fwd_stash_kernel_loop), the training forward (entry
+// sky_attn_block_fwd_stash), which also hands back qkv (B, N, 3D) and the
+// softmax probabilities (B, H, N, N), both bf16, for the stash backward
+// (attn_block_bwd.cu). The two differ only there: the stash forward's qkv
+// buffer is an output instead of scratch, and the attention core also
+// stores each probability row it rounds to bf16.
+//
+// Packed segments (seg_len > 0, MAE sequence packing): the N tokens are
+// N / seg_len samples, and token i attends to key j only when i / seg_len ==
+// j / seg_len. JAX adds -1e9 to every other logit (attn_block.py _seg_bias),
+// so their exp underflows to exactly 0; here each softmax row runs over its
+// own segment's keys [s * seg_len, (s + 1) * seg_len) and writes exact zeros
+// elsewhere, the stashed rows included, which is the same function. The QK^T
+// and PV products stay whole-tile: the zero probabilities contribute nothing
+// to ctx, and a 16-row tile that straddles two segments stays exact.
+// seg_len = 0 or >= N means no mask.
 //
 // Four launches behind one C entry point:
 //   0. LayerNorm                          -> y (B, N, D) bf16
@@ -66,7 +76,7 @@ struct AttnPlan {
 
 __global__ void __launch_bounds__(ATTN_THREADS)
 attn_core_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ ctx, bf16* __restrict__ probs,
-                 int N, int D, int H, int hd, float scale) {
+                 int N, int D, int H, int hd, int seg_len, float scale) {
   using namespace nvcuda;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const AttnPlan pl(N, hd);
@@ -121,21 +131,24 @@ attn_core_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ ctx, bf16* __r
     }
     __syncthreads();
 
-    // fp32 softmax of scale * S over the N real keys, one warp per row;
-    // probabilities rounded to bf16, zero past N; with `probs` (the stash
-    // forward) each real row is also stored at probs[b, h, q0 + r, :]
+    // fp32 softmax of scale * S over the row's keys [lo, hi) (all N of them,
+    // or its segment's), one warp per row; probabilities rounded to bf16,
+    // zero elsewhere; with `probs` (the stash forward) each real row is also
+    // stored at probs[b, h, q0 + r, :]
     for (int r = warp; r < QB; r += NW) {
       float* srow = Ss + r * SL;
       bf16* prow = Ps + r * PL;
+      int lo, hi;
+      seg_keys(q0 + r, N, seg_len, lo, hi);
       float mx = -CUDART_INF_F;
-      for (int j = lane; j < N; j += 32) {
+      for (int j = lo + lane; j < hi; j += 32) {
         const float z = srow[j] * scale;
         srow[j] = z;
         mx = fmaxf(mx, z);
       }
       mx = warp_max(mx);
       float sum = 0.f;
-      for (int j = lane; j < N; j += 32) {
+      for (int j = lo + lane; j < hi; j += 32) {
         const float e = expf(srow[j] - mx);
         srow[j] = e;
         sum += e;
@@ -143,7 +156,7 @@ attn_core_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ ctx, bf16* __r
       sum = warp_sum(sum);
       bf16* grow = probs && q0 + r < N ? probs + (((size_t)b * H + h) * N + q0 + r) * N : nullptr;
       for (int j = lane; j < NP; j += 32) {
-        const bf16 pv = __float2bfloat16_rn(j < N ? srow[j] / sum : 0.f);
+        const bf16 pv = __float2bfloat16_rn(j >= lo && j < hi ? srow[j] / sum : 0.f);
         prow[j] = pv;
         if (grow && j < N) grow[j] = pv;
       }
@@ -187,11 +200,12 @@ attn_core_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ ctx, bf16* __r
 // Returns 0, or the first CUDA error a launch reported. qkv (B, N, 3D) and
 // ctx (B, N, D) are allocated by the caller; the LN output is staged in
 // `out`, which the last launch overwrites once it is dead. With `probs`
-// (B, H, N, N) the core also stores the bf16 probabilities.
+// (B, H, N, N) the core also stores the bf16 probabilities. seg_len > 0
+// masks attention to packed segments of seg_len tokens.
 static int attn_block_fwd(const void* x, const void* ln_scale, const void* ln_bias,
                           const void* wqkv, const void* bqkv, const void* wproj, const void* bproj,
                           void* qkv, void* ctx, void* probs, void* out, int B, int N, int D, int H,
-                          void* stream) {
+                          int seg_len, void* stream) {
   using namespace sky;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int M = B * N;
@@ -209,7 +223,7 @@ static int attn_block_fwd(const void* x, const void* ln_scale, const void* ln_bi
   attn_core_kernel<<<B * H, ATTN_THREADS, smem, s>>>(static_cast<const bf16*>(qkv),
                                                      static_cast<bf16*>(ctx),
                                                      static_cast<bf16*>(probs), N, D, H, hd,
-                                                     1.0f / sqrtf(static_cast<float>(hd)));
+                                                     seg_len, 1.0f / sqrtf(static_cast<float>(hd)));
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
@@ -226,15 +240,16 @@ extern "C" long long sky_attn_fwd_plan_bytes(int N, int hd) {
 extern "C" int sky_attn_block_fwd(const void* x, const void* ln_scale, const void* ln_bias,
                                   const void* wqkv, const void* bqkv, const void* wproj,
                                   const void* bproj, void* qkv, void* ctx, void* out, int B, int N,
-                                  int D, int H, void* stream) {
+                                  int D, int H, int seg_len, void* stream) {
   return attn_block_fwd(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj, qkv, ctx, nullptr, out, B,
-                        N, D, H, stream);
+                        N, D, H, seg_len, stream);
 }
 
 extern "C" int sky_attn_block_fwd_stash(const void* x, const void* ln_scale, const void* ln_bias,
                                         const void* wqkv, const void* bqkv, const void* wproj,
                                         const void* bproj, void* qkv, void* ctx, void* probs,
-                                        void* out, int B, int N, int D, int H, void* stream) {
+                                        void* out, int B, int N, int D, int H, int seg_len,
+                                        void* stream) {
   return attn_block_fwd(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj, qkv, ctx, probs, out, B,
-                        N, D, H, stream);
+                        N, D, H, seg_len, stream);
 }

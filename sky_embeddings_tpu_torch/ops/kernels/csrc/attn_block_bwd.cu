@@ -15,7 +15,14 @@
 //   False, remat). LN, qkv (rounded to bf16 after its bias), the logits and
 //   the fp32 softmax are recomputed. Not kernel 3 with recomputed
 //   probabilities: ctx and dV take the bf16 P, but the softmax backward
-//   takes the fp32 P (attn_block.py:192-201).
+//   takes the fp32 P (attn_block.py:192-201). With packed segments
+//   (seg_len > 0, MAE sequence packing) the recomputed softmax runs over
+//   each row's own segment, as the forward core does (attn_block.cu), and
+//   P is exactly 0 elsewhere.
+// Neither needs the mask past the softmax: where P = 0, ds = (dp * p -
+// p * rowsum(dp * p)) * scale is 0 too, so dq, dk and dv take nothing from
+// another segment's rows or keys. Kernel 3 takes no seg_len at all: its
+// stashed probabilities already carry the zeros (JAX _fab_bwd).
 //
 // Launches behind each C entry point, at the TPU kernel's rounding points
 // (attn_block.py:282-356 and :156-235):
@@ -105,7 +112,7 @@ template <bool RECOMPUTE>
 __global__ void __launch_bounds__(ATTN_BWD_THREADS)
 attn_bwd_core_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ probs,
                      const bf16* __restrict__ dc, bf16* __restrict__ ctx, float* __restrict__ dqkv,
-                     int N, int D, int H, int hd, float scale) {
+                     int N, int D, int H, int hd, int seg_len, float scale) {
   using namespace nvcuda;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const AttnBwdPlan<RECOMPUTE> pl(N, hd);
@@ -181,9 +188,10 @@ attn_bwd_core_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ prob
         wmma::store_matrix_sync(Pf + 16 * i * SL + 16 * j, acc, SL, wmma::mem_row_major);
       }
       __syncthreads();
-      // fp32 softmax of scale * S over the N real keys, one warp per row, as
-      // the forward core computes it; P stays fp32 in Pf (for ds) and bf16 in
-      // Ps (for ctx and dv), zero past N and on query rows past N
+      // fp32 softmax of scale * S over the row's keys [lo, hi), one warp per
+      // row, as the forward core computes it; P stays fp32 in Pf (for ds)
+      // and bf16 in Ps (for ctx and dv), zero outside [lo, hi) and on query
+      // rows past N
       for (int r = warp; r < QB; r += NW) {
         float* srow = Pf + r * SL;
         bf16* prow = Ps + r * PL;
@@ -194,22 +202,24 @@ attn_bwd_core_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ prob
           }
           continue;
         }
+        int lo, hi;
+        seg_keys(q0 + r, N, seg_len, lo, hi);
         float mx = -CUDART_INF_F;
-        for (int j = lane; j < N; j += 32) {
+        for (int j = lo + lane; j < hi; j += 32) {
           const float z = srow[j] * scale;
           srow[j] = z;
           mx = fmaxf(mx, z);
         }
         mx = warp_max(mx);
         float sum = 0.f;
-        for (int j = lane; j < N; j += 32) {
+        for (int j = lo + lane; j < hi; j += 32) {
           const float e = expf(srow[j] - mx);
           srow[j] = e;
           sum += e;
         }
         sum = warp_sum(sum);
         for (int j = lane; j < NP; j += 32) {
-          const float p = j < N ? srow[j] / sum : 0.f;
+          const float p = j >= lo && j < hi ? srow[j] / sum : 0.f;
           srow[j] = p;
           prow[j] = __float2bfloat16_rn(p);
         }
@@ -236,7 +246,8 @@ attn_bwd_core_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ prob
 
     // softmax backward, one warp per row, over the N real keys:
     // ds = (dp * p - p * sum(dp * p)) * scale, rounded to bf16, zero past N;
-    // p is the recomputed fp32 P (kernel 4) or the stashed bf16 P (kernel 3)
+    // p is the recomputed fp32 P (kernel 4) or the stashed bf16 P (kernel 3),
+    // 0 outside a packed row's segment, where ds is then 0 as well
     for (int r = warp; r < QB; r += NW) {
       float* srow = Ss + r * SL;
       const bf16* prow = Ps + r * PL;
@@ -337,7 +348,8 @@ static int attn_block_bwd(const void* x, const void* ln_scale, const void* ln_bi
                           const void* probs, const void* g, void* y, void* dc, void* ctx,
                           void* dqkv, void* dqkv_c, void* dy, void* part, void* ws, void* dx,
                           void* dscale, void* dbias, void* dwqkv, void* dbqkv, void* dwproj,
-                          void* dbproj, int B, int N, int D, int H, bool recompute, void* stream) {
+                          void* dbproj, int B, int N, int D, int H, int seg_len, bool recompute,
+                          void* stream) {
   using namespace sky;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int M = B * N;
@@ -362,7 +374,7 @@ static int attn_block_bwd(const void* x, const void* ln_scale, const void* ln_bi
                                  cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem)));
     attn_bwd_core_kernel<true><<<B * H, ATTN_BWD_THREADS, smem, s>>>(
         static_cast<const bf16*>(qkv), nullptr, static_cast<const bf16*>(dc),
-        static_cast<bf16*>(ctx), static_cast<float*>(dqkv), N, D, H, hd, scale);
+        static_cast<bf16*>(ctx), static_cast<float*>(dqkv), N, D, H, hd, seg_len, scale);
   } else {
     const size_t smem = AttnBwdPlan<false>(N, hd).bytes();
     if (smem > SMEM_OPTIN_MAX) return static_cast<int>(cudaErrorInvalidValue);
@@ -371,7 +383,7 @@ static int attn_block_bwd(const void* x, const void* ln_scale, const void* ln_bi
     attn_bwd_core_kernel<false><<<B * H, ATTN_BWD_THREADS, smem, s>>>(
         static_cast<const bf16*>(qkv), static_cast<const bf16*>(probs),
         static_cast<const bf16*>(dc), static_cast<bf16*>(ctx), static_cast<float*>(dqkv), N, D, H,
-        hd, scale);
+        hd, 0, scale);
   }
   SKY_TRY(cudaGetLastError());
 
@@ -406,16 +418,17 @@ extern "C" int sky_attn_block_bwd_stash(
     void* dbqkv, void* dwproj, void* dbproj, int B, int N, int D, int H, void* stream) {
   return attn_block_bwd(x, ln_scale, ln_bias, wqkv, nullptr, wproj, const_cast<void*>(qkv), probs,
                         g, y, dc, ctx, dqkv, dqkv_c, dy, part, ws, dx, dscale, dbias, dwqkv, dbqkv,
-                        dwproj, dbproj, B, N, D, H, false, stream);
+                        dwproj, dbproj, B, N, D, H, 0, false, stream);
 }
 
-// Kernel 4: the gradients from x and g alone; qkv is (B, N, 3D) bf16 scratch.
+// Kernel 4: the gradients from x and g alone; qkv is (B, N, 3D) bf16 scratch;
+// seg_len > 0 masks attention to packed segments of seg_len tokens.
 extern "C" int sky_attn_block_bwd(
     const void* x, const void* ln_scale, const void* ln_bias, const void* wqkv, const void* bqkv,
     const void* wproj, const void* g, void* y, void* qkv, void* dc, void* ctx, void* dqkv,
     void* dqkv_c, void* dy, void* part, void* ws, void* dx, void* dscale, void* dbias, void* dwqkv,
-    void* dbqkv, void* dwproj, void* dbproj, int B, int N, int D, int H, void* stream) {
+    void* dbqkv, void* dwproj, void* dbproj, int B, int N, int D, int H, int seg_len, void* stream) {
   return attn_block_bwd(x, ln_scale, ln_bias, wqkv, bqkv, wproj, qkv, nullptr, g, y, dc, ctx, dqkv,
                         dqkv_c, dy, part, ws, dx, dscale, dbias, dwqkv, dbqkv, dwproj, dbproj, B, N,
-                        D, H, true, stream);
+                        D, H, seg_len, true, stream);
 }

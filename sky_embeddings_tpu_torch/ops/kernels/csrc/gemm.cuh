@@ -143,6 +143,19 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+// The keys [lo, hi) that query row n of an N-token sequence attends to: all
+// N, or with packed segments (0 < seg_len < N) the seg_len-token segment that
+// holds n, cut at N. A padding row past N takes the last real row's segment,
+// so its softmax never runs over no keys.
+__device__ __forceinline__ void seg_keys(int n, int N, int seg_len, int& lo, int& hi) {
+  lo = 0;
+  hi = N;
+  if (seg_len > 0 && seg_len < N) {
+    lo = (min(n, N - 1) / seg_len) * seg_len;
+    hi = min(lo + seg_len, N);
+  }
+}
+
 __device__ __forceinline__ float gelu_erf(float a) {
   return 0.5f * a * (1.0f + erff(a * 0.70710678118654752f));
 }

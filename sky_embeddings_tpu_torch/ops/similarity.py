@@ -6,6 +6,16 @@ weighted cosine / MSE / MAE over (sample, patch), combined per sample by
 mean/min/max; a running best-k set is kept while the survey streams. Plain
 PyTorch: JAX runs this scorer in XLA, not in a Pallas kernel.
 
+Statistics and scores are taken in the features' dtype, rounded where JAX
+rounds them: each elementwise op and each product's output in that dtype,
+sums accumulated in fp32 and rounded once. Inside a compiled JAX step a sum
+also takes the unrounded result of the op that feeds it (XLA folds that op
+into the reduction); outside one, every op rounds. So the per-patch scores
+stay fp32 until the combine reduces them and the combine rounds, and
+:func:`target_features` takes ``fused`` for target statistics that JAX
+computes inside a step. For fp32 features all of this is the plain fp32
+arithmetic.
+
 The running top-k ranks as ``lax.top_k`` does: by the float total order,
 where a NaN with the sign bit set sorts below -inf and one without it above
 +inf (``torch.sort`` puts every NaN first), and ties break lowest index
@@ -21,36 +31,52 @@ from typing import NamedTuple, Optional
 import torch
 
 
-def target_features(target_latent: torch.Tensor, eps_w: float = 0.0):
+def mean_var(flat: torch.Tensor, fused: bool = False):
+    """Per-column mean and unbiased variance of (n, D) rows in their dtype:
+    fp32 sums, each rounded once; the squared deviations rounded first
+    unless ``fused`` (a compiled step's sum takes them unrounded)."""
+    dt = flat.dtype
+    n = flat.shape[0]
+    mean = (flat.float().sum(dim=0) / n).to(dt)
+    d = flat - mean
+    sq = d.float() * d.float() if fused else (d * d).float()
+    return mean, (sq.sum(dim=0).to(dt).float() / max(n - 1, 1)).to(dt)
+
+
+def target_features(target_latent: torch.Tensor, eps_w: float = 0.0, fused: bool = False):
     """(B, L, D) target token features -> (mean (D,), weights (D,)).
 
     Weights are inverse unbiased variance over all (sample, patch) rows,
-    normalised to sum 1 (reference ``similarity.py:134-147``)."""
-    flat = target_latent.reshape(-1, target_latent.shape[-1])
-    mean = flat.mean(dim=0)
-    var = ((flat - mean) ** 2).sum(dim=0) / max(flat.shape[0] - 1, 1)
-    w = 1.0 / (var + eps_w)
-    return mean, w / w.sum()
+    normalised to sum 1 (reference ``similarity.py:134-147``); ``fused``
+    rounds the variance as a compiled JAX step does (:func:`mean_var`)."""
+    mean, var = mean_var(target_latent.reshape(-1, target_latent.shape[-1]), fused)
+    w = 1.0 / (var.float() + eps_w)
+    total = w.sum().to(var.dtype) if fused else w.to(var.dtype).sum()
+    return mean, w.to(var.dtype) / total
 
 
 def weighted_cosine(target, test, weights, eps: float = 1e-6):
-    """Weighted cosine similarity of (..., D) test rows vs a (D,) target."""
+    """Weighted cosine similarity of (..., D) test rows vs a (D,) target, in
+    fp32 from the features' dtype (round it to that dtype to finish)."""
+    dt = test.dtype
     dot = torch.einsum("d,...d->...", weights * target, test)
-    mag_t = torch.sqrt(torch.sum(weights * target ** 2))
+    mag_t = torch.sqrt((weights.float() * (target ** 2).float()).sum().to(dt))
     mag_x = torch.sqrt(torch.einsum("d,...d->...", weights, test ** 2))
-    return dot / (mag_t * mag_x + eps)
+    return dot.float() / (mag_t * mag_x + eps).float()
 
 
 def weighted_mse(target, test, weights):
-    """mean_d(err² · w/Σw) (reference ``weighted_MSE``)."""
+    """mean_d(err² · w/Σw) (reference ``weighted_MSE``), in fp32 from the
+    features' dtype."""
     w = weights / weights.sum()
-    return torch.einsum("d,...d->...", w, (test - target) ** 2) / test.shape[-1]
+    return torch.einsum("d,...d->...", w, (test - target) ** 2).float() * (1.0 / test.shape[-1])
 
 
 def weighted_mae(target, test, weights):
-    """mean_d(|err| · w/Σw) (reference ``weighted_MAE``)."""
+    """mean_d(|err| · w/Σw) (reference ``weighted_MAE``), in fp32 from the
+    features' dtype."""
     w = weights / weights.sum()
-    return torch.einsum("d,...d->...", w, torch.abs(test - target)) / test.shape[-1]
+    return torch.einsum("d,...d->...", w, torch.abs(test - target)).float() * (1.0 / test.shape[-1])
 
 
 def compute_similarity(
@@ -62,11 +88,20 @@ def compute_similarity(
     n_top_sims: Optional[int] = None,
 ) -> torch.Tensor:
     """(B, L, D) test features vs (Bt, Lt, D) target features -> (B,) scores
-    (reference ``compute_similarity``, ``similarity.py:214-268``)."""
+    in the features' dtype (reference ``compute_similarity``,
+    ``similarity.py:214-268``)."""
     tgt, weights = target_features(target_latent)
     if not use_weights:
         weights = torch.ones_like(weights) / weights.shape[0]
+    return score_features(tgt, weights, test_latent, metric, combine, n_top_sims)
 
+
+def score_features(tgt: torch.Tensor, weights: torch.Tensor, test_latent: torch.Tensor,
+                   metric: str = "cosine", combine: str = "min",
+                   n_top_sims: Optional[int] = None) -> torch.Tensor:
+    """(B, L, D) test features vs a target's (mean, weights) -> (B,) scores in
+    the features' dtype, each sample's patches combined by ``combine``."""
+    dt = test_latent.dtype
     if metric == "cosine":
         sims = weighted_cosine(tgt, test_latent, weights)
         largest = True
@@ -80,17 +115,20 @@ def compute_similarity(
         raise ValueError(f"unknown metric {metric!r}")
 
     if n_top_sims is not None and sims.dim() > 1:
+        sims = sims.to(dt)
         vals = torch.topk(sims if largest else -sims, n_top_sims, dim=-1).values
         sims = vals if largest else -vals
 
     if sims.dim() == 1:
-        return sims
+        return sims.to(dt)
+    # min and max commute with the (monotone) rounding; the mean rounds its
+    # fp32 sum once
     if combine == "mean":
-        return sims.mean(dim=1)
+        return (sims.float().sum(dim=1) * (1.0 / sims.shape[1])).to(dt)
     if combine == "min":
-        return sims.min(dim=1).values
+        return sims.min(dim=1).values.to(dt)
     if combine == "max":
-        return sims.max(dim=1).values
+        return sims.max(dim=1).values.to(dt)
     raise ValueError(f"unknown combine {combine!r}")
 
 

@@ -9,16 +9,21 @@
 config values, so a configuration that no file holds runs from one that
 does: ViT-H (``bench.py`` ``bench_vit_h``) is ``mim_32 --set
 ARCHITECTURE.model_type=mimhuge --set ARCHITECTURE.embed_dim=1280 --set
-TRAINING.remat=False --run_name mim_32_huge``; ``--run_name`` then keys the
-checkpoint instead of ``<model_name>``. Training and
-validation batches stream from the h5 files the config names
-(``train_data_file``, ``val_data_file``) through ``H5Batcher``, with the
-pixel clip applied on the device inside the step. ``--device cpu`` runs it
-on the CPU.
+TRAINING.remat=False --run_name mim_32_huge``, and MAE at ViT-B
+(``bench_mae``) is ``mim_1 --set ARCHITECTURE.model_type=base --set
+TRAINING.batch_size=1024 --run_name mae_base``; ``--run_name`` then keys the
+checkpoint instead of ``<model_name>``. Training batches stream from the h5
+file the config names (``train_data_file``) through ``H5Batcher`` or, when
+it names none, from the FITS tiles under ``train_data_paths`` (the
+production configs' source: HSC ``calexp-HSC-<band>-<tract>-<patch>.fits``
+files, ``cutouts_per_tile`` random windows a tile) through
+``FitsTileBatcher``, as the JAX twin does; validation batches from
+``val_data_file``. The pixel clip runs on the device inside the step.
+``--device cpu`` runs it on the CPU.
 
-Not ported yet: FITS tile training data (``train_data_paths``, ROADMAP 1.6),
-the device-resident data cache, multi-process runs, and the linear probes
-and figures (``train_network`` says so when the config names them).
+Not ported yet: the device-resident data cache, multi-process runs, and the
+linear probes and figures (``train_network`` says so when the config names
+them).
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ import os
 import torch
 
 from sky_embeddings_tpu_torch.configuration import Config, load_config
+from sky_embeddings_tpu_torch.data.fits_loader import build_fits_batcher
 from sky_embeddings_tpu_torch.data.h5_loader import build_h5_batcher
 from sky_embeddings_tpu_torch.train.pretrain import MIMPretrainer, train_network
 from sky_embeddings_tpu_torch.utils.checkpoint import checkpoint_path
@@ -73,16 +79,21 @@ def main(argv=None) -> str:
         print("\nStarting fresh model to train...")
 
     data = config.data
-    if "train_data_file" not in data:
-        raise NotImplementedError(
-            "FITS tile training data (train_data_paths) is not ported yet (ROADMAP 1.6)")
     img_size = config.architecture.int("img_size")
     # the pixel clip runs on the device inside the step
     batcher = dict(batch_size=pretrainer.batch_size, img_size=img_size, shuffle=True,
                    pixel_min=None, pixel_max=None)
-    train_batcher = build_h5_batcher(os.path.join(data_dir, data.str("train_data_file")),
-                                     num_workers=data.int("num_workers", 0), **batcher)
-    print(f"The training set consists of {train_batcher.num_samples} cutouts.")
+    if "train_data_file" in data:
+        train_batcher = build_h5_batcher(os.path.join(data_dir, data.str("train_data_file")),
+                                         num_workers=data.int("num_workers", 0), **batcher)
+        print(f"The training set consists of {train_batcher.num_samples} cutouts.")
+    else:
+        train_batcher = build_fits_batcher(
+            data.list("train_data_paths"), bands=data.list("bands"),
+            min_bands=data.int("min_bands", 2), batch_size=pretrainer.batch_size,
+            img_size=img_size, cutouts_per_tile=data.int("cutouts_per_tile", 1024),
+            use_calexp=data.bool("use_calexp", True), shuffle=True)
+        print(f"The training set consists of {len(train_batcher)} sky tiles.")
     val_batcher = build_h5_batcher(os.path.join(data_dir, data.str("val_data_file")), **batcher)
 
     lp = {key: os.path.join(data_dir, data.str(key)) if key in data else None

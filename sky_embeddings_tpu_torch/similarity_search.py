@@ -2,7 +2,7 @@
 
     python -m sky_embeddings_tpu_torch.similarity_search <model_name> [-tgt_fn F] ... [--device cuda]
 
-Builds the SimMIM model from ``configs/<model_name>.ini`` with the params of
+Builds the MIM model (SimMIM or MAE) from ``configs/<model_name>.ini`` with the params of
 the pretraining checkpoint that ``pretrain_mim`` writes
 (``models/<model_name>_best.ckpt.pt``, else ``models/<model_name>.ckpt.pt``;
 without one it warns and uses fresh seeded weights), S/N-filters the test
@@ -63,8 +63,9 @@ def parse_args(argv=None):
 
 
 def build_model_from_config(config_dir, model_dir, model_name, device):
-    """SimMIM model with the params of the pretraining checkpoint (``best``,
-    then the latest; fresh seeded weights without one), and its config."""
+    """The MIM model (SimMIM or MAE; an MAE model is served unmasked) with
+    the params of the pretraining checkpoint (``best``, then the latest;
+    fresh seeded weights without one), and its config."""
     config = load_config(model_name, config_dir)
     if "TRAINING" in config and (
         "pretained_mae" in config.training or "pretrained_mae" in config.training

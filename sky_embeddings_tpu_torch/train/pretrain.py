@@ -1,18 +1,21 @@
-"""SimMIM pretraining: step, trainer and host loop (port of
+"""MIM pretraining, SimMIM and MAE: step, trainer and host loop (port of
 ``sky_embeddings_tpu/train/pretrain.py``).
 
-One training step clips the pixels, takes a (B, C, H, W) SimMIM mask, runs
-the forward and ``loss.backward()`` through the encoder's kernels (see
-``models/layers.py``: the attention stash with the MLP recompute backward
-at ViT-B, both stashes at ViT-L, both recompute backwards under
-``[TRAINING] remat``), and an AdamW step whose
-learning rate follows the cosine schedule with optax's step indexing. An
-``ra_dec`` model also reads the batch's ``ra_dec``. The step takes the mask
-as an argument: :class:`MIMPretrainer` draws it from its own
-``torch.Generator`` on the device, and tests hand the same numpy mask to
-this port and to JAX. Validation masks vary across val batches and across
-eval passes, as the JAX step makes them by folding the batch index and the
-step into its key.
+One training step clips the pixels, takes the step's masking (a (B, C, H, W)
+SimMIM pixel mask, or the (B, L) noise that picks the tokens an MAE model
+drops), runs the forward and ``loss.backward()`` through the encoder's (and
+the MAE decoder's) kernels (see ``models/layers.py``: the attention stash
+with the MLP recompute backward at ViT-B, both stashes at ViT-L, both
+recompute backwards under ``[TRAINING] remat``; the packed MAE encoder with
+the ``seg_len`` mask), and an AdamW step whose learning rate follows the
+cosine schedule with optax's step indexing. An ``ra_dec`` model also reads
+the batch's ``ra_dec``. The step takes the masking as an argument:
+:class:`MIMPretrainer` draws it from its own ``torch.Generator`` on the
+device, and tests hand the same numpy mask or noise to this port and to
+JAX. Validation masking varies across val batches and across eval passes,
+as the JAX step makes it by folding the batch index and the step into its
+key; an MAE model masks its validation batches too, as JAX's eval step
+does.
 
 Not ported yet (ROADMAP): tensor parallelism and ZeRO (they raise), and the
 linear probes and figures of ``train_network`` (skipped with a message).
@@ -47,29 +50,33 @@ def make_mim_step(
     pixel_min: Optional[float] = None,
     pixel_max: Optional[float] = None,
 ):
-    """The step function: ``(cutouts, mask, step, ra_dec) -> loss`` when
+    """The step function: ``(cutouts, masking, step, ra_dec) -> loss`` when
     training (forward, backward, AdamW step at ``lr = schedule(step)``),
-    ``(cutouts, mask, ra_dec) -> loss`` in eval (forward only); ``ra_dec``
+    ``(cutouts, masking, ra_dec) -> loss`` in eval (forward only).
+    ``masking`` is the SimMIM pixel mask or the MAE token noise; ``ra_dec``
     is read only by an ``ra_dec`` model, as in JAX. ``pixel_min``/``pixel_max``
     apply the loader's pixel clip on the device. The loss is a 0-d device
     tensor."""
 
-    def prep(cutouts: torch.Tensor) -> torch.Tensor:
+    def loss_of(cutouts: torch.Tensor, masking: torch.Tensor, ra_dec) -> torch.Tensor:
         if pixel_min is not None:
             cutouts = cutouts.clamp_min(pixel_min)
         if pixel_max is not None:
             cutouts = cutouts.clamp_max(pixel_max)
-        return cutouts.float()
+        rd = ra_dec if model.ra_dec else None
+        if model.simmim:
+            return model(cutouts.float(), masking, ra_dec=rd)[0]
+        return model(cutouts.float(), ra_dec=rd, mae_noise=masking)[0]
 
     if not train:
-        def eval_step(cutouts: torch.Tensor, mask: torch.Tensor, ra_dec=None) -> torch.Tensor:
+        def eval_step(cutouts: torch.Tensor, masking: torch.Tensor, ra_dec=None) -> torch.Tensor:
             with torch.no_grad():
-                return model(prep(cutouts), mask, ra_dec=ra_dec if model.ra_dec else None)[0]
+                return loss_of(cutouts, masking, ra_dec)
 
         return eval_step
 
-    def train_step(cutouts: torch.Tensor, mask: torch.Tensor, step: int, ra_dec=None) -> torch.Tensor:
-        loss = model(prep(cutouts), mask, ra_dec=ra_dec if model.ra_dec else None)[0]
+    def train_step(cutouts: torch.Tensor, masking: torch.Tensor, step: int, ra_dec=None) -> torch.Tensor:
+        loss = loss_of(cutouts, masking, ra_dec)
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
         for group in optimizer.param_groups:
@@ -87,7 +94,7 @@ def make_mim_step(
 
 class MIMPretrainer:
     """Owns the model, optimizer, step count and mask generator of one
-    SimMIM pretraining run, on ``device``."""
+    SimMIM or MAE pretraining run, on ``device``."""
 
     def __init__(self, config, dtype: Optional[torch.dtype] = None, seed: int = 0,
                  device: str | torch.device = "cuda"):
@@ -96,7 +103,7 @@ class MIMPretrainer:
         training = config.training
         if training.int("tensor_parallel", 1) > 1 or training.bool("zero_optimizer", False):
             raise NotImplementedError(
-                "tensor_parallel / zero_optimizer are not ported yet (ROADMAP 1.12: parallel/)")
+                "tensor_parallel / zero_optimizer are not ported yet (ROADMAP: parallel/)")
         if dtype is None:
             dtype = _DTYPES[training.str("dtype", "float32")]
         # [TRAINING] remat: checkpoint each block (one extra forward for
@@ -106,7 +113,9 @@ class MIMPretrainer:
                                      remat=training.bool("remat", False)).train()
         self.total_batch_iters = training.int("total_batch_iters")
         self.batch_size = training.int("batch_size")
-        self.max_mask_ratio = training.float("max_mask_ratio", 0.9)
+        # MAE reads its keep count from mask_ratio (build_mim_model), not this
+        self.max_mask_ratio = (training.float("max_mask_ratio", 0.9) if self.model.simmim
+                               else None)
         self.pixel_min = config.data.float("pixel_min", -3.0)
         pm = config.data.str("pixel_max", "")
         self.pixel_max = float(pm) if pm else None
@@ -127,9 +136,20 @@ class MIMPretrainer:
         return self.step
 
     def draw_mask(self, batch_size: int, generator: torch.Generator) -> torch.Tensor:
+        """A SimMIM model's (B, C, H, W) pixel mask."""
         m = self.model
         return simmim_batch_mask(generator, batch_size, m.in_chans, m.img_size, m.patch_size,
                                  self.max_mask_ratio)
+
+    def draw_noise(self, batch_size: int, generator: torch.Generator) -> torch.Tensor:
+        """An MAE model's (B, L) token noise: each sample keeps the tokens
+        of smallest noise."""
+        return torch.rand(batch_size, self.model.grid_size ** 2, generator=generator,
+                          device=generator.device)
+
+    def _draw(self, batch_size: int, generator: torch.Generator) -> torch.Tensor:
+        draw = self.draw_mask if self.model.simmim else self.draw_noise
+        return draw(batch_size, generator)
 
     def _cutouts(self, batch: dict) -> torch.Tensor:
         return torch.as_tensor(batch["cutouts"], device=self.device)
@@ -137,25 +157,30 @@ class MIMPretrainer:
     def _ra_dec(self, batch: dict) -> Optional[torch.Tensor]:
         return batch_ra_dec(batch, self.device) if self.model.ra_dec else None
 
-    def train_batch(self, batch: dict, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """One optimizer step on ``batch``; the mask is drawn from the
-        trainer's generator unless given."""
+    def train_batch(self, batch: dict, mask: Optional[torch.Tensor] = None,
+                    noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """One optimizer step on ``batch``; the SimMIM mask (or the MAE
+        noise) is drawn from the trainer's generator unless given."""
         cutouts = self._cutouts(batch)
-        if mask is None:
-            mask = self.draw_mask(cutouts.shape[0], self.mask_gen)
-        loss = self._train_step(cutouts, mask, self.step, self._ra_dec(batch))
+        masking = mask if self.model.simmim else noise
+        if masking is None:
+            masking = self._draw(cutouts.shape[0], self.mask_gen)
+        loss = self._train_step(cutouts, masking, self.step, self._ra_dec(batch))
         self.step += 1
         return loss
 
-    def eval_batch(self, batch: dict, idx: int = 0, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """Validation loss of ``batch``; its mask comes from a generator
-        seeded by (seed, step, idx), so it differs across val batches and
-        across eval passes without touching the training stream."""
+    def eval_batch(self, batch: dict, idx: int = 0, mask: Optional[torch.Tensor] = None,
+                   noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Validation loss of ``batch``; unless given, its mask (or noise)
+        comes from a generator seeded by (seed, step, idx), so it differs
+        across val batches and across eval passes without touching the
+        training stream."""
         cutouts = self._cutouts(batch)
-        if mask is None:
+        masking = mask if self.model.simmim else noise
+        if masking is None:
             seed = int(np.random.SeedSequence([self.seed, self.step, idx]).generate_state(1)[0])
-            mask = self.draw_mask(cutouts.shape[0], torch.Generator(device=self.device).manual_seed(seed))
-        return self._eval_step(cutouts, mask, self._ra_dec(batch))
+            masking = self._draw(cutouts.shape[0], torch.Generator(device=self.device).manual_seed(seed))
+        return self._eval_step(cutouts, masking, self._ra_dec(batch))
 
     def save(self, path: str) -> None:
         ckpt.save_checkpoint(path, {
@@ -202,7 +227,7 @@ def train_network(
         log_fn("Training already complete for this config; nothing to do.")
         return
     if lp_class_data_file or lp_regress_data_file:
-        log_fn("Linear probes (ROADMAP 1.12) and progress figures (ROADMAP 1.9) are not "
+        log_fn("Linear probes and progress figures (ROADMAP) are not "
                "ported yet; skipping them.")
 
     timer = StepTimer(batch_size=pretrainer.batch_size, device=pretrainer.device)

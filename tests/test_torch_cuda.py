@@ -17,6 +17,14 @@ at ViT-H's slabs, ragged rows and slab widths; with one slab it launches
 kernel 8; a depth-2 ViT-H's ``loss.backward()`` reaches every parameter
 through K2, kernel 4, K1 and kernel 9.
 
+MAE: K2, kernel 2 and kernel 4 with the packed-segment mask (``seg_len``)
+at ragged packed shapes (odd sequence counts; segments of 17 and 18 at
+N = 34, 68, 72), against their plain versions and against the unmasked
+kernels on the same samples; the four attention kernels at a head of 512
+(``maesimple``'s decoder); small MAE models' ``loss.backward()`` on each
+decoder backward and under remat, with their launch counts, and remat's
+gradients bit-equal to the stored path's.
+
 Kernel 11 (the multi-query bank scorer) is held to its plain version at
 ragged bank rows, widths and query counts, and the retrieval routes on the
 card: one launch per ``query_multi``, the chunked scorer against the single
@@ -679,3 +687,173 @@ def test_int8_routes_agree_with_the_exact_scorers(dev):
         cut = torch.topk(exact[:, q], 300).values[-1]
         assert float((exact[midx[q], q] >= cut - 5e-3).float().mean()) >= 0.99, q
         assert _max_rel(mvals[q], exact[midx[q], q]) <= TOL_SCORE_F32
+
+
+# -- MAE: the packed-segment mask of kernels 1, 2 and 4, the decoder ----------------
+
+# (packed sequences, seg_len, samples a sequence, D, H): pairs and fours of 17
+# tokens (N = 34, 68: MAE at ViT-B), fours of 18 (N = 72, the RA/Dec token),
+# odd sequence counts (63: a ragged batch of 252)
+SEG_SHAPES = [(3, 17, 2, 64, 4), (5, 17, 4, 768, 12), (63, 17, 4, 768, 12), (7, 18, 4, 128, 2),
+              (1, 18, 4, 96, 3), (2, 18, 2, 1280, 16)]
+
+
+def _seg_block(N, seg):
+    """(N, N) bool: key j is in query i's segment."""
+    ids = torch.arange(N) // seg
+    return ids[:, None] == ids[None, :]
+
+
+@pytest.mark.parametrize("S,seg,pack,D,H", SEG_SHAPES)
+def test_seg_kernels_match_plain(dev, S, seg, pack, D, H):
+    """K2, kernel 2 and kernel 4 with ``seg_len`` against their plain
+    versions (which add JAX's -1e9 bias); kernel 2's stashed probabilities
+    are exactly 0 outside each sample's block; kernel 3 (no mask) from the
+    packed stash; every call counts one launch, a masked one on
+    ``seg_launches`` too."""
+    N = seg * pack
+    x, scale, bias, wqkv, bqkv, wproj, bproj = args = _block_args(dev, S, N, D, (D, 3 * D), (D, D), 50)
+    g = torch.from_numpy(np.random.default_rng(51).normal(size=(S, N, D)).astype(np.float32)).to(dev)
+    g = g.to(torch.bfloat16)
+    counters = (tab.fused_attn_block, tab.attn_block_fwd_stash, tab.attn_block_bwd)
+    before = [(f.launches, f.seg_launches) for f in counters]
+    assert _max_rel(tab.fused_attn_block(*args, H, seg_len=seg), tab.attn_block_plain(*args, H, seg)) <= TOL_FWD
+    got = tab.attn_block_fwd_stash(*args, H, seg)
+    want = tab.attn_block_fwd_stash_plain(*args, H, seg)
+    for name, a, b in zip(("out", "qkv", "probs"), got, want):
+        assert _max_rel(a, b) <= TOL_FWD, name
+    off = ~_seg_block(N, seg).to(dev)
+    assert not got[2][:, :, off].any()
+    got = tab.attn_block_bwd(x, scale, bias, wqkv, bqkv, wproj, g, H, seg)
+    for name, a, b in zip(("dx", "dscale", "dbias", "dwqkv", "dbqkv", "dwproj", "dbproj"),
+                          got, tab.attn_block_bwd_plain(x, scale, bias, wqkv, bqkv, wproj, g, H, seg)):
+        assert a.shape == b.shape and a.dtype == b.dtype, name
+        assert _max_rel(a, b) <= TOL_BWD, name
+    _, qkv, probs = want
+    bwd = (x, scale, bias, wqkv, wproj, qkv, probs, g, H)
+    for name, a, b in zip(("dx", "dscale", "dbias", "dwqkv", "dbqkv", "dwproj", "dbproj"),
+                          tab.attn_block_bwd_stash(*bwd), tab.attn_block_bwd_stash_plain(*bwd)):
+        assert _max_rel(a, b) <= TOL_BWD, name
+    torch.cuda.synchronize()
+    assert [(f.launches - l0, f.seg_launches - s0) for f, (l0, s0) in zip(counters, before)] == \
+        [(1, 1), (1, 1), (1, 1)]
+
+
+@pytest.mark.parametrize("S,seg,pack", [(5, 17, 4), (3, 18, 4), (4, 17, 2)])
+def test_packed_kernels_equal_unpacked(dev, S, seg, pack):
+    """The same samples through the masked kernels packed ``pack`` to a
+    sequence and through the unmasked kernels one to a sequence: K2's
+    output, kernel 2's output, qkv and probabilities (the packed blocks on
+    the diagonal), kernel 4's gradients."""
+    B, D, H = S * pack, 128, 2
+    x, *w = _block_args(dev, B, seg, D, (D, 3 * D), (D, D), 52)
+    g = torch.from_numpy(np.random.default_rng(53).normal(size=(B, seg, D)).astype(np.float32))
+    g = g.to(dev, torch.bfloat16)
+    xp, gp = x.reshape(S, pack * seg, D), g.reshape(S, pack * seg, D)
+    assert _max_rel(tab.fused_attn_block(xp, *w, H, seg_len=seg).reshape(B, seg, D),
+                    tab.fused_attn_block(x, *w, H)) <= TOL_FWD
+    out_p, qkv_p, probs_p = tab.attn_block_fwd_stash(xp, *w, H, seg)
+    out_u, qkv_u, probs_u = tab.attn_block_fwd_stash(x, *w, H)
+    assert _max_rel(out_p.reshape(B, seg, D), out_u) <= TOL_FWD
+    assert _max_rel(qkv_p.reshape(B, seg, 3 * D), qkv_u) <= TOL_FWD
+    diag = torch.stack([probs_p[:, :, i * seg:(i + 1) * seg, i * seg:(i + 1) * seg] for i in range(pack)], 1)
+    assert _max_rel(diag.reshape(B, H, seg, seg), probs_u) <= TOL_FWD
+    got = tab.attn_block_bwd(xp, *w[:5], gp, H, seg)
+    want = tab.attn_block_bwd(x, *w[:5], g, H)
+    assert _max_rel(got[0].reshape(B, seg, D), want[0]) <= TOL_BWD
+    for name, a, b in zip(("dscale", "dbias", "dwqkv", "dbqkv", "dwproj", "dbproj"), got[1:], want[1:]):
+        assert _max_rel(a, b) <= TOL_BWD, name
+
+
+def test_attention_kernels_at_a_head_of_512(dev):
+    """``maesimple``'s decoder: one head of 512 at N = 65. Each core's plan
+    shrinks its query blocks to 16 rows to fit (218 880, 213 504 and
+    218 880 bytes of 232 448), and K2, kernels 2, 3 and 4 match their plain
+    versions."""
+    B, N, D, H = 6, 65, 512, 1
+    assert [tab._plan_bytes(c, N, D) for c in ("fwd", "stash", "recompute")] == [218880, 213504, 218880]
+    x, scale, bias, wqkv, bqkv, wproj, bproj = args = _block_args(dev, B, N, D, (D, 3 * D), (D, D), 54)
+    g = torch.from_numpy(np.random.default_rng(55).normal(size=(B, N, D)).astype(np.float32))
+    g = g.to(dev, torch.bfloat16)
+    assert _max_rel(tab.fused_attn_block(*args, H), tab.attn_block_plain(*args, H)) <= TOL_FWD
+    for name, a, b in zip(("out", "qkv", "probs"), tab.attn_block_fwd_stash(*args, H),
+                          tab.attn_block_fwd_stash_plain(*args, H)):
+        assert _max_rel(a, b) <= TOL_FWD, name
+    _, qkv, probs = tab.attn_block_fwd_stash_plain(*args, H)
+    grads = ("dx", "dscale", "dbias", "dwqkv", "dbqkv", "dwproj", "dbproj")
+    bwd = (x, scale, bias, wqkv, wproj, qkv, probs, g, H)
+    for name, a, b in zip(grads, tab.attn_block_bwd_stash(*bwd), tab.attn_block_bwd_stash_plain(*bwd)):
+        assert _max_rel(a, b) <= TOL_BWD, name
+    rec = (x, scale, bias, wqkv, bqkv, wproj, g, H)
+    for name, a, b in zip(grads, tab.attn_block_bwd(*rec), tab.attn_block_bwd_plain(*rec)):
+        assert _max_rel(a, b) <= TOL_BWD, name
+
+
+def _mae_grads(dev, plain, **kw):
+    """One bf16 training forward and ``loss.backward()`` of a small MAE model
+    on the card: 64 patches, 16 kept (n = 17), batch 8 packed four to a
+    sequence (N = 68), a 3-block encoder and a 2-block decoder. (gradients
+    by name, loss)."""
+    from sky_embeddings_tpu_torch.models.mim import SkyMIM
+
+    model = SkyMIM(img_size=32, patch_size=4, in_chans=5, embed_dim=128, depth=3, num_heads=4,
+                   simmim=False, decoder_embed_dim=64, decoder_depth=2, decoder_num_heads=4,
+                   pack_tokens=4, norm_pix_loss=True, dtype=torch.bfloat16, **kw)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    model = model.to(dev).train()
+    model.plain = plain
+    rng = np.random.default_rng(56)
+    imgs = rng.normal(size=(8, 5, 32, 32)).astype(np.float32)
+    imgs[1, 2] = np.nan
+    noise = rng.random((8, 64)).astype(np.float32)
+    loss = model(torch.from_numpy(imgs).to(dev), mae_noise=torch.from_numpy(noise).to(dev))[0]
+    loss.backward()
+    return {n: p.grad for n, p in model.named_parameters()}, loss.detach()
+
+
+# per path: launches of (K2, kernel 2, kernel 3, kernel 4, K1, kernel 8) and
+# of the masked ones (K2, kernel 2, kernel 4) in one step: the packed encoder
+# (3 blocks) and the decoder (2 blocks, unmasked)
+MAE_PATHS = {
+    "stash": (dict(), [0, 5, 5, 0, 5, 5], [0, 3, 0]),
+    "stash_decoder_off": (dict(stash_decoder=False), [2, 3, 3, 2, 5, 5], [0, 3, 0]),
+    "remat": (dict(remat=True), [6, 2, 2, 3, 8, 5], [6, 0, 3]),
+}
+
+
+@pytest.mark.parametrize("path", list(MAE_PATHS))
+def test_mae_training_step_reaches_every_parameter(dev, path):
+    """A MAE training step on the card: the stated launches (the encoder's
+    masked, the decoder's not); every parameter, the decoder's and
+    ``mask_token`` included, gets a finite, nonzero gradient; the gradients
+    agree with the plain path's."""
+    kw, launches, seg = MAE_PATHS[path]
+    counters = (tab.fused_attn_block, tab.attn_block_fwd_stash, tab.attn_block_bwd_stash,
+                tab.attn_block_bwd, tmb.fused_mlp_block, tmb.mlp_block_bwd)
+    before = [f.launches for f in counters]
+    seg_before = [f.seg_launches for f in counters[:2] + counters[3:4]]
+    got, _ = _mae_grads(dev, False, **kw)
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(counters, before)] == launches
+    assert [f.seg_launches - b for f, b in zip(counters[:2] + counters[3:4], seg_before)] == seg
+    ref, _ = _mae_grads(dev, True, **kw)
+    rels = {}
+    for name, grad in got.items():
+        assert grad is not None and torch.isfinite(grad).all() and grad.abs().max() > 0, name
+        rels[name] = float((grad - ref[name]).norm() / (ref[name].norm() + 1e-12))
+    assert any(n.startswith("decoder.") for n in rels) and "mask_token" in rels
+    # five layers of bf16 rounding flips (three encoder, two decoder); the
+    # SimMIM paths above measured up to 6.0e-2 at three layers
+    worst = max(rels, key=rels.get)
+    assert rels[worst] <= 1.2e-1, (worst, rels[worst])
+
+
+def test_mae_remat_gradients_equal_the_stored_path_on_the_card(dev):
+    """Remat replays the packed encoder's blocks with the same ``seg_len``
+    (K2 and kernel 4, masked); the gradients equal those of the model stored
+    with the encoder's stash off, bit for bit."""
+    got, la = _mae_grads(dev, False, remat=True)
+    want, lb = _mae_grads(dev, False, stash=False)
+    assert torch.equal(la, lb) and got.keys() == want.keys()
+    for name, grad in got.items():
+        assert torch.equal(grad, want[name]), name

@@ -227,7 +227,11 @@ def test_unported_model_options_raise():
 
     base = {"TRAINING": {}, "ARCHITECTURE": dict(
         img_size=16, num_channels=3, embed_dim=48, patch_size=4, model_type="simmim")}
-    for arch in ({"model_type": "base"}, {"scan_blocks": "True"}, {"attn_pool": "True"}):
+    for arch in ({"scan_blocks": "True"}, {"attn_pool": "True"},
+                 {"model_type": "base", "attn_pool": "True"}):
         cfg = Config.from_dict({**base, "ARCHITECTURE": {**base["ARCHITECTURE"], **arch}})
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build_mim_model(cfg, device="cpu")
+    # the MAE model types build (tests/test_torch_mae.py holds them to JAX)
+    cfg = Config.from_dict({**base, "ARCHITECTURE": {**base["ARCHITECTURE"], "model_type": "base"}})
+    assert not build_mim_model(cfg, device="cpu").simmim

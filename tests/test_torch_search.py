@@ -209,6 +209,92 @@ def test_ra_dec_model_serving_matches_jax():
     np.testing.assert_allclose(tbank.features.numpy(), jbank.features, atol=1e-4)
 
 
+# -- bf16 search: the ranking of a bf16 model ---------------------------------------
+#
+# Each framework's own bf16 encoder rounds at other points (the tokens agree
+# to max-rel 2e-2, test_torch_model.py), which moves bf16 scores by an ulp
+# and so the ranks. These tests hand both searches the same bf16 tokens
+# (a fixed tokenizer: the cutout's 16 patches of 48 values and their mean as
+# the cls token, rounded to bf16) and hold the ranking itself.
+
+class _JaxTokens:
+    """JAX side of the shared tokenizer (the searches' ``model.apply``)."""
+
+    num_extra_tokens, ra_dec = 1, False
+
+    def apply(self, variables, imgs, method=None, **kw):
+        B = imgs.shape[0]
+        t = imgs.reshape(B, 3, 4, 4, 4, 4).transpose(0, 2, 4, 1, 3, 5).reshape(B, 16, 48)
+        return jnp.concatenate([t.mean(1, keepdims=True), t], 1).astype(jnp.bfloat16)
+
+
+class _PortTokens(torch.nn.Module):
+    """The port's side: the same tokens, bit for bit (``model.encode``)."""
+
+    num_extra_tokens, ra_dec = 1, False
+
+    def __init__(self):
+        super().__init__()
+        self.w = torch.nn.Parameter(torch.zeros(1))  # the device the searches read
+
+    def encode(self, imgs, ra_dec=None):
+        B = imgs.shape[0]
+        t = imgs.reshape(B, 3, 4, 4, 4, 4).permute(0, 2, 4, 1, 3, 5).reshape(B, 16, 48)
+        return torch.cat([t.mean(1, keepdim=True), t], 1).to(torch.bfloat16), None, None
+
+
+BF16_SEARCHES = {"default": dict(), "max_pool": dict(max_pool=True), "cls_token": dict(cls_token=True),
+                 "mse": dict(metric="MSE"), "mae": dict(metric="MAE"), "mean": dict(combine="mean"),
+                 "unweighted": dict(use_weights=False)}
+
+
+@pytest.mark.parametrize("kw", BF16_SEARCHES.values(), ids=BF16_SEARCHES.keys())
+def test_bf16_searches_rank_as_jax(kw):
+    """A bf16 search, single (the serving twin's) and over 3 groups at once:
+    the same 100 winners in the same order as JAX's ``mim_simsearch`` and
+    ``mim_simsearch_multi`` (bf16 ties broken by the lower stream index, as
+    ``lax.top_k``), with the same bf16 scores, bit for bit. The two JAX
+    searches round their target statistics differently (inside and outside
+    their compiled step), so each port search holds its own counterpart."""
+    import ml_dtypes
+
+    from sky_embeddings_tpu.eval.simsearch import mim_simsearch as jax_search
+    from sky_embeddings_tpu.eval.simsearch import mim_simsearch_multi as jax_multi
+    from sky_embeddings_tpu_torch.eval.simsearch import mim_simsearch, mim_simsearch_multi
+
+    port = _PortTokens()
+    batches = _batches(20, bs=16, nan_frac=0.0)
+    targets = [port.encode(torch.from_numpy(b["cutouts"]))[0].float().numpy()
+               for b in _batches(3, bs=3, seed=9, nan_frac=0.0)]
+    kw = dict(kw, n_save=100, log_every=0)
+    want = [jax_search(_JaxTokens(), {}, targets[0].astype(ml_dtypes.bfloat16), batches, **kw)]
+    want += jax_multi(_JaxTokens(), {}, [t.astype(ml_dtypes.bfloat16) for t in targets], batches, **kw)
+    got = [mim_simsearch(port, targets[0], batches, **kw)]
+    got += mim_simsearch_multi(port, targets, batches, **kw)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a[2], b[2])  # winners' ra/dec, best first
+        np.testing.assert_array_equal(a[3], np.asarray(b[3], np.float32))  # bf16 scores
+        np.testing.assert_array_equal(a[0], b[0])
+    assert len(np.unique(want[0][3])) < 100  # genuine bf16 ties among the winners
+
+
+def test_bf16_mean_bank_matches_jax():
+    """``build_bank(pool="mean")`` on bf16 tokens pools in bf16, as JAX: the
+    bank's statistics and bf16 rows bit for bit."""
+    from sky_embeddings_tpu.eval.bank import build_bank as jax_build
+    from sky_embeddings_tpu_torch.eval.bank import build_bank
+
+    port = _PortTokens()
+    batches = _batches(6, bs=16, seed=2, nan_frac=0.0)
+    jbank = jax_build(_JaxTokens(), {}, batches, pool="mean")
+    tbank = build_bank(port, batches, pool="mean")
+    assert tbank.features.dtype == torch.bfloat16
+    np.testing.assert_array_equal(tbank.mean, jbank.mean)
+    np.testing.assert_array_equal(tbank.std, jbank.std)
+    np.testing.assert_array_equal(tbank.features.view(torch.int16).numpy().view(np.uint16),
+                                  jbank.features.view(np.uint16))
+
+
 def test_bank_files_load_in_both_packages(models, tmp_path):
     """bf16 banks: a file written by either package loads in the other with
     the same bits, and both query the same winners."""
