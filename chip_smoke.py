@@ -8,7 +8,8 @@ failing loudly (any failure exits non-zero and prints no result line):
 
 1. device: card name and power limit; TF32 off for the plain fp32 products;
 2. build: nvcc builds the CUDA kernels (attention block forward and stash
-   forward; attention stash and recompute backward; MLP block forward and
+   forward; attention stash and recompute backward; the standalone
+   attention forward and backward, kernels 12 and 13; MLP block forward and
    stash forward; MLP recompute, stash and weight-streaming backward; the
    multi-query bank scorer) from the sources in the
    checkout, one nvcc per source, all at once; Triton compiles the bank
@@ -31,6 +32,15 @@ failing loudly (any failure exits non-zero and prints no result line):
    and kernel 3 from the packed stash, each masked kernel also against the
    unmasked one on the same samples one to a sequence (the gap printed), and
    K2 and kernels 2-4 at maesimple's decoder head of 512 (N=65);
+   kernels 12 and 13 (the attention core behind ``layers.Attention``) in
+   bf16 at ViT-B (N=65, D=768, 12 heads; B=64, 1024, 63), ViT-H (N=66,
+   D=1280, 16 heads of 80; B=32, 256, 31), the MAE decoder (N=65, D=512, 16
+   heads of 32; B=1024) and N=256 at hd=64, and in fp32 at ViT-B B=64 and
+   ViT-H B=32 (bar TOL_CORE_F32); kernel 12's bf16 context bit-equal to the
+   one K2's core computes from the same qkv; each timed at ViT-B B=1024 and
+   ViT-H B=256 beside ``F.scaled_dot_product_attention`` on the same
+   (B, H, N, hd) views, forward and forward + backward (the library column,
+   measured here and used nowhere in the port);
 4. the serving path, through the entry points ``similarity_search`` calls, on
    ``configs/mim_1.ini`` (SimMIM ViT-B, bf16, full depth, seeded weights) and
    synthetic cutouts with whole-band NaNs: ``extract_latents`` of 2 targets
@@ -84,12 +94,26 @@ failing loudly (any failure exits non-zero and prints no result line):
      for 3 steps (K2 masked 12 x 2 x 3, kernel 4 masked 12 x 3, the
      decoder's kernels 2 and 3 8 x 3, K1 (2 x 12 + 8) x 3, kernel 8 20 x 3)
      and its gradients bit-equal to those stored without remat (the
-     encoder's stash off).
+     encoder's stash off);
+   - ``attn_pool`` (``mim_1`` with ``ARCHITECTURE.attn_pool = True``: the
+     encoder's tokens pooled by ``AttentionPoolLatent`` into one token that
+     the decoder expands to the whole 64x64x5 image), built in memory,
+     batch 64: ``train_network`` runs 10 steps, 2 validation batches and
+     the linear probes once, on in-memory structured probe sets of 4 800
+     labelled cutouts each (``make_structured_cutouts``, ``lp_combine =
+     central``; the pooled model probes its one 768-wide token); kernels 2,
+     3, 8 at 12 x 10, K1 at 12 x (10 + 2 + 150 probe batches), K2 at 12 x
+     (2 + 150); the probe's ms, ``val_lp_acc`` and ``val_lp_r2``.
    For each config, the kernel path against the plain path on the card from
    the same params and masks (MAE: the same noise): one step's loss and
    per-leaf gradients, and the losses of 5 steps; then train-step times
    (ViT-H also at B=256, ``bench_vit_h``'s batch; MAE at 1024), device busy
    share and peak memory;
+5b. the ``Attention`` module (``models/layers.Attention``, the only caller of
+   kernels 12 and 13, as in JAX) at ViT-B width, bf16, B=64: one forward and
+   ``backward()`` through autograd with the counters zeroed just before,
+   kernels 12 and 13 at one launch each and nothing else; its gradients
+   against the plain path's;
 6. times with CUDA events after warm-up: per kernel at its path's shapes,
    the encoder, queries; torch.profiler device breakdowns.
 
@@ -153,6 +177,17 @@ TOL_GRAD_H, TOL_LOSS_H = 4.5e-2, 5e-4
 # five steps' losses 2.2e-5 (the batch of 1024 averages the flips out).
 # The bars are about twice those.
 TOL_GRAD_M, TOL_LOSS_M = 4.5e-3, 5e-5
+# attn_pool (mim_1 with the pool, depth 12, batch 64): the same encoder
+# kernels as mim_1, but the encoder's gradient all comes through the one
+# pooled token. Measured on the H100 (PERF.md): gradients 2.8e-2 at worst
+# (patch_embed.proj.kernel) and 2.1e-2 at the median, spread over every
+# leaf rather than on one; one step's loss 3.5e-6, five steps' losses
+# 4.4e-5. The bars are about twice those.
+TOL_GRAD_P, TOL_LOSS_P = 6e-2, 1e-4
+# kernels 12 and 13 in fp32 against their plain versions (TF32 off).
+# Measured on the H100 (PERF.md): the forward bit-equal, the backward
+# 2.1e-7 at worst (its sums run in another order); the bar is about twice.
+TOL_CORE_F32 = 5e-7
 
 CONFIG = "mim_1"
 DEVICE = "cuda"
@@ -186,6 +221,16 @@ VITH_OVERRIDES = {"ARCHITECTURE": {"model_type": "mimhuge", "embed_dim": "1280"}
 MAE = ("mim_1_mae", 10, 2, (256, 64, 63), (256, 3), 4, ((1024, 5),))
 MAE_OVERRIDES = {"ARCHITECTURE": {"model_type": "base"}, "TRAINING": {"batch_size": "1024"}}
 MAE_SEG, MAE_PACK = 17, 4
+# kernels 12 and 13: (label, B, N, D, H, dtype); the timed ones
+CORE_CASES = ([("vitb", b, 65, 768, 12, "bfloat16") for b in (64, 1024, 63)]
+              + [("vith", b, 66, 1280, 16, "bfloat16") for b in (32, 256, 31)]
+              + [("mae_decoder", 1024, 65, 512, 16, "bfloat16"), ("n256", 16, 256, 768, 12, "bfloat16"),
+                 ("vitb", 64, 65, 768, 12, "float32"), ("vith", 32, 66, 1280, 16, "float32")])
+CORE_TIMED = (("vitb", 1024), ("vith", 256))
+# the attn_pool training path: (name, steps, validation batches, probe-set
+# size, train-step batches with their timed iterations)
+POOL = ("mim_1_attn_pool", 10, 2, 4800, ((64, 10),))
+POOL_OVERRIDES = {"ARCHITECTURE": {"attn_pool": "True"}}
 # the retrieval path: a FITS survey of FITS_TILES tiles of FITS_SIZE^2 pixels
 # per band, searched at FITS_OVERLAP for N_GROUPS target groups; kernel 11 at
 # MULTI_Q queries on the 1M bank and at RAGGED (rows, width, queries); the
@@ -216,13 +261,22 @@ def main() -> int:
     from sky_embeddings_tpu_torch.configuration import Config, load_config
     from sky_embeddings_tpu_torch.data.fits_io import TanWCS, write_image
     from sky_embeddings_tpu_torch.data.fits_loader import build_fits_batcher, overlap_coords
-    from sky_embeddings_tpu_torch.data.synthetic import make_cutouts
+    from sky_embeddings_tpu_torch.data.synthetic import make_cutouts, make_structured_cutouts
     from sky_embeddings_tpu_torch.eval.bank import EmbeddingBank, build_bank
     from sky_embeddings_tpu_torch.eval.eval_fns import batch_ra_dec, extract_latents
     from sky_embeddings_tpu_torch.eval.simsearch import mim_simsearch, mim_simsearch_multi
     from sky_embeddings_tpu_torch.models.mim import build_mim_model
+    from sky_embeddings_tpu_torch.eval.linear_probe import linear_probe
+    from sky_embeddings_tpu_torch.models.layers import Attention
     from sky_embeddings_tpu_torch.ops.kernels import cuda_build
+    from sky_embeddings_tpu_torch.ops.kernels.attention import (
+        attention_bwd_plain,
+        attention_plain,
+        fused_attention,
+        fused_attention_bwd,
+    )
     from sky_embeddings_tpu_torch.ops.kernels.attn_block import (
+        _launch_fwd,
         attn_block_bwd,
         attn_block_bwd_plain,
         attn_block_bwd_stash,
@@ -244,7 +298,7 @@ def main() -> int:
         mlp_block_fwd_stash_plain,
         mlp_block_plain,
     )
-    from sky_embeddings_tpu_torch.train.pretrain import MIMPretrainer
+    from sky_embeddings_tpu_torch.train.pretrain import MIMPretrainer, train_network
     from sky_embeddings_tpu_torch.ops.kernels.simscore import (
         bank_topk,
         bank_topk_chunked,
@@ -672,6 +726,70 @@ def main() -> int:
     del x, g, qkv_s, probs_s, cases
     torch.cuda.empty_cache()
 
+    # kernels 12 and 13 (the attention core behind layers.Attention), each
+    # against its plain version at the training paths' head geometries: bf16
+    # at TOL_FWD / TOL_BWD, fp32 (TF32 off) at TOL_CORE_F32; timed at ViT-B
+    # B=1024 and ViT-H B=256 beside F.scaled_dot_product_attention on the
+    # same (B, H, N, hd) views, forward and forward + backward (the library
+    # column; the port never calls it)
+    def core_bound(B, n, d, h, elt, backward):
+        flops = (10 if backward else 4) * B * h * n * n * (d // h)
+        return flops, (7 if backward else 4) * B * n * d * elt
+
+    core_gap = {}
+    for label, B, n, d, h, dt_name in CORE_CASES:
+        dt = getattr(torch, dt_name)
+        qkv = torch.randn(B, n, 3 * d, generator=gen, device=dev).to(dt)
+        dctx = torch.randn(B, n, d, generator=gen, device=dev).to(dt)
+        got_f, got_b = fused_attention(qkv, h), fused_attention_bwd(qkv, dctx, h)
+        want_f, want_b = attention_plain(qkv, h), attention_bwd_plain(qkv, dctx, h)
+        torch.cuda.synchronize()
+        (rf, af), (rb, ab) = rel_err(got_f, want_f), rel_err(got_b, want_b)
+        finite = bool(torch.isfinite(got_f.float()).all() and torch.isfinite(got_b.float()).all())
+        bars = (TOL_FWD, TOL_BWD) if dt == torch.bfloat16 else (TOL_CORE_F32, TOL_CORE_F32)
+        tag = f"{label} B={B} N={n} D={d} H={h} {dt_name}"
+        core_gap[tag] = {"fwd_max_rel": rf, "fwd_max_abs": af, "bwd_max_rel": rb, "bwd_max_abs": ab}
+        print(f"parity attention (kernel 12 / 13) {tag}: max-rel {rf:.3e} / {rb:.3e} (bars "
+              f"{bars[0]} / {bars[1]}), max-abs {af:.3e} / {ab:.3e}, finite {finite}", flush=True)
+        check(finite and rf <= bars[0] and rb <= bars[1], f"kernels 12 / 13 {tag} parity")
+        del got_f, got_b, want_f, want_b
+        if (label, B) in CORE_TIMED and dt == torch.bfloat16:
+            q4, k4, v4 = qkv.view(B, n, 3, h, d // h).permute(2, 0, 3, 1, 4).unbind(0)
+            qg, kg, vg = (t.detach().requires_grad_() for t in (q4, k4, v4))
+            g4 = dctx.view(B, n, h, d // h).transpose(1, 2)
+
+            def sdpa_fwd_bwd():
+                out = torch.nn.functional.scaled_dot_product_attention(qg, kg, vg)
+                torch.autograd.grad(out, (qg, kg, vg), g4)
+
+            iters = 20
+            for name, kern, plain, err, bwd, lib in (
+                ("attention_fwd", lambda: fused_attention(qkv, h), lambda: attention_plain(qkv, h),
+                 (rf, af), False,
+                 lambda: torch.nn.functional.scaled_dot_product_attention(q4, k4, v4)),
+                ("attention_bwd", lambda: fused_attention_bwd(qkv, dctx, h),
+                 lambda: attention_bwd_plain(qkv, dctx, h), (rb, ab), True, sdpa_fwd_bwd),
+            ):
+                b_ms, b_by = bound_ms(*core_bound(B, n, d, h, 2, bwd), PEAK_BF16)
+                timings[(name, f"{label}{B}")] = {
+                    "max_rel_err": err[0], "max_abs_err": err[1],
+                    "ms": cuda_ms(kern, iters), "plain_ms": cuda_ms(plain, 5),
+                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": cuda_ms(lib, iters),
+                    "library": "F.scaled_dot_product_attention" + (" forward + backward" if bwd else ""),
+                }
+            del q4, k4, v4, qg, kg, vg, g4
+        del qkv, dctx
+    # kernel 12 in bf16 is K2's core launched alone: on the qkv kernel 2 hands
+    # back, its context equals the one K2's core computed, bit for bit
+    args = block_args("attn", 64)
+    _, qkv_k2, _, ctx_k2 = _launch_fwd(*args, H, stash=True)
+    same_core = bool(torch.equal(fused_attention(qkv_k2, H), ctx_k2))
+    print(f"kernel 12 (bf16) vs K2's attention core on the same qkv (B=64, ViT-B): bit-equal "
+          f"{same_core}", flush=True)
+    check(same_core, "kernel 12 bit-equal to K2's core")
+    del args, qkv_k2, ctx_k2
+    torch.cuda.empty_cache()
+
     # ---- 4. serving path ------------------------------------------------------
     cfg = load_config(CONFIG, os.path.join(ROOT, "configs"))
     model = build_mim_model(cfg, dtype=torch.bfloat16, device=dev,
@@ -693,7 +811,7 @@ def main() -> int:
     counters = (fused_attn_block, fused_mlp_block, weighted_bank_scores,
                 weighted_bank_scores_multi, attn_block_fwd_stash, attn_block_bwd_stash,
                 mlp_block_bwd, attn_block_bwd, mlp_block_fwd_stash, mlp_block_bwd_stash,
-                mlp_block_bwd_stream)
+                mlp_block_bwd_stream, fused_attention, fused_attention_bwd)
     # K2, kernel 2 and kernel 4 also count their launches with packed segments
     seg_counters = (fused_attn_block, attn_block_fwd_stash, attn_block_bwd)
     training_kernels = [f.__name__ for f in counters[4:]] + ["fused_attn_block_seg"]
@@ -994,14 +1112,18 @@ def main() -> int:
         return tr.train_batch(batch, mask=mk) if tr.model.simmim else tr.train_batch(batch, noise=mk)
 
     def training_phase(cfg_, steps, val, expect, tol_grad, tol_loss, time_batches, seed,
-                       extra=None, expect_dec=None, distinct=None):
+                       extra=None, expect_dec=None, distinct=None, probes=None):
         """One config's training path: ``steps`` train steps and ``val``
         validation batches with the launch counts ``expect`` (kernel ->
         launches per encoder layer per step, per validation batch; for an
         MAE model ``expect_dec`` per decoder layer); ``extra`` (trainer,
         batches) runs config-specific checks; then the kernel path against
         the plain path and train-step times at ``time_batches``. ``distinct``
-        synthetic batches are made and cycled (all different by default)."""
+        synthetic batches are made and cycled (all different by default).
+        With ``probes`` (the classification and regression sets, lists of
+        labelled batches) the steps, the validation and the linear probes run
+        through ``train_network``, and every probe batch adds one K1 and one
+        K2 launch per layer."""
         tag = cfg_.name
         t_init = time.perf_counter()
         trainer = MIMPretrainer(cfg_, dtype=torch.bfloat16, seed=0, device=dev)
@@ -1016,11 +1138,27 @@ def main() -> int:
         check(bool(np.isnan(gdata["cutouts"]).any()), f"{tag}: training cutouts hold NaN bands")
         tbatches = as_batches(gdata, bs)
         tbatches = [tbatches[i % n_data] for i in range(steps + val)]
+        n_probe = sum(len(p_) for p_ in probes) if probes else 0
         zero_counters()
         torch.cuda.synchronize()
         t_run = time.perf_counter()
-        train_losses = [trainer.train_batch(b) for b in tbatches[:steps]]
-        val_losses = [trainer.eval_batch(b, idx=i) for i, b in enumerate(tbatches[steps:])]
+        if probes:
+            class ValBatches:
+                def take(self, n_):
+                    return iter(tbatches[steps:steps + n_])
+
+            ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+            try:
+                train_network(trainer, iter(tbatches[:steps]), ValBatches(), steps, steps, 1e9,
+                              os.path.join(ckpt_dir, f"{tag}.ckpt.pt"), lp_class_data_file=probes[0],
+                              lp_regress_data_file=probes[1], lp_combine="central",
+                              max_val_batches=val, log_fn=lambda m_: print(f"{tag}: {m_}", flush=True))
+            finally:
+                shutil.rmtree(ckpt_dir)
+            train_losses, val_losses = trainer.losses["train_loss"], trainer.losses["val_loss"]
+        else:
+            train_losses = [trainer.train_batch(b) for b in tbatches[:steps]]
+            val_losses = [trainer.eval_batch(b, idx=i) for i, b in enumerate(tbatches[steps:])]
         torch.cuda.synchronize()
         t_run = time.perf_counter() - t_run
         run_launches = launch_counts()
@@ -1035,17 +1173,34 @@ def main() -> int:
         for name_ in run_launches:
             per_step, per_val = expect.get(name_, (0, 0))
             dec_step, dec_val = (expect_dec or {}).get(name_, (0, 0))
-            want_n = layers * (per_step * steps + per_val * val) + dec_layers * (dec_step * steps
-                                                                              + dec_val * val)
+            per_probe = int(name_ in ("fused_attn_block", "fused_mlp_block"))
+            want_n = (layers * (per_step * steps + per_val * val + per_probe * n_probe)
+                      + dec_layers * (dec_step * steps + dec_val * val))
             check(run_launches[name_] == want_n,
                   f"{tag}: {name_} launches {run_launches[name_]} == {layers} x "
-                  f"({per_step} x {steps} + {per_val} x {val}) + {dec_layers} x "
-                  f"({dec_step} x {steps} + {dec_val} x {val}) = {want_n}")
+                  f"({per_step} x {steps} + {per_val} x {val} + {per_probe} x {n_probe}) + "
+                  f"{dec_layers} x ({dec_step} x {steps} + {dec_val} x {val}) = {want_n}")
         result = {"layers": layers, "decoder_layers": dec_layers, "embed_dim": m.embed_dim,
                   "batch": bs, "channels": m.in_chans,
                   "remat": m.encoder.remat, "ra_dec": m.ra_dec, "trainer_init_s": t_init,
                   "seconds": t_run, "steps": steps, "val_batches": val, "launches": run_launches,
                   "train_losses": train_losses, "val_losses": val_losses}
+        if probes:
+            lp = {k: trainer.losses[k][-1] for k in ("train_lp_acc", "val_lp_acc", "train_lp_r2",
+                                                     "val_lp_r2")}
+            # the probe alone: the same sets through linear_probe again
+            torch.cuda.synchronize()
+            t_p = time.perf_counter()
+            again = linear_probe(m, probes[0], probes[1], combine="central", img_size=m.img_size)
+            torch.cuda.synchronize()
+            probe_ms = (time.perf_counter() - t_p) * 1e3
+            print(f"{tag} probes ({n_probe} batches of {len(probes[0][0]['cutouts'])}, features "
+                  f"{m.embed_dim if m.pooled else 4 * m.embed_dim} wide): {lp}; again in "
+                  f"{probe_ms:.1f} ms: {again}", flush=True)
+            check(all(np.isfinite(list(lp.values()))) and 0.0 <= lp["val_lp_acc"] <= 1.0
+                  and lp["val_lp_r2"] <= 1.0, f"{tag}: probe metrics")
+            check(max(abs(again[k] - lp[k]) for k in lp) <= 1e-3, f"{tag}: the probe repeats")
+            result.update({"probe": lp, "probe_ms": probe_ms, "probe_batches": n_probe})
         if extra is not None:
             result.update(extra(trainer, tbatches))
 
@@ -1294,12 +1449,74 @@ def main() -> int:
     paths[MAE[0]] = training_phase(cfg_m, MAE[1], MAE[2], expect_m, TOL_GRAD_M, TOL_LOSS_M,
                                    MAE[6], seed=7, extra=mae_remat, expect_dec=expect_m_dec,
                                    distinct=MAE[5])
+    # attn_pool: mim_1 with the pool, through train_network with the probes
+    # on in-memory structured sets (the card host has no h5py)
+    d_p = {sec: dict(cfg[sec].items()) for sec in cfg.sections()}
+    for sec, over in POOL_OVERRIDES.items():
+        d_p[sec].update(over)
+    cfg_p = Config.from_dict(d_p, name=POOL[0])
+
+    def labelled(key, seed):
+        arch = cfg_p.architecture
+        sd = make_structured_cutouts(POOL[3], channels=arch.int("num_channels"),
+                                     img_size=arch.int("img_size"), seed=seed)
+        rd = np.stack([sd["ra"], sd["dec"]], 1)
+        return [{"cutouts": sd["cutouts"][i:i + BATCH], "ra_dec": rd[i:i + BATCH],
+                 "labels": sd[key][i:i + BATCH]} for i in range(0, POOL[3], BATCH)]
+
+    t_sets = time.perf_counter()
+    probe_sets = (labelled("class", 11), labelled("zspec", 12))
+    print(f"{POOL[0]}: probe sets of {POOL[3]} structured cutouts made in "
+          f"{time.perf_counter() - t_sets:.1f} s", flush=True)
+
+    def pool_init(trainer, tbatches):
+        m = trainer.model
+        n_params = sum(p.numel() for p in m.parameters())
+        check(m.pooled and tuple(m.decoder_pred.kernel.shape) == (m.embed_dim, m.img_size ** 2 * m.in_chans),
+              f"{POOL[0]}: the pool and the whole-image decoder")
+        return {"parameters": n_params, "pool_parameters": sum(p.numel() for p in m.pool.parameters())}
+
+    paths[POOL[0]] = training_phase(cfg_p, POOL[1], POOL[2], expect_b, TOL_GRAD_P, TOL_LOSS_P,
+                                    POOL[4], seed=8, extra=pool_init, probes=probe_sets)
+    del probe_sets
     shapes = {c: tuple(r[k] for k in ("layers", "embed_dim", "batch", "channels", "remat", "ra_dec"))
               for c, r in paths.items()}
     check(shapes == {CONFIG: (12, 768, 64, 5, False, False), LARGE[0]: (24, 768, 64, 5, False, False),
                      REMAT[0]: (24, 1024, 32, 9, True, True), VITH[0]: (32, 1280, 32, 9, False, True),
-                     MAE[0]: (12, 768, 1024, 5, False, False)},
+                     MAE[0]: (12, 768, 1024, 5, False, False), POOL[0]: (12, 768, 64, 5, False, False)},
           f"the configs train at full width and depth: {shapes}")
+
+    # ---- 5b. the Attention module ---------------------------------------------
+    attn_mod = Attention(D, H, torch.bfloat16)
+    for lin in (attn_mod.qkv, attn_mod.proj):
+        lin.reset_parameters(torch.Generator().manual_seed(5))
+    attn_mod.to(dev)
+    xa = (torch.randn(64, N_TOK, D, generator=gen, device=dev) * 0.5).to(torch.bfloat16)
+    ga = (torch.randn(64, N_TOK, D, generator=gen, device=dev) * 0.1).to(torch.bfloat16)
+
+    def attention_module_grads(plain):
+        attn_mod.plain = plain
+        attn_mod.zero_grad(set_to_none=True)
+        xi = xa.clone().requires_grad_()
+        attn_mod(xi).backward(ga)
+        return {"x": xi.grad, **{n_: p_.grad for n_, p_ in attn_mod.named_parameters()}}
+
+    zero_counters()
+    torch.cuda.synchronize()
+    grads_k = attention_module_grads(False)
+    torch.cuda.synchronize()
+    attn_launches = launch_counts()
+    grads_p = attention_module_grads(True)
+    attn_errs = {k: rel_err(g_, grads_p[k])[0] for k, g_ in grads_k.items()}
+    print(f"Attention module (D={D}, {H} heads, B=64, bf16): forward + backward launches "
+          f"{ {k: v for k, v in attn_launches.items() if v} }; gradients vs plain max-rel "
+          + ", ".join(f"{k} {v:.2e}" for k, v in attn_errs.items()) + f" (bar {TOL_BWD})", flush=True)
+    check(attn_launches == {k: int(k in ("fused_attention", "fused_attention_bwd")) for k in attn_launches},
+          "the Attention module launches kernels 12 and 13 once each and nothing else")
+    check(max(attn_errs.values()) <= TOL_BWD and all(torch.isfinite(g_).all() for g_ in grads_k.values()),
+          "Attention module gradients kernel vs plain")
+    attention_module = {"launches": attn_launches, "grad_max_rel_vs_plain": attn_errs}
+    del attn_mod, xa, ga, grads_k, grads_p
     check(paths[MAE[0]]["decoder_layers"] == 8, "bench_mae's decoder is 8 deep")
 
     # ---- 6. times -------------------------------------------------------------
@@ -1355,6 +1572,10 @@ def main() -> int:
                                      "attn_block_fwd_stash_seg", MAE[3][0]),
         "attn_block_bwd_seg": ("cuda", src + "csrc/attn_block_bwd.cu", jsrc + "attn_block.py:1052",
                                "attn_block_bwd_seg", MAE[3][0]),
+        "attention_fwd": ("cuda", src + "csrc/attention.cu", jsrc + "attention.py:59",
+                          "fused_attention", "".join(map(str, CORE_TIMED[0]))),
+        "attention_bwd": ("cuda", src + "csrc/attention.cu", jsrc + "attention.py:142",
+                          "fused_attention_bwd", "".join(map(str, CORE_TIMED[0]))),
     }
     kernels = []
     for name, (route, source, replaces, counter, shape) in meta.items():
@@ -1362,7 +1583,8 @@ def main() -> int:
         by_path = {f"serving_{CONFIG}": launches[counter],
                    f"retrieval_{CONFIG}": retrieval_launches[counter],
                    **{f"training_{c}": r["launches"][counter] for c, r in paths.items()},
-                   f"training_{MAE[0]}_remat": paths[MAE[0]]["remat_run"]["launches"][counter]}
+                   f"training_{MAE[0]}_remat": paths[MAE[0]]["remat_run"]["launches"][counter],
+                   "attention_module": attn_launches[counter]}
         check(sum(by_path.values()) > 0, f"{name} launched on a main path")
         kernels.append({
             "name": name, "route": route, "source": source, "replaces": replaces,
@@ -1373,13 +1595,15 @@ def main() -> int:
         })
     emit({"kernel_times": [{"name": n, "shape": s_, **v} for (n, s_), v in timings.items()],
           "kernel9_vs_kernel8_max_rel": {str(b): v for b, v in stream_gap.items()},
-          "packed_vs_unpacked_max_rel": {str(b): v for b, v in pack_gap.items()}})
+          "packed_vs_unpacked_max_rel": {str(b): v for b, v in pack_gap.items()},
+          "attention_core_max_rel": core_gap, "kernel12_equals_k2_core": same_core})
     emit({
         "main_path": {"seconds": t_main, "encoder_calls": encoder_calls, "launches": launches,
                       "tokens_max_rel_vs_plain": tok_rel, "tokens_max_abs_vs_plain": tok_abs,
                       "top300_overlap_vs_plain": overlap},
         "encoder": {f"B={b}": v for b, v in enc.items()},
         "training_paths": paths,
+        "attention_module": attention_module,
         "retrieval_path": retrieval,
         "bank_1M_bf16": {"query_ms_host": q_host_ms, "queries_per_s": 1e3 / q_host_ms,
                          "bank_topk_ms": topk_ms},

@@ -45,18 +45,27 @@ def extract_latents(
     generator: Optional[torch.Generator] = None,
     return_images: bool = False,
     batch_transform=None,
+    augment_params: Optional[dict] = None,
+    to_host: bool = True,
 ):
-    """Batched encoder-only embeddings, as a numpy array.
+    """Batched encoder-only embeddings, as a numpy array (or, with
+    ``to_host=False``, a tensor on the model's device, as the on-device probe
+    takes them).
 
     With ``apply_augmentations`` each sample contributes 1 original +
     ``num_augmentations`` augmented copies, interleaved so the copies of one
     sample are adjacent (``(1+A, B, ...) -> (B·(1+A), ...)``, as
     ``eval_fns.py:173-176``), each copy with its sample's RA/Dec;
-    ``generator`` (seed 0 when None) draws the augmentations.
-    ``remove_prefix`` strips the cls (and RA/Dec) tokens.
-    ``batch_transform`` (tokens -> tensor) is applied per batch before
-    accumulation.
+    ``generator`` (seed 0 when None) draws the augmentations and
+    ``augment_params`` overrides ``augment_batch``'s defaults (e.g.
+    ``nan_channels=0`` keeps every band). ``remove_prefix`` strips the cls
+    (and RA/Dec) tokens, unless the model attention-pools (one pooled token,
+    JAX ``eval_fns.py:147-149``). ``batch_transform`` (tokens -> tensor) is
+    applied per batch before accumulation.
     """
+    if getattr(model, "pooled", False):
+        remove_prefix = False
+    aug_kw = dict(augment_params or {})
     encode = make_encoder(model)
     device = model_device(model)
     if apply_augmentations and generator is None:
@@ -67,7 +76,8 @@ def extract_latents(
         imgs = torch.as_tensor(np.asarray(batch["cutouts"]), device=device)
         ra_dec = batch_ra_dec(batch, device) if model.ra_dec else None
         if apply_augmentations:
-            reps = [imgs] + [augment_batch(generator, imgs) for _ in range(num_augmentations)]
+            reps = [imgs] + [augment_batch(generator, imgs, **aug_kw)
+                             for _ in range(num_augmentations)]
             imgs = torch.stack(reps, dim=1).reshape(-1, *imgs.shape[1:])
             if ra_dec is not None:
                 ra_dec = ra_dec.repeat_interleave(1 + num_augmentations, dim=0)
@@ -76,10 +86,10 @@ def extract_latents(
             tokens = tokens[:, model.num_extra_tokens:]
         if batch_transform is not None:
             tokens = batch_transform(tokens)
-        latents.append(tokens.float().cpu().numpy())
+        latents.append(tokens.float().cpu().numpy() if to_host else tokens)
         if return_images:
             images.append(imgs.cpu().numpy())
-    latents = np.concatenate(latents)
+    latents = np.concatenate(latents) if to_host else torch.cat(latents)
     if return_images:
         return latents, np.concatenate(images)
     return latents

@@ -33,8 +33,15 @@ sequence (MAE sequence packing): every block's attention is masked to the
 block diagonal (``ops/kernels/attn_block.py``), the per-token LN and MLP
 need no change; remat replays each block with the same ``seg_len``.
 
-Not ported yet (ROADMAP): the scan layout, ``CrossAttention`` and
-``AttentionPoolLatent``.
+The attention modules beside the blocks keep JAX's names too: ``Mlp``
+(``fc1``/``fc2``), ``Attention`` (``qkv``/``proj`` around
+``ops/kernels/attention.attention_context``: kernels 12 and 13),
+``CrossAttention`` (``q``/``kv``/``proj``) and ``AttentionPoolLatent``
+(``latent``, ``xattn``, ``norm``, ``mlp``: SimMIM's ``attn_pool``). ``Mlp``
+and ``CrossAttention`` are plain torch (``F.linear``, einsum, exact-erf
+GELU), as JAX computes them outside any Pallas kernel.
+
+Not ported yet (ROADMAP): the scan layout.
 """
 
 from __future__ import annotations
@@ -46,6 +53,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from sky_embeddings_tpu_torch.ops.kernels.attention import attention_context
 from sky_embeddings_tpu_torch.ops.kernels.attn_block import fused_attn_block
 from sky_embeddings_tpu_torch.ops.kernels.mlp_block import fused_mlp_block
 
@@ -122,6 +130,94 @@ class PatchEmbed(nn.Module):
 
     def forward(self, imgs: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
         return self.proj(patchify(imgs, self.patch_size), dtype)
+
+
+class Mlp(nn.Module):
+    """Linear -> exact GELU -> Linear (``fc1``, ``fc2``), in ``dtype``."""
+
+    def __init__(self, dim: int, hidden_dim: int, out_dim: int, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.fc1 = Linear(dim, hidden_dim)
+        self.fc2 = Linear(hidden_dim, out_dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fc2(F.gelu(self.fc1(x, self.dtype)), self.dtype)
+
+
+class Attention(nn.Module):
+    """Multi-head self-attention with a fused qkv projection: ``qkv`` ->
+    :func:`attention_context` (kernel 12, and kernel 13 in the backward) ->
+    cast to ``dtype`` -> ``proj``. ``plain`` sends the core through the
+    kernels' plain versions on any device."""
+
+    def __init__(self, dim: int, num_heads: int, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        if dim % num_heads:
+            raise ValueError(f"dim {dim} not divisible by heads {num_heads}")
+        self.num_heads = num_heads
+        self.dtype = dtype
+        self.plain = False
+        self.qkv = Linear(dim, 3 * dim)
+        self.proj = Linear(dim, dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        qkv = self.qkv(x, self.dtype)
+        out = attention_context(qkv, self.num_heads, self.plain).to(self.dtype)
+        return self.proj(out, self.dtype)
+
+
+class CrossAttention(nn.Module):
+    """Query tokens attend over a separate key/value sequence (``q``, fused
+    ``kv``, ``proj``): fp32 logits and softmax, probabilities cast to
+    ``dtype`` before the PV product."""
+
+    def __init__(self, dim: int, num_heads: int, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.num_heads = num_heads
+        self.dtype = dtype
+        self.q = Linear(dim, dim)
+        self.kv = Linear(dim, 2 * dim)
+        self.proj = Linear(dim, dim)
+
+    def forward(self, q_tokens: torch.Tensor, kv_tokens: torch.Tensor) -> torch.Tensor:
+        B, M, D = q_tokens.shape
+        N = kv_tokens.shape[1]
+        H, hd = self.num_heads, D // self.num_heads
+        q = self.q(q_tokens, self.dtype).reshape(B, M, H, hd)
+        k, v = self.kv(kv_tokens, self.dtype).reshape(B, N, 2, H, hd).unbind(2)
+        logits = torch.einsum("bmhd,bnhd->bhmn", q.float(), k.float())
+        probs = torch.softmax(logits * hd ** -0.5, dim=-1).to(self.dtype)
+        out = torch.einsum("bhmn,bnhd->bmhd", probs.float(), v.float()).to(self.dtype)
+        return self.proj(out.reshape(B, M, D), self.dtype)
+
+
+class AttentionPoolLatent(nn.Module):
+    """Latent-query attention pooling: one learned ``latent`` token
+    cross-attends over the sequence, then a residual MLP on its LayerNorm;
+    (B, N, D) -> the pooled (B, D)."""
+
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.latent = nn.Parameter(torch.zeros(1, 1, dim))
+        self.xattn = CrossAttention(dim, num_heads, dtype)
+        self.norm = LayerNorm(dim)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dim, dtype)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """flax ``normal(stddev=D^-0.5)`` for the latent; the submodules
+        reset their own."""
+        with torch.no_grad():
+            self.latent.normal_(0.0, self.latent.shape[-1] ** -0.5, generator=generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        B, _, D = x.shape
+        q = self.latent.to(self.dtype).expand(B, 1, D)
+        y = self.xattn(q, x)
+        y = y + self.mlp(self.norm(y, self.dtype))
+        return y[:, 0]
 
 
 class AttnParams(nn.Module):

@@ -15,7 +15,11 @@ pred, mask)`` as the JAX ``__call__`` does.
   (B, C, H, W) pixel mask; ``decode`` is the linear decoder (one Dense per
   token predicting its patch, upsample = ``patch_size``). ``mask_token`` is
   held so that weights round-trip with the JAX tree (SimMIM does not use
-  it).
+  it). With ``attn_pool`` the encoder's tokens are pooled by
+  ``layers.AttentionPoolLatent`` (``pool``) into one token before the final
+  LayerNorm, and the decoder predicts the whole image from it (upsample =
+  ``img_size``: one Dense to img_size² x C). MAE ignores ``attn_pool``, as
+  JAX does.
 - MAE (``simmim=False``): ``forward(imgs, ra_dec=..., mae_noise=...)`` drops
   ``1 - mask_ratio`` of the tokens by the (B, L) noise (the trainer draws
   it from its generator) and returns the (B, L) token mask;
@@ -34,8 +38,8 @@ pred, mask)`` as the JAX ``__call__`` does.
 the decoder's, as in JAX. ``plain = True`` sends every block, the
 decoder's too, through the kernels' plain versions.
 
-Not ported yet, each raising ``NotImplementedError`` (ROADMAP):
-``attn_pool = True`` and the scan layout (``scan_blocks = True``).
+Not ported yet, raising ``NotImplementedError`` (ROADMAP): the scan layout
+(``scan_blocks = True``).
 """
 
 from __future__ import annotations
@@ -46,6 +50,7 @@ import torch
 from torch import nn
 
 from sky_embeddings_tpu_torch.models.layers import (
+    AttentionPoolLatent,
     Encoder,
     LayerNorm,
     Linear,
@@ -88,9 +93,11 @@ class SkyMIM(nn.Module):
         mask_ratio: float = 0.75,
         stash_decoder: bool = True,
         pack_tokens: int = 1,
+        attn_pool: bool = False,
     ):
         super().__init__()
         self.simmim = simmim
+        self.attn_pool = attn_pool
         self.mask_ratio = mask_ratio
         self.pack_tokens = pack_tokens
         self.ra_dec = ra_dec
@@ -117,8 +124,13 @@ class SkyMIM(nn.Module):
         self.norm = LayerNorm(embed_dim)
         self.patch_mask_values = nn.Parameter(torch.zeros(in_chans, patch_size, patch_size))
         if simmim:
-            # SimMIM linear decoder: one Dense per token predicting its patch
-            self.decoder_pred = Linear(embed_dim, patch_size ** 2 * in_chans)
+            # SimMIM linear decoder: one Dense per token predicting its
+            # dec_upsample^2 x C tile (its patch, or the whole image from
+            # the pooled token)
+            if attn_pool:
+                self.pool = AttentionPoolLatent(embed_dim, num_heads, mlp_ratio, dtype)
+            self.dec_upsample = img_size if attn_pool else patch_size
+            self.decoder_pred = Linear(embed_dim, self.dec_upsample ** 2 * in_chans)
             self.mask_token = nn.Parameter(torch.zeros(1, 1, 1))
         else:
             # MAE transformer decoder over the restored sequence (JAX
@@ -143,6 +155,11 @@ class SkyMIM(nn.Module):
     @property
     def num_extra_tokens(self) -> int:
         return 2 if self.ra_dec else 1
+
+    @property
+    def pooled(self) -> bool:
+        """Whether ``encode`` collapses the sequence to one pooled token."""
+        return self.simmim and self.attn_pool
 
     @property
     def plain(self) -> bool:
@@ -179,7 +196,8 @@ class SkyMIM(nn.Module):
         """(B, C, H, W) images (and (B, 2) RA/Dec degrees on an ``ra_dec``
         model) -> ``(tokens, mae_mask, ids_restore)``, tokens (B, extra + n,
         D) in ``dtype`` ordered [cls, ra_dec, patches] (the JAX return
-        layout). ``mask`` is SimMIM's pixel mask. In MAE mode with
+        layout), or the one pooled token (B, 1, D) with ``attn_pool``.
+        ``mask`` is SimMIM's pixel mask. In MAE mode with
         ``apply_mae_masking`` only the kept n of L patches stay, chosen by
         ``mae_noise`` (B, L) (torch's default generator draws it when None),
         and the (B, L) token mask and restore indices come back; otherwise
@@ -212,12 +230,15 @@ class SkyMIM(nn.Module):
             tokens = tokens.reshape(B, n, self.embed_dim)
         else:
             tokens = self.encoder(tokens)
+        if self.pooled:
+            tokens = self.pool(tokens)[:, None, :]
         return self.norm(tokens, self.dtype), mae_mask, ids_restore
 
     def decode(self, tokens: torch.Tensor, ids_restore: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Reconstruct from encoder tokens (JAX ``decode``). SimMIM: (B, 1 + L,
         D) -> (B, C, H, W), each grid token predicting its own
-        patch_size² x C tile. MAE: the kept tokens (B, extra + n, D) and
+        patch_size² x C tile; with ``attn_pool`` the one pooled token
+        (B, 1, D) predicts the whole image. MAE: the kept tokens (B, extra + n, D) and
         ``ids_restore`` -> (B, L, p²·C) patch predictions."""
         if not self.simmim:
             n_extra = self.num_extra_tokens
@@ -227,10 +248,10 @@ class SkyMIM(nn.Module):
             x = self.decoder(x + self.decoder_pos_embed.to(x.dtype))
             x = self.decoder_pred(self.decoder_norm(x, self.dtype), self.dtype)
             return x[:, n_extra:]  # drop the cls (and RA/Dec) predictions
-        grid = tokens[:, self.num_extra_tokens:]
+        grid = tokens if self.pooled else tokens[:, self.num_extra_tokens:]
         B, L, _ = grid.shape
         h = w = int(round(L ** 0.5))
-        S = self.patch_size
+        S = self.dec_upsample
         pred = self.decoder_pred(grid, self.dtype)
         pred = pred.reshape(B, h, w, self.in_chans, S, S).permute(0, 3, 1, 4, 2, 5)
         return pred.reshape(B, self.in_chans, h * S, w * S)
@@ -304,9 +325,6 @@ def build_mim_model(
     if model_type not in MODEL_TYPES:
         raise ValueError(f"unknown model_type {model_type!r}; options: {sorted(MODEL_TYPES)}")
     size_key, simmim = MODEL_TYPES[model_type]
-    if arch.bool("attn_pool", False):
-        raise NotImplementedError("attn_pool = True is not ported yet "
-                                  "(ROADMAP: attn_pool, with the attention modules)")
     if arch.bool("scan_blocks", False):
         # the JAX scan layout stacks the block params under encoder/blocks/block:
         # refuse it rather than build the loop layout under other names
@@ -350,6 +368,7 @@ def build_mim_model(
         # off; four samples packed per encoder sequence by default
         stash_decoder=arch.bool("stash_decoder", True),
         pack_tokens=arch.int("pack_tokens", 1 if simmim else 4),
+        attn_pool=arch.bool("attn_pool", False),
         **extra,
     )
     if generator is None:

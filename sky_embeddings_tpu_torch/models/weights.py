@@ -3,9 +3,13 @@
 The port's modules keep the JAX tree's names and (in, out) kernel layouts
 (``models/layers.py``), so the map is a rename of paths: the JAX leaf
 ``encoder/block0/attn/qkv/kernel`` is the state-dict entry
-``encoder.block0.attn.qkv.kernel``, with the same shape and values. Both
-directions are pure numpy and torch; the GPU host cannot read flax msgpack
-checkpoints, so weights cross over as numpy trees.
+``encoder.block0.attn.qkv.kernel``, with the same shape and values. The
+attention modules map the same way: an ``attn_pool`` model's
+``pool/latent``, ``pool/xattn/{q,kv,proj}``, ``pool/norm`` and
+``pool/mlp/{fc1,fc2}``, its ``decoder_pred`` at (D, img_size²·C), and an
+``Attention``'s ``qkv``/``proj``. Both directions are pure numpy and torch;
+the GPU host cannot read flax msgpack checkpoints, so weights cross over as
+numpy trees.
 """
 
 from __future__ import annotations

@@ -254,8 +254,9 @@ def _launch_fwd(x, scale, bias, wqkv, bqkv, wproj, bproj, num_heads, stash: bool
                 seg_len: int = 0):
     """K2 (``stash=False``, counted on ``fused_attn_block.launches``) or
     kernel 2 (counted on ``attn_block_fwd_stash.launches``) on CUDA tensors:
-    ``(out, qkv, probs)``, probs None without the stash. A launch with packed
-    segments also counts on the wrapper's ``seg_launches``."""
+    ``(out, qkv, probs, ctx)``, probs None without the stash, ctx the
+    attention core's bf16 output. A launch with packed segments also counts
+    on the wrapper's ``seg_launches``."""
     _check_cuda_args(x, scale, bias, wqkv, bqkv, wproj, bproj, num_heads, "fwd", seg_len)
     B, N, D = x.shape
     qkv = torch.empty((B, N, 3 * D), dtype=torch.bfloat16, device=x.device)
@@ -278,7 +279,7 @@ def _launch_fwd(x, scale, bias, wqkv, bqkv, wproj, bproj, num_heads, stash: bool
     counted = attn_block_fwd_stash if stash else fused_attn_block
     counted.launches += 1
     counted.seg_launches += int(0 < seg_len < N)
-    return out, qkv, probs
+    return out, qkv, probs, ctx
 
 
 def attn_block_fwd_stash(x, scale, bias, wqkv, bqkv, wproj, bproj, num_heads: int,
@@ -290,7 +291,7 @@ def attn_block_fwd_stash(x, scale, bias, wqkv, bqkv, wproj, bproj, num_heads: in
         return attn_block_fwd_stash_plain(x, scale, bias, wqkv, bqkv, wproj, bproj, num_heads,
                                           seg_len)
     return _launch_fwd(x, scale, bias, wqkv, bqkv, wproj, bproj, num_heads, stash=True,
-                       seg_len=seg_len)
+                       seg_len=seg_len)[:3]
 
 
 attn_block_fwd_stash.launches = 0

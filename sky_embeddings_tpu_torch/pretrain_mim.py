@@ -19,11 +19,14 @@ production configs' source: HSC ``calexp-HSC-<band>-<tract>-<patch>.fits``
 files, ``cutouts_per_tile`` random windows a tile) through
 ``FitsTileBatcher``, as the JAX twin does; validation batches from
 ``val_data_file``. The pixel clip runs on the device inside the step.
-``--device cpu`` runs it on the CPU.
+``--device cpu`` runs it on the CPU. When the config names probe sets
+(``lp_class_data_file``, ``lp_regress_data_file``, h5 files under the data
+directory), the linear probes run after each validation pass with
+``lp_combine`` pooling (default ``central``); an ``attn_pool`` model (``--set
+ARCHITECTURE.attn_pool=True``) probes its one pooled token.
 
-Not ported yet: the device-resident data cache, multi-process runs, and the
-linear probes and figures (``train_network`` says so when the config names
-them).
+Not ported yet: the device-resident data cache, multi-process runs and the
+figures.
 """
 
 from __future__ import annotations
@@ -101,6 +104,7 @@ def main(argv=None) -> str:
     train_network(
         pretrainer, train_batcher.forever(), val_batcher, pretrainer.total_batch_iters,
         args.verbose_iters, args.cp_time, model_filename, **lp,
+        lp_combine=data.str("lp_combine", "central"),
     )
     return model_filename
 

@@ -17,8 +17,12 @@ as the JAX step makes it by folding the batch index and the step into its
 key; an MAE model masks its validation batches too, as JAX's eval step
 does.
 
+``train_network`` runs the linear probes (``eval/linear_probe``) after each
+validation pass when the config names probe sets, and keeps their metrics
+beside the losses, as JAX's does.
+
 Not ported yet (ROADMAP): tensor parallelism and ZeRO (they raise), and the
-linear probes and figures of ``train_network`` (skipped with a message).
+figures of ``train_network``.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ import numpy as np
 import torch
 
 from sky_embeddings_tpu_torch.eval.eval_fns import batch_ra_dec
+from sky_embeddings_tpu_torch.eval.linear_probe import linear_probe
 from sky_embeddings_tpu_torch.models.mim import SkyMIM, build_mim_model
 from sky_embeddings_tpu_torch.ops.masking import simmim_batch_mask
 from sky_embeddings_tpu_torch.train.optim import pretrain_optimizer
@@ -211,14 +216,17 @@ def train_network(
     verbose_iters: int,
     cp_time_minutes: float,
     model_filename: str,
-    lp_class_data_file: Optional[str] = None,
-    lp_regress_data_file: Optional[str] = None,
+    lp_class_data_file=None,
+    lp_regress_data_file=None,
+    lp_combine: str = "central",
     max_val_batches: int = 200,
     log_fn: Callable[[str], None] = print,
 ) -> None:
-    """The pretraining loop (JAX ``train_network``): train steps, a
-    validation pass of at most ``max_val_batches`` every ``verbose_iters``,
-    checkpoints every ``cp_time_minutes`` and at the end."""
+    """The pretraining loop (JAX ``train_network``): train steps; every
+    ``verbose_iters`` a validation pass of at most ``max_val_batches`` and,
+    when probe sets are given (h5 paths, or lists of labelled batches), the
+    linear probes with ``lp_combine`` pooling, their metrics appended to
+    the losses; checkpoints every ``cp_time_minutes`` and at the end."""
     losses = pretrainer.losses
     losses_cp: dict = defaultdict(list)
     cp_start = time.time()
@@ -226,9 +234,6 @@ def train_network(
     if pretrainer.cur_iter >= total_batch_iters:
         log_fn("Training already complete for this config; nothing to do.")
         return
-    if lp_class_data_file or lp_regress_data_file:
-        log_fn("Linear probes and progress figures (ROADMAP) are not "
-               "ported yet; skipping them.")
 
     timer = StepTimer(batch_size=pretrainer.batch_size, device=pretrainer.device)
     for batch in train_batches:
@@ -242,6 +247,11 @@ def train_network(
             if val_batcher is not None:
                 for i, vbatch in enumerate(val_batcher.take(max_val_batches)):
                     losses_cp["val_loss"].append(pretrainer.eval_batch(vbatch, idx=i))
+            if lp_class_data_file or lp_regress_data_file:
+                probe = linear_probe(pretrainer.model, lp_class_data_file, lp_regress_data_file,
+                                     combine=lp_combine, img_size=pretrainer.model.img_size)
+                for k, v in probe.items():
+                    losses_cp[k].append(v)
             for k in losses_cp:
                 losses[k].append(float(np.mean([float(x) for x in losses_cp[k]])))
             losses["batch_iters"].append(cur_iter)
@@ -252,6 +262,10 @@ def train_network(
                    f"  {perf['img_per_sec']:.0f} img/s"]
             if losses.get("val_loss"):
                 msg.append(f"  val loss {losses['val_loss'][-1]:.4f}")
+            if losses.get("val_lp_acc"):
+                msg.append(f"  lp acc {losses['val_lp_acc'][-1]:.3f}")
+            if losses.get("val_lp_r2"):
+                msg.append(f"  lp r2 {losses['val_lp_r2'][-1]:.3f}")
             log_fn(" |".join(msg))
 
         if (time.time() - cp_start) >= cp_time_minutes * 60 or cur_iter >= total_batch_iters:

@@ -30,6 +30,15 @@ ragged bank rows, widths and query counts, and the retrieval routes on the
 card: one launch per ``query_multi``, the chunked scorer against the single
 pass, the int8 two-stage scorers' agreement with the exact ranking.
 
+Kernels 12 and 13 (the standalone attention forward and backward behind
+``layers.Attention``) are held to their plain versions in bf16 and fp32 at
+ViT-B, ViT-H (heads of 80), the MAE decoder's heads of 32, N = 256 and
+ragged shapes (fp32 also at head dims that are no multiple of 16); kernel
+12's bf16 context equals, bit for bit, the context K2's core computes from
+the same qkv; the wrappers refuse what the kernels do not take; an
+``Attention`` module's ``backward()`` launches each kernel once and matches
+the plain path.
+
 Every test is marked ``cuda`` and skips where there is no card. This file
 imports neither JAX nor the JAX package, so it runs on a host without them:
 
@@ -44,6 +53,7 @@ import numpy as np
 import pytest
 import torch
 
+from sky_embeddings_tpu_torch.ops.kernels import attention as tat
 from sky_embeddings_tpu_torch.ops.kernels import attn_block as tab
 from sky_embeddings_tpu_torch.ops.kernels import mlp_block as tmb
 from sky_embeddings_tpu_torch.ops.kernels import simscore as tss
@@ -857,3 +867,92 @@ def test_mae_remat_gradients_equal_the_stored_path_on_the_card(dev):
     assert torch.equal(la, lb) and got.keys() == want.keys()
     for name, grad in got.items():
         assert torch.equal(grad, want[name]), name
+
+
+# -- kernels 12 and 13: the standalone attention core ---------------------------------
+
+# (B, N, D, H): ViT-B, ViT-H's heads of 80, the MAE decoder's 16 heads of
+# 32, N = 256 at hd = 64 (the bf16 plans' largest N), ragged B and N
+CORE_SHAPES = [(3, 65, 768, 12), (2, 66, 1280, 16), (4, 65, 512, 16), (2, 256, 256, 4),
+               (5, 17, 64, 4), (3, 131, 240, 3), (1, 200, 96, 6)]
+TOL_F32_CORE = 1e-4
+
+
+def _core_inputs(dev, B, N, D, dtype, seed):
+    rng = np.random.default_rng(seed)
+    f = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(dev, dtype)
+    return f(B, N, 3 * D), f(B, N, D)
+
+
+# fp32 also at head dims of 15 and 12 (bf16 refuses them: tested below)
+CORE_CASES = ([(*s, torch.bfloat16) for s in CORE_SHAPES]
+              + [(*s, torch.float32) for s in CORE_SHAPES + [(3, 17, 60, 4), (2, 33, 36, 3)]])
+
+
+@pytest.mark.parametrize("B,N,D,H,dtype", CORE_CASES)
+def test_attention_kernels_match_plain(dev, B, N, D, H, dtype):
+    qkv, dctx = _core_inputs(dev, B, N, D, dtype, seed=B + N)
+    ctx = tat.fused_attention(qkv, H)
+    dqkv = tat.fused_attention_bwd(qkv, dctx, H)
+    assert ctx.shape == (B, N, D) and dqkv.shape == qkv.shape
+    assert ctx.dtype == dqkv.dtype == dtype
+    fwd_bar, bwd_bar = (TOL_FWD, TOL_BWD) if dtype == torch.bfloat16 else (TOL_F32_CORE,) * 2
+    assert _max_rel(ctx, tat.attention_plain(qkv, H)) <= fwd_bar
+    assert _max_rel(dqkv, tat.attention_bwd_plain(qkv, dctx, H)) <= bwd_bar
+
+
+@pytest.mark.parametrize("B,N,D,H", [(3, 65, 768, 12), (2, 66, 1280, 16), (2, 256, 256, 4)])
+def test_attention_forward_equals_the_attention_block_core(dev, B, N, D, H):
+    """Kernel 12 in bf16 is K2's core launched alone: on the qkv that kernel 2
+    hands back, its context equals the one K2's core computed, bit for bit."""
+    args = _block_args(dev, B, N, D, (D, 3 * D), (D, D), seed=9)
+    _, qkv, _, ctx = tab._launch_fwd(*args, H, stash=True)
+    assert torch.equal(tat.fused_attention(qkv, H), ctx)
+
+
+def test_attention_wrappers_refuse_and_count(dev):
+    qkv, dctx = _core_inputs(dev, 2, 65, 768, torch.bfloat16, seed=1)
+    for bad, match in ((qkv.half(), "bf16 or fp32"), (qkv[:, :, :-1], "contiguous"),
+                       (torch.zeros(1, 257, 192, device=dev, dtype=torch.bfloat16), "bound"),
+                       (torch.zeros(2, 17, 3 * 72, device=dev, dtype=torch.bfloat16), "multiple of 16")):
+        with pytest.raises(ValueError, match=match):
+            tat.fused_attention(bad, 6 if bad.shape[-1] == 3 * 72 else 12)
+    with pytest.raises(ValueError, match="divisible"):
+        tat.fused_attention(qkv, 7)
+    with pytest.raises(ValueError, match="dctx"):
+        tat.fused_attention_bwd(qkv, dctx.float(), 12)
+    with pytest.raises(ValueError, match="shared-memory plan"):  # fp32 K and V of 256 x 128
+        tat.fused_attention(torch.zeros(1, 256, 3 * 128, device=dev), 1)
+    n12, n13 = tat.fused_attention.launches, tat.fused_attention_bwd.launches
+    tat.fused_attention(qkv, 12)
+    tat.fused_attention_bwd(qkv, dctx, 12)
+    torch.cuda.synchronize()
+    assert (tat.fused_attention.launches, tat.fused_attention_bwd.launches) == (n12 + 1, n13 + 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_attention_module_backward_launches_kernels_12_and_13(dev, dtype):
+    """``layers.Attention`` at ViT-B width: one forward and ``backward()``
+    launch kernel 12 once and kernel 13 once, and every gradient matches the
+    plain path's from the same weights."""
+    from sky_embeddings_tpu_torch.models.layers import Attention
+
+    mod = Attention(768, 12, dtype)
+    for lin in (mod.qkv, mod.proj):
+        lin.reset_parameters(torch.Generator().manual_seed(1))
+    mod.to(dev)
+    x = (torch.randn(4, 65, 768, device=dev) * 0.5).to(dtype)
+    grads = []
+    for plain in (False, True):
+        mod.plain = plain
+        mod.zero_grad(set_to_none=True)
+        xi = x.clone().requires_grad_()
+        n = (tat.fused_attention.launches, tat.fused_attention_bwd.launches)
+        (mod(xi).float() ** 2).sum().backward()
+        torch.cuda.synchronize()
+        got = (tat.fused_attention.launches - n[0], tat.fused_attention_bwd.launches - n[1])
+        assert got == ((0, 0) if plain else (1, 1))
+        grads.append({"x": xi.grad, **{k: p.grad for k, p in mod.named_parameters()}})
+    bar = TOL_BWD if dtype == torch.bfloat16 else TOL_F32_CORE
+    for k, g in grads[0].items():
+        assert _max_rel(g, grads[1][k]) <= bar, k

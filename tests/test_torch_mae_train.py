@@ -31,7 +31,11 @@ from sky_embeddings_tpu.train.optim import pretrain_optimizer as jax_pretrain_op
 from sky_embeddings_tpu.train.schedules import cosine_annealing as jax_cosine
 from sky_embeddings_tpu_torch.configuration import Config, load_config
 from sky_embeddings_tpu_torch.data import fits_io
-from sky_embeddings_tpu_torch.data.synthetic import make_cutouts, write_synthetic_h5
+from sky_embeddings_tpu_torch.data.synthetic import (
+    make_cutouts,
+    write_structured_h5,
+    write_synthetic_h5,
+)
 from sky_embeddings_tpu_torch.models import mim as port_mim
 from sky_embeddings_tpu_torch.models.weights import params_from_jax
 from sky_embeddings_tpu_torch.train.pretrain import MIMPretrainer
@@ -227,8 +231,9 @@ def _write_tiles(root, bands, n_tiles=2, size=(96, 104), calexp=True, seed=3):
 def test_pretrain_cli_twin_trains_from_fits_tiles(tmp_path, monkeypatch, capsys):
     """``mim_tiny`` without ``train_data_file``: the twin streams its training
     batches from the FITS tiles under ``train_data_paths`` (random windows
-    of the tiles, as the JAX twin does), validates on the h5 file, and
-    saves a checkpoint that holds the steps taken."""
+    of the tiles, as the JAX twin does), validates on the h5 file, probes on
+    the probe file the config names, and saves a checkpoint that holds the
+    steps taken."""
     from sky_embeddings_tpu_torch import pretrain_mim
 
     configs = tmp_path / "configs"
@@ -242,15 +247,17 @@ def test_pretrain_cli_twin_trains_from_fits_tiles(tmp_path, monkeypatch, capsys)
     data = tmp_path / "data"
     data.mkdir()
     write_synthetic_h5(str(data / "tiny_val.h5"), n=32, channels=3, img_size=16, seed=2)
+    write_structured_h5(str(data / "tiny_probe.h5"), 64, channels=3, img_size=16, seed=5)
     monkeypatch.setattr(pretrain_mim, "REPO_DIR", str(tmp_path))
     path = pretrain_mim.main(["mim_tiny", "-v", "5", "-ct", "100", "-dd", str(data), "--device", "cpu",
                               "--set", f"DATA.train_data_paths=['{tiles}']",
                               "--set", "DATA.cutouts_per_tile=48", "--set", "TRAINING.total_batch_iters=10"])
     out = capsys.readouterr().out
     assert "The training set consists of 2 sky tiles." in out
-    assert "Batch Iterations: 10/10" in out and "val loss" in out
+    assert "Batch Iterations: 10/10" in out and "val loss" in out and "lp acc" in out
     payload = load_checkpoint(path)
     assert payload["step"] == 10 and np.isfinite(payload["losses"]["train_loss"]).all()
+    assert len(payload["losses"]["val_lp_r2"]) == 2
 
 
 # the docstring's documented commands, cut: (config, its --set command, the
@@ -273,10 +280,11 @@ DOCUMENTED = {
 def test_documented_commands_train_from_fits_tiles(name, tmp_path, monkeypatch, capsys):
     """The module docstring's commands, as given, then cut: the zoo depth to
     2 (the MAE decoder too), batch 8, 2 steps, 16 windows a tile, the
-    config's bands written as FITS tiles where ``train_data_paths`` points
-    and its validation file as a synthetic h5. The production configs name
-    only ``train_data_paths``: before the FITS branch the twin refused
-    them."""
+    config's bands written as FITS tiles where ``train_data_paths`` points,
+    its validation file as a synthetic h5 and its two probe files as small
+    structured h5 files, probed on mean-pooled features. The production
+    configs name only ``train_data_paths``: before the FITS branch the twin
+    refused them."""
     from sky_embeddings_tpu_torch import pretrain_mim
 
     config, command, size, bands, calexp, shapes = DOCUMENTED[name]
@@ -289,16 +297,20 @@ def test_documented_commands_train_from_fits_tiles(name, tmp_path, monkeypatch, 
     data.mkdir()
     write_synthetic_h5(str(data / cfg.data.str("val_data_file")), n=16, channels=len(bands),
                        img_size=64, seed=4)
+    for seed, key in enumerate(("lp_class_data_file", "lp_regress_data_file")):
+        write_structured_h5(str(data / cfg.data.str(key)), 32, channels=len(bands), img_size=64,
+                            seed=seed)
     monkeypatch.setattr(pretrain_mim, "REPO_DIR", str(tmp_path))
     path = pretrain_mim.main([config, "-v", "1", "-ct", "100", "-dd", str(data), "--device", "cpu",
                               *command, "--set", "TRAINING.batch_size=8",
                               "--set", "TRAINING.total_batch_iters=2",
                               "--set", f"DATA.train_data_paths=['{tiles}']",
-                              "--set", "DATA.cutouts_per_tile=16"])
+                              "--set", "DATA.cutouts_per_tile=16", "--set", "DATA.lp_combine=mean"])
     out = capsys.readouterr().out
     assert path.endswith(f"{command[-1]}.ckpt.pt")
     assert "1 sky tiles" in out and "Batch Iterations: 2/2" in out and "val loss" in out
     payload = load_checkpoint(path)
     assert payload["step"] == 2 and np.isfinite(payload["losses"]["train_loss"]).all()
+    assert len(payload["losses"]["val_lp_acc"]) == len(payload["losses"]["val_lp_r2"]) == 2
     for leaf, shape in shapes.items():
         assert tuple(payload["params"][leaf].shape) == shape, leaf

@@ -208,7 +208,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     )
     assert len(mods) >= 15
     for new in ("data.fits_io", "data.fits_loader", "sky_sim_search", "eval.bank",
-                "eval.simsearch", "ops.kernels.simscore"):
+                "eval.simsearch", "ops.kernels.simscore", "ops.kernels.attention", "eval.probe",
+                "eval.linear_probe"):
         assert f"{pkg.__name__}.{new}" in mods
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
 
@@ -227,11 +228,16 @@ def test_unported_model_options_raise():
 
     base = {"TRAINING": {}, "ARCHITECTURE": dict(
         img_size=16, num_channels=3, embed_dim=48, patch_size=4, model_type="simmim")}
-    for arch in ({"scan_blocks": "True"}, {"attn_pool": "True"},
-                 {"model_type": "base", "attn_pool": "True"}):
+    for arch in ({"scan_blocks": "True"}, {"model_type": "base", "scan_blocks": "True"}):
         cfg = Config.from_dict({**base, "ARCHITECTURE": {**base["ARCHITECTURE"], **arch}})
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build_mim_model(cfg, device="cpu")
-    # the MAE model types build (tests/test_torch_mae.py holds them to JAX)
+    # the MAE model types build (tests/test_torch_mae.py holds them to JAX),
+    # and attn_pool builds the pooled SimMIM (tests/test_torch_attention.py);
+    # MAE ignores attn_pool, as JAX does
     cfg = Config.from_dict({**base, "ARCHITECTURE": {**base["ARCHITECTURE"], "model_type": "base"}})
     assert not build_mim_model(cfg, device="cpu").simmim
+    for model_type, pooled in (("simmim", True), ("base", False)):
+        arch = {**base["ARCHITECTURE"], "model_type": model_type, "attn_pool": "True"}
+        assert build_mim_model(Config.from_dict({**base, "ARCHITECTURE": arch}),
+                               device="cpu").pooled == pooled

@@ -334,24 +334,27 @@ def test_serving_twin_restores_the_trainer_checkpoint(tmp_path):
 
 def test_pretrain_cli_twin_runs_on_cpu(tmp_path, monkeypatch, capsys):
     """``python -m sky_embeddings_tpu_torch.pretrain_mim mim_tiny --device cpu``
-    on synthetic h5 files: 40 steps (the config's total), validation every
-    20, a checkpoint at the end that a second run resumes as complete."""
+    on synthetic h5 files: 40 steps (the config's total), validation and the
+    linear probes on mim_tiny's probe file every 20, a checkpoint at the end
+    that a second run resumes as complete."""
     from sky_embeddings_tpu_torch import pretrain_mim
-    from sky_embeddings_tpu_torch.data.synthetic import write_synthetic_h5
+    from sky_embeddings_tpu_torch.data.synthetic import write_structured_h5, write_synthetic_h5
 
     (tmp_path / "configs").symlink_to(CONFIGS)
     data = tmp_path / "data"
     data.mkdir()
     write_synthetic_h5(str(data / "tiny_train.h5"), n=64, channels=3, img_size=16, seed=1)
     write_synthetic_h5(str(data / "tiny_val.h5"), n=32, channels=3, img_size=16, seed=2)
+    write_structured_h5(str(data / "tiny_probe.h5"), 160, channels=3, img_size=16, seed=3)
     monkeypatch.setattr(pretrain_mim, "REPO_DIR", str(tmp_path))
     argv = ["mim_tiny", "-v", "20", "-ct", "100", "-dd", str(data), "--device", "cpu"]
     path = pretrain_mim.main(argv)
     out = capsys.readouterr().out
     assert "Batch Iterations: 40/40" in out and "val loss" in out
-    assert "Linear probes" in out  # mim_tiny names probe files: skipped, said once
+    assert "lp acc" in out and "lp r2" in out  # mim_tiny names probe files
     trainer = _port_trainer()
     assert trainer.restore(path) and trainer.cur_iter == 40
     assert len(trainer.losses["val_loss"]) == 2 and np.isfinite(trainer.losses["train_loss"]).all()
+    assert len(trainer.losses["val_lp_acc"]) == len(trainer.losses["val_lp_r2"]) == 2
     pretrain_mim.main(argv)
     assert "already complete" in capsys.readouterr().out
