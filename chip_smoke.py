@@ -37,10 +37,13 @@ failing loudly (any failure exits non-zero and prints no result line):
    D=1280, 16 heads of 80; B=32, 256, 31), the MAE decoder (N=65, D=512, 16
    heads of 32; B=1024) and N=256 at hd=64, and in fp32 at ViT-B B=64 and
    ViT-H B=32 (bar TOL_CORE_F32); kernel 12's bf16 context bit-equal to the
-   one K2's core computes from the same qkv; each timed at ViT-B B=1024 and
-   ViT-H B=256 beside ``F.scaled_dot_product_attention`` on the same
-   (B, H, N, hd) views, forward and forward + backward (the library column,
-   measured here and used nowhere in the port);
+   one K2's core computes from the same qkv; kernel 13 twice on the same
+   inputs bit-equal; each timed in bf16 at ViT-B B=1024 and ViT-H B=256
+   and in fp32 at ViT-B B=64 and ViT-H B=32 beside
+   ``F.scaled_dot_product_attention`` on the same (B, H, N, hd) views
+   (fp32 with TF32 off), forward and forward + backward (the library
+   column, measured here and used nowhere in the port), each record with
+   its share of the bound and the bytes it must move per ms;
 4. the serving path, through the entry points ``similarity_search`` calls, on
    ``configs/mim_1.ini`` (SimMIM ViT-B, bf16, full depth, seeded weights) and
    synthetic cutouts with whole-band NaNs: ``extract_latents`` of 2 targets
@@ -736,7 +739,22 @@ def main() -> int:
         flops = (10 if backward else 4) * B * h * n * n * (d // h)
         return flops, (7 if backward else 4) * B * n * d * elt
 
-    core_gap = {}
+    def core_record(name, tag, kern, plain, err, work, lib, lib_name, dt):
+        """One timing record of kernel 12 or 13 beside its plain version and
+        SDPA (``lib``), with its share of the bound and the bytes it must
+        move per ms of its time."""
+        iters = 20
+        flops, nbytes = work
+        b_ms, b_by = bound_ms(flops, nbytes, PEAK_BF16 if dt == torch.bfloat16 else PEAK_FP32)
+        k_ms = cuda_ms(kern, iters)
+        timings[(name, tag)] = {
+            "max_rel_err": err[0], "max_abs_err": err[1],
+            "ms": k_ms, "plain_ms": cuda_ms(plain, 5),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": cuda_ms(lib, iters),
+            "library": lib_name, "bound_share": b_ms / k_ms, "bytes_per_ms": nbytes / k_ms,
+        }
+
+    core_gap, same_bwd = {}, None
     for label, B, n, d, h, dt_name in CORE_CASES:
         dt = getattr(torch, dt_name)
         qkv = torch.randn(B, n, 3 * d, generator=gen, device=dev).to(dt)
@@ -753,7 +771,9 @@ def main() -> int:
               f"{bars[0]} / {bars[1]}), max-abs {af:.3e} / {ab:.3e}, finite {finite}", flush=True)
         check(finite and rf <= bars[0] and rb <= bars[1], f"kernels 12 / 13 {tag} parity")
         del got_f, got_b, want_f, want_b
-        if (label, B) in CORE_TIMED and dt == torch.bfloat16:
+        timed = (label, B) in CORE_TIMED and dt == torch.bfloat16
+        timed_f32 = dt == torch.float32  # ViT-B B=64 and ViT-H B=32, TF32 off
+        if timed or timed_f32:
             q4, k4, v4 = qkv.view(B, n, 3, h, d // h).permute(2, 0, 3, 1, 4).unbind(0)
             qg, kg, vg = (t.detach().requires_grad_() for t in (q4, k4, v4))
             g4 = dctx.view(B, n, h, d // h).transpose(1, 2)
@@ -762,22 +782,22 @@ def main() -> int:
                 out = torch.nn.functional.scaled_dot_product_attention(qg, kg, vg)
                 torch.autograd.grad(out, (qg, kg, vg), g4)
 
-            iters = 20
-            for name, kern, plain, err, bwd, lib in (
-                ("attention_fwd", lambda: fused_attention(qkv, h), lambda: attention_plain(qkv, h),
-                 (rf, af), False,
-                 lambda: torch.nn.functional.scaled_dot_product_attention(q4, k4, v4)),
-                ("attention_bwd", lambda: fused_attention_bwd(qkv, dctx, h),
-                 lambda: attention_bwd_plain(qkv, dctx, h), (rb, ab), True, sdpa_fwd_bwd),
-            ):
-                b_ms, b_by = bound_ms(*core_bound(B, n, d, h, 2, bwd), PEAK_BF16)
-                timings[(name, f"{label}{B}")] = {
-                    "max_rel_err": err[0], "max_abs_err": err[1],
-                    "ms": cuda_ms(kern, iters), "plain_ms": cuda_ms(plain, 5),
-                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": cuda_ms(lib, iters),
-                    "library": "F.scaled_dot_product_attention" + (" forward + backward" if bwd else ""),
-                }
+            sfx = "" if timed else "_f32"
+            elt = 2 if timed else 4
+            lib = "F.scaled_dot_product_attention" + ("" if timed else " (fp32, TF32 off)")
+            core_record("attention_fwd" + sfx, f"{label}{B}", lambda: fused_attention(qkv, h),
+                        lambda: attention_plain(qkv, h), (rf, af), core_bound(B, n, d, h, elt, False),
+                        lambda: torch.nn.functional.scaled_dot_product_attention(q4, k4, v4), lib, dt)
+            core_record("attention_bwd" + sfx, f"{label}{B}", lambda: fused_attention_bwd(qkv, dctx, h),
+                        lambda: attention_bwd_plain(qkv, dctx, h), (rb, ab), core_bound(B, n, d, h, elt, True),
+                        sdpa_fwd_bwd, lib + " forward + backward", dt)
             del q4, k4, v4, qg, kg, vg, g4
+        if timed and B == CORE_TIMED[0][1]:
+            # kernel 13 twice on the same inputs gives the same bits (no atomics,
+            # nothing summed in device memory)
+            same_bwd = bool(torch.equal(fused_attention_bwd(qkv, dctx, h), fused_attention_bwd(qkv, dctx, h)))
+            print(f"kernel 13 twice on the same inputs ({tag}): bit-equal {same_bwd}", flush=True)
+            check(same_bwd, "kernel 13 deterministic")
         del qkv, dctx
     # kernel 12 in bf16 is K2's core launched alone: on the qkv kernel 2 hands
     # back, its context equals the one K2's core computed, bit for bit
@@ -1596,7 +1616,8 @@ def main() -> int:
     emit({"kernel_times": [{"name": n, "shape": s_, **v} for (n, s_), v in timings.items()],
           "kernel9_vs_kernel8_max_rel": {str(b): v for b, v in stream_gap.items()},
           "packed_vs_unpacked_max_rel": {str(b): v for b, v in pack_gap.items()},
-          "attention_core_max_rel": core_gap, "kernel12_equals_k2_core": same_core})
+          "attention_core_max_rel": core_gap, "kernel12_equals_k2_core": same_core,
+          "kernel13_twice_bit_equal": same_bwd})
     emit({
         "main_path": {"seconds": t_main, "encoder_calls": encoder_calls, "launches": launches,
                       "tokens_max_rel_vs_plain": tok_rel, "tokens_max_abs_vs_plain": tok_abs,

@@ -9,8 +9,8 @@ Two kernels, both in CUDA C++ (``csrc/attention.cu``):
   rounds the probabilities.
 - Kernel 13, the backward: replaces ``_fused_attention_bwd_call``
   (``_attn_bwd_kernel``). bf16 runs kernel 4's recompute core without its
-  ctx product into an fp32 dqkv, then rounds it once; fp32 a two-pass
-  CUDA-core kernel (by query rows, then by key rows).
+  ctx product, writing dq, dk and dv straight to bf16 (each rounded once);
+  fp32 a two-pass CUDA-core kernel (by query rows, then by key rows).
 
 :class:`AttentionFn` pairs them (JAX ``fused_attention_ad``: qkv is saved,
 the backward recomputes the probabilities) and :func:`attention_context` is
@@ -23,9 +23,10 @@ they never take the plain path.
 
 What bounds them on the H100: bytes. Kernel 12 reads 3·B·N·D elements and
 writes B·N·D against 4·B·H·N²·hd FLOP (ViT-B: about 33 FLOP per bf16 byte,
-under the card's ~295); kernel 13 moves 7·B·N·D for 10·B·H·N²·hd. Each head's
-logits, probabilities and dS stay in shared memory; kernel 13's fp32 dqkv
-round trip is the first byte cost to remove.
+under the card's ~295); kernel 13 moves 7·B·N·D for 10·B·H·N²·hd. The bf16
+cores (``csrc/attn_core.cuh``) keep each head's logits and probabilities in
+registers (``mma.sync``), kernel 12 keeps the next heads' loads in flight,
+and kernel 13 writes its bf16 output once, with no fp32 scratch.
 
 Numerics (kernel and plain versions alike), per (sample, head): S = q·kᵀ
 with fp32 accumulation, P = softmax(S·hd^-0.5) in fp32, P rounded to v's
@@ -156,13 +157,8 @@ def fused_attention_bwd(qkv: torch.Tensor, dctx: torch.Tensor, num_heads: int) -
         return attention_bwd_plain(qkv, dctx, num_heads)
     _check_cuda_args(qkv, num_heads, dctx)
     dqkv = torch.empty_like(qkv)
-    if qkv.dtype == torch.float32:
-        _launch("sky_attention_bwd_f32", [qkv.data_ptr(), dctx.data_ptr(), dqkv.data_ptr()], qkv,
-                num_heads)
-    else:
-        scratch = torch.empty(qkv.shape, dtype=torch.float32, device=qkv.device)
-        _launch("sky_attention_bwd", [qkv.data_ptr(), dctx.data_ptr(), scratch.data_ptr(),
-                                      dqkv.data_ptr()], qkv, num_heads)
+    entry = "sky_attention_bwd_f32" if qkv.dtype == torch.float32 else "sky_attention_bwd"
+    _launch(entry, [qkv.data_ptr(), dctx.data_ptr(), dqkv.data_ptr()], qkv, num_heads)
     fused_attention_bwd.launches += 1
     return dqkv
 

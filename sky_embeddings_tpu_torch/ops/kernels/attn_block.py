@@ -6,9 +6,10 @@ Four kernels, all in CUDA C++:
 - K2, the primal forward: replaces the TPU kernel
   ``sky_embeddings_tpu/ops/kernels/attn_block.py`` ``_pallas_fwd``
   (``_fwd_kernel`` / ``_fwd_kernel_loop``).
-  ``csrc/attn_block.cu`` entry ``sky_attn_block_fwd``: LN, qkv GEMM, an
-  attention core with one CTA per (sample, head) holding q, k and v in
-  shared memory, then proj GEMM + residual.
+  ``csrc/attn_block.cu`` entry ``sky_attn_block_fwd``: LN, qkv GEMM, the
+  attention core of ``csrc/attn_core.cuh`` (``mma.sync`` with S and P in
+  registers, CTAs walking (sample, head) pairs through a cp.async ring),
+  then proj GEMM + residual.
 - Kernel 2, the stash forward: replaces ``_pallas_fwd_stash``. The same
   launches (entry ``sky_attn_block_fwd_stash``), which also hand back qkv
   (B, N, 3D) and the softmax probabilities (B, H, N, N), bf16, in JAX's
@@ -38,9 +39,11 @@ keeping them on chip and wgmma are later work.
 Head dims: any multiple of 16 whose core fits a block's shared memory at
 the given N. The check asks the CUDA source for its plan's bytes
 (``sky_attn_fwd_plan_bytes``, ``sky_attn_bwd_plan_bytes``), so the wrapper
-and the kernel cannot disagree; a plan shrinks its query blocks before it
-gives up. ViT-H's 80 fits every core up to N = 256; 192 at N = 256 fits
-none and is refused.
+and the kernel cannot disagree; a backward plan shrinks its query blocks
+and splits its output columns over CTAs before it gives up, a forward plan
+drops its second ring slot, then Q. ViT-H's 80 fits every core up to
+N = 256; at N = 256 the backward cores take up to 144, the forward up to
+208, and 224 fits none.
 
 Packed segments: ``seg_len > 0`` declares the N tokens to be N // seg_len
 samples packed along the sequence (MAE sequence packing,
@@ -197,16 +200,16 @@ def _lib(name: str, entry: str, n_ptr: int, n_int: int) -> ctypes.CDLL:
 def _plan_bytes(core: str, N: int, hd: int) -> int:
     """Shared-memory bytes of a core's plan at (N, hd), as the CUDA source
     computes them: ``"fwd"`` (K2, kernel 2), ``"stash"`` (kernel 3) or
-    ``"recompute"`` (kernel 4)."""
+    ``"recompute"`` (kernel 4); kernels 3 and 4 share one plan."""
     if core == "fwd":
-        lib, entry, args = "attn_block", "sky_attn_fwd_plan_bytes", (N, hd)
+        lib, entry = "attn_block", "sky_attn_fwd_plan_bytes"
     else:
-        lib, entry, args = "attn_block_bwd", "sky_attn_bwd_plan_bytes", (N, hd, int(core == "recompute"))
+        lib, entry = "attn_block_bwd", "sky_attn_bwd_plan_bytes"
     fn = getattr(cuda_build.load(lib), entry)
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_int] * len(args)
+        fn.argtypes = [ctypes.c_int] * 2
         fn.restype = ctypes.c_longlong
-    return int(fn(*args))
+    return int(fn(N, hd))
 
 
 def _check_cuda_args(x, scale, bias, wqkv, bqkv, wproj, bproj, num_heads, core: str,

@@ -13,10 +13,13 @@
 //   sky_attention_bwd (bf16) and sky_attention_bwd_f32.
 //
 // bf16: kernel 12 is K2's attention core (attn_core.cuh, attn_core_kernel)
-// launched alone, without the stash and the mask; kernel 13 runs kernel 4's
-// recompute core (attn_bwd_core_kernel<true>) without its ctx product into
-// an fp32 dqkv (dK and dV sum over the query blocks there) and rounds it to
-// bf16 once, as the TPU kernel rounds each of dq, dk, dv once (:136-138).
+// launched alone, without the stash and the mask; kernel 13 is kernel 4's
+// recompute core (attn_bwd_core_kernel<true>) without its ctx product,
+// writing dq, dk and dv straight to bf16, each rounded once from its fp32
+// accumulator, as the TPU kernel rounds each of them once (:136-138). Both
+// keep S, P and dS in registers (the backward also P and dS of a query
+// block in shared memory for dK = dS^T Q and dV = P^T dC) and sum nothing
+// in device memory.
 //
 // fp32: the TPU kernel takes fp32 qkv too (Attention's default dtype,
 // models/layers.py:125). Here one CTA per (sample, head) holds K and V of
@@ -35,10 +38,9 @@
 // elements against 4 B H N^2 hd FLOP: at ViT-B (N = 65, D = 768, hd = 64)
 // about 33 FLOP per bf16 byte, under the ~295 where the tensor cores become
 // the limit. Kernel 13 moves 7 B N D elements for 10 B H N^2 hd FLOP. The
-// bf16 kernels keep every head's S, P and dS in shared memory; kernel 13's
-// fp32 dqkv round trip (12 B N D bytes written and read again) is the first
-// cost to remove. The fp32 kernels run on the CUDA cores (67 TFLOP/s):
-// correct first, fast later.
+// bf16 cores keep loads in flight (kernel 12 walks several heads per CTA
+// through a two-stage cp.async ring) and move each byte once. The fp32
+// kernels run on the CUDA cores (67 TFLOP/s): correct first, fast later.
 #include "attn_core.cuh"
 
 namespace sky {
@@ -229,17 +231,6 @@ attn_bwd_f32_kernel(const float* __restrict__ qkv, const float* __restrict__ dct
   }
 }
 
-// fp32 -> bf16, n a multiple of 4
-__global__ void round_bf16_kernel(const float4* __restrict__ src, __nv_bfloat162* __restrict__ dst,
-                                  size_t n4) {
-  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n4;
-       i += (size_t)gridDim.x * blockDim.x) {
-    const float4 v = src[i];
-    dst[2 * i] = __floats2bfloat162_rn(v.x, v.y);
-    dst[2 * i + 1] = __floats2bfloat162_rn(v.z, v.w);
-  }
-}
-
 inline cudaError_t launch_f32(bool backward, const void* qkv, const void* dctx, void* out, int B,
                               int N, int D, int H, cudaStream_t s) {
   const int hd = D / H;
@@ -274,7 +265,7 @@ inline cudaError_t launch_f32(bool backward, const void* qkv, const void* dctx, 
 extern "C" long long sky_attention_plan_bytes(int N, int hd, int f32, int bwd) {
   using namespace sky;
   if (f32) return static_cast<long long>(AttnF32Plan(N, hd, bwd != 0).bytes());
-  return static_cast<long long>(bwd ? AttnBwdPlan<true>(N, hd).bytes() : AttnPlan(N, hd).bytes());
+  return static_cast<long long>(bwd ? AttnBwdPlan(N, hd).bytes() : AttnPlan(N, hd).bytes());
 }
 
 // Kernel 12, bf16: ctx (B, N, D) from qkv (B, N, 3D). Returns 0 or the
@@ -286,19 +277,11 @@ extern "C" int sky_attention_fwd(const void* qkv, void* ctx, int B, int N, int D
 }
 
 // Kernel 13, bf16: dqkv (B, N, 3D) bf16 from qkv (B, N, 3D) and dctx
-// (B, N, D); dqkv_f32 is (B, N, 3D) fp32 scratch.
-extern "C" int sky_attention_bwd(const void* qkv, const void* dctx, void* dqkv_f32, void* dqkv,
-                                 int B, int N, int D, int H, void* stream) {
-  using namespace sky;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      launch_attn_bwd_core<true>(qkv, nullptr, dctx, nullptr, dqkv_f32, B, N, D, H, 0, s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t n4 = (size_t)B * N * 3 * D / 4;
-  const int blocks = static_cast<int>(n4 / 256 + 1 < 8192 ? n4 / 256 + 1 : 8192);
-  round_bf16_kernel<<<blocks, 256, 0, s>>>(static_cast<const float4*>(dqkv_f32),
-                                           static_cast<__nv_bfloat162*>(dqkv), n4);
-  return static_cast<int>(cudaGetLastError());
+// (B, N, D).
+extern "C" int sky_attention_bwd(const void* qkv, const void* dctx, void* dqkv, int B, int N, int D,
+                                 int H, void* stream) {
+  return static_cast<int>(sky::launch_attn_bwd_core<true, sky::bf16>(
+      qkv, nullptr, dctx, nullptr, dqkv, B, N, D, H, 0, static_cast<cudaStream_t>(stream)));
 }
 
 // Kernel 12, fp32.

@@ -25,10 +25,11 @@
 // Four launches behind one C entry point:
 //   0. LayerNorm                          -> y (B, N, D) bf16
 //   1. qkv GEMM + bias                    -> qkv (B, N, 3D) bf16
-//   2. attention core, one CTA per (sample, head): q, k, v of N x hd in
-//      shared memory, QK^T and PV on the tensor cores (wmma, fp32
-//      accumulate), fp32 softmax, probs rounded to bf16 before the PV
-//      product, ctx rounded to bf16          -> ctx (B, N, D)
+//   2. attention core (attn_core.cuh): CTAs walk (sample, head) pairs
+//      through a two-stage cp.async ring of k, v and q; each warp owns 16
+//      query rows, QK^T and PV on the tensor cores (mma.sync, fp32
+//      accumulate), S and P in registers, fp32 softmax, probs rounded to
+//      bf16 before the PV product, ctx rounded to bf16 -> ctx (B, N, D)
 //   3. proj GEMM + bias + fp32 residual  -> out (B, N, D) bf16
 // y, qkv and ctx go through device memory exactly where the TPU kernel
 // rounds them to bf16 (attn_block.py:141, :145, :126, :130), so the numerics

@@ -29,17 +29,18 @@
 //   1. LayerNorm of x                         -> y = bf16 LN output   (:298-299)
 //   1b. kernel 4 only: qkv = bf16(y @ Wqkv + bqkv)                     (:174-175)
 //   2. dctx = g @ Wproj^T, rounded            -> dc bf16              (:302-303, :320)
-//   3. backward core, one CTA per (sample, head), query blocks of QB rows:
-//        kernel 4: S = Q K^T (fp32), P = softmax(S * hd^-0.5) in fp32, kept
-//        in shared memory beside its bf16 copy (K2's arithmetic)    (:191-193)
+//   3. backward core (attn_core.cuh), one CTA per (sample, head), query
+//      blocks of QB rows (the whole head at N <= 128):
+//        kernel 4: S = Q K^T (fp32), P = softmax(S * hd^-0.5) in fp32, in
+//        registers beside its bf16 copy (K2's arithmetic)           (:191-193)
 //        ctx = bf16(P_bf16 V)                                         (:318)
 //        dp = dc V^T;  ds = bf16((dp * P - P * rowsum(dp * P)) * hd^-0.5)
 //        with P fp32 (kernel 4) or the stashed bf16 P (kernel 3)
 //        dq = ds K;  dk = ds^T Q;  dv = P_bf16^T dc, all fp32 -> dqkv fp32 (:321-328)
-//      P^T and ds^T are read from the row-major tiles as col_major wmma
-//      fragments. dk and dv sum over every query block: the CTA owns its
-//      (sample, head) slice of dqkv, so it adds each block's products into
-//      it in order, without atomics.
+//      P^T and ds^T are read from the block's bf16 tiles in shared memory
+//      through ldmatrix.trans. dk and dv sum over the query blocks in
+//      registers and shared memory, each key row by one warp in block
+//      order, without atomics and never in device memory.
 //   4. dqkv -> bf16 dqkv_c, and its column sums   (dbqkv from fp32, :354)
 //   5. dy = dqkv_c @ Wqkv^T, fp32                                     (:334)
 //   6. LN backward -> dx, dscale / dbias partials                     (:336-340)
@@ -52,14 +53,12 @@
 //
 // Bound on the H100: ~8 M D^2 FLOP in the four GEMMs (kernel 4: 6 M D^2 more
 // for the qkv recompute) plus 8 B H N^2 hd in the core (kernel 4: 10):
-// operation-bound; the first version runs on the wmma GEMM of gemm.cuh, and
-// dqkv's fp32 round trip (M * 3D * 4 bytes written and read twice) is the
-// first byte cost to remove.
+// operation-bound; the GEMMs run on the wmma GEMM of gemm.cuh, and dqkv's
+// fp32 round trip (M * 3D * 4 bytes written and read twice) is the largest
+// byte cost left.
 //
-// Shared memory: kernel 3's core needs 226 KB of the 227 KB a CTA may use at
-// N = 256, hd = 64; kernel 4 keeps an fp32 P tile beside the bf16 one, so it
-// takes smaller query blocks (64 rows past N = 64, 32 past N = 128): 183 KB
-// at N = 256, 107 KB at N = 66 (two CTAs per SM).
+// Shared memory (AttnBwdPlan, attn_core.cuh): 74 240 bytes at N = 65,
+// hd = 64 (three CTAs per SM); kernels 3 and 4 share the plan.
 //
 // The backward core (attn_bwd_core_kernel) lives in attn_core.cuh, shared with
 // kernel 13 (attention.cu), which runs the recompute core alone.
@@ -116,11 +115,10 @@ static int attn_block_bwd(const void* x, const void* ln_scale, const void* ln_bi
   return 0;
 }
 
-// Shared-memory bytes of kernel 3's (recompute = 0) or kernel 4's core plan
-// at (N, hd); the wrappers refuse what exceeds the block's limit.
-extern "C" long long sky_attn_bwd_plan_bytes(int N, int hd, int recompute) {
-  return static_cast<long long>(recompute ? sky::AttnBwdPlan<true>(N, hd).bytes()
-                                          : sky::AttnBwdPlan<false>(N, hd).bytes());
+// Shared-memory bytes of the backward core's plan at (N, hd), kernel 3's
+// and kernel 4's alike; the wrappers refuse what exceeds the block's limit.
+extern "C" long long sky_attn_bwd_plan_bytes(int N, int hd) {
+  return static_cast<long long>(sky::AttnBwdPlan(N, hd).bytes());
 }
 
 // Kernel 3: the gradients from the stashed qkv (B, N, 3D) and probs (B, H, N, N).

@@ -524,10 +524,11 @@ def test_stream_backward_refuses_and_counts(dev, monkeypatch):
 
 
 def test_attention_refuses_a_head_no_plan_fits(dev):
-    """hd = 192 at N = 256: no query-block size fits any core in 227 KB
-    (236 288 bytes for the forward at 16 rows); hd = 128 at N = 256 fits
-    with smaller query blocks and is taken (ATTN_SHAPES)."""
-    args = _block_args(dev, 1, 256, 192, (192, 576), (192, 192), seed=43)
+    """hd = 224 at N = 256: no plan fits any core in 227 KB (the forward's K
+    and V alone take 237 568 bytes; the backward's smallest plan 310 272);
+    hd = 128 at N = 256 fits with smaller query blocks and column chunks and
+    is taken (ATTN_SHAPES)."""
+    args = _block_args(dev, 1, 256, 224, (224, 672), (224, 224), seed=43)
     g = torch.ones_like(args[0])
     for call in (lambda: tab.fused_attn_block(*args, 1),
                  lambda: tab.attn_block_fwd_stash(*args, 1),
@@ -537,7 +538,8 @@ def test_attention_refuses_a_head_no_plan_fits(dev):
     _, qkv, probs = tab.attn_block_fwd_stash_plain(*args, 1)
     with pytest.raises(ValueError, match="shared-memory plan"):
         tab.attn_block_bwd_stash(args[0], args[1], args[2], args[3], args[5], qkv, probs, g, 1)
-    assert tab._plan_bytes("recompute", 66, 80) == 116224
+    assert tab._plan_bytes("fwd", 256, 224) == 237568
+    assert tab._plan_bytes("recompute", 66, 80) == tab._plan_bytes("stash", 66, 80) == 84480
     assert tab._plan_bytes("stash", 256, 80) <= tab.SMEM_PER_BLOCK
 
 
@@ -777,11 +779,12 @@ def test_packed_kernels_equal_unpacked(dev, S, seg, pack):
 
 def test_attention_kernels_at_a_head_of_512(dev):
     """``maesimple``'s decoder: one head of 512 at N = 65. Each core's plan
-    shrinks its query blocks to 16 rows to fit (218 880, 213 504 and
-    218 880 bytes of 232 448), and K2, kernels 2, 3 and 4 match their plain
-    versions."""
+    shrinks to fit (the forward reads Q's fragments from device memory,
+    166 400 bytes; the backward takes 16-row query blocks and 32-column
+    chunks, 228 352 of 232 448), and K2, kernels 2, 3 and 4 match their
+    plain versions."""
     B, N, D, H = 6, 65, 512, 1
-    assert [tab._plan_bytes(c, N, D) for c in ("fwd", "stash", "recompute")] == [218880, 213504, 218880]
+    assert [tab._plan_bytes(c, N, D) for c in ("fwd", "stash", "recompute")] == [166400, 228352, 228352]
     x, scale, bias, wqkv, bqkv, wproj, bproj = args = _block_args(dev, B, N, D, (D, 3 * D), (D, D), 54)
     g = torch.from_numpy(np.random.default_rng(55).normal(size=(B, N, D)).astype(np.float32))
     g = g.to(dev, torch.bfloat16)
@@ -956,3 +959,125 @@ def test_attention_module_backward_launches_kernels_12_and_13(dev, dtype):
     bar = TOL_BWD if dtype == torch.bfloat16 else TOL_F32_CORE
     for k, g in grads[0].items():
         assert _max_rel(g, grads[1][k]) <= bar, k
+
+
+# -- the mma.sync attention cores (csrc/attn_core.cuh): ragged edges, head widths,
+# determinism, the plans' bytes ---------------------------------------------------
+
+SMEM = 232448
+# every N edge (one token, a single 16-row tile, ragged tiles, the 80-row
+# padding of ViT-B/H and MAE, 129: the first query-blocked backward, 256)
+# at every head width; a head of 512 has no plan past N = 80
+CORE_EDGES = [(n, hd) for n in (1, 17, 63, 65, 66, 129, 256) for hd in (16, 32, 64, 80, 128, 512)
+              if hd < 512 or n <= 80]
+
+
+def _plans(N, hd):
+    """The forward's and the backward's shared-memory bytes at (N, hd), as
+    AttnPlan and AttnBwdPlan choose them: the forward two ring slots of K, V
+    and Q, else one, else K and V alone; the backward the widest column
+    chunk, then the largest query block, that fits."""
+    NP, HL = -(-N // 16) * 16, hd + 8
+    fwd = next(b for b in (2 * 3 * NP * HL * 2, 3 * NP * HL * 2, 2 * NP * HL * 2)
+               if b <= SMEM or b == 2 * NP * HL * 2)
+
+    def bwd_bytes(qb, hc):
+        acc = 2 * NP * (hc + 4) * 4 if qb < NP else 0
+        return (2 * NP * HL + 2 * qb * HL + 2 * qb * (NP + 8)) * 2 + acc
+
+    for i, hc in enumerate((hd, 128, 64, 32, 16)):
+        if i and hc >= hd:
+            continue
+        qb = NP if NP <= 128 else 64
+        while qb >= 16:
+            if bwd_bytes(qb, hc) <= SMEM:
+                return fwd, bwd_bytes(qb, hc)
+            qb = 64 if qb > 64 else qb // 2
+    return fwd, bwd_bytes(16, 16)
+
+
+@pytest.mark.parametrize("N,hd", CORE_EDGES)
+def test_attention_cores_at_every_edge(dev, N, hd):
+    """Kernels 12 and 13 (bf16) against their plain versions at each ragged
+    N and head width; kernel 13's dq, dk and dv come straight out in bf16
+    (each rounded once, no fp32 scratch)."""
+    B, H = 3, 2
+    qkv, dctx = _core_inputs(dev, B, N, H * hd, torch.bfloat16, seed=N + hd)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    dqkv = tat.fused_attention_bwd(qkv, dctx, H)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - base <= qkv.numel() * 2 + 512  # dqkv alone
+    assert dqkv.dtype == torch.bfloat16 and dqkv.shape == qkv.shape
+    assert _max_rel(dqkv, tat.attention_bwd_plain(qkv, dctx, H)) <= TOL_BWD
+    assert _max_rel(tat.fused_attention(qkv, H), tat.attention_plain(qkv, H)) <= TOL_FWD
+
+
+@pytest.mark.parametrize("N,hd", [(65, 64), (66, 80), (17, 32), (129, 64), (256, 128), (65, 512)])
+def test_attention_cores_give_the_same_bits_twice(dev, N, hd):
+    """Every core twice on the same inputs, bit for bit: kernels 12 and 13,
+    K2 and kernel 2 (the forward core), kernels 3 and 4 (the backward core,
+    stashed and recomputed; across query blocks and column chunks at
+    N = 129, 256 and hd = 512)."""
+    H = 2
+    D = H * hd
+    qkv, dctx = _core_inputs(dev, 2, N, D, torch.bfloat16, seed=7)
+    args = _block_args(dev, 2, N, D, (D, 3 * D), (D, D), seed=8)
+    g = torch.from_numpy(np.random.default_rng(9).normal(size=(2, N, D)).astype(np.float32)).to(dev, torch.bfloat16)
+    _, qkv_s, probs_s = tab.attn_block_fwd_stash_plain(*args, H)
+    calls = {
+        "kernel 12": lambda: (tat.fused_attention(qkv, H),),
+        "kernel 13": lambda: (tat.fused_attention_bwd(qkv, dctx, H),),
+        "K2": lambda: (tab.fused_attn_block(*args, H),),
+        "kernel 2": lambda: tab.attn_block_fwd_stash(*args, H),
+        "kernel 3": lambda: tab.attn_block_bwd_stash(*args[:4], args[5], qkv_s, probs_s, g, H),
+        "kernel 4": lambda: tab.attn_block_bwd(*args[:6], g, H),
+    }
+    for name, call in calls.items():
+        first, second = call(), call()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(first, second)), name
+
+
+@pytest.mark.parametrize("S,seg,pack,D,H", [(3, 17, 4, 768, 12), (2, 17, 4, 1280, 16), (4, 17, 4, 512, 16)])
+def test_packed_cores_equal_unpacked_at_model_width(dev, S, seg, pack, D, H):
+    """MAE's packing (N = 68, seg_len = 17) at ViT-B, ViT-H and the MAE
+    decoder's head widths: K2's output and kernel 4's gradients with the
+    mask equal the unmasked kernels' on the same samples one to a sequence,
+    within the bars."""
+    B = S * pack
+    x, *w = _block_args(dev, B, seg, D, (D, 3 * D), (D, D), 57)
+    g = torch.from_numpy(np.random.default_rng(58).normal(size=(B, seg, D)).astype(np.float32))
+    g = g.to(dev, torch.bfloat16)
+    xp, gp = x.reshape(S, pack * seg, D), g.reshape(S, pack * seg, D)
+    assert _max_rel(tab.fused_attn_block(xp, *w, H, seg_len=seg).reshape(B, seg, D),
+                    tab.fused_attn_block(x, *w, H)) <= TOL_FWD
+    got = tab.attn_block_bwd(xp, *w[:5], gp, H, seg)
+    want = tab.attn_block_bwd(x, *w[:5], g, H)
+    assert _max_rel(got[0].reshape(B, seg, D), want[0]) <= TOL_BWD
+    for name, a, b in zip(("dscale", "dbias", "dwqkv", "dbqkv", "dwproj", "dbproj"), got[1:], want[1:]):
+        assert _max_rel(a, b) <= TOL_BWD, name
+
+
+@pytest.mark.parametrize("N", [17, 65, 129, 256])
+def test_core_plans_and_refusals(dev, N):
+    """The plan bytes each wrapper reads are the cores' plans, and the
+    wrappers refuse exactly the heads whose plan exceeds a block's shared
+    memory: kernels 12 and 13 and K2 / kernel 4 at every multiple of 16
+    from 16 to 512."""
+    for hd in range(16, 513, 16):
+        fwd, bwd = _plans(N, hd)
+        assert tat._plan_bytes(N, hd, False, False) == tab._plan_bytes("fwd", N, hd) == fwd, hd
+        assert tat._plan_bytes(N, hd, False, True) == tab._plan_bytes("recompute", N, hd) == bwd, hd
+        assert tab._plan_bytes("stash", N, hd) == bwd, hd
+    for hd in (96, 144, 160, 208, 224, 512):
+        fwd, bwd = _plans(N, hd)
+        qkv = torch.zeros(1, N, 3 * hd, device=dev, dtype=torch.bfloat16)
+        for call, nbytes in ((lambda: tat.fused_attention(qkv, 1), fwd),
+                             (lambda: tat.fused_attention_bwd(qkv, qkv[:, :, :hd].contiguous(), 1), bwd)):
+            if nbytes > SMEM:
+                with pytest.raises(ValueError, match="shared-memory plan"):
+                    call()
+            else:
+                assert torch.isfinite(call().float()).all()

@@ -35,6 +35,22 @@ _JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 _TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
+@pytest.fixture(autouse=True)
+def _full_fp32_products():
+    """Every test here compares fp32 products of the two frameworks at an
+    absolute 2e-5. Pin both to full fp32 products for the test, whatever an
+    earlier test in the same worker process left set: torch's fp32 matmul
+    precision (``"medium"`` would run bf16 products on CPUs with AMX) and
+    JAX's default matmul precision."""
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    try:
+        with jax.default_matmul_precision("highest"):
+            yield
+    finally:
+        torch.set_float32_matmul_precision(prev)
+
+
 def _assert_close(got, want, dtype, bar=TOL_BF16):
     got = np.asarray(got, np.float32)
     want = np.asarray(want, np.float32)
