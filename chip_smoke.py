@@ -43,7 +43,12 @@ failing loudly (any failure exits non-zero and prints no result line):
    ``F.scaled_dot_product_attention`` on the same (B, H, N, hd) views
    (fp32 with TF32 off), forward and forward + backward (the library
    column, measured here and used nowhere in the port), each record with
-   its share of the bound and the bytes it must move per ms;
+   its share of the bound and the bytes it must move per ms; the forward
+   GEMM of K1 and K2 (``csrc/gemm_sm90.cuh``, wgmma fed by TMA) alone at
+   the four products (qkv, proj, fc1, fc2 with their epilogues) at B=64 and
+   B=1024, held to its plain version and timed beside ``torch.addmm`` on
+   the same operands (the ``gemm_times`` record, with the host cost of
+   encoding a launch's TMA maps);
 4. the serving path, through the entry points ``similarity_search`` calls, on
    ``configs/mim_1.ini`` (SimMIM ViT-B, bf16, full depth, seeded weights) and
    synthetic cutouts with whole-band NaNs: ``extract_latents`` of 2 targets
@@ -118,7 +123,8 @@ failing loudly (any failure exits non-zero and prints no result line):
    kernels 12 and 13 at one launch each and nothing else; its gradients
    against the plain path's;
 6. times with CUDA events after warm-up: per kernel at its path's shapes,
-   the encoder, queries; torch.profiler device breakdowns.
+   the encoder (with its device busy share), queries; torch.profiler
+   device breakdowns.
 
 Lines before the last: the nvidia-smi name/power line, one line per check,
 JSON lines of results (``{"kernels": [...]}`` among them). The last line is
@@ -289,6 +295,7 @@ def main() -> int:
         attn_block_plain,
         fused_attn_block,
     )
+    from sky_embeddings_tpu_torch.ops.kernels.gemm import gemm, gemm_encode_us, gemm_plain, gemm_plan
     from sky_embeddings_tpu_torch.ops.kernels.mlp_block import (
         fused_mlp_block,
         mlp_block_bwd,
@@ -332,9 +339,12 @@ def main() -> int:
     t0 = time.perf_counter()
     logs = cuda_build.build()
     for name, log in logs.items():
+        fn = ""
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"ptxas[{name}]: {line.strip()}", flush=True)
+            if "Compiling entry function" in line:
+                fn = line.split("'")[1] if "'" in line else ""
+            elif "registers" in line or "spill" in line:
+                print(f"ptxas[{name}] {fn}: {line.strip()}", flush=True)
     t_nvcc = time.perf_counter() - t0
     gen = torch.Generator(device=dev).manual_seed(0)
     for dt in (torch.bfloat16, torch.float32):  # Triton compiles once per bank dtype
@@ -415,6 +425,65 @@ def main() -> int:
                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
             }
             del args, got, want
+
+    def device_ms(fn, reps):
+        """Device time of one call of fn: the kernels it launches, summed by
+        torch.profiler over reps calls, so the wrapper's host time (which
+        outlasts a B=64 product) drops out; CUDA events if the profiler
+        sees no device time."""
+        from torch.profiler import ProfilerActivity, profile
+
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        t = sum(getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+                for e in prof.key_averages()
+                if str(getattr(e, "device_type", "")).endswith("CUDA")
+                and not getattr(e, "is_user_annotation", False))
+        return t / 1e3 / reps if t > 0 else cuda_ms(fn, reps)
+
+    # the forward GEMM of K1 and K2 alone (csrc/gemm_sm90.cuh, through its
+    # test entry) at the four products with their epilogues, held to the
+    # plain version and timed beside cuBLAS: torch.addmm on the same
+    # operands (bias, no residual), the yardstick, which the port never
+    # calls; device time from the profiler, the events' time beside it
+    gemm_times = {}
+    for B in (64, 1024):
+        M = B * N_TOK
+        for prod, K_, N_, epi in (("qkv", D, 3 * D, "bias"), ("proj", D, D, "bias_residual"),
+                                  ("fc1", D, F, "bias_gelu"), ("fc2", F, D, "bias_residual")):
+            a = torch.randn(M, K_, generator=gen, device=dev).to(torch.bfloat16)
+            w = (torch.randn(K_, N_, generator=gen, device=dev) * K_ ** -0.5).to(torch.bfloat16)
+            b_ = 0.01 * torch.randn(N_, generator=gen, device=dev)
+            r_ = (torch.randn(M, N_, generator=gen, device=dev).to(torch.bfloat16)
+                  if epi == "bias_residual" else None)
+            rel, abs_err = rel_err(gemm(a, w, b_, epi, r_)[0], gemm_plain(a, w, b_, epi, r_)[0])
+            check(rel <= TOL_FWD, f"sm90 GEMM {prod} B={B} parity")
+            iters = 50 if B == 64 else 10
+            b_bf16 = b_.to(torch.bfloat16)
+            run, lib = lambda: gemm(a, w, b_, epi, r_), lambda: torch.addmm(b_bf16, a, w)
+            ms, lib_ms = device_ms(run, iters), device_ms(lib, iters)
+            tflop = 2 * M * K_ * N_ / 1e12
+            plan = gemm_plan(M, N_)
+            gemm_times[f"{prod} B={B}"] = {
+                "M": M, "N": N_, "K": K_, "epilogue": epi, "bn": plan.bn, "stages": plan.stages,
+                "tiles": plan.tiles, "max_rel_err": rel, "ms": ms, "tflops": tflop / ms * 1e3,
+                "events_ms": cuda_ms(run, iters), "library_ms": lib_ms,
+                "library_tflops": tflop / lib_ms * 1e3, "library_events_ms": cuda_ms(lib, iters),
+                "ms_over_library": ms / lib_ms,
+            }
+            print(f"sm90 GEMM {prod} B={B} (M={M}, N={N_}, K={K_}, {epi}, BN={plan.bn}, "
+                  f"{plan.tiles} tiles): {ms:.4f} ms, {tflop / ms * 1e3:.0f} TFLOP/s; addmm "
+                  f"{lib_ms:.4f} ms ({ms / lib_ms:.2f}x); max-rel {rel:.2e}", flush=True)
+            del a, w, b_, r_
+    big_a = torch.empty(64 * N_TOK, D, device=dev, dtype=torch.bfloat16)
+    gemm_times["tma_encode_us_per_launch"] = gemm_encode_us(
+        big_a, torch.empty(D, F, device=dev, dtype=torch.bfloat16),
+        torch.empty(64 * N_TOK, F, device=dev, dtype=torch.bfloat16))
+    del big_a
 
     target = torch.randn(D, generator=gen, device=dev)
     weights = torch.rand(D, generator=gen, device=dev) + 0.5
@@ -1545,8 +1614,13 @@ def main() -> int:
         for B, iters in ((64, 20), (1024, 5)):
             imgs = torch.as_tensor(np.concatenate([b["cutouts"] for b in batches])[:B], device=dev)
             ms = cuda_ms(lambda: model.encode(imgs), iters, warmup=2)
-            enc[B] = {"ms": ms, "images_per_s": B / ms * 1e3,
-                      "profile": device_breakdown(lambda: model.encode(imgs))}
+            prof = device_breakdown(lambda: model.encode(imgs))
+            dev_ms = prof["device_ms_per_call"]
+            busy = dev_ms / ms if isinstance(dev_ms, float) else "not measured"
+            enc[B] = {"ms": ms, "images_per_s": B / ms * 1e3, "device_busy_share": busy,
+                      "profile": prof}
+            print(f"encoder B={B}: {ms:.3f} ms, {B / ms * 1e3:.0f} images/s, device busy {busy}",
+                  flush=True)
     torch.cuda.empty_cache()
     big = EmbeddingBank(bank_bf16, np.zeros((BANK_ROWS, 2), np.float32), np.zeros(D, np.float32),
                         np.ones(D, np.float32), device=dev)
@@ -1623,6 +1697,7 @@ def main() -> int:
                       "tokens_max_rel_vs_plain": tok_rel, "tokens_max_abs_vs_plain": tok_abs,
                       "top300_overlap_vs_plain": overlap},
         "encoder": {f"B={b}": v for b, v in enc.items()},
+        "gemm_times": gemm_times,
         "training_paths": paths,
         "attention_module": attention_module,
         "retrieval_path": retrieval,

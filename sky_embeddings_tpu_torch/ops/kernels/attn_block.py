@@ -9,7 +9,7 @@ Four kernels, all in CUDA C++:
   ``csrc/attn_block.cu`` entry ``sky_attn_block_fwd``: LN, qkv GEMM, the
   attention core of ``csrc/attn_core.cuh`` (``mma.sync`` with S and P in
   registers, CTAs walking (sample, head) pairs through a cp.async ring),
-  then proj GEMM + residual.
+  then proj GEMM + residual; both GEMMs on ``csrc/gemm_sm90.cuh``.
 - Kernel 2, the stash forward: replaces ``_pallas_fwd_stash``. The same
   launches (entry ``sky_attn_block_fwd_stash``), which also hand back qkv
   (B, N, 3D) and the softmax probabilities (B, H, N, N), bf16, in JAX's
@@ -32,9 +32,11 @@ never writes the stash, as in JAX (``attn_block.py:1127-1131``).
 
 What bounds them on the H100: tensor-core FLOPs of the GEMMs (8·M·D² forward,
 16·M·D² stash backward, 22·M·D² recompute backward at M = B·N rows); the
-cores add 4·B·H·N²·hd, 8·B·H·N²·hd and 10·B·H·N²·hd. qkv, ctx and dqkv go
-through device memory at the points where the TPU kernels round them;
-keeping them on chip and wgmma are later work.
+cores add 4·B·H·N²·hd, 8·B·H·N²·hd and 10·B·H·N²·hd. The forwards (K2,
+kernel 2) run qkv and proj on the wgmma + TMA GEMM of
+``csrc/gemm_sm90.cuh``; the backwards (kernels 3, 4) keep the wmma GEMM of
+``csrc/gemm.cuh``. qkv, ctx and dqkv go through device memory at the
+points where the TPU kernels round them.
 
 Head dims: any multiple of 16 whose core fits a block's shared memory at
 the given N. The check asks the CUDA source for its plan's bytes

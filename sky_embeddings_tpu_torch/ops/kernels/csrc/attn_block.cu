@@ -23,7 +23,7 @@
 // seg_len = 0 or >= N means no mask.
 //
 // Four launches behind one C entry point:
-//   0. LayerNorm                          -> y (B, N, D) bf16
+//   0. LayerNorm (gemm.cuh)               -> y (B, N, D) bf16
 //   1. qkv GEMM + bias                    -> qkv (B, N, 3D) bf16
 //   2. attention core (attn_core.cuh): CTAs walk (sample, head) pairs
 //      through a two-stage cp.async ring of k, v and q; each warp owns 16
@@ -31,6 +31,7 @@
 //      accumulate), S and P in registers, fp32 softmax, probs rounded to
 //      bf16 before the PV product, ctx rounded to bf16 -> ctx (B, N, D)
 //   3. proj GEMM + bias + fp32 residual  -> out (B, N, D) bf16
+// Both products run on the persistent wgmma + TMA GEMM of gemm_sm90.cuh.
 // y, qkv and ctx go through device memory exactly where the TPU kernel
 // rounds them to bf16 (attn_block.py:141, :145, :126, :130), so the numerics
 // match.
@@ -38,13 +39,15 @@
 // Bound on the H100: the two GEMMs carry ~96% of the FLOPs and are
 // compute-bound at the serving shapes; the attention core is small
 // (N = 65: 4*N*N*hd FLOP per head) and bound by its loads and softmax.
-// Keeping qkv and ctx on chip and moving the GEMMs to wgmma are the first
-// speed changes. The stash adds B*H*N*N*2 bytes of probability writes (6.5 MB
-// at B = 64, N = 65), which the backward then need not recompute.
+// With the GEMMs on wgmma (PERF.md), what is left is the qkv and ctx round
+// trips through device memory and the core's own time. The stash adds
+// B*H*N*N*2 bytes of probability writes (6.5 MB at B = 64, N = 65), which
+// the backward then need not recompute.
 //
 // The attention core (attn_core_kernel) lives in attn_core.cuh, shared with
 // kernel 12 (attention.cu), which launches it alone on a given qkv.
 #include "attn_core.cuh"
+#include "gemm_sm90.cuh"
 
 // Returns 0, or the first CUDA error a launch reported. qkv (B, N, 3D) and
 // ctx (B, N, D) are allocated by the caller; the LN output is staged in
@@ -60,12 +63,11 @@ static int attn_block_fwd(const void* x, const void* ln_scale, const void* ln_bi
   const int M = B * N;
   cudaError_t err = launch_layernorm(x, ln_scale, ln_bias, out, M, D, s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = launch_gemm<EPI_BIAS>(gemm_args(out, wqkv, bqkv, nullptr, qkv, M, 3 * D, D), s);
+  err = sm90::launch_gemm_sm90<EPI_BIAS>(out, wqkv, bqkv, nullptr, qkv, nullptr, M, 3 * D, D, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   err = launch_attn_core(qkv, ctx, probs, B, N, D, H, seg_len, s);
   if (err != cudaSuccess) return static_cast<int>(err);
-
-  err = launch_gemm<EPI_BIAS_RESIDUAL>(gemm_args(ctx, wproj, bproj, x, out, M, D, D), s);
+  err = sm90::launch_gemm_sm90<EPI_BIAS_RESIDUAL>(ctx, wproj, bproj, x, out, nullptr, M, D, D, s);
   return static_cast<int>(err);
 }
 

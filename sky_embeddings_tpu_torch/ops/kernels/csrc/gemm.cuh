@@ -36,7 +36,10 @@
 // so the result stays bit-reproducible.
 //
 // Epilogues (fp32 until the final store, which rounds to bf16), applied per
-// 16x16 fragment through a per-warp staging tile:
+// 16x16 fragment through a per-warp staging tile. The forward kernels now
+// run EPI_BIAS, EPI_BIAS_GELU, EPI_BIAS_RESIDUAL and EPI_BIAS_GELU_STASH on
+// gemm_sm90.cuh; of these only EPI_BIAS (kernel 4's qkv recompute) still
+// runs here.
 //   EPI_BIAS           acc + bias                    (qkv, attn_block.py:143-145)
 //   EPI_BIAS_GELU      erf-GELU(acc + bias)          (fc1 -> h, mlp_block.py:234-240)
 //   EPI_BIAS_RESIDUAL  resid + (acc + bias)          (proj / fc2 + residual,
@@ -63,8 +66,12 @@
 //
 // What bounds it on the H100: at the serving shapes (M = B*65 rows, K and N
 // 768..3072) these products are compute-bound (about 200 bf16 FLOP per byte
-// moved). wmma (mma.sync) reaches the tensor cores but not their full rate,
-// which only wgmma with TMA-fed shared memory gives; that is the next step.
+// moved). wmma (mma.sync) reaches the tensor cores but not their full rate
+// (90-180 TFLOP/s here). The forward products of K1 and K2 (and kernels 2
+// and 6) run on gemm_sm90.cuh instead: wgmma fed by TMA. The backward
+// kernels (3, 4, 7, 8, 9) stay on this GEMM, their forward recomputes too,
+// until that mainloop has the transposed-A and transposed-B forms of
+// g @ W^T and the weight gradients.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -3,7 +3,8 @@
 Forward (K1): replaces the TPU kernel ``sky_embeddings_tpu/ops/kernels/mlp_block.py``
 ``_pallas_fwd`` (``_fwd_kernel``), the primal of ``fused_mlp_block``. The
 CUDA kernel is ``csrc/mlp_block.cu`` (three launches: LN, fc1 + GELU, then
-fc2 + residual, on the shared wmma GEMM of ``csrc/gemm.cuh``).
+fc2 + residual, both products on the persistent wgmma + TMA GEMM of
+``csrc/gemm_sm90.cuh``).
 
 Backward (kernel 8): replaces ``_pallas_bwd`` (``_bwd_kernel``), the
 recompute backward of ``fused_mlp_block(stash=False)``, the ViT-B training
@@ -22,9 +23,11 @@ its dh epilogue reading the bf16 ``a`` (``csrc/mlp_block_bwd.cu`` entry
 ``sky_mlp_block_bwd_stash``). :class:`MlpBlockStashFn` pairs them.
 
 What bounds them on the H100: tensor-core FLOPs (4·M·D·F forward, 10·M·D·F
-backward, 8·M·D·F for kernel 7, at M = B·65 rows), not bytes. The first
-versions move h, a and da through device memory at the TPU kernel's
-rounding points; keeping them on chip and wgmma are later work.
+backward, 8·M·D·F for kernel 7, at M = B·65 rows), not bytes. The forwards
+(K1, kernel 6) run their products on wgmma fed by TMA; their fc1 epilogue's
+erf-GELU still runs while the tensor cores wait. The backwards (kernels 7,
+8, 9) keep the wmma GEMM of ``csrc/gemm.cuh``. h, a and da go through
+device memory at the TPU kernel's rounding points.
 
 Numerics (kernel and plain versions alike): fp32 LN statistics (eps 1e-6),
 bf16 GEMM operands with fp32 accumulation, exact-erf GELU and GELU' in fp32,

@@ -39,6 +39,14 @@ the same qkv; the wrappers refuse what the kernels do not take; an
 ``Attention`` module's ``backward()`` launches each kernel once and matches
 the plain path.
 
+The forward GEMM of K1 and K2 (``csrc/gemm_sm90.cuh``: persistent wgmma
+fed by TMA) is held alone, through its test entry, to an fp32 product of
+the same bf16 operands at every epilogue and at ragged and model shapes,
+twice bit-equal; its tile rule as the C source computes it equals the
+Python copy; K1 and K2 (and kernel 6 bit-equal to K1) match their plain
+versions at every shipped width, and their launches run that GEMM and no
+wmma GEMM (the profiler's kernel names).
+
 Every test is marked ``cuda`` and skips where there is no card. This file
 imports neither JAX nor the JAX package, so it runs on a host without them:
 
@@ -55,6 +63,7 @@ import torch
 
 from sky_embeddings_tpu_torch.ops.kernels import attention as tat
 from sky_embeddings_tpu_torch.ops.kernels import attn_block as tab
+from sky_embeddings_tpu_torch.ops.kernels import gemm as tg
 from sky_embeddings_tpu_torch.ops.kernels import mlp_block as tmb
 from sky_embeddings_tpu_torch.ops.kernels import simscore as tss
 
@@ -1081,3 +1090,105 @@ def test_core_plans_and_refusals(dev, N):
                     call()
             else:
                 assert torch.isfinite(call().float()).all()
+
+
+# -- the forward GEMM of K1 and K2 (csrc/gemm_sm90.cuh) ----------------------------
+
+GEMM_M = (1, 63, 4160, 4161)
+GEMM_N = (8, 200, 768, 2304, 3072)
+GEMM_K = (8, 200, 768, 3072)
+
+
+@pytest.mark.parametrize("epi", sorted(tg.EPILOGUES))
+@pytest.mark.parametrize("K", GEMM_K)
+@pytest.mark.parametrize("N", GEMM_N)
+@pytest.mark.parametrize("M", GEMM_M)
+def test_sm90_gemm_matches_an_fp32_product(dev, M, N, K, epi):
+    """One product on the new GEMM against the fp32 product of the same
+    bf16 operands with the epilogue's rounding (``gemm_plain``): ragged rows
+    (M = 1, 63, 4 161), N and K past a whole box (200, 8) and the model
+    widths; then the same launch again, bit for bit."""
+    gen = torch.Generator(device=dev).manual_seed(M * 7 + N * 3 + K)
+    a = torch.randn(M, K, generator=gen, device=dev).to(torch.bfloat16)
+    b = (torch.randn(K, N, generator=gen, device=dev) * K ** -0.5).to(torch.bfloat16)
+    bias = 0.1 * torch.randn(N, generator=gen, device=dev)
+    resid = torch.randn(M, N, generator=gen, device=dev).to(torch.bfloat16)
+    out, out2 = tg.gemm(a, b, bias, epi, resid)
+    want, want2 = tg.gemm_plain(a, b, bias, epi, resid)
+    assert out.shape == (M, N) and out.dtype == torch.bfloat16
+    assert _max_rel(out, want) <= TOL_FWD
+    if epi == "bias_gelu_stash":
+        assert _max_rel(out2, want2) <= TOL_FWD
+        assert torch.equal(out, tg.gemm(a, b, bias, "bias_gelu")[0])  # GELU of the fp32 value
+    again, again2 = tg.gemm(a, b, bias, epi, resid)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again) and (out2 is None or torch.equal(out2, again2))
+
+
+def test_sm90_gemm_refuses_and_counts(dev):
+    a = torch.zeros(16, 64, device=dev, dtype=torch.bfloat16)
+    b = torch.zeros(64, 32, device=dev, dtype=torch.bfloat16)
+    bias = torch.zeros(32, device=dev)
+    before = tg.gemm.launches
+    tg.gemm(a, b, bias, "bias")
+    assert tg.gemm.launches == before + 1
+    with pytest.raises(ValueError, match="multiples of 8"):
+        tg.gemm(a[:, :60].contiguous(), b[:60], bias, "bias")
+    with pytest.raises(ValueError, match="resid"):
+        tg.gemm(a, b, bias, "bias_residual")
+    with pytest.raises(ValueError, match="b:"):
+        tg.gemm(a, b.float(), bias, "bias")
+    assert tg.gemm.launches == before + 1
+
+
+@pytest.mark.parametrize("sms", [132, 114, 1])
+def test_sm90_tile_rule_equals_its_python_copy(dev, sms):
+    """The plan the C source computes (``sky_gemm_sm90_plan``) is
+    ``gemm_plan``'s at every model product and ragged shape."""
+    for M in (1, 63, 64 * 65, 4161, 32 * 66, 256 * 66, 256 * 68, 1024 * 65):
+        for N in (8, 200, 512, 768, 1024, 1280, 1536, 2048, 2304, 3072, 3840, 4096, 5120):
+            assert tg.gemm_plan_cuda(M, N, sms) == tg.gemm_plan(M, N, sms), (M, N, sms)
+
+
+# (B, N, D, H, F): the MAE decoder (512 wide, 16 heads), ViT-B, ViT-L
+# (mim_32, with the RA/Dec token) and ViT-H, at a few samples each
+MODEL_WIDTHS = [(8, 65, 512, 16, 2048), (5, 65, 768, 12, 3072), (3, 66, 1024, 16, 4096),
+                (3, 66, 1280, 16, 5120)]
+
+
+@pytest.mark.parametrize("B,N,D,H,F", MODEL_WIDTHS)
+def test_forward_blocks_match_plain_at_every_shipped_width(dev, B, N, D, H, F):
+    """K1 and K2, kernel 6 (bit-equal to K1) and kernel 2, at each width a
+    shipped model runs."""
+    margs = _block_args(dev, B, N, D, (D, F), (F, D), seed=D)
+    out = tmb.fused_mlp_block(*margs)
+    assert _max_rel(out, tmb.mlp_block_plain(*margs)) <= TOL_FWD
+    stash_out, a = tmb.mlp_block_fwd_stash(*margs)
+    assert torch.equal(stash_out, out)
+    assert _max_rel(a, tmb.mlp_block_fwd_stash_plain(*margs)[1]) <= TOL_FWD
+    aargs = _block_args(dev, B, N, D, (D, 3 * D), (D, D), seed=D + 1)
+    assert _max_rel(tab.fused_attn_block(*aargs, H), tab.attn_block_plain(*aargs, H)) <= TOL_FWD
+    got = tab.attn_block_fwd_stash(*aargs, H)
+    for name, g_, w_ in zip(("out", "qkv", "probs"), got, tab.attn_block_fwd_stash_plain(*aargs, H)):
+        assert _max_rel(g_, w_) <= TOL_FWD, name
+
+
+def test_forward_blocks_launch_only_the_sm90_gemm(dev):
+    """K1, K2, kernels 2 and 6 and K2 masked run their products on
+    ``gemm_sm90_kernel``; no launch of theirs reaches the wmma GEMM of
+    gemm.cuh (the profiler's kernel names)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    margs = _block_args(dev, 4, 68, 768, (768, 3072), (3072, 768), seed=3)
+    aargs = _block_args(dev, 4, 68, 768, (768, 2304), (768, 768), seed=4)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        tmb.fused_mlp_block(*margs)
+        tmb.mlp_block_fwd_stash(*margs)
+        tab.fused_attn_block(*aargs, 12)
+        tab.fused_attn_block(*aargs, 12, seg_len=17)
+        tab.attn_block_fwd_stash(*aargs, 12)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
+    assert sum("gemm_sm90_kernel" in n for n in names) >= 4, names
+    assert not any("gemm_bf16_kernel" in n for n in names), names
