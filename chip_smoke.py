@@ -48,7 +48,13 @@ failing loudly (any failure exits non-zero and prints no result line):
    the four products (qkv, proj, fc1, fc2 with their epilogues) at B=64 and
    B=1024, held to its plain version and timed beside ``torch.addmm`` on
    the same operands (the ``gemm_times`` record, with the host cost of
-   encoding a launch's TMA maps);
+   encoding a launch's TMA maps); the backward products of kernels 8 and 9
+   on the same GEMM (the dual product a = y @ W1 + b1 with dh = g @ W2^T,
+   dh alone on the K-major-B form, dy, and dW1, dW2 on the transposed-A
+   form) at ``mim_1`` B=64 and 512 and at one ViT-H slab, held to their
+   plain versions and timed beside ``torch.mm`` on the same operand views,
+   with kernel 8's and 9's device time by kernel name (the
+   ``bwd_gemm_times`` record);
 4. the serving path, through the entry points ``similarity_search`` calls, on
    ``configs/mim_1.ini`` (SimMIM ViT-B, bf16, full depth, seeded weights) and
    synthetic cutouts with whole-band NaNs: ``extract_latents`` of 2 targets
@@ -295,7 +301,19 @@ def main() -> int:
         attn_block_plain,
         fused_attn_block,
     )
-    from sky_embeddings_tpu_torch.ops.kernels.gemm import gemm, gemm_encode_us, gemm_plain, gemm_plan
+    from sky_embeddings_tpu_torch.ops.kernels.gemm import (
+        bwd_plan_cuda,
+        dual_plan,
+        gemm,
+        gemm_bwd,
+        gemm_bwd_plain,
+        gemm_dual,
+        gemm_dual_plain,
+        gemm_encode_us,
+        gemm_plain,
+        gemm_plan,
+        mlp_bwd_groups,
+    )
     from sky_embeddings_tpu_torch.ops.kernels.mlp_block import (
         fused_mlp_block,
         mlp_block_bwd,
@@ -304,6 +322,7 @@ def main() -> int:
         mlp_block_bwd_stash_plain,
         mlp_block_bwd_stream,
         mlp_block_bwd_stream_plain,
+        _stream_slab,
         mlp_block_fwd_stash,
         mlp_block_fwd_stash_plain,
         mlp_block_plain,
@@ -484,6 +503,105 @@ def main() -> int:
         big_a, torch.empty(D, F, device=dev, dtype=torch.bfloat16),
         torch.empty(64 * N_TOK, F, device=dev, dtype=torch.bfloat16))
     del big_a
+
+    # the backward products of kernels 8 and 9 alone (csrc/gemm_sm90.cuh's
+    # dual product and K-major-B / transposed-A forms, through their test
+    # entries) at mim_1 B=64 and 512 and at one ViT-H slab (B=32, D=1280, fs
+    # = 1280), each held to its plain version and timed beside torch.mm on
+    # the same operand views (the yardstick; the port never calls it):
+    # dual = a = y @ W1 + b1 with dh = g @ W2^T (beside them, dh alone on the
+    # K-major-B form and the forward fc1 product: their sum bounds a
+    # two-launch form from below); dy = da_c @ W1^T in fp32; dW1 = y^T @ da_c,
+    # dW2 = h_c^T @ g in bf16 with the plan's split; and one kernel 8 call's
+    # device time by kernel name
+    def device_by_kernel(fn, reps):
+        from torch.profiler import ProfilerActivity, profile
+
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        out = {}
+        for e in prof.key_averages():
+            if str(getattr(e, "device_type", "")).endswith("CUDA") and not getattr(
+                    e, "is_user_annotation", False):
+                t = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+                out[e.key[:60]] = out.get(e.key[:60], 0.0) + t / 1e3 / reps
+        return out
+
+    bwd_gemm_times = {}
+    f_vith = 4 * 1280
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for label, B, n_, d_, f_, fs_ in (("mim_1 B=64", 64, N_TOK, D, F, F),
+                                      ("mim_1 B=512", 512, N_TOK, D, F, F),
+                                      ("vith slab B=32", 32, N_TOK + 1, 1280, f_vith,
+                                       _stream_slab(1280, f_vith))):
+        M = B * n_
+        bf = torch.bfloat16
+        y_ = torch.randn(M, d_, generator=gen, device=dev).to(bf)
+        g_ = (0.1 * torch.randn(M, d_, generator=gen, device=dev)).to(bf)
+        w1_ = (torch.randn(d_, fs_, generator=gen, device=dev) * d_ ** -0.5).to(bf)
+        w2_ = (torch.randn(fs_, d_, generator=gen, device=dev) * fs_ ** -0.5).to(bf)
+        b1_ = 0.01 * torch.randn(fs_, generator=gen, device=dev)
+        da_c_, h_c_, db1_ = gemm_dual(y_, w1_, b1_, g_, w2_)
+        want = gemm_dual_plain(y_, w1_, b1_, g_, w2_)
+        errs = [rel_err(a_, b_)[0] for a_, b_ in zip((da_c_, h_c_, db1_), want)]
+        check(max(errs) <= TOL_BWD, f"sm90 dual product {label} parity")
+        iters = 20 if M < 10000 else 5
+        rec = {"M": M, "D": d_, "F_slab": fs_, "dual_plan": dual_plan(M, fs_),
+               "group_plans": [vars(bwd_plan_cuda(gr, sms)[0])
+                               for gr in mlp_bwd_groups(M, d_, fs_)],
+               "max_rel_err": {}}
+        rec["max_rel_err"]["dual"] = max(errs)
+        fl = 2 * M * d_ * fs_ / 1e9  # GFLOP of one product (the dual does two)
+        w1t, w2t = w1_.t(), w2_.t()
+        prods = {
+            "dual": (2 * fl, lambda: gemm_dual(y_, w1_, b1_, g_, w2_),
+                     lambda: (torch.addmm(b1_.to(bf), y_, w1_), torch.mm(g_, w2t)), None),
+            "dh": (fl, lambda: gemm_bwd(g_, w2_, "nt", "store_f32"),
+                   lambda: torch.mm(g_, w2t), (g_, w2_, "nt", "store_f32")),
+            "fc1_fwd": (fl, lambda: gemm(y_, w1_, b1_, "bias"),
+                        lambda: torch.addmm(b1_.to(bf), y_, w1_), None),
+            "dy": (fl, lambda: gemm_bwd(da_c_, w1_, "nt", "store_f32"),
+                   lambda: torch.mm(da_c_, w1t), None),
+            "dy_bf16": (fl, lambda: gemm_bwd(da_c_, w1_, "nt", "store"),
+                        lambda: torch.mm(da_c_, w1t), None),
+            "dW1": (fl, lambda: gemm_bwd(y_, da_c_, "tn", "store"),
+                    lambda: torch.mm(y_.t(), da_c_), (y_, da_c_, "tn", "store")),
+            "dW2": (fl, lambda: gemm_bwd(h_c_, g_, "tn", "store"),
+                    lambda: torch.mm(h_c_.t(), g_), (h_c_, g_, "tn", "store")),
+        }
+        for name, (gflop, run, lib, par) in prods.items():
+            if par is not None:
+                rel = rel_err(gemm_bwd(*par), gemm_bwd_plain(*par))[0]
+                check(rel <= TOL_BWD, f"sm90 {name} {label} parity")
+                rec["max_rel_err"][name] = rel
+            ms, lib_ms = device_ms(run, iters), device_ms(lib, iters)
+            rec[name] = {"ms": ms, "tflops": gflop / ms, "torch_mm_ms": lib_ms,
+                         "torch_mm_tflops": gflop / lib_ms, "ms_over_torch_mm": ms / lib_ms}
+            print(f"sm90 bwd {name} {label} (M={M}, D={d_}, F={fs_}): {ms:.4f} ms, "
+                  f"{gflop / ms:.0f} TFLOP/s; torch.mm {lib_ms:.4f} ms ({ms / lib_ms:.2f}x)",
+                  flush=True)
+        rec["two_launch_lower_bound_ms"] = rec["dh"]["ms"] + rec["fc1_fwd"]["ms"]
+        x_ = (torch.randn(B, n_, d_, generator=gen, device=dev) * 0.5).to(bf)
+        s_ = 1.0 + 0.1 * torch.randn(d_, generator=gen, device=dev)
+        c_ = 0.1 * torch.randn(d_, generator=gen, device=dev)
+        gb = g_.reshape(B, n_, d_)
+        if fs_ == f_:
+            rec["kernel8_by_kernel_ms"] = device_by_kernel(
+                lambda: mlp_block_bwd(x_, s_, c_, w1_, b1_, w2_, gb), iters)
+        else:
+            w1f = (torch.randn(d_, f_, generator=gen, device=dev) * d_ ** -0.5).to(bf)
+            w2f = (torch.randn(f_, d_, generator=gen, device=dev) * f_ ** -0.5).to(bf)
+            b1f = 0.01 * torch.randn(f_, generator=gen, device=dev)
+            rec["kernel9_by_kernel_ms"] = device_by_kernel(
+                lambda: mlp_block_bwd_stream(x_, s_, c_, w1f, b1f, w2f, gb), iters)
+            del w1f, w2f, b1f
+        bwd_gemm_times[label] = rec
+        del y_, g_, w1_, w2_, b1_, da_c_, h_c_, db1_, want, x_, prods
+    torch.cuda.empty_cache()
 
     target = torch.randn(D, generator=gen, device=dev)
     weights = torch.rand(D, generator=gen, device=dev) + 0.5
@@ -1698,6 +1816,7 @@ def main() -> int:
                       "top300_overlap_vs_plain": overlap},
         "encoder": {f"B={b}": v for b, v in enc.items()},
         "gemm_times": gemm_times,
+        "bwd_gemm_times": bwd_gemm_times,
         "training_paths": paths,
         "attention_module": attention_module,
         "retrieval_path": retrieval,

@@ -1,16 +1,18 @@
-// Shared bf16 GEMM and LayerNorm for the attention-block and MLP-block kernels.
+// Shared bf16 GEMM (wmma) and LayerNorm for the attention-block and
+// MLP-block kernels.
 //
 //   out[M, N] = epilogue(op(A)[M, K] @ op(B)[K, N] (+ bias[N]))
 //
 // A and B are bf16 and row-major in memory. op(A) is A as stored (M, K), or,
 // with TA, the transpose of a stored (K, M) matrix; op(B) is B as stored
 // (K, N) -- the JAX (in, out) kernel layout -- or, with TB, the transpose of
-// a stored (N, K) matrix. The forwards use A @ B; the backwards read a
-// weight as (out, in) with TB (g @ W^T: dctx, dh, dy) and reduce over the
-// token rows with TA (y^T @ dqkv, ctx^T @ g, ...: the weight gradients,
-// where K = B*N rows is ragged and zero-fills). No operand is copied to
-// transpose it: the slab loads read along the contiguous axis and wmma
-// takes the tile as a col_major fragment. The
+// a stored (N, K) matrix. Its callers are kernels 3, 4 and 7 (the attention
+// backwards and the MLP stash backward): they read a weight as (out, in)
+// with TB (g @ W^T: dctx, dh, dy) and reduce over the token rows with TA
+// (y^T @ dqkv, ctx^T @ g, ...: the weight gradients, where K = B*N rows is
+// ragged and zero-fills), and kernel 4 recomputes qkv with A @ B. No
+// operand is copied to transpose it: the slab loads read along the
+// contiguous axis and wmma takes the tile as a col_major fragment. The
 // product runs on the tensor cores through nvcuda::wmma (16x16x16 bf16
 // fragments, fp32 accumulators). One CTA of 8 warps owns a 128x128 output
 // tile; each warp owns 64x32 of it (4x2 fragments, so 6 fragment loads feed
@@ -21,57 +23,42 @@
 // (cp.async zero-fill), and the epilogue stores only in-range rows and
 // columns. The contiguous axis of each stored operand (K or M for A, N or
 // K for B) and N must be multiples of 8 (16-byte vectors), which the
-// Python wrappers check. B's rows may lie `ldb` elements apart and the
-// outputs' rows `ldc` apart (both default to the contiguous pitch), so a
-// product can read a column slab of a wider weight and write one of a wider
-// gradient in place (the streaming MLP backward). Every output element is
-// one thread's fp32 sum in a fixed order, so a product is bit-reproducible
-// run to run.
+// Python wrappers check. Every output element is one thread's fp32 sum in
+// a fixed order, so a product is bit-reproducible run to run.
 //
 // Split-K (launch_weight_grad): the weight-gradient products have a small
 // (in, out) output -- 36 to 144 tiles of 128 x 128 at ViT-B, fewer than the
 // 264 CTAs two per SM would hold -- and a long K = B*N. They split K into
 // slices over blockIdx.z; each slice writes its fp32 partial tile to a
 // workspace, and splitk_reduce adds the slices in order and rounds to bf16,
-// so the result stays bit-reproducible.
+// so the result stays bit-reproducible. (gemm_sm90.cuh's weight gradients
+// use the same reduce.)
 //
-// Epilogues (fp32 until the final store, which rounds to bf16), applied per
-// 16x16 fragment through a per-warp staging tile. The forward kernels now
-// run EPI_BIAS, EPI_BIAS_GELU, EPI_BIAS_RESIDUAL and EPI_BIAS_GELU_STASH on
-// gemm_sm90.cuh; of these only EPI_BIAS (kernel 4's qkv recompute) still
-// runs here.
-//   EPI_BIAS           acc + bias                    (qkv, attn_block.py:143-145)
-//   EPI_BIAS_GELU      erf-GELU(acc + bias)          (fc1 -> h, mlp_block.py:234-240)
-//   EPI_BIAS_RESIDUAL  resid + (acc + bias)          (proj / fc2 + residual,
-//                                                     attn_block.py:153, mlp_block.py:243)
+// Epilogues of this GEMM (fp32 until the final store, which rounds to
+// bf16), applied per 16x16 fragment through a per-warp staging tile. The
+// enum also names the epilogues of gemm_sm90.cuh, which runs every forward
+// product and kernels 8 and 9's backward products.
+//   EPI_BIAS           acc + bias                    (kernel 4's qkv recompute,
+//                                                     attn_block.py:143-145)
 //   EPI_STORE          acc                           (dctx rounded: attn_block.py:320;
 //                                                     weight gradients cast to bf16:
 //                                                     attn_block.py:1176, mlp_block.py:954)
-//   EPI_STORE_F32      acc, fp32 out                 (dy, kept fp32 for the LN backward)
-//   EPI_BIAS_F32       acc + bias, fp32 out          (fc1 pre-activation a, mlp_block.py:322)
-//   EPI_GELU_BWD       da = acc * gelu'(a) with a read from out_f32, which
-//                      then holds da (fp32, for db1); out = bf16(da),
-//                      out2 = bf16(gelu(a))          (mlp_block.py:323-329)
-//   EPI_BIAS_GELU_STASH  as EPI_BIAS_GELU, and out2 = bf16(acc + bias), the
-//                      fc1 pre-activation stash; GELU reads the fp32 value
-//                      before that rounding           (mlp_block.py:365-370)
-//   EPI_GELU_BWD_STASH as EPI_GELU_BWD with a read from the bf16 stash in
-//                      `resid`; out_f32 = da         (mlp_block.py:393-399)
-//   EPI_ADD_F32        out_f32 = acc + out_f32       (the streaming backward's
-//                                                     cross-slab dy, mlp_block.py:499-501)
+//   EPI_STORE_F32      acc, fp32 out                 (dy, kept fp32 for the LN backward;
+//                                                     the split-K partials)
+//   EPI_GELU_BWD_STASH da = acc * gelu'(a) with a the bf16 stash in `stash`;
+//                      out_f32 = da (fp32, for db1), out = bf16(da),
+//                      out2 = bf16(gelu(a))          (kernel 7, mlp_block.py:393-399)
 //
 // layernorm_bf16 computes the LN that opens both blocks: fp32 two-pass
 // statistics per row (eps 1e-6), output rounded to bf16 -- the rounding
 // point of the TPU kernels (attn_block.py:141, mlp_block.py:235).
 //
-// What bounds it on the H100: at the serving shapes (M = B*65 rows, K and N
-// 768..3072) these products are compute-bound (about 200 bf16 FLOP per byte
-// moved). wmma (mma.sync) reaches the tensor cores but not their full rate
-// (90-180 TFLOP/s here). The forward products of K1 and K2 (and kernels 2
-// and 6) run on gemm_sm90.cuh instead: wgmma fed by TMA. The backward
-// kernels (3, 4, 7, 8, 9) stay on this GEMM, their forward recomputes too,
-// until that mainloop has the transposed-A and transposed-B forms of
-// g @ W^T and the weight gradients.
+// What bounds it on the H100: at the training shapes (M = B*65 rows, K and
+// N 768..3072) these products are compute-bound (about 200 bf16 FLOP per
+// byte moved). wmma (mma.sync) reaches the tensor cores but not their full
+// rate (90-180 TFLOP/s here). gemm_sm90.cuh (wgmma fed by TMA) has the
+// forward form and the two backward forms (B K-major, A MN-major); kernels
+// 3, 4 and 7 move to it next.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -117,8 +104,6 @@ enum Epilogue {
   EPI_BIAS_RESIDUAL = 2,
   EPI_STORE = 3,
   EPI_STORE_F32 = 4,
-  EPI_BIAS_F32 = 5,
-  EPI_GELU_BWD = 6,
   EPI_BIAS_GELU_STASH = 7,
   EPI_GELU_BWD_STASH = 8,
   EPI_ADD_F32 = 9,
@@ -126,18 +111,15 @@ enum Epilogue {
 
 struct GemmArgs {
   const bf16* a;      // (M, K), or (K, M) with TA
-  const bf16* b;      // (K, N), or (N, K) with TB; rows ldb apart
-  const float* bias;  // (N,), the EPI_BIAS* epilogues only
-  const bf16* resid;  // (M, N): EPI_BIAS_RESIDUAL; the stashed a for EPI_GELU_BWD_STASH
-  bf16* out;          // (M, N) bf16 (not for EPI_STORE_F32 / EPI_BIAS_F32)
-  float* out_f32;     // (M, N) fp32: EPI_STORE_F32, EPI_BIAS_F32, EPI_GELU_BWD(_STASH)
-  bf16* out2;         // (M, N) bf16: EPI_GELU_BWD(_STASH), EPI_BIAS_GELU_STASH
+  const bf16* b;      // (K, N), or (N, K) with TB
+  const float* bias;  // (N,), EPI_BIAS only
+  const bf16* stash;  // (M, N): the stashed a of EPI_GELU_BWD_STASH
+  bf16* out;          // (M, N) bf16 (not for EPI_STORE_F32)
+  float* out_f32;     // (M, N) fp32: EPI_STORE_F32, EPI_GELU_BWD_STASH
+  bf16* out2;         // (M, N) bf16: EPI_GELU_BWD_STASH
   int M, N, K;
-  int ldb;            // elements between rows of the stored B; 0: contiguous (N, or K with TB)
-  int ldc;            // elements between rows of out, out_f32, out2 and resid (N when contiguous)
   int k_split;        // with TA: K per blockIdx.z slice, a multiple of BK (K when
                       // unsplit); slice z writes its fp32 partial at out_f32 + z * M * N
-                      // (then ldc must be N)
 };
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -171,6 +153,13 @@ __device__ __forceinline__ float gelu_erf(float a) {
 __device__ __forceinline__ float gelu_erf_grad(float a) {
   return 0.5f * (1.0f + erff(a * 0.70710678118654752f)) +
          a * expf(-0.5f * a * a) * 0.39894228040143268f;
+}
+
+// gelu_erf(a) and gelu_erf_grad(a), the same bits, with one erff
+__device__ __forceinline__ void gelu_erf_and_grad(float a, float& gelu, float& grad) {
+  const float e = erff(a * 0.70710678118654752f);
+  gelu = 0.5f * a * (1.0f + e);
+  grad = 0.5f * (1.0f + e) + a * expf(-0.5f * a * a) * 0.39894228040143268f;
 }
 
 // 16-byte global -> shared copy; when !pred it reads nothing and zero-fills.
@@ -215,12 +204,12 @@ __device__ __forceinline__ void load_slab(const GemmArgs& p, int m0, int n0, int
       const int r = v >> 4, c = (v & 15) * 8;  // B: 32 rows (k) x 16 vectors (n)
       const int k = k0 + r, n = n0 + c;
       const bool ok = k < k_end && n < p.N;
-      cp_async16(Bs + r * L::B_LD + c, ok ? p.b + (size_t)k * p.ldb + n : p.b, ok);
+      cp_async16(Bs + r * L::B_LD + c, ok ? p.b + (size_t)k * p.N + n : p.b, ok);
     } else {
       const int r = v >> 2, c = (v & 3) * 8;  // B^T: 128 rows (n) x 4 vectors (k)
       const int n = n0 + r, k = k0 + c;
       const bool ok = n < p.N && k < k_end;
-      cp_async16(Bs + r * L::B_LD + c, ok ? p.b + (size_t)n * p.ldb + k : p.b, ok);
+      cp_async16(Bs + r * L::B_LD + c, ok ? p.b + (size_t)n * p.K + k : p.b, ok);
     }
   }
 }
@@ -307,66 +296,33 @@ __global__ void __launch_bounds__(GEMM_THREADS, 2) gemm_bf16_kernel(GemmArgs p) 
       const int m = m0 + wm + 16 * i + r;
       const int n = n0 + wn + 16 * j + c;
       if (m < p.M && n < p.N) {  // N % 8 == 0: the 8 columns are all in range
-        const size_t at = (size_t)m * p.ldc + n;
+        const size_t at = (size_t)m * p.N + n;
         float v[8];
 #pragma unroll
         for (int e = 0; e < 8; ++e) v[e] = st[r * 16 + c + e];
-        if (EPI == EPI_BIAS || EPI == EPI_BIAS_GELU || EPI == EPI_BIAS_RESIDUAL ||
-            EPI == EPI_BIAS_F32 || EPI == EPI_BIAS_GELU_STASH) {
+        if (EPI == EPI_BIAS) {
 #pragma unroll
           for (int e = 0; e < 8; ++e) v[e] += p.bias[n + e];
         }
-        if (EPI == EPI_BIAS_GELU_STASH) {
-          uint4 av;
-          bf16* ae = reinterpret_cast<bf16*>(&av);
-#pragma unroll
-          for (int e = 0; e < 8; ++e) ae[e] = __float2bfloat16_rn(v[e]);
-          *reinterpret_cast<uint4*>(p.out2 + at) = av;
-        }
-        if (EPI == EPI_BIAS_GELU || EPI == EPI_BIAS_GELU_STASH) {
-#pragma unroll
-          for (int e = 0; e < 8; ++e) v[e] = gelu_erf(v[e]);
-        }
-        if (EPI == EPI_BIAS_RESIDUAL) {
-          const uint4 rv = *reinterpret_cast<const uint4*>(p.resid + at);
-          const bf16* re = reinterpret_cast<const bf16*>(&rv);
-#pragma unroll
-          for (int e = 0; e < 8; ++e) v[e] = __bfloat162float(re[e]) + v[e];
-        }
-        if (EPI == EPI_GELU_BWD || EPI == EPI_GELU_BWD_STASH) {
-          float a[8];
-          if (EPI == EPI_GELU_BWD) {
-            const float4* ap = reinterpret_cast<const float4*>(out_f32 + at);
-            const float4 a0 = ap[0], a1 = ap[1];
-            a[0] = a0.x; a[1] = a0.y; a[2] = a0.z; a[3] = a0.w;
-            a[4] = a1.x; a[5] = a1.y; a[6] = a1.z; a[7] = a1.w;
-          } else {
-            const uint4 sv = *reinterpret_cast<const uint4*>(p.resid + at);
-            const bf16* se = reinterpret_cast<const bf16*>(&sv);
-#pragma unroll
-            for (int e = 0; e < 8; ++e) a[e] = __bfloat162float(se[e]);
-          }
+        if (EPI == EPI_GELU_BWD_STASH) {
+          const uint4 sv = *reinterpret_cast<const uint4*>(p.stash + at);
+          const bf16* se = reinterpret_cast<const bf16*>(&sv);
           uint4 hv;
           bf16* he = reinterpret_cast<bf16*>(&hv);
 #pragma unroll
           for (int e = 0; e < 8; ++e) {
-            v[e] *= gelu_erf_grad(a[e]);
-            he[e] = __float2bfloat16_rn(gelu_erf(a[e]));
+            const float a = __bfloat162float(se[e]);
+            v[e] *= gelu_erf_grad(a);
+            he[e] = __float2bfloat16_rn(gelu_erf(a));
           }
           *reinterpret_cast<uint4*>(p.out2 + at) = hv;
         }
-        if (EPI == EPI_STORE_F32 || EPI == EPI_BIAS_F32 || EPI == EPI_GELU_BWD ||
-            EPI == EPI_GELU_BWD_STASH || EPI == EPI_ADD_F32) {
+        if (EPI == EPI_STORE_F32 || EPI == EPI_GELU_BWD_STASH) {
           float4* op = reinterpret_cast<float4*>(out_f32 + at);
-          if (EPI == EPI_ADD_F32) {
-            const float4 o0 = op[0], o1 = op[1];
-            v[0] += o0.x; v[1] += o0.y; v[2] += o0.z; v[3] += o0.w;
-            v[4] += o1.x; v[5] += o1.y; v[6] += o1.z; v[7] += o1.w;
-          }
           op[0] = make_float4(v[0], v[1], v[2], v[3]);
           op[1] = make_float4(v[4], v[5], v[6], v[7]);
         }
-        if (EPI != EPI_STORE_F32 && EPI != EPI_BIAS_F32 && EPI != EPI_ADD_F32) {
+        if (EPI != EPI_STORE_F32) {
           uint4 ov;
           bf16* oe = reinterpret_cast<bf16*>(&ov);
 #pragma unroll
@@ -379,22 +335,20 @@ __global__ void __launch_bounds__(GEMM_THREADS, 2) gemm_bf16_kernel(GemmArgs p) 
   }
 }
 
-inline GemmArgs gemm_args(const void* a, const void* b, const void* bias, const void* resid,
+inline GemmArgs gemm_args(const void* a, const void* b, const void* bias, const void* stash,
                           void* out, int M, int N, int K, void* out_f32 = nullptr,
                           void* out2 = nullptr) {
   GemmArgs p;
   p.a = static_cast<const bf16*>(a);
   p.b = static_cast<const bf16*>(b);
   p.bias = static_cast<const float*>(bias);
-  p.resid = static_cast<const bf16*>(resid);
+  p.stash = static_cast<const bf16*>(stash);
   p.out = static_cast<bf16*>(out);
   p.out_f32 = static_cast<float*>(out_f32);
   p.out2 = static_cast<bf16*>(out2);
   p.M = M;
   p.N = N;
   p.K = K;
-  p.ldb = 0;  // contiguous: launch_gemm sets N, or K with TB
-  p.ldc = N;
   p.k_split = K;
   return p;
 }
@@ -406,7 +360,6 @@ cudaError_t launch_gemm(GemmArgs p, cudaStream_t stream) {
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  if (p.ldb == 0) p.ldb = TB ? p.K : p.N;
   const dim3 grid((p.N + BN - 1) / BN, (p.M + BM - 1) / BM, (p.K + p.k_split - 1) / p.k_split);
   gemm_bf16_kernel<EPI, TA, TB><<<grid, GEMM_THREADS, smem, stream>>>(p);
   return cudaGetLastError();
@@ -439,11 +392,10 @@ __global__ void splitk_reduce_kernel(const float4* __restrict__ ws, int splits, 
 }
 
 // out[M, N] = bf16(A^T @ B) for A stored (K, M) and B (K, N): a weight
-// gradient summed over K = B*N token rows, out's rows ldc apart (0: N). The
-// slices fill about two CTAs per SM, each at least 8 slabs long; ws holds
-// MAX_SPLITS * M * N floats.
+// gradient summed over K = B*N token rows. The slices fill about two CTAs
+// per SM, each at least 8 slabs long; ws holds MAX_SPLITS * M * N floats.
 inline cudaError_t launch_weight_grad(const void* a, const void* b, void* out, int M, int N, int K,
-                                      float* ws, cudaStream_t stream, int ldc = 0) {
+                                      float* ws, cudaStream_t stream) {
   static int sms = 0;
   if (sms == 0) {
     int dev = 0;
@@ -457,19 +409,15 @@ inline cudaError_t launch_weight_grad(const void* a, const void* b, void* out, i
   splits = min(splits, min(MAX_SPLITS, max(1, nk / 8)));
   const int k_split = ((nk + splits - 1) / splits) * BK;
   splits = (K + k_split - 1) / k_split;
-  if (ldc == 0) ldc = N;
   GemmArgs p = gemm_args(a, b, nullptr, nullptr, out, M, N, K);
-  if (splits == 1) {
-    p.ldc = ldc;
-    return launch_gemm<EPI_STORE, true, false>(p, stream);
-  }
+  if (splits == 1) return launch_gemm<EPI_STORE, true, false>(p, stream);
   p.out_f32 = ws;  // the slices' partials stay contiguous
   p.k_split = k_split;
   cudaError_t err = launch_gemm<EPI_STORE_F32, true, false>(p, stream);
   if (err != cudaSuccess) return err;
   const size_t n4 = (size_t)M * N / 4;
   splitk_reduce_kernel<<<(unsigned)((n4 + 255) / 256), 256, 0, stream>>>(
-      reinterpret_cast<const float4*>(ws), splits, n4, N, ldc, static_cast<bf16*>(out));
+      reinterpret_cast<const float4*>(ws), splits, n4, N, N, static_cast<bf16*>(out));
   return cudaGetLastError();
 }
 

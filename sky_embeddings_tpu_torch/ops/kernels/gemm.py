@@ -1,21 +1,38 @@
-"""The forward GEMM of K1 and K2 (``csrc/gemm_sm90.cuh``) on its own.
+"""The persistent wgmma + TMA GEMM (``csrc/gemm_sm90.cuh``) on its own.
 
 K1 (``mlp_block``) and K2 (``attn_block``), and their stash twins (kernels 6
 and 2), launch this GEMM from C for every forward product (fc1, fc2, qkv,
-proj): a persistent, warp-specialised wgmma mainloop fed by TMA, with the
-epilogues at the TPU kernels' rounding points. No model calls :func:`gemm`;
-it launches one product with a chosen epilogue (``sky_gemm_sm90`` in
-``csrc/mlp_block.cu``) so that the card tests and ``chip_smoke.py`` can
-hold the GEMM alone to its plain version and time it beside cuBLAS.
+proj); kernels 8 and 9 (the MLP block's recompute and weight-streaming
+backwards) for all five of theirs, in two more forms:
 
-:func:`gemm_plan` is a copy of the C tile rule (``gemm_sm90_plan``): output
-tiles of 128 rows x BN columns, BN the one of 256, 192, 128 whose last wave
-over the card's resident CTAs (one per SM) ends first, counted as waves x
-BN; a narrower tile wins only when it cuts that by more than a sixteenth (a
-wider one reads less shared memory per FLOP). Beside the staged 128 x BN
-bf16 output tile, the ring holds as many 128 x 64 + 64 x BN bf16 slots as
-fit a block's shared memory. A card test holds the copy to the C rule; the
-CPU tests hold it at every shipped config.
+- the dual product: for each 128 x 128 tile of the (B·N, F) hidden layer,
+  ``a = y @ W1 + b1`` and ``dh = g @ W2ᵀ`` into two accumulator sets, with
+  an epilogue that writes ``da_c = bf16(dh · gelu'(a))``, ``h_c =
+  bf16(gelu(a))`` and the fp32 column sums of ``da`` for db1;
+- the group: up to three products in one persistent launch over the union
+  of their output tiles, each ``"nt"`` (``a @ bᵀ``, b stored (N, K): dy =
+  da_c @ W1ᵀ) or ``"tn"`` (``aᵀ @ b``, a stored (K, M): the weight gradients
+  over the B·N token rows), a ``"tn"`` product rounded to bf16 optionally
+  split along K into slices added in order.
+
+No model calls the functions here: :func:`gemm` launches one forward
+product with a chosen epilogue (``sky_gemm_sm90`` in ``csrc/mlp_block.cu``),
+:func:`gemm_bwd` one backward product, :func:`mlp_weight_grads` kernel 8's
+weight-gradient group and :func:`gemm_dual` the dual product
+(``csrc/mlp_block_bwd.cu``), so that the card tests and ``chip_smoke.py``
+can hold the GEMM alone to its plain version and time it beside cuBLAS.
+
+:func:`gemm_plan` is a copy of the forward tile rule (``gemm_sm90_plan``):
+output tiles of 128 rows x BN columns, BN the one of 256, 192, 128 whose
+last wave over the card's resident CTAs (one per SM) ends first, counted as
+waves x BN; a narrower tile wins only when it cuts that by more than a
+sixteenth (a wider one reads less shared memory per FLOP). Beside the
+staged 128 x BN bf16 output tile, the ring holds as many 128 x 64 + 64 x BN
+bf16 slots as fit a block's shared memory. :func:`bwd_plan` is a copy of
+the group rule (``bwd_plan``): of BN = 256, 192, 128 and split counts 1 and
+2, the pair of least modelled cost, the units dealt to the CTAs in
+turn as the kernel deals them. Card tests hold the copies to the C rules;
+the CPU tests hold them at every shipped config.
 """
 
 from __future__ import annotations
@@ -25,8 +42,10 @@ from dataclasses import dataclass
 
 import torch
 
+import numpy as np
+
 from sky_embeddings_tpu_torch.ops.kernels import cuda_build
-from sky_embeddings_tpu_torch.ops.kernels.mlp_block import gelu
+from sky_embeddings_tpu_torch.ops.kernels.mlp_block import gelu, gelu_grad
 
 BM = 128  # rows of an output tile: two consumer warpgroups of 64
 BK = 64  # depth of a ring slot: one 128-byte swizzle row of bf16
@@ -158,3 +177,281 @@ def gemm(a, b, bias, epi: str, resid=None):
 
 
 gemm.launches = 0
+
+
+# ---- the backward forms (csrc/gemm_sm90.cuh, entries in csrc/mlp_block_bwd.cu) ----
+
+FORMS = {"nt": 1, "tn": 2}  # enum Form
+BWD_EPILOGUES = {"store": 3, "store_f32": 4, "add_f32": 9}  # csrc/gemm.cuh enum Epilogue
+SPLIT_CANDIDATES = (1, 2)
+MAX_PROBLEMS = 3  # products in one group launch
+# a product's kind in a group plan (enum ShapeKind): "nt" (never split), a
+# weight gradient ("tn" rounded to bf16, may split its K), another "tn"
+KIND_NT, KIND_TN_SPLIT, KIND_TN = 0, 1, 2
+# the group plan's cost model (csrc/gemm_sm90.cuh), in units of about 0.1 us
+# of one CTA: a 64-deep slab of a 128 x BN tile costs SLAB_COST[kind is
+# "tn"][BN], its epilogue EPI_COST per 64 columns, a split product's reduce
+# one unit per REDUCE_BYTES_PER_COST bytes it moves
+SLAB_COST = {False: {256: 11, 192: 7, 128: 5}, True: {256: 6, 192: 5, 128: 4}}
+EPI_COST = 1
+REDUCE_BYTES_PER_COST = 1 << 16
+DUAL_BN = 128
+DUAL_STAGE_BYTES = 4 * BM * BK * 2  # y, g, W1 and W2 slabs of one ring slot
+
+
+@dataclass(frozen=True)
+class BwdPlan:
+    bn: int  # tile width of every product of the group
+    splits: int  # the split count offered to each weight gradient
+    units: int  # (tile, K slice) units over all products
+    smem: int  # dynamic shared-memory bytes of a CTA
+    cost: int  # the modelled cost
+
+
+def split_count(nk: int, split: int) -> tuple[int, int]:
+    """(slices, slabs per slice) of a K of ``nk`` 64-deep slabs cut into at
+    most ``split`` slices (``split_count``)."""
+    want = min(split, nk)
+    chunk = -(-nk // want)
+    return -(-nk // chunk), chunk
+
+
+def _bwd_cost(shapes, bn: int, split: int, sms: int) -> tuple[int, int]:
+    """(modelled cost, units) of a group (``bwd_cost``): ``shapes`` is a
+    sequence of (kind, M, N, K)."""
+    costs, extra = [], 0
+    for kind, M, N, K in shapes:
+        nk = -(-K // BK)
+        sp, chunk = split_count(nk, split) if kind == KIND_TN_SPLIT else (1, nk)
+        tiles = -(-M // BM) * -(-N // bn)
+        slab = SLAB_COST[kind != KIND_NT][bn]
+        per = np.array([(chunk if z < sp - 1 else nk - (sp - 1) * chunk) * slab
+                        + EPI_COST * (bn // 64) for z in range(sp)], dtype=np.int64)
+        costs.append(np.tile(per, tiles))
+        if sp > 1:
+            extra += (sp * M * N * 4 + M * N * 2) // REDUCE_BYTES_PER_COST
+    costs = np.concatenate(costs)
+    units = len(costs)
+    grid = min(units, sms)
+    load = np.bincount(np.arange(units) % grid, weights=costs, minlength=grid)
+    return int(load.max()) + extra, units
+
+
+def bwd_plan(shapes, sms: int = H100_SMS) -> BwdPlan:
+    """The group rule of ``csrc/gemm_sm90.cuh`` (``bwd_plan``) for products
+    (kind, M, N, K) over ``sms`` resident CTAs: of BN = 256, 192, 128 and
+    the split counts 1 and 2 (only 1 when no product may split) the pair of
+    least modelled cost, a later candidate winning only by more than a
+    sixteenth."""
+    shapes = [tuple(int(v) for v in s) for s in shapes]
+    splits = SPLIT_CANDIDATES if any(s[0] == KIND_TN_SPLIT for s in shapes) else (1,)
+    best = None
+    for bn in BNS:
+        for split in splits:
+            cost, units = _bwd_cost(shapes, bn, split, sms)
+            if best is None or cost * 16 < best.cost * 15:
+                smem = _stages(bn) * _stage_bytes(bn) + _out_bytes(bn) + SMEM_EXTRA
+                best = BwdPlan(bn, split, units, smem, cost)
+    return best
+
+
+def bwd_workspace(shapes, plan: BwdPlan) -> int:
+    """fp32 floats of split partials a group needs under ``plan``: a copy of
+    the C rule, which sizes every launch's workspace (:func:`bwd_plan_cuda`)."""
+    n = 0
+    for kind, M, N, K in shapes:
+        sp = split_count(-(-K // BK), plan.splits)[0] if kind == KIND_TN_SPLIT else 1
+        if sp > 1:
+            n += sp * M * N
+    return n
+
+
+def bwd_plan_cuda(shapes, sms: int = H100_SMS, splits: int = 0) -> tuple[BwdPlan, int]:
+    """The group rule as the C source computes it (builds ``lib mlp_block_bwd``):
+    ``(plan, workspace floats)`` of one to three products; ``splits`` > 0
+    forces the split count, as :func:`gemm_bwd` may."""
+    if not 1 <= len(shapes) <= MAX_PROBLEMS:
+        raise ValueError(f"a group holds 1 to {MAX_PROBLEMS} products, got {len(shapes)}")
+    fn = cuda_build.load("mlp_block_bwd").sky_gemm_sm90_bwd_plan
+    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_int,
+                   ctypes.POINTER(ctypes.c_longlong)]
+    fn.restype = None
+    flat = [int(v) for s in shapes for v in s]
+    out = (ctypes.c_longlong * 6)()
+    fn(len(shapes), (ctypes.c_int * len(flat))(*flat), sms, splits, out)
+    if out[0] < 0:
+        raise ValueError(f"sky_gemm_sm90_bwd_plan refused {shapes}")
+    return BwdPlan(*(int(v) for v in out[:5])), int(out[5])
+
+
+def mlp_bwd_groups(M: int, D: int, fs: int):
+    """The two launches of the group kernel in kernel 8 (``fs = F``) or in
+    one slab of kernel 9, as lists of (kind, M, N, K): dy (``"nt"``, fp32),
+    then dW1 and dW2 together (``"tn"``, bf16, may split)."""
+    return [[(KIND_NT, M, D, fs)], [(KIND_TN_SPLIT, D, fs, M), (KIND_TN_SPLIT, fs, D, M)]]
+
+
+def dual_plan(M: int, N: int) -> dict:
+    """Tiles, ring stages and shared memory of the dual product: 128 x 128
+    tiles, 64 KB slots beside one staged 128 x 128 bf16 tile."""
+    out_bytes = BM * DUAL_BN * 2
+    stages = (SMEM_OPTIN_MAX - SMEM_EXTRA - out_bytes) // DUAL_STAGE_BYTES
+    return {"tiles": -(-M // BM) * -(-N // DUAL_BN), "stages": stages,
+            "smem": stages * DUAL_STAGE_BYTES + out_bytes + SMEM_EXTRA}
+
+
+def _bwd_operands(a, b, form):
+    if form == "nt":
+        (M, K), N = a.shape, b.shape[0]
+        if b.shape[1] != K:
+            raise ValueError(f"nt: want a (M, K) and b (N, K), got {tuple(a.shape)}, {tuple(b.shape)}")
+    elif form == "tn":
+        (K, M), N = a.shape, b.shape[1]
+        if b.shape[0] != K:
+            raise ValueError(f"tn: want a (K, M) and b (K, N), got {tuple(a.shape)}, {tuple(b.shape)}")
+    else:
+        raise ValueError(f"form {form!r} is none of {sorted(FORMS)}")
+    return M, N, K
+
+
+def gemm_bwd_plain(a, b, form: str, epi: str, c=None):
+    """Plain version of one backward product: ``a @ bᵀ`` (``"nt"``) or
+    ``aᵀ @ b`` (``"tn"``) of the bf16 operands in fp32, then ``"store"``
+    rounds it to bf16, ``"store_f32"`` keeps it, ``"add_f32"`` returns
+    ``product + c``."""
+    _bwd_operands(a, b, form)
+    if epi not in BWD_EPILOGUES:
+        raise ValueError(f"epilogue {epi!r} is none of {sorted(BWD_EPILOGUES)}")
+    acc = torch.matmul(a.float(), b.float().t()) if form == "nt" else torch.matmul(a.float().t(), b.float())
+    if epi == "store":
+        return acc.to(torch.bfloat16)
+    return acc + c if epi == "add_f32" else acc
+
+
+def gemm_bwd(a, b, form: str, epi: str, c=None, bn: int = 0, splits: int = 0):
+    """As :func:`gemm_bwd_plain`. CPU tensors take the plain version; CUDA
+    tensors launch ``sky_gemm_sm90_bwd`` (the group kernel with this one
+    product) or raise. ``bn`` / ``splits`` > 0 force the tile width and,
+    for a ``"tn"`` product stored in bf16, the split count."""
+    if a.device.type == "cpu":
+        return gemm_bwd_plain(a, b, form, epi, c)
+    M, N, K = _bwd_operands(a, b, form)
+    if epi not in BWD_EPILOGUES:
+        raise ValueError(f"epilogue {epi!r} is none of {sorted(BWD_EPILOGUES)}")
+    for name, t in (("a", a), ("b", b)):
+        if t.dtype != torch.bfloat16 or not t.is_contiguous() or t.device != a.device:
+            raise ValueError(f"{name}: want a contiguous bf16 tensor on {a.device}")
+    if N % 8 or (K % 8 if form == "nt" else M % 8):
+        raise ValueError(f"M={M}, N={N}, K={K}: the contiguous axes must be multiples of 8 "
+                         "(16-byte TMA strides)")
+    if bn not in (0, *BNS):
+        raise ValueError(f"bn {bn} is none of {BNS}")
+    out = out_f32 = None
+    if epi == "store":
+        out = torch.empty((M, N), dtype=torch.bfloat16, device=a.device)
+    elif epi == "add_f32":
+        if c is None or tuple(c.shape) != (M, N) or c.dtype != torch.float32 or c.device != a.device:
+            raise ValueError(f"c: want a ({M}, {N}) fp32 tensor on {a.device}")
+        out_f32 = c.clone()
+    else:
+        out_f32 = torch.empty((M, N), dtype=torch.float32, device=a.device)
+    kind = KIND_NT if form == "nt" else KIND_TN_SPLIT if epi == "store" else KIND_TN
+    shapes = [(kind, M, N, K)]
+    sms = torch.cuda.get_device_properties(a.device).multi_processor_count
+    ws = torch.empty(max(bwd_plan_cuda(shapes, sms, splits)[1], 4), dtype=torch.float32,
+                     device=a.device)
+    fn = cuda_build.load("mlp_block_bwd").sky_gemm_sm90_bwd
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    ptr = lambda t: None if t is None else t.data_ptr()
+    with torch.cuda.device(a.device):
+        err = fn(ptr(a), ptr(b), ptr(out), ptr(out_f32), ws.data_ptr(), FORMS[form],
+                 BWD_EPILOGUES[epi], M, N, K, bn, splits, torch.cuda.current_stream().cuda_stream)
+    cuda_build.check(err, "sky_gemm_sm90_bwd")
+    gemm_bwd.launches += 1
+    return out if epi == "store" else out_f32
+
+
+gemm_bwd.launches = 0
+
+
+def mlp_weight_grads(y, da_c, h_c, g, bn: int = 0, splits: int = 0):
+    """``(dW1, dW2) = (yᵀ @ da_c, h_cᵀ @ g)`` rounded to bf16, from y, g (M,
+    D) and da_c, h_c (M, F). CPU tensors take the plain version; CUDA
+    tensors launch the two as kernel 8 does, one group of the ``"tn"`` form
+    (``sky_mlp_bwd_weight_grads``), or raise. ``bn`` / ``splits`` > 0 force
+    the tile width and the split count."""
+    if y.device.type == "cpu":
+        return gemm_bwd_plain(y, da_c, "tn", "store"), gemm_bwd_plain(h_c, g, "tn", "store")
+    (M, D), F = y.shape, da_c.shape[1]
+    for name, t, shape in (("y", y, (M, D)), ("g", g, (M, D)), ("da_c", da_c, (M, F)),
+                           ("h_c", h_c, (M, F))):
+        if (tuple(t.shape) != shape or t.dtype != torch.bfloat16 or not t.is_contiguous()
+                or t.device != y.device):
+            raise ValueError(f"{name}: want a contiguous {shape} bf16 tensor on {y.device}")
+    if D % 8 or F % 8:
+        raise ValueError(f"D={D} and F={F} must be multiples of 8 (16-byte TMA strides)")
+    if bn not in (0, *BNS):
+        raise ValueError(f"bn {bn} is none of {BNS}")
+    sms = torch.cuda.get_device_properties(y.device).multi_processor_count
+    n_ws = bwd_plan_cuda(mlp_bwd_groups(M, D, F)[1], sms, splits)[1]
+    ws = torch.empty(max(n_ws, 4), dtype=torch.float32, device=y.device)
+    dw1 = torch.empty((D, F), dtype=torch.bfloat16, device=y.device)
+    dw2 = torch.empty((F, D), dtype=torch.bfloat16, device=y.device)
+    fn = cuda_build.load("mlp_block_bwd").sky_mlp_bwd_weight_grads
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    with torch.cuda.device(y.device):
+        err = fn(*(t.data_ptr() for t in (y, da_c, h_c, g, dw1, dw2, ws)), M, D, F, F, bn, splits,
+                 torch.cuda.current_stream().cuda_stream)
+    cuda_build.check(err, "sky_mlp_bwd_weight_grads")
+    mlp_weight_grads.launches += 1
+    return dw1, dw2
+
+
+mlp_weight_grads.launches = 0
+
+
+def gemm_dual_plain(y, w1, b1, g, w2):
+    """Plain version of the dual product: ``(da_c, h_c, db1)`` with ``a = y @
+    W1 + b1`` and ``dh = g @ W2ᵀ`` in fp32, ``da = dh · gelu'(a)``, ``da_c``
+    and ``h_c = gelu(a)`` rounded to bf16, ``db1`` the fp32 column sums of
+    ``da`` (``_bwd_kernel``, mlp_block.py:322-329, :352)."""
+    a = torch.matmul(y.float(), w1.float()) + b1
+    da = torch.matmul(g.float(), w2.float().t()) * gelu_grad(a)
+    return da.to(torch.bfloat16), gelu(a).to(torch.bfloat16), da.sum(0)
+
+
+def gemm_dual(y, w1, b1, g, w2):
+    """As :func:`gemm_dual_plain`. CPU tensors take the plain version; CUDA
+    tensors launch ``sky_gemm_sm90_dual`` or raise."""
+    if y.device.type == "cpu":
+        return gemm_dual_plain(y, w1, b1, g, w2)
+    (M, K), N = y.shape, w1.shape[1]
+    want = {"y": (y, (M, K), torch.bfloat16), "g": (g, (M, K), torch.bfloat16),
+            "w1": (w1, (K, N), torch.bfloat16), "w2": (w2, (N, K), torch.bfloat16),
+            "b1": (b1, (N,), torch.float32)}
+    for name, (t, shape, dtype) in want.items():
+        if tuple(t.shape) != shape or t.dtype != dtype or not t.is_contiguous() or t.device != y.device:
+            raise ValueError(f"{name}: want contiguous {shape} {dtype} on {y.device}")
+    if N % 8 or K % 8:
+        raise ValueError(f"K={K} and N={N} must be multiples of 8 (16-byte TMA strides)")
+    bf = dict(dtype=torch.bfloat16, device=y.device)
+    da_c, h_c = torch.empty((M, N), **bf), torch.empty((M, N), **bf)
+    part = torch.empty(-(-M // 64) * N, dtype=torch.float32, device=y.device)
+    db1 = torch.empty(N, dtype=torch.float32, device=y.device)
+    fn = cuda_build.load("mlp_block_bwd").sky_gemm_sm90_dual
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    with torch.cuda.device(y.device):
+        err = fn(*(t.data_ptr() for t in (y, w1, b1, g, w2, da_c, h_c, part, db1)), M, N, K,
+                 torch.cuda.current_stream().cuda_stream)
+    cuda_build.check(err, "sky_gemm_sm90_dual")
+    gemm_dual.launches += 1
+    return da_c, h_c, db1
+
+
+gemm_dual.launches = 0

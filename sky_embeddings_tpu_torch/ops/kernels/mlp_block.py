@@ -8,11 +8,13 @@ fc2 + residual, both products on the persistent wgmma + TMA GEMM of
 
 Backward (kernel 8): replaces ``_pallas_bwd`` (``_bwd_kernel``), the
 recompute backward of ``fused_mlp_block(stash=False)``, the ViT-B training
-default. The CUDA kernel is ``csrc/mlp_block_bwd.cu``: LN, fc1 and GELU
-recomputed from x, then dh, dy and the two weight gradients as GEMMs that
-own their whole reduction, with deterministic two-pass column sums for the
-bias and LN gradients. :class:`MlpBlockFn` is the ``torch.autograd.Function``
-that pairs the two.
+default. The CUDA kernel is ``csrc/mlp_block_bwd.cu``: LN recomputed from
+x; one dual-product launch computes fc1 (``a = y @ W1 + b1``) and ``dh = g
+@ W2ᵀ`` for each hidden tile and writes ``da_c``, ``h_c`` and db1's column
+partials, so neither fp32 (B·N, F) array reaches device memory; one group
+launch then computes dy and the two weight gradients; the bias and LN
+gradients are summed in a fixed order. :class:`MlpBlockFn` is the
+``torch.autograd.Function`` that pairs the two.
 
 Stash forward and backward (kernels 6 and 7, ``stash=True``, the ViT-L
 default): replace ``_pallas_fwd_stash`` and ``_pallas_bwd_stash``. Kernel 6
@@ -23,11 +25,13 @@ its dh epilogue reading the bf16 ``a`` (``csrc/mlp_block_bwd.cu`` entry
 ``sky_mlp_block_bwd_stash``). :class:`MlpBlockStashFn` pairs them.
 
 What bounds them on the H100: tensor-core FLOPs (4·M·D·F forward, 10·M·D·F
-backward, 8·M·D·F for kernel 7, at M = B·65 rows), not bytes. The forwards
-(K1, kernel 6) run their products on wgmma fed by TMA; their fc1 epilogue's
-erf-GELU still runs while the tensor cores wait. The backwards (kernels 7,
-8, 9) keep the wmma GEMM of ``csrc/gemm.cuh``. h, a and da go through
-device memory at the TPU kernel's rounding points.
+backward, 8·M·D·F for kernel 7, at M = B·65 rows), not bytes. K1, kernel 6
+and kernels 8 and 9 run every product on the persistent wgmma + TMA GEMM of
+``csrc/gemm_sm90.cuh`` (the backwards through its K-major-B and
+transposed-A forms); the forwards' fc1 erf-GELU epilogue still runs while
+the tensor cores wait. Kernel 7 keeps the wmma GEMM of ``csrc/gemm.cuh``,
+with a and da through device memory. h, da_c and h_c go through device
+memory in bf16 at the TPU kernel's rounding points.
 
 Numerics (kernel and plain versions alike): fp32 LN statistics (eps 1e-6),
 bf16 GEMM operands with fp32 accumulation, exact-erf GELU and GELU' in fp32,
@@ -43,9 +47,10 @@ wide blocks, D·F > 1024·4096: ViT-H): replaces ``_pallas_bwd_stream``
 ``nj = F / fs`` column slabs of W1 (rows of W2), ``fs`` from
 :func:`_stream_slab` (JAX's partition: fs = 1280, nj = 4 at ViT-H), with the
 fp32 ``dy`` summed slab by slab in JAX's order
-(``csrc/mlp_block_bwd.cu`` entry ``sky_mlp_block_bwd_stream``). On the TPU
-the slabs bound the VMEM-resident weights; here they bound the (B·N, fs)
-scratch in device memory. With one slab JAX runs kernel 8, and so does
+(``csrc/mlp_block_bwd.cu`` entry ``sky_mlp_block_bwd_stream``: per slab
+kernel 8's dual product and group launch). On the TPU the slabs bound the
+VMEM-resident weights; here they bound the (B·N, fs) scratch in device
+memory. With one slab JAX runs kernel 8, and so does
 :func:`mlp_block_bwd_stream`. :class:`MlpBlockFn` pairs K1 with kernel 8 or,
 with ``stream``, kernel 9; only the inputs are saved either way.
 """
@@ -53,6 +58,7 @@ with ``stream``, kernel 9; only the inputs are saved either way.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -62,7 +68,7 @@ from sky_embeddings_tpu_torch.ops.kernels import cuda_build
 _INV_SQRT2 = 1.0 / math.sqrt(2.0)
 _INV_SQRT2PI = 1.0 / math.sqrt(2.0 * math.pi)
 ROWS_PER_PARTIAL = 32  # rows per partial column sum, csrc/bwd_common.cuh
-MAX_SPLITS = 8  # K slices of a weight-gradient GEMM at most, csrc/gemm.cuh
+MAX_SPLITS = 8  # K slices of a kernel 7 weight-gradient GEMM at most, csrc/gemm.cuh
 
 
 def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -296,11 +302,25 @@ def _check_g(x, g):
         raise ValueError(f"g: want a contiguous {tuple(x.shape)} {x.dtype} tensor on {x.device}")
 
 
+@functools.lru_cache(maxsize=64)
+def _split_ws(device: int, M: int, D: int, F: int, fs: int) -> int:
+    """fp32 floats of split-K workspace kernel 8 (``fs = F``) or 9 needs:
+    what the C plan (``sky_mlp_block_bwd_ws``) says for this card."""
+    fn = cuda_build.load("mlp_block_bwd").sky_mlp_block_bwd_ws
+    fn.argtypes = [ctypes.c_int] * 4
+    fn.restype = ctypes.c_longlong
+    with torch.cuda.device(device):
+        n = fn(M, D, F, fs)
+    if n < 0:
+        raise RuntimeError("sky_mlp_block_bwd_ws: no CUDA device")
+    return n
+
+
 def _launch_bwd(entry, x, scale, bias, w1, b1, w2, a, g, fs=None):
     """Kernel 8 (``a`` None: fc1 recomputed from ``b1``), kernel 7 (the bf16
     stash ``a``) or, with a slab width ``fs``, kernel 9 on CUDA tensors;
-    allocates the scratch (its (B·N, ·) buffers one slab wide) and the
-    outputs."""
+    allocates the scratch (its (B·N, ·) buffers one slab wide; kernel 7's
+    fp32 da too) and the outputs."""
     B, N, D = x.shape
     F = w1.shape[1]
     M = B * N
@@ -309,15 +329,19 @@ def _launch_bwd(entry, x, scale, bias, w1, b1, w2, a, g, fs=None):
     f32 = dict(dtype=torch.float32, device=x.device)
     bf = dict(dtype=torch.bfloat16, device=x.device)
     y, dy = torch.empty((M, D), **bf), torch.empty((M, D), **f32)
-    af, da_c, h_c = torch.empty((M, w), **f32), torch.empty((M, w), **bf), torch.empty((M, w), **bf)
+    da_c, h_c = torch.empty((M, w), **bf), torch.empty((M, w), **bf)
     part = torch.empty(parts * (w + 3 * D), **f32)
-    ws = torch.empty(MAX_SPLITS * D * w, **f32)
     dx = torch.empty_like(x)
     dscale, dbias, db2 = (torch.empty(D, **f32) for _ in range(3))
     dw1, db1, dw2 = torch.empty((D, F), **bf), torch.empty(F, **f32), torch.empty((F, D), **bf)
-    ins = (x, scale, bias, w1, b1, w2, g) if a is None else (x, scale, bias, w1, w2, a, g)
-    ptrs = [t.data_ptr() for t in (*ins, y, af, da_c, h_c, dy, part, ws,
-                                   dx, dscale, dbias, dw1, db1, dw2, db2)]
+    if a is None:
+        ws = torch.empty(max(_split_ws(x.device.index, M, D, F, w), 4), **f32)
+        scratch = (x, scale, bias, w1, b1, w2, g, y, da_c, h_c, dy, part, ws)
+    else:
+        ws = torch.empty(MAX_SPLITS * D * F, **f32)
+        da = torch.empty((M, F), **f32)
+        scratch = (x, scale, bias, w1, w2, a, g, y, da, da_c, h_c, dy, part, ws)
+    ptrs = [t.data_ptr() for t in (*scratch, dx, dscale, dbias, dw1, db1, dw2, db2)]
     ints = (M, D, F) if fs is None else (M, D, F, fs)
     with torch.cuda.device(x.device):
         err = _entry("mlp_block_bwd", entry, len(ptrs), len(ints))(

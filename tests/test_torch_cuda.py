@@ -1192,3 +1192,205 @@ def test_forward_blocks_launch_only_the_sm90_gemm(dev):
     names = [e.key for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
     assert sum("gemm_sm90_kernel" in n for n in names) >= 4, names
     assert not any("gemm_bf16_kernel" in n for n in names), names
+
+
+# -- the backward forms of csrc/gemm_sm90.cuh (kernels 8 and 9) --------------------
+
+# fp32 outputs against the fp32 product of the same bf16 operands: the sums
+# run in another order (K up to 17 408 terms), nothing is rounded to bf16
+TOL_F32 = 1e-4
+
+
+def _bwd_operands(dev, form, M, N, K, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    a_shape, b_shape = ((M, K), (N, K)) if form == "nt" else ((K, M), (K, N))
+    a = torch.randn(*a_shape, generator=gen, device=dev).to(torch.bfloat16)
+    b = (torch.randn(*b_shape, generator=gen, device=dev) * K ** -0.5).to(torch.bfloat16)
+    c = torch.randn(M, N, generator=gen, device=dev)
+    return a, b, c
+
+
+def _check_bwd(dev, form, epi, M, N, K, bn=0, splits=0, seed=0):
+    a, b, c = _bwd_operands(dev, form, M, N, K, seed)
+    out = tg.gemm_bwd(a, b, form, epi, c, bn=bn, splits=splits)
+    want = tg.gemm_bwd_plain(a, b, form, epi, c)
+    assert out.shape == (M, N) and out.dtype == want.dtype
+    assert _max_rel(out, want) <= (TOL_FWD if epi == "store" else TOL_F32)
+    again = tg.gemm_bwd(a, b, form, epi, c, bn=bn, splits=splits)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+
+
+@pytest.mark.parametrize("epi", ["store", "store_f32", "add_f32"])
+@pytest.mark.parametrize("K", (8, 200, 3072, 5120))
+@pytest.mark.parametrize("N", (8, 200, 768, 5120))
+@pytest.mark.parametrize("M", (1, 63, 4161))
+def test_sm90_nt_form_matches_an_fp32_product(dev, M, N, K, epi):
+    """out = a @ bᵀ with b stored (N, K), read K-major in place (dh = g @
+    W2ᵀ, dy = da_c @ W1ᵀ): ragged rows, N and K past a whole box, model
+    widths; twice bit-equal."""
+    _check_bwd(dev, "nt", epi, M, N, K, seed=M + 3 * N + 7 * K)
+
+
+@pytest.mark.parametrize("epi", ["store", "store_f32"])
+@pytest.mark.parametrize("K", (8, 520, 4160, 17408))
+@pytest.mark.parametrize("N", (8, 768, 3072))
+@pytest.mark.parametrize("M", (8, 200, 1280, 5120))
+def test_sm90_tn_form_matches_an_fp32_product(dev, M, N, K, epi):
+    """out = aᵀ @ b with a stored (K, M), read MN-major (the weight
+    gradients over K = B·N token rows: 8, 520, 64·65 and the MAE encoder's
+    256·68 = 17 408), with the plan's split count; twice bit-equal."""
+    _check_bwd(dev, "tn", epi, M, N, K, seed=M + 5 * N + 11 * K)
+
+
+@pytest.mark.parametrize("splits", (1, 2, 3, 4, 6, 8))
+@pytest.mark.parametrize("bn", tg.BNS)
+@pytest.mark.parametrize("M,N,K", [(768, 3072, 4160), (1280, 1280, 2112), (200, 8, 65 * 9)])
+def test_sm90_weight_gradient_at_every_split_and_width(dev, M, N, K, bn, splits):
+    """Each split count and tile width forced: the slices' fp32 partials
+    added in order, then rounded once; twice bit-equal."""
+    _check_bwd(dev, "tn", "store", M, N, K, bn=bn, splits=splits, seed=splits)
+
+
+@pytest.mark.parametrize("bn,splits", [(0, 0)] + [(bn, sp) for bn in tg.BNS
+                                                   for sp in tg.SPLIT_CANDIDATES])
+@pytest.mark.parametrize("M,D,F", [(4160, 768, 3072), (2112, 1280, 1280), (520, 64, 256)])
+def test_sm90_weight_gradient_group_matches_plain(dev, M, D, F, bn, splits):
+    """dW1 and dW2 in one launch, as kernels 8 and 9 run them
+    (``mlp_weight_grads``), at the plan's choice and at each tile width and
+    split count forced, the workspace sized by the C plan; twice bit-equal."""
+    gen = torch.Generator(device=dev).manual_seed(M + D + F + splits)
+    y, g = (torch.randn(M, D, generator=gen, device=dev).to(torch.bfloat16) for _ in range(2))
+    da_c, h_c = (torch.randn(M, F, generator=gen, device=dev).to(torch.bfloat16) for _ in range(2))
+    got = tg.mlp_weight_grads(y, da_c, h_c, g, bn=bn, splits=splits)
+    want = tg.mlp_weight_grads(y.cpu(), da_c.cpu(), h_c.cpu(), g.cpu())
+    for a_, b_ in zip(got, want):
+        assert a_.shape == b_.shape and a_.dtype == b_.dtype
+        assert _max_rel(a_, b_.to(dev)) <= TOL_FWD
+    again = tg.mlp_weight_grads(y, da_c, h_c, g, bn=bn, splits=splits)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a_, b_) for a_, b_ in zip(got, again))
+
+
+@pytest.mark.parametrize("M,N,K", [(4160, 3072, 768), (2112, 1280, 1280), (63, 200, 64),
+                                   (1, 8, 8), (4161, 5120, 1280), (33, 136, 96)])
+def test_sm90_dual_product_matches_plain(dev, M, N, K):
+    """a = y @ W1 + b1 and dh = g @ W2ᵀ in one launch: da_c, h_c and db1
+    against the plain version; twice bit-equal."""
+    gen = torch.Generator(device=dev).manual_seed(M + N + K)
+    bf = torch.bfloat16
+    y = torch.randn(M, K, generator=gen, device=dev).to(bf)
+    g = (0.1 * torch.randn(M, K, generator=gen, device=dev)).to(bf)
+    w1 = (torch.randn(K, N, generator=gen, device=dev) * K ** -0.5).to(bf)
+    w2 = (torch.randn(N, K, generator=gen, device=dev) * N ** -0.5).to(bf)
+    b1 = 0.1 * torch.randn(N, generator=gen, device=dev)
+    got = tg.gemm_dual(y, w1, b1, g, w2)
+    want = tg.gemm_dual_plain(y, w1, b1, g, w2)
+    for name, a_, b_, tol in zip(("da_c", "h_c", "db1"), got, want, (TOL_FWD, TOL_FWD, TOL_BWD)):
+        assert a_.shape == b_.shape and a_.dtype == b_.dtype, name
+        assert _max_rel(a_, b_) <= tol, name
+    again = tg.gemm_dual(y, w1, b1, g, w2)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a_, b_) for a_, b_ in zip(got, again))
+
+
+def test_sm90_backward_entries_refuse_and_count(dev):
+    a = torch.zeros(64, 32, device=dev, dtype=torch.bfloat16)
+    b = torch.zeros(16, 32, device=dev, dtype=torch.bfloat16)
+    before = tg.gemm_bwd.launches
+    assert tg.gemm_bwd(a, b, "nt", "store").shape == (64, 16)
+    assert tg.gemm_bwd.launches == before + 1
+    with pytest.raises(ValueError, match="multiples of 8"):
+        tg.gemm_bwd(a[:, :20].contiguous(), b[:, :20].contiguous(), "nt", "store")
+    with pytest.raises(ValueError, match="tn"):
+        tg.gemm_bwd(a, b, "tn", "store")
+    with pytest.raises(ValueError, match="c:"):
+        tg.gemm_bwd(a, b, "nt", "add_f32")
+    with pytest.raises(ValueError, match="b:"):
+        tg.gemm_bwd(a, b.float(), "nt", "store")
+    assert tg.gemm_bwd.launches == before + 1
+    with pytest.raises(ValueError, match="w2"):
+        tg.gemm_dual(a, b.t().contiguous(), torch.zeros(16, device=dev), a, b[:, :8].contiguous())
+    before = tg.mlp_weight_grads.launches
+    hid = torch.zeros(64, 16, device=dev, dtype=torch.bfloat16)
+    dw1, dw2 = tg.mlp_weight_grads(a, hid, hid, a)
+    assert (dw1.shape, dw2.shape) == ((32, 16), (16, 32))
+    assert tg.mlp_weight_grads.launches == before + 1
+    with pytest.raises(ValueError, match="h_c"):
+        tg.mlp_weight_grads(a, hid, hid[:, :8].contiguous(), a)
+    with pytest.raises(ValueError, match="bn"):
+        tg.mlp_weight_grads(a, hid, hid, a, bn=64)
+    assert tg.mlp_weight_grads.launches == before + 1
+    with pytest.raises(ValueError, match="1 to 3 products"):
+        tg.bwd_plan_cuda([(1, 8, 8, 8)] * 4)
+    with pytest.raises(ValueError, match="1 to 3 products"):
+        tg.bwd_plan_cuda([])
+
+
+def _bwd_groups():
+    """Kernel 8's groups at every shipped width and at ragged rows, kernel
+    9's ViT-H slab groups, and single products."""
+    groups = []
+    for M in (1, 63, 64 * 65, 4161, 32 * 66, 256 * 66, 256 * 68, 1024 * 65, 512 * 65):
+        for D in (512, 768, 1024, 1280):
+            groups += tg.mlp_bwd_groups(M, D, 4 * D)
+        groups += tg.mlp_bwd_groups(M, 1280, 1280)
+    groups += [[(1, 768, 3072, 17408)], [(0, 4161, 200, 8)], [(1, 8, 8, 8)]]
+    return groups
+
+
+@pytest.mark.parametrize("sms", [132, 114, 1])
+def test_sm90_backward_plan_equals_its_python_copy(dev, sms):
+    """The group plan the C source computes (``sky_gemm_sm90_bwd_plan``: BN,
+    split count, units, shared memory, modelled cost, workspace) is
+    ``bwd_plan``'s, and the dual product's shared memory fits."""
+    for shapes in _bwd_groups():
+        plan, ws = tg.bwd_plan_cuda(shapes, sms)
+        want = tg.bwd_plan(shapes, sms)
+        assert plan == want, (shapes, sms)
+        assert ws == tg.bwd_workspace(shapes, want), (shapes, sms)
+
+
+@pytest.mark.parametrize("B,N,D,F,fs", [(3, 17, 64, 256, None), (9, 65, 128, 512, None),
+                                        (2, 65, 768, 3072, None), (3, 33, 1280, 5120, 1280),
+                                        (7, 65, 128, 512, 128)])
+def test_mlp_backwards_give_the_same_bits_twice(dev, B, N, D, F, fs, monkeypatch):
+    """Kernel 8 (``fs`` None) and kernel 9: every output bit-equal run to
+    run (no atomics; the split slices, the dual product's column sums and
+    the slabs' dy added in a fixed order)."""
+    if fs is not None:
+        monkeypatch.setattr(tmb, "_stream_slab", lambda D_, F_, **kw: fs)
+    args = _stream_case(dev, B, N, D, F, seed=50)
+    fn = tmb.mlp_block_bwd if fs is None else tmb.mlp_block_bwd_stream
+    first, second = fn(*args), fn(*args)
+    torch.cuda.synchronize()
+    for name, a, b in zip(_MLP_GRADS, first, second):
+        assert torch.equal(a, b), name
+
+
+def test_mlp_backwards_launch_the_sm90_gemm_and_kernel_7_the_wmma_one(dev, monkeypatch):
+    """Kernels 8 and 9 run every product on gemm_sm90.cuh (the dual and
+    group kernels) and launch no ``gemm_bf16_kernel``; kernel 7 still does
+    (the profiler's kernel names)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def names(fn):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        return [e.key for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
+
+    args = _stream_case(dev, 4, 65, 768, 3072, seed=51)
+    k8 = names(lambda: tmb.mlp_block_bwd(*args))
+    monkeypatch.setattr(tmb, "_stream_slab", lambda D_, F_, **kw: 768)
+    k9 = names(lambda: tmb.mlp_block_bwd_stream(*args))
+    for got in (k8, k9):
+        assert any("gemm_dual_kernel" in n for n in got), got
+        assert any("gemm_bwd_kernel" in n for n in got), got
+        assert not any("gemm_bf16_kernel" in n for n in got), got
+    x, scale, bias, w1, b1, w2, g = args
+    _, a = tmb.mlp_block_fwd_stash_plain(x, scale, bias, w1, b1, w2, torch.zeros_like(scale))
+    k7 = names(lambda: tmb.mlp_block_bwd_stash(x, scale, bias, w1, w2, a, g))
+    assert any("gemm_bf16_kernel" in n for n in k7), k7
+    assert not any("gemm_dual_kernel" in n or "gemm_bwd_kernel" in n for n in k7), k7

@@ -142,3 +142,215 @@ def test_gemm_plain_refuses_an_unknown_epilogue():
     a, b, bias = torch.zeros(2, 8), torch.zeros(8, 8), torch.zeros(8)
     with pytest.raises(ValueError):
         G.gemm(a.bfloat16(), b.bfloat16(), bias, "gelu")
+
+
+# ---- the backward forms (kernels 8 and 9) -------------------------------------
+
+from sky_embeddings_tpu_torch.ops.kernels.mlp_block import _stream_slab  # noqa: E402
+
+
+def _bwd_cost_all(shapes):
+    """Every candidate's modelled cost, for the within-a-sixteenth check."""
+    splits = G.SPLIT_CANDIDATES if any(s[0] == G.KIND_TN_SPLIT for s in shapes) else (1,)
+    return [G._bwd_cost(shapes, bn, sp, G.H100_SMS)[0] for bn in G.BNS for sp in splits]
+
+
+def _assert_bwd_sound(shapes):
+    plan = G.bwd_plan(shapes)
+    assert plan.bn in G.BNS
+    may_split = any(s[0] == G.KIND_TN_SPLIT for s in shapes)
+    assert plan.splits in (G.SPLIT_CANDIDATES if may_split else (1,))
+    units, ws = 0, 0
+    for kind, M, N, K in shapes:
+        nk = math.ceil(K / G.BK)
+        sp, chunk = G.split_count(nk, plan.splits) if kind == G.KIND_TN_SPLIT else (1, nk)
+        assert 1 <= sp <= max(G.SPLIT_CANDIDATES) and (sp - 1) * chunk < nk <= sp * chunk
+        units += math.ceil(M / G.BM) * math.ceil(N / plan.bn) * sp
+        ws += sp * M * N if sp > 1 else 0
+    assert plan.units == units
+    assert G.bwd_workspace(shapes, plan) == ws
+    stage_bytes = G.BM * G.BK * 2 + G.BK * plan.bn * 2
+    out_bytes = G.BM * plan.bn * 2  # the staged output tile
+    stages = (plan.smem - out_bytes - G.SMEM_EXTRA) // stage_bytes
+    assert plan.smem == stages * stage_bytes + out_bytes + G.SMEM_EXTRA and stages >= 3
+    assert plan.smem + stage_bytes > G.SMEM_OPTIN_MAX >= plan.smem  # one more slot would not fit
+    assert plan.cost * 15 <= min(_bwd_cost_all(shapes)) * 16
+
+
+def _config_bwd_groups(name: str):
+    """Kernel 8's two launches at every MLP block a shipped config trains
+    (the encoder; an MAE model's decoder too), at one image, the config's
+    batch and 1024; kernel 9's slabs where JAX streams the block."""
+    cfg = load_config(name, str(CONFIGS))
+    arch, training = cfg["ARCHITECTURE"], cfg["TRAINING"]
+    grid = arch.int("img_size") // arch.int("patch_size")
+    n_tok = grid * grid + 1 + int(arch.bool("ra_dec", False))
+    D = arch.int("embed_dim")
+    out = []
+    for B in (1, training.int("batch_size"), 1024):
+        widths = [(B * n_tok, D)]
+        if not MODEL_TYPES[arch.str("model_type")][1]:
+            widths.append((B * (grid * grid + 1), DECODER_D))
+        for M, d in widths:
+            out += G.mlp_bwd_groups(M, d, _stream_slab(d, 4 * d))
+    return out
+
+
+# chip_smoke.py's bench shapes: mim_1 at B=64 and 512, ViT-H slabs (fs =
+# 1280) at B=32 and 256, MAE's packed encoder (256 x 68) and its decoder
+# (1024 x 65 at D=512)
+BENCH_BWD = (G.mlp_bwd_groups(64 * 65, 768, 3072) + G.mlp_bwd_groups(512 * 65, 768, 3072)
+             + G.mlp_bwd_groups(32 * 66, 1280, 1280) + G.mlp_bwd_groups(256 * 66, 1280, 1280)
+             + G.mlp_bwd_groups(256 * 68, 768, 3072) + G.mlp_bwd_groups(1024 * 65, DECODER_D, 2048))
+
+
+@pytest.mark.parametrize("name", MIM_CONFIGS)
+def test_bwd_plan_fits_every_backward_product_of_the_shipped_configs(name):
+    groups = _config_bwd_groups(name)
+    assert len(groups) >= 6
+    for shapes in groups:
+        _assert_bwd_sound(shapes)
+
+
+@pytest.mark.parametrize("case", range(len(BENCH_BWD)))
+def test_bwd_plan_fits_the_bench_models(case):
+    _assert_bwd_sound(BENCH_BWD[case])
+
+
+def test_bwd_plan_at_mim_1_batch_64():
+    """dy (4 160 x 768, K = 3 072) on 132 tiles of 128 x 192, one wave; dW1
+    and dW2 (768 x 3 072 and 3 072 x 768, K = 4 160) together on 192 tiles
+    of 128 x 192 with no split: the widths a sweep on the card found
+    fastest for dy alone and for the group (PERF.md)."""
+    dy, dw = G.mlp_bwd_groups(64 * 65, 768, 3072)
+    assert (G.bwd_plan(dy).bn, G.bwd_plan(dy).units) == (192, 132)
+    assert (G.bwd_plan(dw).bn, G.bwd_plan(dw).splits, G.bwd_plan(dw).units) == (192, 1, 192)
+    assert G.bwd_workspace(dw, G.bwd_plan(dw)) == 0
+
+
+# (M, D, F) of kernel 8's or 9's weight-gradient group and the (tile width,
+# split count) of least device time among the 18 that tools/mlp_bwd_variants.py
+# forced on an H100 (PERF.md, PR 10)
+GROUP_SWEEP_FASTEST = {
+    "mim_1 B=64": ((64 * 65, 768, 3072), (192, 1)),
+    "mim_1 B=512": ((512 * 65, 768, 3072), (192, 2)),
+    "mae encoder B=256": ((256 * 68, 768, 3072), (192, 1)),
+    "mae decoder B=1024": ((1024 * 65, DECODER_D, 2048), (256, 2)),
+    "vith slab B=32": ((32 * 66, 1280, 1280), (256, 1)),
+    "vith slab B=256": ((256 * 66, 1280, 1280), (256, 1)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(GROUP_SWEEP_FASTEST))
+def test_bwd_plan_picks_the_fastest_weight_gradient_group_of_the_card_sweep(case):
+    (M, D, F), want = GROUP_SWEEP_FASTEST[case]
+    plan = G.bwd_plan(G.mlp_bwd_groups(M, D, F)[1])
+    assert (plan.bn, plan.splits) == want
+
+
+def test_bwd_plan_at_tiny_and_ragged_shapes():
+    for shapes in ([(0, 1, 8, 8)], [(1, 8, 8, 8)], [(1, 200, 8, 585)], [(0, 4161, 200, 3072)],
+                   [(1, 768, 3072, 17408), (1, 3072, 768, 17408)], [(1, 8, 5120, 1)]):
+        _assert_bwd_sound(shapes)
+    assert G.bwd_plan([(1, 8, 8, 8)]).units == 1
+
+
+@pytest.mark.parametrize("nk", [1, 2, 7, 33, 65, 272, 1040])
+def test_split_count_covers_k_in_whole_slabs(nk):
+    for split in G.SPLIT_CANDIDATES:
+        sp, chunk = G.split_count(nk, split)
+        assert 1 <= sp <= min(split, nk)
+        assert (sp - 1) * chunk < nk <= sp * chunk  # no empty slice, nothing left over
+
+
+@pytest.mark.parametrize("M,N", [(64 * 65, 3072), (2112, 1280), (1, 8), (66560, 2048)])
+def test_dual_plan_fits(M, N):
+    plan = G.dual_plan(M, N)
+    assert plan["tiles"] == math.ceil(M / 128) * math.ceil(N / 128)
+    assert plan["stages"] == 3
+    assert plan["smem"] <= G.SMEM_OPTIN_MAX < plan["smem"] + G.DUAL_STAGE_BYTES
+
+
+def _bf(rng, *shape, scale=1.0):
+    return torch.from_numpy((rng.normal(size=shape) * scale).astype(np.float32)).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("form,epi", [("nt", "store"), ("nt", "store_f32"), ("nt", "add_f32"),
+                                      ("tn", "store"), ("tn", "store_f32"), ("tn", "add_f32")])
+def test_gemm_bwd_plain_matches_numpy(form, epi):
+    """The CPU path of ``gemm_bwd`` is the plain version: the fp32 product of
+    the bf16 operands, a @ bᵀ (b stored (N, K)) or aᵀ @ b (a stored (K, M)),
+    rounded once to bf16, kept in fp32, or added to c."""
+    rng = np.random.default_rng(1)
+    M, N, K = 37, 72, 585
+    a = _bf(rng, M, K) if form == "nt" else _bf(rng, K, M)
+    b = _bf(rng, N, K, scale=K ** -0.5) if form == "nt" else _bf(rng, K, N, scale=K ** -0.5)
+    c = torch.from_numpy(rng.normal(size=(M, N)).astype(np.float32))
+    before = G.gemm_bwd.launches
+    out = G.gemm_bwd(a, b, form, epi, c)
+    assert G.gemm_bwd.launches == before  # CPU tensors launch nothing
+    a64, b64 = a.float().numpy().astype(np.float64), b.float().numpy().astype(np.float64)
+    want = a64 @ b64.T if form == "nt" else a64.T @ b64
+    if epi == "add_f32":
+        want = want + c.numpy()
+    assert out.shape == (M, N)
+    assert out.dtype == (torch.bfloat16 if epi == "store" else torch.float32)
+    np.testing.assert_allclose(out.float().numpy(), want, rtol=2 ** -8 if epi == "store" else 1e-5,
+                               atol=1e-5)
+
+
+def test_gemm_dual_plain_matches_numpy():
+    """The dual product's plain version: a = y @ W1 + b1 and dh = g @ W2ᵀ in
+    fp32, da = dh · gelu'(a) (exact erf), da_c and h_c = gelu(a) rounded
+    once to bf16, db1 the fp32 column sums of da."""
+    from scipy.special import erf
+
+    rng = np.random.default_rng(2)
+    M, N, K = 37, 72, 48
+    y, g = _bf(rng, M, K), _bf(rng, M, K, scale=0.1)
+    w1, w2 = _bf(rng, K, N, scale=K ** -0.5), _bf(rng, N, K, scale=N ** -0.5)
+    b1 = torch.from_numpy(rng.normal(size=N).astype(np.float32) * 0.1)
+    da_c, h_c, db1 = G.gemm_dual(y, w1, b1, g, w2)
+    f = lambda t: t.float().numpy().astype(np.float64)
+    a = f(y) @ f(w1) + b1.numpy()
+    grad = 0.5 * (1 + erf(a / np.sqrt(2))) + a * np.exp(-0.5 * a * a) / np.sqrt(2 * np.pi)
+    da = (f(g) @ f(w2).T) * grad
+    np.testing.assert_allclose(f(da_c), da, rtol=2 ** -8, atol=1e-6)
+    np.testing.assert_allclose(f(h_c), 0.5 * a * (1 + erf(a / np.sqrt(2))), rtol=2 ** -8, atol=1e-6)
+    np.testing.assert_allclose(db1.numpy(), da.sum(0), rtol=1e-4, atol=1e-6)
+    assert da_c.dtype == h_c.dtype == torch.bfloat16 and db1.dtype == torch.float32
+
+
+def test_mlp_backward_plain_is_the_dual_and_group_products():
+    """Kernel 8's plain version equals its decomposition into the plain
+    dual product and the plain backward forms: dW1 = yᵀ @ da_c and dW2 =
+    h_cᵀ @ g (``"tn"``, one by one and as the group ``mlp_weight_grads``),
+    db1 from the dual's column sums, on y = LN(x)."""
+    from sky_embeddings_tpu_torch.ops.kernels import mlp_block as M_
+
+    rng = np.random.default_rng(3)
+    B, N, D, F = 3, 17, 48, 192
+    x, g = _bf(rng, B, N, D, scale=0.5), _bf(rng, B, N, D, scale=0.1)
+    scale = torch.from_numpy(1 + 0.1 * rng.normal(size=D).astype(np.float32))
+    bias = torch.from_numpy(0.1 * rng.normal(size=D).astype(np.float32))
+    w1, w2 = _bf(rng, D, F, scale=D ** -0.5), _bf(rng, F, D, scale=F ** -0.5)
+    b1 = torch.from_numpy(0.01 * rng.normal(size=F).astype(np.float32))
+    _, _, _, dw1, db1, dw2, _ = M_.mlp_block_bwd_plain(x, scale, bias, w1, b1, w2, g)
+    y = M_.layer_norm(x.reshape(-1, D).float(), scale, bias).to(torch.bfloat16)
+    g2 = g.reshape(-1, D)
+    da_c, h_c, db1_d = G.gemm_dual(y, w1, b1, g2, w2)
+    torch.testing.assert_close(G.gemm_bwd(y, da_c, "tn", "store"), dw1, rtol=0, atol=0)
+    torch.testing.assert_close(G.gemm_bwd(h_c, g2, "tn", "store"), dw2, rtol=0, atol=0)
+    for got, want in zip(G.mlp_weight_grads(y, da_c, h_c, g2), (dw1, dw2)):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    torch.testing.assert_close(db1_d, db1, rtol=1e-6, atol=1e-7)
+
+
+def test_gemm_bwd_plain_refuses_unknown_forms_and_epilogues():
+    a, b = torch.zeros(8, 8, dtype=torch.bfloat16), torch.zeros(8, 8, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="form"):
+        G.gemm_bwd(a, b, "nn", "store")
+    with pytest.raises(ValueError, match="epilogue"):
+        G.gemm_bwd(a, b, "nt", "gelu")
+    with pytest.raises(ValueError, match="tn"):
+        G.gemm_bwd(a, torch.zeros(9, 8, dtype=torch.bfloat16), "tn", "store")
