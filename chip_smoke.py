@@ -53,7 +53,11 @@ failing loudly (any failure exits non-zero and prints no result line):
    dh alone on the K-major-B form, dy, and dW1, dW2 on the transposed-A
    form) at ``mim_1`` B=64 and 512 and at one ViT-H slab, held to their
    plain versions and timed beside ``torch.mm`` on the same operand views,
-   with kernel 8's and 9's device time by kernel name (the
+   with kernel 8's and 9's device time by kernel name; the products of
+   kernels 3 and 4 (the qkv recompute on the forward form, dctx and dy on
+   the K-major-B form, dWqkv with dWproj in one transposed-A group) at
+   ``mim_1`` B=64 and 512 and at ViT-H B=256 beside ``torch.addmm`` /
+   ``torch.mm``, with kernel 3's and 4's device time by kernel name (the
    ``bwd_gemm_times`` record);
 4. the serving path, through the entry points ``similarity_search`` calls, on
    ``configs/mim_1.ini`` (SimMIM ViT-B, bf16, full depth, seeded weights) and
@@ -313,6 +317,8 @@ def main() -> int:
         gemm_plain,
         gemm_plan,
         mlp_bwd_groups,
+        attn_bwd_groups,
+        attn_weight_grads,
     )
     from sky_embeddings_tpu_torch.ops.kernels.mlp_block import (
         fused_mlp_block,
@@ -341,6 +347,13 @@ def main() -> int:
     )
 
     t_start = time.perf_counter()
+    phase_s, t_mark = {}, [t_start]
+
+    def mark(name):
+        """Seconds since the previous mark, by phase, for the results line."""
+        now = time.perf_counter()
+        phase_s[name] = now - t_mark[0]
+        t_mark[0] = now
 
     # ---- 1. device ------------------------------------------------------
     smi = subprocess.run(
@@ -373,6 +386,7 @@ def main() -> int:
     t_build = time.perf_counter() - t0
     print(f"build: nvcc {t_nvcc:.1f} s, with Triton JIT {t_build:.1f} s", flush=True)
     build_s = {"nvcc": t_nvcc, "total": t_build}
+    mark("device_and_build")
 
     # ---- 3. kernel parity ---------------------------------------------------
     def rel_err(a, b):
@@ -503,6 +517,7 @@ def main() -> int:
         big_a, torch.empty(D, F, device=dev, dtype=torch.bfloat16),
         torch.empty(64 * N_TOK, F, device=dev, dtype=torch.bfloat16))
     del big_a
+    mark("forward_gemm")
 
     # the backward products of kernels 8 and 9 alone (csrc/gemm_sm90.cuh's
     # dual product and K-major-B / transposed-A forms, through their test
@@ -603,6 +618,68 @@ def main() -> int:
         del y_, g_, w1_, w2_, b1_, da_c_, h_c_, db1_, want, x_, prods
     torch.cuda.empty_cache()
 
+    mark("mlp_backward_products")
+
+    # the products of kernels 3 and 4 alone (the same GEMM's forward,
+    # K-major-B and transposed-A forms, through their test entries) at mim_1
+    # B=64 and 512 and at ViT-H B=256, each held to its plain version and
+    # timed beside torch.addmm / torch.mm on the same operand views (the
+    # yardstick; the port never calls it): kernel 4's qkv recompute y @ Wqkv
+    # + bqkv, dctx = g @ Wproj^T rounded to bf16, dy = dqkv_c @ Wqkv^T in
+    # fp32, and dWqkv = y^T @ dqkv_c with dWproj = ctx^T @ g in one group
+    # launch; then one kernel 3 and one kernel 4 call's device time by kernel
+    for label, B, n_, d_, h_ in (("mim_1 B=64", 64, N_TOK, D, H),
+                                 ("mim_1 B=512", 512, N_TOK, D, H),
+                                 ("vith B=256", 256, N_TOK + 1, 1280, 16)):
+        M = B * n_
+        bf = torch.bfloat16
+        x_, s_, c_, wq_, bq_, wp_, bp_ = block_args("attn", B, n_, d_)
+        g_ = (0.1 * torch.randn(B, n_, d_, generator=gen, device=dev)).to(bf)
+        g2 = g_.reshape(M, d_)
+        y_ = torch.randn(M, d_, generator=gen, device=dev).to(bf)
+        ctx_ = torch.randn(M, d_, generator=gen, device=dev).to(bf)
+        dq_ = (0.1 * torch.randn(M, 3 * d_, generator=gen, device=dev)).to(bf)
+        iters = 10 if M < 10000 else 3
+        rec = {"M": M, "D": d_, "qkv_plan": vars(gemm_plan(M, 3 * d_)),
+               "group_plans": [vars(bwd_plan_cuda(gr, sms)[0]) for gr in attn_bwd_groups(M, d_)],
+               "max_rel_err": {}}
+        fl = 2 * M * d_ * d_ / 1e9  # GFLOP of a (M, D) x (D, D) product
+        bq16, wpt, wqt = bq_.to(bf), wp_.t(), wq_.t()
+        prods = {  # name: (GFLOP, kernel, library, (kernel output, plain output) pairs)
+            "qkv": (3 * fl, lambda: gemm(y_, wq_, bq_, "bias"), lambda: torch.addmm(bq16, y_, wq_),
+                    lambda: [(gemm(y_, wq_, bq_, "bias")[0], gemm_plain(y_, wq_, bq_, "bias")[0])]),
+            "dctx": (fl, lambda: gemm_bwd(g2, wp_, "nt", "store"), lambda: torch.mm(g2, wpt),
+                     lambda: [(gemm_bwd(g2, wp_, "nt", "store"), gemm_bwd_plain(g2, wp_, "nt", "store"))]),
+            "dy": (3 * fl, lambda: gemm_bwd(dq_, wq_, "nt", "store_f32"), lambda: torch.mm(dq_, wqt),
+                   lambda: [(gemm_bwd(dq_, wq_, "nt", "store_f32"),
+                             gemm_bwd_plain(dq_, wq_, "nt", "store_f32"))]),
+            "dW": (4 * fl, lambda: attn_weight_grads(y_, dq_, ctx_, g2),
+                   lambda: (torch.mm(y_.t(), dq_), torch.mm(ctx_.t(), g2)),
+                   lambda: list(zip(attn_weight_grads(y_, dq_, ctx_, g2),
+                                    (gemm_bwd_plain(y_, dq_, "tn", "store"),
+                                     gemm_bwd_plain(ctx_, g2, "tn", "store"))))),
+        }
+        for name, (gflop, run, lib, pairs) in prods.items():
+            rel = max(rel_err(a_, b_)[0] for a_, b_ in pairs())
+            check(rel <= TOL_BWD, f"sm90 attention {name} {label} parity")
+            rec["max_rel_err"][name] = rel
+            ms, lib_ms = device_ms(run, iters), device_ms(lib, iters)
+            rec[name] = {"ms": ms, "tflops": gflop / ms, "torch_mm_ms": lib_ms,
+                         "torch_mm_tflops": gflop / lib_ms, "ms_over_torch_mm": ms / lib_ms}
+            print(f"sm90 attention bwd {name} {label} (M={M}, D={d_}): {ms:.4f} ms, "
+                  f"{gflop / ms:.0f} TFLOP/s; torch.mm {lib_ms:.4f} ms ({ms / lib_ms:.2f}x)",
+                  flush=True)
+        _, qkv_s, probs_s = attn_block_fwd_stash(x_, s_, c_, wq_, bq_, wp_, bp_, h_)
+        rec["kernel3_by_kernel_ms"] = device_by_kernel(
+            lambda: attn_block_bwd_stash(x_, s_, c_, wq_, wp_, qkv_s, probs_s, g_, h_), iters)
+        rec["kernel4_by_kernel_ms"] = device_by_kernel(
+            lambda: attn_block_bwd(x_, s_, c_, wq_, bq_, wp_, g_, h_), iters)
+        bwd_gemm_times["attention " + label] = rec
+        del x_, g_, g2, y_, ctx_, dq_, qkv_s, probs_s, prods
+    torch.cuda.empty_cache()
+
+    mark("attention_backward_products")
+
     target = torch.randn(D, generator=gen, device=dev)
     weights = torch.rand(D, generator=gen, device=dev) + 0.5
     weights = weights / weights.sum()
@@ -675,6 +752,8 @@ def main() -> int:
         del rag_bank
     torch.cuda.empty_cache()
 
+    mark("bank_scorers")
+
     # training kernels at mim_1 training shapes: kernel vs plain version on
     # every output. The stash backward takes the plain stash forward's qkv
     # and probs, so both versions see the same inputs.
@@ -733,6 +812,8 @@ def main() -> int:
         run_cases(cases, B, train_bounds(B), B != 63)
         del x, qkv_p, probs_p, g, cases, x1
 
+    mark("training_kernels_mim_1")
+
     # the ViT-L paths' kernels at their configs' shapes: the MLP stash
     # forward and backward (mim_25_large), the attention recompute backward
     # (mim_32). The stash backward takes the plain stash forward's a.
@@ -772,6 +853,8 @@ def main() -> int:
         run_cases(cases, B, vitl_bounds(B, n, d, h, 4 * d), B != REMAT[3][-1])
         del x, g, cases
     torch.cuda.empty_cache()
+
+    mark("training_kernels_vitl")
 
     # the ViT-H path's kernels at its shapes (N=66 with the RA/Dec token,
     # D=1280, 16 heads of 80, F=5120): kernel 9 (four slabs of 1280) against
@@ -824,6 +907,8 @@ def main() -> int:
                   n == n_h and B != VITH[3][-1])
         del x, g, cases
     torch.cuda.empty_cache()
+
+    mark("training_kernels_vith")
 
     # the MAE path's kernels (bench_mae: four samples of n = 17 tokens packed
     # to N = 68, seg_len = 17, D = 768, 12 heads): K2, kernel 2 and kernel 4
@@ -916,6 +1001,8 @@ def main() -> int:
     del x, g, qkv_s, probs_s, cases
     torch.cuda.empty_cache()
 
+    mark("training_kernels_mae")
+
     # kernels 12 and 13 (the attention core behind layers.Attention), each
     # against its plain version at the training paths' head geometries: bf16
     # at TOL_FWD / TOL_BWD, fp32 (TF32 off) at TOL_CORE_F32; timed at ViT-B
@@ -996,6 +1083,8 @@ def main() -> int:
     check(same_core, "kernel 12 bit-equal to K2's core")
     del args, qkv_k2, ctx_k2
     torch.cuda.empty_cache()
+
+    mark("attention_kernels")
 
     # ---- 4. serving path ------------------------------------------------------
     cfg = load_config(CONFIG, os.path.join(ROOT, "configs"))
@@ -1082,6 +1171,8 @@ def main() -> int:
     print(f"tokens kernel vs plain path (B=64, 12 layers): max-rel {tok_rel:.3e} "
           f"(bar {TOL_TOKENS}), max-abs {tok_abs:.3e}; top-{N_SAVE} overlap {overlap}/{N_SAVE}", flush=True)
     check(tok_rel <= TOL_TOKENS, "encoder tokens kernel vs plain")
+
+    mark("serving")
 
     # ---- 4b. retrieval path (sky_sim_search) ----------------------------------
     class HostRows:
@@ -1273,6 +1364,8 @@ def main() -> int:
     finally:
         shutil.rmtree(tile_dir)
     torch.cuda.empty_cache()
+
+    mark("retrieval")
 
     # ---- 5. training paths ----------------------------------------------------
     del bank
@@ -1635,12 +1728,16 @@ def main() -> int:
     paths = {}
     paths[CONFIG] = training_phase(cfg, TRAIN_STEPS, VAL_BATCHES, expect_b, TOL_GRAD, TOL_LOSS,
                                    ((64, 10), (512, 3)), seed=3, extra=save_restore)
+    mark("training_" + CONFIG)
     paths[LARGE[0]] = training_phase(cfg_l, LARGE[1], LARGE[2], expect_l, TOL_GRAD_L, TOL_LOSS_L,
                                      ((64, 10),), seed=4)
+    mark("training_" + LARGE[0])
     paths[REMAT[0]] = training_phase(cfg_r, REMAT[1], REMAT[2], expect_r, TOL_GRAD_R, TOL_LOSS_R,
                                      ((32, 10),), seed=5, extra=remat_check)
+    mark("training_" + REMAT[0])
     paths[VITH[0]] = training_phase(cfg_h, VITH[1], VITH[2], expect_h, TOL_GRAD_H, TOL_LOSS_H,
                                     VITH[4], seed=6, extra=vith_init)
+    mark("training_" + VITH[0])
     # MAE (bench_mae): the packed encoder masked (kernel 2 and, in
     # validation, K2 with seg_len), the decoder unmasked (kernels 2 and 3 in
     # training, K2 in validation); the MLPs K1 and kernel 8 throughout
@@ -1656,6 +1753,7 @@ def main() -> int:
     paths[MAE[0]] = training_phase(cfg_m, MAE[1], MAE[2], expect_m, TOL_GRAD_M, TOL_LOSS_M,
                                    MAE[6], seed=7, extra=mae_remat, expect_dec=expect_m_dec,
                                    distinct=MAE[5])
+    mark("training_" + MAE[0])
     # attn_pool: mim_1 with the pool, through train_network with the probes
     # on in-memory structured sets (the card host has no h5py)
     d_p = {sec: dict(cfg[sec].items()) for sec in cfg.sections()}
@@ -1685,6 +1783,7 @@ def main() -> int:
 
     paths[POOL[0]] = training_phase(cfg_p, POOL[1], POOL[2], expect_b, TOL_GRAD_P, TOL_LOSS_P,
                                     POOL[4], seed=8, extra=pool_init, probes=probe_sets)
+    mark("training_" + POOL[0])
     del probe_sets
     shapes = {c: tuple(r[k] for k in ("layers", "embed_dim", "batch", "channels", "remat", "ra_dec"))
               for c, r in paths.items()}
@@ -1726,6 +1825,8 @@ def main() -> int:
     del attn_mod, xa, ga, grads_k, grads_p
     check(paths[MAE[0]]["decoder_layers"] == 8, "bench_mae's decoder is 8 deep")
 
+    mark("attention_module")
+
     # ---- 6. times -------------------------------------------------------------
     enc = {}
     with torch.inference_mode():
@@ -1750,6 +1851,7 @@ def main() -> int:
         big.query(target_latent[:8], k=N_SAVE, exact=True)
     q_host_ms = (time.perf_counter() - t0) / n_q * 1e3
     topk_ms = cuda_ms(lambda: bank_topk(bank_bf16, target, weights, N_SAVE), 20)
+    mark("times")
     t_total = time.perf_counter() - t_start
 
     src = "sky_embeddings_tpu_torch/ops/kernels/"
@@ -1823,6 +1925,7 @@ def main() -> int:
         "bank_1M_bf16": {"query_ms_host": q_host_ms, "queries_per_s": 1e3 / q_host_ms,
                          "bank_topk_ms": topk_ms},
         "build_s": build_s,
+        "phase_s": phase_s,
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
         "total_s": t_total,
     })

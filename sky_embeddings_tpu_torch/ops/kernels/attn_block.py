@@ -17,8 +17,10 @@ Four kernels, all in CUDA C++:
 - Kernel 3, the stash backward: replaces ``_pallas_bwd_stash``.
   ``csrc/attn_block_bwd.cu`` entry ``sky_attn_block_bwd_stash``: dctx GEMM,
   a backward core per (sample, head) from the stashed qkv and probabilities
-  (no qkv, logits or softmax recompute), dy and weight-gradient GEMMs, LN
-  backward, deterministic two-pass column sums.
+  (no qkv, logits or softmax recompute) that writes bf16 dqkv and each
+  sample's fp32 column sums of it (dbqkv's partials), the dy GEMM, the
+  dWqkv and dWproj GEMMs in one launch, LN backward, deterministic
+  two-pass column sums.
 - Kernel 4, the recompute backward: replaces ``_pallas_bwd`` (``_bwd_kernel``
   and ``_bwd_kernel_loop``). Entry ``sky_attn_block_bwd`` of the same file:
   kernel 3's launches behind the forward's LN and qkv GEMM; its core
@@ -32,11 +34,12 @@ never writes the stash, as in JAX (``attn_block.py:1127-1131``).
 
 What bounds them on the H100: tensor-core FLOPs of the GEMMs (8·M·D² forward,
 16·M·D² stash backward, 22·M·D² recompute backward at M = B·N rows); the
-cores add 4·B·H·N²·hd, 8·B·H·N²·hd and 10·B·H·N²·hd. The forwards (K2,
-kernel 2) run qkv and proj on the wgmma + TMA GEMM of
-``csrc/gemm_sm90.cuh``; the backwards (kernels 3, 4) keep the wmma GEMM of
-``csrc/gemm.cuh``. qkv, ctx and dqkv go through device memory at the
-points where the TPU kernels round them.
+cores add 4·B·H·N²·hd, 8·B·H·N²·hd and 10·B·H·N²·hd. Every product runs
+on the wgmma + TMA GEMM of ``csrc/gemm_sm90.cuh``: the forwards' qkv and
+proj and kernel 4's qkv recompute on its forward form, the backwards'
+dctx and dy on its K-major-B form, dWqkv and dWproj together on its
+transposed-A group. qkv, ctx and dqkv go through device memory in bf16 at
+the points where the TPU kernels round them; no fp32 dqkv does.
 
 Head dims: any multiple of 16 whose core fits a block's shared memory at
 the given N. The check asks the CUDA source for its plan's bytes
@@ -61,9 +64,10 @@ operands with fp32 accumulation, qkv rounded to bf16 after its bias, fp32
 logits scaled by hd^-0.5 and fp32 softmax, probs rounded to bf16 before the
 PV product, ctx rounded to bf16, residual added in fp32 and cast to x's
 dtype. Backward: dctx, ds and dqkv rounded to bf16 before the products that
-take them, dbqkv summed from the fp32 dqkv, weight gradients cast to the
-weight dtype. The softmax backward takes the stashed bf16 probabilities in
-kernel 3 and the recomputed fp32 ones in kernel 4, as the TPU kernels do.
+take them, dbqkv summed from the fp32 dqkv (on the card per sample, then
+over the samples), weight gradients cast to the weight dtype. The softmax
+backward takes the stashed bf16 probabilities in kernel 3 and the
+recomputed fp32 ones in kernel 4, as the TPU kernels do.
 """
 
 from __future__ import annotations
@@ -74,9 +78,9 @@ import torch
 
 from sky_embeddings_tpu_torch.ops.kernels import cuda_build
 from sky_embeddings_tpu_torch.ops.kernels.mlp_block import (
-    MAX_SPLITS,
     ROWS_PER_PARTIAL,
     _dot,
+    _split_ws,
     _ln_backward,
     _ln_forward,
     _needs_grad,
@@ -133,21 +137,17 @@ def attn_block_plain(x, scale, bias, wqkv, bqkv, wproj, bproj, num_heads: int,
                                       seg_len)[0]
 
 
-def _attn_bwd_from(x, scale, bias, wqkv, wproj, qkv, p_soft, p_c, g, num_heads: int):
-    """The attention-block backward from qkv (B, N, 3D), the probabilities
-    ``p_soft`` (fp32) that the softmax backward takes and ``p_c`` (their
-    rounded values, upcast) that ctx and dV take; the rounding points of
-    ``_bwd_kernel`` / ``_bwd_stash_kernel``."""
-    B, N, D = x.shape
-    H = num_heads
-    hd = D // H
-    dt = wqkv.dtype
-    x2 = x.reshape(-1, D).float()
-    g2 = g.reshape(-1, D).float()
-    y, xhat, rstd = _ln_forward(x2, scale, bias)
-    y_c = y.to(dt)
-    g_c = g2.to(wproj.dtype)
-    dc = _dot(g_c, wproj.t()).to(dt).float().reshape(B, N, H, hd)
+def attn_bwd_core_plain(qkv, p_soft, p_c, dc, num_heads: int):
+    """Plain version of the backward core that kernels 3 and 4 launch
+    (``csrc/attn_core.cuh``): ``(dqkv, ctx)`` from qkv (B, N, 3D), the
+    probabilities ``p_soft`` (fp32, B, H, N, N) that the softmax backward
+    takes, ``p_c`` (their rounded values, upcast) that ctx and dV take, and
+    the rounded dctx ``dc`` (B, N, D). dqkv (B·N, 3D) stays fp32: the core
+    rounds it to bf16 and sums its columns from it; ctx is in qkv's dtype."""
+    B, N, three_d = qkv.shape
+    H, hd = num_heads, three_d // 3 // num_heads
+    dt = qkv.dtype
+    dc = dc.float().reshape(B, N, H, hd)
     q, k, v = qkv.float().reshape(B, N, 3, H, hd).unbind(2)
     ctx = torch.einsum("bhnm,bmhd->bnhd", p_c, v).to(dt)
     dv = torch.einsum("bhnm,bnhd->bmhd", p_c, dc)
@@ -156,7 +156,22 @@ def _attn_bwd_from(x, scale, bias, wqkv, wproj, qkv, p_soft, p_c, g, num_heads: 
     ds = ((tmp - p_soft * tmp.sum(-1, keepdim=True)) * hd ** -0.5).to(dt).float()
     dq = torch.einsum("bhnm,bmhd->bnhd", ds, k)
     dk = torch.einsum("bhnm,bnhd->bmhd", ds, q)
-    dqkv = torch.stack([dq, dk, dv], dim=2).reshape(B * N, 3 * D)
+    return torch.stack([dq, dk, dv], dim=2).reshape(B * N, three_d), ctx.reshape(B, N, -1)
+
+
+def _attn_bwd_from(x, scale, bias, wqkv, wproj, qkv, p_soft, p_c, g, num_heads: int):
+    """The attention-block backward from qkv (B, N, 3D) and the
+    probabilities of :func:`attn_bwd_core_plain`; the rounding points of
+    ``_bwd_kernel`` / ``_bwd_stash_kernel``."""
+    B, N, D = x.shape
+    dt = wqkv.dtype
+    x2 = x.reshape(-1, D).float()
+    g2 = g.reshape(-1, D).float()
+    y, xhat, rstd = _ln_forward(x2, scale, bias)
+    y_c = y.to(dt)
+    g_c = g2.to(wproj.dtype)
+    dc = _dot(g_c, wproj.t()).to(dt)
+    dqkv, ctx = attn_bwd_core_plain(qkv.to(dt), p_soft, p_c, dc.reshape(B, N, D), num_heads)
     dqkv_c = dqkv.to(dt)
     dy = _dot(dqkv_c, wqkv.t())
     dx, dscale, dbias = _ln_backward(g2, dy, xhat, rstd, scale)
@@ -202,7 +217,8 @@ def _lib(name: str, entry: str, n_ptr: int, n_int: int) -> ctypes.CDLL:
 def _plan_bytes(core: str, N: int, hd: int) -> int:
     """Shared-memory bytes of a core's plan at (N, hd), as the CUDA source
     computes them: ``"fwd"`` (K2, kernel 2), ``"stash"`` (kernel 3) or
-    ``"recompute"`` (kernel 4); kernels 3 and 4 share one plan."""
+    ``"recompute"`` (kernel 4); kernels 3 and 4 share one plan, kernel 13's
+    without its rows of column sums."""
     if core == "fwd":
         lib, entry = "attn_block", "sky_attn_fwd_plan_bytes"
     else:
@@ -317,23 +333,26 @@ def _check_bwd_inputs(x, num_heads, **tensors):
 def _launch_bwd(entry, x, ins, num_heads, qkv=None, seg_len=0):
     """Kernel 3 (``ins`` holds the stash) or kernel 4 (``qkv`` is scratch for
     the recompute, ``seg_len`` its mask) on CUDA tensors; allocates the
-    scratch and the outputs."""
+    scratch (``part``: the core's B per-sample dbqkv partials, then dbproj's,
+    dscale's and dbias's over ``ROWS_PER_PARTIAL`` rows each) and the
+    outputs."""
     B, N, D = x.shape
     M = B * N
     parts = -(-M // ROWS_PER_PARTIAL)
     f32 = dict(dtype=torch.float32, device=x.device)
     bf = dict(dtype=torch.bfloat16, device=x.device)
     y, dc, ctx = (torch.empty((M, D), **bf) for _ in range(3))
-    dqkv, dqkv_c = torch.empty((M, 3 * D), **f32), torch.empty((M, 3 * D), **bf)
+    dqkv_c = torch.empty((M, 3 * D), **bf)
     dy = torch.empty((M, D), **f32)
-    part = torch.empty(parts * 6 * D, **f32)
-    ws = torch.empty(MAX_SPLITS * 3 * D * D, **f32)
+    part = torch.empty(B * 3 * D + parts * 3 * D, **f32)
+    ws = torch.empty(max(_split_ws("attn_block_bwd", "sky_attn_block_bwd_ws", x.device.index, M, D),
+                         4), **f32)
     dx = torch.empty_like(x)
     dscale, dbias, dbproj = (torch.empty(D, **f32) for _ in range(3))
     dwqkv, dbqkv = torch.empty((D, 3 * D), **bf), torch.empty(3 * D, **f32)
     dwproj = torch.empty((D, D), **bf)
     scratch = (y,) if qkv is None else (y, qkv)
-    ptrs = [t.data_ptr() for t in (*ins, *scratch, dc, ctx, dqkv, dqkv_c, dy, part, ws, dx,
+    ptrs = [t.data_ptr() for t in (*ins, *scratch, dc, ctx, dqkv_c, dy, part, ws, dx,
                                    dscale, dbias, dwqkv, dbqkv, dwproj, dbproj)]
     ints = (B, N, D, num_heads) if qkv is None else (B, N, D, num_heads, seg_len)
     with torch.cuda.device(x.device):

@@ -280,7 +280,7 @@ extern "C" int sky_attention_fwd(const void* qkv, void* ctx, int B, int N, int D
 // (B, N, D).
 extern "C" int sky_attention_bwd(const void* qkv, const void* dctx, void* dqkv, int B, int N, int D,
                                  int H, void* stream) {
-  return static_cast<int>(sky::launch_attn_bwd_core<true, sky::bf16>(
+  return static_cast<int>(sky::launch_attn_bwd_core<true>(
       qkv, nullptr, dctx, nullptr, dqkv, B, N, D, H, 0, static_cast<cudaStream_t>(stream)));
 }
 

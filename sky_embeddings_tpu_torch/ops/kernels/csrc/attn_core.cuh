@@ -11,8 +11,9 @@
 // - attn_bwd_core_kernel: dq, dk, dv from qkv and dctx, with the
 //   probabilities stashed (RECOMPUTE = false, kernel 3) or recomputed in
 //   fp32 (RECOMPUTE = true, kernel 4; kernel 13 without the ctx product),
-//   written as fp32 (kernels 3, 4: dbqkv is summed from them) or straight
-//   to bf16 (OutT = bf16, kernel 13), each element rounded once.
+//   written straight to bf16, each element rounded once; kernels 3 and 4
+//   also write the fp32 column sums of each sample's dq, dk, dv (dbqkv's
+//   partials), so no fp32 dqkv reaches device memory.
 //
 // What bounds them on the H100: bytes. A head moves 3 N hd bf16 in and
 // N hd out for 4 N^2 hd FLOP (ViT-B: ~33 FLOP per byte, under the ~295 at
@@ -49,7 +50,11 @@
 // two launches give the same bits. A head whose dK and dV do not fit
 // beside K and V (hd = 512; N > 128) is split over CTAs by output columns
 // (HC): each recomputes S and dP for the whole head and writes its
-// columns of dq, dk, dv (and ctx).
+// columns of dq, dk, dv (and ctx). Column sums (kernels 3, 4): each warp
+// adds its tiles' 16-row sums (a reduce-scatter of xor shuffles) into its
+// own row of shared memory; the rows are added in warp order (dk, dv of
+// several blocks: the fp32 accumulators in row order) into the sample's
+// partial row, so the sums too are the same bits run to run.
 //
 // launch_attn_core and launch_attn_bwd_core size the dynamic shared memory
 // from the plans, refuse (cudaErrorInvalidValue) a plan past the opt-in
@@ -450,15 +455,22 @@ inline cudaError_t launch_attn_core(const void* qkv, void* ctx, void* probs, int
 //   Ps, dSs   QB x (NP + 8) bf16     the block's probabilities and dS
 //   dKa, dVa  NP x (HC + 4) fp32     several blocks only: dk and dv of the
 //                                    CTA's HC columns, summed over blocks
+//   red       NW x HC fp32           one block and column sums only
+//                                    (kernels 3, 4): each warp's sums of its
+//                                    tiles' rows; with several blocks these
+//                                    rows (QB / 16 of them at most) live in
+//                                    dKa's 4 padding floats a row, free
 // The first plan that fits, widest columns first, then largest blocks:
-// ViT-B (N = 65, hd = 64) one block of 80 rows, 74 240 bytes; hd = 80
-// 84 480; hd = 512 at N = 65 16-row blocks and 32-column chunks (228 352);
-// N = 256 at hd = 64 32-row blocks of 32 columns (190 464), at hd = 128 of
-// 16 columns (231 424). Past hd = 144 at N = 256 no backward plan fits
-// (hd = 160 needs 240 640 bytes at the smallest) and the wrappers refuse.
+// ViT-B (N = 65, hd = 64) one block of 80 rows, 74 240 bytes (75 520 with
+// the sums: three CTAs still share an SM); hd = 80 84 480; hd = 512 at
+// N = 65 16-row blocks and 32-column chunks (228 352); N = 256 at hd = 64
+// 32-row blocks of 32 columns (190 464), at hd = 128 of 16 columns
+// (231 424). Past hd = 144 at N = 256 no backward plan fits (hd = 160
+// needs 240 640 bytes at the smallest) and the wrappers refuse.
 struct AttnBwdPlan {
   int NP, HL, PL, QB, HC, NW;
-  __host__ __device__ AttnBwdPlan(int N, int hd) {
+  bool sums;
+  __host__ __device__ AttnBwdPlan(int N, int hd, bool sums_ = false) : sums(sums_) {
     NP = (N + 15) & ~15;
     HL = hd + 8;
     PL = NP + 8;
@@ -476,28 +488,79 @@ struct AttnBwdPlan {
   __host__ __device__ bool multi() const { return QB < NP; }
   __host__ __device__ int chunks(int hd) const { return (hd + HC - 1) / HC; }
   __host__ __device__ size_t acc_elems() const { return multi() ? (size_t)NP * (HC + 4) : 0; }
+  __host__ __device__ size_t sum_elems() const { return sums && !multi() ? (size_t)NW * HC : 0; }
   __host__ __device__ size_t bytes() const {
     return (size_t)(2 * NP * HL + 2 * QB * HL + 2 * QB * PL) * sizeof(bf16) +
-           2 * acc_elems() * sizeof(float);
+           (2 * acc_elems() + sum_elems()) * sizeof(float);
   }
 };
 
-// two output elements (columns c, c + 1) of one row, fp32 or bf16
-__device__ __forceinline__ void store2(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
+// two bf16 output elements (columns c, c + 1) of one row
 __device__ __forceinline__ void store2(bf16* p, float a, float b) {
   *reinterpret_cast<unsigned*>(p) = pack_bf16(a, b);
+}
+
+// The warps' rows of column sums (AttnBwdPlan's red): element (w, c) of an
+// HC-wide row at base[(e / 4) * stride + e % 4], e = w HC + c; stride 4
+// packs them (one block), stride HC + 4 puts them in dKa's padding
+// (several blocks). Columns c, c + 1 (c even) share a group of four.
+struct SumRows {
+  float* base;
+  int stride, hc;
+  __device__ __forceinline__ float& at(int w, int c) const {
+    const int e = w * hc + c;
+    return base[(e >> 2) * stride + (e & 3)];
+  }
+};
+
+// One step of colsum16's reduce-scatter: lanes whose g has bit HALF / 2
+// keep the upper HALF values and send the lower ones to their partner
+// (lane ^ 2 HALF), the others the reverse; each adds what it receives.
+template <int HALF>
+__device__ __forceinline__ void fold_half(float (&v)[16], int g) {
+  const bool up = g & (HALF / 2);
+#pragma unroll
+  for (int i = 0; i < HALF; ++i) {
+    const float send = up ? v[i] : v[HALF + i];
+    const float keep = up ? v[HALF + i] : v[i];
+    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, 2 * HALF);
+  }
+}
+
+// The column sums of a 16-row tile of eight 8-column accumulator groups
+// (o[j]: lane (g, t) holds rows g and g + 8 of columns 8 j + 2 t, + 1),
+// rows from `rows` on left out: the two rows added in each lane, then a
+// reduce-scatter over the 8 lanes of one t (8 + 4 + 2 shuffles, where a
+// butterfly per group would take 48), after which lane (g, t) holds group
+// j = g's sums, columns 8 g + 2 t and + 1, in s0, s1. A fixed order.
+__device__ __forceinline__ void colsum16(const float (&o)[ATTN_CHUNK / 8][4], int rows,
+                                         const Frag& f, float& s0, float& s1) {
+  const bool lo = f.g < rows, hi = f.g + 8 < rows;
+  float v[16];
+#pragma unroll
+  for (int j = 0; j < ATTN_CHUNK / 8; ++j) {
+    v[2 * j] = (lo ? o[j][0] : 0.f) + (hi ? o[j][2] : 0.f);
+    v[2 * j + 1] = (lo ? o[j][1] : 0.f) + (hi ? o[j][3] : 0.f);
+  }
+  fold_half<8>(v, f.g);
+  fold_half<4>(v, f.g);
+  fold_half<2>(v, f.g);
+  s0 = v[0];
+  s1 = v[1];
 }
 
 // out[r, c0 + ...] = (A B) over rows 16 tile.., an [ATTN_CHUNK] column chunk
 // of width <= cw: A a 16 x (16 nka) bf16 tile of `a` (pitch lda) at row
 // arow; B = bm[k, bcol + ...] stored (k, n) (pitch HL). Accumulated in
 // registers, stored per element pair through `emit(row_in_tile, col, v0, v1)`.
+// With `sums`, the tile's first `rows` rows are also added into row `w`
+// of the column sums, in fp32 before any rounding (colsum16), to what the
+// warp's earlier tiles left there.
 template <typename Emit>
 __device__ __forceinline__ void tile_product(const bf16* a, int lda, int arow, bool a_trans, int acol,
                                              int nka, const bf16* bm, int ldb, int bcol, int cw,
-                                             int lane, const Frag& f, Emit emit) {
+                                             int lane, const Frag& f, Emit emit,
+                                             const SumRows* sums = nullptr, int w = 0, int rows = 0) {
   for (int cc = 0; cc < cw; cc += ATTN_CHUNK) {
     float o[ATTN_CHUNK / 8][4];
 #pragma unroll
@@ -528,6 +591,15 @@ __device__ __forceinline__ void tile_product(const bf16* a, int lda, int arow, b
         emit(f.g + 8, c, o[j][2], o[j][3]);
       }
     }
+    if (sums) {  // warp-uniform; the groups past cw hold zeros
+      float s0, s1;
+      colsum16(o, rows, f, s0, s1);
+      const int c = cc + 8 * f.g + 2 * f.t;
+      if (c < cw) {
+        sums->at(w, c) += s0;
+        sums->at(w, c + 1) += s1;
+      }
+    }
   }
 }
 
@@ -548,14 +620,18 @@ __device__ __forceinline__ void dp_tile(float (&d)[2][4], const bf16* dCs, const
 }
 
 // KT <= 5 (N <= 80, the training paths) is held to 128 registers, so
-// three CTAs of five warps share an SM
-template <bool RECOMPUTE, typename OutT, int KT>
+// three CTAs of five warps share an SM. With SUMS the CTA also writes the
+// fp32 column sums of its dq, dk and dv columns over the sample's N rows
+// into `psum` (B, 3D) (kernels 3 and 4: dbqkv's per-sample partials); a
+// template parameter, so that kernel 13's core compiles without them.
+template <bool RECOMPUTE, int KT, bool SUMS>
 __global__ void __launch_bounds__(ATTN_MAX_THREADS, KT <= 5 ? 2 : 1)
 attn_bwd_core_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ probs,
-                     const bf16* __restrict__ dc, bf16* __restrict__ ctx, OutT* __restrict__ dqkv,
-                     int N, int D, int H, int hd, int seg_len, float scale) {
+                     const bf16* __restrict__ dc, bf16* __restrict__ ctx, bf16* __restrict__ dqkv,
+                     float* __restrict__ psum, int N, int D, int H, int hd, int seg_len,
+                     float scale) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  const AttnBwdPlan pl(N, hd);
+  const AttnBwdPlan pl(N, hd, SUMS);
   const int NP = pl.NP, HL = pl.HL, PL = pl.PL, QB = pl.QB, nk = NP / 16;
   bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
   bf16* Vs = Ks + NP * HL;
@@ -566,6 +642,11 @@ attn_bwd_core_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ prob
   float* dKa = reinterpret_cast<float*>(dSs + QB * PL);  // several blocks only
   float* dVa = dKa + pl.acc_elems();
   const int AL = pl.HC + 4;
+  // column sums only: a row of HC per warp (one block), or per phase-1 warp
+  // in dKa's padding (several blocks: at most 4 HC floats, under its 4 NP)
+  const SumRows red = pl.multi() ? SumRows{dKa + pl.HC, AL, pl.HC}
+                                 : SumRows{dVa + pl.acc_elems(), 4, pl.HC};
+  const int red_rows = pl.multi() ? min(pl.NW, QB / 16) : pl.NW;
 
   const int nch = pl.chunks(hd);
   const int pair = blockIdx.x / nch;
@@ -579,8 +660,24 @@ attn_bwd_core_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ prob
   const bf16* src = qkv + (size_t)b * N * D3 + (size_t)h * hd;
   const bf16* dcsrc = dc + (size_t)b * N * D + (size_t)h * hd;
   const bf16* psrc = RECOMPUTE ? nullptr : probs + (size_t)pair * N * N;
-  OutT* dst = dqkv + (size_t)b * N * D3 + (size_t)h * hd;  // + 0 / D / 2D: dq / dk / dv
+  bf16* dst = dqkv + (size_t)b * N * D3 + (size_t)h * hd;  // + 0 / D / 2D: dq / dk / dv
   bf16* cdst = ctx ? ctx + (size_t)b * N * D + (size_t)h * hd : nullptr;
+  float* sdst = SUMS ? psum + (size_t)b * D3 + (size_t)h * hd + c0 : nullptr;  // + 0 / D / 2D
+  const SumRows* sums = SUMS ? &red : nullptr;
+
+  // the warps' column sums added in warp order into sdst[off + c], then cleared
+  auto flush = [&](size_t off) {
+    __syncthreads();
+    for (int c = threadIdx.x; c < cw; c += blockDim.x) {
+      float s = 0.f;
+      for (int w = 0; w < red_rows; ++w) {
+        s += red.at(w, c);
+        red.at(w, c) = 0.f;
+      }
+      sdst[off + c] = s;
+    }
+    __syncthreads();
+  };
 
   for (int part = 0; part < 2; ++part)  // K, V
     for (VecWalk w(threadIdx.x, blockDim.x, vpr); w.n < NP; w.next()) {
@@ -588,7 +685,8 @@ attn_bwd_core_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ prob
       cp_async16(Ks + (size_t)part * NP * HL + w.n * HL + 8 * w.c,
                  ok ? src + (size_t)w.n * D3 + (part + 1) * D + 8 * w.c : src, ok);
     }
-  for (size_t idx = threadIdx.x; idx < 2 * pl.acc_elems(); idx += blockDim.x) dKa[idx] = 0.f;
+  for (size_t idx = threadIdx.x; idx < 2 * pl.acc_elems() + pl.sum_elems(); idx += blockDim.x)
+    dKa[idx] = 0.f;
 
   for (int q0 = 0; q0 < N; q0 += QB) {
     for (int part = 0; part < 2; ++part)  // Q, dC
@@ -717,7 +815,8 @@ attn_bwd_core_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ prob
                    [&](int rl, int c, float v0, float v1) {
                      const int n = q0 + l0 + rl;
                      if (n < N) store2(dst + (size_t)n * D3 + c0 + c, v0, v1);
-                   });
+                   },
+                   sums, warp, N - q0 - l0);
       if (cdst)
         tile_product(Ps, PL, l0, false, 0, nk, Vs, HL, c0, cw, lane, f,
                      [&](int rl, int c, float v0, float v1) {
@@ -726,14 +825,15 @@ attn_bwd_core_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ prob
                      });
     }
     __syncthreads();
+    if (SUMS && !pl.multi()) flush(0);  // dq's sums: one block holds every row
 
-    // phase 2: warps own 16 key rows; dv = P^T dC, dk = dS^T Q over the block
-    for (int kt = warp; kt < nk; kt += pl.NW) {
-      for (int which = 0; which < 2; ++which) {  // 0: dv, 1: dk
-        const bf16* A = which == 0 ? Ps : dSs;
-        const bf16* Bm = which == 0 ? dCs : Qs;
-        float* acc = which == 0 ? dVa : dKa;
-        OutT* out = dst + (which == 0 ? 2 * D : D);
+    // phase 2: warps own 16 key rows; dv = P^T dC, then dk = dS^T Q, over the block
+    for (int which = 0; which < 2; ++which) {  // 0: dv, 1: dk
+      const bf16* A = which == 0 ? Ps : dSs;
+      const bf16* Bm = which == 0 ? dCs : Qs;
+      float* acc = which == 0 ? dVa : dKa;
+      bf16* out = dst + (which == 0 ? 2 * D : D);
+      for (int kt = warp; kt < nk; kt += pl.NW)
         tile_product(A, PL, 0, true, 16 * kt, QB / 16, Bm, HL, c0, cw, lane, f,
                      [&](int rl, int c, float v0, float v1) {
                        const int n = 16 * kt + rl;
@@ -744,8 +844,9 @@ attn_bwd_core_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ prob
                        } else if (n < N) {
                          store2(out + (size_t)n * D3 + c0 + c, v0, v1);
                        }
-                     });
-      }
+                     },
+                     pl.multi() ? nullptr : sums, warp, N - 16 * kt);
+      if (SUMS && !pl.multi()) flush(which == 0 ? 2 * D : D);
     }
     __syncthreads();  // the block's tiles are rewritten by the next one
   }
@@ -758,40 +859,55 @@ attn_bwd_core_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ prob
       store2(dst + (size_t)n * D3 + D + c0 + c, k[0], k[1]);
       store2(dst + (size_t)n * D3 + 2 * D + c0 + c, v[0], v[1]);
     }
+    if (SUMS) {  // dk's and dv's sums in row order, then dq's over the warps
+      for (int c = threadIdx.x; c < cw; c += blockDim.x) {
+        float sk = 0.f, sv = 0.f;
+        for (int n = 0; n < N; ++n) {
+          sk += dKa[(size_t)n * AL + c];
+          sv += dVa[(size_t)n * AL + c];
+        }
+        sdst[D + c] = sk;
+        sdst[2 * D + c] = sv;
+      }
+      flush(0);
+    }
   }
 }
 
-template <bool RECOMPUTE, typename OutT, int KT>
+template <bool RECOMPUTE, int KT, bool SUMS>
 inline cudaError_t launch_attn_bwd_kt(const void* qkv, const void* probs, const void* dc, void* ctx,
-                                      void* dqkv, int B, int N, int D, int H, int seg_len,
-                                      cudaStream_t s) {
+                                      void* dqkv, float* psum, int B, int N, int D, int H,
+                                      int seg_len, cudaStream_t s) {
   const int hd = D / H;
-  const AttnBwdPlan pl(N, hd);
+  const AttnBwdPlan pl(N, hd, SUMS);
   const size_t smem = pl.bytes();
-  auto kernel = attn_bwd_core_kernel<RECOMPUTE, OutT, KT>;
+  auto kernel = attn_bwd_core_kernel<RECOMPUTE, KT, SUMS>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   kernel<<<B * H * pl.chunks(hd), 32 * pl.NW, smem, s>>>(
       static_cast<const bf16*>(qkv), static_cast<const bf16*>(probs), static_cast<const bf16*>(dc),
-      static_cast<bf16*>(ctx), static_cast<OutT*>(dqkv), N, D, H, hd, seg_len,
+      static_cast<bf16*>(ctx), static_cast<bf16*>(dqkv), psum, N, D, H, hd, seg_len,
       1.0f / sqrtf(static_cast<float>(hd)));
   return cudaGetLastError();
 }
 
-// dqkv (B, N, 3D), fp32 or bf16 (OutT), from qkv (B, N, 3D) and dc (B, N, D),
-// both bf16; kernel 3 reads the stashed `probs`, the recompute core none.
-// With `ctx` (B, N, D) the core also stores bf16(P_bf16 V).
-template <bool RECOMPUTE, typename OutT = float>
+// dqkv (B, N, 3D) bf16, each element rounded once, from qkv (B, N, 3D) and
+// dc (B, N, D), both bf16; kernel 3 reads the stashed `probs`, the
+// recompute core none. With `ctx` (B, N, D) the core also stores
+// bf16(P_bf16 V); with SUMS, into `psum` (B, 3D) fp32, the column sums of
+// the fp32 dqkv over each sample's rows (kernels 3 and 4; kernel 13 takes
+// neither).
+template <bool RECOMPUTE, bool SUMS = false>
 inline cudaError_t launch_attn_bwd_core(const void* qkv, const void* probs, const void* dc, void* ctx,
                                         void* dqkv, int B, int N, int D, int H, int seg_len,
-                                        cudaStream_t s) {
-  if (AttnBwdPlan(N, D / H).bytes() > SMEM_OPTIN_MAX) return cudaErrorInvalidValue;
+                                        cudaStream_t s, float* psum = nullptr) {
+  if (AttnBwdPlan(N, D / H, SUMS).bytes() > SMEM_OPTIN_MAX) return cudaErrorInvalidValue;
   switch (attn_kt(N)) {
-    case 2: return launch_attn_bwd_kt<RECOMPUTE, OutT, 2>(qkv, probs, dc, ctx, dqkv, B, N, D, H, seg_len, s);
-    case 5: return launch_attn_bwd_kt<RECOMPUTE, OutT, 5>(qkv, probs, dc, ctx, dqkv, B, N, D, H, seg_len, s);
-    case 8: return launch_attn_bwd_kt<RECOMPUTE, OutT, 8>(qkv, probs, dc, ctx, dqkv, B, N, D, H, seg_len, s);
-    default: return launch_attn_bwd_kt<RECOMPUTE, OutT, 16>(qkv, probs, dc, ctx, dqkv, B, N, D, H, seg_len, s);
+    case 2: return launch_attn_bwd_kt<RECOMPUTE, 2, SUMS>(qkv, probs, dc, ctx, dqkv, psum, B, N, D, H, seg_len, s);
+    case 5: return launch_attn_bwd_kt<RECOMPUTE, 5, SUMS>(qkv, probs, dc, ctx, dqkv, psum, B, N, D, H, seg_len, s);
+    case 8: return launch_attn_bwd_kt<RECOMPUTE, 8, SUMS>(qkv, probs, dc, ctx, dqkv, psum, B, N, D, H, seg_len, s);
+    default: return launch_attn_bwd_kt<RECOMPUTE, 16, SUMS>(qkv, probs, dc, ctx, dqkv, psum, B, N, D, H, seg_len, s);
   }
 }
 

@@ -115,21 +115,16 @@ ln_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g, const floa
 }
 
 // part[blk, c] = sum of in[r, c] over the block's ROWS_PER_PARTIAL rows, in
-// fp32; with cast_out, also cast_out[r, c] = bf16(in[r, c]) (dqkv -> dqkv_c).
+// fp32.
 template <typename T>
 __global__ void __launch_bounds__(CS_THREADS)
-colsum_partial_kernel(const T* __restrict__ in, int M, int C, float* __restrict__ part,
-                      bf16* __restrict__ cast_out) {
+colsum_partial_kernel(const T* __restrict__ in, int M, int C, float* __restrict__ part) {
   const int c = blockIdx.x * CS_THREADS + threadIdx.x;
   if (c >= C) return;
   const int row0 = blockIdx.y * ROWS_PER_PARTIAL;
   const int row1 = min(M, row0 + ROWS_PER_PARTIAL);
   float s = 0.f;
-  for (int r = row0; r < row1; ++r) {
-    const float v = to_f32(in[(size_t)r * C + c]);
-    s += v;
-    if (cast_out) cast_out[(size_t)r * C + c] = __float2bfloat16_rn(v);
-  }
+  for (int r = row0; r < row1; ++r) s += to_f32(in[(size_t)r * C + c]);
   part[(size_t)blockIdx.y * C + c] = s;
 }
 
@@ -180,11 +175,9 @@ inline cudaError_t launch_colsum_finals(const ColsumJob* jobs, int count, cudaSt
 }
 
 template <typename T>
-cudaError_t launch_colsum_partial(const void* in, int M, int C, float* part, void* cast_out,
-                                  cudaStream_t s) {
+cudaError_t launch_colsum_partial(const void* in, int M, int C, float* part, cudaStream_t s) {
   const dim3 grid((C + CS_THREADS - 1) / CS_THREADS, n_partials(M));
-  colsum_partial_kernel<T><<<grid, CS_THREADS, 0, s>>>(static_cast<const T*>(in), M, C, part,
-                                                       static_cast<bf16*>(cast_out));
+  colsum_partial_kernel<T><<<grid, CS_THREADS, 0, s>>>(static_cast<const T*>(in), M, C, part);
   return cudaGetLastError();
 }
 

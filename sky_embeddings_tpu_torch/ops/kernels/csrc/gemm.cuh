@@ -1,17 +1,16 @@
 // Shared bf16 GEMM (wmma) and LayerNorm for the attention-block and
 // MLP-block kernels.
 //
-//   out[M, N] = epilogue(op(A)[M, K] @ op(B)[K, N] (+ bias[N]))
+//   out[M, N] = epilogue(op(A)[M, K] @ op(B)[K, N])
 //
 // A and B are bf16 and row-major in memory. op(A) is A as stored (M, K), or,
 // with TA, the transpose of a stored (K, M) matrix; op(B) is B as stored
 // (K, N) -- the JAX (in, out) kernel layout -- or, with TB, the transpose of
-// a stored (N, K) matrix. Its callers are kernels 3, 4 and 7 (the attention
-// backwards and the MLP stash backward): they read a weight as (out, in)
-// with TB (g @ W^T: dctx, dh, dy) and reduce over the token rows with TA
-// (y^T @ dqkv, ctx^T @ g, ...: the weight gradients, where K = B*N rows is
-// ragged and zero-fills), and kernel 4 recomputes qkv with A @ B. No
-// operand is copied to transpose it: the slab loads read along the
+// a stored (N, K) matrix. Its last caller is kernel 7 (the MLP stash
+// backward): it reads a weight as (out, in) with TB (g @ W2^T: dh; da_c @
+// W1^T: dy) and reduces over the token rows with TA (y^T @ da_c, h_c^T @
+// g: the weight gradients, where K = B*N rows is ragged and zero-fills).
+// No operand is copied to transpose it: the slab loads read along the
 // contiguous axis and wmma takes the tile as a col_major fragment. The
 // product runs on the tensor cores through nvcuda::wmma (16x16x16 bf16
 // fragments, fp32 accumulators). One CTA of 8 warps owns a 128x128 output
@@ -37,12 +36,9 @@
 // Epilogues of this GEMM (fp32 until the final store, which rounds to
 // bf16), applied per 16x16 fragment through a per-warp staging tile. The
 // enum also names the epilogues of gemm_sm90.cuh, which runs every forward
-// product and kernels 8 and 9's backward products.
-//   EPI_BIAS           acc + bias                    (kernel 4's qkv recompute,
-//                                                     attn_block.py:143-145)
-//   EPI_STORE          acc                           (dctx rounded: attn_block.py:320;
-//                                                     weight gradients cast to bf16:
-//                                                     attn_block.py:1176, mlp_block.py:954)
+// product and the backward products of kernels 3, 4, 8 and 9.
+//   EPI_STORE          acc                           (weight gradients cast to bf16:
+//                                                     mlp_block.py:954)
 //   EPI_STORE_F32      acc, fp32 out                 (dy, kept fp32 for the LN backward;
 //                                                     the split-K partials)
 //   EPI_GELU_BWD_STASH da = acc * gelu'(a) with a the bf16 stash in `stash`;
@@ -57,8 +53,8 @@
 // N 768..3072) these products are compute-bound (about 200 bf16 FLOP per
 // byte moved). wmma (mma.sync) reaches the tensor cores but not their full
 // rate (90-180 TFLOP/s here). gemm_sm90.cuh (wgmma fed by TMA) has the
-// forward form and the two backward forms (B K-major, A MN-major); kernels
-// 3, 4 and 7 move to it next.
+// forward form and the two backward forms (B K-major, A MN-major); kernel
+// 7 moves to it next.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -112,7 +108,6 @@ enum Epilogue {
 struct GemmArgs {
   const bf16* a;      // (M, K), or (K, M) with TA
   const bf16* b;      // (K, N), or (N, K) with TB
-  const float* bias;  // (N,), EPI_BIAS only
   const bf16* stash;  // (M, N): the stashed a of EPI_GELU_BWD_STASH
   bf16* out;          // (M, N) bf16 (not for EPI_STORE_F32)
   float* out_f32;     // (M, N) fp32: EPI_STORE_F32, EPI_GELU_BWD_STASH
@@ -300,10 +295,6 @@ __global__ void __launch_bounds__(GEMM_THREADS, 2) gemm_bf16_kernel(GemmArgs p) 
         float v[8];
 #pragma unroll
         for (int e = 0; e < 8; ++e) v[e] = st[r * 16 + c + e];
-        if (EPI == EPI_BIAS) {
-#pragma unroll
-          for (int e = 0; e < 8; ++e) v[e] += p.bias[n + e];
-        }
         if (EPI == EPI_GELU_BWD_STASH) {
           const uint4 sv = *reinterpret_cast<const uint4*>(p.stash + at);
           const bf16* se = reinterpret_cast<const bf16*>(&sv);
@@ -335,13 +326,11 @@ __global__ void __launch_bounds__(GEMM_THREADS, 2) gemm_bf16_kernel(GemmArgs p) 
   }
 }
 
-inline GemmArgs gemm_args(const void* a, const void* b, const void* bias, const void* stash,
-                          void* out, int M, int N, int K, void* out_f32 = nullptr,
-                          void* out2 = nullptr) {
+inline GemmArgs gemm_args(const void* a, const void* b, const void* stash, void* out, int M, int N,
+                          int K, void* out_f32 = nullptr, void* out2 = nullptr) {
   GemmArgs p;
   p.a = static_cast<const bf16*>(a);
   p.b = static_cast<const bf16*>(b);
-  p.bias = static_cast<const float*>(bias);
   p.stash = static_cast<const bf16*>(stash);
   p.out = static_cast<bf16*>(out);
   p.out_f32 = static_cast<float*>(out_f32);
@@ -409,7 +398,7 @@ inline cudaError_t launch_weight_grad(const void* a, const void* b, void* out, i
   splits = min(splits, min(MAX_SPLITS, max(1, nk / 8)));
   const int k_split = ((nk + splits - 1) / splits) * BK;
   splits = (K + k_split - 1) / k_split;
-  GemmArgs p = gemm_args(a, b, nullptr, nullptr, out, M, N, K);
+  GemmArgs p = gemm_args(a, b, nullptr, out, M, N, K);
   if (splits == 1) return launch_gemm<EPI_STORE, true, false>(p, stream);
   p.out_f32 = ws;  // the slices' partials stay contiguous
   p.k_split = k_split;

@@ -19,10 +19,13 @@
 // Serves the TPU kernels sky_embeddings_tpu/ops/kernels/mlp_block.py
 // _pallas_fwd / _pallas_fwd_stash (fc1, fc2: csrc/mlp_block.cu),
 // attn_block.py _pallas_fwd / _pallas_fwd_stash (qkv, proj:
-// csrc/attn_block.cu), masked or not, and mlp_block.py _pallas_bwd and
+// csrc/attn_block.cu), masked or not, mlp_block.py _pallas_bwd and
 // _pallas_bwd_stream (kernels 8 and 9, every product:
-// csrc/mlp_block_bwd.cu). Kernels 3, 4 and 7 keep the wmma GEMM of
-// gemm.cuh until they move to the backward forms here.
+// csrc/mlp_block_bwd.cu) and attn_block.py _pallas_bwd_stash and
+// _pallas_bwd (kernels 3 and 4, every product: kernel 4's qkv recompute on
+// the forward form, dctx and dy on FORM_NT, dWqkv and dWproj in one FORM_TN
+// group: csrc/attn_block_bwd.cu). Kernel 7 keeps the wmma GEMM of gemm.cuh
+// until it moves to the backward forms here.
 //
 // What bounds it on the H100: tensor-core operations. At ViT-B's shapes
 // (M = B*65 rows, K and N 768..3072) qkv, fc1 and fc2 do 500 to 600 bf16
@@ -669,8 +672,9 @@ cudaError_t launch_gemm_sm90(const void* a, const void* b, const void* bias, con
 // out[M, N] = A^T @ B[K, N], A stored (K, M): both MN-major (the weight
 // gradients, reduced over the K = B*N token rows). One launch runs a group
 // of up to three products of one form over the union of their output tiles
-// (kernel 8's and 9's dW1 and dW2 share one, so that their small outputs
-// fill the card together); a weight gradient (FORM_TN, EPI_STORE) may split
+// (kernel 8's and 9's dW1 and dW2 share one, kernels 3 and 4's dWqkv and
+// dWproj another, so that their small outputs fill the card together); a
+// weight gradient (FORM_TN, EPI_STORE) may split
 // its K into slices whose fp32 partials a second pass adds in order.
 
 enum Form { FORM_NT = 1, FORM_TN = 2 };

@@ -31,8 +31,8 @@
 //   5. db1, db2 (column sums of g), dscale, dbias: partials added in a
 //      fixed order, the four in one launch.
 // Neither fp32 (M, F) array (a, da) reaches device memory. Kernel 7 keeps
-// the wmma GEMM of gemm.cuh (mlp_block_bwd_stash below): its dh epilogue
-// reads the bf16 stash, and it moves to the new forms with kernels 3 and 4.
+// the wmma GEMM of gemm.cuh (mlp_block_bwd_stash below), its last caller:
+// its dh epilogue reads the bf16 stash, which none of the new forms does.
 // GELU and its derivative use erff (the TPU kernel's A-S erf differs by at
 // most 1.5e-7). Parameter gradient sums are two-pass or fixed-order
 // (bwd_common.cuh, the dual epilogue), and no product uses atomics, so runs
@@ -65,15 +65,15 @@ static int mlp_block_bwd_stash(const void* x, const void* ln_scale, const void* 
 
   SKY_TRY(launch_layernorm(x, ln_scale, ln_bias, y, M, D, s));
   SKY_TRY((launch_gemm<EPI_GELU_BWD_STASH, false, true>(
-      gemm_args(g, w2, nullptr, a_stash, da_c, M, F, D, daf, h_c), s)));
+      gemm_args(g, w2, a_stash, da_c, M, F, D, daf, h_c), s)));
   SKY_TRY((launch_gemm<EPI_STORE_F32, false, true>(
-      gemm_args(da_c, w1, nullptr, nullptr, nullptr, M, D, F, dyf), s)));
+      gemm_args(da_c, w1, nullptr, nullptr, M, D, F, dyf), s)));
   SKY_TRY(launch_ln_bwd(x, g, dyf, ln_scale, dx, part_scale, part_bias, M, D, s));
   float* wsf = static_cast<float*>(ws);
   SKY_TRY(launch_weight_grad(y, da_c, dw1, D, F, M, wsf, s));
   SKY_TRY(launch_weight_grad(h_c, g, dw2, F, D, M, wsf, s));
-  SKY_TRY(launch_colsum_partial<float>(daf, M, F, part_b1, nullptr, s));
-  SKY_TRY(launch_colsum_partial<bf16>(g, M, D, part_b2, nullptr, s));
+  SKY_TRY(launch_colsum_partial<float>(daf, M, F, part_b1, s));
+  SKY_TRY(launch_colsum_partial<bf16>(g, M, D, part_b2, s));
 
   SKY_TRY(launch_colsum_final(part_b1, parts, F, db1, s));
   SKY_TRY(launch_colsum_final(part_b2, parts, D, db2, s));
@@ -215,7 +215,7 @@ extern "C" int sky_mlp_block_bwd_stream(const void* x, const void* ln_scale, con
     if (j < nj - 1) SKY_TRY(launch_colsum_finals(&db1_job, 1, s));  // the last one below
   }
   SKY_TRY(launch_ln_bwd(x, g, dyf, ln_scale, dx, part_scale, part_bias, M, D, s));
-  SKY_TRY(launch_colsum_partial<bf16>(g, M, D, part_b2, nullptr, s));
+  SKY_TRY(launch_colsum_partial<bf16>(g, M, D, part_b2, s));
   const ColsumJob jobs[4] = {db1_job, {part_b2, static_cast<float*>(db2), parts, D},
                              {part_scale, static_cast<float*>(dscale), parts, D},
                              {part_bias, static_cast<float*>(dbias), parts, D}};

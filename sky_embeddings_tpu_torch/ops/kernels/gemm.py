@@ -3,7 +3,9 @@
 K1 (``mlp_block``) and K2 (``attn_block``), and their stash twins (kernels 6
 and 2), launch this GEMM from C for every forward product (fc1, fc2, qkv,
 proj); kernels 8 and 9 (the MLP block's recompute and weight-streaming
-backwards) for all five of theirs, in two more forms:
+backwards) for all five of theirs, and kernels 3 and 4 (the attention
+block's stash and recompute backwards) for all of theirs (kernel 4's qkv
+recompute on the forward form), in two more forms:
 
 - the dual product: for each 128 x 128 tile of the (B·N, F) hidden layer,
   ``a = y @ W1 + b1`` and ``dh = g @ W2ᵀ`` into two accumulator sets, with
@@ -11,16 +13,18 @@ backwards) for all five of theirs, in two more forms:
   bf16(gelu(a))`` and the fp32 column sums of ``da`` for db1;
 - the group: up to three products in one persistent launch over the union
   of their output tiles, each ``"nt"`` (``a @ bᵀ``, b stored (N, K): dy =
-  da_c @ W1ᵀ) or ``"tn"`` (``aᵀ @ b``, a stored (K, M): the weight gradients
-  over the B·N token rows), a ``"tn"`` product rounded to bf16 optionally
-  split along K into slices added in order.
+  da_c @ W1ᵀ, dctx = g @ Wprojᵀ) or ``"tn"`` (``aᵀ @ b``, a stored (K, M):
+  the weight gradients over the B·N token rows), a ``"tn"`` product rounded
+  to bf16 optionally split along K into slices added in order.
 
 No model calls the functions here: :func:`gemm` launches one forward
 product with a chosen epilogue (``sky_gemm_sm90`` in ``csrc/mlp_block.cu``),
 :func:`gemm_bwd` one backward product, :func:`mlp_weight_grads` kernel 8's
 weight-gradient group and :func:`gemm_dual` the dual product
-(``csrc/mlp_block_bwd.cu``), so that the card tests and ``chip_smoke.py``
-can hold the GEMM alone to its plain version and time it beside cuBLAS.
+(``csrc/mlp_block_bwd.cu``), :func:`attn_weight_grads` kernels 3 and 4's
+group (``csrc/attn_block_bwd.cu``), so that the card tests and
+``chip_smoke.py`` can hold the GEMM alone to its plain version and time it
+beside cuBLAS.
 
 :func:`gemm_plan` is a copy of the forward tile rule (``gemm_sm90_plan``):
 output tiles of 128 rows x BN columns, BN the one of 256, 192, 128 whose
@@ -291,6 +295,16 @@ def mlp_bwd_groups(M: int, D: int, fs: int):
     return [[(KIND_NT, M, D, fs)], [(KIND_TN_SPLIT, D, fs, M), (KIND_TN_SPLIT, fs, D, M)]]
 
 
+def attn_bwd_groups(M: int, D: int):
+    """The three launches of the group kernel in kernels 3 and 4 at M = B·N
+    token rows and width D, as lists of (kind, M, N, K): dctx = g @ Wprojᵀ
+    (``"nt"``, bf16), dy = dqkv_c @ Wqkvᵀ (``"nt"``, fp32), then dWqkv and
+    dWproj together (``"tn"``, bf16, may split). Kernel 4's qkv recompute
+    runs on the forward form (:func:`gemm_plan` of (M, 3·D))."""
+    return [[(KIND_NT, M, D, D)], [(KIND_NT, M, D, 3 * D)],
+            [(KIND_TN_SPLIT, D, 3 * D, M), (KIND_TN_SPLIT, D, D, M)]]
+
+
 def dual_plan(M: int, N: int) -> dict:
     """Tiles, ring stages and shared memory of the dual product: 128 x 128
     tiles, 64 KB slots beside one staged 128 x 128 bf16 tile."""
@@ -412,6 +426,44 @@ def mlp_weight_grads(y, da_c, h_c, g, bn: int = 0, splits: int = 0):
 
 
 mlp_weight_grads.launches = 0
+
+
+def attn_weight_grads(y, dqkv_c, ctx, g, bn: int = 0, splits: int = 0):
+    """``(dWqkv, dWproj) = (yᵀ @ dqkv_c, ctxᵀ @ g)`` rounded to bf16, from y,
+    ctx, g (M, D) and dqkv_c (M, 3·D). CPU tensors take the plain version;
+    CUDA tensors launch the two as kernels 3 and 4 do, one group of the
+    ``"tn"`` form (``sky_attn_bwd_weight_grads``), or raise. ``bn`` /
+    ``splits`` > 0 force the tile width and the split count."""
+    if y.device.type == "cpu":
+        return gemm_bwd_plain(y, dqkv_c, "tn", "store"), gemm_bwd_plain(ctx, g, "tn", "store")
+    M, D = y.shape
+    for name, t, shape in (("y", y, (M, D)), ("ctx", ctx, (M, D)), ("g", g, (M, D)),
+                           ("dqkv_c", dqkv_c, (M, 3 * D))):
+        if (tuple(t.shape) != shape or t.dtype != torch.bfloat16 or not t.is_contiguous()
+                or t.device != y.device):
+            raise ValueError(f"{name}: want a contiguous {shape} bf16 tensor on {y.device}")
+    if D % 8:
+        raise ValueError(f"D={D} must be a multiple of 8 (16-byte TMA strides)")
+    if bn not in (0, *BNS):
+        raise ValueError(f"bn {bn} is none of {BNS}")
+    sms = torch.cuda.get_device_properties(y.device).multi_processor_count
+    n_ws = bwd_plan_cuda(attn_bwd_groups(M, D)[2], sms, splits)[1]
+    ws = torch.empty(max(n_ws, 4), dtype=torch.float32, device=y.device)
+    dwqkv = torch.empty((D, 3 * D), dtype=torch.bfloat16, device=y.device)
+    dwproj = torch.empty((D, D), dtype=torch.bfloat16, device=y.device)
+    fn = cuda_build.load("attn_block_bwd").sky_attn_bwd_weight_grads
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    with torch.cuda.device(y.device):
+        err = fn(*(t.data_ptr() for t in (y, dqkv_c, ctx, g, dwqkv, dwproj, ws)), M, D, bn, splits,
+                 torch.cuda.current_stream().cuda_stream)
+    cuda_build.check(err, "sky_attn_bwd_weight_grads")
+    attn_weight_grads.launches += 1
+    return dwqkv, dwproj
+
+
+attn_weight_grads.launches = 0
 
 
 def gemm_dual_plain(y, w1, b1, g, w2):

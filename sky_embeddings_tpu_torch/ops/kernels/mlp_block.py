@@ -303,16 +303,18 @@ def _check_g(x, g):
 
 
 @functools.lru_cache(maxsize=64)
-def _split_ws(device: int, M: int, D: int, F: int, fs: int) -> int:
-    """fp32 floats of split-K workspace kernel 8 (``fs = F``) or 9 needs:
-    what the C plan (``sky_mlp_block_bwd_ws``) says for this card."""
-    fn = cuda_build.load("mlp_block_bwd").sky_mlp_block_bwd_ws
-    fn.argtypes = [ctypes.c_int] * 4
+def _split_ws(lib: str, entry: str, device: int, *dims: int) -> int:
+    """fp32 floats of split-K workspace a backward's weight-gradient group
+    needs: what the C plan says for this card, through ``entry`` of
+    ``lib`` (``sky_mlp_block_bwd_ws(M, D, F, fs)``: kernel 8 with ``fs =
+    F``, or 9; ``sky_attn_block_bwd_ws(M, D)``: kernels 3 and 4)."""
+    fn = getattr(cuda_build.load(lib), entry)
+    fn.argtypes = [ctypes.c_int] * len(dims)
     fn.restype = ctypes.c_longlong
     with torch.cuda.device(device):
-        n = fn(M, D, F, fs)
+        n = fn(*dims)
     if n < 0:
-        raise RuntimeError("sky_mlp_block_bwd_ws: no CUDA device")
+        raise RuntimeError(f"{entry}: no CUDA device")
     return n
 
 
@@ -335,7 +337,8 @@ def _launch_bwd(entry, x, scale, bias, w1, b1, w2, a, g, fs=None):
     dscale, dbias, db2 = (torch.empty(D, **f32) for _ in range(3))
     dw1, db1, dw2 = torch.empty((D, F), **bf), torch.empty(F, **f32), torch.empty((F, D), **bf)
     if a is None:
-        ws = torch.empty(max(_split_ws(x.device.index, M, D, F, w), 4), **f32)
+        ws = torch.empty(max(_split_ws("mlp_block_bwd", "sky_mlp_block_bwd_ws", x.device.index,
+                                       M, D, F, w), 4), **f32)
         scratch = (x, scale, bias, w1, b1, w2, g, y, da_c, h_c, dy, part, ws)
     else:
         ws = torch.empty(MAX_SPLITS * D * F, **f32)

@@ -45,7 +45,9 @@ the same bf16 operands at every epilogue and at ragged and model shapes,
 twice bit-equal; its tile rule as the C source computes it equals the
 Python copy; K1 and K2 (and kernel 6 bit-equal to K1) match their plain
 versions at every shipped width, and their launches run that GEMM and no
-wmma GEMM (the profiler's kernel names).
+wmma GEMM (the profiler's kernel names). So do kernels 3 and 4 (masked
+too), whose backward core writes bf16 dqkv and dbqkv's per-sample column
+sums: no fp32 dqkv reaches their device memory.
 
 Every test is marked ``cuda`` and skips where there is no card. This file
 imports neither JAX nor the JAX package, so it runs on a host without them:
@@ -75,12 +77,13 @@ TOL_SCORE_F32 = 5e-3
 # (9, 65, 128, 2): 585 token rows split the weight-gradient GEMMs into K
 # slices with a ragged last one (launch_weight_grad, csrc/gemm.cuh)
 # hd = 80 (ViT-H: (3, 66, 1280, 16); N = 256 shrinks kernel 3's query
-# blocks to 32) and hd = 128 at N = 256 (the forward's blocks to 32, kernel
-# 4's to 16)
+# blocks to 32), hd = 128 at N = 256 (the forward's blocks to 32, kernel
+# 4's to 16) and hd = 512 (maesimple's decoder: 16-row blocks, 32-column
+# chunks, the column sums over several blocks)
 ATTN_SHAPES = [(3, 17, 64, 4), (2, 65, 768, 12), (5, 33, 96, 3), (2, 129, 128, 2),
                (3, 200, 96, 6), (1, 256, 64, 1), (1, 256, 256, 4), (9, 65, 128, 2),
                (3, 66, 1280, 16), (5, 17, 80, 1), (2, 256, 160, 2), (3, 131, 240, 3),
-               (1, 256, 256, 2)]
+               (1, 256, 256, 2), (3, 65, 512, 1)]
 # the recompute backward's query blocks: one block up to N = 64, 64 rows up
 # to 128, 32 beyond; ViT-L's heads of 48 (mim_25_large) and 64 at N = 66
 # (mim_32, the RA/Dec token)
@@ -548,7 +551,10 @@ def test_attention_refuses_a_head_no_plan_fits(dev):
     with pytest.raises(ValueError, match="shared-memory plan"):
         tab.attn_block_bwd_stash(args[0], args[1], args[2], args[3], args[5], qkv, probs, g, 1)
     assert tab._plan_bytes("fwd", 256, 224) == 237568
-    assert tab._plan_bytes("recompute", 66, 80) == tab._plan_bytes("stash", 66, 80) == 84480
+    # ViT-H's head: kernel 13's plan, and kernels 3 and 4's with five warps'
+    # rows of 80 column sums
+    assert tat._plan_bytes(66, 80, False, True) == 84480
+    assert tab._plan_bytes("recompute", 66, 80) == tab._plan_bytes("stash", 66, 80) == 84480 + 5 * 80 * 4
     assert tab._plan_bytes("stash", 256, 80) <= tab.SMEM_PER_BLOCK
 
 
@@ -981,18 +987,22 @@ CORE_EDGES = [(n, hd) for n in (1, 17, 63, 65, 66, 129, 256) for hd in (16, 32, 
               if hd < 512 or n <= 80]
 
 
-def _plans(N, hd):
+def _plans(N, hd, sums=False):
     """The forward's and the backward's shared-memory bytes at (N, hd), as
     AttnPlan and AttnBwdPlan choose them: the forward two ring slots of K, V
     and Q, else one, else K and V alone; the backward the widest column
-    chunk, then the largest query block, that fits."""
+    chunk, then the largest query block, that fits, with (``sums``, kernels
+    3 and 4) or without (kernel 13) a row of column sums per warp (with
+    one block only: several keep them in their accumulators' padding)."""
     NP, HL = -(-N // 16) * 16, hd + 8
     fwd = next(b for b in (2 * 3 * NP * HL * 2, 3 * NP * HL * 2, 2 * NP * HL * 2)
                if b <= SMEM or b == 2 * NP * HL * 2)
+    warps = min(NP // 16, 8)
 
     def bwd_bytes(qb, hc):
         acc = 2 * NP * (hc + 4) * 4 if qb < NP else 0
-        return (2 * NP * HL + 2 * qb * HL + 2 * qb * (NP + 8)) * 2 + acc
+        red = warps * hc * 4 if sums and qb == NP else 0
+        return (2 * NP * HL + 2 * qb * HL + 2 * qb * (NP + 8)) * 2 + acc + red
 
     for i, hc in enumerate((hd, 128, 64, 32, 16)):
         if i and hc >= hd:
@@ -1027,8 +1037,9 @@ def test_attention_cores_at_every_edge(dev, N, hd):
 def test_attention_cores_give_the_same_bits_twice(dev, N, hd):
     """Every core twice on the same inputs, bit for bit: kernels 12 and 13,
     K2 and kernel 2 (the forward core), kernels 3 and 4 (the backward core,
-    stashed and recomputed; across query blocks and column chunks at
-    N = 129, 256 and hd = 512)."""
+    stashed, recomputed and masked; across query blocks and column chunks at
+    N = 129, 256 and hd = 512, with dbqkv's per-sample column sums and the
+    weight-gradient group's split slices)."""
     H = 2
     D = H * hd
     qkv, dctx = _core_inputs(dev, 2, N, D, torch.bfloat16, seed=7)
@@ -1042,6 +1053,7 @@ def test_attention_cores_give_the_same_bits_twice(dev, N, hd):
         "kernel 2": lambda: tab.attn_block_fwd_stash(*args, H),
         "kernel 3": lambda: tab.attn_block_bwd_stash(*args[:4], args[5], qkv_s, probs_s, g, H),
         "kernel 4": lambda: tab.attn_block_bwd(*args[:6], g, H),
+        "kernel 4 masked": lambda: tab.attn_block_bwd(*args[:6], g, H, max(N // 4, 1)),
     }
     for name, call in calls.items():
         first, second = call(), call()
@@ -1074,12 +1086,15 @@ def test_core_plans_and_refusals(dev, N):
     """The plan bytes each wrapper reads are the cores' plans, and the
     wrappers refuse exactly the heads whose plan exceeds a block's shared
     memory: kernels 12 and 13 and K2 / kernel 4 at every multiple of 16
-    from 16 to 512."""
+    from 16 to 512. Kernels 3 and 4's plan, with its column sums, fits
+    every head kernel 13's does."""
     for hd in range(16, 513, 16):
         fwd, bwd = _plans(N, hd)
+        bwd_sums = _plans(N, hd, sums=True)[1]
         assert tat._plan_bytes(N, hd, False, False) == tab._plan_bytes("fwd", N, hd) == fwd, hd
-        assert tat._plan_bytes(N, hd, False, True) == tab._plan_bytes("recompute", N, hd) == bwd, hd
-        assert tab._plan_bytes("stash", N, hd) == bwd, hd
+        assert tat._plan_bytes(N, hd, False, True) == bwd, hd
+        assert tab._plan_bytes("recompute", N, hd) == tab._plan_bytes("stash", N, hd) == bwd_sums, hd
+        assert (bwd_sums <= SMEM) == (bwd <= SMEM), hd
     for hd in (96, 144, 160, 208, 224, 512):
         fwd, bwd = _plans(N, hd)
         qkv = torch.zeros(1, N, 3 * hd, device=dev, dtype=torch.bfloat16)
@@ -1394,3 +1409,48 @@ def test_mlp_backwards_launch_the_sm90_gemm_and_kernel_7_the_wmma_one(dev, monke
     k7 = names(lambda: tmb.mlp_block_bwd_stash(x, scale, bias, w1, w2, a, g))
     assert any("gemm_bf16_kernel" in n for n in k7), k7
     assert not any("gemm_dual_kernel" in n or "gemm_bwd_kernel" in n for n in k7), k7
+
+
+@pytest.mark.parametrize("B,N,D,H", [(4, 65, 768, 12), (3, 66, 1280, 16), (2, 129, 128, 2)])
+def test_attention_backwards_launch_only_the_sm90_gemm(dev, B, N, D, H):
+    """Kernels 3 and 4 (masked too) run every product on gemm_sm90.cuh:
+    kernel 4's qkv recompute on ``gemm_sm90_kernel``, dctx, dy and the
+    weight-gradient group on ``gemm_bwd_kernel``; no launch of theirs
+    reaches the wmma GEMM (``gemm_bf16_kernel``, whose last caller is kernel
+    7) or an fp32 column-sum pass, and no fp32 (B·N, 3D) dqkv is allocated:
+    their device memory stays under the scratch and outputs they need
+    without it (the profiler's kernel names, the allocator's peak)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    args = _block_args(dev, B, N, D, (D, 3 * D), (D, D), seed=60)
+    g = torch.from_numpy(np.random.default_rng(61).normal(size=(B, N, D)).astype(np.float32))
+    g = g.to(dev, torch.bfloat16)
+    _, qkv, probs = tab.attn_block_fwd_stash_plain(*args, H)
+    M = B * N
+    calls = {
+        "kernel 3": lambda: tab.attn_block_bwd_stash(*args[:4], args[5], qkv, probs, g, H),
+        "kernel 4": lambda: tab.attn_block_bwd(*args[:6], g, H),
+        "kernel 4 masked": lambda: tab.attn_block_bwd(*args[:6], g, H, 17),
+    }
+    parts = -(-M // tab.ROWS_PER_PARTIAL)
+    # y, dc, ctx, dqkv_c, qkv (kernel 4) bf16; dy fp32; the partials; the
+    # split workspace; dx and the weight gradients bf16, the vectors fp32
+    need = (M * D * 2 * 3 + M * 3 * D * 2 * 2 + M * D * 4 + (B + parts) * 3 * D * 4
+            + max(tab._split_ws("attn_block_bwd", "sky_attn_block_bwd_ws", dev.index or 0, M, D), 4) * 4
+            + M * D * 2 + 4 * D * D * 2 + 6 * D * 4)
+    for name, call in calls.items():
+        call()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        assert peak <= need + (1 << 16) < need + M * 3 * D * 4, (name, peak, need)
+        names = [e.key for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
+        assert sum("gemm_bwd_kernel" in n for n in names) >= 2, (name, names)
+        assert any("gemm_sm90_kernel" in n for n in names) == (name != "kernel 3"), (name, names)
+        assert not any("gemm_bf16_kernel" in n for n in names), (name, names)
+        assert not any("colsum_partial_kernel<float>" in n for n in names), (name, names)
+

@@ -228,23 +228,29 @@ def test_bwd_plan_at_mim_1_batch_64():
     assert G.bwd_workspace(dw, G.bwd_plan(dw)) == 0
 
 
-# (M, D, F) of kernel 8's or 9's weight-gradient group and the (tile width,
-# split count) of least device time among the 18 that tools/mlp_bwd_variants.py
-# forced on an H100 (PERF.md, PR 10)
+# a weight-gradient group and the (tile width, split count) of least device
+# time among those a card sweep forced on an H100 (PERF.md §6): kernel 8's
+# or 9's dW1 + dW2 (tools/mlp_bwd_variants.py, 18 readings), kernels 3 and
+# 4's dWqkv + dWproj (tools/attn_bwd_variants.py, 12 readings)
 GROUP_SWEEP_FASTEST = {
-    "mim_1 B=64": ((64 * 65, 768, 3072), (192, 1)),
-    "mim_1 B=512": ((512 * 65, 768, 3072), (192, 2)),
-    "mae encoder B=256": ((256 * 68, 768, 3072), (192, 1)),
-    "mae decoder B=1024": ((1024 * 65, DECODER_D, 2048), (256, 2)),
-    "vith slab B=32": ((32 * 66, 1280, 1280), (256, 1)),
-    "vith slab B=256": ((256 * 66, 1280, 1280), (256, 1)),
+    "attention mim_1 B=64": (G.attn_bwd_groups(64 * 65, 768)[2], (192, 1)),
+    "attention mim_1 B=512": (G.attn_bwd_groups(512 * 65, 768)[2], (192, 1)),
+    "attention mim_32 B=32": (G.attn_bwd_groups(32 * 66, 1024)[2], (256, 1)),
+    "attention vith B=256": (G.attn_bwd_groups(256 * 66, 1280)[2], (256, 1)),
+    "attention mae encoder B=256": (G.attn_bwd_groups(256 * 68, 768)[2], (192, 1)),
+    "mim_1 B=64": (G.mlp_bwd_groups(64 * 65, 768, 3072)[1], (192, 1)),
+    "mim_1 B=512": (G.mlp_bwd_groups(512 * 65, 768, 3072)[1], (192, 2)),
+    "mae encoder B=256": (G.mlp_bwd_groups(256 * 68, 768, 3072)[1], (192, 1)),
+    "mae decoder B=1024": (G.mlp_bwd_groups(1024 * 65, DECODER_D, 2048)[1], (256, 2)),
+    "vith slab B=32": (G.mlp_bwd_groups(32 * 66, 1280, 1280)[1], (256, 1)),
+    "vith slab B=256": (G.mlp_bwd_groups(256 * 66, 1280, 1280)[1], (256, 1)),
 }
 
 
 @pytest.mark.parametrize("case", sorted(GROUP_SWEEP_FASTEST))
 def test_bwd_plan_picks_the_fastest_weight_gradient_group_of_the_card_sweep(case):
-    (M, D, F), want = GROUP_SWEEP_FASTEST[case]
-    plan = G.bwd_plan(G.mlp_bwd_groups(M, D, F)[1])
+    shapes, want = GROUP_SWEEP_FASTEST[case]
+    plan = G.bwd_plan(shapes)
     assert (plan.bn, plan.splits) == want
 
 
@@ -354,3 +360,140 @@ def test_gemm_bwd_plain_refuses_unknown_forms_and_epilogues():
         G.gemm_bwd(a, b, "nt", "gelu")
     with pytest.raises(ValueError, match="tn"):
         G.gemm_bwd(a, torch.zeros(9, 8, dtype=torch.bfloat16), "tn", "store")
+
+
+# ---- the attention backwards (kernels 3 and 4) --------------------------------
+
+ATTN_BWD_SRC = (Path(__file__).resolve().parents[1]
+                / "sky_embeddings_tpu_torch/ops/kernels/csrc/attn_block_bwd.cu")
+
+
+def _attn_source_groups(M: int, D: int):
+    """(kind, M, N, K) of every BwdSpec that ``csrc/attn_block_bwd.cu``
+    builds, its size expressions evaluated at (M, D)."""
+    import re
+
+    text = ATTN_BWD_SRC.read_text()
+    out = []
+    for body in re.findall(r"BwdSpec\s*\w*\s*\{([^{}]*)\}", text):
+        fields = [f.strip() for f in body.split(",")]
+        form, epi, rows, cols, depth = fields[0], fields[1], *fields[-3:]
+        kind = (G.KIND_NT if form.endswith("FORM_NT")
+                else G.KIND_TN_SPLIT if epi.endswith("EPI_STORE") else G.KIND_TN)
+        out.append((kind, *(eval(e, {"M": M, "D": D}) for e in (rows, cols, depth))))
+    return out
+
+
+@pytest.mark.parametrize("M,D", [(64 * 65, 768), (32 * 66, 1024), (1, 64)])
+def test_attn_bwd_groups_are_the_launches_of_kernels_3_and_4(M, D):
+    """``attn_bwd_groups`` names the products the C source launches: dctx
+    and dy (``"nt"``, K = D and 3·D), dWqkv and dWproj in one ``"tn"`` group
+    over the M token rows; nothing else runs on the group kernel."""
+    groups = G.attn_bwd_groups(M, D)
+    assert [len(g) for g in groups] == [1, 1, 2]
+    assert groups[0] == [(G.KIND_NT, M, D, D)] and groups[1] == [(G.KIND_NT, M, D, 3 * D)]
+    assert groups[2] == [(G.KIND_TN_SPLIT, D, 3 * D, M), (G.KIND_TN_SPLIT, D, D, M)]
+    assert sorted(_attn_source_groups(M, D)) == sorted(s for g in groups for s in g)
+
+
+def _config_attn_groups(name: str):
+    """Kernels 3 and 4's group launches at every attention block a shipped
+    config trains (the encoder; an MAE model's decoder too), at one image,
+    the config's batch and 1024."""
+    cfg = load_config(name, str(CONFIGS))
+    arch, training = cfg["ARCHITECTURE"], cfg["TRAINING"]
+    grid = arch.int("img_size") // arch.int("patch_size")
+    n_tok = grid * grid + 1 + int(arch.bool("ra_dec", False))
+    D = arch.int("embed_dim")
+    out = []
+    for B in (1, training.int("batch_size"), 1024):
+        out += G.attn_bwd_groups(B * n_tok, D)
+        if not MODEL_TYPES[arch.str("model_type")][1]:
+            out += G.attn_bwd_groups(B * (grid * grid + 1), DECODER_D)
+    return out
+
+
+# chip_smoke.py's bench shapes of kernels 3 and 4: mim_1 at B=64 and 512,
+# mim_32 (N=66, D=1024) at B=32, ViT-H (N=66, D=1280) at B=32 and 256, MAE's
+# packed encoder (256 x 68) and its decoder (1024 x 65 at D=512), the head
+# of 512 (64 x 65)
+BENCH_ATTN_BWD = (G.attn_bwd_groups(64 * 65, 768) + G.attn_bwd_groups(512 * 65, 768)
+                  + G.attn_bwd_groups(32 * 66, 1024) + G.attn_bwd_groups(32 * 66, 1280)
+                  + G.attn_bwd_groups(256 * 66, 1280) + G.attn_bwd_groups(256 * 68, 768)
+                  + G.attn_bwd_groups(1024 * 65, DECODER_D) + G.attn_bwd_groups(64 * 65, 512))
+
+
+@pytest.mark.parametrize("name", MIM_CONFIGS)
+def test_bwd_plan_fits_every_attention_backward_product_of_the_shipped_configs(name):
+    groups = _config_attn_groups(name)
+    assert len(groups) >= 9
+    for shapes in groups:
+        _assert_bwd_sound(shapes)
+
+
+@pytest.mark.parametrize("case", range(len(BENCH_ATTN_BWD)))
+def test_bwd_plan_fits_the_attention_bench_models(case):
+    _assert_bwd_sound(BENCH_ATTN_BWD[case])
+
+
+def _attn_block_inputs(rng, B, N, D):
+    x, g = _bf(rng, B, N, D, scale=0.5), _bf(rng, B, N, D, scale=0.1)
+    scale = torch.from_numpy(1 + 0.1 * rng.normal(size=D).astype(np.float32))
+    bias = torch.from_numpy(0.1 * rng.normal(size=D).astype(np.float32))
+    wqkv, wproj = _bf(rng, D, 3 * D, scale=D ** -0.5), _bf(rng, D, D, scale=D ** -0.5)
+    bqkv = torch.from_numpy(0.01 * rng.normal(size=3 * D).astype(np.float32))
+    return x, scale, bias, wqkv, bqkv, wproj, g
+
+
+@pytest.mark.parametrize("kernel", ["stash", "recompute", "recompute masked"])
+def test_attn_backward_plain_is_the_sm90_products_and_the_core(kernel):
+    """Kernels 3 and 4 as their launches compose them, each launch by its
+    plain version: LN, qkv on the forward form (``gemm_plain``, kernel 4),
+    dctx and dy on the ``"nt"`` form and dWqkv, dWproj on the ``"tn"`` group
+    (``gemm_bwd_plain``, ``attn_weight_grads``), the backward core
+    (``attn_bwd_core_plain``) whose fp32 dqkv is rounded to bf16 and summed
+    per sample, the B partials then added in order. Held to
+    ``attn_block_bwd_stash_plain`` / ``attn_block_bwd_plain``, which the JAX
+    tests hold to the Pallas kernels in interpret mode."""
+    from sky_embeddings_tpu_torch.ops.kernels import attn_block as A
+    from sky_embeddings_tpu_torch.ops.kernels import mlp_block as M_
+
+    rng = np.random.default_rng(4)
+    B, N, D, H = 3, 17, 48, 4
+    seg = 6 if kernel == "recompute masked" else 0
+    x, scale, bias, wqkv, bqkv, wproj, g = _attn_block_inputs(rng, B, N, D)
+    bf = torch.bfloat16
+    x2, g2 = x.reshape(-1, D), g.reshape(-1, D)
+    y, xhat, rstd = M_._ln_forward(x2.float(), scale, bias)
+    y = y.to(bf)
+    if kernel == "stash":
+        _, qkv, probs = A.attn_block_fwd_stash_plain(x, scale, bias, wqkv, bqkv, wproj,
+                                                     torch.zeros(D), H)
+        p_soft = p_c = probs.float()
+        want = A.attn_block_bwd_stash_plain(x, scale, bias, wqkv, wproj, qkv, probs, g, H)
+    else:
+        qkv = G.gemm_plain(y, wqkv, bqkv, "bias")[0].reshape(B, N, 3 * D)
+        q, k, _ = qkv.float().reshape(B, N, 3, H, D // H).unbind(2)
+        z = torch.einsum("bnhd,bmhd->bhnm", q, k) * (D // H) ** -0.5
+        if seg:
+            ids = torch.arange(N) // seg
+            z = z + torch.where(ids[:, None] == ids[None, :], 0.0, -1e9)
+        p_soft = torch.softmax(z, dim=-1)
+        p_c = p_soft.to(bf).float()
+        want = A.attn_block_bwd_plain(x, scale, bias, wqkv, bqkv, wproj, g, H, seg)
+    dc = G.gemm_bwd_plain(g2, wproj, "nt", "store")
+    dqkv, ctx = A.attn_bwd_core_plain(qkv, p_soft, p_c, dc.reshape(B, N, D), H)
+    dqkv_c = dqkv.to(bf)
+    dbqkv = dqkv.reshape(B, N, 3 * D).sum(1)  # the core's per-sample partials
+    dbqkv = torch.stack(list(dbqkv)).sum(0)
+    dy = G.gemm_bwd_plain(dqkv_c, wqkv, "nt", "store_f32")
+    dx, dscale, dbias = M_._ln_backward(g2.float(), dy, xhat, rstd, scale)
+    dwqkv, dwproj = G.attn_weight_grads(y, dqkv_c, ctx.reshape(-1, D), g2)
+    got = (dx.to(bf).reshape(B, N, D), dscale, dbias, dwqkv, dbqkv, dwproj, g2.float().sum(0))
+    names = ("dx", "dscale", "dbias", "dwqkv", "dbqkv", "dwproj", "dbproj")
+    for name, a, b in zip(names, got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype, name
+        # the products are the plain versions' own; only dbqkv sums in
+        # another order (per sample, then over the samples)
+        tol = dict(rtol=1e-5, atol=1e-6) if name == "dbqkv" else dict(rtol=0, atol=0)
+        torch.testing.assert_close(a, b, **tol, msg=name)
