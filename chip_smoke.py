@@ -42,18 +42,22 @@ failing loudly (any failure exits non-zero and prints no result line):
    and in fp32 at ViT-B B=64 and ViT-H B=32 beside
    ``F.scaled_dot_product_attention`` on the same (B, H, N, hd) views
    (fp32 with TF32 off), forward and forward + backward (the library
-   column, measured here and used nowhere in the port), each record with
+   column, measured here and used nowhere in the port; beside kernel 13
+   also SDPA's backward alone), each record with
    its share of the bound and the bytes it must move per ms; the forward
    GEMM of K1 and K2 (``csrc/gemm_sm90.cuh``, wgmma fed by TMA) alone at
    the four products (qkv, proj, fc1, fc2 with their epilogues) at B=64 and
    B=1024, held to its plain version and timed beside ``torch.addmm`` on
    the same operands (the ``gemm_times`` record, with the host cost of
-   encoding a launch's TMA maps); the backward products of kernels 8 and 9
-   on the same GEMM (the dual product a = y @ W1 + b1 with dh = g @ W2^T,
-   dh alone on the K-major-B form, dy, and dW1, dW2 on the transposed-A
-   form) at ``mim_1`` B=64 and 512 and at one ViT-H slab, held to their
-   plain versions and timed beside ``torch.mm`` on the same operand views,
-   with kernel 8's and 9's device time by kernel name; the products of
+   encoding a launch's TMA maps); the backward products of kernels 8, 9
+   and 7 on the same GEMM (the dual product a = y @ W1 + b1 with dh = g @
+   W2^T, dh alone on the K-major-B form, the stash dh product, dh with an
+   epilogue that reads the bf16 stash a, dy, and
+   dW1, dW2 on the transposed-A form) at ``mim_1`` B=64 and 512 (kernel 7's
+   ``mim_25_large`` shapes at B=64 and 512) and at one ViT-H slab, held to
+   their plain versions and timed beside ``torch.mm`` on the same operand
+   views, with kernel 8's, 7's and 9's device time by kernel name; the
+   products of
    kernels 3 and 4 (the qkv recompute on the forward form, dctx and dy on
    the K-major-B form, dWqkv with dWproj in one transposed-A group) at
    ``mim_1`` B=64 and 512 and at ViT-H B=256 beside ``torch.addmm`` /
@@ -311,6 +315,8 @@ def main() -> int:
         gemm,
         gemm_bwd,
         gemm_bwd_plain,
+        gemm_dh_stash,
+        gemm_dh_stash_plain,
         gemm_dual,
         gemm_dual_plain,
         gemm_encode_us,
@@ -319,6 +325,7 @@ def main() -> int:
         mlp_bwd_groups,
         attn_bwd_groups,
         attn_weight_grads,
+        dh_stash_plan,
     )
     from sky_embeddings_tpu_torch.ops.kernels.mlp_block import (
         fused_mlp_block,
@@ -527,8 +534,12 @@ def main() -> int:
     # dual = a = y @ W1 + b1 with dh = g @ W2^T (beside them, dh alone on the
     # K-major-B form and the forward fc1 product: their sum bounds a
     # two-launch form from below); dy = da_c @ W1^T in fp32; dW1 = y^T @ da_c,
-    # dW2 = h_c^T @ g in bf16 with the plan's split; and one kernel 8 call's
-    # device time by kernel name
+    # dW2 = h_c^T @ g in bf16 with the plan's split; one kernel 8 call's
+    # device time by kernel name; and, at the unsliced widths (mim_1's are
+    # mim_25_large's: D = 768, F = 3 072), kernel 7's stash dh product, dh =
+    # g @ W2^T with the epilogue that reads the stash a (the bf16 fc1
+    # pre-activation y @ W1 + b1), beside dh alone in torch.mm, then one
+    # kernel 7 call by kernel
     def device_by_kernel(fn, reps):
         from torch.profiler import ProfilerActivity, profile
 
@@ -607,6 +618,22 @@ def main() -> int:
         if fs_ == f_:
             rec["kernel8_by_kernel_ms"] = device_by_kernel(
                 lambda: mlp_block_bwd(x_, s_, c_, w1_, b1_, w2_, gb), iters)
+            a_ = gemm(y_, w1_, b1_, "bias")[0]
+            rel = max(rel_err(a__, b__)[0] for a__, b__ in zip(
+                gemm_dh_stash(g_, w2_, a_), gemm_dh_stash_plain(g_, w2_, a_)))
+            check(rel <= TOL_BWD, f"sm90 stash dh product {label} parity")
+            rec["max_rel_err"]["dh_stash"] = rel
+            ms, lib_ms = (device_ms(fn, iters) for fn in (
+                lambda: gemm_dh_stash(g_, w2_, a_), lambda: torch.mm(g_, w2t)))
+            rec["dh_stash"] = {"plan": dh_stash_plan(M, fs_), "ms": ms, "tflops": fl / ms,
+                               "torch_mm_ms": lib_ms, "torch_mm_tflops": fl / lib_ms,
+                               "ms_over_torch_mm": ms / lib_ms}
+            print(f"sm90 bwd dh_stash {label} (M={M}, D={d_}, F={fs_}): {ms:.4f} ms, "
+                  f"{fl / ms:.0f} TFLOP/s; torch.mm {lib_ms:.4f} ms ({ms / lib_ms:.2f}x)",
+                  flush=True)
+            rec["kernel7_by_kernel_ms"] = device_by_kernel(
+                lambda: mlp_block_bwd_stash(x_, s_, c_, w1_, w2_, a_, gb), iters)
+            del a_
         else:
             w1f = (torch.randn(d_, f_, generator=gen, device=dev) * d_ ** -0.5).to(bf)
             w2f = (torch.randn(f_, d_, generator=gen, device=dev) * f_ ** -0.5).to(bf)
@@ -1065,7 +1092,11 @@ def main() -> int:
             core_record("attention_bwd" + sfx, f"{label}{B}", lambda: fused_attention_bwd(qkv, dctx, h),
                         lambda: attention_bwd_plain(qkv, dctx, h), (rb, ab), core_bound(B, n, d, h, elt, True),
                         sdpa_fwd_bwd, lib + " forward + backward", dt)
-            del q4, k4, v4, qg, kg, vg, g4
+            # SDPA's backward alone, from one forward's saved tensors
+            out_s = torch.nn.functional.scaled_dot_product_attention(qg, kg, vg)
+            timings[("attention_bwd" + sfx, f"{label}{B}")]["library_bwd_ms"] = cuda_ms(
+                lambda: torch.autograd.grad(out_s, (qg, kg, vg), g4, retain_graph=True), 20)
+            del q4, k4, v4, qg, kg, vg, g4, out_s
         if timed and B == CORE_TIMED[0][1]:
             # kernel 13 twice on the same inputs gives the same bits (no atomics,
             # nothing summed in device memory)

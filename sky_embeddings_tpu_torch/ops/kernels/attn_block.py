@@ -87,7 +87,7 @@ from sky_embeddings_tpu_torch.ops.kernels.mlp_block import (
 )
 
 MAX_TOKENS = 256  # the TPU kernel's dispatch bound (layers.py:341)
-SMEM_PER_BLOCK = 232448  # dynamic shared memory a block may use, csrc/gemm.cuh SMEM_OPTIN_MAX
+SMEM_PER_BLOCK = 232448  # dynamic shared memory a block may use, csrc/common.cuh SMEM_OPTIN_MAX
 
 
 def _seg_bias(N: int, seg_len: int, device) -> torch.Tensor | None:

@@ -23,7 +23,7 @@
 // seg_len = 0 or >= N means no mask.
 //
 // Four launches behind one C entry point:
-//   0. LayerNorm (gemm.cuh)               -> y (B, N, D) bf16
+//   0. LayerNorm (common.cuh)             -> y (B, N, D) bf16
 //   1. qkv GEMM + bias                    -> qkv (B, N, 3D) bf16
 //   2. attention core (attn_core.cuh): CTAs walk (sample, head) pairs
 //      through a two-stage cp.async ring of k, v and q; each warp owns 16

@@ -64,7 +64,7 @@
 
 #include <math_constants.h>
 
-#include "gemm.cuh"
+#include "common.cuh"
 
 namespace sky {
 

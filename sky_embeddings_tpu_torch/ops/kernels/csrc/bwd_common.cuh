@@ -10,7 +10,7 @@
 // give the same bits, and the kernel-vs-plain bars stay stable.
 #pragma once
 
-#include "gemm.cuh"
+#include "common.cuh"
 
 namespace sky {
 

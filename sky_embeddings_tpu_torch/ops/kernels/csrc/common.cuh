@@ -1,0 +1,179 @@
+// What the port's CUDA sources share: the bf16 type, the shared-memory
+// limit, the epilogue names of the GEMM (gemm_sm90.cuh), warp reductions,
+// the packed-segment key range of the attention cores (attn_core.cuh),
+// erf-GELU and its derivative for the epilogues, cp.async, the ordered
+// split-K reduce of the backward group launch and the LayerNorm that opens
+// every block.
+//
+// layernorm_bf16 computes that LN: fp32 two-pass statistics per row (eps
+// 1e-6), output rounded to bf16 -- the rounding point of the TPU kernels
+// (attn_block.py:141, mlp_block.py:235). One warp a row, 16-byte loads.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace sky {
+
+using bf16 = __nv_bfloat16;
+
+// dynamic shared memory one block may use on sm_90 (the opt-in limit);
+// mirrored by SMEM_PER_BLOCK in the Python attention wrappers
+constexpr size_t SMEM_OPTIN_MAX = 232448;
+
+// The epilogues of gemm_sm90.cuh's products (described there), by the numbers
+// the C entries and ops/kernels/gemm.py pass.
+enum Epilogue {
+  EPI_BIAS = 0,
+  EPI_BIAS_GELU = 1,
+  EPI_BIAS_RESIDUAL = 2,
+  EPI_STORE = 3,
+  EPI_STORE_F32 = 4,
+  EPI_BIAS_GELU_STASH = 7,
+  EPI_ADD_F32 = 9,
+};
+
+__device__ __forceinline__ float warp_sum(float v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// The keys [lo, hi) that query row n of an N-token sequence attends to: all
+// N, or with packed segments (0 < seg_len < N) the seg_len-token segment that
+// holds n, cut at N. A padding row past N takes the last real row's segment,
+// so its softmax never runs over no keys.
+__device__ __forceinline__ void seg_keys(int n, int N, int seg_len, int& lo, int& hi) {
+  lo = 0;
+  hi = N;
+  if (seg_len > 0 && seg_len < N) {
+    lo = (min(n, N - 1) / seg_len) * seg_len;
+    hi = min(lo + seg_len, N);
+  }
+}
+
+__device__ __forceinline__ float gelu_erf(float a) {
+  return 0.5f * a * (1.0f + erff(a * 0.70710678118654752f));
+}
+
+// gelu_erf(a) and its derivative d gelu_erf / da (mlp_block.py:218-219,
+// with erff for the A-S erf), with one erff
+__device__ __forceinline__ void gelu_erf_and_grad(float a, float& gelu, float& grad) {
+  const float e = erff(a * 0.70710678118654752f);
+  gelu = 0.5f * a * (1.0f + e);
+  grad = 0.5f * (1.0f + e) + a * expf(-0.5f * a * a) * 0.39894228040143268f;
+}
+
+// gelu(a) and d gelu / da with the TPU kernels' own erf (Abramowitz-Stegun
+// 7.1.26, mlp_block.py:201-219), whose exp(-x^2) at x = a / sqrt(2) is the
+// derivative's exp(-a^2 / 2): one fast reciprocal and one fast exp serve
+// both (the stash dh product's epilogue).
+__device__ __forceinline__ void gelu_as_and_grad(float a, float& gelu, float& grad) {
+  const float t = __fdividef(1.0f, fmaf(0.3275911f * 0.70710678118654752f, fabsf(a), 1.0f));
+  float poly = fmaf(t, 1.061405429f, -1.453152027f);
+  poly = fmaf(t, poly, 1.421413741f);
+  poly = fmaf(t, poly, -0.284496736f);
+  poly = fmaf(t, poly, 0.254829592f);
+  const float e = __expf(-0.5f * a * a);
+  const float half_erf1 = 0.5f + copysignf(fmaf(-poly * t, e, 1.0f), a) * 0.5f;  // (1 + erf) / 2
+  gelu = a * half_erf1;
+  grad = fmaf(a * e, 0.39894228040143268f, half_erf1);
+}
+
+// 16-byte global -> shared copy; when !pred it reads nothing and zero-fills.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  const int bytes = pred ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// The split-K reduce of gemm_sm90.cuh's weight gradients: out[r, c] =
+// bf16(sum over the slices z of ws[z * MN + r * N + c]), in order; out's
+// rows ldc apart; 4 per thread (N % 4 == 0, ldc % 4 == 0).
+__global__ void splitk_reduce_kernel(const float4* __restrict__ ws, int splits, size_t n4, int N,
+                                     int ldc, bf16* __restrict__ out) {
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n4) return;
+  const size_t r = 4 * i / N, c = 4 * i % N;
+  float4 s = ws[i];
+  for (int z = 1; z < splits; ++z) {
+    const float4 v = ws[(size_t)z * n4 + i];
+    s.x += v.x;
+    s.y += v.y;
+    s.z += v.z;
+    s.w += v.w;
+  }
+  uint2 o;
+  bf16* oe = reinterpret_cast<bf16*>(&o);
+  oe[0] = __float2bfloat16_rn(s.x);
+  oe[1] = __float2bfloat16_rn(s.y);
+  oe[2] = __float2bfloat16_rn(s.z);
+  oe[3] = __float2bfloat16_rn(s.w);
+  *reinterpret_cast<uint2*>(out + r * ldc + c) = o;
+}
+
+constexpr int LN_THREADS = 256;  // one warp per row
+
+// y = bf16(LN(x) * scale + bias) over rows of K (K % 8 == 0), fp32 stats.
+__global__ void __launch_bounds__(LN_THREADS)
+layernorm_bf16_kernel(const bf16* __restrict__ x, const float* __restrict__ scale,
+                      const float* __restrict__ bias, bf16* __restrict__ y, int M, int K) {
+  const int row = blockIdx.x * (LN_THREADS / 32) + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= M) return;  // warp-uniform
+  const bf16* xr = x + (size_t)row * K;
+  float s = 0.f;
+  for (int k = lane * 8; k < K; k += 256) {
+    const uint4 v = *reinterpret_cast<const uint4*>(xr + k);
+    const bf16* e = reinterpret_cast<const bf16*>(&v);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) s += __bfloat162float(e[j]);
+  }
+  const float mu = warp_sum(s) / K;
+  float q = 0.f;
+  for (int k = lane * 8; k < K; k += 256) {
+    const uint4 v = *reinterpret_cast<const uint4*>(xr + k);
+    const bf16* e = reinterpret_cast<const bf16*>(&v);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float d = __bfloat162float(e[j]) - mu;
+      q += d * d;
+    }
+  }
+  const float rstd = rsqrtf(warp_sum(q) / K + 1e-6f);
+  for (int k = lane * 8; k < K; k += 256) {
+    const uint4 v = *reinterpret_cast<const uint4*>(xr + k);
+    const bf16* e = reinterpret_cast<const bf16*>(&v);
+    uint4 o;
+    bf16* oe = reinterpret_cast<bf16*>(&o);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float xhat = (__bfloat162float(e[j]) - mu) * rstd;
+      oe[j] = __float2bfloat16_rn(xhat * scale[k + j] + bias[k + j]);
+    }
+    *reinterpret_cast<uint4*>(y + (size_t)row * K + k) = o;
+  }
+}
+
+inline cudaError_t launch_layernorm(const void* x, const void* scale, const void* bias, void* y,
+                                    int M, int K, cudaStream_t stream) {
+  const int rows_per_cta = LN_THREADS / 32;
+  layernorm_bf16_kernel<<<(M + rows_per_cta - 1) / rows_per_cta, LN_THREADS, 0, stream>>>(
+      static_cast<const bf16*>(x), static_cast<const float*>(scale),
+      static_cast<const float*>(bias), static_cast<bf16*>(y), M, K);
+  return cudaGetLastError();
+}
+
+}  // namespace sky

@@ -14,18 +14,19 @@
 // bf16 only (the weight gradients y^T @ da_c and h_c^T @ g, reduced over K
 // = B*N token rows, ragged: TMA zero-fills past K). The dual product of the
 // MLP backward (gemm_dual_kernel) runs the forward and FORM_NT readings of
-// one hidden tile in one mainloop.
+// one hidden tile in one mainloop; the stash dh product
+// (gemm_dh_stash_kernel) the FORM_NT reading alone, with an epilogue that
+// reads the bf16 fc1 pre-activation the stash forward kept.
 //
 // Serves the TPU kernels sky_embeddings_tpu/ops/kernels/mlp_block.py
 // _pallas_fwd / _pallas_fwd_stash (fc1, fc2: csrc/mlp_block.cu),
 // attn_block.py _pallas_fwd / _pallas_fwd_stash (qkv, proj:
-// csrc/attn_block.cu), masked or not, mlp_block.py _pallas_bwd and
-// _pallas_bwd_stream (kernels 8 and 9, every product:
-// csrc/mlp_block_bwd.cu) and attn_block.py _pallas_bwd_stash and
+// csrc/attn_block.cu), masked or not, mlp_block.py _pallas_bwd,
+// _pallas_bwd_stash and _pallas_bwd_stream (kernels 8, 7 and 9, every
+// product: csrc/mlp_block_bwd.cu) and attn_block.py _pallas_bwd_stash and
 // _pallas_bwd (kernels 3 and 4, every product: kernel 4's qkv recompute on
 // the forward form, dctx and dy on FORM_NT, dWqkv and dWproj in one FORM_TN
-// group: csrc/attn_block_bwd.cu). Kernel 7 keeps the wmma GEMM of gemm.cuh
-// until it moves to the backward forms here.
+// group: csrc/attn_block_bwd.cu). Every GEMM of the port runs here.
 //
 // What bounds it on the H100: tensor-core operations. At ViT-B's shapes
 // (M = B*65 rows, K and N 768..3072) qkv, fc1 and fc2 do 500 to 600 bf16
@@ -106,6 +107,8 @@
 //                        da_c = bf16(da), h_c = bf16(gelu(a)) staged and
 //                        TMA-stored, da's column sums for db1
 //                        (mlp_block.py:322-329)
+//   the stash dh product: the same with a the bf16 stash, upcast
+//                        (mlp_block.py:392-399, :419)
 // An fp32 output leaves from the registers: a staged fp32 tile would take
 // twice the bf16 one's shared memory from the ring, and the stores drain
 // under the next tile's mainloop (PERF.md).
@@ -124,7 +127,7 @@
 
 #include <mutex>
 
-#include "gemm.cuh"
+#include "common.cuh"
 
 namespace sky {
 namespace sm90 {
@@ -1123,6 +1126,244 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
+// ---- the stash dh product of the MLP stash backward -------------------------
+//
+// Kernel 7's first product, for one (128 x STASH_BN) tile of the (M, F)
+// hidden layer: dh = g @ W2^T (W2 (F, D) read K-major, as FORM_NT reads B)
+// into one accumulator set of 64 x BN per consumer, then the dual
+// product's outputs with a = the bf16 stash the stash forward kept, upcast
+// (mlp_block.py:392-399, :419): da = dh * gelu'(a), da_c = bf16(da), h_c =
+// bf16(gelu(a)), and da's column sums over the consumer's 64 rows into
+// part[(row / 64) * N + col], added in the dual's order (a thread's two
+// rows, quad shuffles, the four warps in turn). No fp32 (M, F) array
+// reaches device memory.
+// - A ring slot holds g's 128 x 64 box and W2's BN x 64 box.
+// - Each consumer's 64 x BN half of the stash tile comes in by TMA under
+//   its mainloop, as EPI_BIAS_RESIDUAL's residual does, once the last
+//   tile's stores have read the buffers: three slabs before the mainloop
+//   ends, so that the wait for those reads seldom holds up the ring (two
+//   slabs in, as the residual, measured slower).
+// - The epilogue is one pass: each thread reads its own pairs of a (a
+//   box's 16 at once), writes bf16(gelu(a)) over them and bf16(da) into a
+//   second buffer, both swizzled as TMA reads them, and keeps its column
+//   sums in registers; each 64-column box of h_c and da_c leaves by TMA
+//   store as soon as it is written, and the sums go through a
+//   reduce-scatter over the warp and a small buffer.
+//   The tensor cores wait meanwhile, so the pass is kept short: GELU and
+//   GELU' take the TPU kernel's own erf (gelu_as_and_grad: one fast
+//   reciprocal and one exp, shared), and no store waits for another
+//   (tools/mlp_stash_variants.py times the alternatives; PERF.md §6).
+// - Two bf16 buffers per consumer leave a four-slot ring at BN = 128; BN =
+//   256 would leave one. A first design with one buffer (the stash, then
+//   h_c, then da_c, in turn) ran at both widths; this one at 128 is faster
+//   than either (tools/mlp_stash_variants.py).
+template <int BN>
+struct StashCfg {
+  static constexpr int STAGE_BYTES = A_BYTES + BN * BK * 2;  // g's box, W2's box
+  static constexpr int HALF_BYTES = 64 * BN * 2;             // a consumer's 64 x BN bf16
+  static constexpr int BUF_BYTES = 4 * HALF_BYTES;           // stash / h_c and da_c, each consumer
+  static constexpr int SUM_BYTES = 2 * 4 * BN * 4;           // four warps' sums a consumer
+  static constexpr int STAGES =
+      (int)((SMEM_OPTIN_MAX - SMEM_EXTRA - BUF_BYTES - SUM_BYTES) / STAGE_BYTES);
+  static constexpr int SMEM = STAGES * STAGE_BYTES + BUF_BYTES + SUM_BYTES + SMEM_EXTRA;
+  static_assert(STAGES >= 3, "ring too shallow");
+};
+constexpr int STASH_BN = 128;
+
+struct StashArgs {
+  float* part;  // (ceil(M / 64), N): the column sums of da over 64 rows
+  int M, N, K;
+};
+
+__global__ void __launch_bounds__(THREADS, 1)
+    gemm_dh_stash_kernel(const __grid_constant__ CUtensorMap tma_g,
+                         const __grid_constant__ CUtensorMap tma_w2,
+                         const __grid_constant__ CUtensorMap tma_a,
+                         const __grid_constant__ CUtensorMap tma_da,
+                         const __grid_constant__ CUtensorMap tma_h, const StashArgs p) {
+  constexpr int BN = STASH_BN;
+  using C = StashCfg<BN>;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  // ring slot s: g (128 x 64), then W2 (BN x 64); then each consumer's two
+  // buffers (the stash, then h_c; da_c); the column sums, 4 x BN fp32 per
+  // consumer; the ring's full and empty barriers and one stash barrier per
+  // consumer
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t buf0 = base + C::STAGES * C::STAGE_BYTES;
+  const uint32_t sums0 = buf0 + C::BUF_BYTES;
+  const uint32_t full0 = sums0 + C::SUM_BYTES;
+  const uint32_t empty0 = full0 + 8 * C::STAGES;
+  const uint32_t stash0 = empty0 + 8 * C::STAGES;
+  const int n_tiles = (p.N + BN - 1) / BN;
+  const int tiles = ((p.M + BM - 1) / BM) * n_tiles;
+  const int nk = (p.K + BK - 1) / BK;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < C::STAGES; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, 2);
+    }
+    mbar_init(stash0, 1);
+    mbar_init(stash0 + 8, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 0) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int m0 = (tile / n_tiles) * BM, n0 = (tile % n_tiles) * BN;
+        for (int kb = 0; kb < nk; ++kb) {
+          mbar_wait(empty0 + 8 * stage, phase ^ 1);
+          const uint32_t full = full0 + 8 * stage;
+          const uint32_t slot = base + stage * C::STAGE_BYTES;
+          mbar_expect_tx(full, C::STAGE_BYTES);
+          tma_load_2d(slot, &tma_g, full, kb * BK, m0);
+          tma_load_2d(slot + A_BYTES, &tma_w2, full, kb * BK, n0);
+          if (++stage == C::STAGES) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int wg = threadIdx.x / 128 - 1;
+    const int t = threadIdx.x & 127;
+    const bool leader = t == 0;
+    const uint32_t sth = buf0 + wg * (2 * C::HALF_BYTES);  // the stash, then h_c
+    const uint32_t std_ = sth + C::HALF_BYTES;              // da_c
+    float* const sums =  // the column sums, as a pointer
+        reinterpret_cast<float*>(smem_raw + (sums0 - smem_u32(smem_raw)) + wg * (C::SUM_BYTES / 2));
+    const uint32_t stash_bar = stash0 + 8 * wg;
+    const int lr0 = (t >> 5) * 16 + ((t & 31) >> 2);
+    uint32_t stash_phase = 0;
+    float d[BN / 2];
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const int m0 = (tile / n_tiles) * BM, n0 = (tile % n_tiles) * BN;
+      const int mw = m0 + 64 * wg;
+      const int nb = min(BN / BOX, (p.N - n0 + BOX - 1) / BOX);
+      const bool rows = mw < p.M;  // this half has rows to store
+      int prev = 0;
+      for (int kb = 0; kb < nk; ++kb) {
+        mbar_wait(full0 + 8 * stage, phase);
+        const uint32_t sg = base + stage * C::STAGE_BYTES + wg * (A_BYTES / 2);
+        const uint32_t sw = base + stage * C::STAGE_BYTES + A_BYTES;
+        fence_acc<BN / 2>(d);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk)
+          wgmma_tile<BN, 0, 0>(d, smem_desc(sg + kk * 32, 16, 1024),
+                               smem_desc(sw + kk * 32, 16, 1024), (kb | kk) != 0);
+        wgmma_commit();
+        if (kb == max(nk - 3, 0) && leader && rows) {
+          bulk_wait_read();  // the last tile's stores have read both buffers
+          mbar_expect_tx(stash_bar, nb * OUT_BOX_BYTES);
+          for (int c = 0; c < nb; ++c)
+            tma_load_2d(sth + c * OUT_BOX_BYTES, &tma_a, stash_bar, n0 + c * BOX, mw);
+        }
+        if (kb > 0) {
+          wgmma_wait<1>();
+          if (leader) mbar_arrive(empty0 + 8 * prev);
+        }
+        prev = stage;
+        if (++stage == C::STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+      wgmma_wait<0>();
+      fence_acc<BN / 2>(d);
+      if (leader) mbar_arrive(empty0 + 8 * prev);
+      if (!rows) continue;
+      mbar_wait(stash_bar, stash_phase);
+      stash_phase ^= 1;
+
+      // a -> bf16(gelu(a)) in place and bf16(dh * gelu'(a)) beside it, a
+      // box of 64 columns at a time, its 16 pairs of a loaded first; the
+      // sums of da over the thread's two rows, per column
+      float cs[BN / 4];
+#pragma unroll
+      for (int i = 0; i < BN / 4; ++i) cs[i] = 0.f;
+#pragma unroll
+      for (int c = 0; c < BN / BOX; ++c) {
+        if (c >= nb) break;
+        uint32_t av[BOX / 4];  // pair i: row lr0 + 8 (i % 2), columns 8 (i / 2) + 2 (t % 4) ..
+#pragma unroll
+        for (int i = 0; i < BOX / 4; ++i) {
+          const int lr = lr0 + 8 * (i & 1);
+          av[i] = ld_shared_b32(sth + c * OUT_BOX_BYTES + lr * 128 + (((i >> 1) ^ (lr & 7)) << 4) +
+                                4 * (t & 3));
+        }
+#pragma unroll
+        for (int i = 0; i < BOX / 4; ++i) {
+          const int lr = lr0 + 8 * (i & 1), j = c * (BOX / 8) + (i >> 1);
+          const int at = c * OUT_BOX_BYTES + lr * 128 + (((i >> 1) ^ (lr & 7)) << 4) + 4 * (t & 3);
+          float h0, h1, q0, q1;
+          gelu_as_and_grad(__uint_as_float(av[i] << 16), h0, q0);
+          gelu_as_and_grad(__uint_as_float(av[i] & 0xFFFF0000u), h1, q1);
+          const float d0 = d[4 * j + 2 * (i & 1)] * q0, d1 = d[4 * j + 2 * (i & 1) + 1] * q1;
+          cs[2 * j] += d0;
+          cs[2 * j + 1] += d1;
+          st_shared_b32(sth + at, pack_bf16x2(h0, h1));
+          st_shared_b32(std_ + at, pack_bf16x2(d0, d1));
+        }
+        fence_proxy_async();  // the box's h_c and da_c leave while the next is computed
+        wg_sync(wg);
+        if (leader) {
+          tma_store_2d(&tma_h, sth + c * OUT_BOX_BYTES, n0 + c * BOX, mw);
+          tma_store_2d(&tma_da, std_ + c * OUT_BOX_BYTES, n0 + c * BOX, mw);
+          bulk_commit();
+        }
+      }
+      // the sums over the warp's 16 rows (the 8 lanes of one t % 4) by a
+      // reduce-scatter that pairs the lanes as the dual's butterfly does
+      // (xor 4, then 8, then 16), so each sum is the dual's, bit for bit, in
+      // 28 shuffles instead of 96: lane t keeps cs[k0 .. k0 + 3], k0 = 16 b2
+      // + 8 b3 + 4 b4 for the bits b of t
+      static_assert(BN == 128, "the reduce-scatter below halves 32 sums three times");
+      {
+        const bool b2 = t & 4, b3 = t & 8, b4 = t & 16;
+#pragma unroll
+        for (int i = 0; i < 16; ++i) {
+          const float send = b2 ? cs[i] : cs[i + 16], keep = b2 ? cs[i + 16] : cs[i];
+          cs[i] = keep + __shfl_xor_sync(0xffffffffu, send, 4);
+        }
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const float send = b3 ? cs[i] : cs[i + 8], keep = b3 ? cs[i + 8] : cs[i];
+          cs[i] = keep + __shfl_xor_sync(0xffffffffu, send, 8);
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float send = b4 ? cs[i] : cs[i + 4], keep = b4 ? cs[i + 4] : cs[i];
+          cs[i] = keep + __shfl_xor_sync(0xffffffffu, send, 16);
+        }
+        const int k0 = 16 * b2 + 8 * b3 + 4 * b4;  // cs index k: column 8 (k / 2) + k % 2
+        float* row = sums + (t >> 5) * BN + 2 * (t & 3);
+        *reinterpret_cast<float2*>(row + 4 * k0) = make_float2(cs[0], cs[1]);
+        *reinterpret_cast<float2*>(row + 4 * k0 + 8) = make_float2(cs[2], cs[3]);
+      }
+      wg_sync(wg);
+      // the four warps' sums, added in warp order
+      for (int col = t; col < BN && n0 + col < p.N; col += 128) {
+        float s = 0.f;
+#pragma unroll
+        for (int w = 0; w < 4; ++w) s += sums[w * BN + col];
+        p.part[(size_t)(mw / 64) * p.N + n0 + col] = s;
+      }
+      wg_sync(wg);  // the sums are read before the next tile's are staged
+    }
+    if (leader) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+  }
+}
+
 // ---- host side of the backward forms ------------------------------------
 
 // One product of a group: out = A @ B^T (FORM_NT: a (M, K), b (N, K)) or
@@ -1382,6 +1623,31 @@ inline cudaError_t launch_dual(const void* y, const void* w1, int ldw1, const vo
   if (err != cudaSuccess) return err;
   gemm_dual_kernel<DUAL_BN><<<tiles < sms ? tiles : sms, THREADS, smem, stream>>>(
       maps[0], maps[1], maps[2], maps[3], maps[4], maps[5], p);
+  return cudaGetLastError();
+}
+
+// The stash dh product: da_c, h_c (M, N) bf16 and part (ceil(M / 64), N)
+// fp32 from g (M, K), W2 (N, K) and the stash a (M, N) bf16; K and N
+// multiples of 8.
+inline cudaError_t launch_dh_stash(const void* g, const void* w2, const void* a, void* da_c,
+                                   void* h_c, float* part, int M, int N, int K,
+                                   cudaStream_t stream) {
+  if (M <= 0 || N <= 0 || K <= 0 || N % 8 || K % 8) return cudaErrorInvalidValue;
+  int sms = 0;
+  cudaError_t err = sm_count(&sms);
+  if (err != cudaSuccess) return err;
+  CUtensorMap maps[5];
+  if (!encode_2d(&maps[0], g, M, K, BM) || !encode_2d(&maps[1], w2, N, K, STASH_BN) ||
+      !encode_2d(&maps[2], a, M, N, 64) || !encode_2d(&maps[3], da_c, M, N, 64) ||
+      !encode_2d(&maps[4], h_c, M, N, 64))
+    return cudaErrorInvalidValue;
+  constexpr int smem = StashCfg<STASH_BN>::SMEM;
+  err = cudaFuncSetAttribute(gemm_dh_stash_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (err != cudaSuccess) return err;
+  const int tiles = ((M + BM - 1) / BM) * ((N + STASH_BN - 1) / STASH_BN);
+  gemm_dh_stash_kernel<<<tiles < sms ? tiles : sms, THREADS, smem, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], maps[4], StashArgs{part, M, N, K});
   return cudaGetLastError();
 }
 

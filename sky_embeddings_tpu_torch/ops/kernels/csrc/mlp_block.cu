@@ -13,7 +13,7 @@
 // reads the fp32 a, so `out` is K1's bit for bit.
 //
 // Three launches behind each C entry point:
-//   0. LayerNorm (gemm.cuh)              -> y (M, D) bf16, staged in `out`
+//   0. LayerNorm (common.cuh)            -> y (M, D) bf16, staged in `out`
 //   1. fc1 GEMM + b1 + exact erf GELU    -> h (M, F) bf16 (+ a (M, F) bf16)
 //   2. fc2 GEMM + b2 + fp32 residual     -> out (M, D) bf16
 // Both products run on the persistent wgmma + TMA GEMM of gemm_sm90.cuh.

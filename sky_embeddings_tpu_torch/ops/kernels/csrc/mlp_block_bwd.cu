@@ -1,5 +1,6 @@
 // MLP-block backward for Hopper (sm_90a): recompute (kernel 8), stash
-// (kernel 7) and weight-streaming (kernel 9) variants.
+// (kernel 7) and weight-streaming (kernel 9) variants, every product on the
+// persistent wgmma + TMA GEMM of gemm_sm90.cuh.
 //
 // Replaces the TPU kernels sky_embeddings_tpu/ops/kernels/mlp_block.py:
 // - _pallas_bwd (_bwd_kernel, mlp_block.py:309-354), entry
@@ -15,8 +16,7 @@
 //   is recomputed from bf16 a and is not the forward's h;
 // - _pallas_bwd_stream (kernel 9, below).
 //
-// Kernel 8, at the TPU kernel's rounding points, all five products on the
-// persistent wgmma + TMA GEMM of gemm_sm90.cuh:
+// Kernel 8, at the TPU kernel's rounding points:
 //   1. LayerNorm of x                                 -> y bf16    (:320-321)
 //   2. the dual product (launch_dual): a = y @ W1 + b1 and dh = g @ W2^T
 //      for each (128 x 128) tile of (M, F), both in fp32 registers; its
@@ -30,62 +30,31 @@
 //   4. LN backward -> dx, dscale / dbias partials (ln_bwd)      (:333-337)
 //   5. db1, db2 (column sums of g), dscale, dbias: partials added in a
 //      fixed order, the four in one launch.
-// Neither fp32 (M, F) array (a, da) reaches device memory. Kernel 7 keeps
-// the wmma GEMM of gemm.cuh (mlp_block_bwd_stash below), its last caller:
-// its dh epilogue reads the bf16 stash, which none of the new forms does.
-// GELU and its derivative use erff (the TPU kernel's A-S erf differs by at
-// most 1.5e-7). Parameter gradient sums are two-pass or fixed-order
-// (bwd_common.cuh, the dual epilogue), and no product uses atomics, so runs
-// give the same bits.
+// Kernel 7 is the same five steps with step 2 the stash dh product
+// (launch_dh_stash): dh = g @ W2^T for each (128 x STASH_BN) tile of (M,
+// F), its epilogue reading that tile of the bf16 stash a (TMA-loaded under
+// the mainloop) in place of computing a, and writing da_c, h_c and db1's
+// column partials as the dual's does (mlp_block.py:392-399, :419).
+// Neither fp32 (M, F) array (a, da) reaches device memory in either.
+// GELU and its derivative use erff in kernels 8 and 9 (the TPU kernel's
+// A-S erf differs by at most 1.5e-7) and that A-S erf itself in kernel 7,
+// whose epilogue has no fc1 product to hide behind. Parameter gradient
+// sums are two-pass or fixed-order (bwd_common.cuh, the dual and stash
+// epilogues), and no product uses atomics, so runs give the same bits.
 //
 // Bound on the H100: five GEMMs of 2 M D F FLOP each for kernel 8 (98 GFLOP
 // at ViT-B B = 64), four for kernel 7 (79 GFLOP at ViT-L D = 768, B = 64):
-// operation-bound. What kernel 8 still moves besides the products: y,
-// da_c and h_c (M * (D + 2F) * 2 bytes, written once and read by the
-// group), dy in fp32, and the split weight gradients' fp32 partials.
+// operation-bound. What both still move besides the products: y, da_c
+// and h_c (M * (D + 2F) * 2 bytes, written once and read by the group),
+// kernel 7's stash (M * F * 2 bytes, read once), dy in fp32, and the split
+// weight gradients' fp32 partials.
 #include "bwd_common.cuh"
 #include "gemm_sm90.cuh"
 
-// Kernel 7 (wmma GEMM, gemm.cuh). Returns 0, or the first CUDA error a
-// launch reported; `da` (M, F) fp32 receives da for the db1 column sums.
-static int mlp_block_bwd_stash(const void* x, const void* ln_scale, const void* ln_bias,
-                               const void* w1, const void* w2, const void* a_stash, const void* g,
-                               void* y, void* da, void* da_c, void* h_c, void* dy, void* part,
-                               void* ws, void* dx, void* dscale, void* dbias, void* dw1, void* db1,
-                               void* dw2, void* db2, int M, int D, int F, void* stream) {
-  using namespace sky;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int parts = n_partials(M);
-  float* part_b1 = static_cast<float*>(part);          // parts x F
-  float* part_b2 = part_b1 + (size_t)parts * F;        // parts x D
-  float* part_scale = part_b2 + (size_t)parts * D;     // parts x D
-  float* part_bias = part_scale + (size_t)parts * D;   // parts x D
-  float* daf = static_cast<float*>(da);
-  float* dyf = static_cast<float*>(dy);
-
-  SKY_TRY(launch_layernorm(x, ln_scale, ln_bias, y, M, D, s));
-  SKY_TRY((launch_gemm<EPI_GELU_BWD_STASH, false, true>(
-      gemm_args(g, w2, a_stash, da_c, M, F, D, daf, h_c), s)));
-  SKY_TRY((launch_gemm<EPI_STORE_F32, false, true>(
-      gemm_args(da_c, w1, nullptr, nullptr, M, D, F, dyf), s)));
-  SKY_TRY(launch_ln_bwd(x, g, dyf, ln_scale, dx, part_scale, part_bias, M, D, s));
-  float* wsf = static_cast<float*>(ws);
-  SKY_TRY(launch_weight_grad(y, da_c, dw1, D, F, M, wsf, s));
-  SKY_TRY(launch_weight_grad(h_c, g, dw2, F, D, M, wsf, s));
-  SKY_TRY(launch_colsum_partial<float>(daf, M, F, part_b1, s));
-  SKY_TRY(launch_colsum_partial<bf16>(g, M, D, part_b2, s));
-
-  SKY_TRY(launch_colsum_final(part_b1, parts, F, db1, s));
-  SKY_TRY(launch_colsum_final(part_b2, parts, D, db2, s));
-  SKY_TRY(launch_colsum_final(part_scale, parts, D, dscale, s));
-  SKY_TRY(launch_colsum_final(part_bias, parts, D, dbias, s));
-  return 0;
-}
-
-// The three products that follow the dual one, for the column slab c0 ..
-// c0 + fs of F (kernel 8: c0 = 0, fs = F): spec[0] dy (+)= da_c @
-// W1[:, slab]^T (FORM_NT, its own launch), W1's slab read in place as the
-// (D, fs) K-major operand; spec[1], spec[2] one group (FORM_TN):
+// The three products that follow the dual (or stash dh) one, for the
+// column slab c0 .. c0 + fs of F (kernels 8 and 7: c0 = 0, fs = F): spec[0]
+// dy (+)= da_c @ W1[:, slab]^T (FORM_NT, its own launch), W1's slab read in
+// place as the (D, fs) K-major operand; spec[1], spec[2] one group (FORM_TN):
 // dW1[:, slab] = y^T @ da_c written in place (rows F apart), dW2[slab, :] =
 // h_c^T @ g.
 static void slab_group(sky::sm90::BwdSpec* spec, const void* y, const void* w1, const void* g,
@@ -112,38 +81,6 @@ extern "C" long long sky_mlp_block_bwd_ws(int M, int D, int F, int fs) {
   int shapes[2][4];  // the weight gradients' group: dy never splits
   bwd_shapes(spec + 1, 2, shapes);
   return (long long)bwd_workspace(shapes, 2, bwd_plan(shapes, 2, sms));
-}
-
-extern "C" int sky_mlp_block_bwd_stream(const void* x, const void* ln_scale, const void* ln_bias,
-                                        const void* w1, const void* b1, const void* w2,
-                                        const void* g, void* y, void* da_c, void* h_c, void* dy,
-                                        void* part, void* ws, void* dx, void* dscale, void* dbias,
-                                        void* dw1, void* db1, void* dw2, void* db2, int M, int D,
-                                        int F, int fs, void* stream);
-
-// Kernel 8. The caller allocates the scratch (y: (M, D) bf16; da_c, h_c:
-// (M, F) bf16; dy: (M, D) fp32; part: (F + 3D) * ceil(M / 32) fp32; ws:
-// sky_mlp_block_bwd_ws(M, D, F, F) fp32) and the outputs (dx (M, D) bf16;
-// dscale, dbias, db2 (D,) and db1 (F,) fp32; dw1 (D, F) and dw2 (F, D) bf16).
-extern "C" int sky_mlp_block_bwd(const void* x, const void* ln_scale, const void* ln_bias,
-                                 const void* w1, const void* b1, const void* w2, const void* g,
-                                 void* y, void* da_c, void* h_c, void* dy, void* part, void* ws,
-                                 void* dx, void* dscale, void* dbias, void* dw1, void* db1,
-                                 void* dw2, void* db2, int M, int D, int F, void* stream) {
-  return sky_mlp_block_bwd_stream(x, ln_scale, ln_bias, w1, b1, w2, g, y, da_c, h_c, dy, part, ws,
-                                  dx, dscale, dbias, dw1, db1, dw2, db2, M, D, F, F, stream);
-}
-
-// Kernel 7: the bf16 stash a (M, F) in place of b1, and `da` (M, F) fp32
-// scratch; its ws holds 8 * D * F fp32 (launch_weight_grad).
-extern "C" int sky_mlp_block_bwd_stash(const void* x, const void* ln_scale, const void* ln_bias,
-                                       const void* w1, const void* w2, const void* a, const void* g,
-                                       void* y, void* da, void* da_c, void* h_c, void* dy,
-                                       void* part, void* ws, void* dx, void* dscale, void* dbias,
-                                       void* dw1, void* db1, void* dw2, void* db2, int M, int D,
-                                       int F, void* stream) {
-  return mlp_block_bwd_stash(x, ln_scale, ln_bias, w1, w2, a, g, y, da, da_c, h_c, dy, part, ws,
-                             dx, dscale, dbias, dw1, db1, dw2, db2, M, D, F, stream);
 }
 
 // Kernel 9: the weight-streaming backward. Replaces _pallas_bwd_stream
@@ -180,14 +117,15 @@ extern "C" int sky_mlp_block_bwd_stash(const void* x, const void* ln_scale, cons
 // bf16; dy: (M, D) fp32; part: (fs + 3D) * ceil(M / 32) fp32; ws:
 // sky_mlp_block_bwd_ws(M, D, F, fs) fp32) and the outputs as for kernel 8.
 // fs divides F and is a multiple of 8.
-extern "C" int sky_mlp_block_bwd_stream(const void* x, const void* ln_scale, const void* ln_bias,
-                                        const void* w1, const void* b1, const void* w2,
-                                        const void* g, void* y, void* da_c, void* h_c, void* dy,
-                                        void* part, void* ws, void* dx, void* dscale, void* dbias,
-                                        void* dw1, void* db1, void* dw2, void* db2, int M, int D,
-                                        int F, int fs, void* stream) {
+//
+// Kernels 8 and 7 are this loop over one slab (fs = F); kernel 7 passes the
+// stash a (M, F) in place of b1, and its step 2 is the stash dh product.
+static int mlp_block_bwd(const void* x, const void* ln_scale, const void* ln_bias, const void* w1,
+                         const void* b1, const void* w2, const void* a, const void* g, void* y,
+                         void* da_c, void* h_c, void* dy, void* part, void* ws, void* dx,
+                         void* dscale, void* dbias, void* dw1, void* db1, void* dw2, void* db2,
+                         int M, int D, int F, int fs, cudaStream_t s) {
   using namespace sky;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int parts = n_partials(M);
   float* part_b1 = static_cast<float*>(part);          // ceil(M / 64) x fs, one slab at a time
   float* part_b2 = part_b1 + (size_t)parts * fs;       // parts x D
@@ -205,8 +143,11 @@ extern "C" int sky_mlp_block_bwd_stream(const void* x, const void* ln_scale, con
   SKY_TRY(launch_layernorm(x, ln_scale, ln_bias, y, M, D, s));
   for (int j = 0; j < nj; ++j) {
     const size_t c0 = (size_t)j * fs;
-    SKY_TRY(sm90::launch_dual(y, w1b + c0, F, b1f + c0, g, w2b + c0 * D, da_c, h_c, part_b1, M,
-                              fs, D, s));
+    if (a != nullptr)
+      SKY_TRY(sm90::launch_dh_stash(g, w2b, a, da_c, h_c, part_b1, M, F, D, s));
+    else
+      SKY_TRY(sm90::launch_dual(y, w1b + c0, F, b1f + c0, g, w2b + c0 * D, da_c, h_c, part_b1, M,
+                                fs, D, s));
     sm90::BwdSpec spec[3];
     slab_group(spec, y, w1, g, da_c, h_c, dyf, j > 0, dw1, dw2, c0, M, D, F, fs);
     SKY_TRY(sm90::launch_bwd_group(spec, 1, nullptr, s));
@@ -221,6 +162,45 @@ extern "C" int sky_mlp_block_bwd_stream(const void* x, const void* ln_scale, con
                              {part_bias, static_cast<float*>(dbias), parts, D}};
   SKY_TRY(launch_colsum_finals(jobs, 4, s));
   return 0;
+}
+
+// Kernel 8. The caller allocates the scratch (y: (M, D) bf16; da_c, h_c:
+// (M, F) bf16; dy: (M, D) fp32; part: (F + 3D) * ceil(M / 32) fp32; ws:
+// sky_mlp_block_bwd_ws(M, D, F, F) fp32) and the outputs (dx (M, D) bf16;
+// dscale, dbias, db2 (D,) and db1 (F,) fp32; dw1 (D, F) and dw2 (F, D) bf16).
+extern "C" int sky_mlp_block_bwd(const void* x, const void* ln_scale, const void* ln_bias,
+                                 const void* w1, const void* b1, const void* w2, const void* g,
+                                 void* y, void* da_c, void* h_c, void* dy, void* part, void* ws,
+                                 void* dx, void* dscale, void* dbias, void* dw1, void* db1,
+                                 void* dw2, void* db2, int M, int D, int F, void* stream) {
+  return mlp_block_bwd(x, ln_scale, ln_bias, w1, b1, w2, nullptr, g, y, da_c, h_c, dy, part, ws,
+                       dx, dscale, dbias, dw1, db1, dw2, db2, M, D, F, F,
+                       static_cast<cudaStream_t>(stream));
+}
+
+// Kernel 7: the bf16 stash a (M, F) in place of b1; scratch and outputs as
+// for kernel 8.
+extern "C" int sky_mlp_block_bwd_stash(const void* x, const void* ln_scale, const void* ln_bias,
+                                       const void* w1, const void* w2, const void* a, const void* g,
+                                       void* y, void* da_c, void* h_c, void* dy, void* part,
+                                       void* ws, void* dx, void* dscale, void* dbias, void* dw1,
+                                       void* db1, void* dw2, void* db2, int M, int D, int F,
+                                       void* stream) {
+  return mlp_block_bwd(x, ln_scale, ln_bias, w1, nullptr, w2, a, g, y, da_c, h_c, dy, part, ws,
+                       dx, dscale, dbias, dw1, db1, dw2, db2, M, D, F, F,
+                       static_cast<cudaStream_t>(stream));
+}
+
+// Kernel 9, fs the slab width (above).
+extern "C" int sky_mlp_block_bwd_stream(const void* x, const void* ln_scale, const void* ln_bias,
+                                        const void* w1, const void* b1, const void* w2,
+                                        const void* g, void* y, void* da_c, void* h_c, void* dy,
+                                        void* part, void* ws, void* dx, void* dscale, void* dbias,
+                                        void* dw1, void* db1, void* dw2, void* db2, int M, int D,
+                                        int F, int fs, void* stream) {
+  return mlp_block_bwd(x, ln_scale, ln_bias, w1, b1, w2, nullptr, g, y, da_c, h_c, dy, part, ws,
+                       dx, dscale, dbias, dw1, db1, dw2, db2, M, D, F, fs,
+                       static_cast<cudaStream_t>(stream));
 }
 
 // ---- the backward forms alone, for the card tests and chip_smoke.py ----------
@@ -278,6 +258,21 @@ extern "C" int sky_mlp_bwd_weight_grads(const void* y, const void* da_c, const v
   slab_group(spec, y, nullptr, g, da_c, h_c, nullptr, false, dw1, dw2, 0, M, D, F, fs);
   return static_cast<int>(launch_bwd_group(spec + 1, 2, static_cast<float*>(ws),
                                            static_cast<cudaStream_t>(stream), bn, splits));
+}
+
+// The stash dh product alone: da_c, h_c (M, N) bf16 from g (M, K), w2 (N, K)
+// and the stash a (M, N) bf16; db1 (N,) fp32 from its column partials (part:
+// ceil(M / 64) * N fp32).
+extern "C" int sky_gemm_sm90_dh_stash(const void* g, const void* w2, const void* a, void* da_c,
+                                      void* h_c, void* part, void* db1, int M, int N, int K,
+                                      void* stream) {
+  using namespace sky;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* partf = static_cast<float*>(part);
+  SKY_TRY(sm90::launch_dh_stash(g, w2, a, da_c, h_c, partf, M, N, K, s));
+  const ColsumJob job{partf, static_cast<float*>(db1), (M + 63) / 64, N};
+  SKY_TRY(launch_colsum_finals(&job, 1, s));
+  return 0;
 }
 
 // The dual product alone: da_c, h_c (M, N) bf16 from y, g (M, K), w1 (K, N),

@@ -2,15 +2,17 @@
 
 K1 (``mlp_block``) and K2 (``attn_block``), and their stash twins (kernels 6
 and 2), launch this GEMM from C for every forward product (fc1, fc2, qkv,
-proj); kernels 8 and 9 (the MLP block's recompute and weight-streaming
-backwards) for all five of theirs, and kernels 3 and 4 (the attention
-block's stash and recompute backwards) for all of theirs (kernel 4's qkv
-recompute on the forward form), in two more forms:
+proj); the backwards, kernels 8, 7 and 9 (the MLP block's recompute, stash
+and weight-streaming ones) and 3 and 4 (the attention block's stash and
+recompute ones), for every product of theirs (kernel 4's qkv recompute on
+the forward form), in three more forms:
 
 - the dual product: for each 128 x 128 tile of the (B·N, F) hidden layer,
   ``a = y @ W1 + b1`` and ``dh = g @ W2ᵀ`` into two accumulator sets, with
   an epilogue that writes ``da_c = bf16(dh · gelu'(a))``, ``h_c =
   bf16(gelu(a))`` and the fp32 column sums of ``da`` for db1;
+- the stash dh product (kernel 7's): ``dh = g @ W2ᵀ`` alone, with the
+  dual's epilogue on ``a`` read from the tile of the bf16 stash;
 - the group: up to three products in one persistent launch over the union
   of their output tiles, each ``"nt"`` (``a @ bᵀ``, b stored (N, K): dy =
   da_c @ W1ᵀ, dctx = g @ Wprojᵀ) or ``"tn"`` (``aᵀ @ b``, a stored (K, M):
@@ -20,9 +22,10 @@ recompute on the forward form), in two more forms:
 No model calls the functions here: :func:`gemm` launches one forward
 product with a chosen epilogue (``sky_gemm_sm90`` in ``csrc/mlp_block.cu``),
 :func:`gemm_bwd` one backward product, :func:`mlp_weight_grads` kernel 8's
-weight-gradient group and :func:`gemm_dual` the dual product
-(``csrc/mlp_block_bwd.cu``), :func:`attn_weight_grads` kernels 3 and 4's
-group (``csrc/attn_block_bwd.cu``), so that the card tests and
+weight-gradient group, :func:`gemm_dual` the dual product and
+:func:`gemm_dh_stash` the stash dh product (``csrc/mlp_block_bwd.cu``),
+:func:`attn_weight_grads` kernels 3 and 4's group
+(``csrc/attn_block_bwd.cu``), so that the card tests and
 ``chip_smoke.py`` can hold the GEMM alone to its plain version and time it
 beside cuBLAS.
 
@@ -54,10 +57,10 @@ from sky_embeddings_tpu_torch.ops.kernels.mlp_block import gelu, gelu_grad
 BM = 128  # rows of an output tile: two consumer warpgroups of 64
 BK = 64  # depth of a ring slot: one 128-byte swizzle row of bf16
 BNS = (256, 192, 128)  # tile widths, widest first
-SMEM_OPTIN_MAX = 232448  # dynamic shared memory a block may use, csrc/gemm.cuh
+SMEM_OPTIN_MAX = 232448  # dynamic shared memory a block may use, csrc/common.cuh
 SMEM_EXTRA = 1024 + 256  # alignment slack and barriers, csrc/gemm_sm90.cuh
 H100_SMS = 132
-# the epilogues the C entry takes (csrc/gemm.cuh enum Epilogue)
+# the epilogues the C entry takes (csrc/common.cuh enum Epilogue)
 EPILOGUES = {"bias": 0, "bias_gelu": 1, "bias_residual": 2, "bias_gelu_stash": 7}
 
 
@@ -186,7 +189,7 @@ gemm.launches = 0
 # ---- the backward forms (csrc/gemm_sm90.cuh, entries in csrc/mlp_block_bwd.cu) ----
 
 FORMS = {"nt": 1, "tn": 2}  # enum Form
-BWD_EPILOGUES = {"store": 3, "store_f32": 4, "add_f32": 9}  # csrc/gemm.cuh enum Epilogue
+BWD_EPILOGUES = {"store": 3, "store_f32": 4, "add_f32": 9}  # csrc/common.cuh enum Epilogue
 SPLIT_CANDIDATES = (1, 2)
 MAX_PROBLEMS = 3  # products in one group launch
 # a product's kind in a group plan (enum ShapeKind): "nt" (never split), a
@@ -201,6 +204,7 @@ EPI_COST = 1
 REDUCE_BYTES_PER_COST = 1 << 16
 DUAL_BN = 128
 DUAL_STAGE_BYTES = 4 * BM * BK * 2  # y, g, W1 and W2 slabs of one ring slot
+STASH_BN = 128  # the stash dh product's tile width (csrc/gemm_sm90.cuh STASH_BN)
 
 
 @dataclass(frozen=True)
@@ -312,6 +316,19 @@ def dual_plan(M: int, N: int) -> dict:
     stages = (SMEM_OPTIN_MAX - SMEM_EXTRA - out_bytes) // DUAL_STAGE_BYTES
     return {"tiles": -(-M // BM) * -(-N // DUAL_BN), "stages": stages,
             "smem": stages * DUAL_STAGE_BYTES + out_bytes + SMEM_EXTRA}
+
+
+def dh_stash_plan(M: int, N: int) -> dict:
+    """Tiles, ring stages and shared memory of the stash dh product
+    (``StashCfg``): 128 x STASH_BN tiles; slots of g's 128 x 64 box and
+    W2's STASH_BN x 64 box beside two 128 x STASH_BN bf16 buffers (the
+    stash, then h_c; da_c) and the four warps' column sums of each
+    consumer."""
+    stage = BM * BK * 2 + STASH_BN * BK * 2
+    fixed = 2 * BM * STASH_BN * 2 + 2 * 4 * STASH_BN * 4 + SMEM_EXTRA
+    stages = (SMEM_OPTIN_MAX - fixed) // stage
+    return {"tiles": -(-M // BM) * -(-N // STASH_BN), "stages": stages,
+            "smem": stages * stage + fixed}
 
 
 def _bwd_operands(a, b, form):
@@ -507,3 +524,46 @@ def gemm_dual(y, w1, b1, g, w2):
 
 
 gemm_dual.launches = 0
+
+
+def gemm_dh_stash_plain(g, w2, a):
+    """Plain version of the stash dh product: ``(da_c, h_c, db1)`` with ``dh
+    = g @ W2ᵀ`` in fp32 and the bf16 stash ``a`` upcast, ``da = dh ·
+    gelu'(a)``, ``da_c`` and ``h_c = gelu(a)`` rounded to bf16, ``db1`` the
+    fp32 column sums of ``da`` (``_bwd_stash_kernel``, mlp_block.py:392-399,
+    :419)."""
+    af = a.float()
+    da = torch.matmul(g.float(), w2.float().t()) * gelu_grad(af)
+    return da.to(torch.bfloat16), gelu(af).to(torch.bfloat16), da.sum(0)
+
+
+def gemm_dh_stash(g, w2, a):
+    """As :func:`gemm_dh_stash_plain`. CPU tensors take the plain version;
+    CUDA tensors launch ``sky_gemm_sm90_dh_stash`` or raise."""
+    if g.device.type == "cpu":
+        return gemm_dh_stash_plain(g, w2, a)
+    (M, K), N = g.shape, w2.shape[0]
+    want = {"g": (g, (M, K)), "w2": (w2, (N, K)), "a": (a, (M, N))}
+    for name, (t, shape) in want.items():
+        if (tuple(t.shape) != shape or t.dtype != torch.bfloat16 or not t.is_contiguous()
+                or t.device != g.device):
+            raise ValueError(f"{name}: want a contiguous {shape} bf16 tensor on {g.device}")
+    if N % 8 or K % 8:
+        raise ValueError(f"K={K} and N={N} must be multiples of 8 (16-byte TMA strides)")
+    bf = dict(dtype=torch.bfloat16, device=g.device)
+    da_c, h_c = torch.empty((M, N), **bf), torch.empty((M, N), **bf)
+    part = torch.empty(-(-M // 64) * N, dtype=torch.float32, device=g.device)
+    db1 = torch.empty(N, dtype=torch.float32, device=g.device)
+    fn = cuda_build.load("mlp_block_bwd").sky_gemm_sm90_dh_stash
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    with torch.cuda.device(g.device):
+        err = fn(*(t.data_ptr() for t in (g, w2, a, da_c, h_c, part, db1)), M, N, K,
+                 torch.cuda.current_stream().cuda_stream)
+    cuda_build.check(err, "sky_gemm_sm90_dh_stash")
+    gemm_dh_stash.launches += 1
+    return da_c, h_c, db1
+
+
+gemm_dh_stash.launches = 0

@@ -20,18 +20,19 @@ Stash forward and backward (kernels 6 and 7, ``stash=True``, the ViT-L
 default): replace ``_pallas_fwd_stash`` and ``_pallas_bwd_stash``. Kernel 6
 is K1's launches with an fc1 epilogue that also stores the pre-activation
 ``a`` (B·N, F) in bf16 (``csrc/mlp_block.cu`` entry
-``sky_mlp_block_fwd_stash``); kernel 7 is kernel 8 without the fc1 GEMM,
-its dh epilogue reading the bf16 ``a`` (``csrc/mlp_block_bwd.cu`` entry
-``sky_mlp_block_bwd_stash``). :class:`MlpBlockStashFn` pairs them.
+``sky_mlp_block_fwd_stash``); kernel 7 is kernel 8 with the dual product
+replaced by the stash dh product, ``dh = g @ W2ᵀ`` with an epilogue that
+reads the tile of the bf16 ``a`` in place of computing it
+(``csrc/mlp_block_bwd.cu`` entry ``sky_mlp_block_bwd_stash``).
+:class:`MlpBlockStashFn` pairs them.
 
 What bounds them on the H100: tensor-core FLOPs (4·M·D·F forward, 10·M·D·F
-backward, 8·M·D·F for kernel 7, at M = B·65 rows), not bytes. K1, kernel 6
-and kernels 8 and 9 run every product on the persistent wgmma + TMA GEMM of
+backward, 8·M·D·F for kernel 7, at M = B·65 rows), not bytes. Every
+kernel here runs every product on the persistent wgmma + TMA GEMM of
 ``csrc/gemm_sm90.cuh`` (the backwards through its K-major-B and
-transposed-A forms); the forwards' fc1 erf-GELU epilogue still runs while
-the tensor cores wait. Kernel 7 keeps the wmma GEMM of ``csrc/gemm.cuh``,
-with a and da through device memory. h, da_c and h_c go through device
-memory in bf16 at the TPU kernel's rounding points.
+transposed-A forms); the fc1 erf-GELU epilogues still run while the tensor
+cores wait. h, da_c and h_c go through device memory in bf16 at the TPU
+kernel's rounding points; no fp32 (B·N, F) array does.
 
 Numerics (kernel and plain versions alike): fp32 LN statistics (eps 1e-6),
 bf16 GEMM operands with fp32 accumulation, exact-erf GELU and GELU' in fp32,
@@ -68,7 +69,6 @@ from sky_embeddings_tpu_torch.ops.kernels import cuda_build
 _INV_SQRT2 = 1.0 / math.sqrt(2.0)
 _INV_SQRT2PI = 1.0 / math.sqrt(2.0 * math.pi)
 ROWS_PER_PARTIAL = 32  # rows per partial column sum, csrc/bwd_common.cuh
-MAX_SPLITS = 8  # K slices of a kernel 7 weight-gradient GEMM at most, csrc/gemm.cuh
 
 
 def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -306,8 +306,8 @@ def _check_g(x, g):
 def _split_ws(lib: str, entry: str, device: int, *dims: int) -> int:
     """fp32 floats of split-K workspace a backward's weight-gradient group
     needs: what the C plan says for this card, through ``entry`` of
-    ``lib`` (``sky_mlp_block_bwd_ws(M, D, F, fs)``: kernel 8 with ``fs =
-    F``, or 9; ``sky_attn_block_bwd_ws(M, D)``: kernels 3 and 4)."""
+    ``lib`` (``sky_mlp_block_bwd_ws(M, D, F, fs)``: kernels 8 and 7 with
+    ``fs = F``, or 9; ``sky_attn_block_bwd_ws(M, D)``: kernels 3 and 4)."""
     fn = getattr(cuda_build.load(lib), entry)
     fn.argtypes = [ctypes.c_int] * len(dims)
     fn.restype = ctypes.c_longlong
@@ -321,8 +321,8 @@ def _split_ws(lib: str, entry: str, device: int, *dims: int) -> int:
 def _launch_bwd(entry, x, scale, bias, w1, b1, w2, a, g, fs=None):
     """Kernel 8 (``a`` None: fc1 recomputed from ``b1``), kernel 7 (the bf16
     stash ``a``) or, with a slab width ``fs``, kernel 9 on CUDA tensors;
-    allocates the scratch (its (B·N, ·) buffers one slab wide; kernel 7's
-    fp32 da too) and the outputs."""
+    allocates the scratch (its (B·N, ·) buffers one slab wide) and the
+    outputs."""
     B, N, D = x.shape
     F = w1.shape[1]
     M = B * N
@@ -336,14 +336,10 @@ def _launch_bwd(entry, x, scale, bias, w1, b1, w2, a, g, fs=None):
     dx = torch.empty_like(x)
     dscale, dbias, db2 = (torch.empty(D, **f32) for _ in range(3))
     dw1, db1, dw2 = torch.empty((D, F), **bf), torch.empty(F, **f32), torch.empty((F, D), **bf)
-    if a is None:
-        ws = torch.empty(max(_split_ws("mlp_block_bwd", "sky_mlp_block_bwd_ws", x.device.index,
-                                       M, D, F, w), 4), **f32)
-        scratch = (x, scale, bias, w1, b1, w2, g, y, da_c, h_c, dy, part, ws)
-    else:
-        ws = torch.empty(MAX_SPLITS * D * F, **f32)
-        da = torch.empty((M, F), **f32)
-        scratch = (x, scale, bias, w1, w2, a, g, y, da, da_c, h_c, dy, part, ws)
+    ws = torch.empty(max(_split_ws("mlp_block_bwd", "sky_mlp_block_bwd_ws", x.device.index,
+                                   M, D, F, w), 4), **f32)
+    inputs = (x, scale, bias, w1, b1, w2) if a is None else (x, scale, bias, w1, w2, a)
+    scratch = (*inputs, g, y, da_c, h_c, dy, part, ws)
     ptrs = [t.data_ptr() for t in (*scratch, dx, dscale, dbias, dw1, db1, dw2, db2)]
     ints = (M, D, F) if fs is None else (M, D, F, fs)
     with torch.cuda.device(x.device):

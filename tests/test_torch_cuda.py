@@ -44,10 +44,12 @@ fed by TMA) is held alone, through its test entry, to an fp32 product of
 the same bf16 operands at every epilogue and at ragged and model shapes,
 twice bit-equal; its tile rule as the C source computes it equals the
 Python copy; K1 and K2 (and kernel 6 bit-equal to K1) match their plain
-versions at every shipped width, and their launches run that GEMM and no
-wmma GEMM (the profiler's kernel names). So do kernels 3 and 4 (masked
-too), whose backward core writes bf16 dqkv and dbqkv's per-sample column
-sums: no fp32 dqkv reaches their device memory.
+versions at every shipped width, and their launches run that GEMM (the
+profiler's kernel names). So do kernels 3 and 4 (masked too), whose
+backward core writes bf16 dqkv and dbqkv's per-sample column sums (no fp32
+dqkv reaches their device memory), and kernels 8, 7 and 9, whose
+products run on its dual, stash dh and group kernels (no fp32 (B·N, F)
+array in kernel 7's memory).
 
 Every test is marked ``cuda`` and skips where there is no card. This file
 imports neither JAX nor the JAX package, so it runs on a host without them:
@@ -75,7 +77,7 @@ TOL_FWD = 2e-2
 TOL_BWD = 3e-2
 TOL_SCORE_F32 = 5e-3
 # (9, 65, 128, 2): 585 token rows split the weight-gradient GEMMs into K
-# slices with a ragged last one (launch_weight_grad, csrc/gemm.cuh)
+# slices with a ragged last one (csrc/gemm_sm90.cuh's group plan)
 # hd = 80 (ViT-H: (3, 66, 1280, 16); N = 256 shrinks kernel 3's query
 # blocks to 32), hd = 128 at N = 256 (the forward's blocks to 32, kernel
 # 4's to 16) and hd = 512 (maesimple's decoder: 16-row blocks, 32-column
@@ -1190,8 +1192,9 @@ def test_forward_blocks_match_plain_at_every_shipped_width(dev, B, N, D, H, F):
 
 def test_forward_blocks_launch_only_the_sm90_gemm(dev):
     """K1, K2, kernels 2 and 6 and K2 masked run their products on
-    ``gemm_sm90_kernel``; no launch of theirs reaches the wmma GEMM of
-    gemm.cuh (the profiler's kernel names)."""
+    ``gemm_sm90_kernel``, and no launch of theirs is a wmma GEMM
+    (``gemm_bf16``, which the port no longer has; the profiler's kernel
+    names)."""
     from torch.profiler import ProfilerActivity, profile
 
     margs = _block_args(dev, 4, 68, 768, (768, 3072), (3072, 768), seed=3)
@@ -1206,10 +1209,10 @@ def test_forward_blocks_launch_only_the_sm90_gemm(dev):
         torch.cuda.synchronize()
     names = [e.key for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
     assert sum("gemm_sm90_kernel" in n for n in names) >= 4, names
-    assert not any("gemm_bf16_kernel" in n for n in names), names
+    assert not any("gemm_bf16" in n for n in names), names
 
 
-# -- the backward forms of csrc/gemm_sm90.cuh (kernels 8 and 9) --------------------
+# -- the backward forms of csrc/gemm_sm90.cuh (kernels 8, 7 and 9) -----------------
 
 # fp32 outputs against the fp32 product of the same bf16 operands: the sums
 # run in another order (K up to 17 408 terms), nothing is rounded to bf16
@@ -1309,6 +1312,28 @@ def test_sm90_dual_product_matches_plain(dev, M, N, K):
     assert all(torch.equal(a_, b_) for a_, b_ in zip(got, again))
 
 
+@pytest.mark.parametrize("D", (64, 768, 1280))
+@pytest.mark.parametrize("F", (8, 136, 3072))
+@pytest.mark.parametrize("M", (1, 63, 65, 4160))
+def test_sm90_dh_stash_matches_plain(dev, M, F, D):
+    """dh = g @ W2ᵀ with the epilogue that reads the bf16 stash a: da_c,
+    h_c and db1 against the plain version, at ragged rows, N past a whole
+    box and model widths; twice bit-equal."""
+    gen = torch.Generator(device=dev).manual_seed(M + F + D)
+    bf = torch.bfloat16
+    g = (0.1 * torch.randn(M, D, generator=gen, device=dev)).to(bf)
+    w2 = (torch.randn(F, D, generator=gen, device=dev) * F ** -0.5).to(bf)
+    a = torch.randn(M, F, generator=gen, device=dev).to(bf)
+    got = tg.gemm_dh_stash(g, w2, a)
+    want = tg.gemm_dh_stash_plain(g, w2, a)
+    for name, a_, b_ in zip(("da_c", "h_c", "db1"), got, want):
+        assert a_.shape == b_.shape and a_.dtype == b_.dtype, name
+        assert _max_rel(a_, b_) <= TOL_BWD, name
+    again = tg.gemm_dh_stash(g, w2, a)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a_, b_) for a_, b_ in zip(got, again))
+
+
 def test_sm90_backward_entries_refuse_and_count(dev):
     a = torch.zeros(64, 32, device=dev, dtype=torch.bfloat16)
     b = torch.zeros(16, 32, device=dev, dtype=torch.bfloat16)
@@ -1326,6 +1351,15 @@ def test_sm90_backward_entries_refuse_and_count(dev):
     assert tg.gemm_bwd.launches == before + 1
     with pytest.raises(ValueError, match="w2"):
         tg.gemm_dual(a, b.t().contiguous(), torch.zeros(16, device=dev), a, b[:, :8].contiguous())
+    before = tg.gemm_dh_stash.launches
+    hid = torch.zeros(64, 16, device=dev, dtype=torch.bfloat16)
+    assert [t.shape for t in tg.gemm_dh_stash(a, b, hid)] == [(64, 16), (64, 16), (16,)]
+    assert tg.gemm_dh_stash.launches == before + 1
+    with pytest.raises(ValueError, match="a:"):
+        tg.gemm_dh_stash(a, b, hid.float())
+    with pytest.raises(ValueError, match="multiples of 8"):
+        tg.gemm_dh_stash(a[:, :20].contiguous(), b[:, :20].contiguous(), hid)
+    assert tg.gemm_dh_stash.launches == before + 1
     before = tg.mlp_weight_grads.launches
     hid = torch.zeros(64, 16, device=dev, dtype=torch.bfloat16)
     dw1, dw2 = tg.mlp_weight_grads(a, hid, hid, a)
@@ -1368,25 +1402,37 @@ def test_sm90_backward_plan_equals_its_python_copy(dev, sms):
 
 @pytest.mark.parametrize("B,N,D,F,fs", [(3, 17, 64, 256, None), (9, 65, 128, 512, None),
                                         (2, 65, 768, 3072, None), (3, 33, 1280, 5120, 1280),
-                                        (7, 65, 128, 512, 128)])
+                                        (7, 65, 128, 512, 128), (3, 17, 64, 256, "stash"),
+                                        (9, 65, 128, 512, "stash"), (2, 65, 768, 3072, "stash"),
+                                        (5, 66, 1024, 4096, "stash")])
 def test_mlp_backwards_give_the_same_bits_twice(dev, B, N, D, F, fs, monkeypatch):
-    """Kernel 8 (``fs`` None) and kernel 9: every output bit-equal run to
-    run (no atomics; the split slices, the dual product's column sums and
-    the slabs' dy added in a fixed order)."""
-    if fs is not None:
-        monkeypatch.setattr(tmb, "_stream_slab", lambda D_, F_, **kw: fs)
+    """Kernel 8 (``fs`` None), kernel 9 (a slab width) and kernel 7
+    (``"stash"``, from the plain stash forward's a): every output bit-equal
+    run to run (no atomics; the split slices, the dual and stash dh
+    products' column sums and the slabs' dy added in a fixed order)."""
     args = _stream_case(dev, B, N, D, F, seed=50)
-    fn = tmb.mlp_block_bwd if fs is None else tmb.mlp_block_bwd_stream
+    if fs == "stash":
+        x, scale, bias, w1, b1, w2, g = args
+        a = tmb.mlp_block_fwd_stash_plain(x, scale, bias, w1, b1, w2, torch.zeros_like(scale))[1]
+        args, fn = (x, scale, bias, w1, w2, a, g), tmb.mlp_block_bwd_stash
+    elif fs is not None:
+        monkeypatch.setattr(tmb, "_stream_slab", lambda D_, F_, **kw: fs)
+        fn = tmb.mlp_block_bwd_stream
+    else:
+        fn = tmb.mlp_block_bwd
     first, second = fn(*args), fn(*args)
     torch.cuda.synchronize()
     for name, a, b in zip(_MLP_GRADS, first, second):
         assert torch.equal(a, b), name
 
 
-def test_mlp_backwards_launch_the_sm90_gemm_and_kernel_7_the_wmma_one(dev, monkeypatch):
-    """Kernels 8 and 9 run every product on gemm_sm90.cuh (the dual and
-    group kernels) and launch no ``gemm_bf16_kernel``; kernel 7 still does
-    (the profiler's kernel names)."""
+def test_mlp_backwards_launch_only_the_sm90_gemm(dev, monkeypatch):
+    """Kernels 8, 9 and 7 run every product on gemm_sm90.cuh: 8 and 9 on its
+    dual and group kernels, 7 on its stash dh and group kernels, with no
+    fp32 column-sum pass; no launch of theirs is a wmma GEMM (``gemm_bf16``;
+    the profiler's kernel names). Kernel 7 allocates no fp32 (B·N, F) da
+    and no MAX_SPLITS·D·F workspace: its device memory stays under the
+    scratch and outputs it needs without them (the allocator's peak)."""
     from torch.profiler import ProfilerActivity, profile
 
     def names(fn):
@@ -1396,30 +1442,47 @@ def test_mlp_backwards_launch_the_sm90_gemm_and_kernel_7_the_wmma_one(dev, monke
             torch.cuda.synchronize()
         return [e.key for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
 
-    args = _stream_case(dev, 4, 65, 768, 3072, seed=51)
+    B, N, D, F = 4, 65, 768, 3072
+    args = _stream_case(dev, B, N, D, F, seed=51)
     k8 = names(lambda: tmb.mlp_block_bwd(*args))
-    monkeypatch.setattr(tmb, "_stream_slab", lambda D_, F_, **kw: 768)
-    k9 = names(lambda: tmb.mlp_block_bwd_stream(*args))
-    for got in (k8, k9):
-        assert any("gemm_dual_kernel" in n for n in got), got
-        assert any("gemm_bwd_kernel" in n for n in got), got
-        assert not any("gemm_bf16_kernel" in n for n in got), got
     x, scale, bias, w1, b1, w2, g = args
     _, a = tmb.mlp_block_fwd_stash_plain(x, scale, bias, w1, b1, w2, torch.zeros_like(scale))
-    k7 = names(lambda: tmb.mlp_block_bwd_stash(x, scale, bias, w1, w2, a, g))
-    assert any("gemm_bf16_kernel" in n for n in k7), k7
-    assert not any("gemm_dual_kernel" in n or "gemm_bwd_kernel" in n for n in k7), k7
+    k7_call = lambda: tmb.mlp_block_bwd_stash(x, scale, bias, w1, w2, a, g)
+    k7_call()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    k7 = names(k7_call)
+    peak = torch.cuda.max_memory_allocated() - base
+    monkeypatch.setattr(tmb, "_stream_slab", lambda D_, F_, **kw: 768)
+    k9 = names(lambda: tmb.mlp_block_bwd_stream(*args))
+    for name, got in (("kernel 8", k8), ("kernel 9", k9), ("kernel 7", k7)):
+        assert any(("gemm_dh_stash_kernel" if name == "kernel 7" else "gemm_dual_kernel") in n
+                   for n in got), (name, got)
+        assert any("gemm_bwd_kernel" in n for n in got), (name, got)
+        assert not any("gemm_bf16" in n for n in got), (name, got)
+        assert not any("colsum_partial_kernel<float>" in n for n in got), (name, got)
+    assert not any("gemm_dual_kernel" in n for n in k7), k7
+    M = B * N
+    parts = -(-M // tmb.ROWS_PER_PARTIAL)
+    # y, dx bf16; da_c, h_c bf16; dy fp32; the partials; the split
+    # workspace; the weight gradients bf16, the vectors fp32
+    need = (2 * M * D * 2 + 2 * M * F * 2 + M * D * 4 + parts * (F + 3 * D) * 4
+            + max(tmb._split_ws("mlp_block_bwd", "sky_mlp_block_bwd_ws", dev.index or 0,
+                                M, D, F, F), 4) * 4
+            + 2 * D * F * 2 + (3 * D + F) * 4)
+    assert peak <= need + (1 << 16) < need + M * F * 4, (peak, need)
 
 
 @pytest.mark.parametrize("B,N,D,H", [(4, 65, 768, 12), (3, 66, 1280, 16), (2, 129, 128, 2)])
 def test_attention_backwards_launch_only_the_sm90_gemm(dev, B, N, D, H):
     """Kernels 3 and 4 (masked too) run every product on gemm_sm90.cuh:
     kernel 4's qkv recompute on ``gemm_sm90_kernel``, dctx, dy and the
-    weight-gradient group on ``gemm_bwd_kernel``; no launch of theirs
-    reaches the wmma GEMM (``gemm_bf16_kernel``, whose last caller is kernel
-    7) or an fp32 column-sum pass, and no fp32 (B·N, 3D) dqkv is allocated:
-    their device memory stays under the scratch and outputs they need
-    without it (the profiler's kernel names, the allocator's peak)."""
+    weight-gradient group on ``gemm_bwd_kernel``; no launch of theirs is
+    a wmma GEMM (``gemm_bf16``) or an fp32 column-sum pass, and no fp32
+    (B·N, 3D) dqkv is allocated: their device memory stays under the
+    scratch and outputs they need without it (the profiler's kernel names,
+    the allocator's peak)."""
     from torch.profiler import ProfilerActivity, profile
 
     args = _block_args(dev, B, N, D, (D, 3 * D), (D, D), seed=60)
@@ -1451,6 +1514,6 @@ def test_attention_backwards_launch_only_the_sm90_gemm(dev, B, N, D, H):
         names = [e.key for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
         assert sum("gemm_bwd_kernel" in n for n in names) >= 2, (name, names)
         assert any("gemm_sm90_kernel" in n for n in names) == (name != "kernel 3"), (name, names)
-        assert not any("gemm_bf16_kernel" in n for n in names), (name, names)
+        assert not any("gemm_bf16" in n for n in names), (name, names)
         assert not any("colsum_partial_kernel<float>" in n for n in names), (name, names)
 

@@ -7,7 +7,10 @@ that any tile width gives; at ``mim_1`` B=64 it takes the widths the
 design names (132 tiles, one wave, for fc2 and proj; 396, three waves, for
 fc1 and qkv). A card test (``tests/test_torch_cuda.py``) holds this copy to
 the rule the C source computes. The plain version of the GEMM's four
-epilogues is held to numpy here.
+epilogues is held to numpy here, as are the backward products' (the dual
+and the stash dh products, ``gemm_bwd``); kernels 8 and 7's plain versions
+equal their products' composed, and the stash dh product's plan fits at
+every shipped stash config.
 """
 
 import math
@@ -350,6 +353,94 @@ def test_mlp_backward_plain_is_the_dual_and_group_products():
     for got, want in zip(G.mlp_weight_grads(y, da_c, h_c, g2), (dw1, dw2)):
         torch.testing.assert_close(got, want, rtol=0, atol=0)
     torch.testing.assert_close(db1_d, db1, rtol=1e-6, atol=1e-7)
+
+
+def _stash_config_shapes():
+    """(M, F) of the stash dh product at every shipped config that builds
+    the MLP stash (ViT-L: ``stash_mlp`` on by default), at one image, the
+    config's batch and 1024."""
+    out = []
+    for name in MIM_CONFIGS:
+        arch, training = (load_config(name, str(CONFIGS))[k] for k in ("ARCHITECTURE", "TRAINING"))
+        size = MODEL_TYPES[arch.str("model_type")][0]
+        if not arch.bool("stash_mlp", size == "large"):
+            continue
+        grid = arch.int("img_size") // arch.int("patch_size")
+        n_tok = grid * grid + 1 + int(arch.bool("ra_dec", False))
+        out += [(B * n_tok, 4 * arch.int("embed_dim")) for B in (1, training.int("batch_size"), 1024)]
+    return out
+
+
+STASH_SHAPES = _stash_config_shapes()
+
+
+@pytest.mark.parametrize("M,N", STASH_SHAPES + [(1, 8), (63, 136), (4161, 5120), (66560, 2048)])
+def test_dh_stash_plan_fits(M, N):
+    """The stash dh product's plan (``StashCfg``) at every shipped stash
+    config and at ragged shapes: its tiles cover (M, N), its ring holds at
+    least three slots and one more would not fit a block's shared memory."""
+    assert len(STASH_SHAPES) >= 6  # mim_25_large, mim_32, mim_tiny_large
+    plan = G.dh_stash_plan(M, N)
+    stage = G.BM * G.BK * 2 + G.STASH_BN * G.BK * 2
+    assert plan["tiles"] == math.ceil(M / 128) * math.ceil(N / G.STASH_BN)
+    assert plan["stages"] >= 3
+    assert plan["smem"] <= G.SMEM_OPTIN_MAX < plan["smem"] + stage
+
+
+def test_gemm_dh_stash_plain_matches_numpy():
+    """The stash dh product's plain version, against float64 numpy of
+    ``_bwd_stash_kernel``'s lines (mlp_block.py:392-397, :419): dh = g @ W2ᵀ,
+    GELU and GELU' of the bf16 stash a upcast, da_c and h_c rounded once to
+    bf16, db1 the column sums of da; ragged M, N a multiple of 8."""
+    from scipy.special import erf
+
+    rng = np.random.default_rng(4)
+    M, N, K = 37, 72, 48
+    g, a = _bf(rng, M, K, scale=0.1), _bf(rng, M, N)
+    w2 = _bf(rng, N, K, scale=N ** -0.5)
+    before = G.gemm_dh_stash.launches
+    da_c, h_c, db1 = G.gemm_dh_stash(g, w2, a)
+    assert G.gemm_dh_stash.launches == before  # CPU tensors launch nothing
+    f = lambda t: t.float().numpy().astype(np.float64)
+    a64 = f(a)
+    grad = 0.5 * (1 + erf(a64 / np.sqrt(2))) + a64 * np.exp(-0.5 * a64 * a64) / np.sqrt(2 * np.pi)
+    da = (f(g) @ f(w2).T) * grad
+    np.testing.assert_allclose(f(da_c), da, rtol=2 ** -8, atol=1e-6)
+    np.testing.assert_allclose(f(h_c), 0.5 * a64 * (1 + erf(a64 / np.sqrt(2))), rtol=2 ** -8,
+                               atol=1e-6)
+    np.testing.assert_allclose(db1.numpy(), da.sum(0), rtol=1e-4, atol=1e-6)
+    assert da_c.shape == h_c.shape == (M, N) and db1.shape == (N,)
+    assert da_c.dtype == h_c.dtype == torch.bfloat16 and db1.dtype == torch.float32
+
+
+def test_mlp_stash_backward_plain_is_the_dh_stash_and_group_products():
+    """Kernel 7's plain version (held to JAX in ``test_torch_kernels.py``)
+    equals its decomposition into the products' plain versions, as the
+    kernel launches them: the stash dh product, dy = da_c @ W1ᵀ (``"nt"``,
+    fp32), the weight-gradient group (``mlp_weight_grads``), then the LN
+    backward from dy and the column sums, on y = LN(x)."""
+    from sky_embeddings_tpu_torch.ops.kernels import mlp_block as M_
+
+    rng = np.random.default_rng(5)
+    B, N, D, F = 3, 17, 48, 192
+    x, g = _bf(rng, B, N, D, scale=0.5), _bf(rng, B, N, D, scale=0.1)
+    scale = torch.from_numpy(1 + 0.1 * rng.normal(size=D).astype(np.float32))
+    bias = torch.from_numpy(0.1 * rng.normal(size=D).astype(np.float32))
+    w1, w2 = _bf(rng, D, F, scale=D ** -0.5), _bf(rng, F, D, scale=F ** -0.5)
+    b1 = torch.from_numpy(0.01 * rng.normal(size=F).astype(np.float32))
+    _, a = M_.mlp_block_fwd_stash_plain(x, scale, bias, w1, b1, w2, torch.zeros(D))
+    want = M_.mlp_block_bwd_stash_plain(x, scale, bias, w1, w2, a, g)
+    x2, g2 = x.reshape(-1, D), g.reshape(-1, D)
+    y, xhat, rstd = M_._ln_forward(x2.float(), scale, bias)
+    y = y.to(torch.bfloat16)
+    da_c, h_c, db1 = G.gemm_dh_stash(g2, w2, a)
+    dy = G.gemm_bwd(da_c, w1, "nt", "store_f32")
+    dw1, dw2 = G.mlp_weight_grads(y, da_c, h_c, g2)
+    dx, dscale, dbias = M_._ln_backward(g2.float(), dy, xhat, rstd, scale)
+    got = (dx.to(x.dtype).reshape(x.shape), dscale, dbias, dw1, db1, dw2, g2.float().sum(0))
+    for name, a_, b_ in zip(("dx", "dscale", "dbias", "dw1", "db1", "dw2", "db2"), got, want):
+        assert a_.shape == b_.shape and a_.dtype == b_.dtype, name
+        torch.testing.assert_close(a_, b_, rtol=0, atol=0, msg=name)
 
 
 def test_gemm_bwd_plain_refuses_unknown_forms_and_epilogues():

@@ -86,7 +86,7 @@ __device__ __forceinline__ float gelu_as(float v) {
   return 0.5f * v * (1.0f + copysignf(y, x));
 }
 
-template <int BN>
+template <int BN, int TA = 0, int TB = 1>
 __device__ __forceinline__ void wgmma_tile('''
 
 VARIANTS = {
@@ -108,7 +108,8 @@ VARIANTS = {
     "as_erf": [
         ("          v0 = gelu_erf(v0);\n          v1 = gelu_erf(v1);",
          "          v0 = gelu_as(v0);\n          v1 = gelu_as(v1);"),
-        ("\ntemplate <int BN>\n__device__ __forceinline__ void wgmma_tile(", AS_ERF_GELU),
+        ("\ntemplate <int BN, int TA = 0, int TB = 1>\n__device__ __forceinline__ void wgmma_tile(",
+         AS_ERF_GELU),
     ],
 }
 
