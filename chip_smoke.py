@@ -38,13 +38,16 @@ failing loudly (any failure exits non-zero and prints no result line):
    heads of 32; B=1024) and N=256 at hd=64, and in fp32 at ViT-B B=64 and
    ViT-H B=32 (bar TOL_CORE_F32); kernel 12's bf16 context bit-equal to the
    one K2's core computes from the same qkv; kernel 13 twice on the same
-   inputs bit-equal; each timed in bf16 at ViT-B B=1024 and ViT-H B=256
-   and in fp32 at ViT-B B=64 and ViT-H B=32 beside
-   ``F.scaled_dot_product_attention`` on the same (B, H, N, hd) views
-   (fp32 with TF32 off), forward and forward + backward (the library
-   column, measured here and used nowhere in the port; beside kernel 13
-   also SDPA's backward alone), each record with
-   its share of the bound and the bytes it must move per ms; the forward
+   inputs bit-equal (bf16 at ViT-B B=1024, fp32 at both fp32 shapes); each
+   timed in bf16 at ViT-B B=1024 and ViT-H B=256 and in fp32 at ViT-B B=64
+   and ViT-H B=32 beside ``F.scaled_dot_product_attention`` on the same
+   (B, H, N, hd) views (fp32 with TF32 off), forward and forward +
+   backward (the library column, measured here and used nowhere in the
+   port; beside kernel 13 also SDPA's backward alone), by CUDA events and
+   by the profiler's device time, each record with its share of the bound
+   (fp32: the faster of the CUDA cores' FMAs and 3xTF32 on the tensor
+   cores, PEAK_FP32_PRODUCTS) and the bytes it must move per ms; fp32
+   SDPA's gap to the plain versions printed as information; the forward
    GEMM of K1 and K2 (``csrc/gemm_sm90.cuh``, wgmma fed by TMA) alone at
    the four products (qkv, proj, fc1, fc2 with their epilogues) at B=64 and
    B=1024, held to its plain version and timed beside ``torch.addmm`` on
@@ -132,10 +135,11 @@ failing loudly (any failure exits non-zero and prints no result line):
    (ViT-H also at B=256, ``bench_vit_h``'s batch; MAE at 1024), device busy
    share and peak memory;
 5b. the ``Attention`` module (``models/layers.Attention``, the only caller of
-   kernels 12 and 13, as in JAX) at ViT-B width, bf16, B=64: one forward and
-   ``backward()`` through autograd with the counters zeroed just before,
-   kernels 12 and 13 at one launch each and nothing else; its gradients
-   against the plain path's;
+   kernels 12 and 13, as in JAX) at ViT-B width, B=64, in bf16 and at its
+   default fp32: one forward and ``backward()`` through autograd with the
+   counters zeroed just before, kernels 12 and 13 at one launch each and
+   nothing else; its gradients against the plain path's (bf16 at TOL_BWD,
+   fp32 at TOL_ATTN_F32);
 6. times with CUDA events after warm-up: per kernel at its path's shapes,
    the encoder (with its device busy share), queries; torch.profiler
    device breakdowns.
@@ -157,10 +161,15 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-# H100 SXM data sheet (dense): bf16 tensor-core, fp32 non-tensor, HBM3
+# H100 SXM data sheet (dense): bf16 tensor-core, fp32 non-tensor, TF32
+# tensor-core, HBM3
 PEAK_BF16 = 989e12
 PEAK_FP32 = 67e12
+PEAK_TF32 = 495e12
 PEAK_BYTES = 3.35e12
+# the fastest way the card does an fp32 product: FMAs at PEAK_FP32 or three
+# TF32 products per fp32 one (3xTF32, as fp32 SDPA runs) at PEAK_TF32
+PEAK_FP32_PRODUCTS = max(PEAK_FP32, PEAK_TF32 / 3)
 
 TOL_FWD = 2e-2          # tools/kernel_parity.py
 TOL_BWD = 3e-2
@@ -208,9 +217,17 @@ TOL_GRAD_M, TOL_LOSS_M = 4.5e-3, 5e-5
 # 4.4e-5. The bars are about twice those.
 TOL_GRAD_P, TOL_LOSS_P = 6e-2, 1e-4
 # kernels 12 and 13 in fp32 against their plain versions (TF32 off).
-# Measured on the H100 (PERF.md): the forward bit-equal, the backward
-# 2.1e-7 at worst (its sums run in another order); the bar is about twice.
+# Measured on the H100 (PERF.md): the forward bit-equal (the same fp32 FMA
+# chains, expf and e / sum), the backward 1.87e-7 at ViT-B B=64 and 1.47e-7
+# at ViT-H B=32 (dS's row sums run in another order); fp32 SDPA (3xTF32)
+# lies 1.07e-6 to 1.57e-6 from the plain versions on the same inputs, over
+# the bar, which stays as first set.
 TOL_CORE_F32 = 5e-7
+# the Attention module in fp32 at ViT-B, B=64 (kernels 12 and 13 between
+# fp32 Linears), gradients against the plain path's. Measured on the H100
+# (PERF.md): 1.80e-7 at worst (x; qkv.kernel 3.8e-8, proj's bit-equal:
+# kernel 12 is). The bar is about twice.
+TOL_ATTN_F32 = 4e-7
 
 CONFIG = "mim_1"
 DEVICE = "cuda"
@@ -1042,20 +1059,23 @@ def main() -> int:
 
     def core_record(name, tag, kern, plain, err, work, lib, lib_name, dt):
         """One timing record of kernel 12 or 13 beside its plain version and
-        SDPA (``lib``), with its share of the bound and the bytes it must
-        move per ms of its time."""
+        SDPA (``lib``), CUDA events and profiler device time, with its share
+        of the bound and the bytes it must move per ms of its time. The fp32
+        bound takes the faster of the card's two ways to an fp32 product
+        (PEAK_FP32_PRODUCTS)."""
         iters = 20
         flops, nbytes = work
-        b_ms, b_by = bound_ms(flops, nbytes, PEAK_BF16 if dt == torch.bfloat16 else PEAK_FP32)
+        b_ms, b_by = bound_ms(flops, nbytes, PEAK_BF16 if dt == torch.bfloat16 else PEAK_FP32_PRODUCTS)
         k_ms = cuda_ms(kern, iters)
         timings[(name, tag)] = {
             "max_rel_err": err[0], "max_abs_err": err[1],
-            "ms": k_ms, "plain_ms": cuda_ms(plain, 5),
+            "ms": k_ms, "device_ms": device_ms(kern, iters), "plain_ms": cuda_ms(plain, 5),
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": cuda_ms(lib, iters),
+            "library_device_ms": device_ms(lib, iters),
             "library": lib_name, "bound_share": b_ms / k_ms, "bytes_per_ms": nbytes / k_ms,
         }
 
-    core_gap, same_bwd = {}, None
+    core_gap, same_bwd, same_bwd_f32, sdpa_gap = {}, None, {}, {}
     for label, B, n, d, h, dt_name in CORE_CASES:
         dt = getattr(torch, dt_name)
         qkv = torch.randn(B, n, 3 * d, generator=gen, device=dev).to(dt)
@@ -1094,8 +1114,19 @@ def main() -> int:
                         sdpa_fwd_bwd, lib + " forward + backward", dt)
             # SDPA's backward alone, from one forward's saved tensors
             out_s = torch.nn.functional.scaled_dot_product_attention(qg, kg, vg)
-            timings[("attention_bwd" + sfx, f"{label}{B}")]["library_bwd_ms"] = cuda_ms(
-                lambda: torch.autograd.grad(out_s, (qg, kg, vg), g4, retain_graph=True), 20)
+            sdpa_bwd = lambda: torch.autograd.grad(out_s, (qg, kg, vg), g4, retain_graph=True)
+            rec = timings[("attention_bwd" + sfx, f"{label}{B}")]
+            rec["library_bwd_ms"], rec["library_bwd_device_ms"] = cuda_ms(sdpa_bwd, 20), device_ms(sdpa_bwd, 20)
+            if timed_f32:  # information, no check: what 3xTF32 gives at these shapes
+                grads_s = torch.stack(sdpa_bwd(), 2).permute(0, 3, 2, 1, 4).reshape(B, n, 3 * d)
+                sdpa_gap[tag] = {
+                    "fwd_max_rel": rel_err(out_s.detach().transpose(1, 2).reshape(B, n, d),
+                                           attention_plain(qkv, h))[0],
+                    "bwd_max_rel": rel_err(grads_s, attention_bwd_plain(qkv, dctx, h))[0]}
+                print(f"SDPA fp32 (3xTF32) against the plain versions, {tag}: max-rel "
+                      f"{sdpa_gap[tag]['fwd_max_rel']:.3e} / {sdpa_gap[tag]['bwd_max_rel']:.3e} "
+                      f"(information; kernels 12 / 13 {rf:.3e} / {rb:.3e})", flush=True)
+                del grads_s
             del q4, k4, v4, qg, kg, vg, g4, out_s
         if timed and B == CORE_TIMED[0][1]:
             # kernel 13 twice on the same inputs gives the same bits (no atomics,
@@ -1103,6 +1134,12 @@ def main() -> int:
             same_bwd = bool(torch.equal(fused_attention_bwd(qkv, dctx, h), fused_attention_bwd(qkv, dctx, h)))
             print(f"kernel 13 twice on the same inputs ({tag}): bit-equal {same_bwd}", flush=True)
             check(same_bwd, "kernel 13 deterministic")
+        if dt == torch.float32:
+            same_bwd_f32[tag] = bool(torch.equal(fused_attention_bwd(qkv, dctx, h),
+                                                 fused_attention_bwd(qkv, dctx, h)))
+            print(f"kernel 13 fp32 twice on the same inputs ({tag}): bit-equal {same_bwd_f32[tag]}",
+                  flush=True)
+            check(same_bwd_f32[tag], f"kernel 13 fp32 deterministic ({tag})")
         del qkv, dctx
     # kernel 12 in bf16 is K2's core launched alone: on the qkv kernel 2 hands
     # back, its context equals the one K2's core computed, bit for bit
@@ -1824,36 +1861,43 @@ def main() -> int:
           f"the configs train at full width and depth: {shapes}")
 
     # ---- 5b. the Attention module ---------------------------------------------
-    attn_mod = Attention(D, H, torch.bfloat16)
-    for lin in (attn_mod.qkv, attn_mod.proj):
-        lin.reset_parameters(torch.Generator().manual_seed(5))
-    attn_mod.to(dev)
-    xa = (torch.randn(64, N_TOK, D, generator=gen, device=dev) * 0.5).to(torch.bfloat16)
-    ga = (torch.randn(64, N_TOK, D, generator=gen, device=dev) * 0.1).to(torch.bfloat16)
+    # at ViT-B width and B=64, in bf16 and at its default fp32 (the path of
+    # the fp32 configs): one forward and backward() through autograd with the
+    # counters zeroed just before, then the same through the plain versions
+    attention_module, attn_launches_by_dtype = {}, {}
+    for dt_name, bar in (("bfloat16", TOL_BWD), ("float32", TOL_ATTN_F32)):
+        dt = getattr(torch, dt_name)
+        attn_mod = Attention(D, H, dt)
+        for lin in (attn_mod.qkv, attn_mod.proj):
+            lin.reset_parameters(torch.Generator().manual_seed(5))
+        attn_mod.to(dev)
+        xa = (torch.randn(64, N_TOK, D, generator=gen, device=dev) * 0.5).to(dt)
+        ga = (torch.randn(64, N_TOK, D, generator=gen, device=dev) * 0.1).to(dt)
 
-    def attention_module_grads(plain):
-        attn_mod.plain = plain
-        attn_mod.zero_grad(set_to_none=True)
-        xi = xa.clone().requires_grad_()
-        attn_mod(xi).backward(ga)
-        return {"x": xi.grad, **{n_: p_.grad for n_, p_ in attn_mod.named_parameters()}}
+        def attention_module_grads(plain):
+            attn_mod.plain = plain
+            attn_mod.zero_grad(set_to_none=True)
+            xi = xa.clone().requires_grad_()
+            attn_mod(xi).backward(ga)
+            return {"x": xi.grad, **{n_: p_.grad for n_, p_ in attn_mod.named_parameters()}}
 
-    zero_counters()
-    torch.cuda.synchronize()
-    grads_k = attention_module_grads(False)
-    torch.cuda.synchronize()
-    attn_launches = launch_counts()
-    grads_p = attention_module_grads(True)
-    attn_errs = {k: rel_err(g_, grads_p[k])[0] for k, g_ in grads_k.items()}
-    print(f"Attention module (D={D}, {H} heads, B=64, bf16): forward + backward launches "
-          f"{ {k: v for k, v in attn_launches.items() if v} }; gradients vs plain max-rel "
-          + ", ".join(f"{k} {v:.2e}" for k, v in attn_errs.items()) + f" (bar {TOL_BWD})", flush=True)
-    check(attn_launches == {k: int(k in ("fused_attention", "fused_attention_bwd")) for k in attn_launches},
-          "the Attention module launches kernels 12 and 13 once each and nothing else")
-    check(max(attn_errs.values()) <= TOL_BWD and all(torch.isfinite(g_).all() for g_ in grads_k.values()),
-          "Attention module gradients kernel vs plain")
-    attention_module = {"launches": attn_launches, "grad_max_rel_vs_plain": attn_errs}
-    del attn_mod, xa, ga, grads_k, grads_p
+        zero_counters()
+        torch.cuda.synchronize()
+        grads_k = attention_module_grads(False)
+        torch.cuda.synchronize()
+        attn_launches = launch_counts()
+        grads_p = attention_module_grads(True)
+        attn_errs = {k: rel_err(g_, grads_p[k])[0] for k, g_ in grads_k.items()}
+        print(f"Attention module (D={D}, {H} heads, B=64, {dt_name}): forward + backward launches "
+              f"{ {k: v for k, v in attn_launches.items() if v} }; gradients vs plain max-rel "
+              + ", ".join(f"{k} {v:.2e}" for k, v in attn_errs.items()) + f" (bar {bar})", flush=True)
+        check(attn_launches == {k: int(k in ("fused_attention", "fused_attention_bwd")) for k in attn_launches},
+              f"the Attention module ({dt_name}) launches kernels 12 and 13 once each and nothing else")
+        check(max(attn_errs.values()) <= bar and all(torch.isfinite(g_).all() for g_ in grads_k.values()),
+              f"Attention module ({dt_name}) gradients kernel vs plain")
+        attention_module[dt_name] = {"launches": attn_launches, "grad_max_rel_vs_plain": attn_errs}
+        attn_launches_by_dtype[dt_name] = attn_launches
+        del attn_mod, xa, ga, grads_k, grads_p
     check(paths[MAE[0]]["decoder_layers"] == 8, "bench_mae's decoder is 8 deep")
 
     mark("attention_module")
@@ -1921,15 +1965,24 @@ def main() -> int:
                           "fused_attention", "".join(map(str, CORE_TIMED[0]))),
         "attention_bwd": ("cuda", src + "csrc/attention.cu", jsrc + "attention.py:142",
                           "fused_attention_bwd", "".join(map(str, CORE_TIMED[0]))),
+        # the fp32 kernels behind the same wrappers, timed at ViT-B B=64;
+        # their launches are the fp32 Attention module's
+        "attention_fwd_f32": ("cuda", src + "csrc/attention.cu", jsrc + "attention.py:59",
+                              "fused_attention", "vitb64"),
+        "attention_bwd_f32": ("cuda", src + "csrc/attention.cu", jsrc + "attention.py:142",
+                              "fused_attention_bwd", "vitb64"),
     }
     kernels = []
     for name, (route, source, replaces, counter, shape) in meta.items():
         t = timings[(name, shape)]
-        by_path = {f"serving_{CONFIG}": launches[counter],
-                   f"retrieval_{CONFIG}": retrieval_launches[counter],
-                   **{f"training_{c}": r["launches"][counter] for c, r in paths.items()},
-                   f"training_{MAE[0]}_remat": paths[MAE[0]]["remat_run"]["launches"][counter],
-                   "attention_module": attn_launches[counter]}
+        if name.endswith("_f32"):
+            by_path = {"attention_module_float32": attn_launches_by_dtype["float32"][counter]}
+        else:
+            by_path = {f"serving_{CONFIG}": launches[counter],
+                       f"retrieval_{CONFIG}": retrieval_launches[counter],
+                       **{f"training_{c}": r["launches"][counter] for c, r in paths.items()},
+                       f"training_{MAE[0]}_remat": paths[MAE[0]]["remat_run"]["launches"][counter],
+                       "attention_module": attn_launches_by_dtype["bfloat16"][counter]}
         check(sum(by_path.values()) > 0, f"{name} launched on a main path")
         kernels.append({
             "name": name, "route": route, "source": source, "replaces": replaces,
@@ -1942,7 +1995,8 @@ def main() -> int:
           "kernel9_vs_kernel8_max_rel": {str(b): v for b, v in stream_gap.items()},
           "packed_vs_unpacked_max_rel": {str(b): v for b, v in pack_gap.items()},
           "attention_core_max_rel": core_gap, "kernel12_equals_k2_core": same_core,
-          "kernel13_twice_bit_equal": same_bwd})
+          "kernel13_twice_bit_equal": same_bwd, "kernel13_f32_twice_bit_equal": same_bwd_f32,
+          "sdpa_f32_max_rel_vs_plain": sdpa_gap})
     emit({
         "main_path": {"seconds": t_main, "encoder_calls": encoder_calls, "launches": launches,
                       "tokens_max_rel_vs_plain": tok_rel, "tokens_max_abs_vs_plain": tok_abs,

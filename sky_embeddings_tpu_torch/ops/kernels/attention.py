@@ -5,12 +5,11 @@ Two kernels, both in CUDA C++ (``csrc/attention.cu``):
 
 - Kernel 12, the forward: replaces the TPU kernel ``fused_attention``
   (``_attn_kernel``). bf16 qkv runs K2's attention core
-  (``csrc/attn_core.cuh``) alone; fp32 qkv a CUDA-core kernel that never
-  rounds the probabilities.
+  (``csrc/attn_core.cuh``) alone; fp32 qkv a register-tiled fp32 kernel.
 - Kernel 13, the backward: replaces ``_fused_attention_bwd_call``
   (``_attn_bwd_kernel``). bf16 runs kernel 4's recompute core without its
   ctx product, writing dq, dk and dv straight to bf16 (each rounded once);
-  fp32 a two-pass CUDA-core kernel (by query rows, then by key rows).
+  fp32 the register-tiled kernel's backward, one pass over the head.
 
 :class:`AttentionFn` pairs them (JAX ``fused_attention_ad``: qkv is saved,
 the backward recomputes the probabilities) and :func:`attention_context` is
@@ -23,10 +22,26 @@ they never take the plain path.
 
 What bounds them on the H100: bytes. Kernel 12 reads 3·B·N·D elements and
 writes B·N·D against 4·B·H·N²·hd FLOP (ViT-B: about 33 FLOP per bf16 byte,
-under the card's ~295); kernel 13 moves 7·B·N·D for 10·B·H·N²·hd. The bf16
-cores (``csrc/attn_core.cuh``) keep each head's logits and probabilities in
+under the card's ~295; 8 per fp32 byte, under the CUDA cores' 20);
+kernel 13 moves 7·B·N·D for 10·B·H·N²·hd. The bf16 cores
+(``csrc/attn_core.cuh``) keep each head's logits and probabilities in
 registers (``mma.sync``), kernel 12 keeps the next heads' loads in flight,
 and kernel 13 writes its bf16 output once, with no fp32 scratch.
+
+The fp32 kernels stage a (sample, head)'s Q, K, V (and dC) in shared memory
+with ``cp.async`` and cut each product into 4 × 4 register tiles of fp32
+FMAs, one per thread (``csrc/attention.cu``; :func:`f32_plan` is the Python
+copy of their shared-memory plan). Each output element is one FMA chain in
+the order the plain version's fp32 GEMMs sum on the card (S over the head
+dims, ctx and dQ over the keys, dK and dV over the queries), with P and dS
+in fp32 shared memory, never rounded to a narrower type, and the softmax in
+the order of a warp per row (``expf``, the lanes' sums in an xor
+butterfly, ``e / sum``): the forward equals the plain version bit for bit.
+Three TF32 tensor-core products per fp32 one (the split fp32 SDPA runs)
+land twice the fp32 bar from it, so these kernels stay on the CUDA cores,
+where loads from shared memory bound them. Heads whose whole plan does not
+fit read their operands from device memory in blocks of query rows (and,
+backward, column chunks).
 
 Numerics (kernel and plain versions alike), per (sample, head): S = q·kᵀ
 with fp32 accumulation, P = softmax(S·hd^-0.5) in fp32, P rounded to v's
@@ -40,6 +55,7 @@ dtype once. On the card the plain versions' fp32 products want TF32 off
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import torch
 
@@ -85,6 +101,82 @@ def attention_bwd_plain(qkv: torch.Tensor, dctx: torch.Tensor, num_heads: int) -
     dk = torch.matmul(ds.transpose(-1, -2), q)
     dqkv = torch.stack([dq, dk, dv], dim=2)  # (B, H, 3, N, hd)
     return dqkv.permute(0, 3, 2, 1, 4).reshape(B, N, three_d).to(dt)
+
+
+# csrc/attention.cu's AttnF32Plan: the most threads a CTA takes
+F32_MAX_THREADS = 512
+
+
+@dataclass(frozen=True)
+class F32Plan:
+    """The fp32 kernels' plan at (N, hd): ``staged`` (the whole head in
+    shared memory, one CTA per (sample, head)) or operands from device
+    memory; ``qb`` query rows a block, ``hc`` output columns a CTA (the
+    backward's column chunks), ``threads`` a CTA, shared-memory ``bytes``."""
+
+    staged: bool
+    qb: int
+    hc: int
+    threads: int
+    bytes: int
+
+
+def f32_plan(N: int, hd: int, backward: bool) -> F32Plan:
+    """Python copy of ``AttnF32Plan`` (``csrc/attention.cu``). Tokens pad to
+    NP (a multiple of 4), head dims to HD4, staged rows HP = HD4 + 4 floats
+    apart. Staged (one CTA per (sample, head)): the forward's Q, K, V (NP ×
+    HP each) and S (NP × NP); the backward's Q, K, V, dC, dP (NP × NP) and
+    S in V's place where NP <= HP, else a buffer of its own. Otherwise the
+    forward takes the largest block of query rows whose S (QB × NP) fits,
+    the backward the widest column chunk HC (a multiple of 8), then the
+    largest QB, whose S, dP (QB × NP each) and, with several blocks, dK and
+    dV accumulators (NP × HC each) fit. One thread per 4 × 4 tile of the
+    largest product, 128 to 512."""
+    cap = SMEM_PER_BLOCK // 4
+    NP, HD4 = -(-N // 4) * 4, -(-hd // 4) * 4
+    HP = HD4 + 4
+    sq, rows = NP * NP, NP * HP
+    total = 4 * rows + sq + (sq if NP > HP else 0) if backward else 3 * rows + sq
+    staged, qb, hc = total <= cap, NP, -(-hd // 8) * 8
+
+    def halve(q):  # the next block: 128 (forward) or 64 rows, then halves
+        top = 64 if backward else 128
+        return top if q > top else q // 2 // 4 * 4
+
+    def bwd_floats(q, c):
+        return 2 * q * NP + (2 * NP * c if q < NP else 0)
+
+    if not staged and not backward:
+        while qb > 4 and qb * NP > cap:
+            qb = halve(qb)
+        total = qb * NP
+    elif not staged:
+        fit, widest = bwd_floats(qb, hc) <= cap, hc
+        for i, c in enumerate((widest, 64, 32, 16, 8)):
+            if fit:
+                break
+            if i and c >= widest:
+                continue
+            hc, qb = c, NP
+            while qb >= 4 and not (fit := bwd_floats(qb, hc) <= cap):
+                qb = halve(qb)
+        total = bwd_floats(qb, hc)
+    rg, kg, cg = qb // 4, NP // 4, hc // 4
+    tiles = max(rg * kg, rg * cg, kg * cg if backward else 0)
+    threads = min(max(-(-tiles // 32) * 32, 128), F32_MAX_THREADS)
+    return F32Plan(bool(staged), qb, hc, threads, 4 * total)
+
+
+def _f32_plan_cuda(N: int, hd: int, backward: bool) -> F32Plan:
+    """The fp32 plan as the CUDA source computes it (the card tests hold
+    :func:`f32_plan` to it)."""
+    fn = cuda_build.load("attention").sky_attention_f32_plan
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        fn.restype = None
+    out = (ctypes.c_longlong * 5)()
+    fn(N, hd, int(backward), ctypes.cast(out, ctypes.c_void_p))
+    return F32Plan(bool(out[0]), *(int(v) for v in out[1:]))
 
 
 def _plan_bytes(N: int, hd: int, f32: bool, backward: bool) -> int:

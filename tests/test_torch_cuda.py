@@ -33,11 +33,13 @@ pass, the int8 two-stage scorers' agreement with the exact ranking.
 Kernels 12 and 13 (the standalone attention forward and backward behind
 ``layers.Attention``) are held to their plain versions in bf16 and fp32 at
 ViT-B, ViT-H (heads of 80), the MAE decoder's heads of 32, N = 256 and
-ragged shapes (fp32 also at head dims that are no multiple of 16); kernel
-12's bf16 context equals, bit for bit, the context K2's core computes from
-the same qkv; the wrappers refuse what the kernels do not take; an
-``Attention`` module's ``backward()`` launches each kernel once and matches
-the plain path.
+ragged shapes (fp32 also at head dims that are no multiple of 16, and N =
+256 at hd = 128); kernel 12's bf16 context equals, bit for bit, the context
+K2's core computes from the same qkv; kernel 13 in fp32 gives the same bits
+twice; the fp32 plan as the C source computes it equals its Python copy;
+the wrappers refuse what the kernels do not take; an ``Attention``
+module's ``backward()`` launches each kernel once and matches the plain
+path.
 
 The forward GEMM of K1 and K2 (``csrc/gemm_sm90.cuh``: persistent wgmma
 fed by TMA) is held alone, through its test entry, to an fp32 product of
@@ -904,9 +906,11 @@ def _core_inputs(dev, B, N, D, dtype, seed):
     return f(B, N, 3 * D), f(B, N, D)
 
 
-# fp32 also at head dims of 15 and 12 (bf16 refuses them: tested below)
+# fp32 also at head dims of 15 and 12 (bf16 refuses them: tested below) and
+# N = 256 at hd = 128 (the fp32 plan reads it from device memory in blocks)
+F32_SHAPES = CORE_SHAPES + [(3, 17, 60, 4), (2, 33, 36, 3), (1, 256, 128, 1)]
 CORE_CASES = ([(*s, torch.bfloat16) for s in CORE_SHAPES]
-              + [(*s, torch.float32) for s in CORE_SHAPES + [(3, 17, 60, 4), (2, 33, 36, 3)]])
+              + [(*s, torch.float32) for s in F32_SHAPES])
 
 
 @pytest.mark.parametrize("B,N,D,H,dtype", CORE_CASES)
@@ -941,13 +945,37 @@ def test_attention_wrappers_refuse_and_count(dev):
         tat.fused_attention(qkv, 7)
     with pytest.raises(ValueError, match="dctx"):
         tat.fused_attention_bwd(qkv, dctx.float(), 12)
-    with pytest.raises(ValueError, match="shared-memory plan"):  # fp32 K and V of 256 x 128
-        tat.fused_attention(torch.zeros(1, 256, 3 * 128, device=dev), 1)
+    # bf16 K and V of 256 x 224 (the fp32 plan takes every N <= 256: below)
+    with pytest.raises(ValueError, match="shared-memory plan"):
+        tat.fused_attention(torch.zeros(1, 256, 3 * 224, device=dev, dtype=torch.bfloat16), 1)
     n12, n13 = tat.fused_attention.launches, tat.fused_attention_bwd.launches
     tat.fused_attention(qkv, 12)
     tat.fused_attention_bwd(qkv, dctx, 12)
     torch.cuda.synchronize()
     assert (tat.fused_attention.launches, tat.fused_attention_bwd.launches) == (n12 + 1, n13 + 1)
+
+
+@pytest.mark.parametrize("B,N,D,H", F32_SHAPES)
+def test_attention_f32_backward_gives_the_same_bits_twice(dev, B, N, D, H):
+    """Kernel 13 in fp32 twice on the same inputs, bit for bit (every element
+    one thread's FMA chain in a fixed order; no atomics), staged and from
+    device memory (N = 131, 200, 256)."""
+    qkv, dctx = _core_inputs(dev, B, N, D, torch.float32, seed=B + N + 1)
+    first, second = tat.fused_attention_bwd(qkv, dctx, H), tat.fused_attention_bwd(qkv, dctx, H)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("N", [1, 17, 65, 66, 128, 131, 200, 256])
+def test_attention_f32_plan_equals_the_python_copy(dev, N):
+    """``AttnF32Plan`` as the CUDA source computes it equals
+    ``attention.f32_plan`` (staged or not, QB, HC, threads, bytes) at head
+    widths 1 to 1 024, forward and backward, and every plan fits."""
+    for hd in list(range(1, 129)) + [144, 160, 224, 256, 384, 512, 1000, 1024]:
+        for backward in (False, True):
+            want = tat.f32_plan(N, hd, backward)
+            assert tat._f32_plan_cuda(N, hd, backward) == want, (N, hd, backward)
+            assert want.bytes == tat._plan_bytes(N, hd, True, backward) <= tab.SMEM_PER_BLOCK
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
