@@ -18,8 +18,11 @@ failing loudly (any failure exits non-zero and prints no result line):
    inputs: the serving kernels at the serving path's shapes (ViT-B: N=65,
    D=768, H=12, F=3072 at B=64 and B=1024; a 1M x 768 bank in bf16 and fp32;
    kernel 11 on it at Q = 1, 8, 64 and on ragged 1 000 003-row banks of
-   width 3072 and 37 at Q = 130), max|a-b|/max|b| within the bars of tools/kernel_parity.py (2e-2; bank fp32
-   5e-3); the training kernels at their paths' shapes, every output within
+   width 3072 and 37 at Q = 130; timed at Q = 1, 8, 64 on the bf16 bank and
+   Q = 8 on the fp32 one, by CUDA events and device time, beside its bound
+   and ``torch.mm`` of the bank with ``[wt | w]``, which reads the same
+   bytes once, as ``read_yardstick_ms``), max|a-b|/max|b| within the bars
+   of tools/kernel_parity.py (2e-2; bank fp32 5e-3); the training kernels at their paths' shapes, every output within
    TOL_BWD = 3e-2 and finite: kernels 2, 3, 8 at ``mim_1`` (B=64, 512 and
    the ragged 63), kernels 6, 7 at ``mim_25_large`` (ViT-L, N=65, D=768,
    F=3072; B=64, 512, 63), kernel 4 at ``mim_32`` (ViT-L with the RA/Dec
@@ -747,10 +750,15 @@ def main() -> int:
         }
         del bank, got, want
 
-    # kernel 11 on the same 1M bank at Q = 1, 8, 64 (timed at 8 and 64 on the
-    # bf16 bank: the retrieval path's Q and a wide batch of targets), then on
-    # ragged banks: 1 000 003 rows (not a whole number of 128-row blocks) of
-    # width 3072 (central-pool banks) and 37 (the scalar loads) at Q = 130
+    # kernel 11 on the same 1M bank at Q = 1, 8, 64 (each timed on the bf16
+    # bank: one target, the retrieval path's Q and a wide batch of targets;
+    # Q = 8 also on the fp32 bank), then on ragged banks: 1 000 003 rows (not
+    # a whole number of 256-row blocks) of width 3072 (central-pool banks) and
+    # 37 (the element loads) at Q = 130. Its bound counts the operations of
+    # the two products, 4·N·D·Q, at the bf16 tensor-core rate: the least
+    # work any design does (kernel 11 runs five or six bf16 products of split
+    # operands per fp32 one, PEAK_BF16 / 5 > PEAK_FP32_PRODUCTS, so a bound at
+    # an fp32 rate would be one the kernel beats)
     def multi_bound(n, d, q, elt):
         return 4 * n * d * q, n * d * elt + 2 * q * d * 4 + q * 4 + n * q * 4
 
@@ -767,14 +775,24 @@ def main() -> int:
               f"kernel 11 {label} {n}x{d} Q={targets.shape[0]} parity")
         del got, want
         if timed:
-            b_ms, b_by = bound_ms(*multi_bound(n, d, targets.shape[0], bank.element_size()),
-                                  PEAK_FP32)
-            timings[("weighted_bank_scores_multi", targets.shape[0])] = {
+            q = targets.shape[0]
+            b_ms, b_by = bound_ms(*multi_bound(n, d, q, bank.element_size()), PEAK_BF16)
+            # torch.mm of the bank with [wt | w] (D, 2Q) reads the same bytes once:
+            # a yardstick of the read rate, not library_ms (no PyTorch call computes
+            # kernel 11's function); the port never calls it
+            yard = torch.cat([(w * targets).t(), w.t()], 1).to(bank.dtype)
+            key = q if bank.dtype == torch.bfloat16 else f"{label} Q={q}"
+            timings[("weighted_bank_scores_multi", key)] = rec = {
                 "max_rel_err": rel, "max_abs_err": abs_err,
                 "ms": cuda_ms(lambda: weighted_bank_scores_multi(bank, targets, w), 10),
+                "device_ms": device_ms(lambda: weighted_bank_scores_multi(bank, targets, w), 10),
                 "plain_ms": cuda_ms(lambda: weighted_bank_scores_multi_plain(bank, targets, w), 3),
                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                "read_yardstick_ms": cuda_ms(lambda: torch.mm(bank, yard), 10),
             }
+            print(f"kernel 11 {label} {n}x{d} Q={q}: {rec['ms']:.4f} ms (device "
+                  f"{rec['device_ms']:.4f}), bound {b_ms:.4f} ({b_by}), read yardstick "
+                  f"{rec['read_yardstick_ms']:.4f}", flush=True)
 
     def multi_queries(q, d):
         targets = torch.randn(q, d, generator=gen, device=dev)
@@ -786,7 +804,7 @@ def main() -> int:
         bank = bank_bf16.to(dt)
         for q in MULTI_Q:
             multi_case(bank, mq_targets[:q], mq_w[:q], tol, str(dt).replace("torch.", ""),
-                       timed=dt == torch.bfloat16 and q > 1)
+                       timed=dt == torch.bfloat16 or q == 8)
         del bank
     for n, d, q in RAGGED:
         rag_bank = torch.randn(n, d, generator=gen, device=dev)

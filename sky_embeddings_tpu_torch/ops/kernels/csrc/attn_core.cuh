@@ -72,39 +72,6 @@ constexpr int ATTN_MAX_WARPS = 8;
 constexpr int ATTN_MAX_THREADS = 32 * ATTN_MAX_WARPS;
 constexpr int ATTN_CHUNK = 64;  // head columns per accumulator chunk
 
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// four 8 x 8 bf16 matrices; lanes 8m..8m+7 give matrix m's row addresses
-__device__ __forceinline__ void ldsm4(unsigned (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p))
-               : "memory");
-}
-
-__device__ __forceinline__ void ldsm4_t(unsigned (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p))
-               : "memory");
-}
-
-// d += a b: a 16 x 16 (row), b 16 x 8 (col), bf16; d 16 x 8 fp32
-__device__ __forceinline__ void mma16816(float (&d)[4], const unsigned (&a)[4], unsigned b0,
-                                         unsigned b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<unsigned*>(&v);
-}
-
 // Fragment addresses, per lane. A 16 x 16 tile at (r0, c0) of a row-major
 // matrix (pitch ld), as the A operand:
 __device__ __forceinline__ const bf16* a_addr(const bf16* m, int ld, int r0, int c0, int lane) {
@@ -404,17 +371,6 @@ attn_core_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ ctx, bf16* __r
 inline int attn_kt(int N) {
   const int nk = (N + 15) / 16;
   return nk <= 2 ? 2 : nk <= 5 ? 5 : nk <= 8 ? 8 : 16;
-}
-
-// as many CTAs as are resident on the card at once, at most `work`
-template <typename K>
-inline int resident_grid(K kernel, int threads, size_t smem, int work) {
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
-  const long long cap = (long long)(per_sm > 0 ? per_sm : 1) * (sms > 0 ? sms : 1);
-  return static_cast<int>(cap < work ? cap : work);
 }
 
 template <int KT>

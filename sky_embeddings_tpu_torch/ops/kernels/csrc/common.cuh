@@ -1,7 +1,9 @@
 // What the port's CUDA sources share: the bf16 type, the shared-memory
 // limit, the epilogue names of the GEMM (gemm_sm90.cuh), warp reductions,
 // the packed-segment key range of the attention cores (attn_core.cuh),
-// erf-GELU and its derivative for the epilogues, cp.async, the ordered
+// erf-GELU and its derivative for the epilogues, the mma.sync and ldmatrix
+// fragments, the resident grid of a persistent kernel, wgmma's descriptor,
+// fences and groups, cp.async, the ordered
 // split-K reduce of the backward group launch and the LayerNorm that opens
 // every block.
 //
@@ -83,6 +85,84 @@ __device__ __forceinline__ void gelu_as_and_grad(float a, float& gelu, float& gr
   const float half_erf1 = 0.5f + copysignf(fmaf(-poly * t, e, 1.0f), a) * 0.5f;  // (1 + erf) / 2
   gelu = a * half_erf1;
   grad = fmaf(a * e, 0.39894228040143268f, half_erf1);
+}
+
+// mma.sync m16n8k16 and ldmatrix, as the attention cores (attn_core.cuh) and
+// the multi-query bank scorer (simscore_multi.cu) use them
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// four 8 x 8 bf16 matrices; lanes 8m..8m+7 give matrix m's row addresses
+__device__ __forceinline__ void ldsm4(unsigned (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+
+__device__ __forceinline__ void ldsm4_t(unsigned (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+
+// d += a b: a 16 x 16 (row), b 16 x 8 (col), bf16; d 16 x 8 fp32
+__device__ __forceinline__ void mma16816(float (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<unsigned*>(&v);
+}
+
+// as many CTAs as are resident on the card at once, at most `work`
+template <typename K>
+inline int resident_grid(K kernel, int threads, size_t smem, int work) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+  const long long cap = (long long)(per_sm > 0 ? per_sm : 1) * (sms > 0 ? sms : 1);
+  return static_cast<int>(cap < work ? cap : work);
+}
+
+// wgmma (gemm_sm90.cuh, simscore_multi.cu). Shared-memory matrix descriptor, 128-byte swizzle: start address, leading
+// and stride byte offsets, all in 16-byte units.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving reads or writes of the accumulators across
+// the asynchronous wgmma: each register is an operand of an empty asm.
+template <int R>
+__device__ __forceinline__ void fence_acc(float* d) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// Shared-memory writes of this thread made visible to the async proxy (TMA
+// stores, wgmma operands read through descriptors).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // 16-byte global -> shared copy; when !pred it reads nothing and zero-fills.

@@ -181,10 +181,6 @@ struct Sm90Args {
   int M, N, K;
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 __device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
 }
@@ -242,11 +238,6 @@ __device__ __forceinline__ void bulk_wait_read() {
   asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
 }
 
-// Shared-memory writes of this thread made visible to TMA (the async proxy).
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
 // Barrier over one consumer warpgroup (named barrier 1 + wg, 128 threads).
 __device__ __forceinline__ void wg_sync(int wg) {
   asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
@@ -260,37 +251,6 @@ __device__ __forceinline__ uint32_t ld_shared_b32(uint32_t addr) {
   uint32_t v;
   asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(v) : "r"(addr) : "memory");
   return v;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// Shared-memory matrix descriptor, 128-byte swizzle: start address, leading
-// and stride byte offsets, all in 16-byte units.
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Keeps the compiler from moving reads or writes of the accumulators across
-// the asynchronous wgmma: each register is an operand of an empty asm.
-template <int R>
-__device__ __forceinline__ void fence_acc(float* d) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // D[64 x 128] (+)= A[64 x 16] @ B[16 x 128], both read from shared memory
@@ -428,7 +388,7 @@ __device__ __forceinline__ void epilogue(const float* d, const Sm90Args& p,
         float v0 = d[4 * j + 2 * h] + b0, v1 = d[4 * j + 2 * h + 1] + b1;
         if (EPI == EPI_BIAS_GELU_STASH && in_n && mw + lr < p.M)
           *reinterpret_cast<uint32_t*>(p.out2 + (size_t)(mw + lr) * p.N + col) =
-              pack_bf16x2(v0, v1);
+              pack_bf16(v0, v1);
         if (EPI == EPI_BIAS_GELU || EPI == EPI_BIAS_GELU_STASH) {
           v0 = gelu_erf(v0);
           v1 = gelu_erf(v1);
@@ -438,7 +398,7 @@ __device__ __forceinline__ void epilogue(const float* d, const Sm90Args& p,
           v0 = __uint_as_float(rv << 16) + v0;
           v1 = __uint_as_float(rv & 0xFFFF0000u) + v1;
         }
-        st_shared_b32(at, pack_bf16x2(v0, v1));
+        st_shared_b32(at, pack_bf16(v0, v1));
       }
     }
     fence_proxy_async();
@@ -759,7 +719,7 @@ __device__ __forceinline__ void store_bf16(const float* d, const CUtensorMap* ma
       for (int h = 0; h < 2; ++h) {
         const int lr = lr0 + 8 * h;
         st_shared_b32(box + lr * 128 + ((jj ^ (lr & 7)) << 4) + 4 * (t & 3),
-                      pack_bf16x2(d[4 * j + 2 * h], d[4 * j + 2 * h + 1]));
+                      pack_bf16(d[4 * j + 2 * h], d[4 * j + 2 * h + 1]));
       }
     }
     fence_proxy_async();
@@ -1311,8 +1271,8 @@ __global__ void __launch_bounds__(THREADS, 1)
           const float d0 = d[4 * j + 2 * (i & 1)] * q0, d1 = d[4 * j + 2 * (i & 1) + 1] * q1;
           cs[2 * j] += d0;
           cs[2 * j + 1] += d1;
-          st_shared_b32(sth + at, pack_bf16x2(h0, h1));
-          st_shared_b32(std_ + at, pack_bf16x2(d0, d1));
+          st_shared_b32(sth + at, pack_bf16(h0, h1));
+          st_shared_b32(std_ + at, pack_bf16(d0, d1));
         }
         fence_proxy_async();  // the box's h_c and da_c leave while the next is computed
         wg_sync(wg);

@@ -26,7 +26,8 @@ decoder backward and under remat, with their launch counts, and remat's
 gradients bit-equal to the stored path's.
 
 Kernel 11 (the multi-query bank scorer) is held to its plain version at
-ragged bank rows, widths and query counts, and the retrieval routes on the
+ragged bank rows, widths and query counts, within 1e-4 at the retrieval
+width (its bf16-split products' promise), and the retrieval routes on the
 card: one launch per ``query_multi``, the chunked scorer against the single
 pass, the int8 two-stage scorers' agreement with the exact ranking.
 
@@ -615,7 +616,10 @@ def test_loss_backward_reaches_every_parameter_of_vith(dev, monkeypatch):
 # -- kernel 11 (multi-query bank scorer) and the retrieval routes ------------------
 
 MULTI_SHAPES = [(1000, 48, 5), (4097, 768, 8), (3, 200, 1), (1025, 37, 130), (333, 3072, 17),
-                (513, 64, 33), (130, 7, 64)]
+                (513, 64, 33), (130, 7, 64), (4097, 768, 64)]
+# kernel 11's products are bf16 terms of the fp32 operands (csrc/simscore_multi.cu):
+# each term's residual is <= 2^-16 relative, so the scores keep fp32 grade
+TOL_SPLIT = 1e-4
 
 
 def _multi_args(dev, N, D, Q, dtype, seed):
@@ -644,6 +648,16 @@ def test_multi_scores_kernel_matches_plain(dev, N, D, Q, dtype, tol):
         shifted = torch.cat([tail.new_zeros(1), tail])[1:].view(N - 1, D)
         assert shifted.data_ptr() % 16 != 0
         assert _max_rel(tss.weighted_bank_scores_multi(shifted, targets, w), got[1:]) <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("Q", [1, 8, 64, 130])
+def test_multi_scores_keep_the_split_promise(dev, Q, dtype):
+    """At the retrieval width (D = 768) the bf16-split products stay within
+    TOL_SPLIT of the plain fp32 version, far inside the bank bars."""
+    bank, targets, w = _multi_args(dev, 4097, 768, Q, dtype, seed=25)
+    got = tss.weighted_bank_scores_multi(bank, targets, w)
+    assert _max_rel(got, tss.weighted_bank_scores_multi_plain(bank, targets, w)) <= TOL_SPLIT
 
 
 def test_multi_scorer_refuses_what_it_does_not_take(dev):
