@@ -137,6 +137,24 @@ failing loudly (any failure exits non-zero and prints no result line):
    per-leaf gradients, and the losses of 5 steps; then train-step times
    (ViT-H also at B=256, ``bench_vit_h``'s batch; MAE at 1024), device busy
    share and peak memory;
+5c. the predictor, through the entry points ``train_predictor`` and
+   ``test_predictor`` call (``PredictorTrainer.train_batch`` / ``eval_batch``,
+   ``warm_start``, ``predictor_infer``), at ``configs/mim_struct.ini``'s
+   full ViT-B (depth 12, D=768, ``map`` pooling with 2 heads of 384), bf16,
+   B=256, warm-started from the ``mim_1`` path's trained weights (the same
+   width) and served from in-memory ``DeviceDataset`` s of structured
+   cutouts on the card: ``z_struct_ft_512`` (``ft``: kernels 2, 3 and 8 at
+   12 x 5, K1 at 12 x (5 + 2), K2 at 12 x 2), ``z_struct_fs_512`` (``fs``,
+   from scratch, the same launches), ``z_struct_ap_512`` (``lp``: the frozen
+   backbone under no grad, K1 and K2 at 12 x (5 + 2), no backward kernel)
+   and ``ft`` with a 3-class crossentropy head, 5 steps and 2 validation
+   batches each with the counters zeroed just before and read just after;
+   each route's kernel path against its plain path from the same weights,
+   optimizer state and augmentation draws (one step's gradients and loss,
+   5 steps' losses); train-step times, device busy share and peak memory
+   (``ft``, ``fs``, ``lp``); ``z_struct_ft_512`` in fp32 (a config without
+   ``dtype``) raising on the card; then ``predictor_infer`` over 4 batches
+   (K1 and K2 at 12 x 4) and its images/s;
 5b. the ``Attention`` module (``models/layers.Attention``, the only caller of
    kernels 12 and 13, as in JAX) at ViT-B width, B=64, in bf16 and at its
    default fp32: one forward and ``backward()`` through autograd with the
@@ -154,6 +172,7 @@ JSON lines of results (``{"kernels": [...]}`` among them). The last line is
 
 from __future__ import annotations
 
+import copy
 import json
 import os
 import shutil
@@ -231,6 +250,14 @@ TOL_CORE_F32 = 5e-7
 # (PERF.md): 1.80e-7 at worst (x; qkv.kernel 3.8e-8, proj's bit-equal:
 # kernel 12 is). The bar is about twice.
 TOL_ATTN_F32 = 4e-7
+# the predictor (ViT-B, depth 12, B=256, pool and head on top): one step's
+# gradients (||a - b|| / ||b|| per trainable leaf) and loss, and the
+# losses of PRED[3] steps, kernel path against the plain path from the same
+# weights, optimizer state and augmentation draws. Measured on the H100
+# (PERF.md): gradients 7.4e-3 at worst (fs, patch_mask_values; ft
+# 5.4e-3, lp 7.0e-3 over the head's 17 leaves, ce 3.4e-3), one step's loss
+# 8.4e-5, five steps' losses 2.2e-4. The bars are about twice those.
+TOL_GRAD_PRED, TOL_LOSS_PRED = 1.5e-2, 5e-4
 
 CONFIG = "mim_1"
 DEVICE = "cuda"
@@ -274,6 +301,15 @@ CORE_TIMED = (("vitb", 1024), ("vith", 256))
 # size, train-step batches with their timed iterations)
 POOL = ("mim_1_attn_pool", 10, 2, 4800, ((64, 10),))
 POOL_OVERRIDES = {"ARCHITECTURE": {"attn_pool": "True"}}
+# the predictor path: mim_struct's ViT-B (the width of mim_1, whose trained
+# weights it warm-starts from) under each route's config, the "ce" route
+# z_struct_ft_512 with a 3-class crossentropy head; (pretraining config,
+# route -> config, batch, train steps, validation batches, predictor_infer
+# batches, timed steps)
+PRED = ("mim_struct", {"ft": "z_struct_ft_512", "fs": "z_struct_fs_512", "lp": "z_struct_ap_512",
+                       "ce": "z_struct_ft_512"}, 256, 5, 2, 4, 10)
+PRED_CE = {"DATA": {"label_keys": "['class']", "num_classes": "3", "label_means": "[0]",
+                    "label_stds": "[1]"}, "TRAINING": {"loss_fn": "crossentropy"}}
 # the retrieval path: a FITS survey of FITS_TILES tiles of FITS_SIZE^2 pixels
 # per band, searched at FITS_OVERLAP for N_GROUPS target groups; kernel 11 at
 # MULTI_Q queries on the 1M bank and at RAGGED (rows, width, queries); the
@@ -291,6 +327,194 @@ def check(ok: bool, what: str) -> None:
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def predictor_phase(dev, mim_ckpt, zero_counters, launch_counts, step_times):
+    """The predictor path, through the entry points ``train_predictor`` and
+    ``test_predictor`` call, at mim_struct's full ViT-B width (depth 12,
+    D=768, ``map`` pooling with 2 heads of 384), bf16, B=256, the sets in
+    memory (structured cutouts) served from a ``DeviceDataset`` on the card.
+    For each route (``ft``, ``fs``, ``lp``, and ``ft`` with a crossentropy
+    head): the trainer, warm-started (not ``fs``) from ``mim_ckpt``, takes
+    PRED[3] steps and PRED[4] validation batches with the counters zeroed
+    just before and read just after (``lp``: K1 and K2 only, no kernel of
+    the backward); then the kernel path against the plain path from the
+    same weights, optimizer state and generator; then (not for the
+    crossentropy head, which runs ``ft``'s kernels) the step's time, device
+    busy share and peak memory. Then an fp32 predictor raises on the card.
+    Last, ``predictor_infer`` over PRED[5] batches (K1 and K2 only), and its
+    images/s."""
+    import numpy as np
+    import torch
+
+    from sky_embeddings_tpu_torch.configuration import apply_overrides, load_config
+    from sky_embeddings_tpu_torch.data.device_cache import DeviceDataset
+    from sky_embeddings_tpu_torch.data.synthetic import make_structured_cutouts
+    from sky_embeddings_tpu_torch.eval.eval_fns import predictor_infer
+    from sky_embeddings_tpu_torch.train.predictor import PredictorTrainer
+
+    mae_name, routes, B, steps, val_b, infer_b, timed = PRED
+    cfg_dir = os.path.join(ROOT, "configs")
+    mae = load_config(mae_name, cfg_dir)
+    t0 = time.perf_counter()
+    geom = dict(channels=mae.architecture.int("num_channels"),
+                img_size=mae.architecture.int("img_size"))
+    sets = {"train": make_structured_cutouts(2 * B, seed=14, **geom),
+            "val": make_structured_cutouts(B * max(val_b, infer_b), seed=15, **geom)}
+    print(f"predictor: sets of {2 * B} and {B * max(val_b, infer_b)} structured cutouts made in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    out = {"batch": B, "steps": steps, "val_batches": val_b, "routes": {}}
+    for route, name in routes.items():
+        cfg = load_config(name, cfg_dir)
+        if route == "ce":
+            cfg = apply_overrides(cfg, [f"{s}.{k}={v}" for s, kv in PRED_CE.items()
+                                        for k, v in kv.items()], name + "_ce")
+        key = "class" if route == "ce" else "zspec"
+        check(cfg.training.int("batch_size") == B and cfg.training.str("dtype") == "bfloat16",
+              f"{name}: bf16 at batch {B}")
+        t_init = time.perf_counter()
+        trainer = PredictorTrainer(cfg, mae, seed=0, device=dev)
+        warm = []
+        if route != "fs":
+            check(trainer.warm_start(mim_ckpt, log_fn=warm.append), f"{route}: warm start")
+        torch.cuda.synchronize()
+        t_init = time.perf_counter() - t_init
+        m = trainer.model
+        layers = m.encoder.depth
+        data = dict(label_keys=[key], device=dev)
+        train_ds = DeviceDataset.from_arrays(
+            sets["train"], B, shuffle=True,
+            indices=range(cfg.training.int("num_train")), **data)
+        val_ds = DeviceDataset.from_arrays(sets["val"], B, shuffle=False, **data)
+        stream = train_ds.forever()
+        zero_counters()
+        torch.cuda.synchronize()
+        t_run = time.perf_counter()
+        train = [trainer.train_batch(next(stream)) for _ in range(steps)]
+        val = [trainer.eval_batch(b) for b in val_ds.take(val_b)]
+        torch.cuda.synchronize()
+        t_run = time.perf_counter() - t_run
+        launches = launch_counts()
+        if route == "lp":  # the frozen backbone: the inference kernels alone
+            want = {"fused_attn_block": layers * (steps + val_b),
+                    "fused_mlp_block": layers * (steps + val_b)}
+        else:
+            want = {"attn_block_fwd_stash": layers * steps, "attn_block_bwd_stash": layers * steps,
+                    "mlp_block_bwd": layers * steps, "fused_mlp_block": layers * (steps + val_b),
+                    "fused_attn_block": layers * val_b}
+        losses = [[float(v) for v in pair] for pair in train + val]
+        print(f"predictor {route} ({name}, {m.global_pool} pool, {m.num_labels} labels, "
+              f"{trainer.loss_fn_name}, depth {layers}, D={m.embed_dim}, B={B}): {steps} steps + "
+              f"{val_b} val batches in {t_run:.2f} s; (loss, metric) {losses}; {' '.join(warm)}; "
+              f"launches { {k: v for k, v in launches.items() if v} }", flush=True)
+        check(bool(np.isfinite(losses).all()), f"predictor {route}: losses finite")
+        for k_, n_ in launches.items():
+            check(n_ == want.get(k_, 0), f"predictor {route}: {k_} launches {n_} == {want.get(k_, 0)}")
+
+        # kernel path vs plain path from the same weights, optimizer state
+        # and generator: one step's gradients and loss, then PRED[3] losses
+        plain = PredictorTrainer(cfg, mae, seed=0, device=dev)
+        plain.model.load_state_dict(m.state_dict())
+        # a copy: load_state_dict keeps the tensors it is given
+        plain.optimizer.load_state_dict(copy.deepcopy(trainer.optimizer.state_dict()))
+        plain.generator.set_state(trainer.generator.get_state())
+        plain.step = trainer.step
+        plain.model.plain = True
+        batches = [next(stream) for _ in range(steps)]
+        traj, grads = [], []
+        for tr in (trainer, plain):
+            traj.append([float(tr.train_batch(b)[0]) for b in batches[:1]])
+            grads.append({n: p.grad.float().clone() for n, p in tr.model.named_parameters()
+                          if p.grad is not None})
+            traj[-1] += [float(tr.train_batch(b)[0]) for b in batches[1:]]
+        grad_rel = {n: float((a - grads[1][n]).norm() / (grads[1][n].norm() + 1e-30))
+                    for n, a in grads[0].items()}
+        worst = max(grad_rel, key=grad_rel.get)
+        loss_rel = abs(traj[0][0] - traj[1][0]) / abs(traj[1][0])
+        traj_rel = max(abs(a - b) / abs(b) for a, b in zip(*traj))
+        n_train = sum(1 for p in m.parameters() if p.requires_grad)
+        print(f"predictor {route} kernel vs plain path: loss rel {loss_rel:.3e}; gradient "
+              f"||a-b||/||b|| max {grad_rel[worst]:.3e} ({worst}), median "
+              f"{float(np.median(list(grad_rel.values()))):.3e} over {len(grad_rel)} leaves (bar "
+              f"{TOL_GRAD_PRED}); {steps}-step losses kernel {[round(v, 5) for v in traj[0]]} "
+              f"plain {[round(v, 5) for v in traj[1]]}, max rel {traj_rel:.3e} (bar {TOL_LOSS_PRED})",
+              flush=True)
+        check(len(grad_rel) == n_train and grads[0].keys() == grads[1].keys(),
+              f"predictor {route}: every trainable leaf, and only those, gets a gradient")
+        check(all(np.isfinite(list(grad_rel.values()))) and grad_rel[worst] <= TOL_GRAD_PRED,
+              f"predictor {route}: gradients kernel vs plain")
+        check(loss_rel <= TOL_LOSS_PRED and traj_rel <= TOL_LOSS_PRED,
+              f"predictor {route}: losses kernel vs plain")
+        del plain, grads
+        torch.cuda.empty_cache()
+
+        out["routes"][route] = {
+            "config": cfg.name, "loss_fn": trainer.loss_fn_name, "train_method": trainer.train_method,
+            "layers": layers, "embed_dim": m.embed_dim, "num_labels": m.num_labels,
+            "trainer_init_s": t_init, "seconds": t_run, "launches": launches, "losses": losses,
+            "warm_start": warm, "trainable_leaves": n_train,
+            "loss_rel_vs_plain": loss_rel, "grad_rel_vs_plain_max": grad_rel[worst],
+            "grad_rel_worst_leaf": worst,
+            "grad_rel_vs_plain_median": float(np.median(list(grad_rel.values()))),
+            "trajectory_kernel": traj[0], "trajectory_plain": traj[1], "trajectory_max_rel": traj_rel}
+        if route == "ce":  # ft's kernels and step with another loss: not timed again
+            del trainer
+            continue
+        tb = next(stream)
+        out["routes"][route]["train_step"] = step_times(lambda: trainer.train_batch(tb), B, timed,
+                                                        f"predictor {route}")
+        if route == "ft":
+            kept = (trainer, val_ds)
+        del trainer
+        torch.cuda.empty_cache()
+
+    # a predictor config without a dtype (fp32, as 43 shipped ones are)
+    # raises on the card: the block kernels take bf16, nothing falls back
+    fp32 = apply_overrides(load_config(routes["ft"], cfg_dir), ["TRAINING.dtype=float32"],
+                           routes["ft"] + "_fp32")
+    refused = None
+    try:
+        PredictorTrainer(fp32, mae, seed=0, device=dev).train_batch(next(stream))
+    except ValueError as err:
+        refused = str(err)
+    print(f"predictor in fp32 on the card: {refused}", flush=True)
+    check(refused is not None and "bf16" in refused, "an fp32 predictor raises on the card")
+    out["fp32_refused"] = refused
+    torch.cuda.empty_cache()
+
+    # predictor_infer over PRED[5] batches of the fine-tuned model
+    trainer, val_ds = kept
+    model = trainer.model.eval()
+    zero_counters()
+    torch.cuda.synchronize()
+    t_inf = time.perf_counter()
+    targets, preds = predictor_infer(model, val_ds.take(infer_b))
+    torch.cuda.synchronize()
+    t_inf = time.perf_counter() - t_inf
+    launches = launch_counts()
+    layers = model.encoder.depth
+    check(targets.shape == preds.shape == (infer_b * B, 1) and bool(np.isfinite(preds).all()),
+          f"predictor_infer: {preds.shape} finite")
+    for k_, n_ in launches.items():
+        want_n = layers * infer_b if k_ in ("fused_attn_block", "fused_mlp_block") else 0
+        check(n_ == want_n, f"predictor_infer: {k_} launches {n_} == {want_n}")
+    reps = 3
+    torch.cuda.synchronize()
+    t_warm = time.perf_counter()
+    for _ in range(reps):
+        predictor_infer(model, val_ds.take(infer_b))
+    torch.cuda.synchronize()
+    t_warm = (time.perf_counter() - t_warm) / reps
+    resid = (preds[:, 0] - targets[:, 0]) / (1 + targets[:, 0])
+    print(f"predictor_infer: {infer_b} batches of {B} in {t_inf:.3f} s (first), {t_warm:.3f} s "
+          f"warm, {infer_b * B / t_warm:.0f} images/s; launches "
+          f"{ {k: v for k, v in launches.items() if v} }; |dz/(1+z)| median "
+          f"{float(np.median(np.abs(resid))):.3f}", flush=True)
+    out["infer"] = {"batches": infer_b, "first_s": t_inf, "warm_s": t_warm,
+                    "images_per_s": infer_b * B / t_warm, "launches": launches}
+    del kept, trainer, model
+    torch.cuda.empty_cache()
+    return out
 
 
 def main() -> int:
@@ -1483,6 +1707,26 @@ def main() -> int:
         top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:14])
         return {"device_ms_per_call": busy, "busy_share": busy / (wall_ms / reps), "top_ms": top}
 
+    def step_times(step, B_, iters, tag):
+        """A train step's CUDA-event ms and images/s at batch ``B_``, its
+        peak memory above what is held before it, and its device time and
+        busy share from the profiler."""
+        ms = cuda_ms(step, iters, warmup=2)
+        held = torch.cuda.memory_allocated() / 1e9  # other phases' tensors included
+        torch.cuda.reset_peak_memory_stats()
+        step()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        prof = device_breakdown(step, reps=2)
+        dev_ms = prof["device_ms_per_call"]
+        # kernel time per step over the event-timed step: the profiled
+        # window's own busy_share is lower, the profiler adding host time
+        busy = dev_ms / ms if isinstance(dev_ms, float) else "not measured"
+        print(f"{tag} train step B={B_}: {ms:.2f} ms, {B_ / ms * 1e3:.0f} images/s, peak "
+              f"{peak:.2f} GB ({held:.2f} GB held before the step), device busy {busy} of the "
+              f"step, {prof.get('busy_share', 'not measured')} of the profiled window", flush=True)
+        return {"ms": ms, "images_per_s": B_ / ms * 1e3, "device_busy_share": busy,
+                "peak_memory_gb": peak, "held_before_step_gb": held, "profile": prof}
+
     def ra_dec_of(model_, batch):
         return batch_ra_dec(batch, dev) if model_.ra_dec else None
 
@@ -1639,22 +1883,7 @@ def main() -> int:
             reps = -(-B_ // len(timg))
             tb = {"cutouts": torch.as_tensor(np.concatenate([timg] * reps)[:B_], device=dev),
                   "ra_dec": np.concatenate([trd] * reps)[:B_]}
-            ms = cuda_ms(lambda: trainer.train_batch(tb), iters, warmup=2)
-            held = torch.cuda.memory_allocated() / 1e9  # other phases' tensors included
-            torch.cuda.reset_peak_memory_stats()
-            trainer.train_batch(tb)
-            prof = device_breakdown(lambda: trainer.train_batch(tb), reps=2)
-            dev_ms = prof["device_ms_per_call"]
-            # kernel time per step over the event-timed step: the profiled
-            # window's own busy_share is lower, the profiler adding host time
-            busy = dev_ms / ms if isinstance(dev_ms, float) else "not measured"
-            step_t[f"B={B_}"] = {"ms": ms, "images_per_s": B_ / ms * 1e3, "device_busy_share": busy,
-                                 "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
-                                 "held_before_step_gb": held, "profile": prof}
-            print(f"{tag} train step B={B_}: {ms:.2f} ms, {B_ / ms * 1e3:.0f} images/s, peak "
-                  f"{step_t[f'B={B_}']['peak_memory_gb']:.1f} GB ({held:.1f} GB held before the "
-                  f"step), device busy {busy} of the step, {prof.get('busy_share', 'not measured')} "
-                  f"of the profiled window", flush=True)
+            step_t[f"B={B_}"] = step_times(lambda: trainer.train_batch(tb), B_, iters, tag)
         result["train_step"] = step_t
         del trainer, tb
         torch.cuda.empty_cache()
@@ -1673,8 +1902,7 @@ def main() -> int:
         same_opt = sa.keys() == sb.keys() and all(
             torch.equal(sa[k][f], sb[k][f].to(sa[k][f].device)) for k in sa for f in sa[k])
         same_rng = torch.equal(trainer.mask_gen.get_state(), restored.mask_gen.get_state())
-        ckpt_mb = os.path.getsize(ckpt_path) / 2**20
-        os.remove(ckpt_path)
+        ckpt_mb = os.path.getsize(ckpt_path) / 2**20  # kept: the predictor warm-starts from it
         print(f"save/restore: {ckpt_mb:.0f} MB, params bit-equal {same_params}, optimizer state "
               f"bit-equal {same_opt}, mask rng equal {same_rng}, step {restored.cur_iter}", flush=True)
         check(same_params and same_opt and same_rng and restored.cur_iter == TRAIN_STEPS,
@@ -1871,6 +2099,15 @@ def main() -> int:
                                     POOL[4], seed=8, extra=pool_init, probes=probe_sets)
     mark("training_" + POOL[0])
     del probe_sets
+
+    # ---- 5c. the predictor ------------------------------------------------------
+    pred_ckpt = os.path.join(ROOT, "models", "chip_smoke_mim_1.ckpt.pt")
+    try:
+        predictor = predictor_phase(dev, pred_ckpt, zero_counters, launch_counts, step_times)
+    finally:
+        if os.path.exists(pred_ckpt):
+            os.remove(pred_ckpt)
+    mark("predictor")
     shapes = {c: tuple(r[k] for k in ("layers", "embed_dim", "batch", "channels", "remat", "ra_dec"))
               for c, r in paths.items()}
     check(shapes == {CONFIG: (12, 768, 64, 5, False, False), LARGE[0]: (24, 768, 64, 5, False, False),
@@ -2000,6 +2237,9 @@ def main() -> int:
                        f"retrieval_{CONFIG}": retrieval_launches[counter],
                        **{f"training_{c}": r["launches"][counter] for c, r in paths.items()},
                        f"training_{MAE[0]}_remat": paths[MAE[0]]["remat_run"]["launches"][counter],
+                       **{f"predictor_{r}": v["launches"].get(counter, 0)
+                          for r, v in predictor["routes"].items()},
+                       "predictor_infer": predictor["infer"]["launches"].get(counter, 0),
                        "attention_module": attn_launches_by_dtype["bfloat16"][counter]}
         check(sum(by_path.values()) > 0, f"{name} launched on a main path")
         kernels.append({
@@ -2023,6 +2263,7 @@ def main() -> int:
         "gemm_times": gemm_times,
         "bwd_gemm_times": bwd_gemm_times,
         "training_paths": paths,
+        "predictor": predictor,
         "attention_module": attention_module,
         "retrieval_path": retrieval,
         "bank_1M_bf16": {"query_ms_host": q_host_ms, "queries_per_s": 1e3 / q_host_ms,

@@ -175,3 +175,19 @@ class Config:
 def load_config(model_name: str, config_dir: str) -> Config:
     """Load ``<config_dir>/<model_name>.ini`` (reference ``pretrain_mim.py:40-41``)."""
     return Config.from_file(os.path.join(config_dir, model_name + ".ini"))
+
+
+def apply_overrides(config: Config, overrides, name: str = "") -> Config:
+    """``config`` with ``SECTION.key=value`` overrides applied (the CLI
+    twins' ``--set``); a section the config lacks is an error."""
+    if not overrides:
+        return config
+    d = {sec: dict(config[sec].items()) for sec in config.sections()}
+    for item in overrides:
+        key, sep, value = item.partition("=")
+        sec, dot, k = key.partition(".")
+        if not (sep and dot and sec in d):
+            raise ValueError(f"--set {item!r}: want SECTION.key=value with a section of "
+                             f"the config ({sorted(d)})")
+        d[sec][k] = value
+    return Config.from_dict(d, name=name or config.name)

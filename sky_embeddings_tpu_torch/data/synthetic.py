@@ -15,6 +15,9 @@ arrays, bit for bit. Schema:
 
 ``make_cutouts`` draws exponential-profile blobs plus noise, with an
 optional fraction of whole bands set to NaN (missing bands).
+``structured_survey`` returns in memory the arrays that
+``write_structured_h5`` writes with the same arguments (the same chunks and
+chunk seeds), for hosts without h5py.
 """
 
 from __future__ import annotations
@@ -268,6 +271,26 @@ def make_structured_cutouts(
         "zspec_err": (0.01 + 0.02 * rng.random(n)).astype(np.float32),
         "class": labels[perm],
     }
+
+
+def structured_survey(
+    n: int,
+    channels: int = 5,
+    img_size: int = 64,
+    nan_band_frac: float = 0.05,
+    seed: int = 0,
+    include_class: bool = True,
+    class_fracs: tuple = (1 / 3, 1 / 3, 1 / 3),
+    z_range: tuple = (0.05, 1.6),
+    chunk: int = 8192,
+) -> dict[str, np.ndarray]:
+    """The columns of ``write_structured_h5(path, n, ...)``'s file, as arrays:
+    chunks of ``chunk`` rows, chunk ``k`` drawn with seed ``seed + 7919 k``."""
+    parts = [make_structured_cutouts(min(chunk, n - start), channels, img_size, nan_band_frac,
+                                     seed + 7919 * k, class_fracs, z_range)
+             for k, start in enumerate(range(0, n, chunk))]
+    keys = [k for k in parts[0] if include_class or k != "class"]
+    return {k: np.concatenate([p[k] for p in parts]) for k in keys}
 
 
 def write_structured_h5(

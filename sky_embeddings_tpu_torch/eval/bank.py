@@ -24,7 +24,13 @@ from typing import Iterable
 import numpy as np
 import torch
 
-from sky_embeddings_tpu_torch.eval.eval_fns import batch_ra_dec, make_encoder, model_device
+from sky_embeddings_tpu_torch.eval.eval_fns import (
+    batch_images,
+    batch_ra_dec,
+    host_array,
+    make_encoder,
+    model_device,
+)
 from sky_embeddings_tpu_torch.ops.kernels.simscore import (
     bank_topk,
     bank_topk_chunked,
@@ -239,9 +245,9 @@ def build_bank(
 
     rows, ra_decs = [], []
     for batch in batches:
-        imgs = torch.as_tensor(np.asarray(batch["cutouts"]), device=device)
+        imgs = batch_images(batch, device)
         rows.append(pooled(imgs, batch_ra_dec(batch, device)).cpu().numpy())
-        ra_decs.append(np.asarray(batch["ra_dec"], np.float32))
+        ra_decs.append(host_array(batch["ra_dec"], np.float32))
     if not rows:
         raise ValueError("build_bank received no batches")
     feats = np.concatenate(rows, axis=0)

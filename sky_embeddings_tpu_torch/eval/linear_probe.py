@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from sky_embeddings_tpu_torch.eval.eval_fns import extract_latents
+from sky_embeddings_tpu_torch.eval.eval_fns import extract_latents, host_array
 from sky_embeddings_tpu_torch.utils.misc import select_centre
 
 
@@ -86,7 +86,7 @@ def probe_features(
 
         def collect(batches):
             for b in batches:
-                ys.append(np.asarray(b["labels"]).reshape(len(b["cutouts"]), -1)[:, 0])
+                ys.append(host_array(b["labels"]).reshape(len(b["cutouts"]), -1)[:, 0])
                 yield b
 
         x = extract_latents(model, collect(data), remove_prefix=remove_prefix, to_host=to_host,

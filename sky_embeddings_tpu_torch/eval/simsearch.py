@@ -25,7 +25,12 @@ from typing import Iterable
 import numpy as np
 import torch
 
-from sky_embeddings_tpu_torch.eval.eval_fns import batch_ra_dec, make_encoder, model_device
+from sky_embeddings_tpu_torch.eval.eval_fns import (
+    batch_images,
+    batch_ra_dec,
+    make_encoder,
+    model_device,
+)
 from sky_embeddings_tpu_torch.ops.similarity import (
     mean_var,
     score_features,
@@ -107,7 +112,7 @@ def _search(model, target_latents, batches, n_save, metric, combine, use_weights
     topks = feats = None
     mean = std = None
     for i, batch in enumerate(batches):
-        imgs = torch.as_tensor(np.asarray(batch["cutouts"]), device=device)
+        imgs = batch_images(batch, device)
         ra_dec = batch_ra_dec(batch, device)
         latent = _select_tokens(encode(imgs, ra_dec), n_extra, cls_token, max_pool)
         if i == 0:

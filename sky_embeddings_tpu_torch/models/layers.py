@@ -41,7 +41,11 @@ The attention modules beside the blocks keep JAX's names too: ``Mlp``
 and ``CrossAttention`` are plain torch (``F.linear``, einsum, exact-erf
 GELU), as JAX computes them outside any Pallas kernel.
 
-Not ported yet (ROADMAP): the scan layout.
+The scan layout (JAX ``Encoder(scan=True)``: one ``blocks/block`` scope
+whose leaves stack the blocks on axis 0) is a naming layer here: the port
+always builds the loop layout, and :func:`unstack_block_params` /
+:func:`stack_block_params` convert a params tree between the two
+(``utils/checkpoint.adapt_block_layout``, ``models/weights.params_from_jax``).
 """
 
 from __future__ import annotations
@@ -52,6 +56,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
+import numpy as np
 
 from sky_embeddings_tpu_torch.ops.kernels.attention import attention_context
 from sky_embeddings_tpu_torch.ops.kernels.attn_block import fused_attn_block
@@ -304,6 +309,17 @@ class Encoder(nn.Module):
         stash, stash_mlp = stash and not remat, stash_mlp and not remat
         for i in range(depth):
             self.add_module(f"block{i}", Block(dim, num_heads, mlp_ratio, dtype, stash, stash_mlp))
+        self._register_load_state_dict_pre_hook(self._unstack_scan_layout)
+
+    def _unstack_scan_layout(self, state_dict, prefix, *args) -> None:
+        """Load a state dict in the scan layout: each ``<prefix>blocks.block.*``
+        entry, stacked over the blocks, becomes the ``<prefix>block{i}.*``
+        entries of the loop layout."""
+        scan = prefix + "blocks.block."
+        for name in [k for k in state_dict if k.startswith(scan)]:
+            stacked = state_dict.pop(name)
+            for i in range(stacked.shape[0]):
+                state_dict[f"{prefix}block{i}.{name[len(scan):]}"] = stacked[i]
 
     def forward(self, x: torch.Tensor, seg_len: int = 0) -> torch.Tensor:
         """(B, N, D) -> (B, N, D); ``seg_len > 0`` masks attention to packed
@@ -316,3 +332,37 @@ class Encoder(nn.Module):
             else:
                 x = block(x, self.plain, seg_len)
         return x
+
+
+def _is_block_key(key: str) -> bool:
+    return key.startswith("block") and key[5:].isdigit()
+
+
+def _map_leaves(fn, *trees):
+    """``fn`` over the leaves of nested dicts of one structure."""
+    if isinstance(trees[0], dict):
+        return {k: _map_leaves(fn, *(t[k] for t in trees)) for k in trees[0]}
+    return fn(*trees)
+
+
+def stack_block_params(params: dict, depth: int) -> dict:
+    """Loop-layout params (``block0``..``blockN`` scopes) -> the scan layout
+    (one ``blocks/block`` scope, leaves stacked on axis 0), numpy. Non-block
+    entries pass through unchanged (JAX ``layers.py:448``)."""
+    blocks = [params[f"block{i}"] for i in range(depth)]
+    stacked = _map_leaves(lambda *ls: np.stack([np.asarray(x) for x in ls], axis=0), *blocks)
+    out = {k: v for k, v in params.items() if not _is_block_key(k)}
+    out["blocks"] = {"block": stacked}
+    return out
+
+
+def unstack_block_params(params: dict) -> dict:
+    """Inverse of :func:`stack_block_params` (JAX ``layers.py:459``)."""
+    stacked = params["blocks"]["block"]
+    leaf = stacked
+    while isinstance(leaf, dict):
+        leaf = next(iter(leaf.values()))
+    out = {k: v for k, v in params.items() if k != "blocks"}
+    for i in range(np.shape(leaf)[0]):
+        out[f"block{i}"] = _map_leaves(lambda x: np.asarray(x)[i], stacked)
+    return out

@@ -38,8 +38,10 @@ pred, mask)`` as the JAX ``__call__`` does.
 the decoder's, as in JAX. ``plain = True`` sends every block, the
 decoder's too, through the kernels' plain versions.
 
-Not ported yet, raising ``NotImplementedError`` (ROADMAP): the scan layout
-(``scan_blocks = True``).
+``scan_blocks = True`` (the JAX scan layout, default at ``huge`` in the
+predictor) builds the loop layout: the port's blocks run one after another
+either way, and weights in the stacked ``encoder.blocks.block.*`` form load
+into it (``models/layers.Encoder``, ``models/weights.params_from_jax``).
 """
 
 from __future__ import annotations
@@ -325,11 +327,6 @@ def build_mim_model(
     if model_type not in MODEL_TYPES:
         raise ValueError(f"unknown model_type {model_type!r}; options: {sorted(MODEL_TYPES)}")
     size_key, simmim = MODEL_TYPES[model_type]
-    if arch.bool("scan_blocks", False):
-        # the JAX scan layout stacks the block params under encoder/blocks/block:
-        # refuse it rather than build the loop layout under other names
-        raise NotImplementedError("scan_blocks = True (the scan layout) is not ported yet "
-                                  "(ROADMAP: the scan layout, with the predictor)")
     extra: dict = dict(_SIZES[size_key])
     if model_type == "maesimple":
         extra.update(decoder_depth=1, decoder_num_heads=1)

@@ -7,9 +7,17 @@ The port's modules keep the JAX tree's names and (in, out) kernel layouts
 attention modules map the same way: an ``attn_pool`` model's
 ``pool/latent``, ``pool/xattn/{q,kv,proj}``, ``pool/norm`` and
 ``pool/mlp/{fc1,fc2}``, its ``decoder_pred`` at (D, img_size²·C), and an
-``Attention``'s ``qkv``/``proj``. Both directions are pure numpy and torch;
-the GPU host cannot read flax msgpack checkpoints, so weights cross over as
-numpy trees.
+``Attention``'s ``qkv``/``proj``. A predictor (``models/predictor.SkyViT``)
+maps the same way: ``patch_embed``, ``cls_token``, ``patch_mask_values``,
+``ra_dec_embed``, ``encoder/block*``, then ``norm`` (``map`` and ``token``
+pooling) or ``fc_norm`` (``avg``), the ``map`` pool's ``pool/latent``,
+``pool/xattn/{q,kv,proj}``, ``pool/norm``, ``pool/mlp/{fc1,fc2}``, and
+``head/{kernel,bias}`` at (D, num_labels). A tree in the scan layout
+(``encoder/blocks/block/...``, every leaf stacked over the blocks, as JAX
+builds ViT-H) maps to ``encoder.blocks.block.*``, which ``Encoder`` unstacks
+into the loop layout as it loads (``models/layers.py``). Both
+directions are pure numpy and torch; the GPU host cannot read flax msgpack
+checkpoints, so weights cross over as numpy trees.
 """
 
 from __future__ import annotations
@@ -19,30 +27,16 @@ from typing import Mapping
 import numpy as np
 import torch
 
+from sky_embeddings_tpu_torch.utils.checkpoint import flatten, nest
+
 
 def params_from_jax(tree: Mapping) -> dict[str, torch.Tensor]:
     """Nested dict of numpy arrays (the JAX ``params`` collection) -> state dict."""
-    out: dict[str, torch.Tensor] = {}
-
-    def walk(node: Mapping, prefix: str) -> None:
-        for key, val in node.items():
-            name = f"{prefix}{key}"
-            if isinstance(val, Mapping):
-                walk(val, name + ".")
-            else:
-                out[name] = torch.from_numpy(np.array(val, dtype=np.float32))
-
-    walk(tree, "")
-    return out
+    return {name: torch.from_numpy(np.array(val, dtype=np.float32))
+            for name, val in flatten(tree).items()}
 
 
 def params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> dict:
     """Inverse of :func:`params_from_jax`: state dict -> nested numpy dict."""
-    tree: dict = {}
-    for name, val in state_dict.items():
-        *path, leaf = name.split(".")
-        node = tree
-        for key in path:
-            node = node.setdefault(key, {})
-        node[leaf] = val.detach().to("cpu", torch.float32).numpy()
-    return tree
+    return nest({name: val.detach().to("cpu", torch.float32).numpy()
+                 for name, val in state_dict.items()})

@@ -12,21 +12,24 @@ ARCHITECTURE.model_type=mimhuge --set ARCHITECTURE.embed_dim=1280 --set
 TRAINING.remat=False --run_name mim_32_huge``, and MAE at ViT-B
 (``bench_mae``) is ``mim_1 --set ARCHITECTURE.model_type=base --set
 TRAINING.batch_size=1024 --run_name mae_base``; ``--run_name`` then keys the
-checkpoint instead of ``<model_name>``. Training batches stream from the h5
-file the config names (``train_data_file``) through ``H5Batcher`` or, when
-it names none, from the FITS tiles under ``train_data_paths`` (the
+checkpoint instead of ``<model_name>``. Training batches come from the h5
+file the config names (``train_data_file``) or, when it names none, stream
+from the FITS tiles under ``train_data_paths`` (the
 production configs' source: HSC ``calexp-HSC-<band>-<tract>-<patch>.fits``
 files, ``cutouts_per_tile`` random windows a tile) through
 ``FitsTileBatcher``, as the JAX twin does; validation batches from
-``val_data_file``. The pixel clip runs on the device inside the step.
-``--device cpu`` runs it on the CPU. When the config names probe sets
+``val_data_file``. ``[DATA] device_cache = True | False | auto`` (default
+auto: under ``device_cache_bytes``, 2 GiB) keeps an h5 set whole on the
+device and serves each batch as a gather there (``data/device_cache.py``),
+else ``H5Batcher`` streams it, as JAX ``pretrain_mim.py:68-78`` does. The
+pixel clip runs on the device inside the step. ``--device cpu`` runs it on
+the CPU. When the config names probe sets
 (``lp_class_data_file``, ``lp_regress_data_file``, h5 files under the data
 directory), the linear probes run after each validation pass with
 ``lp_combine`` pooling (default ``central``); an ``attn_pool`` model (``--set
 ARCHITECTURE.attn_pool=True``) probes its one pooled token.
 
-Not ported yet: the device-resident data cache, multi-process runs and the
-figures.
+Not ported yet: multi-process runs and the figures.
 """
 
 from __future__ import annotations
@@ -35,9 +38,9 @@ import os
 
 import torch
 
-from sky_embeddings_tpu_torch.configuration import Config, load_config
+from sky_embeddings_tpu_torch.configuration import apply_overrides, load_config
 from sky_embeddings_tpu_torch.data.fits_loader import build_fits_batcher
-from sky_embeddings_tpu_torch.data.h5_loader import build_h5_batcher
+from sky_embeddings_tpu_torch.data.device_cache import build_cached_or_streaming_batcher
 from sky_embeddings_tpu_torch.train.pretrain import MIMPretrainer, train_network
 from sky_embeddings_tpu_torch.utils.checkpoint import checkpoint_path
 from sky_embeddings_tpu_torch.utils.misc import build_train_argparser
@@ -60,17 +63,7 @@ def main(argv=None) -> str:
     print(f"Using torch {torch.__version__} on {args.device}")
 
     model_name = args.model_name
-    config = load_config(model_name, config_dir)
-    if args.overrides:
-        d = {sec: dict(config[sec].items()) for sec in config.sections()}
-        for item in args.overrides:
-            key, sep, value = item.partition("=")
-            sec, dot, name = key.partition(".")
-            if not (sep and dot and sec in d):
-                raise ValueError(f"--set {item!r}: want SECTION.key=value with a section of "
-                                 f"the config ({sorted(d)})")
-            d[sec][name] = value
-        config = Config.from_dict(d, name=model_name)
+    config = apply_overrides(load_config(model_name, config_dir), args.overrides, model_name)
     print(f"\nCreating model: {model_name}\n\nConfiguration:")
     print(config.describe())
 
@@ -84,11 +77,13 @@ def main(argv=None) -> str:
     data = config.data
     img_size = config.architecture.int("img_size")
     # the pixel clip runs on the device inside the step
-    batcher = dict(batch_size=pretrainer.batch_size, img_size=img_size, shuffle=True,
-                   pixel_min=None, pixel_max=None)
+    cached = dict(batch_size=pretrainer.batch_size, img_size=img_size, shuffle=True,
+                  device=pretrainer.device)
     if "train_data_file" in data:
-        train_batcher = build_h5_batcher(os.path.join(data_dir, data.str("train_data_file")),
-                                         num_workers=data.int("num_workers", 0), **batcher)
+        # [DATA] device_cache picks a device-resident set or the stream
+        train_batcher = build_cached_or_streaming_batcher(
+            data, os.path.join(data_dir, data.str("train_data_file")),
+            num_workers=data.int("num_workers", 0), **cached)
         print(f"The training set consists of {train_batcher.num_samples} cutouts.")
     else:
         train_batcher = build_fits_batcher(
@@ -97,7 +92,8 @@ def main(argv=None) -> str:
             img_size=img_size, cutouts_per_tile=data.int("cutouts_per_tile", 1024),
             use_calexp=data.bool("use_calexp", True), shuffle=True)
         print(f"The training set consists of {len(train_batcher)} sky tiles.")
-    val_batcher = build_h5_batcher(os.path.join(data_dir, data.str("val_data_file")), **batcher)
+    val_batcher = build_cached_or_streaming_batcher(
+        data, os.path.join(data_dir, data.str("val_data_file")), **cached)
 
     lp = {key: os.path.join(data_dir, data.str(key)) if key in data else None
           for key in ("lp_class_data_file", "lp_regress_data_file")}

@@ -5,14 +5,14 @@
 Builds the MIM model (SimMIM or MAE) from ``configs/<model_name>.ini`` with the params of
 the pretraining checkpoint that ``pretrain_mim`` writes
 (``models/<model_name>_best.ckpt.pt``, else ``models/<model_name>.ckpt.pt``;
-without one it warns and uses fresh seeded weights), S/N-filters the test
+without one it warns and uses fresh seeded weights), or, for a predictor
+config, the predictor with the checkpoint ``train_predictor`` writes, S/N-filters the test
 set, embeds the target set with 64 augmentations, then either streams the
 test set through the encoder (``mim_simsearch``) or answers from an
 embedding bank (``-bank``), and saves
 ``results/<model>_<target>_simsearch_results_f.npz`` with the JAX CLI's keys.
 
-Not ported yet: predictor configs (``NotImplementedError``) and the PNG
-figures (ROADMAP: plots).
+Not ported yet: the PNG figures (ROADMAP: figures).
 """
 
 from __future__ import annotations
@@ -30,6 +30,7 @@ from sky_embeddings_tpu_torch.eval.bank import EmbeddingBank, build_bank
 from sky_embeddings_tpu_torch.eval.eval_fns import extract_latents
 from sky_embeddings_tpu_torch.eval.simsearch import mim_simsearch
 from sky_embeddings_tpu_torch.models.mim import build_mim_model
+from sky_embeddings_tpu_torch.train.predictor import PredictorTrainer
 from sky_embeddings_tpu_torch.utils.checkpoint import checkpoint_path, load_checkpoint
 from sky_embeddings_tpu_torch.utils.misc import h5_snr
 
@@ -63,17 +64,22 @@ def parse_args(argv=None):
 
 
 def build_model_from_config(config_dir, model_dir, model_name, device):
-    """The MIM model (SimMIM or MAE; an MAE model is served unmasked) with
-    the params of the pretraining checkpoint (``best``, then the latest;
-    fresh seeded weights without one), and its config."""
+    """The model with the params of its checkpoint (``best``, then the
+    latest; fresh seeded weights without one), and its config: a MIM model
+    (SimMIM or MAE; an MAE model is served unmasked) or, for a predictor
+    config (one naming ``pretained_mae``), the predictor (JAX
+    ``similarity_search.py:62-80``), whose tokens are ``SkyViT.encode``'s."""
     config = load_config(model_name, config_dir)
     if "TRAINING" in config and (
         "pretained_mae" in config.training or "pretrained_mae" in config.training
     ):
-        raise NotImplementedError(
-            f"{model_name} is a predictor config; the predictor is not ported yet "
-            "(ROADMAP: predictor)"
-        )
+        mae_name = config.pretrained_mae_name()
+        mae_config = load_config(mae_name, config_dir) if mae_name else config
+        trainer = PredictorTrainer(config, mae_config, device=device)
+        if not (trainer.restore(checkpoint_path(model_dir, model_name, best=True))
+                or trainer.restore(checkpoint_path(model_dir, model_name))):
+            print(f"WARNING: no checkpoint for {model_name}; using fresh weights.")
+        return trainer.model.eval(), config
     dtype = torch.bfloat16 if config.training.str("dtype", "float32") == "bfloat16" else torch.float32
     model = build_mim_model(config, dtype=dtype, device=device)
     for best in (True, False):

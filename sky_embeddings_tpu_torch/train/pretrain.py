@@ -41,11 +41,8 @@ from sky_embeddings_tpu_torch.ops.masking import simmim_batch_mask
 from sky_embeddings_tpu_torch.train.optim import pretrain_optimizer
 from sky_embeddings_tpu_torch.train.schedules import cosine_annealing
 from sky_embeddings_tpu_torch.utils import checkpoint as ckpt
-from sky_embeddings_tpu_torch.utils.device import resolve_device
+from sky_embeddings_tpu_torch.utils.device import DTYPES, resolve_device
 from sky_embeddings_tpu_torch.utils.profiling import StepTimer
-
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-
 
 def make_mim_step(
     model: SkyMIM,
@@ -110,7 +107,7 @@ class MIMPretrainer:
             raise NotImplementedError(
                 "tensor_parallel / zero_optimizer are not ported yet (ROADMAP: parallel/)")
         if dtype is None:
-            dtype = _DTYPES[training.str("dtype", "float32")]
+            dtype = DTYPES[training.str("dtype", "float32")]
         # [TRAINING] remat: checkpoint each block (one extra forward for
         # O(depth) less live memory), as the JAX trainer reads it
         self.model = build_mim_model(config, dtype=dtype, device=self.device,

@@ -1,8 +1,11 @@
-"""Device selection for the port's entry points."""
+"""Device and dtype selection for the port's entry points."""
 
 from __future__ import annotations
 
 import torch
+
+# the config's [TRAINING] dtype / [DATA] device_cache_dtype names
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def resolve_device(device: str | torch.device = "cuda") -> torch.device:

@@ -1,13 +1,16 @@
-"""The training CLI's argument parser, central-patch selection and
-channel-wise S/N (copies of ``build_train_argparser``, ``select_centre`` and
-``h5_snr`` from ``sky_embeddings_tpu/utils/misc.py``, reference
-``utils/misc.py``). Framework-free: ``select_centre`` indexes numpy arrays
-and torch tensors alike."""
+"""The training CLI's argument parser, training-subset selection,
+central-patch selection and channel-wise S/N (copies of
+``build_train_argparser``, ``samples_per_class``,
+``select_training_indices``, ``select_centre`` and ``h5_snr`` from
+``sky_embeddings_tpu/utils/misc.py``, reference ``utils/misc.py``).
+Framework-free: ``select_centre`` indexes numpy arrays and torch tensors
+alike. ``select_training_indices`` reads the ``class`` column of an h5 file
+or takes it as an array (the card host has no h5py)."""
 
 from __future__ import annotations
 
 import argparse
-from typing import Optional
+from typing import Optional, Union
 
 import numpy as np
 
@@ -35,6 +38,36 @@ def build_train_argparser(description: str = "Training") -> argparse.ArgumentPar
         help="Data directory (defaults to <repo>/data/).",
     )
     return parser
+
+
+def samples_per_class(class_counts: dict, num_train: int, balanced: bool = False) -> dict:
+    """Rows to take of each class: proportional to its count, or the same
+    number of each (at most the rarest class's count) when ``balanced``."""
+    total = sum(class_counts.values())
+    if balanced:
+        n = min(num_train // len(class_counts), min(class_counts.values()))
+        return {c: n for c in class_counts}
+    return {c: int(cnt / total * num_train) for c, cnt in class_counts.items()}
+
+
+def select_training_indices(data: Union[str, np.ndarray], num_train: int,
+                            balanced: bool = False) -> list[int]:
+    """Class-proportional (or balanced) prefix selection of training rows:
+    the first rows of each class, classes in ascending order. ``data`` is
+    an h5 path (its ``class`` column) or the class column itself."""
+    if isinstance(data, str):
+        if h5py is None:
+            raise ImportError("h5py required")
+        with h5py.File(data, "r") as f:
+            classes = np.asarray(f["class"])
+    else:
+        classes = np.asarray(data)
+    unique, counts = np.unique(classes, return_counts=True)
+    per_class = samples_per_class(dict(zip(unique.tolist(), counts.tolist())), num_train, balanced)
+    indices: list[int] = []
+    for cls, n in per_class.items():
+        indices.extend(np.where(classes == cls)[0][:n].tolist())
+    return indices
 
 
 def central_patch_indices(grid_size: int, n_patches: int) -> np.ndarray:

@@ -209,7 +209,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert len(mods) >= 15
     for new in ("data.fits_io", "data.fits_loader", "sky_sim_search", "eval.bank",
                 "eval.simsearch", "ops.kernels.simscore", "ops.kernels.attention", "eval.probe",
-                "eval.linear_probe"):
+                "eval.linear_probe", "models.predictor", "train.predictor", "data.device_cache",
+                "utils.plotting", "train_predictor", "test_predictor", "semantic_validation"):
         assert f"{pkg.__name__}.{new}" in mods
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
 
@@ -228,10 +229,29 @@ def test_unported_model_options_raise():
 
     base = {"TRAINING": {}, "ARCHITECTURE": dict(
         img_size=16, num_channels=3, embed_dim=48, patch_size=4, model_type="simmim")}
+    # what is still unported raises, pointing at the ROADMAP
+    from sky_embeddings_tpu_torch.train.pretrain import MIMPretrainer
+
+    for over in ({"tensor_parallel": "2"}, {"zero_optimizer": "True"}):
+        training = dict(batch_size=2, total_batch_iters=1, init_lr=1e-3, final_lr_factor=10.0,
+                        weight_decay=0.05, **over)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            MIMPretrainer(Config.from_dict({**base, "DATA": {}, "TRAINING": training}), device="cpu")
+    # the scan layout is a naming layer: scan_blocks builds the loop layout,
+    # and weights stacked over the blocks (encoder.blocks.block.*) load into it
     for arch in ({"scan_blocks": "True"}, {"model_type": "base", "scan_blocks": "True"}):
         cfg = Config.from_dict({**base, "ARCHITECTURE": {**base["ARCHITECTURE"], **arch}})
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_mim_model(cfg, device="cpu")
+        model = build_mim_model(cfg, device="cpu")
+        loop = build_mim_model(cfg, device="cpu", generator=torch.Generator().manual_seed(1))
+        sd = loop.state_dict()
+        blocks = [k for k in sd if k.startswith("encoder.block")]
+        stacked = {k: v for k, v in sd.items() if k not in blocks}
+        for leaf in {k.split(".", 2)[2] for k in blocks}:
+            stacked["encoder.blocks.block." + leaf] = torch.stack(
+                [sd[f"encoder.block{i}.{leaf}"] for i in range(model.encoder.depth)])
+        model.load_state_dict(stacked)
+        for k, v in sd.items():
+            assert torch.equal(model.state_dict()[k], v), k
     # the MAE model types build (tests/test_torch_mae.py holds them to JAX),
     # and attn_pool builds the pooled SimMIM (tests/test_torch_attention.py);
     # MAE ignores attn_pool, as JAX does

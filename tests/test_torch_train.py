@@ -47,6 +47,17 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIGS = os.path.join(REPO, "configs")
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """The CPU models here are tiny: one thread runs them fastest, and it
+    keeps the test workers that share the cores from spinning OpenMP pools
+    against each other (the CLI twins ran 20-60x slower under contention)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _flat(tree, prefix=""):
     """Nested dict -> {dotted path: leaf}."""
     out = {}
