@@ -11,9 +11,9 @@ failing loudly (any failure exits non-zero and prints no result line):
    forward; attention stash and recompute backward; the standalone
    attention forward and backward, kernels 12 and 13; MLP block forward and
    stash forward; MLP recompute, stash and weight-streaming backward; the
-   multi-query bank scorer) from the sources in the
-   checkout, one nvcc per source, all at once; Triton compiles the bank
-   scorer;
+   fp32 forms of K1, K2 and kernels 2, 3 and 8 in the same libraries; the
+   multi-query bank scorer) from the sources in the checkout, one nvcc per
+   source, all at once; Triton compiles the bank scorer;
 3. kernel parity, each kernel against its plain PyTorch version on the same
    inputs: the serving kernels at the serving path's shapes (ViT-B: N=65,
    D=768, H=12, F=3072 at B=64 and B=1024; a 1M x 768 bank in bf16 and fp32;
@@ -68,7 +68,15 @@ failing loudly (any failure exits non-zero and prints no result line):
    the K-major-B form, dWqkv with dWproj in one transposed-A group) at
    ``mim_1`` B=64 and 512 and at ViT-H B=256 beside ``torch.addmm`` /
    ``torch.mm``, with kernel 3's and 4's device time by kernel name (the
-   ``bwd_gemm_times`` record);
+   ``bwd_gemm_times`` record); the fp32 forms of K2, kernels 2 and 3, K1
+   and kernel 8 (the fp32 configs' path) at ViT-B B=64 (N=65) and at
+   ``cls_fs_1k``'s B=256 (N=66) on inputs drawn in fp32, every output
+   against the plain version (TF32 off) at TOL_F32_FORMS, each launch an
+   fp32 one, timed by CUDA events and device time beside the plain
+   version, bound at PEAK_FP32_PRODUCTS; their GEMM (``csrc/gemm_f32.cuh``,
+   3xTF32 on ``mma.sync``) alone at ``cls_fs_1k``'s twelve products (the
+   forward, NT and TN forms with their epilogues) at TOL_GEMM_F32 beside
+   fp32 ``torch.addmm`` / ``torch.mm`` (the ``gemm_f32_times`` record);
 4. the serving path, through the entry points ``similarity_search`` calls, on
    ``configs/mim_1.ini`` (SimMIM ViT-B, bf16, full depth, seeded weights) and
    synthetic cutouts with whole-band NaNs: ``extract_latents`` of 2 targets
@@ -152,9 +160,20 @@ failing loudly (any failure exits non-zero and prints no result line):
    each route's kernel path against its plain path from the same weights,
    optimizer state and augmentation draws (one step's gradients and loss,
    5 steps' losses); train-step times, device busy share and peak memory
-   (``ft``, ``fs``, ``lp``); ``z_struct_ft_512`` in fp32 (a config without
-   ``dtype``) raising on the card; then ``predictor_infer`` over 4 batches
-   (K1 and K2 at 12 x 4) and its images/s;
+   (``ft``, ``fs``, ``lp``); then ``predictor_infer`` over 4 batches (K1
+   and K2 at 12 x 4) and its images/s;
+5d. the fp32 predictor paths (configs that set no ``dtype``), as shipped,
+   full width and depth, the sets in memory: ``cls_fs_1k`` (``fs``, ViT-B,
+   9 bands, the RA/Dec token: N=66, B=256, 3-class cross-entropy) with the
+   fp32 forms of kernels 2, 3 and 8 at 12 x 3, K1 at 12 x (3 + 1), K2 at
+   12 x 1; ``lp_1`` (``lp`` over ``mim_1``'s ViT-B warm-started from the
+   ``mim_1`` path's weights, B=128) with those of K1 and K2 at 12 x (3 + 1)
+   alone; every launch fp32, counted apart (``*_f32``). Each route's kernel
+   path against its plain path (TOL_PRED_F32), the step's time, busy share
+   and peak memory; each route's ``predictor_infer`` in fp32 over 4
+   batches (K1 and K2 alone) and its images/s; and ``z_ft_2`` in fp32
+   (``mim_32``'s ``mimlarge`` backbone with the MLP stash) raising on the
+   card, naming kernel 6;
 5b. the ``Attention`` module (``models/layers.Attention``, the only caller of
    kernels 12 and 13, as in JAX) at ViT-B width, B=64, in bf16 and at its
    default fp32: one forward and ``backward()`` through autograd with the
@@ -258,6 +277,26 @@ TOL_ATTN_F32 = 4e-7
 # 5.4e-3, lp 7.0e-3 over the head's 17 leaves, ce 3.4e-3), one step's loss
 # 8.4e-5, five steps' losses 2.2e-4. The bars are about twice those.
 TOL_GRAD_PRED, TOL_LOSS_PRED = 1.5e-2, 5e-4
+# the fp32 forms of K1, K2 and kernels 2, 3 and 8 alone against their plain
+# versions (TF32 off), max|a-b|/max|b| per output, and their GEMM
+# (csrc/gemm_f32.cuh, 3xTF32) alone against fp32 torch.mm at cls_fs_1k's
+# products. Measured on the H100 (PERF.md): the forms 2.25e-6 at worst
+# (kernel 8's dx at B=256; K1 2.1e-6, kernel 3's dx 1.4e-6), the GEMM
+# 2.5e-6 (dy = da @ W1^T, K = 3 072; 8.5e-7 to 2.0e-6 elsewhere). The bars
+# are about twice those; none may be looser than 1e-4, which keeps them
+# fp32 results (the bf16 bars are 2e-2 and 3e-2).
+TOL_F32_FORMS = 5e-6
+TOL_GEMM_F32 = 5e-6
+# the fp32 predictor paths (ViT-B depth 12), kernel path against plain path
+# from the same weights, optimizer state and generator: one step's
+# gradients (||a - b|| / ||b|| per trainable leaf) and loss, and the losses
+# of PRED_F32_RUN[0] steps, by route. Measured on the H100 (PERF.md): fs
+# (cls_fs_1k) gradients 6.7e-6 at worst (pool.xattn.q.kernel; median
+# 2.2e-7), lp (lp_1: the head's 17 leaves) 7.0e-4 at worst on the same
+# leaf, whose gradient is a near-cancelling sum over the keys of tokens
+# that differ by about 1e-6 (median 2.9e-7); losses 1.8e-7 (fs) and 0
+# (lp). The bars are about twice those.
+TOL_PRED_F32 = {"fs": (1.5e-5, 4e-7), "lp": (1.5e-3, 4e-7)}  # route: (gradients, losses)
 
 CONFIG = "mim_1"
 DEVICE = "cuda"
@@ -310,6 +349,17 @@ PRED = ("mim_struct", {"ft": "z_struct_ft_512", "fs": "z_struct_fs_512", "lp": "
                        "ce": "z_struct_ft_512"}, 256, 5, 2, 4, 10)
 PRED_CE = {"DATA": {"label_keys": "['class']", "num_classes": "3", "label_means": "[0]",
                     "label_stds": "[1]"}, "TRAINING": {"loss_fn": "crossentropy"}}
+# the fp32 predictor paths (configs without a dtype, as 43 shipped ones
+# are), as shipped: route -> (config, label key, training-set batches); then
+# (train steps, validation batches, predictor_infer batches, timed steps);
+# an fp32 config whose build needs kernel 6 (a mimlarge backbone with the
+# MLP stash), which must raise on the card
+PRED_F32 = {"fs": ("cls_fs_1k", "class", 5), "lp": ("lp_1", "zspec", 4)}
+PRED_F32_RUN = (3, 1, 4, 5)
+PRED_F32_NEEDS_K6 = "z_ft_2"
+# the fp32 forms alone: (label, B, N) at mim_1's ViT-B (N=65) and at
+# cls_fs_1k's batch with the RA/Dec token (N=66)
+F32_SHAPES = (("vitb", 64, 65), ("cls_fs", 256, 66))
 # the retrieval path: a FITS survey of FITS_TILES tiles of FITS_SIZE^2 pixels
 # per band, searched at FITS_OVERLAP for N_GROUPS target groups; kernel 11 at
 # MULTI_Q queries on the 1M bank and at RAGGED (rows, width, queries); the
@@ -341,7 +391,7 @@ def predictor_phase(dev, mim_ckpt, zero_counters, launch_counts, step_times):
     the backward); then the kernel path against the plain path from the
     same weights, optimizer state and generator; then (not for the
     crossentropy head, which runs ``ft``'s kernels) the step's time, device
-    busy share and peak memory. Then an fp32 predictor raises on the card.
+    busy share and peak memory.
     Last, ``predictor_infer`` over PRED[5] batches (K1 and K2 only), and its
     images/s."""
     import numpy as np
@@ -468,20 +518,6 @@ def predictor_phase(dev, mim_ckpt, zero_counters, launch_counts, step_times):
         del trainer
         torch.cuda.empty_cache()
 
-    # a predictor config without a dtype (fp32, as 43 shipped ones are)
-    # raises on the card: the block kernels take bf16, nothing falls back
-    fp32 = apply_overrides(load_config(routes["ft"], cfg_dir), ["TRAINING.dtype=float32"],
-                           routes["ft"] + "_fp32")
-    refused = None
-    try:
-        PredictorTrainer(fp32, mae, seed=0, device=dev).train_batch(next(stream))
-    except ValueError as err:
-        refused = str(err)
-    print(f"predictor in fp32 on the card: {refused}", flush=True)
-    check(refused is not None and "bf16" in refused, "an fp32 predictor raises on the card")
-    out["fp32_refused"] = refused
-    torch.cuda.empty_cache()
-
     # predictor_infer over PRED[5] batches of the fine-tuned model
     trainer, val_ds = kept
     model = trainer.model.eval()
@@ -513,6 +549,191 @@ def predictor_phase(dev, mim_ckpt, zero_counters, launch_counts, step_times):
     out["infer"] = {"batches": infer_b, "first_s": t_inf, "warm_s": t_warm,
                     "images_per_s": infer_b * B / t_warm, "launches": launches}
     del kept, trainer, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def predictor_f32_phase(dev, mim_ckpt, zero_counters, launch_counts, step_times):
+    """The fp32 predictor paths (configs that set no dtype), through the
+    entry points ``train_predictor`` and ``test_predictor`` call, full width
+    and depth, the sets in memory: ``cls_fs_1k`` as shipped (``fs``, ViT-B
+    depth 12, 9 bands and the RA/Dec token: N=66, B=256, 3-class
+    cross-entropy, ``map`` pool) and ``lp_1`` (``lp`` over ``mim_1``'s ViT-B,
+    N=65, warm-started from ``mim_ckpt``, B=128, mse). Each takes
+    PRED_F32_RUN[0] steps and PRED_F32_RUN[1] validation batches with the
+    counters zeroed just before and read just after: ``fs`` the fp32 forms
+    of kernels 2, 3 and 8, K1 and K2, ``lp`` those of K1 and K2 alone, every
+    launch an fp32 one. Then the kernel path against the plain path from the
+    same weights, optimizer state and generator; the step's time, device
+    busy share and peak memory; ``predictor_infer`` in fp32 (K1 and K2
+    alone) over PRED_F32_RUN[2] batches and its images/s. Last, an fp32 build that needs kernel 6
+    (PRED_F32_NEEDS_K6: ``mim_32``'s ``mimlarge`` backbone with the MLP
+    stash) raises on the card and names the kernel: nothing falls back."""
+    import numpy as np
+    import torch
+
+    from sky_embeddings_tpu_torch.configuration import load_config
+    from sky_embeddings_tpu_torch.data.device_cache import DeviceDataset
+    from sky_embeddings_tpu_torch.data.synthetic import make_structured_cutouts
+    from sky_embeddings_tpu_torch.eval.eval_fns import predictor_infer
+    from sky_embeddings_tpu_torch.train.predictor import PredictorTrainer
+
+    steps, val_b, infer_b, timed = PRED_F32_RUN
+    cfg_dir = os.path.join(ROOT, "configs")
+    out = {"routes": {}}
+    fs_sets = None
+    for route, (name, key, n_train) in PRED_F32.items():
+        cfg = load_config(name, cfg_dir)
+        mae_name = cfg.pretrained_mae_name()
+        mae = cfg if mae_name is None else load_config(mae_name, cfg_dir)
+        B = cfg.training.int("batch_size")
+        check("dtype" not in cfg.training and cfg.training.str("train_method") == route,
+              f"{name}: {route}, no dtype (fp32)")
+        geom = dict(channels=mae.architecture.int("num_channels"),
+                    img_size=mae.architecture.int("img_size"))
+        sets = {"train": make_structured_cutouts(n_train * B, seed=16, **geom),
+                "val": make_structured_cutouts(B * max(val_b, infer_b), seed=17, **geom)}
+        if route == "fs":
+            fs_sets = sets
+        t_init = time.perf_counter()
+        trainer = PredictorTrainer(cfg, mae, seed=0, device=dev)
+        warm = []
+        if mae_name is not None:
+            check(trainer.warm_start(mim_ckpt, log_fn=warm.append), f"{name}: warm start")
+        torch.cuda.synchronize()
+        t_init = time.perf_counter() - t_init
+        m = trainer.model
+        layers = m.encoder.depth
+        check(all(p.dtype == torch.float32 for p in m.parameters()) and m.dtype == torch.float32,
+              f"{name}: an fp32 model")
+        n_idx = cfg.training.int("num_train")
+        data = dict(label_keys=[key], device=dev)
+        train_ds = DeviceDataset.from_arrays(sets["train"], B, shuffle=True,
+                                             indices=range(n_idx) if n_idx > 0 else None, **data)
+        val_ds = DeviceDataset.from_arrays(sets["val"], B, shuffle=False, **data)
+        stream = train_ds.forever()
+        zero_counters()
+        torch.cuda.synchronize()
+        t_run = time.perf_counter()
+        train = [trainer.train_batch(next(stream)) for _ in range(steps)]
+        val = [trainer.eval_batch(b) for b in val_ds.take(val_b)]
+        torch.cuda.synchronize()
+        t_run = time.perf_counter() - t_run
+        launches = launch_counts()
+        if route == "lp":  # the frozen backbone: the inference kernels alone
+            want = {"fused_attn_block": layers * (steps + val_b),
+                    "fused_mlp_block": layers * (steps + val_b)}
+        else:
+            want = {"attn_block_fwd_stash": layers * steps, "attn_block_bwd_stash": layers * steps,
+                    "mlp_block_bwd": layers * steps, "fused_mlp_block": layers * (steps + val_b),
+                    "fused_attn_block": layers * val_b}
+        want.update({k + "_f32": v for k, v in want.items()})  # every launch an fp32 one
+        losses = [[float(v) for v in pair] for pair in train + val]
+        print(f"predictor fp32 {route} ({name}, {m.global_pool} pool, {m.num_labels} labels, "
+              f"{trainer.loss_fn_name}, depth {layers}, D={m.embed_dim}, "
+              f"N={m.grid_size ** 2 + m.num_extra_tokens}, B={B}): {steps} steps + {val_b} val "
+              f"batches in {t_run:.2f} s; (loss, metric) "
+              f"{losses}; {' '.join(warm)}; launches { {k: v for k, v in launches.items() if v} }",
+              flush=True)
+        check(bool(np.isfinite(losses).all()), f"predictor fp32 {route}: losses finite")
+        for k_, n_ in launches.items():
+            check(n_ == want.get(k_, 0),
+                  f"predictor fp32 {route}: {k_} launches {n_} == {want.get(k_, 0)}")
+
+        # kernel path vs plain path from the same weights, optimizer state
+        # and generator: one step's gradients and loss, then the steps' losses
+        plain = PredictorTrainer(cfg, mae, seed=0, device=dev)
+        plain.model.load_state_dict(m.state_dict())
+        plain.optimizer.load_state_dict(copy.deepcopy(trainer.optimizer.state_dict()))
+        plain.generator.set_state(trainer.generator.get_state())
+        plain.step = trainer.step
+        plain.model.plain = True
+        batches = [next(stream) for _ in range(steps)]
+        traj, grads = [], []
+        for tr in (trainer, plain):
+            traj.append([float(tr.train_batch(b)[0]) for b in batches[:1]])
+            grads.append({n: p.grad.float().clone() for n, p in tr.model.named_parameters()
+                          if p.grad is not None})
+            traj[-1] += [float(tr.train_batch(b)[0]) for b in batches[1:]]
+        grad_rel = {n: float((a - grads[1][n]).norm() / (grads[1][n].norm() + 1e-30))
+                    for n, a in grads[0].items()}
+        worst = max(grad_rel, key=grad_rel.get)
+        loss_rel = abs(traj[0][0] - traj[1][0]) / abs(traj[1][0])
+        traj_rel = max(abs(a - b) / abs(b) for a, b in zip(*traj))
+        n_train_leaves = sum(1 for p in m.parameters() if p.requires_grad)
+        tol_grad, tol_loss = TOL_PRED_F32[route]
+        print(f"predictor fp32 {route} kernel vs plain path: loss rel {loss_rel:.3e}; gradient "
+              f"||a-b||/||b|| max {grad_rel[worst]:.3e} ({worst}), median "
+              f"{float(np.median(list(grad_rel.values()))):.3e} over {len(grad_rel)} leaves (bar "
+              f"{tol_grad}); {steps}-step losses kernel {traj[0]} plain {traj[1]}, max rel "
+              f"{traj_rel:.3e} (bar {tol_loss})", flush=True)
+        check(len(grad_rel) == n_train_leaves and grads[0].keys() == grads[1].keys(),
+              f"predictor fp32 {route}: every trainable leaf, and only those, gets a gradient")
+        check(all(np.isfinite(list(grad_rel.values()))) and grad_rel[worst] <= tol_grad,
+              f"predictor fp32 {route}: gradients kernel vs plain")
+        check(loss_rel <= tol_loss and traj_rel <= tol_loss,
+              f"predictor fp32 {route}: losses kernel vs plain")
+        del plain, grads
+        torch.cuda.empty_cache()
+
+        tb = next(stream)
+        out["routes"][route] = {
+            "config": cfg.name, "loss_fn": trainer.loss_fn_name, "train_method": trainer.train_method,
+            "layers": layers, "embed_dim": m.embed_dim, "batch": B, "channels": m.in_chans,
+            "ra_dec": m.ra_dec, "num_labels": m.num_labels, "trainer_init_s": t_init,
+            "seconds": t_run, "launches": launches, "losses": losses, "warm_start": warm,
+            "trainable_leaves": n_train_leaves, "loss_rel_vs_plain": loss_rel,
+            "grad_rel_vs_plain_max": grad_rel[worst], "grad_rel_worst_leaf": worst,
+            "grad_rel_vs_plain_median": float(np.median(list(grad_rel.values()))),
+            "trajectory_kernel": traj[0], "trajectory_plain": traj[1], "trajectory_max_rel": traj_rel,
+            "train_step": step_times(lambda: trainer.train_batch(tb), B, timed,
+                                     f"predictor fp32 {route}")}
+        # predictor_infer in fp32 over PRED_F32_RUN[2] batches
+        model = trainer.model.eval()
+        zero_counters()
+        torch.cuda.synchronize()
+        t_inf = time.perf_counter()
+        targets, preds = predictor_infer(model, val_ds.take(infer_b))
+        torch.cuda.synchronize()
+        t_inf = time.perf_counter() - t_inf
+        il = launch_counts()
+        check(len(targets) == len(preds) == infer_b * B and preds.shape[1] == m.num_labels
+              and bool(np.isfinite(preds).all()), f"fp32 predictor_infer ({name}): {preds.shape} finite")
+        for k_, n_ in il.items():
+            want_n = layers * infer_b if k_ in ("fused_attn_block", "fused_mlp_block",
+                                                 "fused_attn_block_f32", "fused_mlp_block_f32") else 0
+            check(n_ == want_n, f"fp32 predictor_infer ({name}): {k_} launches {n_} == {want_n}")
+        reps = 3
+        torch.cuda.synchronize()
+        t_warm = time.perf_counter()
+        for _ in range(reps):
+            predictor_infer(model, val_ds.take(infer_b))
+        torch.cuda.synchronize()
+        t_warm = (time.perf_counter() - t_warm) / reps
+        print(f"fp32 predictor_infer ({name}): {infer_b} batches of {B} in {t_inf:.3f} s (first), "
+              f"{t_warm:.3f} s warm, {infer_b * B / t_warm:.0f} images/s; launches "
+              f"{ {k: v for k, v in il.items() if v} }", flush=True)
+        out["routes"][route]["infer"] = {"batches": infer_b, "first_s": t_inf, "warm_s": t_warm,
+                                         "images_per_s": infer_b * B / t_warm, "launches": il}
+        del trainer, model, train_ds, val_ds
+        torch.cuda.empty_cache()
+
+    # an fp32 build that needs kernel 6 raises on the card, naming it
+    cfg = load_config(PRED_F32_NEEDS_K6, cfg_dir)
+    mae = load_config(cfg.pretrained_mae_name(), cfg_dir)
+    refused = None
+    trainer = PredictorTrainer(cfg, mae, seed=0, device=dev)
+    batch_ds = DeviceDataset.from_arrays(fs_sets["val"], cfg.training.int("batch_size"),
+                                         shuffle=False, label_keys=["zspec"], device=dev)
+    try:
+        trainer.train_batch(next(iter(batch_ds.take(1))))
+    except ValueError as err:
+        refused = str(err)
+    print(f"fp32 {PRED_F32_NEEDS_K6} ({mae.architecture.str('model_type')}, MLP stash "
+          f"{trainer.model.encoder.block0.ffn.stash}) on the card: {refused}", flush=True)
+    check(refused is not None and "kernel 6" in refused, f"fp32 {PRED_F32_NEEDS_K6} raises, naming kernel 6")
+    out["needs_kernel_6_refused"] = refused
+    del trainer, batch_ds
     torch.cuda.empty_cache()
     return out
 
@@ -564,6 +785,8 @@ def main() -> int:
         gemm_dual,
         gemm_dual_plain,
         gemm_encode_us,
+        gemm_f32,
+        gemm_f32_plain,
         gemm_plain,
         gemm_plan,
         mlp_bwd_groups,
@@ -1100,6 +1323,136 @@ def main() -> int:
 
     mark("training_kernels_mim_1")
 
+    # the fp32 forms of K1, K2 and kernels 2, 3 and 8 (the fp32 configs'
+    # path) alone, at mim_1's ViT-B at B=64 and at cls_fs_1k's B=256, N=66:
+    # every output against the plain version (TF32 off) at TOL_F32_FORMS, on
+    # fp32 inputs drawn in fp32 (bf16-rounded ones would hide the 3xTF32
+    # split); times by CUDA events and the profiler's device time beside the
+    # plain version's, bound at the faster fp32 product rate
+    # (PEAK_FP32_PRODUCTS); each launch checked to be an fp32 one. Then the
+    # fp32 GEMM (csrc/gemm_f32.cuh) alone at cls_fs_1k's products beside
+    # fp32 torch.addmm / torch.mm on the same operands (the yardstick; the
+    # port never calls it)
+    def f32_block_args(kind_, B, n):
+        rn = lambda *s_: torch.randn(*s_, generator=gen, device=dev)
+        (d_in, d_mid) = (D, 3 * D) if kind_ == "attn" else (D, F)
+        (e_in, e_out) = (D, D) if kind_ == "attn" else (F, D)
+        return (rn(B, n, D) * 0.5, 1.0 + 0.1 * rn(D), 0.1 * rn(D), rn(d_in, d_mid) * d_in ** -0.5,
+                0.01 * rn(d_mid), rn(e_in, e_out) * e_in ** -0.5, 0.01 * rn(e_out))
+
+    def f32_bounds(B, n):
+        M, hd = B * n, D // H
+        core, probs = B * H * n * n * hd, B * H * n * n * 4
+        w_attn, w_mlp = 4 * D * D * 4, 2 * D * F * 4
+        fwd_bytes = 2 * M * D * 4 + w_attn + 6 * D * 4
+        return {
+            "attn_block_fwd_f32": (8 * M * D * D + 4 * core, fwd_bytes),
+            "attn_block_fwd_stash_f32": (8 * M * D * D + 4 * core, fwd_bytes + M * 3 * D * 4 + probs),
+            "attn_block_bwd_stash_f32": (16 * M * D * D + 10 * core,
+                                         6 * M * D * 4 + probs + 2 * w_attn + 8 * D * 4),
+            "mlp_block_fwd_f32": (4 * M * D * F, 2 * M * D * 4 + w_mlp + (3 * D + F) * 4),
+            "mlp_block_bwd_f32": (10 * M * D * F, 3 * M * D * 4 + 2 * w_mlp + (5 * D + 2 * F) * 4),
+        }
+
+    f32_gap = {}
+    for label, B, n in F32_SHAPES:
+        xa, xm = f32_block_args("attn", B, n), f32_block_args("mlp", B, n)
+        g = torch.randn(B, n, D, generator=gen, device=dev) * 0.1
+        _, qkv_p, probs_p = attn_block_fwd_stash_plain(*xa, H)
+        cases = (
+            ("attn_block_fwd_f32", fused_attn_block, attn_block_plain, (*xa, H), ("out",)),
+            ("attn_block_fwd_stash_f32", attn_block_fwd_stash, attn_block_fwd_stash_plain,
+             (*xa, H), ("out", "qkv", "probs")),
+            ("attn_block_bwd_stash_f32", attn_block_bwd_stash, attn_block_bwd_stash_plain,
+             (xa[0], xa[1], xa[2], xa[3], xa[5], qkv_p, probs_p, g, H), grads_attn),
+            ("mlp_block_fwd_f32", fused_mlp_block, mlp_block_plain, xm, ("out",)),
+            ("mlp_block_bwd_f32", mlp_block_bwd, mlp_block_bwd_plain, (*xm[:6], g), grads_mlp),
+        )
+        bounds = f32_bounds(B, n)
+        for name, kern, plain, args, outs in cases:
+            before = kern.f32_launches
+            got, want = kern(*args), plain(*args)
+            torch.cuda.synchronize()
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            errs = {o: rel_err(a, b) for o, a, b in zip(outs, got, want)}
+            finite = all(bool(torch.isfinite(a).all()) for a in got)
+            worst = max(r for r, _ in errs.values())
+            f32_gap[f"{name} {label}"] = {o: r for o, (r, _) in errs.items()}
+            print(f"parity {name} {label} B={B} N={n}: max-rel per output "
+                  + ", ".join(f"{o} {r:.2e}" for o, (r, _) in errs.items())
+                  + f" (bar {TOL_F32_FORMS}), finite {finite}, dtypes "
+                  + " ".join(str(a.dtype).replace("torch.", "") for a in got), flush=True)
+            check(kern.f32_launches == before + 1 and all(a.dtype == torch.float32 for a in got),
+                  f"{name} {label}: one fp32 launch, fp32 outputs")
+            check(finite and worst <= TOL_F32_FORMS, f"{name} {label} parity")
+            iters = 10 if B <= 64 else 4
+            b_ms, b_by = bound_ms(*bounds[name], PEAK_FP32_PRODUCTS)
+            timings[(name, label)] = {
+                "max_rel_err": worst, "max_abs_err": max(a for _, a in errs.values()),
+                "ms": cuda_ms(lambda: kern(*args), iters),
+                "device_ms": device_ms(lambda: kern(*args), 2),
+                "plain_ms": cuda_ms(lambda: plain(*args), max(iters // 2, 2)),
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            }
+            t_ = timings[(name, label)]
+            print(f"time {name} {label}: {t_['ms']:.4f} ms (device {t_['device_ms']:.4f}), plain "
+                  f"{t_['plain_ms']:.4f}, bound {b_ms:.4f} ({b_by})", flush=True)
+            del got, want
+        del xa, xm, g, qkv_p, probs_p, cases
+    torch.cuda.empty_cache()
+
+    M32 = F32_SHAPES[-1][1] * F32_SHAPES[-1][2]
+    gemm_f32_times = {}
+    for name, form, epi, sa, sb in (
+            ("qkv", "fwd", "bias", (M32, D), (D, 3 * D)),
+            ("proj", "fwd", "bias_residual", (M32, D), (D, D)),
+            ("fc1", "fwd", "bias_gelu", (M32, D), (D, F)),
+            ("fc2", "fwd", "bias_residual", (M32, F), (F, D)),
+            ("dctx", "nt", "store", (M32, D), (D, D)),
+            ("dh", "nt", "dgelu", (M32, D), (F, D)),
+            ("dy_mlp", "nt", "store", (M32, F), (D, F)),
+            ("dy_attn", "nt", "store", (M32, 3 * D), (D, 3 * D)),
+            ("dW1", "tn", "store", (M32, D), (M32, F)),
+            ("dW2", "tn", "store", (M32, F), (M32, D)),
+            ("dWqkv", "tn", "store", (M32, D), (M32, 3 * D)),
+            ("dWproj", "tn", "store", (M32, D), (M32, D))):
+        a = torch.randn(*sa, generator=gen, device=dev)
+        b = torch.randn(*sb, generator=gen, device=dev) * (sb[0] if form == "fwd" else sb[1]) ** -0.5
+        if form == "tn":
+            a, b = a * 0.1, b * 0.1
+        Mg, Kg = (a.shape[1], a.shape[0]) if form == "tn" else tuple(a.shape)
+        Ng = b.shape[0] if form == "nt" else b.shape[1]
+        bias = 0.01 * torch.randn(Ng, generator=gen, device=dev)
+        resid = torch.randn(Mg, Ng, generator=gen, device=dev) if epi == "bias_residual" else None
+        aux = torch.randn(Mg, Ng, generator=gen, device=dev) if epi == "dgelu" else None
+        got, got_aux = gemm_f32(a, b, form, epi, bias, resid, aux)
+        want, want_aux = gemm_f32_plain(a, b, form, epi, bias, resid, aux)
+        torch.cuda.synchronize()
+        rel, abs_err = rel_err(got, want)
+        if got_aux is not None:
+            rel = max(rel, rel_err(got_aux, want_aux)[0])
+        check(rel <= TOL_GEMM_F32 and bool(torch.isfinite(got).all()), f"fp32 GEMM {name} parity")
+        fn = lambda: gemm_f32(a, b, form, epi, bias, resid, aux)
+        lib = {"fwd": lambda: torch.addmm(bias, a, b), "nt": lambda: torch.mm(a, b.t()),
+               "tn": lambda: torch.mm(a.t(), b)}[form]
+        flops = 2 * Mg * Ng * Kg
+        rec = {"form": form, "epilogue": epi, "M": Mg, "N": Ng, "K": Kg, "max_rel_err": rel,
+               "ms": cuda_ms(fn, 5), "device_ms": device_ms(fn, 2), "library_ms": cuda_ms(lib, 5),
+               "library_device_ms": device_ms(lib, 2),
+               "bound_ms": flops / PEAK_FP32_PRODUCTS * 1e3}
+        rec["tflops"] = flops / rec["device_ms"] / 1e9
+        rec["library_tflops"] = flops / rec["library_device_ms"] / 1e9
+        gemm_f32_times[name] = rec
+        print(f"fp32 GEMM {name} ({form}, {epi}, M={Mg} N={Ng} K={Kg}): max-rel {rel:.2e} (bar "
+              f"{TOL_GEMM_F32}); {rec['ms']:.4f} ms, device {rec['device_ms']:.4f} "
+              f"({rec['tflops']:.1f} TFLOP/s), torch {rec['library_ms']:.4f} / device "
+              f"{rec['library_device_ms']:.4f} ({rec['library_tflops']:.1f}), bound "
+              f"{rec['bound_ms']:.4f}", flush=True)
+        del a, b, resid, aux, got, want, got_aux, want_aux
+    torch.cuda.empty_cache()
+    mark("f32_kernels")
+
     # the ViT-L paths' kernels at their configs' shapes: the MLP stash
     # forward and backward (mim_25_large), the attention recompute backward
     # (mim_32). The stash backward takes the plain stash forward's a.
@@ -1418,8 +1771,11 @@ def main() -> int:
                 weighted_bank_scores_multi, attn_block_fwd_stash, attn_block_bwd_stash,
                 mlp_block_bwd, attn_block_bwd, mlp_block_fwd_stash, mlp_block_bwd_stash,
                 mlp_block_bwd_stream, fused_attention, fused_attention_bwd)
-    # K2, kernel 2 and kernel 4 also count their launches with packed segments
+    # K2, kernel 2 and kernel 4 also count their launches with packed
+    # segments; K1, K2 and kernels 2, 3 and 8 their launches in fp32
     seg_counters = (fused_attn_block, attn_block_fwd_stash, attn_block_bwd)
+    f32_counters = (fused_attn_block, fused_mlp_block, attn_block_fwd_stash, attn_block_bwd_stash,
+                    mlp_block_bwd)
     training_kernels = [f.__name__ for f in counters[4:]] + ["fused_attn_block_seg"]
 
     def zero_counters():
@@ -1427,10 +1783,13 @@ def main() -> int:
             fn.launches = 0
         for fn in seg_counters:
             fn.seg_launches = 0
+        for fn in f32_counters:
+            fn.f32_launches = 0
 
     def launch_counts():
         return {**{f.__name__: f.launches for f in counters},
-                **{f.__name__ + "_seg": f.seg_launches for f in seg_counters}}
+                **{f.__name__ + "_seg": f.seg_launches for f in seg_counters},
+                **{f.__name__ + "_f32": f.f32_launches for f in f32_counters}}
 
     zero_counters()
     torch.cuda.synchronize()
@@ -2104,10 +2463,13 @@ def main() -> int:
     pred_ckpt = os.path.join(ROOT, "models", "chip_smoke_mim_1.ckpt.pt")
     try:
         predictor = predictor_phase(dev, pred_ckpt, zero_counters, launch_counts, step_times)
+        mark("predictor")
+        predictor_f32 = predictor_f32_phase(dev, pred_ckpt, zero_counters, launch_counts,
+                                            step_times)
     finally:
         if os.path.exists(pred_ckpt):
             os.remove(pred_ckpt)
-    mark("predictor")
+    mark("predictor_f32")
     shapes = {c: tuple(r[k] for k in ("layers", "embed_dim", "batch", "channels", "remat", "ra_dec"))
               for c, r in paths.items()}
     check(shapes == {CONFIG: (12, 768, 64, 5, False, False), LARGE[0]: (24, 768, 64, 5, False, False),
@@ -2226,11 +2588,32 @@ def main() -> int:
                               "fused_attention", "vitb64"),
         "attention_bwd_f32": ("cuda", src + "csrc/attention.cu", jsrc + "attention.py:142",
                               "fused_attention_bwd", "vitb64"),
+        # the fp32 forms of K2, kernels 2 and 3, K1 and kernel 8, timed at
+        # cls_fs_1k's B=256, N=66; their launches are the fp32 predictor
+        # paths' (csrc/gemm_f32.cuh, csrc/attn_f32.cuh beside each source)
+        "attn_block_fwd_f32": ("cuda", src + "csrc/attn_block.cu", jsrc + "attn_block.py:899",
+                               "fused_attn_block_f32", "cls_fs"),
+        "attn_block_fwd_stash_f32": ("cuda", src + "csrc/attn_block.cu",
+                                     jsrc + "attn_block.py:940", "attn_block_fwd_stash_f32",
+                                     "cls_fs"),
+        "attn_block_bwd_stash_f32": ("cuda", src + "csrc/attn_block_bwd.cu",
+                                     jsrc + "attn_block.py:988", "attn_block_bwd_stash_f32",
+                                     "cls_fs"),
+        "mlp_block_fwd_f32": ("cuda", src + "csrc/mlp_block.cu", jsrc + "mlp_block.py:634",
+                              "fused_mlp_block_f32", "cls_fs"),
+        "mlp_block_bwd_f32": ("cuda", src + "csrc/mlp_block_bwd.cu", jsrc + "mlp_block.py:834",
+                              "mlp_block_bwd_f32", "cls_fs"),
     }
+    block_f32 = {n for n in meta if n.endswith("_f32") and not n.startswith("attention")}
     kernels = []
     for name, (route, source, replaces, counter, shape) in meta.items():
         t = timings[(name, shape)]
-        if name.endswith("_f32"):
+        if name in block_f32:
+            by_path = {**{f"predictor_f32_{r}": v["launches"][counter]
+                          for r, v in predictor_f32["routes"].items()},
+                       **{f"predictor_f32_{r}_infer": v["infer"]["launches"][counter]
+                          for r, v in predictor_f32["routes"].items()}}
+        elif name.endswith("_f32"):
             by_path = {"attention_module_float32": attn_launches_by_dtype["float32"][counter]}
         else:
             by_path = {f"serving_{CONFIG}": launches[counter],
@@ -2253,6 +2636,7 @@ def main() -> int:
           "kernel9_vs_kernel8_max_rel": {str(b): v for b, v in stream_gap.items()},
           "packed_vs_unpacked_max_rel": {str(b): v for b, v in pack_gap.items()},
           "attention_core_max_rel": core_gap, "kernel12_equals_k2_core": same_core,
+          "f32_forms_max_rel": f32_gap,
           "kernel13_twice_bit_equal": same_bwd, "kernel13_f32_twice_bit_equal": same_bwd_f32,
           "sdpa_f32_max_rel_vs_plain": sdpa_gap})
     emit({
@@ -2262,8 +2646,10 @@ def main() -> int:
         "encoder": {f"B={b}": v for b, v in enc.items()},
         "gemm_times": gemm_times,
         "bwd_gemm_times": bwd_gemm_times,
+        "gemm_f32_times": gemm_f32_times,
         "training_paths": paths,
         "predictor": predictor,
+        "predictor_f32": predictor_f32,
         "attention_module": attention_module,
         "retrieval_path": retrieval,
         "bank_1M_bf16": {"query_ms_host": q_host_ms, "queries_per_s": 1e3 / q_host_ms,

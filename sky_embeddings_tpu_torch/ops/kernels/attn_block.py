@@ -68,6 +68,18 @@ take them, dbqkv summed from the fp32 dqkv (on the card per sample, then
 over the samples), weight gradients cast to the weight dtype. The softmax
 backward takes the stashed bf16 probabilities in kernel 3 and the
 recomputed fp32 ones in kernel 4, as the TPU kernels do.
+
+fp32 forms (the fp32 configs: JAX sends fp32 blocks to ``xla_attn_block``,
+``models/layers.py:356``): K2, kernel 2 and kernel 3 also take a uniform
+fp32 set (x, wqkv, wproj and the stash fp32), computing what the plain
+versions compute in fp32 (nothing rounded; the stash is fp32 qkv and fp32
+probabilities): ``csrc/attn_block.cu`` entries ``sky_attn_block_fwd_f32``
+and ``sky_attn_block_fwd_stash_f32`` (the bf16 entries' arguments) and
+``csrc/attn_block_bwd.cu`` entry ``sky_attn_block_bwd_stash_f32``, every
+product on the 3xTF32 GEMM of ``csrc/gemm_f32.cuh``, the cores kernels 12
+and 13's fp32 FMA tiles (``csrc/attn_f32.cuh``), the backward's reading
+the stashed probabilities. Their launches also count on ``f32_launches``.
+Kernel 4 and the ``seg_len`` forms take bf16 only (``mlp_block.operand_dtype``).
 """
 
 from __future__ import annotations
@@ -84,6 +96,7 @@ from sky_embeddings_tpu_torch.ops.kernels.mlp_block import (
     _ln_backward,
     _ln_forward,
     _needs_grad,
+    operand_dtype,
 )
 
 MAX_TOKENS = 256  # the TPU kernel's dispatch bound (layers.py:341)
@@ -231,16 +244,19 @@ def _plan_bytes(core: str, N: int, hd: int) -> int:
 
 
 def _check_cuda_args(x, scale, bias, wqkv, bqkv, wproj, bproj, num_heads, core: str,
-                     seg_len: int = 0):
+                     seg_len: int = 0, stash: bool = False):
+    """Checks a CUDA launch of a core's kernel (``"fwd"``: K2, or kernel 2
+    with ``stash``; ``"stash"``: kernel 3; ``"recompute"``: kernel 4);
+    returns the operand dtype (``mlp_block.operand_dtype``). Heads narrower
+    than 16 are refused before any library loads."""
     if seg_len < 0:
         raise ValueError(f"seg_len={seg_len} must be >= 0")
-    if x.dtype != torch.bfloat16:
-        raise ValueError(
-            f"fused_attn_block on CUDA takes bf16 activations, got {x.dtype} "
-            "(fp32 on CUDA is a ROADMAP item)"
-        )
     if x.dim() != 3 or not x.is_contiguous():
         raise ValueError("x must be a contiguous (B, N, D) tensor")
+    kernel = {"fwd": "kernel 2" if stash else "K2", "stash": "kernel 3",
+              "recompute": "kernel 4"}[core]
+    masked = 0 < seg_len < x.shape[1]
+    dt = operand_dtype(kernel + " masked" if masked else kernel, x, wqkv=wqkv, wproj=wproj)
     B, N, D = x.shape
     if N > MAX_TOKENS:
         raise ValueError(f"N={N} tokens exceeds the kernel's bound {MAX_TOKENS}")
@@ -255,8 +271,8 @@ def _check_cuda_args(x, scale, bias, wqkv, bqkv, wproj, bproj, num_heads, core: 
         raise ValueError("too many rows for one launch grid")
     want = {
         "scale": (scale, (D,), torch.float32), "bias": (bias, (D,), torch.float32),
-        "wqkv": (wqkv, (D, 3 * D), torch.bfloat16), "bqkv": (bqkv, (3 * D,), torch.float32),
-        "wproj": (wproj, (D, D), torch.bfloat16), "bproj": (bproj, (D,), torch.float32),
+        "wqkv": (wqkv, (D, 3 * D), dt), "bqkv": (bqkv, (3 * D,), torch.float32),
+        "wproj": (wproj, (D, D), dt), "bproj": (bproj, (D,), torch.float32),
     }
     for name, (t, shape, dtype) in want.items():
         if t is None:  # a backward reads bproj never, bqkv only to recompute qkv
@@ -265,10 +281,13 @@ def _check_cuda_args(x, scale, bias, wqkv, bqkv, wproj, bproj, num_heads, core: 
             raise ValueError(f"{name}: want contiguous {shape} {dtype}, got {tuple(t.shape)} {t.dtype}")
         if t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+    if dt == torch.float32:  # the fp32 cores' plan fits every N <= 256 at any head width
+        return dt
     smem = _plan_bytes(core, N, hd)
     if smem > SMEM_PER_BLOCK:
         raise ValueError(f"head dim {hd} at N={N}: the {core} core's shared-memory plan needs "
                          f"{smem} bytes, more than the {SMEM_PER_BLOCK} a block may use")
+    return dt
 
 
 def _launch_fwd(x, scale, bias, wqkv, bqkv, wproj, bproj, num_heads, stash: bool,
@@ -276,30 +295,32 @@ def _launch_fwd(x, scale, bias, wqkv, bqkv, wproj, bproj, num_heads, stash: bool
     """K2 (``stash=False``, counted on ``fused_attn_block.launches``) or
     kernel 2 (counted on ``attn_block_fwd_stash.launches``) on CUDA tensors:
     ``(out, qkv, probs, ctx)``, probs None without the stash, ctx the
-    attention core's bf16 output. A launch with packed segments also counts
-    on the wrapper's ``seg_launches``."""
-    _check_cuda_args(x, scale, bias, wqkv, bqkv, wproj, bproj, num_heads, "fwd", seg_len)
+    attention core's output, all in x's dtype. A launch with packed segments
+    also counts on the wrapper's ``seg_launches``, one in fp32 on its
+    ``f32_launches``."""
+    dt = _check_cuda_args(x, scale, bias, wqkv, bqkv, wproj, bproj, num_heads, "fwd", seg_len,
+                          stash)
     B, N, D = x.shape
-    qkv = torch.empty((B, N, 3 * D), dtype=torch.bfloat16, device=x.device)
-    ctx = torch.empty((B, N, D), dtype=torch.bfloat16, device=x.device)
+    qkv = torch.empty((B, N, 3 * D), dtype=dt, device=x.device)
+    ctx = torch.empty((B, N, D), dtype=dt, device=x.device)
     out = torch.empty_like(x)
+    probs = torch.empty((B, num_heads, N, N), dtype=dt, device=x.device) if stash else None
     ptrs = [x.data_ptr(), scale.data_ptr(), bias.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(),
             wproj.data_ptr(), bproj.data_ptr(), qkv.data_ptr(), ctx.data_ptr()]
-    probs = None
+    entry = ("sky_attn_block_fwd_stash" if stash else "sky_attn_block_fwd") \
+        + ("_f32" if dt == torch.float32 else "")
+    ints = (B, N, D, num_heads, seg_len)  # the fp32 entries refuse seg_len > 0
     if stash:
-        probs = torch.empty((B, num_heads, N, N), dtype=torch.bfloat16, device=x.device)
         ptrs.append(probs.data_ptr())
-        entry = "sky_attn_block_fwd_stash"
-    else:
-        entry = "sky_attn_block_fwd"
     ptrs.append(out.data_ptr())
     with torch.cuda.device(x.device):
-        err = getattr(_lib("attn_block", entry, len(ptrs), 5), entry)(
-            *ptrs, B, N, D, num_heads, seg_len, torch.cuda.current_stream().cuda_stream)
+        err = getattr(_lib("attn_block", entry, len(ptrs), len(ints)), entry)(
+            *ptrs, *ints, torch.cuda.current_stream().cuda_stream)
     cuda_build.check(err, entry)
     counted = attn_block_fwd_stash if stash else fused_attn_block
     counted.launches += 1
     counted.seg_launches += int(0 < seg_len < N)
+    counted.f32_launches += int(dt == torch.float32)
     return out, qkv, probs, ctx
 
 
@@ -317,6 +338,7 @@ def attn_block_fwd_stash(x, scale, bias, wqkv, bqkv, wproj, bproj, num_heads: in
 
 attn_block_fwd_stash.launches = 0
 attn_block_fwd_stash.seg_launches = 0  # those of the launches with packed segments
+attn_block_fwd_stash.f32_launches = 0  # those of the launches in fp32
 
 
 def _check_bwd_inputs(x, num_heads, **tensors):
@@ -324,9 +346,9 @@ def _check_bwd_inputs(x, num_heads, **tensors):
     shapes = {"qkv": (B, N, 3 * D), "probs": (B, num_heads, N, N), "g": (B, N, D)}
     for name, t in tensors.items():
         shape = shapes[name]
-        if tuple(t.shape) != shape or t.dtype != torch.bfloat16 or not t.is_contiguous() \
+        if tuple(t.shape) != shape or t.dtype != x.dtype or not t.is_contiguous() \
                 or t.device != x.device:
-            raise ValueError(f"{name}: want a contiguous {shape} bf16 tensor on {x.device}, "
+            raise ValueError(f"{name}: want a contiguous {shape} {x.dtype} tensor on {x.device}, "
                              f"got {tuple(t.shape)} {t.dtype} on {t.device}")
 
 
@@ -362,22 +384,55 @@ def _launch_bwd(entry, x, ins, num_heads, qkv=None, seg_len=0):
     return dx, dscale, dbias, dwqkv, dbqkv, dwproj, dbproj
 
 
+def _launch_bwd_stash_f32(x, ins, num_heads):
+    """Kernel 3's fp32 form on CUDA tensors (``ins`` holds the fp32 stash):
+    allocates the fp32 scratch (y, dc, ctx, dy (B·N, D); dqkv (B·N, 3D);
+    ``part``: the column-sum partials of dqkv, then dbproj's, dscale's and
+    dbias's over ``ROWS_PER_PARTIAL`` rows each) and the fp32 outputs."""
+    B, N, D = x.shape
+    M = B * N
+    f32 = dict(dtype=torch.float32, device=x.device)
+    y, dc, ctx, dy = (torch.empty((M, D), **f32) for _ in range(4))
+    dqkv = torch.empty((M, 3 * D), **f32)
+    part = torch.empty(-(-M // ROWS_PER_PARTIAL) * 6 * D, **f32)
+    ws = torch.empty(max(_split_ws("attn_block_bwd", "sky_attn_block_bwd_f32_ws", x.device.index,
+                                   M, D), 4), **f32)
+    dx = torch.empty_like(x)
+    dscale, dbias, dbproj = (torch.empty(D, **f32) for _ in range(3))
+    dwqkv, dbqkv = torch.empty((D, 3 * D), **f32), torch.empty(3 * D, **f32)
+    dwproj = torch.empty((D, D), **f32)
+    ptrs = [t.data_ptr() for t in (*ins, y, dc, ctx, dqkv, dy, part, ws, dx, dscale, dbias, dwqkv,
+                                   dbqkv, dwproj, dbproj)]
+    entry = "sky_attn_block_bwd_stash_f32"
+    with torch.cuda.device(x.device):
+        err = getattr(_lib("attn_block_bwd", entry, len(ptrs), 4), entry)(
+            *ptrs, B, N, D, num_heads, torch.cuda.current_stream().cuda_stream)
+    cuda_build.check(err, entry)
+    return dx, dscale, dbias, dwqkv, dbqkv, dwproj, dbproj
+
+
 def attn_block_bwd_stash(x, scale, bias, wqkv, wproj, qkv, probs, g, num_heads: int):
     """Kernel 3: the block's gradients from x, the stash and the output
     gradient ``g`` (outputs as :func:`attn_block_bwd_stash_plain`). CPU
     tensors take the plain version; CUDA tensors launch
-    ``csrc/attn_block_bwd.cu`` or raise."""
+    ``csrc/attn_block_bwd.cu`` (its fp32 form for fp32 operands, also
+    counted on ``.f32_launches``) or raise."""
     if x.device.type == "cpu":
         return attn_block_bwd_stash_plain(x, scale, bias, wqkv, wproj, qkv, probs, g, num_heads)
-    _check_cuda_args(x, scale, bias, wqkv, None, wproj, None, num_heads, "stash")
+    dt = _check_cuda_args(x, scale, bias, wqkv, None, wproj, None, num_heads, "stash")
     _check_bwd_inputs(x, num_heads, qkv=qkv, probs=probs, g=g)
-    grads = _launch_bwd("sky_attn_block_bwd_stash", x,
-                        (x, scale, bias, wqkv, wproj, qkv, probs, g), num_heads)
+    ins = (x, scale, bias, wqkv, wproj, qkv, probs, g)
+    if dt == torch.float32:
+        grads = _launch_bwd_stash_f32(x, ins, num_heads)
+        attn_block_bwd_stash.f32_launches += 1
+    else:
+        grads = _launch_bwd("sky_attn_block_bwd_stash", x, ins, num_heads)
     attn_block_bwd_stash.launches += 1
     return grads
 
 
 attn_block_bwd_stash.launches = 0
+attn_block_bwd_stash.f32_launches = 0
 
 
 def attn_block_bwd(x, scale, bias, wqkv, bqkv, wproj, g, num_heads: int, seg_len: int = 0):
@@ -427,10 +482,14 @@ class AttnBlockStashFn(torch.autograd.Function):
 class AttnBlockFn(torch.autograd.Function):
     """K2 forward, kernel 4 backward (JAX ``fused_attn_block`` with
     ``stash=False``: only the inputs are saved, ``_fab_fwd`` computes the
-    primal). ``plain`` runs the plain versions of both on any device."""
+    primal). ``plain`` runs the plain versions of both on any device. On
+    CUDA, fp32 is refused here, before the forward runs: kernel 4 has no
+    fp32 form yet."""
 
     @staticmethod
     def forward(ctx, x, scale, bias, wqkv, bqkv, wproj, bproj, num_heads, plain, seg_len):
+        if not plain and x.device.type != "cpu":
+            operand_dtype("kernel 4", x, wqkv=wqkv, wproj=wproj)
         args = (x, scale, bias, wqkv, bqkv, wproj, bproj, num_heads)
         if plain or x.device.type == "cpu":
             out = attn_block_plain(*args, seg_len)
@@ -466,3 +525,4 @@ def fused_attn_block(x, scale, bias, wqkv, bqkv, wproj, bproj, num_heads: int,
 
 fused_attn_block.launches = 0
 fused_attn_block.seg_launches = 0
+fused_attn_block.f32_launches = 0

@@ -46,7 +46,17 @@
 //
 // The attention core (attn_core_kernel) lives in attn_core.cuh, shared with
 // kernel 12 (attention.cu), which launches it alone on a given qkv.
+//
+// fp32 forms (entries sky_attn_block_fwd_f32 and sky_attn_block_fwd_stash_f32;
+// the fp32 configs, where JAX runs xla_attn_block, models/layers.py:356):
+// the same four launches with x, the weights, y, qkv, ctx, probs and out in
+// fp32, both products on the 3xTF32 GEMM of gemm_f32.cuh, the core kernel
+// 12's fp32 one (attn_f32.cuh: fp32 FMA chains, the softmax in fp32,
+// nothing rounded), which also stores the fp32 probabilities for the
+// stash. No packed segments.
 #include "attn_core.cuh"
+#include "attn_f32.cuh"
+#include "gemm_f32.cuh"
 #include "gemm_sm90.cuh"
 
 // Returns 0, or the first CUDA error a launch reported. qkv (B, N, 3D) and
@@ -92,4 +102,47 @@ extern "C" int sky_attn_block_fwd_stash(const void* x, const void* ln_scale, con
                                         void* stream) {
   return attn_block_fwd(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj, qkv, ctx, probs, out, B,
                         N, D, H, seg_len, stream);
+}
+
+// The fp32 forms of K2 and kernel 2, with the bf16 entries' arguments:
+// everything fp32; qkv (B, N, 3D) and ctx (B, N, D) allocated by the
+// caller, the LN output staged in `out`; with `probs` (B, H, N, N) the
+// core also stores the fp32 probabilities. No packed segments: seg_len > 0
+// is refused.
+static int attn_block_fwd_f32(const void* x, const void* ln_scale, const void* ln_bias,
+                              const void* wqkv, const void* bqkv, const void* wproj,
+                              const void* bproj, void* qkv, void* ctx, void* probs, void* out,
+                              int B, int N, int D, int H, int seg_len, void* stream) {
+  using namespace sky;
+  if (seg_len > 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int M = B * N;
+  cudaError_t err = launch_layernorm<float>(x, ln_scale, ln_bias, out, M, D, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = f32::launch_gemm_f32<f32::FWD, f32::BIAS>(out, wqkv, bqkv, nullptr, qkv, nullptr, M,
+                                                  3 * D, D, nullptr, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = launch_f32(false, qkv, nullptr, ctx, B, N, D, H, s, probs);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = f32::launch_gemm_f32<f32::FWD, f32::BIAS_RESIDUAL>(ctx, wproj, bproj, x, out, nullptr, M,
+                                                           D, D, nullptr, s);
+  return static_cast<int>(err);
+}
+
+extern "C" int sky_attn_block_fwd_f32(const void* x, const void* ln_scale, const void* ln_bias,
+                                      const void* wqkv, const void* bqkv, const void* wproj,
+                                      const void* bproj, void* qkv, void* ctx, void* out, int B,
+                                      int N, int D, int H, int seg_len, void* stream) {
+  return attn_block_fwd_f32(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj, qkv, ctx, nullptr,
+                            out, B, N, D, H, seg_len, stream);
+}
+
+extern "C" int sky_attn_block_fwd_stash_f32(const void* x, const void* ln_scale,
+                                            const void* ln_bias, const void* wqkv,
+                                            const void* bqkv, const void* wproj,
+                                            const void* bproj, void* qkv, void* ctx, void* probs,
+                                            void* out, int B, int N, int D, int H, int seg_len,
+                                            void* stream) {
+  return attn_block_fwd_f32(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj, qkv, ctx, probs, out,
+                            B, N, D, H, seg_len, stream);
 }

@@ -71,8 +71,18 @@
 //
 // The backward core (attn_bwd_core_kernel) lives in attn_core.cuh, shared with
 // kernel 13 (attention.cu), which runs the recompute core alone.
+//
+// Kernel 3's fp32 form (entry sky_attn_block_bwd_stash_f32; the fp32
+// configs, where JAX takes jax.vjp of xla_attn_block): steps 1-7 in fp32
+// at the plain version's points, every product on the 3xTF32 GEMM of
+// gemm_f32.cuh, the core kernel 13's fp32 one (attn_f32.cuh) reading the
+// stashed fp32 probabilities instead of recomputing them and writing ctx
+// = P V beside the fp32 dqkv (M, 3D), which goes through device memory;
+// dbqkv from its column sums in two passes.
 #include "attn_core.cuh"
+#include "attn_f32.cuh"
 #include "bwd_common.cuh"
+#include "gemm_f32.cuh"
 #include "gemm_sm90.cuh"
 
 // The weight-gradient group (FORM_TN, bf16): spec[0] dWqkv = y^T @ dqkv_c
@@ -88,7 +98,7 @@ static void weight_group(sky::sm90::BwdSpec* spec, const void* y, const void* dq
 extern "C" long long sky_attn_block_bwd_ws(int M, int D) {
   using namespace sky::sm90;
   int sms = 0;
-  if (sm_count(&sms) != cudaSuccess) return -1;
+  if (sky::sm_count(&sms) != cudaSuccess) return -1;
   BwdSpec spec[2];
   weight_group(spec, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, M, D);
   int shapes[2][4];
@@ -191,4 +201,52 @@ extern "C" int sky_attn_bwd_weight_grads(const void* y, const void* dqkv_c, cons
   weight_group(spec, y, dqkv_c, ctx, g, dwqkv, dwproj, M, D);
   return static_cast<int>(launch_bwd_group(spec, 2, static_cast<float*>(ws),
                                            static_cast<cudaStream_t>(stream), bn, splits));
+}
+
+// ---- kernel 3's fp32 form -----------------------------------------------------
+
+// fp32 floats of split-K workspace the fp32 form of (M, D) needs: the larger
+// of its two weight gradients' (one after the other).
+extern "C" long long sky_attn_block_bwd_f32_ws(int M, int D) {
+  const size_t a = sky::f32::workspace(D, 3 * D, M), b = sky::f32::workspace(D, D, M);
+  return static_cast<long long>(a > b ? a : b);
+}
+
+// All fp32. The caller allocates the scratch (y, dc, ctx, dy: (M, D); dqkv:
+// (M, 3D); part: 6D * ceil(M / 32); ws: sky_attn_block_bwd_f32_ws(M, D)) and
+// the outputs (dx (B, N, D); dscale, dbias, dbproj (D,); dbqkv (3D,); dwqkv
+// (D, 3D); dwproj (D, D)).
+extern "C" int sky_attn_block_bwd_stash_f32(
+    const void* x, const void* ln_scale, const void* ln_bias, const void* wqkv, const void* wproj,
+    const void* qkv, const void* probs, const void* g, void* y, void* dc, void* ctx, void* dqkv,
+    void* dy, void* part, void* ws, void* dx, void* dscale, void* dbias, void* dwqkv, void* dbqkv,
+    void* dwproj, void* dbproj, int B, int N, int D, int H, void* stream) {
+  using namespace sky;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int M = B * N;
+  const int parts = n_partials(M);
+  float* part_qkv = static_cast<float*>(part);           // parts x 3D
+  float* part_proj = part_qkv + (size_t)parts * 3 * D;   // parts x D
+  float* part_scale = part_proj + (size_t)parts * D;     // parts x D
+  float* part_bias = part_scale + (size_t)parts * D;     // parts x D
+  float* dyf = static_cast<float*>(dy);
+  SKY_TRY(launch_layernorm<float>(x, ln_scale, ln_bias, y, M, D, s));
+  SKY_TRY((f32::launch_gemm_f32<f32::NT, f32::STORE>(g, wproj, nullptr, nullptr, dc, nullptr, M, D,
+                                                     D, nullptr, s)));
+  SKY_TRY(launch_f32(true, qkv, dc, dqkv, B, N, D, H, s, const_cast<void*>(probs), ctx));
+  SKY_TRY((f32::launch_gemm_f32<f32::NT, f32::STORE>(dqkv, wqkv, nullptr, nullptr, dyf, nullptr, M,
+                                                     D, 3 * D, nullptr, s)));
+  SKY_TRY(launch_ln_bwd<float>(x, g, dyf, ln_scale, dx, part_scale, part_bias, M, D, s));
+  SKY_TRY((f32::launch_gemm_f32<f32::TN, f32::STORE>(y, dqkv, nullptr, nullptr, dwqkv, nullptr, D,
+                                                     3 * D, M, ws, s)));
+  SKY_TRY((f32::launch_gemm_f32<f32::TN, f32::STORE>(ctx, g, nullptr, nullptr, dwproj, nullptr, D,
+                                                     D, M, ws, s)));
+  SKY_TRY(launch_colsum_partial<float>(dqkv, M, 3 * D, part_qkv, s));
+  SKY_TRY(launch_colsum_partial<float>(g, M, D, part_proj, s));
+  const ColsumJob jobs[4] = {{part_qkv, static_cast<float*>(dbqkv), parts, 3 * D},
+                             {part_proj, static_cast<float*>(dbproj), parts, D},
+                             {part_scale, static_cast<float*>(dscale), parts, D},
+                             {part_bias, static_cast<float*>(dbias), parts, D}};
+  SKY_TRY(launch_colsum_finals(jobs, 4, s));
+  return 0;
 }

@@ -21,21 +21,58 @@ __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
 
 // LayerNorm backward over ROWS_PER_PARTIAL rows per block
-// (attn_block.py:336-340, mlp_block.py:333-337):
+// (attn_block.py:336-340, mlp_block.py:333-337), on bf16 x, g and dx (the
+// blocks' bf16 forms) or fp32 ones (their fp32 forms):
 //   xhat, rstd recomputed from x (fp32 two-pass statistics, eps 1e-6)
 //   dxhat = dy * scale;  m1 = mean(dxhat);  m2 = mean(dxhat * xhat)
-//   dx = bf16(g + rstd * (dxhat - m1 - xhat * m2))      (residual grad g added)
+//   dx = T(g + rstd * (dxhat - m1 - xhat * m2))         (residual grad g added)
 //   part_scale[blk, c] = sum_rows dy * xhat;  part_bias[blk, c] = sum_rows dy
-// Row statistics: one warp per row, read in 16-byte vectors (8 bf16 of x,
-// two float4 of dy and scale per lane and step; the wrappers require D % 8
-// == 0). Then each thread walks the block's rows for two columns (bf16x2 /
-// float2), adding each column's rows in row order. 16 warps a block keep
-// more bytes in flight than scalar 2-byte loads did (PERF.md PR 10).
+// Row statistics: one warp per row, read in 16-byte vectors (8 bf16 or two
+// float4 of x, two float4 of dy and scale per lane and step; the wrappers
+// require D % 8 == 0). Then each thread walks the block's rows for two
+// columns (bf16x2 / float2), adding each column's rows in row order. 16
+// warps a block keep more bytes in flight than scalar 2-byte loads did
+// (PERF.md PR 10).
 constexpr int LNB_THREADS = 512;
 
+// eight elements of a row of x, read in one 16-byte vector (bf16) or two
+// (fp32) and widened to fp32 where each is used
+template <typename T>
+struct Row8;
+template <>
+struct Row8<bf16> {
+  uint4 u;
+  __device__ __forceinline__ explicit Row8(const bf16* p) : u(*reinterpret_cast<const uint4*>(p)) {}
+  __device__ __forceinline__ float operator[](int j) const {
+    return __bfloat162float(reinterpret_cast<const bf16*>(&u)[j]);
+  }
+};
+template <>
+struct Row8<float> {
+  float e[8];
+  __device__ __forceinline__ explicit Row8(const float* p) { load8(p, e); }
+  __device__ __forceinline__ float operator[](int j) const { return e[j]; }
+};
+
+// two elements (columns c, c + 1) of a row, as the column pass reads and
+// writes them
+__device__ __forceinline__ float2 ln_load2(const bf16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ __forceinline__ float2 ln_load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ void ln_store2(bf16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+__device__ __forceinline__ void ln_store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+
+template <typename T>
 __global__ void __launch_bounds__(LNB_THREADS)
-ln_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g, const float* __restrict__ dy,
-              const float* __restrict__ scale, bf16* __restrict__ dx, float* __restrict__ part_scale,
+ln_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g, const float* __restrict__ dy,
+              const float* __restrict__ scale, T* __restrict__ dx, float* __restrict__ part_scale,
               float* __restrict__ part_bias, int M, int D) {
   __shared__ float s_mu[ROWS_PER_PARTIAL], s_rstd[ROWS_PER_PARTIAL], s_m1[ROWS_PER_PARTIAL],
       s_m2[ROWS_PER_PARTIAL];
@@ -43,42 +80,36 @@ ln_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g, const floa
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int rows = min(ROWS_PER_PARTIAL, M - row0);
   for (int rr = warp; rr < rows; rr += LNB_THREADS / 32) {
-    const bf16* xr = x + (size_t)(row0 + rr) * D;
+    const T* xr = x + (size_t)(row0 + rr) * D;
     const float* dyr = dy + (size_t)(row0 + rr) * D;
     float s = 0.f;
     for (int k = lane * 8; k < D; k += 256) {
-      const uint4 v = *reinterpret_cast<const uint4*>(xr + k);
-      const bf16* e = reinterpret_cast<const bf16*>(&v);
+      const Row8<T> e(xr + k);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) s += __bfloat162float(e[j]);
+      for (int j = 0; j < 8; ++j) s += e[j];
     }
     const float mu = warp_sum(s) / D;
     float q = 0.f;
     for (int k = lane * 8; k < D; k += 256) {
-      const uint4 v = *reinterpret_cast<const uint4*>(xr + k);
-      const bf16* e = reinterpret_cast<const bf16*>(&v);
+      const Row8<T> e(xr + k);
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
-        const float d = __bfloat162float(e[j]) - mu;
+        const float d = e[j] - mu;
         q += d * d;
       }
     }
     const float rstd = rsqrtf(warp_sum(q) / D + 1e-6f);
     float a1 = 0.f, a2 = 0.f;
     for (int k = lane * 8; k < D; k += 256) {
-      const uint4 v = *reinterpret_cast<const uint4*>(xr + k);
-      const bf16* e = reinterpret_cast<const bf16*>(&v);
-      const float4 d0 = *reinterpret_cast<const float4*>(dyr + k);
-      const float4 d1 = *reinterpret_cast<const float4*>(dyr + k + 4);
-      const float4 c0 = *reinterpret_cast<const float4*>(scale + k);
-      const float4 c1 = *reinterpret_cast<const float4*>(scale + k + 4);
-      const float dv[8] = {d0.x, d0.y, d0.z, d0.w, d1.x, d1.y, d1.z, d1.w};
-      const float cv[8] = {c0.x, c0.y, c0.z, c0.w, c1.x, c1.y, c1.z, c1.w};
+      const Row8<T> e(xr + k);
+      float dv[8], cv[8];
+      load8(dyr + k, dv);
+      load8(scale + k, cv);
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const float dxh = dv[j] * cv[j];
         a1 += dxh;
-        a2 += dxh * (__bfloat162float(e[j]) - mu) * rstd;
+        a2 += dxh * (e[j] - mu) * rstd;
       }
     }
     a1 = warp_sum(a1);
@@ -97,13 +128,13 @@ ln_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g, const floa
 #pragma unroll 4
     for (int rr = 0; rr < rows; ++rr) {
       const size_t at = (size_t)(row0 + rr) * D + c;
-      const float2 xv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(x + at));
-      const float2 gv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(g + at));
+      const float2 xv = ln_load2(x + at);
+      const float2 gv = ln_load2(g + at);
       const float2 d = *reinterpret_cast<const float2*>(dy + at);
       const float xh0 = (xv.x - s_mu[rr]) * s_rstd[rr], xh1 = (xv.y - s_mu[rr]) * s_rstd[rr];
       const float o0 = gv.x + s_rstd[rr] * (d.x * sc.x - s_m1[rr] - xh0 * s_m2[rr]);
       const float o1 = gv.y + s_rstd[rr] * (d.y * sc.y - s_m1[rr] - xh1 * s_m2[rr]);
-      *reinterpret_cast<__nv_bfloat162*>(dx + at) = __floats2bfloat162_rn(o0, o1);
+      ln_store2(dx + at, o0, o1);
       ps0 += d.x * xh0;
       ps1 += d.y * xh1;
       pb0 += d.x;
@@ -187,12 +218,13 @@ inline cudaError_t launch_colsum_final(const float* part, int parts, int C, void
   return launch_colsum_finals(&job, 1, s);
 }
 
+template <typename T = bf16>
 inline cudaError_t launch_ln_bwd(const void* x, const void* g, const float* dy, const void* scale,
                                  void* dx, float* part_scale, float* part_bias, int M, int D,
                                  cudaStream_t s) {
-  ln_bwd_kernel<<<n_partials(M), LNB_THREADS, 0, s>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(g), dy,
-      static_cast<const float*>(scale), static_cast<bf16*>(dx), part_scale, part_bias, M, D);
+  ln_bwd_kernel<T><<<n_partials(M), LNB_THREADS, 0, s>>>(
+      static_cast<const T*>(x), static_cast<const T*>(g), dy, static_cast<const float*>(scale),
+      static_cast<T*>(dx), part_scale, part_bias, M, D);
   return cudaGetLastError();
 }
 

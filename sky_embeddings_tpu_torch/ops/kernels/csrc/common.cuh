@@ -7,9 +7,10 @@
 // split-K reduce of the backward group launch and the LayerNorm that opens
 // every block.
 //
-// layernorm_bf16 computes that LN: fp32 two-pass statistics per row (eps
+// layernorm_kernel computes that LN: fp32 two-pass statistics per row (eps
 // 1e-6), output rounded to bf16 -- the rounding point of the TPU kernels
-// (attn_block.py:141, mlp_block.py:235). One warp a row, 16-byte loads.
+// (attn_block.py:141, mlp_block.py:235) -- or, in the blocks' fp32 forms,
+// kept in fp32. One warp a row, 16-byte loads.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -122,6 +123,19 @@ __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
   return *reinterpret_cast<unsigned*>(&v);
 }
 
+// the card's SM count (the GEMMs' tile and split plans), read once
+inline cudaError_t sm_count(int* sms) {
+  static int cached = 0;
+  if (cached == 0) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&cached, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+  }
+  *sms = cached;
+  return cudaSuccess;
+}
+
 // as many CTAs as are resident on the card at once, at most `work`
 template <typename K>
 inline int resident_grid(K kernel, int threads, size_t smem, int work) {
@@ -204,55 +218,81 @@ __global__ void splitk_reduce_kernel(const float4* __restrict__ ws, int splits, 
   *reinterpret_cast<uint2*>(out + r * ldc + c) = o;
 }
 
+// 8 consecutive elements as fp32, and back (16-byte loads and stores: one
+// vector of bf16, two of fp32): the LayerNorm's rows
+__device__ __forceinline__ void load8(const bf16* p, float (&v)[8]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const bf16* e = reinterpret_cast<const bf16*>(&u);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) v[j] = __bfloat162float(e[j]);
+}
+__device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  const float4 b = *reinterpret_cast<const float4*>(p + 4);
+  v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w, v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
+}
+__device__ __forceinline__ void store8(bf16* p, const float (&v)[8]) {
+  uint4 o;
+  bf16* oe = reinterpret_cast<bf16*>(&o);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) oe[j] = __float2bfloat16_rn(v[j]);
+  *reinterpret_cast<uint4*>(p) = o;
+}
+__device__ __forceinline__ void store8(float* p, const float (&v)[8]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  *reinterpret_cast<float4*>(p + 4) = make_float4(v[4], v[5], v[6], v[7]);
+}
+
 constexpr int LN_THREADS = 256;  // one warp per row
 
-// y = bf16(LN(x) * scale + bias) over rows of K (K % 8 == 0), fp32 stats.
+// y = LN(x) * scale + bias over rows of K (K % 8 == 0), fp32 stats; x and y
+// bf16 (y rounded) or fp32.
+template <typename T>
 __global__ void __launch_bounds__(LN_THREADS)
-layernorm_bf16_kernel(const bf16* __restrict__ x, const float* __restrict__ scale,
-                      const float* __restrict__ bias, bf16* __restrict__ y, int M, int K) {
+layernorm_kernel(const T* __restrict__ x, const float* __restrict__ scale,
+                 const float* __restrict__ bias, T* __restrict__ y, int M, int K) {
   const int row = blockIdx.x * (LN_THREADS / 32) + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (row >= M) return;  // warp-uniform
-  const bf16* xr = x + (size_t)row * K;
+  const T* xr = x + (size_t)row * K;
   float s = 0.f;
   for (int k = lane * 8; k < K; k += 256) {
-    const uint4 v = *reinterpret_cast<const uint4*>(xr + k);
-    const bf16* e = reinterpret_cast<const bf16*>(&v);
+    float e[8];
+    load8(xr + k, e);
 #pragma unroll
-    for (int j = 0; j < 8; ++j) s += __bfloat162float(e[j]);
+    for (int j = 0; j < 8; ++j) s += e[j];
   }
   const float mu = warp_sum(s) / K;
   float q = 0.f;
   for (int k = lane * 8; k < K; k += 256) {
-    const uint4 v = *reinterpret_cast<const uint4*>(xr + k);
-    const bf16* e = reinterpret_cast<const bf16*>(&v);
+    float e[8];
+    load8(xr + k, e);
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      const float d = __bfloat162float(e[j]) - mu;
+      const float d = e[j] - mu;
       q += d * d;
     }
   }
   const float rstd = rsqrtf(warp_sum(q) / K + 1e-6f);
   for (int k = lane * 8; k < K; k += 256) {
-    const uint4 v = *reinterpret_cast<const uint4*>(xr + k);
-    const bf16* e = reinterpret_cast<const bf16*>(&v);
-    uint4 o;
-    bf16* oe = reinterpret_cast<bf16*>(&o);
+    float e[8], o[8];
+    load8(xr + k, e);
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      const float xhat = (__bfloat162float(e[j]) - mu) * rstd;
-      oe[j] = __float2bfloat16_rn(xhat * scale[k + j] + bias[k + j]);
+      const float xhat = (e[j] - mu) * rstd;
+      o[j] = xhat * scale[k + j] + bias[k + j];
     }
-    *reinterpret_cast<uint4*>(y + (size_t)row * K + k) = o;
+    store8(y + (size_t)row * K + k, o);
   }
 }
 
+template <typename T = bf16>
 inline cudaError_t launch_layernorm(const void* x, const void* scale, const void* bias, void* y,
                                     int M, int K, cudaStream_t stream) {
   const int rows_per_cta = LN_THREADS / 32;
-  layernorm_bf16_kernel<<<(M + rows_per_cta - 1) / rows_per_cta, LN_THREADS, 0, stream>>>(
-      static_cast<const bf16*>(x), static_cast<const float*>(scale),
-      static_cast<const float*>(bias), static_cast<bf16*>(y), M, K);
+  layernorm_kernel<T><<<(M + rows_per_cta - 1) / rows_per_cta, LN_THREADS, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const float*>(scale),
+      static_cast<const float*>(bias), static_cast<T*>(y), M, K);
   return cudaGetLastError();
 }
 

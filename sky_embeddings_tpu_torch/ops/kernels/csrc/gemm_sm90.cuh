@@ -574,18 +574,6 @@ inline bool encode_2d(CUtensorMap* map, const void* ptr, int rows, int cols, int
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-inline cudaError_t sm_count(int* sms) {
-  static int cached = 0;
-  if (cached == 0) {
-    int dev = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&cached, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return err;
-  }
-  *sms = cached;
-  return cudaSuccess;
-}
-
 template <int EPI, int BN>
 cudaError_t launch_bn(const CUtensorMap* maps, const Sm90Args& p, int grid, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(gemm_sm90_kernel<EPI, BN>,

@@ -48,7 +48,26 @@
 // and h_c (M * (D + 2F) * 2 bytes, written once and read by the group),
 // kernel 7's stash (M * F * 2 bytes, read once), dy in fp32, and the split
 // weight gradients' fp32 partials.
+//
+// Kernel 8's fp32 form (entry sky_mlp_block_bwd_f32; the fp32 configs, where
+// JAX takes jax.vjp of xla_mlp_block): the same steps in fp32 at the plain
+// version's points, every product on the 3xTF32 GEMM of gemm_f32.cuh:
+//   1. LayerNorm of x                                -> y fp32
+//   2. a = y @ W1 + b1 (FWD)                         -> a (M, F) fp32
+//   3. dh = g @ W2^T (NT) with the GELU' epilogue    -> da = dh * gelu'(a)
+//      (M, F), and gelu(a) written over a: h (M, F)
+//   4. dy = da @ W1^T (NT)                           -> dy fp32
+//   5. LN backward -> dx fp32, dscale / dbias partials
+//   6. dW1 = y^T @ da, dW2 = h^T @ g (TN, each split along K = M where
+//      the tiles leave SMs idle, slices added in order)
+//   7. db1, db2 (column sums of da and g), dscale, dbias: partials added in
+//      a fixed order, the four in one launch.
+// So the fp32 (M, F) a, h and da go through device memory (3 * M * F * 4
+// bytes of writes, 2 * M * F * 4 of reads besides the products'), where the
+// bf16 kernel keeps a and da in registers: a first design, with the dual
+// product's fp32 twin a later one.
 #include "bwd_common.cuh"
+#include "gemm_f32.cuh"
 #include "gemm_sm90.cuh"
 
 // The three products that follow the dual (or stash dh) one, for the
@@ -74,7 +93,7 @@ static void slab_group(sky::sm90::BwdSpec* spec, const void* y, const void* w1, 
 extern "C" long long sky_mlp_block_bwd_ws(int M, int D, int F, int fs) {
   using namespace sky::sm90;
   int sms = 0;
-  if (sm_count(&sms) != cudaSuccess) return -1;
+  if (sky::sm_count(&sms) != cudaSuccess) return -1;
   BwdSpec spec[3];
   slab_group(spec, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, false, nullptr, nullptr,
              0, M, D, F, fs);
@@ -287,5 +306,54 @@ extern "C" int sky_gemm_sm90_dual(const void* y, const void* w1, const void* b1,
   SKY_TRY(sm90::launch_dual(y, w1, N, b1, g, w2, da_c, h_c, partf, M, N, K, s));
   const ColsumJob job{partf, static_cast<float*>(db1), (M + 63) / 64, N};
   SKY_TRY(launch_colsum_finals(&job, 1, s));
+  return 0;
+}
+
+// ---- kernel 8's fp32 form ----------------------------------------------------
+
+// fp32 floats of split-K workspace the fp32 form of (M, D, F) needs: the
+// larger of its two weight gradients' (they run one after the other).
+extern "C" long long sky_mlp_block_bwd_f32_ws(int M, int D, int F) {
+  const size_t a = sky::f32::workspace(D, F, M), b = sky::f32::workspace(F, D, M);
+  return static_cast<long long>(a > b ? a : b);
+}
+
+// All fp32. The caller allocates the scratch (y, dy: (M, D); a, da: (M, F);
+// part: (F + 3D) * ceil(M / 32); ws: sky_mlp_block_bwd_f32_ws(M, D, F)) and
+// the outputs (dx (M, D); dscale, dbias, db2 (D,); db1 (F,); dw1 (D, F);
+// dw2 (F, D)).
+extern "C" int sky_mlp_block_bwd_f32(const void* x, const void* ln_scale, const void* ln_bias,
+                                     const void* w1, const void* b1, const void* w2,
+                                     const void* g, void* y, void* a, void* da, void* dy,
+                                     void* part, void* ws, void* dx, void* dscale, void* dbias,
+                                     void* dw1, void* db1, void* dw2, void* db2, int M, int D,
+                                     int F, void* stream) {
+  using namespace sky;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int parts = n_partials(M);
+  float* part_b1 = static_cast<float*>(part);       // parts x F
+  float* part_b2 = part_b1 + (size_t)parts * F;     // parts x D
+  float* part_scale = part_b2 + (size_t)parts * D;  // parts x D
+  float* part_bias = part_scale + (size_t)parts * D;
+  float* dyf = static_cast<float*>(dy);
+  SKY_TRY(launch_layernorm<float>(x, ln_scale, ln_bias, y, M, D, s));
+  SKY_TRY((f32::launch_gemm_f32<f32::FWD, f32::BIAS>(y, w1, b1, nullptr, a, nullptr, M, F, D,
+                                                     nullptr, s)));
+  SKY_TRY((f32::launch_gemm_f32<f32::NT, f32::DGELU>(g, w2, nullptr, nullptr, da, a, M, F, D,
+                                                     nullptr, s)));
+  SKY_TRY((f32::launch_gemm_f32<f32::NT, f32::STORE>(da, w1, nullptr, nullptr, dyf, nullptr, M, D,
+                                                     F, nullptr, s)));
+  SKY_TRY(launch_ln_bwd<float>(x, g, dyf, ln_scale, dx, part_scale, part_bias, M, D, s));
+  SKY_TRY((f32::launch_gemm_f32<f32::TN, f32::STORE>(y, da, nullptr, nullptr, dw1, nullptr, D, F,
+                                                     M, ws, s)));
+  SKY_TRY((f32::launch_gemm_f32<f32::TN, f32::STORE>(a, g, nullptr, nullptr, dw2, nullptr, F, D,
+                                                     M, ws, s)));
+  SKY_TRY(launch_colsum_partial<float>(da, M, F, part_b1, s));
+  SKY_TRY(launch_colsum_partial<float>(g, M, D, part_b2, s));
+  const ColsumJob jobs[4] = {{part_b1, static_cast<float*>(db1), parts, F},
+                             {part_b2, static_cast<float*>(db2), parts, D},
+                             {part_scale, static_cast<float*>(dscale), parts, D},
+                             {part_bias, static_cast<float*>(dbias), parts, D}};
+  SKY_TRY(launch_colsum_finals(jobs, 4, s));
   return 0;
 }

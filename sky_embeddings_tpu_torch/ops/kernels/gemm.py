@@ -40,6 +40,12 @@ the group rule (``bwd_plan``): of BN = 256, 192, 128 and split counts 1 and
 2, the pair of least modelled cost, the units dealt to the CTAs in
 turn as the kernel deals them. Card tests hold the copies to the C rules;
 the CPU tests hold them at every shipped config.
+
+:func:`gemm_f32` launches one product of the fp32 GEMM (``csrc/gemm_f32.cuh``,
+3xTF32 on ``mma.sync``; ``sky_gemm_f32`` in ``csrc/mlp_block.cu``) that the
+block kernels' fp32 forms run every product on, in any of its forms and
+epilogues, so that the card tests can hold it to fp32 ``torch.mm`` (TF32
+off) and ``chip_smoke.py`` can time it.
 """
 
 from __future__ import annotations
@@ -567,3 +573,95 @@ def gemm_dh_stash(g, w2, a):
 
 
 gemm_dh_stash.launches = 0
+
+
+# ---- the fp32 GEMM (csrc/gemm_f32.cuh, entry in csrc/mlp_block.cu) ----------
+
+F32_FORMS = {"fwd": 0, "nt": 1, "tn": 2}  # enum f32::Form
+F32_EPILOGUES = {"bias": 0, "bias_gelu": 1, "bias_residual": 2, "store": 3, "dgelu": 4}
+F32_FORM_EPILOGUES = {"fwd": ("bias", "bias_gelu", "bias_residual"), "nt": ("store", "dgelu"),
+                      "tn": ("store",)}
+
+
+def _f32_operands(a, b, form):
+    if form == "fwd":
+        (M, K), N = a.shape, b.shape[1]
+        if b.shape[0] != K:
+            raise ValueError(f"fwd: want a (M, K) and b (K, N), got {tuple(a.shape)}, {tuple(b.shape)}")
+        return M, N, K
+    return _bwd_operands(a, b, form)
+
+
+def gemm_f32_plain(a, b, form: str, epi: str, bias=None, resid=None, aux=None):
+    """Plain version of one fp32 product: ``a @ b`` (``"fwd"``), ``a @ bᵀ``
+    (``"nt"``) or ``aᵀ @ b`` (``"tn"``), then the epilogue: ``"bias"``,
+    ``"bias_gelu"`` (exact erf), ``"bias_residual"`` (``resid + (acc +
+    bias)``), ``"store"``, or ``"dgelu"`` (``(acc · gelu'(aux), gelu(aux))``:
+    da and h from dh and the pre-activation). Returns ``(out, aux_out)``,
+    aux_out None but for ``"dgelu"``."""
+    M, N, K = _f32_operands(a, b, form)
+    if epi not in F32_FORM_EPILOGUES.get(form, ()):
+        raise ValueError(f"{form}: epilogue {epi!r} is none of {F32_FORM_EPILOGUES.get(form)}")
+    acc = (torch.matmul(a, b) if form == "fwd" else torch.matmul(a, b.t()) if form == "nt"
+           else torch.matmul(a.t(), b))
+    if epi == "bias":
+        return acc + bias, None
+    if epi == "bias_gelu":
+        return gelu(acc + bias), None
+    if epi == "bias_residual":
+        return resid + (acc + bias), None
+    if epi == "dgelu":
+        return acc * gelu_grad(aux), gelu(aux)
+    return acc, None
+
+
+def gemm_f32(a, b, form: str, epi: str, bias=None, resid=None, aux=None):
+    """As :func:`gemm_f32_plain`. CPU tensors take the plain version; CUDA
+    tensors launch ``sky_gemm_f32`` or raise. A ``"tn"`` product splits
+    along K into slices added in order where the tiles would leave SMs idle,
+    as the block kernels' do; ``aux`` is not changed."""
+    if a.device.type == "cpu":
+        return gemm_f32_plain(a, b, form, epi, bias, resid, aux)
+    M, N, K = _f32_operands(a, b, form)
+    if epi not in F32_FORM_EPILOGUES.get(form, ()):
+        raise ValueError(f"{form}: epilogue {epi!r} is none of {F32_FORM_EPILOGUES.get(form)}")
+    want = {"a": (a, tuple(a.shape)), "b": (b, tuple(b.shape))}
+    if epi.startswith("bias"):
+        want["bias"] = (bias, (N,))
+    if epi == "bias_residual":
+        want["resid"] = (resid, (M, N))
+    if epi == "dgelu":
+        want["aux"] = (aux, (M, N))
+    for name, (t, shape) in want.items():
+        if t is None or tuple(t.shape) != shape or t.dtype != torch.float32 \
+                or not t.is_contiguous() or t.device != a.device:
+            got = None if t is None else (tuple(t.shape), t.dtype, str(t.device))
+            raise ValueError(f"{name}: want a contiguous {shape} fp32 tensor on {a.device}, got {got}")
+    if (M if form == "tn" else K) % 4 or (K if form == "nt" else N) % 4 or N % 4:
+        raise ValueError(f"M={M}, N={N}, K={K}: the contiguous axes must be multiples of 4 "
+                         "(16-byte copies)")
+    out = torch.empty((M, N), dtype=torch.float32, device=a.device)
+    aux_out = aux.clone() if epi == "dgelu" else None
+    lib = cuda_build.load("mlp_block")
+    ws = None
+    if form == "tn":
+        fn = lib.sky_gemm_f32_ws
+        fn.argtypes, fn.restype = [ctypes.c_int] * 3, ctypes.c_longlong
+        with torch.cuda.device(a.device):
+            n = fn(M, N, K)
+        ws = torch.empty(max(n, 4), dtype=torch.float32, device=a.device)
+    fn = lib.sky_gemm_f32
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    ptr = lambda t: None if t is None else t.data_ptr()
+    with torch.cuda.device(a.device):
+        err = fn(ptr(a), ptr(b), ptr(bias), ptr(resid), ptr(out), ptr(aux_out), ptr(ws),
+                 F32_FORMS[form], F32_EPILOGUES[epi], M, N, K,
+                 torch.cuda.current_stream().cuda_stream)
+    cuda_build.check(err, "sky_gemm_f32")
+    gemm_f32.launches += 1
+    return out, aux_out
+
+
+gemm_f32.launches = 0

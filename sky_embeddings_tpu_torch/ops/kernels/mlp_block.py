@@ -54,6 +54,16 @@ VMEM-resident weights; here they bound the (B·N, fs) scratch in device
 memory. With one slab JAX runs kernel 8, and so does
 :func:`mlp_block_bwd_stream`. :class:`MlpBlockFn` pairs K1 with kernel 8 or,
 with ``stream``, kernel 9; only the inputs are saved either way.
+
+fp32 forms (the fp32 configs: JAX sends fp32 blocks to ``xla_mlp_block``,
+``models/layers.py:253``): K1 and kernel 8 also take a uniform fp32 set (x,
+w1, w2 fp32; LN parameters and biases fp32 as always), computing what the
+plain versions compute in fp32 (nothing rounded, exact-erf GELU and GELU')
+with every product on the 3xTF32 GEMM of ``csrc/gemm_f32.cuh``:
+``csrc/mlp_block.cu`` entry ``sky_mlp_block_fwd_f32`` and
+``csrc/mlp_block_bwd.cu`` entry ``sky_mlp_block_bwd_f32``; their launches
+also count on the wrapper's ``f32_launches``. Kernels 6, 7 and 9 take bf16
+only: :func:`operand_dtype` holds the rule and refuses the rest.
 """
 
 from __future__ import annotations
@@ -229,20 +239,44 @@ def _entry(name: str, entry: str, n_ptr: int, n_int: int = 3):
     return fn
 
 
-def _check_cuda_args(x, scale, bias, w1, b1, w2, b2=None):
-    if x.dtype != torch.bfloat16:
-        raise ValueError(
-            f"fused_mlp_block on CUDA takes bf16 activations, got {x.dtype} "
-            "(fp32 on CUDA is a ROADMAP item)"
-        )
+# the block kernels with an fp32 form on CUDA (attention blocks: K2 and
+# kernels 2, 3; MLP blocks: K1 and kernel 8); the rest take bf16 only
+F32_KERNELS = ("K1", "K2", "kernel 2", "kernel 3", "kernel 8")
+
+
+def operand_dtype(kernel: str, x: torch.Tensor, **operands) -> torch.dtype:
+    """The operand dtype of a block kernel's CUDA launch: x's, bf16 or fp32,
+    which the weights and the stash in ``operands`` (None skipped) share;
+    LN parameters and biases are fp32 either way. Raises ``ValueError`` for
+    another dtype, for a mixed set (fp32 x with bf16 weights), and for fp32
+    on a kernel without an fp32 form (``kernel`` names it: "K1", "kernel
+    6", "kernel 2 masked", ...; see :data:`F32_KERNELS`). Reads dtypes only:
+    it loads no library and takes CPU tensors too."""
+    dt = x.dtype
+    if dt not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"{kernel} on CUDA takes bf16 or fp32 operands, got {dt} x")
+    for name, t in operands.items():
+        if t is not None and t.dtype != dt:
+            raise ValueError(f"{name}: {t.dtype} beside {dt} x; {kernel} on CUDA takes bf16 or "
+                             "fp32 operands, all of one dtype")
+    if dt == torch.float32 and kernel not in F32_KERNELS:
+        raise ValueError(f"{kernel} on CUDA takes bf16 only, got fp32 x: its fp32 form is still "
+                         "to be written (ROADMAP.md, module item 1, slice (c))")
+    return dt
+
+
+def _check_cuda_args(x, scale, bias, w1, b1, w2, b2=None, *, kernel: str):
+    """Checks a CUDA launch of ``kernel``'s arguments; returns the operand
+    dtype (:func:`operand_dtype`)."""
+    dt = operand_dtype(kernel, x, w1=w1, w2=w2)
     if x.dim() != 3 or not x.is_contiguous():
         raise ValueError("x must be a contiguous (B, N, D) tensor")
     D = x.shape[-1]
     F = w1.shape[-1]
     want = {
         "scale": (scale, (D,), torch.float32), "bias": (bias, (D,), torch.float32),
-        "w1": (w1, (D, F), torch.bfloat16), "b1": (b1, (F,), torch.float32),
-        "w2": (w2, (F, D), torch.bfloat16), "b2": (b2, (D,), torch.float32),
+        "w1": (w1, (D, F), dt), "b1": (b1, (F,), torch.float32),
+        "w2": (w2, (F, D), dt), "b2": (b2, (D,), torch.float32),
     }
     for name, (t, shape, dtype) in want.items():
         if t is None:  # the backwards read no b2, the stash backward no b1
@@ -255,20 +289,24 @@ def _check_cuda_args(x, scale, bias, w1, b1, w2, b2=None):
         raise ValueError(f"D={D} and F={F} must be multiples of 8 (16-byte loads)")
     if x.shape[0] * x.shape[1] > 65535 * ROWS_PER_PARTIAL:
         raise ValueError("too many rows for one launch grid")
+    return dt
 
 
 def _launch_fwd(x, scale, bias, w1, b1, w2, b2, stash: bool = False):
-    """K1 (counted on ``fused_mlp_block.launches``) or, with ``stash``, kernel 6
-    (counted on ``mlp_block_fwd_stash.launches``) on CUDA tensors: ``(out,
-    a)``, ``a`` None without the stash."""
-    _check_cuda_args(x, scale, bias, w1, b1, w2, b2)
+    """K1 (counted on ``fused_mlp_block.launches``, its fp32 form also on
+    ``.f32_launches``) or, with ``stash``, kernel 6 (counted on
+    ``mlp_block_fwd_stash.launches``) on CUDA tensors: ``(out, a)``, ``a``
+    None without the stash."""
+    dt = _check_cuda_args(x, scale, bias, w1, b1, w2, b2, kernel="kernel 6" if stash else "K1")
     B, N, D = x.shape
     F = w1.shape[1]
-    h = torch.empty((B * N, F), dtype=torch.bfloat16, device=x.device)
+    h = torch.empty((B * N, F), dtype=dt, device=x.device)
     out = torch.empty_like(x)
     ptrs = [t.data_ptr() for t in (x, scale, bias, w1, b1, w2, b2, h)]
     a = None
-    if stash:
+    if dt == torch.float32:
+        entry = "sky_mlp_block_fwd_f32"
+    elif stash:
         a = torch.empty((B * N, F), dtype=torch.bfloat16, device=x.device)
         ptrs.append(a.data_ptr())
         entry = "sky_mlp_block_fwd_stash"
@@ -282,6 +320,7 @@ def _launch_fwd(x, scale, bias, w1, b1, w2, b2, stash: bool = False):
         mlp_block_fwd_stash.launches += 1
     else:
         fused_mlp_block.launches += 1
+        fused_mlp_block.f32_launches += int(dt == torch.float32)
     return out, a
 
 
@@ -349,20 +388,52 @@ def _launch_bwd(entry, x, scale, bias, w1, b1, w2, a, g, fs=None):
     return dx, dscale, dbias, dw1, db1, dw2, db2
 
 
+def _launch_bwd_f32(x, scale, bias, w1, b1, w2, g):
+    """Kernel 8's fp32 form on CUDA tensors: allocates the fp32 scratch (y,
+    dy (B·N, D); a, da (B·N, F): the pre-activation, then h in its place, and
+    da) and the fp32 outputs."""
+    B, N, D = x.shape
+    F = w1.shape[1]
+    M = B * N
+    f32 = dict(dtype=torch.float32, device=x.device)
+    y, dy = torch.empty((M, D), **f32), torch.empty((M, D), **f32)
+    a, da = torch.empty((M, F), **f32), torch.empty((M, F), **f32)
+    part = torch.empty(-(-M // ROWS_PER_PARTIAL) * (F + 3 * D), **f32)
+    ws = torch.empty(max(_split_ws("mlp_block_bwd", "sky_mlp_block_bwd_f32_ws", x.device.index,
+                                   M, D, F), 4), **f32)
+    dx = torch.empty_like(x)
+    dscale, dbias, db2 = (torch.empty(D, **f32) for _ in range(3))
+    dw1, db1, dw2 = torch.empty((D, F), **f32), torch.empty(F, **f32), torch.empty((F, D), **f32)
+    ptrs = [t.data_ptr() for t in (x, scale, bias, w1, b1, w2, g, y, a, da, dy, part, ws, dx,
+                                   dscale, dbias, dw1, db1, dw2, db2)]
+    with torch.cuda.device(x.device):
+        err = _entry("mlp_block_bwd", "sky_mlp_block_bwd_f32", len(ptrs))(
+            *ptrs, M, D, F, torch.cuda.current_stream().cuda_stream)
+    cuda_build.check(err, "sky_mlp_block_bwd_f32")
+    return dx, dscale, dbias, dw1, db1, dw2, db2
+
+
 def mlp_block_bwd(x, scale, bias, w1, b1, w2, g):
     """Kernel 8: the gradients of the block from x and the output gradient
     ``g`` (see :func:`mlp_block_bwd_plain` for the outputs). CPU tensors take
-    the plain version; CUDA tensors launch ``csrc/mlp_block_bwd.cu`` or raise."""
+    the plain version; CUDA tensors launch ``csrc/mlp_block_bwd.cu`` (its
+    fp32 form for fp32 operands, also counted on ``.f32_launches``) or
+    raise."""
     if x.device.type == "cpu":
         return mlp_block_bwd_plain(x, scale, bias, w1, b1, w2, g)
-    _check_cuda_args(x, scale, bias, w1, b1, w2)
+    dt = _check_cuda_args(x, scale, bias, w1, b1, w2, kernel="kernel 8")
     _check_g(x, g)
-    grads = _launch_bwd("sky_mlp_block_bwd", x, scale, bias, w1, b1, w2, None, g)
+    if dt == torch.float32:
+        grads = _launch_bwd_f32(x, scale, bias, w1, b1, w2, g)
+        mlp_block_bwd.f32_launches += 1
+    else:
+        grads = _launch_bwd("sky_mlp_block_bwd", x, scale, bias, w1, b1, w2, None, g)
     mlp_block_bwd.launches += 1
     return grads
 
 
 mlp_block_bwd.launches = 0
+mlp_block_bwd.f32_launches = 0
 
 
 def mlp_block_bwd_stash(x, scale, bias, w1, w2, a, g):
@@ -372,7 +443,7 @@ def mlp_block_bwd_stash(x, scale, bias, w1, w2, a, g):
     CUDA tensors launch ``csrc/mlp_block_bwd.cu`` (stash entry) or raise."""
     if x.device.type == "cpu":
         return mlp_block_bwd_stash_plain(x, scale, bias, w1, w2, a, g)
-    _check_cuda_args(x, scale, bias, w1, None, w2)
+    _check_cuda_args(x, scale, bias, w1, None, w2, kernel="kernel 7")
     _check_g(x, g)
     M, F = x.shape[0] * x.shape[1], w1.shape[1]
     if tuple(a.shape) != (M, F) or a.dtype != torch.bfloat16 or not a.is_contiguous() \
@@ -402,7 +473,7 @@ def mlp_block_bwd_stream(x, scale, bias, w1, b1, w2, g):
         return mlp_block_bwd(x, scale, bias, w1, b1, w2, g)
     if x.device.type == "cpu":
         return mlp_block_bwd_stream_plain(x, scale, bias, w1, b1, w2, g)
-    _check_cuda_args(x, scale, bias, w1, b1, w2)
+    _check_cuda_args(x, scale, bias, w1, b1, w2, kernel="kernel 9")
     _check_g(x, g)
     if fs % 8:
         raise ValueError(f"stream slab {fs} must be a multiple of 8 (16-byte loads)")
@@ -418,10 +489,15 @@ class MlpBlockFn(torch.autograd.Function):
     """K1 forward, kernel 8 backward or, with ``stream``, kernel 9 (JAX
     ``fused_mlp_block`` with ``stash=False`` or ``"stream"``: only the
     inputs are saved). ``plain`` runs the plain versions on any device: the
-    reference path a check on the card holds the kernels against."""
+    reference path a check on the card holds the kernels against. On CUDA a
+    backward kernel without an fp32 form (kernel 9 over several slabs)
+    refuses fp32 here, before the forward runs."""
 
     @staticmethod
     def forward(ctx, x, scale, bias, w1, b1, w2, b2, plain, stream):
+        if stream and not plain and x.device.type != "cpu" \
+                and _stream_slab(x.shape[-1], w1.shape[1]) != w1.shape[1]:
+            operand_dtype("kernel 9", x, w1=w1, w2=w2)
         if plain or x.device.type == "cpu":
             out = mlp_block_plain(x, scale, bias, w1, b1, w2, b2)
         else:
@@ -484,3 +560,4 @@ def fused_mlp_block(x, scale, bias, w1, b1, w2, b2, stash: bool | str = False,
 
 
 fused_mlp_block.launches = 0
+fused_mlp_block.f32_launches = 0  # those of the launches in fp32

@@ -290,8 +290,8 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
         tmb.mlp_block_bwd_stash(*mlp[:4], mlp[5], a.float(), g)
     with pytest.raises(ValueError, match="a:"):
         tmb.mlp_block_bwd_stash(*mlp[:4], mlp[5], a[:-1], g)
-    # with grad, both stash settings take their kernels: fp32 is refused,
-    # never sent to the plain versions
+    # with grad, both stash settings take their kernels: a mixed set (fp32
+    # x, bf16 weights) is refused, never sent to the plain versions
     leaf = args[0].float().detach().requires_grad_()
     for stash in (True, False):
         with pytest.raises(ValueError, match="bf16"):
@@ -1559,3 +1559,163 @@ def test_attention_backwards_launch_only_the_sm90_gemm(dev, B, N, D, H):
         assert not any("gemm_bf16" in n for n in names), (name, names)
         assert not any("colsum_partial_kernel<float>" in n for n in names), (name, names)
 
+
+
+# ---- the fp32 forms of K1, K2 and kernels 2, 3 and 8, and their GEMM --------
+
+# max|a-b|/max|b| per output of an fp32 form against its plain version (TF32
+# off), as chip_smoke.py's TOL_F32_FORMS / TOL_GEMM_F32: the card measured
+# 2.25e-6 and 2.5e-6 at worst at the main path's widths
+TOL_F32_FORMS = 5e-6
+TOL_GEMM_F32 = 5e-6
+# (B, N, D, H, F): ViT-B at mim_1's N and cls_fs_1k's, ragged rows and
+# tokens, heads of 16, 80 (ViT-H) and 96, N = 256
+F32_SHAPES = [(3, 17, 64, 4, 256), (2, 65, 768, 12, 3072), (5, 66, 768, 12, 3072),
+              (3, 33, 96, 1, 200), (2, 66, 1280, 16, 5120), (1, 256, 256, 4, 512),
+              (7, 129, 192, 2, 384)]
+
+
+def _f32_block(dev, B, N, D, wa, wb, seed):
+    """(x, scale, bias, w_a, b_a, w_b, b_b), all fp32 and drawn in fp32."""
+    rng = np.random.default_rng(seed)
+    f32 = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(dev)
+    return (0.5 * f32(B, N, D), 1.0 + 0.1 * f32(D), 0.1 * f32(D), f32(*wa) * wa[0] ** -0.5,
+            0.01 * f32(wa[1]), f32(*wb) * wb[0] ** -0.5, 0.01 * f32(wb[1]))
+
+
+@pytest.mark.parametrize("B,N,D,H,F", F32_SHAPES)
+def test_f32_forms_match_plain(dev, B, N, D, H, F):
+    """Each fp32 form against its plain version, output by output; every
+    launch an fp32 one, every output fp32; kernels 3 and 8 twice bit-equal."""
+    attn = _f32_block(dev, B, N, D, (D, 3 * D), (D, D), seed=40)
+    mlp = _f32_block(dev, B, N, D, (D, F), (F, D), seed=41)
+    g = 0.1 * torch.randn(B, N, D, device=dev, generator=torch.Generator(dev).manual_seed(42))
+    _, qkv, probs = tab.attn_block_fwd_stash_plain(*attn, H)
+    counted = (tab.fused_attn_block, tab.attn_block_fwd_stash, tab.attn_block_bwd_stash,
+               tmb.fused_mlp_block, tmb.mlp_block_bwd)
+    before = [f.f32_launches for f in counted]
+    cases = [
+        (tab.fused_attn_block(*attn, H), tab.attn_block_plain(*attn, H)),
+        (tab.attn_block_fwd_stash(*attn, H), tab.attn_block_fwd_stash_plain(*attn, H)),
+        (tab.attn_block_bwd_stash(*attn[:4], attn[5], qkv, probs, g, H),
+         tab.attn_block_bwd_stash_plain(*attn[:4], attn[5], qkv, probs, g, H)),
+        (tmb.fused_mlp_block(*mlp), tmb.mlp_block_plain(*mlp)),
+        (tmb.mlp_block_bwd(*mlp[:6], g), tmb.mlp_block_bwd_plain(*mlp[:6], g)),
+    ]
+    torch.cuda.synchronize()
+    assert [f.f32_launches - b for f, b in zip(counted, before)] == [1] * 5
+    for got, want in cases:
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        for a, b in zip(got, want):
+            assert a.dtype == torch.float32 and a.shape == b.shape
+            assert _max_rel(a, b) <= TOL_F32_FORMS
+    again = (tab.attn_block_bwd_stash(*attn[:4], attn[5], qkv, probs, g, H),
+             tmb.mlp_block_bwd(*mlp[:6], g))
+    for first, second in zip((cases[2][0], cases[4][0]), again):
+        assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+# (M, N, K): ragged rows and columns (multiples of 4), a K that is no
+# multiple of the 16-deep slab, and the weight gradients' long K (split
+# into slices where the tiles leave SMs idle)
+GEMM_F32_SHAPES = [(4, 8, 4), (300, 264, 200), (132, 36, 1028), (16896, 768, 3072),
+                   (768, 768, 16896), (1024, 4096, 4160)]
+
+
+@pytest.mark.parametrize("form,epi", [(f, e) for f, es in tg.F32_FORM_EPILOGUES.items() for e in es])
+@pytest.mark.parametrize("M,N,K", GEMM_F32_SHAPES)
+def test_gemm_f32_matches_fp32_torch_mm(dev, form, epi, M, N, K):
+    """The fp32 GEMM (csrc/gemm_f32.cuh, 3xTF32) in each form and epilogue
+    against fp32 torch.mm with TF32 off (a "tn" product split along K where
+    its tiles would leave SMs idle: the long K here); two launches
+    bit-equal."""
+    gen = torch.Generator(dev).manual_seed(M + N + K)
+    rn = lambda *s: torch.randn(*s, device=dev, generator=gen)
+    sa = {"fwd": (M, K), "nt": (M, K), "tn": (K, M)}[form]
+    sb = {"fwd": (K, N), "nt": (N, K), "tn": (K, N)}[form]
+    a, b = rn(*sa), rn(*sb) * K ** -0.5
+    bias, resid, aux = rn(N), rn(M, N), rn(M, N)
+    want = tg.gemm_f32_plain(a, b, form, epi, bias, resid, aux)
+    got = tg.gemm_f32(a, b, form, epi, bias, resid, aux)
+    again = tg.gemm_f32(a, b, form, epi, bias, resid, aux)
+    torch.cuda.synchronize()
+    assert _max_rel(got[0], want[0]) <= TOL_GEMM_F32
+    assert torch.equal(got[0], again[0])
+    if epi == "dgelu":
+        assert _max_rel(got[1], want[1]) <= TOL_GEMM_F32
+    else:
+        assert got[1] is None
+
+
+def test_gemm_f32_refuses_what_it_does_not_take(dev):
+    a = torch.randn(8, 8, device=dev)
+    with pytest.raises(ValueError, match="fp32"):
+        tg.gemm_f32(a.bfloat16(), a.bfloat16(), "fwd", "bias", torch.zeros(8, device=dev))
+    with pytest.raises(ValueError, match="multiples of 4"):
+        tg.gemm_f32(torch.randn(8, 6, device=dev), torch.randn(8, 6, device=dev), "nt", "store")
+    with pytest.raises(ValueError, match="epilogue"):
+        tg.gemm_f32(a, a, "tn", "bias")
+
+
+def test_f32_routes_not_ported_raise_and_nothing_falls_back(dev, monkeypatch):
+    """fp32 on CUDA: kernel 4 (stash=False with grad, remat), kernels 6 and 7
+    (the MLP stash), kernel 9 (wide blocks over several slabs) and the
+    seg_len forms raise a ValueError naming the kernel and ROADMAP.md; no
+    plain version runs."""
+    for name in ("attn_block_plain", "attn_block_bwd_plain", "attn_block_fwd_stash_plain"):
+        monkeypatch.setattr(tab, name, lambda *a, **k: pytest.fail("plain version on CUDA"))
+    for name in ("mlp_block_plain", "mlp_block_fwd_stash_plain", "mlp_block_bwd_stream_plain"):
+        monkeypatch.setattr(tmb, name, lambda *a, **k: pytest.fail("plain version on CUDA"))
+    attn = _f32_block(dev, 2, 17, 64, (64, 192), (64, 64), seed=43)
+    mlp = _f32_block(dev, 2, 17, 64, (64, 256), (256, 64), seed=44)
+    leaf = attn[0].clone().requires_grad_()
+    with pytest.raises(ValueError, match=r"kernel 4 on CUDA takes bf16 only.*ROADMAP\.md"):
+        tab.fused_attn_block(leaf, *attn[1:], 4, stash=False)
+    with pytest.raises(ValueError, match="K2 masked on CUDA takes bf16 only"):
+        tab.fused_attn_block(attn[0], *attn[1:], 4, seg_len=5)
+    with pytest.raises(ValueError, match="kernel 2 masked on CUDA takes bf16 only"):
+        tab.fused_attn_block(leaf, *attn[1:], 4, seg_len=5)
+    with pytest.raises(ValueError, match="kernel 4 on CUDA takes bf16 only"):
+        tab.attn_block_bwd(*attn[:6], torch.ones_like(attn[0]), 4)
+    with pytest.raises(ValueError, match="kernel 6 on CUDA takes bf16 only"):
+        tmb.fused_mlp_block(mlp[0].clone().requires_grad_(), *mlp[1:], stash=True)
+    a = torch.zeros(34, 256, device=dev)
+    with pytest.raises(ValueError, match="kernel 7 on CUDA takes bf16 only"):
+        tmb.mlp_block_bwd_stash(*mlp[:4], mlp[5], a, torch.ones_like(mlp[0]))
+    monkeypatch.setattr(tmb, "_STREAM_FIXED_BUDGET", 12 * 64 * 128)  # two slabs of 128
+    with pytest.raises(ValueError, match="kernel 9 on CUDA takes bf16 only"):
+        tmb.fused_mlp_block(mlp[0].clone().requires_grad_(), *mlp[1:], stash="stream")
+    with pytest.raises(ValueError, match="kernel 9 on CUDA takes bf16 only"):
+        tmb.mlp_block_bwd_stream(*mlp[:6], torch.ones_like(mlp[0]))
+
+
+def test_f32_training_step_reaches_every_parameter(dev):
+    """A small fp32 encoder (stash on, as ViT-B trains) through the fp32
+    forms: loss.backward() reaches every parameter, the launches are kernels
+    2, 3 and 8 and K1's fp32 forms, and the gradients match the plain path's."""
+    from sky_embeddings_tpu_torch.models.layers import Encoder
+
+    enc = Encoder(2, 64, 4, 4.0, torch.float32, stash=True, stash_mlp=False)
+    gen = torch.Generator().manual_seed(46)
+    with torch.no_grad():
+        for n, p in enc.named_parameters():
+            p.copy_(float(n.endswith("scale")) + 0.05 * torch.randn(p.shape, generator=gen))
+    enc = enc.to(dev)
+    x = 0.5 * torch.randn(3, 17, 64, device=dev, generator=torch.Generator(dev).manual_seed(45))
+    counted = (tab.attn_block_fwd_stash, tab.attn_block_bwd_stash, tmb.fused_mlp_block,
+               tmb.mlp_block_bwd)
+    grads = []
+    for plain in (False, True):
+        enc.plain = plain
+        enc.zero_grad(set_to_none=True)
+        before = [f.f32_launches for f in counted]
+        enc(x).square().mean().backward()
+        torch.cuda.synchronize()
+        if not plain:
+            assert [f.f32_launches - b for f, b in zip(counted, before)] == [2, 2, 2, 2]
+        grads.append({n: p.grad for n, p in enc.named_parameters()})
+    assert grads[0].keys() == {n for n, _ in enc.named_parameters()}
+    for n, g in grads[0].items():
+        assert g is not None and torch.isfinite(g).all(), n
+        assert float((g - grads[1][n]).norm() / grads[1][n].norm()) <= 1e-5, n

@@ -33,7 +33,7 @@ from sky_embeddings_tpu.train.schedules import linear_lr as jax_linear_lr
 from sky_embeddings_tpu.train.state import TrainState
 from sky_embeddings_tpu.utils.misc import samples_per_class as jax_samples_per_class
 from sky_embeddings_tpu.utils.plotting import photoz_prediction_metrics as jax_photoz
-from sky_embeddings_tpu_torch.configuration import Config, load_config
+from sky_embeddings_tpu_torch.configuration import Config, apply_overrides, load_config
 from sky_embeddings_tpu_torch.data.synthetic import make_structured_cutouts
 from sky_embeddings_tpu_torch.eval.eval_fns import predictor_infer
 from sky_embeddings_tpu_torch.models import mim as port_mim
@@ -261,8 +261,8 @@ def _both(d):
     return JaxConfig.from_dict(d), Config.from_dict(d)
 
 
-def _batches(n_steps, seed=5):
-    data = make_structured_cutouts(8 * n_steps, channels=3, img_size=16, seed=seed)
+def _batches(n_steps, seed=5, channels=3):
+    data = make_structured_cutouts(8 * n_steps, channels=channels, img_size=16, seed=seed)
     rd = np.stack([data["ra"], data["dec"]], 1)
     out = []
     for i in range(n_steps):
@@ -306,8 +306,25 @@ def _key_bias(name: str, shape):
     return None
 
 
+# the shipped fp32 configs the card's fp32 path runs (chip_smoke.py), as
+# shipped but cut to depth 2 and 16 x 16 cutouts: (config, its label, the
+# overrides of the predictor config, and of its pretraining config when it
+# names one: mim_1's ViT-B at D = 48)
+SHIPPED = {
+    "cls_fs_1k": ("ce", ["ARCHITECTURE.img_size=16", "ARCHITECTURE.patch_size=4",
+                         "ARCHITECTURE.embed_dim=48", "TRAINING.batch_size=8",
+                         "TRAINING.augment=False"], None),
+    "lp_1": ("mse", ["ARCHITECTURE.img_size=16", "TRAINING.batch_size=8", "TRAINING.augment=False"],
+             ["ARCHITECTURE.img_size=16", "ARCHITECTURE.patch_size=4", "ARCHITECTURE.embed_dim=48"]),
+}
 STEP_CASES = [("ft", "mse"), ("ft", "errs"), ("lp", "ce"), ("lp", "errs"), ("fs", "ce"),
-              ("fs", "mse")]
+              ("fs", "mse"), ("fs", "cls_fs_1k"), ("lp", "lp_1")]
+
+
+def _shipped(name, overrides):
+    """A shipped config with ``overrides``, in both frameworks."""
+    cfg = apply_overrides(load_config(name, CONFIGS), overrides, name)
+    return _both({sec: dict(cfg[sec].items()) for sec in cfg.sections()})
 
 
 @pytest.mark.parametrize("method,loss", STEP_CASES)
@@ -317,34 +334,52 @@ def test_three_adamw_steps_match_jax(method, loss, monkeypatch):
     decay 0.75, the PARITY #1 quirk: base lr = weight_decay 1e-3, decay
     0.05), ``linear_probe_optimizer`` (the backbone stop-gradient'ed) or
     ``supervised_optimizer`` against ``PredictorTrainer.train_batch``; mse,
-    mse weighted by the label errors, cross-entropy. Params bound 1e-4
-    absolute, a fraction of one step. Under ``lp`` the backbone stays
+    mse weighted by the label errors, cross-entropy; and two shipped fp32
+    configs (``cls_fs_1k``: ``fs``, 9 bands, the RA/Dec token, 3-class
+    cross-entropy; ``lp_1``: ``lp`` over ``mim_1``'s backbone, mse) with
+    their own optimizer settings, cut to depth 2 and D = 48. Params bound
+    1e-4 absolute, a fraction of one step. Under ``lp`` the backbone stays
     bit-unchanged and gets no ``.grad``."""
     for mod in (jax_mim, port_mim):
         monkeypatch.setitem(mod._SIZES["base"], "depth", 2)
-    jcfg, cfg = _both(_pred_cfg(loss, method))
-    jmae, mae = _both(_mim_cfg())
-    jmodel = jax_build_predictor(jcfg, jmae)
-    params = jax.jit(jmodel.init)(jax.random.PRNGKey(0), jnp.zeros((2, 3, 16, 16)))["params"]
-    params = _perturbed(params, 3, 0.02)
-    total, lr0 = 4, 2e-3
-    sched = lambda lr: jax_linear_lr(lr, total, 10.0)
-    if method == "ft":
-        tx = jax_optim.finetune_optimizer(params, sched, jmodel.depth, 0.75, lr0, 1e-3)
-    elif method == "lp":
-        tx = jax_optim.linear_probe_optimizer(params, sched(lr0), 1e-3, "map")
+    if loss in SHIPPED:
+        label, over, mae_over = SHIPPED[loss]
+        jcfg, cfg = _shipped(loss, over)
+        mae_name = cfg.pretrained_mae_name()
+        jmae, mae = (jcfg, cfg) if mae_name is None else _shipped(mae_name, mae_over)
+        assert cfg.training.str("train_method") == method and "dtype" not in cfg.training
     else:
-        tx = jax_optim.supervised_optimizer(params, sched(lr0), 1e-3)
+        label = loss
+        jcfg, cfg = _both(_pred_cfg(loss, method))
+        jmae, mae = _both(_mim_cfg())
+    chans = mae.architecture.int("num_channels")
+    tr = cfg.training
+    total, lr0, wd = tr.int("total_batch_iters"), tr.float("init_lr"), tr.float("weight_decay", 0.0)
+    jmodel = jax_build_predictor(jcfg, jmae)
+    init = lambda key, x, rd: jmodel.init(key, x, ra_dec=rd)
+    params = jax.jit(init)(jax.random.PRNGKey(0), jnp.zeros((2, chans, 16, 16)),
+                           jnp.zeros((2, 2)) if jmodel.ra_dec else None)["params"]
+    params = _perturbed(params, 3, 0.02)
+    sched = lambda lr: jax_linear_lr(lr, total, tr.float("final_lr_factor"))
+    if method == "ft":
+        tx = jax_optim.finetune_optimizer(params, sched, jmodel.depth, tr.float("layer_decay"),
+                                          lr0, wd)
+    elif method == "lp":
+        tx = jax_optim.linear_probe_optimizer(params, sched(lr0), wd, "map")
+    else:
+        tx = jax_optim.supervised_optimizer(params, sched(lr0), wd)
     trainable = jax_optim.trainable_mask(params, "lp", "map") if method == "lp" else None
-    jstep = jax.jit(jax_make_step(jmodel, tx, jcfg.training.str("loss_fn"), loss == "errs",
+    jstep = jax.jit(jax_make_step(jmodel, tx, jcfg.training.str("loss_fn"), label == "errs",
                                   False, {}, True, trainable=trainable, pixel_min=-3.0))
     state = TrainState.create(jax.tree_util.tree_map(jnp.asarray, params), tx,
                               jax.random.PRNGKey(1))
     trainer = PredictorTrainer(cfg, mae, dtype=torch.float32, device="cpu")
+    if loss in SHIPPED:
+        assert trainer.model.ra_dec == (loss == "cls_fs_1k") and trainer.model.in_chans == chans
     trainer.model.load_state_dict(params_from_jax(params))
     start = {k: v.clone() for k, v in trainer.model.state_dict().items()}
-    for batch in _batches(3):
-        b = {**batch, "labels": batch["labels"][loss]}
+    for batch in _batches(3, channels=chans):
+        b = {**batch, "labels": batch["labels"][label]}
         state, jloss, jmetric = jstep(state, jnp.asarray(b["cutouts"]), jnp.asarray(b["ra_dec"]),
                                       jnp.asarray(b["labels"]))
         tloss, tmetric = trainer.train_batch(b)

@@ -24,7 +24,8 @@ trees on one card see the same ones). Prints the card's name and power limit, a 
 shape and a JSON line of every number. Imports nothing of JAX.
 
 ``strip`` (card): what bounds the kernels. It builds csrc/attention.cu as
-it is and three copies with a part taken out (``no_loads``: nothing staged
+it is and with three copies of its fp32 kernels (csrc/attn_f32.cuh), each
+with a part taken out (``no_loads``: nothing staged
 from device memory, the products run on whatever shared memory holds;
 ``no_math``: no product and no softmax, only the loads; ``no_softmax``),
 one nvcc each, all at once, and times kernels 12 and 13 in fp32 through
@@ -177,7 +178,8 @@ def card(args: list) -> int:
     return 0
 
 
-# csrc/attention.cu's lines that strip's copies change, and what to
+# csrc/attn_f32.cuh's lines (the fp32 kernels attention.cu launches) that
+# strip's copies change, and what to
 STRIPS = {
     "no_loads": [("  if (vec) {\n    for (VecWalk w(threadIdx.x, blockDim.x, pl.HD4 / 4);",
                   "  if (pl.NP > 0) return;\n  if (vec) {\n    for (VecWalk w(threadIdx.x, blockDim.x, pl.HD4 / 4);")],
@@ -202,7 +204,7 @@ def strip(args: list) -> int:
     from sky_embeddings_tpu_torch.ops.kernels import cuda_build
 
     csrc = cuda_build.CSRC
-    source = (csrc / "attention.cu").read_text()
+    source = (csrc / "attn_f32.cuh").read_text()
     work = cuda_build.BUILD_DIR / "attn_f32_strip"
     work.mkdir(parents=True, exist_ok=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -213,12 +215,17 @@ def strip(args: list) -> int:
         text = source
         for old, new in STRIPS.get(name, []):
             if old not in text:
-                raise SystemExit(f"strip {name}: csrc/attention.cu no longer holds {old!r}")
+                raise SystemExit(f"strip {name}: csrc/attn_f32.cuh no longer holds {old!r}")
             text = text.replace(old, new)
-        (work / f"{name}.cu").write_text(text)
+        # the stripped header beside a copy of attention.cu, which includes it
+        # from its own directory first
+        var = work / name
+        var.mkdir(exist_ok=True)
+        (var / "attn_f32.cuh").write_text(text)
+        (var / "attention.cu").write_text((csrc / "attention.cu").read_text())
         lib = work / f"lib{name}.so"
         flags = [f for f in cuda_build.NVCC_FLAGS if f not in ("-Xptxas", "-v")]
-        subprocess.run([cuda_build._nvcc(), *flags, "-I", str(csrc), "-o", str(lib), str(work / f"{name}.cu")],
+        subprocess.run([cuda_build._nvcc(), *flags, "-I", str(csrc), "-o", str(lib), str(var / "attention.cu")],
                        check=True, capture_output=True)
         return lib
 
