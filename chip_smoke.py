@@ -11,7 +11,7 @@ failing loudly (any failure exits non-zero and prints no result line):
    forward; attention stash and recompute backward; the standalone
    attention forward and backward, kernels 12 and 13; MLP block forward and
    stash forward; MLP recompute, stash and weight-streaming backward; the
-   fp32 forms of K1, K2 and kernels 2, 3 and 8 in the same libraries; the
+   fp32 forms of every block kernel, masked too, in the same libraries; the
    multi-query bank scorer) from the sources in the checkout, one nvcc per
    source, all at once; Triton compiles the bank scorer;
 3. kernel parity, each kernel against its plain PyTorch version on the same
@@ -77,6 +77,12 @@ failing loudly (any failure exits non-zero and prints no result line):
    3xTF32 on ``mma.sync``) alone at ``cls_fs_1k``'s twelve products (the
    forward, NT and TN forms with their epilogues) at TOL_GEMM_F32 beside
    fp32 ``torch.addmm`` / ``torch.mm`` (the ``gemm_f32_times`` record);
+   then the fp32 forms of kernels 4, 6, 7, 9 and of the masked K2, 2 and 4
+   alone (F32_NEW) at the fp32 paths' full widths: kernels 6 and 7 at
+   ``cls_ft_1k_large``'s B=256 and ``mim_25_large``'s B=64 (ViT-L, 16
+   heads of 48), kernel 4 at ``mim_32``'s B=32 (N=66, 16 heads of 64), the
+   masked forms at MAE's packing (B=256, N=68, seg_len 17), kernel 9 at
+   ViT-H B=32, the same way (kernel 6's out bit-equal to K1's fp32 form);
 4. the serving path, through the entry points ``similarity_search`` calls, on
    ``configs/mim_1.ini`` (SimMIM ViT-B, bf16, full depth, seeded weights) and
    synthetic cutouts with whole-band NaNs: ``extract_latents`` of 2 targets
@@ -171,9 +177,24 @@ failing loudly (any failure exits non-zero and prints no result line):
    alone; every launch fp32, counted apart (``*_f32``). Each route's kernel
    path against its plain path (TOL_PRED_F32), the step's time, busy share
    and peak memory; each route's ``predictor_infer`` in fp32 over 4
-   batches (K1 and K2 alone) and its images/s; and ``z_ft_2`` in fp32
-   (``mim_32``'s ``mimlarge`` backbone with the MLP stash) raising on the
-   card, naming kernel 6;
+   batches (K1 and K2 alone) and its images/s;
+5e. the fp32 large and tiny configs, as shipped, the sets in memory as in
+   5d: the predictor's ``cls_ft_1k_large`` (``ft`` over ``mim_25_large``'s
+   ``mimlarge``: ViT-L, depth 24, 16 heads of 48, the MLP stash; B=256,
+   3-class cross-entropy), ``z_ft_2`` (``ft`` over ``mim_32``'s: D=1024, 16
+   heads of 64, the RA/Dec token, N=66, B=128, mse) and ``z_tiny`` (``ft``
+   over ``mim_tiny``: heads of 4), each from seeded weights, the fp32 forms
+   of kernels 2, 3, 6 and 7 (or K1 and kernel 8 without the MLP stash) in
+   training and K1, K2 in validation and ``predictor_infer``; then
+   pretraining ``mim_tiny``, ``mim_tiny_large`` (kernels 6 and 7) and
+   ``mae_tiny`` (the encoder packed four 5-token samples a sequence: kernel
+   2 masked and kernel 3; the one-head, 512-wide decoder without its stash:
+   K2 and kernel 4; then MAE_TINY_REMAT's remat run, kernel 4 masked, and
+   its gradients bit-equal to the stored path's) through ``training_phase``
+   in the configs' own dtype, fp32, and ViT-H (``mim_32_vith`` in fp32,
+   full depth: kernel 9's fp32 form); each with every launch an fp32 one,
+   the kernel path against the plain path (TOL_PRED_F32, TOL_F32_PATHS),
+   the step's time, busy share and peak memory;
 5b. the ``Attention`` module (``models/layers.Attention``, the only caller of
    kernels 12 and 13, as in JAX) at ViT-B width, B=64, in bf16 and at its
    default fp32: one forward and ``backward()`` through autograd with the
@@ -297,6 +318,25 @@ TOL_GEMM_F32 = 5e-6
 # that differ by about 1e-6 (median 2.9e-7); losses 1.8e-7 (fs) and 0
 # (lp). The bars are about twice those.
 TOL_PRED_F32 = {"fs": (1.5e-5, 4e-7), "lp": (1.5e-3, 4e-7)}  # route: (gradients, losses)
+# the fp32 large and tiny predictor paths (ft over mimlarge and simmim
+# backbones), the same way, by label. Measured on the H100 (PERF.md):
+# cls_ft_1k_large gradients 1.24e-4 at worst (pool.xattn.q.kernel, as lp;
+# median 1.4e-6), one step's loss 3.0e-7, three steps' losses 1.76e-5: the
+# shipped ft learning rate (weight_decay's 0.05, JAX's quirk) drives the
+# seeded ViT-L's loss from 1.1 to 6e4 in six steps, and the trajectories
+# part as the losses grow; z_ft_2 2.23e-4 on the same leaf (median 3.5e-7),
+# loss 0, steps 4.6e-6 (its loss too grows to 2e5, then falls); z_tiny
+# 4.6e-6 (pool.mlp.fc2.bias), losses 0. The bars are about twice those; a
+# loss gap measured 0 gets two fp32 ulps (2.5e-7).
+TOL_PRED_F32.update({"ft_large": (2.5e-4, 4e-5), "ft_z": (4.5e-4, 1e-5), "ft_tiny": (1e-5, 2.5e-7)})
+# the fp32 pretraining paths (tiny configs as shipped; ViT-H in fp32),
+# kernel path against plain path: (gradients, losses). Measured on the H100
+# (PERF.md): mim_tiny gradients 5.7e-7 at worst, one step's loss 0, five
+# steps' 6.4e-8; mim_tiny_large 8.3e-7, 1.0e-7, 1.3e-7; mae_tiny 5.3e-7, 0,
+# 6.7e-7; ViT-H in fp32 7.4e-7 (the RA/Dec SIREN's first layer), 0, 0. The
+# bars are about twice those (two fp32 ulps where 0 was measured).
+TOL_F32_PATHS = {"mim_tiny": (1.2e-6, 2.5e-7), "mim_tiny_large": (1.7e-6, 2.6e-7),
+                 "mae_tiny": (1.1e-6, 1.4e-6), "mim_32_vith_f32": (1.5e-6, 2.5e-7)}
 
 CONFIG = "mim_1"
 DEVICE = "cuda"
@@ -350,16 +390,42 @@ PRED = ("mim_struct", {"ft": "z_struct_ft_512", "fs": "z_struct_fs_512", "lp": "
 PRED_CE = {"DATA": {"label_keys": "['class']", "num_classes": "3", "label_means": "[0]",
                     "label_stds": "[1]"}, "TRAINING": {"loss_fn": "crossentropy"}}
 # the fp32 predictor paths (configs without a dtype, as 43 shipped ones
-# are), as shipped: route -> (config, label key, training-set batches); then
-# (train steps, validation batches, predictor_infer batches, timed steps);
-# an fp32 config whose build needs kernel 6 (a mimlarge backbone with the
-# MLP stash), which must raise on the card
+# are), as shipped: label -> (config, label key, training-set batches); then
+# (train steps, validation batches, predictor_infer batches, timed steps).
+# PRED_F32 (phase 5d): fs over ViT-B, lp over mim_1's; PRED_F32_LARGE
+# (phase 5e): ft over mim_25_large's mimlarge (ViT-L, 16 heads of 48, the
+# MLP stash), over mim_32's (D=1024, 16 heads of 64, the RA/Dec token) and
+# over mim_tiny's (heads of 4)
 PRED_F32 = {"fs": ("cls_fs_1k", "class", 5), "lp": ("lp_1", "zspec", 4)}
+PRED_F32_LARGE = {"ft_large": ("cls_ft_1k_large", "class", 5), "ft_z": ("z_ft_2", "zspec", 4),
+                  "ft_tiny": ("z_tiny", "zspec", 4)}
 PRED_F32_RUN = (3, 1, 4, 5)
-PRED_F32_NEEDS_K6 = "z_ft_2"
+# the fp32 pretraining paths (phase 5e): the tiny configs as shipped (heads
+# of 4; mim_tiny_large with the MLP stash; mae_tiny with four 5-token
+# samples packed per encoder sequence and its one-head, 512-wide decoder
+# without the stash) and ViT-H (mim_32_vith) in fp32, whose wide blocks
+# take kernel 9; (config, steps, validation batches, train-step batches
+# with their timed iterations); then mae_tiny's remat run (batch, steps)
+F32_TRAIN = (("mim_tiny", 10, 2, ((16, 10),)), ("mim_tiny_large", 10, 2, ((16, 10),)),
+             ("mae_tiny", 10, 2, ((16, 10),)), ("mim_32_vith_f32", 3, 1, ((32, 3),)))
+MAE_TINY_REMAT = (16, 3)
 # the fp32 forms alone: (label, B, N) at mim_1's ViT-B (N=65) and at
 # cls_fs_1k's batch with the RA/Dec token (N=66)
 F32_SHAPES = (("vitb", 64, 65), ("cls_fs", 256, 66))
+# the fp32 forms kernels 4, 6, 7, 9 and the masks added, alone at the fp32
+# paths' full widths: (label, B, N, D, H, F, seg_len, forms): kernels 6 and
+# 7 at cls_ft_1k_large's B=256 and mim_25_large's B=64 (ViT-L, 16 heads of
+# 48), kernel 4 at mim_32's B=32 (N=66, 16 heads of 64), the masked K2,
+# kernel 2 and kernel 4 at MAE's ViT-B packing (256 sequences of four
+# 17-token samples), kernel 9 at ViT-H B=32 (four slabs of 1280)
+F32_NEW = (("cls_ft_large", 256, 65, 768, 16, 3072, 0,
+            ("mlp_block_fwd_stash_f32", "mlp_block_bwd_stash_f32")),
+           ("mim_25_large", 64, 65, 768, 16, 3072, 0,
+            ("mlp_block_fwd_stash_f32", "mlp_block_bwd_stash_f32")),
+           ("mim_32", 32, 66, 1024, 16, 4096, 0, ("attn_block_bwd_f32",)),
+           ("mae", 256, 68, 768, 12, 3072, 17,
+            ("attn_block_fwd_seg_f32", "attn_block_fwd_stash_seg_f32", "attn_block_bwd_seg_f32")),
+           ("vith", 32, 66, 1280, 16, 5120, 0, ("mlp_block_bwd_stream_f32",)))
 # the retrieval path: a FITS survey of FITS_TILES tiles of FITS_SIZE^2 pixels
 # per band, searched at FITS_OVERLAP for N_GROUPS target groups; kernel 11 at
 # MULTI_Q queries on the 1M bank and at RAGGED (rows, width, queries); the
@@ -553,22 +619,22 @@ def predictor_phase(dev, mim_ckpt, zero_counters, launch_counts, step_times):
     return out
 
 
-def predictor_f32_phase(dev, mim_ckpt, zero_counters, launch_counts, step_times):
-    """The fp32 predictor paths (configs that set no dtype), through the
-    entry points ``train_predictor`` and ``test_predictor`` call, full width
-    and depth, the sets in memory: ``cls_fs_1k`` as shipped (``fs``, ViT-B
-    depth 12, 9 bands and the RA/Dec token: N=66, B=256, 3-class
-    cross-entropy, ``map`` pool) and ``lp_1`` (``lp`` over ``mim_1``'s ViT-B,
-    N=65, warm-started from ``mim_ckpt``, B=128, mse). Each takes
-    PRED_F32_RUN[0] steps and PRED_F32_RUN[1] validation batches with the
-    counters zeroed just before and read just after: ``fs`` the fp32 forms
-    of kernels 2, 3 and 8, K1 and K2, ``lp`` those of K1 and K2 alone, every
-    launch an fp32 one. Then the kernel path against the plain path from the
-    same weights, optimizer state and generator; the step's time, device
-    busy share and peak memory; ``predictor_infer`` in fp32 (K1 and K2
-    alone) over PRED_F32_RUN[2] batches and its images/s. Last, an fp32 build that needs kernel 6
-    (PRED_F32_NEEDS_K6: ``mim_32``'s ``mimlarge`` backbone with the MLP
-    stash) raises on the card and names the kernel: nothing falls back."""
+def predictor_f32_phase(dev, mim_ckpt, zero_counters, launch_counts, step_times, configs):
+    """fp32 predictor paths (configs that set no dtype), through the entry
+    points ``train_predictor`` and ``test_predictor`` call, full width and
+    depth, the sets in memory: each of ``configs`` (label -> config, label
+    key, training-set batches) as shipped. A config over ``mim_1`` (the
+    ``CONFIG`` path's width) warm-starts from ``mim_ckpt``; the others start
+    from seeded weights. Each takes PRED_F32_RUN[0] steps and
+    PRED_F32_RUN[1] validation batches with the counters zeroed just before
+    and read just after: ``lp`` the fp32 forms of K1 and K2 alone, ``fs`` and
+    ``ft`` those of the training kernels the backbone's blocks pick (the
+    attention stash: kernels 2 and 3; the MLP stash at ``mimlarge``:
+    kernels 6 and 7, else K1 and kernel 8), K1 and K2 in validation, every
+    launch an fp32 one. Then the kernel path against the plain path from
+    the same weights, optimizer state and generator; the step's time,
+    device busy share and peak memory; ``predictor_infer`` in fp32 (K1 and
+    K2 alone) over PRED_F32_RUN[2] batches and its images/s."""
     import numpy as np
     import torch
 
@@ -581,29 +647,28 @@ def predictor_f32_phase(dev, mim_ckpt, zero_counters, launch_counts, step_times)
     steps, val_b, infer_b, timed = PRED_F32_RUN
     cfg_dir = os.path.join(ROOT, "configs")
     out = {"routes": {}}
-    fs_sets = None
-    for route, (name, key, n_train) in PRED_F32.items():
+    for label, (name, key, n_train) in configs.items():
         cfg = load_config(name, cfg_dir)
         mae_name = cfg.pretrained_mae_name()
         mae = cfg if mae_name is None else load_config(mae_name, cfg_dir)
         B = cfg.training.int("batch_size")
-        check("dtype" not in cfg.training and cfg.training.str("train_method") == route,
+        route = cfg.training.str("train_method")
+        check("dtype" not in cfg.training and label.split("_")[0] == route,
               f"{name}: {route}, no dtype (fp32)")
         geom = dict(channels=mae.architecture.int("num_channels"),
                     img_size=mae.architecture.int("img_size"))
         sets = {"train": make_structured_cutouts(n_train * B, seed=16, **geom),
                 "val": make_structured_cutouts(B * max(val_b, infer_b), seed=17, **geom)}
-        if route == "fs":
-            fs_sets = sets
         t_init = time.perf_counter()
         trainer = PredictorTrainer(cfg, mae, seed=0, device=dev)
         warm = []
-        if mae_name is not None:
+        if mae_name == CONFIG:
             check(trainer.warm_start(mim_ckpt, log_fn=warm.append), f"{name}: warm start")
         torch.cuda.synchronize()
         t_init = time.perf_counter() - t_init
         m = trainer.model
         layers = m.encoder.depth
+        block = m.encoder.block0
         check(all(p.dtype == torch.float32 for p in m.parameters()) and m.dtype == torch.float32,
               f"{name}: an fp32 model")
         n_idx = cfg.training.int("num_train")
@@ -620,25 +685,28 @@ def predictor_f32_phase(dev, mim_ckpt, zero_counters, launch_counts, step_times)
         torch.cuda.synchronize()
         t_run = time.perf_counter() - t_run
         launches = launch_counts()
+        want = {"fused_attn_block": layers * val_b, "fused_mlp_block": layers * val_b}
         if route == "lp":  # the frozen backbone: the inference kernels alone
-            want = {"fused_attn_block": layers * (steps + val_b),
-                    "fused_mlp_block": layers * (steps + val_b)}
+            want = {k: v + layers * steps for k, v in want.items()}
         else:
-            want = {"attn_block_fwd_stash": layers * steps, "attn_block_bwd_stash": layers * steps,
-                    "mlp_block_bwd": layers * steps, "fused_mlp_block": layers * (steps + val_b),
-                    "fused_attn_block": layers * val_b}
+            attn = (("attn_block_fwd_stash", "attn_block_bwd_stash") if block.stash
+                    else ("fused_attn_block", "attn_block_bwd"))
+            mlp = (("mlp_block_fwd_stash", "mlp_block_bwd_stash") if block.ffn.stash
+                   else ("fused_mlp_block", "mlp_block_bwd"))
+            for k in attn + mlp:
+                want[k] = want.get(k, 0) + layers * steps
         want.update({k + "_f32": v for k, v in want.items()})  # every launch an fp32 one
         losses = [[float(v) for v in pair] for pair in train + val]
-        print(f"predictor fp32 {route} ({name}, {m.global_pool} pool, {m.num_labels} labels, "
-              f"{trainer.loss_fn_name}, depth {layers}, D={m.embed_dim}, "
-              f"N={m.grid_size ** 2 + m.num_extra_tokens}, B={B}): {steps} steps + {val_b} val "
-              f"batches in {t_run:.2f} s; (loss, metric) "
-              f"{losses}; {' '.join(warm)}; launches { {k: v for k, v in launches.items() if v} }",
-              flush=True)
-        check(bool(np.isfinite(losses).all()), f"predictor fp32 {route}: losses finite")
+        print(f"predictor fp32 {label} ({name}, {route}, {m.global_pool} pool, {m.num_labels} "
+              f"labels, {trainer.loss_fn_name}, depth {layers}, D={m.embed_dim}, "
+              f"{block.num_heads} heads, N={m.grid_size ** 2 + m.num_extra_tokens}, B={B}, "
+              f"attention stash {block.stash}, MLP stash {block.ffn.stash}): {steps} steps + "
+              f"{val_b} val batches in {t_run:.2f} s; (loss, metric) {losses}; {' '.join(warm)}; "
+              f"launches { {k: v for k, v in launches.items() if v} }", flush=True)
+        check(bool(np.isfinite(losses).all()), f"predictor fp32 {label}: losses finite")
         for k_, n_ in launches.items():
             check(n_ == want.get(k_, 0),
-                  f"predictor fp32 {route}: {k_} launches {n_} == {want.get(k_, 0)}")
+                  f"predictor fp32 {label}: {k_} launches {n_} == {want.get(k_, 0)}")
 
         # kernel path vs plain path from the same weights, optimizer state
         # and generator: one step's gradients and loss, then the steps' losses
@@ -661,33 +729,34 @@ def predictor_f32_phase(dev, mim_ckpt, zero_counters, launch_counts, step_times)
         loss_rel = abs(traj[0][0] - traj[1][0]) / abs(traj[1][0])
         traj_rel = max(abs(a - b) / abs(b) for a, b in zip(*traj))
         n_train_leaves = sum(1 for p in m.parameters() if p.requires_grad)
-        tol_grad, tol_loss = TOL_PRED_F32[route]
-        print(f"predictor fp32 {route} kernel vs plain path: loss rel {loss_rel:.3e}; gradient "
+        tol_grad, tol_loss = TOL_PRED_F32[label]
+        print(f"predictor fp32 {label} kernel vs plain path: loss rel {loss_rel:.3e}; gradient "
               f"||a-b||/||b|| max {grad_rel[worst]:.3e} ({worst}), median "
               f"{float(np.median(list(grad_rel.values()))):.3e} over {len(grad_rel)} leaves (bar "
               f"{tol_grad}); {steps}-step losses kernel {traj[0]} plain {traj[1]}, max rel "
               f"{traj_rel:.3e} (bar {tol_loss})", flush=True)
         check(len(grad_rel) == n_train_leaves and grads[0].keys() == grads[1].keys(),
-              f"predictor fp32 {route}: every trainable leaf, and only those, gets a gradient")
+              f"predictor fp32 {label}: every trainable leaf, and only those, gets a gradient")
         check(all(np.isfinite(list(grad_rel.values()))) and grad_rel[worst] <= tol_grad,
-              f"predictor fp32 {route}: gradients kernel vs plain")
+              f"predictor fp32 {label}: gradients kernel vs plain")
         check(loss_rel <= tol_loss and traj_rel <= tol_loss,
-              f"predictor fp32 {route}: losses kernel vs plain")
+              f"predictor fp32 {label}: losses kernel vs plain")
         del plain, grads
         torch.cuda.empty_cache()
 
         tb = next(stream)
-        out["routes"][route] = {
+        out["routes"][label] = {
             "config": cfg.name, "loss_fn": trainer.loss_fn_name, "train_method": trainer.train_method,
-            "layers": layers, "embed_dim": m.embed_dim, "batch": B, "channels": m.in_chans,
-            "ra_dec": m.ra_dec, "num_labels": m.num_labels, "trainer_init_s": t_init,
+            "layers": layers, "embed_dim": m.embed_dim, "num_heads": block.num_heads, "batch": B,
+            "channels": m.in_chans, "ra_dec": m.ra_dec, "num_labels": m.num_labels,
+            "attn_stash": block.stash, "mlp_stash": block.ffn.stash, "trainer_init_s": t_init,
             "seconds": t_run, "launches": launches, "losses": losses, "warm_start": warm,
             "trainable_leaves": n_train_leaves, "loss_rel_vs_plain": loss_rel,
             "grad_rel_vs_plain_max": grad_rel[worst], "grad_rel_worst_leaf": worst,
             "grad_rel_vs_plain_median": float(np.median(list(grad_rel.values()))),
             "trajectory_kernel": traj[0], "trajectory_plain": traj[1], "trajectory_max_rel": traj_rel,
             "train_step": step_times(lambda: trainer.train_batch(tb), B, timed,
-                                     f"predictor fp32 {route}")}
+                                     f"predictor fp32 {label}")}
         # predictor_infer in fp32 over PRED_F32_RUN[2] batches
         model = trainer.model.eval()
         zero_counters()
@@ -713,28 +782,10 @@ def predictor_f32_phase(dev, mim_ckpt, zero_counters, launch_counts, step_times)
         print(f"fp32 predictor_infer ({name}): {infer_b} batches of {B} in {t_inf:.3f} s (first), "
               f"{t_warm:.3f} s warm, {infer_b * B / t_warm:.0f} images/s; launches "
               f"{ {k: v for k, v in il.items() if v} }", flush=True)
-        out["routes"][route]["infer"] = {"batches": infer_b, "first_s": t_inf, "warm_s": t_warm,
+        out["routes"][label]["infer"] = {"batches": infer_b, "first_s": t_inf, "warm_s": t_warm,
                                          "images_per_s": infer_b * B / t_warm, "launches": il}
-        del trainer, model, train_ds, val_ds
+        del trainer, model, train_ds, val_ds, sets
         torch.cuda.empty_cache()
-
-    # an fp32 build that needs kernel 6 raises on the card, naming it
-    cfg = load_config(PRED_F32_NEEDS_K6, cfg_dir)
-    mae = load_config(cfg.pretrained_mae_name(), cfg_dir)
-    refused = None
-    trainer = PredictorTrainer(cfg, mae, seed=0, device=dev)
-    batch_ds = DeviceDataset.from_arrays(fs_sets["val"], cfg.training.int("batch_size"),
-                                         shuffle=False, label_keys=["zspec"], device=dev)
-    try:
-        trainer.train_batch(next(iter(batch_ds.take(1))))
-    except ValueError as err:
-        refused = str(err)
-    print(f"fp32 {PRED_F32_NEEDS_K6} ({mae.architecture.str('model_type')}, MLP stash "
-          f"{trainer.model.encoder.block0.ffn.stash}) on the card: {refused}", flush=True)
-    check(refused is not None and "kernel 6" in refused, f"fp32 {PRED_F32_NEEDS_K6} raises, naming kernel 6")
-    out["needs_kernel_6_refused"] = refused
-    del trainer, batch_ds
-    torch.cuda.empty_cache()
     return out
 
 
@@ -1333,11 +1384,10 @@ def main() -> int:
     # fp32 GEMM (csrc/gemm_f32.cuh) alone at cls_fs_1k's products beside
     # fp32 torch.addmm / torch.mm on the same operands (the yardstick; the
     # port never calls it)
-    def f32_block_args(kind_, B, n):
+    def f32_block_args(kind_, B, n, d=D, f=F):
         rn = lambda *s_: torch.randn(*s_, generator=gen, device=dev)
-        (d_in, d_mid) = (D, 3 * D) if kind_ == "attn" else (D, F)
-        (e_in, e_out) = (D, D) if kind_ == "attn" else (F, D)
-        return (rn(B, n, D) * 0.5, 1.0 + 0.1 * rn(D), 0.1 * rn(D), rn(d_in, d_mid) * d_in ** -0.5,
+        (d_in, d_mid), (e_in, e_out) = ((d, 3 * d), (d, d)) if kind_ == "attn" else ((d, f), (f, d))
+        return (rn(B, n, d) * 0.5, 1.0 + 0.1 * rn(d), 0.1 * rn(d), rn(d_in, d_mid) * d_in ** -0.5,
                 0.01 * rn(d_mid), rn(e_in, e_out) * e_in ** -0.5, 0.01 * rn(e_out))
 
     def f32_bounds(B, n):
@@ -1450,6 +1500,93 @@ def main() -> int:
               f"{rec['library_device_ms']:.4f} ({rec['library_tflops']:.1f}), bound "
               f"{rec['bound_ms']:.4f}", flush=True)
         del a, b, resid, aux, got, want, got_aux, want_aux
+    torch.cuda.empty_cache()
+
+    # the fp32 forms kernels 4, 6, 7, 9 and the masks added, alone at the
+    # fp32 paths' full widths (F32_NEW), the same way: every output against
+    # the plain version at TOL_F32_FORMS, one fp32 launch each, timed beside
+    # the plain version; kernel 6's out bit-equal to K1's fp32 form
+    def f32_new_bounds(B, n, d, h, f, seg):
+        M, hd = B * n, d // h
+        # the work a masked core needs: each query's own segment of keys
+        core = B * h * n * (min(seg, n) if seg else n) * hd
+        w_attn, w_mlp = 4 * d * d * 4, 2 * d * f * 4
+        fwd_bytes = 2 * M * d * 4 + w_attn + 6 * d * 4
+        bwd_attn = (22 * M * d * d + 12 * core, 3 * M * d * 4 + 2 * w_attn + 11 * d * 4)
+        return {
+            "attn_block_fwd_seg_f32": (8 * M * d * d + 4 * core, fwd_bytes),
+            "attn_block_fwd_stash_seg_f32": (8 * M * d * d + 4 * core,
+                                             fwd_bytes + M * 3 * d * 4 + B * h * n * n * 4),
+            "attn_block_bwd_f32": bwd_attn, "attn_block_bwd_seg_f32": bwd_attn,
+            "mlp_block_fwd_stash_f32": (4 * M * d * f,
+                                        2 * M * d * 4 + M * f * 4 + w_mlp + (3 * d + f) * 4),
+            "mlp_block_bwd_stash_f32": (8 * M * d * f,
+                                        3 * M * d * 4 + M * f * 4 + 2 * w_mlp + (5 * d + f) * 4),
+            "mlp_block_bwd_stream_f32": (10 * M * d * f,
+                                         3 * M * d * 4 + 2 * w_mlp + (5 * d + 2 * f) * 4),
+        }
+
+    for label, B, n, d, h, f, seg, names in F32_NEW:
+        xa, xm = f32_block_args("attn", B, n, d, f), f32_block_args("mlp", B, n, d, f)
+        g = torch.randn(B, n, d, generator=gen, device=dev) * 0.1
+        a_p = mlp_block_fwd_stash_plain(*xm)[1] if "mlp_block_bwd_stash_f32" in names else None
+        forms = {
+            "mlp_block_fwd_stash_f32": (lambda: mlp_block_fwd_stash(*xm),
+                                        lambda: mlp_block_fwd_stash_plain(*xm), ("out", "a"),
+                                        mlp_block_fwd_stash),
+            "mlp_block_bwd_stash_f32": (lambda: mlp_block_bwd_stash(*xm[:4], xm[5], a_p, g),
+                                        lambda: mlp_block_bwd_stash_plain(*xm[:4], xm[5], a_p, g),
+                                        grads_mlp, mlp_block_bwd_stash),
+            "attn_block_bwd_f32": (lambda: attn_block_bwd(*xa[:6], g, h),
+                                   lambda: attn_block_bwd_plain(*xa[:6], g, h), grads_attn,
+                                   attn_block_bwd),
+            "attn_block_bwd_seg_f32": (lambda: attn_block_bwd(*xa[:6], g, h, seg),
+                                       lambda: attn_block_bwd_plain(*xa[:6], g, h, seg),
+                                       grads_attn, attn_block_bwd),
+            "attn_block_fwd_seg_f32": (lambda: fused_attn_block(*xa, h, seg_len=seg),
+                                       lambda: attn_block_plain(*xa, h, seg), ("out",),
+                                       fused_attn_block),
+            "attn_block_fwd_stash_seg_f32": (lambda: attn_block_fwd_stash(*xa, h, seg),
+                                             lambda: attn_block_fwd_stash_plain(*xa, h, seg),
+                                             ("out", "qkv", "probs"), attn_block_fwd_stash),
+            "mlp_block_bwd_stream_f32": (lambda: mlp_block_bwd_stream(*xm[:6], g),
+                                         lambda: mlp_block_bwd_stream_plain(*xm[:6], g),
+                                         grads_mlp, mlp_block_bwd_stream),
+        }
+        bounds = f32_new_bounds(B, n, d, h, f, seg)
+        for name in names:
+            kern, plain, outs, counted = forms[name]
+            before = counted.f32_launches
+            got, want = kern(), plain()
+            torch.cuda.synchronize()
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            errs = {o: rel_err(a, b) for o, a, b in zip(outs, got, want)}
+            finite = all(bool(torch.isfinite(a).all()) for a in got)
+            worst = max(r for r, _ in errs.values())
+            f32_gap[f"{name} {label}"] = {o: r for o, (r, _) in errs.items()}
+            print(f"parity {name} {label} B={B} N={n} D={d} H={h} seg_len={seg}: max-rel per output "
+                  + ", ".join(f"{o} {r:.2e}" for o, (r, _) in errs.items())
+                  + f" (bar {TOL_F32_FORMS}), finite {finite}", flush=True)
+            check(counted.f32_launches == before + 1 and all(a.dtype == torch.float32 for a in got),
+                  f"{name} {label}: one fp32 launch, fp32 outputs")
+            check(finite and worst <= TOL_F32_FORMS, f"{name} {label} parity")
+            if name == "mlp_block_fwd_stash_f32":
+                check(torch.equal(got[0], fused_mlp_block(*xm)),
+                      f"kernel 6's fp32 out bit-equal to K1's fp32 form ({label})")
+            b_ms, b_by = bound_ms(*bounds[name], PEAK_FP32_PRODUCTS)
+            iters = 10 if B <= 64 else 4
+            timings[(name, label)] = {
+                "max_rel_err": worst, "max_abs_err": max(a for _, a in errs.values()),
+                "ms": cuda_ms(kern, iters), "device_ms": device_ms(kern, 2),
+                "plain_ms": cuda_ms(plain, max(iters // 2, 2)),
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            }
+            t_ = timings[(name, label)]
+            print(f"time {name} {label}: {t_['ms']:.4f} ms (device {t_['device_ms']:.4f}), plain "
+                  f"{t_['plain_ms']:.4f}, bound {b_ms:.4f} ({b_by})", flush=True)
+            del got, want
+        del xa, xm, g, a_p, forms
     torch.cuda.empty_cache()
     mark("f32_kernels")
 
@@ -1772,10 +1909,11 @@ def main() -> int:
                 mlp_block_bwd, attn_block_bwd, mlp_block_fwd_stash, mlp_block_bwd_stash,
                 mlp_block_bwd_stream, fused_attention, fused_attention_bwd)
     # K2, kernel 2 and kernel 4 also count their launches with packed
-    # segments; K1, K2 and kernels 2, 3 and 8 their launches in fp32
+    # segments; every block kernel its launches in fp32
     seg_counters = (fused_attn_block, attn_block_fwd_stash, attn_block_bwd)
     f32_counters = (fused_attn_block, fused_mlp_block, attn_block_fwd_stash, attn_block_bwd_stash,
-                    mlp_block_bwd)
+                    mlp_block_bwd, attn_block_bwd, mlp_block_fwd_stash, mlp_block_bwd_stash,
+                    mlp_block_bwd_stream)
     training_kernels = [f.__name__ for f in counters[4:]] + ["fused_attn_block_seg"]
 
     def zero_counters():
@@ -2101,7 +2239,8 @@ def main() -> int:
         return tr.train_batch(batch, mask=mk) if tr.model.simmim else tr.train_batch(batch, noise=mk)
 
     def training_phase(cfg_, steps, val, expect, tol_grad, tol_loss, time_batches, seed,
-                       extra=None, expect_dec=None, distinct=None, probes=None):
+                       extra=None, expect_dec=None, distinct=None, probes=None,
+                       dtype=torch.bfloat16):
         """One config's training path: ``steps`` train steps and ``val``
         validation batches with the launch counts ``expect`` (kernel ->
         launches per encoder layer per step, per validation batch; for an
@@ -2112,10 +2251,11 @@ def main() -> int:
         With ``probes`` (the classification and regression sets, lists of
         labelled batches) the steps, the validation and the linear probes run
         through ``train_network``, and every probe batch adds one K1 and one
-        K2 launch per layer."""
+        K2 launch per layer. ``dtype`` None: the config's own (fp32 where it
+        names none)."""
         tag = cfg_.name
         t_init = time.perf_counter()
-        trainer = MIMPretrainer(cfg_, dtype=torch.bfloat16, seed=0, device=dev)
+        trainer = MIMPretrainer(cfg_, dtype=dtype, seed=0, device=dev)
         torch.cuda.synchronize()
         t_init = time.perf_counter() - t_init  # seeded init on the host, then the copy
         m = trainer.model
@@ -2170,7 +2310,7 @@ def main() -> int:
                   f"({per_step} x {steps} + {per_val} x {val} + {per_probe} x {n_probe}) + "
                   f"{dec_layers} x ({dec_step} x {steps} + {dec_val} x {val}) = {want_n}")
         result = {"layers": layers, "decoder_layers": dec_layers, "embed_dim": m.embed_dim,
-                  "batch": bs, "channels": m.in_chans,
+                  "batch": bs, "channels": m.in_chans, "dtype": str(m.dtype).replace("torch.", ""),
                   "remat": m.encoder.remat, "ra_dec": m.ra_dec, "trainer_init_s": t_init,
                   "seconds": t_run, "steps": steps, "val_batches": val, "launches": run_launches,
                   "train_losses": train_losses, "val_losses": val_losses}
@@ -2195,7 +2335,7 @@ def main() -> int:
 
         # kernel path vs plain path on the card, from the same params and
         # masks (MAE: noise); the plain path's decoder too
-        pair = [MIMPretrainer(cfg_, dtype=torch.bfloat16, seed=0, device=dev) for _ in range(2)]
+        pair = [MIMPretrainer(cfg_, dtype=dtype, seed=0, device=dev) for _ in range(2)]
         pair[1].model.plain = True
         mgen = torch.Generator(device=dev).manual_seed(7)
         masks = [draw_masking(pair[0], bs, mgen) for _ in range(TRAJ_STEPS)]
@@ -2327,17 +2467,20 @@ def main() -> int:
               f"{m.embed_dim // 16}", flush=True)
         return {"parameters": n_params}
 
-    def mae_remat(trainer, tbatches):
-        """mim_1_mae: the same model with remat, MAE[4] steps at a smaller
-        batch, so that kernel 4 runs masked on its real path (K2 masked twice
-        per encoder block, the forward and its replay; the decoder keeps its
+    def mae_remat(trainer, tbatches, cfg_src=None, batch_steps=MAE[4], dtype=torch.bfloat16):
+        """mim_1_mae (or ``cfg_src``): the same model with remat,
+        ``batch_steps`` (batch, steps) at a smaller batch, so that kernel 4
+        runs masked on its real path (K2 masked twice per encoder block, the
+        forward and its replay; the decoder as it is, with or without its
         stash); then its gradients bit-equal to those of the same model
-        stored without remat (the encoder's stash off)."""
-        d_ = {sec: dict(cfg_m[sec].items()) for sec in cfg_m.sections()}
-        Br, steps_r = MAE[4]
+        stored without remat (the encoder's stash off). ``dtype`` None: the
+        config's (fp32: every launch an fp32 one)."""
+        cfg_src = cfg_src or cfg_m
+        d_ = {sec: dict(cfg_src[sec].items()) for sec in cfg_src.sections()}
+        Br, steps_r = batch_steps
         d_["TRAINING"].update(remat="True", batch_size=str(Br))
-        cfg_rm = Config.from_dict(d_, name="mim_1_mae_remat")
-        tr = MIMPretrainer(cfg_rm, dtype=torch.bfloat16, seed=0, device=dev)
+        cfg_rm = Config.from_dict(d_, name=cfg_src.name + "_remat")
+        tr = MIMPretrainer(cfg_rm, dtype=dtype, seed=0, device=dev)
         tr.model.load_state_dict(trainer.model.state_dict())
         rbatches = [{"cutouts": b["cutouts"][:Br]} for b in tbatches[:steps_r]]
         zero_counters()
@@ -2348,10 +2491,16 @@ def main() -> int:
         t_r = time.perf_counter() - t_r
         rl = launch_counts()
         enc, dec = tr.model.encoder.depth, tr.model.decoder.depth
-        want = {"fused_attn_block": 2 * enc * steps_r, "fused_attn_block_seg": 2 * enc * steps_r,
-                "attn_block_bwd": enc * steps_r, "attn_block_bwd_seg": enc * steps_r,
-                "attn_block_fwd_stash": dec * steps_r, "attn_block_bwd_stash": dec * steps_r,
+        dec_stash = tr.model.decoder.block0.stash
+        want = {"fused_attn_block": (2 * enc + (0 if dec_stash else dec)) * steps_r,
+                "fused_attn_block_seg": 2 * enc * steps_r,
+                "attn_block_bwd": (enc + (0 if dec_stash else dec)) * steps_r,
+                "attn_block_bwd_seg": enc * steps_r,
+                "attn_block_fwd_stash": dec * steps_r * dec_stash,
+                "attn_block_bwd_stash": dec * steps_r * dec_stash,
                 "fused_mlp_block": (2 * enc + dec) * steps_r, "mlp_block_bwd": (enc + dec) * steps_r}
+        if tr.model.dtype == torch.float32:  # every launch an fp32 one
+            want = with_f32(want)
         print(f"{cfg_rm.name} (remat, batch {Br}): {steps_r} steps in {t_r:.2f} s, losses "
               f"{[round(v, 4) for v in losses_r]}, launches {rl}", flush=True)
         check(tr.model.encoder.remat and all(np.isfinite(losses_r)), "MAE remat run")
@@ -2359,8 +2508,8 @@ def main() -> int:
             check(n_ == want.get(k_, 0), f"{cfg_rm.name}: {k_} launches {n_} == {want.get(k_, 0)}")
         d_["TRAINING"].update(remat="False")
         d_["ARCHITECTURE"].update(stash="False")
-        ref = build_mim_model(Config.from_dict(d_, name="mim_1_mae_stored"), dtype=torch.bfloat16,
-                              device=dev, remat=False)
+        ref = build_mim_model(Config.from_dict(d_, name=cfg_src.name + "_stored"),
+                              dtype=tr.model.dtype, device=dev, remat=False)
         ref.load_state_dict(tr.model.state_dict())
         ref.train()
         x0 = torch.as_tensor(rbatches[0]["cutouts"], device=dev).clamp_min(tr.pixel_min)
@@ -2383,6 +2532,11 @@ def main() -> int:
         torch.cuda.empty_cache()
         return {"remat_run": {"batch": Br, "steps": steps_r, "seconds": t_r, "losses": losses_r,
                           "launches": rl, "grads_bit_equal_to_stored": same}}
+
+    def with_f32(expect):
+        """The same launches, every one an fp32 one (``*_f32`` counters;
+        the ``*_seg`` ones count masked launches of any dtype)."""
+        return {**expect, **{k + "_f32": v for k, v in expect.items() if not k.endswith("_seg")}}
 
     # launches per layer: (per train step, per validation batch)
     expect_b = {"attn_block_fwd_stash": (1, 0), "attn_block_bwd_stash": (1, 0),
@@ -2465,11 +2619,40 @@ def main() -> int:
         predictor = predictor_phase(dev, pred_ckpt, zero_counters, launch_counts, step_times)
         mark("predictor")
         predictor_f32 = predictor_f32_phase(dev, pred_ckpt, zero_counters, launch_counts,
-                                            step_times)
+                                            step_times, PRED_F32)
+        mark("predictor_f32")
+        # ---- 5e. the fp32 large and tiny configs: the predictor ones first
+        predictor_f32["routes"].update(predictor_f32_phase(
+            dev, pred_ckpt, zero_counters, launch_counts, step_times, PRED_F32_LARGE)["routes"])
+        mark("predictor_f32_large_tiny")
     finally:
         if os.path.exists(pred_ckpt):
             os.remove(pred_ckpt)
-    mark("predictor_f32")
+
+    # then the fp32 pretraining paths: the tiny configs as shipped (the
+    # config's dtype, fp32) and ViT-H in fp32 (kernel 9's fp32 form)
+    expect_f32 = {"mim_tiny": (expect_b, None), "mim_tiny_large": (expect_l, None),
+                  "mae_tiny": (expect_m, {"fused_attn_block": (1, 1), "attn_block_bwd": (1, 0),
+                                          "mlp_block_bwd": (1, 0), "fused_mlp_block": (1, 1)}),
+                  "mim_32_vith_f32": (expect_h, None)}
+    f32_paths = {}
+    for name_, steps_, val_, time_b in F32_TRAIN:
+        if name_ == "mim_32_vith_f32":
+            d_f = {sec: dict(cfg_h[sec].items()) for sec in cfg_h.sections()}
+            d_f["TRAINING"].update(dtype="float32")
+            cfg_f = Config.from_dict(d_f, name=name_)
+        else:
+            cfg_f = load_config(name_, os.path.join(ROOT, "configs"))
+            check("dtype" not in cfg_f.training, f"{name_}: as shipped, no dtype (fp32)")
+        enc_exp, dec_exp = expect_f32[name_]
+        extra_f = vith_init if name_ == "mim_32_vith_f32" else None
+        if name_ == "mae_tiny":
+            extra_f = lambda tr_, tb_, c_=cfg_f: mae_remat(tr_, tb_, c_, MAE_TINY_REMAT, None)
+        f32_paths[name_] = training_phase(
+            cfg_f, steps_, val_, with_f32(enc_exp), *TOL_F32_PATHS[name_], time_b, seed=9,
+            extra=extra_f, expect_dec=dec_exp and with_f32(dec_exp), dtype=None)
+        check(f32_paths[name_]["dtype"] == "float32", f"{name_} trains in fp32")
+        mark("training_f32_" + name_)
     shapes = {c: tuple(r[k] for k in ("layers", "embed_dim", "batch", "channels", "remat", "ra_dec"))
               for c, r in paths.items()}
     check(shapes == {CONFIG: (12, 768, 64, 5, False, False), LARGE[0]: (24, 768, 64, 5, False, False),
@@ -2603,6 +2786,25 @@ def main() -> int:
                               "fused_mlp_block_f32", "cls_fs"),
         "mlp_block_bwd_f32": ("cuda", src + "csrc/mlp_block_bwd.cu", jsrc + "mlp_block.py:834",
                               "mlp_block_bwd_f32", "cls_fs"),
+        # the fp32 forms of kernels 4, 6, 7, 9 and the masked K2, 2 and 4,
+        # timed at F32_NEW's shapes; their launches are the fp32 paths' (the
+        # masked ones counted by the *_seg counters, on fp32 paths alone)
+        "attn_block_bwd_f32": ("cuda", src + "csrc/attn_block_bwd.cu", jsrc + "attn_block.py:1052",
+                               "attn_block_bwd_f32", "mim_32"),
+        "mlp_block_fwd_stash_f32": ("cuda", src + "csrc/mlp_block.cu", jsrc + "mlp_block.py:687",
+                                    "mlp_block_fwd_stash_f32", "cls_ft_large"),
+        "mlp_block_bwd_stash_f32": ("cuda", src + "csrc/mlp_block_bwd.cu",
+                                    jsrc + "mlp_block.py:774", "mlp_block_bwd_stash_f32",
+                                    "cls_ft_large"),
+        "mlp_block_bwd_stream_f32": ("cuda", src + "csrc/mlp_block_bwd.cu",
+                                     jsrc + "mlp_block.py:532", "mlp_block_bwd_stream_f32", "vith"),
+        "attn_block_fwd_seg_f32": ("cuda", src + "csrc/attn_block.cu", jsrc + "attn_block.py:899",
+                                   "fused_attn_block_seg", "mae"),
+        "attn_block_fwd_stash_seg_f32": ("cuda", src + "csrc/attn_block.cu",
+                                         jsrc + "attn_block.py:940", "attn_block_fwd_stash_seg",
+                                         "mae"),
+        "attn_block_bwd_seg_f32": ("cuda", src + "csrc/attn_block_bwd.cu",
+                                   jsrc + "attn_block.py:1052", "attn_block_bwd_seg", "mae"),
     }
     block_f32 = {n for n in meta if n.endswith("_f32") and not n.startswith("attention")}
     kernels = []
@@ -2612,7 +2814,10 @@ def main() -> int:
             by_path = {**{f"predictor_f32_{r}": v["launches"][counter]
                           for r, v in predictor_f32["routes"].items()},
                        **{f"predictor_f32_{r}_infer": v["infer"]["launches"][counter]
-                          for r, v in predictor_f32["routes"].items()}}
+                          for r, v in predictor_f32["routes"].items()},
+                       **{f"training_f32_{c}": r["launches"][counter] for c, r in f32_paths.items()},
+                       "training_f32_mae_tiny_remat":
+                           f32_paths["mae_tiny"]["remat_run"]["launches"][counter]}
         elif name.endswith("_f32"):
             by_path = {"attention_module_float32": attn_launches_by_dtype["float32"][counter]}
         else:
@@ -2650,6 +2855,7 @@ def main() -> int:
         "training_paths": paths,
         "predictor": predictor,
         "predictor_f32": predictor_f32,
+        "training_f32_paths": f32_paths,
         "attention_module": attention_module,
         "retrieval_path": retrieval,
         "bank_1M_bf16": {"query_ms_host": q_host_ms, "queries_per_s": 1e3 / q_host_ms,

@@ -7,10 +7,10 @@ MLP block holds ``norm_scale``/``fc1_kernel``/... as flat parameters.
 Parameters are fp32; ``dtype`` is the activation and GEMM-operand dtype.
 
 Each ``Block`` calls the attention-block kernel and then the MLP-block
-kernel (``ops/kernels/``) for every batch size; their wrappers take the plain
-PyTorch versions for CPU tensors and raise on CUDA for what the kernels do not
-take (fp32, N > 256, a head too wide for the attention core's shared
-memory). With grad enabled the two calls go through their
+kernel (``ops/kernels/``) for every batch size, in bf16 or fp32; their
+wrappers take the plain PyTorch versions for CPU tensors and raise on CUDA for
+what the kernels do not take (N > 256, a bf16 head that is no multiple of 16
+or too wide for the attention core's shared memory). With grad enabled the two calls go through their
 ``torch.autograd.Function``s: the attention stash forward and backward
 (``stash=True``, the default, as in JAX) or K2 with the recompute backward
 (``stash=False``, the ViT-H default), and the MLP forward with its recompute

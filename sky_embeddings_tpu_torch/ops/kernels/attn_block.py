@@ -41,8 +41,11 @@ dctx and dy on its K-major-B form, dWqkv and dWproj together on its
 transposed-A group. qkv, ctx and dqkv go through device memory in bf16 at
 the points where the TPU kernels round them; no fp32 dqkv does.
 
-Head dims: any multiple of 16 whose core fits a block's shared memory at
-the given N. The check asks the CUDA source for its plan's bytes
+Head dims (bf16): any multiple of 16 whose core fits a block's shared
+memory at the given N; narrower heads are refused, since the bf16 cores'
+``mma.sync`` tiles are 16 wide along the head (no shipped bf16 config has
+one). fp32 takes heads of any width (the tiny configs' 4, the MAE
+decoder's 512): its cores pad the head to a multiple of 4. The check asks the CUDA source for its plan's bytes
 (``sky_attn_fwd_plan_bytes``, ``sky_attn_bwd_plan_bytes``), so the wrapper
 and the kernel cannot disagree; a backward plan shrinks its query blocks
 and splits its output columns over CTAs before it gives up, a forward plan
@@ -70,16 +73,17 @@ backward takes the stashed bf16 probabilities in kernel 3 and the
 recomputed fp32 ones in kernel 4, as the TPU kernels do.
 
 fp32 forms (the fp32 configs: JAX sends fp32 blocks to ``xla_attn_block``,
-``models/layers.py:356``): K2, kernel 2 and kernel 3 also take a uniform
-fp32 set (x, wqkv, wproj and the stash fp32), computing what the plain
-versions compute in fp32 (nothing rounded; the stash is fp32 qkv and fp32
-probabilities): ``csrc/attn_block.cu`` entries ``sky_attn_block_fwd_f32``
-and ``sky_attn_block_fwd_stash_f32`` (the bf16 entries' arguments) and
-``csrc/attn_block_bwd.cu`` entry ``sky_attn_block_bwd_stash_f32``, every
-product on the 3xTF32 GEMM of ``csrc/gemm_f32.cuh``, the cores kernels 12
-and 13's fp32 FMA tiles (``csrc/attn_f32.cuh``), the backward's reading
-the stashed probabilities. Their launches also count on ``f32_launches``.
-Kernel 4 and the ``seg_len`` forms take bf16 only (``mlp_block.operand_dtype``).
+``models/layers.py:356``): all four kernels, masked too, also take a
+uniform fp32 set (x, wqkv, wproj and the stash fp32), computing what the
+plain versions compute in fp32 (nothing rounded; the stash is fp32 qkv and
+fp32 probabilities; the mask JAX's -1e9 logit bias): the bf16 entry's name
+with ``_f32`` at the end and the bf16 entry's arguments
+(``csrc/attn_block.cu``, ``csrc/attn_block_bwd.cu``), every product on the
+3xTF32 GEMM of ``csrc/gemm_f32.cuh``, the cores kernels 12 and 13's fp32
+FMA tiles (``csrc/attn_f32.cuh``): kernel 3's reads the stashed
+probabilities, kernel 4's recomputes them and writes ctx for dWproj
+beside dqkv. Their launches also count on ``f32_launches``
+(``mlp_block.operand_dtype`` holds the dtype rule).
 """
 
 from __future__ import annotations
@@ -92,6 +96,7 @@ from sky_embeddings_tpu_torch.ops.kernels import cuda_build
 from sky_embeddings_tpu_torch.ops.kernels.mlp_block import (
     ROWS_PER_PARTIAL,
     _dot,
+    _f32,
     _split_ws,
     _ln_backward,
     _ln_forward,
@@ -247,8 +252,9 @@ def _check_cuda_args(x, scale, bias, wqkv, bqkv, wproj, bproj, num_heads, core: 
                      seg_len: int = 0, stash: bool = False):
     """Checks a CUDA launch of a core's kernel (``"fwd"``: K2, or kernel 2
     with ``stash``; ``"stash"``: kernel 3; ``"recompute"``: kernel 4);
-    returns the operand dtype (``mlp_block.operand_dtype``). Heads narrower
-    than 16 are refused before any library loads."""
+    returns the operand dtype (``mlp_block.operand_dtype``). In bf16, heads
+    that are not a multiple of 16 are refused before any library loads;
+    fp32 takes any head width."""
     if seg_len < 0:
         raise ValueError(f"seg_len={seg_len} must be >= 0")
     if x.dim() != 3 or not x.is_contiguous():
@@ -263,10 +269,12 @@ def _check_cuda_args(x, scale, bias, wqkv, bqkv, wproj, bproj, num_heads, core: 
     if D % num_heads:
         raise ValueError(f"D={D} not divisible by num_heads={num_heads}")
     hd = D // num_heads
-    if hd % 16:
-        raise ValueError(f"head dim {hd} must be a multiple of 16")
-    if D % 8:
-        raise ValueError(f"D={D} must be a multiple of 8 (16-byte loads)")
+    if dt == torch.bfloat16 and hd % 16:
+        raise ValueError(f"head dim {hd} must be a multiple of 16 in bf16 (the cores' mma.sync "
+                         "tiles); fp32 takes heads of any width")
+    vec = 8 if dt == torch.bfloat16 else 4
+    if D % vec:
+        raise ValueError(f"D={D} must be a multiple of {vec} (16-byte loads)")
     if B * N > 65535 * ROWS_PER_PARTIAL or B * num_heads > 2**31 - 1:
         raise ValueError("too many rows for one launch grid")
     want = {
@@ -307,9 +315,8 @@ def _launch_fwd(x, scale, bias, wqkv, bqkv, wproj, bproj, num_heads, stash: bool
     probs = torch.empty((B, num_heads, N, N), dtype=dt, device=x.device) if stash else None
     ptrs = [x.data_ptr(), scale.data_ptr(), bias.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(),
             wproj.data_ptr(), bproj.data_ptr(), qkv.data_ptr(), ctx.data_ptr()]
-    entry = ("sky_attn_block_fwd_stash" if stash else "sky_attn_block_fwd") \
-        + ("_f32" if dt == torch.float32 else "")
-    ints = (B, N, D, num_heads, seg_len)  # the fp32 entries refuse seg_len > 0
+    entry = _f32("sky_attn_block_fwd_stash" if stash else "sky_attn_block_fwd", dt)
+    ints = (B, N, D, num_heads, seg_len)
     if stash:
         ptrs.append(probs.data_ptr())
     ptrs.append(out.data_ptr())
@@ -352,61 +359,38 @@ def _check_bwd_inputs(x, num_heads, **tensors):
                              f"got {tuple(t.shape)} {t.dtype} on {t.device}")
 
 
-def _launch_bwd(entry, x, ins, num_heads, qkv=None, seg_len=0):
+def _launch_bwd(entry, dt, x, ins, num_heads, qkv=None, seg_len=0):
     """Kernel 3 (``ins`` holds the stash) or kernel 4 (``qkv`` is scratch for
-    the recompute, ``seg_len`` its mask) on CUDA tensors; allocates the
-    scratch (``part``: the core's B per-sample dbqkv partials, then dbproj's,
-    dscale's and dbias's over ``ROWS_PER_PARTIAL`` rows each) and the
-    outputs."""
+    the recompute, ``seg_len`` its mask) on CUDA tensors, each in the
+    operand dtype ``dt`` (bf16, or its fp32 form); allocates the scratch (y,
+    dc, ctx (B·N, D) and dqkv (B·N, 3D) in ``dt``, dy fp32; ``part``: the
+    core's column-sum partials of dqkv (bf16: one row per sample; fp32: per
+    ``ROWS_PER_PARTIAL`` rows), then dbproj's, dscale's and dbias's over
+    ``ROWS_PER_PARTIAL`` rows each) and the outputs."""
     B, N, D = x.shape
     M = B * N
     parts = -(-M // ROWS_PER_PARTIAL)
+    fp32 = dt == torch.float32
     f32 = dict(dtype=torch.float32, device=x.device)
-    bf = dict(dtype=torch.bfloat16, device=x.device)
-    y, dc, ctx = (torch.empty((M, D), **bf) for _ in range(3))
-    dqkv_c = torch.empty((M, 3 * D), **bf)
+    op = dict(dtype=dt, device=x.device)
+    y, dc, ctx = (torch.empty((M, D), **op) for _ in range(3))
+    dqkv = torch.empty((M, 3 * D), **op)
     dy = torch.empty((M, D), **f32)
-    part = torch.empty(B * 3 * D + parts * 3 * D, **f32)
-    ws = torch.empty(max(_split_ws("attn_block_bwd", "sky_attn_block_bwd_ws", x.device.index, M, D),
-                         4), **f32)
+    part = torch.empty(((parts if fp32 else B) + parts) * 3 * D, **f32)
+    ws_entry = _f32("sky_attn_block_bwd", dt) + "_ws"
+    ws = torch.empty(max(_split_ws("attn_block_bwd", ws_entry, x.device.index, M, D), 4), **f32)
     dx = torch.empty_like(x)
     dscale, dbias, dbproj = (torch.empty(D, **f32) for _ in range(3))
-    dwqkv, dbqkv = torch.empty((D, 3 * D), **bf), torch.empty(3 * D, **f32)
-    dwproj = torch.empty((D, D), **bf)
+    dwqkv, dbqkv = torch.empty((D, 3 * D), **op), torch.empty(3 * D, **f32)
+    dwproj = torch.empty((D, D), **op)
     scratch = (y,) if qkv is None else (y, qkv)
-    ptrs = [t.data_ptr() for t in (*ins, *scratch, dc, ctx, dqkv_c, dy, part, ws, dx,
+    ptrs = [t.data_ptr() for t in (*ins, *scratch, dc, ctx, dqkv, dy, part, ws, dx,
                                    dscale, dbias, dwqkv, dbqkv, dwproj, dbproj)]
     ints = (B, N, D, num_heads) if qkv is None else (B, N, D, num_heads, seg_len)
+    entry = _f32(entry, dt)
     with torch.cuda.device(x.device):
         err = getattr(_lib("attn_block_bwd", entry, len(ptrs), len(ints)), entry)(
             *ptrs, *ints, torch.cuda.current_stream().cuda_stream)
-    cuda_build.check(err, entry)
-    return dx, dscale, dbias, dwqkv, dbqkv, dwproj, dbproj
-
-
-def _launch_bwd_stash_f32(x, ins, num_heads):
-    """Kernel 3's fp32 form on CUDA tensors (``ins`` holds the fp32 stash):
-    allocates the fp32 scratch (y, dc, ctx, dy (B·N, D); dqkv (B·N, 3D);
-    ``part``: the column-sum partials of dqkv, then dbproj's, dscale's and
-    dbias's over ``ROWS_PER_PARTIAL`` rows each) and the fp32 outputs."""
-    B, N, D = x.shape
-    M = B * N
-    f32 = dict(dtype=torch.float32, device=x.device)
-    y, dc, ctx, dy = (torch.empty((M, D), **f32) for _ in range(4))
-    dqkv = torch.empty((M, 3 * D), **f32)
-    part = torch.empty(-(-M // ROWS_PER_PARTIAL) * 6 * D, **f32)
-    ws = torch.empty(max(_split_ws("attn_block_bwd", "sky_attn_block_bwd_f32_ws", x.device.index,
-                                   M, D), 4), **f32)
-    dx = torch.empty_like(x)
-    dscale, dbias, dbproj = (torch.empty(D, **f32) for _ in range(3))
-    dwqkv, dbqkv = torch.empty((D, 3 * D), **f32), torch.empty(3 * D, **f32)
-    dwproj = torch.empty((D, D), **f32)
-    ptrs = [t.data_ptr() for t in (*ins, y, dc, ctx, dqkv, dy, part, ws, dx, dscale, dbias, dwqkv,
-                                   dbqkv, dwproj, dbproj)]
-    entry = "sky_attn_block_bwd_stash_f32"
-    with torch.cuda.device(x.device):
-        err = getattr(_lib("attn_block_bwd", entry, len(ptrs), 4), entry)(
-            *ptrs, B, N, D, num_heads, torch.cuda.current_stream().cuda_stream)
     cuda_build.check(err, entry)
     return dx, dscale, dbias, dwqkv, dbqkv, dwproj, dbproj
 
@@ -422,12 +406,9 @@ def attn_block_bwd_stash(x, scale, bias, wqkv, wproj, qkv, probs, g, num_heads: 
     dt = _check_cuda_args(x, scale, bias, wqkv, None, wproj, None, num_heads, "stash")
     _check_bwd_inputs(x, num_heads, qkv=qkv, probs=probs, g=g)
     ins = (x, scale, bias, wqkv, wproj, qkv, probs, g)
-    if dt == torch.float32:
-        grads = _launch_bwd_stash_f32(x, ins, num_heads)
-        attn_block_bwd_stash.f32_launches += 1
-    else:
-        grads = _launch_bwd("sky_attn_block_bwd_stash", x, ins, num_heads)
+    grads = _launch_bwd("sky_attn_block_bwd_stash", dt, x, ins, num_heads)
     attn_block_bwd_stash.launches += 1
+    attn_block_bwd_stash.f32_launches += int(dt == torch.float32)
     return grads
 
 
@@ -439,21 +420,25 @@ def attn_block_bwd(x, scale, bias, wqkv, bqkv, wproj, g, num_heads: int, seg_len
     """Kernel 4: the block's gradients from x and the output gradient ``g``
     alone, the forward recomputed (outputs as :func:`attn_block_bwd_plain`).
     CPU tensors take the plain version; CUDA tensors launch
-    ``csrc/attn_block_bwd.cu`` (recompute entry) or raise."""
+    ``csrc/attn_block_bwd.cu`` (recompute entry, its fp32 form also counted
+    on ``.f32_launches``) or raise."""
     if x.device.type == "cpu":
         return attn_block_bwd_plain(x, scale, bias, wqkv, bqkv, wproj, g, num_heads, seg_len)
-    _check_cuda_args(x, scale, bias, wqkv, bqkv, wproj, None, num_heads, "recompute", seg_len)
+    dt = _check_cuda_args(x, scale, bias, wqkv, bqkv, wproj, None, num_heads, "recompute",
+                          seg_len)
     _check_bwd_inputs(x, num_heads, g=g)
-    qkv = torch.empty((*x.shape[:2], 3 * x.shape[2]), dtype=torch.bfloat16, device=x.device)
-    grads = _launch_bwd("sky_attn_block_bwd", x, (x, scale, bias, wqkv, bqkv, wproj, g),
+    qkv = torch.empty((*x.shape[:2], 3 * x.shape[2]), dtype=dt, device=x.device)
+    grads = _launch_bwd("sky_attn_block_bwd", dt, x, (x, scale, bias, wqkv, bqkv, wproj, g),
                         num_heads, qkv=qkv, seg_len=seg_len)
     attn_block_bwd.launches += 1
     attn_block_bwd.seg_launches += int(0 < seg_len < x.shape[1])
+    attn_block_bwd.f32_launches += int(dt == torch.float32)
     return grads
 
 
 attn_block_bwd.launches = 0
 attn_block_bwd.seg_launches = 0
+attn_block_bwd.f32_launches = 0
 
 
 class AttnBlockStashFn(torch.autograd.Function):
@@ -482,14 +467,10 @@ class AttnBlockStashFn(torch.autograd.Function):
 class AttnBlockFn(torch.autograd.Function):
     """K2 forward, kernel 4 backward (JAX ``fused_attn_block`` with
     ``stash=False``: only the inputs are saved, ``_fab_fwd`` computes the
-    primal). ``plain`` runs the plain versions of both on any device. On
-    CUDA, fp32 is refused here, before the forward runs: kernel 4 has no
-    fp32 form yet."""
+    primal). ``plain`` runs the plain versions of both on any device."""
 
     @staticmethod
     def forward(ctx, x, scale, bias, wqkv, bqkv, wproj, bproj, num_heads, plain, seg_len):
-        if not plain and x.device.type != "cpu":
-            operand_dtype("kernel 4", x, wqkv=wqkv, wproj=wproj)
         args = (x, scale, bias, wqkv, bqkv, wproj, bproj, num_heads)
         if plain or x.device.type == "cpu":
             out = attn_block_plain(*args, seg_len)

@@ -53,7 +53,9 @@
 // fp32, both products on the 3xTF32 GEMM of gemm_f32.cuh, the core kernel
 // 12's fp32 one (attn_f32.cuh: fp32 FMA chains, the softmax in fp32,
 // nothing rounded), which also stores the fp32 probabilities for the
-// stash. No packed segments.
+// stash. Packed segments as JAX's fp32 path masks them: the -1e9 bias on
+// every logit outside the query's segment before the softmax (attn_f32.cuh),
+// whose exp is exactly 0.
 #include "attn_core.cuh"
 #include "attn_f32.cuh"
 #include "gemm_f32.cuh"
@@ -107,14 +109,13 @@ extern "C" int sky_attn_block_fwd_stash(const void* x, const void* ln_scale, con
 // The fp32 forms of K2 and kernel 2, with the bf16 entries' arguments:
 // everything fp32; qkv (B, N, 3D) and ctx (B, N, D) allocated by the
 // caller, the LN output staged in `out`; with `probs` (B, H, N, N) the
-// core also stores the fp32 probabilities. No packed segments: seg_len > 0
-// is refused.
+// core also stores the fp32 probabilities. seg_len > 0 masks attention to
+// packed segments of seg_len tokens.
 static int attn_block_fwd_f32(const void* x, const void* ln_scale, const void* ln_bias,
                               const void* wqkv, const void* bqkv, const void* wproj,
                               const void* bproj, void* qkv, void* ctx, void* probs, void* out,
                               int B, int N, int D, int H, int seg_len, void* stream) {
   using namespace sky;
-  if (seg_len > 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int M = B * N;
   cudaError_t err = launch_layernorm<float>(x, ln_scale, ln_bias, out, M, D, s);
@@ -122,7 +123,7 @@ static int attn_block_fwd_f32(const void* x, const void* ln_scale, const void* l
   err = f32::launch_gemm_f32<f32::FWD, f32::BIAS>(out, wqkv, bqkv, nullptr, qkv, nullptr, M,
                                                   3 * D, D, nullptr, s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = launch_f32(false, qkv, nullptr, ctx, B, N, D, H, s, probs);
+  err = launch_f32(false, qkv, nullptr, ctx, B, N, D, H, s, probs, nullptr, seg_len);
   if (err != cudaSuccess) return static_cast<int>(err);
   err = f32::launch_gemm_f32<f32::FWD, f32::BIAS_RESIDUAL>(ctx, wproj, bproj, x, out, nullptr, M,
                                                            D, D, nullptr, s);

@@ -72,13 +72,17 @@
 // The backward core (attn_bwd_core_kernel) lives in attn_core.cuh, shared with
 // kernel 13 (attention.cu), which runs the recompute core alone.
 //
-// Kernel 3's fp32 form (entry sky_attn_block_bwd_stash_f32; the fp32
-// configs, where JAX takes jax.vjp of xla_attn_block): steps 1-7 in fp32
-// at the plain version's points, every product on the 3xTF32 GEMM of
-// gemm_f32.cuh, the core kernel 13's fp32 one (attn_f32.cuh) reading the
-// stashed fp32 probabilities instead of recomputing them and writing ctx
-// = P V beside the fp32 dqkv (M, 3D), which goes through device memory;
-// dbqkv from its column sums in two passes.
+// The fp32 forms of kernels 3 and 4 (entries sky_attn_block_bwd_stash_f32
+// and sky_attn_block_bwd_f32, the bf16 entries' arguments; the fp32
+// configs, where JAX takes jax.vjp of xla_attn_block): steps 1-7 in fp32 at
+// the plain version's points, every product on the 3xTF32 GEMM of
+// gemm_f32.cuh (kernel 4's qkv recompute on its forward form, as K2's fp32
+// form computes qkv), the core kernel 13's fp32 one (attn_f32.cuh) writing
+// ctx = P V beside the fp32 dqkv (M, 3D), which goes through device memory;
+// dbqkv from its column sums in two passes. Kernel 3's core reads the
+// stashed fp32 probabilities; kernel 4's recomputes them (masked to packed
+// segments with seg_len > 0) exactly as the forward core does, so its ctx
+// is the forward's bit for bit without a second launch of the forward core.
 #include "attn_core.cuh"
 #include "attn_f32.cuh"
 #include "bwd_common.cuh"
@@ -203,24 +207,28 @@ extern "C" int sky_attn_bwd_weight_grads(const void* y, const void* dqkv_c, cons
                                            static_cast<cudaStream_t>(stream), bn, splits));
 }
 
-// ---- kernel 3's fp32 form -----------------------------------------------------
+// ---- the fp32 forms of kernels 3 and 4 --------------------------------------
 
-// fp32 floats of split-K workspace the fp32 form of (M, D) needs: the larger
-// of its two weight gradients' (one after the other).
+// fp32 floats of split-K workspace the fp32 forms of (M, D) need: the larger
+// of their two weight gradients' (one after the other).
 extern "C" long long sky_attn_block_bwd_f32_ws(int M, int D) {
   const size_t a = sky::f32::workspace(D, 3 * D, M), b = sky::f32::workspace(D, D, M);
   return static_cast<long long>(a > b ? a : b);
 }
 
 // All fp32. The caller allocates the scratch (y, dc, ctx, dy: (M, D); dqkv:
-// (M, 3D); part: 6D * ceil(M / 32); ws: sky_attn_block_bwd_f32_ws(M, D)) and
-// the outputs (dx (B, N, D); dscale, dbias, dbproj (D,); dbqkv (3D,); dwqkv
-// (D, 3D); dwproj (D, D)).
-extern "C" int sky_attn_block_bwd_stash_f32(
-    const void* x, const void* ln_scale, const void* ln_bias, const void* wqkv, const void* wproj,
-    const void* qkv, const void* probs, const void* g, void* y, void* dc, void* ctx, void* dqkv,
-    void* dy, void* part, void* ws, void* dx, void* dscale, void* dbias, void* dwqkv, void* dbqkv,
-    void* dwproj, void* dbproj, int B, int N, int D, int H, void* stream) {
+// (M, 3D); part: 6D * ceil(M / 32); ws: sky_attn_block_bwd_f32_ws(M, D);
+// kernel 4 also qkv (M, 3D)) and the outputs (dx (B, N, D); dscale, dbias,
+// dbproj (D,); dbqkv (3D,); dwqkv (D, 3D); dwproj (D, D)). Kernel 3 reads
+// the stashed `qkv` and `probs`; kernel 4 (`recompute`) writes `qkv` from
+// `bqkv` and reads no probabilities.
+static int attn_block_bwd_f32(const void* x, const void* ln_scale, const void* ln_bias,
+                              const void* wqkv, const void* bqkv, const void* wproj, void* qkv,
+                              const void* probs, const void* g, void* y, void* dc, void* ctx,
+                              void* dqkv, void* dy, void* part, void* ws, void* dx, void* dscale,
+                              void* dbias, void* dwqkv, void* dbqkv, void* dwproj, void* dbproj,
+                              int B, int N, int D, int H, int seg_len, bool recompute,
+                              void* stream) {
   using namespace sky;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int M = B * N;
@@ -231,9 +239,13 @@ extern "C" int sky_attn_block_bwd_stash_f32(
   float* part_bias = part_scale + (size_t)parts * D;     // parts x D
   float* dyf = static_cast<float*>(dy);
   SKY_TRY(launch_layernorm<float>(x, ln_scale, ln_bias, y, M, D, s));
+  if (recompute)
+    SKY_TRY((f32::launch_gemm_f32<f32::FWD, f32::BIAS>(y, wqkv, bqkv, nullptr, qkv, nullptr, M,
+                                                       3 * D, D, nullptr, s)));
   SKY_TRY((f32::launch_gemm_f32<f32::NT, f32::STORE>(g, wproj, nullptr, nullptr, dc, nullptr, M, D,
                                                      D, nullptr, s)));
-  SKY_TRY(launch_f32(true, qkv, dc, dqkv, B, N, D, H, s, const_cast<void*>(probs), ctx));
+  void* stash = recompute ? nullptr : const_cast<void*>(probs);  // kernel 3 reads the stash
+  SKY_TRY(launch_f32(true, qkv, dc, dqkv, B, N, D, H, s, stash, ctx, recompute ? seg_len : 0));
   SKY_TRY((f32::launch_gemm_f32<f32::NT, f32::STORE>(dqkv, wqkv, nullptr, nullptr, dyf, nullptr, M,
                                                      D, 3 * D, nullptr, s)));
   SKY_TRY(launch_ln_bwd<float>(x, g, dyf, ln_scale, dx, part_scale, part_bias, M, D, s));
@@ -249,4 +261,27 @@ extern "C" int sky_attn_block_bwd_stash_f32(
                              {part_bias, static_cast<float*>(dbias), parts, D}};
   SKY_TRY(launch_colsum_finals(jobs, 4, s));
   return 0;
+}
+
+// Kernel 3's fp32 form: from the stashed fp32 qkv and probs.
+extern "C" int sky_attn_block_bwd_stash_f32(
+    const void* x, const void* ln_scale, const void* ln_bias, const void* wqkv, const void* wproj,
+    const void* qkv, const void* probs, const void* g, void* y, void* dc, void* ctx, void* dqkv,
+    void* dy, void* part, void* ws, void* dx, void* dscale, void* dbias, void* dwqkv, void* dbqkv,
+    void* dwproj, void* dbproj, int B, int N, int D, int H, void* stream) {
+  return attn_block_bwd_f32(x, ln_scale, ln_bias, wqkv, nullptr, wproj, const_cast<void*>(qkv),
+                            probs, g, y, dc, ctx, dqkv, dy, part, ws, dx, dscale, dbias, dwqkv,
+                            dbqkv, dwproj, dbproj, B, N, D, H, 0, false, stream);
+}
+
+// Kernel 4's fp32 form: from x and g alone; qkv is (B, N, 3D) fp32 scratch;
+// seg_len > 0 masks attention to packed segments of seg_len tokens.
+extern "C" int sky_attn_block_bwd_f32(
+    const void* x, const void* ln_scale, const void* ln_bias, const void* wqkv, const void* bqkv,
+    const void* wproj, const void* g, void* y, void* qkv, void* dc, void* ctx, void* dqkv,
+    void* dy, void* part, void* ws, void* dx, void* dscale, void* dbias, void* dwqkv, void* dbqkv,
+    void* dwproj, void* dbproj, int B, int N, int D, int H, int seg_len, void* stream) {
+  return attn_block_bwd_f32(x, ln_scale, ln_bias, wqkv, bqkv, wproj, qkv, nullptr, g, y, dc, ctx,
+                            dqkv, dy, part, ws, dx, dscale, dbias, dwqkv, dbqkv, dwproj, dbproj, B,
+                            N, D, H, seg_len, true, stream);
 }

@@ -6,13 +6,29 @@
 // - attn_fwd_f32_kernel: ctx = softmax(Q K^T * hd^-0.5) V from an fp32 qkv
 //   (B, N, 3D); with `probs` it also stores the fp32 probabilities (B, H,
 //   N, N), the stash of kernel 2's fp32 form (K2's form passes none);
-// - attn_bwd_f32_kernel<STAGED, STASH = false>: kernel 13, dqkv from qkv
-//   and dctx with P recomputed;
-// - attn_bwd_f32_kernel<STAGED, STASH = true>: the core of kernel 3's fp32
-//   form: P read from the stashed fp32 probabilities instead of recomputed
-//   (f32_softmax_bwd_rows takes only the softmax's backward), and ctx = P V
-//   written beside dqkv for dWproj, as attn_bwd_core_plain computes it. P
-//   keeps a buffer of its own, so V stays staged for that product.
+// - attn_bwd_f32_kernel<STAGED, STASH = false, CTX = false>: kernel 13,
+//   dqkv from qkv and dctx with P recomputed;
+// - attn_bwd_f32_kernel<STAGED, STASH = false, CTX = true>: the core of
+//   kernel 4's fp32 form: kernel 13's, which also writes ctx = P V beside
+//   dqkv for dWproj. The recomputed P is the forward core's bit for bit
+//   (the same FMA chains and softmax), and so is this ctx, so the block's
+//   backward needs no second run of the forward core;
+// - attn_bwd_f32_kernel<STAGED, STASH = true, CTX = true>: the core of
+//   kernel 3's fp32 form: P read from the stashed fp32 probabilities
+//   instead of recomputed (f32_softmax_bwd_rows takes only the softmax's
+//   backward), and ctx = P V written beside dqkv, as attn_bwd_core_plain
+//   computes it.
+// With CTX, P keeps a buffer of its own, so V stays staged for ctx = P V.
+//
+// Packed segments (seg_len > 0, MAE sequence packing; the forward and the
+// recompute backward): JAX's _seg_bias (attn_block.py:84-100) adds -1e9 to
+// the scaled logit of every key outside the query's segment (token i is in
+// segment i / seg_len), before the softmax; exp of it underflows to exactly
+// 0 in fp32, so those probabilities, and the dS they give, are exact zeros.
+// f32_softmax_rows adds the same bias to the same logits. Padded rows and
+// columns (N..NP-1) are never in a softmax row, so the mask cannot turn
+// them into NaN; every real row's segment holds at least its own key. The
+// stash backward needs no mask: the stashed probabilities carry the zeros.
 #pragma once
 
 #include "attn_core.cuh"
@@ -27,8 +43,8 @@ constexpr int F32_MAX_THREADS = 512;
 //   forward   Q, K, V   NP x HP each; S  NP x NP
 //   backward  Q, K, V, dC  NP x HP each; dP  NP x NP; S  NP x NP in V's
 //             place once dP is done (a buffer of its own if NP > HP, or
-//             with `keep_v`: the stash backward, whose ctx = P V reads V
-//             after dP)
+//             with `keep_v`: the backwards that write ctx = P V, which
+//             reads V after dP)
 // ViT-B (N = 65, hd = 64): 73 984 and 92 480 bytes, three and two CTAs an
 // SM; ViT-H (N = 66, hd = 80): 87 040 and 109 888, two CTAs. Otherwise from
 // device memory: the forward one CTA per (sample, head, block of QB query
@@ -281,7 +297,8 @@ __device__ __forceinline__ void f32_tn2(const float* dS, const float* P, int ldp
 // butterfly add its own lanes in registers, levels 2 and 1 go by shuffle,
 // so every sum is the warp's, bit for bit, with no lane idle past N. With
 // dP (the backward) also delta_i = sum_j dP_ij P_ij (the same way) and dS =
-// (dP P - P delta) * scale into dP.
+// (dP P - P delta) * scale into dP. Row r is query q0 + r; with seg > 0 its
+// logits outside the query's segment take JAX's -1e9 bias first (above).
 __device__ __forceinline__ float f32_quad_tree(float (&v)[8]) {
 #pragma unroll
   for (int m = 0; m < 4; ++m) v[m] += v[m + 4];  // xor 16
@@ -293,7 +310,7 @@ __device__ __forceinline__ float f32_quad_tree(float (&v)[8]) {
 }
 
 __device__ __forceinline__ void f32_softmax_rows(float* S, float* dP, int lds, int nrows, int N,
-                                                 float scale) {
+                                                 float scale, int q0 = 0, int seg = 0) {
   const int q = threadIdx.x & 3;
   const int rounds = (nrows + blockDim.x / 4 - 1) / (blockDim.x / 4);
   for (int k = 0; k < rounds; ++k) {  // every thread runs every round: the shuffles
@@ -301,7 +318,11 @@ __device__ __forceinline__ void f32_softmax_rows(float* S, float* dP, int lds, i
     const bool ok = r < nrows;
     float* row = S + (ok ? r : 0) * lds;
     float mx = -CUDART_INF_F;
-    for (int j = q; ok && j < N; j += 4) mx = fmaxf(mx, row[j]);
+    const int sid = seg > 0 ? (q0 + r) / seg : 0;
+    for (int j = q; ok && j < N; j += 4) {  // the exp loop below gives j to this thread too
+      if (seg > 0 && j / seg != sid) row[j] += -1e9f;
+      mx = fmaxf(mx, row[j]);
+    }
     mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
     mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
     float v[8];
@@ -363,12 +384,12 @@ __device__ __forceinline__ void f32_softmax_bwd_rows(const float* P, float* dP, 
 // cp.async group and V in a second, which lands while S is computed.
 // Otherwise one CTA per (sample, head, block of QB query rows), operands
 // from device memory. With `probs` (B, H, N, N) each block's probabilities
-// are stored too (kernel 2's fp32 form).
+// are stored too (kernel 2's fp32 form); seg > 0 masks to packed segments.
 template <bool STAGED>
 __global__ void __launch_bounds__(F32_MAX_THREADS, 2)
 attn_fwd_f32_kernel(const float* __restrict__ qkv, float* __restrict__ ctx,
                     float* __restrict__ probs, AttnF32Plan pl, int N, int D, int H, int hd,
-                    float scale, int vec) {
+                    float scale, int vec, int seg) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   float* sm = reinterpret_cast<float*>(smem_raw);
   const int NP = pl.NP, HP = pl.HP, nb = pl.blocks(N);
@@ -399,7 +420,7 @@ attn_fwd_f32_kernel(const float* __restrict__ qkv, float* __restrict__ ctx,
   }
   f32_nt<STAGED>(Q, K, pl.QB, NP, pl.HD4, scale, S, NP);
   __syncthreads();
-  f32_softmax_rows(S, nullptr, NP, rows, N, scale);
+  f32_softmax_rows(S, nullptr, NP, rows, N, scale, q0, seg);
   if (STAGED) cp_async_wait<0>();
   __syncthreads();
   if (probs) {
@@ -417,15 +438,18 @@ attn_fwd_f32_kernel(const float* __restrict__ qkv, float* __restrict__ ctx,
 // Otherwise one CTA per (sample, head, HC columns) walks the head's blocks
 // of QB query rows with operands from device memory, dK and dV carried
 // across blocks in fp32 accumulators. STASH (kernel 3's fp32 form): P is
-// the block's rows of the stashed `probs` (B, H, N, N), read into S (its
-// own buffer: the plan's keep_v), in place of Q K^T and the softmax; ctx =
-// P V (this CTA's columns) is written to `ctx` (B, N, D).
-template <bool STAGED, bool STASH>
+// the block's rows of the stashed `probs` (B, H, N, N), read into S, in
+// place of Q K^T and the softmax. CTX (kernels 3 and 4's fp32 forms): ctx
+// = P V (this CTA's columns) is written to `ctx` (B, N, D), S in a buffer
+// of its own (the plan's keep_v). seg > 0 masks the recomputed softmax to
+// packed segments.
+template <bool STAGED, bool STASH, bool CTX>
 __global__ void __launch_bounds__(F32_MAX_THREADS, 2)
 attn_bwd_f32_kernel(const float* __restrict__ qkv, const float* __restrict__ dctx,
                     float* __restrict__ dqkv, const float* __restrict__ probs,
                     float* __restrict__ ctx, AttnF32Plan pl, int N, int D, int H, int hd,
-                    float scale, int vec) {
+                    float scale, int vec, int seg) {
+  static_assert(CTX || !STASH, "the stash backward writes ctx");
   extern __shared__ __align__(128) unsigned char smem_raw[];
   float* sm = reinterpret_cast<float*>(smem_raw);
   const int NP = pl.NP, HP = pl.HP, QB = pl.QB, nch = pl.chunks(hd);
@@ -446,7 +470,7 @@ attn_bwd_f32_kernel(const float* __restrict__ qkv, const float* __restrict__ dct
     float* Vs = Ks + NP * HP;
     float* dCs = Vs + NP * HP;
     dP = dCs + NP * HP;
-    S = NP <= HP && !STASH ? Vs : dP + NP * NP;  // S overwrites V once dP = dC V^T is done
+    S = NP <= HP && !CTX ? Vs : dP + NP * NP;  // S overwrites V once dP = dC V^T is done
     f32_stage(dCs, dcs, D, N, pl, hd, vec);
     f32_stage(Vs, src + 2 * D, D3, N, pl, hd, vec);
     cp_async_commit();
@@ -477,7 +501,7 @@ attn_bwd_f32_kernel(const float* __restrict__ qkv, const float* __restrict__ dct
     }
     f32_nt<STAGED>(dCm, Vm, QB, NP, pl.HD4, 1.f, dP, NP);
     if (STAGED) cp_async_wait<0>();
-    __syncthreads();  // staged: V is dead (but with STASH), Q and K have landed
+    __syncthreads();  // staged: V is dead (but with CTX), Q and K have landed
     if (STASH) {
       const float* pr = probs + ((size_t)(b * H + h) * N + q0) * N;
       for (int i = threadIdx.x; i < QB * NP; i += blockDim.x) {
@@ -491,13 +515,13 @@ attn_bwd_f32_kernel(const float* __restrict__ qkv, const float* __restrict__ dct
     if (STASH)
       f32_softmax_bwd_rows(S, dP, NP, rows, N, scale);
     else
-      f32_softmax_rows(S, dP, NP, rows, N, scale);
+      f32_softmax_rows(S, dP, NP, rows, N, scale, q0, seg);
     __syncthreads();
     // dq = dS K for the block's rows, this CTA's columns
     f32_nn<STAGED>(dP, NP, QB, Km, NP, c0, cw, [&](int r, int c, const float(&v)[4]) {
       if (r < rows) f32_store4(dst + (size_t)(q0 + r) * D3 + c, v, cw - c, vec);
     });
-    if (STASH) {  // ctx = P V, this CTA's columns
+    if (CTX) {  // ctx = P V, this CTA's columns
       float* co = ctx + ((size_t)b * N + q0) * D + (size_t)h * hd + c0;
       f32_nn<STAGED>(S, NP, QB, Vm, NP, c0, cw, [&](int r, int c, const float(&v)[4]) {
         if (r < rows) f32_store4(co + (size_t)r * D + c, v, cw - c, vec);
@@ -531,14 +555,17 @@ inline cudaError_t prepare_f32(K kernel, const AttnF32Plan& pl, long long grid) 
 
 // The forward (ctx into `out`; with `probs` also the probabilities) or the
 // backward (dqkv into `out`; with `probs` the stash backward, which reads
-// them and writes `ctx`).
+// them and writes `ctx`; without, the recompute backward, which writes
+// `ctx` too where one is given). seg_len > 0 masks the forward and the
+// recompute backward to packed segments (>= N: no mask).
 inline cudaError_t launch_f32(bool backward, const void* qkv, const void* dctx, void* out, int B,
                               int N, int D, int H, cudaStream_t s, void* probs = nullptr,
-                              void* ctx = nullptr) {
+                              void* ctx = nullptr, int seg_len = 0) {
   const int hd = D / H;
-  const bool stash = backward && probs != nullptr;
-  if (stash && ctx == nullptr) return cudaErrorInvalidValue;
-  const AttnF32Plan pl(N, hd, backward, stash);
+  const bool stash = backward && probs != nullptr, with_ctx = backward && ctx != nullptr;
+  if ((stash && !with_ctx) || seg_len < 0 || (stash && seg_len > 0)) return cudaErrorInvalidValue;
+  const int seg = seg_len < N ? seg_len : 0;
+  const AttnF32Plan pl(N, hd, backward, with_ctx);
   if (pl.bytes() > SMEM_OPTIN_MAX) return cudaErrorInvalidValue;
   const float scale = 1.0f / sqrtf(static_cast<float>(hd));
   auto aligned = [](const void* p) { return (reinterpret_cast<size_t>(p) & 15) == 0; };
@@ -553,16 +580,20 @@ inline cudaError_t launch_f32(bool backward, const void* qkv, const void* dctx, 
     const float* g = static_cast<const float*>(dctx);
     const float* pr = static_cast<const float*>(probs);
     float* c = static_cast<float*>(ctx);
-    auto kernel = stash ? (pl.staged ? attn_bwd_f32_kernel<true, true> : attn_bwd_f32_kernel<false, true>)
-                        : (pl.staged ? attn_bwd_f32_kernel<true, false> : attn_bwd_f32_kernel<false, false>);
+    auto kernel = stash      ? (pl.staged ? attn_bwd_f32_kernel<true, true, true>
+                                          : attn_bwd_f32_kernel<false, true, true>)
+                  : with_ctx ? (pl.staged ? attn_bwd_f32_kernel<true, false, true>
+                                          : attn_bwd_f32_kernel<false, false, true>)
+                             : (pl.staged ? attn_bwd_f32_kernel<true, false, false>
+                                          : attn_bwd_f32_kernel<false, false, false>);
     if ((err = prepare_f32(kernel, pl, grid)) != cudaSuccess) return err;
     kernel<<<static_cast<int>(grid), pl.threads, smem, s>>>(q, g, o, pr, c, pl, N, D, H, hd, scale,
-                                                            vec);
+                                                            vec, seg);
   } else {
     auto kernel = pl.staged ? attn_fwd_f32_kernel<true> : attn_fwd_f32_kernel<false>;
     if ((err = prepare_f32(kernel, pl, grid)) != cudaSuccess) return err;
     kernel<<<static_cast<int>(grid), pl.threads, smem, s>>>(q, o, static_cast<float*>(probs), pl, N,
-                                                            D, H, hd, scale, vec);
+                                                            D, H, hd, scale, vec, seg);
   }
   return cudaGetLastError();
 }

@@ -5,12 +5,13 @@
 // It replaces no TPU kernel by itself: JAX sends fp32 blocks to XLA's fp32
 // einsums (models/layers.py:253, :356), never to its Pallas kernels, and
 // the port's North star forbids the plain path on the card. So the fp32
-// forms of K1 and kernel 8 (mlp_block.cu, mlp_block_bwd.cu) and of K2 and
-// kernels 2 and 3 (attn_block.cu, attn_block_bwd.cu) run every product
+// forms of K1 and kernels 6-9 (mlp_block.cu, mlp_block_bwd.cu) and of K2
+// and kernels 2-4 (attn_block.cu, attn_block_bwd.cu) run every product
 // here, in the three forms of gemm_sm90.cuh, all operands fp32 and
 // row-major:
-//   FWD  C (M, N) = A (M, K) @ B (K, N): qkv, proj, fc1, fc2 and kernel 8's
-//        fc1 recompute (B, the (in, out) weight, read N-major);
+//   FWD  C (M, N) = A (M, K) @ B (K, N): qkv, proj, fc1, fc2 and the
+//        backwards' fc1 and qkv recomputes (B, the (in, out) weight, read
+//        N-major);
 //   NT   C = A (M, K) @ B^T, B stored (N, K): dctx, dh, dy;
 //   TN   C = A^T @ B, A stored (K, M), B (K, N): the weight gradients over
 //        the K = B*N token rows; where the tiles would leave SMs idle in
@@ -18,10 +19,15 @@
 //        stored to its own fp32 workspace plane, then added in slice order
 //        by a second launch.
 // Epilogues: BIAS (acc + bias), BIAS_GELU (gelu_erf(acc + bias), exact erf),
-// BIAS_RESIDUAL (resid + (acc + bias)), STORE, and DGELU (NT, kernel 8's
-// dh = g @ W2^T: reads the fc1 pre-activation a from `aux`, stores da = dh *
-// gelu'(a) and writes gelu(a) back over a in `aux`), the plain versions'
-// formulas and orders (ops/kernels/mlp_block.py, attn_block.py).
+// BIAS_RESIDUAL (resid + (acc + bias)), STORE, DGELU (NT, the MLP backward's
+// dh = g @ W2^T: reads the fc1 pre-activation a from `resid`, stores da =
+// dh * gelu'(a) and gelu(a) into `aux`, which may be `resid` itself),
+// BIAS_GELU_STASH (FWD, kernel 6's fc1: BIAS_GELU that also stores the
+// pre-activation acc + bias into `aux`) and ADD (acc + c, kernel 9's dy
+// summed over the slabs), the plain versions' formulas and orders
+// (ops/kernels/mlp_block.py, attn_block.py). Each operand and C may have a
+// row pitch of its own (Ld; kernel 9 reads W1's column slabs and writes
+// dW1's in place).
 //
 // Numerics: each operand x is split into big = tf32(x) and small = tf32(x -
 // big), both rounded to nearest, and a product adds small * big, big *
@@ -60,7 +66,8 @@ namespace sky {
 namespace f32 {
 
 enum Form { FWD = 0, NT = 1, TN = 2 };
-enum Epi { BIAS = 0, BIAS_GELU = 1, BIAS_RESIDUAL = 2, STORE = 3, DGELU = 4 };
+enum Epi { BIAS = 0, BIAS_GELU = 1, BIAS_RESIDUAL = 2, STORE = 3, DGELU = 4, BIAS_GELU_STASH = 5,
+           ADD = 6 };
 
 constexpr int BM = 128, BN = 128, BK = 16, STAGES = 4, THREADS = 256;
 constexpr int KP = BK + 4;  // pitch of a K-major tile row: 128 rows x 16 k
@@ -78,30 +85,38 @@ struct Args {
   float* c;
   float* aux;
   int M, N, K;
+  int lda, ldb, ldc;  // row pitches (floats) of A, B and C (resid and aux share C's)
   int kslice;  // K rows per split slice, a multiple of BK (>= K: unsplit)
 };
 
-// rows r0..r0+127, columns k0..k0+15 of a row-major (rows, K) matrix into
-// s[128][KP] (K % 4 == 0, so a 16-byte vector is wholly in or out)
-__device__ __forceinline__ void load_kmajor(float* s, const float* g, int rows, int K, int r0,
-                                            int k0) {
+// Row pitches in floats, 0 for a dense operand: A's row is K long (M for
+// TN), B's N (K for NT), C's N.
+struct Ld {
+  int a = 0, b = 0, c = 0;
+};
+
+// rows r0..r0+127, columns k0..k0+15 of a row-major (rows, K) matrix with
+// rows `ld` floats apart into s[128][KP] (K % 4 == 0, so a 16-byte vector
+// is wholly in or out)
+__device__ __forceinline__ void load_kmajor(float* s, const float* g, int rows, int K, int ld,
+                                            int r0, int k0) {
 #pragma unroll
   for (int i = threadIdx.x; i < BM * BK / 4; i += THREADS) {
     const int r = i >> 2, kc = (i & 3) * 4;
     const bool ok = r0 + r < rows && k0 + kc < K;
-    cp_async16(s + r * KP + kc, ok ? g + (size_t)(r0 + r) * K + k0 + kc : g, ok);
+    cp_async16(s + r * KP + kc, ok ? g + (size_t)(r0 + r) * ld + k0 + kc : g, ok);
   }
 }
 
-// rows k0..k0+15, columns c0..c0+127 of a row-major (K, cols) matrix into
-// s[BK][MP] (cols % 4 == 0)
-__device__ __forceinline__ void load_nmajor(float* s, const float* g, int cols, int K, int c0,
-                                            int k0) {
+// rows k0..k0+15, columns c0..c0+127 of a row-major (K, cols) matrix with
+// rows `ld` floats apart into s[BK][MP] (cols % 4 == 0)
+__device__ __forceinline__ void load_nmajor(float* s, const float* g, int cols, int K, int ld,
+                                            int c0, int k0) {
 #pragma unroll
   for (int i = threadIdx.x; i < BK * BM / 4; i += THREADS) {
     const int k = i >> 5, cc = (i & 31) * 4;
     const bool ok = k0 + k < K && c0 + cc < cols;
-    cp_async16(s + k * MP + cc, ok ? g + (size_t)(k0 + k) * cols + c0 + cc : g, ok);
+    cp_async16(s + k * MP + cc, ok ? g + (size_t)(k0 + k) * ld + c0 + cc : g, ok);
   }
 }
 
@@ -132,12 +147,13 @@ template <int EPI>
 __device__ __forceinline__ void epi_store(const Args& p, float* c, int m, int n, float v0,
                                           float v1) {
   if (m >= p.M || n >= p.N) return;
-  const size_t at = (size_t)m * p.N + n;
-  if (EPI == BIAS || EPI == BIAS_GELU || EPI == BIAS_RESIDUAL) {
+  const size_t at = (size_t)m * p.ldc + n;
+  if (EPI == BIAS || EPI == BIAS_GELU || EPI == BIAS_RESIDUAL || EPI == BIAS_GELU_STASH) {
     v0 += p.bias[n];
     v1 += p.bias[n + 1];
   }
-  if (EPI == BIAS_GELU) {
+  if (EPI == BIAS_GELU_STASH) *reinterpret_cast<float2*>(p.aux + at) = make_float2(v0, v1);
+  if (EPI == BIAS_GELU || EPI == BIAS_GELU_STASH) {
     v0 = gelu_erf(v0);
     v1 = gelu_erf(v1);
   }
@@ -146,8 +162,13 @@ __device__ __forceinline__ void epi_store(const Args& p, float* c, int m, int n,
     v0 = r.x + v0;
     v1 = r.y + v1;
   }
+  if (EPI == ADD) {
+    const float2 r = *reinterpret_cast<const float2*>(c + at);
+    v0 += r.x;
+    v1 += r.y;
+  }
   if (EPI == DGELU) {
-    const float2 a = *reinterpret_cast<const float2*>(p.aux + at);
+    const float2 a = *reinterpret_cast<const float2*>(p.resid + at);
     float h0, d0, h1, d1;
     gelu_erf_and_grad(a.x, h0, d0);
     gelu_erf_and_grad(a.y, h1, d1);
@@ -175,13 +196,13 @@ __global__ void __launch_bounds__(THREADS, 1) gemm_f32_kernel(const Args p) {
     float* a = sa + stage * TILE;
     float* b = sb + stage * TILE;
     if (A_KMAJOR)
-      load_kmajor(a, p.a, p.M, p.K, m0, k0);
+      load_kmajor(a, p.a, p.M, p.K, p.lda, m0, k0);
     else
-      load_nmajor(a, p.a, p.M, p.K, m0, k0);
+      load_nmajor(a, p.a, p.M, p.K, p.lda, m0, k0);
     if (B_KMAJOR)
-      load_kmajor(b, p.b, p.N, p.K, n0, k0);
+      load_kmajor(b, p.b, p.N, p.K, p.ldb, n0, k0);
     else
-      load_nmajor(b, p.b, p.N, p.K, n0, k0);
+      load_nmajor(b, p.b, p.N, p.K, p.ldb, n0, k0);
   };
 
 #pragma unroll
@@ -264,10 +285,10 @@ __global__ void __launch_bounds__(THREADS, 1) gemm_f32_kernel(const Args p) {
     }
 }
 
-// out[i] = the sum over the slices z of ws[z * n4 + i], in slice order; a
-// float4 a thread
+// out = the sum over the slices z of the dense (M, N) planes of ws, in slice
+// order, into rows `ldc` floats apart; a float4 a thread (n4r of a row)
 __global__ void splitk_reduce_f32_kernel(const float4* __restrict__ ws, int splits, size_t n4,
-                                         float4* __restrict__ out) {
+                                         int n4r, int ldc, float* __restrict__ out) {
   const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n4) return;
   float4 s = ws[i];
@@ -278,7 +299,7 @@ __global__ void splitk_reduce_f32_kernel(const float4* __restrict__ ws, int spli
     s.z += v.z;
     s.w += v.w;
   }
-  out[i] = s;
+  *reinterpret_cast<float4*>(out + (i / n4r) * ldc + (i % n4r) * 4) = s;
 }
 
 // K rows a slice of a TN product of (M, N, K) takes. Of the split counts s
@@ -318,15 +339,21 @@ inline bool aligned16(const void* p) { return (reinterpret_cast<size_t>(p) & 15)
 
 // C = the form's product of A and B through the epilogue. `ws` (TN with
 // STORE only; workspace(M, N, K) floats) lets the product split along K;
-// nullptr keeps it whole. The contiguous axes must be multiples of 4, N
-// even, and the pointers 16-byte aligned.
+// nullptr keeps it whole. The contiguous axes and the row pitches `ld`
+// must be multiples of 4, and the pointers 16-byte aligned.
 template <int FORM, int EPI>
 cudaError_t launch_gemm_f32(const void* a, const void* b, const void* bias, const void* resid,
-                            void* c, void* aux, int M, int N, int K, void* ws, cudaStream_t s) {
+                            void* c, void* aux, int M, int N, int K, void* ws, cudaStream_t s,
+                            Ld ld = {}) {
   static_assert(EPI != DGELU || FORM == NT, "the GELU' epilogue is the dh product's");
+  static_assert(EPI != BIAS_GELU_STASH || FORM == FWD, "the stash epilogue is fc1's");
   const int a_row = FORM == TN ? M : K, b_row = FORM == NT ? K : N;
-  if (M <= 0 || N <= 0 || K <= 0 || a_row % 4 || b_row % 4 || N % 4 || !aligned16(a) ||
-      !aligned16(b) || !aligned16(c) || (resid && !aligned16(resid)) || (aux && !aligned16(aux)))
+  const int lda = ld.a ? ld.a : a_row, ldb = ld.b ? ld.b : b_row, ldc = ld.c ? ld.c : N;
+  if (M <= 0 || N <= 0 || K <= 0 || a_row % 4 || b_row % 4 || N % 4 || lda % 4 || ldb % 4 ||
+      ldc % 4 || lda < a_row || ldb < b_row || ldc < N || !aligned16(a) || !aligned16(b) ||
+      !aligned16(c) || (resid && !aligned16(resid)) || (aux && !aligned16(aux)))
+    return cudaErrorInvalidValue;
+  if ((EPI == DGELU && (!resid || !aux)) || (EPI == BIAS_GELU_STASH && !aux))
     return cudaErrorInvalidValue;
   if ((M + BM - 1) / BM > 65535) return cudaErrorInvalidValue;
   int slice = K;
@@ -338,14 +365,14 @@ cudaError_t launch_gemm_f32(const void* a, const void* b, const void* bias, cons
   const Args p{static_cast<const float*>(a), static_cast<const float*>(b),
                static_cast<const float*>(bias), static_cast<const float*>(resid),
                static_cast<float*>(splits > 1 ? ws : c), static_cast<float*>(aux), M, N, K,
-               slice};
+               lda, ldb, splits > 1 ? N : ldc, slice};  // the split slices' planes are dense
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, splits);
   gemm_f32_kernel<FORM, EPI><<<grid, THREADS, SMEM, s>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess || splits < 2) return err;
   const size_t n4 = (size_t)M * N / 4;
   splitk_reduce_f32_kernel<<<(unsigned)((n4 + 255) / 256), 256, 0, s>>>(
-      static_cast<const float4*>(ws), splits, n4, static_cast<float4*>(c));
+      static_cast<const float4*>(ws), splits, n4, N / 4, ldc, static_cast<float*>(c));
   return cudaGetLastError();
 }
 

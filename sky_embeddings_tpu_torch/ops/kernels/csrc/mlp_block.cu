@@ -28,10 +28,14 @@
 // share one tile), and the h round trip (2 * M * F * 2 bytes, the stash
 // another M * F * 2).
 //
-// fp32 form (entry sky_mlp_block_fwd_f32; the fp32 configs, where JAX runs
+// fp32 forms (entries sky_mlp_block_fwd_f32 and sky_mlp_block_fwd_stash_f32,
+// the bf16 entries' arguments; the fp32 configs, where JAX runs
 // xla_mlp_block, models/layers.py:253): the same three launches with fp32
 // x, weights, y, h and out, both products on the 3xTF32 GEMM of
-// gemm_f32.cuh, exact-erf GELU in fc1's epilogue.
+// gemm_f32.cuh, exact-erf GELU in fc1's epilogue. Kernel 6's stores the
+// pre-activation a (M, F) in fp32, the operand dtype, as JAX's fp32
+// autodiff keeps it; GELU reads the same fp32 value, so its `out` is K1's
+// fp32 form's bit for bit.
 //
 // This file also carries the GEMMs' entries for the card tests and
 // chip_smoke.py: one product with a chosen epilogue (sky_gemm_sm90), its
@@ -116,29 +120,47 @@ extern "C" double sky_gemm_sm90_encode_us(const void* a, const void* b, void* ou
   return dt.count() / reps;
 }
 
-// The fp32 form of K1: x, w1, w2, h (M, F) and out fp32; the LN output is
-// staged in `out`, which the last launch overwrites once it is dead.
-extern "C" int sky_mlp_block_fwd_f32(const void* x, const void* ln_scale, const void* ln_bias,
-                                     const void* w1, const void* b1, const void* w2,
-                                     const void* b2, void* h, void* out, int M, int D, int F,
-                                     void* stream) {
+// The fp32 forms of K1 and (with `a` (M, F)) kernel 6: x, w1, w2, h (M, F)
+// and out fp32; the LN output is staged in `out`, which the last launch
+// overwrites once it is dead.
+static int mlp_block_fwd_f32(const void* x, const void* ln_scale, const void* ln_bias,
+                             const void* w1, const void* b1, const void* w2, const void* b2,
+                             void* h, void* a, void* out, int M, int D, int F, void* stream) {
   using namespace sky;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = launch_layernorm<float>(x, ln_scale, ln_bias, out, M, D, s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = f32::launch_gemm_f32<f32::FWD, f32::BIAS_GELU>(out, w1, b1, nullptr, h, nullptr, M, F, D,
-                                                       nullptr, s);
+  err = a ? f32::launch_gemm_f32<f32::FWD, f32::BIAS_GELU_STASH>(out, w1, b1, nullptr, h, a, M, F,
+                                                                 D, nullptr, s)
+          : f32::launch_gemm_f32<f32::FWD, f32::BIAS_GELU>(out, w1, b1, nullptr, h, nullptr, M, F,
+                                                           D, nullptr, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   err = f32::launch_gemm_f32<f32::FWD, f32::BIAS_RESIDUAL>(h, w2, b2, x, out, nullptr, M, D, F,
                                                            nullptr, s);
   return static_cast<int>(err);
 }
 
+extern "C" int sky_mlp_block_fwd_f32(const void* x, const void* ln_scale, const void* ln_bias,
+                                     const void* w1, const void* b1, const void* w2,
+                                     const void* b2, void* h, void* out, int M, int D, int F,
+                                     void* stream) {
+  return mlp_block_fwd_f32(x, ln_scale, ln_bias, w1, b1, w2, b2, h, nullptr, out, M, D, F, stream);
+}
+
+extern "C" int sky_mlp_block_fwd_stash_f32(const void* x, const void* ln_scale,
+                                           const void* ln_bias, const void* w1, const void* b1,
+                                           const void* w2, const void* b2, void* h, void* a,
+                                           void* out, int M, int D, int F, void* stream) {
+  return mlp_block_fwd_f32(x, ln_scale, ln_bias, w1, b1, w2, b2, h, a, out, M, D, F, stream);
+}
+
 // One fp32 product on gemm_f32.cuh alone, for the card tests and
 // chip_smoke.py: form 0 (FWD: a (M, K), b (K, N)), 1 (NT: b (N, K)) or 2
 // (TN: a (K, M)); epi 0 BIAS, 1 BIAS_GELU, 2 BIAS_RESIDUAL (resid (M, N)),
-// 3 STORE, 4 DGELU (NT; aux (M, N) the pre-activation in, its GELU out). A
-// TN STORE product with ws (sky_gemm_f32_ws floats) may split along K.
+// 3 STORE, 4 DGELU (NT; aux (M, N) the pre-activation in, its GELU out), 5
+// BIAS_GELU_STASH (FWD; aux (M, N) the pre-activation out), 6 ADD (NT; c
+// (M, N) in and out). A TN STORE product with ws (sky_gemm_f32_ws floats)
+// may split along K.
 extern "C" int sky_gemm_f32(const void* a, const void* b, const void* bias, const void* resid,
                             void* c, void* aux, void* ws, int form, int epi, int M, int N, int K,
                             void* stream) {
@@ -153,8 +175,12 @@ extern "C" int sky_gemm_f32(const void* a, const void* b, const void* bias, cons
     err = launch_gemm_f32<FWD, BIAS_RESIDUAL>(a, b, bias, resid, c, nullptr, M, N, K, nullptr, s);
   else if (form == NT && epi == STORE)
     err = launch_gemm_f32<NT, STORE>(a, b, nullptr, nullptr, c, nullptr, M, N, K, nullptr, s);
+  else if (form == FWD && epi == BIAS_GELU_STASH)
+    err = launch_gemm_f32<FWD, BIAS_GELU_STASH>(a, b, bias, nullptr, c, aux, M, N, K, nullptr, s);
   else if (form == NT && epi == DGELU)
-    err = launch_gemm_f32<NT, DGELU>(a, b, nullptr, nullptr, c, aux, M, N, K, nullptr, s);
+    err = launch_gemm_f32<NT, DGELU>(a, b, nullptr, aux, c, aux, M, N, K, nullptr, s);
+  else if (form == NT && epi == ADD)
+    err = launch_gemm_f32<NT, ADD>(a, b, nullptr, nullptr, c, nullptr, M, N, K, nullptr, s);
   else if (form == TN && epi == STORE)
     err = launch_gemm_f32<TN, STORE>(a, b, nullptr, nullptr, c, nullptr, M, N, K, ws, s);
   return static_cast<int>(err);

@@ -49,23 +49,34 @@
 // kernel 7's stash (M * F * 2 bytes, read once), dy in fp32, and the split
 // weight gradients' fp32 partials.
 //
-// Kernel 8's fp32 form (entry sky_mlp_block_bwd_f32; the fp32 configs, where
-// JAX takes jax.vjp of xla_mlp_block): the same steps in fp32 at the plain
-// version's points, every product on the 3xTF32 GEMM of gemm_f32.cuh:
+// The fp32 forms of kernels 8, 7 and 9 (entries sky_mlp_block_bwd_f32,
+// sky_mlp_block_bwd_stash_f32 and sky_mlp_block_bwd_stream_f32, the bf16
+// entries' arguments; the fp32 configs, where JAX takes jax.vjp of
+// xla_mlp_block): the same steps in fp32 at the plain version's points,
+// every product on the 3xTF32 GEMM of gemm_f32.cuh, over the slabs of
+// kernel 9 (one slab, fs = F, for kernels 8 and 7):
 //   1. LayerNorm of x                                -> y fp32
-//   2. a = y @ W1 + b1 (FWD)                         -> a (M, F) fp32
-//   3. dh = g @ W2^T (NT) with the GELU' epilogue    -> da = dh * gelu'(a)
-//      (M, F), and gelu(a) written over a: h (M, F)
-//   4. dy = da @ W1^T (NT)                           -> dy fp32
-//   5. LN backward -> dx fp32, dscale / dbias partials
-//   6. dW1 = y^T @ da, dW2 = h^T @ g (TN, each split along K = M where
-//      the tiles leave SMs idle, slices added in order)
+//   per slab j (columns c0 = j * fs .. c0 + fs of F):
+//   2. a = y @ W1[:, slab] + b1[slab] (FWD, W1's slab read in place)
+//                                                    -> a (M, fs) fp32;
+//      kernel 7 reads the fp32 stash a (M, F) instead and has no fc1
+//   3. dh = g @ W2[slab, :]^T (NT) with the GELU' epilogue (exact erff,
+//      as xla_mlp_block) -> da = dh * gelu'(a) (M, fs), and gelu(a): h
+//      (M, fs), written over a (kernel 7: into its own buffer, the stash
+//      stays as it was)
+//   4. dy (+)= da @ W1[:, slab]^T (NT; slab 0 stores, later slabs add their
+//      product to dy, dy_j + dy in JAX's order)
+//   5. dW1[:, slab] = y^T @ da (stored in place, rows F apart), dW2[slab,
+//      :] = h^T @ g (TN, each split along K = M where the tiles leave SMs
+//      idle, slices added in order); db1[slab]'s column partials of da
+//   6. after the last slab: LN backward -> dx fp32, dscale / dbias partials
 //   7. db1, db2 (column sums of da and g), dscale, dbias: partials added in
-//      a fixed order, the four in one launch.
-// So the fp32 (M, F) a, h and da go through device memory (3 * M * F * 4
+//      a fixed order.
+// So the fp32 (M, fs) a, h and da go through device memory (3 * M * F * 4
 // bytes of writes, 2 * M * F * 4 of reads besides the products'), where the
-// bf16 kernel keeps a and da in registers: a first design, with the dual
-// product's fp32 twin a later one.
+// bf16 kernels keep a and da in registers: a first design, with the dual
+// product's fp32 twin a later one. Kernel 7 reads its stash once (M * F * 4
+// bytes) in place of fc1's 2 M D F operations.
 #include "bwd_common.cuh"
 #include "gemm_f32.cuh"
 #include "gemm_sm90.cuh"
@@ -309,51 +320,116 @@ extern "C" int sky_gemm_sm90_dual(const void* y, const void* w1, const void* b1,
   return 0;
 }
 
-// ---- kernel 8's fp32 form ----------------------------------------------------
+// ---- the fp32 forms of kernels 8, 7 and 9 -------------------------------------
 
-// fp32 floats of split-K workspace the fp32 form of (M, D, F) needs: the
-// larger of its two weight gradients' (they run one after the other).
-extern "C" long long sky_mlp_block_bwd_f32_ws(int M, int D, int F) {
-  const size_t a = sky::f32::workspace(D, F, M), b = sky::f32::workspace(F, D, M);
+// fp32 floats of split-K workspace the fp32 forms of (M, D, F) over slabs of
+// fs columns need: the larger of a slab's two weight gradients' (they run
+// one after the other).
+extern "C" long long sky_mlp_block_bwd_f32_ws(int M, int D, int F, int fs) {
+  (void)F;
+  const size_t a = sky::f32::workspace(D, fs, M), b = sky::f32::workspace(fs, D, M);
   return static_cast<long long>(a > b ? a : b);
 }
 
-// All fp32. The caller allocates the scratch (y, dy: (M, D); a, da: (M, F);
-// part: (F + 3D) * ceil(M / 32); ws: sky_mlp_block_bwd_f32_ws(M, D, F)) and
-// the outputs (dx (M, D); dscale, dbias, db2 (D,); db1 (F,); dw1 (D, F);
-// dw2 (F, D)).
-extern "C" int sky_mlp_block_bwd_f32(const void* x, const void* ln_scale, const void* ln_bias,
-                                     const void* w1, const void* b1, const void* w2,
-                                     const void* g, void* y, void* a, void* da, void* dy,
-                                     void* part, void* ws, void* dx, void* dscale, void* dbias,
-                                     void* dw1, void* db1, void* dw2, void* db2, int M, int D,
-                                     int F, void* stream) {
+// All fp32. The caller allocates the scratch (y, dy: (M, D); da, h: (M, fs);
+// part: (fs + 3D) * ceil(M / 32); ws: sky_mlp_block_bwd_f32_ws(M, D, F, fs))
+// and the outputs (dx (M, D); dscale, dbias, db2 (D,); db1 (F,); dw1 (D, F);
+// dw2 (F, D)). Kernel 7 passes its stash `a` (M, F) in place of b1.
+static int mlp_block_bwd_f32(const void* x, const void* ln_scale, const void* ln_bias,
+                             const void* w1, const void* b1, const void* w2, const void* a,
+                             const void* g, void* y, void* da, void* h, void* dy, void* part,
+                             void* ws, void* dx, void* dscale, void* dbias, void* dw1, void* db1,
+                             void* dw2, void* db2, int M, int D, int F, int fs, cudaStream_t s) {
   using namespace sky;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  using f32::Ld;
   const int parts = n_partials(M);
-  float* part_b1 = static_cast<float*>(part);       // parts x F
-  float* part_b2 = part_b1 + (size_t)parts * F;     // parts x D
-  float* part_scale = part_b2 + (size_t)parts * D;  // parts x D
-  float* part_bias = part_scale + (size_t)parts * D;
+  float* part_b1 = static_cast<float*>(part);        // parts x fs, one slab at a time
+  float* part_b2 = part_b1 + (size_t)parts * fs;     // parts x D
+  float* part_scale = part_b2 + (size_t)parts * D;   // parts x D
+  float* part_bias = part_scale + (size_t)parts * D;  // parts x D
   float* dyf = static_cast<float*>(dy);
+  const float* w1f = static_cast<const float*>(w1);
+  const float* w2f = static_cast<const float*>(w2);
+  const float* b1f = static_cast<const float*>(b1);
+  float* db1f = static_cast<float*>(db1);
+  float* dw1f = static_cast<float*>(dw1);
+  float* dw2f = static_cast<float*>(dw2);
+
+  const int nj = F / fs;
+  ColsumJob db1_job{part_b1, nullptr, parts, fs};
   SKY_TRY(launch_layernorm<float>(x, ln_scale, ln_bias, y, M, D, s));
-  SKY_TRY((f32::launch_gemm_f32<f32::FWD, f32::BIAS>(y, w1, b1, nullptr, a, nullptr, M, F, D,
-                                                     nullptr, s)));
-  SKY_TRY((f32::launch_gemm_f32<f32::NT, f32::DGELU>(g, w2, nullptr, nullptr, da, a, M, F, D,
-                                                     nullptr, s)));
-  SKY_TRY((f32::launch_gemm_f32<f32::NT, f32::STORE>(da, w1, nullptr, nullptr, dyf, nullptr, M, D,
-                                                     F, nullptr, s)));
+  for (int j = 0; j < nj; ++j) {
+    const size_t c0 = (size_t)j * fs;
+    const void* pre = a;  // the pre-activation of the slab: the stash or fc1's
+    if (a == nullptr) {
+      SKY_TRY((f32::launch_gemm_f32<f32::FWD, f32::BIAS>(y, w1f + c0, b1f + c0, nullptr, h,
+                                                         nullptr, M, fs, D, nullptr, s,
+                                                         Ld{0, F, 0})));
+      pre = h;
+    }
+    SKY_TRY((f32::launch_gemm_f32<f32::NT, f32::DGELU>(g, w2f + c0 * D, nullptr, pre, da, h, M, fs,
+                                                       D, nullptr, s)));
+    if (j == 0)
+      SKY_TRY((f32::launch_gemm_f32<f32::NT, f32::STORE>(da, w1f + c0, nullptr, nullptr, dyf,
+                                                         nullptr, M, D, fs, nullptr, s,
+                                                         Ld{0, F, 0})));
+    else
+      SKY_TRY((f32::launch_gemm_f32<f32::NT, f32::ADD>(da, w1f + c0, nullptr, nullptr, dyf,
+                                                       nullptr, M, D, fs, nullptr, s,
+                                                       Ld{0, F, 0})));
+    SKY_TRY((f32::launch_gemm_f32<f32::TN, f32::STORE>(y, da, nullptr, nullptr, dw1f + c0, nullptr,
+                                                       D, fs, M, ws, s, Ld{0, 0, F})));
+    SKY_TRY((f32::launch_gemm_f32<f32::TN, f32::STORE>(h, g, nullptr, nullptr, dw2f + c0 * D,
+                                                       nullptr, fs, D, M, ws, s)));
+    SKY_TRY(launch_colsum_partial<float>(da, M, fs, part_b1, s));
+    db1_job.out = db1f + c0;
+    if (j < nj - 1) SKY_TRY(launch_colsum_finals(&db1_job, 1, s));  // the last one below
+  }
   SKY_TRY(launch_ln_bwd<float>(x, g, dyf, ln_scale, dx, part_scale, part_bias, M, D, s));
-  SKY_TRY((f32::launch_gemm_f32<f32::TN, f32::STORE>(y, da, nullptr, nullptr, dw1, nullptr, D, F,
-                                                     M, ws, s)));
-  SKY_TRY((f32::launch_gemm_f32<f32::TN, f32::STORE>(a, g, nullptr, nullptr, dw2, nullptr, F, D,
-                                                     M, ws, s)));
-  SKY_TRY(launch_colsum_partial<float>(da, M, F, part_b1, s));
   SKY_TRY(launch_colsum_partial<float>(g, M, D, part_b2, s));
-  const ColsumJob jobs[4] = {{part_b1, static_cast<float*>(db1), parts, F},
-                             {part_b2, static_cast<float*>(db2), parts, D},
+  const ColsumJob jobs[4] = {db1_job, {part_b2, static_cast<float*>(db2), parts, D},
                              {part_scale, static_cast<float*>(dscale), parts, D},
                              {part_bias, static_cast<float*>(dbias), parts, D}};
   SKY_TRY(launch_colsum_finals(jobs, 4, s));
   return 0;
+}
+
+// Kernel 8's fp32 form: scratch as above with fs = F.
+extern "C" int sky_mlp_block_bwd_f32(const void* x, const void* ln_scale, const void* ln_bias,
+                                     const void* w1, const void* b1, const void* w2,
+                                     const void* g, void* y, void* da, void* h, void* dy,
+                                     void* part, void* ws, void* dx, void* dscale, void* dbias,
+                                     void* dw1, void* db1, void* dw2, void* db2, int M, int D,
+                                     int F, void* stream) {
+  return mlp_block_bwd_f32(x, ln_scale, ln_bias, w1, b1, w2, nullptr, g, y, da, h, dy, part, ws,
+                           dx, dscale, dbias, dw1, db1, dw2, db2, M, D, F, F,
+                           static_cast<cudaStream_t>(stream));
+}
+
+// Kernel 7's fp32 form: the fp32 stash a (M, F) in place of b1; h is its own
+// (M, F) buffer.
+extern "C" int sky_mlp_block_bwd_stash_f32(const void* x, const void* ln_scale,
+                                           const void* ln_bias, const void* w1, const void* w2,
+                                           const void* a, const void* g, void* y, void* da,
+                                           void* h, void* dy, void* part, void* ws, void* dx,
+                                           void* dscale, void* dbias, void* dw1, void* db1,
+                                           void* dw2, void* db2, int M, int D, int F,
+                                           void* stream) {
+  return mlp_block_bwd_f32(x, ln_scale, ln_bias, w1, nullptr, w2, a, g, y, da, h, dy, part, ws, dx,
+                           dscale, dbias, dw1, db1, dw2, db2, M, D, F, F,
+                           static_cast<cudaStream_t>(stream));
+}
+
+// Kernel 9's fp32 form, fs the slab width (it divides F, a multiple of 4).
+extern "C" int sky_mlp_block_bwd_stream_f32(const void* x, const void* ln_scale,
+                                            const void* ln_bias, const void* w1, const void* b1,
+                                            const void* w2, const void* g, void* y, void* da,
+                                            void* h, void* dy, void* part, void* ws, void* dx,
+                                            void* dscale, void* dbias, void* dw1, void* db1,
+                                            void* dw2, void* db2, int M, int D, int F, int fs,
+                                            void* stream) {
+  if (fs <= 0 || F % fs) return static_cast<int>(cudaErrorInvalidValue);
+  return mlp_block_bwd_f32(x, ln_scale, ln_bias, w1, b1, w2, nullptr, g, y, da, h, dy, part, ws,
+                           dx, dscale, dbias, dw1, db1, dw2, db2, M, D, F, fs,
+                           static_cast<cudaStream_t>(stream));
 }

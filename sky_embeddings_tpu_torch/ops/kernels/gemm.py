@@ -578,9 +578,10 @@ gemm_dh_stash.launches = 0
 # ---- the fp32 GEMM (csrc/gemm_f32.cuh, entry in csrc/mlp_block.cu) ----------
 
 F32_FORMS = {"fwd": 0, "nt": 1, "tn": 2}  # enum f32::Form
-F32_EPILOGUES = {"bias": 0, "bias_gelu": 1, "bias_residual": 2, "store": 3, "dgelu": 4}
-F32_FORM_EPILOGUES = {"fwd": ("bias", "bias_gelu", "bias_residual"), "nt": ("store", "dgelu"),
-                      "tn": ("store",)}
+F32_EPILOGUES = {"bias": 0, "bias_gelu": 1, "bias_residual": 2, "store": 3, "dgelu": 4,
+                 "bias_gelu_stash": 5, "add": 6}
+F32_FORM_EPILOGUES = {"fwd": ("bias", "bias_gelu", "bias_residual", "bias_gelu_stash"),
+                      "nt": ("store", "dgelu", "add"), "tn": ("store",)}
 
 
 def _f32_operands(a, b, form):
@@ -596,9 +597,12 @@ def gemm_f32_plain(a, b, form: str, epi: str, bias=None, resid=None, aux=None):
     """Plain version of one fp32 product: ``a @ b`` (``"fwd"``), ``a @ bᵀ``
     (``"nt"``) or ``aᵀ @ b`` (``"tn"``), then the epilogue: ``"bias"``,
     ``"bias_gelu"`` (exact erf), ``"bias_residual"`` (``resid + (acc +
-    bias)``), ``"store"``, or ``"dgelu"`` (``(acc · gelu'(aux), gelu(aux))``:
-    da and h from dh and the pre-activation). Returns ``(out, aux_out)``,
-    aux_out None but for ``"dgelu"``."""
+    bias)``), ``"store"``, ``"dgelu"`` (``(acc · gelu'(aux), gelu(aux))``:
+    da and h from dh and the pre-activation), ``"bias_gelu_stash"``
+    (``(gelu(acc + bias), acc + bias)``: kernel 6's h and its stash) or
+    ``"add"`` (``acc + resid``: kernel 9's dy over the slabs). Returns
+    ``(out, aux_out)``, aux_out None but for ``"dgelu"`` and
+    ``"bias_gelu_stash"``."""
     M, N, K = _f32_operands(a, b, form)
     if epi not in F32_FORM_EPILOGUES.get(form, ()):
         raise ValueError(f"{form}: epilogue {epi!r} is none of {F32_FORM_EPILOGUES.get(form)}")
@@ -608,8 +612,12 @@ def gemm_f32_plain(a, b, form: str, epi: str, bias=None, resid=None, aux=None):
         return acc + bias, None
     if epi == "bias_gelu":
         return gelu(acc + bias), None
+    if epi == "bias_gelu_stash":
+        return gelu(acc + bias), acc + bias
     if epi == "bias_residual":
         return resid + (acc + bias), None
+    if epi == "add":
+        return acc + resid, None
     if epi == "dgelu":
         return acc * gelu_grad(aux), gelu(aux)
     return acc, None
@@ -628,7 +636,7 @@ def gemm_f32(a, b, form: str, epi: str, bias=None, resid=None, aux=None):
     want = {"a": (a, tuple(a.shape)), "b": (b, tuple(b.shape))}
     if epi.startswith("bias"):
         want["bias"] = (bias, (N,))
-    if epi == "bias_residual":
+    if epi in ("bias_residual", "add"):
         want["resid"] = (resid, (M, N))
     if epi == "dgelu":
         want["aux"] = (aux, (M, N))
@@ -640,8 +648,10 @@ def gemm_f32(a, b, form: str, epi: str, bias=None, resid=None, aux=None):
     if (M if form == "tn" else K) % 4 or (K if form == "nt" else N) % 4 or N % 4:
         raise ValueError(f"M={M}, N={N}, K={K}: the contiguous axes must be multiples of 4 "
                          "(16-byte copies)")
-    out = torch.empty((M, N), dtype=torch.float32, device=a.device)
-    aux_out = aux.clone() if epi == "dgelu" else None
+    out = resid.clone() if epi == "add" else torch.empty((M, N), dtype=torch.float32,
+                                                         device=a.device)
+    aux_out = aux.clone() if epi == "dgelu" else torch.empty_like(out) \
+        if epi == "bias_gelu_stash" else None
     lib = cuda_build.load("mlp_block")
     ws = None
     if form == "tn":

@@ -56,14 +56,16 @@ memory. With one slab JAX runs kernel 8, and so does
 with ``stream``, kernel 9; only the inputs are saved either way.
 
 fp32 forms (the fp32 configs: JAX sends fp32 blocks to ``xla_mlp_block``,
-``models/layers.py:253``): K1 and kernel 8 also take a uniform fp32 set (x,
-w1, w2 fp32; LN parameters and biases fp32 as always), computing what the
-plain versions compute in fp32 (nothing rounded, exact-erf GELU and GELU')
-with every product on the 3xTF32 GEMM of ``csrc/gemm_f32.cuh``:
-``csrc/mlp_block.cu`` entry ``sky_mlp_block_fwd_f32`` and
-``csrc/mlp_block_bwd.cu`` entry ``sky_mlp_block_bwd_f32``; their launches
-also count on the wrapper's ``f32_launches``. Kernels 6, 7 and 9 take bf16
-only: :func:`operand_dtype` holds the rule and refuses the rest.
+``models/layers.py:253``): every kernel here also takes a uniform fp32 set
+(x, w1, w2 and kernel 6's stash fp32; LN parameters and biases fp32 as
+always), computing what the plain versions compute in fp32 (nothing
+rounded, exact-erf GELU and GELU', kernel 6's ``a`` kept in fp32 as JAX's
+fp32 autodiff keeps it) with every product on the 3xTF32 GEMM of
+``csrc/gemm_f32.cuh``: the bf16 entry's name with ``_f32`` at the end and
+the bf16 entry's arguments (``csrc/mlp_block.cu``, ``csrc/mlp_block_bwd.cu``,
+where kernels 8, 7 and 9's fp32 forms are one slab loop). Their launches
+also count on each wrapper's ``f32_launches``. :func:`operand_dtype` holds
+the rule: bf16 or fp32, one dtype for x, the weights and the stash.
 """
 
 from __future__ import annotations
@@ -239,19 +241,23 @@ def _entry(name: str, entry: str, n_ptr: int, n_int: int = 3):
     return fn
 
 
-# the block kernels with an fp32 form on CUDA (attention blocks: K2 and
-# kernels 2, 3; MLP blocks: K1 and kernel 8); the rest take bf16 only
-F32_KERNELS = ("K1", "K2", "kernel 2", "kernel 3", "kernel 8")
+# the block kernels, every one with an fp32 form on CUDA beside its bf16
+# one: attention blocks K2 and kernels 2, 3, 4 and the seg_len forms of K2,
+# 2 and 4; MLP blocks K1 and kernels 6, 7, 8, 9
+F32_KERNELS = ("K1", "K2", "kernel 2", "kernel 3", "kernel 4", "kernel 6", "kernel 7",
+               "kernel 8", "kernel 9", "K2 masked", "kernel 2 masked", "kernel 4 masked")
 
 
 def operand_dtype(kernel: str, x: torch.Tensor, **operands) -> torch.dtype:
     """The operand dtype of a block kernel's CUDA launch: x's, bf16 or fp32,
     which the weights and the stash in ``operands`` (None skipped) share;
-    LN parameters and biases are fp32 either way. Raises ``ValueError`` for
-    another dtype, for a mixed set (fp32 x with bf16 weights), and for fp32
-    on a kernel without an fp32 form (``kernel`` names it: "K1", "kernel
-    6", "kernel 2 masked", ...; see :data:`F32_KERNELS`). Reads dtypes only:
-    it loads no library and takes CPU tensors too."""
+    LN parameters and biases are fp32 either way. ``kernel`` names one of
+    :data:`F32_KERNELS` ("K1", "kernel 6", "kernel 2 masked", ...). Raises
+    ``ValueError`` for another dtype and for a mixed set (fp32 x with bf16
+    weights). Reads dtypes only: it loads no library and takes CPU tensors
+    too."""
+    if kernel not in F32_KERNELS:
+        raise ValueError(f"{kernel!r} is none of the block kernels {F32_KERNELS}")
     dt = x.dtype
     if dt not in (torch.bfloat16, torch.float32):
         raise ValueError(f"{kernel} on CUDA takes bf16 or fp32 operands, got {dt} x")
@@ -259,9 +265,6 @@ def operand_dtype(kernel: str, x: torch.Tensor, **operands) -> torch.dtype:
         if t is not None and t.dtype != dt:
             raise ValueError(f"{name}: {t.dtype} beside {dt} x; {kernel} on CUDA takes bf16 or "
                              "fp32 operands, all of one dtype")
-    if dt == torch.float32 and kernel not in F32_KERNELS:
-        raise ValueError(f"{kernel} on CUDA takes bf16 only, got fp32 x: its fp32 form is still "
-                         "to be written (ROADMAP.md, module item 1, slice (c))")
     return dt
 
 
@@ -292,11 +295,17 @@ def _check_cuda_args(x, scale, bias, w1, b1, w2, b2=None, *, kernel: str):
     return dt
 
 
+def _f32(entry: str, dt: torch.dtype) -> str:
+    """The C entry of the operand dtype: the bf16 one, or its fp32 form."""
+    return entry + "_f32" if dt == torch.float32 else entry
+
+
 def _launch_fwd(x, scale, bias, w1, b1, w2, b2, stash: bool = False):
-    """K1 (counted on ``fused_mlp_block.launches``, its fp32 form also on
-    ``.f32_launches``) or, with ``stash``, kernel 6 (counted on
-    ``mlp_block_fwd_stash.launches``) on CUDA tensors: ``(out, a)``, ``a``
-    None without the stash."""
+    """K1 (counted on ``fused_mlp_block.launches``) or, with ``stash``,
+    kernel 6 (counted on ``mlp_block_fwd_stash.launches``) on CUDA tensors,
+    each in bf16 or, for fp32 operands, its fp32 form (also counted on the
+    wrapper's ``.f32_launches``): ``(out, a)``, ``a`` (B·N, F) in the
+    operand dtype, None without the stash."""
     dt = _check_cuda_args(x, scale, bias, w1, b1, w2, b2, kernel="kernel 6" if stash else "K1")
     B, N, D = x.shape
     F = w1.shape[1]
@@ -304,36 +313,31 @@ def _launch_fwd(x, scale, bias, w1, b1, w2, b2, stash: bool = False):
     out = torch.empty_like(x)
     ptrs = [t.data_ptr() for t in (x, scale, bias, w1, b1, w2, b2, h)]
     a = None
-    if dt == torch.float32:
-        entry = "sky_mlp_block_fwd_f32"
-    elif stash:
-        a = torch.empty((B * N, F), dtype=torch.bfloat16, device=x.device)
+    if stash:
+        a = torch.empty((B * N, F), dtype=dt, device=x.device)
         ptrs.append(a.data_ptr())
-        entry = "sky_mlp_block_fwd_stash"
-    else:
-        entry = "sky_mlp_block_fwd"
+    entry = _f32("sky_mlp_block_fwd_stash" if stash else "sky_mlp_block_fwd", dt)
     with torch.cuda.device(x.device):
         err = _entry("mlp_block", entry, len(ptrs) + 1)(
             *ptrs, out.data_ptr(), B * N, D, F, torch.cuda.current_stream().cuda_stream)
     cuda_build.check(err, entry)
-    if stash:
-        mlp_block_fwd_stash.launches += 1
-    else:
-        fused_mlp_block.launches += 1
-        fused_mlp_block.f32_launches += int(dt == torch.float32)
+    counted = mlp_block_fwd_stash if stash else fused_mlp_block
+    counted.launches += 1
+    counted.f32_launches += int(dt == torch.float32)
     return out, a
 
 
 def mlp_block_fwd_stash(x, scale, bias, w1, b1, w2, b2):
     """Kernel 6: ``(out, a)`` as :func:`mlp_block_fwd_stash_plain`. CPU
     tensors take the plain version; CUDA tensors launch ``csrc/mlp_block.cu``
-    (stash entry) or raise."""
+    (stash entry, its fp32 form for fp32 operands) or raise."""
     if x.device.type == "cpu":
         return mlp_block_fwd_stash_plain(x, scale, bias, w1, b1, w2, b2)
     return _launch_fwd(x, scale, bias, w1, b1, w2, b2, stash=True)
 
 
 mlp_block_fwd_stash.launches = 0
+mlp_block_fwd_stash.f32_launches = 0
 
 
 def _check_g(x, g):
@@ -346,7 +350,8 @@ def _split_ws(lib: str, entry: str, device: int, *dims: int) -> int:
     """fp32 floats of split-K workspace a backward's weight-gradient group
     needs: what the C plan says for this card, through ``entry`` of
     ``lib`` (``sky_mlp_block_bwd_ws(M, D, F, fs)``: kernels 8 and 7 with
-    ``fs = F``, or 9; ``sky_attn_block_bwd_ws(M, D)``: kernels 3 and 4)."""
+    ``fs = F``, or 9; ``sky_attn_block_bwd_ws(M, D)``: kernels 3 and 4;
+    ``..._f32_ws``: their fp32 forms)."""
     fn = getattr(cuda_build.load(lib), entry)
     fn.argtypes = [ctypes.c_int] * len(dims)
     fn.restype = ctypes.c_longlong
@@ -357,59 +362,36 @@ def _split_ws(lib: str, entry: str, device: int, *dims: int) -> int:
     return n
 
 
-def _launch_bwd(entry, x, scale, bias, w1, b1, w2, a, g, fs=None):
-    """Kernel 8 (``a`` None: fc1 recomputed from ``b1``), kernel 7 (the bf16
-    stash ``a``) or, with a slab width ``fs``, kernel 9 on CUDA tensors;
-    allocates the scratch (its (B·N, ·) buffers one slab wide) and the
-    outputs."""
+def _launch_bwd(entry, dt, x, scale, bias, w1, b1, w2, a, g, fs=None):
+    """Kernel 8 (``a`` None: fc1 recomputed from ``b1``), kernel 7 (the stash
+    ``a``) or, with a slab width ``fs``, kernel 9 on CUDA tensors, each in
+    the operand dtype ``dt`` (bf16, or its fp32 form); allocates the scratch
+    (y (B·N, D) and da, h (B·N, fs) in ``dt``, dy fp32) and the outputs."""
     B, N, D = x.shape
     F = w1.shape[1]
     M = B * N
     w = fs or F
     parts = -(-M // ROWS_PER_PARTIAL)
     f32 = dict(dtype=torch.float32, device=x.device)
-    bf = dict(dtype=torch.bfloat16, device=x.device)
-    y, dy = torch.empty((M, D), **bf), torch.empty((M, D), **f32)
-    da_c, h_c = torch.empty((M, w), **bf), torch.empty((M, w), **bf)
+    op = dict(dtype=dt, device=x.device)
+    y, dy = torch.empty((M, D), **op), torch.empty((M, D), **f32)
+    da, h = torch.empty((M, w), **op), torch.empty((M, w), **op)
     part = torch.empty(parts * (w + 3 * D), **f32)
     dx = torch.empty_like(x)
     dscale, dbias, db2 = (torch.empty(D, **f32) for _ in range(3))
-    dw1, db1, dw2 = torch.empty((D, F), **bf), torch.empty(F, **f32), torch.empty((F, D), **bf)
-    ws = torch.empty(max(_split_ws("mlp_block_bwd", "sky_mlp_block_bwd_ws", x.device.index,
-                                   M, D, F, w), 4), **f32)
+    dw1, db1, dw2 = torch.empty((D, F), **op), torch.empty(F, **f32), torch.empty((F, D), **op)
+    ws_entry = _f32("sky_mlp_block_bwd", dt) + "_ws"
+    ws = torch.empty(max(_split_ws("mlp_block_bwd", ws_entry, x.device.index, M, D, F, w), 4),
+                     **f32)
     inputs = (x, scale, bias, w1, b1, w2) if a is None else (x, scale, bias, w1, w2, a)
-    scratch = (*inputs, g, y, da_c, h_c, dy, part, ws)
+    scratch = (*inputs, g, y, da, h, dy, part, ws)
     ptrs = [t.data_ptr() for t in (*scratch, dx, dscale, dbias, dw1, db1, dw2, db2)]
     ints = (M, D, F) if fs is None else (M, D, F, fs)
+    entry = _f32(entry, dt)
     with torch.cuda.device(x.device):
         err = _entry("mlp_block_bwd", entry, len(ptrs), len(ints))(
             *ptrs, *ints, torch.cuda.current_stream().cuda_stream)
     cuda_build.check(err, entry)
-    return dx, dscale, dbias, dw1, db1, dw2, db2
-
-
-def _launch_bwd_f32(x, scale, bias, w1, b1, w2, g):
-    """Kernel 8's fp32 form on CUDA tensors: allocates the fp32 scratch (y,
-    dy (B·N, D); a, da (B·N, F): the pre-activation, then h in its place, and
-    da) and the fp32 outputs."""
-    B, N, D = x.shape
-    F = w1.shape[1]
-    M = B * N
-    f32 = dict(dtype=torch.float32, device=x.device)
-    y, dy = torch.empty((M, D), **f32), torch.empty((M, D), **f32)
-    a, da = torch.empty((M, F), **f32), torch.empty((M, F), **f32)
-    part = torch.empty(-(-M // ROWS_PER_PARTIAL) * (F + 3 * D), **f32)
-    ws = torch.empty(max(_split_ws("mlp_block_bwd", "sky_mlp_block_bwd_f32_ws", x.device.index,
-                                   M, D, F), 4), **f32)
-    dx = torch.empty_like(x)
-    dscale, dbias, db2 = (torch.empty(D, **f32) for _ in range(3))
-    dw1, db1, dw2 = torch.empty((D, F), **f32), torch.empty(F, **f32), torch.empty((F, D), **f32)
-    ptrs = [t.data_ptr() for t in (x, scale, bias, w1, b1, w2, g, y, a, da, dy, part, ws, dx,
-                                   dscale, dbias, dw1, db1, dw2, db2)]
-    with torch.cuda.device(x.device):
-        err = _entry("mlp_block_bwd", "sky_mlp_block_bwd_f32", len(ptrs))(
-            *ptrs, M, D, F, torch.cuda.current_stream().cuda_stream)
-    cuda_build.check(err, "sky_mlp_block_bwd_f32")
     return dx, dscale, dbias, dw1, db1, dw2, db2
 
 
@@ -423,12 +405,9 @@ def mlp_block_bwd(x, scale, bias, w1, b1, w2, g):
         return mlp_block_bwd_plain(x, scale, bias, w1, b1, w2, g)
     dt = _check_cuda_args(x, scale, bias, w1, b1, w2, kernel="kernel 8")
     _check_g(x, g)
-    if dt == torch.float32:
-        grads = _launch_bwd_f32(x, scale, bias, w1, b1, w2, g)
-        mlp_block_bwd.f32_launches += 1
-    else:
-        grads = _launch_bwd("sky_mlp_block_bwd", x, scale, bias, w1, b1, w2, None, g)
+    grads = _launch_bwd("sky_mlp_block_bwd", dt, x, scale, bias, w1, b1, w2, None, g)
     mlp_block_bwd.launches += 1
+    mlp_block_bwd.f32_launches += int(dt == torch.float32)
     return grads
 
 
@@ -437,25 +416,28 @@ mlp_block_bwd.f32_launches = 0
 
 
 def mlp_block_bwd_stash(x, scale, bias, w1, w2, a, g):
-    """Kernel 7: the gradients of the block from x, the bf16 stash ``a``
-    (B·N, F) of kernel 6 and the output gradient ``g`` (outputs as
-    :func:`mlp_block_bwd_stash_plain`). CPU tensors take the plain version;
-    CUDA tensors launch ``csrc/mlp_block_bwd.cu`` (stash entry) or raise."""
+    """Kernel 7: the gradients of the block from x, the stash ``a`` (B·N, F)
+    of kernel 6 (bf16, or fp32 for fp32 operands) and the output gradient
+    ``g`` (outputs as :func:`mlp_block_bwd_stash_plain`). CPU tensors take
+    the plain version; CUDA tensors launch ``csrc/mlp_block_bwd.cu`` (stash
+    entry, its fp32 form also counted on ``.f32_launches``) or raise."""
     if x.device.type == "cpu":
         return mlp_block_bwd_stash_plain(x, scale, bias, w1, w2, a, g)
-    _check_cuda_args(x, scale, bias, w1, None, w2, kernel="kernel 7")
+    dt = _check_cuda_args(x, scale, bias, w1, None, w2, kernel="kernel 7")
     _check_g(x, g)
     M, F = x.shape[0] * x.shape[1], w1.shape[1]
-    if tuple(a.shape) != (M, F) or a.dtype != torch.bfloat16 or not a.is_contiguous() \
+    if tuple(a.shape) != (M, F) or a.dtype != dt or not a.is_contiguous() \
             or a.device != x.device:
-        raise ValueError(f"a: want a contiguous {(M, F)} bf16 tensor on {x.device}, "
+        raise ValueError(f"a: want a contiguous {(M, F)} {dt} tensor on {x.device}, "
                          f"got {tuple(a.shape)} {a.dtype} on {a.device}")
-    grads = _launch_bwd("sky_mlp_block_bwd_stash", x, scale, bias, w1, None, w2, a, g)
+    grads = _launch_bwd("sky_mlp_block_bwd_stash", dt, x, scale, bias, w1, None, w2, a, g)
     mlp_block_bwd_stash.launches += 1
+    mlp_block_bwd_stash.f32_launches += int(dt == torch.float32)
     return grads
 
 
 mlp_block_bwd_stash.launches = 0
+mlp_block_bwd_stash.f32_launches = 0
 
 
 def mlp_block_bwd_stream(x, scale, bias, w1, b1, w2, g):
@@ -464,7 +446,8 @@ def mlp_block_bwd_stream(x, scale, bias, w1, b1, w2, g):
     With one slab it is kernel 8 (:func:`mlp_block_bwd`, counted there), as
     JAX dispatches (mlp_block.py:544-549). Otherwise CPU tensors take
     :func:`mlp_block_bwd_stream_plain` and CUDA tensors launch
-    ``csrc/mlp_block_bwd.cu`` (stream entry) or raise."""
+    ``csrc/mlp_block_bwd.cu`` (stream entry, its fp32 form also counted on
+    ``.f32_launches``) or raise."""
     D, F = x.shape[-1], w1.shape[1]
     fs = _stream_slab(D, F)
     if F % fs:
@@ -473,31 +456,28 @@ def mlp_block_bwd_stream(x, scale, bias, w1, b1, w2, g):
         return mlp_block_bwd(x, scale, bias, w1, b1, w2, g)
     if x.device.type == "cpu":
         return mlp_block_bwd_stream_plain(x, scale, bias, w1, b1, w2, g)
-    _check_cuda_args(x, scale, bias, w1, b1, w2, kernel="kernel 9")
+    dt = _check_cuda_args(x, scale, bias, w1, b1, w2, kernel="kernel 9")
     _check_g(x, g)
     if fs % 8:
         raise ValueError(f"stream slab {fs} must be a multiple of 8 (16-byte loads)")
-    grads = _launch_bwd("sky_mlp_block_bwd_stream", x, scale, bias, w1, b1, w2, None, g, fs)
+    grads = _launch_bwd("sky_mlp_block_bwd_stream", dt, x, scale, bias, w1, b1, w2, None, g, fs)
     mlp_block_bwd_stream.launches += 1
+    mlp_block_bwd_stream.f32_launches += int(dt == torch.float32)
     return grads
 
 
 mlp_block_bwd_stream.launches = 0
+mlp_block_bwd_stream.f32_launches = 0
 
 
 class MlpBlockFn(torch.autograd.Function):
     """K1 forward, kernel 8 backward or, with ``stream``, kernel 9 (JAX
     ``fused_mlp_block`` with ``stash=False`` or ``"stream"``: only the
     inputs are saved). ``plain`` runs the plain versions on any device: the
-    reference path a check on the card holds the kernels against. On CUDA a
-    backward kernel without an fp32 form (kernel 9 over several slabs)
-    refuses fp32 here, before the forward runs."""
+    reference path a check on the card holds the kernels against."""
 
     @staticmethod
     def forward(ctx, x, scale, bias, w1, b1, w2, b2, plain, stream):
-        if stream and not plain and x.device.type != "cpu" \
-                and _stream_slab(x.shape[-1], w1.shape[1]) != w1.shape[1]:
-            operand_dtype("kernel 9", x, w1=w1, w2=w2)
         if plain or x.device.type == "cpu":
             out = mlp_block_plain(x, scale, bias, w1, b1, w2, b2)
         else:
@@ -518,8 +498,8 @@ class MlpBlockFn(torch.autograd.Function):
 
 class MlpBlockStashFn(torch.autograd.Function):
     """Kernel 6 forward, kernel 7 backward (JAX ``fused_mlp_block`` with
-    ``stash=True``: x, the weights and the bf16 pre-activation ``a`` are
-    saved). ``plain`` runs the plain versions of both on any device."""
+    ``stash=True``: x, the weights and the pre-activation ``a``, in the
+    operand dtype, are saved). ``plain`` runs the plain versions of both on any device."""
 
     @staticmethod
     def forward(ctx, x, scale, bias, w1, b1, w2, b2, plain):

@@ -54,6 +54,15 @@ dqkv reaches their device memory), and kernels 8, 7 and 9, whose
 products run on its dual, stash dh and group kernels (no fp32 (B·N, F)
 array in kernel 7's memory).
 
+The fp32 forms of every block kernel (K1, K2, kernels 2, 3, 4, 6, 7, 8, 9
+and the masked K2, 2 and 4) are held to their plain versions at ragged
+shapes: token rows not a multiple of 32, N = 1 to 256, heads of 4 to 512,
+segments of 5 and 17; kernel 6's out bit-equal to K1's fp32 form, kernels
+3, 4, 7, 8 and 9 twice bit-equal; the routes that once refused fp32 run
+their fp32 forms with the plain versions patched to fail; small fp32
+encoders on each route reach every parameter; their 3xTF32 GEMM in each
+form and epilogue against fp32 ``torch.mm``.
+
 Every test is marked ``cuda`` and skips where there is no card. This file
 imports neither JAX nor the JAX package, so it runs on a host without them:
 
@@ -1642,7 +1651,7 @@ def test_gemm_f32_matches_fp32_torch_mm(dev, form, epi, M, N, K):
     torch.cuda.synchronize()
     assert _max_rel(got[0], want[0]) <= TOL_GEMM_F32
     assert torch.equal(got[0], again[0])
-    if epi == "dgelu":
+    if epi in ("dgelu", "bias_gelu_stash"):
         assert _max_rel(got[1], want[1]) <= TOL_GEMM_F32
     else:
         assert got[1] is None
@@ -1659,35 +1668,119 @@ def test_gemm_f32_refuses_what_it_does_not_take(dev):
 
 
 def test_f32_routes_not_ported_raise_and_nothing_falls_back(dev, monkeypatch):
-    """fp32 on CUDA: kernel 4 (stash=False with grad, remat), kernels 6 and 7
+    """fp32 on CUDA through the routes that refused it until their fp32 forms
+    were written: kernel 4 (stash=False with grad, remat), kernels 6 and 7
     (the MLP stash), kernel 9 (wide blocks over several slabs) and the
-    seg_len forms raise a ValueError naming the kernel and ROADMAP.md; no
-    plain version runs."""
-    for name in ("attn_block_plain", "attn_block_bwd_plain", "attn_block_fwd_stash_plain"):
-        monkeypatch.setattr(tab, name, lambda *a, **k: pytest.fail("plain version on CUDA"))
-    for name in ("mlp_block_plain", "mlp_block_fwd_stash_plain", "mlp_block_bwd_stream_plain"):
-        monkeypatch.setattr(tmb, name, lambda *a, **k: pytest.fail("plain version on CUDA"))
-    attn = _f32_block(dev, 2, 17, 64, (64, 192), (64, 64), seed=43)
+    seg_len forms now launch their fp32 forms (counted on ``f32_launches``)
+    with every plain version patched to fail, and match the plain versions
+    computed before."""
+    attn = _f32_block(dev, 2, 20, 64, (64, 192), (64, 64), seed=43)
     mlp = _f32_block(dev, 2, 17, 64, (64, 256), (256, 64), seed=44)
-    leaf = attn[0].clone().requires_grad_()
-    with pytest.raises(ValueError, match=r"kernel 4 on CUDA takes bf16 only.*ROADMAP\.md"):
-        tab.fused_attn_block(leaf, *attn[1:], 4, stash=False)
-    with pytest.raises(ValueError, match="K2 masked on CUDA takes bf16 only"):
-        tab.fused_attn_block(attn[0], *attn[1:], 4, seg_len=5)
-    with pytest.raises(ValueError, match="kernel 2 masked on CUDA takes bf16 only"):
-        tab.fused_attn_block(leaf, *attn[1:], 4, seg_len=5)
-    with pytest.raises(ValueError, match="kernel 4 on CUDA takes bf16 only"):
-        tab.attn_block_bwd(*attn[:6], torch.ones_like(attn[0]), 4)
-    with pytest.raises(ValueError, match="kernel 6 on CUDA takes bf16 only"):
-        tmb.fused_mlp_block(mlp[0].clone().requires_grad_(), *mlp[1:], stash=True)
-    a = torch.zeros(34, 256, device=dev)
-    with pytest.raises(ValueError, match="kernel 7 on CUDA takes bf16 only"):
-        tmb.mlp_block_bwd_stash(*mlp[:4], mlp[5], a, torch.ones_like(mlp[0]))
+    g_a = 0.1 * torch.randn(2, 20, 64, device=dev, generator=torch.Generator(dev).manual_seed(47))
+    g_m = 0.1 * torch.randn(2, 17, 64, device=dev, generator=torch.Generator(dev).manual_seed(48))
     monkeypatch.setattr(tmb, "_STREAM_FIXED_BUDGET", 12 * 64 * 128)  # two slabs of 128
-    with pytest.raises(ValueError, match="kernel 9 on CUDA takes bf16 only"):
-        tmb.fused_mlp_block(mlp[0].clone().requires_grad_(), *mlp[1:], stash="stream")
-    with pytest.raises(ValueError, match="kernel 9 on CUDA takes bf16 only"):
-        tmb.mlp_block_bwd_stream(*mlp[:6], torch.ones_like(mlp[0]))
+
+    def grads(fn, args, g, **kw):
+        leaves = [t.clone().requires_grad_() for t in args]
+        out = fn(*leaves, **kw)
+        out.backward(g)
+        return (out.detach(), *(t.grad for t in leaves))
+
+    calls = {
+        "kernel 4": (lambda plain: grads(tab.fused_attn_block, attn, g_a, num_heads=4, stash=False,
+                                         plain=plain), (tab.fused_attn_block, tab.attn_block_bwd)),
+        "kernel 4 masked": (lambda plain: grads(tab.fused_attn_block, attn, g_a, num_heads=4,
+                                                stash=False, seg_len=5, plain=plain),
+                            (tab.fused_attn_block, tab.attn_block_bwd)),
+        "K2 masked": (lambda plain: (tab.fused_attn_block(*attn, 4, seg_len=5, plain=plain),),
+                      (tab.fused_attn_block,)),
+        "kernel 2 masked": (lambda plain: grads(tab.fused_attn_block, attn, g_a, num_heads=4,
+                                                seg_len=5, plain=plain),
+                            (tab.attn_block_fwd_stash, tab.attn_block_bwd_stash)),
+        "kernels 6, 7": (lambda plain: grads(tmb.fused_mlp_block, mlp, g_m, stash=True,
+                                             plain=plain),
+                         (tmb.mlp_block_fwd_stash, tmb.mlp_block_bwd_stash)),
+        "kernel 9": (lambda plain: grads(tmb.fused_mlp_block, mlp, g_m, stash="stream",
+                                         plain=plain),
+                     (tmb.fused_mlp_block, tmb.mlp_block_bwd_stream)),
+    }
+    want = {name: call(True) for name, (call, _) in calls.items()}
+    for name in ("attn_block_plain", "attn_block_bwd_plain", "attn_block_fwd_stash_plain",
+                 "attn_block_bwd_stash_plain"):
+        monkeypatch.setattr(tab, name, lambda *a, **k: pytest.fail("plain version on CUDA"))
+    for name in ("mlp_block_plain", "mlp_block_fwd_stash_plain", "mlp_block_bwd_stash_plain",
+                 "mlp_block_bwd_stream_plain", "mlp_block_bwd_plain"):
+        monkeypatch.setattr(tmb, name, lambda *a, **k: pytest.fail("plain version on CUDA"))
+    for name, (call, counted) in calls.items():
+        before = [f.f32_launches for f in counted]
+        got = call(False)
+        torch.cuda.synchronize()
+        assert [f.f32_launches - b for f, b in zip(counted, before)] == [1] * len(counted), name
+        for a, b in zip(got, want[name]):
+            assert a.dtype == torch.float32 and _max_rel(a, b) <= TOL_F32_FORMS, name
+
+
+# (B, N, D, H, F, seg_len) of the fp32 forms that kernels 4, 6, 7, 9 and the
+# masks added: M = B·N not a multiple of 32 (51, 5, 34, 69, 138), N = 1, 17,
+# 68 and 256, heads of 4 (mim_tiny, mae_tiny's packed encoder), 48
+# (cls_ft_*_large), 64 (z_ft_2 at N = 66) and 512 (mae_tiny's decoder),
+# segments of 5 and 17 (a ragged last one at N = 23)
+F32_NEW_SHAPES = [(3, 17, 48, 12, 192, 0), (5, 1, 64, 16, 256, 0), (2, 17, 512, 1, 2048, 0),
+                  (3, 20, 64, 16, 256, 5), (3, 23, 48, 12, 192, 5), (2, 68, 768, 16, 3072, 17),
+                  (2, 66, 1024, 16, 4096, 0), (1, 256, 256, 4, 1024, 0)]
+
+
+@pytest.mark.parametrize("B,N,D,H,F,seg", F32_NEW_SHAPES)
+def test_f32_new_forms_match_plain(dev, B, N, D, H, F, seg, monkeypatch):
+    """Kernel 4's fp32 form (masked with seg_len > 0), K2 and kernel 2
+    masked, kernel 3 from the masked fp32 stash, kernels 6 and 7 and kernel
+    9 over forced slabs, against their plain versions output by output at
+    TOL_F32_FORMS; each launch an fp32 one; kernel 6's ``out`` bit-equal to
+    K1's fp32 form; kernels 4, 7 and 9 twice bit-equal."""
+    attn = _f32_block(dev, B, N, D, (D, 3 * D), (D, D), seed=50)
+    mlp = _f32_block(dev, B, N, D, (D, F), (F, D), seed=51)
+    g = 0.1 * torch.randn(B, N, D, device=dev, generator=torch.Generator(dev).manual_seed(52))
+    _, qkv, probs = tab.attn_block_fwd_stash_plain(*attn, H, seg)
+    _, a = tmb.mlp_block_fwd_stash_plain(*mlp)
+    monkeypatch.setattr(tmb, "_STREAM_FIXED_BUDGET", 12 * D * (F // 4))  # four slabs
+    assert tmb._stream_slab(D, F) == F // 4
+    calls = {
+        "K2": (lambda: tab.fused_attn_block(*attn, H, seg_len=seg),
+               lambda: tab.attn_block_plain(*attn, H, seg), tab.fused_attn_block),
+        "kernel 2": (lambda: tab.attn_block_fwd_stash(*attn, H, seg),
+                     lambda: tab.attn_block_fwd_stash_plain(*attn, H, seg), tab.attn_block_fwd_stash),
+        "kernel 3": (lambda: tab.attn_block_bwd_stash(*attn[:4], attn[5], qkv, probs, g, H),
+                     lambda: tab.attn_block_bwd_stash_plain(*attn[:4], attn[5], qkv, probs, g, H),
+                     tab.attn_block_bwd_stash),
+        "kernel 4": (lambda: tab.attn_block_bwd(*attn[:6], g, H, seg),
+                     lambda: tab.attn_block_bwd_plain(*attn[:6], g, H, seg), tab.attn_block_bwd),
+        "kernel 6": (lambda: tmb.mlp_block_fwd_stash(*mlp),
+                     lambda: tmb.mlp_block_fwd_stash_plain(*mlp), tmb.mlp_block_fwd_stash),
+        "kernel 7": (lambda: tmb.mlp_block_bwd_stash(*mlp[:4], mlp[5], a, g),
+                     lambda: tmb.mlp_block_bwd_stash_plain(*mlp[:4], mlp[5], a, g),
+                     tmb.mlp_block_bwd_stash),
+        "kernel 9": (lambda: tmb.mlp_block_bwd_stream(*mlp[:6], g),
+                     lambda: tmb.mlp_block_bwd_stream_plain(*mlp[:6], g), tmb.mlp_block_bwd_stream),
+    }
+    got = {}
+    for name, (kern, plain, counted) in calls.items():
+        before = counted.f32_launches
+        got[name] = kern()
+        torch.cuda.synchronize()
+        assert counted.f32_launches == before + 1, name
+        want = plain()
+        out = got[name] if isinstance(got[name], tuple) else (got[name],)
+        want = want if isinstance(want, tuple) else (want,)
+        for x, y in zip(out, want):
+            assert x.dtype == torch.float32 and x.shape == y.shape, name
+            assert _max_rel(x, y) <= TOL_F32_FORMS, name
+    assert torch.equal(got["kernel 6"][0], tmb.fused_mlp_block(*mlp))
+    for name in ("kernel 4", "kernel 7", "kernel 9"):
+        again = calls[name][0]()
+        assert all(torch.equal(x, y) for x, y in zip(got[name], again)), name
+    if seg:  # the masked fp32 stash holds exact zeros across segments
+        ids = torch.arange(N, device=dev) // seg
+        assert bool((got["kernel 2"][2][:, :, ids[:, None] != ids[None, :]] == 0).all())
 
 
 def test_f32_training_step_reaches_every_parameter(dev):
@@ -1714,6 +1807,63 @@ def test_f32_training_step_reaches_every_parameter(dev):
         torch.cuda.synchronize()
         if not plain:
             assert [f.f32_launches - b for f, b in zip(counted, before)] == [2, 2, 2, 2]
+        grads.append({n: p.grad for n, p in enc.named_parameters()})
+    assert grads[0].keys() == {n for n, _ in enc.named_parameters()}
+    for n, g in grads[0].items():
+        assert g is not None and torch.isfinite(g).all(), n
+        assert float((g - grads[1][n]).norm() / grads[1][n].norm()) <= 1e-5, n
+
+
+# (stash, stash_mlp, remat, heads, seg_len) of a small fp32 encoder: the
+# MLP stash at heads of 4 (kernels 6 and 7, as mimlarge trains), the
+# attention stash off (kernel 4), remat over the packed sequence (K2 and K1
+# replayed, kernel 4 masked, kernel 8), the packed encoder with the stash
+# (kernels 2 masked and 3)
+F32_ENCODERS = [(True, True, False, 16, 0), (False, False, False, 4, 0), (False, True, True, 16, 5),
+                (True, False, False, 16, 5)]
+
+
+@pytest.mark.parametrize("stash,stash_mlp,remat,H,seg", F32_ENCODERS)
+def test_f32_encoder_paths_reach_every_parameter(dev, stash, stash_mlp, remat, H, seg):
+    """A small fp32 encoder (depth 2, D = 64) through each fp32 route:
+    loss.backward() reaches every parameter, every block launch is an fp32
+    one, the route's kernels run (masked where seg_len > 0), and the
+    gradients match the plain path's."""
+    from sky_embeddings_tpu_torch.models.layers import Encoder
+
+    enc = Encoder(2, 64, H, 4.0, torch.float32, stash=stash, stash_mlp=stash_mlp, remat=remat)
+    gen = torch.Generator().manual_seed(53)
+    with torch.no_grad():
+        for n, p in enc.named_parameters():
+            p.copy_(float(n.endswith("scale")) + 0.05 * torch.randn(p.shape, generator=gen))
+    enc = enc.to(dev)
+    x = 0.5 * torch.randn(3, 20, 64, device=dev, generator=torch.Generator(dev).manual_seed(54))
+    counted = (tab.fused_attn_block, tab.attn_block_fwd_stash, tab.attn_block_bwd_stash,
+               tab.attn_block_bwd, tmb.fused_mlp_block, tmb.mlp_block_fwd_stash,
+               tmb.mlp_block_bwd_stash, tmb.mlp_block_bwd)
+    attn_stash, mlp_stash = stash and not remat, stash_mlp and not remat
+    want = {tab.fused_attn_block: 0 if attn_stash else 2 * (1 + remat),
+            tab.attn_block_fwd_stash: 2 * attn_stash, tab.attn_block_bwd_stash: 2 * attn_stash,
+            tab.attn_block_bwd: 0 if attn_stash else 2,
+            tmb.fused_mlp_block: 0 if mlp_stash else 2 * (1 + remat),
+            tmb.mlp_block_fwd_stash: 2 * mlp_stash, tmb.mlp_block_bwd_stash: 2 * mlp_stash,
+            tmb.mlp_block_bwd: 0 if mlp_stash else 2}
+    grads = []
+    for plain in (False, True):
+        enc.plain = plain
+        enc.zero_grad(set_to_none=True)
+        before = [(f.launches, f.f32_launches) for f in counted]
+        seg_before = [f.seg_launches for f in (tab.fused_attn_block, tab.attn_block_fwd_stash,
+                                               tab.attn_block_bwd)]
+        enc(x, seg).square().mean().backward()
+        torch.cuda.synchronize()
+        if not plain:
+            for f, (n, n32) in zip(counted, before):
+                assert f.launches - n == f.f32_launches - n32 == want[f], (f.__name__, want[f])
+            seg_got = [f.seg_launches - b for f, b in zip(
+                (tab.fused_attn_block, tab.attn_block_fwd_stash, tab.attn_block_bwd), seg_before)]
+            assert seg_got == ([want[tab.fused_attn_block], want[tab.attn_block_fwd_stash],
+                                want[tab.attn_block_bwd]] if seg else [0, 0, 0])
         grads.append({n: p.grad for n, p in enc.named_parameters()})
     assert grads[0].keys() == {n for n, _ in enc.named_parameters()}
     for n, g in grads[0].items():

@@ -5,7 +5,9 @@ shapes for every predictor config in ``configs/`` (JAX's from
 ``jax.eval_shape``, the scan layout through ``adapt_block_layout``); 3 AdamW
 steps of ``ft`` / ``lp`` / ``fs`` against JAX + optax (losses 1e-5 relative,
 params 1e-4 absolute); the optimizer's groups; ``warm_start_from_mim``;
-``select_training_indices``; ``predictor_infer`` in fp32 and bf16;
+``select_training_indices``; ``predictor_infer`` in fp32 and bf16; the
+``ft`` steps also over a narrow ``mimlarge`` backbone (depth 2, D = 64, 16
+heads of 4, the MLP stash, fp32);
 ``photoz_prediction_metrics``; the ``train_predictor`` / ``test_predictor``
 twins and the serving twin on a predictor config; the semantic-validation
 twin at ``--quick``. Models are cut to depth 2, D = 48."""
@@ -235,8 +237,8 @@ def test_predictor_params_match_jax_for_every_config(name):
 # the optimizers and three steps against JAX + optax
 
 def _mim_cfg(d=None):
-    arch = dict(img_size=16, num_channels=3, pixel_mean=0.05, pixel_std=1.2, embed_dim=48,
-                patch_size=4, model_type="simmim")
+    arch = {**dict(img_size=16, num_channels=3, pixel_mean=0.05, pixel_std=1.2, embed_dim=48,
+                   patch_size=4, model_type="simmim"), **(d or {})}
     return {"DATA": {}, "TRAINING": dict(batch_size=8, total_batch_iters=5, weight_decay=0.05,
                                          init_lr=1e-3, final_lr_factor=1e4, loss_fn="L1"),
             "ARCHITECTURE": arch}
@@ -318,7 +320,11 @@ SHIPPED = {
              ["ARCHITECTURE.img_size=16", "ARCHITECTURE.patch_size=4", "ARCHITECTURE.embed_dim=48"]),
 }
 STEP_CASES = [("ft", "mse"), ("ft", "errs"), ("lp", "ce"), ("lp", "errs"), ("fs", "ce"),
-              ("fs", "mse"), ("fs", "cls_fs_1k"), ("lp", "lp_1")]
+              ("fs", "mse"), ("fs", "cls_fs_1k"), ("lp", "lp_1"), ("ft", "mimlarge")]
+# a narrow mimlarge backbone (cls_ft_*_large's and z_ft_2's model type), cut
+# to depth 2 at D = 64 in 16 heads of 4: the predictor trains it with the
+# MLP stash (kernels 6 and 7 on the card), in fp32
+MIMLARGE = {"model_type": "mimlarge", "embed_dim": 64}
 
 
 def _shipped(name, overrides):
@@ -337,12 +343,18 @@ def test_three_adamw_steps_match_jax(method, loss, monkeypatch):
     mse weighted by the label errors, cross-entropy; and two shipped fp32
     configs (``cls_fs_1k``: ``fs``, 9 bands, the RA/Dec token, 3-class
     cross-entropy; ``lp_1``: ``lp`` over ``mim_1``'s backbone, mse) with
-    their own optimizer settings, cut to depth 2 and D = 48. Params bound
-    1e-4 absolute, a fraction of one step. Under ``lp`` the backbone stays
-    bit-unchanged and gets no ``.grad``."""
+    their own optimizer settings, cut to depth 2 and D = 48; and ``ft``, mse,
+    over a ``mimlarge`` backbone at depth 2, D = 64, 16 heads of 4, with
+    the MLP stash. Params bound 1e-4 absolute, a fraction of one step. Under
+    ``lp`` the backbone stays bit-unchanged and gets no ``.grad``."""
     for mod in (jax_mim, port_mim):
         monkeypatch.setitem(mod._SIZES["base"], "depth", 2)
-    if loss in SHIPPED:
+        monkeypatch.setitem(mod._SIZES["large"], "depth", 2)
+    if loss == "mimlarge":
+        label = "mse"
+        jcfg, cfg = _both(_pred_cfg(label, method))
+        jmae, mae = _both(_mim_cfg(MIMLARGE))
+    elif loss in SHIPPED:
         label, over, mae_over = SHIPPED[loss]
         jcfg, cfg = _shipped(loss, over)
         mae_name = cfg.pretrained_mae_name()
@@ -376,6 +388,10 @@ def test_three_adamw_steps_match_jax(method, loss, monkeypatch):
     trainer = PredictorTrainer(cfg, mae, dtype=torch.float32, device="cpu")
     if loss in SHIPPED:
         assert trainer.model.ra_dec == (loss == "cls_fs_1k") and trainer.model.in_chans == chans
+    if loss == "mimlarge":
+        enc = trainer.model.encoder
+        assert enc.depth == 2 and enc.block0.num_heads == 16 and trainer.model.embed_dim == 64
+        assert enc.block0.ffn.stash and not enc.remat
     trainer.model.load_state_dict(params_from_jax(params))
     start = {k: v.clone() for k, v in trainer.model.state_dict().items()}
     for batch in _batches(3, channels=chans):
