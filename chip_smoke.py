@@ -74,9 +74,12 @@ failing loudly (any failure exits non-zero and prints no result line):
    against the plain version (TF32 off) at TOL_F32_FORMS, each launch an
    fp32 one, timed by CUDA events and device time beside the plain
    version, bound at PEAK_FP32_PRODUCTS; their GEMM (``csrc/gemm_f32.cuh``,
-   3xTF32 on ``mma.sync``) alone at ``cls_fs_1k``'s twelve products (the
-   forward, NT and TN forms with their epilogues) at TOL_GEMM_F32 beside
-   fp32 ``torch.addmm`` / ``torch.mm`` (the ``gemm_f32_times`` record);
+   3xTF32 on wgmma fed by TMA) alone at ``cls_fs_1k``'s twelve products (the
+   forward, NT and TN forms with their epilogues) and at three M = 2 112
+   ones (kernel 4's dctx and dy at ``mim_32`` B=32, kernel 9's dy over one
+   ViT-H slab at B=32) at TOL_GEMM_F32 beside fp32 ``torch.addmm`` /
+   ``torch.mm``, with the plan's tile width and split (the
+   ``gemm_f32_times`` record);
    then the fp32 forms of kernels 4, 6, 7, 9 and of the masked K2, 2 and 4
    alone (F32_NEW) at the fp32 paths' full widths: kernels 6 and 7 at
    ``cls_ft_1k_large``'s B=256 and ``mim_25_large``'s B=64 (ViT-L, 16
@@ -828,6 +831,7 @@ def main() -> int:
     from sky_embeddings_tpu_torch.ops.kernels.gemm import (
         bwd_plan_cuda,
         dual_plan,
+        f32_plan,
         gemm,
         gemm_bwd,
         gemm_bwd_plain,
@@ -1453,6 +1457,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     M32 = F32_SHAPES[-1][1] * F32_SHAPES[-1][2]
+    M_SMALL = 32 * 66  # mim_32's and ViT-H's B=32
     gemm_f32_times = {}
     for name, form, epi, sa, sb in (
             ("qkv", "fwd", "bias", (M32, D), (D, 3 * D)),
@@ -1466,7 +1471,14 @@ def main() -> int:
             ("dW1", "tn", "store", (M32, D), (M32, F)),
             ("dW2", "tn", "store", (M32, F), (M32, D)),
             ("dWqkv", "tn", "store", (M32, D), (M32, 3 * D)),
-            ("dWproj", "tn", "store", (M32, D), (M32, D))):
+            ("dWproj", "tn", "store", (M32, D), (M32, D)),
+            # M = 2 112, where one 128 x 128 tile left a second wave nearly
+            # empty: kernel 4's dctx and dy at mim_32 B=32 (D = 1 024) and
+            # kernel 9's dy over one slab at ViT-H B=32 (D = fs = 1 280),
+            # summed onto the last slab's
+            ("k4_dctx", "nt", "store", (M_SMALL, 1024), (1024, 1024)),
+            ("k4_dy", "nt", "store", (M_SMALL, 3 * 1024), (1024, 3 * 1024)),
+            ("k9_dy", "nt", "add", (M_SMALL, 1280), (1280, 1280))):
         a = torch.randn(*sa, generator=gen, device=dev)
         b = torch.randn(*sb, generator=gen, device=dev) * (sb[0] if form == "fwd" else sb[1]) ** -0.5
         if form == "tn":
@@ -1474,7 +1486,8 @@ def main() -> int:
         Mg, Kg = (a.shape[1], a.shape[0]) if form == "tn" else tuple(a.shape)
         Ng = b.shape[0] if form == "nt" else b.shape[1]
         bias = 0.01 * torch.randn(Ng, generator=gen, device=dev)
-        resid = torch.randn(Mg, Ng, generator=gen, device=dev) if epi == "bias_residual" else None
+        resid = (torch.randn(Mg, Ng, generator=gen, device=dev)
+                 if epi in ("bias_residual", "add") else None)
         aux = torch.randn(Mg, Ng, generator=gen, device=dev) if epi == "dgelu" else None
         got, got_aux = gemm_f32(a, b, form, epi, bias, resid, aux)
         want, want_aux = gemm_f32_plain(a, b, form, epi, bias, resid, aux)
@@ -1484,17 +1497,22 @@ def main() -> int:
             rel = max(rel, rel_err(got_aux, want_aux)[0])
         check(rel <= TOL_GEMM_F32 and bool(torch.isfinite(got).all()), f"fp32 GEMM {name} parity")
         fn = lambda: gemm_f32(a, b, form, epi, bias, resid, aux)
-        lib = {"fwd": lambda: torch.addmm(bias, a, b), "nt": lambda: torch.mm(a, b.t()),
-               "tn": lambda: torch.mm(a.t(), b)}[form]
+        lib = {"fwd": lambda: torch.addmm(bias, a, b),
+               "nt": (lambda: torch.addmm(resid, a, b.t())) if epi == "add" else
+               (lambda: torch.mm(a, b.t())), "tn": lambda: torch.mm(a.t(), b)}[form]
         flops = 2 * Mg * Ng * Kg
-        rec = {"form": form, "epilogue": epi, "M": Mg, "N": Ng, "K": Kg, "max_rel_err": rel,
+        plan = f32_plan(Mg, Ng, Kg, form == "tn",
+                        torch.cuda.get_device_properties(0).multi_processor_count)
+        rec = {"form": form, "epilogue": epi, "M": Mg, "N": Ng, "K": Kg, "bn": plan.bn,
+               "splits": plan.splits, "units": plan.units, "max_rel_err": rel,
                "ms": cuda_ms(fn, 5), "device_ms": device_ms(fn, 2), "library_ms": cuda_ms(lib, 5),
                "library_device_ms": device_ms(lib, 2),
                "bound_ms": flops / PEAK_FP32_PRODUCTS * 1e3}
         rec["tflops"] = flops / rec["device_ms"] / 1e9
         rec["library_tflops"] = flops / rec["library_device_ms"] / 1e9
         gemm_f32_times[name] = rec
-        print(f"fp32 GEMM {name} ({form}, {epi}, M={Mg} N={Ng} K={Kg}): max-rel {rel:.2e} (bar "
+        print(f"fp32 GEMM {name} ({form}, {epi}, M={Mg} N={Ng} K={Kg}, BN={plan.bn}, "
+              f"{plan.splits} slices, {plan.units} units): max-rel {rel:.2e} (bar "
               f"{TOL_GEMM_F32}); {rec['ms']:.4f} ms, device {rec['device_ms']:.4f} "
               f"({rec['tflops']:.1f} TFLOP/s), torch {rec['library_ms']:.4f} / device "
               f"{rec['library_device_ms']:.4f} ({rec['library_tflops']:.1f}), bound "

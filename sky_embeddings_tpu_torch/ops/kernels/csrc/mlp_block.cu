@@ -40,7 +40,8 @@
 // This file also carries the GEMMs' entries for the card tests and
 // chip_smoke.py: one product with a chosen epilogue (sky_gemm_sm90), its
 // tile rule (sky_gemm_sm90_plan) and the host cost of its TMA maps; one fp32
-// product in any form and epilogue (sky_gemm_f32) and its workspace.
+// product in any form and epilogue (sky_gemm_f32, sky_gemm_f32_ld with row
+// pitches), its workspace and its plan (sky_gemm_f32_plan).
 #include <chrono>
 
 #include "gemm_f32.cuh"
@@ -160,33 +161,71 @@ extern "C" int sky_mlp_block_fwd_stash_f32(const void* x, const void* ln_scale,
 // 3 STORE, 4 DGELU (NT; aux (M, N) the pre-activation in, its GELU out), 5
 // BIAS_GELU_STASH (FWD; aux (M, N) the pre-activation out), 6 ADD (NT; c
 // (M, N) in and out). A TN STORE product with ws (sky_gemm_f32_ws floats)
-// may split along K.
-extern "C" int sky_gemm_f32(const void* a, const void* b, const void* bias, const void* resid,
-                            void* c, void* aux, void* ws, int form, int epi, int M, int N, int K,
-                            void* stream) {
+// may split along K. sky_gemm_f32_ld takes row pitches (floats; 0: dense)
+// of a, b and c (resid and aux share c's), as the blocks pass them, and a
+// forced tile width and split count (0: the plan's; a sweep's).
+static int gemm_f32_entry(const void* a, const void* b, const void* bias, const void* resid,
+                          void* c, void* aux, void* ws, int form, int epi, int M, int N, int K,
+                          sky::f32::Ld ld, int bn, int splits, void* stream) {
   using namespace sky::f32;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
   if (form == FWD && epi == BIAS)
-    err = launch_gemm_f32<FWD, BIAS>(a, b, bias, nullptr, c, nullptr, M, N, K, nullptr, s);
+    err = launch_gemm_f32<FWD, BIAS>(a, b, bias, nullptr, c, nullptr, M, N, K, nullptr, s, ld,
+                                     bn, splits);
   else if (form == FWD && epi == BIAS_GELU)
-    err = launch_gemm_f32<FWD, BIAS_GELU>(a, b, bias, nullptr, c, nullptr, M, N, K, nullptr, s);
+    err = launch_gemm_f32<FWD, BIAS_GELU>(a, b, bias, nullptr, c, nullptr, M, N, K, nullptr, s,
+                                          ld, bn, splits);
   else if (form == FWD && epi == BIAS_RESIDUAL)
-    err = launch_gemm_f32<FWD, BIAS_RESIDUAL>(a, b, bias, resid, c, nullptr, M, N, K, nullptr, s);
+    err = launch_gemm_f32<FWD, BIAS_RESIDUAL>(a, b, bias, resid, c, nullptr, M, N, K, nullptr, s,
+                                              ld, bn, splits);
   else if (form == NT && epi == STORE)
-    err = launch_gemm_f32<NT, STORE>(a, b, nullptr, nullptr, c, nullptr, M, N, K, nullptr, s);
+    err = launch_gemm_f32<NT, STORE>(a, b, nullptr, nullptr, c, nullptr, M, N, K, nullptr, s, ld,
+                                     bn, splits);
   else if (form == FWD && epi == BIAS_GELU_STASH)
-    err = launch_gemm_f32<FWD, BIAS_GELU_STASH>(a, b, bias, nullptr, c, aux, M, N, K, nullptr, s);
+    err = launch_gemm_f32<FWD, BIAS_GELU_STASH>(a, b, bias, nullptr, c, aux, M, N, K, nullptr, s,
+                                                ld, bn, splits);
   else if (form == NT && epi == DGELU)
-    err = launch_gemm_f32<NT, DGELU>(a, b, nullptr, aux, c, aux, M, N, K, nullptr, s);
+    err = launch_gemm_f32<NT, DGELU>(a, b, nullptr, aux, c, aux, M, N, K, nullptr, s, ld, bn,
+                                     splits);
   else if (form == NT && epi == ADD)
-    err = launch_gemm_f32<NT, ADD>(a, b, nullptr, nullptr, c, nullptr, M, N, K, nullptr, s);
+    err = launch_gemm_f32<NT, ADD>(a, b, nullptr, nullptr, c, nullptr, M, N, K, nullptr, s, ld, bn,
+                                   splits);
   else if (form == TN && epi == STORE)
-    err = launch_gemm_f32<TN, STORE>(a, b, nullptr, nullptr, c, nullptr, M, N, K, ws, s);
+    err = launch_gemm_f32<TN, STORE>(a, b, nullptr, nullptr, c, nullptr, M, N, K, ws, s, ld, bn,
+                                     splits);
   return static_cast<int>(err);
 }
 
-// fp32 floats of workspace a TN product of (M, N, K) splits into (0: none).
+extern "C" int sky_gemm_f32(const void* a, const void* b, const void* bias, const void* resid,
+                            void* c, void* aux, void* ws, int form, int epi, int M, int N, int K,
+                            void* stream) {
+  return gemm_f32_entry(a, b, bias, resid, c, aux, ws, form, epi, M, N, K, {}, 0, 0, stream);
+}
+
+extern "C" int sky_gemm_f32_ld(const void* a, const void* b, const void* bias, const void* resid,
+                               void* c, void* aux, void* ws, int form, int epi, int M, int N,
+                               int K, int lda, int ldb, int ldc, int bn, int splits,
+                               void* stream) {
+  sky::f32::Ld ld;
+  ld.a = lda;
+  ld.b = ldb;
+  ld.c = ldc;
+  return gemm_f32_entry(a, b, bias, resid, c, aux, ws, form, epi, M, N, K, ld, bn, splits, stream);
+}
+
+// The fp32 GEMM's plan of an (M, N, K) product over `sms` CTAs (f32_plan):
+// {BN, splits, slabs a slice, units, ring slots, shared-memory bytes}.
+extern "C" void sky_gemm_f32_plan(int M, int N, int K, int may_split, int sms, int* plan) {
+  const sky::f32::Plan p = sky::f32::f32_plan(M, N, K, may_split != 0, sms);
+  plan[0] = p.bn;
+  plan[1] = p.splits;
+  plan[2] = p.kslabs;
+  plan[3] = p.units;
+  plan[4] = sky::f32::stages_of(p.bn);
+  plan[5] = sky::f32::smem_of(p.bn);
+}
+
 extern "C" long long sky_gemm_f32_ws(int M, int N, int K) {
   return static_cast<long long>(sky::f32::workspace(M, N, K));
 }

@@ -42,10 +42,16 @@ turn as the kernel deals them. Card tests hold the copies to the C rules;
 the CPU tests hold them at every shipped config.
 
 :func:`gemm_f32` launches one product of the fp32 GEMM (``csrc/gemm_f32.cuh``,
-3xTF32 on ``mma.sync``; ``sky_gemm_f32`` in ``csrc/mlp_block.cu``) that the
-block kernels' fp32 forms run every product on, in any of its forms and
-epilogues, so that the card tests can hold it to fp32 ``torch.mm`` (TF32
-off) and ``chip_smoke.py`` can time it.
+3xTF32 on wgmma fed by TMA; ``sky_gemm_f32_ld`` in ``csrc/mlp_block.cu``)
+that the block kernels' fp32 forms run every product on, in any of its
+forms and epilogues and with row pitches, so that the card tests can hold
+it to fp32 ``torch.mm`` (TF32 off) and ``chip_smoke.py`` can time it.
+:func:`f32_plan` is a copy of its tile rule (``f32_plan``): output tiles of
+128 rows x BN columns, BN = 128 or 64, and for a ``"tn"`` product with a
+workspace 1 to 8 K slices, whichever the modelled time (waves x slabs a
+slice x (BN + a tile's fixed cost), plus the split's partials' traffic)
+favours by more than a sixteenth; :func:`f32_workspace` the workspace the
+blocks' C entries size from it.
 """
 
 from __future__ import annotations
@@ -582,6 +588,13 @@ F32_EPILOGUES = {"bias": 0, "bias_gelu": 1, "bias_residual": 2, "store": 3, "dge
                  "bias_gelu_stash": 5, "add": 6}
 F32_FORM_EPILOGUES = {"fwd": ("bias", "bias_gelu", "bias_residual", "bias_gelu_stash"),
                       "nt": ("store", "dgelu", "add"), "tn": ("store",)}
+F32_BK = 32  # depth of a ring slot: one 128-byte swizzle row of fp32
+F32_A_BYTES = BM * F32_BK * 4
+F32_BNS = (128, 64)  # tile widths, widest first
+F32_MAX_SPLITS = 8
+F32_MIN_SLICE = 1024  # token rows of a split slice at least
+F32_REDUCE_BYTES_PER_COST = 1 << 15
+F32_TILE_COST = 32  # a tile's cost per slab beyond its columns (A's loads and splits)
 
 
 def _f32_operands(a, b, form):
@@ -623,13 +636,91 @@ def gemm_f32_plain(a, b, form: str, epi: str, bias=None, resid=None, aux=None):
     return acc, None
 
 
-def gemm_f32(a, b, form: str, epi: str, bias=None, resid=None, aux=None):
+@dataclass(frozen=True)
+class F32Plan:
+    bn: int  # tile width
+    splits: int  # K slices (1: unsplit)
+    kslabs: int  # F32_BK-deep slabs of a slice
+    units: int  # (tile, K slice) units the persistent CTAs walk
+    stages: int  # ring slots
+    smem: int  # dynamic shared-memory bytes of a CTA
+
+
+def _f32_stages(bn: int) -> int:
+    return (SMEM_OPTIN_MAX - SMEM_EXTRA) // (F32_A_BYTES + 3 * bn * F32_BK * 4)
+
+
+def f32_plan(M: int, N: int, K: int, may_split: bool = False, sms: int = H100_SMS) -> F32Plan:
+    """The fp32 GEMM's tile rule (``f32_plan`` in ``csrc/gemm_f32.cuh``) for
+    an (M, N, K) product over ``sms`` resident CTAs: of BN = 128, 64 and
+    split counts 1 to F32_MAX_SPLITS (1 unless ``may_split``: a ``"tn"``
+    product with a workspace; each slice F32_MIN_SLICE rows or more), the
+    least modelled time, waves x slabs a slice x (BN + F32_TILE_COST) plus
+    the split partials' traffic, a later candidate winning only by more
+    than a sixteenth."""
+    nk = -(-K // F32_BK)
+    best, best_cost = None, 0
+    for bn in F32_BNS:
+        tiles = -(-M // BM) * -(-N // bn)
+        for s in range(1, (F32_MAX_SPLITS if may_split else 1) + 1):
+            if s > 1 and s * F32_MIN_SLICE > K:
+                break
+            per = -(-nk // s)
+            if -(-nk // per) != s:
+                continue  # the same slices as a smaller count
+            units = tiles * s
+            cost = -(-units // sms) * per * (bn + F32_TILE_COST)
+            if s > 1:
+                cost += (2 * s + 1) * M * N * 4 // F32_REDUCE_BYTES_PER_COST
+            if best is None or cost * 16 < best_cost * 15:
+                stages = _f32_stages(bn)
+                smem = stages * (F32_A_BYTES + 3 * bn * F32_BK * 4) + SMEM_EXTRA
+                best, best_cost = F32Plan(bn, s, per, units, stages, smem), cost
+    return best
+
+
+def f32_workspace(M: int, N: int, K: int, sms: int = H100_SMS) -> int:
+    """fp32 floats of workspace a ``"tn"`` product's split slices take (0:
+    unsplit): a copy of ``workspace`` in ``csrc/gemm_f32.cuh``, by which the
+    blocks' C entries size theirs."""
+    plan = f32_plan(M, N, K, True, sms)
+    return plan.splits * M * N if plan.splits > 1 else 0
+
+
+def f32_plan_cuda(M: int, N: int, K: int, may_split: bool = False,
+                  sms: int = H100_SMS) -> F32Plan:
+    """The same rule as the C source computes it (builds ``lib mlp_block``)."""
+    fn = cuda_build.load("mlp_block").sky_gemm_f32_plan
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = None
+    out = (ctypes.c_int * 6)()
+    fn(M, N, K, int(may_split), sms, out)
+    return F32Plan(*out)
+
+
+def _row_pitch(t, width: int) -> int:
+    """The row pitch of a 2-D view whose rows are contiguous, or -1."""
+    if t.dim() != 2 or t.stride(1) != 1 or t.stride(0) < width:
+        return -1
+    return t.stride(0)
+
+
+def gemm_f32(a, b, form: str, epi: str, bias=None, resid=None, aux=None, out=None,
+             bn: int = 0, splits: int = 0):
     """As :func:`gemm_f32_plain`. CPU tensors take the plain version; CUDA
-    tensors launch ``sky_gemm_f32`` or raise. A ``"tn"`` product splits
-    along K into slices added in order where the tiles would leave SMs idle,
-    as the block kernels' do; ``aux`` is not changed."""
+    tensors launch ``sky_gemm_f32_ld`` or raise. A ``"tn"`` product splits
+    along K into slices added in order where its plan says so, as the block
+    kernels' do; ``aux`` is not changed. ``a``, ``b`` and ``out`` (written in
+    place when given) may be views whose rows lie apart (column slabs, as
+    kernel 9 passes its weights), with pitches that are multiples of 4;
+    a ``"bias_residual"`` ``resid`` then shares ``out``'s. ``bn`` (128 or
+    64) and ``splits`` (a ``"tn"`` product's) force the plan, for sweeps."""
     if a.device.type == "cpu":
-        return gemm_f32_plain(a, b, form, epi, bias, resid, aux)
+        got = gemm_f32_plain(a, b, form, epi, bias, resid, aux)
+        if out is not None:
+            out.copy_(got[0])
+            return out, got[1]
+        return got
     M, N, K = _f32_operands(a, b, form)
     if epi not in F32_FORM_EPILOGUES.get(form, ()):
         raise ValueError(f"{form}: epilogue {epi!r} is none of {F32_FORM_EPILOGUES.get(form)}")
@@ -640,36 +731,54 @@ def gemm_f32(a, b, form: str, epi: str, bias=None, resid=None, aux=None):
         want["resid"] = (resid, (M, N))
     if epi == "dgelu":
         want["aux"] = (aux, (M, N))
+    if out is not None:
+        want["out"] = (out, (M, N))
     for name, (t, shape) in want.items():
-        if t is None or tuple(t.shape) != shape or t.dtype != torch.float32 \
-                or not t.is_contiguous() or t.device != a.device:
+        rows_ok = t is not None and (_row_pitch(t, shape[-1]) >= 0 if len(shape) == 2
+                                     else t.is_contiguous())
+        if not rows_ok or tuple(t.shape) != shape or t.dtype != torch.float32 \
+                or t.device != a.device:
             got = None if t is None else (tuple(t.shape), t.dtype, str(t.device))
-            raise ValueError(f"{name}: want a contiguous {shape} fp32 tensor on {a.device}, got {got}")
+            raise ValueError(f"{name}: want an fp32 {shape} tensor on {a.device} with contiguous "
+                             f"rows, got {got}")
     if (M if form == "tn" else K) % 4 or (K if form == "nt" else N) % 4 or N % 4:
         raise ValueError(f"M={M}, N={N}, K={K}: the contiguous axes must be multiples of 4 "
                          "(16-byte copies)")
-    out = resid.clone() if epi == "add" else torch.empty((M, N), dtype=torch.float32,
-                                                         device=a.device)
-    aux_out = aux.clone() if epi == "dgelu" else torch.empty_like(out) \
-        if epi == "bias_gelu_stash" else None
+    if out is None:
+        out = torch.empty((M, N), dtype=torch.float32, device=a.device)
+    ldc = out.stride(0)
+    if epi == "bias_residual" and resid.stride(0) != ldc:
+        raise ValueError(f"resid: its row pitch {resid.stride(0)} is not out's ({ldc})")
+    lds = (a.stride(0), b.stride(0), ldc)
+    if any(ld % 4 for ld in lds) or any(t.data_ptr() % 16 for t in (a, b, out)):
+        raise ValueError(f"row pitches {lds} must be multiples of 4 and the operands 16-byte "
+                         "aligned")
+    if epi == "add":
+        out.copy_(resid)
+    aux_out = None
+    if epi == "dgelu":
+        aux_out = torch.empty_strided((M, N), (ldc, 1), dtype=torch.float32, device=a.device)
+        aux_out.copy_(aux)
+    elif epi == "bias_gelu_stash":
+        aux_out = torch.empty_strided((M, N), (ldc, 1), dtype=torch.float32, device=a.device)
     lib = cuda_build.load("mlp_block")
     ws = None
     if form == "tn":
         fn = lib.sky_gemm_f32_ws
         fn.argtypes, fn.restype = [ctypes.c_int] * 3, ctypes.c_longlong
         with torch.cuda.device(a.device):
-            n = fn(M, N, K)
+            n = splits * M * N if splits > 1 else fn(M, N, K)
         ws = torch.empty(max(n, 4), dtype=torch.float32, device=a.device)
-    fn = lib.sky_gemm_f32
+    fn = lib.sky_gemm_f32_ld
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     ptr = lambda t: None if t is None else t.data_ptr()
     with torch.cuda.device(a.device):
-        err = fn(ptr(a), ptr(b), ptr(bias), ptr(resid), ptr(out), ptr(aux_out), ptr(ws),
-                 F32_FORMS[form], F32_EPILOGUES[epi], M, N, K,
-                 torch.cuda.current_stream().cuda_stream)
-    cuda_build.check(err, "sky_gemm_f32")
+        err = fn(ptr(a), ptr(b), ptr(bias), ptr(resid if epi == "bias_residual" else None),
+                 ptr(out), ptr(aux_out), ptr(ws), F32_FORMS[form], F32_EPILOGUES[epi], M, N, K,
+                 *lds, bn, splits, torch.cuda.current_stream().cuda_stream)
+    cuda_build.check(err, "sky_gemm_f32_ld")
     gemm_f32.launches += 1
     return out, aux_out
 

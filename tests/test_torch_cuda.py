@@ -73,6 +73,8 @@ Bars: bf16 max|a-b|/max|b| <= 2e-2 (``TOL_FWD`` of tools/kernel_parity.py),
 banks (``TOL_SCORE_F32``), 2e-2 on bf16.
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -1626,10 +1628,13 @@ def test_f32_forms_match_plain(dev, B, N, D, H, F):
 
 
 # (M, N, K): ragged rows and columns (multiples of 4), a K that is no
-# multiple of the 16-deep slab, and the weight gradients' long K (split
-# into slices where the tiles leave SMs idle)
+# multiple of the 32-deep slab, M, N and K that are multiples of no tile
+# (1 036 x 332 x 1 124), the M = 2 112 products of kernels 4 and 9 (64-wide
+# tiles), and the weight gradients' long K (split into slices where the
+# plan says so: the K = 16 896 TN products of cls_fs_1k B=256)
 GEMM_F32_SHAPES = [(4, 8, 4), (300, 264, 200), (132, 36, 1028), (16896, 768, 3072),
-                   (768, 768, 16896), (1024, 4096, 4160)]
+                   (768, 768, 16896), (1024, 4096, 4160), (1036, 332, 1124), (2112, 1024, 3072),
+                   (768, 3072, 16896)]
 
 
 @pytest.mark.parametrize("form,epi", [(f, e) for f, es in tg.F32_FORM_EPILOGUES.items() for e in es])
@@ -1655,6 +1660,57 @@ def test_gemm_f32_matches_fp32_torch_mm(dev, form, epi, M, N, K):
         assert _max_rel(got[1], want[1]) <= TOL_GEMM_F32
     else:
         assert got[1] is None
+
+
+@pytest.mark.parametrize("form,epi", [(f, e) for f, es in tg.F32_FORM_EPILOGUES.items() for e in es])
+def test_gemm_f32_takes_pitched_operands(dev, form, epi):
+    """Operands and output as column slabs of wider rows (kernel 9's W1 and
+    dW1 slabs; pitches that are multiples of 4, not of any tile) give the
+    dense operands' bits, and match fp32 torch.mm."""
+    M, N, K = 1036, 332, 1124
+    gen = torch.Generator(dev).manual_seed(7)
+    rn = lambda *s: torch.randn(*s, device=dev, generator=gen)
+    sa = {"fwd": (M, K), "nt": (M, K), "tn": (K, M)}[form]
+    sb = {"fwd": (K, N), "nt": (N, K), "tn": (K, N)}[form]
+    wide_a, wide_b = rn(sa[0], sa[1] + 12), rn(sb[0], sb[1] + 36) * K ** -0.5
+    a, b = wide_a[:, 8:8 + sa[1]], wide_b[:, 4:4 + sb[1]]
+    bias, aux = rn(N), rn(M, N)
+    wide_c, wide_r = torch.zeros(M, N + 20, device=dev), rn(M, N + 20)
+    out, resid = wide_c[:, 4:4 + N], wide_r[:, 4:4 + N]
+    got = tg.gemm_f32(a, b, form, epi, bias, resid, aux, out=out)
+    dense = tg.gemm_f32(a.contiguous(), b.contiguous(), form, epi, bias, resid.contiguous(), aux)
+    want = tg.gemm_f32_plain(a, b, form, epi, bias, resid, aux)
+    torch.cuda.synchronize()
+    assert got[0].data_ptr() == out.data_ptr()
+    assert torch.equal(got[0], dense[0])
+    assert float(wide_c[:, :4].abs().max()) == 0 and float(wide_c[:, 4 + N:].abs().max()) == 0
+    assert _max_rel(got[0], want[0]) <= TOL_GEMM_F32
+    if got[1] is not None:
+        assert torch.equal(got[1], dense[1]) and _max_rel(got[1], want[1]) <= TOL_GEMM_F32
+
+
+def test_f32_plan_equals_the_python_copy(dev):
+    """``f32_plan`` as the CUDA source computes it equals
+    ``gemm.f32_plan`` (tile width, splits, slabs a slice, units, ring
+    slots, shared memory) and the C workspace rule ``gemm.f32_workspace``,
+    at the fp32 configs' products and at ragged shapes, split or not."""
+    from sky_embeddings_tpu_torch.ops.kernels import cuda_build
+
+    ws = cuda_build.load("mlp_block").sky_gemm_f32_ws
+    ws.argtypes, ws.restype = [ctypes.c_int] * 3, ctypes.c_longlong
+    shapes = [(4, 8, 4), (300, 264, 200), (1036, 332, 1124), (16896, 768, 3072),
+              (768, 3072, 16896), (3072, 768, 16896), (768, 2304, 16896), (768, 768, 16896),
+              (2112, 1024, 1024), (1024, 3072, 2112), (1280, 1280, 2112), (2112, 1280, 1280)]
+    for M in (1, 68, 4160, 8448, 16896, 16640, 2112, 544, 16 * 65, 256 * 68):
+        for D in (48, 64, 512, 768, 1024, 1280):
+            shapes += [(M, 3 * D, D), (M, D, 4 * D), (D, 4 * D, M), (4 * D, D, M)]
+    for M, N, K in shapes:
+        for may_split in (False, True):
+            for sms in (132, 114, 1):
+                want = tg.f32_plan(M, N, K, may_split, sms)
+                assert tg.f32_plan_cuda(M, N, K, may_split, sms) == want, (M, N, K, may_split, sms)
+        assert ws(M, N, K) == tg.f32_workspace(M, N, K, torch.cuda.get_device_properties(
+            0).multi_processor_count), (M, N, K)
 
 
 def test_gemm_f32_refuses_what_it_does_not_take(dev):

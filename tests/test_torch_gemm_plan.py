@@ -10,7 +10,11 @@ the rule the C source computes. The plain version of the GEMM's four
 epilogues is held to numpy here, as are the backward products' (the dual
 and the stash dh products, ``gemm_bwd``); kernels 8 and 7's plain versions
 equal their products' composed, and the stash dh product's plan fits at
-every shipped stash config.
+every shipped stash config. The fp32 GEMM's tile and split rule
+(``csrc/gemm_f32.cuh`` ``f32_plan``, copied as ``gemm.f32_plan``) fits,
+covers K in whole slabs, sizes the workspace the C side allocates and
+fills the waves at every fp32 product of every fp32 config that runs on
+the card, ViT-H's and kernel 9's slabs included.
 """
 
 import math
@@ -588,3 +592,149 @@ def test_attn_backward_plain_is_the_sm90_products_and_the_core(kernel):
         # another order (per sample, then over the samples)
         tol = dict(rtol=1e-5, atol=1e-6) if name == "dbqkv" else dict(rtol=0, atol=0)
         torch.testing.assert_close(a, b, **tol, msg=name)
+
+
+# ---- the fp32 GEMM's tile and split rule (csrc/gemm_f32.cuh f32_plan) --------
+
+F32_SOURCES = ("mae_tiny", "mim_tiny", "mim_tiny_large")  # fp32 MIM configs trained as shipped
+
+
+def _f32_blocks():
+    """(label, B, tokens, D) of every encoder (and MAE decoder) that a shipped
+    fp32 config runs on the card, at its batch: the configs with no ``dtype``
+    whose backbone loads (a predictor reads its pretraining config's
+    architecture under its own), and chip_smoke.py's ViT-H in fp32 at B=32
+    and 256."""
+    out = []
+    for p in sorted(CONFIGS.glob("*.ini")):
+        cfg = load_config(p.stem, str(CONFIGS))
+        if "dtype" in cfg["TRAINING"]:
+            continue
+        base = cfg.pretrained_mae_name()
+        if base is not None and not (CONFIGS / f"{base}.ini").exists():
+            continue  # mim_25: loads in neither package
+        arch = dict(load_config(base, str(CONFIGS))["ARCHITECTURE"].items()) if base else {}
+        arch.update(cfg["ARCHITECTURE"].items())
+        if arch.get("model_type", "") not in MODEL_TYPES:
+            continue  # JEPA's modules are not ported
+        grid = (int(arch["img_size"]) // int(arch.get("patch_size", 8))) ** 2
+        n_tok = grid + 1 + int(str(arch.get("ra_dec", "False")) == "True")
+        B = cfg["TRAINING"].int("batch_size")
+        out.append((p.stem, B, n_tok, int(arch.get("embed_dim", 768))))
+        if not MODEL_TYPES[arch["model_type"]][1]:
+            out.append((f"{p.stem} decoder", B, grid + 1, DECODER_D))
+    return out + [("vith", 32, 66, 1280), ("vith", 256, 66, 1280)]
+
+
+def _f32_products(M: int, D: int):
+    """(name, form, M, N, K) of every fp32 product of one block at M rows:
+    the forwards' four, the backwards' NT and TN ones, and kernel 9's per
+    slab where it streams the block."""
+    F = 4 * D
+    out = [("qkv", "fwd", M, 3 * D, D), ("proj", "fwd", M, D, D), ("fc1", "fwd", M, F, D),
+           ("fc2", "fwd", M, D, F), ("dctx", "nt", M, D, D), ("dy_attn", "nt", M, D, 3 * D),
+           ("dh", "nt", M, F, D), ("dy_mlp", "nt", M, D, F), ("dWqkv", "tn", D, 3 * D, M),
+           ("dWproj", "tn", D, D, M), ("dW1", "tn", D, F, M), ("dW2", "tn", F, D, M)]
+    fs = _stream_slab(D, F)
+    if fs < F:
+        out += [("k9_fc1", "fwd", M, fs, D), ("k9_dh", "nt", M, fs, D), ("k9_dy", "nt", M, D, fs),
+                ("k9_dW1", "tn", D, fs, M), ("k9_dW2", "tn", fs, D, M)]
+    return out
+
+
+F32_BLOCKS = _f32_blocks()
+
+
+def _f32_cost(M, N, K, bn, s):
+    nk = math.ceil(K / G.F32_BK)
+    per = math.ceil(nk / s)
+    units = math.ceil(M / G.BM) * math.ceil(N / bn) * s
+    cost = math.ceil(units / G.H100_SMS) * per * (bn + G.F32_TILE_COST)
+    return cost + ((2 * s + 1) * M * N * 4 // G.F32_REDUCE_BYTES_PER_COST if s > 1 else 0)
+
+
+def _f32_efficiency(M, N, K, bn, s):
+    """Useful columns x slabs (rows in whole 128-row tiles) over what the
+    CTAs' waves take."""
+    nk = math.ceil(K / G.F32_BK)
+    per = math.ceil(nk / s)
+    units = math.ceil(M / G.BM) * math.ceil(N / bn) * s
+    return math.ceil(M / G.BM) * N * nk / (G.H100_SMS * math.ceil(units / G.H100_SMS) * bn * per)
+
+
+def _assert_f32_sound(form, M, N, K):
+    may_split = form == "tn"
+    plan = G.f32_plan(M, N, K, may_split)
+    nk = math.ceil(K / G.F32_BK)
+    assert plan.bn in G.F32_BNS and 1 <= plan.splits <= (G.F32_MAX_SPLITS if may_split else 1)
+    # whole slabs, no slice empty
+    assert (plan.splits - 1) * plan.kslabs < nk <= plan.splits * plan.kslabs
+    assert plan.splits == 1 or K >= plan.splits * G.F32_MIN_SLICE
+    assert plan.units == math.ceil(M / G.BM) * math.ceil(N / plan.bn) * plan.splits
+    stage = G.F32_A_BYTES + 3 * plan.bn * G.F32_BK * 4  # A, B and B's two planes
+    assert plan.stages >= 3 and plan.smem == plan.stages * stage + G.SMEM_EXTRA
+    assert plan.smem <= G.SMEM_OPTIN_MAX < plan.smem + stage  # one more slot would not fit
+    # the split partials are what the blocks' C entries allocate
+    assert G.f32_workspace(M, N, K) == (G.f32_plan(M, N, K, True).splits * M * N
+                                        if G.f32_plan(M, N, K, True).splits > 1 else 0)
+    cands = [_f32_cost(M, N, K, bn, s) for bn in G.F32_BNS
+             for s in range(1, (G.F32_MAX_SPLITS if may_split else 1) + 1)
+             if s == 1 or (K >= s * G.F32_MIN_SLICE and math.ceil(nk / math.ceil(nk / s)) == s)]
+    assert _f32_cost(M, N, K, plan.bn, plan.splits) * 15 <= min(cands) * 16
+    # the waves filled at least as well as by the one 128 x 128 tile it
+    # replaced, and at least two thirds full wherever 64-wide tiles
+    # alone would fill the card
+    eff = _f32_efficiency(M, N, K, plan.bn, plan.splits)
+    assert eff >= _f32_efficiency(M, N, K, 128, 1)
+    if math.ceil(M / G.BM) * math.ceil(N / 64) >= G.H100_SMS:
+        assert eff >= 2 / 3, (form, M, N, K, plan, eff)
+    else:
+        assert plan.units <= 2 * G.H100_SMS  # small products: at most two waves
+    return plan
+
+
+@pytest.mark.parametrize("label,B,n_tok,D", F32_BLOCKS, ids=[f"{b[0]}-B{b[1]}" for b in F32_BLOCKS])
+def test_f32_plan_fills_the_waves_of_every_fp32_config(label, B, n_tok, D):
+    """Every fp32 product of every shipped fp32 config that runs on the card
+    (cls_fs_*, cls_ft_*_large, lp_1, z_ft_2, z_tiny, the tiny MIM configs)
+    and of ViT-H in fp32, kernel 9's slabs included: the plan fits, covers K
+    in whole slabs, sizes the workspace the C side allocates, comes within a
+    sixteenth of the least modelled time and fills the waves."""
+    products = _f32_products(B * n_tok, D)
+    assert len(products) >= 12
+    for _, form, M, N, K in products:
+        _assert_f32_sound(form, M, N, K)
+
+
+def test_f32_plan_covers_the_configs_the_fp32_path_runs():
+    labels = {b[0] for b in F32_BLOCKS}
+    for name in ("cls_fs_1k", "cls_fs_16k", "cls_ft_1k_large", "lp_1", "z_ft_2", "z_tiny",
+                 *F32_SOURCES, "mae_tiny decoder", "vith"):
+        assert name in labels, name
+    assert not any(lab.startswith(("cls_ap_", "jepa")) or lab == "cls_ft_1k" for lab in labels)
+
+
+# the plan's picks, each the card sweep's fastest or within 5% of it
+# (tools/gemm_f32_variants.py sweep, PERF.md)
+@pytest.mark.parametrize("name,form,M,N,K,bn,splits", [
+    # cls_fs_1k B=256 (M = 16 896, 132 row tiles): whole waves at 128
+    ("fc1", "fwd", 16896, 3072, 768, 128, 1), ("dy_mlp", "nt", 16896, 768, 3072, 128, 1),
+    ("dW1", "tn", 768, 3072, 16896, 128, 5), ("dWqkv", "tn", 768, 2304, 16896, 128, 6),
+    ("dWproj", "tn", 768, 768, 16896, 128, 7),
+    # M = 2 112: kernel 4 at mim_32 B=32 and kernel 9's slab at ViT-H B=32,
+    # where 128 x 128 tiles left a second wave 3% and 29% full
+    ("k4_dctx", "nt", 2112, 1024, 1024, 64, 1), ("k4_dy", "nt", 2112, 1024, 3072, 64, 1),
+    ("k9_dy", "nt", 2112, 1280, 1280, 64, 1), ("k9_dW1", "tn", 1280, 1280, 2112, 128, 1),
+    ("k4_qkv", "fwd", 2112, 3072, 1024, 128, 1), ("k4_dWqkv", "tn", 1024, 3072, 2112, 128, 2),
+])
+def test_f32_plan_at_the_named_products(name, form, M, N, K, bn, splits):
+    plan = _assert_f32_sound(form, M, N, K)
+    assert (plan.bn, plan.splits) == (bn, splits), name
+
+
+def test_f32_plan_at_tiny_and_ragged_shapes():
+    for form, M, N, K in (("fwd", 4, 8, 4), ("nt", 300, 264, 200), ("tn", 132, 36, 1028),
+                          ("tn", 4, 4, 16896), ("fwd", 1, 3072, 768), ("tn", 768, 768, 1024)):
+        _assert_f32_sound(form, M, N, K)
+    assert G.f32_plan(4, 8, 4).units == 1
+    assert G.f32_plan(768, 768, 16896).splits == 1  # a product without a workspace stays whole
