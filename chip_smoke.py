@@ -86,6 +86,13 @@ failing loudly (any failure exits non-zero and prints no result line):
    heads of 48), kernel 4 at ``mim_32``'s B=32 (N=66, 16 heads of 64), the
    masked forms at MAE's packing (B=256, N=68, seg_len 17), kernel 9 at
    ViT-H B=32, the same way (kernel 6's out bit-equal to K1's fp32 form);
+   then the five kernels of an I-JEPA step (K2, kernels 2 and 3, K1 and
+   kernel 8) alone at the JEPA paths' widths (JEPA_SHAPES): in bf16 at
+   jepa_struct's and jepa_1's ViT-S encoder (D=384, 6 heads of 64, N=64;
+   B=256 and 64) and 192-wide predictor (3 heads of 64, N=77), in fp32 at
+   jepa_tiny's encoder (D=192, N=16) and predictor (one head of 96, N=21),
+   every output against the plain version (bf16 at TOL_FWD / TOL_BWD, fp32
+   at TOL_F32_FORMS), one launch each, timed the same way;
 4. the serving path, through the entry points ``similarity_search`` calls, on
    ``configs/mim_1.ini`` (SimMIM ViT-B, bf16, full depth, seeded weights) and
    synthetic cutouts with whole-band NaNs: ``extract_latents`` of 2 targets
@@ -198,6 +205,26 @@ failing loudly (any failure exits non-zero and prints no result line):
    full depth: kernel 9's fp32 form); each with every launch an fp32 one,
    the kernel path against the plain path (TOL_PRED_F32, TOL_F32_PATHS),
    the step's time, busy share and peak memory;
+5f. I-JEPA, through the entry points ``pretrain_jepa`` calls
+   (``JEPATrainer``, ``train_network``), each config as shipped, seeded
+   weights, cutouts in memory: ``jepa_struct`` (bf16, B=256, ViT-S: D=384,
+   depth 12, 6 heads of 64, over 64 tokens; the 192-wide predictor, depth
+   4, 3 heads of 64, over 64 + 13 tokens, four passes a step) through
+   ``train_network`` for 10 steps, 2 validation batches and one probe
+   pass on the ``attn_pool`` path's structured sets; kernels 2, 3 and 8
+   at 28 a step, K1 at 40, K2 at 12 (the EMA target's encode), K2 and K1
+   at 40 a validation batch and 12 a probe batch, nothing else; the EMA
+   target equal to the online encoder at step 0 and moving less than it;
+   the kernel path against the plain path (TOL_JEPA); save, restore and
+   one more step bit-equal to the uninterrupted run's; the step's time,
+   busy share, peak memory, and by part (inputs, masks, target encode,
+   context and predictor forward, backward, AdamW, EMA) the device's ms
+   (CUDA events, the device drained and then held by a sleep kernel while
+   the host queues the part) and the host's ms to queue it.
+   ``jepa_1`` (9 bands, B=64): 3 steps, the same launches a step, timed.
+   ``jepa_tiny`` (fp32, B=16, D=192 over 16 tokens, the 96-wide one-head
+   predictor over 21): 10 steps and 2 validation batches, every launch an
+   fp32 one, kernel vs plain path, timed;
 5b. the ``Attention`` module (``models/layers.Attention``, the only caller of
    kernels 12 and 13, as in JAX) at ViT-B width, B=64, in bf16 and at its
    default fp32: one forward and ``backward()`` through autograd with the
@@ -429,6 +456,34 @@ F32_NEW = (("cls_ft_large", 256, 65, 768, 16, 3072, 0,
            ("mae", 256, 68, 768, 12, 3072, 17,
             ("attn_block_fwd_seg_f32", "attn_block_fwd_stash_seg_f32", "attn_block_bwd_seg_f32")),
            ("vith", 32, 66, 1280, 16, 5120, 0, ("mlp_block_bwd_stream_f32",)))
+# the five kernels an I-JEPA step runs (K2, kernels 2 and 3, K1 and kernel
+# 8) alone at the widths of the JEPA paths (phase 5f): (label, B, N, D, H,
+# F, dtype): jepa_struct's ViT-S encoder (B=256, N=64, 6 heads of 64) and
+# 192-wide predictor (N=77: 64 context slots and 13 queries, 3 heads of
+# 64), jepa_1's two at B=64, jepa_tiny's fp32 encoder (B=16, N=16, 3 heads
+# of 64) and predictor (N=21, one head of 96)
+JEPA_SHAPES = (("jepa_struct_enc", 256, 64, 384, 6, 1536, "bfloat16"),
+               ("jepa_struct_pred", 256, 77, 192, 3, 768, "bfloat16"),
+               ("jepa_1_enc", 64, 64, 384, 6, 1536, "bfloat16"),
+               ("jepa_1_pred", 64, 77, 192, 3, 768, "bfloat16"),
+               ("jepa_tiny_enc", 16, 16, 192, 3, 768, "float32"),
+               ("jepa_tiny_pred", 16, 21, 96, 1, 384, "float32"))
+# the I-JEPA paths (phase 5f), as shipped: (config, train steps, validation
+# batches, timed steps); jepa_struct runs through train_network with one
+# probe pass on the attn_pool path's structured probe sets, then the
+# kernel-vs-plain check, save/restore and the step's parts; jepa_1 (9
+# bands, B=64) its launches and step time; jepa_tiny in fp32
+JEPA_RUNS = (("jepa_struct", 10, 2, 10), ("jepa_1", 3, 0, 10), ("jepa_tiny", 10, 2, 10))
+# kernel path vs plain path (context and target encoders and the
+# predictor), one step's gradients (||a - b|| / ||b|| per leaf) and loss and
+# TRAJ_STEPS steps' losses: (gradients, losses). Measured on the H100
+# (PERF.md): jepa_struct gradients 2.78e-3 at worst
+# (encoder.patch_embed.proj.kernel; median 3.7e-4), one step's loss
+# 9.6e-6, five steps' losses 3.3e-5; jepa_tiny (fp32) gradients 7.0e-7 at
+# worst (median 4.0e-7), losses 0. The bars are about twice those (two
+# fp32 ulps where 0 was measured).
+TOL_JEPA = {"jepa_struct": (5.5e-3, 7e-5), "jepa_tiny": (1.4e-6, 2.5e-7)}
+
 # the retrieval path: a FITS survey of FITS_TILES tiles of FITS_SIZE^2 pixels
 # per band, searched at FITS_OVERLAP for N_GROUPS target groups; kernel 11 at
 # MULTI_Q queries on the 1M bank and at RAGGED (rows, width, queries); the
@@ -788,6 +843,272 @@ def predictor_f32_phase(dev, mim_ckpt, zero_counters, launch_counts, step_times,
         out["routes"][label]["infer"] = {"batches": infer_b, "first_s": t_inf, "warm_s": t_warm,
                                          "images_per_s": infer_b * B / t_warm, "launches": il}
         del trainer, model, train_ds, val_ds, sets
+        torch.cuda.empty_cache()
+    return out
+
+
+def jepa_phase(dev, probe_sets, zero_counters, launch_counts, step_times):
+    """The I-JEPA paths, through the entry points ``pretrain_jepa`` calls
+    (``JEPATrainer.train_batch`` / ``eval_batch``, ``train_network``), each
+    config as shipped (its dtype, width, depth and batch), seeded weights,
+    synthetic cutouts in memory (structured ones for jepa_struct). For each
+    of JEPA_RUNS: the EMA target equal to the online encoder at step 0; the
+    steps and validation batches with the counters zeroed just before and
+    read just after, every launch one of K2, kernels 2 and 3, K1 and kernel 8
+    (their fp32 forms in fp32) in the counts the target encoder (K2, K1),
+    the context encoder and ``num_pred`` predictor passes (kernels 2, 3, 8
+    and K1) give, validation K2 and K1 over all three, each probe batch K2
+    and K1 over the encoder; afterwards the target moved, less than the
+    online encoder. jepa_struct runs through ``train_network`` with the
+    probes once on ``probe_sets``; then for the configs of TOL_JEPA the
+    kernel path against the plain path (every block of the context and
+    target encoders and the predictor) from the same weights and masks;
+    jepa_struct's save/restore (one more step bit-equal to the uninterrupted
+    run's); every config's step time, images/s, busy share and peak memory,
+    and jepa_struct's device and host ms by part of the step."""
+    import numpy as np
+    import torch
+
+    from sky_embeddings_tpu_torch.configuration import load_config
+    from sky_embeddings_tpu_torch.data.synthetic import make_cutouts, make_structured_cutouts
+    from sky_embeddings_tpu_torch.ops.jepa_masks import mask_budgets
+    from sky_embeddings_tpu_torch.train.jepa import JEPATrainer
+    from sky_embeddings_tpu_torch.train.pretrain import train_network
+
+    # (dtype, batch, channels, D, depth, heads, predictor D, depth, heads, K_ctx, K_tgt)
+    shipped = {"jepa_struct": ("bfloat16", 256, 5, 384, 12, 6, 192, 4, 3, 64, 13),
+               "jepa_1": ("bfloat16", 64, 9, 384, 12, 6, 192, 4, 3, 64, 13),
+               "jepa_tiny": ("float32", 16, 3, 192, 12, 3, 96, 2, 1, 16, 5)}
+    out = {}
+    for name, steps, val_b, timed in JEPA_RUNS:
+        cfg = load_config(name, os.path.join(ROOT, "configs"))
+        t_init = time.perf_counter()
+        trainer = JEPATrainer(cfg, seed=0, device=dev)
+        torch.cuda.synchronize()
+        t_init = time.perf_counter() - t_init
+        m = trainer.model
+        enc, pred = m.encoder.encoder, m.predictor.blocks
+        mp = trainer.mask_params
+        k_ctx, k_tgt = mask_budgets(m.grid_size, mp["pred_mask_scale"], mp["enc_mask_scale"],
+                                    mp["min_keep"])
+        B, E, P, n_pred = trainer.batch_size, enc.depth, pred.depth, mp["num_pred"]
+        geometry = (str(m.dtype).replace("torch.", ""), B, m.in_chans, m.embed_dim, E,
+                    enc.block0.num_heads, m.predictor.pred_embed_dim, P, pred.block0.num_heads,
+                    k_ctx, k_tgt)
+        print(f"jepa {name}: (dtype, B, bands, D, depth, heads, predictor D, depth, heads, K_ctx, "
+              f"K_tgt) = {geometry}; {sum(p.numel() for p in m.parameters())} parameters",
+              flush=True)
+        check(geometry == shipped[name], f"jepa {name}: full width and depth as shipped {shipped[name]}")
+        fp32 = m.dtype == torch.float32
+        n_b = steps + val_b + 1
+        make = make_structured_cutouts if name == "jepa_struct" else make_cutouts
+        t_data = time.perf_counter()
+        x = make(n_b * B, channels=m.in_chans, img_size=m.img_size, seed=20)["cutouts"]
+        check(bool(np.isnan(x).any()), f"jepa {name}: cutouts hold NaN bands")
+        tbatches = [{"cutouts": x[i * B:(i + 1) * B]} for i in range(n_b)]
+        t_data = time.perf_counter() - t_data
+
+        online0 = [p.detach().clone() for p in m.encoder.parameters()]
+        check(all(torch.equal(a, b) for a, b in zip(trainer.target.parameters(), online0)),
+              f"jepa {name}: the EMA target equals the online encoder at step 0")
+        probes = probe_sets if name == "jepa_struct" else None
+        n_probe = sum(len(p_) for p_ in probes) if probes else 0
+        zero_counters()
+        torch.cuda.synchronize()
+        t_run = time.perf_counter()
+        if probes:
+            class ValBatches:
+                def take(self, n_):
+                    return iter(tbatches[steps:steps + n_])
+
+            ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_jepa_")
+            try:
+                train_network(trainer, iter(tbatches[:steps]), ValBatches(), steps, steps, 1e9,
+                              os.path.join(ckpt_dir, f"{name}.ckpt.pt"), lp_class_data_file=probes[0],
+                              lp_regress_data_file=probes[1], lp_combine="central",
+                              max_val_batches=val_b, log_fn=lambda m_: print(f"jepa {name}: {m_}", flush=True))
+            finally:
+                shutil.rmtree(ckpt_dir)
+            train_losses, val_losses = trainer.losses["train_loss"], trainer.losses["val_loss"]
+        else:
+            train_losses = [trainer.train_batch(b) for b in tbatches[:steps]]
+            val_losses = [trainer.eval_batch(b, idx=i) for i, b in enumerate(tbatches[steps:steps + val_b])]
+        torch.cuda.synchronize()
+        t_run = time.perf_counter() - t_run
+        launches = launch_counts()
+        train_losses, val_losses = [float(v) for v in train_losses], [float(v) for v in val_losses]
+        # per train step: the target's E layers (K2, K1), the context's E and
+        # n_pred predictor passes of P (kernels 2, 3, 8 and K1); per
+        # validation batch K2 and K1 over all three; per probe batch over E
+        grad_layers = E + n_pred * P
+        per_step = {"fused_attn_block": E, "attn_block_fwd_stash": grad_layers,
+                    "attn_block_bwd_stash": grad_layers, "fused_mlp_block": E + grad_layers,
+                    "mlp_block_bwd": grad_layers}
+        per_val = {"fused_attn_block": 2 * E + n_pred * P, "fused_mlp_block": 2 * E + n_pred * P}
+        want = {k: v * steps + per_val.get(k, 0) * val_b
+                + E * n_probe * (k in ("fused_attn_block", "fused_mlp_block")) for k, v in per_step.items()}
+        if fp32:
+            want.update({k + "_f32": v for k, v in want.items()})
+        print(f"jepa {name}: {steps} steps + {val_b} val batches + {n_probe} probe batches in "
+              f"{t_run:.2f} s (cutouts made in {t_data:.1f} s); train losses "
+              f"{[round(v, 4) for v in train_losses]}, val {[round(v, 4) for v in val_losses]}; "
+              f"launches { {k: v for k, v in launches.items() if v} }", flush=True)
+        check(bool(train_losses) and all(np.isfinite(train_losses + val_losses)),
+              f"jepa {name}: losses finite")
+        expect = ({"fused_attn_block": 12, "attn_block_fwd_stash": 28, "attn_block_bwd_stash": 28,
+                   "fused_mlp_block": 40, "mlp_block_bwd": 28} if name != "jepa_tiny" else
+                  {"fused_attn_block": 12, "attn_block_fwd_stash": 20, "attn_block_bwd_stash": 20,
+                   "fused_mlp_block": 32, "mlp_block_bwd": 20})
+        check(per_step == expect, f"jepa {name}: launches per step {per_step} == {expect}")
+        for k_, n_ in launches.items():
+            check(n_ == want.get(k_, 0), f"jepa {name}: {k_} launches {n_} == {want.get(k_, 0)}")
+        d_online = sum(float((p.detach() - p0).abs().sum()) for p, p0 in zip(m.encoder.parameters(), online0))
+        d_target = sum(float((p - p0).abs().sum()) for p, p0 in zip(trainer.target.parameters(), online0))
+        print(f"jepa {name}: summed |change| of the encoder's parameters over {steps} steps: online "
+              f"{d_online:.4e}, EMA target {d_target:.4e}", flush=True)
+        check(0 < d_target < d_online, f"jepa {name}: the EMA target moved, less than the online encoder")
+        del online0
+        res = {"config": name, "geometry": dict(zip(
+            ("dtype", "batch", "channels", "embed_dim", "depth", "heads", "pred_embed_dim",
+             "pred_depth", "pred_heads", "k_ctx", "k_tgt"), geometry)),
+            "trainer_init_s": t_init, "seconds": t_run, "steps": steps, "val_batches": val_b,
+            "launches": launches, "launches_per_step": per_step, "train_losses": train_losses,
+            "val_losses": val_losses, "ema_change_online": d_online, "ema_change_target": d_target}
+        if probes:
+            lp = {k: trainer.losses[k][-1] for k in ("train_lp_acc", "val_lp_acc", "train_lp_r2",
+                                                     "val_lp_r2")}
+            print(f"jepa {name} probes ({n_probe} batches, the online encoder's central 4 tokens): "
+                  f"{lp}", flush=True)
+            check(all(np.isfinite(list(lp.values()))) and 0.0 <= lp["val_lp_acc"] <= 1.0
+                  and lp["val_lp_r2"] <= 1.0, f"jepa {name}: probe metrics")
+            res.update({"probe": lp, "probe_batches": n_probe})
+
+        if name in TOL_JEPA:
+            # kernel path vs plain path from the same weights and masks
+            tol_grad, tol_loss = TOL_JEPA[name]
+            pair = [JEPATrainer(cfg, seed=0, device=dev) for _ in range(2)]
+            pair[1].plain = True
+            mgen = torch.Generator(device=dev).manual_seed(7)
+            masks = [pair[0].draw_masks(B, mgen) for _ in range(TRAJ_STEPS)]
+            x0 = pair[0]._cutouts(tbatches[0])
+            grads, step_loss = [], []
+            for tr in pair:
+                loss = tr.loss(x0, masks[0])
+                loss.backward()
+                step_loss.append(float(loss.detach()))
+                grads.append({n: p.grad.float().clone() for n, p in tr.model.named_parameters()
+                              if p.grad is not None})
+                tr.optimizer.zero_grad(set_to_none=True)
+            grad_rel = {n: float((a - grads[1][n]).norm() / (grads[1][n].norm() + 1e-30))
+                        for n, a in grads[0].items()}
+            worst = max(grad_rel, key=grad_rel.get)
+            loss_rel = abs(step_loss[0] - step_loss[1]) / abs(step_loss[1])
+            traj = [[float(tr.train_batch(b, masks=mk)) for b, mk in zip(tbatches, masks)] for tr in pair]
+            traj_rel = max(abs(a - b) / abs(b) for a, b in zip(*traj))
+            print(f"jepa {name} kernel vs plain path: loss rel {loss_rel:.3e}; gradient ||a-b||/||b|| "
+                  f"max {grad_rel[worst]:.3e} ({worst}), median "
+                  f"{float(np.median(list(grad_rel.values()))):.3e} over {len(grad_rel)} leaves (bar "
+                  f"{tol_grad}); {TRAJ_STEPS}-step losses kernel {traj[0]} plain {traj[1]}, max rel "
+                  f"{traj_rel:.3e} (bar {tol_loss})", flush=True)
+            check(len(grad_rel) == sum(1 for _ in m.parameters()) and grads[0].keys() == grads[1].keys(),
+                  f"jepa {name}: every parameter gets a gradient")
+            check(all(np.isfinite(list(grad_rel.values()))) and grad_rel[worst] <= tol_grad,
+                  f"jepa {name}: gradients kernel vs plain")
+            check(loss_rel <= tol_loss and traj_rel <= tol_loss, f"jepa {name}: losses kernel vs plain")
+            res.update({"loss_rel_vs_plain": loss_rel, "grad_rel_vs_plain_max": grad_rel[worst],
+                        "grad_rel_worst_leaf": worst,
+                        "grad_rel_vs_plain_median": float(np.median(list(grad_rel.values()))),
+                        "trajectory_kernel": traj[0], "trajectory_plain": traj[1],
+                        "trajectory_max_rel": traj_rel})
+            del pair, grads, tr, loss
+            torch.cuda.empty_cache()
+
+        if name == "jepa_struct":
+            # save, restore into a fresh trainer, one more step each: bit-equal
+            ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_jepa_")
+            try:
+                path = os.path.join(ckpt_dir, f"{name}.ckpt.pt")
+                trainer.save(path)
+                other = JEPATrainer(cfg, seed=1, device=dev)
+                check(other.restore(path), f"jepa {name}: restore found the checkpoint")
+            finally:
+                shutil.rmtree(ckpt_dir)
+            nb = tbatches[-1]
+            la, lb = trainer.train_batch(nb), other.train_batch(nb)
+            same = [torch.equal(la, lb)] + [
+                all(torch.equal(a, b) for a, b in zip(u.state_dict().values(), v.state_dict().values()))
+                for u, v in ((trainer.model, other.model), (trainer.target, other.target))]
+            sa, sb = trainer.optimizer.state_dict()["state"], other.optimizer.state_dict()["state"]
+            same.append(sa.keys() == sb.keys() and all(
+                torch.equal(sa[k][f], sb[k][f].to(sa[k][f].device)) for k in sa for f in sa[k]))
+            print(f"jepa {name} save/restore, then one step each: loss, params, EMA target, "
+                  f"optimizer state bit-equal {same}, step {other.cur_iter}", flush=True)
+            check(all(same) and other.cur_iter == trainer.cur_iter == steps + 1,
+                  f"jepa {name}: a restored run's next step bit-equal to the uninterrupted run's")
+            res["save_restore_next_step_bit_equal"] = same
+            del other
+
+        tb = {"cutouts": torch.as_tensor(np.concatenate([b["cutouts"] for b in tbatches])[:B], device=dev)}
+        res["train_step"] = step_times(lambda: trainer.train_batch(tb), B, timed, f"jepa {name}")
+        if name == "jepa_struct":
+            # the step by part: before each part the device is drained and
+            # then held by a sleep kernel while the host queues the part, so
+            # CUDA events around the part time its kernels back to back
+            # (device ms) and the clock times the queueing (host ms). One part
+            # at a time: a whole held step overflows the launch queue, and
+            # the host then waits on the device.
+            parts = ("inputs", "masks", "target", "forward", "backward", "adamw", "ema")
+            hold = 200_000_000  # sleep cycles: about 100 ms, past the longest part's queueing
+            s0, s1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            s0.record()
+            torch.cuda._sleep(hold)
+            s1.record()
+            s1.synchronize()
+            sleep_ms = s0.elapsed_time(s1)
+            runs = []
+            for _ in range(timed + 2):
+                rec, cur = [], {}
+
+                def begin(cur=cur):
+                    torch.cuda.synchronize()
+                    torch.cuda._sleep(hold)
+                    cur["event"] = torch.cuda.Event(enable_timing=True)
+                    cur["event"].record()
+                    cur["t"] = time.perf_counter()
+
+                def mark(part_, rec=rec, cur=cur, begin=begin):
+                    e_ = torch.cuda.Event(enable_timing=True)
+                    e_.record()
+                    rec.append((part_, cur["event"], e_, (time.perf_counter() - cur["t"]) * 1e3))
+                    if part_ != parts[-1]:
+                        begin()
+
+                begin()
+                trainer.train_batch(tb, mark=mark)
+                runs.append(rec)
+            torch.cuda.synchronize()
+            dev_part, host_part = dict.fromkeys(parts, 0.0), dict.fromkeys(parts, 0.0)
+            queue_ms = dict.fromkeys(parts, 0.0)
+            for k_, rec in enumerate(runs):
+                for part_, e0, e1, h_ms in rec:
+                    queue_ms[part_] = max(queue_ms[part_], h_ms)
+                    if k_ >= 2:
+                        dev_part[part_] += e0.elapsed_time(e1) / timed
+                        host_part[part_] += h_ms / timed
+            # a part whose queueing outlasted the hold let the device wait on
+            # the host: its device ms are not a measurement
+            dev_part = {k: v if queue_ms[k] < 0.9 * sleep_ms else "not measured"
+                        for k, v in dev_part.items()}
+            print(f"jepa {name} step by part, device ms (CUDA events, the device held "
+                  f"{sleep_ms:.1f} ms while each part is queued): "
+                  + ", ".join(f"{k} {v if isinstance(v, str) else round(v, 3)}" for k, v in dev_part.items())
+                  + "; host ms to queue: " + ", ".join(f"{k} {v:.3f}" for k, v in host_part.items())
+                  + f", sum {sum(host_part.values()):.3f}; longest queueing by part {queue_ms}", flush=True)
+            check(list(dev_part) == list(parts), f"jepa {name}: the step's parts")
+            res["step_parts"] = {"device_ms": dev_part, "host_queue_ms": host_part,
+                                 "held_ms": sleep_ms, "longest_queue_ms": queue_ms}
+        out[name] = res
+        del trainer, tb, tbatches, x
         torch.cuda.empty_cache()
     return out
 
@@ -1607,6 +1928,79 @@ def main() -> int:
         del xa, xm, g, a_p, forms
     torch.cuda.empty_cache()
     mark("f32_kernels")
+
+    # the five kernels of an I-JEPA step alone at the JEPA paths' widths
+    # (JEPA_SHAPES), the same way: every output against the plain version
+    # on the same inputs (bf16 at TOL_FWD / TOL_BWD, fp32 at TOL_F32_FORMS),
+    # one launch each (fp32: an fp32 one), timed beside the plain version
+    def block_bounds(B, n, d, h, f, e):
+        M, hd = B * n, d // h
+        core, probs = B * h * n * n * hd, B * h * n * n * e
+        w_attn, w_mlp = 4 * d * d * e, 2 * d * f * e
+        fwd_bytes = 2 * M * d * e + w_attn + 6 * d * 4
+        return {
+            "attn_block_fwd": (8 * M * d * d + 4 * core, fwd_bytes),
+            "attn_block_fwd_stash": (8 * M * d * d + 4 * core, fwd_bytes + M * 3 * d * e + probs),
+            "attn_block_bwd_stash": (16 * M * d * d + 10 * core,
+                                     6 * M * d * e + probs + 2 * w_attn + 8 * d * 4),
+            "mlp_block_fwd": (4 * M * d * f, 2 * M * d * e + w_mlp + (3 * d + f) * 4),
+            "mlp_block_bwd": (10 * M * d * f, 3 * M * d * e + 2 * w_mlp + (5 * d + 2 * f) * 4),
+        }
+
+    jepa_gap = {}
+    for label, B, n, d, h, f, dt in JEPA_SHAPES:
+        fp32 = dt == "float32"
+        make = f32_block_args if fp32 else block_args
+        xa, xm = make("attn", B, n, d, f), make("mlp", B, n, d, f)
+        g = (torch.randn(B, n, d, generator=gen, device=dev) * 0.1).to(xa[0].dtype)
+        _, qkv_p, probs_p = attn_block_fwd_stash_plain(*xa, h)
+        cases = (
+            ("attn_block_fwd", fused_attn_block, attn_block_plain, (*xa, h), ("out",)),
+            ("attn_block_fwd_stash", attn_block_fwd_stash, attn_block_fwd_stash_plain,
+             (*xa, h), ("out", "qkv", "probs")),
+            ("attn_block_bwd_stash", attn_block_bwd_stash, attn_block_bwd_stash_plain,
+             (*xa[:4], xa[5], qkv_p, probs_p, g, h), grads_attn),
+            ("mlp_block_fwd", fused_mlp_block, mlp_block_plain, xm, ("out",)),
+            ("mlp_block_bwd", mlp_block_bwd, mlp_block_bwd_plain, (*xm[:6], g), grads_mlp),
+        )
+        bounds = block_bounds(B, n, d, h, f, 4 if fp32 else 2)
+        for name, kern, plain, args, outs in cases:
+            tol = TOL_F32_FORMS if fp32 else (TOL_BWD if name.endswith("bwd_stash") or
+                                              name == "mlp_block_bwd" else TOL_FWD)
+            before = (kern.launches, kern.f32_launches)
+            got, want = kern(*args), plain(*args)
+            torch.cuda.synchronize()
+            launched = (kern.launches - before[0], kern.f32_launches - before[1])
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            errs = {o: rel_err(a, b) for o, a, b in zip(outs, got, want)}
+            finite = all(bool(torch.isfinite(a.float()).all()) for a in got)
+            worst = max(r for r, _ in errs.values())
+            key = name + ("_f32" if fp32 else "")
+            jepa_gap[f"{key} {label}"] = {o: r for o, (r, _) in errs.items()}
+            print(f"parity {key} {label} B={B} N={n} D={d} H={h} F={f}: max-rel per output "
+                  + ", ".join(f"{o} {r:.2e}" for o, (r, _) in errs.items())
+                  + f" (bar {tol}), finite {finite}, launches {launched}", flush=True)
+            check(launched == (1, int(fp32)), f"{key} {label}: one launch{' (fp32)' if fp32 else ''}")
+            check(finite and worst <= tol and len(got) == len(outs) == len(want)
+                  and all(a.dtype == b.dtype and a.shape == b.shape for a, b in zip(got, want)),
+                  f"{key} {label} parity (dtypes and shapes as the plain version's)")
+            b_ms, b_by = bound_ms(*bounds[name], PEAK_FP32_PRODUCTS if fp32 else PEAK_BF16)
+            iters = 10 if B * n <= 64 * 77 else 5
+            timings[(key, label)] = {
+                "max_rel_err": worst, "max_abs_err": max(a for _, a in errs.values()),
+                "ms": cuda_ms(lambda: kern(*args), iters),
+                "device_ms": device_ms(lambda: kern(*args), 2),
+                "plain_ms": cuda_ms(lambda: plain(*args), max(iters // 2, 2)),
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            }
+            t_ = timings[(key, label)]
+            print(f"time {key} {label}: {t_['ms']:.4f} ms (device {t_['device_ms']:.4f}), plain "
+                  f"{t_['plain_ms']:.4f}, bound {b_ms:.4f} ({b_by})", flush=True)
+            del got, want
+        del xa, xm, g, qkv_p, probs_p, cases
+    torch.cuda.empty_cache()
+    mark("jepa_kernels")
 
     # the ViT-L paths' kernels at their configs' shapes: the MLP stash
     # forward and backward (mim_25_large), the attention recompute backward
@@ -2629,7 +3023,6 @@ def main() -> int:
     paths[POOL[0]] = training_phase(cfg_p, POOL[1], POOL[2], expect_b, TOL_GRAD_P, TOL_LOSS_P,
                                     POOL[4], seed=8, extra=pool_init, probes=probe_sets)
     mark("training_" + POOL[0])
-    del probe_sets
 
     # ---- 5c. the predictor ------------------------------------------------------
     pred_ckpt = os.path.join(ROOT, "models", "chip_smoke_mim_1.ckpt.pt")
@@ -2671,6 +3064,10 @@ def main() -> int:
             extra=extra_f, expect_dec=dec_exp and with_f32(dec_exp), dtype=None)
         check(f32_paths[name_]["dtype"] == "float32", f"{name_} trains in fp32")
         mark("training_f32_" + name_)
+    # ---- 5f. I-JEPA -----------------------------------------------------------
+    jepa = jepa_phase(dev, probe_sets, zero_counters, launch_counts, step_times)
+    del probe_sets
+    mark("jepa")
     shapes = {c: tuple(r[k] for k in ("layers", "embed_dim", "batch", "channels", "remat", "ra_dec"))
               for c, r in paths.items()}
     check(shapes == {CONFIG: (12, 768, 64, 5, False, False), LARGE[0]: (24, 768, 64, 5, False, False),
@@ -2835,7 +3232,9 @@ def main() -> int:
                           for r, v in predictor_f32["routes"].items()},
                        **{f"training_f32_{c}": r["launches"][counter] for c, r in f32_paths.items()},
                        "training_f32_mae_tiny_remat":
-                           f32_paths["mae_tiny"]["remat_run"]["launches"][counter]}
+                           f32_paths["mae_tiny"]["remat_run"]["launches"][counter],
+                       **{f"jepa_{c}": r["launches"][counter] for c, r in jepa.items()
+                          if r["geometry"]["dtype"] == "float32"}}
         elif name.endswith("_f32"):
             by_path = {"attention_module_float32": attn_launches_by_dtype["float32"][counter]}
         else:
@@ -2846,7 +3245,9 @@ def main() -> int:
                        **{f"predictor_{r}": v["launches"].get(counter, 0)
                           for r, v in predictor["routes"].items()},
                        "predictor_infer": predictor["infer"]["launches"].get(counter, 0),
-                       "attention_module": attn_launches_by_dtype["bfloat16"][counter]}
+                       "attention_module": attn_launches_by_dtype["bfloat16"][counter],
+                       **{f"jepa_{c}": r["launches"][counter] for c, r in jepa.items()
+                          if r["geometry"]["dtype"] == "bfloat16"}}
         check(sum(by_path.values()) > 0, f"{name} launched on a main path")
         kernels.append({
             "name": name, "route": route, "source": source, "replaces": replaces,
@@ -2859,7 +3260,7 @@ def main() -> int:
           "kernel9_vs_kernel8_max_rel": {str(b): v for b, v in stream_gap.items()},
           "packed_vs_unpacked_max_rel": {str(b): v for b, v in pack_gap.items()},
           "attention_core_max_rel": core_gap, "kernel12_equals_k2_core": same_core,
-          "f32_forms_max_rel": f32_gap,
+          "f32_forms_max_rel": f32_gap, "jepa_forms_max_rel": jepa_gap,
           "kernel13_twice_bit_equal": same_bwd, "kernel13_f32_twice_bit_equal": same_bwd_f32,
           "sdpa_f32_max_rel_vs_plain": sdpa_gap})
     emit({
@@ -2874,6 +3275,7 @@ def main() -> int:
         "predictor": predictor,
         "predictor_f32": predictor_f32,
         "training_f32_paths": f32_paths,
+        "jepa": jepa,
         "attention_module": attention_module,
         "retrieval_path": retrieval,
         "bank_1M_bf16": {"query_ms_host": q_host_ms, "queries_per_s": 1e3 / q_host_ms,

@@ -44,12 +44,13 @@ def batch_images(batch: dict, device) -> torch.Tensor:
 def make_encoder(model):
     """An ``(imgs, ra_dec) -> tokens`` closure for repeated extraction;
     ``ra_dec`` is read only by an ``ra_dec = True`` model. A MIM model's
-    ``encode`` returns ``(tokens, mask, ids_restore)``, a predictor's the
-    tokens alone (JAX ``_encode_fn``)."""
+    ``encode`` returns ``(tokens, mask, ids_restore)``, a predictor's and an
+    I-JEPA model's (``models/jepa.SkyJEPA``: its online encoder over the
+    full grid) the tokens alone (JAX ``_encode_fn``)."""
 
     @torch.inference_mode()
     def encode(imgs, ra_dec=None):
-        out = model.encode(imgs, ra_dec=ra_dec if model.ra_dec else None)
+        out = model.encode(imgs, ra_dec=ra_dec) if model.ra_dec else model.encode(imgs)
         return out[0] if isinstance(out, tuple) else out
 
     return encode

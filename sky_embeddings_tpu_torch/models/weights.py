@@ -12,7 +12,13 @@ maps the same way: ``patch_embed``, ``cls_token``, ``patch_mask_values``,
 ``ra_dec_embed``, ``encoder/block*``, then ``norm`` (``map`` and ``token``
 pooling) or ``fc_norm`` (``avg``), the ``map`` pool's ``pool/latent``,
 ``pool/xattn/{q,kv,proj}``, ``pool/norm``, ``pool/mlp/{fc1,fc2}``, and
-``head/{kernel,bias}`` at (D, num_labels). A tree in the scan layout
+``head/{kernel,bias}`` at (D, num_labels). An I-JEPA model
+(``models/jepa.SkyJEPA``) maps the same way: ``encoder/patch_embed/proj``,
+``encoder/patch_mask_values``, ``encoder/encoder/block*``, ``encoder/norm``
+and ``predictor/{proj_in,mask_token,blocks/block*,norm,proj_out}`` (the
+sin-cos tables are constants in both); its EMA target tree, the
+``encoder`` subtree alone (JAX ``train/jepa.py:131``), maps onto a
+``JEPAEncoder``'s state dict (``JEPATrainer.target``). A tree in the scan layout
 (``encoder/blocks/block/...``, every leaf stacked over the blocks, as JAX
 builds ViT-H) maps to ``encoder.blocks.block.*``, which ``Encoder`` unstacks
 into the loop layout as it loads (``models/layers.py``). Both

@@ -25,6 +25,11 @@ Each group carries its scale as ``lr_scale``; the trainers set
   ``pool`` are in the optimizer; the frozen parameters get neither updates
   nor decay, as ``optax.set_to_zero`` gives them.
 * ``fs``: every parameter, betas 0.9/0.999, the ndim > 1 decay mask.
+* ``jepa``: I-JEPA's chain (JAX ``train/jepa.py:44-56, 122-126``),
+  ``scale_by_adam(0.9, 0.999) -> u + wd(t) · p`` on the ndim > 1 leaves
+  ``-> · -lr(t)``: ``fs``'s AdamW over the context encoder and the
+  predictor, whose decayed groups' ``weight_decay`` the trainer sets to
+  ``wd(t)`` before every step.
 """
 
 from __future__ import annotations
@@ -149,3 +154,4 @@ def supervised_optimizer(model: torch.nn.Module, init_lr: float, weight_decay: f
     """Fully-supervised AdamW (reference ``vit.py:163-171``)."""
     named = list(model.named_parameters())
     return _adamw(named, init_lr, weight_decay, (0.9, 0.999), decay_mask(named))
+

@@ -19,7 +19,10 @@ does.
 
 ``train_network`` runs the linear probes (``eval/linear_probe``) after each
 validation pass when the config names probe sets, and keeps their metrics
-beside the losses, as JAX's does.
+beside the losses, as JAX's does. It drives the I-JEPA trainer
+(``train/jepa.JEPATrainer``) the same way, as JAX's ``pretrain_jepa.py``
+does; its probes read the online encoder, which is what JAX's
+``pretrainer.variables()`` holds.
 
 Not ported yet (ROADMAP): tensor parallelism and ZeRO (they raise), and the
 figures of ``train_network``.
@@ -206,7 +209,7 @@ class MIMPretrainer:
 
 
 def train_network(
-    pretrainer: MIMPretrainer,
+    pretrainer,
     train_batches,
     val_batcher,
     total_batch_iters: int,
@@ -219,7 +222,8 @@ def train_network(
     max_val_batches: int = 200,
     log_fn: Callable[[str], None] = print,
 ) -> None:
-    """The pretraining loop (JAX ``train_network``): train steps; every
+    """The pretraining loop (JAX ``train_network``) of a
+    :class:`MIMPretrainer` or a ``train/jepa.JEPATrainer``: train steps; every
     ``verbose_iters`` a validation pass of at most ``max_val_batches`` and,
     when probe sets are given (h5 paths, or lists of labelled batches), the
     linear probes with ``lp_combine`` pooling, their metrics appended to

@@ -63,6 +63,14 @@ their fp32 forms with the plain versions patched to fail; small fp32
 encoders on each route reach every parameter; their 3xTF32 GEMM in each
 form and epilogue against fp32 ``torch.mm``.
 
+I-JEPA's widths: the five kernels a JEPA step runs (K2, kernels 2 and 3,
+K1 and kernel 8) at the ViT-S encoder (D = 384, 6 heads of 64, N = 64)
+and the 192-wide predictor (3 heads of 64, N = 77) in bf16, and at
+``jepa_tiny``'s fp32 widths (D = 192 over 16 tokens; one head of 96 over
+21), against their plain versions; one ``JEPATrainer`` step of
+``jepa_struct`` and ``jepa_tiny`` cut to depth 2 launches exactly those
+kernels, reaches every parameter and matches the plain path.
+
 Every test is marked ``cuda`` and skips where there is no card. This file
 imports neither JAX nor the JAX package, so it runs on a host without them:
 
@@ -1925,3 +1933,100 @@ def test_f32_encoder_paths_reach_every_parameter(dev, stash, stash_mlp, remat, H
     for n, g in grads[0].items():
         assert g is not None and torch.isfinite(g).all(), n
         assert float((g - grads[1][n]).norm() / grads[1][n].norm()) <= 1e-5, n
+
+
+# ---- I-JEPA's widths -----------------------------------------------------------
+# (B, N, D, H, F, dtype): jepa_struct's ViT-S encoder (D = 384, 6 heads of 64)
+# over its 64 tokens and its 192-wide predictor (3 heads of 64) over 64 + 13
+# at B = 256, the predictor at jepa_1's B = 64 and a ragged 63; jepa_tiny's
+# fp32 encoder (D = 192, 3 heads of 64) over 16 and its predictor (one head
+# of 96) over 16 + 5 at B = 16 and a ragged 15
+JEPA_SHAPES = [(256, 64, 384, 6, 1536, torch.bfloat16), (256, 77, 192, 3, 768, torch.bfloat16),
+               (64, 77, 192, 3, 768, torch.bfloat16), (63, 77, 192, 3, 768, torch.bfloat16),
+               (16, 16, 192, 3, 768, torch.float32), (16, 21, 96, 1, 384, torch.float32),
+               (15, 21, 96, 1, 384, torch.float32)]
+
+
+@pytest.mark.parametrize("B,N,D,H,F,dtype", JEPA_SHAPES)
+def test_jepa_block_kernels_match_plain(dev, B, N, D, H, F, dtype):
+    """The five kernels an I-JEPA step runs (K2, kernels 2 and 3, K1 and
+    kernel 8) at each I-JEPA width against their plain versions, output by
+    output, each call one launch (fp32: an fp32 one)."""
+    fp32 = dtype == torch.float32
+    make = _f32_block if fp32 else _block_args
+    tol_f, tol_b = (TOL_F32_FORMS, TOL_F32_FORMS) if fp32 else (TOL_FWD, TOL_BWD)
+    attn = make(dev, B, N, D, (D, 3 * D), (D, D), seed=60)
+    mlp = make(dev, B, N, D, (D, F), (F, D), seed=61)
+    g = (0.1 * torch.randn(B, N, D, device=dev, generator=torch.Generator(dev).manual_seed(62))).to(dtype)
+    _, qkv, probs = tab.attn_block_fwd_stash_plain(*attn, H)
+    counted = (tab.fused_attn_block, tab.attn_block_fwd_stash, tab.attn_block_bwd_stash,
+               tmb.fused_mlp_block, tmb.mlp_block_bwd)
+    before = [(f.launches, f.f32_launches) for f in counted]
+    cases = [
+        (tab.fused_attn_block(*attn, H), tab.attn_block_plain(*attn, H), tol_f),
+        (tab.attn_block_fwd_stash(*attn, H), tab.attn_block_fwd_stash_plain(*attn, H), tol_f),
+        (tab.attn_block_bwd_stash(*attn[:4], attn[5], qkv, probs, g, H),
+         tab.attn_block_bwd_stash_plain(*attn[:4], attn[5], qkv, probs, g, H), tol_b),
+        (tmb.fused_mlp_block(*mlp), tmb.mlp_block_plain(*mlp), tol_f),
+        (tmb.mlp_block_bwd(*mlp[:6], g), tmb.mlp_block_bwd_plain(*mlp[:6], g), tol_b),
+    ]
+    torch.cuda.synchronize()
+    assert [(f.launches - n, f.f32_launches - n32) for f, (n, n32) in zip(counted, before)] == \
+        [(1, int(fp32))] * 5
+    for got, want, tol in cases:
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype and a.shape == b.shape
+            assert _max_rel(a, b) <= tol
+
+
+@pytest.mark.parametrize("name", ["jepa_struct", "jepa_tiny"])
+def test_jepa_training_step_on_the_card(dev, name, monkeypatch):
+    """One ``JEPATrainer`` step's forward and backward on the shipped config
+    at depth 2 (the predictor at depth 1), B = 32, a NaN band: the launches
+    are the five kernels' (fp32 forms for jepa_tiny) in the counts that the
+    target encoder, the context encoder and four predictor passes give;
+    every parameter gets a finite gradient; the loss and gradients match
+    the plain path's."""
+    import os
+
+    from sky_embeddings_tpu_torch.configuration import apply_overrides, load_config
+    from sky_embeddings_tpu_torch.models import jepa as tj
+    from sky_embeddings_tpu_torch.train.jepa import JEPATrainer
+
+    cfg = load_config(name, os.path.join(os.path.dirname(__file__), "..", "configs"))
+    size = cfg.architecture.str("model_type")
+    monkeypatch.setitem(tj._SIZES, size, {**tj._SIZES[size], "depth": 2})
+    cfg = apply_overrides(cfg, ["ARCHITECTURE.pred_depth=1", "TRAINING.batch_size=32"], name)
+    pair = [JEPATrainer(cfg, seed=0, device=dev) for _ in range(2)]
+    pair[1].plain = True
+    m = pair[0].model
+    fp32 = m.dtype == torch.float32
+    gen = torch.Generator(dev).manual_seed(63)
+    imgs = torch.randn(32, m.in_chans, m.img_size, m.img_size, device=dev, generator=gen)
+    imgs[0, 1] = float("nan")
+    masks = pair[0].draw_masks(32, gen)
+    counted = (tab.fused_attn_block, tab.attn_block_fwd_stash, tab.attn_block_bwd_stash,
+               tmb.fused_mlp_block, tmb.mlp_block_bwd, tab.attn_block_bwd, tmb.mlp_block_fwd_stash,
+               tmb.mlp_block_bwd_stash, tmb.mlp_block_bwd_stream)
+    # the target's 2 layers (K2, K1), the context's 2 (kernel 2, K1 and
+    # kernels 3, 8), 4 predictor passes of 1 layer (the same)
+    want = [2, 6, 6, 8, 6, 0, 0, 0, 0]
+    grads, losses = [], []
+    for tr in pair:
+        before = [(f.launches, f.f32_launches) for f in counted]
+        loss = tr.loss(imgs, masks)
+        loss.backward()
+        torch.cuda.synchronize()
+        if tr is pair[0]:
+            got = [(f.launches - n, f.f32_launches - n32) for f, (n, n32) in zip(counted, before)]
+            assert got == [(w, w * fp32) for w in want]
+        losses.append(float(loss.detach()))
+        grads.append({n: p.grad for n, p in tr.model.named_parameters()})
+    assert grads[0].keys() == {n for n, _ in m.named_parameters()}
+    tol = 1e-5 if fp32 else 3e-2
+    assert abs(losses[0] - losses[1]) <= tol * abs(losses[1])
+    for n, g in grads[0].items():
+        assert g is not None and torch.isfinite(g).all(), n
+        assert float((g - grads[1][n]).norm() / grads[1][n].norm()) <= tol, n

@@ -14,7 +14,11 @@ every shipped stash config. The fp32 GEMM's tile and split rule
 (``csrc/gemm_f32.cuh`` ``f32_plan``, copied as ``gemm.f32_plan``) fits,
 covers K in whole slabs, sizes the workspace the C side allocates and
 fills the waves at every fp32 product of every fp32 config that runs on
-the card, ViT-H's and kernel 9's slabs included.
+the card, ViT-H's and kernel 9's slabs included. The I-JEPA configs
+(``jepa_struct``, ``jepa_1`` in bf16, ``jepa_tiny`` in fp32) are held the
+same way at every block they run: the target encoder over the full grid,
+the context encoder over its fixed context budget and the narrow predictor
+over the context plus one target block (``_jepa_blocks``).
 """
 
 import math
@@ -25,8 +29,11 @@ import pytest
 import torch
 
 from sky_embeddings_tpu_torch.configuration import load_config
+from sky_embeddings_tpu_torch.models.jepa import _SIZES as JEPA_SIZES
 from sky_embeddings_tpu_torch.models.mim import MODEL_TYPES
+from sky_embeddings_tpu_torch.ops.jepa_masks import mask_budgets
 from sky_embeddings_tpu_torch.ops.kernels import gemm as G
+from sky_embeddings_tpu_torch.train.jepa import mask_params
 
 CONFIGS = Path(__file__).resolve().parents[1] / "configs"
 MIM_CONFIGS = sorted(
@@ -34,6 +41,35 @@ MIM_CONFIGS = sorted(
     if load_config(p.stem, str(CONFIGS))["ARCHITECTURE"].str("model_type", "") in MODEL_TYPES
 )
 DECODER_D = 512  # SkyMIM's decoder_embed_dim
+JEPA_CONFIGS = sorted(p.stem for p in CONFIGS.glob("*.ini")
+                      if "pred_emb_dim" in load_config(p.stem, str(CONFIGS))["ARCHITECTURE"])
+
+
+def _jepa_blocks(name: str, batches=None):
+    """(M, D) of every block width and sequence an I-JEPA config runs, at one
+    image, its batch and 1024 (or ``batches``): the target encoder over the
+    L = G² grid, the context encoder over K_ctx tokens and the predictor
+    (``pred_emb_dim`` wide) over K_ctx + K_tgt."""
+    cfg = load_config(name, str(CONFIGS))
+    arch = cfg["ARCHITECTURE"]
+    grid = arch.int("img_size") // arch.int("patch_size")
+    m = mask_params(cfg)
+    k_ctx, k_tgt = mask_budgets(grid, m["pred_mask_scale"], m["enc_mask_scale"], m["min_keep"])
+    D = JEPA_SIZES[arch.str("model_type", "small")]["embed_dim"]
+    out = []
+    for B in batches or (1, cfg["TRAINING"].int("batch_size"), 1024):
+        out += [(B * grid * grid, D), (B * k_ctx, D), (B * (k_ctx + k_tgt), arch.int("pred_emb_dim"))]
+    return out
+
+
+def test_jepa_blocks_are_the_shipped_geometry():
+    """jepa_struct and jepa_1: ViT-S (D = 384) over 64 tokens, the
+    192-wide predictor over 64 + 13; jepa_tiny: D = 192 over 16, the 96-wide
+    predictor over 16 + 5."""
+    assert JEPA_CONFIGS == ["jepa_1", "jepa_struct", "jepa_tiny"]
+    assert _jepa_blocks("jepa_struct", (256,)) == [(256 * 64, 384), (256 * 64, 384), (256 * 77, 192)]
+    assert _jepa_blocks("jepa_1", (64,)) == [(64 * 64, 384), (64 * 64, 384), (64 * 77, 192)]
+    assert _jepa_blocks("jepa_tiny", (16,)) == [(16 * 16, 192), (16 * 16, 192), (16 * 21, 96)]
 
 
 def _products(M: int, D: int):
@@ -86,6 +122,13 @@ def test_plan_fits_every_forward_product_of_the_shipped_configs(name):
     assert len(products) >= 12
     for _, M, N, K in products:
         _assert_sound(M, N)
+
+
+@pytest.mark.parametrize("name", JEPA_CONFIGS)
+def test_plan_fits_every_forward_product_of_the_jepa_configs(name):
+    for M, D in _jepa_blocks(name):
+        for _, M_, N, K in _products(M, D):
+            _assert_sound(M_, N)
 
 
 @pytest.mark.parametrize("case", range(len(BENCH_PRODUCTS)))
@@ -219,6 +262,15 @@ def test_bwd_plan_fits_every_backward_product_of_the_shipped_configs(name):
         _assert_bwd_sound(shapes)
 
 
+@pytest.mark.parametrize("name", JEPA_CONFIGS)
+def test_bwd_plan_fits_every_backward_product_of_the_jepa_configs(name):
+    """Kernel 8's two launches and kernels 3 and 4's three at every block
+    width and sequence of an I-JEPA config."""
+    for M, D in _jepa_blocks(name):
+        for shapes in G.mlp_bwd_groups(M, D, _stream_slab(D, 4 * D)) + G.attn_bwd_groups(M, D):
+            _assert_bwd_sound(shapes)
+
+
 @pytest.mark.parametrize("case", range(len(BENCH_BWD)))
 def test_bwd_plan_fits_the_bench_models(case):
     _assert_bwd_sound(BENCH_BWD[case])
@@ -276,7 +328,8 @@ def test_split_count_covers_k_in_whole_slabs(nk):
         assert (sp - 1) * chunk < nk <= sp * chunk  # no empty slice, nothing left over
 
 
-@pytest.mark.parametrize("M,N", [(64 * 65, 3072), (2112, 1280), (1, 8), (66560, 2048)])
+@pytest.mark.parametrize("M,N", [(64 * 65, 3072), (2112, 1280), (1, 8), (66560, 2048)]
+                         + sorted({(M, 4 * D) for n in JEPA_CONFIGS for M, D in _jepa_blocks(n)}))
 def test_dual_plan_fits(M, N):
     plan = G.dual_plan(M, N)
     assert plan["tiles"] == math.ceil(M / 128) * math.ceil(N / 128)
@@ -479,7 +532,8 @@ def _attn_source_groups(M: int, D: int):
     return out
 
 
-@pytest.mark.parametrize("M,D", [(64 * 65, 768), (32 * 66, 1024), (1, 64)])
+@pytest.mark.parametrize("M,D", [(64 * 65, 768), (32 * 66, 1024), (1, 64)]
+                         + sorted({b for n in JEPA_CONFIGS for b in _jepa_blocks(n)}))
 def test_attn_bwd_groups_are_the_launches_of_kernels_3_and_4(M, D):
     """``attn_bwd_groups`` names the products the C source launches: dctx
     and dy (``"nt"``, K = D and 3·D), dWqkv and dWproj in one ``"tn"`` group
@@ -603,8 +657,8 @@ def _f32_blocks():
     """(label, B, tokens, D) of every encoder (and MAE decoder) that a shipped
     fp32 config runs on the card, at its batch: the configs with no ``dtype``
     whose backbone loads (a predictor reads its pretraining config's
-    architecture under its own), and chip_smoke.py's ViT-H in fp32 at B=32
-    and 256."""
+    architecture under its own), an I-JEPA config's blocks as (label, 1,
+    rows, D), and chip_smoke.py's ViT-H in fp32 at B=32 and 256."""
     out = []
     for p in sorted(CONFIGS.glob("*.ini")):
         cfg = load_config(p.stem, str(CONFIGS))
@@ -615,8 +669,13 @@ def _f32_blocks():
             continue  # mim_25: loads in neither package
         arch = dict(load_config(base, str(CONFIGS))["ARCHITECTURE"].items()) if base else {}
         arch.update(cfg["ARCHITECTURE"].items())
+        if "pred_emb_dim" in arch:  # I-JEPA: the encoder's and the predictor's blocks
+            B = cfg["TRAINING"].int("batch_size")
+            for M, D in dict.fromkeys(_jepa_blocks(p.stem, (B,))):
+                out.append((f"{p.stem} D={D} M={M}", 1, M, D))
+            continue
         if arch.get("model_type", "") not in MODEL_TYPES:
-            continue  # JEPA's modules are not ported
+            continue
         grid = (int(arch["img_size"]) // int(arch.get("patch_size", 8))) ** 2
         n_tok = grid + 1 + int(str(arch.get("ra_dec", "False")) == "True")
         B = cfg["TRAINING"].int("batch_size")
@@ -709,9 +768,11 @@ def test_f32_plan_fills_the_waves_of_every_fp32_config(label, B, n_tok, D):
 def test_f32_plan_covers_the_configs_the_fp32_path_runs():
     labels = {b[0] for b in F32_BLOCKS}
     for name in ("cls_fs_1k", "cls_fs_16k", "cls_ft_1k_large", "lp_1", "z_ft_2", "z_tiny",
-                 *F32_SOURCES, "mae_tiny decoder", "vith"):
+                 *F32_SOURCES, "mae_tiny decoder", "vith", "jepa_tiny D=192 M=256",
+                 "jepa_tiny D=96 M=336"):
         assert name in labels, name
-    assert not any(lab.startswith(("cls_ap_", "jepa")) or lab == "cls_ft_1k" for lab in labels)
+    assert not any(lab.startswith(("cls_ap_", "jepa_1", "jepa_struct")) or lab == "cls_ft_1k"
+                   for lab in labels)
 
 
 # the plan's picks, each the card sweep's fastest or within 5% of it

@@ -210,7 +210,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     for new in ("data.fits_io", "data.fits_loader", "sky_sim_search", "eval.bank",
                 "eval.simsearch", "ops.kernels.simscore", "ops.kernels.attention", "eval.probe",
                 "eval.linear_probe", "models.predictor", "train.predictor", "data.device_cache",
-                "utils.plotting", "train_predictor", "test_predictor", "semantic_validation"):
+                "utils.plotting", "train_predictor", "test_predictor", "semantic_validation",
+                "ops.jepa_masks", "models.jepa", "train.jepa", "pretrain_jepa"):
         assert f"{pkg.__name__}.{new}" in mods
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
 

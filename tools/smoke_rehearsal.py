@@ -7,7 +7,8 @@ Imports ``chip_smoke`` from TREE (the repo root by default) as a module,
 shrinks its shapes, step counts and sets, loads the tiny configs in place of
 the full-width ones (``mim_1`` as ``mim_tiny`` with 5 bands; ``mim_25_large``
 and ``mim_32`` as ``mim_tiny_large``, the latter with remat and the RA/Dec
-token; the predictor configs at 16 x 16 and batch 8), cuts every model to
+token; the predictor configs at 16 x 16 and batch 8; ``jepa_struct`` and
+``jepa_1`` at 16 x 16, batch 8, predictor depth 1), cuts every model to
 depth 2, stubs ``torch.cuda``, the profiler, ``nvidia-smi``, the nvcc build
 and the C-only helpers (the TMA encode timer, the group plan, kernel 12's
 bit-equality launch), and runs ``main()`` with ``check`` logging instead of
@@ -32,6 +33,7 @@ import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
 from sky_embeddings_tpu_torch import configuration as conf  # noqa: E402
+from sky_embeddings_tpu_torch.models import jepa as pj  # noqa: E402
 from sky_embeddings_tpu_torch.models import mim as pm  # noqa: E402
 from sky_embeddings_tpu_torch.ops.kernels import attention as tat  # noqa: E402
 from sky_embeddings_tpu_torch.ops.kernels import attn_block as tab  # noqa: E402
@@ -71,6 +73,10 @@ def shrink() -> None:
                                                    "attn_block_fwd_stash_seg_f32",
                                                    "attn_block_bwd_seg_f32")),
                   ("vith", 4, 18, 64, 16, 256, 0, ("mlp_block_bwd_stream_f32",)))
+    cs.JEPA_SHAPES = (("jepa_struct_enc", 4, 16, 64, 4, 256, "bfloat16"),
+                      ("jepa_struct_pred", 4, 21, 32, 2, 128, "bfloat16"),
+                      ("jepa_tiny_enc", 4, 16, 48, 3, 192, "float32"),
+                      ("jepa_tiny_pred", 3, 21, 24, 1, 96, "float32"))
     cs.F32_TRAIN = (("mim_tiny", 2, 1, ((16, 1),)), ("mim_tiny_large", 2, 1, ((16, 1),)),
                     ("mae_tiny", 2, 1, ((16, 1),)), ("mim_32_vith_f32", 2, 1, ((4, 1),)))
     cs.MAE_TINY_REMAT = (16, 2)
@@ -81,6 +87,9 @@ def shrink() -> None:
     for size in ("base", "large", "huge"):
         pm._SIZES[size]["depth"] = 2
     pm._SIZES["base"]["decoder_depth"] = 2
+    cs.JEPA_RUNS = (("jepa_struct", 2, 1, 1), ("jepa_1", 2, 0, 1), ("jepa_tiny", 2, 1, 1))
+    for size in ("small", "tiny"):
+        pj._SIZES[size]["depth"] = 2
 
 
 _load = conf.load_config
@@ -99,7 +108,10 @@ def load_config(name, cfg_dir=None):
         return conf.apply_overrides(_load("mim_tiny_large", cfg_dir),
                                     bf16 + ["TRAINING.remat=True", "ARCHITECTURE.ra_dec=True"], name)
     cfg = _load(name, cfg_dir)
-    if name == "mim_struct":
+    if name in ("jepa_struct", "jepa_1"):  # 16 x 16, as the probe sets; predictor depth 1
+        over = ["ARCHITECTURE.img_size=16", "ARCHITECTURE.patch_size=4", "TRAINING.batch_size=8",
+                "ARCHITECTURE.pred_depth=1"]
+    elif name == "mim_struct":
         over = ["ARCHITECTURE.img_size=16", "ARCHITECTURE.patch_size=4", "ARCHITECTURE.embed_dim=48"]
     elif name.startswith("z_struct") or name in _TINY_PRED:
         over = ["ARCHITECTURE.img_size=16", "TRAINING.batch_size=8", "TRAINING.num_train=16"]
@@ -147,6 +159,7 @@ def stub() -> list:
     torch.cuda.is_available = lambda: True
     torch.cuda.Event = _Event
     torch.cuda.synchronize = lambda *_, **__: None
+    torch.cuda._sleep = lambda *_: None
     torch.cuda.empty_cache = lambda: None
     torch.cuda.get_device_name = lambda *_: "CPU rehearsal"
     torch.cuda.device_count = lambda: 1
