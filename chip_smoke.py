@@ -205,6 +205,17 @@ failing loudly (any failure exits non-zero and prints no result line):
    full depth: kernel 9's fp32 form); each with every launch an fp32 one,
    the kernel path against the plain path (TOL_PRED_F32, TOL_F32_PATHS),
    the step's time, busy share and peak memory;
+5g. checkpoints and the sweep: ``mim_struct``'s ViT-B trainer state (bf16,
+   B=256; the ``mim_1`` path's weights and AdamW moments) written as the
+   JAX package's ``.ckpt.msgpack`` and as the port's ``.ckpt.pt``, each
+   restored into a fresh trainer: params, moments and the next step's loss
+   and every gradient bit-equal, with the write and read seconds, the
+   file's GB and the host RSS; ``z_struct_ft_512`` warm-started from each
+   file, its first step bit-equal; then ``z_struct_{ft,fs,ap}`` at 128 and
+   512 labels as shipped but for 10 steps, through
+   ``train_predictor_network`` with exact launches (``ft``, ``fs``: K2,
+   kernels 2, 3, 8 and K1; ``ap``: K1 and K2 alone), scored through the
+   compare twin's ``evaluate_model`` (JAX's row keys, finite);
 5f. I-JEPA, through the entry points ``pretrain_jepa`` calls
    (``JEPATrainer``, ``train_network``), each config as shipped, seeded
    weights, cutouts in memory: ``jepa_struct`` (bf16, B=256, ViT-S: D=384,
@@ -494,6 +505,15 @@ RAGGED = ((1_000_003, 3072, 130), (1_000_003, 37, 130))
 SLAB_ROWS = 300_000
 
 
+# phase 5g, checkpoints and the sweep: mim_struct's ViT-B trainer state (the
+# mim_1 path's weights and AdamW moments) through the JAX package's
+# format and the port's, a warm start of the second config from each, then
+# a mini sweep of the families at the sizes through the compare twin;
+# (pretraining config, warm-started config, families, sizes, train steps,
+# structured train rows, val rows)
+CKPT = ("mim_struct", "z_struct_ft_512", ("ft", "fs", "ap"), ("128", "512"), 10, 512, 512)
+
+
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise SystemExit(f"chip_smoke FAILED: {what}")
@@ -674,6 +694,225 @@ def predictor_phase(dev, mim_ckpt, zero_counters, launch_counts, step_times):
                     "images_per_s": infer_b * B / t_warm, "launches": launches}
     del kept, trainer, model
     torch.cuda.empty_cache()
+    return out
+
+
+def host_rss_gb() -> tuple[float, float]:
+    """(resident, peak resident) host memory of this process, GB: VmRSS of
+    ``/proc/self/status`` and ``getrusage``'s ``ru_maxrss``."""
+    import resource
+
+    rss = float("nan")
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                rss = int(line.split()[1]) * 1024 / 1e9
+    return rss, resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9
+
+
+def checkpoint_phase(dev, mim_ckpt, zero_counters, launch_counts):
+    """Phase 5g. (a) The ``mim_struct`` ViT-B trainer (bf16, B=256 as
+    shipped) restored from ``mim_ckpt``, the ``mim_1`` path's state with its
+    AdamW moments, is written as the JAX package's ``.ckpt.msgpack`` (params,
+    optax-form ``opt_state``, ``step``, ``losses``) and as the port's
+    ``.ckpt.pt``; a fresh trainer restored from each; their params and
+    moments, then the next step's loss and every gradient on the same batch
+    and mask, bit-equal. Write and read seconds, the file's GB, the host
+    RSS around the read. (b) ``z_struct_ft_512`` warm-started from each file:
+    the first step bit-equal. (c) The ``z_struct_{ft,fs,ap}`` families at
+    128 and 512 labels, B as shipped, ``total_batch_iters`` cut to CKPT[4],
+    through ``train_predictor_network`` (``ft`` and ``ap`` warm-started
+    from the JAX-format file) with the counters zeroed just before and read
+    just after (``ft``, ``fs``: K2, 2, 3, K1, 8; ``ap``: K1 and K2 alone),
+    then each best checkpoint scored through the compare twin's
+    ``evaluate_model`` (K1 and K2 per inference batch): JAX's row keys,
+    finite values."""
+    import numpy as np
+    import torch
+
+    from sky_embeddings_tpu_torch.compare_predictors import evaluate_model, json_rows
+    from sky_embeddings_tpu_torch.configuration import apply_overrides, load_config
+    from sky_embeddings_tpu_torch.data.device_cache import DeviceDataset
+    from sky_embeddings_tpu_torch.data.synthetic import make_cutouts, make_structured_cutouts
+    from sky_embeddings_tpu_torch.train.predictor import PredictorTrainer, train_predictor_network
+    from sky_embeddings_tpu_torch.train.pretrain import MIMPretrainer
+    from sky_embeddings_tpu_torch.utils.checkpoint import load_checkpoint
+
+    mae_name, warm_name, families, sizes, steps, n_train, n_val = CKPT
+    cfg_dir = os.path.join(ROOT, "configs")
+    mae = load_config(mae_name, cfg_dir)
+    work = os.path.join(ROOT, "models", "chip_smoke_ckpt")  # gitignored, removed below
+    os.makedirs(work, exist_ok=True)
+    out: dict = {}
+
+    def bit_equal(a, b):
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+
+    def grads(tr):
+        return [p.grad for _, p in sorted(tr.model.named_parameters())]
+
+    try:
+        # (a) the full-width round trip through the JAX package's format
+        src = MIMPretrainer(mae, seed=0, device=dev)
+        check(src.restore(mim_ckpt) and src.cur_iter > 0 and len(src.optimizer.state) > 0,
+              "5g: the mim_1 path's state (with AdamW moments) restores into mim_struct's trainer")
+        jax_path, pt_path = (os.path.join(work, "mim_struct" + s_) for s_ in (".ckpt.msgpack",
+                                                                               ".ckpt.pt"))
+        times = {}
+        for key, path in (("write_jax_s", jax_path), ("write_pt_s", pt_path)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            src.save(path)
+            times[key] = time.perf_counter() - t0
+        gb, gb_pt = os.path.getsize(jax_path) / 1e9, os.path.getsize(pt_path) / 1e9
+        rss0, _ = host_rss_gb()
+        t0 = time.perf_counter()
+        payload = load_checkpoint(jax_path)
+        times["read_jax_s"] = time.perf_counter() - t0
+        rss1, _ = host_rss_gb()
+        check(int(payload["step"]) == src.cur_iter and "mu" in payload["opt_state"]["0"],
+              "5g: the JAX-format payload holds the step and optax's Adam state")
+        del payload
+        restored = {}
+        for key, path in (("jax", jax_path), ("pt", pt_path)):
+            tr = MIMPretrainer(mae, seed=1, device=dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            check(tr.restore(path), f"5g: restore from {os.path.basename(path)}")
+            torch.cuda.synchronize()
+            times[f"restore_{key}_s"] = time.perf_counter() - t0
+            restored[key] = tr
+        _, hwm = host_rss_gb()
+        a, b = restored["jax"], restored["pt"]
+        same_params = bit_equal(a.model.state_dict().values(), b.model.state_dict().values()) \
+            and bit_equal(a.model.state_dict().values(), src.model.state_dict().values())
+        pa = {n: p for n, p in a.model.named_parameters()}
+        pb = {n: p for n, p in b.model.named_parameters()}
+        same_moments = all(
+            torch.equal(a.optimizer.state[pa[n]][k], b.optimizer.state[pb[n]][k].to(dev))
+            for n in pa for k in ("exp_avg", "exp_avg_sq")) and all(
+            float(a.optimizer.state[pa[n]]["step"]) == float(b.optimizer.state[pb[n]]["step"])
+            for n in pa)
+        bs, m = a.batch_size, a.model
+        data = make_cutouts(bs, seed=21, channels=m.in_chans, img_size=m.img_size)
+        batch = {"cutouts": data["cutouts"], "ra_dec": np.stack([data["ra"], data["dec"]], 1)}
+        mask = a.draw_mask(bs, torch.Generator(device=dev).manual_seed(3))
+        la, lb = a.train_batch(batch, mask=mask), b.train_batch(batch, mask=mask)
+        same_step = torch.equal(la, lb) and bit_equal(grads(a), grads(b)) and \
+            bit_equal(a.model.state_dict().values(), b.model.state_dict().values())
+        print(f"5g round trip (mim_struct ViT-B, step {src.cur_iter}, bf16, B={bs}): "
+              f".ckpt.msgpack {gb:.3f} GB written in {times['write_jax_s']:.2f} s "
+              f"({gb / times['write_jax_s']:.2f} GB/s), read in {times['read_jax_s']:.2f} s "
+              f"({gb / times['read_jax_s']:.2f} GB/s), restored onto the card in "
+              f"{times['restore_jax_s']:.2f} s; .ckpt.pt {gb_pt:.3f} GB in "
+              f"{times['write_pt_s']:.2f} / {times['restore_pt_s']:.2f} s; host RSS "
+              f"{rss0:.2f} -> {rss1:.2f} GB over the read (peak so far {hwm:.2f} GB); params "
+              f"bit-equal {same_params}, moments {same_moments}; next step's loss "
+              f"{float(la):.6f} / {float(lb):.6f}, loss, every gradient and the params "
+              f"bit-equal {same_step}", flush=True)
+        check(same_params and same_moments, "5g: params and AdamW moments restored bit-equal "
+                                            "from both formats")
+        check(same_step, "5g: the next step from the JAX-format file bit-equal to the port's")
+        out["round_trip"] = {"step": src.cur_iter, "file_gb": gb, "file_pt_gb": gb_pt, **times,
+                             "write_gb_per_s": gb / times["write_jax_s"],
+                             "read_gb_per_s": gb / times["read_jax_s"],
+                             "host_rss_before_read_gb": rss0, "host_rss_after_read_gb": rss1,
+                             "host_peak_rss_gb": hwm, "next_step_bit_equal": same_step}
+        del src, restored, a, b, pa, pb
+        torch.cuda.empty_cache()
+
+        # (b) the warm start from each format
+        sets = {"train": make_structured_cutouts(n_train, seed=14, channels=m.in_chans,
+                                                 img_size=m.img_size),
+                "val": make_structured_cutouts(n_val, seed=15, channels=m.in_chans,
+                                               img_size=m.img_size)}
+        wcfg = load_config(warm_name, cfg_dir)
+        warm = [PredictorTrainer(wcfg, mae, seed=0, device=dev) for _ in range(2)]
+        logs = []
+        for tr, path in zip(warm, (jax_path, pt_path)):
+            check(tr.warm_start(path, log_fn=logs.append), f"5g: warm start from {path}")
+        wb = next(iter(DeviceDataset.from_arrays(sets["train"], wcfg.training.int("batch_size"),
+                                                 shuffle=False, label_keys=["zspec"], device=dev)))
+        same_init = bit_equal(warm[0].model.state_dict().values(),
+                              warm[1].model.state_dict().values())
+        l0, l1 = (tr.train_batch(wb) for tr in warm)
+        same_first = torch.equal(l0[0], l1[0]) and bit_equal(grads(warm[0]), grads(warm[1]))
+        print(f"5g warm start of {warm_name} from each format: {logs[0]}; weights bit-equal "
+              f"{same_init}; first step's loss {float(l0[0]):.6f} / {float(l1[0]):.6f}, loss "
+              f"and every gradient bit-equal {same_first}", flush=True)
+        check(same_init and same_first, "5g: the warm starts from both formats bit-equal")
+        out["warm_start"] = {"config": warm_name, "first_step_bit_equal": same_first}
+        del warm
+        torch.cuda.empty_cache()
+
+        # (c) the mini sweep through the compare twin
+        with open(os.path.join(ROOT, "results", "compare_predictors_struct.json")) as f:
+            jax_keys = set(json.load(f)["z_struct_ft"][0])
+        results, sweep = {}, {}
+        for fam in families:
+            for size in sizes:
+                name = f"z_struct_{fam}_{size}"
+                over = [f"TRAINING.total_batch_iters={steps}"]
+                cfg = apply_overrides(load_config(name, cfg_dir), over, name)
+                B, n = cfg.training.int("batch_size"), cfg.training.int("num_train")
+                check(n <= n_train and cfg.training.str("dtype") == "bfloat16",
+                      f"5g {name}: bf16, {n} labels of the {n_train} made")
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                tr = PredictorTrainer(cfg, mae, seed=0, device=dev)
+                if fam != "fs":
+                    check(tr.warm_start(jax_path, log_fn=lambda _: None), f"5g {name}: warm start")
+                ds = dict(label_keys=["zspec"], device=dev)
+                train_ds = DeviceDataset.from_arrays(sets["train"], B, shuffle=True,
+                                                     indices=range(n), **ds)
+                val_ds = DeviceDataset.from_arrays(sets["val"], B, shuffle=False, **ds)
+                zero_counters()
+                train_predictor_network(tr, train_ds.forever(), val_ds, steps, 1e9,
+                                        os.path.join(work, name + ".ckpt.pt"),
+                                        log_fn=lambda _: None)
+                torch.cuda.synchronize()
+                t_train = time.perf_counter() - t0
+                launches = launch_counts()
+                L, n_vb = tr.model.encoder.depth, len(val_ds)
+                if fam == "ap":  # the frozen backbone: the inference kernels alone
+                    want = {"fused_attn_block": L * (steps + n_vb),
+                            "fused_mlp_block": L * (steps + n_vb)}
+                else:
+                    want = {"attn_block_fwd_stash": L * steps, "attn_block_bwd_stash": L * steps,
+                            "mlp_block_bwd": L * steps, "fused_mlp_block": L * (steps + n_vb),
+                            "fused_attn_block": L * n_vb}
+                for k_, n_ in launches.items():
+                    check(n_ == want.get(k_, 0), f"5g {name}: {k_} launches {n_} == {want.get(k_, 0)}")
+                check(tr.cur_iter == steps, f"5g {name}: {steps} steps")
+                del tr, train_ds, val_ds
+                torch.cuda.empty_cache()
+                zero_counters()
+                t0 = time.perf_counter()
+                row = evaluate_model(name, cfg_dir, work, val=sets["val"], train_rows=n_train,
+                                     overrides=over, device=dev)
+                torch.cuda.synchronize()
+                t_eval = time.perf_counter() - t0
+                ev = launch_counts()
+                n_ib = -(-n_val // B)
+                for k_, n_ in ev.items():
+                    want_n = L * n_ib if k_ in ("fused_attn_block", "fused_mlp_block") else 0
+                    check(n_ == want_n, f"5g {name} evaluate_model: {k_} launches {n_} == {want_n}")
+                check(row is not None and row[0] == n, f"5g {name}: scored at num_train {n}")
+                results.setdefault(f"z_struct_{fam}", []).append(row)
+                check(set(row[1]) | {"num_train"} == jax_keys
+                      and bool(np.isfinite(list(row[1].values())).all()),
+                      f"5g {name}: JAX's row keys {sorted(jax_keys)}, finite: {row[1]}")
+                sweep[name] = {"train_s": t_train, "evaluate_s": t_eval, "batch": B,
+                               "launches": {k: v for k, v in launches.items() if v},
+                               "evaluate_launches": {k: v for k, v in ev.items() if v}}
+                print(f"5g {name} ({cfg.training.str('train_method')}, {n} labels, B={B}): "
+                      f"{steps} steps + {n_vb} val batches in {t_train:.2f} s, scored in "
+                      f"{t_eval:.2f} s: {row[1]}; launches "
+                      f"{sweep[name]['launches']}, evaluate {sweep[name]['evaluate_launches']}",
+                      flush=True)
+        out["sweep"] = {"rows": json_rows(results), "runs": sweep}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     return out
 
 
@@ -3036,6 +3275,9 @@ def main() -> int:
         predictor_f32["routes"].update(predictor_f32_phase(
             dev, pred_ckpt, zero_counters, launch_counts, step_times, PRED_F32_LARGE)["routes"])
         mark("predictor_f32_large_tiny")
+        # ---- 5g. checkpoints and the sweep ------------------------------------
+        checkpoints = checkpoint_phase(dev, pred_ckpt, zero_counters, launch_counts)
+        mark("checkpoints")
     finally:
         if os.path.exists(pred_ckpt):
             os.remove(pred_ckpt)
@@ -3276,6 +3518,7 @@ def main() -> int:
         "predictor_f32": predictor_f32,
         "training_f32_paths": f32_paths,
         "jepa": jepa,
+        "checkpoints": checkpoints,
         "attention_module": attention_module,
         "retrieval_path": retrieval,
         "bank_1M_bf16": {"query_ms_host": q_host_ms, "queries_per_s": 1e3 / q_host_ms,

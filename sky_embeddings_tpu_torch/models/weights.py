@@ -22,8 +22,8 @@ sin-cos tables are constants in both); its EMA target tree, the
 (``encoder/blocks/block/...``, every leaf stacked over the blocks, as JAX
 builds ViT-H) maps to ``encoder.blocks.block.*``, which ``Encoder`` unstacks
 into the loop layout as it loads (``models/layers.py``). Both
-directions are pure numpy and torch; the GPU host cannot read flax msgpack
-checkpoints, so weights cross over as numpy trees.
+directions are pure numpy and torch; the trees come from and go to the JAX
+package's checkpoints through ``utils/flax_msgpack``.
 """
 
 from __future__ import annotations
@@ -33,13 +33,22 @@ from typing import Mapping
 import numpy as np
 import torch
 
-from sky_embeddings_tpu_torch.utils.checkpoint import flatten, nest
+from sky_embeddings_tpu_torch.utils.checkpoint import adapt_block_layout, flatten, nest
 
 
 def params_from_jax(tree: Mapping) -> dict[str, torch.Tensor]:
-    """Nested dict of numpy arrays (the JAX ``params`` collection) -> state dict."""
-    return {name: torch.from_numpy(np.array(val, dtype=np.float32))
+    """Nested dict of numpy arrays (the JAX ``params`` collection; a
+    bfloat16 leaf read from a checkpoint is a tensor) -> fp32 state dict,
+    copied out of the tree's buffers."""
+    return {name: (val.detach().to("cpu", torch.float32, copy=True) if torch.is_tensor(val)
+                   else torch.from_numpy(np.array(val, dtype=np.float32)))
             for name, val in flatten(tree).items()}
+
+
+def load_jax_params(model: torch.nn.Module, tree: Mapping) -> None:
+    """Load a JAX params tree, in the loop or the scan layout, into ``model``."""
+    template = nest(model.state_dict())
+    model.load_state_dict(params_from_jax(adapt_block_layout(tree, template)))
 
 
 def params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> dict:

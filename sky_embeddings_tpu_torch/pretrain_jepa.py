@@ -6,7 +6,7 @@
 
 ``<model_name>`` keys ``configs/<model_name>.ini`` (``jepa_tiny``,
 ``jepa_struct``, ``jepa_1``) and the checkpoint ``models/<model_name>.ckpt.pt``
-(resumed when present; ``--run_name`` keys it instead when ``--set``
+(resumed when present, else a JAX run's ``.ckpt.msgpack`` of the name; ``--run_name`` keys it instead when ``--set``
 overrides make a configuration no file holds). The loop is the MIM twin's
 (``train/pretrain.train_network``) over ``train/jepa.JEPATrainer``:
 training batches from the h5 file the config names (``train_data_file``)
@@ -32,7 +32,7 @@ from sky_embeddings_tpu_torch.data.device_cache import build_cached_or_streaming
 from sky_embeddings_tpu_torch.data.fits_loader import build_fits_batcher
 from sky_embeddings_tpu_torch.train.jepa import JEPATrainer
 from sky_embeddings_tpu_torch.train.pretrain import train_network
-from sky_embeddings_tpu_torch.utils.checkpoint import checkpoint_path
+from sky_embeddings_tpu_torch.utils.checkpoint import checkpoint_path, find_checkpoint
 from sky_embeddings_tpu_torch.utils.misc import build_train_argparser
 
 REPO_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -58,9 +58,10 @@ def main(argv=None) -> str:
     print(config.describe())
 
     trainer = JEPATrainer(config, device=args.device)
-    model_filename = checkpoint_path(model_dir, args.run_name or model_name)
-    if trainer.restore(model_filename):
-        print(f"\nResumed from {model_filename} at iteration {trainer.cur_iter}.")
+    model_filename = checkpoint_path(model_dir, args.run_name or model_name)  # the port's file
+    resume = find_checkpoint(model_dir, args.run_name or model_name)
+    if resume and trainer.restore(resume):
+        print(f"\nResumed from {resume} at iteration {trainer.cur_iter}.")
     else:
         print("\nStarting fresh model to train...")
 

@@ -5,7 +5,9 @@
         [--set SECTION.key=value ...] [--run_name name]
 
 ``<model_name>`` keys ``configs/<model_name>.ini`` and the checkpoint
-``models/<model_name>.ckpt.pt`` (resumed when present). ``--set`` overrides
+``models/<model_name>.ckpt.pt`` (resumed when present; else a JAX run's
+``models/<model_name>.ckpt.msgpack`` is resumed, its AdamW moments too, and
+the run goes on in the port's file). ``--set`` overrides
 config values, so a configuration that no file holds runs from one that
 does: ViT-H (``bench.py`` ``bench_vit_h``) is ``mim_32 --set
 ARCHITECTURE.model_type=mimhuge --set ARCHITECTURE.embed_dim=1280 --set
@@ -42,7 +44,7 @@ from sky_embeddings_tpu_torch.configuration import apply_overrides, load_config
 from sky_embeddings_tpu_torch.data.fits_loader import build_fits_batcher
 from sky_embeddings_tpu_torch.data.device_cache import build_cached_or_streaming_batcher
 from sky_embeddings_tpu_torch.train.pretrain import MIMPretrainer, train_network
-from sky_embeddings_tpu_torch.utils.checkpoint import checkpoint_path
+from sky_embeddings_tpu_torch.utils.checkpoint import checkpoint_path, find_checkpoint
 from sky_embeddings_tpu_torch.utils.misc import build_train_argparser
 
 REPO_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -68,9 +70,10 @@ def main(argv=None) -> str:
     print(config.describe())
 
     pretrainer = MIMPretrainer(config, device=args.device)
-    model_filename = checkpoint_path(model_dir, args.run_name or model_name)
-    if pretrainer.restore(model_filename):
-        print(f"\nResumed from {model_filename} at iteration {pretrainer.cur_iter}.")
+    model_filename = checkpoint_path(model_dir, args.run_name or model_name)  # the port's file
+    resume = find_checkpoint(model_dir, args.run_name or model_name)
+    if resume and pretrainer.restore(resume):
+        print(f"\nResumed from {resume} at iteration {pretrainer.cur_iter}.")
     else:
         print("\nStarting fresh model to train...")
 

@@ -53,7 +53,7 @@ from sky_embeddings_tpu_torch.eval.bank import build_bank
 from sky_embeddings_tpu_torch.eval.eval_fns import extract_latents, predictor_infer
 from sky_embeddings_tpu_torch.train.predictor import PredictorTrainer, train_predictor_network
 from sky_embeddings_tpu_torch.train.pretrain import MIMPretrainer, train_network
-from sky_embeddings_tpu_torch.utils.checkpoint import checkpoint_path
+from sky_embeddings_tpu_torch.utils.checkpoint import checkpoint_path, find_checkpoint
 from sky_embeddings_tpu_torch.utils.plotting import photoz_prediction_metrics
 
 REPO_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -79,12 +79,16 @@ FINETUNE = ("z_struct_ft_512", "z_struct_fs_512")
 K = 30  # precision@30 of the 3 072-image val survey (1%)
 
 
+def survey_set(name: str, quick: bool = False) -> dict:
+    """One set of the survey as arrays (``structured_survey``)."""
+    n, fracs, seed = SURVEY[name]
+    return structured_survey(QUICK_ROWS[name] if quick else n, channels=5,
+                             img_size=16 if quick else 64, class_fracs=fracs, seed=seed)
+
+
 def make_survey(quick: bool) -> dict:
-    """Every set of the survey as arrays (``structured_survey``)."""
-    img_size = 16 if quick else 64
-    return {name: structured_survey(QUICK_ROWS[name] if quick else n, channels=5,
-                                    img_size=img_size, class_fracs=fracs, seed=seed)
-            for name, (n, fracs, seed) in SURVEY.items()}
+    """Every set of the survey as arrays."""
+    return {name: survey_set(name, quick) for name in SURVEY}
 
 
 def mim_config(quick: bool):
@@ -94,11 +98,12 @@ def mim_config(quick: bool):
 
 def run_pretrain(survey: dict, verbose_iters: int, quick: bool, device) -> dict:
     pretrainer = MIMPretrainer(mim_config(quick), device=device)
-    model_filename = checkpoint_path(os.path.join(REPO_DIR, "models"),
-                                     "mim_struct_quick" if quick else "mim_struct")
+    name = "mim_struct_quick" if quick else "mim_struct"
+    model_filename = checkpoint_path(os.path.join(REPO_DIR, "models"), name)
     os.makedirs(os.path.dirname(model_filename), exist_ok=True)
-    if pretrainer.restore(model_filename):
-        print(f"Resumed mim_struct at iteration {pretrainer.cur_iter}.")
+    resume = find_checkpoint(os.path.dirname(model_filename), name)
+    if resume and pretrainer.restore(resume):
+        print(f"Resumed mim_struct from {resume} at iteration {pretrainer.cur_iter}.")
     bs, img_size = pretrainer.batch_size, pretrainer.model.img_size
     # bf16 storage halves the train set; val stays fp32, as JAX keeps them
     data = dict(img_size=img_size, device=pretrainer.device)
@@ -115,25 +120,35 @@ def run_pretrain(survey: dict, verbose_iters: int, quick: bool, device) -> dict:
     return {k: [float(x) for x in v] for k, v in pretrainer.losses.items()}
 
 
+def run_name(name: str, quick: bool = False, seed: int = 0) -> str:
+    """The checkpoint name of config ``name``'s run at ``seed``."""
+    return name + ("_quick" if quick else "") + (f"_seed{seed}" if seed else "")
+
+
 def run_finetune(name: str, survey: dict, verbose_iters: int, quick: bool, device,
-                 seed: int = 0) -> dict:
+                 seed: int = 0, overrides=(), run_dir=None) -> dict:
     """Train one predictor config; returns photo-z metrics on the z-val set.
     ``seed`` draws the fresh weights (all of them from scratch, the pool and
-    head when warm-started) and the augmentations; seed 0 is the gated run."""
+    head when warm-started) and the augmentations; seed 0 is the gated run.
+    ``overrides`` (``--set`` items) follow the ``--quick`` ones. The run's
+    checkpoints go to ``run_dir`` (default ``models/``, where the
+    ``mim_struct`` warm start is read)."""
     config_dir, model_dir = os.path.join(REPO_DIR, "configs"), os.path.join(REPO_DIR, "models")
-    config = apply_overrides(load_config(name, config_dir), QUICK_PRED if quick else [], name)
+    config = apply_overrides(load_config(name, config_dir),
+                             (QUICK_PRED if quick else []) + list(overrides), name)
     trainer = PredictorTrainer(config, mim_config(quick), seed=seed, device=device)
     suffix = "_quick" if quick else ""
-    run = name + suffix + (f"_seed{seed}" if seed else "")
-    model_filename = checkpoint_path(model_dir, run)
-    best_filename = checkpoint_path(model_dir, run, best=True)
+    run = run_name(name, quick, seed)
+    model_filename = checkpoint_path(run_dir or model_dir, run)
+    best_filename = checkpoint_path(run_dir or model_dir, run, best=True)
     # ft fine-tunes the pretrained backbone, lp freezes it: both start from
     # the MIM weights (reference train_predictor.py warm-starts whenever
     # pretained_mae is set); fs trains from scratch
     if os.path.exists(best_filename) and trainer.restore(best_filename):
         print(f"Resumed {name} from best checkpoint at {trainer.cur_iter}.")
     elif config.training.str("train_method") in ("ft", "lp"):
-        if not trainer.warm_start(checkpoint_path(model_dir, "mim_struct" + suffix)):
+        mim = find_checkpoint(model_dir, "mim_struct" + suffix)
+        if mim is None or not trainer.warm_start(mim):
             raise SystemExit("mim_struct checkpoint missing — run pretrain first")
         print(f"Warm-started {name} from mim_struct.")
     bs, img_size = trainer.batch_size, trainer.model.img_size
@@ -161,8 +176,9 @@ def run_finetune(name: str, survey: dict, verbose_iters: int, quick: bool, devic
 def run_simsearch(survey: dict, quick: bool, device) -> dict:
     """Same-class retrieval precision over the embedded val survey."""
     pretrainer = MIMPretrainer(mim_config(quick), device=device)
-    if not pretrainer.restore(checkpoint_path(os.path.join(REPO_DIR, "models"),
-                                              "mim_struct_quick" if quick else "mim_struct")):
+    path = find_checkpoint(os.path.join(REPO_DIR, "models"),
+                           "mim_struct_quick" if quick else "mim_struct")
+    if path is None or not pretrainer.restore(path):
         raise SystemExit("mim_struct checkpoint missing — run pretrain first")
     model = pretrainer.model.eval()
     val = survey["struct_val"]

@@ -4,7 +4,8 @@
 
 Builds the MIM model (SimMIM or MAE) from ``configs/<model_name>.ini`` with the params of
 the pretraining checkpoint that ``pretrain_mim`` writes
-(``models/<model_name>_best.ckpt.pt``, else ``models/<model_name>.ckpt.pt``;
+(``models/<model_name>_best.ckpt.pt``, else ``models/<model_name>.ckpt.pt``,
+each else the JAX package's ``.ckpt.msgpack`` of the name;
 without one it warns and uses fresh seeded weights), or, for a predictor
 config, the predictor with the checkpoint ``train_predictor`` writes, S/N-filters the test
 set, embeds the target set with 64 augmentations, then either streams the
@@ -30,8 +31,10 @@ from sky_embeddings_tpu_torch.eval.bank import EmbeddingBank, build_bank
 from sky_embeddings_tpu_torch.eval.eval_fns import extract_latents
 from sky_embeddings_tpu_torch.eval.simsearch import mim_simsearch
 from sky_embeddings_tpu_torch.models.mim import build_mim_model
+from sky_embeddings_tpu_torch.models.weights import load_jax_params
 from sky_embeddings_tpu_torch.train.predictor import PredictorTrainer
-from sky_embeddings_tpu_torch.utils.checkpoint import checkpoint_path, load_checkpoint
+from sky_embeddings_tpu_torch.utils.checkpoint import (find_checkpoint, is_jax_checkpoint,
+                                                       load_checkpoint)
 from sky_embeddings_tpu_torch.utils.misc import h5_snr
 
 REPO_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -76,19 +79,21 @@ def build_model_from_config(config_dir, model_dir, model_name, device):
         mae_name = config.pretrained_mae_name()
         mae_config = load_config(mae_name, config_dir) if mae_name else config
         trainer = PredictorTrainer(config, mae_config, device=device)
-        if not (trainer.restore(checkpoint_path(model_dir, model_name, best=True))
-                or trainer.restore(checkpoint_path(model_dir, model_name))):
+        path = (find_checkpoint(model_dir, model_name, best=True)
+                or find_checkpoint(model_dir, model_name))
+        if path is None or not trainer.restore(path):
             print(f"WARNING: no checkpoint for {model_name}; using fresh weights.")
         return trainer.model.eval(), config
     dtype = torch.bfloat16 if config.training.str("dtype", "float32") == "bfloat16" else torch.float32
     model = build_mim_model(config, dtype=dtype, device=device)
-    for best in (True, False):
-        payload = load_checkpoint(checkpoint_path(model_dir, model_name, best=best))
-        if payload is not None:
-            model.load_state_dict(payload["params"])
-            break
-    else:
+    path = (find_checkpoint(model_dir, model_name, best=True)
+            or find_checkpoint(model_dir, model_name))
+    if path is None:
         print(f"WARNING: no checkpoint for {model_name}; using fresh weights.")
+    elif is_jax_checkpoint(path):
+        load_jax_params(model, load_checkpoint(path)["params"])
+    else:
+        model.load_state_dict(load_checkpoint(path)["params"])
     return model, config
 
 

@@ -24,7 +24,7 @@ from sky_embeddings_tpu_torch.data.h5_loader import build_h5_batcher
 from sky_embeddings_tpu_torch.eval.eval_fns import predictor_infer
 from sky_embeddings_tpu_torch.train.predictor import PredictorTrainer
 from sky_embeddings_tpu_torch.train_predictor import add_twin_args, load_configs
-from sky_embeddings_tpu_torch.utils.checkpoint import checkpoint_path
+from sky_embeddings_tpu_torch.utils.checkpoint import find_checkpoint
 from sky_embeddings_tpu_torch.utils.misc import build_train_argparser, h5_snr
 from sky_embeddings_tpu_torch.utils.plotting import evaluate_z, photoz_prediction_metrics
 
@@ -44,8 +44,8 @@ def main(argv=None) -> dict:
     config, mae_config, _ = load_configs(args, config_dir)
     trainer = PredictorTrainer(config, mae_config, device=args.device)
     run = args.run_name or args.model_name
-    if not (trainer.restore(checkpoint_path(model_dir, run, best=True))
-            or trainer.restore(checkpoint_path(model_dir, run))):
+    path = find_checkpoint(model_dir, run, best=True) or find_checkpoint(model_dir, run)
+    if path is None or not trainer.restore(path):
         raise SystemExit(f"No checkpoint found for {run} in {model_dir}")
     print(f"Evaluating {run} at iteration {trainer.cur_iter}.")
 

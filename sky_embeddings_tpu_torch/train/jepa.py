@@ -41,9 +41,10 @@ import numpy as np
 import torch
 
 from sky_embeddings_tpu_torch.models.jepa import build_jepa_model
-from sky_embeddings_tpu_torch.models.weights import params_to_jax
+from sky_embeddings_tpu_torch.models.weights import load_jax_params, params_to_jax
 from sky_embeddings_tpu_torch.ops.jepa_masks import BlockMasks, sample_block_masks
-from sky_embeddings_tpu_torch.train.optim import decay_mask, set_lr, supervised_optimizer
+from sky_embeddings_tpu_torch.train.optim import (decay_mask, jax_payload, restore_state, set_lr,
+                                                  supervised_optimizer)
 from sky_embeddings_tpu_torch.train.schedules import cosine_ramp, linear_ramp, warmup_cosine_decay
 from sky_embeddings_tpu_torch.utils import checkpoint as ckpt
 from sky_embeddings_tpu_torch.utils.device import DTYPES, resolve_device
@@ -191,6 +192,13 @@ class JEPATrainer:
             return self.loss(imgs, masks)
 
     def save(self, path: str) -> None:
+        """The trainer's state at ``path``: the port's file, or for a
+        ``.ckpt.msgpack`` path the JAX package's (optax-form moments)."""
+        if ckpt.is_jax_checkpoint(path):
+            ckpt.save_checkpoint(path, jax_payload(
+                self.model, self.optimizer, "jepa", self.step, self.seed, self.losses,
+                target_params=params_to_jax(self.target.state_dict())))
+            return
         ckpt.save_checkpoint(path, {
             "step": self.step,
             "params": {k: v.detach().cpu() for k, v in self.model.state_dict().items()},
@@ -201,13 +209,16 @@ class JEPATrainer:
         })
 
     def restore(self, path: str) -> bool:
-        payload = ckpt.load_checkpoint(path)
-        if payload is None:
+        """Resume from the port's checkpoint or the JAX package's, the EMA
+        ``target_params`` too (``optim.restore_state``); False without a
+        file."""
+        out = restore_state(path, self.model, self.optimizer, self.mask_gen, self.seed)
+        if out is None:
             return False
-        self.model.load_state_dict(payload["params"])
-        self.target.load_state_dict(payload["target_params"])
-        self.optimizer.load_state_dict(payload["opt_state"])
-        self.step = int(payload["step"])
-        self.mask_gen.set_state(payload["rng"])
-        self.losses = defaultdict(list, {k: list(v) for k, v in payload["losses"].items()})
+        payload, self.step, losses = out
+        if ckpt.is_jax_checkpoint(path):
+            load_jax_params(self.target, payload["target_params"])
+        else:
+            self.target.load_state_dict(payload["target_params"])
+        self.losses = defaultdict(list, losses)
         return True

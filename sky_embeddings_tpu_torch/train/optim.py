@@ -30,13 +30,26 @@ Each group carries its scale as ``lr_scale``; the trainers set
   ``-> · -lr(t)``: ``fs``'s AdamW over the context encoder and the
   predictor, whose decayed groups' ``weight_decay`` the trainer sets to
   ``wd(t)`` before every step.
+
+The JAX package's checkpoints hold these chains' optax state in flax's
+state-dict form. :func:`load_optax_state` finds its ``ScaleByAdamState`` by
+its keys and maps ``mu`` / ``nu`` onto each parameter's ``exp_avg`` /
+``exp_avg_sq`` by name and ``count`` onto every ``step``;
+:func:`optax_state_dict` writes the chain of a regime back;
+:func:`restore_state` loads either framework's file into a trainer.
 """
 
 from __future__ import annotations
 
-from typing import Iterable
+import warnings
+from collections.abc import Mapping
+from typing import Callable, Iterable, Optional
 
+import numpy as np
 import torch
+
+from sky_embeddings_tpu_torch.models.weights import load_jax_params, params_to_jax
+from sky_embeddings_tpu_torch.utils import checkpoint as ckpt
 
 FT_DEFAULT_WEIGHT_DECAY = 0.05  # lr_decay.py:14 default, active under the quirk
 
@@ -155,3 +168,149 @@ def supervised_optimizer(model: torch.nn.Module, init_lr: float, weight_decay: f
     named = list(model.named_parameters())
     return _adamw(named, init_lr, weight_decay, (0.9, 0.999), decay_mask(named))
 
+
+# ----------------------------------------------------------------------
+# optax's state-dict form (the JAX package's checkpoints) <-> torch AdamW
+
+def _names(model: torch.nn.Module) -> dict[int, str]:
+    return {id(p): n for n, p in model.named_parameters()}
+
+
+def find_adam_state(opt_state) -> Optional[dict]:
+    """The ``ScaleByAdamState`` (``count``, ``mu``, ``nu``) in an optax
+    state dict, wherever the chain puts it (``lp`` nests it in
+    ``multi_transform``'s ``inner_states/train``), or None."""
+    if not isinstance(opt_state, Mapping):
+        return None
+    if {"count", "mu", "nu"} <= set(opt_state):
+        return opt_state
+    for key in sorted(opt_state):
+        found = find_adam_state(opt_state[key])
+        if found is not None:
+            return found
+    return None
+
+
+def load_optax_state(optimizer: torch.optim.Optimizer, model: torch.nn.Module, opt_state) -> bool:
+    """Set ``optimizer``'s AdamW state from optax's state-dict form: ``mu`` and
+    ``nu`` onto each parameter's ``exp_avg`` and ``exp_avg_sq`` by name
+    (through ``adapt_block_layout``, so a scan-layout tree loads), ``count``
+    onto every ``step``. False when ``opt_state`` holds no Adam state."""
+    adam = find_adam_state(opt_state)
+    if adam is None:
+        return False
+    template = ckpt.nest(model.state_dict())
+    mu = ckpt.flatten(ckpt.adapt_block_layout(adam["mu"], template))
+    nu = ckpt.flatten(ckpt.adapt_block_layout(adam["nu"], template))
+    count = float(np.asarray(adam["count"]))
+    names = _names(model)
+    optimizer.state.clear()
+    with warnings.catch_warnings():  # moments may view a read-only file buffer; they are copied
+        warnings.simplefilter("ignore", UserWarning)
+        for group in optimizer.param_groups:
+            for p in group["params"]:
+                name = names[id(p)]
+                if name not in mu or name not in nu:
+                    raise KeyError(f"optax state has no moments for {name}")
+                optimizer.state[p] = {
+                    "step": torch.tensor(count, dtype=torch.float32),
+                    "exp_avg": torch.as_tensor(mu[name]).to(p.device, p.dtype, copy=True),
+                    "exp_avg_sq": torch.as_tensor(nu[name]).to(p.device, p.dtype, copy=True)}
+    return True
+
+
+def optax_state_dict(optimizer: torch.optim.Optimizer, model: torch.nn.Module, regime: str,
+                     step: int) -> dict:
+    """``optimizer``'s state in the state-dict form of the JAX package's optax
+    chain for ``regime`` (``pretrain``, ``ft``, ``fs``, ``lp`` or ``jepa``;
+    JAX ``train/optim.py``, ``train/jepa.py``), every count ``step``:
+    ``scale_by_adam -> [add_decayed_weights] -> [scale_by_tree] ->
+    scale_by_learning_rate``, ``lp``'s inside ``multi_transform`` with
+    empty moments for the frozen parameters, JEPA's with its scheduled decay.
+    The decay stage is there when some group decays, as JAX adds it for a
+    non-zero ``weight_decay``."""
+    names = _names(model)
+    state = {names[id(p)]: optimizer.state.get(p, {}) for g in optimizer.param_groups
+             for p in g["params"]}
+
+    def moments(key: str) -> dict:
+        out = {}
+        for name, p in model.named_parameters():
+            if name not in state:
+                out[name] = {}  # optax.MaskedNode: a frozen lp parameter
+            elif key in state[name]:
+                out[name] = state[name][key].detach().to("cpu", torch.float32).numpy()
+            else:
+                out[name] = np.zeros(tuple(p.shape), np.float32)  # before the first step
+        return ckpt.nest(out)
+
+    count = {"count": np.asarray(step, np.int32)}
+    adam = {"count": np.asarray(step, np.int32), "mu": moments("exp_avg"),
+            "nu": moments("exp_avg_sq")}
+    if regime == "jepa":
+        return {"0": adam, "1": dict(count), "2": dict(count)}
+    parts = [adam]
+    if any(g["weight_decay"] for g in optimizer.param_groups):
+        parts.append({"inner_state": {}})
+    if regime == "ft":
+        parts.append({})  # scale_by_tree's EmptyState
+    parts.append(dict(count))
+    chain = {str(i): part for i, part in enumerate(parts)}
+    if regime == "lp":
+        return {"inner_states": {"freeze": {"inner_state": {}}, "train": {"inner_state": chain}}}
+    return chain
+
+
+def jax_payload(model: torch.nn.Module, optimizer: torch.optim.Optimizer, regime: str,
+                step: int, seed: int, losses: Mapping, **extra) -> dict:
+    """A trainer's state as the JAX package's trainers save it: ``step``,
+    ``params`` (JAX's tree), ``opt_state`` (:func:`optax_state_dict`), an
+    ``rng`` key (``checkpoint.jax_key``) and ``losses``; ``extra`` entries
+    (JEPA's ``target_params``) beside them."""
+    return {"step": np.asarray(step, np.int32), "params": params_to_jax(model.state_dict()),
+            **extra, "opt_state": optax_state_dict(optimizer, model, regime, step),
+            "rng": ckpt.jax_key(seed, step), "losses": dict(losses)}
+
+
+def restore_state(path: str, model: torch.nn.Module, optimizer: torch.optim.Optimizer,
+                  generator: torch.Generator, seed: int, log_fn: Callable[[str], None] = print):
+    """Load the checkpoint at ``path`` into ``model``, ``optimizer`` and
+    ``generator``: ``(payload, step, losses)``, or None without a file.
+
+    The port's ``.ckpt.pt`` loads as it was saved. The JAX package's
+    ``.ckpt.msgpack`` loads its params in either encoder layout and its
+    AdamW moments and step from optax's state (:func:`load_optax_state`);
+    its ``jax.random`` key cannot seed a torch generator, which is seeded
+    from (``seed``, step) instead, with a line saying so. A file without
+    optimizer state (the checkpoint-porting tools') starts AdamW fresh at
+    its step, and one without a generator state reseeds it, each with a
+    line saying so."""
+    payload = ckpt.load_checkpoint(path)
+    if payload is None:
+        return None
+    jax_file = ckpt.is_jax_checkpoint(path)
+    if jax_file:
+        load_jax_params(model, payload["params"])
+    else:
+        model.load_state_dict(payload["params"])
+    step = int(np.asarray(payload.get("step", 0)))
+    if jax_file:
+        moments = load_optax_state(optimizer, model, payload.get("opt_state"))
+    elif "opt_state" in payload:
+        optimizer.load_state_dict(payload["opt_state"])
+        moments = True
+    else:
+        moments = False
+    if not moments:
+        optimizer.state.clear()
+        log_fn(f"The checkpoint holds no optimizer state: AdamW starts fresh at step {step}.")
+    if not jax_file and "rng" in payload:
+        generator.set_state(payload["rng"])
+    else:
+        generator.manual_seed(ckpt.generator_seed(seed, step))
+        why = ("its jax.random key cannot seed a torch generator" if jax_file
+               else "it holds no generator state")
+        log_fn(f"The checkpoint's generator: {why}; seeded from seed {seed} and step {step}.")
+    losses = (ckpt.losses_to_lists(payload.get("losses")) if jax_file
+              else {k: list(v) for k, v in payload.get("losses", {}).items()})
+    return payload, step, losses

@@ -256,18 +256,30 @@ class PredictorTrainer:
 
     # ------------------------------------------------------------------
     def warm_start(self, mim_checkpoint_path: str, log_fn=print) -> bool:
-        """Copy the matching tensors of a MIM checkpoint into the model."""
+        """Copy the matching tensors of a MIM checkpoint, the port's or the
+        JAX package's, into the model."""
         payload = ckpt.load_checkpoint(mim_checkpoint_path)
         if payload is None:
             return False
         current = ckpt.nest(self.model.state_dict())
-        mim = ckpt.adapt_block_layout(ckpt.nest(payload["params"]), current)
+        mim = payload["params"]
+        if not ckpt.is_jax_checkpoint(mim_checkpoint_path):
+            mim = ckpt.nest(mim)
+        mim = ckpt.adapt_block_layout(mim, current)
         merged, _, _ = warm_start_from_mim(current, mim, log_fn=log_fn)
-        self.model.load_state_dict({k: v if torch.is_tensor(v) else torch.from_numpy(np.asarray(v))
+        self.model.load_state_dict({k: v if torch.is_tensor(v) else torch.from_numpy(np.array(v))
                                     for k, v in ckpt.flatten(merged).items()})
         return True
 
     def save(self, path: str) -> None:
+        """The trainer's state at ``path``: the port's file, or for a
+        ``.ckpt.msgpack`` path the JAX package's (optax-form moments)."""
+        if ckpt.is_jax_checkpoint(path):
+            regime = ("lp" if self.frozen_backbone else
+                      "ft" if self.train_method in ("ft", "finetune") else "fs")
+            ckpt.save_checkpoint(path, optim.jax_payload(self.model, self.optimizer, regime,
+                                                         self.step, self.seed, self.losses))
+            return
         ckpt.save_checkpoint(path, {
             "step": self.step,
             "params": {k: v.detach().cpu() for k, v in self.model.state_dict().items()},
@@ -277,14 +289,13 @@ class PredictorTrainer:
         })
 
     def restore(self, path: str) -> bool:
-        payload = ckpt.load_checkpoint(path)
-        if payload is None:
+        """Resume from the port's checkpoint or the JAX package's
+        (``optim.restore_state``); False without a file."""
+        out = optim.restore_state(path, self.model, self.optimizer, self.generator, self.seed)
+        if out is None:
             return False
-        self.model.load_state_dict(payload["params"])
-        self.optimizer.load_state_dict(payload["opt_state"])
-        self.step = int(payload["step"])
-        self.generator.set_state(payload["rng"])
-        self.losses = defaultdict(list, {k: list(v) for k, v in payload["losses"].items()})
+        _, self.step, losses = out
+        self.losses = defaultdict(list, losses)
         return True
 
 

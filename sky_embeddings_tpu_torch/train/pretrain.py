@@ -41,7 +41,7 @@ from sky_embeddings_tpu_torch.eval.eval_fns import batch_ra_dec
 from sky_embeddings_tpu_torch.eval.linear_probe import linear_probe
 from sky_embeddings_tpu_torch.models.mim import SkyMIM, build_mim_model
 from sky_embeddings_tpu_torch.ops.masking import simmim_batch_mask
-from sky_embeddings_tpu_torch.train.optim import pretrain_optimizer
+from sky_embeddings_tpu_torch.train.optim import jax_payload, pretrain_optimizer, restore_state
 from sky_embeddings_tpu_torch.train.schedules import cosine_annealing
 from sky_embeddings_tpu_torch.utils import checkpoint as ckpt
 from sky_embeddings_tpu_torch.utils.device import DTYPES, resolve_device
@@ -188,6 +188,12 @@ class MIMPretrainer:
         return self._eval_step(cutouts, masking, self._ra_dec(batch))
 
     def save(self, path: str) -> None:
+        """The trainer's state at ``path``: the port's file, or for a
+        ``.ckpt.msgpack`` path the JAX package's (optax-form moments)."""
+        if ckpt.is_jax_checkpoint(path):
+            ckpt.save_checkpoint(path, jax_payload(self.model, self.optimizer, "pretrain",
+                                                   self.step, self.seed, self.losses))
+            return
         ckpt.save_checkpoint(path, {
             "step": self.step,
             "params": {k: v.detach().cpu() for k, v in self.model.state_dict().items()},
@@ -197,14 +203,13 @@ class MIMPretrainer:
         })
 
     def restore(self, path: str) -> bool:
-        payload = ckpt.load_checkpoint(path)
-        if payload is None:
+        """Resume from the port's checkpoint or the JAX package's
+        (``optim.restore_state``); False without a file."""
+        out = restore_state(path, self.model, self.optimizer, self.mask_gen, self.seed)
+        if out is None:
             return False
-        self.model.load_state_dict(payload["params"])
-        self.optimizer.load_state_dict(payload["opt_state"])
-        self.step = int(payload["step"])
-        self.mask_gen.set_state(payload["rng"])
-        self.losses = defaultdict(list, {k: list(v) for k, v in payload["losses"].items()})
+        _, self.step, losses = out
+        self.losses = defaultdict(list, losses)
         return True
 
 

@@ -9,6 +9,8 @@ pretraining config under ``pretained_mae`` (the reference's spelling;
 resumes from ``models/<run>_best.ckpt.pt``, else ``models/<run>.ckpt.pt``,
 else warm-starts from the pretraining checkpoint
 ``models/<pretained_mae>.ckpt.pt`` (``pretrain_mim``'s), else starts fresh;
+each file may be the JAX package's ``.ckpt.msgpack`` of the name instead
+(``utils/checkpoint.find_checkpoint``), and the run writes the port's;
 ``<run>`` is ``--run_name`` or ``<model_name>``. ``[TRAINING] num_train``
 takes a subset of the training file: for ``crossentropy`` the first rows of
 each class in proportion (``utils/misc.select_training_indices``), else the
@@ -29,7 +31,7 @@ import torch
 from sky_embeddings_tpu_torch.configuration import apply_overrides, load_config
 from sky_embeddings_tpu_torch.data.device_cache import build_cached_or_streaming_batcher
 from sky_embeddings_tpu_torch.train.predictor import PredictorTrainer, train_predictor_network
-from sky_embeddings_tpu_torch.utils.checkpoint import checkpoint_path
+from sky_embeddings_tpu_torch.utils.checkpoint import checkpoint_path, find_checkpoint
 from sky_embeddings_tpu_torch.utils.misc import build_train_argparser, select_training_indices
 
 REPO_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -70,13 +72,14 @@ def main(argv=None) -> str:
 
     trainer = PredictorTrainer(config, mae_config, device=args.device)
     run = args.run_name or args.model_name
-    model_filename = checkpoint_path(model_dir, run)
-    best_filename = checkpoint_path(model_dir, run, best=True)
-    mae_filename = checkpoint_path(model_dir, mae_name) if mae_name else None
-    if os.path.exists(best_filename) and trainer.restore(best_filename):
+    model_filename = checkpoint_path(model_dir, run)  # written as the port's file
+    best_filename = find_checkpoint(model_dir, run, best=True)
+    resume_filename = find_checkpoint(model_dir, run)
+    mae_filename = find_checkpoint(model_dir, mae_name) if mae_name else None
+    if best_filename and trainer.restore(best_filename):
         print(f"\nResumed from {best_filename} at iteration {trainer.cur_iter}.")
-    elif trainer.restore(model_filename):
-        print(f"\nResumed from {model_filename} at iteration {trainer.cur_iter}.")
+    elif resume_filename and trainer.restore(resume_filename):
+        print(f"\nResumed from {resume_filename} at iteration {trainer.cur_iter}.")
     elif mae_filename and trainer.warm_start(mae_filename):
         print(f"\nWarm-started from pretrained MIM checkpoint {mae_filename}.")
     else:

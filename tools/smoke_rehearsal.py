@@ -64,6 +64,7 @@ def shrink() -> None:
     cs.POOL = ("mim_1_attn_pool", 2, 1, 64, ((8, 1),))
     cs.PRED = ("mim_struct", cs.PRED[1], 8, 2, 1, 2, 1)
     cs.PRED_F32_RUN = (2, 1, 2, 1)
+    cs.CKPT = cs.CKPT[:4] + (2, 32, 32)
     cs.F32_SHAPES = (("vitb", 4, 17), ("cls_fs", 8, 18))
     stash = ("mlp_block_fwd_stash_f32", "mlp_block_bwd_stash_f32")
     cs.F32_NEW = (("cls_ft_large", 8, 17, 64, 16, 256, 0, stash),
