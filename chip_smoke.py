@@ -236,6 +236,25 @@ failing loudly (any failure exits non-zero and prints no result line):
    ``jepa_tiny`` (fp32, B=16, D=192 over 16 tokens, the 96-wide one-head
    predictor over 21): 10 steps and 2 validation batches, every launch an
    fp32 one, kernel vs plain path, timed;
+5h. CosmicEmbeds (``models/cosmos.py``) at the module's defaults (64 x 64,
+   patch 8, 5 bands, D=384, depth 12, 6 heads of 64: 70 tokens), B=256,
+   seeded weights, synthetic cutouts with whole-band NaNs, their RA/Dec and
+   HSC's five wavelengths, in fp32 (its default) and bf16: 4 Adam steps of
+   ``loss`` at lr 3e-3 alternating no context and a context hidden by
+   per-band ``MaskGenerator(64, 8, 0.9, 5)`` pixel masks (kernels 2, 3, 8
+   and K1 at 12 a step, fp32 forms in fp32), then ``generate`` under no
+   grad with each (K2 and K1 at 12 a call), counters zeroed just before
+   each and read just after; each loss, every gradient and ``generate``'s
+   images kernel path against plain path, under the L1 loss as shipped and,
+   with no context, the MSE loss (TOL_COSMOS); the step's time, busy share
+   and peak memory, ``generate``'s images/s;
+5i. the training loop's host-to-device prefetch (``data/prefetch``): the
+   ``mim_1`` (B=64) and ``jepa_struct`` (B=256) trainers through
+   ``train_network`` on numpy batches, against the synchronous copy
+   ``train_batch`` takes, from one seed on the same batches: every loss
+   and parameter bit-equal, launches exact; then both loops timed in turns
+   (synchronous, prefetch, prefetch, synchronous, twice), wall and device
+   ms a step and the busy share;
 5b. the ``Attention`` module (``models/layers.Attention``, the only caller of
    kernels 12 and 13, as in JAX) at ViT-B width, B=64, in bf16 and at its
    default fp32: one forward and ``backward()`` through autograd with the
@@ -494,6 +513,33 @@ JEPA_RUNS = (("jepa_struct", 10, 2, 10), ("jepa_1", 3, 0, 10), ("jepa_tiny", 10,
 # worst (median 4.0e-7), losses 0. The bars are about twice those (two
 # fp32 ulps where 0 was measured).
 TOL_JEPA = {"jepa_struct": (5.5e-3, 7e-5), "jepa_tiny": (1.4e-6, 2.5e-7)}
+# CosmicEmbeds (phase 5h) at the module's defaults (img 64, patch 8, 5 bands,
+# D=384, depth 12, 6 heads of 64: N = 1 + 5 + 64 = 70 tokens), in fp32 (its
+# default) and bf16: (batch, Adam steps, timed steps, timed generate
+# calls); the steps alternate the loss with no context and with a context
+# hidden by per-band MaskGenerator(64, 8, 0.9, 5) pixel masks; wavelengths
+# HSC's g, r, i, z, y (nm)
+COSMOS = (256, 4, 10, 10)
+HSC_NM = (477.0, 622.0, 770.0, 891.0, 978.0)
+# kernel path vs plain path (Encoder.plain) from the same weights, per
+# dtype: each loss's gradients (||a - b|| / ||b|| per leaf), the losses
+# |a - b| / |b|, and generate's images max|a - b| / max|b|; the L1 loss as
+# shipped with no context and with the masked context, and the MSE loss
+# with no context. Measured on the H100 (PERF.md): fp32 gradients 1.60e-4
+# at worst (patch_embed.proj.kernel, masked context; median 3.1e-5), losses
+# bit-equal, images 1.73e-6; bf16 gradients 8.69e-3 (the SIREN's first
+# layer; median 1.6e-3), losses 1.52e-5, images 1.10e-2. The L1 gradient of
+# a pixel is the sign of its error, so the few of B x 5 x 64 x 64 = 5.2M
+# pixels whose prediction lies within the two paths' difference of its
+# target flip, and each flip moves a leaf's gradient by far more than the
+# kernels' rounding does (the MSE loss's gradients show that rounding
+# alone). The bars are about twice the L1 gaps (two fp32 ulps where 0 was
+# measured).
+TOL_COSMOS = {"float32": (3.5e-4, 2.5e-7, 3.5e-6), "bfloat16": (1.75e-2, 3e-5, 2.2e-2)}
+# the prefetching loop against the synchronous copy (phase 5i): (config,
+# train steps checked bit-equal, steps a timed loop, steps a profiled
+# loop); the loops are timed in four turns each, synchronous first
+PREFETCH = (("mim_1", 6, 20, 4), ("jepa_struct", 4, 10, 4))
 
 # the retrieval path: a FITS survey of FITS_TILES tiles of FITS_SIZE^2 pixels
 # per band, searched at FITS_OVERLAP for N_GROUPS target groups; kernel 11 at
@@ -1348,6 +1394,284 @@ def jepa_phase(dev, probe_sets, zero_counters, launch_counts, step_times):
                                  "held_ms": sleep_ms, "longest_queue_ms": queue_ms}
         out[name] = res
         del trainer, tb, tbatches, x
+        torch.cuda.empty_cache()
+    return out
+
+
+def cosmos_phase(dev, zero_counters, launch_counts, step_times):
+    """CosmicEmbeds at the module's full default width, through its public
+    entry points (``loss`` under Adam at lr 3e-3, as ``tests/test_cosmos.py``
+    trains JAX's; ``generate`` under no grad), seeded weights, synthetic
+    cutouts with whole-band NaNs, their RA/Dec and HSC wavelengths, in fp32
+    and bf16. For each dtype: COSMOS[1] Adam steps alternating the loss with
+    no context and with a context under per-band ``MaskGenerator`` pixel
+    masks, with the counters zeroed just before and read just after (kernels
+    2, 3, 8 and K1 once per block a step, their fp32 forms in fp32, nothing
+    else); two ``generate`` calls (no context, and the masked context) the
+    same way (K2 and K1 once per block a call); the kernel path against the
+    plain path (``Encoder.plain``) from the same weights: each loss and
+    every gradient, and ``generate``'s images, under the L1 loss as shipped
+    and, with no context, the MSE loss (TOL_COSMOS); a step's time,
+    images/s, busy share and peak memory, and ``generate``'s images/s."""
+    import numpy as np
+    import torch
+
+    from sky_embeddings_tpu_torch.data.mask_generator import MaskGenerator
+    from sky_embeddings_tpu_torch.data.synthetic import make_cutouts
+    from sky_embeddings_tpu_torch.models.cosmos import CosmicEmbeds
+
+    B, steps, timed, gen_timed = COSMOS
+    arch = CosmicEmbeds()  # the defaults' geometry (weights not drawn)
+    img, p, C = arch.img_size, arch.patch_size, arch.in_chans
+    check(C == len(HSC_NM), "cosmos: one wavelength a band")
+    x = make_cutouts(B, channels=C, img_size=img, seed=30)
+    check(bool(np.isnan(x["cutouts"]).any()), "cosmos: cutouts hold NaN bands")
+    target = torch.as_tensor(x["cutouts"], device=dev)
+    ra_dec = torch.as_tensor(np.stack([x["ra"], x["dec"]], 1), device=dev)
+    waves = torch.tensor(HSC_NM, device=dev).expand(B, -1).contiguous()
+    masks = MaskGenerator(img, p, 0.9, C, rng=np.random.default_rng(31))
+    hidden = torch.as_tensor(np.stack([masks() for _ in range(B)]), device=dev)
+    conds = {"no_context": (), "masked_context": (target, hidden)}
+    # the kernel-vs-plain cases: (conditioning, loss)
+    cases = {"no_context": ("no_context", "l1"), "masked_context": ("masked_context", "l1"),
+             "no_context_mse": ("no_context", "mse")}
+    out = {}
+    for dt_name in ("float32", "bfloat16"):
+        dt = getattr(torch, dt_name)
+        tag = f"cosmos {dt_name}"
+
+        def build():
+            m_ = CosmicEmbeds(dtype=dt)
+            m_.reset_parameters(torch.Generator().manual_seed(0))
+            return m_.to(dev)
+
+        model = build()
+        depth = model.encoder.depth
+        geometry = (model.img_size, model.patch_size, model.in_chans, model.embed_dim, depth,
+                    model.encoder.block0.num_heads, 1 + model.in_chans + model.grid_size ** 2)
+        n_params = sum(p.numel() for p in model.parameters())
+        print(f"{tag}: (img, patch, bands, D, depth, heads, tokens) = {geometry}; {n_params} "
+              f"parameters; B={B}", flush=True)
+        check(geometry == (64, 8, 5, 384, 12, 6, 70), f"{tag}: full width and depth, the defaults")
+        opt = torch.optim.Adam(model.parameters(), lr=3e-3)
+
+        def step(args):
+            loss = model.loss(target, ra_dec, waves, *args)
+            opt.zero_grad(set_to_none=True)
+            loss.backward()
+            for p_ in model.parameters():
+                if p_.grad is None:  # unread (patch_embed, no context): optax's zero gradient
+                    p_.grad = torch.zeros_like(p_)
+            opt.step()
+            return loss.detach()
+
+        order = [list(conds)[i % 2] for i in range(steps)]
+        zero_counters()
+        torch.cuda.synchronize()
+        t_run = time.perf_counter()
+        losses = [float(step(conds[c])) for c in order]
+        torch.cuda.synchronize()
+        t_run = time.perf_counter() - t_run
+        launches = launch_counts()
+        want = dict.fromkeys(("attn_block_fwd_stash", "attn_block_bwd_stash", "mlp_block_bwd",
+                              "fused_mlp_block"), depth * steps)
+        if dt == torch.float32:
+            want.update({k + "_f32": v for k, v in want.items()})
+        print(f"{tag}: {steps} Adam steps ({order}) in {t_run:.2f} s, losses "
+              f"{[round(v, 5) for v in losses]}, launches { {k: v for k, v in launches.items() if v} }",
+              flush=True)
+        check(all(np.isfinite(losses)), f"{tag}: losses finite")
+        for k_, n_ in launches.items():
+            check(n_ == want.get(k_, 0), f"{tag}: training {k_} launches {n_} == {want.get(k_, 0)}")
+
+        zero_counters()
+        torch.cuda.synchronize()
+        with torch.no_grad():
+            imgs = [model.generate(ra_dec, waves, *args) for args in conds.values()]
+        torch.cuda.synchronize()
+        gen_launches = launch_counts()
+        want_gen = dict.fromkeys(("fused_attn_block", "fused_mlp_block"), depth * len(conds))
+        if dt == torch.float32:
+            want_gen.update({k + "_f32": v for k, v in want_gen.items()})
+        print(f"{tag}: generate, no grad, launches { {k: v for k, v in gen_launches.items() if v} }",
+              flush=True)
+        for k_, n_ in gen_launches.items():
+            check(n_ == want_gen.get(k_, 0),
+                  f"{tag}: generate {k_} launches {n_} == {want_gen.get(k_, 0)}")
+        check(all(tuple(im.shape) == (B, C, img, img) and im.dtype == torch.float32
+                  and bool(torch.isfinite(im).all()) for im in imgs), f"{tag}: generate's images")
+
+        # kernel path vs plain path from the same weights
+        tol_grad, tol_loss, tol_img = TOL_COSMOS[dt_name]
+        pair = [build(), build()]
+        pair[1].plain = True
+        gaps = {}
+        for c, (cond, loss_fn) in cases.items():
+            args = conds[cond]
+            grads, ls = [], []
+            for m_ in pair:
+                m_.loss_fn = loss_fn
+                loss = m_.loss(target, ra_dec, waves, *args)
+                loss.backward()
+                ls.append(float(loss.detach()))
+                grads.append({n: p.grad.float().clone() for n, p in m_.named_parameters()
+                              if p.grad is not None})
+                m_.zero_grad(set_to_none=True)
+            names = {n for n, _ in model.named_parameters() if cond != "no_context"
+                     or not n.startswith("patch_embed.")}
+            check(grads[0].keys() == grads[1].keys() == names,
+                  f"{tag} {c}: every parameter the loss reads gets a gradient")
+            rel = {n: float((a - grads[1][n]).norm() / (grads[1][n].norm() + 1e-30))
+                   for n, a in grads[0].items()}
+            worst = max(rel, key=rel.get)
+            loss_rel = abs(ls[0] - ls[1]) / abs(ls[1])
+            with torch.no_grad():
+                im_k, im_p = (m_.generate(ra_dec, waves, *args) for m_ in pair)
+            img_rel = float((im_k - im_p).abs().max() / im_p.abs().max())
+            print(f"{tag} {c} kernel vs plain path: loss rel {loss_rel:.3e} (bar {tol_loss}); "
+                  f"gradient ||a-b||/||b|| max {rel[worst]:.3e} ({worst}), median "
+                  f"{float(np.median(list(rel.values()))):.3e} over {len(rel)} leaves (bar {tol_grad}); "
+                  f"generate max-rel {img_rel:.3e} (bar {tol_img})", flush=True)
+            gaps[c] = {"loss_rel": loss_rel, "grad_rel_max": rel[worst], "grad_rel_worst_leaf": worst,
+                       "grad_rel_median": float(np.median(list(rel.values()))),
+                       "generate_max_rel": img_rel}
+        for c, g_ in gaps.items():  # every case measured, then held to the bars
+            check(np.isfinite(g_["grad_rel_max"]) and g_["grad_rel_max"] <= tol_grad,
+                  f"{tag} {c}: gradients kernel vs plain")
+            check(g_["loss_rel"] <= tol_loss, f"{tag} {c}: loss kernel vs plain")
+            check(g_["generate_max_rel"] <= tol_img, f"{tag} {c}: generate kernel vs plain")
+        del pair, grads, im_k, im_p
+        torch.cuda.empty_cache()
+
+        train_step = step_times(lambda: step(conds["masked_context"]), B, timed, tag)
+        s0, s1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        with torch.no_grad():
+            for _ in range(2):
+                model.generate(ra_dec, waves)
+            s0.record()
+            for _ in range(gen_timed):
+                model.generate(ra_dec, waves)
+            s1.record()
+        s1.synchronize()
+        gen_ms = s0.elapsed_time(s1) / gen_timed
+        print(f"{tag}: generate (no context) B={B}: {gen_ms:.3f} ms, {B / gen_ms * 1e3:.0f} images/s",
+              flush=True)
+        out[dt_name] = {"geometry": dict(zip(("img_size", "patch_size", "bands", "embed_dim", "depth",
+                                               "heads", "tokens"), geometry)),
+                        "parameters": n_params, "batch": B, "steps": order, "seconds": t_run,
+                        "train_losses": losses, "launches": launches, "generate_launches": gen_launches,
+                        "kernel_vs_plain": gaps, "train_step": train_step,
+                        "generate_ms": gen_ms, "generate_images_per_s": B / gen_ms * 1e3}
+        del model, opt, imgs
+        torch.cuda.empty_cache()
+    del arch
+    return out
+
+
+def prefetch_phase(dev, zero_counters, launch_counts, device_breakdown):
+    """The training loop's host-to-device prefetch (``data/prefetch``) on the
+    numpy batches of the mim_1 B=64 and jepa_struct B=256 paths: for each of
+    PREFETCH, ``train_network`` (two batches in flight on a side stream)
+    against the synchronous copy each ``train_batch`` takes of a numpy
+    batch, two trainers from the same seed on the same batches: every
+    step's loss and the final parameters bit-equal, the launches of the
+    prefetching run exact; then both loops timed in turns (synchronous,
+    prefetch, prefetch, synchronous, twice) over the same batches, each with
+    its wall ms a step (the median of its four turns), the profiler's device
+    ms a step over a shorter loop and their ratio, the busy share."""
+    import numpy as np
+    import torch
+
+    from sky_embeddings_tpu_torch.configuration import load_config
+    from sky_embeddings_tpu_torch.data.synthetic import make_cutouts, make_structured_cutouts
+    from sky_embeddings_tpu_torch.train.jepa import JEPATrainer
+    from sky_embeddings_tpu_torch.train.pretrain import MIMPretrainer, train_network
+
+    out = {}
+    for name, steps, timed, profiled in PREFETCH:
+        cfg = load_config(name, os.path.join(ROOT, "configs"))
+        jepa = name.startswith("jepa")
+
+        def trainer():
+            if jepa:
+                return JEPATrainer(cfg, seed=0, device=dev)
+            return MIMPretrainer(cfg, dtype=torch.bfloat16, seed=0, device=dev)
+
+        pair = [trainer(), trainer()]
+        B = pair[0].batch_size
+        make = make_structured_cutouts if jepa else make_cutouts
+        n_b = max(steps, timed)
+        x = make(n_b * B, channels=pair[0].model.in_chans, img_size=pair[0].model.img_size,
+                 seed=21)["cutouts"]
+        batches = [{"cutouts": x[i * B:(i + 1) * B]} for i in range(n_b)]
+
+        def prefetched(tr, bs, record=None):
+            train_step = tr.train_batch
+            if record is not None:
+                tr.train_batch = lambda b_: record.append(train_step(b_)) or record[-1]
+            try:
+                train_network(tr, iter(bs), None, 10 ** 9, 10 ** 9, 1e9, "unused",
+                              log_fn=lambda m_: None)
+            finally:
+                tr.__dict__.pop("train_batch", None)
+
+        def synchronous(tr, bs):
+            return [tr.train_batch(b_) for b_ in bs]
+
+        zero_counters()
+        torch.cuda.synchronize()
+        got = []
+        prefetched(pair[0], batches[:steps], got)
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        ref = synchronous(pair[1], batches[:steps])
+        same_losses = len(got) == len(ref) == steps and all(torch.equal(a, b) for a, b in zip(got, ref))
+        same_params = all(torch.equal(a, b) for a, b in zip(pair[0].model.state_dict().values(),
+                                                           pair[1].model.state_dict().values()))
+        if jepa:
+            E, P_ = pair[0].model.encoder.encoder.depth, pair[0].model.predictor.blocks.depth
+            grad_layers = E + pair[0].mask_params["num_pred"] * P_
+            per_step = {"fused_attn_block": E, "attn_block_fwd_stash": grad_layers,
+                        "attn_block_bwd_stash": grad_layers, "fused_mlp_block": E + grad_layers,
+                        "mlp_block_bwd": grad_layers}
+        else:
+            per_step = dict.fromkeys(("attn_block_fwd_stash", "attn_block_bwd_stash",
+                                      "mlp_block_bwd", "fused_mlp_block"), pair[0].model.encoder.depth)
+        print(f"prefetch {name} (B={B}): {steps} steps through the prefetching train_network against "
+              f"the synchronous copy: losses bit-equal {same_losses}, parameters bit-equal "
+              f"{same_params}; launches { {k: v for k, v in launches.items() if v} }", flush=True)
+        check(same_losses and same_params, f"prefetch {name}: bit-equal to the synchronous copy")
+        for k_, n_ in launches.items():
+            want = per_step.get(k_, 0) * steps
+            check(n_ == want, f"prefetch {name}: {k_} launches {n_} == {want}")
+        del pair[1]
+        torch.cuda.empty_cache()
+
+        tr = pair[0]
+        loops = {"synchronous": lambda n_: synchronous(tr, batches[:n_]),
+                 "prefetch": lambda n_: prefetched(tr, batches[:n_])}
+        walls = {k: [] for k in loops}
+        for k in ("synchronous", "prefetch", "prefetch", "synchronous") * 2:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loops[k](timed)
+            torch.cuda.synchronize()
+            walls[k].append((time.perf_counter() - t0) * 1e3 / timed)
+        res = {"batch": B, "steps": steps, "timed_steps": timed, "losses_bit_equal": same_losses,
+               "params_bit_equal": same_params, "launches": launches}
+        for k, fn in loops.items():
+            prof = device_breakdown(lambda: fn(profiled), reps=1)
+            dev_ms = prof["device_ms_per_call"]
+            dev_step = dev_ms / profiled if isinstance(dev_ms, float) else "not measured"
+            wall = float(np.median(walls[k]))
+            busy = dev_step / wall if isinstance(dev_step, float) else "not measured"
+            print(f"prefetch {name} {k}: wall {[round(w, 3) for w in walls[k]]} ms a step, device "
+                  f"{dev_step} ms a step, busy {busy}", flush=True)
+            res[k] = {"wall_ms_per_step": walls[k], "device_ms_per_step": dev_step,
+                      "device_busy_share": busy, "images_per_s": B / wall * 1e3,
+                      "profile_top_ms": prof.get("top_ms")}
+        out[name] = res
+        del tr, pair, batches, x
         torch.cuda.empty_cache()
     return out
 
@@ -3310,6 +3634,11 @@ def main() -> int:
     jepa = jepa_phase(dev, probe_sets, zero_counters, launch_counts, step_times)
     del probe_sets
     mark("jepa")
+    # ---- 5h. CosmicEmbeds, 5i. the prefetching loop ----------------------------
+    cosmos = cosmos_phase(dev, zero_counters, launch_counts, step_times)
+    mark("cosmos")
+    prefetch = prefetch_phase(dev, zero_counters, launch_counts, device_breakdown)
+    mark("prefetch")
     shapes = {c: tuple(r[k] for k in ("layers", "embed_dim", "batch", "channels", "remat", "ra_dec"))
               for c, r in paths.items()}
     check(shapes == {CONFIG: (12, 768, 64, 5, False, False), LARGE[0]: (24, 768, 64, 5, False, False),
@@ -3476,7 +3805,9 @@ def main() -> int:
                        "training_f32_mae_tiny_remat":
                            f32_paths["mae_tiny"]["remat_run"]["launches"][counter],
                        **{f"jepa_{c}": r["launches"][counter] for c, r in jepa.items()
-                          if r["geometry"]["dtype"] == "float32"}}
+                          if r["geometry"]["dtype"] == "float32"},
+                       "cosmos_float32": cosmos["float32"]["launches"][counter],
+                       "cosmos_float32_generate": cosmos["float32"]["generate_launches"][counter]}
         elif name.endswith("_f32"):
             by_path = {"attention_module_float32": attn_launches_by_dtype["float32"][counter]}
         else:
@@ -3489,7 +3820,10 @@ def main() -> int:
                        "predictor_infer": predictor["infer"]["launches"].get(counter, 0),
                        "attention_module": attn_launches_by_dtype["bfloat16"][counter],
                        **{f"jepa_{c}": r["launches"][counter] for c, r in jepa.items()
-                          if r["geometry"]["dtype"] == "bfloat16"}}
+                          if r["geometry"]["dtype"] == "bfloat16"},
+                       "cosmos_bfloat16": cosmos["bfloat16"]["launches"][counter],
+                       "cosmos_bfloat16_generate": cosmos["bfloat16"]["generate_launches"][counter],
+                       **{f"prefetch_{c}": r["launches"][counter] for c, r in prefetch.items()}}
         check(sum(by_path.values()) > 0, f"{name} launched on a main path")
         kernels.append({
             "name": name, "route": route, "source": source, "replaces": replaces,
@@ -3518,6 +3852,8 @@ def main() -> int:
         "predictor_f32": predictor_f32,
         "training_f32_paths": f32_paths,
         "jepa": jepa,
+        "cosmos": cosmos,
+        "prefetch": prefetch,
         "checkpoints": checkpoints,
         "attention_module": attention_module,
         "retrieval_path": retrieval,

@@ -18,7 +18,13 @@ pooling) or ``fc_norm`` (``avg``), the ``map`` pool's ``pool/latent``,
 and ``predictor/{proj_in,mask_token,blocks/block*,norm,proj_out}`` (the
 sin-cos tables are constants in both); its EMA target tree, the
 ``encoder`` subtree alone (JAX ``train/jepa.py:131``), maps onto a
-``JEPAEncoder``'s state dict (``JEPATrainer.target``). A tree in the scan layout
+``JEPAEncoder``'s state dict (``JEPATrainer.target``). A CosmicEmbeds
+model (``models/cosmos.CosmicEmbeds``) maps the same way:
+``patch_embed/proj``, ``loc_encoder/SirenNet_0/SirenLayer_{0,1}/Dense_0``
+(or the ``FCNet_0`` / ``Dense_0`` heads as ``models/location.py`` names
+them), ``wave_mlp``, ``mask_token`` at (1, 1, D), ``encoder/block*``,
+``norm`` and ``pred`` at (D, p²·C) (the sin-cos grid table a constant in
+both). A tree in the scan layout
 (``encoder/blocks/block/...``, every leaf stacked over the blocks, as JAX
 builds ViT-H) maps to ``encoder.blocks.block.*``, which ``Encoder`` unstacks
 into the loop layout as it loads (``models/layers.py``). Both

@@ -45,6 +45,7 @@ import torch
 import torch.nn.functional as F
 
 from sky_embeddings_tpu_torch.data.augment import augment_batch
+from sky_embeddings_tpu_torch.data.prefetch import device_prefetch
 from sky_embeddings_tpu_torch.eval.eval_fns import batch_images, batch_ra_dec
 from sky_embeddings_tpu_torch.models.predictor import SkyViT, build_predictor_model
 from sky_embeddings_tpu_torch.train import optim
@@ -309,8 +310,10 @@ def train_predictor_network(
     early_stop_evals: int = 50,
     log_fn: Callable[[str], None] = print,
 ) -> None:
-    """The predictor loop (reference ``train_predictor.train_network``):
-    every ``verbose_iters`` a full validation pass, the best model saved to
+    """The predictor loop (reference ``train_predictor.train_network``) over
+    ``train_batches`` streamed through ``data/prefetch.device_prefetch`` (two
+    in flight; a ``DeviceDataset``'s batches pass through uncopied): every
+    ``verbose_iters`` a full validation pass, the best model saved to
     the ``_best`` sidecar, early stopping after ``early_stop_evals`` stale
     evaluations; saves every ``cp_time_minutes`` and at the end."""
     losses = trainer.losses
@@ -327,7 +330,7 @@ def train_predictor_network(
         log_fn("Training already complete for this config; nothing to do.")
         return
 
-    for batch in train_batches:
+    for batch in device_prefetch(train_batches, size=2, device=trainer.device):
         loss, metric = trainer.train_batch(batch)
         losses_cp["train_loss"].append(loss)
         losses_cp[f"train_{metric_name}"].append(metric)

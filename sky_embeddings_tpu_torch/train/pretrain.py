@@ -37,6 +37,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from sky_embeddings_tpu_torch.data.prefetch import device_prefetch
 from sky_embeddings_tpu_torch.eval.eval_fns import batch_ra_dec
 from sky_embeddings_tpu_torch.eval.linear_probe import linear_probe
 from sky_embeddings_tpu_torch.models.mim import SkyMIM, build_mim_model
@@ -228,7 +229,9 @@ def train_network(
     log_fn: Callable[[str], None] = print,
 ) -> None:
     """The pretraining loop (JAX ``train_network``) of a
-    :class:`MIMPretrainer` or a ``train/jepa.JEPATrainer``: train steps; every
+    :class:`MIMPretrainer` or a ``train/jepa.JEPATrainer``: train steps on
+    ``train_batches`` streamed through ``data/prefetch.device_prefetch``
+    (two batches in flight, as JAX streams them); every
     ``verbose_iters`` a validation pass of at most ``max_val_batches`` and,
     when probe sets are given (h5 paths, or lists of labelled batches), the
     linear probes with ``lp_combine`` pooling, their metrics appended to
@@ -242,7 +245,7 @@ def train_network(
         return
 
     timer = StepTimer(batch_size=pretrainer.batch_size, device=pretrainer.device)
-    for batch in train_batches:
+    for batch in device_prefetch(train_batches, size=2, device=pretrainer.device):
         loss = pretrainer.train_batch(batch)
         losses_cp["train_loss"].append(loss)
         timer.step()

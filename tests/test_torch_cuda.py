@@ -71,6 +71,13 @@ and the 192-wide predictor (3 heads of 64, N = 77) in bf16, and at
 ``jepa_struct`` and ``jepa_tiny`` cut to depth 2 launches exactly those
 kernels, reaches every parameter and matches the plain path.
 
+CosmicEmbeds: a step of its loss (a masked context, a NaN band) at a small
+width in fp32 and bf16 launches kernels 2, 3, 8 and K1 once per block, and
+``generate`` K2 and K1, matching the plain path. The host-to-device prefetch
+copies numpy arrays and CPU tensors to the card equal to the source, on a
+side stream that the current stream waits on, and passes a tensor already
+on the card through.
+
 Every test is marked ``cuda`` and skips where there is no card. This file
 imports neither JAX nor the JAX package, so it runs on a host without them:
 
@@ -2030,3 +2037,87 @@ def test_jepa_training_step_on_the_card(dev, name, monkeypatch):
     for n, g in grads[0].items():
         assert g is not None and torch.isfinite(g).all(), n
         assert float((g - grads[1][n]).norm() / grads[1][n].norm()) <= tol, n
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cosmos_training_step_on_the_card(dev, dtype):
+    """A CosmicEmbeds step at a small width (32 x 32, patch 8, 5 bands: N =
+    1 + 5 + 16 = 22 tokens; D = 128, depth 2, 2 heads of 64), B = 6, the MSE
+    loss with a context under a pixel mask and a NaN band in the target: the
+    forward and backward launch kernels 2, 3, 8 and K1 once per block (their
+    fp32 forms in fp32) and nothing else; every parameter gets a finite
+    gradient that matches the plain path's; ``generate`` under no grad
+    launches K2 and K1 once per block and matches the plain path. The MSE
+    loss, since the L1 gradient of a pixel is the sign of its error: at
+    this size a handful of sign flips between the paths moves a leaf's
+    gradient by more than the kernels' rounding does (``chip_smoke.py``
+    holds the shipped L1 loss at full size, to bars measured there)."""
+    from sky_embeddings_tpu_torch.models.cosmos import CosmicEmbeds
+
+    dt = getattr(torch, dtype)
+    pair = []
+    for plain in (False, True):
+        m = CosmicEmbeds(img_size=32, patch_size=8, in_chans=5, embed_dim=128, depth=2, num_heads=2,
+                         loss_fn="mse", dtype=dt)
+        m.reset_parameters(torch.Generator().manual_seed(0))
+        m.plain = plain
+        pair.append(m.to(dev))
+    gen = torch.Generator(dev).manual_seed(5)
+    target = torch.randn(6, 5, 32, 32, device=dev, generator=gen)
+    target[0, 2] = float("nan")
+    ra_dec = torch.rand(6, 2, device=dev, generator=gen) * 90
+    waves = torch.tensor([477.0, 622.0, 770.0, 891.0, 978.0], device=dev).expand(6, -1)
+    hidden = (torch.rand(6, 5, 32, 32, device=dev, generator=gen) < 0.6).float()
+    hidden[..., 16:] = 1.0  # half the patches hidden in every band: mask-token queries
+    counted = (tab.fused_attn_block, tab.attn_block_fwd_stash, tab.attn_block_bwd_stash,
+               tmb.fused_mlp_block, tmb.mlp_block_bwd, tab.attn_block_bwd, tmb.mlp_block_fwd_stash,
+               tmb.mlp_block_bwd_stash, tmb.mlp_block_bwd_stream)
+    fp32 = dt == torch.float32
+    grads, losses, imgs = [], [], []
+    for m in pair:
+        before = [(f.launches, f.f32_launches) for f in counted]
+        loss = m.loss(target, ra_dec, waves, target, hidden)
+        loss.backward()
+        torch.cuda.synchronize()
+        if m is pair[0]:
+            got = [(f.launches - n, f.f32_launches - n32) for f, (n, n32) in zip(counted, before)]
+            assert got == [(w, w * fp32) for w in (0, 2, 2, 2, 2, 0, 0, 0, 0)]
+        losses.append(float(loss.detach()))
+        grads.append({n: p.grad for n, p in m.named_parameters()})
+        before = [(f.launches, f.f32_launches) for f in counted]
+        with torch.no_grad():
+            imgs.append(m.generate(ra_dec, waves))
+        torch.cuda.synchronize()
+        if m is pair[0]:
+            got = [(f.launches - n, f.f32_launches - n32) for f, (n, n32) in zip(counted, before)]
+            assert got == [(w, w * fp32) for w in (2, 0, 0, 2, 0, 0, 0, 0, 0)]
+    tol = 1e-5 if fp32 else 3e-2
+    assert abs(losses[0] - losses[1]) <= tol * abs(losses[1])
+    for n, g in grads[0].items():
+        assert g is not None and torch.isfinite(g).all(), n
+        assert float((g - grads[1][n]).norm() / grads[1][n].norm()) <= tol, n
+    assert imgs[0].shape == (6, 5, 32, 32) and _max_rel(imgs[0], imgs[1]) <= tol
+
+
+def test_prefetch_copies_to_the_card_on_a_side_stream(dev):
+    """``device_prefetch`` onto the card: numpy arrays and CPU tensors
+    arrive on the card equal to the source, in order, read by the current
+    stream after their copies; a tensor already on the card passes through
+    as the same object."""
+    from sky_embeddings_tpu_torch.data.prefetch import device_prefetch
+
+    rng = np.random.default_rng(3)
+    on_card = torch.arange(10.0, device=dev)
+    src = [{"cutouts": rng.normal(size=(64, 5, 64, 64)).astype(np.float32),
+            "ra_dec": torch.from_numpy(rng.normal(size=(64, 2)).astype(np.float32)),
+            "labels": on_card, "step": i} for i in range(5)]
+    seen = 0
+    for i, b in enumerate(device_prefetch(iter(src), size=2, device=dev)):
+        assert b["step"] == i and b["labels"] is on_card
+        assert b["cutouts"].device.type == "cuda" and b["ra_dec"].device.type == "cuda"
+        total = (b["cutouts"] * 2).sum()  # a kernel on the current stream
+        assert torch.equal(b["cutouts"].cpu(), torch.from_numpy(src[i]["cutouts"]))
+        assert torch.equal(b["ra_dec"].cpu(), src[i]["ra_dec"])
+        assert float(total) == float((torch.from_numpy(src[i]["cutouts"]).to(dev) * 2).sum())
+        seen += 1
+    assert seen == 5

@@ -211,7 +211,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "eval.simsearch", "ops.kernels.simscore", "ops.kernels.attention", "eval.probe",
                 "eval.linear_probe", "models.predictor", "train.predictor", "data.device_cache",
                 "utils.plotting", "train_predictor", "test_predictor", "semantic_validation",
-                "ops.jepa_masks", "models.jepa", "train.jepa", "pretrain_jepa"):
+                "ops.jepa_masks", "models.jepa", "train.jepa", "pretrain_jepa", "models.cosmos",
+                "data.prefetch", "data.mask_generator", "jepa_validation"):
         assert f"{pkg.__name__}.{new}" in mods
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
 

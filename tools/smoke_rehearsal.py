@@ -9,8 +9,8 @@ the full-width ones (``mim_1`` as ``mim_tiny`` with 5 bands; ``mim_25_large``
 and ``mim_32`` as ``mim_tiny_large``, the latter with remat and the RA/Dec
 token; the predictor configs at 16 x 16 and batch 8; ``jepa_struct`` and
 ``jepa_1`` at 16 x 16, batch 8, predictor depth 1), cuts every model to
-depth 2, stubs ``torch.cuda``, the profiler, ``nvidia-smi``, the nvcc build
-and the C-only helpers (the TMA encode timer, the group plan, kernel 12's
+depth 2 (CosmicEmbeds at 16 x 16, D = 48), stubs ``torch.cuda``, the
+profiler, ``nvidia-smi``, the nvcc build and the C-only helpers (the TMA encode timer, the group plan, kernel 12's
 bit-equality launch), and runs ``main()`` with ``check`` logging instead of
 exiting. Every wrapper takes its plain version on CPU tensors, so only the
 launch-count and full-size checks fail; anything else that fails, and any
@@ -33,6 +33,7 @@ import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
 from sky_embeddings_tpu_torch import configuration as conf  # noqa: E402
+from sky_embeddings_tpu_torch.models import cosmos as pc  # noqa: E402
 from sky_embeddings_tpu_torch.models import jepa as pj  # noqa: E402
 from sky_embeddings_tpu_torch.models import mim as pm  # noqa: E402
 from sky_embeddings_tpu_torch.ops.kernels import attention as tat  # noqa: E402
@@ -91,6 +92,11 @@ def shrink() -> None:
     cs.JEPA_RUNS = (("jepa_struct", 2, 1, 1), ("jepa_1", 2, 0, 1), ("jepa_tiny", 2, 1, 1))
     for size in ("small", "tiny"):
         pj._SIZES[size]["depth"] = 2
+    cs.COSMOS = (8, 2, 1, 1)
+    # CosmicEmbeds at 16 x 16 (patch 4), D=48, depth 2, 4 heads; 5 bands
+    defaults = pc.CosmicEmbeds.__init__.__defaults__
+    pc.CosmicEmbeds.__init__.__defaults__ = (16, 4, 5, 48, 2, 4) + defaults[6:]
+    cs.PREFETCH = (("mim_1", 3, 4, 2), ("jepa_struct", 2, 3, 2))
 
 
 _load = conf.load_config
