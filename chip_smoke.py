@@ -540,6 +540,33 @@ TOL_COSMOS = {"float32": (3.5e-4, 2.5e-7, 3.5e-6), "bfloat16": (1.75e-2, 3e-5, 2
 # train steps checked bit-equal, steps a timed loop, steps a profiled
 # loop); the loops are timed in four turns each, synchronous first
 PREFETCH = (("mim_1", 6, 20, 4), ("jepa_struct", 4, 10, 4))
+# phase 5j, data parallelism (parallel/): the mim_1 trainer (bf16 ViT-B)
+# with DDP and [TRAINING] zero_optimizer = True, (config, global batch,
+# steps, timed steps); at world 1 under NCCL against no process group, then
+# on DP_RANKS ranks on the one card through gloo (NCCL refuses two ranks on
+# one device); then the ft and I-JEPA legs on the ranks, (config, steps),
+# at their shipped batch of 256
+DP = ("mim_1", 64, 10, 10)
+DP_LEGS = (("z_struct_ft_512", 3), ("jepa_struct", 3))
+DP_RANKS = 2
+# two ranks of 32 against one process over the global 64: the same
+# arithmetic but for the order of each weight gradient's sum over the
+# batch (two halves summed by the all-reduce) and the GEMM plans the
+# halved M picks, so the runs part by rounding flips, which Adam turns
+# into steps that differ by up to lr where a gradient is near 0. Bars:
+# (step 1's gradients ||a - b|| / ||b|| per leaf, the losses |a - b| / |b|,
+# the parameters after the steps max |a - b| but for the key biases whose
+# gradient is rounding noise, parallel/smoke.param_gaps, those to twice
+# the summed lr: each run's Adam step of that noise is up to lr, either
+# way). Measured on the H100 (PERF.md), the same in two runs: mim_1
+# gradients 2.15e-3 at worst (cls_token, whose gradient sums the batch;
+# median 7.3e-8), 10 steps' losses 5.86e-5, parameters 3.43e-4; ft losses
+# 8.5e-6, parameters 6.56e-5; I-JEPA losses 1.22e-5, parameters 3.59e-4.
+# The bars are about twice those.
+TOL_DP = {"mim_1": (4.5e-3, 1.2e-4, 7e-4), "z_struct_ft_512": (None, 2e-5, 1.3e-4),
+          "jepa_struct": (None, 2.5e-5, 7.2e-4)}
+# the command that runs one rank of phase 5j (its spec file appended)
+DP_WORKER = [os.path.abspath(__file__), "--dp-worker"]
 
 # the retrieval path: a FITS survey of FITS_TILES tiles of FITS_SIZE^2 pixels
 # per band, searched at FITS_OVERLAP for N_GROUPS target groups; kernel 11 at
@@ -1676,6 +1703,455 @@ def prefetch_phase(dev, zero_counters, launch_counts, device_breakdown):
     return out
 
 
+def kernel_counters():
+    """The wrappers that count their launches: (every one, those that also
+    count packed-segment launches, those that also count fp32 ones)."""
+    from sky_embeddings_tpu_torch.ops.kernels.attention import fused_attention, fused_attention_bwd
+    from sky_embeddings_tpu_torch.ops.kernels.attn_block import (
+        attn_block_bwd, attn_block_bwd_stash, attn_block_fwd_stash, fused_attn_block)
+    from sky_embeddings_tpu_torch.ops.kernels.mlp_block import (
+        fused_mlp_block, mlp_block_bwd, mlp_block_bwd_stash, mlp_block_bwd_stream,
+        mlp_block_fwd_stash)
+    from sky_embeddings_tpu_torch.ops.kernels.simscore import (
+        weighted_bank_scores, weighted_bank_scores_multi)
+
+    counters = (fused_attn_block, fused_mlp_block, weighted_bank_scores,
+                weighted_bank_scores_multi, attn_block_fwd_stash, attn_block_bwd_stash,
+                mlp_block_bwd, attn_block_bwd, mlp_block_fwd_stash, mlp_block_bwd_stash,
+                mlp_block_bwd_stream, fused_attention, fused_attention_bwd)
+    seg_counters = (fused_attn_block, attn_block_fwd_stash, attn_block_bwd)
+    f32_counters = (fused_attn_block, fused_mlp_block, attn_block_fwd_stash, attn_block_bwd_stash,
+                    mlp_block_bwd, attn_block_bwd, mlp_block_fwd_stash, mlp_block_bwd_stash,
+                    mlp_block_bwd_stream)
+    return counters, seg_counters, f32_counters
+
+
+def counter_fns():
+    """``(zero_counters, launch_counts)`` over :func:`kernel_counters`."""
+    counters, seg_counters, f32_counters = kernel_counters()
+
+    def zero_counters():
+        for fn in counters:
+            fn.launches = 0
+        for fn in seg_counters:
+            fn.seg_launches = 0
+        for fn in f32_counters:
+            fn.f32_launches = 0
+
+    def launch_counts():
+        return {**{f.__name__: f.launches for f in counters},
+                **{f.__name__ + "_seg": f.seg_launches for f in seg_counters},
+                **{f.__name__ + "_f32": f.f32_launches for f in f32_counters}}
+
+    return zero_counters, launch_counts
+
+
+def free_port() -> int:
+    """A free localhost port for a process group's coordinator."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _lr_sum(tr, n):
+    """The summed learning rate of a trainer's first ``n`` steps."""
+    sched = getattr(tr, "lr_schedule", None) or tr.schedule
+    return sum(sched(t) for t in range(n))
+
+
+def profile_device_ms(fn, reps):
+    """Kernel time a call of ``fn`` by torch.profiler (CUPTI), or "not
+    measured" when the trace holds no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum((getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0))
+                for e in prof.key_averages()
+                if str(getattr(e, "device_type", "")).endswith("CUDA")
+                and not getattr(e, "is_user_annotation", False))
+    return total / 1e3 / reps if total else "not measured"
+
+
+def _dp_data(cfg_name, n_batches, seed):
+    """Phase 5j's global batches for a config, from a seed: cutouts (and
+    the labels of a predictor config), made alike in every process."""
+    from sky_embeddings_tpu_torch.configuration import load_config
+    from sky_embeddings_tpu_torch.data.synthetic import make_cutouts, make_structured_cutouts
+
+    cfg = load_config(cfg_name, os.path.join(ROOT, "configs"))
+    B = cfg.training.int("batch_size")
+    arch = cfg
+    if "pretained_mae" in cfg.training or "pretrained_mae" in cfg.training:
+        arch = load_config(cfg.pretrained_mae_name(), os.path.join(ROOT, "configs"))
+    geom = dict(channels=arch.architecture.int("num_channels"),
+                img_size=arch.architecture.int("img_size"))
+    make = make_cutouts if cfg_name == DP[0] else make_structured_cutouts
+    out = []
+    for i in range(n_batches):  # batch i from seed + i, whatever the count
+        d = make(B, seed=seed + i, **geom)
+        b = {"cutouts": d["cutouts"]}
+        if arch is not cfg:
+            b["labels"] = d["zspec"][:, None]
+        out.append(b)
+    return out
+
+
+def _dp_trainer(cfg_name, dev, zero_on=True):
+    """Phase 5j's trainer of a config as shipped (bf16), seed 0, with
+    ``zero_optimizer``; a predictor config fresh (no warm start)."""
+    import torch
+
+    from sky_embeddings_tpu_torch.configuration import apply_overrides, load_config
+    from sky_embeddings_tpu_torch.train.jepa import JEPATrainer
+    from sky_embeddings_tpu_torch.train.predictor import PredictorTrainer
+    from sky_embeddings_tpu_torch.train.pretrain import MIMPretrainer
+
+    cfg_dir = os.path.join(ROOT, "configs")
+    cfg = apply_overrides(load_config(cfg_name, cfg_dir), [f"TRAINING.zero_optimizer={zero_on}"],
+                          cfg_name)
+    check(cfg.training.str("dtype") == "bfloat16", f"{cfg_name} trains in bf16 as shipped")
+    if cfg_name.startswith("jepa"):
+        return JEPATrainer(cfg, seed=0, device=dev)
+    if cfg.pretrained_mae_name():
+        return PredictorTrainer(cfg, load_config(cfg.pretrained_mae_name(), cfg_dir), seed=0,
+                                device=dev)
+    return MIMPretrainer(cfg, dtype=torch.bfloat16, seed=0, device=dev)
+
+
+def _loss_of(out):
+    """The loss of a train_batch result (the predictor's is (loss, metric))."""
+    return float(out[0] if isinstance(out, tuple) else out)
+
+
+def dp_worker(spec_path: str) -> int:
+    """One rank of phase 5j (started by :func:`dp_phase` with its
+    ``SKY_*`` variables): the mim_1 leg (its rows of the global batches
+    through ``device_prefetch(sharding=...)``, counters zeroed just before
+    the steps and read just after, wall ms a step, the device ms of two
+    steps, the moment bytes, a consolidated save, the next step
+    uninterrupted and from a restore), then the ft and I-JEPA legs. Writes
+    its results as JSON, and rank 0 its tensors, under the spec's
+    directory."""
+    with open(spec_path) as f:
+        spec = json.load(f)
+    sys.path.insert(0, ROOT)
+    import torch
+
+    from sky_embeddings_tpu_torch.data.prefetch import device_prefetch
+    from sky_embeddings_tpu_torch.parallel import distributed, zero
+
+    check(distributed.initialize_from_env(backend=spec["backend"], device=spec["device"]),
+          "the SKY_* contract starts the process group")
+    rank, world = distributed.process_index(), distributed.process_count()
+    dev = distributed.rank_device(spec["device"])
+    print(f"rank {rank}/{world}: {torch.distributed.get_backend()} on {dev}", flush=True)
+    zero_counters, launch_counts = counter_fns()
+    res, tensors = {"rank": rank, "world": world, "legs": {}}, {}
+    name, B, steps, _ = DP
+    for cfg_name, n_steps in ((name, steps),) + tuple(tuple(leg) for leg in spec["legs"]):
+        tr = _dp_trainer(cfg_name, dev)
+        check(zero.is_sharded(tr.optimizer) and tr.forward is not tr.model,
+              f"{cfg_name}: DDP and ZeRO-1 under the group")
+        rows = distributed.batch_rows(tr.batch_size // world)[0]
+        glob = _dp_data(cfg_name, n_steps + 1, spec["seed"])
+        local = [{k: v[rows] for k, v in b.items()} for b in glob]
+        zero_counters()
+        torch.cuda.synchronize()
+        losses, walls = [], []
+        t0 = time.perf_counter()
+        for i, batch in enumerate(device_prefetch(local[:n_steps], size=2, sharding=tr.batch_shard)):
+            losses.append(_loss_of(tr.train_batch(batch)))
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            if i == 0 and rank == 0 and cfg_name == name:
+                tensors["grads1"] = {n: p.grad.detach().cpu() for n, p in tr.model.named_parameters()}
+        leg = {"batch": len(local[0]["cutouts"]), "losses": losses, "wall_ms_per_step": walls,
+               "launches": launch_counts(), "moment_bytes": zero.moment_bytes(tr.optimizer)}
+        tensors[cfg_name] = {k: v.detach().cpu() for k, v in tr.model.state_dict().items()}
+        if cfg_name == name:
+            path = os.path.join(spec["out"], "dp2.ckpt.pt")
+            t0 = time.perf_counter()
+            tr.save(path)  # every rank: the moments collected, rank 0 writes
+            torch.distributed.barrier()
+            leg["save_s"] = time.perf_counter() - t0
+            nxt = local[n_steps]
+            leg["next_loss"] = _loss_of(tr.train_batch(nxt))
+            uninterrupted = {k: v.clone() for k, v in tr.model.state_dict().items()}
+            fresh = _dp_trainer(cfg_name, dev)
+            check(fresh.restore(path) and fresh.cur_iter == n_steps, "the ranks restore the file")
+            leg["restored_loss"] = _loss_of(fresh.train_batch(nxt))
+            leg["restored_bit_equal"] = leg["restored_loss"] == leg["next_loss"] and all(
+                torch.equal(v, uninterrupted[k]) for k, v in fresh.model.state_dict().items())
+            tensors["restored"] = {k: v.detach().cpu() for k, v in fresh.model.state_dict().items()}
+            del fresh, uninterrupted
+            leg["device_ms_per_step"] = profile_device_ms(lambda: tr.train_batch(nxt), 2)
+        res["legs"][cfg_name] = leg
+        del tr
+        torch.cuda.empty_cache()
+    with open(os.path.join(spec["out"], f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    if rank == 0:
+        torch.save(tensors, os.path.join(spec["out"], "rank0.pt"))
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def dp_phase(dev, zero_counters, launch_counts):
+    """Phase 5j, data parallelism across processes (``parallel/``).
+
+    World 1 under NCCL: the mim_1 trainer with DDP and ZeRO-1 takes DP[2]
+    steps, counters zeroed just before and read just after, its losses
+    and parameters bit-equal to the same trainer with no process group
+    from the same seed, batches and masks; a consolidated save, a restore
+    and the next step bit-equal to the no-group trainer restored from the
+    same file; both timed in turns (none, DDP, DDP, none), wall ms a step
+    and the profiler's device ms.
+
+    Two ranks on the one card through gloo (CUDA tensors in every
+    collective: DDP's all-reduce, ZeRO's broadcasts, the losses' sums;
+    no staging through the host by this phase): DP_RANKS processes through
+    the ``SKY_*`` contract (:func:`dp_worker`), global batch DP[1], against
+    the no-group run over the global batch: step 1's gradients, the
+    losses and the parameters within TOL_DP, the launches per rank equal
+    to the one-process run's at half the batch, each rank's moment bytes
+    about half the unsharded optimizer's, the restored step bit-equal to
+    the uninterrupted one on each rank and within TOL_DP of the no-group
+    trainer restored from the same file; the ft and I-JEPA legs, DP_LEGS,
+    against one process the same way."""
+    import numpy as np
+    import torch
+
+    from sky_embeddings_tpu_torch.parallel import distributed, zero
+    from sky_embeddings_tpu_torch.parallel.smoke import param_gaps
+
+    name, B, steps, timed = DP
+    check(not torch.distributed.is_initialized(), "no process group before phase 5j")
+    glob = _dp_data(name, steps + 1, 31)
+    out = {"config": name, "batch": B, "steps": steps, "ranks": DP_RANKS, "launches": {}}
+    work = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    walls = {"none": [], "ddp_zero": [], "ddp": []}
+    device_ms = {}
+
+    def turn(tr, tag):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b in glob[:timed]:
+            tr.train_batch(b)
+        torch.cuda.synchronize()
+        walls[tag].append((time.perf_counter() - t0) * 1e3 / timed)
+
+    def state(tr):
+        return {k: v.detach().clone() for k, v in tr.model.state_dict().items()}
+
+    try:
+        # ---- world 1: no group, then NCCL --------------------------------
+        plain = _dp_trainer(name, dev)
+        check(plain.forward is plain.model and not zero.is_sharded(plain.optimizer),
+              "no process group: the model itself and AdamW")
+        zero_counters()
+        torch.cuda.synchronize()
+        ref_losses = [plain.train_batch(b) for b in glob[:steps]]
+        torch.cuda.synchronize()
+        ref_launches = launch_counts()
+        ref_state = state(plain)
+        full_moments = zero.moment_bytes(plain.optimizer)
+        half = {"cutouts": glob[steps]["cutouts"][:B // DP_RANKS]}
+        zero_counters()
+        plain.train_batch(half)
+        half_launches = launch_counts()
+        turn(plain, "none")  # every turn before any profiler session
+
+        os.environ.update({distributed.ENV_FLAG: "1",
+                           distributed.ENV_COORD: f"127.0.0.1:{free_port()}",
+                           distributed.ENV_NPROC: "1", distributed.ENV_PID: "0"})
+        try:
+            check(distributed.initialize_from_env(device=DEVICE), "world 1 starts")
+            backend = torch.distributed.get_backend()
+            w1 = _dp_trainer(name, dev)
+            check(zero.is_sharded(w1.optimizer) and w1.forward is not w1.model,
+                  "world 1: DDP and ZeRO-1")
+            zero_counters()
+            torch.cuda.synchronize()
+            w1_losses = [w1.train_batch(b) for b in glob[:steps]]
+            torch.cuda.synchronize()
+            out["launches"]["world1_" + name] = launch_counts()
+            same_losses = all(torch.equal(a, b) for a, b in zip(w1_losses, ref_losses))
+            same_params = all(torch.equal(v, ref_state[k]) for k, v in state(w1).items())
+            check(out["launches"]["world1_" + name] == ref_launches,
+                  "world 1: the launches of the no-group run")
+            # DDP with ZeRO-1 beside DDP alone, in turns
+            w1d = _dp_trainer(name, dev, zero_on=False)
+            for tr_, tag in ((w1, "ddp_zero"), (w1d, "ddp"), (w1d, "ddp"), (w1, "ddp_zero")):
+                turn(tr_, tag)
+            path1 = os.path.join(work, "dp1.ckpt.pt")
+            t_save = time.perf_counter()
+            w1.save(path1)
+            t_save = time.perf_counter() - t_save
+            w1r = _dp_trainer(name, dev)
+            check(w1r.restore(path1), "world 1: restore")
+            w1r_loss = w1r.train_batch(glob[steps])
+            w1r_state = state(w1r)
+            del w1r
+            device_ms["ddp_zero"] = profile_device_ms(lambda: w1.train_batch(glob[0]), 3)
+            device_ms["ddp"] = profile_device_ms(lambda: w1d.train_batch(glob[0]), 3)
+            del w1d
+        finally:
+            if torch.distributed.is_initialized():
+                torch.distributed.destroy_process_group()
+            for k in (distributed.ENV_FLAG, distributed.ENV_COORD, distributed.ENV_NPROC,
+                      distributed.ENV_PID):
+                os.environ.pop(k, None)
+        del w1
+        back = _dp_trainer(name, dev)
+        check(back.restore(path1), "no group: restore the world-1 file")
+        back_loss = back.train_batch(glob[steps])
+        restored_equal = torch.equal(back_loss, w1r_loss) and all(
+            torch.equal(v, w1r_state[k]) for k, v in state(back).items())
+        del back, w1r_state
+        turn(plain, "none")
+        device_ms["none"] = profile_device_ms(lambda: plain.train_batch(glob[0]), 3)
+        med = {k: float(np.median(v)) for k, v in walls.items()}
+        out["world1"] = {"backend": backend, "losses_bit_equal": same_losses,
+                         "params_bit_equal": same_params, "restored_step_bit_equal": restored_equal,
+                         "save_s": t_save, "wall_ms_per_step": walls, "median_wall_ms": med,
+                         "device_ms_per_step": device_ms}
+        print(f"dp world 1 ({backend}, {name}, B={B}, DDP + ZeRO-1): {steps} steps, losses bit-equal "
+              f"{same_losses}, parameters bit-equal {same_params}, restored step bit-equal "
+              f"{restored_equal}, save {t_save:.2f} s; wall ms a step (turns) none {walls['none']}, "
+              f"DDP + ZeRO-1 {walls['ddp_zero']}, DDP {walls['ddp']}; device ms a step none "
+              f"{device_ms['none']}, DDP + ZeRO-1 {device_ms['ddp_zero']}, DDP {device_ms['ddp']}",
+              flush=True)
+        check(same_losses and same_params, "world 1: bit-equal to no process group")
+        check(restored_equal, "world 1: the restored step bit-equal to the no-group restore")
+
+        # ---- two ranks through gloo ---------------------------------------
+        lr_sum, lr_sum_next = 2 * _lr_sum(plain, steps), 2 * _lr_sum(plain, steps + 1)
+        del plain
+        torch.cuda.empty_cache()
+        one = _dp_trainer(name, dev)
+        one.train_batch(glob[0])
+        one_grads1 = {n: p.grad.detach().clone() for n, p in one.model.named_parameters()}
+        del one
+        torch.cuda.empty_cache()
+        spec = {"backend": "gloo", "device": DEVICE, "seed": 31, "out": work,
+                "legs": [list(leg) for leg in DP_LEGS]}
+        spec_path = os.path.join(work, "spec.json")
+        with open(spec_path, "w") as f:
+            json.dump(spec, f)
+        t0 = time.perf_counter()
+        env_base = dict(os.environ, SKY_DISTRIBUTED="1",
+                        SKY_COORDINATOR_ADDRESS=f"127.0.0.1:{free_port()}",
+                        SKY_NUM_PROCESSES=str(DP_RANKS))
+        procs = [subprocess.Popen([sys.executable, *DP_WORKER, spec_path],
+                                  env=dict(env_base, SKY_PROCESS_ID=str(r)), stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True) for r in range(DP_RANKS)]
+        logs = []
+        try:
+            for p_ in procs:
+                logs.append(p_.communicate(timeout=600)[0])
+        finally:
+            for p_ in procs:
+                if p_.poll() is None:
+                    p_.kill()
+                    p_.wait()
+        t_ranks = time.perf_counter() - t0
+        for r, (p_, log) in enumerate(zip(procs, logs)):
+            print(f"dp rank {r} exit {p_.returncode}; its output's end:\n{log[-1500:]}", flush=True)
+            check(p_.returncode == 0, f"dp rank {r} ran to its end")
+        ranks = []
+        for r in range(DP_RANKS):
+            with open(os.path.join(work, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        t_ = torch.load(os.path.join(work, "rank0.pt"), weights_only=False)
+        legs = {}
+        tol_g, tol_l, tol_p = TOL_DP[name]
+        gaps1 = {n: float((t_["grads1"][n].to(dev) - g).norm() / (g.norm() + 1e-30))
+                 for n, g in one_grads1.items()}
+        worst = max(gaps1, key=gaps1.get)
+        grad_gap = gaps1[worst]
+        loss_gap = max(abs(a - float(b)) / abs(float(b))
+                       for a, b in zip(ranks[0]["legs"][name]["losses"], ref_losses))
+        rest, keys = param_gaps({k: v.to(dev) for k, v in t_[name].items()}, ref_state)
+        for r in ranks:
+            check(r["legs"][name]["losses"] == ranks[0]["legs"][name]["losses"],
+                  "the ranks report the same global losses")
+            check(r["legs"][name]["restored_bit_equal"], f"rank {r['rank']}: the restored step "
+                  "bit-equal to the uninterrupted one")
+            for k_, n_ in r["legs"][name]["launches"].items():
+                check(n_ == half_launches[k_] * steps,
+                      f"rank {r['rank']}: {k_} launches {n_} == {half_launches[k_]} x {steps}")
+            share = r["legs"][name]["moment_bytes"] / full_moments
+            check(0.4 < share < 0.6, f"rank {r['rank']}: moment bytes {share:.3f} of unsharded")
+        # the no-group trainer restored from the ranks' file, its next step
+        back = _dp_trainer(name, dev)
+        check(back.restore(os.path.join(work, "dp2.ckpt.pt")) and back.cur_iter == steps,
+              "no group: restore the 2-rank file")
+        back_loss = float(back.train_batch(glob[steps]))
+        r_rest, r_keys = param_gaps({k: v.to(dev) for k, v in t_["restored"].items()}, state(back))
+        r_loss_gap = abs(ranks[0]["legs"][name]["restored_loss"] - back_loss) / abs(back_loss)
+        del back
+        legs[name] = {"grad_gap": grad_gap, "grad_gap_leaf": worst,
+                      "grad_gap_median": float(np.median(list(gaps1.values()))),
+                      "loss_gap": loss_gap, "param_gap": rest,
+                      "key_bias_gap": keys, "restored_param_gap": r_rest,
+                      "restored_loss_gap": r_loss_gap, "lr_sum": lr_sum}
+        print(f"dp {DP_RANKS} ranks ({name}, B={B}, {B // DP_RANKS} a rank, gloo): step 1's gradients "
+              f"{grad_gap:.3e} at {worst} (bar {tol_g}; median {legs[name]['grad_gap_median']:.2e}), losses {loss_gap:.3e} (bar {tol_l}), parameters after "
+              f"{steps} steps {rest:.3e} (bar {tol_p}), key biases {keys:.3e} (bar {lr_sum:.3e}); "
+              f"restored step against the no-group restore: parameters {r_rest:.3e}, loss "
+              f"{r_loss_gap:.3e}; moment bytes {[r['legs'][name]['moment_bytes'] for r in ranks]} of "
+              f"{full_moments} unsharded; wall ms a step {ranks[0]['legs'][name]['wall_ms_per_step']}",
+              flush=True)
+        check(grad_gap <= tol_g and loss_gap <= tol_l and rest <= tol_p and keys <= lr_sum,
+              f"{name}: {DP_RANKS} ranks against one process")
+        check(r_rest <= tol_p and r_loss_gap <= tol_l and r_keys <= lr_sum_next,
+              f"{name}: the restored 2-rank step against the no-group restore")
+
+        # the ft and I-JEPA legs against one process over the global batch
+        for cfg_name, n_steps in DP_LEGS:
+            tr = _dp_trainer(cfg_name, dev)
+            gb = _dp_data(cfg_name, n_steps, 31)
+            zero_counters()
+            torch.cuda.synchronize()
+            l1 = [_loss_of(tr.train_batch(b)) for b in gb]
+            torch.cuda.synchronize()
+            l1_launches = launch_counts()
+            _, tol_l2, tol_p2 = TOL_DP[cfg_name]
+            lr2 = 2 * _lr_sum(tr, n_steps)
+            rest2, keys2 = param_gaps({k: v.to(dev) for k, v in t_[cfg_name].items()}, state(tr))
+            lg = max(abs(a - b) / abs(b) for a, b in zip(ranks[0]["legs"][cfg_name]["losses"], l1))
+            for r in ranks:
+                check(r["legs"][cfg_name]["losses"] == ranks[0]["legs"][cfg_name]["losses"],
+                      f"{cfg_name}: the ranks report the same global losses")
+                check(r["legs"][cfg_name]["launches"] == l1_launches,
+                      f"{cfg_name}: rank {r['rank']} launches those of one process")
+            legs[cfg_name] = {"loss_gap": lg, "param_gap": rest2, "key_bias_gap": keys2, "lr_sum": lr2,
+                              "one_process_losses": l1}
+            print(f"dp {DP_RANKS} ranks ({cfg_name}, B={tr.batch_size}, gloo): losses {lg:.3e} (bar "
+                  f"{tol_l2}), parameters after {n_steps} steps {rest2:.3e} (bar {tol_p2}), key "
+                  f"biases {keys2:.3e} (bar {lr2:.3e}); wall ms a step "
+                  f"{ranks[0]['legs'][cfg_name]['wall_ms_per_step']}", flush=True)
+            check(lg <= tol_l2 and rest2 <= tol_p2 and keys2 <= lr2,
+                  f"{cfg_name}: {DP_RANKS} ranks against one process")
+            del tr
+            torch.cuda.empty_cache()
+        for r in ranks:
+            for cfg_name, leg in r["legs"].items():
+                out["launches"][f"rank{r['rank']}_{cfg_name}"] = leg["launches"]
+        out["two_ranks"] = {"backend": "gloo", "seconds": t_ranks, "gaps": legs,
+                            "unsharded_moment_bytes": full_moments,
+                            "ranks": [{k: v for k, v in r.items()} for r in ranks]}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return out
 def main() -> int:
     import numpy as np
     import torch
@@ -2879,30 +3355,11 @@ def main() -> int:
     batches = as_batches(data, BATCH)
     target_batches = as_batches(tdata, 2)
 
-    counters = (fused_attn_block, fused_mlp_block, weighted_bank_scores,
-                weighted_bank_scores_multi, attn_block_fwd_stash, attn_block_bwd_stash,
-                mlp_block_bwd, attn_block_bwd, mlp_block_fwd_stash, mlp_block_bwd_stash,
-                mlp_block_bwd_stream, fused_attention, fused_attention_bwd)
     # K2, kernel 2 and kernel 4 also count their launches with packed
     # segments; every block kernel its launches in fp32
-    seg_counters = (fused_attn_block, attn_block_fwd_stash, attn_block_bwd)
-    f32_counters = (fused_attn_block, fused_mlp_block, attn_block_fwd_stash, attn_block_bwd_stash,
-                    mlp_block_bwd, attn_block_bwd, mlp_block_fwd_stash, mlp_block_bwd_stash,
-                    mlp_block_bwd_stream)
+    counters, seg_counters, f32_counters = kernel_counters()
     training_kernels = [f.__name__ for f in counters[4:]] + ["fused_attn_block_seg"]
-
-    def zero_counters():
-        for fn in counters:
-            fn.launches = 0
-        for fn in seg_counters:
-            fn.seg_launches = 0
-        for fn in f32_counters:
-            fn.f32_launches = 0
-
-    def launch_counts():
-        return {**{f.__name__: f.launches for f in counters},
-                **{f.__name__ + "_seg": f.seg_launches for f in seg_counters},
-                **{f.__name__ + "_f32": f.f32_launches for f in f32_counters}}
+    zero_counters, launch_counts = counter_fns()
 
     zero_counters()
     torch.cuda.synchronize()
@@ -3639,6 +4096,10 @@ def main() -> int:
     mark("cosmos")
     prefetch = prefetch_phase(dev, zero_counters, launch_counts, device_breakdown)
     mark("prefetch")
+    # ---- 5j. data parallelism across processes ----------------------------------
+    data_parallel = dp_phase(dev, zero_counters, launch_counts)
+    print(smi, flush=True)
+    mark("data_parallel")
     shapes = {c: tuple(r[k] for k in ("layers", "embed_dim", "batch", "channels", "remat", "ra_dec"))
               for c, r in paths.items()}
     check(shapes == {CONFIG: (12, 768, 64, 5, False, False), LARGE[0]: (24, 768, 64, 5, False, False),
@@ -3823,7 +4284,8 @@ def main() -> int:
                           if r["geometry"]["dtype"] == "bfloat16"},
                        "cosmos_bfloat16": cosmos["bfloat16"]["launches"][counter],
                        "cosmos_bfloat16_generate": cosmos["bfloat16"]["generate_launches"][counter],
-                       **{f"prefetch_{c}": r["launches"][counter] for c, r in prefetch.items()}}
+                       **{f"prefetch_{c}": r["launches"][counter] for c, r in prefetch.items()},
+                       **{f"dp_{c}": r[counter] for c, r in data_parallel["launches"].items()}}
         check(sum(by_path.values()) > 0, f"{name} launched on a main path")
         kernels.append({
             "name": name, "route": route, "source": source, "replaces": replaces,
@@ -3854,6 +4316,7 @@ def main() -> int:
         "jepa": jepa,
         "cosmos": cosmos,
         "prefetch": prefetch,
+        "data_parallel": data_parallel,
         "checkpoints": checkpoints,
         "attention_module": attention_module,
         "retrieval_path": retrieval,
@@ -3871,4 +4334,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--dp-worker":
+        sys.exit(dp_worker(sys.argv[2]))
     sys.exit(main())

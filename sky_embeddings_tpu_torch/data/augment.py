@@ -125,17 +125,26 @@ def augment_batch(
     brightness: Optional[float] = 0.8,
     noise: Optional[float] = 0.01,
     nan_channels: Optional[int] = 2,
+    rows: Optional[tuple[slice, int]] = None,
 ) -> torch.Tensor:
-    """Full pipeline in the reference's composition order."""
+    """Full pipeline in the reference's composition order. ``rows`` (a
+    slice and the global batch size, ``parallel/distributed.batch_rows``):
+    each draw is made for the global batch and these rows of it kept, so
+    that every rank's images take the draws one process would give them."""
     B, C = imgs.shape[:2]
+    n = B if rows is None else rows[1]
+
+    def mine(*draws):
+        return draws if rows is None else tuple(d[rows[0]] for d in draws)
+
     if flip:
-        imgs = apply_flips(imgs, *draw_flips(gen, B))
+        imgs = apply_flips(imgs, *mine(*draw_flips(gen, n)))
     if crop:
-        imgs = apply_resized_crop(imgs, *draw_resized_crop(gen, B))
+        imgs = apply_resized_crop(imgs, *mine(*draw_resized_crop(gen, n)))
     if brightness is not None:
-        imgs = apply_brightness(imgs, draw_brightness(gen, B, brightness))
+        imgs = apply_brightness(imgs, *mine(draw_brightness(gen, n, brightness)))
     if noise is not None:
-        imgs = apply_noise(imgs, *draw_noise(gen, imgs.shape, noise))
+        imgs = apply_noise(imgs, *mine(*draw_noise(gen, (n,) + tuple(imgs.shape[1:]), noise)))
     if nan_channels is not None and nan_channels > 0:
-        imgs = apply_channel_nan(imgs, *draw_channel_nan(gen, B, C, nan_channels))
+        imgs = apply_channel_nan(imgs, *mine(*draw_channel_nan(gen, n, C, nan_channels)))
     return imgs

@@ -15,9 +15,11 @@ arrays become tensors (``torch.as_tensor``). A pin or a copy that fails
 raises: no path falls back to a synchronous copy.
 
 Batches are dicts (or lists and tuples) of arrays; other leaves (numbers,
-strings) pass through. JAX's ``sharding`` argument (a ``NamedSharding`` over
-the batch axis, ``put_global`` across processes) waits for the port of
-``parallel/`` (ROADMAP).
+strings) pass through. ``sharding`` (``parallel/mesh.Sharding``, JAX's
+``NamedSharding`` argument) names the device: with one process a layout
+changes nothing else; across processes each item is the rank's local shard
+of the global batch on the rank's device, as ``parallel/distributed.put_global``
+puts it (under DDP no tensor holds the global batch).
 """
 
 from __future__ import annotations
@@ -31,23 +33,24 @@ import torch
 from sky_embeddings_tpu_torch.utils.device import resolve_device
 
 
-def _map_leaves(fn, item):
+def map_leaves(fn, item):
     """``fn`` over the array leaves (numpy arrays and tensors) of nested
     dicts, lists and tuples; other leaves as they are."""
     if isinstance(item, dict):
-        return {k: _map_leaves(fn, v) for k, v in item.items()}
+        return {k: map_leaves(fn, v) for k, v in item.items()}
     if isinstance(item, (list, tuple)):
-        return type(item)(_map_leaves(fn, v) for v in item)
+        return type(item)(map_leaves(fn, v) for v in item)
     if isinstance(item, np.ndarray) or torch.is_tensor(item):
         return fn(item)
     return item
 
 
 def device_prefetch(iterator: Iterable[Any], size: int = 2,
-                    device: str | torch.device = "cuda") -> Iterator[Any]:
+                    device: str | torch.device = "cuda", sharding=None) -> Iterator[Any]:
     """Yield the items of ``iterator`` in order, each already sent to
-    ``device``, the source read at most ``size`` items ahead."""
-    dev = resolve_device(device)
+    ``device`` (``sharding.device`` when a layout is given), the source read
+    at most ``size`` items ahead."""
+    dev = resolve_device(device if sharding is None else sharding.device)
     it = iter(iterator)
     buf: collections.deque = collections.deque()
     stream: Optional[torch.cuda.Stream] = torch.cuda.Stream(dev) if dev.type == "cuda" else None
@@ -55,7 +58,7 @@ def device_prefetch(iterator: Iterable[Any], size: int = 2,
     def put(item):
         """(the item on the device, its copies' event, the copies)."""
         if stream is None:
-            return _map_leaves(torch.as_tensor, item), None, []
+            return map_leaves(torch.as_tensor, item), None, []
         copies: list[torch.Tensor] = []
 
         def to_device(x):
@@ -66,7 +69,7 @@ def device_prefetch(iterator: Iterable[Any], size: int = 2,
             return copies[-1]
 
         with torch.cuda.stream(stream):
-            out = _map_leaves(to_device, item)
+            out = map_leaves(to_device, item)
             event = torch.cuda.Event()
             event.record(stream)
         return out, event, copies

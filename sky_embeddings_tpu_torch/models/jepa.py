@@ -40,6 +40,7 @@ from torch import nn
 from sky_embeddings_tpu_torch.models.layers import Encoder, LayerNorm, Linear, PatchEmbed
 from sky_embeddings_tpu_torch.models.pos_embed import sincos_pos_embed_2d
 from sky_embeddings_tpu_torch.ops.jepa_masks import BlockMasks
+from sky_embeddings_tpu_torch.parallel.distributed import global_ratio
 from sky_embeddings_tpu_torch.utils.device import resolve_device
 
 _SIZES = {
@@ -222,7 +223,7 @@ class SkyJEPA(nn.Module):
             w = valid.float()
             total = total + (per * w).sum()
             count = count + w.sum()
-        return total / (count + 1e-6)
+        return global_ratio(total, count, 1e-6)  # over the global batch under a process group
 
 
 def build_jepa_model(config, dtype: torch.dtype = torch.float32, device: str | torch.device = "cuda",

@@ -196,9 +196,12 @@ class SkyViT(nn.Module):
         return self.final_norm(self.backbone(imgs, ra_dec))
 
     def forward_head(self, tokens: torch.Tensor,
-                     dropout_generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                     dropout_generator: Optional[torch.Generator] = None,
+                     dropout_rows: Optional[tuple[slice, int]] = None) -> torch.Tensor:
         """Pool, head dropout (only when ``dropout_generator`` is given:
-        training), head. (B, N, D) -> (B, num_labels) in ``dtype``."""
+        training), head. (B, N, D) -> (B, num_labels) in ``dtype``.
+        ``dropout_rows`` (``parallel/distributed.batch_rows``): draw the
+        dropout for the global batch and keep these rows."""
         if self.global_pool == "map":
             x = self.pool(tokens)
         elif self.global_pool == "avg":
@@ -208,19 +211,30 @@ class SkyViT(nn.Module):
             x = tokens[:, 0]
         if dropout_generator is not None and self.dropout > 0:
             # flax Dropout: keep with probability 1 - rate, scale by its inverse
-            keep = torch.rand(x.shape, generator=dropout_generator,
-                              device=dropout_generator.device).to(x.device) >= self.dropout
+            shape = x.shape if dropout_rows is None else (dropout_rows[1],) + x.shape[1:]
+            keep = torch.rand(shape, generator=dropout_generator, device=dropout_generator.device)
+            if dropout_rows is not None:
+                keep = keep[dropout_rows[0]]
+            keep = keep.to(x.device) >= self.dropout
             x = torch.where(keep, x / (1.0 - self.dropout), torch.zeros_like(x))
         return self.head(x, self.dtype)
 
     def forward(self, imgs: torch.Tensor, mask: Optional[torch.Tensor] = None,
                 ra_dec: Optional[torch.Tensor] = None,
-                dropout_generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                dropout_generator: Optional[torch.Generator] = None,
+                frozen_backbone: bool = False,
+                dropout_rows: Optional[tuple[slice, int]] = None) -> torch.Tensor:
         """(B, C, H, W) -> (B, num_labels) normalised predictions (logits for
         a classifier). ``mask`` is accepted and ignored (reference
-        ``vit.py:390-393``)."""
+        ``vit.py:390-393``). ``frozen_backbone`` runs :meth:`backbone` with
+        autograd off (the ``lp`` regime): one call, so that a DDP wrap
+        sees the whole forward."""
         del mask
-        return self.forward_head(self.encode(imgs, ra_dec), dropout_generator)
+        if frozen_backbone:
+            with torch.no_grad():
+                tokens = self.backbone(imgs, ra_dec)
+            return self.forward_head(self.final_norm(tokens), dropout_generator, dropout_rows)
+        return self.forward_head(self.encode(imgs, ra_dec), dropout_generator, dropout_rows)
 
 
 def build_predictor_model(

@@ -9,6 +9,8 @@ from __future__ import annotations
 
 import torch
 
+from sky_embeddings_tpu_torch.parallel.distributed import global_ratio
+
 
 def patch_mean_and_var(patches: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-patch mean/variance over the last axis, ignoring NaN entries; an
@@ -35,6 +37,9 @@ def masked_recon_loss(target: torch.Tensor, pred: torch.Tensor, mask: torch.Tens
     broadcasts). NaN differences are zeroed before the L1/MSE, which leaves
     the value unchanged and keeps their gradient at zero (the gradient of
     ``abs`` at NaN would be NaN times the zero that the mask gives it).
+    Under a process group both sums run over the global batch
+    (``parallel/distributed.global_ratio``), as XLA reduces them over
+    JAX's data mesh.
     """
     diff = target - pred
     finite = ~torch.isnan(diff)
@@ -43,4 +48,4 @@ def masked_recon_loss(target: torch.Tensor, pred: torch.Tensor, mask: torch.Tens
     if mask.dim() == per_elem.dim() - 1:
         mask = mask[..., None]
     mask = torch.where(finite, mask.expand_as(per_elem), 0.0)
-    return (per_elem * mask).sum() / (mask.sum() + 1e-5)
+    return global_ratio((per_elem * mask).sum(), mask.sum(), 1e-5)

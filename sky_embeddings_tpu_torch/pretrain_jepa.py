@@ -16,9 +16,13 @@ or, when it names none (``jepa_1``), from the FITS tiles under
 allows (``data/device_cache.py``). When the config names probe sets
 (``lp_class_data_file``, ``lp_regress_data_file``) the linear probes of the
 online encoder run after each validation pass with ``lp_combine`` pooling.
-``--device cpu`` runs it on the CPU.
+``--device cpu`` runs it on the CPU. Like JAX's ``pretrain_jepa.py``, which
+calls no ``initialize_from_env``, it runs one process;
+``[TRAINING] zero_optimizer = True`` is read by the trainer
+(``train/jepa.JEPATrainer``), and shards the AdamW moments where a process
+group exists (a one-process run has nothing to shard).
 
-Not ported yet: multi-process runs and the figures.
+Not ported yet: the figures.
 """
 
 from __future__ import annotations

@@ -31,7 +31,21 @@ directory), the linear probes run after each validation pass with
 ``lp_combine`` pooling (default ``central``); an ``attn_pool`` model (``--set
 ARCHITECTURE.attn_pool=True``) probes its one pooled token.
 
-Not ported yet: multi-process runs and the figures.
+Several processes, one per GPU, train data-parallel when the launcher
+sets ``SKY_DISTRIBUTED=1``, ``SKY_COORDINATOR_ADDRESS=<host>:<port>``,
+``SKY_NUM_PROCESSES`` and ``SKY_PROCESS_ID`` for each
+(``parallel/distributed.initialize_from_env``; rank r on ``cuda:<r % GPUs
+a host>``): each process reads its own shard of the h5 sets with
+``batch_size // processes`` rows a batch (an error unless they divide),
+streams instead of device-caching, and only process 0 logs and writes the
+checkpoint. FITS training data is read as JAX reads it across processes:
+every process builds the same ``FitsTileBatcher`` with the global
+``batch_size``, so each process's rows repeat the others' images (under
+their own masks) and the global batch is ``processes x batch_size`` rows
+(ROADMAP). ``[TRAINING] zero_optimizer = True`` shards the AdamW moments
+over the processes.
+
+Not ported yet: the figures.
 """
 
 from __future__ import annotations
@@ -43,6 +57,7 @@ import torch
 from sky_embeddings_tpu_torch.configuration import apply_overrides, load_config
 from sky_embeddings_tpu_torch.data.fits_loader import build_fits_batcher
 from sky_embeddings_tpu_torch.data.device_cache import build_cached_or_streaming_batcher
+from sky_embeddings_tpu_torch.parallel import distributed
 from sky_embeddings_tpu_torch.train.pretrain import MIMPretrainer, train_network
 from sky_embeddings_tpu_torch.utils.checkpoint import checkpoint_path, find_checkpoint
 from sky_embeddings_tpu_torch.utils.misc import build_train_argparser
@@ -58,43 +73,52 @@ def main(argv=None) -> str:
     parser.add_argument("--run_name", type=str, default=None,
                         help="Name of the checkpoint (defaults to model_name).")
     args = parser.parse_args(argv)
+    # several processes (one per GPU): opt-in through SKY_DISTRIBUTED=1
+    distributed.initialize_from_env(device=args.device)
+    n_proc, proc_id = distributed.process_count(), distributed.process_index()
+    log = distributed.main_only(print)
+    device = distributed.rank_device(args.device)
     config_dir = os.path.join(REPO_DIR, "configs")
     model_dir = os.path.join(REPO_DIR, "models")
     data_dir = args.data_dir or os.path.join(REPO_DIR, "data")
     os.makedirs(model_dir, exist_ok=True)
-    print(f"Using torch {torch.__version__} on {args.device}")
+    log(f"Using torch {torch.__version__} on {device} ({n_proc} processes)")
 
     model_name = args.model_name
     config = apply_overrides(load_config(model_name, config_dir), args.overrides, model_name)
-    print(f"\nCreating model: {model_name}\n\nConfiguration:")
-    print(config.describe())
+    log(f"\nCreating model: {model_name}\n\nConfiguration:")
+    log(config.describe())
 
-    pretrainer = MIMPretrainer(config, device=args.device)
+    pretrainer = MIMPretrainer(config, device=device)
     model_filename = checkpoint_path(model_dir, args.run_name or model_name)  # the port's file
     resume = find_checkpoint(model_dir, args.run_name or model_name)
-    if resume and pretrainer.restore(resume):
-        print(f"\nResumed from {resume} at iteration {pretrainer.cur_iter}.")
+    if resume and pretrainer.restore(resume):  # on every process
+        log(f"\nResumed from {resume} at iteration {pretrainer.cur_iter}.")
     else:
-        print("\nStarting fresh model to train...")
+        log("\nStarting fresh model to train...")
 
     data = config.data
     img_size = config.architecture.int("img_size")
-    # the pixel clip runs on the device inside the step
-    cached = dict(batch_size=pretrainer.batch_size, img_size=img_size, shuffle=True,
-                  device=pretrainer.device)
+    if pretrainer.batch_size % n_proc:
+        raise SystemExit(f"batch_size {pretrainer.batch_size} not divisible by {n_proc} processes")
+    # each process feeds its shard; the pixel clip runs on the device inside the step
+    cached = dict(batch_size=pretrainer.batch_size // n_proc, img_size=img_size, shuffle=True,
+                  device=pretrainer.device, process_count=n_proc, process_index=proc_id,
+                  log_fn=log)
     if "train_data_file" in data:
         # [DATA] device_cache picks a device-resident set or the stream
         train_batcher = build_cached_or_streaming_batcher(
             data, os.path.join(data_dir, data.str("train_data_file")),
             num_workers=data.int("num_workers", 0), **cached)
-        print(f"The training set consists of {train_batcher.num_samples} cutouts.")
+        log(f"The training set consists of {train_batcher.num_samples} cutouts.")
     else:
+        # the global batch_size, unsplit, on every process: JAX's multi-process runs read so
         train_batcher = build_fits_batcher(
             data.list("train_data_paths"), bands=data.list("bands"),
             min_bands=data.int("min_bands", 2), batch_size=pretrainer.batch_size,
             img_size=img_size, cutouts_per_tile=data.int("cutouts_per_tile", 1024),
             use_calexp=data.bool("use_calexp", True), shuffle=True)
-        print(f"The training set consists of {len(train_batcher)} sky tiles.")
+        log(f"The training set consists of {len(train_batcher)} sky tiles.")
     val_batcher = build_cached_or_streaming_batcher(
         data, os.path.join(data_dir, data.str("val_data_file")), **cached)
 
@@ -103,11 +127,13 @@ def main(argv=None) -> str:
     train_network(
         pretrainer, train_batcher.forever(), val_batcher, pretrainer.total_batch_iters,
         args.verbose_iters, args.cp_time, model_filename, **lp,
-        lp_combine=data.str("lp_combine", "central"),
+        lp_combine=data.str("lp_combine", "central"), log_fn=log,
     )
     return model_filename
 
 
 if __name__ == "__main__":
     main()
-    print("\nTraining complete.")
+    distributed.main_only(print)("\nTraining complete.")
+    if torch.distributed.is_initialized():
+        torch.distributed.destroy_process_group()

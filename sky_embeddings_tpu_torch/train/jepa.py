@@ -28,7 +28,13 @@ batches and across eval passes without touching the training stream, as
 (``[DATA] pixel_min``, default -3, and ``pixel_max``) runs on the device
 inside the step; it is idempotent with a host clip.
 
-``tensor_parallel`` and ``zero_optimizer`` raise, as in the MIM trainer.
+Under a process group, as the MIM trainer (``train/pretrain.py``): the
+model (context encoder and predictor) in DDP, the block masks drawn for
+the global batch and sliced to this rank's rows, the loss's count summed
+over the ranks (``models/jepa``); the EMA target stays outside DDP and is
+updated alike on every rank from the same parameters.
+``[TRAINING] zero_optimizer = True`` shards the AdamW moments
+(``parallel/zero``); ``tensor_parallel > 1`` raises.
 """
 
 from __future__ import annotations
@@ -43,6 +49,8 @@ import torch
 from sky_embeddings_tpu_torch.models.jepa import build_jepa_model
 from sky_embeddings_tpu_torch.models.weights import load_jax_params, params_to_jax
 from sky_embeddings_tpu_torch.ops.jepa_masks import BlockMasks, sample_block_masks
+from sky_embeddings_tpu_torch.parallel import distributed, zero
+from sky_embeddings_tpu_torch.parallel.mesh import TP_REASON, local_sharding
 from sky_embeddings_tpu_torch.train.optim import (decay_mask, jax_payload, restore_state, set_lr,
                                                   supervised_optimizer)
 from sky_embeddings_tpu_torch.train.schedules import cosine_ramp, linear_ramp, warmup_cosine_decay
@@ -76,9 +84,9 @@ class JEPATrainer:
         self.config = config
         self.device = resolve_device(device)
         training = config.training
-        if training.int("tensor_parallel", 1) > 1 or training.bool("zero_optimizer", False):
-            raise NotImplementedError(
-                "tensor_parallel / zero_optimizer are not ported yet (ROADMAP: parallel/)")
+        if training.int("tensor_parallel", 1) > 1:
+            raise NotImplementedError(TP_REASON)
+        self.zero_optimizer = training.bool("zero_optimizer", False)
         dtype = DTYPES[training.str("dtype", "float32")]
         self.model = build_jepa_model(config, dtype=dtype, device=self.device,
                                       generator=torch.Generator().manual_seed(seed)).train()
@@ -95,6 +103,10 @@ class JEPATrainer:
         self.wd_schedule = cosine_ramp(wd0, training.float("final_weight_decay", wd0), T)
         self.ema_schedule = linear_ramp(float(ema[0]), float(ema[1]), T)
         self.optimizer = supervised_optimizer(self.model, self.lr_schedule(0), self.wd_schedule(0))
+        if self.zero_optimizer:
+            self.optimizer = zero.shard_optimizer(self.optimizer)
+        self.forward = distributed.data_parallel(self.model, self.device)
+        self.batch_shard = local_sharding(self.device)
         self.decays = decay_mask(self.model.named_parameters())
         self.pixel_min = config.data.float("pixel_min", -3.0)
         pm = config.data.str("pixel_max", "")
@@ -125,7 +137,12 @@ class JEPATrainer:
         return {"params": {"encoder": params_to_jax(self.target.state_dict())}}
 
     def draw_masks(self, batch_size: int, generator: torch.Generator) -> BlockMasks:
-        return sample_block_masks(generator, batch_size, self.model.grid_size, **self.mask_params)
+        """The block masks of ``batch_size`` rows; under a process group,
+        this rank's rows of the global batch's."""
+        rows = distributed.batch_rows(batch_size)
+        n = batch_size if rows is None else rows[1]
+        masks = sample_block_masks(generator, n, self.model.grid_size, **self.mask_params)
+        return masks if rows is None else BlockMasks(*(t[rows[0]] for t in masks))
 
     def _cutouts(self, batch: dict) -> torch.Tensor:
         x = torch.as_tensor(batch["cutouts"], device=self.device).float()
@@ -136,14 +153,15 @@ class JEPATrainer:
         return x
 
     def loss(self, imgs: torch.Tensor, masks: BlockMasks,
-             mark: Callable[[str], None] = lambda part: None) -> torch.Tensor:
+             mark: Callable[[str], None] = lambda part: None, forward=None) -> torch.Tensor:
         """The loss of clipped ``imgs`` under ``masks`` against the EMA
-        target's encoding (taken under no grad); ``mark("target")`` is
-        called once that encoding is queued."""
+        target's encoding (taken under no grad), through ``forward`` (the
+        model by default); ``mark("target")`` is called once that encoding
+        is queued."""
         with torch.no_grad():
             target_repr = self.target(imgs)
         mark("target")
-        return self.model(imgs, masks, target_repr)
+        return (forward or self.model)(imgs, masks, target_repr)
 
     def train_batch(self, batch: dict, masks: Optional[BlockMasks] = None,
                     mark: Optional[Callable[[str], None]] = None) -> torch.Tensor:
@@ -158,7 +176,7 @@ class JEPATrainer:
         if masks is None:
             masks = self.draw_masks(imgs.shape[0], self.mask_gen)
         mark("masks")
-        loss = self.loss(imgs, masks, mark)
+        loss = self.loss(imgs, masks, mark, self.forward)
         mark("forward")
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
@@ -193,7 +211,11 @@ class JEPATrainer:
 
     def save(self, path: str) -> None:
         """The trainer's state at ``path``: the port's file, or for a
-        ``.ckpt.msgpack`` path the JAX package's (optax-form moments)."""
+        ``.ckpt.msgpack`` path the JAX package's (optax-form moments).
+        Every rank calls it; rank 0 writes, with ZeRO's moments collected."""
+        zero.consolidate(self.optimizer)
+        if not distributed.is_main():
+            return
         if ckpt.is_jax_checkpoint(path):
             ckpt.save_checkpoint(path, jax_payload(
                 self.model, self.optimizer, "jepa", self.step, self.seed, self.losses,
@@ -203,7 +225,7 @@ class JEPATrainer:
             "step": self.step,
             "params": {k: v.detach().cpu() for k, v in self.model.state_dict().items()},
             "target_params": {k: v.detach().cpu() for k, v in self.target.state_dict().items()},
-            "opt_state": self.optimizer.state_dict(),
+            "opt_state": zero.state_dict(self.optimizer),
             "rng": self.mask_gen.get_state(),
             "losses": {k: [float(x) for x in v] for k, v in self.losses.items()},
         })

@@ -49,6 +49,8 @@ import numpy as np
 import torch
 
 from sky_embeddings_tpu_torch.models.weights import load_jax_params, params_to_jax
+from sky_embeddings_tpu_torch.parallel import zero
+from sky_embeddings_tpu_torch.parallel.distributed import main_only
 from sky_embeddings_tpu_torch.utils import checkpoint as ckpt
 
 FT_DEFAULT_WEIGHT_DECAY = 0.05  # lr_decay.py:14 default, active under the quirk
@@ -204,7 +206,7 @@ def load_optax_state(optimizer: torch.optim.Optimizer, model: torch.nn.Module, o
     nu = ckpt.flatten(ckpt.adapt_block_layout(adam["nu"], template))
     count = float(np.asarray(adam["count"]))
     names = _names(model)
-    optimizer.state.clear()
+    states = {}
     with warnings.catch_warnings():  # moments may view a read-only file buffer; they are copied
         warnings.simplefilter("ignore", UserWarning)
         for group in optimizer.param_groups:
@@ -212,10 +214,16 @@ def load_optax_state(optimizer: torch.optim.Optimizer, model: torch.nn.Module, o
                 name = names[id(p)]
                 if name not in mu or name not in nu:
                     raise KeyError(f"optax state has no moments for {name}")
-                optimizer.state[p] = {
+                states[p] = {
                     "step": torch.tensor(count, dtype=torch.float32),
                     "exp_avg": torch.as_tensor(mu[name]).to(p.device, p.dtype, copy=True),
                     "exp_avg_sq": torch.as_tensor(nu[name]).to(p.device, p.dtype, copy=True)}
+    if zero.is_sharded(optimizer):  # the full state in; each rank keeps its share
+        optimizer.load_state_dict({"state": dict(enumerate(states.values())),
+                                   "param_groups": zero.index_groups(optimizer)})
+        return True
+    optimizer.state.clear()
+    optimizer.state.update(states)
     return True
 
 
@@ -228,10 +236,11 @@ def optax_state_dict(optimizer: torch.optim.Optimizer, model: torch.nn.Module, r
     scale_by_learning_rate``, ``lp``'s inside ``multi_transform`` with
     empty moments for the frozen parameters, JEPA's with its scheduled decay.
     The decay stage is there when some group decays, as JAX adds it for a
-    non-zero ``weight_decay``."""
+    non-zero ``weight_decay``. A ZeRO optimizer's state is read on rank 0
+    after ``parallel/zero.consolidate``: the file carries the full
+    moments."""
     names = _names(model)
-    state = {names[id(p)]: optimizer.state.get(p, {}) for g in optimizer.param_groups
-             for p in g["params"]}
+    state = {names[id(p)]: st for p, st in zero.param_states(optimizer).items()}
 
     def moments(key: str) -> dict:
         out = {}
@@ -284,10 +293,13 @@ def restore_state(path: str, model: torch.nn.Module, optimizer: torch.optim.Opti
     from (``seed``, step) instead, with a line saying so. A file without
     optimizer state (the checkpoint-porting tools') starts AdamW fresh at
     its step, and one without a generator state reseeds it, each with a
-    line saying so."""
+    line saying so. Every rank of a process group loads the file (the log
+    lines from rank 0 alone); a ZeRO optimizer keeps its share of the
+    moments."""
     payload = ckpt.load_checkpoint(path)
     if payload is None:
         return None
+    log_fn = main_only(log_fn)
     jax_file = ckpt.is_jax_checkpoint(path)
     if jax_file:
         load_jax_params(model, payload["params"])
@@ -302,7 +314,7 @@ def restore_state(path: str, model: torch.nn.Module, optimizer: torch.optim.Opti
     else:
         moments = False
     if not moments:
-        optimizer.state.clear()
+        zero.local(optimizer).state.clear()
         log_fn(f"The checkpoint holds no optimizer state: AdamW starts fresh at step {step}.")
     if not jax_file and "rng" in payload:
         generator.set_state(payload["rng"])

@@ -30,8 +30,17 @@ the inference kernels (K2, K1), which write no stash, and no backward kernel
 launches; only the final norm, the pool and the head run under autograd.
 ``ft`` and ``fs`` run the training kernels of the encoder's blocks.
 
-Not ported yet (ROADMAP): tensor parallelism and ZeRO (they raise), the
-progress figures.
+Under a process group, as the MIM trainer (``train/pretrain.py``): the
+model in DDP (``warm_start`` and ``restore`` load the same file on every
+rank, so DDP's start-up broadcast changes nothing), the augmentations and
+the head dropout drawn for the global batch and sliced to this rank's
+rows, and the loss and metric, plain means over equal local batches,
+reported as the global means (``parallel/distributed.global_mean``).
+``[TRAINING] zero_optimizer = True`` shards the ``ft`` and ``fs`` moments
+(``parallel/zero``); the ``lp`` regime's stay whole on every rank, as JAX
+replicates them. ``tensor_parallel > 1`` raises.
+
+Not ported yet (ROADMAP): the progress figures.
 """
 
 from __future__ import annotations
@@ -48,6 +57,8 @@ from sky_embeddings_tpu_torch.data.augment import augment_batch
 from sky_embeddings_tpu_torch.data.prefetch import device_prefetch
 from sky_embeddings_tpu_torch.eval.eval_fns import batch_images, batch_ra_dec
 from sky_embeddings_tpu_torch.models.predictor import SkyViT, build_predictor_model
+from sky_embeddings_tpu_torch.parallel import distributed, zero
+from sky_embeddings_tpu_torch.parallel.mesh import TP_REASON, local_sharding
 from sky_embeddings_tpu_torch.train import optim
 from sky_embeddings_tpu_torch.train.schedules import linear_lr
 from sky_embeddings_tpu_torch.utils import checkpoint as ckpt
@@ -98,14 +109,19 @@ def make_predictor_step(
     pixel_min: Optional[float] = None,
     pixel_max: Optional[float] = None,
     generator: Optional[torch.Generator] = None,
+    forward: Optional[Callable] = None,
 ):
     """The step function ``(cutouts, ra_dec, labels, step) -> (loss, metric)``,
     0-d device tensors: when training the forward, ``backward()`` and an
     AdamW step at ``lr = schedule(step)`` times each group's scale; in eval
     the forward alone, without grad. ``frozen_backbone`` runs the backbone
     with autograd off (the ``lp`` regime); ``generator`` draws the
-    augmentations and the head dropout of a training step."""
+    augmentations and the head dropout of a training step; ``forward``
+    (``model`` by default; its DDP wrap under a process group) runs the
+    training forward. Under a process group the draws are the global
+    batch's and the means global."""
     is_ce = "crossentropy" in loss_fn_name.lower()
+    forward = forward if train and forward is not None else model
 
     def compute(cutouts, ra_dec, labels):
         if pixel_min is not None:
@@ -113,21 +129,17 @@ def make_predictor_step(
         if pixel_max is not None:
             cutouts = cutouts.clamp_max(pixel_max)
         cutouts = cutouts.float()
+        rows = distributed.batch_rows(cutouts.shape[0])
         if train and augment:
-            cutouts = augment_batch(generator, cutouts, **augment_params)
+            cutouts = augment_batch(generator, cutouts, **augment_params, rows=rows)
         label_errs = None
         if use_label_errs and not is_ce:
             n = labels.shape[1] // 2
             labels, label_errs = labels[:, :n], labels[:, n:]
         rd = ra_dec if model.ra_dec else None
         drop = generator if train else None
-        if frozen_backbone:
-            with torch.no_grad():
-                tokens = model.backbone(cutouts, rd)
-            out = model.forward_head(model.final_norm(tokens), drop)
-        else:
-            out = model(cutouts, ra_dec=rd, dropout_generator=drop)
-        out = out.float()
+        out = forward(cutouts, ra_dec=rd, dropout_generator=drop, frozen_backbone=frozen_backbone,
+                      dropout_rows=rows).float()
         if is_ce:
             tgt = labels.reshape(-1).long()
             loss = F.cross_entropy(out, tgt)
@@ -137,7 +149,7 @@ def make_predictor_step(
             per = (out - tgt) ** 2
             loss = (per / (label_errs.float() + 1e-5)).mean() if label_errs is not None else per.mean()
             metric = (out - tgt).abs().mean()
-        return loss, metric
+        return distributed.global_mean((loss, metric), cutouts.shape[0])
 
     if not train:
         def eval_step(cutouts, ra_dec, labels, step: int = 0):
@@ -172,9 +184,9 @@ class PredictorTrainer:
         self.mae_config = mae_config
         self.device = resolve_device(device)
         training = config.training
-        if training.int("tensor_parallel", 1) > 1 or training.bool("zero_optimizer", False):
-            raise NotImplementedError(
-                "tensor_parallel / zero_optimizer are not ported yet (ROADMAP: parallel/)")
+        if training.int("tensor_parallel", 1) > 1:
+            raise NotImplementedError(TP_REASON)
+        self.zero_optimizer = training.bool("zero_optimizer", False)
         if dtype is None:
             dtype = DTYPES[training.str("dtype", "float32")]
         self.model = build_predictor_model(
@@ -215,6 +227,10 @@ class PredictorTrainer:
             base_lr = init_lr
             self.optimizer = optim.supervised_optimizer(self.model, init_lr, weight_decay)
         self.schedule = linear_lr(base_lr, self.total_batch_iters, final_lr_factor)
+        if self.zero_optimizer and not self.frozen_backbone:
+            self.optimizer = zero.shard_optimizer(self.optimizer)
+        self.forward = distributed.data_parallel(self.model, self.device)
+        self.batch_shard = local_sharding(self.device)
 
         self.seed = seed
         self.step = 0
@@ -231,7 +247,7 @@ class PredictorTrainer:
         )
         self._train_step = make_predictor_step(
             optimizer=self.optimizer, schedule=self.schedule, train=True,
-            generator=self.generator, **common)
+            generator=self.generator, forward=self.forward, **common)
         self._eval_step = make_predictor_step(optimizer=None, schedule=None, train=False, **common)
 
     @property
@@ -274,7 +290,11 @@ class PredictorTrainer:
 
     def save(self, path: str) -> None:
         """The trainer's state at ``path``: the port's file, or for a
-        ``.ckpt.msgpack`` path the JAX package's (optax-form moments)."""
+        ``.ckpt.msgpack`` path the JAX package's (optax-form moments).
+        Every rank calls it; rank 0 writes, with ZeRO's moments collected."""
+        zero.consolidate(self.optimizer)
+        if not distributed.is_main():
+            return
         if ckpt.is_jax_checkpoint(path):
             regime = ("lp" if self.frozen_backbone else
                       "ft" if self.train_method in ("ft", "finetune") else "fs")
@@ -284,7 +304,7 @@ class PredictorTrainer:
         ckpt.save_checkpoint(path, {
             "step": self.step,
             "params": {k: v.detach().cpu() for k, v in self.model.state_dict().items()},
-            "opt_state": self.optimizer.state_dict(),
+            "opt_state": zero.state_dict(self.optimizer),
             "rng": self.generator.get_state(),
             "losses": {k: [float(x) for x in v] for k, v in self.losses.items()},
         })
@@ -315,7 +335,14 @@ def train_predictor_network(
     in flight; a ``DeviceDataset``'s batches pass through uncopied): every
     ``verbose_iters`` a full validation pass, the best model saved to
     the ``_best`` sidecar, early stopping after ``early_stop_evals`` stale
-    evaluations; saves every ``cp_time_minutes`` and at the end."""
+    evaluations; saves every ``cp_time_minutes`` and at the end. Under a
+    process group each rank streams its own rows (``trainer.batch_shard``)
+    and its own validation shard (as many batches on every rank), every
+    rank sees the same global validation losses and so takes the same
+    best-model and early-stopping decisions, only rank 0 logs, and the
+    save clock is read at validation steps
+    (``parallel/distributed.checkpoint_due``)."""
+    log_fn = distributed.main_only(log_fn)
     losses = trainer.losses
     total = trainer.total_batch_iters
     is_ce = "crossentropy" in trainer.loss_fn_name.lower()
@@ -330,13 +357,14 @@ def train_predictor_network(
         log_fn("Training already complete for this config; nothing to do.")
         return
 
-    for batch in device_prefetch(train_batches, size=2, device=trainer.device):
+    for batch in device_prefetch(train_batches, size=2, sharding=trainer.batch_shard):
         loss, metric = trainer.train_batch(batch)
         losses_cp["train_loss"].append(loss)
         losses_cp[f"train_{metric_name}"].append(metric)
         cur_iter = trainer.cur_iter
+        validated = cur_iter % verbose_iters == 0
 
-        if cur_iter % verbose_iters == 0:
+        if validated:
             for vbatch in val_batcher:
                 vloss, vmetric = trainer.eval_batch(vbatch)
                 losses_cp["val_loss"].append(vloss)
@@ -363,7 +391,7 @@ def train_predictor_network(
                     trainer.save(model_filename)
                     return
 
-        if (time.time() - cp_start) >= cp_time_minutes * 60:
+        if distributed.checkpoint_due(cp_start, cp_time_minutes, validated):
             log_fn("Saving network...")
             trainer.losses = losses
             trainer.save(model_filename)

@@ -24,8 +24,18 @@ beside the losses, as JAX's does. It drives the I-JEPA trainer
 does; its probes read the online encoder, which is what JAX's
 ``pretrainer.variables()`` holds.
 
-Not ported yet (ROADMAP): tensor parallelism and ZeRO (they raise), and the
-figures of ``train_network``.
+Data parallelism across processes (``parallel/``): under a process group
+the trainer wraps its model in DDP (``self.model`` stays the module, which
+``linear_probe``, ``save`` and the plain-path switch reach), draws each
+step's SimMIM mask or MAE noise for the global batch (every rank's rows)
+from the generator every rank seeds alike and keeps its own rows, as JAX
+draws them from a replicated key, and the loss's sums run over the global
+batch (``ops/losses``). ``[TRAINING] zero_optimizer = True`` shards the
+AdamW moments over the ranks (``parallel/zero``); only rank 0 writes a
+checkpoint, after collecting them, and every rank restores.
+``tensor_parallel > 1`` raises (``parallel/mesh.TP_REASON``).
+
+Not ported yet (ROADMAP): the figures of ``train_network``.
 """
 
 from __future__ import annotations
@@ -42,6 +52,8 @@ from sky_embeddings_tpu_torch.eval.eval_fns import batch_ra_dec
 from sky_embeddings_tpu_torch.eval.linear_probe import linear_probe
 from sky_embeddings_tpu_torch.models.mim import SkyMIM, build_mim_model
 from sky_embeddings_tpu_torch.ops.masking import simmim_batch_mask
+from sky_embeddings_tpu_torch.parallel import distributed, zero
+from sky_embeddings_tpu_torch.parallel.mesh import TP_REASON, local_sharding
 from sky_embeddings_tpu_torch.train.optim import jax_payload, pretrain_optimizer, restore_state
 from sky_embeddings_tpu_torch.train.schedules import cosine_annealing
 from sky_embeddings_tpu_torch.utils import checkpoint as ckpt
@@ -55,24 +67,27 @@ def make_mim_step(
     train: bool,
     pixel_min: Optional[float] = None,
     pixel_max: Optional[float] = None,
+    forward: Optional[Callable] = None,
 ):
     """The step function: ``(cutouts, masking, step, ra_dec) -> loss`` when
     training (forward, backward, AdamW step at ``lr = schedule(step)``),
     ``(cutouts, masking, ra_dec) -> loss`` in eval (forward only).
     ``masking`` is the SimMIM pixel mask or the MAE token noise; ``ra_dec``
     is read only by an ``ra_dec`` model, as in JAX. ``pixel_min``/``pixel_max``
-    apply the loader's pixel clip on the device. The loss is a 0-d device
-    tensor."""
+    apply the loader's pixel clip on the device. ``forward`` (``model`` by
+    default; its DDP wrap under a process group) runs the training forward.
+    The loss is a 0-d device tensor."""
+    forward = forward or model
 
-    def loss_of(cutouts: torch.Tensor, masking: torch.Tensor, ra_dec) -> torch.Tensor:
+    def loss_of(cutouts: torch.Tensor, masking: torch.Tensor, ra_dec, fwd=model) -> torch.Tensor:
         if pixel_min is not None:
             cutouts = cutouts.clamp_min(pixel_min)
         if pixel_max is not None:
             cutouts = cutouts.clamp_max(pixel_max)
         rd = ra_dec if model.ra_dec else None
         if model.simmim:
-            return model(cutouts.float(), masking, ra_dec=rd)[0]
-        return model(cutouts.float(), ra_dec=rd, mae_noise=masking)[0]
+            return fwd(cutouts.float(), masking, ra_dec=rd)[0]
+        return fwd(cutouts.float(), ra_dec=rd, mae_noise=masking)[0]
 
     if not train:
         def eval_step(cutouts: torch.Tensor, masking: torch.Tensor, ra_dec=None) -> torch.Tensor:
@@ -82,7 +97,7 @@ def make_mim_step(
         return eval_step
 
     def train_step(cutouts: torch.Tensor, masking: torch.Tensor, step: int, ra_dec=None) -> torch.Tensor:
-        loss = loss_of(cutouts, masking, ra_dec)
+        loss = loss_of(cutouts, masking, ra_dec, forward)
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
         for group in optimizer.param_groups:
@@ -107,9 +122,10 @@ class MIMPretrainer:
         self.config = config
         self.device = resolve_device(device)
         training = config.training
-        if training.int("tensor_parallel", 1) > 1 or training.bool("zero_optimizer", False):
-            raise NotImplementedError(
-                "tensor_parallel / zero_optimizer are not ported yet (ROADMAP: parallel/)")
+        if training.int("tensor_parallel", 1) > 1:
+            raise NotImplementedError(TP_REASON)
+        # [TRAINING] zero_optimizer: the AdamW moments sharded over the ranks
+        self.zero_optimizer = training.bool("zero_optimizer", False)
         if dtype is None:
             dtype = DTYPES[training.str("dtype", "float32")]
         # [TRAINING] remat: checkpoint each block (one extra forward for
@@ -129,12 +145,19 @@ class MIMPretrainer:
                                          training.float("final_lr_factor"))
         self.optimizer = pretrain_optimizer(self.model, self.schedule(0),
                                             training.float("weight_decay"))
+        if self.zero_optimizer:
+            self.optimizer = zero.shard_optimizer(self.optimizer)
+        # the DDP wrap under a process group (the model itself without one);
+        # batches come as this rank's rows (device_prefetch's layout)
+        self.forward = distributed.data_parallel(self.model, self.device)
+        self.batch_shard = local_sharding(self.device)
         self.seed = seed
         self.step = 0
         self.mask_gen = torch.Generator(device=self.device).manual_seed(seed)
         self.losses: dict = defaultdict(list)
         clip = dict(pixel_min=self.pixel_min, pixel_max=self.pixel_max)
-        self._train_step = make_mim_step(self.model, self.optimizer, self.schedule, True, **clip)
+        self._train_step = make_mim_step(self.model, self.optimizer, self.schedule, True, **clip,
+                                         forward=self.forward)
         self._eval_step = make_mim_step(self.model, None, None, False, **clip)
 
     @property
@@ -154,8 +177,13 @@ class MIMPretrainer:
                           device=generator.device)
 
     def _draw(self, batch_size: int, generator: torch.Generator) -> torch.Tensor:
+        """The masking of ``batch_size`` rows; under a process group, this
+        rank's rows of the global batch's."""
         draw = self.draw_mask if self.model.simmim else self.draw_noise
-        return draw(batch_size, generator)
+        rows = distributed.batch_rows(batch_size)
+        if rows is None:
+            return draw(batch_size, generator)
+        return draw(rows[1], generator)[rows[0]]
 
     def _cutouts(self, batch: dict) -> torch.Tensor:
         return torch.as_tensor(batch["cutouts"], device=self.device)
@@ -190,7 +218,11 @@ class MIMPretrainer:
 
     def save(self, path: str) -> None:
         """The trainer's state at ``path``: the port's file, or for a
-        ``.ckpt.msgpack`` path the JAX package's (optax-form moments)."""
+        ``.ckpt.msgpack`` path the JAX package's (optax-form moments).
+        Every rank calls it; rank 0 writes, with ZeRO's moments collected."""
+        zero.consolidate(self.optimizer)
+        if not distributed.is_main():
+            return
         if ckpt.is_jax_checkpoint(path):
             ckpt.save_checkpoint(path, jax_payload(self.model, self.optimizer, "pretrain",
                                                    self.step, self.seed, self.losses))
@@ -198,7 +230,7 @@ class MIMPretrainer:
         ckpt.save_checkpoint(path, {
             "step": self.step,
             "params": {k: v.detach().cpu() for k, v in self.model.state_dict().items()},
-            "opt_state": self.optimizer.state_dict(),
+            "opt_state": zero.state_dict(self.optimizer),
             "rng": self.mask_gen.get_state(),
             "losses": {k: [float(x) for x in v] for k, v in self.losses.items()},
         })
@@ -235,7 +267,13 @@ def train_network(
     ``verbose_iters`` a validation pass of at most ``max_val_batches`` and,
     when probe sets are given (h5 paths, or lists of labelled batches), the
     linear probes with ``lp_combine`` pooling, their metrics appended to
-    the losses; checkpoints every ``cp_time_minutes`` and at the end."""
+    the losses; checkpoints every ``cp_time_minutes`` and at the end. Under
+    a process group each rank streams its own rows
+    (``pretrainer.batch_shard``), the probes run on every rank over the
+    whole probe sets, as JAX's processes run them, only rank 0 logs, and
+    the save clock is read at validation steps
+    (``parallel/distributed.checkpoint_due``)."""
+    log_fn = distributed.main_only(log_fn)
     losses = pretrainer.losses
     losses_cp: dict = defaultdict(list)
     cp_start = time.time()
@@ -245,13 +283,14 @@ def train_network(
         return
 
     timer = StepTimer(batch_size=pretrainer.batch_size, device=pretrainer.device)
-    for batch in device_prefetch(train_batches, size=2, device=pretrainer.device):
+    for batch in device_prefetch(train_batches, size=2, sharding=pretrainer.batch_shard):
         loss = pretrainer.train_batch(batch)
         losses_cp["train_loss"].append(loss)
         timer.step()
         cur_iter = pretrainer.cur_iter
+        validated = cur_iter % verbose_iters == 0
 
-        if cur_iter % verbose_iters == 0:
+        if validated:
             perf = timer.lap()  # close the timing window before eval work
             if val_batcher is not None:
                 for i, vbatch in enumerate(val_batcher.take(max_val_batches)):
@@ -277,7 +316,8 @@ def train_network(
                 msg.append(f"  lp r2 {losses['val_lp_r2'][-1]:.3f}")
             log_fn(" |".join(msg))
 
-        if (time.time() - cp_start) >= cp_time_minutes * 60 or cur_iter >= total_batch_iters:
+        due = distributed.checkpoint_due(cp_start, cp_time_minutes, validated)
+        if due or cur_iter >= total_batch_iters:
             log_fn("Saving network...")
             pretrainer.losses = losses
             pretrainer.save(model_filename)

@@ -19,7 +19,17 @@ first ``num_train`` rows. Both sets are served by
 device_cache``); the pixel clip and the augmentations run on the device.
 ``--device cpu`` runs it on the CPU.
 
-Not ported yet: multi-process runs and the progress figures.
+Several processes, one per GPU, train data-parallel when the launcher
+sets ``SKY_DISTRIBUTED=1``, ``SKY_COORDINATOR_ADDRESS=<host>:<port>``,
+``SKY_NUM_PROCESSES`` and ``SKY_PROCESS_ID`` for each
+(``parallel/distributed.initialize_from_env``; rank r on ``cuda:<r % GPUs
+a host>``): each process restores or warm-starts from the same file, reads
+its own shard of both sets with ``batch_size // processes`` rows a batch
+(an error unless they divide), streams instead of device-caching, and only
+process 0 logs and writes checkpoints. ``[TRAINING] zero_optimizer = True``
+shards the ``ft`` and ``fs`` AdamW moments over the processes.
+
+Not ported yet: the progress figures.
 """
 
 from __future__ import annotations
@@ -30,6 +40,7 @@ import torch
 
 from sky_embeddings_tpu_torch.configuration import apply_overrides, load_config
 from sky_embeddings_tpu_torch.data.device_cache import build_cached_or_streaming_batcher
+from sky_embeddings_tpu_torch.parallel import distributed
 from sky_embeddings_tpu_torch.train.predictor import PredictorTrainer, train_predictor_network
 from sky_embeddings_tpu_torch.utils.checkpoint import checkpoint_path, find_checkpoint
 from sky_embeddings_tpu_torch.utils.misc import build_train_argparser, select_training_indices
@@ -60,30 +71,36 @@ def main(argv=None) -> str:
     parser = build_train_argparser("Predictor training")
     add_twin_args(parser)
     args = parser.parse_args(argv)
+    # several processes (one per GPU): opt-in through SKY_DISTRIBUTED=1
+    distributed.initialize_from_env(device=args.device)
+    n_proc, proc_id = distributed.process_count(), distributed.process_index()
+    log = distributed.main_only(print)
     config_dir = os.path.join(REPO_DIR, "configs")
     model_dir = os.path.join(REPO_DIR, "models")
     data_dir = args.data_dir or os.path.join(REPO_DIR, "data")
     os.makedirs(model_dir, exist_ok=True)
-    print(f"Using torch {torch.__version__} on {args.device}")
+    device = distributed.rank_device(args.device)
+    log(f"Using torch {torch.__version__} on {device} ({n_proc} processes)")
 
     config, mae_config, mae_name = load_configs(args, config_dir)
-    print(f"\nCreating model: {args.model_name}\n\nConfiguration:")
-    print(config.describe())
+    log(f"\nCreating model: {args.model_name}\n\nConfiguration:")
+    log(config.describe())
 
-    trainer = PredictorTrainer(config, mae_config, device=args.device)
+    trainer = PredictorTrainer(config, mae_config, device=device)
     run = args.run_name or args.model_name
     model_filename = checkpoint_path(model_dir, run)  # written as the port's file
     best_filename = find_checkpoint(model_dir, run, best=True)
     resume_filename = find_checkpoint(model_dir, run)
     mae_filename = find_checkpoint(model_dir, mae_name) if mae_name else None
+    # every process loads the same file
     if best_filename and trainer.restore(best_filename):
-        print(f"\nResumed from {best_filename} at iteration {trainer.cur_iter}.")
+        log(f"\nResumed from {best_filename} at iteration {trainer.cur_iter}.")
     elif resume_filename and trainer.restore(resume_filename):
-        print(f"\nResumed from {resume_filename} at iteration {trainer.cur_iter}.")
-    elif mae_filename and trainer.warm_start(mae_filename):
-        print(f"\nWarm-started from pretrained MIM checkpoint {mae_filename}.")
+        log(f"\nResumed from {resume_filename} at iteration {trainer.cur_iter}.")
+    elif mae_filename and trainer.warm_start(mae_filename, log_fn=log):
+        log(f"\nWarm-started from pretrained MIM checkpoint {mae_filename}.")
     else:
-        print("\nStarting fresh model to train...")
+        log("\nStarting fresh model to train...")
 
     training, data = config.training, config.data
     img_size = config.architecture.int("img_size")
@@ -95,20 +112,25 @@ def main(argv=None) -> str:
             indices = select_training_indices(train_file, num_train, balanced=False)
         else:
             indices = list(range(num_train))
-    batcher = dict(batch_size=trainer.batch_size, img_size=img_size,
-                   label_keys=data.list("label_keys"), device=trainer.device)
+    if trainer.batch_size % n_proc:
+        raise SystemExit(f"batch_size {trainer.batch_size} not divisible by {n_proc} processes")
+    batcher = dict(batch_size=trainer.batch_size // n_proc, img_size=img_size,
+                   label_keys=data.list("label_keys"), device=trainer.device,
+                   process_count=n_proc, process_index=proc_id, log_fn=log)
     train_batcher = build_cached_or_streaming_batcher(
         data, train_file, shuffle=True, indices=indices, num_workers=data.int("num_workers", 0),
         **batcher)
-    print(f"The training set consists of {train_batcher.num_samples} cutouts.")
+    log(f"The training set consists of {train_batcher.num_samples} cutouts.")
     val_batcher = build_cached_or_streaming_batcher(
         data, os.path.join(data_dir, data.str("val_data_file")), shuffle=True, **batcher)
 
     train_predictor_network(trainer, train_batcher.forever(), val_batcher, args.verbose_iters,
-                            args.cp_time, model_filename)
+                            args.cp_time, model_filename, log_fn=log)
     return model_filename
 
 
 if __name__ == "__main__":
     main()
-    print("\nTraining complete.")
+    distributed.main_only(print)("\nTraining complete.")
+    if torch.distributed.is_initialized():
+        torch.distributed.destroy_process_group()

@@ -23,6 +23,7 @@ from sky_embeddings_tpu_torch.data.prefetch import device_prefetch
 from sky_embeddings_tpu_torch.data.synthetic import make_cutouts, make_structured_cutouts
 from sky_embeddings_tpu_torch.models import jepa as port_jepa
 from sky_embeddings_tpu_torch.models import mim as port_mim
+from sky_embeddings_tpu_torch.parallel.mesh import Sharding
 from sky_embeddings_tpu_torch.train.predictor import PredictorTrainer, train_predictor_network
 from sky_embeddings_tpu_torch.train.pretrain import MIMPretrainer, train_network
 
@@ -99,7 +100,9 @@ def test_train_network_streams_through_prefetch_bit_equal(tmp_path, monkeypatch)
                         lambda *a, **k: calls.append(k) or prefetch.device_prefetch(*a, **k))
     src = Counting(batches)
     train_network(pair[0], src, None, 4, 4, 100.0, str(tmp_path / "m.ckpt.pt"), log_fn=lambda m: None)
-    assert calls == [{"size": 2, "device": pair[0].device}] and src.taken == 4
+    # the layout of a data-only mesh over every process: one process here
+    assert calls == [{"size": 2, "sharding": pair[0].batch_shard}] and src.taken == 4
+    assert pair[0].batch_shard == Sharding(pair[0].device, True, 0, 1)
     assert all(torch.is_tensor(b["cutouts"]) for b in seen)
     ref = [pair[1].train_batch(b) for b in batches]
     assert len(losses) == 4 and all(torch.equal(a, b) for a, b in zip(losses, ref))

@@ -9,7 +9,8 @@ the full-width ones (``mim_1`` as ``mim_tiny`` with 5 bands; ``mim_25_large``
 and ``mim_32`` as ``mim_tiny_large``, the latter with remat and the RA/Dec
 token; the predictor configs at 16 x 16 and batch 8; ``jepa_struct`` and
 ``jepa_1`` at 16 x 16, batch 8, predictor depth 1), cuts every model to
-depth 2 (CosmicEmbeds at 16 x 16, D = 48), stubs ``torch.cuda``, the
+depth 2 (CosmicEmbeds at 16 x 16, D = 48; phase 5j at batch 8, its ranks
+started as this file's ``--dp-worker``, gloo on the CPU), stubs ``torch.cuda``, the
 profiler, ``nvidia-smi``, the nvcc build and the C-only helpers (the TMA encode timer, the group plan, kernel 12's
 bit-equality launch), and runs ``main()`` with ``check`` logging instead of
 exiting. Every wrapper takes its plain version on CPU tensors, so only the
@@ -25,7 +26,7 @@ import sys
 import time
 
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
-TREE = os.path.abspath(sys.argv[1] if len(sys.argv) > 1
+TREE = os.path.abspath(sys.argv[1] if len(sys.argv) == 2
                        else os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
 sys.path.insert(0, TREE)
 
@@ -97,6 +98,13 @@ def shrink() -> None:
     defaults = pc.CosmicEmbeds.__init__.__defaults__
     pc.CosmicEmbeds.__init__.__defaults__ = (16, 4, 5, 48, 2, 4) + defaults[6:]
     cs.PREFETCH = (("mim_1", 3, 4, 2), ("jepa_struct", 2, 3, 2))
+    # phase 5j: its ranks run this file's worker, which shrinks and stubs too
+    cs.DP = ("mim_1", 8, 2, 2)
+    cs.DP_LEGS = (("z_struct_ft_512", 2), ("jepa_struct", 2))
+    cs.DP_WORKER = [os.path.abspath(__file__), "--dp-worker"]
+    # its bars are the card's at full width; bf16 on the CPU rounds each
+    # plain product's output, so two ranks part from one process by more
+    cs.TOL_DP = dict.fromkeys(cs.TOL_DP, (1e-1, 1e-1, 1e-1))
 
 
 _load = conf.load_config
@@ -220,4 +228,9 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--dp-worker":  # one rank of phase 5j
+        torch.set_num_threads(2)
+        shrink()
+        stub()
+        sys.exit(cs.dp_worker(sys.argv[2]))
     sys.exit(main())
