@@ -255,6 +255,21 @@ failing loudly (any failure exits non-zero and prints no result line):
    and parameter bit-equal, launches exact; then both loops timed in turns
    (synchronous, prefetch, prefetch, synchronous, twice), wall and device
    ms a step and the busy share;
+5j. data parallelism across processes (``parallel/``; :func:`dp_phase`):
+   ``mim_1`` with DDP and ZeRO-1 at world 1 under NCCL against no process
+   group, then two ranks on the one card through gloo against one process;
+5k. the figures, the per-GPU launcher and the data stages
+   (:func:`figures_phase`): ``mim_reconstruct`` on ``mim_1`` (B=64) and on
+   the MAE path's model (B=256) through K2 and K1 (the masked K2 in MAE's
+   packed encoder), launches exact, the masked input NaN exactly at the
+   drawn mask, the prediction the input outside it, the kernel path within
+   TOL_FWD of ``Encoder.plain``; ``train_network`` with and without
+   ``fig_dir`` bit-equal (without matplotlib each figure warns and writes
+   nothing); two chained runs queued through ``cluster/queue_gpu``'s local
+   backend, one ``--queue-worker`` process a GPU through the ``SKY_*``
+   contract (NCCL), bit-equal to one continuous run; the data stages on
+   1M sources and a 1024² FITS patch, their planted answers recovered and
+   every h5 stage refused without h5py, each timed;
 5b. the ``Attention`` module (``models/layers.Attention``, the only caller of
    kernels 12 and 13, as in JAX) at ViT-B width, B=64, in bf16 and at its
    default fp32: one forward and ``backward()`` through autograd with the
@@ -282,6 +297,7 @@ import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+T_START = time.perf_counter()  # a --queue-worker times its imports from here
 
 # H100 SXM data sheet (dense): bf16 tensor-core, fp32 non-tensor, TF32
 # tensor-core, HBM3
@@ -585,6 +601,21 @@ SLAB_ROWS = 300_000
 # (pretraining config, warm-started config, families, sizes, train steps,
 # structured train rows, val rows)
 CKPT = ("mim_struct", "z_struct_ft_512", ("ft", "fs", "ap"), ("128", "512"), 10, 512, 512)
+
+# phase 5k, the figures, the launcher and the data stages: mim_reconstruct
+# on mim_1 (SimMIM, B=FIG[1]) and on the MAE path's model (bench_mae's
+# base, B=FIG[2]); train_network for FIG_TRAIN[0] steps validating every
+# FIG_TRAIN[1], with and without fig_dir; QUEUE[1] chained runs of
+# QUEUE[0] steps each through cluster/queue_gpu's local backend, each run
+# one QUEUE_WORKER process a GPU; the data stages on CATALOG (sources,
+# references, planted pairs) and a PATCH (side, bands present of the five)
+FIG = ("mim_1", 64, 256)
+FIG_TRAIN = (4, 2)
+QUEUE = (3, 2)
+QUEUE_SEED = 41
+QUEUE_WORKER = [os.path.abspath(__file__), "--queue-worker"]
+CATALOG = (1_000_000, 100_000, 10_000)
+PATCH = (1024, ("G", "R", "I", "Z"))
 
 
 def check(ok: bool, what: str) -> None:
@@ -2152,6 +2183,515 @@ def dp_phase(dev, zero_counters, launch_counts):
     finally:
         shutil.rmtree(work, ignore_errors=True)
     return out
+
+def _queue_trainer(dev):
+    """Phase 5k's trainer: FIG[0] as shipped (bf16), seed 0."""
+    import torch
+
+    from sky_embeddings_tpu_torch.configuration import load_config
+    from sky_embeddings_tpu_torch.train.pretrain import MIMPretrainer
+
+    cfg = load_config(FIG[0], os.path.join(ROOT, "configs"))
+    return MIMPretrainer(cfg, dtype=torch.bfloat16, seed=0, device=dev)
+
+
+def _queue_batch(tr, step):
+    """Phase 5k's global batch of training step ``step``, made from the
+    step alone, and this rank's rows of it."""
+    from sky_embeddings_tpu_torch.data.synthetic import make_cutouts
+    from sky_embeddings_tpu_torch.parallel import distributed
+
+    m = tr.model
+    x = make_cutouts(tr.batch_size, channels=m.in_chans, img_size=m.img_size,
+                     seed=QUEUE_SEED + step)["cutouts"]
+    rows = distributed.batch_rows(tr.batch_size // distributed.process_count())
+    return {"cutouts": x if rows is None else x[rows[0]]}
+
+
+def queue_worker(spec_path: str) -> int:
+    """One rank of one chained run of phase 5k's job, as the job script of
+    ``cluster/queue_gpu`` starts it: prints the ``SKY_*`` variables it was
+    given, starts the process group through them
+    (``parallel/distributed.initialize_from_env``), resumes from the run's
+    checkpoint when there is one, trains ``steps`` more steps of FIG[0] on
+    batches made from the step index, saves the checkpoint (every rank
+    calls ``save``, rank 0 writes) and writes its losses as JSON beside
+    it."""
+    with open(spec_path) as f:
+        spec = json.load(f)
+    sys.path.insert(0, ROOT)
+    import torch
+
+    from sky_embeddings_tpu_torch.parallel import distributed
+
+    secs, t0 = {"imports": time.perf_counter() - T_START}, time.perf_counter()
+    env = {k: os.environ.get(k) for k in (distributed.ENV_FLAG, distributed.ENV_COORD,
+                                          distributed.ENV_NPROC, distributed.ENV_PID)}
+    print("queue worker: " + " ".join(f"{k}={v}" for k, v in env.items()), flush=True)
+    check(distributed.initialize_from_env(device=spec["device"]),
+          "the SKY_* contract starts the process group")
+    rank, world = distributed.process_index(), distributed.process_count()
+    dev = distributed.rank_device(spec["device"])
+
+    def lap(name):
+        nonlocal t0
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        secs[name], t0 = time.perf_counter() - t0, time.perf_counter()
+
+    lap("process_group")
+    tr = _queue_trainer(dev)
+    lap("trainer")
+    restored = tr.restore(spec["ckpt"])
+    start = tr.cur_iter
+    lap("restore")
+    losses = [float(tr.train_batch(_queue_batch(tr, start + i))) for i in range(spec["steps"])]
+    lap("steps")
+    tr.save(spec["ckpt"])
+    torch.distributed.barrier()
+    lap("save")
+    res = {"env": env, "rank": rank, "world": world, "backend": torch.distributed.get_backend(),
+           "device": str(dev), "restored": restored, "start": start, "end": tr.cur_iter,
+           "losses": losses, "seconds": secs}
+    with open(os.path.join(spec["out"], f"run{start}_rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    print(f"queue worker rank {rank}/{world}: steps {start}..{tr.cur_iter}, losses {losses}",
+          flush=True)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def reconstruct_check(model, tag, B, dev, zero_counters, launch_counts):
+    """``mim_reconstruct`` of one batch of B synthetic cutouts (whole-band
+    NaNs) through the kernels, counters zeroed just before and read just
+    after: the launches exact (K2 and K1 once a layer; MAE's packed encoder
+    through the masked K2), the masked input NaN exactly where the drawn
+    mask (drawn again from the same seed) or the input is, the prediction
+    equal to the input outside the mask and finite inside; then the
+    kernel path against ``Encoder.plain`` on the drawn mask (TOL_FWD over
+    the masked pixels) and both timed."""
+    import numpy as np
+    import torch
+
+    from sky_embeddings_tpu_torch.data.synthetic import make_cutouts
+    from sky_embeddings_tpu_torch.eval.eval_fns import mim_reconstruct
+    from sky_embeddings_tpu_torch.ops.masking import (mae_random_masking, simmim_batch_mask,
+                                                      upsample_patch_mask)
+
+    C, S, p, g = model.in_chans, model.img_size, model.patch_size, model.grid_size
+    depth = model.encoder.depth
+    batch = {"cutouts": make_cutouts(B, channels=C, img_size=S, seed=51)["cutouts"]}
+    check(bool(np.isnan(batch["cutouts"]).any()), f"reconstruction {tag}: NaN bands in the input")
+    zero_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pred, masked, orig = mim_reconstruct(model, batch, torch.Generator(device=dev).manual_seed(17),
+                                         max_mask_ratio=0.9)
+    torch.cuda.synchronize()
+    t_kernel = time.perf_counter() - t0
+    launches = launch_counts()
+    gen = torch.Generator(device=dev).manual_seed(17)
+    if model.simmim:
+        draw = simmim_batch_mask(gen, B, C, S, p, 0.9)
+        pix = draw
+        want = {"fused_attn_block": depth, "fused_mlp_block": depth}
+    else:
+        noise = torch.rand(B, g * g, generator=gen, device=dev)
+        draw = mae_random_masking(torch.zeros(B, g * g, 1, device=dev), model.mask_ratio,
+                                  noise).mask
+        pix = upsample_patch_mask(draw.reshape(B, g, g), p)[:, None].expand(B, C, S, S)
+        dec = model.decoder.depth
+        want = {"fused_attn_block": depth + dec, "fused_attn_block_seg": depth,
+                "fused_mlp_block": depth + dec}
+    pix = pix.float().cpu().numpy().transpose(0, 2, 3, 1) == 1
+    nan_exact = bool(np.array_equal(np.isnan(masked), pix | np.isnan(orig)))
+    kept_equal = bool(np.array_equal(pred[~pix], orig[~pix], equal_nan=True))
+    finite = bool(np.isfinite(pred[pix]).all())
+    for k_, n_ in launches.items():
+        check(n_ == want.get(k_, 0), f"reconstruction {tag}: {k_} launches {n_} == {want.get(k_, 0)}")
+    check(nan_exact, f"reconstruction {tag}: the masked input is NaN exactly at the mask and the "
+          "input's NaNs")
+    check(kept_equal and finite, f"reconstruction {tag}: the input outside the mask, finite inside")
+    kernel = mim_reconstruct(model, batch, mask=draw)[0]
+    model.plain = True
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain = mim_reconstruct(model, batch, mask=draw)[0]
+    torch.cuda.synchronize()
+    t_plain = time.perf_counter() - t0
+    model.plain = False
+    diff = np.abs(kernel[pix] - plain[pix])
+    rel = float(diff.max()) / (float(np.abs(plain[pix]).max()) + 1e-12)
+    print(f"reconstruction {tag} (B={B}, depth {depth}): launches {want}, masked {pix.mean():.3f} "
+          f"of the pixels, NaN exactly at mask and input NaNs {nan_exact}, input kept outside "
+          f"{kept_equal}; kernel vs plain max rel {rel:.3e} (bar {TOL_FWD}); {t_kernel * 1e3:.1f} ms "
+          f"kernel, {t_plain * 1e3:.1f} ms plain, host to host", flush=True)
+    check(rel <= TOL_FWD, f"reconstruction {tag}: kernel path within TOL_FWD of the plain path")
+    return {"batch": B, "launches": launches, "masked_share": float(pix.mean()),
+            "nan_exact": nan_exact, "kept_equal": kept_equal, "max_rel_vs_plain": rel,
+            "max_abs_vs_plain": float(diff.max()), "kernel_s": t_kernel, "plain_s": t_plain}
+
+
+def data_stages(smi):
+    """The offline data stages on the card host (no h5py there), each
+    timed: ``cross_match_mask`` of CATALOG[0] sources on a jittered 5"
+    grid (3" apart at least) against CATALOG[1] references, half planted
+    within 0.5" of a source and half at cell centres (2" from any source),
+    recovering the planted sources exactly; ``isolated_mask`` and
+    ``duplicate_mask`` on the grid with CATALOG[2] companions 0.4" from
+    sources; the split and probe indices; ``cutouts_for_patch`` and
+    ``measure_resolution`` on a PATCH-side TAN-WCS patch of four of the five
+    bands written with ``write_image`` (the fifth band NaN, every cutout
+    equal to its window of the tile); and every h5 stage refused with an
+    ``ImportError`` naming h5py while it cannot be imported."""
+    import importlib.util
+
+    import numpy as np
+
+    from sky_embeddings_tpu_torch.data.fits_io import TanWCS, write_image
+    from sky_embeddings_tpu_torch.data.fits_loader import find_band_files
+    from sky_embeddings_tpu_torch.data_processing import (combine, create_h5, cross_match, dedup,
+                                                          probe_sets, resolution, split)
+
+    secs, out = {}, {}
+    n_src, n_ref, n_pair = CATALOG
+    rng = np.random.default_rng(61)
+    side = int(np.ceil(np.sqrt(n_src)))
+    grid = 5.0 / 3600
+    i = np.arange(n_src)
+    dec = (i // side) * grid + rng.uniform(-1, 1, n_src) / 3600
+    ra = 150.0 + (i % side) * grid / np.cos(np.deg2rad(dec)) + rng.uniform(-1, 1, n_src) / 3600
+
+    def offset(ra_, dec_, arcsec):
+        ang = rng.uniform(0, 2 * np.pi, len(ra_))
+        return (ra_ + arcsec * np.cos(ang) / 3600 / np.cos(np.deg2rad(dec_)),
+                dec_ + arcsec * np.sin(ang) / 3600)
+
+    planted = rng.choice(n_src, n_ref // 2, replace=False)
+    p_ra, p_dec = offset(ra[planted], dec[planted], rng.uniform(0, 0.5, n_ref // 2))
+    cells = rng.choice(side * side, n_ref - n_ref // 2, replace=False)
+    c_dec = (cells // side + 0.5) * grid
+    c_ra = 150.0 + (cells % side + 0.5) * grid / np.cos(np.deg2rad(c_dec))
+    ref_ra, ref_dec = np.concatenate([p_ra, c_ra]), np.concatenate([p_dec, c_dec])
+    t0 = time.perf_counter()
+    got = cross_match.cross_match_mask(ra, dec, ref_ra, ref_dec, 1.0)
+    secs["cross_match_mask"] = time.perf_counter() - t0
+    out["cross_match_exact"] = bool(np.array_equal(got, np.isin(i, planted)))
+    check(out["cross_match_exact"], "cross_match_mask recovers the planted sources exactly")
+
+    base = n_src - n_pair
+    twins = rng.choice(base, n_pair, replace=False)
+    t_ra, t_dec = offset(ra[twins], dec[twins], np.full(n_pair, 0.4))
+    pr, pd = np.concatenate([ra[:base], t_ra]), np.concatenate([dec[:base], t_dec])
+    t0 = time.perf_counter()
+    iso = cross_match.isolated_mask(pr, pd, 1.0)
+    secs["isolated_mask"] = time.perf_counter() - t0
+    want = np.ones(n_src, bool)
+    want[twins] = want[base:] = False
+    out["isolated_exact"] = bool(np.array_equal(iso, want))
+    t0 = time.perf_counter()
+    keep = dedup.duplicate_mask(pr, pd, 1.0)
+    secs["duplicate_mask"] = time.perf_counter() - t0
+    out["duplicate_exact"] = bool(np.array_equal(keep, np.arange(n_src) < base))
+    check(out["isolated_exact"], "isolated_mask drops both members of every planted pair alone")
+    check(out["duplicate_exact"], "duplicate_mask drops the second member of every planted pair alone")
+
+    t0 = time.perf_counter()
+    parts = split.split_indices(n_src)
+    classes = rng.integers(0, 3, n_src)
+    probe = probe_sets.probe_indices(classes, 2000, seed=0)
+    secs["split_and_probe_indices"] = time.perf_counter() - t0
+    whole = np.sort(np.concatenate(parts))
+    out["split_sizes"] = [len(q) for q in parts]
+    n8, n1 = int(0.8 * n_src), int(0.1 * n_src)
+    check(out["split_sizes"] == [n8, n1, n_src - n8 - n1] and np.array_equal(whole, i)
+          and all(np.array_equal(a, b) for a, b in zip(parts, split.split_indices(n_src))),
+          "split_indices: 80/10/10, disjoint, covering, the same from the same seed")
+    check(len(probe) == 6000 and len(np.unique(probe)) == 6000
+          and np.bincount(classes[probe]).tolist() == [2000] * 3
+          and np.array_equal(probe, probe_sets.probe_indices(classes, 2000, seed=0)),
+          "probe_indices: 2000 distinct rows a class, the same from the same seed")
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_fits_")
+    try:
+        px, scale = PATCH[0], 0.168 / 3600
+        wcs = TanWCS(crpix=(px / 2 + 0.5, px / 2 + 0.5), crval=(150.0, 2.0),
+                     cd=[[-scale, 0], [0, scale]])
+        tiles = {}
+        for b in PATCH[1]:
+            tiles[b] = rng.normal(size=(px, px)).astype(np.float32)
+            write_image(os.path.join(work, f"calexp-HSC-{b}-9813-3,4.fits"), tiles[b],
+                        wcs.to_cards())
+        n_in, img = 300, 64
+        xs = np.concatenate([rng.integers(img, px - img, n_in), rng.integers(0, 20, 20)])
+        ys = np.concatenate([rng.integers(img, px - img, n_in), rng.integers(img, px - img, 20)])
+        c_ra, c_dec = wcs.pixel_to_world(xs.astype(np.float64), ys.astype(np.float64))
+        catalog = {"ra": np.asarray(c_ra), "dec": np.asarray(c_dec),
+                   "zspec": rng.uniform(0.1, 1.5, n_in + 20).astype(np.float32)}
+        t0 = time.perf_counter()
+        bands = ("G", "R", "I", "Z", "Y")
+        files = find_band_files([work], bands, 2, verbose=False)
+        cut = create_h5.cutouts_for_patch(files[0], catalog, img)
+        secs["cutouts_for_patch"] = time.perf_counter() - t0
+        h = img // 2
+        ok = len(files) == 1 and len(cut["cutouts"]) == n_in and np.isnan(cut["cutouts"][:, 4]).all()
+        for j in range(n_in):
+            for c, b in enumerate(PATCH[1]):
+                ok = ok and np.array_equal(cut["cutouts"][j, c],
+                                           tiles[b][ys[j] - h:ys[j] + h, xs[j] - h:xs[j] + h])
+        out["cutouts"] = int(len(cut["cutouts"]))
+        check(bool(ok), f"cutouts_for_patch: the {n_in} sources inside, each its window, Y NaN")
+        t0 = time.perf_counter()
+        res = resolution.measure_resolution([work])
+        secs["measure_resolution"] = time.perf_counter() - t0
+        out["resolution"] = res
+        check(res["n"] == len(PATCH[1]) and abs(res["mean_arcsec"] - 0.168) < 1e-6,
+              f"measure_resolution: {res}")
+
+        out["h5py_installed"] = importlib.util.find_spec("h5py") is not None
+        saved = sys.modules.get("h5py")
+        sys.modules["h5py"] = None  # unimportable, as on a host without it
+        try:
+            stages = {
+                "create_h5_dataset": lambda: create_h5.create_h5_dataset(
+                    [work], catalog, os.path.join(work, "o.h5"), bands=bands, verbose=False),
+                "combine_h5_files": lambda: combine.combine_h5_files(["a.h5"], "b.h5"),
+                "deduplicate_h5": lambda: dedup.deduplicate_h5("a.h5", "b.h5"),
+                "split_dataset": lambda: split.split_dataset("a.h5"),
+                "make_probe_set": lambda: probe_sets.make_probe_set("a.h5", "b.h5"),
+                "make_regression_probe_set": lambda: probe_sets.make_regression_probe_set(
+                    "a.h5", "b.h5"),
+                "h5_to_csv": lambda: cross_match.h5_to_csv("a.h5", "b.csv"),
+            }
+            refused = {}
+            for name, stage in stages.items():
+                try:
+                    stage()
+                    refused[name] = "ran"
+                except ImportError as e:
+                    refused[name] = str(e)
+        finally:
+            if saved is None:
+                del sys.modules["h5py"]
+            else:
+                sys.modules["h5py"] = saved
+        out["h5_stages"] = refused
+        check(all("h5py" in v and v != "ran" for v in refused.values()),
+              f"every h5 stage raises an ImportError naming h5py: {refused}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out["seconds"] = secs
+    print(f"data stages ({n_src} sources, {n_ref} references, {n_pair} pairs; a {PATCH[0]}^2 "
+          f"patch of {len(PATCH[1])} bands): planted matches exact {out['cross_match_exact']}, "
+          f"isolated {out['isolated_exact']}, duplicates {out['duplicate_exact']}, h5py "
+          f"installed {out['h5py_installed']}; seconds {secs}; {smi}", flush=True)
+    return out
+
+
+def figures_phase(dev, zero_counters, launch_counts, smi):
+    """Phase 5k: the figures, the per-GPU launcher and the data stages.
+
+    First a ``JobQueue`` on the local backend with the accelerator of the
+    card count starts QUEUE[1] chained runs of :func:`queue_worker` through
+    the job script's ``SKY_*`` variables (NCCL), the second resuming from
+    the first's checkpoint; each run starts its own processes, so the
+    checks in this process run while they do. Reconstruction
+    (``eval/eval_fns.mim_reconstruct``) on FIG[0] (SimMIM ViT-B, bf16,
+    seeded weights, B=FIG[1]) and on the MAE path's model (bench_mae's
+    base, B=FIG[2]) by :func:`reconstruct_check`. ``train_network`` for
+    FIG_TRAIN[0] steps validating every FIG_TRAIN[1], with ``fig_dir`` and
+    without: losses, parameters and the mask generator bit-equal, the run
+    with ``fig_dir`` launching one reconstruction's K2 and K1 more; without
+    matplotlib each figure warns once a call and writes no file (with it,
+    the three PNGs). :func:`data_stages`. Then one in-process run of the
+    queued steps with no process group, and the chain's final parameters
+    and every loss bit-equal to it. The times of the parts overlap the
+    queued runs'."""
+    import shlex
+    import warnings
+
+    import torch
+
+    from sky_embeddings_tpu_torch.cluster.queue_gpu import ACCELERATORS, JobQueue, JobSpec
+    from sky_embeddings_tpu_torch.configuration import Config, load_config
+    from sky_embeddings_tpu_torch.data.synthetic import make_cutouts
+    from sky_embeddings_tpu_torch.models.mim import build_mim_model
+    from sky_embeddings_tpu_torch.train.pretrain import train_network
+    from sky_embeddings_tpu_torch.utils import plotting
+    from sky_embeddings_tpu_torch.utils.checkpoint import load_checkpoint
+
+    out = {"launches": {}, "seconds": {}}
+    t_phase = time.perf_counter()
+    # ---- the launcher: its chained runs start now ------------------------------
+    n_gpu = torch.cuda.device_count()
+    acc = f"h100-{n_gpu}"
+    check(acc in ACCELERATORS, f"{acc} is in the accelerator table")
+    qwork = tempfile.mkdtemp(prefix="chip_smoke_queue_")
+    queue = JobQueue(os.path.join(qwork, "scripts"), backend="local")
+    codes = None
+    try:
+        spec = {"device": DEVICE, "ckpt": os.path.join(qwork, "queue.ckpt.pt"), "steps": QUEUE[0],
+                "out": qwork}
+        spec_path = os.path.join(qwork, "spec.json")
+        with open(spec_path, "w") as f:
+            json.dump(spec, f)
+        command = " ".join(shlex.quote(a_) for a_ in [sys.executable, *QUEUE_WORKER, spec_path])
+        job = JobSpec(name="chip_smoke_queue", command=f"cd {shlex.quote(ROOT)} && {command}",
+                      accelerator=acc, num_runs=QUEUE[1])
+        torch.cuda.synchronize()
+        t_queue = time.perf_counter()
+        queue.submit(job)
+
+        # ---- reconstruction, SimMIM and MAE ---------------------------------------
+        cfg = load_config(FIG[0], os.path.join(ROOT, "configs"))
+        d_m = {sec: dict(cfg[sec].items()) for sec in cfg.sections()}
+        for sec, over in MAE_OVERRIDES.items():
+            d_m[sec].update(over)
+        for tag, cfg_, B in (("simmim", cfg, FIG[1]),
+                             ("mae", Config.from_dict(d_m, name=MAE[0]), FIG[2])):
+            t0 = time.perf_counter()
+            model = build_mim_model(cfg_, dtype=torch.bfloat16, device=dev,
+                                    generator=torch.Generator().manual_seed(0))
+            out[f"reconstruct_{tag}"] = reconstruct_check(model, tag, B, dev, zero_counters,
+                                                          launch_counts)
+            out["launches"][f"reconstruct_{tag}"] = out[f"reconstruct_{tag}"]["launches"]
+            out["seconds"][f"reconstruct_{tag}"] = time.perf_counter() - t0
+            del model
+            torch.cuda.empty_cache()
+
+        # ---- the figures inside training ------------------------------------------
+        t0 = time.perf_counter()
+        steps, every = FIG_TRAIN
+        x = make_cutouts((steps + 1) * cfg.training.int("batch_size"),
+                         channels=cfg.architecture.int("num_channels"),
+                         img_size=cfg.architecture.int("img_size"), seed=53)["cutouts"]
+        bs = cfg.training.int("batch_size")
+        batches = [{"cutouts": x[k * bs:(k + 1) * bs]} for k in range(steps + 1)]
+
+        class ValBatches:
+            def take(self, n_):
+                return iter(batches[steps:steps + n_])
+
+        fwork = tempfile.mkdtemp(prefix="chip_smoke_figs_")
+        runs = {}
+        try:
+            fig_dir = os.path.join(fwork, "figures")
+            os.makedirs(fig_dir)
+            for tag, fd in (("fig_dir", fig_dir), ("none", None)):
+                tr = _queue_trainer(dev)
+                zero_counters()
+                torch.cuda.synchronize()
+                with warnings.catch_warnings(record=True) as caught:
+                    warnings.simplefilter("always")
+                    # no save: the steps end before total_batch_iters and the clock
+                    train_network(tr, iter(batches[:steps]), ValBatches(), 10 ** 9, every, 1e9,
+                                  os.path.join(fwork, f"{tag}.ckpt.pt"), fig_dir=fd,
+                                  max_val_batches=1, log_fn=lambda m_: None)
+                torch.cuda.synchronize()
+                runs[tag] = {"trainer": tr, "launches": launch_counts(),
+                             "warnings": [str(w.message) for w in caught
+                                          if str(w.message).startswith("matplotlib unavailable")]}
+            pngs = sorted(os.listdir(fig_dir))
+        finally:
+            shutil.rmtree(fwork, ignore_errors=True)
+        a, b = runs["fig_dir"]["trainer"], runs["none"]["trainer"]
+        same = (a.losses == b.losses and a.cur_iter == b.cur_iter == steps
+                and torch.equal(a.mask_gen.get_state(), b.mask_gen.get_state())
+                and all(torch.equal(v, b.model.state_dict()[k])
+                        for k, v in a.model.state_dict().items()))
+        extra = {k: n - runs["none"]["launches"][k] for k, n in runs["fig_dir"]["launches"].items()}
+        depth = a.model.encoder.depth
+        last = steps - steps % every
+        draws = ("plot_progress", "plot_batch", "plot_batch_tiled")
+        if plotting.plt is None:
+            want_warn, want_png = [f"matplotlib unavailable; skipping {f}" for f in draws], []
+        else:
+            want_warn = []
+            want_png = sorted(["fig_dir_progress.png", f"fig_dir_{last}iters.png",
+                               f"fig_dir_{last}iters_tiled.png"])
+        out["train_figures"] = {"steps": steps, "verbose_iters": every, "bit_equal": same,
+                                "extra_launches": {k: v for k, v in extra.items() if v},
+                                "warnings": runs["fig_dir"]["warnings"], "pngs": pngs,
+                                "matplotlib": plotting.plt is not None,
+                                "losses": a.losses.get("train_loss")}
+        out["launches"]["train_fig_dir"] = runs["fig_dir"]["launches"]
+        print(f"train_network with fig_dir ({FIG[0]}, {steps} steps, validating every {every}): "
+              f"bit-equal to the run without {same}; extra launches "
+              f"{out['train_figures']['extra_launches']}; warnings {runs['fig_dir']['warnings']}; "
+              f"PNGs {pngs}", flush=True)
+        check(same, "training with fig_dir bit-equal to training without it")
+        check(extra == {k: (depth if k in ("fused_attn_block", "fused_mlp_block") else 0)
+                        for k in extra},
+              f"fig_dir: one reconstruction's K2 and K1 launches more ({depth} each)")
+        check(runs["fig_dir"]["warnings"] == want_warn and pngs == want_png
+              and runs["none"]["warnings"] == [], "fig_dir: each figure warns once and writes no "
+              "file without matplotlib (with it, its PNG)")
+        del a, b, runs
+        torch.cuda.empty_cache()
+        out["seconds"]["train_figures"] = time.perf_counter() - t0
+
+        # ---- the data stages ------------------------------------------------------
+        t0 = time.perf_counter()
+        out["data_stages"] = data_stages(smi)
+        out["seconds"]["data_stages"] = time.perf_counter() - t0
+
+        # ---- the queued runs against one continuous run ---------------------------
+        t0 = time.perf_counter()
+        ref = _queue_trainer(dev)
+        ref_losses = [float(ref.train_batch(_queue_batch(ref, k)))
+                      for k in range(QUEUE[0] * QUEUE[1])]
+        state = {k: v.cpu() for k, v in ref.model.state_dict().items()}
+        del ref
+        torch.cuda.empty_cache()
+        out["seconds"]["queue_reference"] = time.perf_counter() - t0
+        codes = queue.wait(timeout=max(1.0, 300 - (time.perf_counter() - t_queue)))
+        t_queue = time.perf_counter() - t_queue
+        with open(os.path.join(qwork, "scripts", "stdout", f"{job.name}.out")) as f:
+            log = f.read()
+        print(f"queue ({acc}, {QUEUE[1]} chained runs of {QUEUE[0]} steps) exit {codes} in "
+              f"{t_queue:.1f} s; its log's end:\n{log[-3000:]}", flush=True)
+        check(codes == [0], "the queued job chain ran to its end")
+        results = []
+        for r in range(QUEUE[1]):
+            for rank in range(n_gpu):
+                with open(os.path.join(qwork, f"run{r * QUEUE[0]}_rank{rank}.json")) as f:
+                    results.append(json.load(f))
+        saved = load_checkpoint(spec["ckpt"])
+    finally:
+        if codes is None:  # a check failed first: stop the chain and its ranks
+            queue.wait(timeout=0.0)
+        shutil.rmtree(qwork, ignore_errors=True)
+    want_backend = "nccl" if dev.type == "cuda" else "gloo"
+    for res in results:
+        e = res["env"]
+        host, _, port = e["SKY_COORDINATOR_ADDRESS"].partition(":")
+        check(e["SKY_DISTRIBUTED"] == "1" and e["SKY_NUM_PROCESSES"] == str(n_gpu)
+              and e["SKY_PROCESS_ID"] == str(res["rank"]) and host == "127.0.0.1" and port.isdigit()
+              and res["world"] == n_gpu and res["backend"] == want_backend,
+              f"queue rank {res['rank']}: its SKY_* values and {want_backend}: {e}")
+    firsts = results[::n_gpu]
+    check([(r_["restored"], r_["start"], r_["end"]) for r_ in firsts]
+          == [(k > 0, k * QUEUE[0], (k + 1) * QUEUE[0]) for k in range(QUEUE[1])],
+          "each chained run resumes where the previous one saved")
+    chained = [v for r_ in firsts for v in r_["losses"]]
+    params = saved["params"]
+    same_params = params.keys() == state.keys() and all(
+        torch.equal(params[k], v) for k, v in state.items())
+    same_losses = chained == ref_losses
+    out["queue"] = {"accelerator": acc, "runs": QUEUE[1], "steps_a_run": QUEUE[0],
+                    "seconds": t_queue, "exit_codes": codes, "ranks": results,
+                    "losses_bit_equal": same_losses, "params_bit_equal": same_params,
+                    "losses": chained}
+    out["seconds"]["queue"] = t_queue
+    print(f"queue: {QUEUE[1]} chained runs against one in-process run of {len(ref_losses)} steps: "
+          f"losses bit-equal {same_losses}, parameters bit-equal {same_params}; worker seconds "
+          f"by part {[r_['seconds'] for r_ in results]}", flush=True)
+    check(same_losses and same_params, "the chained runs bit-equal to one continuous run")
+    out["seconds"]["total"] = time.perf_counter() - t_phase
+    print(f"phase 5k: {out['seconds']}", flush=True)
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -4100,6 +4640,9 @@ def main() -> int:
     data_parallel = dp_phase(dev, zero_counters, launch_counts)
     print(smi, flush=True)
     mark("data_parallel")
+    # ---- 5k. the figures, the per-GPU launcher, the data stages ----------------
+    figures = figures_phase(dev, zero_counters, launch_counts, smi)
+    mark("figures_launcher_data")
     shapes = {c: tuple(r[k] for k in ("layers", "embed_dim", "batch", "channels", "remat", "ra_dec"))
               for c, r in paths.items()}
     check(shapes == {CONFIG: (12, 768, 64, 5, False, False), LARGE[0]: (24, 768, 64, 5, False, False),
@@ -4285,7 +4828,8 @@ def main() -> int:
                        "cosmos_bfloat16": cosmos["bfloat16"]["launches"][counter],
                        "cosmos_bfloat16_generate": cosmos["bfloat16"]["generate_launches"][counter],
                        **{f"prefetch_{c}": r["launches"][counter] for c, r in prefetch.items()},
-                       **{f"dp_{c}": r[counter] for c, r in data_parallel["launches"].items()}}
+                       **{f"dp_{c}": r[counter] for c, r in data_parallel["launches"].items()},
+                       **{f"figures_{c}": r[counter] for c, r in figures["launches"].items()}}
         check(sum(by_path.values()) > 0, f"{name} launched on a main path")
         kernels.append({
             "name": name, "route": route, "source": source, "replaces": replaces,
@@ -4317,6 +4861,7 @@ def main() -> int:
         "cosmos": cosmos,
         "prefetch": prefetch,
         "data_parallel": data_parallel,
+        "figures_launcher_data": figures,
         "checkpoints": checkpoints,
         "attention_module": attention_module,
         "retrieval_path": retrieval,
@@ -4336,4 +4881,6 @@ def main() -> int:
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--dp-worker":
         sys.exit(dp_worker(sys.argv[2]))
+    if len(sys.argv) == 3 and sys.argv[1] == "--queue-worker":
+        sys.exit(queue_worker(sys.argv[2]))
     sys.exit(main())

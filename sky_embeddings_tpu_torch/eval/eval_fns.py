@@ -1,7 +1,6 @@
-"""Embedding extraction and predictor inference (port of ``make_encoder``,
-``extract_latents`` and ``predictor_infer`` from
-``sky_embeddings_tpu/eval/eval_fns.py``, reference ``mae_latent`` and
-``ft_predict``).
+"""Reconstruction preview, embedding extraction and predictor inference
+(port of ``sky_embeddings_tpu/eval/eval_fns.py``, reference ``mae_predict``,
+``mae_latent`` and ``ft_predict``).
 
 The model holds its weights, so where the JAX functions take ``(model,
 variables)`` these take the model alone; batches are dicts of numpy arrays
@@ -18,6 +17,9 @@ import numpy as np
 import torch
 
 from sky_embeddings_tpu_torch.data.augment import augment_batch
+from sky_embeddings_tpu_torch.models.layers import patchify, unpatchify
+from sky_embeddings_tpu_torch.ops.losses import denormalize_patches
+from sky_embeddings_tpu_torch.ops.masking import simmim_batch_mask, upsample_patch_mask
 
 
 def model_device(model) -> torch.device:
@@ -39,6 +41,73 @@ def batch_images(batch: dict, device) -> torch.Tensor:
     """A batch's cutouts as a tensor on ``device`` (in their dtype)."""
     x = batch["cutouts"]
     return x.to(device) if torch.is_tensor(x) else torch.as_tensor(np.asarray(x), device=device)
+
+
+def mim_reconstruct(model, batch: dict, generator: Optional[torch.Generator] = None,
+                    max_mask_ratio: Optional[float] = None, mask=None):
+    """One-batch reconstruction preview of a ``SkyMIM`` (JAX
+    ``mim_reconstruct``, reference ``mae_predict``), on the model's device
+    under ``torch.no_grad``: the encoder's blocks take the inference kernels
+    (K2, K1; the masked K2 in MAE's packed encoder).
+
+    SimMIM draws its (B, C, H, W) pixel mask from ``generator`` at ratio
+    ``max_mask_ratio`` (0.9 when None); MAE drops the tokens of its own
+    masking step, its (B, L) noise drawn from ``generator``. ``mask`` gives
+    the draw instead (numpy or tensor): SimMIM's pixel mask, or MAE's (B, L)
+    token mask (1 removed), whose kept tokens enter the encoder in image
+    order. ``generator`` defaults to one seeded 0 on the model's device.
+
+    Returns ``(pred, masked, orig)`` as (B, H, W, C) numpy arrays: the
+    prediction (per-patch denormalised under ``norm_pix_loss``, then out of
+    the pixel normalisation) composited over the masked region only, and
+    the input with its masked pixels set to NaN for display. It computes
+    no loss, so under a process group one rank may call it alone (the
+    loss's sums are collectives)."""
+    dev = model_device(model)
+    imgs = batch_images(batch, dev).float()
+    ra_dec = batch_ra_dec(batch, dev) if model.ra_dec else None
+    B, C = imgs.shape[:2]
+    p = model.patch_size
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+    with torch.no_grad():
+        if model.simmim:
+            if mask is None:
+                ratio = max_mask_ratio if max_mask_ratio is not None else 0.9
+                mask = simmim_batch_mask(generator, B, C, model.img_size, p, ratio)
+            pix_mask = torch.as_tensor(mask, dtype=torch.float32, device=dev)
+            pred = model.decode(model.encode(imgs, ra_dec=ra_dec, mask=pix_mask)[0])
+        else:
+            L = model.grid_size ** 2
+            if mask is None:
+                noise = torch.rand(B, L, generator=generator, device=dev)
+            else:
+                # the stable sort keeps the zeros (kept tokens) in image order
+                noise = torch.as_tensor(mask, dtype=torch.float32, device=dev)
+                removed = L - int(L * (1.0 - model.mask_ratio))
+                if not bool((noise.sum(1) == removed).all()):
+                    raise ValueError(f"an MAE token mask removes {removed} of {L} tokens a sample")
+            tokens, tok_mask, ids_restore = model.encode(imgs, ra_dec=ra_dec, apply_mae_masking=True,
+                                                         mae_noise=noise)
+            pred = model.decode(tokens, ids_restore)
+            if model.norm_pix_loss:
+                target = patchify((imgs - model.pixel_mean) / model.pixel_std, p)
+                pred = denormalize_patches(pred, target)
+            pred = unpatchify(pred, p, C)
+            g = model.grid_size
+            pix_mask = upsample_patch_mask(tok_mask.reshape(B, g, g), p)[:, None].expand_as(imgs)
+        if model.simmim and model.norm_pix_loss:
+            target = patchify((imgs - model.pixel_mean) / model.pixel_std, p)
+            pred = unpatchify(denormalize_patches(patchify(pred, p), target), p, C)
+        pred = pred * model.pixel_std + model.pixel_mean
+
+    pred_np = host_array(pred).transpose(0, 2, 3, 1)
+    mask_np = host_array(pix_mask).transpose(0, 2, 3, 1)
+    orig_np = host_array(imgs).transpose(0, 2, 3, 1)
+    pred_np = np.where(mask_np == 0, orig_np, pred_np)
+    masked_inputs = orig_np.copy()
+    masked_inputs[mask_np == 1] = np.nan
+    return pred_np, masked_inputs, orig_np
 
 
 def make_encoder(model):

@@ -22,8 +22,9 @@ and each gate's outcome. The gates (probe accuracy and R² must rise by 0.05)
 are reported and not forced: JAX's own TPU run missed them. ``--quick`` runs
 a tiny shape for the CPU (16 x 16 cutouts, ``model_type = tiny``, B = 16, 20
 steps, a few hundred rows) and writes ``jepa_validation_torch_quick.json``.
-The JAX tool's figures are not drawn (one line says so): the card host has
-no matplotlib.
+The training loop draws ``figures/<run>_progress.png`` after each validation
+but the first, as the JAX tool passes ``fig_dir``; without matplotlib (the
+card host) it warns and draws nothing.
 """
 
 from __future__ import annotations
@@ -68,11 +69,12 @@ def run_pretrain(survey: dict, verbose_iters: int, quick: bool, device) -> dict:
     probes = [DeviceDataset.from_arrays(survey[key], 256, label_keys=[label], shuffle=False,
                                         drop_remainder=False, **data)
               for key, label in (("struct_probe_cls", "class"), ("struct_probe_z", "zspec"))]
+    fig_dir = os.path.join(REPO_DIR, "figures")
+    os.makedirs(fig_dir, exist_ok=True)
     train_network(trainer, train_ds.forever(), val_ds, trainer.total_batch_iters, verbose_iters,
-                  cp_time_minutes=15.0, model_filename=model_filename,
+                  cp_time_minutes=15.0, model_filename=model_filename, fig_dir=fig_dir,
                   lp_class_data_file=probes[0], lp_regress_data_file=probes[1],
                   lp_combine="central")
-    print("Figures skipped: the port draws no figures yet (ROADMAP).")
     return {k: [float(x) for x in v] for k, v in trainer.losses.items()}
 
 

@@ -28,6 +28,15 @@ def normalize_patches(patches: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     return (patches - mean) / torch.sqrt(var + eps)
 
 
+def denormalize_patches(normalized: torch.Tensor, reference_patches: torch.Tensor,
+                        eps: float = 1e-6) -> torch.Tensor:
+    """Invert :func:`normalize_patches` with the stats of
+    ``reference_patches`` (reference ``undo_pixel_norm``,
+    ``mim_vit.py:629-648``)."""
+    mean, var = patch_mean_and_var(reference_patches)
+    return normalized * torch.sqrt(var + eps) + mean
+
+
 def masked_recon_loss(target: torch.Tensor, pred: torch.Tensor, mask: torch.Tensor,
                       loss_fn: str = "l1") -> torch.Tensor:
     """Masked, NaN-guarded mean of per-element L1/MSE:

@@ -20,9 +20,10 @@ online encoder run after each validation pass with ``lp_combine`` pooling.
 calls no ``initialize_from_env``, it runs one process;
 ``[TRAINING] zero_optimizer = True`` is read by the trainer
 (``train/jepa.JEPATrainer``), and shards the AdamW moments where a process
-group exists (a one-process run has nothing to shard).
-
-Not ported yet: the figures.
+group exists (a one-process run has nothing to shard). It draws
+``figures/<run>_progress.png`` at each validation after the first, where
+matplotlib is installed, as JAX's does (an I-JEPA model draws no
+reconstruction).
 """
 
 from __future__ import annotations
@@ -52,8 +53,10 @@ def main(argv=None) -> str:
     args = parser.parse_args(argv)
     config_dir = os.path.join(REPO_DIR, "configs")
     model_dir = os.path.join(REPO_DIR, "models")
+    fig_dir = os.path.join(REPO_DIR, "figures")
     data_dir = args.data_dir or os.path.join(REPO_DIR, "data")
     os.makedirs(model_dir, exist_ok=True)
+    os.makedirs(fig_dir, exist_ok=True)
     print(f"Using torch {torch.__version__} on {args.device}")
 
     model_name = args.model_name
@@ -92,7 +95,7 @@ def main(argv=None) -> str:
           for key in ("lp_class_data_file", "lp_regress_data_file")}
     train_network(
         trainer, train_batcher.forever(), val_batcher, trainer.total_batch_iters,
-        args.verbose_iters, args.cp_time, model_filename, **lp,
+        args.verbose_iters, args.cp_time, model_filename, fig_dir=fig_dir, **lp,
         lp_combine=data.str("lp_combine", "central"),
     )
     return model_filename

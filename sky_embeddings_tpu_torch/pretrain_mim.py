@@ -45,7 +45,10 @@ their own masks) and the global batch is ``processes x batch_size`` rows
 (ROADMAP). ``[TRAINING] zero_optimizer = True`` shards the AdamW moments
 over the processes.
 
-Not ported yet: the figures.
+Like JAX's script it draws its figures under ``figures/`` (``train_network``'s
+``fig_dir``: the training curves, and each validation's reconstruction as
+``<run>_<step>iters[_tiled].png``) on process 0, where matplotlib is
+installed; without it each figure is skipped with a warning.
 """
 
 from __future__ import annotations
@@ -80,8 +83,10 @@ def main(argv=None) -> str:
     device = distributed.rank_device(args.device)
     config_dir = os.path.join(REPO_DIR, "configs")
     model_dir = os.path.join(REPO_DIR, "models")
+    fig_dir = os.path.join(REPO_DIR, "figures")
     data_dir = args.data_dir or os.path.join(REPO_DIR, "data")
     os.makedirs(model_dir, exist_ok=True)
+    os.makedirs(fig_dir, exist_ok=True)
     log(f"Using torch {torch.__version__} on {device} ({n_proc} processes)")
 
     model_name = args.model_name
@@ -126,7 +131,7 @@ def main(argv=None) -> str:
           for key in ("lp_class_data_file", "lp_regress_data_file")}
     train_network(
         pretrainer, train_batcher.forever(), val_batcher, pretrainer.total_batch_iters,
-        args.verbose_iters, args.cp_time, model_filename, **lp,
+        args.verbose_iters, args.cp_time, model_filename, fig_dir=fig_dir, **lp,
         lp_combine=data.str("lp_combine", "central"), log_fn=log,
     )
     return model_filename

@@ -96,6 +96,14 @@ def mim_config(quick: bool):
     return apply_overrides(cfg, QUICK_MIM if quick else [], "mim_struct")
 
 
+def fig_dir() -> str:
+    """``figures/``, where the training loops draw, as the JAX tool's do
+    (where matplotlib is installed)."""
+    path = os.path.join(REPO_DIR, "figures")
+    os.makedirs(path, exist_ok=True)
+    return path
+
+
 def run_pretrain(survey: dict, verbose_iters: int, quick: bool, device) -> dict:
     pretrainer = MIMPretrainer(mim_config(quick), device=device)
     name = "mim_struct_quick" if quick else "mim_struct"
@@ -115,7 +123,7 @@ def run_pretrain(survey: dict, verbose_iters: int, quick: bool, device) -> dict:
               for name, key in (("struct_probe_cls", "class"), ("struct_probe_z", "zspec"))]
     train_network(pretrainer, train_ds.forever(), val_ds, pretrainer.total_batch_iters,
                   verbose_iters, cp_time_minutes=15.0, model_filename=model_filename,
-                  lp_class_data_file=probes[0], lp_regress_data_file=probes[1],
+                  fig_dir=fig_dir(), lp_class_data_file=probes[0], lp_regress_data_file=probes[1],
                   lp_combine="central")
     return {k: [float(x) for x in v] for k, v in pretrainer.losses.items()}
 
@@ -159,7 +167,8 @@ def run_finetune(name: str, survey: dict, verbose_iters: int, quick: bool, devic
         indices=list(range(num_train)) if num_train > -1 else None, **data)
     val_ds = DeviceDataset.from_arrays(survey["struct_z_val"], bs, shuffle=False, **data)
     train_predictor_network(trainer, train_ds.forever(), val_ds, verbose_iters,
-                            cp_time_minutes=15.0, model_filename=model_filename)
+                            cp_time_minutes=15.0, model_filename=model_filename,
+                            fig_dir=fig_dir())
     trainer.restore(best_filename)  # evaluate the best checkpoint on the val set
     infer_ds = DeviceDataset.from_arrays(survey["struct_z_val"], bs, shuffle=False,
                                          drop_remainder=False, **data)

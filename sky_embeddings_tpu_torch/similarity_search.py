@@ -12,8 +12,9 @@ set, embeds the target set with 64 augmentations, then either streams the
 test set through the encoder (``mim_simsearch``) or answers from an
 embedding bank (``-bank``), and saves
 ``results/<model>_<target>_simsearch_results_f.npz`` with the JAX CLI's keys.
-
-Not ported yet: the PNG figures (ROADMAP: figures).
+Like the JAX CLI it draws the targets and the first ``-np`` results (band
+``-dc``) under ``figures/`` where matplotlib is installed; without it each
+figure is skipped with a warning.
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ from sky_embeddings_tpu_torch.train.predictor import PredictorTrainer
 from sky_embeddings_tpu_torch.utils.checkpoint import (find_checkpoint, is_jax_checkpoint,
                                                        load_checkpoint)
 from sky_embeddings_tpu_torch.utils.misc import h5_snr
+from sky_embeddings_tpu_torch.utils.plotting import display_images, normalize_images
 
 REPO_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -141,8 +143,10 @@ def main(argv=None):
     config_dir = os.path.join(REPO_DIR, "configs")
     model_dir = os.path.join(REPO_DIR, "models")
     results_dir = os.path.join(REPO_DIR, "results")
+    fig_dir = os.path.join(REPO_DIR, "figures")
     data_dir = args.data_dir or os.path.join(REPO_DIR, "data")
     os.makedirs(results_dir, exist_ok=True)
+    os.makedirs(fig_dir, exist_ok=True)
 
     model, config = build_model_from_config(config_dir, model_dir, args.model_name, args.device)
     img_size = config.architecture.int("img_size")
@@ -171,6 +175,9 @@ def main(argv=None):
         apply_augmentations=str2bool(args.augment_targets), num_augmentations=64,
         generator=torch.Generator().manual_seed(0), return_images=True,
     )
+    stem = os.path.join(fig_dir, f"{args.model_name}_{args.target_fn[:-3]}")
+    display_images(normalize_images(target_images[:, args.display_channel]),
+                   savename=stem + "_simsearch_target.png")
 
     if args.bank and args.bank != "None":
         test_images, test_latent, test_ra_decs, test_scores = bank_search(
@@ -184,6 +191,8 @@ def main(argv=None):
             use_weights=True, max_pool=str2bool(args.max_pool),
             cls_token=str2bool(args.cls_token),
         )
+    display_images(normalize_images(test_images[: args.n_plot, args.display_channel]),
+                   savename=stem + "_simsearch_results_f.png")
 
     out = os.path.join(
         results_dir, f"{args.model_name}_{args.target_fn[:-3]}_simsearch_results_f.npz"

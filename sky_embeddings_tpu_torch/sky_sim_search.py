@@ -12,8 +12,11 @@ with ``-bank``, one shared pass over an embedding bank (``query_multi``),
 built once from the FITS sweep and reused by later runs (rebuilt when its
 pooling does not match the run's). Saves
 ``results/<model>_<target>[_g<i>]_skysearch_results.npz`` with the JAX CLI's
-keys (bank mode: no survey images). The PNG grid is not drawn (ROADMAP:
-plots).
+keys (bank mode: no survey images). Outside bank mode it draws the first
+``-np`` results of each group (band ``-dc``) as
+``figures/<model>_<target>[_g<i>]_skysearch_results.png`` where matplotlib
+is installed, as the JAX CLI does; without it each figure is skipped with a
+warning.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ from sky_embeddings_tpu_torch.eval.bank import EmbeddingBank, build_bank
 from sky_embeddings_tpu_torch.eval.eval_fns import extract_latents
 from sky_embeddings_tpu_torch.eval.simsearch import mim_simsearch, mim_simsearch_multi
 from sky_embeddings_tpu_torch.similarity_search import REPO_DIR, build_model_from_config
+from sky_embeddings_tpu_torch.utils.plotting import display_images, normalize_images
 
 
 def parse_args(argv=None):
@@ -134,8 +138,10 @@ def main(argv=None):
     config_dir = os.path.join(REPO_DIR, "configs")
     model_dir = os.path.join(REPO_DIR, "models")
     results_dir = os.path.join(REPO_DIR, "results")
+    fig_dir = os.path.join(REPO_DIR, "figures")
     data_dir = args.data_dir or os.path.join(REPO_DIR, "data")
     os.makedirs(results_dir, exist_ok=True)
+    os.makedirs(fig_dir, exist_ok=True)
 
     model, config = build_model_from_config(config_dir, model_dir, args.model_name, args.device)
     img_size = config.architecture.int("img_size")
@@ -180,9 +186,11 @@ def main(argv=None):
     else:
         results = [mim_simsearch(model, target_latents[0], test_batcher, **kw)]
 
-    print("Result image grids are not drawn by the port (ROADMAP: plots).")
     for g, (test_images, test_latent, test_ra_decs, test_scores) in enumerate(results):
-        out = os.path.join(results_dir, f"{base}{f'_g{g}' if multi else ''}_skysearch_results.npz")
+        tag = f"_g{g}" if multi else ""
+        display_images(normalize_images(test_images[: args.n_plot, args.display_channel]),
+                       savename=os.path.join(fig_dir, f"{base}{tag}_skysearch_results.png"))
+        out = os.path.join(results_dir, f"{base}{tag}_skysearch_results.npz")
         np.savez(out, test_ra_decs=test_ra_decs, test_scores=test_scores,
                  target_images=target_group_images[g], target_features=target_latents[g],
                  test_images=test_images, test_features=test_latent)

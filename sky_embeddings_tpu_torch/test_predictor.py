@@ -9,8 +9,12 @@ with S/N > 5 in every band (of the first five), then computes the metrics:
 for an ``mse`` predictor the photo-z bias, MAD and outlier fraction, overall
 and in 8 redshift bins over [0.2, 1.6]; for a classifier the accuracy and
 the confusion matrix. It prints them and writes them as JSON to
-``results/<run>_test_metrics.json``. The figures that JAX draws there wait
-for the plots' port (ROADMAP: figures); the CLI says they are skipped.
+``results/<run>_test_metrics.json``, and draws JAX's figures under
+``figures/`` where matplotlib is installed (the training curves of a run
+with more than one validation; for ``mse`` the residual hexbins, the binned
+metrics with S/N, the redshift and S/N panels; for a classifier the
+normalised confusion matrix); without it each figure is skipped with a
+warning.
 """
 
 from __future__ import annotations
@@ -26,7 +30,15 @@ from sky_embeddings_tpu_torch.train.predictor import PredictorTrainer
 from sky_embeddings_tpu_torch.train_predictor import add_twin_args, load_configs
 from sky_embeddings_tpu_torch.utils.checkpoint import find_checkpoint
 from sky_embeddings_tpu_torch.utils.misc import build_train_argparser, h5_snr
-from sky_embeddings_tpu_torch.utils.plotting import evaluate_z, photoz_prediction_metrics
+from sky_embeddings_tpu_torch.utils.plotting import (
+    evaluate_z,
+    photoz_prediction_metrics,
+    plot_conf_mat,
+    plot_progress,
+    plot_resid_hexbin,
+    snr_plots,
+    z_plots,
+)
 
 REPO_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -38,8 +50,10 @@ def main(argv=None) -> dict:
     config_dir = os.path.join(REPO_DIR, "configs")
     model_dir = os.path.join(REPO_DIR, "models")
     results_dir = os.path.join(REPO_DIR, "results")
+    fig_dir = os.path.join(REPO_DIR, "figures")
     data_dir = args.data_dir or os.path.join(REPO_DIR, "data")
     os.makedirs(results_dir, exist_ok=True)
+    os.makedirs(fig_dir, exist_ok=True)
 
     config, mae_config, _ = load_configs(args, config_dir)
     trainer = PredictorTrainer(config, mae_config, device=args.device)
@@ -48,6 +62,8 @@ def main(argv=None) -> dict:
     if path is None or not trainer.restore(path):
         raise SystemExit(f"No checkpoint found for {run} in {model_dir}")
     print(f"Evaluating {run} at iteration {trainer.cur_iter}.")
+    if len(trainer.losses.get("batch_iters", [])) > 1:
+        plot_progress(trainer.losses, savename=os.path.join(fig_dir, f"{run}_progress.png"))
 
     data = config.data
     val_file = os.path.join(data_dir, data.str("val_data_file"))
@@ -70,9 +86,17 @@ def main(argv=None) -> dict:
     if "mse" in config.training.str("loss_fn").lower():
         z_true, z_pred = targets[:, 0], preds[:, 0]
         bias, mad, fout = photoz_prediction_metrics(z_pred, z_true, threshold=0.15)
-        centers, b_bias, b_mad, b_fout = evaluate_z(z_pred, z_true, n_bins=8, z_range=(0.2, 1.6),
-                                                    threshold=0.1)
         print(f"bias={bias:.4f}  MAD={mad:.4f}  outlier_frac={fout:.4f}")
+        plot_resid_hexbin(z_true, z_pred,
+                          savename=os.path.join(fig_dir, f"{run}_redshift_hexbin.png"))
+        centers, b_bias, b_mad, b_fout = evaluate_z(
+            z_pred, z_true, n_bins=8, z_range=(0.2, 1.6), threshold=0.1, snr=snr_min[keep],
+            savename=os.path.join(fig_dir, f"{run}_redshift_metrics.png"))
+        # dedicated multi-panel layouts (reference plotting_fns.py:458-650)
+        z_plots(z_pred, z_true, n_bins=8, z_range=(0.2, 1.6), threshold=0.1,
+                savename=os.path.join(fig_dir, f"{run}_redshift.png"))
+        snr_plots(z_pred, z_true, snr_min[keep],
+                  savename=os.path.join(fig_dir, f"{run}_redshift_snr.png"))
         metrics.update(bias=bias, mad=mad, outlier_frac=fout, bins={
             "z_center": centers.tolist(), "bias": b_bias.tolist(), "mad": b_mad.tolist(),
             "outlier_frac": b_fout.tolist()})
@@ -85,7 +109,7 @@ def main(argv=None) -> dict:
         np.add.at(conf, (y_true, y_pred), 1)
         print(f"accuracy={acc:.4f}")
         metrics.update(accuracy=acc, confusion_matrix=conf.tolist())
-    print("Figures skipped: the plots are not ported yet (ROADMAP: figures).")
+        plot_conf_mat(y_true, y_pred, savename=os.path.join(fig_dir, f"{run}_confusion.png"))
     out = os.path.join(results_dir, f"{run}_test_metrics.json")
     with open(out, "w") as f:
         json.dump(metrics, f, indent=2)

@@ -40,11 +40,14 @@ reported as the global means (``parallel/distributed.global_mean``).
 (``parallel/zero``); the ``lp`` regime's stay whole on every rank, as JAX
 replicates them. ``tensor_parallel > 1`` raises.
 
-Not ported yet (ROADMAP): the progress figures.
+With ``fig_dir`` the loop draws the training curves on the main process at
+each validation after the first (``utils/plotting.plot_progress``; a
+warning and no file without matplotlib).
 """
 
 from __future__ import annotations
 
+import os
 import time
 from collections import defaultdict
 from typing import Callable, Optional
@@ -63,6 +66,7 @@ from sky_embeddings_tpu_torch.train import optim
 from sky_embeddings_tpu_torch.train.schedules import linear_lr
 from sky_embeddings_tpu_torch.utils import checkpoint as ckpt
 from sky_embeddings_tpu_torch.utils.device import DTYPES, resolve_device
+from sky_embeddings_tpu_torch.utils.plotting import plot_progress
 
 def warm_start_from_mim(predictor_params: dict, mim_params: dict, log_fn=print):
     """Copy name+shape-matching tensors of a MIM params tree into a predictor
@@ -327,6 +331,7 @@ def train_predictor_network(
     verbose_iters: int,
     cp_time_minutes: float,
     model_filename: str,
+    fig_dir: Optional[str] = None,
     early_stop_evals: int = 50,
     log_fn: Callable[[str], None] = print,
 ) -> None:
@@ -341,7 +346,9 @@ def train_predictor_network(
     rank sees the same global validation losses and so takes the same
     best-model and early-stopping decisions, only rank 0 logs, and the
     save clock is read at validation steps
-    (``parallel/distributed.checkpoint_due``)."""
+    (``parallel/distributed.checkpoint_due``). With ``fig_dir`` the main
+    process draws ``<model>_progress.png`` at each validation after the
+    first."""
     log_fn = distributed.main_only(log_fn)
     losses = trainer.losses
     total = trainer.total_batch_iters
@@ -352,6 +359,7 @@ def train_predictor_network(
     losses_cp: dict = defaultdict(list)
     cp_start = time.time()
     best_filename = model_filename.replace(ckpt.CKPT_SUFFIX, "_best" + ckpt.CKPT_SUFFIX)
+    model_name = os.path.basename(model_filename).split(".")[0]
 
     if trainer.cur_iter >= total:
         log_fn("Training already complete for this config; nothing to do.")
@@ -377,6 +385,8 @@ def train_predictor_network(
                    f"train loss {losses['train_loss'][-1]:.3e} | "
                    f"val loss {losses['val_loss'][-1]:.3e} | "
                    f"val {metric_name} {losses[f'val_{metric_name}'][-1]:.4f}")
+            if fig_dir is not None and len(losses["batch_iters"]) > 1 and distributed.is_main():
+                plot_progress(losses, savename=os.path.join(fig_dir, f"{model_name}_progress.png"))
             if losses["val_loss"][-1] < best_val:
                 best_val = losses["val_loss"][-1]
                 log_fn("Saving network (best)...")

@@ -35,11 +35,19 @@ AdamW moments over the ranks (``parallel/zero``); only rank 0 writes a
 checkpoint, after collecting them, and every rank restores.
 ``tensor_parallel > 1`` raises (``parallel/mesh.TP_REASON``).
 
-Not ported yet (ROADMAP): the figures of ``train_network``.
+With ``fig_dir`` ``train_network`` draws JAX's figures on the main process
+at each validation after the first: the training curves and, for a
+``SkyMIM``, a reconstruction of the first validation batch
+(``eval/eval_fns.mim_reconstruct``, its mask from a generator seeded by the
+step) as one-band and all-band triptychs. They read the trainer and touch
+none of its state or generators, so a run draws them or not to the same
+bits; without matplotlib (the card host) each figure warns and the
+reconstruction still runs.
 """
 
 from __future__ import annotations
 
+import os
 import time
 from collections import defaultdict
 from typing import Callable, Optional
@@ -48,7 +56,7 @@ import numpy as np
 import torch
 
 from sky_embeddings_tpu_torch.data.prefetch import device_prefetch
-from sky_embeddings_tpu_torch.eval.eval_fns import batch_ra_dec
+from sky_embeddings_tpu_torch.eval.eval_fns import batch_ra_dec, mim_reconstruct
 from sky_embeddings_tpu_torch.eval.linear_probe import linear_probe
 from sky_embeddings_tpu_torch.models.mim import SkyMIM, build_mim_model
 from sky_embeddings_tpu_torch.ops.masking import simmim_batch_mask
@@ -58,6 +66,7 @@ from sky_embeddings_tpu_torch.train.optim import jax_payload, pretrain_optimizer
 from sky_embeddings_tpu_torch.train.schedules import cosine_annealing
 from sky_embeddings_tpu_torch.utils import checkpoint as ckpt
 from sky_embeddings_tpu_torch.utils.device import DTYPES, resolve_device
+from sky_embeddings_tpu_torch.utils.plotting import plot_batch, plot_batch_tiled, plot_progress
 from sky_embeddings_tpu_torch.utils.profiling import StepTimer
 
 def make_mim_step(
@@ -254,6 +263,7 @@ def train_network(
     verbose_iters: int,
     cp_time_minutes: float,
     model_filename: str,
+    fig_dir: Optional[str] = None,
     lp_class_data_file=None,
     lp_regress_data_file=None,
     lp_combine: str = "central",
@@ -272,11 +282,14 @@ def train_network(
     (``pretrainer.batch_shard``), the probes run on every rank over the
     whole probe sets, as JAX's processes run them, only rank 0 logs, and
     the save clock is read at validation steps
-    (``parallel/distributed.checkpoint_due``)."""
+    (``parallel/distributed.checkpoint_due``). With ``fig_dir`` the main
+    process draws the figures of :func:`draw_figures` at each validation
+    after the first."""
     log_fn = distributed.main_only(log_fn)
     losses = pretrainer.losses
     losses_cp: dict = defaultdict(list)
     cp_start = time.time()
+    model_name = os.path.basename(model_filename).split(".")[0]
 
     if pretrainer.cur_iter >= total_batch_iters:
         log_fn("Training already complete for this config; nothing to do.")
@@ -315,6 +328,8 @@ def train_network(
             if losses.get("val_lp_r2"):
                 msg.append(f"  lp r2 {losses['val_lp_r2'][-1]:.3f}")
             log_fn(" |".join(msg))
+            if fig_dir is not None and len(losses["batch_iters"]) > 1 and distributed.is_main():
+                draw_figures(pretrainer, val_batcher, fig_dir, model_name)
 
         due = distributed.checkpoint_due(cp_start, cp_time_minutes, validated)
         if due or cur_iter >= total_batch_iters:
@@ -324,3 +339,23 @@ def train_network(
             cp_start = time.time()
         if cur_iter >= total_batch_iters:
             break
+
+
+def draw_figures(pretrainer, val_batcher, fig_dir: str, model_name: str) -> None:
+    """JAX ``train_network``'s figures (JAX ``train/pretrain.py:360-389``):
+    ``<model_name>_progress.png`` from the losses and, for a ``SkyMIM`` with
+    validation data, the reconstruction of the first validation batch at
+    the current step, ``<model_name>_<step>iters.png`` (the first band) and,
+    with more than one band, ``..._tiled.png`` (all bands)."""
+    plot_progress(pretrainer.losses, savename=os.path.join(fig_dir, f"{model_name}_progress.png"))
+    if val_batcher is None or not isinstance(pretrainer.model, SkyMIM):
+        return
+    step = pretrainer.cur_iter
+    first = next(iter(val_batcher.take(1)))
+    gen = torch.Generator(device=pretrainer.device).manual_seed(step)
+    pred, masked, orig = mim_reconstruct(pretrainer.model, first, gen,
+                                         max_mask_ratio=pretrainer.max_mask_ratio)
+    stem = os.path.join(fig_dir, f"{model_name}_{step}iters")
+    plot_batch(orig, masked, pred, n_samples=5, savename=stem + ".png")
+    if orig.shape[-1] > 1:  # all-band mosaic (reference plot_batch_tiled)
+        plot_batch_tiled(orig, masked, pred, n_samples=5, savename=stem + "_tiled.png")

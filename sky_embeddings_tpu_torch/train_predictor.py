@@ -29,7 +29,9 @@ its own shard of both sets with ``batch_size // processes`` rows a batch
 process 0 logs and writes checkpoints. ``[TRAINING] zero_optimizer = True``
 shards the ``ft`` and ``fs`` AdamW moments over the processes.
 
-Not ported yet: the progress figures.
+Like JAX's script it draws ``figures/<run>_progress.png`` at each
+validation after the first, on process 0, where matplotlib is installed;
+without it the figure is skipped with a warning.
 """
 
 from __future__ import annotations
@@ -77,8 +79,10 @@ def main(argv=None) -> str:
     log = distributed.main_only(print)
     config_dir = os.path.join(REPO_DIR, "configs")
     model_dir = os.path.join(REPO_DIR, "models")
+    fig_dir = os.path.join(REPO_DIR, "figures")
     data_dir = args.data_dir or os.path.join(REPO_DIR, "data")
     os.makedirs(model_dir, exist_ok=True)
+    os.makedirs(fig_dir, exist_ok=True)
     device = distributed.rank_device(args.device)
     log(f"Using torch {torch.__version__} on {device} ({n_proc} processes)")
 
@@ -125,7 +129,7 @@ def main(argv=None) -> str:
         data, os.path.join(data_dir, data.str("val_data_file")), shuffle=True, **batcher)
 
     train_predictor_network(trainer, train_batcher.forever(), val_batcher, args.verbose_iters,
-                            args.cp_time, model_filename, log_fn=log)
+                            args.cp_time, model_filename, fig_dir=fig_dir, log_fn=log)
     return model_filename
 
 

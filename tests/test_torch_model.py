@@ -213,7 +213,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "utils.plotting", "train_predictor", "test_predictor", "semantic_validation",
                 "ops.jepa_masks", "models.jepa", "train.jepa", "pretrain_jepa", "models.cosmos",
                 "data.prefetch", "data.mask_generator", "jepa_validation", "parallel.distributed",
-                "parallel.mesh", "parallel.zero", "parallel.smoke"):
+                "parallel.mesh", "parallel.zero", "parallel.smoke", "cluster.queue_gpu",
+                "cluster.launch_pretraining", "cluster.launch_predictor", "data_processing",
+                "data_processing.combine", "data_processing.create_h5",
+                "data_processing.cross_match", "data_processing.dedup",
+                "data_processing.probe_sets", "data_processing.resolution",
+                "data_processing.split"):
         assert f"{pkg.__name__}.{new}" in mods
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
 

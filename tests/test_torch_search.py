@@ -424,10 +424,12 @@ def test_augment_apply_steps_match_jax_augment_batch():
 
 # -- the CLI twin ----------------------------------------------------------------
 
-def test_cli_twin_matches_jax_library(tmp_path, models):
+def test_cli_twin_matches_jax_library(tmp_path, models, monkeypatch):
     """``python -m sky_embeddings_tpu_torch.similarity_search mim_tiny
     --device cpu -aug False`` on synthetic files: its saved scores and
-    winners equal the JAX library's on the CLI's own (fresh seeded) weights."""
+    winners equal the JAX library's on the CLI's own (fresh seeded) weights.
+    The twin's root is a temporary directory (the configs linked, no
+    checkpoint), where it writes its results and figures."""
     from sky_embeddings_tpu.eval.eval_fns import extract_latents as jax_extract
     from sky_embeddings_tpu.eval.simsearch import mim_simsearch as jax_search
     from sky_embeddings_tpu.data.h5_loader import build_h5_batcher
@@ -435,6 +437,8 @@ def test_cli_twin_matches_jax_library(tmp_path, models):
     from sky_embeddings_tpu_torch.data.synthetic import write_synthetic_h5
     from sky_embeddings_tpu_torch.utils.misc import h5_snr
 
+    (tmp_path / "configs").symlink_to(os.path.join(REPO, "configs"))
+    monkeypatch.setattr(cli, "REPO_DIR", str(tmp_path))
     tgt = f"cli_tgt_{os.getpid()}.h5"
     write_synthetic_h5(str(tmp_path / tgt), n=6, channels=3, img_size=16, seed=1)
     write_synthetic_h5(str(tmp_path / "tst.h5"), n=40, channels=3, img_size=16, seed=2)

@@ -13,7 +13,9 @@ depth 2 (CosmicEmbeds at 16 x 16, D = 48; phase 5j at batch 8, its ranks
 started as this file's ``--dp-worker``, gloo on the CPU), stubs ``torch.cuda``, the
 profiler, ``nvidia-smi``, the nvcc build and the C-only helpers (the TMA encode timer, the group plan, kernel 12's
 bit-equality launch), and runs ``main()`` with ``check`` logging instead of
-exiting. Every wrapper takes its plain version on CPU tensors, so only the
+exiting. Phase 5k runs at batch 8, its queued runs as this file's
+``--queue-worker``, its data stages at 20 000 sources and a 256^2 patch.
+Every wrapper takes its plain version on CPU tensors, so only the
 launch-count and full-size checks fail; anything else that fails, and any
 exception, is a fault of the script's own logic. About two minutes.
 """
@@ -105,6 +107,14 @@ def shrink() -> None:
     # its bars are the card's at full width; bf16 on the CPU rounds each
     # plain product's output, so two ranks part from one process by more
     cs.TOL_DP = dict.fromkeys(cs.TOL_DP, (1e-1, 1e-1, 1e-1))
+    # phase 5k: the reconstructions at batch 8, the queue's runs as this
+    # file's --queue-worker (gloo on the CPU), the data stages at 20 000
+    # sources and a 256^2 patch
+    cs.FIG = ("mim_1", 8, 16)
+    cs.QUEUE = (2, 2)
+    cs.QUEUE_WORKER = [os.path.abspath(__file__), "--queue-worker"]
+    cs.CATALOG = (20_000, 2_000, 200)
+    cs.PATCH = (256, ("G", "R", "I", "Z"))
 
 
 _load = conf.load_config
@@ -233,4 +243,9 @@ if __name__ == "__main__":
         shrink()
         stub()
         sys.exit(cs.dp_worker(sys.argv[2]))
+    if len(sys.argv) == 3 and sys.argv[1] == "--queue-worker":  # one run of phase 5k's job
+        torch.set_num_threads(2)
+        shrink()
+        stub()
+        sys.exit(cs.queue_worker(sys.argv[2]))
     sys.exit(main())
