@@ -270,6 +270,20 @@ failing loudly (any failure exits non-zero and prints no result line):
    contract (NCCL), bit-equal to one continuous run; the data stages on
    1M sources and a 1024² FITS patch, their planted answers recovered and
    every h5 stage refused without h5py, each timed;
+5l. tensor parallelism (``parallel/sharding.py``; :func:`tp_phase`): the
+   tensor-parallel forms of K2, kernel 4, K1 and kernel 8 (each split at
+   the all-reduce into the rank's half and a finish), bf16 and fp32,
+   against the unsharded plain block at mim_32's shapes and, masked, at
+   N = 68, seg_len = 17, both ranks' halves in one process, the partials
+   summed; then ``mim_32`` as shipped at full depth and width, the
+   predictor's ``z_struct_ft_512`` (bf16 ``ft``) and ``lp_1`` (fp32
+   ``lp``) and ``mim_tiny`` (fp32) at ``tensor_parallel = 2`` on two
+   ``--tp-worker`` processes (gloo on one card, NCCL across two) against
+   one process: gradients, losses and parameters within TOL_TP, the
+   replicated parameters bit-equal across the ranks after every step,
+   each rank's launches the predicted ones, the ranks' save restored by
+   one process bit-equal and each rank's restored step bit-equal; step
+   ms, collectives' ms and share, device ms and peak GB per rank;
 5b. the ``Attention`` module (``models/layers.Attention``, the only caller of
    kernels 12 and 13, as in JAX) at ViT-B width, B=64, in bf16 and at its
    default fp32: one forward and ``backward()`` through autograd with the
@@ -583,6 +597,40 @@ TOL_DP = {"mim_1": (4.5e-3, 1.2e-4, 7e-4), "z_struct_ft_512": (None, 2e-5, 1.3e-
           "jepa_struct": (None, 2.5e-5, 7.2e-4)}
 # the command that runs one rank of phase 5j (its spec file appended)
 DP_WORKER = [os.path.abspath(__file__), "--dp-worker"]
+
+# phase 5l, tensor parallelism. The four TP forms (K2, kernel 4, K1, kernel
+# 8 split at the all-reduce), bf16 and fp32, against the unsharded plain
+# block at TP_SHAPES (tag, B, N, D, heads, F, seg_len): mim_32's (8 local
+# heads of 64, F / 2 = 2 048) and, masked, the MAE encoder's at N = 68,
+# seg_len = 17; both ranks' halves in one process, the partials summed,
+# then finished (TOL_FWD, TOL_BWD; the comparisons' launches uncounted).
+# Then TP_RANKS processes at tensor_parallel = 2 (--tp-worker; gloo on one
+# card, NCCL across cards) take TP_LEGS (config, steps) as shipped: mim_32
+# at full depth and width (ViT-L, remat, RA/Dec, bf16, B = 32), the
+# predictor's bf16 ft and fp32 lp, and mim_tiny in fp32 (the fp32
+# backward forms), against one process from the same weights, batches
+# and draws.
+TP_SHAPES = (("mim_32", 32, 66, 1024, 16, 4096, 0), ("mae", 32, 68, 768, 12, 3072, 17))
+TP_RANKS = 2
+TP_LEGS = (("mim_32", 3), ("z_struct_ft_512", 3), ("lp_1", 3), ("mim_tiny", 3))
+# two ranks against one process: the same arithmetic but for where the
+# proj and fc2 products' fp32 sums split (each rank sums its half of K, the
+# all-reduce adds the halves) and the local GEMMs' plans, so the runs part
+# by rounding flips, which Adam turns into steps that differ by up to lr
+# where a gradient is near 0. Bars (step 1's gradients ||a - b|| / ||b||
+# per leaf, the losses |a - b| / |b|, the parameters after the steps max
+# |a - b| but for the key biases (parallel/smoke.param_gaps), those to
+# twice the summed lr), about twice the gaps measured on the H100
+# (PERF.md §2). Measured (NVIDIA H100 80GB HBM3, 700.00 W): mim_32
+# gradients 2.774e-2 at the RA/Dec Siren's first kernel (it sums the batch
+# in bf16), 3 steps' losses 2.755e-4, parameters 5.578e-4; ft 4.048e-3 /
+# 2.312e-5 / 1.072e-4; lp_1 (fp32) 3.282e-6 / 0 / 2.105e-6; mim_tiny
+# (fp32) 3.397e-7 / 0 / 6.147e-6. A gap measured 0 gets two fp32 ulps,
+# 2.5e-7, as §2 of PERF.md does.
+TOL_TP = {"mim_32": (5.5e-2, 5.5e-4, 1.1e-3), "z_struct_ft_512": (8e-3, 4.6e-5, 2.2e-4),
+          "lp_1": (6.6e-6, 2.5e-7, 4.2e-6), "mim_tiny": (7e-7, 2.5e-7, 1.23e-5)}
+# the command that runs one rank of phase 5l (its spec file appended)
+TP_WORKER = [os.path.abspath(__file__), "--tp-worker"]
 
 # the retrieval path: a FITS survey of FITS_TILES tiles of FITS_SIZE^2 pixels
 # per band, searched at FITS_OVERLAP for N_GROUPS target groups; kernel 11 at
@@ -1739,27 +1787,32 @@ def kernel_counters():
     count packed-segment launches, those that also count fp32 ones)."""
     from sky_embeddings_tpu_torch.ops.kernels.attention import fused_attention, fused_attention_bwd
     from sky_embeddings_tpu_torch.ops.kernels.attn_block import (
-        attn_block_bwd, attn_block_bwd_stash, attn_block_fwd_stash, fused_attn_block)
+        attn_block_bwd, attn_block_bwd_stash, attn_block_fwd_stash, attn_block_tp_bwd,
+        attn_block_tp_fwd, fused_attn_block)
     from sky_embeddings_tpu_torch.ops.kernels.mlp_block import (
         fused_mlp_block, mlp_block_bwd, mlp_block_bwd_stash, mlp_block_bwd_stream,
-        mlp_block_fwd_stash)
+        mlp_block_fwd_stash, mlp_block_tp_bwd, mlp_block_tp_fwd)
     from sky_embeddings_tpu_torch.ops.kernels.simscore import (
         weighted_bank_scores, weighted_bank_scores_multi)
 
+    tp = (attn_block_tp_fwd, attn_block_tp_bwd, mlp_block_tp_fwd, mlp_block_tp_bwd)
     counters = (fused_attn_block, fused_mlp_block, weighted_bank_scores,
                 weighted_bank_scores_multi, attn_block_fwd_stash, attn_block_bwd_stash,
                 mlp_block_bwd, attn_block_bwd, mlp_block_fwd_stash, mlp_block_bwd_stash,
-                mlp_block_bwd_stream, fused_attention, fused_attention_bwd)
-    seg_counters = (fused_attn_block, attn_block_fwd_stash, attn_block_bwd)
+                mlp_block_bwd_stream, fused_attention, fused_attention_bwd, *tp)
+    seg_counters = (fused_attn_block, attn_block_fwd_stash, attn_block_bwd, attn_block_tp_fwd,
+                    attn_block_tp_bwd)
     f32_counters = (fused_attn_block, fused_mlp_block, attn_block_fwd_stash, attn_block_bwd_stash,
                     mlp_block_bwd, attn_block_bwd, mlp_block_fwd_stash, mlp_block_bwd_stash,
-                    mlp_block_bwd_stream)
-    return counters, seg_counters, f32_counters
+                    mlp_block_bwd_stream, *tp)
+    return counters, seg_counters, f32_counters, tp
 
 
 def counter_fns():
-    """``(zero_counters, launch_counts)`` over :func:`kernel_counters`."""
-    counters, seg_counters, f32_counters = kernel_counters()
+    """``(zero_counters, launch_counts)`` over :func:`kernel_counters`; the
+    tensor-parallel forms' finishes (their second C entry, after the
+    all-reduce) as ``<form>_finish``."""
+    counters, seg_counters, f32_counters, finish_counters = kernel_counters()
 
     def zero_counters():
         for fn in counters:
@@ -1768,11 +1821,14 @@ def counter_fns():
             fn.seg_launches = 0
         for fn in f32_counters:
             fn.f32_launches = 0
+        for fn in finish_counters:
+            fn.finish_launches = 0
 
     def launch_counts():
         return {**{f.__name__: f.launches for f in counters},
                 **{f.__name__ + "_seg": f.seg_launches for f in seg_counters},
-                **{f.__name__ + "_f32": f.f32_launches for f in f32_counters}}
+                **{f.__name__ + "_f32": f.f32_launches for f in f32_counters},
+                **{f.__name__ + "_finish": f.finish_launches for f in finish_counters}}
 
     return zero_counters, launch_counts
 
@@ -2183,6 +2239,458 @@ def dp_phase(dev, zero_counters, launch_counts):
     finally:
         shutil.rmtree(work, ignore_errors=True)
     return out
+
+def _tp_data(cfg_name, n_batches, seed):
+    """Phase 5l's global batches of a config as shipped: cutouts, RA/Dec and
+    (a predictor config) zspec labels, batch i from seed + i, made alike in
+    every process."""
+    import numpy as np
+
+    from sky_embeddings_tpu_torch.configuration import load_config
+    from sky_embeddings_tpu_torch.data.synthetic import make_structured_cutouts
+
+    cfg = load_config(cfg_name, os.path.join(ROOT, "configs"))
+    mae = cfg.pretrained_mae_name()
+    arch = load_config(mae, os.path.join(ROOT, "configs")) if mae else cfg
+    geom = dict(channels=arch.architecture.int("num_channels"),
+                img_size=cfg.architecture.int("img_size"))
+    out = []
+    for i in range(n_batches):
+        d = make_structured_cutouts(cfg.training.int("batch_size"), seed=seed + i, **geom)
+        b = {"cutouts": d["cutouts"], "ra_dec": np.stack([d["ra"], d["dec"]], 1)}
+        if mae:
+            b["labels"] = d["zspec"][:, None]
+        out.append(b)
+    return out
+
+
+def _tp_trainer(cfg_name, dev, tp):
+    """Phase 5l's trainer of a config as shipped (its dtype) at
+    ``tensor_parallel = tp``, seed 0; a predictor config fresh."""
+    from sky_embeddings_tpu_torch.configuration import apply_overrides, load_config
+    from sky_embeddings_tpu_torch.train.predictor import PredictorTrainer
+    from sky_embeddings_tpu_torch.train.pretrain import MIMPretrainer
+
+    cfg_dir = os.path.join(ROOT, "configs")
+    cfg = apply_overrides(load_config(cfg_name, cfg_dir), [f"TRAINING.tensor_parallel={tp}"],
+                          cfg_name)
+    if cfg.pretrained_mae_name():
+        return PredictorTrainer(cfg, load_config(cfg.pretrained_mae_name(), cfg_dir), seed=0,
+                                device=dev)
+    return MIMPretrainer(cfg, seed=0, device=dev)
+
+
+def _tp_steps(tr, batches, zero_counters, launch_counts):
+    """Phase 5l's steps of a trainer: counters zeroed just before and read
+    just after; wall ms a step; step 1's gradients; under tensor
+    parallelism the collectives' seconds a step (the model group's
+    all-reduces timed on the host) and a digest of the replicated
+    parameters after every step."""
+    import hashlib
+
+    import torch
+
+    from sky_embeddings_tpu_torch.parallel.sharding import shard_of
+
+    mesh = getattr(tr, "mesh", None)
+    coll = [0.0]
+    if mesh is not None:
+        reduce = mesh.all_reduce_model
+
+        def timed_reduce(t):
+            t0 = time.perf_counter()
+            reduce(t)
+            coll[0] += time.perf_counter() - t0
+            return t
+
+        mesh.all_reduce_model = timed_reduce
+    zero_counters()
+    torch.cuda.synchronize()
+    losses, walls, colls, digests, grads1 = [], [], [], [], None
+    for i, b in enumerate(batches):
+        c0, t0 = coll[0], time.perf_counter()
+        losses.append(_loss_of(tr.train_batch(b)))
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        colls.append((coll[0] - c0) * 1e3)
+        if i == 0:
+            grads1 = {n: p.grad.detach().clone() for n, p in tr.model.named_parameters()
+                      if p.grad is not None}
+        h = hashlib.sha256()
+        for n, v in tr.model.state_dict().items():
+            if shard_of(n) is None:
+                h.update(v.detach().cpu().contiguous().view(torch.uint8).numpy().tobytes())
+        digests.append(h.hexdigest())
+    if mesh is not None:
+        mesh.all_reduce_model = reduce
+    return {"losses": losses, "wall_ms_per_step": walls, "collective_ms_per_step": colls,
+            "replicated_digests": digests, "launches": launch_counts()}, grads1
+
+
+def _tp_device_ms(fn) -> dict:
+    """Device ms of one call of ``fn`` by torch.profiler: every device
+    event's, and the kernels' alone (gloo's staging copies of the
+    all-reduced tensors through the host excluded)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    total = kernels = 0.0
+    for e in prof.key_averages():
+        if not str(getattr(e, "device_type", "")).endswith("CUDA") or getattr(
+                e, "is_user_annotation", False):
+            continue
+        t = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+        total += t
+        if not e.key.startswith(("Memcpy", "Memset")):
+            kernels += t
+    if not total:
+        return {"all": "not measured", "kernels": "not measured"}
+    return {"all": total / 1e3, "kernels": kernels / 1e3}
+
+
+def tp_worker(spec_path: str) -> int:
+    """One rank of phase 5l (started by :func:`tp_phase` with its ``SKY_*``
+    variables): each leg of TP_LEGS at tensor_parallel = TP_RANKS on the
+    global batches (:func:`_tp_steps`), step 1's gradients and the final
+    parameters gathered on rank 0, peak memory; for mim_32 also a save,
+    the next step uninterrupted and from a restore, and the device ms of a
+    step. Writes its results as JSON, and rank 0 its tensors, under the
+    spec's directory."""
+    with open(spec_path) as f:
+        spec = json.load(f)
+    sys.path.insert(0, ROOT)
+    import torch
+
+    from sky_embeddings_tpu_torch.parallel import distributed
+    from sky_embeddings_tpu_torch.parallel.sharding import gather_to_main
+
+    check(distributed.initialize_from_env(backend=spec["backend"], device=spec["device"]),
+          "the SKY_* contract starts the process group")
+    rank = distributed.process_index()
+    dev = distributed.rank_device(spec["device"])
+    print(f"tp rank {rank}: {torch.distributed.get_backend()} on {dev}", flush=True)
+    zero_counters, launch_counts = counter_fns()
+    res, tensors = {"rank": rank, "legs": {}}, {}
+    for cfg_name, steps in spec["legs"]:
+        tr = _tp_trainer(cfg_name, dev, TP_RANKS)
+        check(tr.mesh.shape == (1, TP_RANKS) and tr.mesh.model_index == rank
+              and tr.forward is tr.model, f"{cfg_name}: a (1, {TP_RANKS}) mesh, no DDP")
+        glob = _tp_data(cfg_name, steps + 1, spec["seed"])
+        torch.cuda.reset_peak_memory_stats(dev)
+        leg, grads1 = _tp_steps(tr, glob[:steps], zero_counters, launch_counts)
+        leg["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+        grads1 = gather_to_main(grads1, tr.mesh)
+        params = gather_to_main(tr.model.state_dict(), tr.mesh)
+        if rank == 0:
+            tensors[cfg_name] = {"grads1": grads1, "params": params}
+        if cfg_name == spec["legs"][0][0]:
+            path = os.path.join(spec["out"], "tp.ckpt.pt")
+            tr.save(path)  # every rank: the shards gathered, rank 0 writes whole arrays
+            torch.distributed.barrier()
+            nxt = glob[steps]
+            leg["next_loss"] = _loss_of(tr.train_batch(nxt))
+            uninterrupted = {k: v.clone() for k, v in tr.model.state_dict().items()}
+            fresh = _tp_trainer(cfg_name, dev, TP_RANKS)
+            check(fresh.restore(path) and fresh.cur_iter == steps, "the ranks restore the file")
+            restored = []
+            leg["device_ms_per_step"] = _tp_device_ms(lambda: restored.append(
+                _loss_of(fresh.train_batch(nxt))))  # the restored step, profiled
+            leg["restored_bit_equal"] = restored == [leg["next_loss"]] and all(
+                torch.equal(v, uninterrupted[k]) for k, v in fresh.model.state_dict().items())
+            del fresh, uninterrupted
+        res["legs"][cfg_name] = leg
+        del tr
+        torch.cuda.empty_cache()
+    with open(os.path.join(spec["out"], f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    if rank == 0:
+        torch.save(tensors, os.path.join(spec["out"], "rank0.pt"))
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def _tp_timers(name, x, scale, bias, g, w, s0, errs, B, N, D, Hl, Fl, hd, seg):
+    """:func:`tp_kernels`'s timers of one form: ``(key, operations, bytes,
+    kernel call, plain call, (max-rel, max-abs))`` for its forward and its
+    backward, one rank's work on its shard ``s0`` (its half and its
+    finish): its products and core, and what it must move."""
+    from sky_embeddings_tpu_torch.ops.kernels import attn_block as ab
+    from sky_embeddings_tpu_torch.ops.kernels import mlp_block as mb
+
+    fwd_err, bwd_err, worst = errs
+    M, Dl = B * N, Hl * hd
+    core = B * Hl * N * N * hd
+    if name == "attn_block_tp":
+        f_ops = 8 * M * D * Dl + 4 * core
+        # the qkv recompute, dctx, dy, dWqkv, dWproj: kernel 4's 22 M D^2 at Dl
+        b_ops = 22 * M * D * Dl + 10 * core
+        w_bytes = 4 * D * Dl * 2
+        half = lambda: ab.attn_block_tp_fwd(x, scale, bias, *s0, Hl, seg)  # noqa: E731
+        half_b = lambda: ab.attn_block_tp_bwd(x, scale, bias, *s0, g, Hl, seg)  # noqa: E731
+        finish, finish_b = ab.attn_block_tp_finish, ab.attn_block_tp_bwd_finish
+        plain_h = lambda: ab.attn_block_tp_fwd_plain(x, scale, bias, *s0, Hl, seg)  # noqa: E731
+        plain_hb = lambda: ab.attn_block_tp_bwd_plain(x, scale, bias, *s0, g, Hl, seg)  # noqa: E731
+    else:
+        f_ops, b_ops = 4 * M * D * Fl, 10 * M * D * Fl
+        w_bytes = 2 * D * Fl * 2
+        half = lambda: mb.mlp_block_tp_fwd(x, scale, bias, *s0)  # noqa: E731
+        half_b = lambda: mb.mlp_block_tp_bwd(x, scale, bias, *s0, g)  # noqa: E731
+        finish, finish_b = mb.mlp_block_tp_finish, mb.mlp_block_tp_bwd_finish
+        plain_h = lambda: mb.mlp_block_tp_fwd_plain(x, scale, bias, *s0)  # noqa: E731
+        plain_hb = lambda: mb.mlp_block_tp_bwd_plain(x, scale, bias, *s0, g)  # noqa: E731
+    # forward: x read, the weights read, the fp32 partial written and read,
+    # out written; backward: x and g read, the weights read, their gradients
+    # and dy written, dy read, dx written
+    f_bytes = 2 * M * D * 2 + w_bytes + 2 * M * D * 4
+    b_bytes = 3 * M * D * 2 + 2 * w_bytes + 2 * M * D * 4
+    return ((name + "_fwd", f_ops, f_bytes, lambda: finish(x, half(), w[3]),
+             lambda: mb.tp_finish_plain(x, plain_h(), w[3]), (fwd_err[0], fwd_err[1])),
+            (name + "_bwd", b_ops, b_bytes, lambda: finish_b(x, scale, bias, g, half_b()[0]),
+             lambda: mb.tp_bwd_finish_plain(x, scale, bias, g, plain_hb()[0]),
+             (worst, max(a for _, a in bwd_err.values()))))
+
+
+def tp_kernels(dev, timings, cuda_ms, rel_err, bound_ms):
+    """Phase 5l's kernel checks: at each TP_SHAPES shape, in bf16 and fp32,
+    both ranks' halves of each TP form on their shards, the partials summed
+    (the all-reduce's sum) and finished, against the plain whole block
+    (TOL_FWD, TOL_BWD per output). Returns the max-rel per form and case
+    and a function that times, at mim_32's bf16 shape, each form on one
+    rank's shard (its half and its finish) beside its plain version, with
+    the bound of one rank's products and core and the bytes it must move,
+    into ``timings``: :func:`tp_phase` calls it once its ranks are done."""
+    import torch
+
+    from sky_embeddings_tpu_torch.ops.kernels import attn_block as ab
+    from sky_embeddings_tpu_torch.ops.kernels import mlp_block as mb
+    from sky_embeddings_tpu_torch.parallel.sharding import TPShard, gather_tensor, shard_tensor
+
+    gen = torch.Generator(device=dev).manual_seed(24)
+    heads_rule = (TPShard(1, True), TPShard(0, True), TPShard(0))
+    cols_rule = (TPShard(1), TPShard(0), TPShard(0))
+    gaps, timers = {}, []
+    for tag, B, N, D, H, F, seg in TP_SHAPES:
+        Dl, Hl, Fl, hd, M = D // TP_RANKS, H // TP_RANKS, F // TP_RANKS, D // H, B * N
+        for dt in (torch.bfloat16, torch.float32):
+            def rnd(*shape, scale=1.0, cast=False):
+                t = torch.randn(*shape, generator=gen, device=dev) * scale
+                return t.to(dt) if cast else t
+            x = rnd(B, N, D, scale=0.5, cast=True)
+            scale, bias = 1 + rnd(D, scale=0.1), rnd(D, scale=0.1)
+            g = rnd(B, N, D, scale=0.1, cast=True)
+            attn = (rnd(D, 3 * D, scale=D ** -0.5, cast=True), rnd(3 * D, scale=0.01),
+                    rnd(D, D, scale=D ** -0.5, cast=True), rnd(D, scale=0.01))
+            mlp = (rnd(D, F, scale=D ** -0.5, cast=True), rnd(F, scale=0.01),
+                   rnd(F, D, scale=F ** -0.5, cast=True), rnd(D, scale=0.01))
+            forms = (("attn_block_tp", attn, heads_rule, ab.attn_block_plain, ab.attn_block_bwd_plain,
+                      lambda w: ab.attn_block_tp_fwd(x, scale, bias, *w, Hl, seg),
+                      lambda o, p_, b_: ab.attn_block_tp_finish(o, p_, b_),
+                      lambda w: ab.attn_block_tp_bwd(x, scale, bias, *w, g, Hl, seg),
+                      ab.attn_block_tp_bwd_finish, (H, seg)),
+                     ("mlp_block_tp", mlp, cols_rule, mb.mlp_block_plain, mb.mlp_block_bwd_plain,
+                      lambda w: mb.mlp_block_tp_fwd(x, scale, bias, *w),
+                      lambda o, p_, b_: mb.mlp_block_tp_finish(o, p_, b_),
+                      lambda w: mb.mlp_block_tp_bwd(x, scale, bias, *w, g),
+                      mb.mlp_block_tp_bwd_finish, ()))
+            for name, w, rule, plain_fwd, plain_bwd, half, finish, half_bwd, finish_bwd, extra in forms:
+                if name == "mlp_block_tp" and seg:
+                    continue  # the MLP is per token: no mask
+                shards = [[shard_tensor(t, r_, k, TP_RANKS) for t, r_ in zip(w[:3], rule)]
+                          for k in range(TP_RANKS)]
+                out = finish(x, sum(half(s_) for s_ in shards), w[3])
+                want = plain_fwd(x, scale, bias, *w, *extra)
+                halves = [half_bwd(s_) for s_ in shards]
+                grads = finish_bwd(x, scale, bias, g, sum(h_[0] for h_ in halves))
+                dw = [gather_tensor([h_[i] for h_ in halves], r_) for i, r_ in zip((1, 2, 3), rule)]
+                got_g = (*grads[:3], *dw, grads[3])
+                want_g = plain_bwd(x, scale, bias, *w[:3], g, *extra) if name == "attn_block_tp" \
+                    else plain_bwd(x, scale, bias, *w[:3], g)
+                torch.cuda.synchronize()
+                fwd_err = rel_err(out, want)
+                bwd_err = {i: rel_err(a, b_) for i, (a, b_) in enumerate(zip(got_g, want_g))}
+                worst = max(r_ for r_, _ in bwd_err.values())
+                finite = bool(torch.isfinite(out.float()).all()) and all(
+                    bool(torch.isfinite(a.float()).all()) for a in got_g)
+                dname = "bf16" if dt == torch.bfloat16 else "fp32"
+                print(f"tp parity {name} {tag} {dname} (B={B}, N={N}, D={D}, {Hl} local heads of "
+                      f"{hd}, F/tp={Fl}, seg_len={seg}): forward max-rel {fwd_err[0]:.3e} (bar "
+                      f"{TOL_FWD}), backward max-rel per output "
+                      + ", ".join(f"{r_:.2e}" for r_, _ in bwd_err.values())
+                      + f" (bar {TOL_BWD}), finite {finite}", flush=True)
+                check(finite and fwd_err[0] <= TOL_FWD and worst <= TOL_BWD,
+                      f"{name} {tag} {dname}: the TP form against the unsharded plain block")
+                gaps[f"{name}_{tag}_{dname}"] = {"fwd": fwd_err[0], "bwd": worst}
+                if tag != "mim_32" or dt != torch.bfloat16:
+                    continue
+                timers.extend(_tp_timers(name, x, scale, bias, g, w, shards[0],
+                                         (fwd_err, bwd_err, worst), B, N, D, Hl, Fl, hd, seg))
+            torch.cuda.empty_cache()
+
+    def time_forms():
+        """The timings, run once the card is otherwise idle."""
+        for key, ops, nbytes, kern_fn, plain_fn, (rel, abs_err) in timers:
+            b_ms, b_by = bound_ms(ops, nbytes, PEAK_BF16)
+            timings[(key, "mim_32")] = {
+                "max_rel_err": rel, "max_abs_err": abs_err, "ms": cuda_ms(kern_fn, 20),
+                "plain_ms": cuda_ms(plain_fn, 5), "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": None}
+        timers.clear()
+
+    return gaps, time_forms
+
+
+def tp_phase(dev, zero_counters, launch_counts, timings, cuda_ms, rel_err, bound_ms, smi):
+    """Phase 5l, tensor parallelism (``parallel/sharding.py``).
+
+    :func:`tp_kernels`; then each TP_LEGS config as shipped in one process
+    (tensor_parallel = 1), counters zeroed just before its steps and read
+    just after; then TP_RANKS processes (:func:`tp_worker`, gloo on one
+    card, NCCL where the host has TP_RANKS cards) take the same legs at
+    tensor_parallel = TP_RANKS from the same seed, batches and draws.
+    Held: step 1's gradients, the losses and the parameters against one
+    process within TOL_TP; the replicated parameters' digests equal across
+    the ranks after every step; each rank's launches exact: every TP
+    form's (and its finish's) the predicted count, a launch a block where
+    one process launches its whole forward (K2 or kernel 2, K1 or kernel
+    6) and its backward (kernel 4 or 3, 8 or 7), every other kernel's 0;
+    the ranks' mim_32 save restored by one process bit-equal to the
+    gathered parameters, and each rank's restored step bit-equal to its
+    uninterrupted one."""
+    import torch
+
+    from sky_embeddings_tpu_torch.parallel.smoke import param_gaps
+
+    check(not torch.distributed.is_initialized(), "no process group before phase 5l")
+    out = {"legs": {}}
+    work = tempfile.mkdtemp(prefix="chip_smoke_tp_")
+    n_dev = torch.cuda.device_count()
+    backend = "nccl" if n_dev >= TP_RANKS else "gloo"
+    spec = {"backend": backend, "device": DEVICE, "seed": 24, "out": work,
+            "legs": [list(leg) for leg in TP_LEGS]}
+    spec_path = os.path.join(work, "spec.json")
+    with open(spec_path, "w") as f:
+        json.dump(spec, f)
+    # the ranks start first and run while this process checks the kernels
+    # and takes the one-process references (their walls are gloo's: the
+    # card is mostly idle under them)
+    t0 = time.perf_counter()
+    env_base = dict(os.environ, SKY_DISTRIBUTED="1",
+                    SKY_COORDINATOR_ADDRESS=f"127.0.0.1:{free_port()}",
+                    SKY_NUM_PROCESSES=str(TP_RANKS))
+    procs = [subprocess.Popen([sys.executable, *TP_WORKER, spec_path],
+                              env=dict(env_base, SKY_PROCESS_ID=str(r)), stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for r in range(TP_RANKS)]
+    try:
+        out["kernels"], time_forms = tp_kernels(dev, timings, cuda_ms, rel_err, bound_ms)
+        ones = {}
+        for cfg_name, steps in TP_LEGS:
+            tr = _tp_trainer(cfg_name, dev, 1)
+            glob = _tp_data(cfg_name, steps, 24)
+            leg, grads1 = _tp_steps(tr, glob, zero_counters, launch_counts)
+            leg["state"] = {k: v.detach().clone() for k, v in tr.model.state_dict().items()}
+            leg["grads1"], leg["lr_sum"] = grads1, 2 * _lr_sum(tr, steps)
+            ones[cfg_name] = leg
+            del tr
+            torch.cuda.empty_cache()
+        logs = [p_.communicate(timeout=600)[0] for p_ in procs]
+        out["seconds_ranks"] = time.perf_counter() - t0
+        time_forms()
+        for r, (p_, log) in enumerate(zip(procs, logs)):
+            print(f"tp rank {r} exit {p_.returncode}; its output's end:\n{log[-1500:]}", flush=True)
+            check(p_.returncode == 0, f"tp rank {r} ran to its end")
+        ranks = []
+        for r in range(TP_RANKS):
+            with open(os.path.join(work, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        t_ = torch.load(os.path.join(work, "rank0.pt"), weights_only=False)
+        label = ("gloo on one card: every all-reduce staged through the host, so these walls "
+                 "time gloo, not tensor parallelism; NCCL across cards not measured"
+                 if backend == "gloo" else f"NCCL across {TP_RANKS} cards")
+        for cfg_name, steps in TP_LEGS:
+            one = ones[cfg_name]
+            legs = [r["legs"][cfg_name] for r in ranks]
+            gaps1 = {n: float((t_[cfg_name]["grads1"][n].to(dev).float() - g_.float()).norm()
+                              / (g_.float().norm() + 1e-30)) for n, g_ in one["grads1"].items()}
+            worst = max(gaps1, key=gaps1.get)
+            loss_gap = max(abs(a - b) / abs(b) for a, b in zip(legs[0]["losses"], one["losses"]))
+            rest, keys = param_gaps({k: v.to(dev) for k, v in t_[cfg_name]["params"].items()},
+                                    one["state"])
+            # the prediction: each of one process's block launches becomes the
+            # TP form's; nothing else launches
+            o_l = one["launches"]
+            f32 = "_f32"
+            want_tp = {
+                "attn_block_tp_fwd": o_l["fused_attn_block"] + o_l["attn_block_fwd_stash"],
+                "attn_block_tp_bwd": o_l["attn_block_bwd"] + o_l["attn_block_bwd_stash"],
+                "mlp_block_tp_fwd": o_l["fused_mlp_block"] + o_l["mlp_block_fwd_stash"],
+                "mlp_block_tp_bwd": o_l["mlp_block_bwd"] + o_l["mlp_block_bwd_stash"]}
+            dtype_f32 = o_l["fused_attn_block" + f32] + o_l["attn_block_fwd_stash" + f32] > 0
+            want = {k: 0 for k in legs[0]["launches"]}
+            for k, n_ in want_tp.items():
+                want[k] = want[k + "_finish"] = n_
+                want[k + "_f32"] = n_ if dtype_f32 else 0
+            for r, leg in enumerate(legs):
+                check(leg["losses"] == legs[0]["losses"], f"{cfg_name}: the ranks' losses equal")
+                check(leg["replicated_digests"] == legs[0]["replicated_digests"],
+                      f"{cfg_name}: the replicated parameters bit-equal across the ranks after "
+                      "every step")
+                check(leg["launches"] == want,
+                      f"{cfg_name}: rank {r} launches {leg['launches']} == predicted {want}")
+            tol_g, tol_l, tol_p = TOL_TP[cfg_name]
+            rec = {"grad_gap": gaps1[worst], "grad_gap_leaf": worst, "loss_gap": loss_gap,
+                   "param_gap": rest, "key_bias_gap": keys, "lr_sum": one["lr_sum"],
+                   "one_process_losses": one["losses"], "launches_per_rank": legs[0]["launches"],
+                   "one_process_launches": o_l,
+                   "wall_ms_per_step": [leg["wall_ms_per_step"] for leg in legs],
+                   "one_process_wall_ms_per_step": one["wall_ms_per_step"],
+                   "collective_ms_per_step": [leg["collective_ms_per_step"] for leg in legs],
+                   "peak_gb_per_rank": [leg["peak_gb"] for leg in legs], "backend": backend}
+            share = [sum(c) / sum(w) for c, w in zip(rec["collective_ms_per_step"],
+                                                      rec["wall_ms_per_step"])]
+            rec["collective_share"] = share
+            if "restored_bit_equal" in legs[0]:
+                rec["restored_bit_equal"] = [leg["restored_bit_equal"] for leg in legs]
+                rec["device_ms_per_step"] = [leg["device_ms_per_step"] for leg in legs]
+            out["legs"][cfg_name] = rec
+            print(f"tp {TP_RANKS} ranks ({cfg_name} as shipped, {steps} steps, {backend}): step 1's "
+                  f"gradients {gaps1[worst]:.3e} at {worst} (bar {tol_g}), losses {loss_gap:.3e} "
+                  f"(bar {tol_l}), parameters {rest:.3e} (bar {tol_p}), key biases {keys:.3e} (bar "
+                  f"{one['lr_sum']:.3e}); launches per rank "
+                  f"{ {k: v for k, v in legs[0]['launches'].items() if v} }; step ms per rank "
+                  f"{rec['wall_ms_per_step']} (one process {one['wall_ms_per_step']}); collectives "
+                  f"ms {rec['collective_ms_per_step']}, share {[round(x, 4) for x in share]}; "
+                  f"device ms {rec.get('device_ms_per_step')}; peak GB per rank "
+                  f"{rec['peak_gb_per_rank']}; {label}; {smi}", flush=True)
+            for bar, got in ((tol_g, gaps1[worst]), (tol_l, loss_gap), (tol_p, rest)):
+                check(bar is None or got <= bar, f"{cfg_name}: {TP_RANKS} ranks against one process")
+            check(keys <= one["lr_sum"], f"{cfg_name}: key biases within twice the summed lr")
+        first = TP_LEGS[0][0]
+        check(all(out["legs"][first]["restored_bit_equal"]),
+              "each rank's restored step bit-equal to its uninterrupted one")
+        back = _tp_trainer(first, dev, 1)
+        check(back.restore(os.path.join(work, "tp.ckpt.pt")) and back.cur_iter == TP_LEGS[0][1],
+              "one process restores the ranks' file")
+        same = all(torch.equal(v.cpu(), t_[first]["params"][k]) for k, v in
+                   back.model.state_dict().items())
+        out["one_process_restore_bit_equal"] = same
+        print(f"tp: the ranks' {first} save restored by one process bit-equal {same}", flush=True)
+        check(same, "the TP save restores into one process bit-equal")
+        del back
+        out["launches"] = {f"rank{r['rank']}_{c}": leg["launches"] for r in ranks
+                           for c, leg in r["legs"].items()}
+        out["backend"], out["label"] = backend, label
+    finally:
+        for p_ in procs:  # a failed check leaves no rank behind
+            if p_.poll() is None:
+                p_.kill()
+                p_.wait()
+        shutil.rmtree(work, ignore_errors=True)
+    return out
+
 
 def _queue_trainer(dev):
     """Phase 5k's trainer: FIG[0] as shipped (bf16), seed 0."""
@@ -3897,7 +4405,7 @@ def main() -> int:
 
     # K2, kernel 2 and kernel 4 also count their launches with packed
     # segments; every block kernel its launches in fp32
-    counters, seg_counters, f32_counters = kernel_counters()
+    counters = kernel_counters()[0]
     training_kernels = [f.__name__ for f in counters[4:]] + ["fused_attn_block_seg"]
     zero_counters, launch_counts = counter_fns()
 
@@ -4643,6 +5151,10 @@ def main() -> int:
     # ---- 5k. the figures, the per-GPU launcher, the data stages ----------------
     figures = figures_phase(dev, zero_counters, launch_counts, smi)
     mark("figures_launcher_data")
+    # ---- 5l. tensor parallelism ---------------------------------------------------
+    tensor_parallel = tp_phase(dev, zero_counters, launch_counts, timings, cuda_ms, rel_err,
+                               bound_ms, smi)
+    mark("tensor_parallel")
     shapes = {c: tuple(r[k] for k in ("layers", "embed_dim", "batch", "channels", "remat", "ra_dec"))
               for c, r in paths.items()}
     check(shapes == {CONFIG: (12, 768, 64, 5, False, False), LARGE[0]: (24, 768, 64, 5, False, False),
@@ -4795,12 +5307,25 @@ def main() -> int:
                                          "mae"),
         "attn_block_bwd_seg_f32": ("cuda", src + "csrc/attn_block_bwd.cu",
                                    jsrc + "attn_block.py:1052", "attn_block_bwd_seg", "mae"),
+        # the tensor-parallel forms of K2, kernel 4, K1 and kernel 8 (bf16 and
+        # fp32, masked too), timed at mim_32's shapes on one rank's shard;
+        # their launches are phase 5l's ranks'
+        "attn_block_tp_fwd": ("cuda", src + "csrc/attn_block_tp.cu", jsrc + "attn_block.py:899",
+                              "attn_block_tp_fwd", "mim_32"),
+        "attn_block_tp_bwd": ("cuda", src + "csrc/attn_block_tp.cu", jsrc + "attn_block.py:1052",
+                              "attn_block_tp_bwd", "mim_32"),
+        "mlp_block_tp_fwd": ("cuda", src + "csrc/mlp_block.cu", jsrc + "mlp_block.py:634",
+                             "mlp_block_tp_fwd", "mim_32"),
+        "mlp_block_tp_bwd": ("cuda", src + "csrc/mlp_block_bwd.cu", jsrc + "mlp_block.py:834",
+                             "mlp_block_tp_bwd", "mim_32"),
     }
     block_f32 = {n for n in meta if n.endswith("_f32") and not n.startswith("attention")}
     kernels = []
     for name, (route, source, replaces, counter, shape) in meta.items():
         t = timings[(name, shape)]
-        if name in block_f32:
+        if "_tp_" in name:
+            by_path = {f"tp_{c}": r[counter] for c, r in tensor_parallel["launches"].items()}
+        elif name in block_f32:
             by_path = {**{f"predictor_f32_{r}": v["launches"][counter]
                           for r, v in predictor_f32["routes"].items()},
                        **{f"predictor_f32_{r}_infer": v["infer"]["launches"][counter]
@@ -4862,6 +5387,7 @@ def main() -> int:
         "prefetch": prefetch,
         "data_parallel": data_parallel,
         "figures_launcher_data": figures,
+        "tensor_parallel": tensor_parallel,
         "checkpoints": checkpoints,
         "attention_module": attention_module,
         "retrieval_path": retrieval,
@@ -4883,4 +5409,6 @@ if __name__ == "__main__":
         sys.exit(dp_worker(sys.argv[2]))
     if len(sys.argv) == 3 and sys.argv[1] == "--queue-worker":
         sys.exit(queue_worker(sys.argv[2]))
+    if len(sys.argv) == 3 and sys.argv[1] == "--tp-worker":
+        sys.exit(tp_worker(sys.argv[2]))
     sys.exit(main())

@@ -23,6 +23,19 @@ ViT-H) always takes the MLP forward with the weight-streaming backward
 device: the reference path that a check on the card holds the kernel path
 against.
 
+Tensor parallelism (``[TRAINING] tensor_parallel > 1``;
+``parallel/sharding.shard_module``): each ``Block`` and ``MlpBlock`` holds
+the rank's shard of its qkv / proj / fc1 / fc2 parameters and the mesh
+(``tp``), and calls the kernels' tensor-parallel forms
+(``fused_attn_block_tp``: K2 and kernel 4; ``fused_mlp_block_tp``: K1 and
+kernel 8) through ``torch.autograd.Function``s that all-reduce the fp32
+partials over the model group themselves, in the forward and in the
+backward. Under tensor parallelism the blocks always take these recompute
+forms and the ``stash`` / ``stash_mlp`` flags are ignored, as JAX keeps no
+stash there (its Pallas kernels are off under tensor parallelism); remat
+replays the forward's all-reduces in the backward, in the same order on
+every rank.
+
 ``Encoder(remat=True)`` runs each block under
 ``torch.utils.checkpoint.checkpoint`` (JAX ``nn.remat(Block)``): the block's
 forward kernels run again in the backward, and both stashes are off, as JAX
@@ -59,8 +72,8 @@ from torch.utils.checkpoint import checkpoint
 import numpy as np
 
 from sky_embeddings_tpu_torch.ops.kernels.attention import attention_context
-from sky_embeddings_tpu_torch.ops.kernels.attn_block import fused_attn_block
-from sky_embeddings_tpu_torch.ops.kernels.mlp_block import fused_mlp_block
+from sky_embeddings_tpu_torch.ops.kernels.attn_block import fused_attn_block, fused_attn_block_tp
+from sky_embeddings_tpu_torch.ops.kernels.mlp_block import fused_mlp_block, fused_mlp_block_tp
 
 
 def xavier_uniform_(t: torch.Tensor, generator: torch.Generator) -> None:
@@ -251,6 +264,7 @@ class MlpBlock(nn.Module):
         self.fc1_bias = nn.Parameter(torch.zeros(hidden_dim))
         self.fc2_kernel = nn.Parameter(torch.empty(hidden_dim, dim))
         self.fc2_bias = nn.Parameter(torch.zeros(dim))
+        self.tp = None  # the mesh under tensor parallelism (parallel/sharding.shard_module)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         nn.init.ones_(self.norm_scale)
@@ -261,6 +275,12 @@ class MlpBlock(nn.Module):
         nn.init.zeros_(self.fc2_bias)
 
     def forward(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
+        if self.tp is not None:
+            return fused_mlp_block_tp(
+                x.to(self.dtype), self.norm_scale, self.norm_bias,
+                self.fc1_kernel.to(self.dtype), self.fc1_bias,
+                self.fc2_kernel.to(self.dtype), self.fc2_bias, self.tp.all_reduce_model,
+                plain=plain)
         return fused_mlp_block(
             x.to(self.dtype), self.norm_scale, self.norm_bias,
             self.fc1_kernel.to(self.dtype), self.fc1_bias,
@@ -282,8 +302,18 @@ class Block(nn.Module):
         self.norm1 = LayerNorm(dim)
         self.attn = AttnParams(dim)
         self.ffn = MlpBlock(dim, int(dim * mlp_ratio), dtype, stash=stash_mlp)
+        self.tp = None  # the mesh under tensor parallelism (parallel/sharding.shard_module)
 
     def forward(self, x: torch.Tensor, plain: bool = False, seg_len: int = 0) -> torch.Tensor:
+        if self.tp is not None:  # this rank's heads; the stash flags do not apply
+            x = fused_attn_block_tp(
+                x.to(self.dtype), self.norm1.scale, self.norm1.bias,
+                self.attn.qkv.kernel.to(self.dtype), self.attn.qkv.bias,
+                self.attn.proj.kernel.to(self.dtype), self.attn.proj.bias,
+                self.num_heads // self.tp.tp, self.tp.all_reduce_model, plain=plain,
+                seg_len=seg_len,
+            )
+            return self.ffn(x, plain)
         x = fused_attn_block(
             x.to(self.dtype), self.norm1.scale, self.norm1.bias,
             self.attn.qkv.kernel.to(self.dtype), self.attn.qkv.bias,

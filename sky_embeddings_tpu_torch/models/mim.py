@@ -316,10 +316,14 @@ def build_mim_model(
     device: str | torch.device = "cuda",
     generator: Optional[torch.Generator] = None,
     remat: bool = False,
+    mesh=None,
 ) -> SkyMIM:
     """Construct a :class:`SkyMIM` from an INI config (JAX ``build_mim_model``)
     with weights drawn from ``generator`` (seed 0 when None), on ``device``;
-    ``remat`` checkpoints each encoder block."""
+    ``remat`` checkpoints each encoder block. With a ``mesh`` of model axis
+    > 1 (``parallel/mesh``) the whole model is drawn as one process draws
+    it and then cut to this rank's shard (``parallel/sharding.shard_module``:
+    the encoder's and the MAE decoder's blocks by the same rules)."""
     dev = resolve_device(device)
     arch = config["ARCHITECTURE"]
     training = config["TRAINING"]
@@ -371,4 +375,8 @@ def build_mim_model(
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     model.reset_parameters(generator)
+    if mesh is not None and mesh.tp > 1:
+        from sky_embeddings_tpu_torch.parallel.sharding import shard_module
+
+        shard_module(model, mesh)
     return model.to(dev).eval()

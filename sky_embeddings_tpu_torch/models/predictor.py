@@ -244,12 +244,15 @@ def build_predictor_model(
     device: str | torch.device = "cuda",
     generator: Optional[torch.Generator] = None,
     remat: bool = False,
+    mesh=None,
 ) -> SkyViT:
     """Construct a :class:`SkyViT` from predictor + pretraining configs (JAX
     ``build_predictor_model``, reference ``vit.build_model``): the
     architecture comes from the pretraining config, head and pooling from
     the predictor config. Weights are drawn from ``generator`` (seed 0 when
-    None) on ``device``; ``device="meta"`` builds the shapes alone."""
+    None) on ``device``; ``device="meta"`` builds the shapes alone. With a
+    ``mesh`` of model axis > 1 the whole model is drawn, then cut to this
+    rank's shard (``parallel/sharding.shard_module``)."""
     dev = torch.device(device) if str(device) == "meta" else resolve_device(device)
     arch = mae_config["ARCHITECTURE"]
     p_arch = config["ARCHITECTURE"]
@@ -296,4 +299,8 @@ def build_predictor_model(
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     model.reset_parameters(generator)
+    if mesh is not None and mesh.tp > 1:
+        from sky_embeddings_tpu_torch.parallel.sharding import shard_module
+
+        shard_module(model, mesh)
     return model.to(dev).eval()

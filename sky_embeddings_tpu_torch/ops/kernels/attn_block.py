@@ -95,13 +95,16 @@ import torch
 from sky_embeddings_tpu_torch.ops.kernels import cuda_build
 from sky_embeddings_tpu_torch.ops.kernels.mlp_block import (
     ROWS_PER_PARTIAL,
+    _bwd_finish,
     _dot,
     _f32,
+    _finish,
     _split_ws,
-    _ln_backward,
     _ln_forward,
     _needs_grad,
     operand_dtype,
+    tp_bwd_finish_plain,
+    tp_finish_plain,
 )
 
 MAX_TOKENS = 256  # the TPU kernel's dispatch bound (layers.py:341)
@@ -121,9 +124,10 @@ def _seg_bias(N: int, seg_len: int, device) -> torch.Tensor | None:
 def _qkv_probs(x, scale, bias, wqkv, bqkv, num_heads: int, seg_len: int = 0):
     """The forward up to the softmax: qkv (B, N, 3D) rounded to wqkv's dtype
     and the fp32 probabilities (B, H, N, N), masked to packed segments of
-    ``seg_len`` tokens."""
-    B, N, D = x.shape
-    hd = D // num_heads
+    ``seg_len`` tokens. A tensor-parallel rank's ``wqkv`` (D, 3·Dl) gives its
+    heads' qkv (B, N, 3·Dl)."""
+    B, N, _ = x.shape
+    hd = wqkv.shape[1] // 3 // num_heads
     y = _ln_forward(x.float(), scale, bias)[0]
     qkv = (_dot(y.to(wqkv.dtype), wqkv) + bqkv).to(wqkv.dtype)
     q, k, _ = qkv.reshape(B, N, 3, num_heads, hd).unbind(2)
@@ -139,13 +143,20 @@ def attn_block_fwd_stash_plain(x, scale, bias, wqkv, bqkv, wproj, bproj, num_hea
     """Plain version of the stash forward: ``(out, qkv, probs)``, qkv
     (B, N, 3D) and probs (B, H, N, N) in x's dtype; ``out`` is the JAX
     oracle ``xla_attn_block(..., seg_len)``."""
-    B, N, D = x.shape
+    qkv, probs, ctx = _qkv_probs_ctx(x, scale, bias, wqkv, bqkv, num_heads, seg_len)
+    out = _dot(ctx.to(wproj.dtype), wproj) + bproj
+    return (x.float() + out).to(x.dtype), qkv.to(x.dtype), probs.to(x.dtype)
+
+
+def _qkv_probs_ctx(x, scale, bias, wqkv, bqkv, num_heads: int, seg_len: int = 0):
+    """:func:`_qkv_probs` with the probabilities rounded to wqkv's dtype and
+    the fp32 ctx (B, N, H·hd) of their product with v."""
+    B, N, _ = x.shape
     qkv, probs = _qkv_probs(x, scale, bias, wqkv, bqkv, num_heads, seg_len)
     probs = probs.to(wqkv.dtype)
-    v = qkv.reshape(B, N, 3, num_heads, D // num_heads)[:, :, 2]
+    v = qkv.reshape(B, N, 3, num_heads, -1)[:, :, 2]
     ctx = torch.einsum("bhnm,bmhd->bnhd", probs.float(), v.float())
-    out = _dot(ctx.reshape(B, N, D).to(wproj.dtype), wproj) + bproj
-    return (x.float() + out).to(x.dtype), qkv.to(x.dtype), probs.to(x.dtype)
+    return qkv, probs, ctx.reshape(B, N, -1)
 
 
 def attn_block_plain(x, scale, bias, wqkv, bqkv, wproj, bproj, num_heads: int,
@@ -180,24 +191,31 @@ def attn_bwd_core_plain(qkv, p_soft, p_c, dc, num_heads: int):
 def _attn_bwd_from(x, scale, bias, wqkv, wproj, qkv, p_soft, p_c, g, num_heads: int):
     """The attention-block backward from qkv (B, N, 3D) and the
     probabilities of :func:`attn_bwd_core_plain`; the rounding points of
-    ``_bwd_kernel`` / ``_bwd_stash_kernel``."""
+    ``_bwd_kernel`` / ``_bwd_stash_kernel``: :func:`_attn_bwd_local`, then
+    :func:`~sky_embeddings_tpu_torch.ops.kernels.mlp_block.tp_bwd_finish_plain`."""
+    dy, dwqkv, dbqkv, dwproj = _attn_bwd_local(x, scale, bias, wqkv, wproj, qkv, p_soft, p_c, g,
+                                                num_heads)
+    dx, dscale, dbias, dbproj = tp_bwd_finish_plain(x, scale, bias, g, dy)
+    return dx, dscale, dbias, dwqkv, dbqkv, dwproj, dbproj
+
+
+def _attn_bwd_local(x, scale, bias, wqkv, wproj, qkv, p_soft, p_c, g, num_heads: int):
+    """The backward up to the fp32 gradient ``dy`` (B·N, D) of the LN
+    output: ``(dy, dwqkv, dbqkv, dwproj)``. On a tensor-parallel rank's
+    shard (wqkv (D, 3·Dl), wproj (Dl, D), its heads' qkv) ``dy`` is the
+    rank's partial, which the ranks sum."""
     B, N, D = x.shape
     dt = wqkv.dtype
-    x2 = x.reshape(-1, D).float()
     g2 = g.reshape(-1, D).float()
-    y, xhat, rstd = _ln_forward(x2, scale, bias)
+    y = _ln_forward(x.reshape(-1, D).float(), scale, bias)[0]
     y_c = y.to(dt)
     g_c = g2.to(wproj.dtype)
     dc = _dot(g_c, wproj.t()).to(dt)
-    dqkv, ctx = attn_bwd_core_plain(qkv.to(dt), p_soft, p_c, dc.reshape(B, N, D), num_heads)
+    dqkv, ctx = attn_bwd_core_plain(qkv.to(dt), p_soft, p_c, dc.reshape(B, N, -1), num_heads)
     dqkv_c = dqkv.to(dt)
     dy = _dot(dqkv_c, wqkv.t())
-    dx, dscale, dbias = _ln_backward(g2, dy, xhat, rstd, scale)
-    return (
-        dx.to(x.dtype).reshape(x.shape), dscale, dbias,
-        _dot(y_c.t(), dqkv_c).to(wqkv.dtype), dqkv.sum(0),
-        _dot(ctx.reshape(B * N, D).t(), g_c).to(wproj.dtype), g2.sum(0),
-    )
+    return (dy, _dot(y_c.t(), dqkv_c).to(wqkv.dtype), dqkv.sum(0),
+            _dot(ctx.reshape(B * N, -1).t(), g_c).to(wproj.dtype))
 
 
 def attn_block_bwd_stash_plain(x, scale, bias, wqkv, wproj, qkv, probs, g, num_heads: int):
@@ -507,3 +525,225 @@ def fused_attn_block(x, scale, bias, wqkv, bqkv, wproj, bproj, num_heads: int,
 fused_attn_block.launches = 0
 fused_attn_block.seg_launches = 0
 fused_attn_block.f32_launches = 0
+
+
+# ---- the tensor-parallel forms of K2 and kernel 4 ------------------------------
+#
+# A rank holds the qkv columns of its H / tp heads, [q_r | k_r | v_r], each
+# Dl = D / tp wide (wqkv (D, 3·Dl), bqkv (3·Dl,)), and wproj's rows of the
+# same heads (wproj (Dl, D)); LN and bproj are whole (parallel/sharding.py).
+# ``num_heads`` is the rank's head count. Each form is split at the
+# all-reduce over the model group: the rank's half writes an fp32 partial
+# (the forward's proj product, the backward's dy), the caller sums the
+# partials over the ranks, and the finish runs on the sum. Forward:
+# ``sky_attn_block_tp_fwd`` then ``sky_attn_block_tp_finish``; backward:
+# ``sky_attn_block_tp_bwd`` (kernel 4's launches at the rank's widths,
+# masked by ``seg_len``) then ``sky_attn_block_tp_bwd_finish``; all in
+# ``csrc/attn_block_tp.cu``, each with its fp32 form. The finishes count on
+# the form's ``finish_launches``.
+
+
+def attn_block_tp_fwd_plain(x, scale, bias, wqkv, bqkv, wproj, num_heads: int,
+                            seg_len: int = 0):
+    """Plain version of K2's TP form's rank half: the fp32 partial (B, N, D)
+    of proj over the rank's heads, before bproj and the residual."""
+    ctx = _qkv_probs_ctx(x, scale, bias, wqkv, bqkv, num_heads, seg_len)[2]
+    return _dot(ctx.to(wproj.dtype), wproj)
+
+
+def attn_block_tp_bwd_plain(x, scale, bias, wqkv, bqkv, wproj, g, num_heads: int,
+                            seg_len: int = 0):
+    """Plain version of kernel 4's TP form's rank half: ``(dy, dwqkv, dbqkv,
+    dwproj)``, dy (B·N, D) the rank's fp32 partial of the LN output's
+    gradient, at kernel 4's rounding points (the forward recomputed)."""
+    qkv, probs = _qkv_probs(x, scale, bias, wqkv, bqkv, num_heads, seg_len)
+    p_c = probs.to(wqkv.dtype).float()
+    return _attn_bwd_local(x, scale, bias, wqkv, wproj, qkv, probs, p_c, g, num_heads)
+
+
+def _check_tp_args(x, scale, bias, wqkv, bqkv, wproj, num_heads: int, core: str, seg_len: int):
+    """Checks a CUDA launch of a rank's half of an attention TP form
+    (``core`` "fwd": K2's, "recompute": kernel 4's); returns the operand
+    dtype. As :func:`_check_cuda_args` at the rank's widths."""
+    if seg_len < 0:
+        raise ValueError(f"seg_len={seg_len} must be >= 0")
+    if x.dim() != 3 or not x.is_contiguous():
+        raise ValueError("x must be a contiguous (B, N, D) tensor")
+    kernel = {"fwd": "K2 TP", "recompute": "kernel 4 TP"}[core]
+    masked = 0 < seg_len < x.shape[1]
+    dt = operand_dtype(kernel + " masked" if masked else kernel, x, wqkv=wqkv, wproj=wproj)
+    B, N, D = x.shape
+    Dl = wqkv.shape[-1] // 3
+    if N > MAX_TOKENS:
+        raise ValueError(f"N={N} tokens exceeds the kernel's bound {MAX_TOKENS}")
+    if Dl % num_heads:
+        raise ValueError(f"the rank's width {Dl} is not divisible by its {num_heads} heads")
+    hd = Dl // num_heads
+    if dt == torch.bfloat16 and hd % 16:
+        raise ValueError(f"head dim {hd} must be a multiple of 16 in bf16 (the cores' mma.sync "
+                         "tiles); fp32 takes heads of any width")
+    vec = 8 if dt == torch.bfloat16 else 4
+    if D % 8 or Dl % vec:
+        raise ValueError(f"D={D} must be a multiple of 8 and the rank's width {Dl} of {vec}")
+    if B * N > 65535 * ROWS_PER_PARTIAL or B * num_heads > 2**31 - 1:
+        raise ValueError("too many rows for one launch grid")
+    want = {"scale": (scale, (D,), torch.float32), "bias": (bias, (D,), torch.float32),
+            "wqkv": (wqkv, (D, 3 * Dl), dt), "bqkv": (bqkv, (3 * Dl,), torch.float32),
+            "wproj": (wproj, (Dl, D), dt)}
+    for name, (t, shape, dtype) in want.items():
+        if tuple(t.shape) != shape or t.dtype != dtype or not t.is_contiguous():
+            raise ValueError(f"{name}: want contiguous {shape} {dtype}, "
+                             f"got {tuple(t.shape)} {t.dtype}")
+        if t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+    if dt == torch.bfloat16:
+        smem = _plan_bytes(core, N, hd)
+        if smem > SMEM_PER_BLOCK:
+            raise ValueError(f"head dim {hd} at N={N}: the {core} core's shared-memory plan needs "
+                             f"{smem} bytes, more than the {SMEM_PER_BLOCK} a block may use")
+    return dt
+
+
+def attn_block_tp_fwd(x, scale, bias, wqkv, bqkv, wproj, num_heads: int, seg_len: int = 0):
+    """K2's TP form, the rank's half: the fp32 partial (B, N, D) as
+    :func:`attn_block_tp_fwd_plain`. CPU tensors take the plain version;
+    CUDA tensors launch ``sky_attn_block_tp_fwd`` (its fp32 form for fp32
+    operands, also counted on ``.f32_launches``; with packed segments on
+    ``.seg_launches``) or raise."""
+    if x.device.type == "cpu":
+        return attn_block_tp_fwd_plain(x, scale, bias, wqkv, bqkv, wproj, num_heads, seg_len)
+    dt = _check_tp_args(x, scale, bias, wqkv, bqkv, wproj, num_heads, "fwd", seg_len)
+    B, N, D = x.shape
+    Dl = wqkv.shape[-1] // 3
+    qkv = torch.empty((B * N, 3 * Dl), dtype=dt, device=x.device)
+    ctx = torch.empty((B * N, Dl), dtype=dt, device=x.device)
+    part = torch.empty((B, N, D), dtype=torch.float32, device=x.device)
+    ptrs = [t.data_ptr() for t in (x, scale, bias, wqkv, bqkv, wproj, qkv, ctx, part)]
+    entry = _f32("sky_attn_block_tp_fwd", dt)
+    ints = (B, N, D, Dl, num_heads, seg_len)
+    with torch.cuda.device(x.device):
+        err = getattr(_lib("attn_block_tp", entry, len(ptrs), len(ints)), entry)(
+            *ptrs, *ints, torch.cuda.current_stream().cuda_stream)
+    cuda_build.check(err, entry)
+    attn_block_tp_fwd.launches += 1
+    attn_block_tp_fwd.seg_launches += int(0 < seg_len < N)
+    attn_block_tp_fwd.f32_launches += int(dt == torch.float32)
+    return part
+
+
+attn_block_tp_fwd.launches = 0
+attn_block_tp_fwd.seg_launches = 0
+attn_block_tp_fwd.f32_launches = 0
+attn_block_tp_fwd.finish_launches = 0
+
+
+def attn_block_tp_finish(x, part, bproj):
+    """K2's TP form after the all-reduce: ``out = x + (part + bproj)`` in
+    x's dtype (``tp_finish_plain`` for CPU tensors; CUDA tensors launch
+    ``sky_attn_block_tp_finish``, counted on
+    ``attn_block_tp_fwd.finish_launches``)."""
+    if x.device.type == "cpu":
+        return tp_finish_plain(x, part, bproj)
+    out = _finish("attn_block_tp", "sky_attn_block_tp_finish", x, part, bproj)
+    attn_block_tp_fwd.finish_launches += 1
+    return out
+
+
+def attn_block_tp_bwd(x, scale, bias, wqkv, bqkv, wproj, g, num_heads: int, seg_len: int = 0):
+    """Kernel 4's TP form, the rank's half: ``(dy, dwqkv, dbqkv, dwproj)``
+    as :func:`attn_block_tp_bwd_plain`. CPU tensors take the plain version;
+    CUDA tensors launch ``sky_attn_block_tp_bwd`` (its fp32 form also
+    counted on ``.f32_launches``) or raise."""
+    if x.device.type == "cpu":
+        return attn_block_tp_bwd_plain(x, scale, bias, wqkv, bqkv, wproj, g, num_heads, seg_len)
+    dt = _check_tp_args(x, scale, bias, wqkv, bqkv, wproj, num_heads, "recompute", seg_len)
+    _check_bwd_inputs(x, num_heads, g=g)
+    B, N, D = x.shape
+    Dl = wqkv.shape[-1] // 3
+    M = B * N
+    f32 = dict(dtype=torch.float32, device=x.device)
+    op = dict(dtype=dt, device=x.device)
+    y = torch.empty((M, D), **op)
+    qkv, dqkv = torch.empty((M, 3 * Dl), **op), torch.empty((M, 3 * Dl), **op)
+    dc, ctx = torch.empty((M, Dl), **op), torch.empty((M, Dl), **op)
+    rows = -(-M // ROWS_PER_PARTIAL) if dt == torch.float32 else B
+    part = torch.empty(rows * 3 * Dl, **f32)
+    ws_entry = _f32("sky_attn_block_tp_bwd", dt) + "_ws"
+    ws = torch.empty(max(_split_ws("attn_block_tp", ws_entry, x.device.index, M, D, Dl), 4), **f32)
+    dy = torch.empty((M, D), **f32)
+    dwqkv, dbqkv = torch.empty((D, 3 * Dl), **op), torch.empty(3 * Dl, **f32)
+    dwproj = torch.empty((Dl, D), **op)
+    ptrs = [t.data_ptr() for t in (x, scale, bias, wqkv, bqkv, wproj, g, y, qkv, dc, ctx, dqkv,
+                                   part, ws, dy, dwqkv, dbqkv, dwproj)]
+    ints = (B, N, D, Dl, num_heads, seg_len)
+    entry = _f32("sky_attn_block_tp_bwd", dt)
+    with torch.cuda.device(x.device):
+        err = getattr(_lib("attn_block_tp", entry, len(ptrs), len(ints)), entry)(
+            *ptrs, *ints, torch.cuda.current_stream().cuda_stream)
+    cuda_build.check(err, entry)
+    attn_block_tp_bwd.launches += 1
+    attn_block_tp_bwd.seg_launches += int(0 < seg_len < N)
+    attn_block_tp_bwd.f32_launches += int(dt == torch.float32)
+    return dy, dwqkv, dbqkv, dwproj
+
+
+attn_block_tp_bwd.launches = 0
+attn_block_tp_bwd.seg_launches = 0
+attn_block_tp_bwd.f32_launches = 0
+attn_block_tp_bwd.finish_launches = 0
+
+
+def attn_block_tp_bwd_finish(x, scale, bias, g, dy):
+    """Kernel 4's TP form after the all-reduce of ``dy``: ``(dx, dscale,
+    dbias, dbproj)`` (``tp_bwd_finish_plain`` for CPU tensors; CUDA tensors
+    launch ``sky_attn_block_tp_bwd_finish``, counted on
+    ``attn_block_tp_bwd.finish_launches``)."""
+    if x.device.type == "cpu":
+        return tp_bwd_finish_plain(x, scale, bias, g, dy)
+    grads = _bwd_finish("attn_block_tp", "sky_attn_block_tp_bwd_finish", x, scale, bias, g, dy)
+    attn_block_tp_bwd.finish_launches += 1
+    return grads
+
+
+class AttnBlockTPFn(torch.autograd.Function):
+    """K2's TP form forward, kernel 4's TP form backward, each split at the
+    all-reduce that ``reduce`` (an in-place sum of an fp32 tensor over the
+    model group) runs: only the inputs are saved, as :class:`AttnBlockFn`
+    saves them. ``plain`` runs the plain versions on any device."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, wqkv, bqkv, wproj, bproj, num_heads, seg_len, reduce, plain):
+        fwd = attn_block_tp_fwd_plain if plain else attn_block_tp_fwd
+        part = fwd(x, scale, bias, wqkv, bqkv, wproj, num_heads, seg_len)
+        reduce(part)
+        ctx.save_for_backward(x, scale, bias, wqkv, bqkv, wproj)
+        ctx.num_heads, ctx.seg_len, ctx.reduce, ctx.plain = num_heads, seg_len, reduce, plain
+        return (tp_finish_plain if plain else attn_block_tp_finish)(x, part, bproj)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, scale, bias, wqkv, bqkv, wproj = ctx.saved_tensors
+        g = g.contiguous()
+        bwd = attn_block_tp_bwd_plain if ctx.plain else attn_block_tp_bwd
+        dy, dwqkv, dbqkv, dwproj = bwd(x, scale, bias, wqkv, bqkv, wproj, g, ctx.num_heads,
+                                       ctx.seg_len)
+        ctx.reduce(dy)
+        finish = tp_bwd_finish_plain if ctx.plain else attn_block_tp_bwd_finish
+        dx, dscale, dbias, dbproj = finish(x, scale, bias, g, dy)
+        return dx, dscale, dbias, dwqkv, dbqkv, dwproj, dbproj, None, None, None, None
+
+
+def fused_attn_block_tp(x, scale, bias, wqkv, bqkv, wproj, bproj, num_heads: int, reduce,
+                        plain: bool = False, seg_len: int = 0):
+    """A tensor-parallel rank's attention block, (B, N, D) -> (B, N, D): its
+    heads' qkv columns and proj rows (LN and bproj whole), ``num_heads``
+    the rank's heads, the partials summed by ``reduce``. Without grad the
+    two halves run with the all-reduce between them; with grad the call
+    goes through :class:`AttnBlockTPFn`."""
+    args = (x, scale, bias, wqkv, bqkv, wproj, bproj)
+    if not _needs_grad(*args):
+        fwd = attn_block_tp_fwd_plain if plain else attn_block_tp_fwd
+        part = fwd(x, scale, bias, wqkv, bqkv, wproj, num_heads, seg_len)
+        reduce(part)
+        return (tp_finish_plain if plain else attn_block_tp_finish)(x, part, bproj)
+    return AttnBlockTPFn.apply(*args, num_heads, seg_len, reduce, plain)

@@ -236,3 +236,31 @@ inline cudaError_t launch_ln_bwd(const void* x, const void* g, const float* dy, 
     const cudaError_t sky_err_ = (call);                \
     if (sky_err_ != cudaSuccess) return static_cast<int>(sky_err_); \
   } while (0)
+
+namespace sky {
+
+// The tensor-parallel blocks' backward finish (attn_block_bwd.cu,
+// mlp_block_bwd.cu), after the all-reduce of the ranks' fp32 partials of
+// dy, the gradient of the LN output: the LN backward (dx = g + ..., the
+// partials of dscale and dbias) and the output bias's gradient (bproj or
+// b2: the column sums of g), the three added in order in one launch, as
+// the whole blocks' last launches do. part: 3 D * ceil(M / 32) floats.
+template <typename T>
+inline int tp_bwd_finish(const void* x, const void* ln_scale, const void* g, const void* dy,
+                         void* part, void* dx, void* dscale, void* dbias, void* dbout, int M,
+                         int D, cudaStream_t s) {
+  const int parts = n_partials(M);
+  float* part_out = static_cast<float*>(part);          // parts x D
+  float* part_scale = part_out + (size_t)parts * D;     // parts x D
+  float* part_bias = part_scale + (size_t)parts * D;    // parts x D
+  SKY_TRY(launch_ln_bwd<T>(x, g, static_cast<const float*>(dy), ln_scale, dx, part_scale,
+                           part_bias, M, D, s));
+  SKY_TRY(launch_colsum_partial<T>(g, M, D, part_out, s));
+  const ColsumJob jobs[3] = {{part_out, static_cast<float*>(dbout), parts, D},
+                             {part_scale, static_cast<float*>(dscale), parts, D},
+                             {part_bias, static_cast<float*>(dbias), parts, D}};
+  SKY_TRY(launch_colsum_finals(jobs, 3, s));
+  return 0;
+}
+
+}  // namespace sky

@@ -286,6 +286,39 @@ layernorm_kernel(const T* __restrict__ x, const float* __restrict__ scale,
   }
 }
 
+// The tensor-parallel blocks' finish (attn_block.cu, mlp_block.cu), after
+// the all-reduce of the ranks' fp32 partial products of proj or fc2:
+// out = T(x + (part + bias)) over (M, D), the order of EPI_BIAS_RESIDUAL's
+// epilogue, which the whole blocks fuse into that product. Eight elements a
+// thread (D % 8 == 0, 16-byte loads): a pass at memory rate.
+template <typename T>
+__global__ void __launch_bounds__(256)
+bias_residual_kernel(const T* __restrict__ x, const float* __restrict__ part,
+                     const float* __restrict__ bias, T* __restrict__ out, size_t n8, int D) {
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n8) return;
+  const size_t e0 = 8 * i;
+  const int c = static_cast<int>(e0 % D);
+  float xv[8], pv[8], bv[8], o[8];
+  load8(x + e0, xv);
+  load8(part + e0, pv);
+  load8(bias + c, bv);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) o[j] = xv[j] + (pv[j] + bv[j]);
+  store8(out + e0, o);
+}
+
+template <typename T>
+inline cudaError_t launch_bias_residual(const void* x, const void* part, const void* bias,
+                                        void* out, int M, int D, cudaStream_t stream) {
+  if (M <= 0 || D <= 0 || D % 8) return cudaErrorInvalidValue;
+  const size_t n8 = (size_t)M * D / 8;
+  bias_residual_kernel<T><<<(unsigned)((n8 + 255) / 256), 256, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const float*>(part), static_cast<const float*>(bias),
+      static_cast<T*>(out), n8, D);
+  return cudaGetLastError();
+}
+
 template <typename T = bf16>
 inline cudaError_t launch_layernorm(const void* x, const void* scale, const void* bias, void* y,
                                     int M, int K, cudaStream_t stream) {

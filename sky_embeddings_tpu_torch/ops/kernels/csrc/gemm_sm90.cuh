@@ -96,6 +96,8 @@
 //                        from the registers; GELU reads the fp32 value, so
 //                        out is EPI_BIAS_GELU's
 //   EPI_BIAS_RESIDUAL    bf16(resid + (acc + b)), the residual in fp32
+//   EPI_STORE_F32        acc in fp32 from the registers, no bias (the
+//                        tensor-parallel proj and fc2 partials)
 // and in the backward forms (per product of a group):
 //   EPI_STORE            bf16(acc), staged and TMA-stored    (dW1, dW2: the
 //                        weight dtype, mlp_block.py:954-956)
@@ -179,6 +181,7 @@ struct Sm90Args {
   const float* bias;   // (N,)
   bf16* out2;          // (M, N): EPI_BIAS_GELU_STASH's pre-activation
   int M, N, K;
+  float* out_f32;      // (M, N): EPI_STORE_F32's output
 };
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
@@ -410,6 +413,44 @@ __device__ __forceinline__ void epilogue(const float* d, const Sm90Args& p,
   }
 }
 
+// One consumer's 64 x BN accumulators straight from the registers to fp32
+// rows ldo apart (each quad writes 32 contiguous bytes of a row), or added
+// to what is there: every load first, then the stores, so the loads'
+// latencies overlap.
+template <int BN>
+__device__ __forceinline__ void store_f32(float* d, float* o, int ldo, int M, int N, int mw,
+                                          int n0, bool add) {
+  const int t = threadIdx.x & 127;
+  const int r0 = mw + (t >> 5) * 16 + ((t & 31) >> 2);
+  if (add) {
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int col = n0 + 8 * j + 2 * (t & 3);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = r0 + 8 * h;
+        if (col < N && row < M) {
+          const float2 w = *reinterpret_cast<const float2*>(o + (size_t)row * ldo + col);
+          d[4 * j + 2 * h] += w.x;
+          d[4 * j + 2 * h + 1] += w.y;
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int col = n0 + 8 * j + 2 * (t & 3);
+    if (col >= N) continue;  // N % 8 == 0: the pair is whole or out
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = r0 + 8 * h;
+      if (row < M)
+        *reinterpret_cast<float2*>(o + (size_t)row * ldo + col) =
+            make_float2(d[4 * j + 2 * h], d[4 * j + 2 * h + 1]);
+    }
+  }
+}
+
 template <int EPI, int BN>
 __global__ void __launch_bounds__(THREADS, 1)
     gemm_sm90_kernel(const __grid_constant__ CUtensorMap tma_a,
@@ -523,14 +564,18 @@ __global__ void __launch_bounds__(THREADS, 1)
       fence_acc<BN / 2>(d);
       if (leader) mbar_arrive(empty0 + 8 * prev);
       if (rows) {
-        if (EPI == EPI_BIAS_RESIDUAL) {
-          mbar_wait(res_bar, res_phase);
-          res_phase ^= 1;
+        if constexpr (EPI == EPI_STORE_F32) {
+          store_f32<BN>(d, p.out_f32, p.N, p.M, p.N, mw, n0, false);
         } else {
-          if (leader) bulk_wait_read();  // the last tile's stores have read the staged half
-          wg_sync(wg);
+          if (EPI == EPI_BIAS_RESIDUAL) {
+            mbar_wait(res_bar, res_phase);
+            res_phase ^= 1;
+          } else {
+            if (leader) bulk_wait_read();  // the last tile's stores have read the staged half
+            wg_sync(wg);
+          }
+          epilogue<EPI, BN>(d, p, &tma_out, stg, mw, n0, nb, wg, leader);
         }
-        epilogue<EPI, BN>(d, p, &tma_out, stg, mw, n0, nb, wg, leader);
       }
     }
     if (leader) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
@@ -586,12 +631,16 @@ cudaError_t launch_bn(const CUtensorMap* maps, const Sm90Args& p, int grid, cuda
 
 // out = epilogue(A @ B + bias) for A (M, K) and B (K, N), both row-major
 // bf16, K and N multiples of 8; out2 only for EPI_BIAS_GELU_STASH, resid
-// only for EPI_BIAS_RESIDUAL.
+// only for EPI_BIAS_RESIDUAL. EPI_STORE_F32 takes no bias and writes the
+// fp32 product A @ B to `out` (M, N) from the registers, as the backward
+// forms do: the partial sums of the tensor-parallel blocks' proj and fc2,
+// which an all-reduce adds before the bias and the residual
+// (attn_block.cu, mlp_block.cu).
 template <int EPI>
 cudaError_t launch_gemm_sm90(const void* a, const void* b, const void* bias, const void* resid,
                              void* out, void* out2, int M, int N, int K, cudaStream_t stream) {
   static_assert(EPI == EPI_BIAS || EPI == EPI_BIAS_GELU || EPI == EPI_BIAS_GELU_STASH ||
-                    EPI == EPI_BIAS_RESIDUAL,
+                    EPI == EPI_BIAS_RESIDUAL || EPI == EPI_STORE_F32,
                 "the forward epilogues only");
   if (M <= 0 || N <= 0 || K <= 0 || N % 8 || K % 8) return cudaErrorInvalidValue;
   int sms = 0;
@@ -600,15 +649,19 @@ cudaError_t launch_gemm_sm90(const void* a, const void* b, const void* bias, con
   const Plan plan = gemm_sm90_plan(M, N, sms);
   // A in 128 x 64 boxes, B in 64 x 64, the output and residual in 64 x 64
   CUtensorMap maps[4];
-  if (!encode_2d(&maps[0], a, M, K, BM) || !encode_2d(&maps[1], b, K, N, BK) ||
-      !encode_2d(&maps[2], out, M, N, 64))
+  if (!encode_2d(&maps[0], a, M, K, BM) || !encode_2d(&maps[1], b, K, N, BK))
+    return cudaErrorInvalidValue;
+  if (EPI == EPI_STORE_F32)
+    maps[2] = maps[0];  // not read: the fp32 output leaves from the registers
+  else if (!encode_2d(&maps[2], out, M, N, 64))
     return cudaErrorInvalidValue;
   if (EPI == EPI_BIAS_RESIDUAL) {
     if (!encode_2d(&maps[3], resid, M, N, 64)) return cudaErrorInvalidValue;
   } else {
     maps[3] = maps[2];  // not read
   }
-  const Sm90Args p{static_cast<const float*>(bias), static_cast<bf16*>(out2), M, N, K};
+  const Sm90Args p{static_cast<const float*>(bias), static_cast<bf16*>(out2), M, N, K,
+                   EPI == EPI_STORE_F32 ? static_cast<float*>(out) : nullptr};
   const int grid = plan.tiles < sms ? plan.tiles : sms;
   if (plan.bn == 256) return launch_bn<EPI, 256>(maps, p, grid, stream);
   if (plan.bn == 192) return launch_bn<EPI, 192>(maps, p, grid, stream);
@@ -715,44 +768,6 @@ __device__ __forceinline__ void store_bf16(const float* d, const CUtensorMap* ma
     if (leader) {
       tma_store_2d(map, box, n0 + c * BOX, mw);
       bulk_commit();
-    }
-  }
-}
-
-// One consumer's 64 x BN accumulators straight from the registers to fp32
-// rows ldo apart (each quad writes 32 contiguous bytes of a row), or added
-// to what is there: every load first, then the stores, so the loads'
-// latencies overlap.
-template <int BN>
-__device__ __forceinline__ void store_f32(float* d, float* o, int ldo, int M, int N, int mw,
-                                          int n0, bool add) {
-  const int t = threadIdx.x & 127;
-  const int r0 = mw + (t >> 5) * 16 + ((t & 31) >> 2);
-  if (add) {
-#pragma unroll
-    for (int j = 0; j < BN / 8; ++j) {
-      const int col = n0 + 8 * j + 2 * (t & 3);
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = r0 + 8 * h;
-        if (col < N && row < M) {
-          const float2 w = *reinterpret_cast<const float2*>(o + (size_t)row * ldo + col);
-          d[4 * j + 2 * h] += w.x;
-          d[4 * j + 2 * h + 1] += w.y;
-        }
-      }
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < BN / 8; ++j) {
-    const int col = n0 + 8 * j + 2 * (t & 3);
-    if (col >= N) continue;  // N % 8 == 0: the pair is whole or out
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = r0 + 8 * h;
-      if (row < M)
-        *reinterpret_cast<float2*>(o + (size_t)row * ldo + col) =
-            make_float2(d[4 * j + 2 * h], d[4 * j + 2 * h + 1]);
     }
   }
 }

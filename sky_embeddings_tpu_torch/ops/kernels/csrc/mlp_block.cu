@@ -229,3 +229,65 @@ extern "C" void sky_gemm_f32_plan(int M, int N, int K, int may_split, int sms, i
 extern "C" long long sky_gemm_f32_ws(int M, int N, int K) {
   return static_cast<long long>(sky::f32::workspace(M, N, K));
 }
+
+// ---- the tensor-parallel form of K1 -----------------------------------------
+//
+// K1 split at the all-reduce (parallel/sharding.py): a rank holds the
+// contiguous column block F_r = F / tp of W1 (w1_r (D, F_r), b1_r) and the
+// same rows of W2 (w2_r (F_r, D)). Entry sky_mlp_block_tp_fwd runs the
+// rank's half: LN of the replicated x (staged in `part`), h_r = bf16(GELU(y
+// @ w1_r + b1_r)) (M, F_r), then part = h_r @ w2_r in fp32 (EPI_STORE_F32).
+// The caller all-reduces `part` over the model group, and
+// sky_mlp_block_tp_finish adds b2 and the residual and rounds: out = bf16(x
+// + (sum + b2)), K1's EPI_BIAS_RESIDUAL order. A rank's bound: its 4 M D
+// F_r FLOP of products; the all-reduce moves 4 M D bytes. The fp32 forms
+// (_f32 entries) take the fp32 GEMM.
+static int mlp_block_tp_fwd(const void* x, const void* ln_scale, const void* ln_bias,
+                            const void* w1, const void* b1, const void* w2, void* h, void* part,
+                            int M, int D, int F, bool fp32, void* stream) {
+  using namespace sky;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (fp32) {
+    err = launch_layernorm<float>(x, ln_scale, ln_bias, part, M, D, s);
+    if (err == cudaSuccess)
+      err = f32::launch_gemm_f32<f32::FWD, f32::BIAS_GELU>(part, w1, b1, nullptr, h, nullptr, M, F,
+                                                           D, nullptr, s);
+    if (err == cudaSuccess)
+      err = f32::launch_gemm_f32<f32::FWD, f32::STORE>(h, w2, nullptr, nullptr, part, nullptr, M, D,
+                                                       F, nullptr, s);
+    return static_cast<int>(err);
+  }
+  err = launch_layernorm(x, ln_scale, ln_bias, part, M, D, s);
+  if (err == cudaSuccess)
+    err = sm90::launch_gemm_sm90<EPI_BIAS_GELU>(part, w1, b1, nullptr, h, nullptr, M, F, D, s);
+  if (err == cudaSuccess)
+    err = sm90::launch_gemm_sm90<EPI_STORE_F32>(h, w2, nullptr, nullptr, part, nullptr, M, D, F, s);
+  return static_cast<int>(err);
+}
+
+// The rank's half: h (M, F_r) scratch, part (M, D) fp32 out; F = F_r.
+extern "C" int sky_mlp_block_tp_fwd(const void* x, const void* ln_scale, const void* ln_bias,
+                                    const void* w1, const void* b1, const void* w2, void* h,
+                                    void* part, int M, int D, int F, void* stream) {
+  return mlp_block_tp_fwd(x, ln_scale, ln_bias, w1, b1, w2, h, part, M, D, F, false, stream);
+}
+
+extern "C" int sky_mlp_block_tp_fwd_f32(const void* x, const void* ln_scale, const void* ln_bias,
+                                        const void* w1, const void* b1, const void* w2, void* h,
+                                        void* part, int M, int D, int F, void* stream) {
+  return mlp_block_tp_fwd(x, ln_scale, ln_bias, w1, b1, w2, h, part, M, D, F, true, stream);
+}
+
+// After the all-reduce: out = x + (part + b2), rounded to x's type.
+extern "C" int sky_mlp_block_tp_finish(const void* x, const void* part, const void* b2, void* out,
+                                       int M, int D, void* stream) {
+  return static_cast<int>(sky::launch_bias_residual<sky::bf16>(
+      x, part, b2, out, M, D, static_cast<cudaStream_t>(stream)));
+}
+
+extern "C" int sky_mlp_block_tp_finish_f32(const void* x, const void* part, const void* b2,
+                                           void* out, int M, int D, void* stream) {
+  return static_cast<int>(sky::launch_bias_residual<float>(x, part, b2, out, M, D,
+                                                           static_cast<cudaStream_t>(stream)));
+}

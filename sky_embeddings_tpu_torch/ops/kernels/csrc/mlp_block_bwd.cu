@@ -150,25 +150,22 @@ extern "C" long long sky_mlp_block_bwd_ws(int M, int D, int F, int fs) {
 //
 // Kernels 8 and 7 are this loop over one slab (fs = F); kernel 7 passes the
 // stash a (M, F) in place of b1, and its step 2 is the stash dh product.
-static int mlp_block_bwd(const void* x, const void* ln_scale, const void* ln_bias, const void* w1,
+//
+// mlp_bwd_slabs is the loop (steps 1-3 and every slab's db1 but the last
+// one's, left in *db1_job); mlp_block_bwd adds the LN backward and the
+// column sums after it, and the tensor-parallel form (below) stops there.
+static int mlp_bwd_slabs(const void* x, const void* ln_scale, const void* ln_bias, const void* w1,
                          const void* b1, const void* w2, const void* a, const void* g, void* y,
-                         void* da_c, void* h_c, void* dy, void* part, void* ws, void* dx,
-                         void* dscale, void* dbias, void* dw1, void* db1, void* dw2, void* db2,
-                         int M, int D, int F, int fs, cudaStream_t s) {
+                         void* da_c, void* h_c, float* dyf, float* part_b1, void* ws, void* dw1,
+                         void* db1, void* dw2, int M, int D, int F, int fs, sky::ColsumJob* db1_job,
+                         cudaStream_t s) {
   using namespace sky;
-  const int parts = n_partials(M);
-  float* part_b1 = static_cast<float*>(part);          // ceil(M / 64) x fs, one slab at a time
-  float* part_b2 = part_b1 + (size_t)parts * fs;       // parts x D
-  float* part_scale = part_b2 + (size_t)parts * D;     // parts x D
-  float* part_bias = part_scale + (size_t)parts * D;   // parts x D
-  float* dyf = static_cast<float*>(dy);
   const bf16* w1b = static_cast<const bf16*>(w1);
   const bf16* w2b = static_cast<const bf16*>(w2);
   const float* b1f = static_cast<const float*>(b1);
   float* db1f = static_cast<float*>(db1);
-
   const int nj = F / fs;
-  ColsumJob db1_job{part_b1, nullptr, (M + 63) / 64, fs};
+  *db1_job = ColsumJob{part_b1, nullptr, (M + 63) / 64, fs};
 
   SKY_TRY(launch_layernorm(x, ln_scale, ln_bias, y, M, D, s));
   for (int j = 0; j < nj; ++j) {
@@ -182,9 +179,28 @@ static int mlp_block_bwd(const void* x, const void* ln_scale, const void* ln_bia
     slab_group(spec, y, w1, g, da_c, h_c, dyf, j > 0, dw1, dw2, c0, M, D, F, fs);
     SKY_TRY(sm90::launch_bwd_group(spec, 1, nullptr, s));
     SKY_TRY(sm90::launch_bwd_group(spec + 1, 2, static_cast<float*>(ws), s));
-    db1_job.out = db1f + c0;
-    if (j < nj - 1) SKY_TRY(launch_colsum_finals(&db1_job, 1, s));  // the last one below
+    db1_job->out = db1f + c0;
+    if (j < nj - 1) SKY_TRY(launch_colsum_finals(db1_job, 1, s));  // the last one by the caller
   }
+  return 0;
+}
+
+static int mlp_block_bwd(const void* x, const void* ln_scale, const void* ln_bias, const void* w1,
+                         const void* b1, const void* w2, const void* a, const void* g, void* y,
+                         void* da_c, void* h_c, void* dy, void* part, void* ws, void* dx,
+                         void* dscale, void* dbias, void* dw1, void* db1, void* dw2, void* db2,
+                         int M, int D, int F, int fs, cudaStream_t s) {
+  using namespace sky;
+  const int parts = n_partials(M);
+  float* part_b1 = static_cast<float*>(part);          // ceil(M / 64) x fs, one slab at a time
+  float* part_b2 = part_b1 + (size_t)parts * fs;       // parts x D
+  float* part_scale = part_b2 + (size_t)parts * D;     // parts x D
+  float* part_bias = part_scale + (size_t)parts * D;   // parts x D
+  float* dyf = static_cast<float*>(dy);
+  ColsumJob db1_job;
+  if (const int e = mlp_bwd_slabs(x, ln_scale, ln_bias, w1, b1, w2, a, g, y, da_c, h_c, dyf,
+                                  part_b1, ws, dw1, db1, dw2, M, D, F, fs, &db1_job, s))
+    return e;
   SKY_TRY(launch_ln_bwd(x, g, dyf, ln_scale, dx, part_scale, part_bias, M, D, s));
   SKY_TRY(launch_colsum_partial<bf16>(g, M, D, part_b2, s));
   const ColsumJob jobs[4] = {db1_job, {part_b2, static_cast<float*>(db2), parts, D},
@@ -335,19 +351,16 @@ extern "C" long long sky_mlp_block_bwd_f32_ws(int M, int D, int F, int fs) {
 // part: (fs + 3D) * ceil(M / 32); ws: sky_mlp_block_bwd_f32_ws(M, D, F, fs))
 // and the outputs (dx (M, D); dscale, dbias, db2 (D,); db1 (F,); dw1 (D, F);
 // dw2 (F, D)). Kernel 7 passes its stash `a` (M, F) in place of b1.
-static int mlp_block_bwd_f32(const void* x, const void* ln_scale, const void* ln_bias,
+//
+// mlp_bwd_slabs_f32 is the loop, as mlp_bwd_slabs is kernel 8's.
+static int mlp_bwd_slabs_f32(const void* x, const void* ln_scale, const void* ln_bias,
                              const void* w1, const void* b1, const void* w2, const void* a,
-                             const void* g, void* y, void* da, void* h, void* dy, void* part,
-                             void* ws, void* dx, void* dscale, void* dbias, void* dw1, void* db1,
-                             void* dw2, void* db2, int M, int D, int F, int fs, cudaStream_t s) {
+                             const void* g, void* y, void* da, void* h, float* dyf, float* part_b1,
+                             void* ws, void* dw1, void* db1, void* dw2, int M, int D, int F, int fs,
+                             sky::ColsumJob* db1_job, cudaStream_t s) {
   using namespace sky;
   using f32::Ld;
   const int parts = n_partials(M);
-  float* part_b1 = static_cast<float*>(part);        // parts x fs, one slab at a time
-  float* part_b2 = part_b1 + (size_t)parts * fs;     // parts x D
-  float* part_scale = part_b2 + (size_t)parts * D;   // parts x D
-  float* part_bias = part_scale + (size_t)parts * D;  // parts x D
-  float* dyf = static_cast<float*>(dy);
   const float* w1f = static_cast<const float*>(w1);
   const float* w2f = static_cast<const float*>(w2);
   const float* b1f = static_cast<const float*>(b1);
@@ -356,7 +369,7 @@ static int mlp_block_bwd_f32(const void* x, const void* ln_scale, const void* ln
   float* dw2f = static_cast<float*>(dw2);
 
   const int nj = F / fs;
-  ColsumJob db1_job{part_b1, nullptr, parts, fs};
+  *db1_job = ColsumJob{part_b1, nullptr, parts, fs};
   SKY_TRY(launch_layernorm<float>(x, ln_scale, ln_bias, y, M, D, s));
   for (int j = 0; j < nj; ++j) {
     const size_t c0 = (size_t)j * fs;
@@ -382,9 +395,28 @@ static int mlp_block_bwd_f32(const void* x, const void* ln_scale, const void* ln
     SKY_TRY((f32::launch_gemm_f32<f32::TN, f32::STORE>(h, g, nullptr, nullptr, dw2f + c0 * D,
                                                        nullptr, fs, D, M, ws, s)));
     SKY_TRY(launch_colsum_partial<float>(da, M, fs, part_b1, s));
-    db1_job.out = db1f + c0;
-    if (j < nj - 1) SKY_TRY(launch_colsum_finals(&db1_job, 1, s));  // the last one below
+    db1_job->out = db1f + c0;
+    if (j < nj - 1) SKY_TRY(launch_colsum_finals(db1_job, 1, s));  // the last one by the caller
   }
+  return 0;
+}
+
+static int mlp_block_bwd_f32(const void* x, const void* ln_scale, const void* ln_bias,
+                             const void* w1, const void* b1, const void* w2, const void* a,
+                             const void* g, void* y, void* da, void* h, void* dy, void* part,
+                             void* ws, void* dx, void* dscale, void* dbias, void* dw1, void* db1,
+                             void* dw2, void* db2, int M, int D, int F, int fs, cudaStream_t s) {
+  using namespace sky;
+  const int parts = n_partials(M);
+  float* part_b1 = static_cast<float*>(part);        // parts x fs, one slab at a time
+  float* part_b2 = part_b1 + (size_t)parts * fs;     // parts x D
+  float* part_scale = part_b2 + (size_t)parts * D;   // parts x D
+  float* part_bias = part_scale + (size_t)parts * D;  // parts x D
+  float* dyf = static_cast<float*>(dy);
+  ColsumJob db1_job;
+  if (const int e = mlp_bwd_slabs_f32(x, ln_scale, ln_bias, w1, b1, w2, a, g, y, da, h, dyf,
+                                      part_b1, ws, dw1, db1, dw2, M, D, F, fs, &db1_job, s))
+    return e;
   SKY_TRY(launch_ln_bwd<float>(x, g, dyf, ln_scale, dx, part_scale, part_bias, M, D, s));
   SKY_TRY(launch_colsum_partial<float>(g, M, D, part_b2, s));
   const ColsumJob jobs[4] = {db1_job, {part_b2, static_cast<float*>(db2), parts, D},
@@ -432,4 +464,76 @@ extern "C" int sky_mlp_block_bwd_stream_f32(const void* x, const void* ln_scale,
   return mlp_block_bwd_f32(x, ln_scale, ln_bias, w1, b1, w2, nullptr, g, y, da, h, dy, part, ws,
                            dx, dscale, dbias, dw1, db1, dw2, db2, M, D, F, fs,
                            static_cast<cudaStream_t>(stream));
+}
+
+// ---- the tensor-parallel form of kernel 8 -------------------------------------
+//
+// Kernel 8 split at the all-reduce (parallel/sharding.py): a rank holds
+// the contiguous column block F_r = F / tp of W1 (w1_r (D, F_r), b1_r) and
+// the same rows of W2 (w2_r (F_r, D)). Entry sky_mlp_block_tp_bwd is
+// kernel 8's slab loop (mlp_bwd_slabs) over the rank's columns: LN of the
+// replicated x, the dual product, dy_r = da_c @ w1_r^T in fp32 (the
+// rank's partial of dy), dW1_r and dW2_r in one group, db1_r. It stops
+// before the LN backward; the caller all-reduces dy over the model group
+// and sky_mlp_block_tp_bwd_finish runs the LN backward (dx, dscale, dbias)
+// and db2 from g (bwd_common.cuh tp_bwd_finish), the gradients of
+// replicated parameters, alike on every rank. fs is the slab width: F_r
+// (one slab, kernel 8's form) on the main path, or a divisor of F_r that
+// kernel 9's partition gives, the same loop. A rank's bound: 10 M D F_r
+// FLOP of products. The fp32 forms (_f32 entries) run mlp_bwd_slabs_f32.
+// Scratch as kernel 8's (kernel 9's with fs < F_r) at F = F_r; outputs dy
+// (M, D) fp32, dw1 (D, F_r), db1 (F_r,) fp32, dw2 (F_r, D).
+static int mlp_block_tp_bwd(const void* x, const void* ln_scale, const void* ln_bias,
+                            const void* w1, const void* b1, const void* w2, const void* g,
+                            void* y, void* da_c, void* h_c, void* dy, void* part, void* ws,
+                            void* dw1, void* db1, void* dw2, int M, int D, int F, int fs,
+                            bool fp32, cudaStream_t s) {
+  using namespace sky;
+  if (fs <= 0 || F % fs) return static_cast<int>(cudaErrorInvalidValue);
+  float* dyf = static_cast<float*>(dy);
+  float* part_b1 = static_cast<float*>(part);
+  ColsumJob db1_job;
+  const int e = fp32 ? mlp_bwd_slabs_f32(x, ln_scale, ln_bias, w1, b1, w2, nullptr, g, y, da_c,
+                                         h_c, dyf, part_b1, ws, dw1, db1, dw2, M, D, F, fs,
+                                         &db1_job, s)
+                     : mlp_bwd_slabs(x, ln_scale, ln_bias, w1, b1, w2, nullptr, g, y, da_c, h_c,
+                                     dyf, part_b1, ws, dw1, db1, dw2, M, D, F, fs, &db1_job, s);
+  if (e) return e;
+  SKY_TRY(launch_colsum_finals(&db1_job, 1, s));
+  return 0;
+}
+
+extern "C" int sky_mlp_block_tp_bwd(const void* x, const void* ln_scale, const void* ln_bias,
+                                    const void* w1, const void* b1, const void* w2, const void* g,
+                                    void* y, void* da_c, void* h_c, void* dy, void* part, void* ws,
+                                    void* dw1, void* db1, void* dw2, int M, int D, int F, int fs,
+                                    void* stream) {
+  return mlp_block_tp_bwd(x, ln_scale, ln_bias, w1, b1, w2, g, y, da_c, h_c, dy, part, ws, dw1,
+                          db1, dw2, M, D, F, fs, false, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int sky_mlp_block_tp_bwd_f32(const void* x, const void* ln_scale, const void* ln_bias,
+                                        const void* w1, const void* b1, const void* w2,
+                                        const void* g, void* y, void* da, void* h, void* dy,
+                                        void* part, void* ws, void* dw1, void* db1, void* dw2,
+                                        int M, int D, int F, int fs, void* stream) {
+  return mlp_block_tp_bwd(x, ln_scale, ln_bias, w1, b1, w2, g, y, da, h, dy, part, ws, dw1, db1,
+                          dw2, M, D, F, fs, true, static_cast<cudaStream_t>(stream));
+}
+
+// After the all-reduce of dy (M, D) fp32: dx (the operand dtype), dscale,
+// dbias and db2 (D,) fp32; part holds 3 D * ceil(M / 32) floats.
+extern "C" int sky_mlp_block_tp_bwd_finish(const void* x, const void* ln_scale, const void* g,
+                                           const void* dy, void* part, void* dx, void* dscale,
+                                           void* dbias, void* db2, int M, int D, void* stream) {
+  return sky::tp_bwd_finish<sky::bf16>(x, ln_scale, g, dy, part, dx, dscale, dbias, db2, M, D,
+                                       static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int sky_mlp_block_tp_bwd_finish_f32(const void* x, const void* ln_scale, const void* g,
+                                               const void* dy, void* part, void* dx, void* dscale,
+                                               void* dbias, void* db2, int M, int D,
+                                               void* stream) {
+  return sky::tp_bwd_finish<float>(x, ln_scale, g, dy, part, dx, dscale, dbias, db2, M, D,
+                                   static_cast<cudaStream_t>(stream));
 }

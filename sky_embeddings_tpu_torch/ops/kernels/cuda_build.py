@@ -19,8 +19,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = CSRC / "build"
-SOURCES = ("attn_block", "attn_block_bwd", "attention", "mlp_block", "mlp_block_bwd",
-           "simscore_multi")
+SOURCES = ("attn_block", "attn_block_bwd", "attn_block_tp", "attention", "mlp_block",
+           "mlp_block_bwd", "simscore_multi")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

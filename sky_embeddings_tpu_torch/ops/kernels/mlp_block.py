@@ -139,11 +139,21 @@ def mlp_block_plain(x, scale, bias, w1, b1, w2, b2):
 
 def _mlp_bwd_from(x, scale, bias, w1, w2, a, g):
     """The MLP backward from the fp32 pre-activation ``a`` (M, F), at the
-    rounding points of ``_bwd_kernel`` / ``_bwd_stash_kernel``."""
+    rounding points of ``_bwd_kernel`` / ``_bwd_stash_kernel``:
+    :func:`_mlp_bwd_local`, then :func:`tp_bwd_finish_plain`."""
+    dy, dw1, db1, dw2 = _mlp_bwd_local(x, scale, bias, w1, w2, a, g)
+    dx, dscale, dbias, db2 = tp_bwd_finish_plain(x, scale, bias, g, dy)
+    return dx, dscale, dbias, dw1, db1, dw2, db2
+
+
+def _mlp_bwd_local(x, scale, bias, w1, w2, a, g):
+    """The MLP backward up to the fp32 gradient ``dy`` (M, D) of the LN
+    output: ``(dy, dw1, db1, dw2)``. On a tensor-parallel rank's column
+    block (w1 (D, F_r), w2 (F_r, D), its ``a`` (M, F_r)) ``dy`` is the
+    rank's partial, which the ranks sum."""
     D = x.shape[-1]
-    x2 = x.reshape(-1, D).float()
     g2 = g.reshape(-1, D).float()
-    y, xhat, rstd = _ln_forward(x2, scale, bias)
+    y = _ln_forward(x.reshape(-1, D).float(), scale, bias)[0]
     y_c = y.to(w1.dtype)
     h_c = gelu(a).to(w2.dtype)
     g_c = g2.to(w2.dtype)
@@ -151,12 +161,29 @@ def _mlp_bwd_from(x, scale, bias, w1, w2, a, g):
     da = dh * gelu_grad(a)
     da_c = da.to(w1.dtype)
     dy = _dot(da_c, w1.t())
+    return dy, _dot(y_c.t(), da_c).to(w1.dtype), da.sum(0), _dot(h_c.t(), g_c).to(w2.dtype)
+
+
+def tp_finish_plain(x, part, bias):
+    """The tensor-parallel blocks' finish after the all-reduce (plain
+    version of ``sky_attn_block_tp_finish`` / ``sky_mlp_block_tp_finish``):
+    ``x + (part + bias)`` in fp32, cast to x's dtype, the order of the whole
+    blocks' fused epilogue. ``part`` is the fp32 sum of the ranks' partial
+    proj (fc2) products."""
+    return (x.float() + (part.reshape(x.shape) + bias)).to(x.dtype)
+
+
+def tp_bwd_finish_plain(x, scale, bias, g, dy):
+    """What the blocks' backward computes from the whole fp32 ``dy`` (M, D)
+    (plain version of the ``*_tp_bwd_finish`` entries): the LN backward
+    with the residual gradient and the output bias's gradient, ``(dx,
+    dscale, dbias, dbout)``; every block's backward ends with it, and a
+    tensor-parallel one runs it after the all-reduce of the ranks' ``dy``."""
+    D = x.shape[-1]
+    g2 = g.reshape(-1, D).float()
+    _, xhat, rstd = _ln_forward(x.reshape(-1, D).float(), scale, bias)
     dx, dscale, dbias = _ln_backward(g2, dy, xhat, rstd, scale)
-    return (
-        dx.to(x.dtype).reshape(x.shape), dscale, dbias,
-        _dot(y_c.t(), da_c).to(w1.dtype), da.sum(0),
-        _dot(h_c.t(), g_c).to(w2.dtype), g2.sum(0),
-    )
+    return dx.to(x.dtype).reshape(x.shape), dscale, dbias, g2.sum(0)
 
 
 def mlp_block_bwd_plain(x, scale, bias, w1, b1, w2, g):
@@ -243,9 +270,12 @@ def _entry(name: str, entry: str, n_ptr: int, n_int: int = 3):
 
 # the block kernels, every one with an fp32 form on CUDA beside its bf16
 # one: attention blocks K2 and kernels 2, 3, 4 and the seg_len forms of K2,
-# 2 and 4; MLP blocks K1 and kernels 6, 7, 8, 9
+# 2 and 4; MLP blocks K1 and kernels 6, 7, 8, 9; the tensor-parallel forms
+# of K1, K2, 4 and 8 (and of K2 and 4 with seg_len)
 F32_KERNELS = ("K1", "K2", "kernel 2", "kernel 3", "kernel 4", "kernel 6", "kernel 7",
-               "kernel 8", "kernel 9", "K2 masked", "kernel 2 masked", "kernel 4 masked")
+               "kernel 8", "kernel 9", "K2 masked", "kernel 2 masked", "kernel 4 masked",
+               "K1 TP", "K2 TP", "kernel 4 TP", "kernel 8 TP", "K2 TP masked",
+               "kernel 4 TP masked")
 
 
 def operand_dtype(kernel: str, x: torch.Tensor, **operands) -> torch.dtype:
@@ -541,3 +571,216 @@ def fused_mlp_block(x, scale, bias, w1, b1, w2, b2, stash: bool | str = False,
 
 fused_mlp_block.launches = 0
 fused_mlp_block.f32_launches = 0  # those of the launches in fp32
+
+
+# ---- the tensor-parallel forms of K1 and kernel 8 ------------------------------
+#
+# A rank holds the contiguous column block F_r = F / tp of W1 and b1 and the
+# same rows of W2 (parallel/sharding.py). Each form is split at the
+# all-reduce over the model group: the rank's half writes an fp32 partial
+# (the forward's fc2 product, the backward's dy), the caller sums the
+# partials over the ranks (torch.distributed.all_reduce, or a plain sum
+# where one process holds every rank's shard), and the finish runs on the
+# sum. Forward: ``sky_mlp_block_tp_fwd`` then ``sky_mlp_block_tp_finish``
+# (``csrc/mlp_block.cu``); backward: ``sky_mlp_block_tp_bwd`` (kernel 8's
+# slab loop over the rank's columns, stopping before the LN backward) then
+# ``sky_mlp_block_tp_bwd_finish`` (``csrc/mlp_block_bwd.cu``). Each has its
+# fp32 form. The finishes count on the form's ``finish_launches``.
+
+
+def mlp_block_tp_fwd_plain(x, scale, bias, w1, b1, w2):
+    """Plain version of K1's TP form's rank half: the fp32 partial (B, N, D)
+    of fc2 over the rank's columns, before b2 and the residual."""
+    y = layer_norm(x.float(), scale, bias)
+    a = _dot(y.to(w1.dtype), w1) + b1
+    return _dot(gelu(a).to(w2.dtype), w2)
+
+
+def mlp_block_tp_bwd_plain(x, scale, bias, w1, b1, w2, g):
+    """Plain version of kernel 8's TP form's rank half: ``(dy, dw1, db1,
+    dw2)``, dy (B·N, D) the rank's fp32 partial of the LN output's
+    gradient, at kernel 8's rounding points."""
+    y = layer_norm(x.reshape(-1, x.shape[-1]).float(), scale, bias)
+    return _mlp_bwd_local(x, scale, bias, w1, w2, _dot(y.to(w1.dtype), w1) + b1, g)
+
+
+def _check_finish(x, part, out_bias):
+    M, D = x.shape[0] * x.shape[1], x.shape[-1]
+    want = {"part": (part, (M, D), torch.float32), "bias": (out_bias, (D,), torch.float32)}
+    for name, (t, shape, dtype) in want.items():
+        if t.numel() != math.prod(shape):  # part as (B, N, D) or (B·N, D)
+            raise ValueError(f"{name}: want {shape}, got {tuple(t.shape)}")
+        if t.dtype != dtype or not t.is_contiguous() or t.device != x.device:
+            raise ValueError(f"{name}: want a contiguous {dtype} tensor on {x.device}")
+    if x.dtype not in (torch.bfloat16, torch.float32) or not x.is_contiguous() or D % 8:
+        raise ValueError("x must be a contiguous bf16 or fp32 (B, N, D) tensor with D % 8 == 0")
+
+
+def _finish(lib: str, entry: str, x, part, out_bias):
+    """``x + (part + out_bias)`` by ``entry`` of ``lib`` (or its fp32 form)."""
+    _check_finish(x, part, out_bias)
+    out = torch.empty_like(x)
+    entry = _f32(entry, x.dtype)
+    with torch.cuda.device(x.device):
+        err = _entry(lib, entry, 4, 2)(x.data_ptr(), part.data_ptr(), out_bias.data_ptr(),
+                                       out.data_ptr(), x.shape[0] * x.shape[1], x.shape[-1],
+                                       torch.cuda.current_stream().cuda_stream)
+    cuda_build.check(err, entry)
+    return out
+
+
+def mlp_block_tp_fwd(x, scale, bias, w1, b1, w2):
+    """K1's TP form, the rank's half: the fp32 partial (B, N, D) as
+    :func:`mlp_block_tp_fwd_plain`. CPU tensors take the plain version;
+    CUDA tensors launch ``sky_mlp_block_tp_fwd`` (its fp32 form for fp32
+    operands, also counted on ``.f32_launches``) or raise."""
+    if x.device.type == "cpu":
+        return mlp_block_tp_fwd_plain(x, scale, bias, w1, b1, w2)
+    dt = _check_cuda_args(x, scale, bias, w1, b1, w2, kernel="K1 TP")  # at the local F_r
+    B, N, D = x.shape
+    F = w1.shape[1]
+    h = torch.empty((B * N, F), dtype=dt, device=x.device)
+    part = torch.empty((B, N, D), dtype=torch.float32, device=x.device)
+    entry = _f32("sky_mlp_block_tp_fwd", dt)
+    with torch.cuda.device(x.device):
+        err = _entry("mlp_block", entry, 8)(
+            *(t.data_ptr() for t in (x, scale, bias, w1, b1, w2, h, part)), B * N, D, F,
+            torch.cuda.current_stream().cuda_stream)
+    cuda_build.check(err, entry)
+    mlp_block_tp_fwd.launches += 1
+    mlp_block_tp_fwd.f32_launches += int(dt == torch.float32)
+    return part
+
+
+mlp_block_tp_fwd.launches = 0
+mlp_block_tp_fwd.f32_launches = 0
+mlp_block_tp_fwd.finish_launches = 0
+
+
+def mlp_block_tp_finish(x, part, b2):
+    """K1's TP form after the all-reduce: ``out = x + (part + b2)`` in x's
+    dtype (:func:`tp_finish_plain` for CPU tensors; CUDA tensors launch
+    ``sky_mlp_block_tp_finish``, counted on
+    ``mlp_block_tp_fwd.finish_launches``)."""
+    if x.device.type == "cpu":
+        return tp_finish_plain(x, part, b2)
+    out = _finish("mlp_block", "sky_mlp_block_tp_finish", x, part, b2)
+    mlp_block_tp_fwd.finish_launches += 1
+    return out
+
+
+def mlp_block_tp_bwd(x, scale, bias, w1, b1, w2, g):
+    """Kernel 8's TP form, the rank's half: ``(dy, dw1, db1, dw2)`` as
+    :func:`mlp_block_tp_bwd_plain`, over one slab of the rank's F_r
+    columns (kernel 8's form: it takes every local width of the shipped
+    configs, ViT-H's F_r = 2 560 at tp = 2 included). CPU tensors take the
+    plain version; CUDA tensors launch ``sky_mlp_block_tp_bwd`` (its fp32
+    form also counted on ``.f32_launches``) or raise."""
+    if x.device.type == "cpu":
+        return mlp_block_tp_bwd_plain(x, scale, bias, w1, b1, w2, g)
+    dt = _check_cuda_args(x, scale, bias, w1, b1, w2, kernel="kernel 8 TP")
+    _check_g(x, g)
+    B, N, D = x.shape
+    F = w1.shape[1]
+    M = B * N
+    parts = -(-M // ROWS_PER_PARTIAL)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    op = dict(dtype=dt, device=x.device)
+    y, dy = torch.empty((M, D), **op), torch.empty((M, D), **f32)
+    da, h = torch.empty((M, F), **op), torch.empty((M, F), **op)
+    part = torch.empty(parts * (F + 3 * D), **f32)
+    dw1, db1, dw2 = torch.empty((D, F), **op), torch.empty(F, **f32), torch.empty((F, D), **op)
+    ws_entry = _f32("sky_mlp_block_bwd", dt) + "_ws"
+    ws = torch.empty(max(_split_ws("mlp_block_bwd", ws_entry, x.device.index, M, D, F, F), 4),
+                     **f32)
+    ptrs = [t.data_ptr() for t in (x, scale, bias, w1, b1, w2, g, y, da, h, dy, part, ws,
+                                   dw1, db1, dw2)]
+    entry = _f32("sky_mlp_block_tp_bwd", dt)
+    with torch.cuda.device(x.device):
+        err = _entry("mlp_block_bwd", entry, len(ptrs), 4)(
+            *ptrs, M, D, F, F, torch.cuda.current_stream().cuda_stream)
+    cuda_build.check(err, entry)
+    mlp_block_tp_bwd.launches += 1
+    mlp_block_tp_bwd.f32_launches += int(dt == torch.float32)
+    return dy, dw1, db1, dw2
+
+
+mlp_block_tp_bwd.launches = 0
+mlp_block_tp_bwd.f32_launches = 0
+mlp_block_tp_bwd.finish_launches = 0
+
+
+def _bwd_finish(lib: str, entry: str, x, scale, bias, g, dy):
+    """``(dx, dscale, dbias, dbout)`` of :func:`tp_bwd_finish_plain` by
+    ``entry`` of ``lib`` (or its fp32 form) on CUDA tensors."""
+    B, N, D = x.shape
+    M = B * N
+    _check_g(x, g)
+    if tuple(dy.shape) != (M, D) or dy.dtype != torch.float32 or not dy.is_contiguous():
+        raise ValueError(f"dy: want a contiguous {(M, D)} fp32 tensor, got {tuple(dy.shape)}")
+    if tuple(scale.shape) != (D,) or scale.dtype != torch.float32:
+        raise ValueError(f"scale: want ({D},) fp32")
+    f32 = dict(dtype=torch.float32, device=x.device)
+    part = torch.empty(-(-M // ROWS_PER_PARTIAL) * 3 * D, **f32)
+    dx = torch.empty_like(x)
+    dscale, dbias, dbout = (torch.empty(D, **f32) for _ in range(3))
+    entry = _f32(entry, x.dtype)
+    ptrs = [t.data_ptr() for t in (x, scale, g, dy, part, dx, dscale, dbias, dbout)]
+    with torch.cuda.device(x.device):
+        err = _entry(lib, entry, len(ptrs), 2)(*ptrs, M, D, torch.cuda.current_stream().cuda_stream)
+    cuda_build.check(err, entry)
+    return dx, dscale, dbias, dbout
+
+
+def mlp_block_tp_bwd_finish(x, scale, bias, g, dy):
+    """Kernel 8's TP form after the all-reduce of ``dy``: ``(dx, dscale,
+    dbias, db2)`` (:func:`tp_bwd_finish_plain` for CPU tensors; CUDA
+    tensors launch ``sky_mlp_block_tp_bwd_finish``, counted on
+    ``mlp_block_tp_bwd.finish_launches``)."""
+    if x.device.type == "cpu":
+        return tp_bwd_finish_plain(x, scale, bias, g, dy)
+    grads = _bwd_finish("mlp_block_bwd", "sky_mlp_block_tp_bwd_finish", x, scale, bias, g, dy)
+    mlp_block_tp_bwd.finish_launches += 1
+    return grads
+
+
+class MlpBlockTPFn(torch.autograd.Function):
+    """K1's TP form forward, kernel 8's TP form backward, each split at the
+    all-reduce that ``reduce`` (an in-place sum of an fp32 tensor over the
+    model group) runs: only the inputs are saved, as :class:`MlpBlockFn`
+    saves them. Under ``torch.utils.checkpoint`` the forward, and with it
+    its all-reduce, runs again in the backward, in the same order on every
+    rank. ``plain`` runs the plain versions on any device."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, w1, b1, w2, b2, reduce, plain):
+        part = (mlp_block_tp_fwd_plain if plain else mlp_block_tp_fwd)(x, scale, bias, w1, b1, w2)
+        reduce(part)
+        ctx.save_for_backward(x, scale, bias, w1, b1, w2)
+        ctx.reduce, ctx.plain = reduce, plain
+        return (tp_finish_plain if plain else mlp_block_tp_finish)(x, part, b2)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, scale, bias, w1, b1, w2 = ctx.saved_tensors
+        g = g.contiguous()
+        dy, dw1, db1, dw2 = (mlp_block_tp_bwd_plain if ctx.plain else mlp_block_tp_bwd)(
+            x, scale, bias, w1, b1, w2, g)
+        ctx.reduce(dy)
+        dx, dscale, dbias, db2 = (tp_bwd_finish_plain if ctx.plain else mlp_block_tp_bwd_finish)(
+            x, scale, bias, g, dy)
+        return dx, dscale, dbias, dw1, db1, dw2, db2, None, None
+
+
+def fused_mlp_block_tp(x, scale, bias, w1, b1, w2, b2, reduce, plain: bool = False):
+    """A tensor-parallel rank's MLP block, (B, N, D) -> (B, N, D): its
+    column block of W1 / b1 and rows of W2 (``b2`` and the LN whole), the
+    partials summed by ``reduce``. Without grad the two halves run with the
+    all-reduce between them; with grad the call goes through
+    :class:`MlpBlockTPFn`."""
+    args = (x, scale, bias, w1, b1, w2, b2)
+    if not _needs_grad(*args):
+        part = (mlp_block_tp_fwd_plain if plain else mlp_block_tp_fwd)(x, scale, bias, w1, b1, w2)
+        reduce(part)
+        return (tp_finish_plain if plain else mlp_block_tp_finish)(x, part, b2)
+    return MlpBlockTPFn.apply(*args, reduce, plain)

@@ -27,6 +27,14 @@ the global sum XLA inserts over the data axis.
   :func:`main_only`: the wrap, the rank's rows of a global draw, the loops'
   save clock (rank 0's, so every rank saves together), and logging from
   rank 0 alone.
+
+Under tensor parallelism (``parallel/mesh``: a mesh the trainer made
+active) the data axis is the mesh's data group, not every process: the
+ranks of one model group take the same rows and the same mask draws
+(:func:`batch_rows` by the data index), the loss's sums run over the data
+group (:func:`global_ratio`, :func:`global_mean`), and DDP averages over
+it, so no sum or replicated gradient is counted once per model rank. With
+no mesh active this is the whole process group, as before.
 """
 
 from __future__ import annotations
@@ -38,6 +46,7 @@ from typing import Any, Optional, Sequence
 import torch
 import torch.distributed as dist
 
+from sky_embeddings_tpu_torch.parallel import mesh as _mesh
 from sky_embeddings_tpu_torch.utils.device import resolve_device
 
 ENV_FLAG = "SKY_DISTRIBUTED"
@@ -108,16 +117,18 @@ def put_global(batch: Any, sharding) -> Any:
 
 
 def data_parallel(module: torch.nn.Module, device: torch.device) -> torch.nn.Module:
-    """``module`` wrapped in ``DistributedDataParallel`` under a process
-    group, else ``module`` itself. ``find_unused_parameters`` lets a
-    parameter that takes no gradient on every rank (SimMIM's
-    ``mask_token``) leave its gradient None, which the trainers fill with
+    """``module`` wrapped in ``DistributedDataParallel`` over the data group
+    under a process group, else ``module`` itself (also under a mesh with
+    one data index: tensor parallelism alone has nothing to average).
+    ``find_unused_parameters`` lets a parameter that takes no gradient on
+    every rank (SimMIM's ``mask_token``) leave its gradient None, which the
+    trainers fill with
     JAX's zero gradient; the cost is a walk of the autograd graph and one
     small all-reduce of the used-parameter map a step. The buffers (the
     fixed sin-cos tables) are the same on every rank, so they are not
     broadcast before each forward (``forward_sync_buffers``, called
     ``broadcast_buffers`` before PyTorch 2.13)."""
-    if not dist.is_initialized():
+    if not dist.is_initialized() or (_mesh.active() is not None and _mesh.data_count() == 1):
         return module
     import inspect
 
@@ -127,7 +138,7 @@ def data_parallel(module: torch.nn.Module, device: torch.device) -> torch.nn.Mod
             in inspect.signature(DistributedDataParallel.__init__).parameters else "broadcast_buffers")
     return DistributedDataParallel(
         module, device_ids=[device] if device.type == "cuda" else None,
-        find_unused_parameters=True, **{sync: False})
+        find_unused_parameters=True, process_group=_mesh.data_group(), **{sync: False})
 
 
 def batch_rows(local: int) -> Optional[tuple[slice, int]]:
@@ -135,10 +146,11 @@ def batch_rows(local: int) -> Optional[tuple[slice, int]]:
     ``local`` rows a rank; None with no process group. The trainers draw
     their masks and augmentations for the global batch from a generator
     every rank seeds alike, as JAX draws them from a replicated key, and
-    keep these rows."""
+    keep these rows: by the data index, so the ranks of one model group
+    take the same rows."""
     if not dist.is_initialized():
         return None
-    r, n = dist.get_rank(), dist.get_world_size()
+    r, n = _mesh.data_index(), _mesh.data_count()
     return slice(r * local, (r + 1) * local), n * local
 
 
@@ -184,19 +196,20 @@ def global_ratio(num: torch.Tensor, den, eps: float = 0.0) -> torch.Tensor:
     rank's rows, ``den`` the count beside it (taken under no grad).
 
     With no process group this is ``num / (den + eps)``, bit for bit. Under
-    one, both parts are all-reduced and every rank gets the global value;
-    the gradient that flows to ``num`` is that of ``world · num / (den_all +
-    eps)``, so that DDP's average over the ranks is exactly the gradient of
-    the global masked mean (averaging the ranks' own ratios would weigh
-    each rank's rows by its count). At world 1 the value and gradient equal
+    one, both parts are all-reduced over the data group and every rank gets
+    the global value; the gradient that flows to ``num`` is that of ``world
+    · num / (den_all + eps)``, ``world`` the data group's size, so that
+    DDP's average over the ranks is exactly the gradient of the global
+    masked mean (averaging the ranks' own ratios would weigh each rank's
+    rows by its count). At world 1 the value and gradient equal
     the no-group ones bit for bit."""
     if not dist.is_initialized():
         return num / (den + eps)
     den = torch.as_tensor(den, dtype=torch.float32, device=num.device)
     both = torch.stack([num.detach().float(), den.detach()])
-    dist.all_reduce(both)
+    dist.all_reduce(both, group=_mesh.data_group())
     total = both[1] + eps
-    return _Reduced.apply(num, both[0] / total, float(dist.get_world_size()), total)
+    return _Reduced.apply(num, both[0] / total, float(_mesh.data_count()), total)
 
 
 def global_mean(values: Sequence[torch.Tensor], count: int) -> tuple[torch.Tensor, ...]:
@@ -208,7 +221,7 @@ def global_mean(values: Sequence[torch.Tensor], count: int) -> tuple[torch.Tenso
         return tuple(values)
     parts = torch.stack([v.detach().float() * count for v in values]
                         + [torch.tensor(float(count), device=values[0].device)])
-    dist.all_reduce(parts)
+    dist.all_reduce(parts, group=_mesh.data_group())
     n = parts[-1]
-    scale = float(dist.get_world_size() * count / float(n))
+    scale = float(_mesh.data_count() * count / float(n))
     return tuple(_Reduced.apply(v, parts[i] / n, scale, 1.0) for i, v in enumerate(values))

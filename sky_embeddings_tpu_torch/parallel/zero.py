@@ -28,6 +28,13 @@ framework's file) keeps the rank's share.
 The ``lp`` regime stays unsharded, as JAX replicates its
 ``multi_transform`` state (``zero.py``'s fallback): the trainable head is
 too small for sharding to matter.
+
+Under tensor parallelism (``parallel/mesh``) the moments are sharded over
+the data group, whose ranks hold the same model shard, and
+:func:`consolidate` collects them on the data group's first rank: each
+model index's first rank then holds its own shard's moments, which a save
+gathers over the model group (``parallel/sharding.gather_to_main``). With
+one data index there is nothing to shard: the optimizer stays as it is.
 """
 
 from __future__ import annotations
@@ -41,7 +48,9 @@ def shard_optimizer(optimizer: torch.optim.Optimizer) -> torch.optim.Optimizer:
     rank holds everything, as ``zero_spec`` leaves a spec at dp = 1)."""
     import torch.distributed as dist
 
-    if not dist.is_initialized():
+    from sky_embeddings_tpu_torch.parallel import mesh
+
+    if not dist.is_initialized() or (mesh.active() is not None and mesh.data_count() == 1):
         return optimizer
     from torch.distributed.optim import ZeroRedundancyOptimizer
 
@@ -51,7 +60,8 @@ def shard_optimizer(optimizer: torch.optim.Optimizer) -> torch.optim.Optimizer:
     # after SimMIM's one-element mask_token then starts 4 bytes off the
     # alignment the kernels' vector loads take (a CUDA misaligned address)
     return ZeroRedundancyOptimizer([dict(g) for g in optimizer.param_groups],
-                                   optimizer_class=type(optimizer), **defaults)
+                                   optimizer_class=type(optimizer),
+                                   process_group=mesh.data_group(), **defaults)
 
 
 def is_sharded(optimizer: torch.optim.Optimizer) -> bool:
@@ -65,47 +75,54 @@ def local(optimizer: torch.optim.Optimizer) -> torch.optim.Optimizer:
     return optimizer.optim if is_sharded(optimizer) else optimizer
 
 
-_MOMENTS = ("exp_avg", "exp_avg_sq")
+MOMENTS = ("exp_avg", "exp_avg_sq")
 
 
 def consolidate(optimizer: torch.optim.Optimizer) -> None:
-    """Collect a sharded optimizer's AdamW state on rank 0, in the
-    unsharded optimizer's ``state_dict`` form with the moments on the CPU,
-    as ``optimizer.consolidated_state``. Every rank must call it; nothing
-    for an unsharded optimizer. Each parameter's owner is found by one
+    """Collect a sharded optimizer's AdamW state on the data group's first
+    rank (rank 0 without tensor parallelism), in the unsharded optimizer's
+    ``state_dict`` form with the moments on the CPU, as
+    ``optimizer.consolidated_state``. Every rank must call it; nothing for
+    an unsharded optimizer. Each parameter's owner is found by one
     all-reduce; then each rank broadcasts its moments and steps as one flat
-    tensor, which rank 0 unpacks and the others drop."""
+    tensor, which the first rank unpacks and the others drop."""
     if not is_sharded(optimizer):
         return
     import torch.distributed as dist
 
+    from sky_embeddings_tpu_torch.parallel import mesh
+
+    group = mesh.data_group()
+    ranks = dist.get_process_group_ranks(group) if group is not None else list(
+        range(dist.get_world_size()))
     params = [p for g in optimizer.param_groups for p in g["params"]]
     held = optimizer.optim.state
     rank, dev = dist.get_rank(), params[0].device
-    owner = torch.tensor([rank + 1 if held.get(p) else 0 for p in params], device=dev)
-    dist.all_reduce(owner)  # each parameter's state lives on one rank: its rank + 1, or 0 for none
+    first = rank == ranks[0]
+    owner = torch.tensor([ranks.index(rank) + 1 if held.get(p) else 0 for p in params], device=dev)
+    dist.all_reduce(owner, group=group)  # each state lives on one rank: its index + 1, or 0
     owner = (owner - 1).tolist()
     state = {}
-    for r in range(dist.get_world_size()):
+    for r, src in enumerate(ranks):
         mine = [i for i in range(len(params)) if owner[i] == r]
         if not mine:
             continue
         sizes = [2 * params[i].numel() + 1 for i in mine]
-        if r == rank:
-            flat = torch.cat([torch.cat([held[params[i]][k].reshape(-1) for k in _MOMENTS]
+        if src == rank:
+            flat = torch.cat([torch.cat([held[params[i]][k].reshape(-1) for k in MOMENTS]
                                         + [held[params[i]]["step"].reshape(1).to(params[i])])
                               for i in mine])
         else:
             flat = torch.empty(sum(sizes), dtype=params[mine[0]].dtype, device=dev)
-        dist.broadcast(flat, src=r)
-        if rank == 0:
+        dist.broadcast(flat, src=src, group=group)
+        if first:
             for i, part in zip(mine, flat.cpu().split(sizes)):
                 n = params[i].numel()
                 state[i] = {"step": torch.tensor(float(part[-1]), dtype=torch.float32),
                             **{k: part[j * n:(j + 1) * n].reshape(params[i].shape).clone()
-                               for j, k in enumerate(_MOMENTS)}}
+                               for j, k in enumerate(MOMENTS)}}
         del flat
-    if rank == 0:
+    if first:
         optimizer.consolidated_state = {"state": state, "param_groups": index_groups(optimizer)}
 
 

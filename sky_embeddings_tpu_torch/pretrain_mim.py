@@ -43,7 +43,10 @@ every process builds the same ``FitsTileBatcher`` with the global
 ``batch_size``, so each process's rows repeat the others' images (under
 their own masks) and the global batch is ``processes x batch_size`` rows
 (ROADMAP). ``[TRAINING] zero_optimizer = True`` shards the AdamW moments
-over the processes.
+over the processes. ``--set TRAINING.tensor_parallel=2`` splits every block
+over pairs of consecutive processes (``train/pretrain.py``): the h5 shards,
+the batch rows and ZeRO-1 then run over the data axis (processes / 2), and
+both processes of a pair read the same rows.
 
 Like JAX's script it draws its figures under ``figures/`` (``train_network``'s
 ``fig_dir``: the training curves, and each validation's reconstruction as
@@ -60,7 +63,7 @@ import torch
 from sky_embeddings_tpu_torch.configuration import apply_overrides, load_config
 from sky_embeddings_tpu_torch.data.fits_loader import build_fits_batcher
 from sky_embeddings_tpu_torch.data.device_cache import build_cached_or_streaming_batcher
-from sky_embeddings_tpu_torch.parallel import distributed
+from sky_embeddings_tpu_torch.parallel import distributed, mesh
 from sky_embeddings_tpu_torch.train.pretrain import MIMPretrainer, train_network
 from sky_embeddings_tpu_torch.utils.checkpoint import checkpoint_path, find_checkpoint
 from sky_embeddings_tpu_torch.utils.misc import build_train_argparser
@@ -78,7 +81,7 @@ def main(argv=None) -> str:
     args = parser.parse_args(argv)
     # several processes (one per GPU): opt-in through SKY_DISTRIBUTED=1
     distributed.initialize_from_env(device=args.device)
-    n_proc, proc_id = distributed.process_count(), distributed.process_index()
+    n_proc = distributed.process_count()
     log = distributed.main_only(print)
     device = distributed.rank_device(args.device)
     config_dir = os.path.join(REPO_DIR, "configs")
@@ -95,6 +98,9 @@ def main(argv=None) -> str:
     log(config.describe())
 
     pretrainer = MIMPretrainer(config, device=device)
+    # the loaders shard over the data axis: under tensor_parallel the ranks
+    # of one model group read the same rows
+    n_data, data_id = mesh.data_count(), mesh.data_index()
     model_filename = checkpoint_path(model_dir, args.run_name or model_name)  # the port's file
     resume = find_checkpoint(model_dir, args.run_name or model_name)
     if resume and pretrainer.restore(resume):  # on every process
@@ -104,11 +110,12 @@ def main(argv=None) -> str:
 
     data = config.data
     img_size = config.architecture.int("img_size")
-    if pretrainer.batch_size % n_proc:
-        raise SystemExit(f"batch_size {pretrainer.batch_size} not divisible by {n_proc} processes")
+    if pretrainer.batch_size % n_data:
+        raise SystemExit(f"batch_size {pretrainer.batch_size} not divisible by {n_data} "
+                         "data shards")
     # each process feeds its shard; the pixel clip runs on the device inside the step
-    cached = dict(batch_size=pretrainer.batch_size // n_proc, img_size=img_size, shuffle=True,
-                  device=pretrainer.device, process_count=n_proc, process_index=proc_id,
+    cached = dict(batch_size=pretrainer.batch_size // n_data, img_size=img_size, shuffle=True,
+                  device=pretrainer.device, process_count=n_data, process_index=data_id,
                   log_fn=log)
     if "train_data_file" in data:
         # [DATA] device_cache picks a device-resident set or the stream

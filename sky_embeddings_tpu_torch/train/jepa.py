@@ -34,7 +34,8 @@ the global batch and sliced to this rank's rows, the loss's count summed
 over the ranks (``models/jepa``); the EMA target stays outside DDP and is
 updated alike on every rank from the same parameters.
 ``[TRAINING] zero_optimizer = True`` shards the AdamW moments
-(``parallel/zero``); ``tensor_parallel > 1`` raises.
+(``parallel/zero``); ``tensor_parallel > 1`` raises
+(``parallel/mesh.TP_REASON``: the predictor's heads do not split).
 """
 
 from __future__ import annotations
@@ -50,7 +51,7 @@ from sky_embeddings_tpu_torch.models.jepa import build_jepa_model
 from sky_embeddings_tpu_torch.models.weights import load_jax_params, params_to_jax
 from sky_embeddings_tpu_torch.ops.jepa_masks import BlockMasks, sample_block_masks
 from sky_embeddings_tpu_torch.parallel import distributed, zero
-from sky_embeddings_tpu_torch.parallel.mesh import TP_REASON, local_sharding
+from sky_embeddings_tpu_torch.parallel.mesh import TP_REASON, activate, local_sharding
 from sky_embeddings_tpu_torch.train.optim import (decay_mask, jax_payload, restore_state, set_lr,
                                                   supervised_optimizer)
 from sky_embeddings_tpu_torch.train.schedules import cosine_ramp, linear_ramp, warmup_cosine_decay
@@ -86,6 +87,7 @@ class JEPATrainer:
         training = config.training
         if training.int("tensor_parallel", 1) > 1:
             raise NotImplementedError(TP_REASON)
+        activate(None)  # the data axis is every process
         self.zero_optimizer = training.bool("zero_optimizer", False)
         dtype = DTYPES[training.str("dtype", "float32")]
         self.model = build_jepa_model(config, dtype=dtype, device=self.device,

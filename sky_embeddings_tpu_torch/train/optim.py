@@ -48,7 +48,7 @@ from typing import Callable, Iterable, Optional
 import numpy as np
 import torch
 
-from sky_embeddings_tpu_torch.models.weights import load_jax_params, params_to_jax
+from sky_embeddings_tpu_torch.models.weights import load_jax_params, params_from_jax, params_to_jax
 from sky_embeddings_tpu_torch.parallel import zero
 from sky_embeddings_tpu_torch.parallel.distributed import main_only
 from sky_embeddings_tpu_torch.utils import checkpoint as ckpt
@@ -193,11 +193,15 @@ def find_adam_state(opt_state) -> Optional[dict]:
     return None
 
 
-def load_optax_state(optimizer: torch.optim.Optimizer, model: torch.nn.Module, opt_state) -> bool:
+def load_optax_state(optimizer: torch.optim.Optimizer, model: torch.nn.Module, opt_state,
+                     mesh=None) -> bool:
     """Set ``optimizer``'s AdamW state from optax's state-dict form: ``mu`` and
     ``nu`` onto each parameter's ``exp_avg`` and ``exp_avg_sq`` by name
     (through ``adapt_block_layout``, so a scan-layout tree loads), ``count``
-    onto every ``step``. False when ``opt_state`` holds no Adam state."""
+    onto every ``step``; under tensor parallelism (``mesh``) each moment cut
+    to the rank's shard. False when ``opt_state`` holds no Adam state."""
+    from sky_embeddings_tpu_torch.parallel.sharding import shard_of, shard_tensor
+
     adam = find_adam_state(opt_state)
     if adam is None:
         return False
@@ -214,10 +218,16 @@ def load_optax_state(optimizer: torch.optim.Optimizer, model: torch.nn.Module, o
                 name = names[id(p)]
                 if name not in mu or name not in nu:
                     raise KeyError(f"optax state has no moments for {name}")
+                def local(m, name=name):
+                    if mesh is None:
+                        return torch.as_tensor(m)
+                    return shard_tensor(torch.as_tensor(m), shard_of(name), mesh.model_index,
+                                        mesh.tp)
+
                 states[p] = {
                     "step": torch.tensor(count, dtype=torch.float32),
-                    "exp_avg": torch.as_tensor(mu[name]).to(p.device, p.dtype, copy=True),
-                    "exp_avg_sq": torch.as_tensor(nu[name]).to(p.device, p.dtype, copy=True)}
+                    "exp_avg": local(mu[name]).to(p.device, p.dtype, copy=True),
+                    "exp_avg_sq": local(nu[name]).to(p.device, p.dtype, copy=True)}
     if zero.is_sharded(optimizer):  # the full state in; each rank keeps its share
         optimizer.load_state_dict({"state": dict(enumerate(states.values())),
                                    "param_groups": zero.index_groups(optimizer)})
@@ -228,7 +238,7 @@ def load_optax_state(optimizer: torch.optim.Optimizer, model: torch.nn.Module, o
 
 
 def optax_state_dict(optimizer: torch.optim.Optimizer, model: torch.nn.Module, regime: str,
-                     step: int) -> dict:
+                     step: int, whole: Optional[tuple] = None) -> dict:
     """``optimizer``'s state in the state-dict form of the JAX package's optax
     chain for ``regime`` (``pretrain``, ``ft``, ``fs``, ``lp`` or ``jepa``;
     JAX ``train/optim.py``, ``train/jepa.py``), every count ``step``:
@@ -238,19 +248,28 @@ def optax_state_dict(optimizer: torch.optim.Optimizer, model: torch.nn.Module, r
     The decay stage is there when some group decays, as JAX adds it for a
     non-zero ``weight_decay``. A ZeRO optimizer's state is read on rank 0
     after ``parallel/zero.consolidate``: the file carries the full
-    moments."""
-    names = _names(model)
-    state = {names[id(p)]: st for p, st in zero.param_states(optimizer).items()}
+    moments. ``whole`` (:func:`whole_state`'s pair) stands for the model's
+    and the optimizer's own state under tensor parallelism."""
+    if whole is None:
+        names = _names(model)
+        state = {names[id(p)]: st for p, st in zero.param_states(optimizer).items()}
+        shapes = {name: tuple(p.shape) for name, p in model.named_parameters()}
+    else:
+        params, opt = whole
+        order = _group_names(optimizer, model)
+        state = {name: {} for name in order}  # a parameter before its first step
+        state.update({order[i]: st for i, st in opt["state"].items()})
+        shapes = {name: tuple(params[name].shape) for name, _ in model.named_parameters()}
 
     def moments(key: str) -> dict:
         out = {}
-        for name, p in model.named_parameters():
+        for name, shape in shapes.items():
             if name not in state:
                 out[name] = {}  # optax.MaskedNode: a frozen lp parameter
             elif key in state[name]:
                 out[name] = state[name][key].detach().to("cpu", torch.float32).numpy()
             else:
-                out[name] = np.zeros(tuple(p.shape), np.float32)  # before the first step
+                out[name] = np.zeros(shape, np.float32)  # before the first step
         return ckpt.nest(out)
 
     count = {"count": np.asarray(step, np.int32)}
@@ -271,18 +290,85 @@ def optax_state_dict(optimizer: torch.optim.Optimizer, model: torch.nn.Module, r
 
 
 def jax_payload(model: torch.nn.Module, optimizer: torch.optim.Optimizer, regime: str,
-                step: int, seed: int, losses: Mapping, **extra) -> dict:
+                step: int, seed: int, losses: Mapping, whole: Optional[tuple] = None,
+                **extra) -> dict:
     """A trainer's state as the JAX package's trainers save it: ``step``,
     ``params`` (JAX's tree), ``opt_state`` (:func:`optax_state_dict`), an
     ``rng`` key (``checkpoint.jax_key``) and ``losses``; ``extra`` entries
-    (JEPA's ``target_params``) beside them."""
-    return {"step": np.asarray(step, np.int32), "params": params_to_jax(model.state_dict()),
-            **extra, "opt_state": optax_state_dict(optimizer, model, regime, step),
+    (JEPA's ``target_params``) beside them. ``whole``: as
+    :func:`optax_state_dict`'s."""
+    params = model.state_dict() if whole is None else whole[0]
+    return {"step": np.asarray(step, np.int32), "params": params_to_jax(params),
+            **extra, "opt_state": optax_state_dict(optimizer, model, regime, step, whole),
             "rng": ckpt.jax_key(seed, step), "losses": dict(losses)}
 
 
+def _group_names(optimizer: torch.optim.Optimizer, model: torch.nn.Module) -> list[str]:
+    """The names of ``optimizer``'s parameters in group order: the indices
+    of its ``state_dict``."""
+    names = _names(model)
+    return [names[id(p)] for g in optimizer.param_groups for p in g["params"]]
+
+
+def whole_state(model: torch.nn.Module, optimizer: torch.optim.Optimizer, mesh=None):
+    """``(state dict, optimizer state dict)`` of a trainer, whole and on
+    the CPU, on the main rank (None on the others), after
+    ``parallel/zero.consolidate``. Under tensor parallelism (``mesh`` with
+    a model axis > 1) the ranks of data index 0 gather every model index's
+    shards, the parameters and their moments, with broadcasts
+    (``parallel/sharding.gather_to_main``): every rank calls it, as a
+    save is a collective."""
+    from sky_embeddings_tpu_torch.parallel import distributed
+    from sky_embeddings_tpu_torch.parallel.sharding import gather_to_main
+
+    if mesh is None or mesh.tp == 1:
+        if not distributed.is_main():
+            return None
+        return ({k: v.detach().cpu() for k, v in model.state_dict().items()},
+                zero.state_dict(optimizer))
+    if mesh.data_index != 0:
+        return None
+    opt = zero.state_dict(optimizer)
+    order = _group_names(optimizer, model)
+    params = gather_to_main(model.state_dict(), mesh)
+    moments = {k: gather_to_main({order[i]: st[k] for i, st in opt["state"].items() if k in st},
+                                 mesh) for k in zero.MOMENTS}
+    if mesh.model_index != 0:
+        return None
+    state = {i: {k: (moments[k][order[i]] if k in zero.MOMENTS else v) for k, v in st.items()}
+             for i, st in opt["state"].items()}
+    return params, {"state": state, "param_groups": opt["param_groups"]}
+
+
+def save_state(path: str, model: torch.nn.Module, optimizer: torch.optim.Optimizer, regime: str,
+               step: int, seed: int, losses: Mapping, rng_state, mesh=None) -> None:
+    """A MIM or predictor trainer's save: ZeRO's moments collected, the
+    whole state (:func:`whole_state`) written by the main rank in the
+    port's format, or the JAX package's for a ``.ckpt.msgpack`` path, with
+    the generator's state ``rng_state``. Every rank calls it."""
+    from sky_embeddings_tpu_torch.parallel import distributed
+
+    zero.consolidate(optimizer)
+    jax_file = ckpt.is_jax_checkpoint(path)
+    # one process writes JAX's format from its own model and optimizer
+    tp = mesh is not None and mesh.tp > 1
+    whole = whole_state(model, optimizer, mesh) if tp or not jax_file else None
+    if not distributed.is_main():
+        return
+    if jax_file:
+        ckpt.save_checkpoint(path, jax_payload(model, optimizer, regime, step, seed, losses,
+                                               whole=whole))
+        return
+    params, opt_state = whole
+    ckpt.save_checkpoint(path, {
+        "step": step, "params": params, "opt_state": opt_state, "rng": rng_state,
+        "losses": {k: [float(x) for x in v] for k, v in losses.items()},
+    })
+
+
 def restore_state(path: str, model: torch.nn.Module, optimizer: torch.optim.Optimizer,
-                  generator: torch.Generator, seed: int, log_fn: Callable[[str], None] = print):
+                  generator: torch.Generator, seed: int, log_fn: Callable[[str], None] = print,
+                  mesh=None):
     """Load the checkpoint at ``path`` into ``model``, ``optimizer`` and
     ``generator``: ``(payload, step, losses)``, or None without a file.
 
@@ -295,21 +381,37 @@ def restore_state(path: str, model: torch.nn.Module, optimizer: torch.optim.Opti
     its step, and one without a generator state reseeds it, each with a
     line saying so. Every rank of a process group loads the file (the log
     lines from rank 0 alone); a ZeRO optimizer keeps its share of the
-    moments."""
+    moments. Under tensor parallelism (``mesh``) the file's whole
+    parameters and moments are cut to the rank's shards
+    (``parallel/sharding``), so a file of any layout loads."""
+    from sky_embeddings_tpu_torch.parallel.sharding import shard_of, shard_state, shard_tensor
+
     payload = ckpt.load_checkpoint(path)
     if payload is None:
         return None
     log_fn = main_only(log_fn)
     jax_file = ckpt.is_jax_checkpoint(path)
-    if jax_file:
+    tp = mesh is not None and mesh.tp > 1
+    if jax_file and not tp:
         load_jax_params(model, payload["params"])
     else:
-        model.load_state_dict(payload["params"])
+        params = payload["params"]
+        if jax_file:
+            params = params_from_jax(ckpt.adapt_block_layout(params, ckpt.nest(model.state_dict())))
+        model.load_state_dict(shard_state(params, mesh.model_index, mesh.tp) if tp else params)
     step = int(np.asarray(payload.get("step", 0)))
     if jax_file:
-        moments = load_optax_state(optimizer, model, payload.get("opt_state"))
+        moments = load_optax_state(optimizer, model, payload.get("opt_state"),
+                                   mesh if tp else None)
     elif "opt_state" in payload:
-        optimizer.load_state_dict(payload["opt_state"])
+        opt_state = payload["opt_state"]
+        if tp:
+            order = _group_names(optimizer, model)
+            opt_state = {**opt_state, "state": {
+                i: {k: (shard_tensor(v, shard_of(order[i]), mesh.model_index, mesh.tp)
+                        if k in zero.MOMENTS else v) for k, v in st.items()}
+                for i, st in opt_state["state"].items()}}
+        optimizer.load_state_dict(opt_state)
         moments = True
     else:
         moments = False

@@ -38,7 +38,13 @@ rows, and the loss and metric, plain means over equal local batches,
 reported as the global means (``parallel/distributed.global_mean``).
 ``[TRAINING] zero_optimizer = True`` shards the ``ft`` and ``fs`` moments
 (``parallel/zero``); the ``lp`` regime's stay whole on every rank, as JAX
-replicates them. ``tensor_parallel > 1`` raises.
+replicates them. ``[TRAINING] tensor_parallel = tp > 1`` (JAX
+``train/predictor.py:178``) shards the backbone's blocks over a (data, tp)
+mesh as the MIM trainer does (``parallel/mesh``, ``parallel/sharding``):
+their tensor-parallel kernel forms, with DDP, ZeRO-1, the draws and the
+means over the data group; ``lp``'s frozen backbone runs those forms'
+forwards under no grad. ``warm_start`` cuts the MIM file's blocks to the
+rank's shard; saves gather every shard and write whole arrays.
 
 With ``fig_dir`` the loop draws the training curves on the main process at
 each validation after the first (``utils/plotting.plot_progress``; a
@@ -61,7 +67,8 @@ from sky_embeddings_tpu_torch.data.prefetch import device_prefetch
 from sky_embeddings_tpu_torch.eval.eval_fns import batch_images, batch_ra_dec
 from sky_embeddings_tpu_torch.models.predictor import SkyViT, build_predictor_model
 from sky_embeddings_tpu_torch.parallel import distributed, zero
-from sky_embeddings_tpu_torch.parallel.mesh import TP_REASON, local_sharding
+from sky_embeddings_tpu_torch.parallel.mesh import local_sharding, tensor_parallel_mesh
+from sky_embeddings_tpu_torch.parallel.sharding import shard_state
 from sky_embeddings_tpu_torch.train import optim
 from sky_embeddings_tpu_torch.train.schedules import linear_lr
 from sky_embeddings_tpu_torch.utils import checkpoint as ckpt
@@ -188,15 +195,14 @@ class PredictorTrainer:
         self.mae_config = mae_config
         self.device = resolve_device(device)
         training = config.training
-        if training.int("tensor_parallel", 1) > 1:
-            raise NotImplementedError(TP_REASON)
+        self.mesh = tensor_parallel_mesh(training.int("tensor_parallel", 1), self.device)
         self.zero_optimizer = training.bool("zero_optimizer", False)
         if dtype is None:
             dtype = DTYPES[training.str("dtype", "float32")]
         self.model = build_predictor_model(
             config, mae_config, dtype=dtype, device=self.device,
             generator=torch.Generator().manual_seed(seed),
-            remat=training.bool("remat", False)).train()
+            remat=training.bool("remat", False), mesh=self.mesh).train()
 
         self.total_batch_iters = training.int("total_batch_iters")
         self.batch_size = training.int("batch_size")
@@ -287,6 +293,10 @@ class PredictorTrainer:
         if not ckpt.is_jax_checkpoint(mim_checkpoint_path):
             mim = ckpt.nest(mim)
         mim = ckpt.adapt_block_layout(mim, current)
+        if self.mesh is not None:  # the MIM file's whole blocks, cut to this rank's shard
+            mim = ckpt.nest(shard_state({k: torch.as_tensor(np.asarray(v)) for k, v in
+                                         ckpt.flatten(mim).items()},
+                                        self.mesh.model_index, self.mesh.tp))
         merged, _, _ = warm_start_from_mim(current, mim, log_fn=log_fn)
         self.model.load_state_dict({k: v if torch.is_tensor(v) else torch.from_numpy(np.array(v))
                                     for k, v in ckpt.flatten(merged).items()})
@@ -295,28 +305,18 @@ class PredictorTrainer:
     def save(self, path: str) -> None:
         """The trainer's state at ``path``: the port's file, or for a
         ``.ckpt.msgpack`` path the JAX package's (optax-form moments).
-        Every rank calls it; rank 0 writes, with ZeRO's moments collected."""
-        zero.consolidate(self.optimizer)
-        if not distributed.is_main():
-            return
-        if ckpt.is_jax_checkpoint(path):
-            regime = ("lp" if self.frozen_backbone else
-                      "ft" if self.train_method in ("ft", "finetune") else "fs")
-            ckpt.save_checkpoint(path, optim.jax_payload(self.model, self.optimizer, regime,
-                                                         self.step, self.seed, self.losses))
-            return
-        ckpt.save_checkpoint(path, {
-            "step": self.step,
-            "params": {k: v.detach().cpu() for k, v in self.model.state_dict().items()},
-            "opt_state": zero.state_dict(self.optimizer),
-            "rng": self.generator.get_state(),
-            "losses": {k: [float(x) for x in v] for k, v in self.losses.items()},
-        })
+        Every rank calls it; rank 0 writes, with ZeRO's moments collected
+        and, under tensor parallelism, every shard gathered."""
+        regime = ("lp" if self.frozen_backbone else
+                  "ft" if self.train_method in ("ft", "finetune") else "fs")
+        optim.save_state(path, self.model, self.optimizer, regime, self.step, self.seed,
+                         self.losses, self.generator.get_state(), self.mesh)
 
     def restore(self, path: str) -> bool:
         """Resume from the port's checkpoint or the JAX package's
         (``optim.restore_state``); False without a file."""
-        out = optim.restore_state(path, self.model, self.optimizer, self.generator, self.seed)
+        out = optim.restore_state(path, self.model, self.optimizer, self.generator, self.seed,
+                                  mesh=self.mesh)
         if out is None:
             return False
         _, self.step, losses = out

@@ -33,7 +33,17 @@ draws them from a replicated key, and the loss's sums run over the global
 batch (``ops/losses``). ``[TRAINING] zero_optimizer = True`` shards the
 AdamW moments over the ranks (``parallel/zero``); only rank 0 writes a
 checkpoint, after collecting them, and every rank restores.
-``tensor_parallel > 1`` raises (``parallel/mesh.TP_REASON``).
+
+``[TRAINING] tensor_parallel = tp > 1`` (JAX ``train/pretrain.py:124-133``)
+lays the process group out as a (data, tp) mesh (``parallel/mesh``: the
+model axis consecutive ranks), builds the whole model from the seed and
+keeps this rank's shard of every block (``parallel/sharding``: the
+encoder's and the MAE decoder's), whose kernels run their tensor-parallel
+forms with the all-reduces over the model group; DDP, ZeRO-1, the global
+batch's rows and draws and the loss's sums then run over the data group.
+A save gathers every shard on rank 0, which writes whole arrays in either
+format; a restore cuts them to the rank's shard, so a checkpoint moves
+between layouts and frameworks.
 
 With ``fig_dir`` ``train_network`` draws JAX's figures on the main process
 at each validation after the first: the training curves and, for a
@@ -61,10 +71,9 @@ from sky_embeddings_tpu_torch.eval.linear_probe import linear_probe
 from sky_embeddings_tpu_torch.models.mim import SkyMIM, build_mim_model
 from sky_embeddings_tpu_torch.ops.masking import simmim_batch_mask
 from sky_embeddings_tpu_torch.parallel import distributed, zero
-from sky_embeddings_tpu_torch.parallel.mesh import TP_REASON, local_sharding
-from sky_embeddings_tpu_torch.train.optim import jax_payload, pretrain_optimizer, restore_state
+from sky_embeddings_tpu_torch.parallel.mesh import local_sharding, tensor_parallel_mesh
+from sky_embeddings_tpu_torch.train.optim import pretrain_optimizer, restore_state, save_state
 from sky_embeddings_tpu_torch.train.schedules import cosine_annealing
-from sky_embeddings_tpu_torch.utils import checkpoint as ckpt
 from sky_embeddings_tpu_torch.utils.device import DTYPES, resolve_device
 from sky_embeddings_tpu_torch.utils.plotting import plot_batch, plot_batch_tiled, plot_progress
 from sky_embeddings_tpu_torch.utils.profiling import StepTimer
@@ -131,8 +140,8 @@ class MIMPretrainer:
         self.config = config
         self.device = resolve_device(device)
         training = config.training
-        if training.int("tensor_parallel", 1) > 1:
-            raise NotImplementedError(TP_REASON)
+        # [TRAINING] tensor_parallel: the blocks' weights sharded over the model axis
+        self.mesh = tensor_parallel_mesh(training.int("tensor_parallel", 1), self.device)
         # [TRAINING] zero_optimizer: the AdamW moments sharded over the ranks
         self.zero_optimizer = training.bool("zero_optimizer", False)
         if dtype is None:
@@ -141,7 +150,7 @@ class MIMPretrainer:
         # O(depth) less live memory), as the JAX trainer reads it
         self.model = build_mim_model(config, dtype=dtype, device=self.device,
                                      generator=torch.Generator().manual_seed(seed),
-                                     remat=training.bool("remat", False)).train()
+                                     remat=training.bool("remat", False), mesh=self.mesh).train()
         self.total_batch_iters = training.int("total_batch_iters")
         self.batch_size = training.int("batch_size")
         # MAE reads its keep count from mask_ratio (build_mim_model), not this
@@ -228,26 +237,17 @@ class MIMPretrainer:
     def save(self, path: str) -> None:
         """The trainer's state at ``path``: the port's file, or for a
         ``.ckpt.msgpack`` path the JAX package's (optax-form moments).
-        Every rank calls it; rank 0 writes, with ZeRO's moments collected."""
-        zero.consolidate(self.optimizer)
-        if not distributed.is_main():
-            return
-        if ckpt.is_jax_checkpoint(path):
-            ckpt.save_checkpoint(path, jax_payload(self.model, self.optimizer, "pretrain",
-                                                   self.step, self.seed, self.losses))
-            return
-        ckpt.save_checkpoint(path, {
-            "step": self.step,
-            "params": {k: v.detach().cpu() for k, v in self.model.state_dict().items()},
-            "opt_state": zero.state_dict(self.optimizer),
-            "rng": self.mask_gen.get_state(),
-            "losses": {k: [float(x) for x in v] for k, v in self.losses.items()},
-        })
+        Every rank calls it; rank 0 writes, with ZeRO's moments collected
+        and, under tensor parallelism, every shard gathered
+        (``optim.save_state``)."""
+        save_state(path, self.model, self.optimizer, "pretrain", self.step, self.seed,
+                   self.losses, self.mask_gen.get_state(), self.mesh)
 
     def restore(self, path: str) -> bool:
         """Resume from the port's checkpoint or the JAX package's
         (``optim.restore_state``); False without a file."""
-        out = restore_state(path, self.model, self.optimizer, self.mask_gen, self.seed)
+        out = restore_state(path, self.model, self.optimizer, self.mask_gen, self.seed,
+                            mesh=self.mesh)
         if out is None:
             return False
         _, self.step, losses = out
@@ -328,7 +328,9 @@ def train_network(
             if losses.get("val_lp_r2"):
                 msg.append(f"  lp r2 {losses['val_lp_r2'][-1]:.3f}")
             log_fn(" |".join(msg))
-            if fig_dir is not None and len(losses["batch_iters"]) > 1 and distributed.is_main():
+            tp = getattr(pretrainer, "mesh", None) is not None  # every rank reconstructs
+            if fig_dir is not None and len(losses["batch_iters"]) > 1 and (
+                    tp or distributed.is_main()):
                 draw_figures(pretrainer, val_batcher, fig_dir, model_name)
 
         due = distributed.checkpoint_due(cp_start, cp_time_minutes, validated)
@@ -346,16 +348,22 @@ def draw_figures(pretrainer, val_batcher, fig_dir: str, model_name: str) -> None
     ``<model_name>_progress.png`` from the losses and, for a ``SkyMIM`` with
     validation data, the reconstruction of the first validation batch at
     the current step, ``<model_name>_<step>iters.png`` (the first band) and,
-    with more than one band, ``..._tiled.png`` (all bands)."""
-    plot_progress(pretrainer.losses, savename=os.path.join(fig_dir, f"{model_name}_progress.png"))
-    if val_batcher is None or not isinstance(pretrainer.model, SkyMIM):
+    with more than one band, ``..._tiled.png`` (all bands). Under tensor
+    parallelism every rank calls it (the reconstruction's blocks all-reduce
+    over the model group) and the main process alone draws."""
+    recon = None
+    if val_batcher is not None and isinstance(pretrainer.model, SkyMIM):
+        first = next(iter(val_batcher.take(1)))
+        gen = torch.Generator(device=pretrainer.device).manual_seed(pretrainer.cur_iter)
+        recon = mim_reconstruct(pretrainer.model, first, gen,
+                                max_mask_ratio=pretrainer.max_mask_ratio)
+    if not distributed.is_main():
         return
-    step = pretrainer.cur_iter
-    first = next(iter(val_batcher.take(1)))
-    gen = torch.Generator(device=pretrainer.device).manual_seed(step)
-    pred, masked, orig = mim_reconstruct(pretrainer.model, first, gen,
-                                         max_mask_ratio=pretrainer.max_mask_ratio)
-    stem = os.path.join(fig_dir, f"{model_name}_{step}iters")
+    plot_progress(pretrainer.losses, savename=os.path.join(fig_dir, f"{model_name}_progress.png"))
+    if recon is None:
+        return
+    pred, masked, orig = recon
+    stem = os.path.join(fig_dir, f"{model_name}_{pretrainer.cur_iter}iters")
     plot_batch(orig, masked, pred, n_samples=5, savename=stem + ".png")
     if orig.shape[-1] > 1:  # all-band mosaic (reference plot_batch_tiled)
         plot_batch_tiled(orig, masked, pred, n_samples=5, savename=stem + "_tiled.png")

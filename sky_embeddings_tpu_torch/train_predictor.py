@@ -27,7 +27,10 @@ a host>``): each process restores or warm-starts from the same file, reads
 its own shard of both sets with ``batch_size // processes`` rows a batch
 (an error unless they divide), streams instead of device-caching, and only
 process 0 logs and writes checkpoints. ``[TRAINING] zero_optimizer = True``
-shards the ``ft`` and ``fs`` AdamW moments over the processes.
+shards the ``ft`` and ``fs`` AdamW moments over the processes. ``--set
+TRAINING.tensor_parallel=2`` splits the backbone's blocks over pairs of
+consecutive processes (``train/predictor.py``); the shards, rows and
+moments then split over the data axis (processes / 2).
 
 Like JAX's script it draws ``figures/<run>_progress.png`` at each
 validation after the first, on process 0, where matplotlib is installed;
@@ -42,7 +45,7 @@ import torch
 
 from sky_embeddings_tpu_torch.configuration import apply_overrides, load_config
 from sky_embeddings_tpu_torch.data.device_cache import build_cached_or_streaming_batcher
-from sky_embeddings_tpu_torch.parallel import distributed
+from sky_embeddings_tpu_torch.parallel import distributed, mesh
 from sky_embeddings_tpu_torch.train.predictor import PredictorTrainer, train_predictor_network
 from sky_embeddings_tpu_torch.utils.checkpoint import checkpoint_path, find_checkpoint
 from sky_embeddings_tpu_torch.utils.misc import build_train_argparser, select_training_indices
@@ -75,7 +78,7 @@ def main(argv=None) -> str:
     args = parser.parse_args(argv)
     # several processes (one per GPU): opt-in through SKY_DISTRIBUTED=1
     distributed.initialize_from_env(device=args.device)
-    n_proc, proc_id = distributed.process_count(), distributed.process_index()
+    n_proc = distributed.process_count()
     log = distributed.main_only(print)
     config_dir = os.path.join(REPO_DIR, "configs")
     model_dir = os.path.join(REPO_DIR, "models")
@@ -91,6 +94,9 @@ def main(argv=None) -> str:
     log(config.describe())
 
     trainer = PredictorTrainer(config, mae_config, device=device)
+    # the loaders shard over the data axis: under tensor_parallel the ranks
+    # of one model group read the same rows
+    n_data, data_id = mesh.data_count(), mesh.data_index()
     run = args.run_name or args.model_name
     model_filename = checkpoint_path(model_dir, run)  # written as the port's file
     best_filename = find_checkpoint(model_dir, run, best=True)
@@ -116,11 +122,12 @@ def main(argv=None) -> str:
             indices = select_training_indices(train_file, num_train, balanced=False)
         else:
             indices = list(range(num_train))
-    if trainer.batch_size % n_proc:
-        raise SystemExit(f"batch_size {trainer.batch_size} not divisible by {n_proc} processes")
-    batcher = dict(batch_size=trainer.batch_size // n_proc, img_size=img_size,
+    if trainer.batch_size % n_data:
+        raise SystemExit(f"batch_size {trainer.batch_size} not divisible by {n_data} "
+                         "data shards")
+    batcher = dict(batch_size=trainer.batch_size // n_data, img_size=img_size,
                    label_keys=data.list("label_keys"), device=trainer.device,
-                   process_count=n_proc, process_index=proc_id, log_fn=log)
+                   process_count=n_data, process_index=data_id, log_fn=log)
     train_batcher = build_cached_or_streaming_batcher(
         data, train_file, shuffle=True, indices=indices, num_workers=data.int("num_workers", 0),
         **batcher)

@@ -213,7 +213,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "utils.plotting", "train_predictor", "test_predictor", "semantic_validation",
                 "ops.jepa_masks", "models.jepa", "train.jepa", "pretrain_jepa", "models.cosmos",
                 "data.prefetch", "data.mask_generator", "jepa_validation", "parallel.distributed",
-                "parallel.mesh", "parallel.zero", "parallel.smoke", "cluster.queue_gpu",
+                "parallel.mesh", "parallel.zero", "parallel.smoke", "parallel.sharding",
+                "cluster.queue_gpu",
                 "cluster.launch_pretraining", "cluster.launch_predictor", "data_processing",
                 "data_processing.combine", "data_processing.create_h5",
                 "data_processing.cross_match", "data_processing.dedup",
@@ -237,17 +238,18 @@ def test_unported_model_options_raise():
 
     base = {"TRAINING": {}, "ARCHITECTURE": dict(
         img_size=16, num_channels=3, embed_dim=48, patch_size=4, model_type="simmim")}
-    # what is still unported raises, pointing at the ROADMAP
+    # both ported: with no process group, zero_optimizer is plain AdamW, and
+    # tensor_parallel = 2 meets JAX's create_mesh error on one device
     from sky_embeddings_tpu_torch.train.pretrain import MIMPretrainer
 
     for over in ({"tensor_parallel": "2"}, {"zero_optimizer": "True"}):
         training = dict(batch_size=2, total_batch_iters=1, init_lr=1e-3, final_lr_factor=10.0,
                         weight_decay=0.05, **over)
         cfg = Config.from_dict({**base, "DATA": {}, "TRAINING": training})
-        if "zero_optimizer" in over:  # ported: with no process group, plain AdamW
+        if "zero_optimizer" in over:
             assert type(MIMPretrainer(cfg, device="cpu").optimizer) is torch.optim.AdamW
             continue
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(ValueError, match="1 devices not divisible by model=2"):
             MIMPretrainer(cfg, device="cpu")
     # the scan layout is a naming layer: scan_blocks builds the loop layout,
     # and weights stacked over the blocks (encoder.blocks.block.*) load into it

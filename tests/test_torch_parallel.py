@@ -98,22 +98,33 @@ def test_create_mesh_divisibility_errors(data, model, err):
 
 
 @pytest.mark.parametrize("data", [None, 1])
-def test_create_mesh_refuses_tensor_parallelism(data):
-    with pytest.raises(NotImplementedError, match="tensor parallelism is not ported"):
-        create_mesh(data, 2, devices=[0, 1], device_type="cpu")
+def test_create_mesh_builds_the_tensor_parallel_layout(data):
+    """``model = 2`` over two ranks: one data index, the model axis the
+    consecutive ranks; without a process group the mesh is rank 0's view
+    and makes no groups (the groups under one: ``test_torch_tp.py``)."""
+    mesh = create_mesh(data, 2, devices=[0, 1], device_type="cpu")
+    assert (mesh.shape, mesh.mesh_dim_names, mesh.tp) == ((1, 2), ("data", "model"), 2)
+    assert (mesh.data_index, mesh.model_index, mesh.get_local_rank("data")) == (0, 0, 0)
+    assert mesh.data_group is None and mesh.model_group is None
+    four = create_mesh(None if data is None else 2 * data, 2, devices=[0, 1, 2, 3],
+                       device_type="cpu")
+    assert four.shape == (2, 2) and four.devices.tolist() == [[0, 1], [2, 3]]
 
 
 @pytest.mark.parametrize("trainer", ["mim", "predictor", "jepa"])
-def test_tensor_parallel_raises_with_the_reason(trainer):
-    over = ["TRAINING.tensor_parallel=2"]
-    with pytest.raises(NotImplementedError, match="residual add after proj and fc2"):
-        if trainer == "mim":
-            MIMPretrainer(apply_overrides(load_config("mim_tiny", CONFIGS), over), device="cpu")
-        elif trainer == "predictor":
-            PredictorTrainer(apply_overrides(load_config("z_tiny", CONFIGS), over),
-                             load_config("mim_tiny", CONFIGS), device="cpu")
-        else:
+def test_tensor_parallel_builds_or_raises_with_the_reason(trainer, ranks):
+    """``[TRAINING] tensor_parallel = 2`` on two ranks builds the MIM and
+    predictor trainers over a (1, 2) mesh with this rank's half of every
+    block (the ``ranks`` spawn); I-JEPA raises with the narrowed reason."""
+    if trainer == "jepa":
+        over = ["TRAINING.tensor_parallel=2"]
+        with pytest.raises(NotImplementedError, match="I-JEPA.*3 heads"):
             JEPATrainer(apply_overrides(load_config("jepa_tiny", CONFIGS), over), device="cpu")
+        return
+    for rank, r in enumerate(ranks["ranks"]):
+        built = r["tp_built"][trainer]
+        assert built["mesh"] == ((1, 2), 0, rank) and built["model_group"] == [0, 1]
+        assert built["qkv"] == (48, 72) and built["fc2"] == (96, 48) and built["patch"] == (48, 48)
 
 
 def test_one_process_arithmetic_is_unchanged():

@@ -218,5 +218,124 @@ def predictor_jepa_job(rank: int, p: dict) -> dict:
     out["jepa"] = {"losses": losses, "val": float(jepa.eval_batch(
         {"cutouts": local_rows(p["jepa_batches"][0], rank)})), "params": state(jepa.model),
         "target": state(jepa.target), "sharded": zero.is_sharded(jepa.optimizer)}
+    # the MIM and predictor trainers at tensor_parallel = 2: the mesh, the
+    # groups and this rank's shapes
+    from sky_embeddings_tpu_torch.train.pretrain import MIMPretrainer
+
+    out["tp_built"] = {}
+    for name, tr in (("mim", MIMPretrainer(mim_config(p["mim_cfg"], tensor_parallel=2),
+                                           device="cpu")),
+                     ("predictor", PredictorTrainer(mim_config(p["pred_cfg"], tensor_parallel=2),
+                                                    mim, device="cpu"))):
+        blk = tr.model.encoder.block0
+        out["tp_built"][name] = {
+            "mesh": (tr.mesh.shape, tr.mesh.data_index, tr.mesh.model_index),
+            "model_group": torch.distributed.get_process_group_ranks(tr.mesh.model_group),
+            "qkv": tuple(blk.attn.qkv.kernel.shape), "fc2": tuple(blk.ffn.fc2_kernel.shape),
+            "patch": tuple(tr.model.patch_embed.proj.kernel.shape)}
     return out
 
+
+
+def _tp_steps(tr, p: dict, key: str, rank_rows) -> dict:
+    """Three steps of a MIM trainer on this rank's rows of ``p[key]``'s
+    batches and maskings (SimMIM masks or MAE noise), then its losses, the
+    whole parameters (gathered over the model group) and the replicated
+    ones as this rank holds them."""
+    from sky_embeddings_tpu_torch.parallel.sharding import gather_to_main, shard_of
+
+    losses = []
+    for b, mk in zip(p[key]["batches"][:3], p[key]["maskings"][:3]):
+        m = torch.from_numpy(rank_rows(mk))
+        kw = {"mask": m} if tr.model.simmim else {"noise": m}
+        losses.append(float(tr.train_batch(rank_rows(b), **kw)))
+    local = state(tr.model)
+    return {"losses": losses, "params": gather_to_main(local, tr.mesh),
+            "replicated": {k: v for k, v in local.items() if shard_of(k) is None}}
+
+
+def tp_job(rank: int, p: dict) -> dict:
+    """The tensor-parallel checks of ``test_torch_tp.py`` on one rank of
+    ``tensor_parallel = 2`` (data 1 x model 2): the mesh and its groups;
+    three SimMIM and three MAE steps from the whole params, every rank on
+    the whole batch; the checkpoint in both formats, written by rank 0,
+    restored on both ranks (the next step bit-equal to the uninterrupted
+    one); three predictor ``ft`` steps and an ``lp`` evaluation."""
+    from sky_embeddings_tpu_torch.configuration import Config
+    from sky_embeddings_tpu_torch.parallel import distributed
+    from sky_embeddings_tpu_torch.parallel.sharding import gather_to_main, shard_state
+    from sky_embeddings_tpu_torch.train.predictor import PredictorTrainer
+    from sky_embeddings_tpu_torch.train.pretrain import MIMPretrainer
+
+    _patch_depth(p["depth"])
+    out: dict = {}
+    whole = lambda x: x  # noqa: E731  (one data index: every rank takes the whole batch)
+    for key in ("simmim", "mae"):
+        tr = MIMPretrainer(mim_config(p[key]["cfg"], tensor_parallel=2), dtype=torch.float32,
+                           device="cpu")
+        m = tr.mesh
+        out.setdefault("mesh", (m.shape, m.data_index, m.model_index, distributed.batch_rows(8),
+                                tr.forward is tr.model))
+        tr.model.load_state_dict(shard_state(p[key]["params"], m.model_index, m.tp))
+        out[key] = _tp_steps(tr, p, key, whole)
+        if key == "simmim":
+            paths = {fmt: os.path.join(p["out_dir"], "tp" + fmt)
+                     for fmt in (".ckpt.pt", ".ckpt.msgpack")}
+            for path in paths.values():
+                tr.save(path)
+            torch.distributed.barrier()
+            b, mk = p[key]["batches"][3], torch.from_numpy(p[key]["maskings"][3])
+            tr.train_batch(b, mask=mk)
+            uninterrupted = state(tr.model)
+            out["restored"] = {}
+            for fmt, path in paths.items():
+                fresh = MIMPretrainer(mim_config(p[key]["cfg"], tensor_parallel=2),
+                                      dtype=torch.float32, device="cpu")
+                assert fresh.restore(path) and fresh.cur_iter == 3
+                fresh.train_batch(b, mask=mk)
+                out["restored"][fmt] = all(torch.equal(v, uninterrupted[k])
+                                           for k, v in state(fresh.model).items())
+            # files written by one process (the port's and JAX's) restore cut
+            # to this rank's shard
+            out["from_one"] = {}
+            for fmt, (path, want) in p["one_files"].items():
+                fresh = MIMPretrainer(mim_config(p[key]["cfg"], tensor_parallel=2),
+                                      dtype=torch.float32, device="cpu")
+                assert fresh.restore(path)
+                mine = shard_state(want, m.model_index, m.tp)
+                out["from_one"][fmt] = all(torch.equal(v, mine[k])
+                                           for k, v in state(fresh.model).items())
+    mim = Config.from_dict(p["pred"]["mim_cfg"])
+    pred = PredictorTrainer(mim_config(p["pred"]["cfg"], tensor_parallel=2), mim,
+                            dtype=torch.float32, seed=2, device="cpu")
+    pred.model.load_state_dict(shard_state(p["pred"]["params"], pred.mesh.model_index, 2))
+    losses = [[float(v) for v in pred.train_batch(b)] for b in p["pred"]["batches"]]
+    val = [float(v) for v in pred.eval_batch(p["pred"]["batches"][0])]
+    local = state(pred.model)
+    out["pred"] = {"losses": losses, "val": val, "params": gather_to_main(local, pred.mesh)}
+    lp = PredictorTrainer(mim_config(p["pred"]["cfg"], tensor_parallel=2, train_method="lp"), mim,
+                          dtype=torch.float32, seed=2, device="cpu")
+    lp.model.load_state_dict(shard_state(p["pred"]["params"], lp.mesh.model_index, 2))
+    out["lp"] = [float(v) for v in lp.train_batch(p["pred"]["batches"][0])]
+    return out
+
+
+def tp_zero_job(rank: int, p: dict) -> dict:
+    """Three SimMIM steps at ``tensor_parallel = 2`` on four ranks (data 2 x
+    model 2) with ``zero_optimizer``: each data index on its rows of the
+    global batches; the moments sharded over the data group; a save in the
+    port's format."""
+    from sky_embeddings_tpu_torch.parallel import zero
+    from sky_embeddings_tpu_torch.parallel.sharding import shard_state
+    from sky_embeddings_tpu_torch.train.pretrain import MIMPretrainer
+
+    _patch_depth(p["depth"])
+    tr = MIMPretrainer(mim_config(p["simmim"]["cfg"], tensor_parallel=2, zero_optimizer=True),
+                       dtype=torch.float32, device="cpu")
+    m = tr.mesh
+    tr.model.load_state_dict(shard_state(p["simmim"]["params"], m.model_index, m.tp))
+    out = _tp_steps(tr, p, "simmim", lambda x: local_rows(x, m.data_index, m.shape[0]))
+    out.update(mesh=(m.shape, m.data_index, m.model_index), sharded=zero.is_sharded(tr.optimizer),
+               ddp=tr.forward is not tr.model)
+    tr.save(os.path.join(p["out_dir"], "tp_zero.ckpt.pt"))
+    return out

@@ -14,7 +14,9 @@ started as this file's ``--dp-worker``, gloo on the CPU), stubs ``torch.cuda``, 
 profiler, ``nvidia-smi``, the nvcc build and the C-only helpers (the TMA encode timer, the group plan, kernel 12's
 bit-equality launch), and runs ``main()`` with ``check`` logging instead of
 exiting. Phase 5k runs at batch 8, its queued runs as this file's
-``--queue-worker``, its data stages at 20 000 sources and a 256^2 patch.
+``--queue-worker``, its data stages at 20 000 sources and a 256^2 patch;
+phase 5l's TP forms at tiny shapes and its legs on ``mim_tiny`` and
+``z_tiny`` (fp32), its ranks as this file's ``--tp-worker``.
 Every wrapper takes its plain version on CPU tensors, so only the
 launch-count and full-size checks fail; anything else that fails, and any
 exception, is a fault of the script's own logic. About two minutes.
@@ -115,6 +117,13 @@ def shrink() -> None:
     cs.QUEUE_WORKER = [os.path.abspath(__file__), "--queue-worker"]
     cs.CATALOG = (20_000, 2_000, 200)
     cs.PATCH = (256, ("G", "R", "I", "Z"))
+    # phase 5l: the TP forms at tiny shapes; its legs fp32 tiny configs (the
+    # bf16 stand-ins' heads of 4 are refused under tensor parallelism), its
+    # ranks this file's --tp-worker
+    cs.TP_SHAPES = (("mim_32", 2, 17, 48, 12, 192, 0), ("mae", 2, 20, 48, 12, 192, 5))
+    cs.TP_LEGS = (("mim_tiny", 2), ("z_tiny", 2))
+    cs.TOL_TP = dict.fromkeys(("mim_tiny", "z_tiny"), (1e-1, 1e-1, 1e-1))
+    cs.TP_WORKER = [os.path.abspath(__file__), "--tp-worker"]
 
 
 _load = conf.load_config
@@ -248,4 +257,9 @@ if __name__ == "__main__":
         shrink()
         stub()
         sys.exit(cs.queue_worker(sys.argv[2]))
+    if len(sys.argv) == 3 and sys.argv[1] == "--tp-worker":  # one rank of phase 5l
+        torch.set_num_threads(2)
+        shrink()
+        stub()
+        sys.exit(cs.tp_worker(sys.argv[2]))
     sys.exit(main())
