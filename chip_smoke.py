@@ -273,17 +273,24 @@ failing loudly (any failure exits non-zero and prints no result line):
 5l. tensor parallelism (``parallel/sharding.py``; :func:`tp_phase`): the
    tensor-parallel forms of K2, kernel 4, K1 and kernel 8 (each split at
    the all-reduce into the rank's half and a finish), bf16 and fp32,
-   against the unsharded plain block at mim_32's shapes and, masked, at
-   N = 68, seg_len = 17, both ranks' halves in one process, the partials
-   summed; then ``mim_32`` as shipped at full depth and width, the
-   predictor's ``z_struct_ft_512`` (bf16 ``ft``) and ``lp_1`` (fp32
-   ``lp``) and ``mim_tiny`` (fp32) at ``tensor_parallel = 2`` on two
-   ``--tp-worker`` processes (gloo on one card, NCCL across two) against
-   one process: gradients, losses and parameters within TOL_TP, the
-   replicated parameters bit-equal across the ranks after every step,
-   each rank's launches the predicted ones, the ranks' save restored by
-   one process bit-equal and each rank's restored step bit-equal; step
-   ms, collectives' ms and share, device ms and peak GB per rank;
+   against the unsharded plain block at mim_32's shapes, masked at N = 68,
+   seg_len = 17, and at jepa_struct's ViT-S encoder (3 local heads of 64,
+   F / 2 = 768, B = 256 over the 64-token grid, which is also its context
+   budget), both ranks' halves in one process, the partials summed; then
+   ``mim_32`` as shipped at full depth and width, the predictor's
+   ``z_struct_ft_512`` (bf16 ``ft``) and ``lp_1`` (fp32 ``lp``),
+   ``mim_tiny`` (fp32), ``jepa_struct`` as shipped (its encoder and EMA
+   target split, its 3-head predictor whole on both ranks) and
+   ``mae_tiny`` (fp32, its one-head decoder whole) at ``tensor_parallel =
+   2`` on two ``--tp-worker`` processes (gloo on one card, NCCL across two)
+   against one process: gradients, losses, parameters (and the EMA
+   target's) within TOL_TP, the replicated parameters (the whole blocks'
+   and the target's too) bit-equal across the ranks after every step, each
+   rank's launches the predicted ones (the TP forms in the split blocks,
+   K2, kernel 4, K1 and kernel 8 in the whole ones), the ranks' mim_32 and
+   jepa_struct saves restored by one process bit-equal and each rank's
+   restored step bit-equal; step ms, collectives' ms and share, device ms
+   and peak GB per rank;
 5b. the ``Attention`` module (``models/layers.Attention``, the only caller of
    kernels 12 and 13, as in JAX) at ViT-B width, B=64, in bf16 and at its
    default fp32: one forward and ``backward()`` through autograd with the
@@ -601,18 +608,27 @@ DP_WORKER = [os.path.abspath(__file__), "--dp-worker"]
 # phase 5l, tensor parallelism. The four TP forms (K2, kernel 4, K1, kernel
 # 8 split at the all-reduce), bf16 and fp32, against the unsharded plain
 # block at TP_SHAPES (tag, B, N, D, heads, F, seg_len): mim_32's (8 local
-# heads of 64, F / 2 = 2 048) and, masked, the MAE encoder's at N = 68,
-# seg_len = 17; both ranks' halves in one process, the partials summed,
-# then finished (TOL_FWD, TOL_BWD; the comparisons' launches uncounted).
-# Then TP_RANKS processes at tensor_parallel = 2 (--tp-worker; gloo on one
-# card, NCCL across cards) take TP_LEGS (config, steps) as shipped: mim_32
-# at full depth and width (ViT-L, remat, RA/Dec, bf16, B = 32), the
-# predictor's bf16 ft and fp32 lp, and mim_tiny in fp32 (the fp32
-# backward forms), against one process from the same weights, batches
-# and draws.
-TP_SHAPES = (("mim_32", 32, 66, 1024, 16, 4096, 0), ("mae", 32, 68, 768, 12, 3072, 17))
+# heads of 64, F / 2 = 2 048), masked, the MAE encoder's at N = 68,
+# seg_len = 17, and jepa_struct's ViT-S encoder (3 local heads of 64, F / 2
+# = 768; B = 256 over the 64-token grid, the target's sequence and the
+# context budget alike); both ranks' halves in one process, the partials
+# summed, then finished (TOL_FWD, TOL_BWD; the comparisons' launches
+# uncounted), each form timed on one rank's shard at the TP_TIMED shapes
+# in bf16. Then TP_RANKS processes at tensor_parallel = 2 (--tp-worker;
+# gloo on one card, NCCL across cards) take TP_LEGS (config, steps) as
+# shipped: mim_32 at full depth and width (ViT-L, remat, RA/Dec, bf16, B =
+# 32), the predictor's bf16 ft and fp32 lp, mim_tiny in fp32 (the fp32
+# backward forms), jepa_struct (ViT-S depth 12, 5 bands, the 192-wide
+# 3-head predictor whole on both ranks, bf16, B = 256) and mae_tiny (fp32,
+# the one-head decoder whole), against one process from the same weights,
+# batches and draws; the TP_CKPT legs' saves restored.
+TP_SHAPES = (("mim_32", 32, 66, 1024, 16, 4096, 0), ("mae", 32, 68, 768, 12, 3072, 17),
+             ("jepa_struct", 256, 64, 384, 6, 1536, 0))
+TP_TIMED = ("mim_32", "jepa_struct")
 TP_RANKS = 2
-TP_LEGS = (("mim_32", 3), ("z_struct_ft_512", 3), ("lp_1", 3), ("mim_tiny", 3))
+TP_LEGS = (("mim_32", 3), ("z_struct_ft_512", 3), ("lp_1", 3), ("mim_tiny", 3),
+           ("jepa_struct", 3), ("mae_tiny", 3))
+TP_CKPT = ("mim_32", "jepa_struct")
 # two ranks against one process: the same arithmetic but for where the
 # proj and fc2 products' fp32 sums split (each rank sums its half of K, the
 # all-reduce adds the halves) and the local GEMMs' plans, so the runs part
@@ -625,10 +641,16 @@ TP_LEGS = (("mim_32", 3), ("z_struct_ft_512", 3), ("lp_1", 3), ("mim_tiny", 3))
 # gradients 2.774e-2 at the RA/Dec Siren's first kernel (it sums the batch
 # in bf16), 3 steps' losses 2.755e-4, parameters 5.578e-4; ft 4.048e-3 /
 # 2.312e-5 / 1.072e-4; lp_1 (fp32) 3.282e-6 / 0 / 2.105e-6; mim_tiny
-# (fp32) 3.397e-7 / 0 / 6.147e-6. A gap measured 0 gets two fp32 ulps,
-# 2.5e-7, as §2 of PERF.md does.
+# (fp32) 3.397e-7 / 0 / 6.147e-6; jepa_struct 2.702e-3 at the patch
+# embedding (it sums the batch in bf16) / 3.298e-5 / 6.941e-4, its EMA
+# target 6.766e-6; mae_tiny (fp32, its decoder whole) 3.304e-7 / 0 /
+# 1.695e-5. A gap measured 0 gets two fp32 ulps, 2.5e-7, as §2 of PERF.md
+# does.
 TOL_TP = {"mim_32": (5.5e-2, 5.5e-4, 1.1e-3), "z_struct_ft_512": (8e-3, 4.6e-5, 2.2e-4),
-          "lp_1": (6.6e-6, 2.5e-7, 4.2e-6), "mim_tiny": (7e-7, 2.5e-7, 1.23e-5)}
+          "lp_1": (6.6e-6, 2.5e-7, 4.2e-6), "mim_tiny": (7e-7, 2.5e-7, 1.23e-5),
+          "jepa_struct": (5.4e-3, 6.6e-5, 1.4e-3), "mae_tiny": (6.6e-7, 2.5e-7, 3.4e-5)}
+# the EMA target's parameters after the steps (max |a - b|), where a leg has one
+TOL_TP_TARGET = {"jepa_struct": 1.4e-5}
 # the command that runs one rank of phase 5l (its spec file appended)
 TP_WORKER = [os.path.abspath(__file__), "--tp-worker"]
 
@@ -2266,18 +2288,76 @@ def _tp_data(cfg_name, n_batches, seed):
 
 def _tp_trainer(cfg_name, dev, tp):
     """Phase 5l's trainer of a config as shipped (its dtype) at
-    ``tensor_parallel = tp``, seed 0; a predictor config fresh."""
+    ``tensor_parallel = tp``, seed 0; a predictor config fresh; an I-JEPA
+    config (one with a ``[MASK]`` section) its ``JEPATrainer``."""
     from sky_embeddings_tpu_torch.configuration import apply_overrides, load_config
+    from sky_embeddings_tpu_torch.train.jepa import JEPATrainer
     from sky_embeddings_tpu_torch.train.predictor import PredictorTrainer
     from sky_embeddings_tpu_torch.train.pretrain import MIMPretrainer
 
     cfg_dir = os.path.join(ROOT, "configs")
     cfg = apply_overrides(load_config(cfg_name, cfg_dir), [f"TRAINING.tensor_parallel={tp}"],
                           cfg_name)
+    if "MASK" in cfg:
+        return JEPATrainer(cfg, seed=0, device=dev)
     if cfg.pretrained_mae_name():
         return PredictorTrainer(cfg, load_config(cfg.pretrained_mae_name(), cfg_dir), seed=0,
                                 device=dev)
     return MIMPretrainer(cfg, seed=0, device=dev)
+
+
+def _tp_modules(tr) -> list:
+    """A trainer's sharded modules: its model, and an I-JEPA trainer's EMA
+    target."""
+    return [tr.model] + ([tr.target] if hasattr(tr, "target") else [])
+
+
+def _tp_whole(tr) -> dict:
+    """A trainer's state: ``params`` and, for I-JEPA, ``target`` (whole
+    arrays in one process; this rank's shards under tensor parallelism)."""
+    return dict(zip(("params", "target"), (m.state_dict() for m in _tp_modules(tr))))
+
+
+def _block_tally(tr, tp):
+    """Phase 5l's prediction of a rank's block launches, read from one
+    process's run: forward hooks on every ``Block`` of the trainer's model
+    (and EMA target) count, for the blocks ``tp`` ranks split and for those
+    they leave whole (``parallel/sharding.split_blocks``), the forward
+    calls (each a forward kernel launch, remat's replays too, which stop
+    inside the forward once the backward has its tensors: so a pre-hook
+    counts them) and, through a hook on the output's gradient, the backward
+    passes (each a backward kernel launch), with the packed-segment ones
+    apart. Returns the tally and the hooks' handles."""
+    from sky_embeddings_tpu_torch.models.layers import Block
+    from sky_embeddings_tpu_torch.parallel.sharding import split_blocks
+
+    tally = {f"{kind}_{what}": 0 for kind in ("split", "whole")
+             for what in ("fwd", "fwd_seg", "bwd", "bwd_seg")}
+    handles = []
+
+    def seg_of(args):
+        return int(len(args) > 2 and 0 < args[2] < args[0].shape[1])
+
+    def hooks(kind):
+        def before(mod, args):  # remat's replay stops inside the forward: counted here
+            tally[f"{kind}_fwd"] += 1
+            tally[f"{kind}_fwd_seg"] += seg_of(args)
+
+        def after(mod, args, out):
+            if out.requires_grad:
+                def on_backward(g, seg=seg_of(args)):
+                    tally[f"{kind}_bwd"] += 1
+                    tally[f"{kind}_bwd_seg"] += seg
+                out.register_hook(on_backward)
+        return before, after
+
+    for module in _tp_modules(tr):
+        split = split_blocks(module, tp)
+        for name, b in module.named_modules():
+            if isinstance(b, Block):
+                before, after = hooks("split" if name in split else "whole")
+                handles += [b.register_forward_pre_hook(before), b.register_forward_hook(after)]
+    return tally, handles
 
 
 def _tp_steps(tr, batches, zero_counters, launch_counts):
@@ -2285,12 +2365,12 @@ def _tp_steps(tr, batches, zero_counters, launch_counts):
     just after; wall ms a step; step 1's gradients; under tensor
     parallelism the collectives' seconds a step (the model group's
     all-reduces timed on the host) and a digest of the replicated
-    parameters after every step."""
+    parameters (an I-JEPA trainer's EMA target's too) after every step."""
     import hashlib
 
     import torch
 
-    from sky_embeddings_tpu_torch.parallel.sharding import shard_of
+    from sky_embeddings_tpu_torch.parallel.sharding import shard_of, split_of
 
     mesh = getattr(tr, "mesh", None)
     coll = [0.0]
@@ -2317,9 +2397,11 @@ def _tp_steps(tr, batches, zero_counters, launch_counts):
             grads1 = {n: p.grad.detach().clone() for n, p in tr.model.named_parameters()
                       if p.grad is not None}
         h = hashlib.sha256()
-        for n, v in tr.model.state_dict().items():
-            if shard_of(n) is None:
-                h.update(v.detach().cpu().contiguous().view(torch.uint8).numpy().tobytes())
+        for module in _tp_modules(tr):
+            split = split_of(module)
+            for n, v in module.state_dict().items():
+                if shard_of(n, split) is None:
+                    h.update(v.detach().cpu().contiguous().view(torch.uint8).numpy().tobytes())
         digests.append(h.hexdigest())
     if mesh is not None:
         mesh.all_reduce_model = reduce
@@ -2356,17 +2438,17 @@ def tp_worker(spec_path: str) -> int:
     """One rank of phase 5l (started by :func:`tp_phase` with its ``SKY_*``
     variables): each leg of TP_LEGS at tensor_parallel = TP_RANKS on the
     global batches (:func:`_tp_steps`), step 1's gradients and the final
-    parameters gathered on rank 0, peak memory; for mim_32 also a save,
-    the next step uninterrupted and from a restore, and the device ms of a
-    step. Writes its results as JSON, and rank 0 its tensors, under the
-    spec's directory."""
+    parameters (and EMA target) gathered on rank 0, peak memory; for the
+    TP_CKPT legs also a save, the next step uninterrupted and from a
+    restore, and the device ms of a step. Writes its results as JSON, and
+    rank 0 its tensors, under the spec's directory."""
     with open(spec_path) as f:
         spec = json.load(f)
     sys.path.insert(0, ROOT)
     import torch
 
     from sky_embeddings_tpu_torch.parallel import distributed
-    from sky_embeddings_tpu_torch.parallel.sharding import gather_to_main
+    from sky_embeddings_tpu_torch.parallel.sharding import gather_to_main, split_of
 
     check(distributed.initialize_from_env(backend=spec["backend"], device=spec["device"]),
           "the SKY_* contract starts the process group")
@@ -2383,24 +2465,27 @@ def tp_worker(spec_path: str) -> int:
         torch.cuda.reset_peak_memory_stats(dev)
         leg, grads1 = _tp_steps(tr, glob[:steps], zero_counters, launch_counts)
         leg["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
-        grads1 = gather_to_main(grads1, tr.mesh)
-        params = gather_to_main(tr.model.state_dict(), tr.mesh)
+        grads1 = gather_to_main(grads1, tr.mesh, split_of(tr.model))
+        whole = {k: gather_to_main(sd, tr.mesh, split_of(m))
+                 for (k, sd), m in zip(_tp_whole(tr).items(), _tp_modules(tr))}
         if rank == 0:
-            tensors[cfg_name] = {"grads1": grads1, "params": params}
-        if cfg_name == spec["legs"][0][0]:
-            path = os.path.join(spec["out"], "tp.ckpt.pt")
+            tensors[cfg_name] = {"grads1": grads1, **whole}
+        if cfg_name in spec["ckpt"]:
+            path = os.path.join(spec["out"], f"tp_{cfg_name}.ckpt.pt")
             tr.save(path)  # every rank: the shards gathered, rank 0 writes whole arrays
             torch.distributed.barrier()
             nxt = glob[steps]
             leg["next_loss"] = _loss_of(tr.train_batch(nxt))
-            uninterrupted = {k: v.clone() for k, v in tr.model.state_dict().items()}
+            uninterrupted = {k: {n: v.clone() for n, v in sd.items()}
+                             for k, sd in _tp_whole(tr).items()}
             fresh = _tp_trainer(cfg_name, dev, TP_RANKS)
             check(fresh.restore(path) and fresh.cur_iter == steps, "the ranks restore the file")
             restored = []
             leg["device_ms_per_step"] = _tp_device_ms(lambda: restored.append(
                 _loss_of(fresh.train_batch(nxt))))  # the restored step, profiled
             leg["restored_bit_equal"] = restored == [leg["next_loss"]] and all(
-                torch.equal(v, uninterrupted[k]) for k, v in fresh.model.state_dict().items())
+                torch.equal(v, uninterrupted[k][n]) for k, sd in _tp_whole(fresh).items()
+                for n, v in sd.items())
             del fresh, uninterrupted
         res["legs"][cfg_name] = leg
         del tr
@@ -2459,10 +2544,11 @@ def tp_kernels(dev, timings, cuda_ms, rel_err, bound_ms):
     both ranks' halves of each TP form on their shards, the partials summed
     (the all-reduce's sum) and finished, against the plain whole block
     (TOL_FWD, TOL_BWD per output). Returns the max-rel per form and case
-    and a function that times, at mim_32's bf16 shape, each form on one
-    rank's shard (its half and its finish) beside its plain version, with
-    the bound of one rank's products and core and the bytes it must move,
-    into ``timings``: :func:`tp_phase` calls it once its ranks are done."""
+    and a function that times, at each TP_TIMED shape in bf16, each form on
+    one rank's shard (its half and its finish) beside its plain version,
+    with the bound of one rank's products and core and the bytes it must
+    move, into ``timings``: :func:`tp_phase` calls it once its ranks are
+    done."""
     import torch
 
     from sky_embeddings_tpu_torch.ops.kernels import attn_block as ab
@@ -2524,17 +2610,18 @@ def tp_kernels(dev, timings, cuda_ms, rel_err, bound_ms):
                 check(finite and fwd_err[0] <= TOL_FWD and worst <= TOL_BWD,
                       f"{name} {tag} {dname}: the TP form against the unsharded plain block")
                 gaps[f"{name}_{tag}_{dname}"] = {"fwd": fwd_err[0], "bwd": worst}
-                if tag != "mim_32" or dt != torch.bfloat16:
+                if tag not in TP_TIMED or dt != torch.bfloat16:
                     continue
-                timers.extend(_tp_timers(name, x, scale, bias, g, w, shards[0],
-                                         (fwd_err, bwd_err, worst), B, N, D, Hl, Fl, hd, seg))
+                timers.extend((tag, t_) for t_ in _tp_timers(
+                    name, x, scale, bias, g, w, shards[0], (fwd_err, bwd_err, worst), B, N, D, Hl,
+                    Fl, hd, seg))
             torch.cuda.empty_cache()
 
     def time_forms():
         """The timings, run once the card is otherwise idle."""
-        for key, ops, nbytes, kern_fn, plain_fn, (rel, abs_err) in timers:
+        for tag, (key, ops, nbytes, kern_fn, plain_fn, (rel, abs_err)) in timers:
             b_ms, b_by = bound_ms(ops, nbytes, PEAK_BF16)
-            timings[(key, "mim_32")] = {
+            timings[(key, tag)] = {
                 "max_rel_err": rel, "max_abs_err": abs_err, "ms": cuda_ms(kern_fn, 20),
                 "plain_ms": cuda_ms(plain_fn, 5), "bound_ms": b_ms, "bound_by": b_by,
                 "library_ms": None}
@@ -2548,17 +2635,20 @@ def tp_phase(dev, zero_counters, launch_counts, timings, cuda_ms, rel_err, bound
 
     :func:`tp_kernels`; then each TP_LEGS config as shipped in one process
     (tensor_parallel = 1), counters zeroed just before its steps and read
-    just after; then TP_RANKS processes (:func:`tp_worker`, gloo on one
-    card, NCCL where the host has TP_RANKS cards) take the same legs at
-    tensor_parallel = TP_RANKS from the same seed, batches and draws.
-    Held: step 1's gradients, the losses and the parameters against one
-    process within TOL_TP; the replicated parameters' digests equal across
-    the ranks after every step; each rank's launches exact: every TP
-    form's (and its finish's) the predicted count, a launch a block where
-    one process launches its whole forward (K2 or kernel 2, K1 or kernel
-    6) and its backward (kernel 4 or 3, 8 or 7), every other kernel's 0;
-    the ranks' mim_32 save restored by one process bit-equal to the
-    gathered parameters, and each rank's restored step bit-equal to its
+    just after, its blocks' calls tallied (:func:`_block_tally`); then
+    TP_RANKS processes (:func:`tp_worker`, gloo on one card, NCCL where the
+    host has TP_RANKS cards) take the same legs at tensor_parallel =
+    TP_RANKS from the same seed, batches and draws. Held: step 1's
+    gradients, the losses, the parameters and an I-JEPA leg's EMA target
+    against one process within TOL_TP and TOL_TP_TARGET; the replicated
+    parameters' digests (the whole blocks' and the target's included)
+    equal across the ranks after every step; each rank's launches exact
+    against the prediction from one process's tally: a split block's
+    forward and backward passes launch the TP forms (and their finishes), a
+    whole block's K2 and kernel 4, K1 and kernel 8, every other kernel 0,
+    and the tally's passes equal one process's block launches; the ranks'
+    TP_CKPT saves restored by one process bit-equal to the gathered
+    parameters and target, and each rank's restored step bit-equal to its
     uninterrupted one."""
     import torch
 
@@ -2570,7 +2660,7 @@ def tp_phase(dev, zero_counters, launch_counts, timings, cuda_ms, rel_err, bound
     n_dev = torch.cuda.device_count()
     backend = "nccl" if n_dev >= TP_RANKS else "gloo"
     spec = {"backend": backend, "device": DEVICE, "seed": 24, "out": work,
-            "legs": [list(leg) for leg in TP_LEGS]}
+            "legs": [list(leg) for leg in TP_LEGS], "ckpt": list(TP_CKPT)}
     spec_path = os.path.join(work, "spec.json")
     with open(spec_path, "w") as f:
         json.dump(spec, f)
@@ -2590,8 +2680,13 @@ def tp_phase(dev, zero_counters, launch_counts, timings, cuda_ms, rel_err, bound
         for cfg_name, steps in TP_LEGS:
             tr = _tp_trainer(cfg_name, dev, 1)
             glob = _tp_data(cfg_name, steps, 24)
+            tally, handles = _block_tally(tr, TP_RANKS)
             leg, grads1 = _tp_steps(tr, glob, zero_counters, launch_counts)
-            leg["state"] = {k: v.detach().clone() for k, v in tr.model.state_dict().items()}
+            for h_ in handles:
+                h_.remove()
+            leg["tally"] = tally
+            leg["whole"] = {k: {n: v.detach().clone() for n, v in sd.items()}
+                            for k, sd in _tp_whole(tr).items()}
             leg["grads1"], leg["lr_sum"] = grads1, 2 * _lr_sum(tr, steps)
             ones[cfg_name] = leg
             del tr
@@ -2618,21 +2713,39 @@ def tp_phase(dev, zero_counters, launch_counts, timings, cuda_ms, rel_err, bound
             worst = max(gaps1, key=gaps1.get)
             loss_gap = max(abs(a - b) / abs(b) for a, b in zip(legs[0]["losses"], one["losses"]))
             rest, keys = param_gaps({k: v.to(dev) for k, v in t_[cfg_name]["params"].items()},
-                                    one["state"])
-            # the prediction: each of one process's block launches becomes the
-            # TP form's; nothing else launches
-            o_l = one["launches"]
-            f32 = "_f32"
-            want_tp = {
-                "attn_block_tp_fwd": o_l["fused_attn_block"] + o_l["attn_block_fwd_stash"],
-                "attn_block_tp_bwd": o_l["attn_block_bwd"] + o_l["attn_block_bwd_stash"],
-                "mlp_block_tp_fwd": o_l["fused_mlp_block"] + o_l["mlp_block_fwd_stash"],
-                "mlp_block_tp_bwd": o_l["mlp_block_bwd"] + o_l["mlp_block_bwd_stash"]}
-            dtype_f32 = o_l["fused_attn_block" + f32] + o_l["attn_block_fwd_stash" + f32] > 0
+                                    one["whole"]["params"])
+            target_gap = None
+            if "target" in one["whole"]:
+                target_gap = param_gaps({k: v.to(dev) for k, v in t_[cfg_name]["target"].items()},
+                                        one["whole"]["target"])
+            # the prediction: each block pass of one process becomes a TP
+            # form's where the block splits and K2, kernel 4, K1, kernel 8's
+            # where it stays whole; nothing else launches
+            o_l, ty = one["launches"], one["tally"]
+            passes = {"fwd": (o_l["fused_attn_block"] + o_l["attn_block_fwd_stash"],
+                              o_l["fused_mlp_block"] + o_l["mlp_block_fwd_stash"]),
+                      "bwd": (o_l["attn_block_bwd"] + o_l["attn_block_bwd_stash"],
+                              o_l["mlp_block_bwd"] + o_l["mlp_block_bwd_stash"]
+                              + o_l["mlp_block_bwd_stream"])}
+            for d_, (attn_n, mlp_n) in passes.items():
+                check(attn_n == mlp_n == ty[f"split_{d_}"] + ty[f"whole_{d_}"],
+                      f"{cfg_name}: one process's block {d_} launches ({attn_n}, {mlp_n}) are the "
+                      f"tally's {ty}")
+            dtype_f32 = o_l["fused_attn_block_f32"] + o_l["attn_block_fwd_stash_f32"] > 0
+            per = {"attn_block_tp_fwd": ty["split_fwd"], "mlp_block_tp_fwd": ty["split_fwd"],
+                   "attn_block_tp_bwd": ty["split_bwd"], "mlp_block_tp_bwd": ty["split_bwd"],
+                   "fused_attn_block": ty["whole_fwd"], "fused_mlp_block": ty["whole_fwd"],
+                   "attn_block_bwd": ty["whole_bwd"], "mlp_block_bwd": ty["whole_bwd"]}
             want = {k: 0 for k in legs[0]["launches"]}
-            for k, n_ in want_tp.items():
-                want[k] = want[k + "_finish"] = n_
+            for k, n_ in per.items():
+                want[k] = n_
                 want[k + "_f32"] = n_ if dtype_f32 else 0
+                if "_tp_" in k:
+                    want[k + "_finish"] = n_
+            want.update(attn_block_tp_fwd_seg=ty["split_fwd_seg"],
+                        attn_block_tp_bwd_seg=ty["split_bwd_seg"],
+                        fused_attn_block_seg=ty["whole_fwd_seg"],
+                        attn_block_bwd_seg=ty["whole_bwd_seg"])
             for r, leg in enumerate(legs):
                 check(leg["losses"] == legs[0]["losses"], f"{cfg_name}: the ranks' losses equal")
                 check(leg["replicated_digests"] == legs[0]["replicated_digests"],
@@ -2644,11 +2757,13 @@ def tp_phase(dev, zero_counters, launch_counts, timings, cuda_ms, rel_err, bound
             rec = {"grad_gap": gaps1[worst], "grad_gap_leaf": worst, "loss_gap": loss_gap,
                    "param_gap": rest, "key_bias_gap": keys, "lr_sum": one["lr_sum"],
                    "one_process_losses": one["losses"], "launches_per_rank": legs[0]["launches"],
-                   "one_process_launches": o_l,
+                   "one_process_launches": o_l, "block_tally": ty,
                    "wall_ms_per_step": [leg["wall_ms_per_step"] for leg in legs],
                    "one_process_wall_ms_per_step": one["wall_ms_per_step"],
                    "collective_ms_per_step": [leg["collective_ms_per_step"] for leg in legs],
                    "peak_gb_per_rank": [leg["peak_gb"] for leg in legs], "backend": backend}
+            if target_gap is not None:
+                rec["target_gap"], rec["target_key_bias_gap"] = target_gap
             share = [sum(c) / sum(w) for c, w in zip(rec["collective_ms_per_step"],
                                                       rec["wall_ms_per_step"])]
             rec["collective_share"] = share
@@ -2656,30 +2771,41 @@ def tp_phase(dev, zero_counters, launch_counts, timings, cuda_ms, rel_err, bound
                 rec["restored_bit_equal"] = [leg["restored_bit_equal"] for leg in legs]
                 rec["device_ms_per_step"] = [leg["device_ms_per_step"] for leg in legs]
             out["legs"][cfg_name] = rec
+            target_msg = ("" if target_gap is None else
+                          f", EMA target {target_gap[0]:.3e} (bar {TOL_TP_TARGET[cfg_name]}), its "
+                          f"key biases {target_gap[1]:.3e}")
             print(f"tp {TP_RANKS} ranks ({cfg_name} as shipped, {steps} steps, {backend}): step 1's "
                   f"gradients {gaps1[worst]:.3e} at {worst} (bar {tol_g}), losses {loss_gap:.3e} "
                   f"(bar {tol_l}), parameters {rest:.3e} (bar {tol_p}), key biases {keys:.3e} (bar "
-                  f"{one['lr_sum']:.3e}); launches per rank "
+                  f"{one['lr_sum']:.3e}){target_msg}; block passes (split, whole) fwd "
+                  f"({ty['split_fwd']}, {ty['whole_fwd']}) bwd ({ty['split_bwd']}, "
+                  f"{ty['whole_bwd']}); launches per rank "
                   f"{ {k: v for k, v in legs[0]['launches'].items() if v} }; step ms per rank "
                   f"{rec['wall_ms_per_step']} (one process {one['wall_ms_per_step']}); collectives "
                   f"ms {rec['collective_ms_per_step']}, share {[round(x, 4) for x in share]}; "
                   f"device ms {rec.get('device_ms_per_step')}; peak GB per rank "
                   f"{rec['peak_gb_per_rank']}; {label}; {smi}", flush=True)
-            for bar, got in ((tol_g, gaps1[worst]), (tol_l, loss_gap), (tol_p, rest)):
+            for bar, got in ((tol_g, gaps1[worst]), (tol_l, loss_gap), (tol_p, rest),
+                             (TOL_TP_TARGET.get(cfg_name), target_gap and target_gap[0])):
                 check(bar is None or got <= bar, f"{cfg_name}: {TP_RANKS} ranks against one process")
-            check(keys <= one["lr_sum"], f"{cfg_name}: key biases within twice the summed lr")
-        first = TP_LEGS[0][0]
-        check(all(out["legs"][first]["restored_bit_equal"]),
-              "each rank's restored step bit-equal to its uninterrupted one")
-        back = _tp_trainer(first, dev, 1)
-        check(back.restore(os.path.join(work, "tp.ckpt.pt")) and back.cur_iter == TP_LEGS[0][1],
-              "one process restores the ranks' file")
-        same = all(torch.equal(v.cpu(), t_[first]["params"][k]) for k, v in
-                   back.model.state_dict().items())
-        out["one_process_restore_bit_equal"] = same
-        print(f"tp: the ranks' {first} save restored by one process bit-equal {same}", flush=True)
-        check(same, "the TP save restores into one process bit-equal")
-        del back
+            check(keys <= one["lr_sum"] and (target_gap is None or target_gap[1] <= one["lr_sum"]),
+                  f"{cfg_name}: key biases within twice the summed lr")
+        out["restored"] = {}
+        for name in TP_CKPT:
+            steps = dict(TP_LEGS)[name]
+            check(all(out["legs"][name]["restored_bit_equal"]),
+                  f"{name}: each rank's restored step bit-equal to its uninterrupted one")
+            back = _tp_trainer(name, dev, 1)
+            check(back.restore(os.path.join(work, f"tp_{name}.ckpt.pt")) and back.cur_iter == steps,
+                  f"{name}: one process restores the ranks' file")
+            same = all(torch.equal(v.cpu(), t_[name][k][n]) for k, sd in _tp_whole(back).items()
+                       for n, v in sd.items())
+            out["restored"][name] = same
+            print(f"tp: the ranks' {name} save ({', '.join(_tp_whole(back))}) restored by one "
+                  f"process bit-equal {same}", flush=True)
+            check(same, f"{name}: the TP save restores into one process bit-equal")
+            del back
+        out["one_process_restore_bit_equal"] = all(out["restored"].values())
         out["launches"] = {f"rank{r['rank']}_{c}": leg["launches"] for r in ranks
                            for c, leg in r["legs"].items()}
         out["backend"], out["label"] = backend, label

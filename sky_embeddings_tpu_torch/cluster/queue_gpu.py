@@ -12,9 +12,10 @@ and ``SKY_PROCESS_ID=r`` (what ``parallel/distributed.initialize_from_env``
 reads; ``rank_device`` puts rank r on ``cuda:r``), waits for every rank and
 exits non-zero when any rank fails, after stopping the others, so that a
 chain never continues past a failed run. A config with ``[TRAINING]
-tensor_parallel = tp`` needs nothing more: its trainer lays the same ranks
-out as a (gpus / tp, tp) mesh itself (``parallel/mesh.py``), consecutive
-ranks, so consecutive GPUs, forming each model group.
+tensor_parallel = tp`` (MIM, predictor or I-JEPA) needs nothing more: its
+trainer lays the same ranks out as a (gpus / tp, tp) mesh itself
+(``parallel/mesh.py``), consecutive ranks, so consecutive GPUs, forming
+each model group.
 
 Three backends:
 

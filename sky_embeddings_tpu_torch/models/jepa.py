@@ -22,6 +22,16 @@ kernels 2 and 3 and K1 with kernel 8, and inference K2 and K1, at the
 encoder's width and at the predictor's (192 at ``small``). ``plain = True``
 sends every block through the kernels' plain versions.
 
+Under tensor parallelism (``build_jepa_model(..., mesh=)``) the whole
+seeded model is drawn as one process draws it and then cut to the rank's
+shard by ``parallel/sharding.shard_module``'s rule: the encoder's blocks
+split when the model axis divides their heads (``small`` and up at
+``tensor_parallel = 2``: 3 heads of 64 a rank at ViT-S), the predictor's
+(3 heads at 192, one at 96) and ``tiny``'s 3-head encoder run whole on
+every rank through K2, kernel 4, K1 and kernel 8. The patch embedding,
+``patch_mask_values``, ``proj_in``, ``proj_out`` and ``mask_token`` stay
+whole on every rank, and the context gather runs on the replicated tokens.
+
 The context gather is a one-hot product (``gather_tokens``): the invalid
 slots of a context set repeat its first member, and the product's backward
 sums the repeats in a fixed order on any device, where ``torch.gather``'s
@@ -227,9 +237,11 @@ class SkyJEPA(nn.Module):
 
 
 def build_jepa_model(config, dtype: torch.dtype = torch.float32, device: str | torch.device = "cuda",
-                     generator: Optional[torch.Generator] = None) -> SkyJEPA:
+                     generator: Optional[torch.Generator] = None, mesh=None) -> SkyJEPA:
     """A :class:`SkyJEPA` from an INI config (JAX ``build_jepa_model``) with
-    weights drawn from ``generator`` (seed 0 when None), on ``device``."""
+    weights drawn from ``generator`` (seed 0 when None), on ``device``. With
+    a ``mesh`` of model axis > 1 the whole model is drawn, then cut to this
+    rank's shard (``parallel/sharding.shard_module``)."""
     dev = resolve_device(device)
     arch = config["ARCHITECTURE"]
     model_type = arch.str("model_type", "small")
@@ -247,4 +259,8 @@ def build_jepa_model(config, dtype: torch.dtype = torch.float32, device: str | t
         **_SIZES[model_type],
     )
     model.reset_parameters(generator if generator is not None else torch.Generator().manual_seed(0))
+    if mesh is not None and mesh.tp > 1:
+        from sky_embeddings_tpu_torch.parallel.sharding import shard_module
+
+        shard_module(model, mesh)
     return model.to(dev).eval()

@@ -24,17 +24,21 @@ device: the reference path that a check on the card holds the kernel path
 against.
 
 Tensor parallelism (``[TRAINING] tensor_parallel > 1``;
-``parallel/sharding.shard_module``): each ``Block`` and ``MlpBlock`` holds
-the rank's shard of its qkv / proj / fc1 / fc2 parameters and the mesh
-(``tp``), and calls the kernels' tensor-parallel forms
-(``fused_attn_block_tp``: K2 and kernel 4; ``fused_mlp_block_tp``: K1 and
-kernel 8) through ``torch.autograd.Function``s that all-reduce the fp32
-partials over the model group themselves, in the forward and in the
-backward. Under tensor parallelism the blocks always take these recompute
-forms and the ``stash`` / ``stash_mlp`` flags are ignored, as JAX keeps no
-stash there (its Pallas kernels are off under tensor parallelism); remat
-replays the forward's all-reduces in the backward, in the same order on
-every rank.
+``parallel/sharding.shard_module``): each ``Block`` (and its ``MlpBlock``)
+whose heads and MLP width the model axis divides holds the rank's shard of
+its qkv / proj / fc1 / fc2 parameters and the mesh (``tp``), and calls the
+kernels' tensor-parallel forms (``fused_attn_block_tp``: K2 and kernel 4;
+``fused_mlp_block_tp``: K1 and kernel 8) through
+``torch.autograd.Function``s that all-reduce the fp32 partials over the
+model group themselves, in the forward and in the backward; their
+``stash`` / ``stash_mlp`` flags do not apply. A block the axis does not
+divide keeps ``tp = None`` and all its parameters whole: it runs the
+ordinary kernels on the replicated activations with its stash flags
+turned off (``fused_attn_block(..., stash=False)``: K2 and kernel 4; K1
+and kernel 8), so that under tensor parallelism every block takes the
+recompute forms, as JAX keeps no stash there (its Pallas kernels are off
+under tensor parallelism). Remat replays the forward's all-reduces in the
+backward, in the same order on every rank.
 
 ``Encoder(remat=True)`` runs each block under
 ``torch.utils.checkpoint.checkpoint`` (JAX ``nn.remat(Block)``): the block's

@@ -323,7 +323,9 @@ def build_mim_model(
     ``remat`` checkpoints each encoder block. With a ``mesh`` of model axis
     > 1 (``parallel/mesh``) the whole model is drawn as one process draws
     it and then cut to this rank's shard (``parallel/sharding.shard_module``:
-    the encoder's and the MAE decoder's blocks by the same rules)."""
+    the encoder's and the MAE decoder's blocks by the same rules; a block
+    the model axis cannot split, such as ``maesimple``'s one-head decoder,
+    stays whole)."""
     dev = resolve_device(device)
     arch = config["ARCHITECTURE"]
     training = config["TRAINING"]

@@ -13,8 +13,10 @@ gradients and ZeRO-1 shards the moments); ``new_group`` is called for every
 row and column on every rank, in the same order, as it must be. With
 ``model = 1`` the data group is the whole process group (None) and there is
 no model group; with ``model > 1`` every row and column has its group,
-one of a single rank included. :data:`TP_REASON` names what still refuses tensor
-parallelism: the I-JEPA trainer.
+one of a single rank included. Every trainer takes any model axis that
+divides the rank count (:func:`create_mesh`'s errors otherwise, JAX's); a
+block whose heads the axis does not divide runs whole on every rank
+(``parallel/sharding.py``).
 
 The trainers :func:`activate` the mesh they build, and
 ``parallel/distributed`` reads it (:func:`data_group`, :func:`data_index`,
@@ -37,12 +39,6 @@ from typing import Any, Optional, Sequence
 
 import numpy as np
 import torch
-
-TP_REASON = (
-    "tensor parallelism is not ported for I-JEPA (ROADMAP): its 192-wide predictor has 3 heads "
-    "(one in jepa_tiny), which the model axis does not divide, and the tensor-parallel block "
-    "kernels split a block by whole heads")
-
 
 @dataclass(frozen=True)
 class Sharding:

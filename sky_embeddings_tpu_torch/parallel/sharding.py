@@ -14,9 +14,10 @@ What the port shards (:func:`param_shardings`) is narrower, because its
 tensor parallelism lives in the block kernels' tensor-parallel forms
 (``ops/kernels/attn_block.py``, ``mlp_block.py``) and nowhere else:
 
-- in every transformer block (``...block<i>.`` of an encoder or the MAE
-  decoder), the attention's qkv kernel and bias and proj kernel, and the
-  MLP's fc1 kernel and bias and fc2 kernel, each over ``tp`` ranks;
+- in every transformer block (``...block<i>.`` of an encoder, the MAE
+  decoder or the I-JEPA predictor) that ``tp`` ranks can split, the
+  attention's qkv kernel and bias and proj kernel, and the MLP's fc1
+  kernel and bias and fc2 kernel, each over ``tp`` ranks;
 - qkv by heads, not contiguously: JAX's ``P(None, "model")`` splits the
   (D, 3D) kernel's columns into contiguous blocks and XLA reshards after
   the ``(B, N, 3, H, hd)`` reshape, while the port's attention cores read
@@ -30,22 +31,46 @@ tensor parallelism lives in the block kernels' tensor-parallel forms
   ``fc2_bias`` (added after the all-reduce), and the small layers JAX also
   shards but no kernel of the port takes sharded, computed whole on every
   rank: the patch embedding, the attention pool's ``q`` / ``kv`` / ``proj``
-  / ``fc1`` / ``fc2``, the MAE ``decoder_embed`` and the heads. Their
-  gradients come out alike on every rank from replicated inputs.
+  / ``fc1`` / ``fc2``, the MAE ``decoder_embed``, I-JEPA's ``proj_in`` /
+  ``proj_out`` / ``mask_token`` / ``patch_mask_values`` and the heads.
+  Their gradients come out alike on every rank from replicated inputs.
+
+The whole-block rule: a block whose heads or MLP width ``tp`` does not
+divide (``num_heads % tp`` or ``F % tp`` nonzero: the I-JEPA predictor's
+3 heads at 192 wide and 1 at 96, ``jepa_tiny``'s 3-head encoder,
+``maesimple``'s one-head decoder) is not split at all. All its parameters
+are whole on every rank, it runs the ordinary recompute kernels (K2 and
+kernel 4, K1 and kernel 8) on the replicated activations, and its
+gradients come out alike on every rank, so they are not reduced over the
+model group, as the LayerNorms' are not. JAX has no such rule (GSPMD
+splits qkv's columns contiguously, whatever the head count, and
+reshards), so :func:`param_specs` still reports JAX's specs for every
+block; only the port's layout differs. An uneven head split would leave a
+one-head block's second rank empty and need other kernel forms; the blocks
+the rule covers are narrow, so keeping them whole costs little memory.
+
+Which blocks split is a property of the built model: :func:`split_blocks`
+decides it from each block's heads and MLP width, :func:`shard_module`
+hands the mesh to those blocks alone, and :func:`split_of` reads the set
+back from the blocks that hold it. Every function that maps names to
+layouts (:func:`param_shardings`, :func:`shard_of`, :func:`shard_state`,
+:func:`gather_state`, :func:`gather_to_main`) takes that set (``split``,
+the dotted names of the split blocks), since a leaf's name alone cannot
+say whether its block's heads divide.
 
 :func:`shard_state` turns a whole state dict into rank ``r``'s, and
 :func:`gather_state` the ranks' back into the whole one, exactly (slices
 and concatenations, no arithmetic). :func:`shard_module` does it in place
 on a built model (so a rank starts from the same seeded init as one
-process) and hands each block the mesh; :func:`gather_to_main` collects a
-sharded state dict on the model group's first rank with broadcasts alone
-(which gloo takes on CUDA tensors too).
+process); :func:`gather_to_main` collects a sharded state dict on the
+model group's first rank with broadcasts alone (which gloo takes on CUDA
+tensors too).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Mapping, Optional
+from typing import AbstractSet, Mapping, Optional
 
 import torch
 
@@ -135,24 +160,33 @@ _BLOCK_RULES = {  # (module, leaf) in a transformer block -> (axis, heads)
 }
 
 
-def _shard_for(path: tuple[str, ...]) -> Optional[TPShard]:
-    names = list(path)
-    in_block = _stacked(names) or any(n.startswith("block") and n[5:].isdigit() for n in names)
-    rule = _BLOCK_RULES.get(tuple(names[-2:])) if in_block and len(names) >= 2 else None
-    if rule is None:
-        return None
-    return TPShard(rule[0] + int(_stacked(names)), rule[1])
+def _block_of(path: tuple[str, ...]) -> Optional[str]:
+    """The dotted name of the transformer block a leaf's path lies in
+    (``encoder.block3``, or a scan layout's ``...blocks.block``), None
+    outside one."""
+    for i, n in enumerate(path):
+        if n.startswith("block") and n[5:].isdigit():
+            return ".".join(path[:i + 1])
+        if n == "blocks" and path[i + 1:i + 2] == ("block",):
+            return ".".join(path[:i + 2])
+    return None
 
 
-def param_shardings(params: Mapping) -> dict:
+def _shard_for(path: tuple[str, ...], split: AbstractSet[str]) -> Optional[TPShard]:
+    rule = _BLOCK_RULES.get(path[-2:]) if _block_of(path) in split else None
+    return None if rule is None else TPShard(rule[0] + int(_stacked(path)), rule[1])
+
+
+def param_shardings(params: Mapping, split: AbstractSet[str]) -> dict:
     """The port's layout of every leaf of ``params`` (nested or flat):
-    a :class:`TPShard`, or None for a leaf every rank holds whole."""
-    return _map_paths(_shard_for, params)
+    a :class:`TPShard`, or None for a leaf every rank holds whole; only
+    the blocks named in ``split`` split."""
+    return _map_paths(lambda path: _shard_for(path, split), params)
 
 
-def shard_of(name: str) -> Optional[TPShard]:
+def shard_of(name: str, split: AbstractSet[str]) -> Optional[TPShard]:
     """:func:`param_shardings` of one state-dict name."""
-    return _shard_for(tuple(name.split(".")))
+    return _shard_for(tuple(name.split(".")), split)
 
 
 def shard_tensor(t: torch.Tensor, shard: Optional[TPShard], rank: int, tp: int) -> torch.Tensor:
@@ -179,70 +213,89 @@ def gather_tensor(parts, shard: Optional[TPShard]) -> torch.Tensor:
     return torch.cat(list(parts), dim=shard.axis)
 
 
-def shard_state(state_dict: Mapping[str, torch.Tensor], rank: int, tp: int) -> dict:
-    """Rank ``rank``'s state dict of ``tp`` from the whole one."""
-    return {k: shard_tensor(v, shard_of(k), rank, tp) for k, v in state_dict.items()}
+def shard_state(state_dict: Mapping[str, torch.Tensor], rank: int, tp: int,
+                split: AbstractSet[str]) -> dict:
+    """Rank ``rank``'s state dict of ``tp`` from the whole one (the blocks
+    of ``split`` cut, every other leaf whole)."""
+    return {k: shard_tensor(v, shard_of(k, split), rank, tp) for k, v in state_dict.items()}
 
 
-def gather_state(states) -> dict:
+def gather_state(states, split: AbstractSet[str]) -> dict:
     """The whole state dict from every rank's (in rank order); exact:
-    ``gather_state([shard_state(sd, r, tp) for r in range(tp)]) == sd``."""
-    return {k: gather_tensor([s[k] for s in states], shard_of(k)) for k in states[0]}
+    ``gather_state([shard_state(sd, r, tp, s) for r in range(tp)], s) == sd``."""
+    return {k: gather_tensor([s[k] for s in states], shard_of(k, split)) for k in states[0]}
 
 
-def check_divisible(model: torch.nn.Module, tp: int) -> None:
-    """Refuses a model whose blocks ``tp`` ranks cannot split: the heads
-    and the MLP width must divide, and a bf16 head must stay a multiple of
-    16 (the cores' tiles; the rank's head width is the whole block's)."""
+def split_blocks(model: torch.nn.Module, tp: int) -> frozenset:
+    """The dotted names of ``model``'s blocks that ``tp`` ranks split: those
+    whose heads and MLP width ``tp`` divides. The others run whole on every
+    rank. A bf16 head must stay a multiple of 16 (the cores' tiles; the
+    rank's head width is the whole block's), or this raises."""
     from sky_embeddings_tpu_torch.models.layers import Block
 
+    out = set()
     for name, m in model.named_modules():
         if not isinstance(m, Block):
             continue
-        F = m.ffn.fc1_kernel.shape[1]
         D = m.norm1.scale.shape[0]
-        if m.num_heads % tp:
-            raise ValueError(f"{name}: {m.num_heads} heads do not split over tensor_parallel={tp}")
-        if F % tp:
-            raise ValueError(f"{name}: the MLP width {F} does not split over tensor_parallel={tp}")
         hd = D // m.num_heads
         if m.dtype == torch.bfloat16 and hd % 16:
             raise ValueError(f"{name}: bf16 heads of {hd} are no multiple of 16 (the attention "
                              "cores' tiles); tensor parallelism splits whole heads")
+        if m.num_heads % tp == 0 and m.ffn.fc1_kernel.shape[1] % tp == 0:
+            out.add(name)
+    return frozenset(out)
+
+
+def split_of(model: torch.nn.Module) -> frozenset:
+    """The dotted names of ``model``'s blocks that :func:`shard_module` split
+    (those that hold the mesh); empty for an unsharded model."""
+    from sky_embeddings_tpu_torch.models.layers import Block
+
+    return frozenset(name for name, m in model.named_modules()
+                     if isinstance(m, Block) and m.tp is not None)
 
 
 def shard_module(model: torch.nn.Module, mesh) -> torch.nn.Module:
-    """Replace ``model``'s block parameters by this rank's shards (in place,
-    from the whole seeded ones) and give every block ``mesh``, whose model
-    group sums the tensor-parallel partials. Returns ``model``."""
-    from sky_embeddings_tpu_torch.models.layers import Block, MlpBlock
+    """Replace the parameters of ``model``'s splittable blocks
+    (:func:`split_blocks`) by this rank's shards (in place, from the whole
+    seeded ones) and give those blocks ``mesh``, whose model group sums the
+    tensor-parallel partials. The other blocks stay whole and take the
+    recompute kernels (their stash flags off), as every block does under
+    tensor parallelism. Returns ``model``."""
+    from sky_embeddings_tpu_torch.models.layers import Block
 
     tp, rank = mesh.tp, mesh.model_index
-    check_divisible(model, tp)
+    split = split_blocks(model, tp)
     with torch.no_grad():
         for name, p in list(model.named_parameters()):
-            shard = shard_of(name)
+            shard = shard_of(name, split)
             if shard is None:
                 continue
             owner = model.get_submodule(name.rsplit(".", 1)[0]) if "." in name else model
             leaf = name.rsplit(".", 1)[-1]
             setattr(owner, leaf, torch.nn.Parameter(shard_tensor(p.data, shard, rank, tp).clone(),
                                                     requires_grad=p.requires_grad))
-    for m in model.modules():
-        if isinstance(m, (Block, MlpBlock)):
-            m.tp = mesh
+    for name, m in model.named_modules():
+        if not isinstance(m, Block):
+            continue
+        if name in split:
+            m.tp = m.ffn.tp = mesh
+        else:
+            m.stash = m.ffn.stash = False
     return model
 
 
-def gather_to_main(state_dict: Mapping[str, torch.Tensor], mesh) -> Optional[dict]:
+def gather_to_main(state_dict: Mapping[str, torch.Tensor], mesh,
+                   split: AbstractSet[str]) -> Optional[dict]:
     """The whole state dict (copies on the CPU) on the model group's first
     rank, None on the others, from every rank's sharded ``state_dict`` (every
-    rank of the model group calls it). Each rank broadcasts its shards as
-    one flat tensor per dtype; the leaves every rank holds whole come from
-    the first rank's own dict."""
+    rank of the model group calls it; the blocks of ``split`` sharded).
+    Each rank broadcasts its shards as one flat tensor per dtype; the
+    leaves every rank holds whole come from the first rank's own dict."""
     import torch.distributed as dist
 
-    names = [k for k in state_dict if shard_of(k) is not None]
+    names = [k for k in state_dict if shard_of(k, split) is not None]
     if mesh.tp == 1 or not names:
         return {k: v.detach().to("cpu", copy=True) for k, v in state_dict.items()}
     ranks = [int(r) for r in mesh.devices[mesh.data_index]]
@@ -269,5 +322,5 @@ def gather_to_main(state_dict: Mapping[str, torch.Tensor], mesh) -> Optional[dic
             del flat
     if mesh.model_index != 0:
         return None
-    return {k: (gather_tensor(parts[k], shard_of(k)) if k in parts
+    return {k: (gather_tensor(parts[k], shard_of(k, split)) if k in parts
                 else v.detach().to("cpu", copy=True)) for k, v in state_dict.items()}

@@ -34,8 +34,22 @@ the global batch and sliced to this rank's rows, the loss's count summed
 over the ranks (``models/jepa``); the EMA target stays outside DDP and is
 updated alike on every rank from the same parameters.
 ``[TRAINING] zero_optimizer = True`` shards the AdamW moments
-(``parallel/zero``); ``tensor_parallel > 1`` raises
-(``parallel/mesh.TP_REASON``: the predictor's heads do not split).
+(``parallel/zero``).
+
+``[TRAINING] tensor_parallel = tp > 1`` (JAX ``train/jepa.py:62-72``)
+lays the ranks out as a (data, tp) mesh (``parallel/mesh``), draws the
+whole model from the seed and keeps this rank's shard of every block that
+tp splits (``parallel/sharding``: the encoder's at ViT-S and up); the
+blocks tp does not divide (the predictor's, ``jepa_tiny``'s encoder) run
+whole on every rank. The EMA target is the online encoder's copy, sharded
+exactly alike and sharing its mesh, so the EMA stays an elementwise pass
+over matching shards and its no-grad forward runs the tensor-parallel
+forms, as JAX splits the target like its encoder (``:140-152``). DDP,
+ZeRO-1, the global batch's rows and mask draws and the loss's sums run
+over the data group, so the ranks of one model group draw the same masks.
+A save gathers every shard, the target's too, on rank 0, which writes
+whole arrays in either format; a restore cuts them, so a checkpoint
+moves between layouts and frameworks.
 """
 
 from __future__ import annotations
@@ -48,12 +62,13 @@ import numpy as np
 import torch
 
 from sky_embeddings_tpu_torch.models.jepa import build_jepa_model
-from sky_embeddings_tpu_torch.models.weights import load_jax_params, params_to_jax
+from sky_embeddings_tpu_torch.models.weights import params_from_jax, params_to_jax
 from sky_embeddings_tpu_torch.ops.jepa_masks import BlockMasks, sample_block_masks
 from sky_embeddings_tpu_torch.parallel import distributed, zero
-from sky_embeddings_tpu_torch.parallel.mesh import TP_REASON, activate, local_sharding
+from sky_embeddings_tpu_torch.parallel.mesh import local_sharding, tensor_parallel_mesh
+from sky_embeddings_tpu_torch.parallel.sharding import gather_to_main, shard_state, split_of
 from sky_embeddings_tpu_torch.train.optim import (decay_mask, jax_payload, restore_state, set_lr,
-                                                  supervised_optimizer)
+                                                  supervised_optimizer, whole_state)
 from sky_embeddings_tpu_torch.train.schedules import cosine_ramp, linear_ramp, warmup_cosine_decay
 from sky_embeddings_tpu_torch.utils import checkpoint as ckpt
 from sky_embeddings_tpu_torch.utils.device import DTYPES, resolve_device
@@ -85,14 +100,17 @@ class JEPATrainer:
         self.config = config
         self.device = resolve_device(device)
         training = config.training
-        if training.int("tensor_parallel", 1) > 1:
-            raise NotImplementedError(TP_REASON)
-        activate(None)  # the data axis is every process
+        # [TRAINING] tensor_parallel: the blocks' weights sharded over the model axis
+        self.mesh = tensor_parallel_mesh(training.int("tensor_parallel", 1), self.device)
         self.zero_optimizer = training.bool("zero_optimizer", False)
         dtype = DTYPES[training.str("dtype", "float32")]
         self.model = build_jepa_model(config, dtype=dtype, device=self.device,
-                                      generator=torch.Generator().manual_seed(seed)).train()
-        self.target = copy.deepcopy(self.model.encoder).requires_grad_(False)
+                                      generator=torch.Generator().manual_seed(seed),
+                                      mesh=self.mesh).train()
+        # the online encoder's copy, its shards and their layout; the blocks
+        # share the mesh (its process groups cannot be copied)
+        memo = {} if self.mesh is None else {id(self.mesh): self.mesh}
+        self.target = copy.deepcopy(self.model.encoder, memo).requires_grad_(False)
         self.total_batch_iters = training.int("total_batch_iters")
         self.batch_size = training.int("batch_size")
         self.mask_params = mask_params(config)
@@ -133,10 +151,23 @@ class JEPATrainer:
         self.model.plain = value
         self.target.encoder.plain = value
 
-    def target_variables(self) -> dict:
+    def _whole_target(self) -> Optional[dict]:
+        """The EMA target's whole state dict on the CPU; under tensor
+        parallelism gathered on the model group's first rank of data index
+        0 (None on the others; every rank calls it)."""
+        if self.mesh is None:
+            return {k: v.detach().cpu() for k, v in self.target.state_dict().items()}
+        if self.mesh.data_index != 0:
+            return None
+        return gather_to_main(self.target.state_dict(), self.mesh, split_of(self.target))
+
+    def target_variables(self) -> Optional[dict]:
         """The EMA encoder's parameters as JAX's tree (``{"params":
-        {"encoder": ...}}``, numpy): the representation used downstream."""
-        return {"params": {"encoder": params_to_jax(self.target.state_dict())}}
+        {"encoder": ...}}``, numpy, whole): the representation used
+        downstream. Under tensor parallelism every rank calls it, and the
+        ranks but the first of data index 0 get None."""
+        target = self._whole_target()
+        return None if target is None else {"params": {"encoder": params_to_jax(target)}}
 
     def draw_masks(self, batch_size: int, generator: torch.Generator) -> BlockMasks:
         """The block masks of ``batch_size`` rows; under a process group,
@@ -214,35 +245,49 @@ class JEPATrainer:
     def save(self, path: str) -> None:
         """The trainer's state at ``path``: the port's file, or for a
         ``.ckpt.msgpack`` path the JAX package's (optax-form moments).
-        Every rank calls it; rank 0 writes, with ZeRO's moments collected."""
+        Every rank calls it; rank 0 writes, with ZeRO's moments collected
+        and, under tensor parallelism, every shard of the model, its
+        moments and the EMA target gathered (``optim.whole_state``)."""
         zero.consolidate(self.optimizer)
+        jax_file = ckpt.is_jax_checkpoint(path)
+        # one process writes JAX's format from its own model and optimizer
+        whole = (whole_state(self.model, self.optimizer, self.mesh)
+                 if self.mesh is not None or not jax_file else None)
+        target = self._whole_target()
         if not distributed.is_main():
             return
-        if ckpt.is_jax_checkpoint(path):
+        if jax_file:
             ckpt.save_checkpoint(path, jax_payload(
-                self.model, self.optimizer, "jepa", self.step, self.seed, self.losses,
-                target_params=params_to_jax(self.target.state_dict())))
+                self.model, self.optimizer, "jepa", self.step, self.seed, self.losses, whole=whole,
+                target_params=params_to_jax(target)))
             return
+        params, opt_state = whole
         ckpt.save_checkpoint(path, {
             "step": self.step,
-            "params": {k: v.detach().cpu() for k, v in self.model.state_dict().items()},
-            "target_params": {k: v.detach().cpu() for k, v in self.target.state_dict().items()},
-            "opt_state": zero.state_dict(self.optimizer),
+            "params": params,
+            "target_params": target,
+            "opt_state": opt_state,
             "rng": self.mask_gen.get_state(),
             "losses": {k: [float(x) for x in v] for k, v in self.losses.items()},
         })
 
     def restore(self, path: str) -> bool:
         """Resume from the port's checkpoint or the JAX package's, the EMA
-        ``target_params`` too (``optim.restore_state``); False without a
+        ``target_params`` too (``optim.restore_state``), the whole arrays cut
+        to this rank's shards under tensor parallelism; False without a
         file."""
-        out = restore_state(path, self.model, self.optimizer, self.mask_gen, self.seed)
+        out = restore_state(path, self.model, self.optimizer, self.mask_gen, self.seed,
+                            mesh=self.mesh)
         if out is None:
             return False
         payload, self.step, losses = out
+        target = payload["target_params"]
         if ckpt.is_jax_checkpoint(path):
-            load_jax_params(self.target, payload["target_params"])
-        else:
-            self.target.load_state_dict(payload["target_params"])
+            target = params_from_jax(ckpt.adapt_block_layout(
+                target, ckpt.nest(self.target.state_dict())))
+        if self.mesh is not None:
+            target = shard_state(target, self.mesh.model_index, self.mesh.tp,
+                                 split_of(self.target))
+        self.target.load_state_dict(target)
         self.losses = defaultdict(list, losses)
         return True

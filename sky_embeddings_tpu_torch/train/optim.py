@@ -199,8 +199,9 @@ def load_optax_state(optimizer: torch.optim.Optimizer, model: torch.nn.Module, o
     ``nu`` onto each parameter's ``exp_avg`` and ``exp_avg_sq`` by name
     (through ``adapt_block_layout``, so a scan-layout tree loads), ``count``
     onto every ``step``; under tensor parallelism (``mesh``) each moment cut
-    to the rank's shard. False when ``opt_state`` holds no Adam state."""
-    from sky_embeddings_tpu_torch.parallel.sharding import shard_of, shard_tensor
+    to the rank's shard (the model's split blocks, ``sharding.split_of``).
+    False when ``opt_state`` holds no Adam state."""
+    from sky_embeddings_tpu_torch.parallel.sharding import shard_of, shard_tensor, split_of
 
     adam = find_adam_state(opt_state)
     if adam is None:
@@ -210,6 +211,7 @@ def load_optax_state(optimizer: torch.optim.Optimizer, model: torch.nn.Module, o
     nu = ckpt.flatten(ckpt.adapt_block_layout(adam["nu"], template))
     count = float(np.asarray(adam["count"]))
     names = _names(model)
+    split = split_of(model)
     states = {}
     with warnings.catch_warnings():  # moments may view a read-only file buffer; they are copied
         warnings.simplefilter("ignore", UserWarning)
@@ -221,8 +223,8 @@ def load_optax_state(optimizer: torch.optim.Optimizer, model: torch.nn.Module, o
                 def local(m, name=name):
                     if mesh is None:
                         return torch.as_tensor(m)
-                    return shard_tensor(torch.as_tensor(m), shard_of(name), mesh.model_index,
-                                        mesh.tp)
+                    return shard_tensor(torch.as_tensor(m), shard_of(name, split),
+                                        mesh.model_index, mesh.tp)
 
                 states[p] = {
                     "step": torch.tensor(count, dtype=torch.float32),
@@ -316,10 +318,10 @@ def whole_state(model: torch.nn.Module, optimizer: torch.optim.Optimizer, mesh=N
     ``parallel/zero.consolidate``. Under tensor parallelism (``mesh`` with
     a model axis > 1) the ranks of data index 0 gather every model index's
     shards, the parameters and their moments, with broadcasts
-    (``parallel/sharding.gather_to_main``): every rank calls it, as a
-    save is a collective."""
+    (``parallel/sharding.gather_to_main`` over the model's split blocks):
+    every rank calls it, as a save is a collective."""
     from sky_embeddings_tpu_torch.parallel import distributed
-    from sky_embeddings_tpu_torch.parallel.sharding import gather_to_main
+    from sky_embeddings_tpu_torch.parallel.sharding import gather_to_main, split_of
 
     if mesh is None or mesh.tp == 1:
         if not distributed.is_main():
@@ -330,9 +332,10 @@ def whole_state(model: torch.nn.Module, optimizer: torch.optim.Optimizer, mesh=N
         return None
     opt = zero.state_dict(optimizer)
     order = _group_names(optimizer, model)
-    params = gather_to_main(model.state_dict(), mesh)
+    split = split_of(model)
+    params = gather_to_main(model.state_dict(), mesh, split)
     moments = {k: gather_to_main({order[i]: st[k] for i, st in opt["state"].items() if k in st},
-                                 mesh) for k in zero.MOMENTS}
+                                 mesh, split) for k in zero.MOMENTS}
     if mesh.model_index != 0:
         return None
     state = {i: {k: (moments[k][order[i]] if k in zero.MOMENTS else v) for k, v in st.items()}
@@ -383,8 +386,10 @@ def restore_state(path: str, model: torch.nn.Module, optimizer: torch.optim.Opti
     lines from rank 0 alone); a ZeRO optimizer keeps its share of the
     moments. Under tensor parallelism (``mesh``) the file's whole
     parameters and moments are cut to the rank's shards
-    (``parallel/sharding``), so a file of any layout loads."""
-    from sky_embeddings_tpu_torch.parallel.sharding import shard_of, shard_state, shard_tensor
+    (``parallel/sharding``, the model's split blocks), so a file of any
+    layout loads."""
+    from sky_embeddings_tpu_torch.parallel.sharding import (shard_of, shard_state, shard_tensor,
+                                                            split_of)
 
     payload = ckpt.load_checkpoint(path)
     if payload is None:
@@ -392,13 +397,15 @@ def restore_state(path: str, model: torch.nn.Module, optimizer: torch.optim.Opti
     log_fn = main_only(log_fn)
     jax_file = ckpt.is_jax_checkpoint(path)
     tp = mesh is not None and mesh.tp > 1
+    split = split_of(model)
     if jax_file and not tp:
         load_jax_params(model, payload["params"])
     else:
         params = payload["params"]
         if jax_file:
             params = params_from_jax(ckpt.adapt_block_layout(params, ckpt.nest(model.state_dict())))
-        model.load_state_dict(shard_state(params, mesh.model_index, mesh.tp) if tp else params)
+        model.load_state_dict(shard_state(params, mesh.model_index, mesh.tp, split) if tp
+                              else params)
     step = int(np.asarray(payload.get("step", 0)))
     if jax_file:
         moments = load_optax_state(optimizer, model, payload.get("opt_state"),
@@ -408,7 +415,7 @@ def restore_state(path: str, model: torch.nn.Module, optimizer: torch.optim.Opti
         if tp:
             order = _group_names(optimizer, model)
             opt_state = {**opt_state, "state": {
-                i: {k: (shard_tensor(v, shard_of(order[i]), mesh.model_index, mesh.tp)
+                i: {k: (shard_tensor(v, shard_of(order[i], split), mesh.model_index, mesh.tp)
                         if k in zero.MOMENTS else v) for k, v in st.items()}
                 for i, st in opt_state["state"].items()}}
         optimizer.load_state_dict(opt_state)

@@ -40,11 +40,12 @@ reported as the global means (``parallel/distributed.global_mean``).
 (``parallel/zero``); the ``lp`` regime's stay whole on every rank, as JAX
 replicates them. ``[TRAINING] tensor_parallel = tp > 1`` (JAX
 ``train/predictor.py:178``) shards the backbone's blocks over a (data, tp)
-mesh as the MIM trainer does (``parallel/mesh``, ``parallel/sharding``):
-their tensor-parallel kernel forms, with DDP, ZeRO-1, the draws and the
+mesh as the MIM trainer does (``parallel/mesh``, ``parallel/sharding``; a
+block whose heads or MLP width tp does not divide runs whole on every
+rank): their tensor-parallel kernel forms, with DDP, ZeRO-1, the draws and the
 means over the data group; ``lp``'s frozen backbone runs those forms'
-forwards under no grad. ``warm_start`` cuts the MIM file's blocks to the
-rank's shard; saves gather every shard and write whole arrays.
+forwards under no grad. ``warm_start`` cuts the MIM file's split blocks to
+the rank's shard; saves gather every shard and write whole arrays.
 
 With ``fig_dir`` the loop draws the training curves on the main process at
 each validation after the first (``utils/plotting.plot_progress``; a
@@ -68,7 +69,7 @@ from sky_embeddings_tpu_torch.eval.eval_fns import batch_images, batch_ra_dec
 from sky_embeddings_tpu_torch.models.predictor import SkyViT, build_predictor_model
 from sky_embeddings_tpu_torch.parallel import distributed, zero
 from sky_embeddings_tpu_torch.parallel.mesh import local_sharding, tensor_parallel_mesh
-from sky_embeddings_tpu_torch.parallel.sharding import shard_state
+from sky_embeddings_tpu_torch.parallel.sharding import shard_state, split_of
 from sky_embeddings_tpu_torch.train import optim
 from sky_embeddings_tpu_torch.train.schedules import linear_lr
 from sky_embeddings_tpu_torch.utils import checkpoint as ckpt
@@ -296,7 +297,8 @@ class PredictorTrainer:
         if self.mesh is not None:  # the MIM file's whole blocks, cut to this rank's shard
             mim = ckpt.nest(shard_state({k: torch.as_tensor(np.asarray(v)) for k, v in
                                          ckpt.flatten(mim).items()},
-                                        self.mesh.model_index, self.mesh.tp))
+                                        self.mesh.model_index, self.mesh.tp,
+                                        split_of(self.model)))
         merged, _, _ = warm_start_from_mim(current, mim, log_fn=log_fn)
         self.model.load_state_dict({k: v if torch.is_tensor(v) else torch.from_numpy(np.array(v))
                                     for k, v in ckpt.flatten(merged).items()})

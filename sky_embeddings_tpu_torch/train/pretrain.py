@@ -37,9 +37,11 @@ checkpoint, after collecting them, and every rank restores.
 ``[TRAINING] tensor_parallel = tp > 1`` (JAX ``train/pretrain.py:124-133``)
 lays the process group out as a (data, tp) mesh (``parallel/mesh``: the
 model axis consecutive ranks), builds the whole model from the seed and
-keeps this rank's shard of every block (``parallel/sharding``: the
-encoder's and the MAE decoder's), whose kernels run their tensor-parallel
-forms with the all-reduces over the model group; DDP, ZeRO-1, the global
+keeps this rank's shard of every block that the model axis splits
+(``parallel/sharding``: the encoder's and the MAE decoder's), whose kernels
+run their tensor-parallel forms with the all-reduces over the model group;
+a block whose heads or MLP width tp does not divide (``maesimple``'s
+one-head decoder) runs whole on every rank through the recompute kernels; DDP, ZeRO-1, the global
 batch's rows and draws and the loss's sums then run over the data group.
 A save gathers every shard on rank 0, which writes whole arrays in either
 format; a restore cuts them to the rank's shard, so a checkpoint moves

@@ -449,10 +449,32 @@ def test_extract_latents_on_a_jepa_model():
 
 
 def test_trainer_refuses_parallel_knobs():
+    """``tensor_parallel = 2`` in one process: JAX's divisibility error (two
+    model ranks need two processes; the ranks' runs are in
+    ``test_torch_tp.py``)."""
     d = _config_dict()
     d["TRAINING"]["tensor_parallel"] = 2
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="1 devices not divisible by model=2"):
         JEPATrainer(Config.from_dict(d), device="cpu")
+
+
+def test_entry_points_default_to_cuda(tmp_path, monkeypatch):
+    """``build_jepa_model``, ``JEPATrainer`` and the ``pretrain_jepa`` twin
+    default to the card: without CUDA they raise, naming the CPU switch,
+    before the twin writes anything."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid here")
+    from sky_embeddings_tpu_torch import pretrain_jepa
+    from sky_embeddings_tpu_torch.models.jepa import build_jepa_model
+
+    cfg = Config.from_dict(_config_dict(), name="jepa_t")
+    monkeypatch.setattr(pretrain_jepa, "REPO_DIR", str(tmp_path))
+    (tmp_path / "configs").symlink_to(os.path.join(REPO, "configs"))
+    for call in (lambda: build_jepa_model(cfg), lambda: JEPATrainer(cfg),
+                 lambda: pretrain_jepa.main(["jepa_tiny", "-dd", str(tmp_path)])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    assert sorted(os.listdir(tmp_path)) == ["configs"]
 
 
 def test_pretrain_jepa_twin_runs_and_resumes_on_cpu(tmp_path, monkeypatch, capsys, small_sizes):

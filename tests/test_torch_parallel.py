@@ -113,13 +113,27 @@ def test_create_mesh_builds_the_tensor_parallel_layout(data):
 
 @pytest.mark.parametrize("trainer", ["mim", "predictor", "jepa"])
 def test_tensor_parallel_builds_or_raises_with_the_reason(trainer, ranks):
-    """``[TRAINING] tensor_parallel = 2`` on two ranks builds the MIM and
-    predictor trainers over a (1, 2) mesh with this rank's half of every
-    block (the ``ranks`` spawn); I-JEPA raises with the narrowed reason."""
+    """``[TRAINING] tensor_parallel = 2`` on two ranks builds each trainer
+    over a (1, 2) mesh (the ``ranks`` spawn): the MIM and predictor ones
+    with this rank's half of every block; I-JEPA (``jepa_tiny`` at D = 64,
+    2 heads) with this rank's half of each encoder block, and of the EMA
+    target's, which shares the mesh, while the 96-wide one-head
+    predictor's blocks stay whole, on the recompute forms. In one process
+    the I-JEPA trainer raises with JAX's divisibility error, as the others
+    do: two model ranks need two processes."""
     if trainer == "jepa":
         over = ["TRAINING.tensor_parallel=2"]
-        with pytest.raises(NotImplementedError, match="I-JEPA.*3 heads"):
+        with pytest.raises(ValueError, match="1 devices not divisible by model=2"):
             JEPATrainer(apply_overrides(load_config("jepa_tiny", CONFIGS), over), device="cpu")
+        enc = [f"encoder.encoder.block{i}" for i in range(2)]
+        for rank, r in enumerate(ranks["ranks"]):
+            built = r["tp_built"]["jepa"]
+            assert built["mesh"] == ((1, 2), 0, rank) and built["model_group"] == [0, 1]
+            assert built["split"] == enc and built["target_split"] == [b[8:] for b in enc]
+            assert built["enc_qkv"] == built["target_qkv"] == (64, 96)
+            assert built["enc_fc2"] == (128, 64)
+            assert built["pred_qkv"] == (96, 288) and built["pred_fc2"] == (384, 96)
+            assert built["whole_recompute"] and built["target_shares_mesh"]
         return
     for rank, r in enumerate(ranks["ranks"]):
         built = r["tp_built"][trainer]

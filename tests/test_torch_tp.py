@@ -40,7 +40,34 @@ Models are cut to depth 2 (D = 48; the MAE decoder to one 512-wide layer of
   ``zero_optimizer``: 3 SimMIM steps against one process over the global
   batch, the same bars, the moments sharded over the data group.
 
-About 90 s, most of it the two spawns.
+The whole-block rule (a block whose heads or MLP width the model axis does
+not divide runs whole on every rank), in the same two spawns:
+
+- ``maesimple`` (``mae_tiny`` as shipped but for the depth: its one-head
+  512-wide decoder whole) at ``tensor_parallel = 2``: 3 steps against JAX's
+  single-device step and one process at the MAE case's bars;
+- I-JEPA at ``jepa_tiny``'s geometry cut to depth 2 and D = 64 (the
+  encoder's 2 heads split, the 96-wide one-head predictor whole), the
+  port's ``param_shardings`` / ``shard_state`` / ``gather_state`` exact at
+  tp 2 and 4 and ``param_specs`` equal to JAX's on the ``SkyJEPA`` tree;
+  on two ranks without and with ``zero_optimizer``, 3 steps from JAX's
+  params and EMA target, the port given JAX's own mask draws, against
+  JAX's single-device ``JEPATrainer`` (losses 1e-5 relative; parameters
+  and EMA targets 1e-4 absolute, the key biases the steps' summed lr) and
+  one process (losses 1e-5 relative, ``param_gaps``'s bars: 2e-3 of the
+  summed lr, the key biases the summed lr; measured on the CPU: parameters
+  5.8e-6 from JAX and 1.5e-6 from one process, whose losses the ranks
+  equal, against a bar of 4.3e-6; four ranks 2.1e-6); every replicated
+  leaf, the predictor's whole blocks included, bit-equal on both ranks;
+  the TP save
+  restored into a one-process port trainer and into JAX's trainer
+  bit-equal, JAX's file restored into the ranks bit-equal to their shards,
+  the restored step bit-equal to the uninterrupted one; four ranks (data 2
+  x model 2) with ZeRO-1 against one process over the global batch at the
+  same bars; ``jepa_tiny``'s own widths (192 wide, 3 heads; no block
+  splits) one step, the ranks bit-equal.
+
+About 120 s, most of it the two spawns.
 """
 
 import os
@@ -56,25 +83,33 @@ import torch
 import torch_parallel_workers as tpw
 from sky_embeddings_tpu.configuration import Config as JaxConfig
 from sky_embeddings_tpu.configuration import load_config as jax_load_config
+from sky_embeddings_tpu.models import jepa as jax_jepa
 from sky_embeddings_tpu.models import mim as jax_mim
 from sky_embeddings_tpu.models.mim import build_mim_model as jax_build_mim_model
 from sky_embeddings_tpu.models.predictor import build_predictor_model as jax_build_predictor
 from sky_embeddings_tpu.ops.kernels import attn_block as jab
 from sky_embeddings_tpu.ops.kernels import mlp_block as jmb
+from sky_embeddings_tpu.ops.jepa_masks import sample_block_masks as jax_sample
 from sky_embeddings_tpu.ops.masking import simmim_batch_mask as jax_simmim_batch_mask
 from sky_embeddings_tpu.parallel.sharding import param_specs as jax_param_specs
+from sky_embeddings_tpu.train.jepa import JEPATrainer as JaxJEPATrainer
 from sky_embeddings_tpu.train.optim import pretrain_optimizer as jax_pretrain_optimizer
 from sky_embeddings_tpu.train.pretrain import MIMPretrainer as JaxMIMPretrainer
 from sky_embeddings_tpu.train.schedules import cosine_annealing as jax_cosine
 from sky_embeddings_tpu_torch.configuration import Config, load_config
 from sky_embeddings_tpu_torch.data.synthetic import make_cutouts, make_structured_cutouts
+from sky_embeddings_tpu_torch.models import jepa as port_jepa
 from sky_embeddings_tpu_torch.models import mim as port_mim
+from sky_embeddings_tpu_torch.models.jepa import build_jepa_model
+from sky_embeddings_tpu_torch.models.layers import Block
 from sky_embeddings_tpu_torch.models.predictor import build_predictor_model
 from sky_embeddings_tpu_torch.models.weights import params_from_jax
+from sky_embeddings_tpu_torch.ops.jepa_masks import BlockMasks
 from sky_embeddings_tpu_torch.ops.kernels import attn_block as tab
 from sky_embeddings_tpu_torch.ops.kernels import mlp_block as tmb
 from sky_embeddings_tpu_torch.parallel import sharding
 from sky_embeddings_tpu_torch.parallel.smoke import param_gaps
+from sky_embeddings_tpu_torch.train.jepa import JEPATrainer
 from sky_embeddings_tpu_torch.train.predictor import PredictorTrainer
 from sky_embeddings_tpu_torch.train.pretrain import MIMPretrainer
 from sky_embeddings_tpu_torch.utils import checkpoint as ckpt
@@ -82,7 +117,8 @@ from sky_embeddings_tpu_torch.utils import checkpoint as ckpt
 CONFIGS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "configs")
 B = 8  # the global batch
 CUT = {"depth": 2, "decoder_depth": 1}
-DEPTH = {"mim": {"base": CUT}}
+JEPA_SMALL = {"embed_dim": 64, "depth": 2, "num_heads": 2}
+DEPTH = {"mim": {"base": CUT}, "jepa": {"tiny": JEPA_SMALL}}
 TOL_F32, TOL_BF16 = 2e-5, 2e-2
 
 
@@ -94,11 +130,18 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
-@pytest.fixture
-def small(monkeypatch):
+def _cut(mp) -> None:
+    """Both packages' size tables cut as :data:`DEPTH` says."""
     for mod in (jax_mim, port_mim):
         for k, v in CUT.items():
-            monkeypatch.setitem(mod._SIZES["base"], k, v)
+            mp.setitem(mod._SIZES["base"], k, v)
+    for mod in (jax_jepa, port_jepa):
+        mp.setitem(mod._SIZES, "tiny", dict(JEPA_SMALL))
+
+
+@pytest.fixture
+def small(monkeypatch):
+    _cut(monkeypatch)
 
 
 def _dict(cfg) -> dict:
@@ -141,13 +184,36 @@ def _abstract(jmodel, **kw):
     return jax.eval_shape(lambda: jmodel.init(jax.random.PRNGKey(0), x, **kw))["params"]
 
 
-@pytest.mark.parametrize("tree", ["simmim", "mae", "predictor", "predictor_scan"])
+def _jepa_dict(**training) -> dict:
+    """``jepa_tiny`` at batch ``B``, 10 steps, EMA from 0.9 (so the target
+    moves within three steps)."""
+    d = _dict(jax_load_config("jepa_tiny", CONFIGS))
+    d["TRAINING"].update(batch_size=str(B), total_batch_iters="10", ema="[0.9, 1.0]",
+                         **{k: str(v) for k, v in training.items()})
+    return d
+
+
+def _jepa_abstract(jcfg):
+    jmodel = jax_jepa.build_jepa_model(jcfg)
+    g = jmodel.img_size // jmodel.patch_size
+    masks = jax_sample(jax.random.PRNGKey(0), 1, g)
+    x = jnp.zeros((1, jmodel.in_chans, jmodel.img_size, jmodel.img_size))
+    tgt = jnp.zeros((1, g * g, jmodel.embed_dim))
+    return jax.eval_shape(lambda: jmodel.init(jax.random.PRNGKey(0), x, masks, tgt))["params"]
+
+
+@pytest.mark.parametrize("tree", ["simmim", "mae", "predictor", "predictor_scan", "jepa"])
 def test_param_specs_equal_jax_leaf_for_leaf(tree, small):
     """``param_specs`` of the JAX tree, nested, and of the port's flat state
     dict of the same model, against JAX's ``param_specs``: the same
     ``PartitionSpec`` at every path (patch embedding, attention pool and
-    the scan layout's stacked prefix included)."""
-    if tree in ("simmim", "mae"):
+    the scan layout's stacked prefix included; I-JEPA's whole predictor
+    blocks too: the specs are JAX's whatever the port's layout)."""
+    if tree == "jepa":
+        d = _jepa_dict()
+        abstract = _jepa_abstract(JaxConfig.from_dict(d))
+        sd = build_jepa_model(Config.from_dict(d), device="cpu").state_dict()
+    elif tree in ("simmim", "mae"):
         jcfg, cfg = _configs("mim_tiny" if tree == "simmim" else "mae_tiny",
                              **({} if tree == "simmim" else {"model_type": "base"}),
                              attn_pool=tree == "simmim")
@@ -185,7 +251,8 @@ def _state(name="mim_tiny", **arch):
     with pytest.MonkeyPatch.context() as mp:
         for k, v in CUT.items():
             mp.setitem(port_mim._SIZES["base"], k, v)
-        return port_mim.build_mim_model(_configs(name, **arch)[1], device="cpu").state_dict()
+        model = port_mim.build_mim_model(_configs(name, **arch)[1], device="cpu")
+        return model.state_dict(), model
 
 
 @pytest.mark.parametrize("tp", [2, 4])
@@ -195,11 +262,13 @@ def test_shard_and_gather_round_trip_exactly(tp, name, arch):
     only the blocks' qkv / proj / fc1 / fc2 leaves split (the patch
     embedding, LNs, bproj, fc2_bias and the MAE decoder_embed stay whole);
     rank r's qkv kernel and bias are its heads' columns of q, k and v."""
-    sd = _state(name, **arch)
-    ranks = [sharding.shard_state(sd, r, tp) for r in range(tp)]
-    back = sharding.gather_state(ranks)
+    sd, model = _state(name, **arch)
+    blocks = sharding.split_blocks(model, tp)
+    assert blocks == {n for n, m in model.named_modules() if isinstance(m, Block)}
+    ranks = [sharding.shard_state(sd, r, tp, blocks) for r in range(tp)]
+    back = sharding.gather_state(ranks, blocks)
     assert set(back) == set(sd) and all(torch.equal(back[k], v) for k, v in sd.items())
-    split = {k for k, v in sharding.param_shardings(sd).items() if v is not None}
+    split = {k for k, v in sharding.param_shardings(sd, blocks).items() if v is not None}
     assert "encoder.block1.attn.qkv.kernel" in split and "patch_embed.proj.kernel" not in split
     assert all(k.rsplit(".", 2)[-2:] in (["qkv", "kernel"], ["qkv", "bias"], ["proj", "kernel"])
                or k.endswith(("fc1_kernel", "fc1_bias", "fc2_kernel")) for k in split)
@@ -215,6 +284,40 @@ def test_shard_and_gather_round_trip_exactly(tp, name, arch):
         assert torch.equal(bias, sd["encoder.block0.attn.qkv.bias"][cols])
         assert torch.equal(ranks[r]["encoder.block0.attn.proj.kernel"],
                            sd["encoder.block0.attn.proj.kernel"][r * Dl:(r + 1) * Dl])
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+def test_jepa_split_and_whole_blocks_round_trip_exactly(tp, small):
+    """An I-JEPA model that mixes split and whole blocks: at tp 2 the
+    encoder's 2 heads split and the 96-wide one-head predictor stays whole,
+    at tp 4 every block stays whole (2 heads); every rank's state dict
+    from the whole one and back, bit for bit, the whole blocks' leaves the
+    whole tensors themselves on every rank; a built rank's model (the
+    layout :func:`shard_module` gives without a process group) reports the
+    same split set and its target, a copy, too."""
+    from sky_embeddings_tpu_torch.parallel.mesh import create_mesh
+
+    model = build_jepa_model(Config.from_dict(_jepa_dict()), device="cpu")
+    sd = model.state_dict()
+    blocks = sharding.split_blocks(model, tp)
+    want = {f"encoder.encoder.block{i}" for i in range(2)} if tp == 2 else set()
+    assert blocks == want
+    ranks = [sharding.shard_state(sd, r, tp, blocks) for r in range(tp)]
+    back = sharding.gather_state(ranks, blocks)
+    assert set(back) == set(sd) and all(torch.equal(back[k], v) for k, v in sd.items())
+    split = {k for k, v in sharding.param_shardings(sd, blocks).items() if v is not None}
+    assert all(k.startswith("encoder.encoder.block") for k in split) and len(split) == 6 * len(want)
+    for k in sd:
+        if k not in split:
+            assert all(r[k] is sd[k] for r in ranks), k
+    mesh = create_mesh(1, tp, devices=list(range(tp)), device_type="cpu")
+    sharding.shard_module(model, mesh)
+    assert sharding.split_of(model) == blocks
+    assert sharding.split_of(model.encoder) == {b[len("encoder."):] for b in blocks}
+    for name, v in model.state_dict().items():
+        assert torch.equal(v, ranks[0][name]), name
+    pred = model.predictor.blocks.block0
+    assert pred.tp is None and not pred.stash and not pred.ffn.stash
 
 
 # -- the TP forms' plain versions ------------------------------------------------------
@@ -351,9 +454,7 @@ def ranks(tmp_path_factory):
     four-rank spawns."""
     out_dir = str(tmp_path_factory.mktemp("tp"))
     with pytest.MonkeyPatch.context() as mp:
-        for mod in (jax_mim, port_mim):
-            for k, v in CUT.items():
-                mp.setitem(mod._SIZES["base"], k, v)
+        _cut(mp)
         data = make_cutouts(4 * B, channels=3, img_size=16, seed=7)
         assert np.isnan(data["cutouts"]).any()
         rd = np.stack([data["ra"], data["dec"]], 1)
@@ -362,7 +463,8 @@ def ranks(tmp_path_factory):
         rng = np.random.default_rng(3)
         refs, payload = {}, {"depth": DEPTH, "out_dir": out_dir}
         for key, name, arch in (("simmim", "mim_tiny", {}),
-                                ("mae", "mae_tiny", {"model_type": "base"})):
+                                ("mae", "mae_tiny", {"model_type": "base"}),
+                                ("mae_simple", "mae_tiny", {})):
             jcfg, cfg = _configs(name, **arch)
             simmim = key == "simmim"
             jmodel = jax_build_mim_model(jcfg, dtype=jnp.float32)
@@ -401,6 +503,7 @@ def ranks(tmp_path_factory):
                         sum(one.schedule(i) for i in range(3)))
         payload["pred"] = {"cfg": _dict(pcfg), "mim_cfg": _dict(mim), "params": start,
                            "batches": pb}
+        refs["jepa"], payload["jepa"] = _jepa_refs(out_dir, [b["cutouts"] for b in batches])
         two = tpw.run_ranks(tpw.tp_job, payload)
         four = tpw.run_ranks(tpw.tp_zero_job, payload, n=4)
         # a TP save restored by one process, the port's and JAX's
@@ -412,7 +515,50 @@ def ranks(tmp_path_factory):
         restored = {"port": tpw.state(port.model),
                     "jax": params_from_jax(jax.device_get(jt.state.params)),
                     "jax_step": int(jt.state.step)}
+        # the ranks' I-JEPA save restored by one process, the port's and JAX's
+        port_j = JEPATrainer(Config.from_dict(_jepa_dict()), device="cpu")
+        assert port_j.restore(os.path.join(out_dir, "tp_jepa.ckpt.pt")) and port_j.cur_iter == 3
+        jj = JaxJEPATrainer(JaxConfig.from_dict(_jepa_dict(), name="jepa_t"))
+        assert jj.restore(os.path.join(out_dir, "tp_jepa.ckpt.msgpack"))
+        restored["jepa"] = {
+            "port": (tpw.state(port_j.model), tpw.state(port_j.target)),
+            "jax": (params_from_jax(jax.device_get(jj.state.params)),
+                    params_from_jax(jax.device_get(jj.state.target_params))),
+            "jax_step": int(jj.state.step)}
     return dict(refs=refs, two=two, four=four, restored=restored)
+
+
+def _jepa_refs(out_dir: str, images: list):
+    """I-JEPA's references and the ranks' payload: JAX's ``JEPATrainer``
+    (its params, EMA target and initial file), three of its steps on
+    ``images`` (clipped at -3, as the loaders clip) from its own mask
+    draws, and the port's one process from the same params, target and
+    masks."""
+    jt = JaxJEPATrainer(JaxConfig.from_dict(_jepa_dict(), name="jepa_t"))
+    jax_file = os.path.join(out_dir, "jax_jepa.ckpt.msgpack")
+    jt.save(jax_file)
+    params = params_from_jax(jax.device_get(jt.state.params))
+    target = params_from_jax(jax.device_get(jt.state.target_params))
+    rng, masks = jt.state.rng, []
+    for _ in range(4):  # train/jepa.py's draws: the state's next rng is k_next
+        _, k_mask, rng = jax.random.split(rng, 3)
+        m = jax_sample(k_mask, B, jt.model.grid_size, **jt.mask_params)
+        masks.append(BlockMasks(*(torch.from_numpy(np.asarray(a).astype(
+            bool if a.dtype == bool else np.int64)) for a in m)))
+    batches = [np.maximum(x, -3.0) for x in images]
+    jl = [float(jt.train_batch({"cutouts": b, "ra_dec": np.zeros((B, 2), np.float32)}))
+          for b in batches[:3]]
+    jax_after = (params_from_jax(jax.device_get(jt.state.params)),
+                 params_from_jax(jax.device_get(jt.state.target_params)))
+    one = JEPATrainer(Config.from_dict(_jepa_dict()), device="cpu")
+    one.model.load_state_dict(params)
+    one.target.load_state_dict(target)
+    ol = [float(one.train_batch({"cutouts": b}, masks=m)) for b, m in zip(batches[:3], masks[:3])]
+    refs = dict(jax=(jl, *jax_after), one=(ol, tpw.state(one.model), tpw.state(one.target)),
+                lr_sum=sum(one.lr_schedule(i) for i in range(3)), start=params)
+    payload = {"cfg": _jepa_dict(), "params": params, "target": target, "batches": batches,
+               "masks": masks, "jax_file": jax_file}
+    return refs, payload
 
 
 def _held(got: dict, want: dict, lr_sum: float):
@@ -420,7 +566,7 @@ def _held(got: dict, want: dict, lr_sum: float):
     assert rest <= 2e-3 * lr_sum and keys <= lr_sum, (rest, keys)
 
 
-@pytest.mark.parametrize("key", ["simmim", "mae"])
+@pytest.mark.parametrize("key", ["simmim", "mae", "mae_simple"])
 def test_two_tp_ranks_match_jax_and_one_process(ranks, key):
     r0, r1 = (r[key] for r in ranks["two"])
     ref = ranks["refs"][key]
@@ -439,6 +585,79 @@ def test_two_tp_ranks_match_jax_and_one_process(ranks, key):
         assert float((v - ref["start"][k]).abs().max()) > 0, k
     assert set(r0["replicated"]) == set(r1["replicated"])
     assert all(torch.equal(v, r1["replicated"][k]) for k, v in r0["replicated"].items())
+    encoder = [f"encoder.block{i}" for i in range(2)]
+    assert r0["split"] == r1["split"] == sorted(
+        encoder + (["decoder.block0"] if key == "mae" else []))
+    if key == "mae_simple":  # the one-head decoder: whole, and bit-equal on both ranks
+        dec = [k for k in r0["replicated"] if k.startswith("decoder.block0.")]
+        assert "decoder.block0.attn.qkv.kernel" in dec and len(dec) == 12
+
+
+def _same(a: dict, b: dict) -> bool:
+    return set(a) == set(b) and all(torch.equal(v, b[k]) for k, v in a.items())
+
+
+@pytest.mark.parametrize("zero_on", [False, True])
+def test_jepa_two_tp_ranks_match_jax_and_one_process(ranks, zero_on):
+    """I-JEPA at ``tensor_parallel = 2``: the encoder's blocks split, the
+    predictor's whole on both ranks, the target a copy sharded alike that
+    shares the mesh; 3 steps against JAX's trainer and one process (the
+    module docstring's bars); every replicated leaf of the model and the
+    EMA target bit-equal on both ranks."""
+    r0, r1 = (r["jepa"][zero_on] for r in ranks["two"])
+    ref = ranks["refs"]["jepa"]
+    layout = ranks["two"][0]["jepa"]["layout"]
+    enc = [f"encoder.encoder.block{i}" for i in range(2)]
+    assert layout["split"] == enc and layout["target_split"] == [b[8:] for b in enc]
+    assert layout["enc_qkv"] == (64, 96) and layout["enc_fc2"] == (128, 64)
+    assert layout["pred_qkv"] == (96, 288) and layout["pred_fc2"] == (384, 96)
+    assert layout["target_qkv"] == (64, 96)
+    assert layout["whole_recompute"] and layout["target_shares_mesh"]
+    assert r0["losses"] == r1["losses"] and r1["params"] is None and r1["target"] is None
+    for want in (ref["jax"][0], ref["one"][0]):
+        np.testing.assert_allclose(r0["losses"], want, rtol=1e-5)
+    for got, jax_want, one_want in ((r0["params"], ref["jax"][1], ref["one"][1]),
+                                    (r0["target"], ref["jax"][2], ref["one"][2])):
+        assert set(got) == set(jax_want)
+        rest, keys = param_gaps(got, jax_want)
+        assert rest <= 1e-4 and keys <= ref["lr_sum"], (rest, keys)
+        _held(got, one_want, ref["lr_sum"])
+    for k, v in r0["params"].items():  # every leaf moved
+        assert float((v - ref["start"][k]).abs().max()) > 0, k
+    for part in ("replicated", "target_replicated"):
+        assert _same(r0[part], r1[part]), part
+    pred = [k for k in r0["replicated"] if k.startswith("predictor.blocks.")]
+    assert len(pred) == 2 * 12 and "predictor.blocks.block1.attn.qkv.kernel" in pred
+
+
+def test_jepa_tp_checkpoints_move_between_layouts_and_frameworks(ranks):
+    """The ranks' I-JEPA save (ZeRO on, one data index) in the port's
+    format restored by one process and in JAX's by JAX's trainer, the
+    parameters and the EMA target bit-equal to the ranks' gathered ones;
+    JAX's one-device file restored by the ranks bit-equal to their shards;
+    each rank's restored step (model and target) bit-equal to its
+    uninterrupted one."""
+    saved = ranks["two"][0]["jepa"][True]
+    got = ranks["restored"]["jepa"]
+    for which in ("port", "jax"):
+        params, target = got[which]
+        assert _same(params, saved["params"]) and _same(target, saved["target"]), which
+    assert got["jax_step"] == 3
+    for r in ranks["two"]:
+        assert r["jepa"]["restored"] == {".ckpt.pt": True, ".ckpt.msgpack": True}
+        assert r["jepa"]["from_jax"]
+
+
+def test_jepa_tiny_widths_train_whole_on_two_tp_ranks(ranks):
+    """``jepa_tiny``'s widths (a 192-wide 3-head encoder, a 96-wide one-head
+    predictor) at ``tensor_parallel = 2``: no block splits, every block
+    runs whole on both ranks, and one step leaves the ranks' losses,
+    parameters and EMA targets bit-equal."""
+    r0, r1 = (r["jepa"]["tiny"] for r in ranks["two"])
+    assert r0["split"] == r1["split"] == []
+    assert r0["loss"] == r1["loss"] and np.isfinite(r0["loss"])
+    assert _same(r0["params"], r1["params"]) and _same(r0["target"], r1["target"])
+    assert r0["params"]["encoder.encoder.block0.attn.qkv.kernel"].shape == (192, 576)
 
 
 def test_tp_checkpoints_move_between_layouts_and_frameworks(ranks):
@@ -483,6 +702,23 @@ def test_four_ranks_data_and_model_with_zero_match_one_process(ranks):
     assert all(torch.equal(four[2]["params"][k], v) for k, v in four[0]["params"].items())
     for r in four[1:]:
         assert all(torch.equal(v, r["replicated"][k]) for k, v in four[0]["replicated"].items())
+
+
+def test_jepa_four_ranks_data_and_model_with_zero_match_one_process(ranks):
+    """I-JEPA on four ranks (data 2 x model 2, ZeRO-1 over the data group,
+    DDP), each data index on its rows of the global batch and its block
+    masks, against one process over the global batch."""
+    ref = ranks["refs"]["jepa"]
+    four = [r["jepa"] for r in ranks["four"]]
+    assert all(r["sharded"] and r["ddp"] for r in four)
+    assert all(r["losses"] == four[0]["losses"] for r in four)
+    np.testing.assert_allclose(four[0]["losses"], ref["one"][0], rtol=1e-5)
+    _held(four[0]["params"], ref["one"][1], ref["lr_sum"])
+    _held(four[0]["target"], ref["one"][2], ref["lr_sum"])
+    assert _same(four[0]["params"], four[2]["params"]) and four[1]["params"] is None
+    for r in four[1:]:
+        assert _same(four[0]["replicated"], r["replicated"])
+        assert _same(four[0]["target_replicated"], r["target_replicated"])
 
 
 TWIN = ("import sys; from sky_embeddings_tpu_torch.models import mim; "
@@ -553,3 +789,77 @@ def test_pretrain_mim_twin_at_tensor_parallel_2(tmp_path):
         assert two.restore(str(tmp_path / "models" / "mim_tiny.ckpt.pt")) and two.cur_iter == 4
     lr_sum = sum(one.schedule(t) for t in range(4))
     _held(tpw.state(two.model), tpw.state(one.model), lr_sum)
+
+
+JEPA_TWIN = ("import sys; from sky_embeddings_tpu_torch.models import jepa; "
+             f"jepa._SIZES['tiny'] = {JEPA_SMALL!r}; import torch; "
+             "from sky_embeddings_tpu_torch import pretrain_jepa as t; t.REPO_DIR = sys.argv[1]; "
+             "t.main(sys.argv[2:]); torch.distributed.destroy_process_group()")
+
+
+def test_pretrain_jepa_twin_at_tensor_parallel_2(tmp_path):
+    """``pretrain_jepa jepa_tiny --set TRAINING.tensor_parallel=2`` (depth 2,
+    D = 64: the encoder split, the predictor whole; 4 steps, validation at
+    steps 2 and 4) as two ``SKY_DISTRIBUTED`` processes: one data index, so
+    both read the whole batches; process 0 alone logs and writes the whole
+    checkpoint; its parameters and EMA target against one process trained
+    on the same batches and mask draws: 1e-4 absolute, the key biases the
+    summed lr, the MAE case's bars (measured on the CPU: 7.6e-6 at
+    ``predictor.proj_in.kernel``, where Adam turns the encoder's split sums'
+    rounding into a step error in proportion to lr over the 4 steps)."""
+    import socket
+    import subprocess
+    import sys
+
+    from sky_embeddings_tpu_torch.configuration import apply_overrides
+    from sky_embeddings_tpu_torch.data.device_cache import build_cached_or_streaming_batcher
+    from sky_embeddings_tpu_torch.data.synthetic import write_synthetic_h5
+
+    repo = os.path.dirname(CONFIGS)
+    (tmp_path / "configs").symlink_to(CONFIGS)
+    data = tmp_path / "data"
+    data.mkdir()
+    write_synthetic_h5(str(data / "tiny_train.h5"), n=64, channels=3, img_size=16, seed=1)
+    write_synthetic_h5(str(data / "tiny_val.h5"), n=32, channels=3, img_size=16, seed=2)
+    over = ["TRAINING.total_batch_iters=4", "TRAINING.batch_size=8", "TRAINING.tensor_parallel=2"]
+    argv = ["jepa_tiny", "-v", "2", "-ct", "100", "-dd", str(data), "--device", "cpu"]
+    for o in over:
+        argv += ["--set", o]
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = []
+    for pid in range(2):
+        env = dict(os.environ, SKY_DISTRIBUTED="1", SKY_COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
+                   SKY_NUM_PROCESSES="2", SKY_PROCESS_ID=str(pid), OMP_NUM_THREADS="1",
+                   PYTHONPATH=repo + os.pathsep + os.environ.get("PYTHONPATH", ""))
+        procs.append(subprocess.Popen([sys.executable, "-c", JEPA_TWIN, str(tmp_path), *argv],
+                                      env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                      text=True))
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=240)[0])
+            assert p.returncode == 0, outs[-1][-3000:]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    assert "Batch Iterations: 4/4" in outs[0] and "val loss" in outs[0]
+    assert "(2 processes)" in outs[0] and "Batch Iterations" not in outs[1]
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setitem(port_jepa._SIZES, "tiny", dict(JEPA_SMALL))
+        cfg = apply_overrides(load_config("jepa_tiny", CONFIGS), over[:2])
+        batches = build_cached_or_streaming_batcher(
+            cfg.data, str(data / "tiny_train.h5"), 8, img_size=16, shuffle=True,
+            log_fn=lambda m: None, device="cpu").forever()
+        one = JEPATrainer(cfg, device="cpu")
+        for _ in range(4):
+            one.train_batch(next(batches))
+        two = JEPATrainer(cfg, device="cpu")
+        assert two.restore(str(tmp_path / "models" / "jepa_tiny.ckpt.pt")) and two.cur_iter == 4
+    lr_sum = sum(one.lr_schedule(t) for t in range(4))
+    for got, want in ((two.model, one.model), (two.target, one.target)):
+        rest, keys = param_gaps(tpw.state(got), tpw.state(want))
+        assert rest <= 1e-4 and keys <= lr_sum, (rest, keys)

@@ -15,6 +15,7 @@ import os
 import socket
 import tempfile
 import time
+from typing import Optional
 
 import torch
 
@@ -233,8 +234,45 @@ def predictor_jepa_job(rank: int, p: dict) -> dict:
             "model_group": torch.distributed.get_process_group_ranks(tr.mesh.model_group),
             "qkv": tuple(blk.attn.qkv.kernel.shape), "fc2": tuple(blk.ffn.fc2_kernel.shape),
             "patch": tuple(tr.model.patch_embed.proj.kernel.shape)}
+    out["tp_built"]["jepa"] = jepa_layout(
+        JEPATrainer(mim_config(p["jepa_cfg"], tensor_parallel=2), device="cpu"))
     return out
 
+
+def jepa_layout(tr) -> dict:
+    """An I-JEPA trainer's tensor-parallel layout on this rank: the mesh, the
+    split blocks of the model and of the EMA target, the shapes of the first
+    encoder and predictor blocks, and whether every whole block takes the
+    recompute forms and the target's blocks share the model's mesh."""
+    from sky_embeddings_tpu_torch.models.layers import Block
+    from sky_embeddings_tpu_torch.parallel.sharding import split_of
+
+    m = tr.model
+    whole = [b for b in (*m.modules(), *tr.target.modules())
+             if isinstance(b, Block) and b.tp is None]
+    return {
+        "mesh": (tr.mesh.shape, tr.mesh.data_index, tr.mesh.model_index),
+        "model_group": torch.distributed.get_process_group_ranks(tr.mesh.model_group),
+        "split": sorted(split_of(m)), "target_split": sorted(split_of(tr.target)),
+        "enc_qkv": tuple(m.encoder.encoder.block0.attn.qkv.kernel.shape),
+        "enc_fc2": tuple(m.encoder.encoder.block0.ffn.fc2_kernel.shape),
+        "pred_qkv": tuple(m.predictor.blocks.block0.attn.qkv.kernel.shape),
+        "pred_fc2": tuple(m.predictor.blocks.block0.ffn.fc2_kernel.shape),
+        "target_qkv": tuple(tr.target.encoder.block0.attn.qkv.kernel.shape),
+        "whole_recompute": bool(whole) and all(not b.stash and not b.ffn.stash and b.ffn.tp is None
+                                               for b in whole),
+        "target_shares_mesh": tr.target.encoder.block0.tp is tr.mesh}
+
+
+
+def _gathered(module, mesh) -> tuple[Optional[dict], dict]:
+    """A sharded module's whole state dict (on the model group's first
+    rank, None on the others) and the leaves this rank holds whole."""
+    from sky_embeddings_tpu_torch.parallel.sharding import gather_to_main, shard_of, split_of
+
+    split, local = split_of(module), state(module)
+    return (gather_to_main(local, mesh, split),
+            {k: v for k, v in local.items() if shard_of(k, split) is None})
 
 
 def _tp_steps(tr, p: dict, key: str, rank_rows) -> dict:
@@ -242,42 +280,75 @@ def _tp_steps(tr, p: dict, key: str, rank_rows) -> dict:
     batches and maskings (SimMIM masks or MAE noise), then its losses, the
     whole parameters (gathered over the model group) and the replicated
     ones as this rank holds them."""
-    from sky_embeddings_tpu_torch.parallel.sharding import gather_to_main, shard_of
-
     losses = []
     for b, mk in zip(p[key]["batches"][:3], p[key]["maskings"][:3]):
         m = torch.from_numpy(rank_rows(mk))
         kw = {"mask": m} if tr.model.simmim else {"noise": m}
         losses.append(float(tr.train_batch(rank_rows(b), **kw)))
-    local = state(tr.model)
-    return {"losses": losses, "params": gather_to_main(local, tr.mesh),
-            "replicated": {k: v for k, v in local.items() if shard_of(k) is None}}
+    params, replicated = _gathered(tr.model, tr.mesh)
+    return {"losses": losses, "params": params, "replicated": replicated}
+
+
+def _jepa_masks(m, rows):
+    from sky_embeddings_tpu_torch.ops.jepa_masks import BlockMasks
+
+    return BlockMasks(*(rows(t) for t in m))
+
+
+def _jepa_trainer(p: dict, **training):
+    """An I-JEPA trainer of ``p["jepa"]``'s config with ``training``
+    overrides, from the payload's whole params and EMA target cut to this
+    rank's shards."""
+    from sky_embeddings_tpu_torch.parallel.sharding import shard_state, split_of
+    from sky_embeddings_tpu_torch.train.jepa import JEPATrainer
+
+    tr = JEPATrainer(mim_config(p["jepa"]["cfg"], **training), device="cpu")
+    m = tr.mesh
+    for module, key in ((tr.model, "params"), (tr.target, "target")):
+        module.load_state_dict(shard_state(p["jepa"][key], m.model_index, m.tp, split_of(module)))
+    return tr
+
+
+def _jepa_steps(tr, p: dict, rank_rows) -> dict:
+    """Three I-JEPA steps on this rank's rows of the payload's batches and
+    block masks: the losses, the whole parameters and EMA target (gathered
+    over the model group) and the leaves this rank holds whole."""
+    losses = [float(tr.train_batch({"cutouts": rank_rows(b)}, masks=_jepa_masks(m, rank_rows)))
+              for b, m in zip(p["jepa"]["batches"][:3], p["jepa"]["masks"][:3])]
+    params, replicated = _gathered(tr.model, tr.mesh)
+    target, target_replicated = _gathered(tr.target, tr.mesh)
+    return {"losses": losses, "params": params, "target": target, "replicated": replicated,
+            "target_replicated": target_replicated}
 
 
 def tp_job(rank: int, p: dict) -> dict:
     """The tensor-parallel checks of ``test_torch_tp.py`` on one rank of
     ``tensor_parallel = 2`` (data 1 x model 2): the mesh and its groups;
-    three SimMIM and three MAE steps from the whole params, every rank on
-    the whole batch; the checkpoint in both formats, written by rank 0,
+    three SimMIM, three MAE and three ``maesimple`` steps (its one-head
+    decoder whole on both ranks) from the whole params, every rank on the
+    whole batch; the checkpoint in both formats, written by rank 0,
     restored on both ranks (the next step bit-equal to the uninterrupted
-    one); three predictor ``ft`` steps and an ``lp`` evaluation."""
+    one); three predictor ``ft`` steps and an ``lp`` evaluation; three
+    I-JEPA steps without and with ``zero_optimizer`` (:func:`jepa_tp_job`)."""
     from sky_embeddings_tpu_torch.configuration import Config
     from sky_embeddings_tpu_torch.parallel import distributed
-    from sky_embeddings_tpu_torch.parallel.sharding import gather_to_main, shard_state
+    from sky_embeddings_tpu_torch.parallel.sharding import shard_state, split_of
     from sky_embeddings_tpu_torch.train.predictor import PredictorTrainer
     from sky_embeddings_tpu_torch.train.pretrain import MIMPretrainer
 
     _patch_depth(p["depth"])
     out: dict = {}
     whole = lambda x: x  # noqa: E731  (one data index: every rank takes the whole batch)
-    for key in ("simmim", "mae"):
+    for key in ("simmim", "mae", "mae_simple"):
         tr = MIMPretrainer(mim_config(p[key]["cfg"], tensor_parallel=2), dtype=torch.float32,
                            device="cpu")
         m = tr.mesh
+        split = split_of(tr.model)
         out.setdefault("mesh", (m.shape, m.data_index, m.model_index, distributed.batch_rows(8),
                                 tr.forward is tr.model))
-        tr.model.load_state_dict(shard_state(p[key]["params"], m.model_index, m.tp))
+        tr.model.load_state_dict(shard_state(p[key]["params"], m.model_index, m.tp, split))
         out[key] = _tp_steps(tr, p, key, whole)
+        out[key]["split"] = sorted(split)
         if key == "simmim":
             paths = {fmt: os.path.join(p["out_dir"], "tp" + fmt)
                      for fmt in (".ckpt.pt", ".ckpt.msgpack")}
@@ -302,40 +373,103 @@ def tp_job(rank: int, p: dict) -> dict:
                 fresh = MIMPretrainer(mim_config(p[key]["cfg"], tensor_parallel=2),
                                       dtype=torch.float32, device="cpu")
                 assert fresh.restore(path)
-                mine = shard_state(want, m.model_index, m.tp)
+                mine = shard_state(want, m.model_index, m.tp, split)
                 out["from_one"][fmt] = all(torch.equal(v, mine[k])
                                            for k, v in state(fresh.model).items())
     mim = Config.from_dict(p["pred"]["mim_cfg"])
     pred = PredictorTrainer(mim_config(p["pred"]["cfg"], tensor_parallel=2), mim,
                             dtype=torch.float32, seed=2, device="cpu")
-    pred.model.load_state_dict(shard_state(p["pred"]["params"], pred.mesh.model_index, 2))
+    pred.model.load_state_dict(shard_state(p["pred"]["params"], pred.mesh.model_index, 2,
+                                           split_of(pred.model)))
     losses = [[float(v) for v in pred.train_batch(b)] for b in p["pred"]["batches"]]
     val = [float(v) for v in pred.eval_batch(p["pred"]["batches"][0])]
-    local = state(pred.model)
-    out["pred"] = {"losses": losses, "val": val, "params": gather_to_main(local, pred.mesh)}
+    out["pred"] = {"losses": losses, "val": val, "params": _gathered(pred.model, pred.mesh)[0]}
     lp = PredictorTrainer(mim_config(p["pred"]["cfg"], tensor_parallel=2, train_method="lp"), mim,
                           dtype=torch.float32, seed=2, device="cpu")
-    lp.model.load_state_dict(shard_state(p["pred"]["params"], lp.mesh.model_index, 2))
+    lp.model.load_state_dict(shard_state(p["pred"]["params"], lp.mesh.model_index, 2,
+                                         split_of(lp.model)))
     out["lp"] = [float(v) for v in lp.train_batch(p["pred"]["batches"][0])]
+    out["jepa"] = jepa_tp_job(p)
+    return out
+
+
+def jepa_tp_job(p: dict) -> dict:
+    """I-JEPA at ``tensor_parallel = 2`` on this rank (one data index):
+    three steps from the payload's whole params and EMA target without and
+    with ``zero_optimizer``; the ZeRO run saved in both formats by rank 0,
+    restored on both ranks (the next step and the EMA target bit-equal to
+    the uninterrupted run's); JAX's one-device file restored cut to this
+    rank's shards."""
+    from sky_embeddings_tpu_torch.parallel.sharding import shard_state, split_of
+    from sky_embeddings_tpu_torch.train.jepa import JEPATrainer
+
+    out: dict = {}
+    whole = lambda x: x  # noqa: E731
+    for zero_on in (False, True):
+        tr = _jepa_trainer(p, tensor_parallel=2, zero_optimizer=zero_on)
+        out[zero_on] = _jepa_steps(tr, p, whole)
+    out["layout"] = jepa_layout(tr)
+    paths = {fmt: os.path.join(p["out_dir"], "tp_jepa" + fmt) for fmt in (".ckpt.pt", ".ckpt.msgpack")}
+    for path in paths.values():
+        tr.save(path)
+    torch.distributed.barrier()
+    nxt = ({"cutouts": p["jepa"]["batches"][3]}, _jepa_masks(p["jepa"]["masks"][3], whole))
+    tr.train_batch(*nxt)
+    after = (state(tr.model), state(tr.target))
+    out["restored"] = {}
+    cfg = mim_config(p["jepa"]["cfg"], tensor_parallel=2, zero_optimizer=True)
+    for fmt, path in paths.items():
+        fresh = JEPATrainer(cfg, device="cpu")
+        assert fresh.restore(path) and fresh.cur_iter == 3
+        fresh.train_batch(*nxt)
+        out["restored"][fmt] = all(torch.equal(v, want[k]) for got, want in zip(
+            (state(fresh.model), state(fresh.target)), after) for k, v in got.items())
+    fresh = JEPATrainer(cfg, device="cpu")
+    assert fresh.restore(p["jepa"]["jax_file"]) and fresh.cur_iter == 0
+    m = fresh.mesh
+    out["from_jax"] = all(
+        torch.equal(v, shard_state(p["jepa"][key], m.model_index, m.tp, split_of(module))[k])
+        for module, key in ((fresh.model, "params"), (fresh.target, "target"))
+        for k, v in state(module).items())
+    # jepa_tiny's own widths (D = 192, 3 heads; its predictor 96 wide, one
+    # head), cut to depth 2: no block splits at tp = 2, so the ranks run
+    # one process's arithmetic
+    from sky_embeddings_tpu_torch.models import jepa
+
+    cut = jepa._SIZES["tiny"]
+    jepa._SIZES["tiny"] = dict(embed_dim=192, depth=2, num_heads=3)
+    try:
+        tiny = JEPATrainer(mim_config(p["jepa"]["cfg"], tensor_parallel=2), device="cpu")
+    finally:
+        jepa._SIZES["tiny"] = cut
+    loss = float(tiny.train_batch({"cutouts": p["jepa"]["batches"][0]},
+                                  masks=_jepa_masks(p["jepa"]["masks"][0], whole)))
+    out["tiny"] = {"split": sorted(split_of(tiny.model) | split_of(tiny.target)), "loss": loss,
+                   "params": state(tiny.model), "target": state(tiny.target)}
     return out
 
 
 def tp_zero_job(rank: int, p: dict) -> dict:
-    """Three SimMIM steps at ``tensor_parallel = 2`` on four ranks (data 2 x
-    model 2) with ``zero_optimizer``: each data index on its rows of the
-    global batches; the moments sharded over the data group; a save in the
-    port's format."""
+    """Three SimMIM and three I-JEPA steps at ``tensor_parallel = 2`` on
+    four ranks (data 2 x model 2) with ``zero_optimizer``: each data index
+    on its rows of the global batches (and block masks); the moments
+    sharded over the data group; a SimMIM save in the port's format."""
     from sky_embeddings_tpu_torch.parallel import zero
-    from sky_embeddings_tpu_torch.parallel.sharding import shard_state
+    from sky_embeddings_tpu_torch.parallel.sharding import shard_state, split_of
     from sky_embeddings_tpu_torch.train.pretrain import MIMPretrainer
 
     _patch_depth(p["depth"])
     tr = MIMPretrainer(mim_config(p["simmim"]["cfg"], tensor_parallel=2, zero_optimizer=True),
                        dtype=torch.float32, device="cpu")
     m = tr.mesh
-    tr.model.load_state_dict(shard_state(p["simmim"]["params"], m.model_index, m.tp))
-    out = _tp_steps(tr, p, "simmim", lambda x: local_rows(x, m.data_index, m.shape[0]))
+    tr.model.load_state_dict(shard_state(p["simmim"]["params"], m.model_index, m.tp,
+                                         split_of(tr.model)))
+    rows = lambda x: local_rows(x, m.data_index, m.shape[0])  # noqa: E731
+    out = _tp_steps(tr, p, "simmim", rows)
     out.update(mesh=(m.shape, m.data_index, m.model_index), sharded=zero.is_sharded(tr.optimizer),
                ddp=tr.forward is not tr.model)
     tr.save(os.path.join(p["out_dir"], "tp_zero.ckpt.pt"))
+    jt = _jepa_trainer(p, tensor_parallel=2, zero_optimizer=True)
+    out["jepa"] = _jepa_steps(jt, p, rows)
+    out["jepa"].update(sharded=zero.is_sharded(jt.optimizer), ddp=jt.forward is not jt.model)
     return out

@@ -15,8 +15,9 @@ profiler, ``nvidia-smi``, the nvcc build and the C-only helpers (the TMA encode 
 bit-equality launch), and runs ``main()`` with ``check`` logging instead of
 exiting. Phase 5k runs at batch 8, its queued runs as this file's
 ``--queue-worker``, its data stages at 20 000 sources and a 256^2 patch;
-phase 5l's TP forms at tiny shapes and its legs on ``mim_tiny`` and
-``z_tiny`` (fp32), its ranks as this file's ``--tp-worker``.
+phase 5l's TP forms at tiny shapes and ViT-S's, its legs on ``mim_tiny``,
+``z_tiny``, ``mae_tiny`` (fp32) and the ``jepa_struct`` stand-in, its ranks
+as this file's ``--tp-worker``.
 Every wrapper takes its plain version on CPU tensors, so only the
 launch-count and full-size checks fail; anything else that fails, and any
 exception, is a fault of the script's own logic. About two minutes.
@@ -118,11 +119,16 @@ def shrink() -> None:
     cs.CATALOG = (20_000, 2_000, 200)
     cs.PATCH = (256, ("G", "R", "I", "Z"))
     # phase 5l: the TP forms at tiny shapes; its legs fp32 tiny configs (the
-    # bf16 stand-ins' heads of 4 are refused under tensor parallelism), its
-    # ranks this file's --tp-worker
-    cs.TP_SHAPES = (("mim_32", 2, 17, 48, 12, 192, 0), ("mae", 2, 20, 48, 12, 192, 5))
-    cs.TP_LEGS = (("mim_tiny", 2), ("z_tiny", 2))
-    cs.TOL_TP = dict.fromkeys(("mim_tiny", "z_tiny"), (1e-1, 1e-1, 1e-1))
+    # bf16 stand-ins' heads of 4 are refused under tensor parallelism), the
+    # jepa_struct stand-in (bf16 heads of 64, its predictor whole) and
+    # mae_tiny (its decoder whole), its ranks this file's --tp-worker
+    cs.TP_SHAPES = (("mim_32", 2, 17, 48, 12, 192, 0), ("mae", 2, 20, 48, 12, 192, 5),
+                    ("jepa_struct", 4, 16, 384, 6, 1536, 0))
+    cs.TP_LEGS = (("mim_tiny", 2), ("z_tiny", 2), ("jepa_struct", 2), ("mae_tiny", 2))
+    cs.TP_CKPT = ("mim_tiny", "jepa_struct")
+    cs.TOL_TP = dict.fromkeys(("mim_tiny", "z_tiny", "jepa_struct", "mae_tiny"),
+                              (1e-1, 1e-1, 1e-1))
+    cs.TOL_TP_TARGET = {"jepa_struct": 1e-1}
     cs.TP_WORKER = [os.path.abspath(__file__), "--tp-worker"]
 
 
