@@ -290,7 +290,13 @@ failing loudly (any failure exits non-zero and prints no result line):
    K2, kernel 4, K1 and kernel 8 in the whole ones), the ranks' mim_32 and
    jepa_struct saves restored by one process bit-equal and each rank's
    restored step bit-equal; step ms, collectives' ms and share, device ms
-   and peak GB per rank;
+   and peak GB per rank; then (``tp_stream_k``) the C group plan against
+   its Python mirror at every TP form's weight-gradient group, kernel 4's
+   and 8's TP backward halves launch by launch at the timed shapes (the
+   parent's, for the same table: ``tools/tp_bwd_breakdown.py``), and the
+   TP_GROUPS groups alone: against their plain versions, twice bit-equal,
+   timed under the plan beside the split schedule's plan forced (1 and 2
+   slices);
 5b. the ``Attention`` module (``models/layers.Attention``, the only caller of
    kernels 12 and 13, as in JAX) at ViT-B width, B=64, in bf16 and at its
    default fp32: one forward and ``backward()`` through autograd with the
@@ -653,6 +659,24 @@ TOL_TP = {"mim_32": (5.5e-2, 5.5e-4, 1.1e-3), "z_struct_ft_512": (8e-3, 4.6e-5, 
 TOL_TP_TARGET = {"jepa_struct": 1.4e-5}
 # the command that runs one rank of phase 5l (its spec file appended)
 TP_WORKER = [os.path.abspath(__file__), "--tp-worker"]
+# the weight-gradient groups phase 5l times alone (label, [(M, N, K), ...]):
+# every group of the bf16 paths this script drives where the group plan
+# takes stream-K (tests/test_torch_gemm_plan.py holds the list whole): the
+# backward TP forms' at jepa_struct's ViT-S shard, the whole kernels 3 / 4
+# and 7 / 8 at jepa_struct's and jepa_1's encoder and predictor, and the
+# bench's kernels 3 / 4 at the MAE decoder (B=1024) and the head of 512;
+# and jepa_struct's encoder kernel 8 group, where the split schedule stays
+TP_GROUPS = (("4 TP jepa_struct", ((384, 576, 16384), (192, 384, 16384))),
+             ("8 TP jepa_struct", ((384, 768, 16384), (768, 384, 16384))),
+             ("kernel 3 jepa_struct", ((384, 1152, 16384), (384, 384, 16384))),
+             ("kernel 8 jepa_struct", ((384, 1536, 16384), (1536, 384, 16384))),
+             ("kernel 3 jepa_struct predictor", ((192, 576, 19712), (192, 192, 19712))),
+             ("kernel 8 jepa_struct predictor", ((192, 768, 19712), (768, 192, 19712))),
+             ("kernel 3 jepa_1", ((384, 1152, 4096), (384, 384, 4096))),
+             ("kernel 3 jepa_1 predictor", ((192, 576, 4928), (192, 192, 4928))),
+             ("kernel 8 jepa_1 predictor", ((192, 768, 4928), (768, 192, 4928))),
+             ("kernel 3 mae decoder B=1024", ((512, 1536, 66560), (512, 512, 66560))),
+             ("kernel 3 head of 512 B=64", ((512, 1536, 4160), (512, 512, 4160))))
 
 # the retrieval path: a FITS survey of FITS_TILES tiles of FITS_SIZE^2 pixels
 # per band, searched at FITS_OVERLAP for N_GROUPS target groups; kernel 11 at
@@ -2630,6 +2654,168 @@ def tp_kernels(dev, timings, cuda_ms, rel_err, bound_ms):
     return gaps, time_forms
 
 
+def _by_launch(fn, reps=20, tries=3):
+    """Device µs of each launch of one call of ``fn``, in launch order, by
+    torch.profiler: the host's launch calls in the trace say how many
+    launches a call makes, the last reps x that many device records (late
+    in this long process a trace can carry a record of the session before
+    it) are cut into ``reps`` equal runs and averaged by position. A trace
+    short of records is taken again, ``tries`` times in all; None when none
+    holds them all."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    launch_calls = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cudaMemsetAsync")
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = prof.events()
+        per = sum(e.name in launch_calls for e in events) // reps
+        evs = sorted((e for e in events if str(getattr(e, "device_type", "")).endswith("CUDA")
+                      and not getattr(e, "is_user_annotation", False)),
+                     key=lambda e: e.time_range.start)
+        if per and len(evs) >= per * reps:
+            evs = evs[len(evs) - per * reps:]
+            return [[evs[i].name[:90], sum(evs[r * per + i].time_range.elapsed_us()
+                                           for r in range(reps)) / reps] for i in range(per)]
+    return None
+
+
+def tp_stream_k(dev, cuda_ms, rel_err):
+    """Phase 5l's look at the TP backward halves (kernel 4's and 8's) and
+    their weight-gradient groups, once the card is otherwise idle:
+
+    - the C group plan (``gemm.bwd_plan_cuda``) against its Python mirror
+      (``gemm.bwd_plan``) at each TP_SHAPES shape's two groups: the same
+      schedule, tile width, units, CTAs and workspace;
+    - each half and its finish at the TP_TIMED shapes in bf16, on one
+      rank's shard, launch by launch (device µs by torch.profiler), their
+      sum, the call's CUDA-event ms and the host µs a call to enqueue;
+      "paced" host where the event time is more than 1.5x the device sum;
+    - each TP_GROUPS group alone (``gemm.gemm_bwd_group``) against its
+      plain version (TOL_FWD) and twice bit-equal under its plan, and its
+      device time under the plan, the split schedule at the width of
+      ``gemm.split_plan`` (the plan without stream-K) with 1 and 2 slices,
+      and stream-K forced; where the plan takes stream-K, whether it was
+      no slower than the split schedule's plan."""
+    import time
+
+    import torch
+
+    from sky_embeddings_tpu_torch.ops.kernels import attn_block as ab
+    from sky_embeddings_tpu_torch.ops.kernels import gemm
+    from sky_embeddings_tpu_torch.ops.kernels import mlp_block as mb
+
+    out = {"plans": {}, "breakdown": {}, "groups": {}}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for tag, B, N, D, H, F, _ in TP_SHAPES:
+        Dl, Fl, M = D // TP_RANKS, F // TP_RANKS, B * N
+        for form, shapes in (("attn_block_tp_bwd", [(gemm.KIND_TN_SPLIT, D, 3 * Dl, M),
+                                                    (gemm.KIND_TN_SPLIT, Dl, D, M)]),
+                             ("mlp_block_tp_bwd", [(gemm.KIND_TN_SPLIT, D, Fl, M),
+                                                   (gemm.KIND_TN_SPLIT, Fl, D, M)])):
+            got, ws = gemm.bwd_plan_cuda(shapes, sms)
+            want = gemm.bwd_plan(shapes, sms)
+            key = lambda p_: (p_.schedule, p_.bn, p_.units, p_.ctas)  # noqa: E731
+            same = key(got) == key(want) and ws == gemm.bwd_workspace(shapes, want)
+            print(f"tp plan {form} {tag}: C {got} ws {ws}, mirror {want}, equal {same}",
+                  flush=True)
+            check(same, f"{form} {tag}: the C group plan equals its Python mirror")
+            out["plans"][f"{form}_{tag}"] = {"schedule": got.schedule, "bn": got.bn,
+                                            "splits": got.splits, "units": got.units,
+                                            "workspace": ws, "cost": got.cost}
+
+    gen = torch.Generator(device=dev).manual_seed(26)
+    bf = torch.bfloat16
+
+    def rnd(*shape, s=1.0, dt=torch.float32):
+        return (torch.randn(*shape, generator=gen, device=dev) * s).to(dt)
+
+    def host_us(fn, iters=20, batches=5):
+        """The least of ``batches`` means of ``iters`` enqueued calls (the
+        host's clock is shared and noisy)."""
+        best = None
+        for _ in range(batches):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                fn()
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            best = min(best or t1 - t0, t1 - t0)
+        return best / iters * 1e6
+
+    for tag, B, N, D, H, F, seg in TP_SHAPES:
+        if tag not in TP_TIMED:
+            continue
+        Hl, Fl, hd = H // TP_RANKS, F // TP_RANKS, D // H
+        Dl = Hl * hd
+        x, g = rnd(B, N, D, s=0.5, dt=bf), rnd(B, N, D, s=0.1, dt=bf)
+        scale, bias = 1 + rnd(D, s=0.1), rnd(D, s=0.1)
+        attn = (rnd(D, 3 * Dl, s=D ** -0.5, dt=bf), rnd(3 * Dl, s=0.01),
+                rnd(Dl, D, s=D ** -0.5, dt=bf))
+        mlp = (rnd(D, Fl, s=D ** -0.5, dt=bf), rnd(Fl, s=0.01), rnd(Fl, D, s=Fl ** -0.5, dt=bf))
+        calls = {"attn_block_tp_bwd": lambda: ab.attn_block_tp_bwd_finish(
+                     x, scale, bias, g, ab.attn_block_tp_bwd(x, scale, bias, *attn, g, Hl, seg)[0]),
+                 "mlp_block_tp_bwd": lambda: mb.mlp_block_tp_bwd_finish(
+                     x, scale, bias, g, mb.mlp_block_tp_bwd(x, scale, bias, *mlp, g)[0])}
+        for name, fn in calls.items():
+            rows = _by_launch(fn)
+            dev_sum = sum(us for _, us in rows) if rows else None
+            ev = cuda_ms(fn, 50)
+            rec = {"launches": rows, "device_sum_us": dev_sum, "event_ms": ev,
+                   "host_us": host_us(fn),
+                   "paced": None if dev_sum is None else
+                   ("host" if ev * 1e3 > 1.5 * dev_sum else "device")}
+            print(f"tp breakdown {name} {tag}: event {ev:.4f} ms, device sum {dev_sum} us, host "
+                  f"{rec['host_us']:.1f} us a call, paced {rec['paced']}; "
+                  + ", ".join(f"{n.split('(')[0][-40:]} {us:.2f}" for n, us in rows or []),
+                  flush=True)
+            out["breakdown"][f"{name}_{tag}"] = rec
+        torch.cuda.empty_cache()
+
+    for label, dims in TP_GROUPS:
+        ops = [(rnd(K, M, dt=bf), rnd(K, N, dt=bf)) for M, N, K in dims]
+        shapes = [(gemm.KIND_TN_SPLIT, M, N, K) for M, N, K in dims]
+        plan = gemm.gemm_bwd_group_plan(ops)[0]
+        old = gemm.split_plan(shapes, sms)
+        got = gemm.gemm_bwd_group(ops)
+        again = gemm.gemm_bwd_group(ops)
+        torch.cuda.synchronize()
+        errs = [rel_err(o, p_) for o, p_ in zip(got, gemm.gemm_bwd_group_plain(ops))]
+        twice = all(torch.equal(a_, b_) for a_, b_ in zip(got, again))
+        check(max(r_ for r_, _ in errs) <= TOL_FWD and twice,
+              f"{label}: the group under its plan ({plan.schedule}) within TOL_FWD of its plain "
+              "version and twice bit-equal")
+        cases = {"plan": {}, "split 1": {"bn": old.bn, "splits": 1},
+                 "split 2": {"bn": old.bn, "splits": 2},
+                 "stream_k": {"bn": plan.bn if plan.schedule == "stream_k" else 0,
+                              "schedule": "stream_k"}}
+        times = {}
+        for c, kw in cases.items():
+            rows = _by_launch(lambda: gemm.gemm_bwd_group(ops, **kw))
+            times[c] = sum(us for _, us in rows) / 1e3 if rows else "not measured"
+        old_key = f"split {old.splits}"
+        no_slower = (None if plan.schedule != "stream_k"
+                     or any(isinstance(times[k], str) for k in ("plan", old_key))
+                     else times["plan"] <= times[old_key])
+        out["groups"][label] = {"plan": str(plan), "old_plan": str(old),
+                                "max_rel_err": max(r_ for r_, _ in errs), "twice_bit_equal": twice,
+                                "device_ms": times, "stream_k_no_slower_than_old": no_slower}
+        print(f"tp group {label}: plan {plan.schedule} bn {plan.bn}, old {old.bn}x{old.splits}; "
+              f"device ms " + ", ".join(f"{c} {t if isinstance(t, str) else round(t, 5)}"
+                                        for c, t in times.items())
+              + f"; max-rel {max(r_ for r_, _ in errs):.2e}, twice bit-equal {twice}, stream-K no "
+              f"slower than the split schedule's plan {no_slower}", flush=True)
+        del ops, got, again
+        torch.cuda.empty_cache()
+    return out
+
+
 def tp_phase(dev, zero_counters, launch_counts, timings, cuda_ms, rel_err, bound_ms, smi):
     """Phase 5l, tensor parallelism (``parallel/sharding.py``).
 
@@ -2694,6 +2880,7 @@ def tp_phase(dev, zero_counters, launch_counts, timings, cuda_ms, rel_err, bound
         logs = [p_.communicate(timeout=600)[0] for p_ in procs]
         out["seconds_ranks"] = time.perf_counter() - t0
         time_forms()
+        out["stream_k"] = tp_stream_k(dev, cuda_ms, rel_err)
         for r, (p_, log) in enumerate(zip(procs, logs)):
             print(f"tp rank {r} exit {p_.returncode}; its output's end:\n{log[-1500:]}", flush=True)
             check(p_.returncode == 0, f"tp rank {r} ran to its end")

@@ -4,13 +4,15 @@ of ``sky_embeddings_tpu/cluster/launch_predictor.py``, reference
 
     python -m sky_embeddings_tpu_torch.cluster.launch_predictor <model_name> -mae <mim config>
         -tdf <train.h5> -vdf <val.h5> ... [--backend local|slurm|gcloud]
-        [--accelerator h100-1|h100-2|h100-4|h100-8] [--run_eval] [--dry_run]
+        [--accelerator h100-1|h100-2|h100-4|h100-8|h100-16|h100-32] [--run_eval] [--dry_run]
 
 Writes ``configs/<model_name>.ini`` (the same INI text as the JAX launcher
 for the same arguments) and submits the ``train_predictor`` twin, one
-process per GPU through the ``SKY_*`` contract, as ``num_runs`` chained
-allocations through ``queue_gpu.JobQueue``. ``--run_eval`` appends the
+process per GPU of each host through the ``SKY_*`` contract, as
+``num_runs`` chained allocations through ``queue_gpu.JobQueue``. ``--run_eval`` appends the
 ``test_predictor`` twin, which rank 0 alone runs once training has ended.
+``h100-16`` and ``h100-32`` (2 and 4 hosts of 8 H100s) queue on ``slurm``
+and ``gcloud`` alone.
 """
 
 from __future__ import annotations

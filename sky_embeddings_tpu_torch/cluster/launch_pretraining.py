@@ -4,15 +4,16 @@
 
     python -m sky_embeddings_tpu_torch.cluster.launch_pretraining <model_name> -vdf <val.h5>
         [-tdf <train.h5> | -tdp "['<tile dir>']"] ... [--backend local|slurm|gcloud]
-        [--accelerator h100-1|h100-2|h100-4|h100-8] [--num_runs N] [--dry_run]
+        [--accelerator h100-1|h100-2|h100-4|h100-8|h100-16|h100-32] [--num_runs N] [--dry_run]
 
 Writes ``configs/<model_name>.ini`` from the arguments (config-as-artifact;
 the same INI text as the JAX launcher for the same arguments), builds the
 job script (the ``pretrain_mim`` twin, ``python -m
-sky_embeddings_tpu_torch.pretrain_mim``, one process per GPU of the
-accelerator through the ``SKY_*`` contract) and submits ``num_runs``
-chained allocations through ``queue_gpu.JobQueue``; each run resumes from
-the last checkpoint.
+sky_embeddings_tpu_torch.pretrain_mim``, one process per GPU of each of the
+accelerator's hosts through the ``SKY_*`` contract) and submits
+``num_runs`` chained allocations through ``queue_gpu.JobQueue``; each run
+resumes from the last checkpoint. ``h100-16`` and ``h100-32`` (2 and 4
+hosts of 8 H100s) queue on ``slurm`` and ``gcloud`` alone.
 """
 
 from __future__ import annotations

@@ -89,6 +89,7 @@ beside dqkv. Their launches also count on ``f32_launches``
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -102,7 +103,9 @@ from sky_embeddings_tpu_torch.ops.kernels.mlp_block import (
     _split_ws,
     _ln_forward,
     _needs_grad,
+    check_ln_held,
     operand_dtype,
+    scratch_layout,
     tp_bwd_finish_plain,
     tp_finish_plain,
 )
@@ -250,6 +253,7 @@ def _lib(name: str, entry: str, n_ptr: int, n_int: int) -> ctypes.CDLL:
     return lib
 
 
+@functools.lru_cache(maxsize=256)
 def _plan_bytes(core: str, N: int, hd: int) -> int:
     """Shared-memory bytes of a core's plan at (N, hd), as the CUDA source
     computes them: ``"fwd"`` (K2, kernel 2), ``"stash"`` (kernel 3) or
@@ -658,23 +662,27 @@ def attn_block_tp_bwd(x, scale, bias, wqkv, bqkv, wproj, g, num_heads: int, seg_
         return attn_block_tp_bwd_plain(x, scale, bias, wqkv, bqkv, wproj, g, num_heads, seg_len)
     dt = _check_tp_args(x, scale, bias, wqkv, bqkv, wproj, num_heads, "recompute", seg_len)
     _check_bwd_inputs(x, num_heads, g=g)
+    check_ln_held(x)
     B, N, D = x.shape
     Dl = wqkv.shape[-1] // 3
     M = B * N
+    es = x.element_size()
     f32 = dict(dtype=torch.float32, device=x.device)
     op = dict(dtype=dt, device=x.device)
-    y = torch.empty((M, D), **op)
-    qkv, dqkv = torch.empty((M, 3 * Dl), **op), torch.empty((M, 3 * Dl), **op)
-    dc, ctx = torch.empty((M, Dl), **op), torch.empty((M, Dl), **op)
+    # the scratch (y (M, D); qkv (M, 3 Dl); dc, ctx (M, Dl); dqkv (M, 3 Dl);
+    # part; ws) from one allocation
     rows = -(-M // ROWS_PER_PARTIAL) if dt == torch.float32 else B
-    part = torch.empty(rows * 3 * Dl, **f32)
-    ws_entry = _f32("sky_attn_block_tp_bwd", dt) + "_ws"
-    ws = torch.empty(max(_split_ws("attn_block_tp", ws_entry, x.device.index, M, D, Dl), 4), **f32)
+    n_ws = _split_ws("attn_block_tp", _f32("sky_attn_block_tp_bwd", dt) + "_ws", x.device.index,
+                     M, D, Dl)
+    nbytes, offs = scratch_layout((M * D * es, M * 3 * Dl * es, M * Dl * es, M * Dl * es,
+                                   M * 3 * Dl * es, rows * 3 * Dl * 4, n_ws * 4))
+    base = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
+    scratch = [base.data_ptr() + o for o in offs]
     dy = torch.empty((M, D), **f32)
     dwqkv, dbqkv = torch.empty((D, 3 * Dl), **op), torch.empty(3 * Dl, **f32)
     dwproj = torch.empty((Dl, D), **op)
-    ptrs = [t.data_ptr() for t in (x, scale, bias, wqkv, bqkv, wproj, g, y, qkv, dc, ctx, dqkv,
-                                   part, ws, dy, dwqkv, dbqkv, dwproj)]
+    ptrs = [*(t.data_ptr() for t in (x, scale, bias, wqkv, bqkv, wproj, g)), *scratch,
+            *(t.data_ptr() for t in (dy, dwqkv, dbqkv, dwproj))]
     ints = (B, N, D, Dl, num_heads, seg_len)
     entry = _f32("sky_attn_block_tp_bwd", dt)
     with torch.cuda.device(x.device):

@@ -194,17 +194,18 @@ extern "C" int sky_attn_block_bwd(
 }
 
 // The weight-gradient group alone, as both entries launch it: dWqkv = y^T @
-// dqkv_c and dWproj = ctx^T @ g in one launch; bn, splits > 0 force the
-// tile width and split count; ws holds the workspace sky_gemm_sm90_bwd_plan
-// gives under them.
+// dqkv_c and dWproj = ctx^T @ g in one launch; bn, splits, schedule > 0
+// force the plan (gemm_sm90.cuh bwd_plan_forced); ws holds the workspace
+// sky_gemm_sm90_bwd_plan gives under them.
 extern "C" int sky_attn_bwd_weight_grads(const void* y, const void* dqkv_c, const void* ctx,
                                          const void* g, void* dwqkv, void* dwproj, void* ws, int M,
-                                         int D, int bn, int splits, void* stream) {
+                                         int D, int bn, int splits, int schedule, void* stream) {
   using namespace sky::sm90;
   BwdSpec spec[2];
   weight_group(spec, y, dqkv_c, ctx, g, dwqkv, dwproj, M, D);
   return static_cast<int>(launch_bwd_group(spec, 2, static_cast<float*>(ws),
-                                           static_cast<cudaStream_t>(stream), bn, splits));
+                                           static_cast<cudaStream_t>(stream), bn, splits,
+                                           schedule));
 }
 
 // ---- the fp32 forms of kernels 3 and 4 --------------------------------------

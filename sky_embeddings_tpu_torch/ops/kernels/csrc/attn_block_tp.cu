@@ -107,12 +107,22 @@ extern "C" int sky_attn_block_tp_finish_f32(const void* x, const void* part, con
 // partials of dscale and dbias) and dbproj's column sums of g, each added
 // in order. Those gradients are of replicated parameters, computed alike on
 // every rank from replicated inputs: nothing of them is all-reduced. Each
-// step is kernel 4's launch at the rank's widths; the bound is a rank's 14
-// M D Dl FLOP of products (with the qkv recompute) and its heads' core.
-// The fp32 forms (_f32 entries) take the products and core of
-// sky_attn_block_bwd_f32.
+// step is kernel 4's launch at the rank's widths; the bound is a rank's 22
+// M D Dl FLOP of products (the qkv recompute 6, dctx 2, dy 6, dWqkv 6,
+// dWproj 2) and its heads' core. At jepa_struct's ViT-S shard (M = 16 384,
+// D = 384, Dl = 192) step 5's two products are 13 tiles of 128 x 192 over
+// 256 slabs each: whole tiles, even in two K slices, left 106 of 132 SMs
+// idle, so the group plan runs them on its stream-K schedule
+// (gemm_sm90.cuh: each tile's slabs dealt in six equal runs to 126 CTAs,
+// the owners adding the partials in a fixed order; PERF.md section 6). The
+// wrapper carves the scratch from one allocation; step 1's LN and the
+// finish's LN backward hold the row in registers (common.cuh
+// LN_REG_CHUNKS: D up to 1 280), and the LN backward sums dbproj's column
+// partials as it reads g. The fp32 forms (_f32 entries) take the products,
+// core and LN of sky_attn_block_bwd_f32.
 
-// fp32 floats of split-K workspace the rank's weight-gradient group needs.
+// fp32 floats of workspace the rank's weight-gradient group needs (split
+// partials, or stream-K's flags and slots).
 extern "C" long long sky_attn_block_tp_bwd_ws(int M, int D, int Dl) {
   using namespace sky::sm90;
   int sms = 0;
@@ -163,7 +173,7 @@ static int attn_block_tp_bwd(const void* x, const void* ln_scale, const void* ln
     SKY_TRY(launch_colsum_final(partf, n_partials(M), 3 * Dl, dbqkv, s));
     return 0;
   }
-  SKY_TRY(launch_layernorm(x, ln_scale, ln_bias, y, M, D, s));
+  SKY_TRY(launch_layernorm_held(x, ln_scale, ln_bias, y, M, D, s));
   SKY_TRY(sm90::launch_gemm_sm90<EPI_BIAS>(y, wqkv, bqkv, nullptr, qkv, nullptr, M, 3 * Dl, D, s));
   const BwdSpec dctx{sm90::FORM_NT, EPI_STORE, g, wproj, 0, dc, nullptr, 0, M, Dl, D};
   SKY_TRY(sm90::launch_bwd_group(&dctx, 1, nullptr, s));

@@ -10,6 +10,8 @@
 // give the same bits, and the kernel-vs-plain bars stay stable.
 #pragma once
 
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace sky {
@@ -27,9 +29,14 @@ __device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
 //   dxhat = dy * scale;  m1 = mean(dxhat);  m2 = mean(dxhat * xhat)
 //   dx = T(g + rstd * (dxhat - m1 - xhat * m2))         (residual grad g added)
 //   part_scale[blk, c] = sum_rows dy * xhat;  part_bias[blk, c] = sum_rows dy
+//   part_g[blk, c] = sum_rows g, where the row is held in registers (CH > 0:
+//   the bf16 tensor-parallel finish's output-bias gradient, the sums of
+//   colsum_partial_kernel without a pass of its own over g)
 // Row statistics: one warp per row, read in 16-byte vectors (8 bf16 or two
 // float4 of x, two float4 of dy and scale per lane and step; the wrappers
-// require D % 8 == 0). Then each thread walks the block's rows for two
+// require D % 8 == 0), once a pass (CH = 0) or, for the bf16 tensor-parallel
+// finish, once into registers (CH chunks, as layernorm_kernel), the sums
+// taken in the passes' order. Then each thread walks the block's rows for two
 // columns (bf16x2 / float2), adding each column's rows in row order. 16
 // warps a block keep more bytes in flight than scalar 2-byte loads did
 // (PERF.md PR 10).
@@ -69,11 +76,11 @@ __device__ __forceinline__ void ln_store2(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
 }
 
-template <typename T>
+template <typename T, int CH>
 __global__ void __launch_bounds__(LNB_THREADS)
 ln_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g, const float* __restrict__ dy,
               const float* __restrict__ scale, T* __restrict__ dx, float* __restrict__ part_scale,
-              float* __restrict__ part_bias, int M, int D) {
+              float* __restrict__ part_bias, float* __restrict__ part_g, int M, int D) {
   __shared__ float s_mu[ROWS_PER_PARTIAL], s_rstd[ROWS_PER_PARTIAL], s_m1[ROWS_PER_PARTIAL],
       s_m2[ROWS_PER_PARTIAL];
   const int row0 = blockIdx.x * ROWS_PER_PARTIAL;
@@ -82,34 +89,75 @@ ln_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g, const float* __r
   for (int rr = warp; rr < rows; rr += LNB_THREADS / 32) {
     const T* xr = x + (size_t)(row0 + rr) * D;
     const float* dyr = dy + (size_t)(row0 + rr) * D;
-    float s = 0.f;
-    for (int k = lane * 8; k < D; k += 256) {
-      const Row8<T> e(xr + k);
+    float mu, rstd, a1 = 0.f, a2 = 0.f;
+    if constexpr (CH > 0) {
+      // the row held in registers, its sums in the order of the passes below
+      float e[CH][8];
 #pragma unroll
-      for (int j = 0; j < 8; ++j) s += e[j];
-    }
-    const float mu = warp_sum(s) / D;
-    float q = 0.f;
-    for (int k = lane * 8; k < D; k += 256) {
-      const Row8<T> e(xr + k);
+      for (int c = 0; c < CH; ++c)
+        if (lane * 8 + 256 * c < D) load8(xr + lane * 8 + 256 * c, e[c]);
+      float s = 0.f;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float d = e[j] - mu;
-        q += d * d;
+      for (int c = 0; c < CH; ++c)
+        if (lane * 8 + 256 * c < D) {
+#pragma unroll
+          for (int j = 0; j < 8; ++j) s += e[c][j];
+        }
+      mu = warp_sum(s) / D;
+      float q = 0.f;
+#pragma unroll
+      for (int c = 0; c < CH; ++c)
+        if (lane * 8 + 256 * c < D) {
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const float d = e[c][j] - mu;
+            q += d * d;
+          }
+        }
+      rstd = rsqrtf(warp_sum(q) / D + 1e-6f);
+#pragma unroll
+      for (int c = 0; c < CH; ++c) {
+        const int k = lane * 8 + 256 * c;
+        if (k >= D) continue;
+        float dv[8], cv[8];
+        load8(dyr + k, dv);
+        load8(scale + k, cv);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float dxh = dv[j] * cv[j];
+          a1 += dxh;
+          a2 += dxh * (e[c][j] - mu) * rstd;
+        }
       }
-    }
-    const float rstd = rsqrtf(warp_sum(q) / D + 1e-6f);
-    float a1 = 0.f, a2 = 0.f;
-    for (int k = lane * 8; k < D; k += 256) {
-      const Row8<T> e(xr + k);
-      float dv[8], cv[8];
-      load8(dyr + k, dv);
-      load8(scale + k, cv);
+    } else {
+      float s = 0.f;
+      for (int k = lane * 8; k < D; k += 256) {
+        const Row8<T> e(xr + k);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float dxh = dv[j] * cv[j];
-        a1 += dxh;
-        a2 += dxh * (e[j] - mu) * rstd;
+        for (int j = 0; j < 8; ++j) s += e[j];
+      }
+      mu = warp_sum(s) / D;
+      float q = 0.f;
+      for (int k = lane * 8; k < D; k += 256) {
+        const Row8<T> e(xr + k);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float d = e[j] - mu;
+          q += d * d;
+        }
+      }
+      rstd = rsqrtf(warp_sum(q) / D + 1e-6f);
+      for (int k = lane * 8; k < D; k += 256) {
+        const Row8<T> e(xr + k);
+        float dv[8], cv[8];
+        load8(dyr + k, dv);
+        load8(scale + k, cv);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float dxh = dv[j] * cv[j];
+          a1 += dxh;
+          a2 += dxh * (e[j] - mu) * rstd;
+        }
       }
     }
     a1 = warp_sum(a1);
@@ -124,7 +172,7 @@ ln_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g, const float* __r
   __syncthreads();
   for (int c = 2 * threadIdx.x; c < D; c += 2 * LNB_THREADS) {
     const float2 sc = *reinterpret_cast<const float2*>(scale + c);
-    float ps0 = 0.f, ps1 = 0.f, pb0 = 0.f, pb1 = 0.f;
+    float ps0 = 0.f, ps1 = 0.f, pb0 = 0.f, pb1 = 0.f, pg0 = 0.f, pg1 = 0.f;
 #pragma unroll 4
     for (int rr = 0; rr < rows; ++rr) {
       const size_t at = (size_t)(row0 + rr) * D + c;
@@ -139,9 +187,15 @@ ln_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g, const float* __r
       ps1 += d.y * xh1;
       pb0 += d.x;
       pb1 += d.y;
+      if constexpr (CH > 0) {
+        pg0 += gv.x;
+        pg1 += gv.y;
+      }
     }
     *reinterpret_cast<float2*>(part_scale + (size_t)blockIdx.x * D + c) = make_float2(ps0, ps1);
     *reinterpret_cast<float2*>(part_bias + (size_t)blockIdx.x * D + c) = make_float2(pb0, pb1);
+    if constexpr (CH > 0)
+      *reinterpret_cast<float2*>(part_g + (size_t)blockIdx.x * D + c) = make_float2(pg0, pg1);
   }
 }
 
@@ -222,9 +276,48 @@ template <typename T = bf16>
 inline cudaError_t launch_ln_bwd(const void* x, const void* g, const float* dy, const void* scale,
                                  void* dx, float* part_scale, float* part_bias, int M, int D,
                                  cudaStream_t s) {
-  ln_bwd_kernel<T><<<n_partials(M), LNB_THREADS, 0, s>>>(
+  ln_bwd_kernel<T, 0><<<n_partials(M), LNB_THREADS, 0, s>>>(
       static_cast<const T*>(x), static_cast<const T*>(g), dy, static_cast<const float*>(scale),
-      static_cast<T*>(dx), part_scale, part_bias, M, D);
+      static_cast<T*>(dx), part_scale, part_bias, nullptr, M, D);
+  return cudaGetLastError();
+}
+
+// The LN backward of the bf16 tensor-parallel finish: the row held in
+// registers, and g's column partials into part_g; D > LN_REG_CHUNKS * 256
+// refused.
+inline cudaError_t launch_ln_bwd_held(const void* x, const void* g, const float* dy,
+                                      const void* scale, void* dx, float* part_scale,
+                                      float* part_bias, float* part_g, int M, int D,
+                                      cudaStream_t s) {
+  const bf16* xp = static_cast<const bf16*>(x);
+  const bf16* gp = static_cast<const bf16*>(g);
+  const float* sp = static_cast<const float*>(scale);
+  bf16* dxp = static_cast<bf16*>(dx);
+  const int blocks = n_partials(M);
+  switch (ln_chunks(D)) {  // common.cuh: the row's registers, by its chunks
+    case 1:
+      ln_bwd_kernel<bf16, 1><<<blocks, LNB_THREADS, 0, s>>>(xp, gp, dy, sp, dxp, part_scale,
+                                                             part_bias, part_g, M, D);
+      break;
+    case 2:
+      ln_bwd_kernel<bf16, 2><<<blocks, LNB_THREADS, 0, s>>>(xp, gp, dy, sp, dxp, part_scale,
+                                                             part_bias, part_g, M, D);
+      break;
+    case 3:
+      ln_bwd_kernel<bf16, 3><<<blocks, LNB_THREADS, 0, s>>>(xp, gp, dy, sp, dxp, part_scale,
+                                                             part_bias, part_g, M, D);
+      break;
+    case 4:
+      ln_bwd_kernel<bf16, 4><<<blocks, LNB_THREADS, 0, s>>>(xp, gp, dy, sp, dxp, part_scale,
+                                                             part_bias, part_g, M, D);
+      break;
+    case 5:
+      ln_bwd_kernel<bf16, 5><<<blocks, LNB_THREADS, 0, s>>>(xp, gp, dy, sp, dxp, part_scale,
+                                                             part_bias, part_g, M, D);
+      break;
+    default:
+      return cudaErrorInvalidValue;
+  }
   return cudaGetLastError();
 }
 
@@ -243,8 +336,10 @@ namespace sky {
 // mlp_block_bwd.cu), after the all-reduce of the ranks' fp32 partials of
 // dy, the gradient of the LN output: the LN backward (dx = g + ..., the
 // partials of dscale and dbias) and the output bias's gradient (bproj or
-// b2: the column sums of g), the three added in order in one launch, as
-// the whole blocks' last launches do. part: 3 D * ceil(M / 32) floats.
+// b2: the column sums of g; in bf16 summed by the LN backward's column pass
+// as it reads g, its row held in registers), the three added in order in
+// one launch, as the whole blocks' last launches do. part: 3 D * ceil(M /
+// 32) floats.
 template <typename T>
 inline int tp_bwd_finish(const void* x, const void* ln_scale, const void* g, const void* dy,
                          void* part, void* dx, void* dscale, void* dbias, void* dbout, int M,
@@ -253,9 +348,13 @@ inline int tp_bwd_finish(const void* x, const void* ln_scale, const void* g, con
   float* part_out = static_cast<float*>(part);          // parts x D
   float* part_scale = part_out + (size_t)parts * D;     // parts x D
   float* part_bias = part_scale + (size_t)parts * D;    // parts x D
-  SKY_TRY(launch_ln_bwd<T>(x, g, static_cast<const float*>(dy), ln_scale, dx, part_scale,
-                           part_bias, M, D, s));
-  SKY_TRY(launch_colsum_partial<T>(g, M, D, part_out, s));
+  const float* dyf = static_cast<const float*>(dy);
+  if constexpr (std::is_same<T, bf16>::value) {
+    SKY_TRY(launch_ln_bwd_held(x, g, dyf, ln_scale, dx, part_scale, part_bias, part_out, M, D, s));
+  } else {
+    SKY_TRY(launch_ln_bwd<T>(x, g, dyf, ln_scale, dx, part_scale, part_bias, M, D, s));
+    SKY_TRY(launch_colsum_partial<T>(g, M, D, part_out, s));
+  }
   const ColsumJob jobs[3] = {{part_out, static_cast<float*>(dbout), parts, D},
                              {part_scale, static_cast<float*>(dscale), parts, D},
                              {part_bias, static_cast<float*>(dbias), parts, D}};

@@ -244,10 +244,23 @@ __device__ __forceinline__ void store8(float* p, const float (&v)[8]) {
 }
 
 constexpr int LN_THREADS = 256;  // one warp per row
+// The bf16 tensor-parallel backward forms (attn_block_tp.cu, mlp_block_bwd.cu)
+// hold a row of up to LN_REG_CHUNKS * 256 elements (ViT-H's 1 280) in
+// registers, CH = ceil(K / 256) chunks of eight elements a lane (one
+// instantiation for each CH, so a narrow row holds no more registers than
+// it fills); every other launch reads the row once a pass (CH = 0).
+constexpr int LN_REG_CHUNKS = 5;
+
+inline int ln_chunks(int K) {
+  const int ch = (K + 255) / 256;
+  return ch <= LN_REG_CHUNKS ? ch : 0;
+}
 
 // y = LN(x) * scale + bias over rows of K (K % 8 == 0), fp32 stats; x and y
-// bf16 (y rounded) or fp32.
-template <typename T>
+// bf16 (y rounded) or fp32. The sums run over a lane's chunks in order,
+// then the warp, whether the row is held in registers (CH > 0) or read
+// again for each pass (CH = 0).
+template <typename T, int CH>
 __global__ void __launch_bounds__(LN_THREADS)
 layernorm_kernel(const T* __restrict__ x, const float* __restrict__ scale,
                  const float* __restrict__ bias, T* __restrict__ y, int M, int K) {
@@ -255,34 +268,75 @@ layernorm_kernel(const T* __restrict__ x, const float* __restrict__ scale,
   const int lane = threadIdx.x & 31;
   if (row >= M) return;  // warp-uniform
   const T* xr = x + (size_t)row * K;
-  float s = 0.f;
-  for (int k = lane * 8; k < K; k += 256) {
-    float e[8];
-    load8(xr + k, e);
+  T* yr = y + (size_t)row * K;
+  if constexpr (CH > 0) {
+    float e[CH][8];
 #pragma unroll
-    for (int j = 0; j < 8; ++j) s += e[j];
-  }
-  const float mu = warp_sum(s) / K;
-  float q = 0.f;
-  for (int k = lane * 8; k < K; k += 256) {
-    float e[8];
-    load8(xr + k, e);
+    for (int c = 0; c < CH; ++c)
+      if (lane * 8 + 256 * c < K) load8(xr + lane * 8 + 256 * c, e[c]);
+    float s = 0.f;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float d = e[j] - mu;
-      q += d * d;
+    for (int c = 0; c < CH; ++c)
+      if (lane * 8 + 256 * c < K) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) s += e[c][j];
+      }
+    const float mu = warp_sum(s) / K;
+    float q = 0.f;
+#pragma unroll
+    for (int c = 0; c < CH; ++c)
+      if (lane * 8 + 256 * c < K) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float d = e[c][j] - mu;
+          q += d * d;
+        }
+      }
+    const float rstd = rsqrtf(warp_sum(q) / K + 1e-6f);
+#pragma unroll
+    for (int c = 0; c < CH; ++c) {
+      const int k = lane * 8 + 256 * c;
+      if (k >= K) continue;
+      float sc[8], bi[8], o[8];
+      load8(scale + k, sc);
+      load8(bias + k, bi);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float xhat = (e[c][j] - mu) * rstd;
+        o[j] = xhat * sc[j] + bi[j];
+      }
+      store8(yr + k, o);
     }
-  }
-  const float rstd = rsqrtf(warp_sum(q) / K + 1e-6f);
-  for (int k = lane * 8; k < K; k += 256) {
-    float e[8], o[8];
-    load8(xr + k, e);
+  } else {
+    float s = 0.f;
+    for (int k = lane * 8; k < K; k += 256) {
+      float e[8];
+      load8(xr + k, e);
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float xhat = (e[j] - mu) * rstd;
-      o[j] = xhat * scale[k + j] + bias[k + j];
+      for (int j = 0; j < 8; ++j) s += e[j];
     }
-    store8(y + (size_t)row * K + k, o);
+    const float mu = warp_sum(s) / K;
+    float q = 0.f;
+    for (int k = lane * 8; k < K; k += 256) {
+      float e[8];
+      load8(xr + k, e);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float d = e[j] - mu;
+        q += d * d;
+      }
+    }
+    const float rstd = rsqrtf(warp_sum(q) / K + 1e-6f);
+    for (int k = lane * 8; k < K; k += 256) {
+      float e[8], o[8];
+      load8(xr + k, e);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float xhat = (e[j] - mu) * rstd;
+        o[j] = xhat * scale[k + j] + bias[k + j];
+      }
+      store8(yr + k, o);
+    }
   }
 }
 
@@ -323,9 +377,29 @@ template <typename T = bf16>
 inline cudaError_t launch_layernorm(const void* x, const void* scale, const void* bias, void* y,
                                     int M, int K, cudaStream_t stream) {
   const int rows_per_cta = LN_THREADS / 32;
-  layernorm_kernel<T><<<(M + rows_per_cta - 1) / rows_per_cta, LN_THREADS, 0, stream>>>(
+  layernorm_kernel<T, 0><<<(M + rows_per_cta - 1) / rows_per_cta, LN_THREADS, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const float*>(scale),
       static_cast<const float*>(bias), static_cast<T*>(y), M, K);
+  return cudaGetLastError();
+}
+
+// The LN of the bf16 tensor-parallel backward halves: the row held in
+// registers; K > LN_REG_CHUNKS * 256 refused.
+inline cudaError_t launch_layernorm_held(const void* x, const void* scale, const void* bias,
+                                         void* y, int M, int K, cudaStream_t stream) {
+  const dim3 grid((M + LN_THREADS / 32 - 1) / (LN_THREADS / 32));
+  const bf16* xp = static_cast<const bf16*>(x);
+  const float* sp = static_cast<const float*>(scale);
+  const float* bp = static_cast<const float*>(bias);
+  bf16* yp = static_cast<bf16*>(y);
+  switch (ln_chunks(K)) {
+    case 1: layernorm_kernel<bf16, 1><<<grid, LN_THREADS, 0, stream>>>(xp, sp, bp, yp, M, K); break;
+    case 2: layernorm_kernel<bf16, 2><<<grid, LN_THREADS, 0, stream>>>(xp, sp, bp, yp, M, K); break;
+    case 3: layernorm_kernel<bf16, 3><<<grid, LN_THREADS, 0, stream>>>(xp, sp, bp, yp, M, K); break;
+    case 4: layernorm_kernel<bf16, 4><<<grid, LN_THREADS, 0, stream>>>(xp, sp, bp, yp, M, K); break;
+    case 5: layernorm_kernel<bf16, 5><<<grid, LN_THREADS, 0, stream>>>(xp, sp, bp, yp, M, K); break;
+    default: return cudaErrorInvalidValue;
+  }
   return cudaGetLastError();
 }
 

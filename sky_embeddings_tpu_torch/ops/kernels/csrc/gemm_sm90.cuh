@@ -680,6 +680,34 @@ cudaError_t launch_gemm_sm90(const void* a, const void* b, const void* bias, con
 // dWproj another, so that their small outputs fill the card together); a
 // weight gradient (FORM_TN, EPI_STORE) may split
 // its K into slices whose fp32 partials a second pass adds in order.
+//
+// The stream-K schedule (a group of weight gradients alone): where whole
+// tiles, even cut in two K slices, leave SMs idle (the tensor-parallel
+// ranks' narrow dW products over K = B*N tokens: 13 to 36 tiles for 132
+// SMs), the group's (tile, 64-deep slab) iterations over all its products,
+// W of them, are dealt to `grid` persistent CTAs in contiguous, equal runs
+// ([g W / grid, (g + 1) W / grid) for CTA g). The plan picks grid: the
+// largest multiple of the tile count within the SMs, so that each run lies
+// inside one tile and the tiles' runs stream K in step (the card read the
+// ViT-S TP groups so dealt 1.2 to 1.35 times faster than over min(132, W) CTAs,
+// whose runs cross tiles at offsets out of step: PERF.md section 6), or
+// min(132, W). A CTA walks its run's pieces from its last down:
+// - a piece that covers a tile whole runs the bf16 epilogue;
+// - a piece without the tile's last slab (at most one a CTA: its run's
+//   last, so it comes first in the walk) stores its fp32 accumulators to the
+//   CTA's workspace slot, in the accumulators' own order (16 bytes a thread,
+//   coalesced, through L2), then raises its flag (one a consumer
+//   warpgroup, release at gpu scope);
+// - the piece with the tile's last slab belongs to the tile's owner, which
+//   waits on the flags of the CTAs before it whose runs reach into the
+//   tile (acquire), adds their partials to its own accumulators in segment
+//   order, and rounds to bf16 once.
+// An owner waits only on CTAs of lower index, which write before they wait
+// on anything, and the grid is at most one CTA an SM, all resident: the
+// spinning cannot deadlock. The deal and the order of the sums depend on
+// the shapes alone, so the result is bit-reproducible run to run, as the
+// split schedule's is. The producer, the ring and the consumers' wgmma are
+// the split schedule's; only the walk, the fix-up and the plan differ.
 
 enum Form { FORM_NT = 1, FORM_TN = 2 };
 
@@ -702,24 +730,38 @@ enum ShapeKind { KIND_NT = 0, KIND_TN_SPLIT = 1, KIND_TN = 2 };
 // Its epilogue costs EPI_COST per 64 columns (the stores drain under the
 // next tile's mainloop), and a split product's reduce pass, which runs on
 // the whole card at HBM's rate, one unit per REDUCE_BYTES_PER_COST bytes
-// it moves. Splits past two won at none of the six shapes.
+// it moves. Splits past two won at none of the six shapes. Stream-K (a
+// candidate only where the tiles at BN = 128 cut in two slices give fewer
+// units than SMs, every product a weight gradient): the most loaded CTA's
+// slabs and epilogues, plus one unit per STREAMK_BYTES_PER_COST bytes of
+// each 128 x BN fp32 partial it stores or, as a tile's owner, reads
+// through L2.
 inline int slab_cost(int kind, int bn) {
   if (kind == KIND_NT) return bn == 256 ? 11 : bn == 192 ? 7 : 5;
   return bn == 256 ? 6 : bn == 192 ? 5 : 4;
 }
 constexpr int EPI_COST = 1;
 constexpr long long REDUCE_BYTES_PER_COST = 1 << 16;
+constexpr long long STREAMK_BYTES_PER_COST = 1 << 13;
+constexpr long long STREAMK_SCATTER = 2;
 
 struct BwdProblem {
   float* out_f32;  // EPI_STORE_F32 / EPI_ADD_F32: (M, N) rows ldo apart; split-K partials: slice z at + z * M * N
   int epi, M, N, K, ldo;
-  int n_tiles, splits, k_chunk, unit0;  // k_chunk: slabs per split
+  int n_tiles, splits, k_chunk, unit0;  // k_chunk: slabs per split; unit0: stream-K's first iteration
 };
 
 struct BwdArgs {
   BwdProblem p[MAX_PROBLEMS];
-  int count, units;
+  int count, units;  // units: (tile, K slice) units, or stream-K's (tile, slab) iterations
+  int stream_k;
+  int* flags;    // stream-K: two a CTA, zeroed before the launch
+  float* slots;  // stream-K: a 128 x BN fp32 partial a CTA, 64 x BN a consumer
 };
+
+// stream-K's workspace: the flags (two a CTA) padded to 64 floats, then the
+// slots
+inline size_t sk_flag_floats(int grid) { return (size_t)(2 * grid + 63) / 64 * 64; }
 
 struct BwdMaps {
   CUtensorMap m[MAX_PROBLEMS][3];  // A, B, the bf16 output (EPI_STORE without splits)
@@ -740,6 +782,87 @@ __device__ __forceinline__ void bwd_unit(const BwdArgs& p, int u, int& pi, int& 
   n0 = (tile % q.n_tiles) * BN;
   kb0 = z * q.k_chunk;
   kb1 = min((q.K + BK - 1) / BK, kb0 + q.k_chunk);
+}
+
+// A piece of a CTA's walk: problem pi, output tile (m0, n0), slabs [kb0,
+// kb1); z the K slice of the split schedule; t0 and nk the tile's first
+// iteration and slab count under stream-K.
+struct BwdSeg {
+  int pi, m0, n0, z, kb0, kb1, t0, nk;
+};
+
+// A CTA's stream-K run [lo, cur) of the group's (tile, slab) iterations.
+__device__ __forceinline__ void sk_run(const BwdArgs& p, int& cur, int& lo) {
+  lo = (int)((long long)blockIdx.x * p.units / gridDim.x);
+  cur = (int)((long long)(blockIdx.x + 1) * p.units / gridDim.x);
+}
+
+// The run's next piece, from its last iteration down, a tile's piece at a
+// time; false past its first.
+template <int BN>
+__device__ __forceinline__ bool sk_next(const BwdArgs& p, int& cur, int lo, BwdSeg& s) {
+  if (cur <= lo) return false;
+  const int it = cur - 1;
+  int pi = 0;
+  for (int i = 1; i < p.count; ++i)
+    if (it >= p.p[i].unit0) pi = i;
+  const BwdProblem& q = p.p[pi];
+  const int nk = (q.K + BK - 1) / BK;
+  const int tile = (it - q.unit0) / nk;
+  const int t0 = q.unit0 + tile * nk;
+  const int from = max(lo, t0);
+  s.pi = pi;
+  s.z = 0;
+  s.m0 = (tile / q.n_tiles) * BM;
+  s.n0 = (tile % q.n_tiles) * BN;
+  s.kb0 = from - t0;
+  s.kb1 = cur - t0;
+  s.t0 = t0;
+  s.nk = nk;
+  cur = from;
+  return true;
+}
+
+__device__ __forceinline__ void flag_raise(int* f) {
+  asm volatile("st.global.release.gpu.b32 [%0], %1;\n" ::"l"(f), "r"(1) : "memory");
+}
+
+__device__ __forceinline__ void flag_wait(const int* f) {
+  int v = 0;
+  while (v == 0)
+    asm volatile("ld.global.acquire.gpu.b32 %0, [%1];\n" : "=r"(v) : "l"(f) : "memory");
+}
+
+// A consumer's slot of CTA c: 64 x BN fp32.
+template <int BN>
+__device__ __forceinline__ float* sk_slot(const BwdArgs& p, int c, int wg) {
+  return p.slots + ((size_t)c * 2 + wg) * 64 * BN;
+}
+
+// One consumer's 64 x BN accumulators to its slot in their register order
+// (float4 j of thread t at j * 128 + t: each store a coalesced 2 KB), past
+// L1; sk_add reads them back in the same order and adds them.
+template <int BN>
+__device__ __forceinline__ void sk_store(const float* d, float* slot) {
+  const int t = threadIdx.x & 127;
+  float4* s4 = reinterpret_cast<float4*>(slot);
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j)
+    __stcg(s4 + j * 128 + t, make_float4(d[4 * j], d[4 * j + 1], d[4 * j + 2], d[4 * j + 3]));
+}
+
+template <int BN>
+__device__ __forceinline__ void sk_add(float* d, const float* slot) {
+  const int t = threadIdx.x & 127;
+  const float4* s4 = reinterpret_cast<const float4*>(slot);
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const float4 v = __ldcg(s4 + j * 128 + t);
+    d[4 * j] += v.x;
+    d[4 * j + 1] += v.y;
+    d[4 * j + 2] += v.z;
+    d[4 * j + 3] += v.w;
+  }
 }
 
 // One consumer's 64 x BN accumulators, rounded to bf16, through its staged
@@ -772,14 +895,134 @@ __device__ __forceinline__ void store_bf16(const float* d, const CUtensorMap* ma
   }
 }
 
+// The producer's share of one piece (problem pi, tile (m0, n0), slabs [kb0,
+// kb1)): its slabs' TMA loads through the ring.
+template <int BN, int FORM>
+__device__ __forceinline__ void bwd_produce(const BwdMaps& maps, const BwdArgs& p, int pi, int m0,
+                                            int n0, int kb0, int kb1, uint32_t base,
+                                            uint32_t full0, uint32_t empty0, int& stage,
+                                            uint32_t& phase) {
+  constexpr bool tn = FORM == FORM_TN;
+  using C = Cfg<BN>;
+  const BwdProblem& q = p.p[pi];
+  const CUtensorMap* ma = &maps.m[pi][0];
+  const CUtensorMap* mb = &maps.m[pi][1];
+  const int nb = min(BN / BOX, (q.N - n0 + BOX - 1) / BOX);
+  const bool a_hi = !tn || m0 + 64 < q.M;  // TN: the second 64-row box has rows
+  const uint32_t bytes = tn ? (a_hi ? A_BYTES : A_BYTES / 2) + nb * B_BOX_BYTES
+                            : A_BYTES + BN * BK * 2;
+  for (int kb = kb0; kb < kb1; ++kb) {
+    mbar_wait(empty0 + 8 * stage, phase ^ 1);
+    const uint32_t full = full0 + 8 * stage;
+    const uint32_t sa = base + stage * C::STAGE_BYTES;
+    mbar_expect_tx(full, bytes);
+    if constexpr (tn) {
+      tma_load_2d(sa, ma, full, m0, kb * BK);
+      if (a_hi) tma_load_2d(sa + A_BYTES / 2, ma, full, m0 + 64, kb * BK);
+      for (int c = 0; c < nb; ++c)
+        tma_load_2d(sa + A_BYTES + c * B_BOX_BYTES, mb, full, n0 + c * BOX, kb * BK);
+    } else {
+      tma_load_2d(sa, ma, full, kb * BK, m0);
+      tma_load_2d(sa + A_BYTES, mb, full, kb * BK, n0);
+    }
+    if (++stage == C::STAGES) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+}
+
+// A consumer's share of one piece: the mainloop over its slabs, then the
+// epilogue. SK: the stream-K schedule (seg.t0, seg.nk set), whose piece
+// without its tile's last slab stores a partial for the tile's owner and
+// whose owner adds the partials first; the split schedule's walk does not
+// compile that code in.
+template <int BN, int FORM, bool SK>
+__device__ __forceinline__ void bwd_consume(const BwdMaps& maps, const BwdArgs& p,
+                                            const BwdSeg& seg, float* d, uint32_t base,
+                                            uint32_t full0, uint32_t empty0, uint32_t stg, int wg,
+                                            bool leader, int& stage, uint32_t& phase) {
+  constexpr bool tn = FORM == FORM_TN;
+  using C = Cfg<BN>;
+  const int pi = seg.pi, m0 = seg.m0, n0 = seg.n0, kb0 = seg.kb0, kb1 = seg.kb1;
+  const BwdProblem& q = p.p[pi];
+  const int mw = m0 + 64 * wg;
+  const int nb = min(BN / BOX, (q.N - n0 + BOX - 1) / BOX);
+  int prev = 0;
+  for (int kb = kb0; kb < kb1; ++kb) {
+    mbar_wait(full0 + 8 * stage, phase);
+    const uint32_t sa = base + stage * C::STAGE_BYTES + wg * (A_BYTES / 2);
+    const uint32_t sb = base + stage * C::STAGE_BYTES + A_BYTES;
+    fence_acc<BN / 2>(d);
+    wgmma_fence();
+    if constexpr (tn) {
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        wgmma_tile<BN, 1, 1>(d, smem_desc(sa + kk * 16 * 128, A_BYTES / 2, 1024),
+                             smem_desc(sb + kk * 16 * 128, B_BOX_BYTES, 1024), (kb != kb0) | kk);
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        wgmma_tile<BN, 0, 0>(d, smem_desc(sa + kk * 32, 16, 1024),
+                             smem_desc(sb + kk * 32, 16, 1024), (kb != kb0) | kk);
+    }
+    wgmma_commit();
+    if (kb > kb0) {
+      wgmma_wait<1>();
+      if (leader) mbar_arrive(empty0 + 8 * prev);
+    }
+    prev = stage;
+    if (++stage == C::STAGES) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+  wgmma_wait<0>();
+  fence_acc<BN / 2>(d);
+  if (leader) mbar_arrive(empty0 + 8 * prev);
+  if (mw >= q.M) return;
+  if constexpr (SK) {
+    if (kb1 < seg.nk) {
+      // a piece without the tile's last slab: its partial for the owner
+      sk_store<BN>(d, sk_slot<BN>(p, blockIdx.x, wg));
+      __threadfence();
+      wg_sync(wg);
+      if (leader) flag_raise(p.flags + 2 * blockIdx.x + wg);
+      return;
+    }
+    if (kb0 > 0) {
+      // the tile's owner: the partials of the CTAs before it whose runs
+      // reach into the tile, added in segment order
+      const int c0 = (int)(((long long)(seg.t0 + 1) * gridDim.x - 1) / p.units);
+      for (int c = c0; c < (int)blockIdx.x; ++c) {
+        if (leader) flag_wait(p.flags + 2 * c + wg);
+        wg_sync(wg);
+        sk_add<BN>(d, sk_slot<BN>(p, c, wg));
+      }
+    }
+  }
+  if (q.splits == 1 && q.epi == EPI_STORE) {
+    if (leader) bulk_wait_read();  // the last tile's stores have read the staged half
+    wg_sync(wg);
+    store_bf16<BN>(d, &maps.m[pi][2], stg, mw, n0, nb, wg, leader);
+  } else {
+    store_f32<BN>(d, q.out_f32 + (size_t)seg.z * q.M * q.N, q.ldo, q.M, q.N, mw, n0,
+                  q.epi == EPI_ADD_F32);
+  }
+}
+
 // The group kernel: the forward kernel's ring, producer and consumers,
-// walking the units of every problem of one form; the epilogue is per
-// problem. The form is a template parameter: with a runtime choice between
-// the two wgmma forms ptxas serialises every wgmma (warning C7520).
+// walking the units of every problem of one form (the split schedule:
+// blockIdx.x, + gridDim.x, ...) or its stream-K run's pieces; the epilogue
+// is per problem. The form is a template parameter: with a runtime choice
+// between the two wgmma forms ptxas serialises every wgmma (warning C7520).
+// The two walks are separate loops around one inlined body each: a first
+// design with one loop whose next-piece function branched on the schedule
+// made the split schedule's mainloop 20% slower at the TP forms' groups
+// (PERF.md section 6).
 template <int BN, int FORM>
 __global__ void __launch_bounds__(THREADS, 1)
     gemm_bwd_kernel(const __grid_constant__ BwdMaps maps, const __grid_constant__ BwdArgs p) {
-  constexpr bool tn = FORM == FORM_TN;
   using C = Cfg<BN>;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   // ring slot s: A (16 KB: one 128 x 64 box K-major, or two 64 x 64 boxes
@@ -804,35 +1047,19 @@ __global__ void __launch_bounds__(THREADS, 1)
     if (threadIdx.x == 0) {
       int stage = 0;
       uint32_t phase = 0;
-      for (int u = blockIdx.x; u < p.units; u += gridDim.x) {
-        int pi, m0, n0, z, kb0, kb1;
-        bwd_unit<BN>(p, u, pi, m0, n0, z, kb0, kb1);
-        const BwdProblem& q = p.p[pi];
-        const CUtensorMap* ma = &maps.m[pi][0];
-        const CUtensorMap* mb = &maps.m[pi][1];
-        const int nb = min(BN / BOX, (q.N - n0 + BOX - 1) / BOX);
-        const bool a_hi = !tn || m0 + 64 < q.M;  // TN: the second 64-row box has rows
-        const uint32_t bytes = tn ? (a_hi ? A_BYTES : A_BYTES / 2) + nb * B_BOX_BYTES
-                                  : A_BYTES + BN * BK * 2;
-        for (int kb = kb0; kb < kb1; ++kb) {
-          mbar_wait(empty0 + 8 * stage, phase ^ 1);
-          const uint32_t full = full0 + 8 * stage;
-          const uint32_t sa = base + stage * C::STAGE_BYTES;
-          mbar_expect_tx(full, bytes);
-          if constexpr (tn) {
-            tma_load_2d(sa, ma, full, m0, kb * BK);
-            if (a_hi) tma_load_2d(sa + A_BYTES / 2, ma, full, m0 + 64, kb * BK);
-            for (int c = 0; c < nb; ++c)
-              tma_load_2d(sa + A_BYTES + c * B_BOX_BYTES, mb, full, n0 + c * BOX, kb * BK);
-          } else {
-            tma_load_2d(sa, ma, full, kb * BK, m0);
-            tma_load_2d(sa + A_BYTES, mb, full, kb * BK, n0);
-          }
-          if (++stage == C::STAGES) {
-            stage = 0;
-            phase ^= 1;
-          }
+      if (!p.stream_k) {
+        for (int u = blockIdx.x; u < p.units; u += gridDim.x) {
+          int pi, m0, n0, z, kb0, kb1;
+          bwd_unit<BN>(p, u, pi, m0, n0, z, kb0, kb1);
+          bwd_produce<BN, FORM>(maps, p, pi, m0, n0, kb0, kb1, base, full0, empty0, stage, phase);
         }
+      } else {
+        int cur, lo;
+        sk_run(p, cur, lo);
+        BwdSeg sg;
+        while (sk_next<BN>(p, cur, lo, sg))
+          bwd_produce<BN, FORM>(maps, p, sg.pi, sg.m0, sg.n0, sg.kb0, sg.kb1, base, full0, empty0,
+                                stage, phase);
       }
     }
   } else {
@@ -843,55 +1070,19 @@ __global__ void __launch_bounds__(THREADS, 1)
     float d[BN / 2];
     int stage = 0;
     uint32_t phase = 0;
-    for (int u = blockIdx.x; u < p.units; u += gridDim.x) {
-      int pi, m0, n0, z, kb0, kb1;
-      bwd_unit<BN>(p, u, pi, m0, n0, z, kb0, kb1);
-      const BwdProblem& q = p.p[pi];
-      const int mw = m0 + 64 * wg;
-      const int nb = min(BN / BOX, (q.N - n0 + BOX - 1) / BOX);
-      int prev = 0;
-      for (int kb = kb0; kb < kb1; ++kb) {
-        mbar_wait(full0 + 8 * stage, phase);
-        const uint32_t sa = base + stage * C::STAGE_BYTES + wg * (A_BYTES / 2);
-        const uint32_t sb = base + stage * C::STAGE_BYTES + A_BYTES;
-        fence_acc<BN / 2>(d);
-        wgmma_fence();
-        if constexpr (tn) {
-#pragma unroll
-          for (int kk = 0; kk < BK / 16; ++kk)
-            wgmma_tile<BN, 1, 1>(d, smem_desc(sa + kk * 16 * 128, A_BYTES / 2, 1024),
-                                 smem_desc(sb + kk * 16 * 128, B_BOX_BYTES, 1024),
-                                 (kb != kb0) | kk);
-        } else {
-#pragma unroll
-          for (int kk = 0; kk < BK / 16; ++kk)
-            wgmma_tile<BN, 0, 0>(d, smem_desc(sa + kk * 32, 16, 1024),
-                                 smem_desc(sb + kk * 32, 16, 1024), (kb != kb0) | kk);
-        }
-        wgmma_commit();
-        if (kb > kb0) {
-          wgmma_wait<1>();
-          if (leader) mbar_arrive(empty0 + 8 * prev);
-        }
-        prev = stage;
-        if (++stage == C::STAGES) {
-          stage = 0;
-          phase ^= 1;
-        }
+    BwdSeg sg;
+    if (!p.stream_k) {
+      for (int u = blockIdx.x; u < p.units; u += gridDim.x) {
+        bwd_unit<BN>(p, u, sg.pi, sg.m0, sg.n0, sg.z, sg.kb0, sg.kb1);
+        bwd_consume<BN, FORM, false>(maps, p, sg, d, base, full0, empty0, stg, wg, leader, stage,
+                                     phase);
       }
-      wgmma_wait<0>();
-      fence_acc<BN / 2>(d);
-      if (leader) mbar_arrive(empty0 + 8 * prev);
-      if (mw < q.M) {
-        if (q.splits == 1 && q.epi == EPI_STORE) {
-          if (leader) bulk_wait_read();  // the last tile's stores have read the staged half
-          wg_sync(wg);
-          store_bf16<BN>(d, &maps.m[pi][2], stg, mw, n0, nb, wg, leader);
-        } else {
-          store_f32<BN>(d, q.out_f32 + (size_t)z * q.M * q.N, q.ldo, q.M, q.N, mw, n0,
-                        q.epi == EPI_ADD_F32);
-        }
-      }
+    } else {
+      int cur, lo;
+      sk_run(p, cur, lo);
+      while (sk_next<BN>(p, cur, lo, sg))
+        bwd_consume<BN, FORM, true>(maps, p, sg, d, base, full0, empty0, stg, wg, leader, stage,
+                                    phase);
     }
     if (leader) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
   }
@@ -1347,6 +1538,8 @@ struct BwdSpec {
 struct BwdPlan {
   int bn, splits, units, smem;
   long long cost;
+  int stream_k;  // 1: the stream-K schedule (splits 1, units its iterations)
+  int ctas;      // the CTAs it launches: min(units, sms), or stream-K's deal's
 };
 
 inline int shape_kind(int form, int epi) {
@@ -1358,6 +1551,10 @@ inline int split_count(int nk, int split, int* k_chunk) {
   const int want = split < nk ? split : nk;
   *k_chunk = (nk + want - 1) / want;
   return (nk + *k_chunk - 1) / *k_chunk;
+}
+
+inline int group_smem(int bn) {
+  return bn == 256 ? Cfg<256>::SMEM : bn == 192 ? Cfg<192>::SMEM : Cfg<128>::SMEM;
 }
 
 // The modelled time of a group at tile width bn, each weight gradient
@@ -1397,22 +1594,126 @@ inline long long bwd_cost(const int (*shapes)[4], int count, int bn, int split, 
   return worst + extra;
 }
 
-// The group plan: of BN = 256, 192, 128 and the split counts 1 and 2 (only
-// 1 when no product may split), the one of least modelled cost; a
-// later candidate (narrower, or more slices) must cut it by more than a
-// sixteenth. Mirrored by ops/kernels/gemm.py bwd_plan.
-inline BwdPlan bwd_plan_uncached(const int (*shapes)[4], int count, int sms) {
+// Stream-K may run the group: every product a weight gradient, and the
+// tiles at BN = 128 cut in two slices give fewer units than SMs.
+inline bool stream_k_fits(const int (*shapes)[4], int count, int sms) {
+  int units = 0;
+  for (int i = 0; i < count; ++i) {
+    if (shapes[i][0] != KIND_TN_SPLIT) return false;
+    int chunk;
+    const int nk = (shapes[i][3] + BK - 1) / BK;
+    units += ((shapes[i][1] + BM - 1) / BM) * ((shapes[i][2] + 127) / 128) *
+             split_count(nk, 2, &chunk);
+  }
+  return units < sms;
+}
+
+// Stream-K's deal at tile width bn: W (tile, slab) iterations over `tiles`
+// output tiles; *aligned the CTA count whose runs each lie inside one tile
+// (the largest multiple of the tile count within sms, at two or more CTAs a
+// tile, where every product has the same K), 0 when there is none.
+inline long long streamk_work(const int (*shapes)[4], int count, int bn, int sms, int* aligned) {
+  long long W = 0;
+  int tiles = 0;
+  bool same_k = true;
+  for (int i = 0; i < count; ++i) {
+    const int t = ((shapes[i][1] + BM - 1) / BM) * ((shapes[i][2] + bn - 1) / bn);
+    W += (long long)t * ((shapes[i][3] + BK - 1) / BK);
+    tiles += t;
+    same_k = same_k && (shapes[i][3] + BK - 1) / BK == (shapes[0][3] + BK - 1) / BK;
+  }
+  *aligned = same_k && sms / tiles >= 2 && W >= sms ? sms / tiles * tiles : 0;
+  return W;
+}
+
+// The modelled time of the stream-K schedule at tile width bn over `grid`
+// CTAs: the W iterations dealt in equal runs; each CTA's slabs and the
+// epilogues of the tiles it finishes, one fp32 partial stored for a piece
+// without its tile's last slab, and the owner's read of each of its tile's
+// partials; the most loaded CTA's cost. Runs that cross tiles pay
+// STREAMK_SCATTER times a slab's cost: their CTAs stream K at offsets out
+// of step with the other tiles', and the card read the ViT-S TP groups so
+// dealt at 1.8 to 2.0 times the slab cost above (PERF.md section 6), where
+// runs in step (split slices) read at it. *units_out = W.
+inline long long streamk_cost(const int (*shapes)[4], int count, int bn, int grid,
+                              int* units_out) {
+  int aligned;
+  const long long W = streamk_work(shapes, count, bn, grid, &aligned);
+  *units_out = (int)W;
+  const long long part = (long long)BM * bn * 4 / STREAMK_BYTES_PER_COST;
+  const long long slab = slab_cost(KIND_TN_SPLIT, bn) * (aligned == grid ? 1 : STREAMK_SCATTER);
+  const long long epi = EPI_COST * (bn / 64);
+  long long* load = new long long[grid]();
+  long long t0 = 0;
+  for (int i = 0; i < count; ++i) {
+    const long long nk = (shapes[i][3] + BK - 1) / BK;
+    const int tiles = ((shapes[i][1] + BM - 1) / BM) * ((shapes[i][2] + bn - 1) / bn);
+    for (int tile = 0; tile < tiles; ++tile, t0 += nk) {
+      const int first = (int)(((t0 + 1) * grid - 1) / W), last = (int)(((t0 + nk) * grid - 1) / W);
+      for (int g = first; g <= last; ++g) {
+        const long long lo = (long long)g * W / grid, hi = (long long)(g + 1) * W / grid;
+        load[g] += ((hi < t0 + nk ? hi : t0 + nk) - (lo > t0 ? lo : t0)) * slab;
+        load[g] += g == last ? epi + part * (last - first) : part;
+      }
+    }
+  }
+  long long worst = 0;
+  for (int c = 0; c < grid; ++c) worst = load[c] > worst ? load[c] : worst;
+  delete[] load;
+  return worst;
+}
+
+// Stream-K at width bn: the deal in step with the tiles (where there is
+// one), then the one over min(W, sms) CTAs, which must cut its cost by more
+// than a sixteenth. Returns the plan (cost, units = W, ctas).
+inline BwdPlan streamk_plan(const int (*shapes)[4], int count, int bn, int sms) {
+  int aligned;
+  const long long W = streamk_work(shapes, count, bn, sms, &aligned);
+  BwdPlan best{bn, 1, 0, group_smem(bn), 0, 1, 0};
+  const int grids[2] = {aligned, W < sms ? (int)W : sms};
+  for (int i = 0; i < 2; ++i) {
+    if (grids[i] <= 0 || (i == 1 && grids[1] == aligned)) continue;
+    int units;
+    const long long cost = streamk_cost(shapes, count, bn, grids[i], &units);
+    if (best.ctas == 0 || cost * 16 < best.cost * 15) {
+      best.cost = cost;
+      best.units = units;
+      best.ctas = grids[i];
+    }
+  }
+  return best;
+}
+
+// The split schedule's plan: of BN = 256, 192, 128 and the split counts 1
+// and 2 (only 1 when no product may split), the one of least modelled
+// cost; a later candidate (narrower, or more slices) must cut it by more
+// than a sixteenth. Mirrored by ops/kernels/gemm.py split_plan.
+inline BwdPlan split_plan(const int (*shapes)[4], int count, int sms) {
   const int bns[3] = {256, 192, 128};
-  const int smem[3] = {Cfg<256>::SMEM, Cfg<192>::SMEM, Cfg<128>::SMEM};
   bool any_split = false;
   for (int i = 0; i < count; ++i) any_split = any_split || shapes[i][0] == KIND_TN_SPLIT;
-  BwdPlan best{0, 0, 0, 0, 0};
+  BwdPlan best{0, 0, 0, 0, 0, 0, 0};
   for (int b = 0; b < 3; ++b)
     for (int s = 0; s < (any_split ? N_SPLIT_CANDIDATES : 1); ++s) {
       int units;
       const long long cost = bwd_cost(shapes, count, bns[b], SPLIT_CANDIDATES[s], sms, &units);
       if (best.bn == 0 || cost * 16 < best.cost * 15)
-        best = BwdPlan{bns[b], SPLIT_CANDIDATES[s], units, smem[b], cost};
+        best = BwdPlan{bns[b], SPLIT_CANDIDATES[s], units, group_smem(bns[b]), cost, 0,
+                       units < sms ? units : sms};
+    }
+  return best;
+}
+
+// The group plan: split_plan's, then stream-K at each width where it may
+// run (stream_k_fits; streamk_plan's deal), which must cut the cost by
+// more than a sixteenth. Mirrored by ops/kernels/gemm.py bwd_plan.
+inline BwdPlan bwd_plan_uncached(const int (*shapes)[4], int count, int sms) {
+  const int bns[3] = {256, 192, 128};
+  BwdPlan best = split_plan(shapes, count, sms);
+  if (stream_k_fits(shapes, count, sms))
+    for (int b = 0; b < 3; ++b) {
+      const BwdPlan sk = streamk_plan(shapes, count, bns[b], sms);
+      if (sk.cost * 16 < best.cost * 15) best = sk;
     }
   return best;
 }
@@ -1441,6 +1742,31 @@ inline BwdPlan bwd_plan(const int (*shapes)[4], int count, int sms) {
   return plan;
 }
 
+// The plan a launch runs: bwd_plan, or with bn, splits or schedule > 0
+// forced (the card tests' and the tools' entries): splits > 0 or schedule
+// 1 the split schedule (1 slice unless splits says), schedule 2 stream-K;
+// what is not forced, the plan's. bn = -1: refused (a width none of 256,
+// 192, 128; stream-K for a group that is not all weight gradients).
+inline BwdPlan bwd_plan_forced(const int (*shapes)[4], int count, int sms, int bn, int splits,
+                               int schedule) {
+  const BwdPlan plan = bwd_plan(shapes, count, sms);
+  if (bn <= 0 && splits <= 0 && schedule <= 0) return plan;
+  const int b = bn > 0 ? bn : plan.bn;
+  const bool sk = schedule == 2 || (schedule <= 0 && splits <= 0 && plan.stream_k);
+  BwdPlan out{b, 1, 0, group_smem(b), 0, sk ? 1 : 0, 0};
+  bool all_tn = true;
+  for (int i = 0; i < count; ++i) all_tn = all_tn && shapes[i][0] == KIND_TN_SPLIT;
+  if ((b != 256 && b != 192 && b != 128) || (sk && !all_tn) || schedule > 2) {
+    out.bn = -1;
+    return out;
+  }
+  if (sk) return streamk_plan(shapes, count, b, sms);
+  out.splits = splits > 0 ? splits : plan.stream_k ? 1 : plan.splits;
+  out.cost = bwd_cost(shapes, count, b, out.splits, sms, &out.units);
+  out.ctas = out.units < sms ? out.units : sms;
+  return out;
+}
+
 inline void bwd_shapes(const BwdSpec* specs, int count, int (*shapes)[4]) {
   for (int i = 0; i < count; ++i) {
     shapes[i][0] = shape_kind(specs[i].form, specs[i].epi);
@@ -1450,8 +1776,10 @@ inline void bwd_shapes(const BwdSpec* specs, int count, int (*shapes)[4]) {
   }
 }
 
-// fp32 workspace a group needs for its split partials (floats).
+// fp32 workspace a group needs under `plan` (floats): the split partials, or
+// stream-K's flags and a 128 x BN slot for each of its CTAs.
 inline size_t bwd_workspace(const int (*shapes)[4], int count, const BwdPlan& plan) {
+  if (plan.stream_k) return sk_flag_floats(plan.ctas) + (size_t)plan.ctas * BM * plan.bn;
   size_t n = 0;
   for (int i = 0; i < count; ++i) {
     int chunk;
@@ -1479,12 +1807,13 @@ cudaError_t launch_bwd_form(int bn, const BwdMaps& maps, const BwdArgs& p, int g
   return launch_bwd_bn<128, FORM>(maps, p, grid, stream);
 }
 
-// One launch over a group of products of one form (then one reduce per split
-// product);
-// ws holds bwd_workspace floats. bn / splits > 0 force the plan's choice
-// (the card tests' entry).
+// One launch over a group of products of one form (then, under the split
+// schedule, one reduce per split product); ws holds bwd_workspace floats
+// (stream-K's flags are zeroed here, on the stream). bn, splits, schedule >
+// 0 force the plan (bwd_plan_forced: the card tests' and tools' entry).
 inline cudaError_t launch_bwd_group(const BwdSpec* specs, int count, float* ws,
-                                    cudaStream_t stream, int bn = 0, int splits = 0) {
+                                    cudaStream_t stream, int bn = 0, int splits = 0,
+                                    int schedule = 0) {
   if (count < 1 || count > MAX_PROBLEMS) return cudaErrorInvalidValue;
   for (int i = 0; i < count; ++i) {
     const BwdSpec& s = specs[i];
@@ -1501,13 +1830,12 @@ inline cudaError_t launch_bwd_group(const BwdSpec* specs, int count, float* ws,
   if (err != cudaSuccess) return err;
   int shapes[MAX_PROBLEMS][4];
   bwd_shapes(specs, count, shapes);
-  BwdPlan plan = bwd_plan(shapes, count, sms);
-  if (bn > 0) plan.bn = bn;
-  if (splits > 0) plan.splits = splits;
-  if (plan.bn != 256 && plan.bn != 192 && plan.bn != 128) return cudaErrorInvalidValue;
+  const BwdPlan plan = bwd_plan_forced(shapes, count, sms, bn, splits, schedule);
+  if (plan.bn < 0 || (plan.stream_k && ws == nullptr)) return cudaErrorInvalidValue;
   BwdMaps maps;
   BwdArgs p;
   p.count = count;
+  p.stream_k = plan.stream_k;
   int units = 0;
   size_t ws_off = 0;
   for (int i = 0; i < count; ++i) {
@@ -1518,11 +1846,14 @@ inline cudaError_t launch_bwd_group(const BwdSpec* specs, int count, float* ws,
     q.M = s.M;
     q.N = s.N;
     q.K = s.K;
-    q.splits = shapes[i][0] == KIND_TN_SPLIT ? split_count(nk, plan.splits, &q.k_chunk) : 1;
+    q.splits = shapes[i][0] == KIND_TN_SPLIT && !plan.stream_k
+                   ? split_count(nk, plan.splits, &q.k_chunk)
+                   : 1;
     if (q.splits == 1) q.k_chunk = nk;
     q.n_tiles = (s.N + plan.bn - 1) / plan.bn;
     q.unit0 = units;
-    units += ((s.M + BM - 1) / BM) * q.n_tiles * q.splits;
+    // stream-K counts (tile, slab) iterations; the split schedule units
+    units += ((s.M + BM - 1) / BM) * q.n_tiles * (plan.stream_k ? nk : q.splits);
     if (q.splits > 1) {
       q.out_f32 = ws + ws_off;
       q.ldo = s.N;
@@ -1546,7 +1877,13 @@ inline cudaError_t launch_bwd_group(const BwdSpec* specs, int count, float* ws,
   }
   for (int i = count; i < MAX_PROBLEMS; ++i) p.p[i] = p.p[0];
   p.units = units;
-  const int grid = units < sms ? units : sms;
+  const int grid = plan.stream_k ? plan.ctas : units < sms ? units : sms;
+  p.flags = plan.stream_k ? reinterpret_cast<int*>(ws) : nullptr;
+  p.slots = plan.stream_k ? ws + sk_flag_floats(grid) : nullptr;
+  if (plan.stream_k) {
+    err = cudaMemsetAsync(ws, 0, sizeof(int) * 2 * grid, stream);
+    if (err != cudaSuccess) return err;
+  }
   err = specs[0].form == FORM_TN ? launch_bwd_form<FORM_TN>(plan.bn, maps, p, grid, stream)
                                   : launch_bwd_form<FORM_NT>(plan.bn, maps, p, grid, stream);
   if (err != cudaSuccess) return err;

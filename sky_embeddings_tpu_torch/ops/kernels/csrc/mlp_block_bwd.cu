@@ -100,7 +100,8 @@ static void slab_group(sky::sm90::BwdSpec* spec, const void* y, const void* w1, 
                     fs, D, M};
 }
 
-// fp32 floats of split-K workspace the slab group of (M, D, F, fs) needs.
+// fp32 floats of workspace the slab group of (M, D, F, fs) needs (split
+// partials, or stream-K's flags and slots).
 extern "C" long long sky_mlp_block_bwd_ws(int M, int D, int F, int fs) {
   using namespace sky::sm90;
   int sms = 0;
@@ -153,12 +154,13 @@ extern "C" long long sky_mlp_block_bwd_ws(int M, int D, int F, int fs) {
 //
 // mlp_bwd_slabs is the loop (steps 1-3 and every slab's db1 but the last
 // one's, left in *db1_job); mlp_block_bwd adds the LN backward and the
-// column sums after it, and the tensor-parallel form (below) stops there.
+// column sums after it, and the tensor-parallel form (below) stops there,
+// its LN holding the row in registers (ln_held).
 static int mlp_bwd_slabs(const void* x, const void* ln_scale, const void* ln_bias, const void* w1,
                          const void* b1, const void* w2, const void* a, const void* g, void* y,
                          void* da_c, void* h_c, float* dyf, float* part_b1, void* ws, void* dw1,
                          void* db1, void* dw2, int M, int D, int F, int fs, sky::ColsumJob* db1_job,
-                         cudaStream_t s) {
+                         bool ln_held, cudaStream_t s) {
   using namespace sky;
   const bf16* w1b = static_cast<const bf16*>(w1);
   const bf16* w2b = static_cast<const bf16*>(w2);
@@ -167,7 +169,8 @@ static int mlp_bwd_slabs(const void* x, const void* ln_scale, const void* ln_bia
   const int nj = F / fs;
   *db1_job = ColsumJob{part_b1, nullptr, (M + 63) / 64, fs};
 
-  SKY_TRY(launch_layernorm(x, ln_scale, ln_bias, y, M, D, s));
+  SKY_TRY(ln_held ? launch_layernorm_held(x, ln_scale, ln_bias, y, M, D, s)
+                  : launch_layernorm(x, ln_scale, ln_bias, y, M, D, s));
   for (int j = 0; j < nj; ++j) {
     const size_t c0 = (size_t)j * fs;
     if (a != nullptr)
@@ -199,7 +202,7 @@ static int mlp_block_bwd(const void* x, const void* ln_scale, const void* ln_bia
   float* dyf = static_cast<float*>(dy);
   ColsumJob db1_job;
   if (const int e = mlp_bwd_slabs(x, ln_scale, ln_bias, w1, b1, w2, a, g, y, da_c, h_c, dyf,
-                                  part_b1, ws, dw1, db1, dw2, M, D, F, fs, &db1_job, s))
+                                  part_b1, ws, dw1, db1, dw2, M, D, F, fs, &db1_job, false, s))
     return e;
   SKY_TRY(launch_ln_bwd(x, g, dyf, ln_scale, dx, part_scale, part_bias, M, D, s));
   SKY_TRY(launch_colsum_partial<bf16>(g, M, D, part_b2, s));
@@ -254,25 +257,46 @@ extern "C" int sky_mlp_block_bwd_stream(const void* x, const void* ln_scale, con
 // One product on the group kernel: out = a @ b^T (form 1, FORM_NT: a (M, K),
 // b (N, K)) or a^T @ b (form 2, FORM_TN: a (K, M), b (K, N)); epi EPI_STORE
 // (3: out (M, N) bf16), EPI_STORE_F32 (4: out_f32) or EPI_ADD_F32 (9:
-// out_f32 += the product). bn, splits > 0 force the tile width and the
-// split count (FORM_TN with EPI_STORE only); ws holds splits * M * N fp32.
+// out_f32 += the product). bn, splits, schedule > 0 force the plan
+// (gemm_sm90.cuh bwd_plan_forced: splits and stream-K, schedule 2, for
+// FORM_TN with EPI_STORE only); ws holds what sky_gemm_sm90_bwd_plan gives
+// under them.
 extern "C" int sky_gemm_sm90_bwd(const void* a, const void* b, void* out, void* out_f32, void* ws,
                                  int form, int epi, int M, int N, int K, int bn, int splits,
-                                 void* stream) {
+                                 int schedule, void* stream) {
   using namespace sky::sm90;
   const BwdSpec spec{form, epi, a, b, 0, out, static_cast<float*>(out_f32), 0, M, N, K};
   return static_cast<int>(launch_bwd_group(&spec, 1, static_cast<float*>(ws),
-                                           static_cast<cudaStream_t>(stream), bn, splits));
+                                           static_cast<cudaStream_t>(stream), bn, splits,
+                                           schedule));
+}
+
+// A group of `count` (1 to 3) weight gradients in one launch: out[i] (M_i,
+// N_i) bf16 = a[i]^T @ b[i], a[i] (K_i, M_i) and b[i] (K_i, N_i)
+// contiguous, dims[3 i ..] = {M_i, N_i, K_i}; bn, splits, schedule > 0
+// force the plan; ws holds what sky_gemm_sm90_bwd_plan gives.
+extern "C" int sky_gemm_sm90_bwd_group(int count, const void* const* a, const void* const* b,
+                                       void* const* out, const int* dims, void* ws, int bn,
+                                       int splits, int schedule, void* stream) {
+  using namespace sky::sm90;
+  if (count < 1 || count > MAX_PROBLEMS) return static_cast<int>(cudaErrorInvalidValue);
+  BwdSpec spec[MAX_PROBLEMS];
+  for (int i = 0; i < count; ++i)
+    spec[i] = BwdSpec{FORM_TN, sky::EPI_STORE, a[i], b[i], 0, out[i], nullptr, 0,
+                      dims[3 * i], dims[3 * i + 1], dims[3 * i + 2]};
+  return static_cast<int>(launch_bwd_group(spec, count, static_cast<float*>(ws),
+                                           static_cast<cudaStream_t>(stream), bn, splits,
+                                           schedule));
 }
 
 // The group plan of `count` (1 to 3) products, shapes[4 i ..] = {kind, M,
 // N, K} (enum ShapeKind: 0 FORM_NT, 1 a weight gradient, which may split,
-// 2 another FORM_TN product), over `sms` CTAs: plan[0..5] = BN, split
-// count, units, shared-memory bytes, modelled cost, workspace floats;
-// splits > 0 forces the split count (as sky_gemm_sm90_bwd's does).
-// plan[0] = -1: refused.
-extern "C" void sky_gemm_sm90_bwd_plan(int count, const int* shapes, int sms, int splits,
-                                       long long* plan) {
+// 2 another FORM_TN product), over `sms` CTAs: plan[0..7] = BN, split
+// count, units, shared-memory bytes, modelled cost, workspace floats,
+// schedule (0 split, 1 stream-K), CTAs launched; bn, splits, schedule > 0
+// force the plan as the launch entries do. plan[0] = -1: refused.
+extern "C" void sky_gemm_sm90_bwd_plan(int count, const int* shapes, int sms, int bn, int splits,
+                                       int schedule, long long* plan) {
   using namespace sky::sm90;
   if (count < 1 || count > MAX_PROBLEMS) {
     plan[0] = -1;
@@ -281,29 +305,32 @@ extern "C" void sky_gemm_sm90_bwd_plan(int count, const int* shapes, int sms, in
   int sh[MAX_PROBLEMS][4];
   for (int i = 0; i < count; ++i)
     for (int j = 0; j < 4; ++j) sh[i][j] = shapes[4 * i + j];
-  BwdPlan p = bwd_plan_uncached(sh, count, sms);
-  if (splits > 0) p.splits = splits;
+  const BwdPlan p = bwd_plan_forced(sh, count, sms, bn, splits, schedule);
   plan[0] = p.bn;
+  if (p.bn < 0) return;
   plan[1] = p.splits;
   plan[2] = p.units;
   plan[3] = p.smem;
   plan[4] = p.cost;
   plan[5] = (long long)bwd_workspace(sh, count, p);
+  plan[6] = p.stream_k;
+  plan[7] = p.ctas;
 }
 
 // Kernel 8's weight-gradient group alone, as sky_mlp_block_bwd_stream
 // launches it for its first slab: dW1[:, :fs] = y^T @ da_c (rows F apart)
-// and dW2[:fs, :] = h_c^T @ g in one launch; bn, splits > 0 force the tile
-// width and split count; ws holds the workspace sky_gemm_sm90_bwd_plan
-// gives under them.
+// and dW2[:fs, :] = h_c^T @ g in one launch; bn, splits, schedule > 0 force
+// the plan; ws holds the workspace sky_gemm_sm90_bwd_plan gives under them.
 extern "C" int sky_mlp_bwd_weight_grads(const void* y, const void* da_c, const void* h_c,
                                         const void* g, void* dw1, void* dw2, void* ws, int M,
-                                        int D, int F, int fs, int bn, int splits, void* stream) {
+                                        int D, int F, int fs, int bn, int splits, int schedule,
+                                        void* stream) {
   using namespace sky::sm90;
   BwdSpec spec[3];
   slab_group(spec, y, nullptr, g, da_c, h_c, nullptr, false, dw1, dw2, 0, M, D, F, fs);
   return static_cast<int>(launch_bwd_group(spec + 1, 2, static_cast<float*>(ws),
-                                           static_cast<cudaStream_t>(stream), bn, splits));
+                                           static_cast<cudaStream_t>(stream), bn, splits,
+                                           schedule));
 }
 
 // The stash dh product alone: da_c, h_c (M, N) bf16 from g (M, K), w2 (N, K)
@@ -480,7 +507,14 @@ extern "C" int sky_mlp_block_bwd_stream_f32(const void* x, const void* ln_scale,
 // replicated parameters, alike on every rank. fs is the slab width: F_r
 // (one slab, kernel 8's form) on the main path, or a divisor of F_r that
 // kernel 9's partition gives, the same loop. A rank's bound: 10 M D F_r
-// FLOP of products. The fp32 forms (_f32 entries) run mlp_bwd_slabs_f32.
+// FLOP of products. At jepa_struct's ViT-S shard (M = 16 384, D = 384, F_r
+// = 768) dW1_r and dW2_r are 24 tiles of 128 x 192 over 256 slabs: the
+// group plan runs them on its stream-K schedule (gemm_sm90.cuh: five runs a
+// tile on 120 CTAs; PERF.md section 6), the wrapper carves the scratch from one
+// allocation, the LN and the finish's LN backward hold the row in
+// registers (common.cuh LN_REG_CHUNKS: D up to 1 280), and the LN
+// backward sums db2's column partials as it reads g. The fp32 forms (_f32
+// entries) run mlp_bwd_slabs_f32.
 // Scratch as kernel 8's (kernel 9's with fs < F_r) at F = F_r; outputs dy
 // (M, D) fp32, dw1 (D, F_r), db1 (F_r,) fp32, dw2 (F_r, D).
 static int mlp_block_tp_bwd(const void* x, const void* ln_scale, const void* ln_bias,
@@ -497,7 +531,8 @@ static int mlp_block_tp_bwd(const void* x, const void* ln_scale, const void* ln_
                                          h_c, dyf, part_b1, ws, dw1, db1, dw2, M, D, F, fs,
                                          &db1_job, s)
                      : mlp_bwd_slabs(x, ln_scale, ln_bias, w1, b1, w2, nullptr, g, y, da_c, h_c,
-                                     dyf, part_b1, ws, dw1, db1, dw2, M, D, F, fs, &db1_job, s);
+                                     dyf, part_b1, ws, dw1, db1, dw2, M, D, F, fs, &db1_job,
+                                     true, s);
   if (e) return e;
   SKY_TRY(launch_colsum_finals(&db1_job, 1, s));
   return 0;

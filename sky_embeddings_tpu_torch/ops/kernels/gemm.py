@@ -25,9 +25,10 @@ product with a chosen epilogue (``sky_gemm_sm90`` in ``csrc/mlp_block.cu``),
 weight-gradient group, :func:`gemm_dual` the dual product and
 :func:`gemm_dh_stash` the stash dh product (``csrc/mlp_block_bwd.cu``),
 :func:`attn_weight_grads` kernels 3 and 4's group
-(``csrc/attn_block_bwd.cu``), so that the card tests and
-``chip_smoke.py`` can hold the GEMM alone to its plain version and time it
-beside cuBLAS.
+(``csrc/attn_block_bwd.cu``), :func:`gemm_bwd_group` any group of weight
+gradients (the tensor-parallel ranks' among them), so that the card tests
+and ``chip_smoke.py`` can hold the GEMM alone to its plain version and time
+it beside cuBLAS.
 
 :func:`gemm_plan` is a copy of the forward tile rule (``gemm_sm90_plan``):
 output tiles of 128 rows x BN columns, BN the one of 256, 192, 128 whose
@@ -38,8 +39,14 @@ staged 128 x BN bf16 output tile, the ring holds as many 128 x 64 + 64 x BN
 bf16 slots as fit a block's shared memory. :func:`bwd_plan` is a copy of
 the group rule (``bwd_plan``): of BN = 256, 192, 128 and split counts 1 and
 2, the pair of least modelled cost, the units dealt to the CTAs in
-turn as the kernel deals them. Card tests hold the copies to the C rules;
-the CPU tests hold them at every shipped config.
+turn as the kernel deals them; then, where the tiles at BN = 128 cut in
+two slices leave SMs idle and every product is a weight gradient, the
+stream-K schedule at each width (the group's (tile, 64-deep slab)
+iterations dealt in equal contiguous runs to the persistent CTAs, a
+tile's partials added by its owner in segment order:
+:func:`stream_k_segments`, :func:`gemm_bwd_stream_k_plain`), the plan
+saying which (``BwdPlan.schedule``). Card tests hold the copies to the C
+rules; the CPU tests hold them at every shipped config.
 
 :func:`gemm_f32` launches one product of the fp32 GEMM (``csrc/gemm_f32.cuh``,
 3xTF32 on wgmma fed by TMA; ``sky_gemm_f32_ld`` in ``csrc/mlp_block.cu``)
@@ -203,6 +210,7 @@ gemm.launches = 0
 FORMS = {"nt": 1, "tn": 2}  # enum Form
 BWD_EPILOGUES = {"store": 3, "store_f32": 4, "add_f32": 9}  # csrc/common.cuh enum Epilogue
 SPLIT_CANDIDATES = (1, 2)
+SCHEDULES = {"split": 1, "stream_k": 2}  # a forced schedule, bwd_plan_forced in the C source
 MAX_PROBLEMS = 3  # products in one group launch
 # a product's kind in a group plan (enum ShapeKind): "nt" (never split), a
 # weight gradient ("tn" rounded to bf16, may split its K), another "tn"
@@ -214,6 +222,12 @@ KIND_NT, KIND_TN_SPLIT, KIND_TN = 0, 1, 2
 SLAB_COST = {False: {256: 11, 192: 7, 128: 5}, True: {256: 6, 192: 5, 128: 4}}
 EPI_COST = 1
 REDUCE_BYTES_PER_COST = 1 << 16
+# stream-K: one unit per STREAMK_BYTES_PER_COST bytes of each 128 x BN fp32
+# partial a CTA stores or, as a tile's owner, reads through L2
+STREAMK_BYTES_PER_COST = 1 << 13
+# stream-K runs that cross tiles: their slabs at this many times the cost
+# (their K out of step with the other tiles' runs; the card's reading, PERF.md §6)
+STREAMK_SCATTER = 2
 DUAL_BN = 128
 DUAL_STAGE_BYTES = 4 * BM * BK * 2  # y, g, W1 and W2 slabs of one ring slot
 STASH_BN = 128  # the stash dh product's tile width (csrc/gemm_sm90.cuh STASH_BN)
@@ -222,10 +236,12 @@ STASH_BN = 128  # the stash dh product's tile width (csrc/gemm_sm90.cuh STASH_BN
 @dataclass(frozen=True)
 class BwdPlan:
     bn: int  # tile width of every product of the group
-    splits: int  # the split count offered to each weight gradient
-    units: int  # (tile, K slice) units over all products
+    splits: int  # the split count offered to each weight gradient (stream-K: 1)
+    units: int  # (tile, K slice) units over all products; stream-K: (tile, slab) iterations
     smem: int  # dynamic shared-memory bytes of a CTA
     cost: int  # the modelled cost
+    schedule: str = "split"  # or "stream_k"
+    ctas: int = 0  # CTAs launched: min(units, sms), or stream-K's deal's
 
 
 def split_count(nk: int, split: int) -> tuple[int, int]:
@@ -257,12 +273,93 @@ def _bwd_cost(shapes, bn: int, split: int, sms: int) -> tuple[int, int]:
     return int(load.max()) + extra, units
 
 
-def bwd_plan(shapes, sms: int = H100_SMS) -> BwdPlan:
-    """The group rule of ``csrc/gemm_sm90.cuh`` (``bwd_plan``) for products
-    (kind, M, N, K) over ``sms`` resident CTAs: of BN = 256, 192, 128 and
-    the split counts 1 and 2 (only 1 when no product may split) the pair of
-    least modelled cost, a later candidate winning only by more than a
-    sixteenth."""
+def _smem(bn: int) -> int:
+    return _stages(bn) * _stage_bytes(bn) + _out_bytes(bn) + SMEM_EXTRA
+
+
+def stream_k_fits(shapes, sms: int = H100_SMS) -> bool:
+    """Stream-K may run a group (``stream_k_fits``): every product a weight
+    gradient, and the tiles at BN = 128 cut in two slices give fewer units
+    than SMs."""
+    if any(kind != KIND_TN_SPLIT for kind, *_ in shapes):
+        return False
+    units = sum(-(-M // BM) * -(-N // 128) * split_count(-(-K // BK), 2)[0]
+                for _, M, N, K in shapes)
+    return units < sms
+
+
+def _stream_k_tiles(shapes, bn: int):
+    """(problem, tile, first iteration, slabs) of every tile in the deal's
+    order, and W, the group's (tile, slab) iterations."""
+    tiles, t0 = [], 0
+    for i, (_, M, N, K) in enumerate(shapes):
+        nk = -(-K // BK)
+        for tile in range(-(-M // BM) * -(-N // bn)):
+            tiles.append((i, tile, t0, nk))
+            t0 += nk
+    return tiles, t0
+
+
+def stream_k_grids(shapes, bn: int, sms: int = H100_SMS) -> tuple[int, int]:
+    """Stream-K's two deals at width ``bn`` (``streamk_work``): the CTA
+    count whose runs each lie inside one tile, in step in K with the other
+    tiles' (the largest multiple of the tile count within ``sms``, at two or
+    more CTAs a tile, where every product has the same K; 0 when there is
+    none), and min(W, sms), whose runs cross tiles."""
+    tiles, W = _stream_k_tiles(shapes, bn)
+    same_k = len({nk for *_, nk in tiles}) == 1
+    aligned = sms // len(tiles) * len(tiles) if same_k and sms // len(tiles) >= 2 and W >= sms \
+        else 0
+    return aligned, min(W, sms)
+
+
+def _cta_of(it: int, grid: int, W: int) -> int:
+    """The CTA whose run [g W / grid, (g + 1) W / grid) holds iteration it."""
+    return ((it + 1) * grid - 1) // W
+
+
+def _streamk_cost(shapes, bn: int, grid: int) -> tuple[int, int]:
+    """(modelled cost, W) of the stream-K schedule over ``grid`` CTAs
+    (``streamk_cost``): each CTA's slabs and the epilogues of the tiles it
+    finishes, one partial stored for a piece without its tile's last slab,
+    the owner's read of each of its tile's partials; the most loaded CTA's.
+    Runs that cross tiles pay STREAMK_SCATTER times a slab's cost."""
+    tiles, W = _stream_k_tiles(shapes, bn)
+    aligned = stream_k_grids(shapes, bn, grid)[0] == grid
+    part = BM * bn * 4 // STREAMK_BYTES_PER_COST
+    slab = SLAB_COST[True][bn] * (1 if aligned else STREAMK_SCATTER)
+    epi = EPI_COST * (bn // 64)
+    load = [0] * grid
+    for _, _, t0, nk in tiles:
+        first, last = _cta_of(t0, grid, W), _cta_of(t0 + nk - 1, grid, W)
+        for g in range(first, last + 1):
+            lo, hi = g * W // grid, (g + 1) * W // grid
+            load[g] += (min(hi, t0 + nk) - max(lo, t0)) * slab
+            load[g] += epi + part * (last - first) if g == last else part
+    return max(load), W
+
+
+def _streamk_plan(shapes, bn: int, sms: int) -> BwdPlan:
+    """Stream-K at width ``bn`` (``streamk_plan``): the deal in step with
+    the tiles where there is one, then the one over min(W, sms) CTAs,
+    which must cut the cost by more than a sixteenth."""
+    best = None
+    aligned, crossing = stream_k_grids(shapes, bn, sms)
+    for grid in (aligned, crossing):
+        if grid <= 0 or (best is not None and grid == best.ctas):
+            continue
+        cost, units = _streamk_cost(shapes, bn, grid)
+        if best is None or cost * 16 < best.cost * 15:
+            best = BwdPlan(bn, 1, units, _smem(bn), cost, "stream_k", grid)
+    return best
+
+
+def split_plan(shapes, sms: int = H100_SMS) -> BwdPlan:
+    """The split schedule's plan of ``csrc/gemm_sm90.cuh`` (``split_plan``)
+    for products (kind, M, N, K) over ``sms`` resident CTAs: of BN = 256,
+    192, 128 and the split counts 1 and 2 (only 1 when no product may
+    split), the one of least modelled cost, a later candidate winning only
+    by more than a sixteenth."""
     shapes = [tuple(int(v) for v in s) for s in shapes]
     splits = SPLIT_CANDIDATES if any(s[0] == KIND_TN_SPLIT for s in shapes) else (1,)
     best = None
@@ -270,14 +367,57 @@ def bwd_plan(shapes, sms: int = H100_SMS) -> BwdPlan:
         for split in splits:
             cost, units = _bwd_cost(shapes, bn, split, sms)
             if best is None or cost * 16 < best.cost * 15:
-                smem = _stages(bn) * _stage_bytes(bn) + _out_bytes(bn) + SMEM_EXTRA
-                best = BwdPlan(bn, split, units, smem, cost)
+                best = BwdPlan(bn, split, units, _smem(bn), cost, "split", min(units, sms))
     return best
 
 
+def bwd_plan(shapes, sms: int = H100_SMS) -> BwdPlan:
+    """The group rule of ``csrc/gemm_sm90.cuh`` (``bwd_plan``):
+    :func:`split_plan`'s, then stream-K at each width where
+    :func:`stream_k_fits`, which must cut the modelled cost by more than a
+    sixteenth."""
+    shapes = [tuple(int(v) for v in s) for s in shapes]
+    best = split_plan(shapes, sms)
+    if stream_k_fits(shapes, sms):
+        for bn in BNS:
+            sk = _streamk_plan(shapes, bn, sms)
+            if sk.cost * 16 < best.cost * 15:
+                best = sk
+    return best
+
+
+def bwd_plan_forced(shapes, sms: int = H100_SMS, bn: int = 0, splits: int = 0,
+                    schedule: str | None = None) -> BwdPlan:
+    """The plan a launch runs with ``bn``, ``splits`` or ``schedule``
+    forced (``bwd_plan_forced``): ``splits`` > 0 or ``"split"`` the split
+    schedule (one slice unless ``splits`` says), ``"stream_k"`` stream-K
+    (a group of weight gradients only); what is not forced, the plan's."""
+    shapes = [tuple(int(v) for v in s) for s in shapes]
+    plan = bwd_plan(shapes, sms)
+    if not bn and not splits and schedule is None:
+        return plan
+    if schedule not in (None, *SCHEDULES):
+        raise ValueError(f"schedule {schedule!r} is none of {sorted(SCHEDULES)}")
+    b = bn or plan.bn
+    if b not in BNS:
+        raise ValueError(f"bn {b} is none of {BNS}")
+    if schedule == "stream_k" or (schedule is None and not splits
+                                  and plan.schedule == "stream_k"):
+        if any(kind != KIND_TN_SPLIT for kind, *_ in shapes):
+            raise ValueError("stream-K runs a group of weight gradients alone")
+        return _streamk_plan(shapes, b, sms)
+    sp = splits or (1 if plan.schedule == "stream_k" else plan.splits)
+    cost, units = _bwd_cost(shapes, b, sp, sms)
+    return BwdPlan(b, sp, units, _smem(b), cost, "split", min(units, sms))
+
+
 def bwd_workspace(shapes, plan: BwdPlan) -> int:
-    """fp32 floats of split partials a group needs under ``plan``: a copy of
-    the C rule, which sizes every launch's workspace (:func:`bwd_plan_cuda`)."""
+    """fp32 floats of workspace a group needs under ``plan``: the split
+    partials, or stream-K's flags (two a CTA, padded to 64 floats) and a
+    128 x BN slot for each of its CTAs. A copy of the C rule, which sizes
+    every launch's workspace (:func:`bwd_plan_cuda`)."""
+    if plan.schedule == "stream_k":
+        return -(-2 * plan.ctas // 64) * 64 + plan.ctas * BM * plan.bn
     n = 0
     for kind, M, N, K in shapes:
         sp = split_count(-(-K // BK), plan.splits)[0] if kind == KIND_TN_SPLIT else 1
@@ -286,22 +426,84 @@ def bwd_workspace(shapes, plan: BwdPlan) -> int:
     return n
 
 
-def bwd_plan_cuda(shapes, sms: int = H100_SMS, splits: int = 0) -> tuple[BwdPlan, int]:
+def bwd_plan_cuda(shapes, sms: int = H100_SMS, splits: int = 0, bn: int = 0,
+                  schedule: str | None = None) -> tuple[BwdPlan, int]:
     """The group rule as the C source computes it (builds ``lib mlp_block_bwd``):
-    ``(plan, workspace floats)`` of one to three products; ``splits`` > 0
-    forces the split count, as :func:`gemm_bwd` may."""
+    ``(plan, workspace floats)`` of one to three products; ``bn``,
+    ``splits``, ``schedule`` force the plan as :func:`gemm_bwd` may."""
     if not 1 <= len(shapes) <= MAX_PROBLEMS:
         raise ValueError(f"a group holds 1 to {MAX_PROBLEMS} products, got {len(shapes)}")
     fn = cuda_build.load("mlp_block_bwd").sky_gemm_sm90_bwd_plan
-    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_int,
-                   ctypes.POINTER(ctypes.c_longlong)]
+    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)] + [ctypes.c_int] * 4 + [
+        ctypes.POINTER(ctypes.c_longlong)]
     fn.restype = None
     flat = [int(v) for s in shapes for v in s]
-    out = (ctypes.c_longlong * 6)()
-    fn(len(shapes), (ctypes.c_int * len(flat))(*flat), sms, splits, out)
+    out = (ctypes.c_longlong * 8)()
+    fn(len(shapes), (ctypes.c_int * len(flat))(*flat), sms, bn, splits,
+       SCHEDULES.get(schedule, 0), out)
     if out[0] < 0:
-        raise ValueError(f"sky_gemm_sm90_bwd_plan refused {shapes}")
-    return BwdPlan(*(int(v) for v in out[:5])), int(out[5])
+        raise ValueError(f"sky_gemm_sm90_bwd_plan refused {shapes} (bn {bn}, splits {splits}, "
+                         f"schedule {schedule})")
+    plan = BwdPlan(*(int(v) for v in out[:5]), "stream_k" if out[6] else "split", int(out[7]))
+    return plan, int(out[5])
+
+
+def stream_k_segments(shapes, bn: int, grid: int):
+    """The stream-K deal of a group at tile width ``bn`` over ``grid`` CTAs
+    (at most W): for each CTA, its pieces in the order it walks them (its
+    run's last first), each (problem, tile, kb0, kb1): slabs [kb0, kb1) of
+    that output tile (tiles row-major over 128 x bn, n fastest)."""
+    shapes = [tuple(int(v) for v in s) for s in shapes]
+    tiles, W = _stream_k_tiles(shapes, bn)
+    starts = np.array([t0 for _, _, t0, _ in tiles])
+    out = []
+    for g in range(grid):
+        lo, hi, segs = g * W // grid, (g + 1) * W // grid, []
+        while hi > lo:
+            i, tile, t0, nk = tiles[int(np.searchsorted(starts, hi - 1, side="right")) - 1]
+            frm = max(lo, t0)
+            segs.append((i, tile, frm - t0, hi - t0))
+            hi = frm
+        out.append(segs)
+    return out
+
+
+def gemm_bwd_stream_k_plain(ops, bn: int, grid: int, out_dtype=torch.bfloat16):
+    """The stream-K schedule of a group of weight gradients over ``grid``
+    CTAs run in fp32 as the kernel runs it: ``ops`` a list of (a (K, M),
+    b (K, N)); each CTA's
+    pieces summed over their slabs, a piece without its tile's last slab
+    kept as the CTA's partial, and each tile's owner (the CTA with its last
+    slab) adding to its own piece the partials of the CTAs before it whose
+    runs reach into the tile, in CTA order (the segments' order), then
+    rounding once. Returns the outputs (M, N) in ``out_dtype`` (the
+    kernel's bf16; fp32 reads the sums before the rounding)."""
+    shapes = [(KIND_TN_SPLIT, a.shape[1], b.shape[1], a.shape[0]) for a, b in ops]
+    tiles, W = _stream_k_tiles(shapes, bn)
+    first = {(i, tile): t0 for i, tile, t0, _ in tiles}
+    nks = [-(-K // BK) for *_, K in shapes]
+    runs = stream_k_segments(shapes, bn, grid)
+
+    def piece(i, tile, kb0, kb1):
+        a, b = ops[i]
+        n_tiles = -(-b.shape[1] // bn)
+        m0, n0 = (tile // n_tiles) * BM, (tile % n_tiles) * bn
+        acc = a[kb0 * BK:kb1 * BK, m0:m0 + BM].float().t() @ b[kb0 * BK:kb1 * BK, n0:n0 + bn].float()
+        return acc, m0, n0
+
+    partials = {g: piece(*seg)[0] for g, run in enumerate(runs) for seg in run
+                if seg[3] < nks[seg[0]]}
+    outs = [torch.empty(M, N) for _, M, N, _ in shapes]
+    for g, run in enumerate(runs):
+        for i, tile, kb0, kb1 in run:
+            if kb1 < nks[i]:
+                continue
+            acc, m0, n0 = piece(i, tile, kb0, kb1)
+            if kb0 > 0:
+                for c in range(_cta_of(first[(i, tile)], grid, W), g):
+                    acc = acc + partials[c]
+            outs[i][m0:m0 + BM, n0:n0 + bn] = acc
+    return [o.to(out_dtype) for o in outs]
 
 
 def mlp_bwd_groups(M: int, D: int, fs: int):
@@ -371,11 +573,14 @@ def gemm_bwd_plain(a, b, form: str, epi: str, c=None):
     return acc + c if epi == "add_f32" else acc
 
 
-def gemm_bwd(a, b, form: str, epi: str, c=None, bn: int = 0, splits: int = 0):
+def gemm_bwd(a, b, form: str, epi: str, c=None, bn: int = 0, splits: int = 0,
+             schedule: str | None = None):
     """As :func:`gemm_bwd_plain`. CPU tensors take the plain version; CUDA
     tensors launch ``sky_gemm_sm90_bwd`` (the group kernel with this one
     product) or raise. ``bn`` / ``splits`` > 0 force the tile width and,
-    for a ``"tn"`` product stored in bf16, the split count."""
+    for a ``"tn"`` product stored in bf16, the split count; ``schedule``
+    (``"split"`` or ``"stream_k"``, the latter for such a product alone)
+    the schedule."""
     if a.device.type == "cpu":
         return gemm_bwd_plain(a, b, form, epi, c)
     M, N, K = _bwd_operands(a, b, form)
@@ -389,6 +594,8 @@ def gemm_bwd(a, b, form: str, epi: str, c=None, bn: int = 0, splits: int = 0):
                          "(16-byte TMA strides)")
     if bn not in (0, *BNS):
         raise ValueError(f"bn {bn} is none of {BNS}")
+    if schedule not in (None, *SCHEDULES):
+        raise ValueError(f"schedule {schedule!r} is none of {sorted(SCHEDULES)}")
     out = out_f32 = None
     if epi == "store":
         out = torch.empty((M, N), dtype=torch.bfloat16, device=a.device)
@@ -401,16 +608,18 @@ def gemm_bwd(a, b, form: str, epi: str, c=None, bn: int = 0, splits: int = 0):
     kind = KIND_NT if form == "nt" else KIND_TN_SPLIT if epi == "store" else KIND_TN
     shapes = [(kind, M, N, K)]
     sms = torch.cuda.get_device_properties(a.device).multi_processor_count
-    ws = torch.empty(max(bwd_plan_cuda(shapes, sms, splits)[1], 4), dtype=torch.float32,
-                     device=a.device)
+    with torch.cuda.device(a.device):
+        n_ws = bwd_plan_cuda(shapes, sms, splits, bn, schedule)[1]
+    ws = torch.empty(max(n_ws, 4), dtype=torch.float32, device=a.device)
     fn = cuda_build.load("mlp_block_bwd").sky_gemm_sm90_bwd
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     ptr = lambda t: None if t is None else t.data_ptr()
     with torch.cuda.device(a.device):
         err = fn(ptr(a), ptr(b), ptr(out), ptr(out_f32), ws.data_ptr(), FORMS[form],
-                 BWD_EPILOGUES[epi], M, N, K, bn, splits, torch.cuda.current_stream().cuda_stream)
+                 BWD_EPILOGUES[epi], M, N, K, bn, splits, SCHEDULES.get(schedule, 0),
+                 torch.cuda.current_stream().cuda_stream)
     cuda_build.check(err, "sky_gemm_sm90_bwd")
     gemm_bwd.launches += 1
     return out if epi == "store" else out_f32
@@ -419,12 +628,13 @@ def gemm_bwd(a, b, form: str, epi: str, c=None, bn: int = 0, splits: int = 0):
 gemm_bwd.launches = 0
 
 
-def mlp_weight_grads(y, da_c, h_c, g, bn: int = 0, splits: int = 0):
+def mlp_weight_grads(y, da_c, h_c, g, bn: int = 0, splits: int = 0,
+                     schedule: str | None = None):
     """``(dW1, dW2) = (yᵀ @ da_c, h_cᵀ @ g)`` rounded to bf16, from y, g (M,
     D) and da_c, h_c (M, F). CPU tensors take the plain version; CUDA
     tensors launch the two as kernel 8 does, one group of the ``"tn"`` form
     (``sky_mlp_bwd_weight_grads``), or raise. ``bn`` / ``splits`` > 0 force
-    the tile width and the split count."""
+    the tile width and the split count, ``schedule`` the schedule."""
     if y.device.type == "cpu":
         return gemm_bwd_plain(y, da_c, "tn", "store"), gemm_bwd_plain(h_c, g, "tn", "store")
     (M, D), F = y.shape, da_c.shape[1]
@@ -438,17 +648,18 @@ def mlp_weight_grads(y, da_c, h_c, g, bn: int = 0, splits: int = 0):
     if bn not in (0, *BNS):
         raise ValueError(f"bn {bn} is none of {BNS}")
     sms = torch.cuda.get_device_properties(y.device).multi_processor_count
-    n_ws = bwd_plan_cuda(mlp_bwd_groups(M, D, F)[1], sms, splits)[1]
+    with torch.cuda.device(y.device):
+        n_ws = bwd_plan_cuda(mlp_bwd_groups(M, D, F)[1], sms, splits, bn, schedule)[1]
     ws = torch.empty(max(n_ws, 4), dtype=torch.float32, device=y.device)
     dw1 = torch.empty((D, F), dtype=torch.bfloat16, device=y.device)
     dw2 = torch.empty((F, D), dtype=torch.bfloat16, device=y.device)
     fn = cuda_build.load("mlp_block_bwd").sky_mlp_bwd_weight_grads
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     with torch.cuda.device(y.device):
         err = fn(*(t.data_ptr() for t in (y, da_c, h_c, g, dw1, dw2, ws)), M, D, F, F, bn, splits,
-                 torch.cuda.current_stream().cuda_stream)
+                 SCHEDULES.get(schedule, 0), torch.cuda.current_stream().cuda_stream)
     cuda_build.check(err, "sky_mlp_bwd_weight_grads")
     mlp_weight_grads.launches += 1
     return dw1, dw2
@@ -457,12 +668,14 @@ def mlp_weight_grads(y, da_c, h_c, g, bn: int = 0, splits: int = 0):
 mlp_weight_grads.launches = 0
 
 
-def attn_weight_grads(y, dqkv_c, ctx, g, bn: int = 0, splits: int = 0):
+def attn_weight_grads(y, dqkv_c, ctx, g, bn: int = 0, splits: int = 0,
+                      schedule: str | None = None):
     """``(dWqkv, dWproj) = (yᵀ @ dqkv_c, ctxᵀ @ g)`` rounded to bf16, from y,
     ctx, g (M, D) and dqkv_c (M, 3·D). CPU tensors take the plain version;
     CUDA tensors launch the two as kernels 3 and 4 do, one group of the
     ``"tn"`` form (``sky_attn_bwd_weight_grads``), or raise. ``bn`` /
-    ``splits`` > 0 force the tile width and the split count."""
+    ``splits`` > 0 force the tile width and the split count, ``schedule``
+    the schedule."""
     if y.device.type == "cpu":
         return gemm_bwd_plain(y, dqkv_c, "tn", "store"), gemm_bwd_plain(ctx, g, "tn", "store")
     M, D = y.shape
@@ -476,23 +689,94 @@ def attn_weight_grads(y, dqkv_c, ctx, g, bn: int = 0, splits: int = 0):
     if bn not in (0, *BNS):
         raise ValueError(f"bn {bn} is none of {BNS}")
     sms = torch.cuda.get_device_properties(y.device).multi_processor_count
-    n_ws = bwd_plan_cuda(attn_bwd_groups(M, D)[2], sms, splits)[1]
+    with torch.cuda.device(y.device):
+        n_ws = bwd_plan_cuda(attn_bwd_groups(M, D)[2], sms, splits, bn, schedule)[1]
     ws = torch.empty(max(n_ws, 4), dtype=torch.float32, device=y.device)
     dwqkv = torch.empty((D, 3 * D), dtype=torch.bfloat16, device=y.device)
     dwproj = torch.empty((D, D), dtype=torch.bfloat16, device=y.device)
     fn = cuda_build.load("attn_block_bwd").sky_attn_bwd_weight_grads
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     with torch.cuda.device(y.device):
         err = fn(*(t.data_ptr() for t in (y, dqkv_c, ctx, g, dwqkv, dwproj, ws)), M, D, bn, splits,
-                 torch.cuda.current_stream().cuda_stream)
+                 SCHEDULES.get(schedule, 0), torch.cuda.current_stream().cuda_stream)
     cuda_build.check(err, "sky_attn_bwd_weight_grads")
     attn_weight_grads.launches += 1
     return dwqkv, dwproj
 
 
 attn_weight_grads.launches = 0
+
+
+def gemm_bwd_group_plain(ops):
+    """Plain version of a group of weight gradients: ``aᵀ @ b`` of each
+    (a (K, M), b (K, N)) in ``ops`` in fp32, rounded to bf16."""
+    return [gemm_bwd_plain(a, b, "tn", "store") for a, b in ops]
+
+
+def _group_shapes(ops):
+    if not 1 <= len(ops) <= MAX_PROBLEMS:
+        raise ValueError(f"a group holds 1 to {MAX_PROBLEMS} products, got {len(ops)}")
+    return [(KIND_TN_SPLIT, a.shape[1], b.shape[1], a.shape[0]) for a, b in ops]
+
+
+def gemm_bwd_group_plan(ops, bn: int = 0, splits: int = 0, schedule: str | None = None):
+    """``(plan, workspace floats)`` of what :func:`gemm_bwd_group` runs for
+    ``ops`` on their card, as the C source computes it (``bn``,
+    ``splits``, ``schedule`` forced as there)."""
+    dev = ops[0][0].device
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    with torch.cuda.device(dev):
+        return bwd_plan_cuda(_group_shapes(ops), sms, splits, bn, schedule)
+
+
+def gemm_bwd_group(ops, bn: int = 0, splits: int = 0, schedule: str | None = None):
+    """As :func:`gemm_bwd_group_plain`: one to three weight gradients in one
+    launch of the group kernel (``sky_gemm_sm90_bwd_group``), as the
+    backward kernels run theirs (the TP forms' dWqkv_r and dWproj_r, dW1_r
+    and dW2_r). CPU tensors take the plain version; CUDA tensors launch or
+    raise. ``bn``, ``splits``, ``schedule`` force the plan, as
+    :func:`gemm_bwd`'s."""
+    if ops[0][0].device.type == "cpu":
+        return gemm_bwd_group_plain(ops)
+    shapes = _group_shapes(ops)
+    dev = ops[0][0].device
+    for a, b in ops:
+        M, N, _ = _bwd_operands(a, b, "tn")
+        if any(t.dtype != torch.bfloat16 or not t.is_contiguous() or t.device != dev
+               for t in (a, b)):
+            raise ValueError(f"want contiguous bf16 operands on {dev}")
+        if M % 8 or N % 8:
+            raise ValueError(f"M={M}, N={N}: the contiguous axes must be multiples of 8 "
+                             "(16-byte TMA strides)")
+    if bn not in (0, *BNS):
+        raise ValueError(f"bn {bn} is none of {BNS}")
+    if schedule not in (None, *SCHEDULES):
+        raise ValueError(f"schedule {schedule!r} is none of {sorted(SCHEDULES)}")
+    ws = torch.empty(max(gemm_bwd_group_plan(ops, bn, splits, schedule)[1], 4),
+                     dtype=torch.float32, device=dev)
+    outs = [torch.empty((a.shape[1], b.shape[1]), dtype=torch.bfloat16, device=dev)
+            for a, b in ops]
+    n = len(ops)
+    fn = cuda_build.load("mlp_block_bwd").sky_gemm_sm90_bwd_group
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_int] + [ctypes.POINTER(ctypes.c_void_p)] * 3
+                       + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p] + [ctypes.c_int] * 3
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    ptrs = lambda ts: (ctypes.c_void_p * n)(*(t.data_ptr() for t in ts))  # noqa: E731
+    dims = (ctypes.c_int * (3 * n))(*(v for _, M, N, K in shapes for v in (M, N, K)))
+    with torch.cuda.device(dev):
+        err = fn(n, ptrs(a for a, _ in ops), ptrs(b for _, b in ops), ptrs(outs), dims,
+                 ws.data_ptr(), bn, splits, SCHEDULES.get(schedule, 0),
+                 torch.cuda.current_stream().cuda_stream)
+    cuda_build.check(err, "sky_gemm_sm90_bwd_group")
+    gemm_bwd_group.launches += 1
+    return outs
+
+
+gemm_bwd_group.launches = 0
 
 
 def gemm_dual_plain(y, w1, b1, g, w2):

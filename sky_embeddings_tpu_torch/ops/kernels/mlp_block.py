@@ -392,6 +392,22 @@ def _split_ws(lib: str, entry: str, device: int, *dims: int) -> int:
     return n
 
 
+SCRATCH_ALIGN = 256  # bytes between the pieces of one scratch allocation
+
+
+@functools.lru_cache(maxsize=64)
+def scratch_layout(sizes: tuple[int, ...]) -> tuple[int, tuple[int, ...]]:
+    """(bytes, offsets) of pieces of ``sizes`` bytes carved from one
+    allocation, each SCRATCH_ALIGN-aligned (the TMA maps and the stream-K
+    slots want 16): the TP backward halves take their scratch so, in one
+    ``torch.empty`` a call."""
+    offs, n = [], 0
+    for size in sizes:
+        offs.append(n)
+        n += -(-max(size, 4) // SCRATCH_ALIGN) * SCRATCH_ALIGN
+    return n, tuple(offs)
+
+
 def _launch_bwd(entry, dt, x, scale, bias, w1, b1, w2, a, g, fs=None):
     """Kernel 8 (``a`` None: fc1 recomputed from ``b1``), kernel 7 (the stash
     ``a``) or, with a slab width ``fs``, kernel 9 on CUDA tensors, each in
@@ -680,21 +696,24 @@ def mlp_block_tp_bwd(x, scale, bias, w1, b1, w2, g):
         return mlp_block_tp_bwd_plain(x, scale, bias, w1, b1, w2, g)
     dt = _check_cuda_args(x, scale, bias, w1, b1, w2, kernel="kernel 8 TP")
     _check_g(x, g)
+    check_ln_held(x)
     B, N, D = x.shape
     F = w1.shape[1]
     M = B * N
-    parts = -(-M // ROWS_PER_PARTIAL)
+    es = x.element_size()
     f32 = dict(dtype=torch.float32, device=x.device)
     op = dict(dtype=dt, device=x.device)
-    y, dy = torch.empty((M, D), **op), torch.empty((M, D), **f32)
-    da, h = torch.empty((M, F), **op), torch.empty((M, F), **op)
-    part = torch.empty(parts * (F + 3 * D), **f32)
+    # the scratch (y (M, D); da_c, h_c (M, F); part; ws) from one allocation
+    n_ws = _split_ws("mlp_block_bwd", _f32("sky_mlp_block_bwd", dt) + "_ws", x.device.index,
+                     M, D, F, F)
+    nbytes, offs = scratch_layout((M * D * es, M * F * es, M * F * es,
+                                   -(-M // ROWS_PER_PARTIAL) * (F + 3 * D) * 4, n_ws * 4))
+    base = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
+    y, da, h, part, ws = (base.data_ptr() + o for o in offs)
+    dy = torch.empty((M, D), **f32)
     dw1, db1, dw2 = torch.empty((D, F), **op), torch.empty(F, **f32), torch.empty((F, D), **op)
-    ws_entry = _f32("sky_mlp_block_bwd", dt) + "_ws"
-    ws = torch.empty(max(_split_ws("mlp_block_bwd", ws_entry, x.device.index, M, D, F, F), 4),
-                     **f32)
-    ptrs = [t.data_ptr() for t in (x, scale, bias, w1, b1, w2, g, y, da, h, dy, part, ws,
-                                   dw1, db1, dw2)]
+    ptrs = [*(t.data_ptr() for t in (x, scale, bias, w1, b1, w2, g)), y, da, h,
+            dy.data_ptr(), part, ws, *(t.data_ptr() for t in (dw1, db1, dw2))]
     entry = _f32("sky_mlp_block_tp_bwd", dt)
     with torch.cuda.device(x.device):
         err = _entry("mlp_block_bwd", entry, len(ptrs), 4)(
@@ -710,12 +729,25 @@ mlp_block_tp_bwd.f32_launches = 0
 mlp_block_tp_bwd.finish_launches = 0
 
 
+# the widest row the bf16 TP backward forms' LN and LN backward hold in
+# registers (csrc/common.cuh LN_REG_CHUNKS * 256: ViT-H's 1 280)
+LN_HELD_MAX = 5 * 256
+
+
+def check_ln_held(x) -> None:
+    """Refuse a bf16 row wider than the TP backward forms' LN holds."""
+    if x.dtype == torch.bfloat16 and x.shape[-1] > LN_HELD_MAX:
+        raise ValueError(f"D={x.shape[-1]}: the bf16 TP backward forms hold LN rows of at most "
+                         f"{LN_HELD_MAX} elements in registers")
+
+
 def _bwd_finish(lib: str, entry: str, x, scale, bias, g, dy):
     """``(dx, dscale, dbias, dbout)`` of :func:`tp_bwd_finish_plain` by
     ``entry`` of ``lib`` (or its fp32 form) on CUDA tensors."""
     B, N, D = x.shape
     M = B * N
     _check_g(x, g)
+    check_ln_held(x)
     if tuple(dy.shape) != (M, D) or dy.dtype != torch.float32 or not dy.is_contiguous():
         raise ValueError(f"dy: want a contiguous {(M, D)} fp32 tensor, got {tuple(dy.shape)}")
     if tuple(scale.shape) != (D,) or scale.dtype != torch.float32:

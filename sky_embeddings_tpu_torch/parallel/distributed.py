@@ -4,7 +4,10 @@
 JAX runs one process per host and lays a global batch over every device of
 a mesh; the CUDA idiom is one process per GPU. So a run of N processes is N
 ranks, rank r on ``cuda:<r % torch.cuda.device_count()>`` (several hosts of
-8 GPUs each: ranks 0-7 on the first host, 8-15 on the second, ...). Each
+8 GPUs each: ranks 0-7 on the first host, 8-15 on the second, ...): the
+rank's local rank on its host wherever every host has the same GPU count,
+as the launcher's jobs across hosts do (``cluster/queue_gpu``:
+``SKY_PROCESS_ID = node_rank x gpus + local_rank``). Each
 rank feeds its own ``H5Batcher`` shard (``process_count`` /
 ``process_index``) with the per-process batch, and the trainers wrap their
 model in ``DistributedDataParallel``, whose gradient averaging stands for

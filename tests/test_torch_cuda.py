@@ -1296,13 +1296,13 @@ def _bwd_operands(dev, form, M, N, K, seed):
     return a, b, c
 
 
-def _check_bwd(dev, form, epi, M, N, K, bn=0, splits=0, seed=0):
+def _check_bwd(dev, form, epi, M, N, K, bn=0, splits=0, seed=0, schedule=None):
     a, b, c = _bwd_operands(dev, form, M, N, K, seed)
-    out = tg.gemm_bwd(a, b, form, epi, c, bn=bn, splits=splits)
+    out = tg.gemm_bwd(a, b, form, epi, c, bn=bn, splits=splits, schedule=schedule)
     want = tg.gemm_bwd_plain(a, b, form, epi, c)
     assert out.shape == (M, N) and out.dtype == want.dtype
     assert _max_rel(out, want) <= (TOL_FWD if epi == "store" else TOL_F32)
-    again = tg.gemm_bwd(a, b, form, epi, c, bn=bn, splits=splits)
+    again = tg.gemm_bwd(a, b, form, epi, c, bn=bn, splits=splits, schedule=schedule)
     torch.cuda.synchronize()
     assert torch.equal(out, again)
 
@@ -1466,6 +1466,58 @@ def test_sm90_backward_plan_equals_its_python_copy(dev, sms):
         want = tg.bwd_plan(shapes, sms)
         assert plan == want, (shapes, sms)
         assert ws == tg.bwd_workspace(shapes, want), (shapes, sms)
+
+
+# the stream-K schedule: the tensor-parallel ranks' groups at jepa_struct's
+# ViT-S shard (kernel 4 TP's dWqkv_r, dWproj_r; kernel 8 TP's dW1_r, dW2_r
+# over 16 384 tokens), jepa_struct's whole kernel 3 and 8 groups, and
+# ragged groups
+STREAM_K_GROUPS = [
+    [(384, 576, 16384), (192, 384, 16384)], [(384, 768, 16384), (768, 384, 16384)],
+    [(384, 1152, 16384), (384, 384, 16384)], [(384, 1536, 16384), (1536, 384, 16384)],
+    [(200, 136, 585), (72, 24, 1000)], [(264, 392, 3003)], [(8, 8, 100), (16, 8, 33)],
+]
+
+
+@pytest.mark.parametrize("bn", (0, *tg.BNS))
+@pytest.mark.parametrize("case", range(len(STREAM_K_GROUPS)))
+def test_sm90_stream_k_group_matches_plain(dev, case, bn):
+    """A group of weight gradients in one launch under stream-K (forced; bn
+    0: the plan's width), each CTA's run of (tile, slab) iterations crossing
+    tiles, the owners adding the partials: within TOL_FWD of the plain
+    version and of the plain walk, twice bit-equal; the C plan's workspace
+    and schedule equal the Python copy's."""
+    gen = torch.Generator(device=dev).manual_seed(case * 7 + bn)
+    ops = [(torch.randn(K, M, generator=gen, device=dev).to(torch.bfloat16),
+            torch.randn(K, N, generator=gen, device=dev).to(torch.bfloat16))
+           for M, N, K in STREAM_K_GROUPS[case]]
+    shapes = [(tg.KIND_TN_SPLIT, M, N, K) for M, N, K in STREAM_K_GROUPS[case]]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan, ws = tg.gemm_bwd_group_plan(ops, bn=bn, schedule="stream_k")
+    want_plan = tg.bwd_plan_forced(shapes, sms, bn=bn, schedule="stream_k")
+    assert plan == want_plan and ws == tg.bwd_workspace(shapes, want_plan)
+    got = tg.gemm_bwd_group(ops, bn=bn, schedule="stream_k")
+    walk = tg.gemm_bwd_stream_k_plain([(a.cpu(), b.cpu()) for a, b in ops], plan.bn, plan.ctas)
+    for o, w, p in zip(got, walk, tg.gemm_bwd_group_plain(ops)):
+        assert o.dtype == torch.bfloat16 and o.shape == p.shape
+        assert _max_rel(o, p) <= TOL_FWD and _max_rel(o, w.to(dev)) <= TOL_FWD
+    again = tg.gemm_bwd_group(ops, bn=bn, schedule="stream_k")
+    torch.cuda.synchronize()
+    assert all(torch.equal(a_, b_) for a_, b_ in zip(got, again))
+
+
+@pytest.mark.parametrize("schedule", ["split", "stream_k"])
+@pytest.mark.parametrize("M,N,K", [(200, 136, 585), (384, 576, 16384), (8, 8, 64)])
+def test_sm90_weight_gradient_under_each_schedule(dev, M, N, K, schedule):
+    """One weight gradient through ``gemm_bwd`` with its schedule forced,
+    against its plain version; twice bit-equal; the plans the group entry
+    names are the Python copy's at the TP forms' groups."""
+    _check_bwd(dev, "tn", "store", M, N, K, seed=M + K, schedule=schedule)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for shapes in ([(1, 384, 576, 16384), (1, 192, 384, 16384)],
+                   [(1, 384, 768, 16384), (1, 768, 384, 16384)]):
+        plan, ws = tg.bwd_plan_cuda(shapes, sms)
+        assert plan == tg.bwd_plan(shapes, sms) and ws == tg.bwd_workspace(shapes, plan)
 
 
 @pytest.mark.parametrize("B,N,D,F,fs", [(3, 17, 64, 256, None), (9, 65, 128, 512, None),

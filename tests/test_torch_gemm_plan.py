@@ -18,9 +18,18 @@ the card, ViT-H's and kernel 9's slabs included. The I-JEPA configs
 (``jepa_struct``, ``jepa_1`` in bf16, ``jepa_tiny`` in fp32) are held the
 same way at every block they run: the target encoder over the full grid,
 the context encoder over its fixed context budget and the narrow predictor
-over the context plus one target block (``_jepa_blocks``).
+over the context plus one target block (``_jepa_blocks``). The group
+plan's stream-K schedule (``gemm.stream_k_segments``, its plain walk
+``gemm.gemm_bwd_stream_k_plain``): the deal covers every (tile, slab) of a
+group once, each CTA's run in one piece a tile, walked from its last; each
+tile's pieces sum in one fixed order (the owner, the CTA with the last slab,
+adding its predecessors' partials in CTA order); the walk equals
+``gemm_bwd_plain`` within fp32 rounding at the tensor-parallel ranks' ViT-S
+groups and at ragged ones; the plan picks it at those groups and at none of
+the card sweep's shapes, and sizes its flags and slots.
 """
 
+import importlib.util
 import math
 from pathlib import Path
 
@@ -200,9 +209,14 @@ from sky_embeddings_tpu_torch.ops.kernels.mlp_block import _stream_slab  # noqa:
 
 
 def _bwd_cost_all(shapes):
-    """Every candidate's modelled cost, for the within-a-sixteenth check."""
+    """Every candidate's modelled cost, for the within-a-sixteenth check:
+    each tile width and split count, and stream-K at each width where it
+    may run."""
     splits = G.SPLIT_CANDIDATES if any(s[0] == G.KIND_TN_SPLIT for s in shapes) else (1,)
-    return [G._bwd_cost(shapes, bn, sp, G.H100_SMS)[0] for bn in G.BNS for sp in splits]
+    costs = [G._bwd_cost(shapes, bn, sp, G.H100_SMS)[0] for bn in G.BNS for sp in splits]
+    if G.stream_k_fits(shapes):
+        costs += [G._streamk_plan(shapes, bn, G.H100_SMS).cost for bn in G.BNS]
+    return costs
 
 
 def _assert_bwd_sound(shapes):
@@ -210,15 +224,26 @@ def _assert_bwd_sound(shapes):
     assert plan.bn in G.BNS
     may_split = any(s[0] == G.KIND_TN_SPLIT for s in shapes)
     assert plan.splits in (G.SPLIT_CANDIDATES if may_split else (1,))
-    units, ws = 0, 0
-    for kind, M, N, K in shapes:
-        nk = math.ceil(K / G.BK)
-        sp, chunk = G.split_count(nk, plan.splits) if kind == G.KIND_TN_SPLIT else (1, nk)
-        assert 1 <= sp <= max(G.SPLIT_CANDIDATES) and (sp - 1) * chunk < nk <= sp * chunk
-        units += math.ceil(M / G.BM) * math.ceil(N / plan.bn) * sp
-        ws += sp * M * N if sp > 1 else 0
-    assert plan.units == units
-    assert G.bwd_workspace(shapes, plan) == ws
+    if plan.schedule == "stream_k":
+        # the (tile, slab) iterations, dealt to at most one CTA an SM, each
+        # with two flags and a 128 x BN slot
+        assert G.stream_k_fits(shapes) and plan.splits == 1
+        assert plan.units == sum(math.ceil(M / G.BM) * math.ceil(N / plan.bn) * math.ceil(K / G.BK)
+                                 for _, M, N, K in shapes)
+        assert plan.ctas in G.stream_k_grids(shapes, plan.bn)
+        grid = plan.ctas
+        assert G.bwd_workspace(shapes, plan) == math.ceil(2 * grid / 64) * 64 + grid * G.BM * plan.bn
+    else:
+        assert plan.schedule == "split"
+        units, ws = 0, 0
+        for kind, M, N, K in shapes:
+            nk = math.ceil(K / G.BK)
+            sp, chunk = G.split_count(nk, plan.splits) if kind == G.KIND_TN_SPLIT else (1, nk)
+            assert 1 <= sp <= max(G.SPLIT_CANDIDATES) and (sp - 1) * chunk < nk <= sp * chunk
+            units += math.ceil(M / G.BM) * math.ceil(N / plan.bn) * sp
+            ws += sp * M * N if sp > 1 else 0
+        assert plan.units == units and plan.ctas == min(units, G.H100_SMS)
+        assert G.bwd_workspace(shapes, plan) == ws
     stage_bytes = G.BM * G.BK * 2 + G.BK * plan.bn * 2
     out_bytes = G.BM * plan.bn * 2  # the staged output tile
     stages = (plan.smem - out_bytes - G.SMEM_EXTRA) // stage_bytes
@@ -227,17 +252,19 @@ def _assert_bwd_sound(shapes):
     assert plan.cost * 15 <= min(_bwd_cost_all(shapes)) * 16
 
 
-def _config_bwd_groups(name: str):
+def _config_bwd_groups(name: str, batches=None):
     """Kernel 8's two launches at every MLP block a shipped config trains
     (the encoder; an MAE model's decoder too), at one image, the config's
-    batch and 1024; kernel 9's slabs where JAX streams the block."""
+    batch and 1024 (or ``batches``, None the config's batch); kernel 9's
+    slabs where JAX streams the block."""
     cfg = load_config(name, str(CONFIGS))
     arch, training = cfg["ARCHITECTURE"], cfg["TRAINING"]
     grid = arch.int("img_size") // arch.int("patch_size")
     n_tok = grid * grid + 1 + int(arch.bool("ra_dec", False))
     D = arch.int("embed_dim")
     out = []
-    for B in (1, training.int("batch_size"), 1024):
+    for B in batches or (1, training.int("batch_size"), 1024):
+        B = B or training.int("batch_size")
         widths = [(B * n_tok, D)]
         if not MODEL_TYPES[arch.str("model_type")][1]:
             widths.append((B * (grid * grid + 1), DECODER_D))
@@ -310,7 +337,7 @@ GROUP_SWEEP_FASTEST = {
 def test_bwd_plan_picks_the_fastest_weight_gradient_group_of_the_card_sweep(case):
     shapes, want = GROUP_SWEEP_FASTEST[case]
     plan = G.bwd_plan(shapes)
-    assert (plan.bn, plan.splits) == want
+    assert (plan.bn, plan.splits, plan.schedule) == (*want, "split")
 
 
 def test_bwd_plan_at_tiny_and_ragged_shapes():
@@ -545,17 +572,18 @@ def test_attn_bwd_groups_are_the_launches_of_kernels_3_and_4(M, D):
     assert sorted(_attn_source_groups(M, D)) == sorted(s for g in groups for s in g)
 
 
-def _config_attn_groups(name: str):
+def _config_attn_groups(name: str, batches=None):
     """Kernels 3 and 4's group launches at every attention block a shipped
     config trains (the encoder; an MAE model's decoder too), at one image,
-    the config's batch and 1024."""
+    the config's batch and 1024 (or ``batches``, None the config's batch)."""
     cfg = load_config(name, str(CONFIGS))
     arch, training = cfg["ARCHITECTURE"], cfg["TRAINING"]
     grid = arch.int("img_size") // arch.int("patch_size")
     n_tok = grid * grid + 1 + int(arch.bool("ra_dec", False))
     D = arch.int("embed_dim")
     out = []
-    for B in (1, training.int("batch_size"), 1024):
+    for B in batches or (1, training.int("batch_size"), 1024):
+        B = B or training.int("batch_size")
         out += G.attn_bwd_groups(B * n_tok, D)
         if not MODEL_TYPES[arch.str("model_type")][1]:
             out += G.attn_bwd_groups(B * (grid * grid + 1), DECODER_D)
@@ -799,3 +827,235 @@ def test_f32_plan_at_tiny_and_ragged_shapes():
         _assert_f32_sound(form, M, N, K)
     assert G.f32_plan(4, 8, 4).units == 1
     assert G.f32_plan(768, 768, 16896).splits == 1  # a product without a workspace stays whole
+
+
+# ---- the stream-K schedule of the weight-gradient group ----------------------------
+
+# the tensor-parallel ranks' groups at tensor_parallel = 2: kernel 4 TP's
+# dWqkv_r (D, 3 Dl) and dWproj_r (Dl, D), kernel 8 TP's dW1_r (D, F_r) and
+# dW2_r (F_r, D), over K = B N tokens
+def _tp_groups(B, N, D, H, F, tp=2):
+    Dl, Fl, M = D // tp, F // tp, B * N
+    return {"4 TP": [(G.KIND_TN_SPLIT, D, 3 * Dl, M), (G.KIND_TN_SPLIT, Dl, D, M)],
+            "8 TP": [(G.KIND_TN_SPLIT, D, Fl, M), (G.KIND_TN_SPLIT, Fl, D, M)]}
+
+
+VIT_S_TP = _tp_groups(256, 64, 384, 6, 1536)  # jepa_struct's encoder shard
+MIM_32_TP = _tp_groups(32, 66, 1024, 16, 4096)
+RAGGED_GROUPS = {
+    "ragged pair": [(G.KIND_TN_SPLIT, 200, 136, 585), (G.KIND_TN_SPLIT, 72, 24, 1000)],
+    "ragged one": [(G.KIND_TN_SPLIT, 264, 392, 3003)],
+    "few slabs": [(G.KIND_TN_SPLIT, 8, 8, 100), (G.KIND_TN_SPLIT, 16, 8, 33)],
+}
+
+
+def _walk_shapes(name):
+    return VIT_S_TP[name[6:]] if name.startswith("vit_s ") else RAGGED_GROUPS[name]
+
+
+def _deals(name, bn):
+    """The CTA counts the walk tests take at width bn: both of the plan's
+    deals on 132 SMs (where there is one in step with the tiles) and the
+    crossing deal on 7."""
+    shapes = _walk_shapes(name)
+    aligned, crossing = G.stream_k_grids(shapes, bn)
+    return [g for g in (aligned, crossing, G.stream_k_grids(shapes, bn, 7)[1]) if g]
+
+
+WALK_CASES = [(name, bn, grid) for name in [*(f"vit_s {k}" for k in VIT_S_TP), *RAGGED_GROUPS]
+              for bn in G.BNS for grid in _deals(name, bn)]
+
+
+@pytest.mark.parametrize("name,bn,grid", WALK_CASES)
+def test_stream_k_walk_covers_every_tile_slab_once(name, bn, grid):
+    """Every (problem, tile, slab) of the group falls in exactly one piece;
+    a CTA's pieces are its run [g W / grid, (g + 1) W / grid), one a tile,
+    walked from its last down; a CTA holds at most one piece without its
+    tile's last slab, and it is the first it walks; under the deal in step
+    with the tiles every run lies inside one tile, its slice's K the same
+    as every other tile's CTA of that slice."""
+    shapes = _walk_shapes(name)
+    tiles, W = G._stream_k_tiles(shapes, bn)
+    nk = {i: math.ceil(K / G.BK) for i, (_, _, _, K) in enumerate(shapes)}
+    runs = G.stream_k_segments(shapes, bn, grid)
+    assert len(runs) == grid
+    first = {(i, tile): t0 for i, tile, t0, _ in tiles}
+    seen = np.zeros(W, dtype=np.int64)
+    for g, run in enumerate(runs):
+        flat = [(first[(i, t)] + kb0, first[(i, t)] + kb1) for i, t, kb0, kb1 in run]
+        assert flat[0][1] == (g + 1) * W // grid and flat[-1][0] == g * W // grid
+        assert all(a[0] == b[1] for a, b in zip(flat, flat[1:]))  # contiguous, descending
+        assert len({(i, t) for i, t, _, _ in run}) == len(run)
+        partial = [k for k, (i, _, _, kb1) in enumerate(run) if kb1 < nk[i]]
+        assert partial in ([], [0])
+        for lo, hi in flat:
+            seen[lo:hi] += 1
+    assert (seen == 1).all()
+    if grid == G.stream_k_grids(shapes, bn)[0]:
+        per = grid // len(tiles)
+        assert all(len(run) == 1 for run in runs)
+        assert all(runs[g][0][2:] == runs[g % per][0][2:] for g in range(grid))
+
+
+@pytest.mark.parametrize("name,bn,grid", WALK_CASES)
+def test_stream_k_sums_each_tile_in_one_fixed_order(name, bn, grid):
+    """A tile's pieces, taken in CTA order, are consecutive slab ranges from
+    slab 0; the last belongs to the owner, whose contributors are exactly
+    the CTAs from the one holding the tile's first slab to the one before
+    the owner: the order the kernel adds their partials in."""
+    shapes = _walk_shapes(name)
+    tiles, W = G._stream_k_tiles(shapes, bn)
+    runs = G.stream_k_segments(shapes, bn, grid)
+    by_tile = {}
+    for g, run in enumerate(runs):
+        for i, t, kb0, kb1 in run:
+            by_tile.setdefault((i, t), []).append((g, kb0, kb1))
+    for i, t, t0, nk in tiles:
+        pieces = sorted(by_tile[(i, t)])
+        assert pieces[0][1] == 0 and pieces[-1][2] == nk
+        assert all(a[2] == b[1] for a, b in zip(pieces, pieces[1:]))
+        owner = pieces[-1][0]
+        assert [g for g, _, _ in pieces] == list(range(G._cta_of(t0, grid, W), owner + 1))
+
+
+def _tn_ops(shapes, seed):
+    rng = np.random.default_rng(seed)
+    return [(torch.from_numpy(rng.standard_normal((K, M), dtype=np.float32)).to(torch.bfloat16),
+             torch.from_numpy(rng.standard_normal((K, N), dtype=np.float32)).to(torch.bfloat16))
+            for _, M, N, K in shapes]
+
+
+@pytest.mark.parametrize("name", [*(f"vit_s {k}" for k in VIT_S_TP), *RAGGED_GROUPS])
+def test_stream_k_plain_walk_equals_gemm_bwd_plain(name):
+    """The walk under the plan's stream-K deal (forced where the plan keeps
+    the split schedule), summed in fp32, against ``aᵀ @ b`` in fp32 within
+    fp32 rounding (the piece sums and their order are all that differ);
+    rounded to bf16, within one bf16 ulp of the largest; twice bit-equal;
+    and the group's plain version is ``gemm_bwd_plain``'s."""
+    torch.set_num_threads(1)
+    shapes = _walk_shapes(name)
+    ops = _tn_ops(shapes, 26)
+    plan = G.bwd_plan_forced(shapes, schedule="stream_k")
+    got = G.gemm_bwd_stream_k_plain(ops, plan.bn, plan.ctas, out_dtype=torch.float32)
+    again = G.gemm_bwd_stream_k_plain(ops, plan.bn, plan.ctas, out_dtype=torch.float32)
+    for (a, b), o, o2, plain in zip(ops, got, again, G.gemm_bwd_group_plain(ops)):
+        want = a.float().t() @ b.float()
+        scale = float(want.abs().max())
+        assert float((o - want).abs().max()) <= 2e-6 * scale * math.sqrt(a.shape[0] / 64)
+        assert torch.equal(o, o2)
+        assert float((o.to(torch.bfloat16).float() - plain.float()).abs().max()) <= scale * 2 ** -7
+        assert torch.equal(plain, G.gemm_bwd_plain(a, b, "tn", "store"))
+    rounded = G.gemm_bwd_stream_k_plain(ops, plan.bn, plan.ctas)
+    assert all(r.dtype == torch.bfloat16 and torch.equal(r, o.to(torch.bfloat16))
+               for r, o in zip(rounded, got))
+
+
+@pytest.mark.parametrize("form", sorted(VIT_S_TP))
+def test_bwd_plan_picks_stream_k_at_the_tp_vit_s_groups(form):
+    """At jepa_struct's ViT-S shard (M = 16 384 tokens; 13 to 36 tiles) the
+    plan takes stream-K in step with the tiles (126 and 120 CTAs), modelled
+    well under the best split candidate's (8 slices at 4 TP: 315; 4 slices
+    at 8 TP: 485) and under the deal that crosses tiles; at mim_32's shard,
+    whose tiles cut in two fill the card, the split schedule stays."""
+    shapes = VIT_S_TP[form]
+    plan = G.bwd_plan(shapes)
+    old = G.split_plan(shapes)
+    assert plan.schedule == "stream_k" and old.schedule == "split"
+    assert plan.ctas == G.stream_k_grids(shapes, plan.bn)[0] == {"4 TP": 126, "8 TP": 120}[form]
+    assert plan.cost * 16 < old.cost * 15
+    assert plan.cost < {"4 TP": 315, "8 TP": 485}[form]
+    crossing = G._streamk_cost(shapes, plan.bn, G.stream_k_grids(shapes, plan.bn)[1])[0]
+    assert plan.cost < crossing
+    assert G.bwd_plan(MIM_32_TP[form]).schedule == "split"
+    _assert_bwd_sound(shapes)
+
+
+@pytest.mark.parametrize("name", [*(f"vit_s {k}" for k in VIT_S_TP), *RAGGED_GROUPS])
+def test_bwd_workspace_covers_the_stream_k_flags_and_slots(name):
+    """Under stream-K the workspace holds two flags a CTA (padded to 64
+    floats) and a 128 x BN fp32 slot for every CTA that keeps a partial,
+    each consumer's half at its own offset, with none past the end."""
+    shapes = _walk_shapes(name)
+    for bn in G.BNS:
+        plan = G.bwd_plan_forced(shapes, bn=bn, schedule="stream_k")
+        runs = G.stream_k_segments(shapes, bn, plan.ctas)
+        grid = len(runs)
+        ws = G.bwd_workspace(shapes, plan)
+        flags = math.ceil(2 * grid / 64) * 64
+        nk = [math.ceil(K / G.BK) for *_, K in shapes]
+        keepers = [g for g, run in enumerate(runs) if run[0][3] < nk[run[0][0]]]
+        assert flags >= 2 * grid and all(g < grid for g in keepers)
+        assert ws >= flags + (max(keepers, default=-1) + 1) * G.BM * bn
+        assert ws == flags + grid * G.BM * bn
+
+
+def test_bwd_plan_forced_follows_the_c_rules():
+    """Forcing: splits > 0 or "split" the split schedule, "stream_k" the
+    stream-K one at the plan's width or a forced one; a width outside
+    {256, 192, 128} and stream-K for a group with a product that is not a
+    weight gradient refused."""
+    shapes = VIT_S_TP["4 TP"]
+    plan = G.bwd_plan(shapes)
+    assert G.bwd_plan_forced(shapes) == plan
+    two = G.bwd_plan_forced(shapes, splits=2)
+    assert (two.schedule, two.splits, two.bn) == ("split", 2, plan.bn)
+    assert two.units == G._bwd_cost(shapes, plan.bn, 2, G.H100_SMS)[1]
+    one = G.bwd_plan_forced(shapes, schedule="split")
+    assert (one.schedule, one.splits) == ("split", 1)
+    sk = G.bwd_plan_forced(shapes, bn=256, schedule="stream_k")
+    assert (sk.schedule, sk.bn) == ("stream_k", 256)
+    assert sk.cost == G._streamk_cost(shapes, 256, sk.ctas)[0]
+    assert sk.ctas in G.stream_k_grids(shapes, 256)
+    mixed = [(G.KIND_NT, 128, 128, 64), (G.KIND_TN_SPLIT, 128, 128, 64)]
+    with pytest.raises(ValueError, match="weight gradients"):
+        G.bwd_plan_forced(mixed, schedule="stream_k")
+    with pytest.raises(ValueError, match="bn"):
+        G.bwd_plan_forced(shapes, bn=64)
+    assert not G.stream_k_fits(mixed) and not G.stream_k_fits(MIM_32_TP["8 TP"])
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _main_path_groups():
+    """Every weight-gradient group the bf16 block kernels launch where a
+    shipped config trains (its batch: the encoder, an MAE decoder, an
+    I-JEPA predictor) and on chip_smoke.py's bf16 bench and TP shapes."""
+    cs = _chip_smoke()
+    groups = []
+    for name in MIM_CONFIGS:
+        groups += _config_bwd_groups(name, (None,))[1::2] + _config_attn_groups(name, (None,))[2::3]
+    for name in JEPA_CONFIGS:
+        batch = load_config(name, str(CONFIGS))["TRAINING"].int("batch_size")
+        for M, D in _jepa_blocks(name, (batch,)):
+            groups += [G.mlp_bwd_groups(M, D, _stream_slab(D, 4 * D))[1], G.attn_bwd_groups(M, D)[2]]
+    for label, B, N, D, H, F, dt in cs.JEPA_SHAPES:
+        if dt == "bfloat16":
+            groups += [G.mlp_bwd_groups(B * N, D, F)[1], G.attn_bwd_groups(B * N, D)[2]]
+    groups += BENCH_BWD[1::2] + BENCH_ATTN_BWD[2::3]
+    for _, B, N, D, H, F, _ in cs.TP_SHAPES:
+        groups += list(_tp_groups(B, N, D, H, F).values())
+    return cs, groups
+
+
+def test_every_main_path_group_that_takes_stream_k_is_timed_on_the_card():
+    """Wherever the group plan leaves the split schedule's plan for
+    stream-K on a path the card runs, chip_smoke.py's phase 5l times that
+    group under both (TP_GROUPS), so that a reading of stream-K slower than
+    the split plan shows; every TP_GROUPS group is such a group, or the
+    one control that keeps the split plan."""
+    cs, groups = _main_path_groups()
+    timed = {tuple(dims) for _, dims in cs.TP_GROUPS}
+    flipped = {tuple((M, N, K) for _, M, N, K in shapes) for shapes in groups
+               if G.bwd_plan(shapes) != G.split_plan(shapes)}
+    assert all(kind == G.KIND_TN_SPLIT for shapes in groups for kind, *_ in shapes)
+    assert flipped and not flipped - timed, sorted(flipped - timed)
+    kept = timed - flipped
+    assert [label for label, dims in cs.TP_GROUPS if tuple(dims) in kept] == ["kernel 8 jepa_struct"]
+    for dims in kept:
+        assert G.bwd_plan([(G.KIND_TN_SPLIT, *d) for d in dims]).schedule == "split"

@@ -412,6 +412,22 @@ def test_tp_autograd_functions_take_the_plain_forms_on_cpu():
             assert torch.allclose(p.grad, q.grad, atol=1e-5), kind
 
 
+@pytest.mark.parametrize("D,dtype,refused", [(1280, torch.bfloat16, False),
+                                             (1288, torch.bfloat16, True),
+                                             (1536, torch.float32, False)])
+def test_tp_backward_forms_refuse_bf16_rows_wider_than_their_ln_holds(D, dtype, refused):
+    """The bf16 TP backward halves and finishes hold an LN row in registers
+    (ViT-H's D = 1 280 at most); a wider bf16 row is refused before any
+    launch, the fp32 forms take any width."""
+    x = torch.zeros(1, 2, D, dtype=dtype)
+    if refused:
+        with pytest.raises(ValueError, match="at most 1280"):
+            tmb.check_ln_held(x)
+    else:
+        tmb.check_ln_held(x)
+    assert tab.check_ln_held is tmb.check_ln_held
+
+
 # -- ranks -----------------------------------------------------------------------------
 
 def _jax_steps(jcfg, params, batches, maskings, simmim: bool):

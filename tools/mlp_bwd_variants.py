@@ -131,7 +131,7 @@ def build(name: str) -> ctypes.CDLL:
         raise SystemExit(f"nvcc failed for variant {name}:\n{proc.stdout}{proc.stderr}")
     lib = ctypes.CDLL(str(d / "lib.so"))
     lib.sky_gemm_sm90_dual.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    lib.sky_gemm_sm90_bwd.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    lib.sky_gemm_sm90_bwd.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     lib.sky_gemm_sm90_dual.restype = lib.sky_gemm_sm90_bwd.restype = ctypes.c_int
     return lib
 
@@ -195,9 +195,9 @@ def main() -> int:
             for name, lib in libs.items():
                 if name == "two_launch":
                     fc1 = lambda: lib.sky_gemm_sm90_bwd(y.data_ptr(), w1t.data_ptr(), None, a32.data_ptr(),
-                                                        ws.data_ptr(), 1, 4, M, F, D, 0, 0, stream)
+                                                        ws.data_ptr(), 1, 4, M, F, D, 0, 0, 0, stream)
                     dh = lambda: lib.sky_gemm_sm90_bwd(g.data_ptr(), w2.data_ptr(), None, a32.data_ptr(),
-                                                       ws.data_ptr(), 1, 9, M, F, D, 0, 0, stream)
+                                                       ws.data_ptr(), 1, 9, M, F, D, 0, 0, 0, stream)
                     if fc1() or dh():
                         raise SystemExit("two_launch: launch failed")
                     torch.cuda.synchronize()

@@ -125,6 +125,8 @@ def shrink() -> None:
     cs.TP_SHAPES = (("mim_32", 2, 17, 48, 12, 192, 0), ("mae", 2, 20, 48, 12, 192, 5),
                     ("jepa_struct", 4, 16, 384, 6, 1536, 0))
     cs.TP_LEGS = (("mim_tiny", 2), ("z_tiny", 2), ("jepa_struct", 2), ("mae_tiny", 2))
+    cs.TP_GROUPS = (("4 TP small", ((48, 72, 300), (24, 48, 300))),
+                    ("8 TP small", ((48, 96, 300), (96, 48, 300))))
     cs.TP_CKPT = ("mim_tiny", "jepa_struct")
     cs.TOL_TP = dict.fromkeys(("mim_tiny", "z_tiny", "jepa_struct", "mae_tiny"),
                               (1e-1, 1e-1, 1e-1))
@@ -189,6 +191,9 @@ class _Profile:
     def key_averages(self):
         return []
 
+    def events(self):
+        return []
+
 
 class _Props:
     multi_processor_count = 132
@@ -218,7 +223,15 @@ def stub() -> list:
     cs.subprocess.run = fake_run
     cuda_build.build = lambda *_, **__: {}
     tg.gemm_encode_us = lambda *_, **__: 0.0
-    tg.bwd_plan_cuda = lambda shapes, sms=132, splits=0: (tg.bwd_plan(shapes, sms), 0)
+
+    def bwd_plan_cuda(shapes, sms=132, splits=0, bn=0, schedule=None):
+        plan = tg.bwd_plan_forced(shapes, sms, bn, splits, schedule)
+        return plan, tg.bwd_workspace(shapes, plan)
+
+    tg.bwd_plan_cuda = bwd_plan_cuda
+    tg.gemm_bwd_group_plan = lambda ops, bn=0, splits=0, schedule=None: bwd_plan_cuda(
+        [(tg.KIND_TN_SPLIT, a.shape[1], b.shape[1], a.shape[0]) for a, b in ops], 132, splits, bn,
+        schedule)
 
     def launch_fwd(x, scale, bias, wqkv, bqkv, wproj, bproj, H, stash=False, seg_len=0):
         out, qkv, probs = tab.attn_block_fwd_stash_plain(x, scale, bias, wqkv, bqkv, wproj, bproj,
