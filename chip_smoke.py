@@ -620,8 +620,13 @@ DP_WORKER = [os.path.abspath(__file__), "--dp-worker"]
 # context budget alike); both ranks' halves in one process, the partials
 # summed, then finished (TOL_FWD, TOL_BWD; the comparisons' launches
 # uncounted), each form timed on one rank's shard at the TP_TIMED shapes
-# in bf16. Then TP_RANKS processes at tensor_parallel = 2 (--tp-worker;
-# gloo on one card, NCCL across cards) take TP_LEGS (config, steps) as
+# in bf16. At jepa_struct's shard K2 TP's bf16 forward half takes the fused
+# kernel: each rank's twice bit-equal and bit-equal to its chain, timed
+# beside it; the C path rule equals its Python mirror at every TP_SHAPES
+# shape and every bf16 leg's split-block shape; the chains' held-row LN
+# gives the multi-pass LN's bits at LN_WIDTHS. Then TP_RANKS
+# processes at tensor_parallel = 2 (--tp-worker; gloo on one card, NCCL
+# across cards) take TP_LEGS (config, steps) as
 # shipped: mim_32 at full depth and width (ViT-L, remat, RA/Dec, bf16, B =
 # 32), the predictor's bf16 ft and fp32 lp, mim_tiny in fp32 (the fp32
 # backward forms), jepa_struct (ViT-S depth 12, 5 bands, the 192-wide
@@ -631,6 +636,11 @@ DP_WORKER = [os.path.abspath(__file__), "--dp-worker"]
 TP_SHAPES = (("mim_32", 32, 66, 1024, 16, 4096, 0), ("mae", 32, 68, 768, 12, 3072, 17),
              ("jepa_struct", 256, 64, 384, 6, 1536, 0))
 TP_TIMED = ("mim_32", "jepa_struct")
+# the launches of a bf16 forward half in each form (csrc/attn_block_tp.cu,
+# csrc/mlp_block.cu), and the widths at which the held-row LN of the TP
+# forms is compared with the whole blocks' multi-pass LN
+TP_HALF_LAUNCHES = {"attn_block_tp": {"fused": 1, "chain": 4}, "mlp_block_tp": {"chain": 3}}
+LN_WIDTHS = (384, 768, 1024, 1280)
 TP_RANKS = 2
 TP_LEGS = (("mim_32", 3), ("z_struct_ft_512", 3), ("lp_1", 3), ("mim_tiny", 3),
            ("jepa_struct", 3), ("mae_tiny", 3))
@@ -1851,14 +1861,16 @@ def kernel_counters():
     f32_counters = (fused_attn_block, fused_mlp_block, attn_block_fwd_stash, attn_block_bwd_stash,
                     mlp_block_bwd, attn_block_bwd, mlp_block_fwd_stash, mlp_block_bwd_stash,
                     mlp_block_bwd_stream, *tp)
-    return counters, seg_counters, f32_counters, tp
+    fused_counters = (attn_block_tp_fwd,)
+    return counters, seg_counters, f32_counters, tp, fused_counters
 
 
 def counter_fns():
     """``(zero_counters, launch_counts)`` over :func:`kernel_counters`; the
     tensor-parallel forms' finishes (their second C entry, after the
-    all-reduce) as ``<form>_finish``."""
-    counters, seg_counters, f32_counters, finish_counters = kernel_counters()
+    all-reduce) as ``<form>_finish``, K2 TP's fused forward launches as
+    ``<form>_fused``."""
+    counters, seg_counters, f32_counters, finish_counters, fused_counters = kernel_counters()
 
     def zero_counters():
         for fn in counters:
@@ -1869,12 +1881,15 @@ def counter_fns():
             fn.f32_launches = 0
         for fn in finish_counters:
             fn.finish_launches = 0
+        for fn in fused_counters:
+            fn.fused_launches = 0
 
     def launch_counts():
         return {**{f.__name__: f.launches for f in counters},
                 **{f.__name__ + "_seg": f.seg_launches for f in seg_counters},
                 **{f.__name__ + "_f32": f.f32_launches for f in f32_counters},
-                **{f.__name__ + "_finish": f.finish_launches for f in finish_counters}}
+                **{f.__name__ + "_finish": f.finish_launches for f in finish_counters},
+                **{f.__name__ + "_fused": f.fused_launches for f in fused_counters}}
 
     return zero_counters, launch_counts
 
@@ -2351,13 +2366,18 @@ def _block_tally(tr, tp):
     inside the forward once the backward has its tensors: so a pre-hook
     counts them) and, through a hook on the output's gradient, the backward
     passes (each a backward kernel launch), with the packed-segment ones
-    apart. Returns the tally and the hooks' handles."""
+    apart, and the split blocks' forwards whose rank shapes take K2 TP's
+    fused bf16 half (``attn_block.tp_fwd_path``).
+    Returns the tally, the hooks' handles and the set of the split blocks'
+    rank shapes ``(B, N, D, Dl, local heads, F_r, seg_len, dtype)``."""
     from sky_embeddings_tpu_torch.models.layers import Block
+    from sky_embeddings_tpu_torch.ops.kernels import attn_block as ab
     from sky_embeddings_tpu_torch.parallel.sharding import split_blocks
 
     tally = {f"{kind}_{what}": 0 for kind in ("split", "whole")
              for what in ("fwd", "fwd_seg", "bwd", "bwd_seg")}
-    handles = []
+    tally.update(split_fwd_fused_attn=0)
+    shapes, handles = set(), []
 
     def seg_of(args):
         return int(len(args) > 2 and 0 < args[2] < args[0].shape[1])
@@ -2366,6 +2386,13 @@ def _block_tally(tr, tp):
         def before(mod, args):  # remat's replay stops inside the forward: counted here
             tally[f"{kind}_fwd"] += 1
             tally[f"{kind}_fwd_seg"] += seg_of(args)
+            if kind == "split":
+                B, N, D = args[0].shape
+                Hl, hd = mod.num_heads // tp, D // mod.num_heads
+                Fl, seg = mod.ffn.fc1_kernel.shape[1] // tp, args[2] if len(args) > 2 else 0
+                shapes.add((B, N, D, Hl * hd, Hl, Fl, seg, str(mod.dtype)))
+                tally["split_fwd_fused_attn"] += ab.tp_fwd_path(N, D, Hl * hd, Hl, seg,
+                                                                mod.dtype) == "fused"
 
         def after(mod, args, out):
             if out.requires_grad:
@@ -2381,7 +2408,7 @@ def _block_tally(tr, tp):
             if isinstance(b, Block):
                 before, after = hooks("split" if name in split else "whole")
                 handles += [b.register_forward_pre_hook(before), b.register_forward_hook(after)]
-    return tally, handles
+    return tally, handles, shapes
 
 
 def _tp_steps(tr, batches, zero_counters, launch_counts):
@@ -2522,11 +2549,13 @@ def tp_worker(spec_path: str) -> int:
     return 0
 
 
-def _tp_timers(name, x, scale, bias, g, w, s0, errs, B, N, D, Hl, Fl, hd, seg):
+def _tp_timers(name, x, scale, bias, g, w, s0, errs, B, N, D, Hl, Fl, hd, seg, fused):
     """:func:`tp_kernels`'s timers of one form: ``(key, operations, bytes,
-    kernel call, plain call, (max-rel, max-abs))`` for its forward and its
-    backward, one rank's work on its shard ``s0`` (its half and its
-    finish): its products and core, and what it must move."""
+    kernel call, plain call, (max-rel, max-abs), chain call)`` for its
+    forward and its backward, one rank's work on its shard ``s0`` (its half
+    and its finish): its products and core, and what it must move. Where
+    the bf16 forward half takes the fused kernel (``fused``) its key ends in
+    ``_fused`` and the chain forced at the same shape is timed beside it."""
     from sky_embeddings_tpu_torch.ops.kernels import attn_block as ab
     from sky_embeddings_tpu_torch.ops.kernels import mlp_block as mb
 
@@ -2539,6 +2568,7 @@ def _tp_timers(name, x, scale, bias, g, w, s0, errs, B, N, D, Hl, Fl, hd, seg):
         b_ops = 22 * M * D * Dl + 10 * core
         w_bytes = 4 * D * Dl * 2
         half = lambda: ab.attn_block_tp_fwd(x, scale, bias, *s0, Hl, seg)  # noqa: E731
+        chain = lambda: ab.attn_block_tp_fwd_chain(x, scale, bias, *s0, Hl, seg)  # noqa: E731
         half_b = lambda: ab.attn_block_tp_bwd(x, scale, bias, *s0, g, Hl, seg)  # noqa: E731
         finish, finish_b = ab.attn_block_tp_finish, ab.attn_block_tp_bwd_finish
         plain_h = lambda: ab.attn_block_tp_fwd_plain(x, scale, bias, *s0, Hl, seg)  # noqa: E731
@@ -2547,6 +2577,7 @@ def _tp_timers(name, x, scale, bias, g, w, s0, errs, B, N, D, Hl, Fl, hd, seg):
         f_ops, b_ops = 4 * M * D * Fl, 10 * M * D * Fl
         w_bytes = 2 * D * Fl * 2
         half = lambda: mb.mlp_block_tp_fwd(x, scale, bias, *s0)  # noqa: E731
+        chain = None  # K1 TP's bf16 half is its chain at every shape
         half_b = lambda: mb.mlp_block_tp_bwd(x, scale, bias, *s0, g)  # noqa: E731
         finish, finish_b = mb.mlp_block_tp_finish, mb.mlp_block_tp_bwd_finish
         plain_h = lambda: mb.mlp_block_tp_fwd_plain(x, scale, bias, *s0)  # noqa: E731
@@ -2556,23 +2587,28 @@ def _tp_timers(name, x, scale, bias, g, w, s0, errs, B, N, D, Hl, Fl, hd, seg):
     # and dy written, dy read, dx written
     f_bytes = 2 * M * D * 2 + w_bytes + 2 * M * D * 4
     b_bytes = 3 * M * D * 2 + 2 * w_bytes + 2 * M * D * 4
-    return ((name + "_fwd", f_ops, f_bytes, lambda: finish(x, half(), w[3]),
-             lambda: mb.tp_finish_plain(x, plain_h(), w[3]), (fwd_err[0], fwd_err[1])),
+    return ((name + "_fwd" + "_fused" * fused, f_ops, f_bytes, lambda: finish(x, half(), w[3]),
+             lambda: mb.tp_finish_plain(x, plain_h(), w[3]), (fwd_err[0], fwd_err[1]),
+             (lambda: finish(x, chain(), w[3])) if fused else None),
             (name + "_bwd", b_ops, b_bytes, lambda: finish_b(x, scale, bias, g, half_b()[0]),
              lambda: mb.tp_bwd_finish_plain(x, scale, bias, g, plain_hb()[0]),
-             (worst, max(a for _, a in bwd_err.values()))))
+             (worst, max(a for _, a in bwd_err.values())), None))
 
 
 def tp_kernels(dev, timings, cuda_ms, rel_err, bound_ms):
     """Phase 5l's kernel checks: at each TP_SHAPES shape, in bf16 and fp32,
     both ranks' halves of each TP form on their shards, the partials summed
     (the all-reduce's sum) and finished, against the plain whole block
-    (TOL_FWD, TOL_BWD per output). Returns the max-rel per form and case
-    and a function that times, at each TP_TIMED shape in bf16, each form on
-    one rank's shard (its half and its finish) beside its plain version,
-    with the bound of one rank's products and core and the bytes it must
-    move, into ``timings``: :func:`tp_phase` calls it once its ranks are
-    done."""
+    (TOL_FWD, TOL_BWD per output), with the form each bf16 forward half
+    takes (the C path rule equal to its Python mirror) and, where that is
+    the fused kernel, each rank's fused half twice bit-equal and bit-equal
+    to its chain forced at the same shape; the held-row LN against the
+    multi-pass LN, bit for bit, at LN_WIDTHS. Returns the gaps per form and
+    case and a function that times, at each TP_TIMED shape in bf16, each
+    form on one rank's shard (its half and its finish) beside its plain
+    version (and a fused forward beside its chain), with the bound of one
+    rank's products and core and the bytes it must move, into ``timings``:
+    :func:`tp_phase` calls it once its ranks are done."""
     import torch
 
     from sky_embeddings_tpu_torch.ops.kernels import attn_block as ab
@@ -2600,18 +2636,33 @@ def tp_kernels(dev, timings, cuda_ms, rel_err, bound_ms):
                       lambda w: ab.attn_block_tp_fwd(x, scale, bias, *w, Hl, seg),
                       lambda o, p_, b_: ab.attn_block_tp_finish(o, p_, b_),
                       lambda w: ab.attn_block_tp_bwd(x, scale, bias, *w, g, Hl, seg),
-                      ab.attn_block_tp_bwd_finish, (H, seg)),
+                      ab.attn_block_tp_bwd_finish, (H, seg),
+                      lambda w: ab.attn_block_tp_fwd_chain(x, scale, bias, *w, Hl, seg),
+                      (ab.tp_fwd_path(N, D, Dl, Hl, seg, dt),
+                       ab.tp_fwd_path_cuda(B, N, D, Dl, Hl, seg))),
                      ("mlp_block_tp", mlp, cols_rule, mb.mlp_block_plain, mb.mlp_block_bwd_plain,
                       lambda w: mb.mlp_block_tp_fwd(x, scale, bias, *w),
                       lambda o, p_, b_: mb.mlp_block_tp_finish(o, p_, b_),
                       lambda w: mb.mlp_block_tp_bwd(x, scale, bias, *w, g),
-                      mb.mlp_block_tp_bwd_finish, ()))
-            for name, w, rule, plain_fwd, plain_bwd, half, finish, half_bwd, finish_bwd, extra in forms:
+                      mb.mlp_block_tp_bwd_finish, (),
+                      None, ("chain", None)))
+            for (name, w, rule, plain_fwd, plain_bwd, half, finish, half_bwd, finish_bwd, extra,
+                 chain, (path, c_path)) in forms:
                 if name == "mlp_block_tp" and seg:
                     continue  # the MLP is per token: no mask
                 shards = [[shard_tensor(t, r_, k, TP_RANKS) for t, r_ in zip(w[:3], rule)]
                           for k in range(TP_RANKS)]
-                out = finish(x, sum(half(s_) for s_ in shards), w[3])
+                parts = [half(s_) for s_ in shards]
+                out = finish(x, sum(parts), w[3])
+                if dt == torch.bfloat16 and c_path is not None:
+                    check(path == c_path, f"{name} {tag}: the C path rule ({c_path}) equals its "
+                          f"mirror ({path})")
+                fused_eq = None
+                if path == "fused":  # each rank's fused half twice, and its chain
+                    fused_eq = all(torch.equal(p_, half(s_)) and torch.equal(p_, chain(s_))
+                                   for p_, s_ in zip(parts, shards))
+                    check(fused_eq, f"{name} {tag}: each rank's fused half twice bit-equal and "
+                          "bit-equal to its chain")
                 want = plain_fwd(x, scale, bias, *w, *extra)
                 halves = [half_bwd(s_) for s_ in shards]
                 grads = finish_bwd(x, scale, bias, g, sum(h_[0] for h_ in halves))
@@ -2627,62 +2678,82 @@ def tp_kernels(dev, timings, cuda_ms, rel_err, bound_ms):
                     bool(torch.isfinite(a.float()).all()) for a in got_g)
                 dname = "bf16" if dt == torch.bfloat16 else "fp32"
                 print(f"tp parity {name} {tag} {dname} (B={B}, N={N}, D={D}, {Hl} local heads of "
-                      f"{hd}, F/tp={Fl}, seg_len={seg}): forward max-rel {fwd_err[0]:.3e} (bar "
-                      f"{TOL_FWD}), backward max-rel per output "
+                      f"{hd}, F/tp={Fl}, seg_len={seg}): forward half {path} ("
+                      f"{TP_HALF_LAUNCHES[name][path] if dname == 'bf16' else 'fp32 chain'}), "
+                      f"fused twice and chain bit-equal {fused_eq}, forward max-rel "
+                      f"{fwd_err[0]:.3e} (bar {TOL_FWD}), backward max-rel per output "
                       + ", ".join(f"{r_:.2e}" for r_, _ in bwd_err.values())
                       + f" (bar {TOL_BWD}), finite {finite}", flush=True)
                 check(finite and fwd_err[0] <= TOL_FWD and worst <= TOL_BWD,
                       f"{name} {tag} {dname}: the TP form against the unsharded plain block")
-                gaps[f"{name}_{tag}_{dname}"] = {"fwd": fwd_err[0], "bwd": worst}
+                gaps[f"{name}_{tag}_{dname}"] = {"fwd": fwd_err[0], "bwd": worst, "path": path,
+                                                 "fused_bit_equal": fused_eq}
                 if tag not in TP_TIMED or dt != torch.bfloat16:
                     continue
                 timers.extend((tag, t_) for t_ in _tp_timers(
                     name, x, scale, bias, g, w, shards[0], (fwd_err, bwd_err, worst), B, N, D, Hl,
-                    Fl, hd, seg))
+                    Fl, hd, seg, path == "fused"))
             torch.cuda.empty_cache()
+    gaps["ln_held_vs_multi_pass"] = {}
+    for D in LN_WIDTHS:  # the TP chains' LN against the whole blocks'
+        x = (torch.randn(4096, D, generator=gen, device=dev) * 3 + 0.25).to(torch.bfloat16)
+        scale = 1 + 0.1 * torch.randn(D, generator=gen, device=dev)
+        bias = 0.1 * torch.randn(D, generator=gen, device=dev)
+        held = mb.layernorm_cuda(x, scale, bias, True)
+        multi = mb.layernorm_cuda(x, scale, bias, False)
+        same = bool(torch.equal(held, multi))
+        differ = int((held != multi).sum())
+        gaps["ln_held_vs_multi_pass"][str(D)] = {"bit_equal": same, "elements_differing": differ}
+        print(f"tp LN bits at D={D} (4 096 rows): held-row LN bit-equal to the multi-pass LN "
+              f"{same} ({differ} elements differ)", flush=True)
+        check(same, f"D={D}: the held-row LN gives the multi-pass LN's bits")
 
     def time_forms():
         """The timings, run once the card is otherwise idle."""
-        for tag, (key, ops, nbytes, kern_fn, plain_fn, (rel, abs_err)) in timers:
+        for tag, (key, ops, nbytes, kern_fn, plain_fn, (rel, abs_err), chain_fn) in timers:
             b_ms, b_by = bound_ms(ops, nbytes, PEAK_BF16)
             timings[(key, tag)] = {
                 "max_rel_err": rel, "max_abs_err": abs_err, "ms": cuda_ms(kern_fn, 20),
                 "plain_ms": cuda_ms(plain_fn, 5), "bound_ms": b_ms, "bound_by": b_by,
                 "library_ms": None}
+            if chain_fn is not None:
+                timings[(key, tag)]["chain_ms"] = cuda_ms(chain_fn, 20)
         timers.clear()
 
     return gaps, time_forms
 
 
-def _by_launch(fn, reps=20, tries=3):
-    """Device µs of each launch of one call of ``fn``, in launch order, by
-    torch.profiler: the host's launch calls in the trace say how many
-    launches a call makes, the last reps x that many device records (late
-    in this long process a trace can carry a record of the session before
-    it) are cut into ``reps`` equal runs and averaged by position. A trace
-    short of records is taken again, ``tries`` times in all; None when none
-    holds them all."""
+def _by_launch(fn, reps=20):
+    """Device µs a call of each kernel of ``fn``, by name in order of first
+    launch, and its launches a call, by torch.profiler over ``reps`` calls:
+    ``[name, µs, launches]``, a kernel's mean over its records times its
+    launches a call (the whole number nearest its records over ``reps``: a
+    trace can miss a call's records, or carry one of the session before
+    it). None when the trace holds no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    launch_calls = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cudaMemsetAsync")
     fn()
     torch.cuda.synchronize()
-    for _ in range(tries):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        events = prof.events()
-        per = sum(e.name in launch_calls for e in events) // reps
-        evs = sorted((e for e in events if str(getattr(e, "device_type", "")).endswith("CUDA")
-                      and not getattr(e, "is_user_annotation", False)),
-                     key=lambda e: e.time_range.start)
-        if per and len(evs) >= per * reps:
-            evs = evs[len(evs) - per * reps:]
-            return [[evs[i].name[:90], sum(evs[r * per + i].time_range.elapsed_us()
-                                           for r in range(reps)) / reps] for i in range(per)]
-    return None
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows, first = {}, {}
+    for e in prof.events():
+        if not str(getattr(e, "device_type", "")).endswith("CUDA") or getattr(
+                e, "is_user_annotation", False):
+            continue
+        row = rows.setdefault(e.name[:90], [0.0, 0])
+        row[0] += e.time_range.elapsed_us()
+        row[1] += 1
+        first[e.name[:90]] = min(first.get(e.name[:90], e.time_range.start), e.time_range.start)
+    out = []
+    for name in sorted(rows, key=first.get):
+        total, count = rows[name]
+        per = max(1, round(count / reps))
+        out.append([name, total / count * per, per])
+    return out or None
 
 
 def tp_stream_k(dev, cuda_ms, rel_err):
@@ -2692,10 +2763,11 @@ def tp_stream_k(dev, cuda_ms, rel_err):
     - the C group plan (``gemm.bwd_plan_cuda``) against its Python mirror
       (``gemm.bwd_plan``) at each TP_SHAPES shape's two groups: the same
       schedule, tile width, units, CTAs and workspace;
-    - each half and its finish at the TP_TIMED shapes in bf16, on one
-      rank's shard, launch by launch (device µs by torch.profiler), their
-      sum, the call's CUDA-event ms and the host µs a call to enqueue;
-      "paced" host where the event time is more than 1.5x the device sum;
+    - each half (forward and backward) and its finish at the TP_TIMED
+      shapes in bf16, on one rank's shard, kernel by kernel (device µs and
+      launches a call by torch.profiler), their sums, the call's CUDA-event
+      ms and the host µs a call to enqueue; "paced" host where the event
+      time is more than 1.5x the device sum;
     - each TP_GROUPS group alone (``gemm.gemm_bwd_group``) against its
       plain version (TOL_FWD) and twice bit-equal under its plan, and its
       device time under the plan, the split schedule at the width of
@@ -2759,21 +2831,29 @@ def tp_stream_k(dev, cuda_ms, rel_err):
         attn = (rnd(D, 3 * Dl, s=D ** -0.5, dt=bf), rnd(3 * Dl, s=0.01),
                 rnd(Dl, D, s=D ** -0.5, dt=bf))
         mlp = (rnd(D, Fl, s=D ** -0.5, dt=bf), rnd(Fl, s=0.01), rnd(Fl, D, s=Fl ** -0.5, dt=bf))
-        calls = {"attn_block_tp_bwd": lambda: ab.attn_block_tp_bwd_finish(
+        b_out = rnd(D, s=0.01)
+        calls = {"attn_block_tp_fwd": lambda: ab.attn_block_tp_finish(
+                     x, ab.attn_block_tp_fwd(x, scale, bias, *attn, Hl, seg), b_out),
+                 "attn_block_tp_fwd_chain": lambda: ab.attn_block_tp_finish(
+                     x, ab.attn_block_tp_fwd_chain(x, scale, bias, *attn, Hl, seg), b_out),
+                 "mlp_block_tp_fwd": lambda: mb.mlp_block_tp_finish(
+                     x, mb.mlp_block_tp_fwd(x, scale, bias, *mlp), b_out),
+                 "attn_block_tp_bwd": lambda: ab.attn_block_tp_bwd_finish(
                      x, scale, bias, g, ab.attn_block_tp_bwd(x, scale, bias, *attn, g, Hl, seg)[0]),
                  "mlp_block_tp_bwd": lambda: mb.mlp_block_tp_bwd_finish(
                      x, scale, bias, g, mb.mlp_block_tp_bwd(x, scale, bias, *mlp, g)[0])}
         for name, fn in calls.items():
             rows = _by_launch(fn)
-            dev_sum = sum(us for _, us in rows) if rows else None
+            dev_sum = sum(r_[1] for r_ in rows) if rows else None
             ev = cuda_ms(fn, 50)
             rec = {"launches": rows, "device_sum_us": dev_sum, "event_ms": ev,
                    "host_us": host_us(fn),
                    "paced": None if dev_sum is None else
                    ("host" if ev * 1e3 > 1.5 * dev_sum else "device")}
             print(f"tp breakdown {name} {tag}: event {ev:.4f} ms, device sum {dev_sum} us, host "
-                  f"{rec['host_us']:.1f} us a call, paced {rec['paced']}; "
-                  + ", ".join(f"{n.split('(')[0][-40:]} {us:.2f}" for n, us in rows or []),
+                  f"{rec['host_us']:.1f} us a call, paced {rec['paced']}, launches "
+                  f"{sum(r_[2] for r_ in rows or [])}; "
+                  + ", ".join(f"{n.split('(')[0][-40:]} {us:.2f} x{k}" for n, us, k in rows or []),
                   flush=True)
             out["breakdown"][f"{name}_{tag}"] = rec
         torch.cuda.empty_cache()
@@ -2798,7 +2878,7 @@ def tp_stream_k(dev, cuda_ms, rel_err):
         times = {}
         for c, kw in cases.items():
             rows = _by_launch(lambda: gemm.gemm_bwd_group(ops, **kw))
-            times[c] = sum(us for _, us in rows) / 1e3 if rows else "not measured"
+            times[c] = sum(r_[1] for r_ in rows) / 1e3 if rows else "not measured"
         old_key = f"split {old.splits}"
         no_slower = (None if plan.schedule != "stream_k"
                      or any(isinstance(times[k], str) for k in ("plan", old_key))
@@ -2813,6 +2893,28 @@ def tp_stream_k(dev, cuda_ms, rel_err):
               f"slower than the split schedule's plan {no_slower}", flush=True)
         del ops, got, again
         torch.cuda.empty_cache()
+    return out
+
+
+def tp_rules_at_leg_shapes(ones) -> dict:
+    """K2 TP's bf16 forward path rule as the C source computes it against
+    its Python mirror at every rank shape a TP leg's split blocks took
+    (phase 5l's one-process tallies): the same form at each."""
+    import torch
+
+    from sky_embeddings_tpu_torch.ops.kernels import attn_block as ab
+
+    out = {}
+    for cfg_name, one in ones.items():
+        for B, N, D, Dl, Hl, Fl, seg, dt in one["shapes"]:
+            if dt != "torch.bfloat16":
+                continue
+            got = ab.tp_fwd_path_cuda(B, N, D, Dl, Hl, seg)
+            want = ab.tp_fwd_path(N, D, Dl, Hl, seg, torch.bfloat16)
+            key = f"{cfg_name} B={B} N={N} D={D} Hl={Hl} F_r={Fl} seg={seg}"
+            out[key] = {"c": got, "mirror": want}
+            print(f"tp path rule {key}: K2 TP C {got}, mirror {want}", flush=True)
+            check(got == want, f"{key}: the C path rule equals its Python mirror")
     return out
 
 
@@ -2866,11 +2968,11 @@ def tp_phase(dev, zero_counters, launch_counts, timings, cuda_ms, rel_err, bound
         for cfg_name, steps in TP_LEGS:
             tr = _tp_trainer(cfg_name, dev, 1)
             glob = _tp_data(cfg_name, steps, 24)
-            tally, handles = _block_tally(tr, TP_RANKS)
+            tally, handles, shapes = _block_tally(tr, TP_RANKS)
             leg, grads1 = _tp_steps(tr, glob, zero_counters, launch_counts)
             for h_ in handles:
                 h_.remove()
-            leg["tally"] = tally
+            leg["tally"], leg["shapes"] = tally, sorted(shapes)
             leg["whole"] = {k: {n: v.detach().clone() for n, v in sd.items()}
                             for k, sd in _tp_whole(tr).items()}
             leg["grads1"], leg["lr_sum"] = grads1, 2 * _lr_sum(tr, steps)
@@ -2932,7 +3034,8 @@ def tp_phase(dev, zero_counters, launch_counts, timings, cuda_ms, rel_err, bound
             want.update(attn_block_tp_fwd_seg=ty["split_fwd_seg"],
                         attn_block_tp_bwd_seg=ty["split_bwd_seg"],
                         fused_attn_block_seg=ty["whole_fwd_seg"],
-                        attn_block_bwd_seg=ty["whole_bwd_seg"])
+                        attn_block_bwd_seg=ty["whole_bwd_seg"],
+                        attn_block_tp_fwd_fused=ty["split_fwd_fused_attn"])
             for r, leg in enumerate(legs):
                 check(leg["losses"] == legs[0]["losses"], f"{cfg_name}: the ranks' losses equal")
                 check(leg["replicated_digests"] == legs[0]["replicated_digests"],
@@ -2977,6 +3080,7 @@ def tp_phase(dev, zero_counters, launch_counts, timings, cuda_ms, rel_err, bound
                 check(bar is None or got <= bar, f"{cfg_name}: {TP_RANKS} ranks against one process")
             check(keys <= one["lr_sum"] and (target_gap is None or target_gap[1] <= one["lr_sum"]),
                   f"{cfg_name}: key biases within twice the summed lr")
+        out["fwd_path_rules"] = tp_rules_at_leg_shapes(ones)
         out["restored"] = {}
         for name in TP_CKPT:
             steps = dict(TP_LEGS)[name]
@@ -5631,13 +5735,20 @@ def main() -> int:
                              "mlp_block_tp_fwd", "mim_32"),
         "mlp_block_tp_bwd": ("cuda", src + "csrc/mlp_block_bwd.cu", jsrc + "mlp_block.py:834",
                              "mlp_block_tp_bwd", "mim_32"),
+        # K2 TP's fused bf16 forward half (one launch at the ViT-S shard),
+        # timed at jepa_struct's shard; its launches are phase 5l's ranks' on
+        # jepa_struct, and the attn_block_tp_fwd row's are the others
+        "attn_block_tp_fwd_fused": ("cuda", src + "csrc/attn_block_tp.cu",
+                                    jsrc + "attn_block.py:899", "attn_block_tp_fwd_fused",
+                                    "jepa_struct"),
     }
     block_f32 = {n for n in meta if n.endswith("_f32") and not n.startswith("attention")}
     kernels = []
     for name, (route, source, replaces, counter, shape) in meta.items():
         t = timings[(name, shape)]
-        if "_tp_" in name:
-            by_path = {f"tp_{c}": r[counter] for c, r in tensor_parallel["launches"].items()}
+        if "_tp_" in name:  # a form's fused launches in its own row alone
+            by_path = {f"tp_{c}": r[counter] - r.get(counter + "_fused", 0)
+                       for c, r in tensor_parallel["launches"].items()}
         elif name in block_f32:
             by_path = {**{f"predictor_f32_{r}": v["launches"][counter]
                           for r, v in predictor_f32["routes"].items()},

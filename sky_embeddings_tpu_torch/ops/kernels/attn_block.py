@@ -544,7 +544,32 @@ fused_attn_block.f32_launches = 0
 # ``sky_attn_block_tp_bwd`` (kernel 4's launches at the rank's widths,
 # masked by ``seg_len``) then ``sky_attn_block_tp_bwd_finish``; all in
 # ``csrc/attn_block_tp.cu``, each with its fp32 form. The finishes count on
-# the form's ``finish_launches``.
+# the form's ``finish_launches``. The bf16 forward half is one fused launch
+# where :func:`tp_fwd_path` says so (the ViT-S shard), else a chain of four;
+# its fused launches also count on ``fused_launches``.
+
+# the fused bf16 forward half's shapes (csrc/attn_block_tp.cu
+# attn_tp_fused_ok): rows of TP_FUSED_D, heads of TP_FUSED_HD, at most
+# TP_FUSED_HEADS of them a rank, at most TP_FUSED_N tokens (one row block)
+TP_FUSED_D, TP_FUSED_HD, TP_FUSED_HEADS, TP_FUSED_N = 384, 64, 3, 64
+
+
+def tp_fwd_path(N: int, D: int, Dl: int, Hl: int, seg_len: int, dtype: torch.dtype) -> str:
+    """The form of K2 TP's forward half a shape takes on CUDA: ``"fused"``
+    (one launch, y, qkv and ctx kept on chip) or ``"chain"`` (LN, qkv, the
+    core, proj); fp32 takes its own chain. The Python copy of the C rule
+    (``sky_attn_block_tp_fwd_path``); it reads shapes only."""
+    fused = (dtype == torch.bfloat16 and D == TP_FUSED_D and 1 <= Hl <= TP_FUSED_HEADS
+             and Dl == TP_FUSED_HD * Hl and 0 < N <= TP_FUSED_N and not 0 < seg_len < N)
+    return "fused" if fused else "chain"
+
+
+def tp_fwd_path_cuda(B: int, N: int, D: int, Dl: int, Hl: int, seg_len: int) -> str:
+    """The bf16 rule as the C source computes it (builds ``lib attn_block_tp``)."""
+    fn = cuda_build.load("attn_block_tp").sky_attn_block_tp_fwd_path
+    fn.argtypes = [ctypes.c_int] * 6
+    fn.restype = ctypes.c_int
+    return "fused" if fn(B, N, D, Dl, Hl, seg_len) else "chain"
 
 
 def attn_block_tp_fwd_plain(x, scale, bias, wqkv, bqkv, wproj, num_heads: int,
@@ -608,36 +633,67 @@ def _check_tp_args(x, scale, bias, wqkv, bqkv, wproj, num_heads: int, core: str,
     return dt
 
 
-def attn_block_tp_fwd(x, scale, bias, wqkv, bqkv, wproj, num_heads: int, seg_len: int = 0):
-    """K2's TP form, the rank's half: the fp32 partial (B, N, D) as
-    :func:`attn_block_tp_fwd_plain`. CPU tensors take the plain version;
-    CUDA tensors launch ``sky_attn_block_tp_fwd`` (its fp32 form for fp32
-    operands, also counted on ``.f32_launches``; with packed segments on
-    ``.seg_launches``) or raise."""
-    if x.device.type == "cpu":
-        return attn_block_tp_fwd_plain(x, scale, bias, wqkv, bqkv, wproj, num_heads, seg_len)
+def _tp_fwd_launch(entry, x, scale, bias, wqkv, bqkv, wproj, num_heads, seg_len,
+                   chain: bool = False):
+    """``entry`` of ``lib attn_block_tp`` (the rank's forward half, or its
+    bf16 chain with ``chain``) on CUDA tensors: the fp32 partial (B, N, D),
+    carved with the chain's qkv (B·N, 3·Dl) and ctx (B·N, Dl) scratch from
+    one allocation; the fused half gets null scratch pointers, which the
+    chain refuses. Returns ``(part, dtype, path)``."""
+    check_ln_held(x)
     dt = _check_tp_args(x, scale, bias, wqkv, bqkv, wproj, num_heads, "fwd", seg_len)
     B, N, D = x.shape
     Dl = wqkv.shape[-1] // 3
-    qkv = torch.empty((B * N, 3 * Dl), dtype=dt, device=x.device)
-    ctx = torch.empty((B * N, Dl), dtype=dt, device=x.device)
-    part = torch.empty((B, N, D), dtype=torch.float32, device=x.device)
-    ptrs = [t.data_ptr() for t in (x, scale, bias, wqkv, bqkv, wproj, qkv, ctx, part)]
-    entry = _f32("sky_attn_block_tp_fwd", dt)
+    path = "chain" if chain else tp_fwd_path(N, D, Dl, num_heads, seg_len, dt)
+    M, es = B * N, x.element_size()
+    scratch = (M * 3 * Dl * es, M * Dl * es) if path == "chain" else ()
+    nbytes, offs = scratch_layout((M * D * 4, *scratch))
+    base = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
+    part = base[:M * D * 4].view(torch.float32).view(B, N, D)
+    ptrs = [*(t.data_ptr() for t in (x, scale, bias, wqkv, bqkv, wproj)),
+            *((base.data_ptr() + o for o in offs[1:]) if scratch else (None, None)),
+            part.data_ptr()]
+    entry = _f32(entry, dt)
     ints = (B, N, D, Dl, num_heads, seg_len)
     with torch.cuda.device(x.device):
         err = getattr(_lib("attn_block_tp", entry, len(ptrs), len(ints)), entry)(
             *ptrs, *ints, torch.cuda.current_stream().cuda_stream)
     cuda_build.check(err, entry)
+    return part, dt, path
+
+
+def attn_block_tp_fwd(x, scale, bias, wqkv, bqkv, wproj, num_heads: int, seg_len: int = 0):
+    """K2's TP form, the rank's half: the fp32 partial (B, N, D) as
+    :func:`attn_block_tp_fwd_plain`. CPU tensors take the plain version;
+    CUDA tensors launch ``sky_attn_block_tp_fwd`` (its fp32 form for fp32
+    operands, also counted on ``.f32_launches``; with packed segments on
+    ``.seg_launches``; the fused bf16 half, :func:`tp_fwd_path`, on
+    ``.fused_launches``) or raise."""
+    if x.device.type == "cpu":
+        return attn_block_tp_fwd_plain(x, scale, bias, wqkv, bqkv, wproj, num_heads, seg_len)
+    part, dt, path = _tp_fwd_launch("sky_attn_block_tp_fwd", x, scale, bias, wqkv, bqkv, wproj,
+                                    num_heads, seg_len)
     attn_block_tp_fwd.launches += 1
-    attn_block_tp_fwd.seg_launches += int(0 < seg_len < N)
+    attn_block_tp_fwd.seg_launches += int(0 < seg_len < x.shape[1])
     attn_block_tp_fwd.f32_launches += int(dt == torch.float32)
+    attn_block_tp_fwd.fused_launches += int(path == "fused")
     return part
+
+
+def attn_block_tp_fwd_chain(x, scale, bias, wqkv, bqkv, wproj, num_heads: int, seg_len: int = 0):
+    """The bf16 forward half's chain at any shape (``sky_attn_block_tp_fwd_chain``,
+    uncounted): the reference the card's checks hold the fused half to, bit
+    for bit."""
+    if x.dtype != torch.bfloat16 or x.device.type != "cuda":
+        raise ValueError("the chain is the bf16 CUDA form")
+    return _tp_fwd_launch("sky_attn_block_tp_fwd_chain", x, scale, bias, wqkv, bqkv, wproj,
+                          num_heads, seg_len, chain=True)[0]
 
 
 attn_block_tp_fwd.launches = 0
 attn_block_tp_fwd.seg_launches = 0
 attn_block_tp_fwd.f32_launches = 0
+attn_block_tp_fwd.fused_launches = 0
 attn_block_tp_fwd.finish_launches = 0
 
 

@@ -217,6 +217,80 @@ __device__ __forceinline__ void attn_fwd_issue(const bf16* __restrict__ qkv, bf1
   }
 }
 
+// A warp's 16 query rows q0.. of one head: S = Q K^T (Q from shared memory,
+// or, where Qs is null, from device memory at qg, rows D3 apart), the
+// softmax, and P rounded to bf16 and repacked as the A operand of P V (the
+// m16n8 accumulator layout of two neighbouring key tiles is the m16k16 A
+// layout). attn_core_kernel and the fused TP forward half
+// (attn_block_tp.cu) share it, and so their bits.
+template <int KT>
+__device__ __forceinline__ void attn_fwd_probs(const bf16* Qs, const bf16* qg, size_t D3,
+                                               const bf16* Ks, int HL, int nk, int q0, int N,
+                                               int hd, int seg_len, float scale, const Frag& f,
+                                               int lane, unsigned (&pa)[KT][4]) {
+  const int r0 = q0 + f.g;  // this lane's rows: r0, r0 + 8
+  float s[2 * KT][4];
+#pragma unroll
+  for (int j = 0; j < 2 * KT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+  for (int k0 = 0; k0 < hd; k0 += 16) {
+    unsigned a[4];
+    if (Qs) {
+      ldsm4(a, a_addr(Qs, HL, q0, k0, lane));
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = r0 + 8 * (e & 1), c = k0 + 2 * f.t + 8 * (e >> 1);
+        a[e] = r < N ? *reinterpret_cast<const unsigned*>(qg + (size_t)r * D3 + c) : 0u;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < KT; ++j) {
+      if (j < nk) {
+        unsigned kb[4];
+        ldsm4(kb, bn_addr(Ks, HL, 16 * j, k0, lane));
+        mma16816(s[2 * j], a, kb[0], kb[1]);
+        mma16816(s[2 * j + 1], a, kb[2], kb[3]);
+      }
+    }
+  }
+  softmax_rows<KT>(s, nk, r0, N, seg_len, scale, f);
+#pragma unroll
+  for (int j = 0; j < KT; ++j) {
+    pa[j][0] = pack_bf16(s[2 * j][0], s[2 * j][1]);
+    pa[j][1] = pack_bf16(s[2 * j][2], s[2 * j][3]);
+    pa[j][2] = pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]);
+    pa[j][3] = pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3]);
+  }
+}
+
+// o = P V over the head's columns c0 .. c0 + ATTN_CHUNK (V read through
+// ldmatrix.trans), in fp32
+template <int KT>
+__device__ __forceinline__ void attn_fwd_pv(const unsigned (&pa)[KT][4], const bf16* Vs, int HL,
+                                            int nk, int c0, int hd, int lane,
+                                            float (&o)[ATTN_CHUNK / 8][4]) {
+#pragma unroll
+  for (int j = 0; j < ATTN_CHUNK / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+#pragma unroll
+  for (int kc = 0; kc < KT; ++kc) {
+    if (kc < nk) {
+#pragma unroll
+      for (int jj = 0; jj < ATTN_CHUNK / 16; ++jj) {
+        if (c0 + 16 * jj < hd) {
+          unsigned vb[4];
+          ldsm4_t(vb, bk_addr(Vs, HL, 16 * kc, c0 + 16 * jj, lane));
+          mma16816(o[2 * jj], pa[kc], vb[0], vb[1]);
+          mma16816(o[2 * jj + 1], pa[kc], vb[2], vb[3]);
+        }
+      }
+    }
+  }
+}
+
 template <int KT>
 __global__ void __launch_bounds__(ATTN_MAX_THREADS)
 attn_core_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ ctx, bf16* __restrict__ probs,
@@ -257,43 +331,8 @@ attn_core_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ ctx, bf16* __r
     for (int tile = warp; tile < nk; tile += pl.NW) {
       const int q0 = 16 * tile;
       const int r0 = q0 + f.g;  // this lane's rows: r0, r0 + 8
-      float s[2 * KT][4];
-#pragma unroll
-      for (int j = 0; j < 2 * KT; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-      for (int k0 = 0; k0 < hd; k0 += 16) {
-        unsigned a[4];
-        if (Qs) {
-          ldsm4(a, a_addr(Qs, HL, q0, k0, lane));
-        } else {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int r = r0 + 8 * (e & 1), c = k0 + 2 * f.t + 8 * (e >> 1);
-            a[e] = r < N ? *reinterpret_cast<const unsigned*>(qg + (size_t)r * D3 + c) : 0u;
-          }
-        }
-#pragma unroll
-        for (int j = 0; j < KT; ++j) {
-          if (j < nk) {
-            unsigned kb[4];
-            ldsm4(kb, bn_addr(Ks, HL, 16 * j, k0, lane));
-            mma16816(s[2 * j], a, kb[0], kb[1]);
-            mma16816(s[2 * j + 1], a, kb[2], kb[3]);
-          }
-        }
-      }
-      softmax_rows<KT>(s, nk, r0, N, seg_len, scale, f);
-
-      // P rounded to bf16, repacked as the A operand of P V
       unsigned pa[KT][4];
-#pragma unroll
-      for (int j = 0; j < KT; ++j) {
-        pa[j][0] = pack_bf16(s[2 * j][0], s[2 * j][1]);
-        pa[j][1] = pack_bf16(s[2 * j][2], s[2 * j][3]);
-        pa[j][2] = pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]);
-        pa[j][3] = pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3]);
-      }
+      attn_fwd_probs<KT>(Qs, qg, D3, Ks, HL, nk, q0, N, hd, seg_len, scale, f, lane, pa);
       if (prow) {  // the stash: the same bf16 values, real rows and keys only
 #pragma unroll
         for (int j = 0; j < KT; ++j) {
@@ -318,24 +357,7 @@ attn_core_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ ctx, bf16* __r
       // ctx = P V in 64-column chunks of the head
       for (int c0 = 0; c0 < hd; c0 += ATTN_CHUNK) {
         float o[ATTN_CHUNK / 8][4];
-#pragma unroll
-        for (int j = 0; j < ATTN_CHUNK / 8; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
-#pragma unroll
-        for (int kc = 0; kc < KT; ++kc) {
-          if (kc < nk) {
-#pragma unroll
-            for (int jj = 0; jj < ATTN_CHUNK / 16; ++jj) {
-              if (c0 + 16 * jj < hd) {
-                unsigned vb[4];
-                ldsm4_t(vb, bk_addr(Vs, HL, 16 * kc, c0 + 16 * jj, lane));
-                mma16816(o[2 * jj], pa[kc], vb[0], vb[1]);
-                mma16816(o[2 * jj + 1], pa[kc], vb[2], vb[3]);
-              }
-            }
-          }
-        }
+        attn_fwd_pv<KT>(pa, Vs, HL, nk, c0, hd, lane, o);
 #pragma unroll
         for (int j = 0; j < ATTN_CHUNK / 8; ++j) {
           const int c = c0 + 8 * j + 2 * f.t;

@@ -256,6 +256,48 @@ inline int ln_chunks(int K) {
   return ch <= LN_REG_CHUNKS ? ch : 0;
 }
 
+// The held-row LN of one row of K, one warp: e[c] holds the row's
+// elements lane * 8 + 256 c .. + 7 (those below K) on entry and their
+// LN(x) * scale + bias on return, in fp32. The sums run over the lane's
+// chunks in order, then the warp. The bf16 TP forms' LN launch and K2 TP's
+// fused forward half (attn_block_tp.cu) share it.
+template <int CH>
+__device__ __forceinline__ void ln_row_held(float (&e)[CH][8], const float* __restrict__ scale,
+                                            const float* __restrict__ bias, int lane, int K) {
+  float s = 0.f;
+#pragma unroll
+  for (int c = 0; c < CH; ++c)
+    if (lane * 8 + 256 * c < K) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) s += e[c][j];
+    }
+  const float mu = warp_sum(s) / K;
+  float q = 0.f;
+#pragma unroll
+  for (int c = 0; c < CH; ++c)
+    if (lane * 8 + 256 * c < K) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float d = e[c][j] - mu;
+        q += d * d;
+      }
+    }
+  const float rstd = rsqrtf(warp_sum(q) / K + 1e-6f);
+#pragma unroll
+  for (int c = 0; c < CH; ++c) {
+    const int k = lane * 8 + 256 * c;
+    if (k >= K) continue;
+    float sc[8], bi[8];
+    load8(scale + k, sc);
+    load8(bias + k, bi);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float xhat = (e[c][j] - mu) * rstd;
+      e[c][j] = xhat * sc[j] + bi[j];
+    }
+  }
+}
+
 // y = LN(x) * scale + bias over rows of K (K % 8 == 0), fp32 stats; x and y
 // bf16 (y rounded) or fp32. The sums run over a lane's chunks in order,
 // then the warp, whether the row is held in registers (CH > 0) or read
@@ -274,39 +316,10 @@ layernorm_kernel(const T* __restrict__ x, const float* __restrict__ scale,
 #pragma unroll
     for (int c = 0; c < CH; ++c)
       if (lane * 8 + 256 * c < K) load8(xr + lane * 8 + 256 * c, e[c]);
-    float s = 0.f;
+    ln_row_held<CH>(e, scale, bias, lane, K);
 #pragma unroll
     for (int c = 0; c < CH; ++c)
-      if (lane * 8 + 256 * c < K) {
-#pragma unroll
-        for (int j = 0; j < 8; ++j) s += e[c][j];
-      }
-    const float mu = warp_sum(s) / K;
-    float q = 0.f;
-#pragma unroll
-    for (int c = 0; c < CH; ++c)
-      if (lane * 8 + 256 * c < K) {
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const float d = e[c][j] - mu;
-          q += d * d;
-        }
-      }
-    const float rstd = rsqrtf(warp_sum(q) / K + 1e-6f);
-#pragma unroll
-    for (int c = 0; c < CH; ++c) {
-      const int k = lane * 8 + 256 * c;
-      if (k >= K) continue;
-      float sc[8], bi[8], o[8];
-      load8(scale + k, sc);
-      load8(bias + k, bi);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float xhat = (e[c][j] - mu) * rstd;
-        o[j] = xhat * sc[j] + bi[j];
-      }
-      store8(yr + k, o);
-    }
+      if (lane * 8 + 256 * c < K) store8(yr + lane * 8 + 256 * c, e[c]);
   } else {
     float s = 0.f;
     for (int k = lane * 8; k < K; k += 256) {
@@ -383,7 +396,7 @@ inline cudaError_t launch_layernorm(const void* x, const void* scale, const void
   return cudaGetLastError();
 }
 
-// The LN of the bf16 tensor-parallel backward halves: the row held in
+// The LN of the bf16 tensor-parallel halves' chains: the row held in
 // registers; K > LN_REG_CHUNKS * 256 refused.
 inline cudaError_t launch_layernorm_held(const void* x, const void* scale, const void* bias,
                                          void* y, int M, int K, cudaStream_t stream) {

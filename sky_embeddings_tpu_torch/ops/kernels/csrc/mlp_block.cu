@@ -235,13 +235,16 @@ extern "C" long long sky_gemm_f32_ws(int M, int N, int K) {
 // K1 split at the all-reduce (parallel/sharding.py): a rank holds the
 // contiguous column block F_r = F / tp of W1 (w1_r (D, F_r), b1_r) and the
 // same rows of W2 (w2_r (F_r, D)). Entry sky_mlp_block_tp_fwd runs the
-// rank's half: LN of the replicated x (staged in `part`), h_r = bf16(GELU(y
-// @ w1_r + b1_r)) (M, F_r), then part = h_r @ w2_r in fp32 (EPI_STORE_F32).
-// The caller all-reduces `part` over the model group, and
+// rank's half: LN of the replicated x (staged in `part`; in bf16 the row
+// held in registers, common.cuh launch_layernorm_held, D <= 1 280), h_r =
+// bf16(GELU(y @ w1_r + b1_r)) (M, F_r), then part = h_r @ w2_r in fp32
+// (EPI_STORE_F32). The caller all-reduces `part` over the model group, and
 // sky_mlp_block_tp_finish adds b2 and the residual and rounds: out = bf16(x
 // + (sum + b2)), K1's EPI_BIAS_RESIDUAL order. A rank's bound: its 4 M D
 // F_r FLOP of products; the all-reduce moves 4 M D bytes. The fp32 forms
-// (_f32 entries) take the fp32 GEMM.
+// (_f32 entries) take the fp32 GEMM and the multi-pass LN. One launch that
+// keeps y and h on chip at the ViT-S shard was built and read slower than
+// these three (PERF.md section 6, "Tried and dropped").
 static int mlp_block_tp_fwd(const void* x, const void* ln_scale, const void* ln_bias,
                             const void* w1, const void* b1, const void* w2, void* h, void* part,
                             int M, int D, int F, bool fp32, void* stream) {
@@ -258,7 +261,7 @@ static int mlp_block_tp_fwd(const void* x, const void* ln_scale, const void* ln_
                                                        F, nullptr, s);
     return static_cast<int>(err);
   }
-  err = launch_layernorm(x, ln_scale, ln_bias, part, M, D, s);
+  err = launch_layernorm_held(x, ln_scale, ln_bias, part, M, D, s);
   if (err == cudaSuccess)
     err = sm90::launch_gemm_sm90<EPI_BIAS_GELU>(part, w1, b1, nullptr, h, nullptr, M, F, D, s);
   if (err == cudaSuccess)
@@ -277,6 +280,16 @@ extern "C" int sky_mlp_block_tp_fwd_f32(const void* x, const void* ln_scale, con
                                         const void* w1, const void* b1, const void* w2, void* h,
                                         void* part, int M, int D, int F, void* stream) {
   return mlp_block_tp_fwd(x, ln_scale, ln_bias, w1, b1, w2, h, part, M, D, F, true, stream);
+}
+
+// One LN launch over bf16 rows (M, K): the row held in registers (held != 0,
+// the TP forms' LN) or read once a pass (the whole blocks'), for the check
+// that compares their bits.
+extern "C" int sky_layernorm_bf16(const void* x, const void* scale, const void* bias, void* y,
+                                  int M, int K, int held, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(held ? sky::launch_layernorm_held(x, scale, bias, y, M, K, s)
+                               : sky::launch_layernorm(x, scale, bias, y, M, K, s));
 }
 
 // After the all-reduce: out = x + (part + b2), rounded to x's type.

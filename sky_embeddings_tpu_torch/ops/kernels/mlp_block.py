@@ -604,6 +604,27 @@ fused_mlp_block.f32_launches = 0  # those of the launches in fp32
 # fp32 form. The finishes count on the form's ``finish_launches``.
 
 
+def layernorm_cuda(x, scale, bias, held: bool) -> torch.Tensor:
+    """One bf16 LN launch over x's rows (``sky_layernorm_bf16``): the row held
+    in registers (``held``: the TP forms' LN, D <= 1 280) or read once a
+    pass (the whole blocks'); the check that compares their bits takes it."""
+    if x.dtype != torch.bfloat16 or x.device.type != "cuda" or not x.is_contiguous():
+        raise ValueError("x must be a contiguous bf16 CUDA tensor")
+    if held:
+        check_ln_held(x)
+    y = torch.empty_like(x)
+    D = x.shape[-1]
+    fn = cuda_build.load("mlp_block").sky_layernorm_bf16
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    with torch.cuda.device(x.device):
+        err = fn(x.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr(), x.numel() // D,
+                 D, int(held), torch.cuda.current_stream().cuda_stream)
+    cuda_build.check(err, "sky_layernorm_bf16")
+    return y
+
+
 def mlp_block_tp_fwd_plain(x, scale, bias, w1, b1, w2):
     """Plain version of K1's TP form's rank half: the fp32 partial (B, N, D)
     of fc2 over the rank's columns, before b2 and the residual."""
@@ -649,19 +670,23 @@ def mlp_block_tp_fwd(x, scale, bias, w1, b1, w2):
     """K1's TP form, the rank's half: the fp32 partial (B, N, D) as
     :func:`mlp_block_tp_fwd_plain`. CPU tensors take the plain version;
     CUDA tensors launch ``sky_mlp_block_tp_fwd`` (its fp32 form for fp32
-    operands, also counted on ``.f32_launches``) or raise."""
+    operands, also counted on ``.f32_launches``) or raise. The partial and
+    the h (B·N, F_r) scratch are carved from one allocation."""
     if x.device.type == "cpu":
         return mlp_block_tp_fwd_plain(x, scale, bias, w1, b1, w2)
+    check_ln_held(x)
     dt = _check_cuda_args(x, scale, bias, w1, b1, w2, kernel="K1 TP")  # at the local F_r
     B, N, D = x.shape
     F = w1.shape[1]
-    h = torch.empty((B * N, F), dtype=dt, device=x.device)
-    part = torch.empty((B, N, D), dtype=torch.float32, device=x.device)
+    M = B * N
+    nbytes, offs = scratch_layout((M * D * 4, M * F * x.element_size()))
+    base = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
+    part = base[:M * D * 4].view(torch.float32).view(B, N, D)
     entry = _f32("sky_mlp_block_tp_fwd", dt)
     with torch.cuda.device(x.device):
         err = _entry("mlp_block", entry, 8)(
-            *(t.data_ptr() for t in (x, scale, bias, w1, b1, w2, h, part)), B * N, D, F,
-            torch.cuda.current_stream().cuda_stream)
+            *(t.data_ptr() for t in (x, scale, bias, w1, b1, w2)), base.data_ptr() + offs[1],
+            part.data_ptr(), M, D, F, torch.cuda.current_stream().cuda_stream)
     cuda_build.check(err, entry)
     mlp_block_tp_fwd.launches += 1
     mlp_block_tp_fwd.f32_launches += int(dt == torch.float32)
@@ -729,15 +754,16 @@ mlp_block_tp_bwd.f32_launches = 0
 mlp_block_tp_bwd.finish_launches = 0
 
 
-# the widest row the bf16 TP backward forms' LN and LN backward hold in
-# registers (csrc/common.cuh LN_REG_CHUNKS * 256: ViT-H's 1 280)
+# the widest row the bf16 TP forms' LN and LN backward hold in registers
+# (csrc/common.cuh LN_REG_CHUNKS * 256: ViT-H's 1 280)
 LN_HELD_MAX = 5 * 256
 
 
 def check_ln_held(x) -> None:
-    """Refuse a bf16 row wider than the TP backward forms' LN holds."""
+    """Refuse a bf16 row wider than the TP forms' LN holds (before any
+    library loads)."""
     if x.dtype == torch.bfloat16 and x.shape[-1] > LN_HELD_MAX:
-        raise ValueError(f"D={x.shape[-1]}: the bf16 TP backward forms hold LN rows of at most "
+        raise ValueError(f"D={x.shape[-1]}: the bf16 TP forms hold LN rows of at most "
                          f"{LN_HELD_MAX} elements in registers")
 
 

@@ -2173,3 +2173,97 @@ def test_prefetch_copies_to_the_card_on_a_side_stream(dev):
         assert float(total) == float((torch.from_numpy(src[i]["cutouts"]).to(dev) * 2).sum())
         seen += 1
     assert seen == 5
+
+
+# ---- the fused TP forward half ---------------------------------------------------
+# (B, N, local heads, F_r) of a rank's shard at D = 384: jepa_struct's ViT-S
+# encoder at tensor_parallel = 2 (B = 256 over 64 tokens: 256 whole row
+# blocks), a context subset (40 tokens), ragged ones: N = 49 and 17 (row
+# blocks part padding), one and two local heads, F_r of 128 and 1 536 for
+# K1 TP's chain beside it; N = 1
+TP_FUSED_SHAPES = [(256, 64, 3, 768), (256, 40, 3, 768), (5, 49, 3, 768), (7, 17, 2, 256),
+                   (3, 64, 1, 128), (2, 33, 3, 1536), (9, 1, 3, 384)]
+
+
+def _tp_shard_args(dev, B, N, Hl, Fr, seed):
+    """One rank's attention and MLP shards at D = 384 (heads of 64): (x,
+    scale, bias, wqkv_r, bqkv_r, wproj_r) and (x, scale, bias, w1_r, b1_r,
+    w2_r), bf16 x and weights."""
+    D, Dl = 384, 64 * Hl
+    attn = _block_args(dev, B, N, D, (D, 3 * Dl), (Dl, D), seed)[:6]
+    mlp = _block_args(dev, B, N, D, (D, Fr), (Fr, D), seed + 1)[:6]
+    return attn, (attn[0], attn[1], attn[2], *mlp[3:])
+
+
+@pytest.mark.parametrize("B,N,Hl,Fr", TP_FUSED_SHAPES)
+def test_tp_fused_forward_halves_match_the_chain_and_plain(dev, B, N, Hl, Fr):
+    """K2 TP's fused bf16 forward half (the shape rule picks it at D = 384)
+    against its chain forced at the same shape, bit for bit (the same
+    products per element, the same K order, the held-row LN's arithmetic),
+    and against the plain version within TOL_FWD; twice bit-equal; one
+    counted launch, on ``fused_launches`` too. K1 TP's half (its chain on
+    the held-row LN) at the same shapes against its plain version."""
+    attn, mlp = _tp_shard_args(dev, B, N, Hl, Fr, seed=70 + N)
+    assert tab.tp_fwd_path(N, 384, 64 * Hl, Hl, 0, torch.bfloat16) == "fused"
+    n, n_fused = tab.attn_block_tp_fwd.launches, tab.attn_block_tp_fwd.fused_launches
+    got, again = tab.attn_block_tp_fwd(*attn, Hl), tab.attn_block_tp_fwd(*attn, Hl)
+    ref = tab.attn_block_tp_fwd_chain(*attn, Hl)
+    torch.cuda.synchronize()
+    assert (tab.attn_block_tp_fwd.launches - n, tab.attn_block_tp_fwd.fused_launches - n_fused) \
+        == (2, 2)
+    assert got.shape == (B, N, 384) and got.dtype == torch.float32
+    assert torch.equal(got, again) and torch.equal(got, ref)
+    assert _max_rel(got, tab.attn_block_tp_fwd_plain(*attn, Hl)) <= TOL_FWD
+    n = tmb.mlp_block_tp_fwd.launches
+    got = tmb.mlp_block_tp_fwd(*mlp)
+    torch.cuda.synchronize()
+    assert tmb.mlp_block_tp_fwd.launches - n == 1
+    assert torch.equal(got, tmb.mlp_block_tp_fwd(*mlp))
+    assert _max_rel(got, tmb.mlp_block_tp_fwd_plain(*mlp)) <= TOL_FWD
+
+
+def test_tp_fused_forward_halves_launch_one_kernel(dev):
+    """At jepa_struct's ViT-S shard K2 TP's half is one launch of its fused
+    kernel (the profiler's names): no LN, GEMM or core launch and no scratch
+    beside the fp32 partial; K1 TP's is its chain's three."""
+    from torch.profiler import ProfilerActivity, profile
+
+    attn, mlp = _tp_shard_args(dev, 256, 64, 3, 768, seed=80)
+    for fn, kernels in ((lambda: tab.attn_block_tp_fwd(*attn, 3), ["attn_tp_fused_kernel"]),
+                        (lambda: tmb.mlp_block_tp_fwd(*mlp), ["layernorm", "gemm", "gemm"])):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if str(getattr(e, "device_type", "")).endswith("CUDA")]
+        assert len(names) == len(kernels), names
+        assert all(k in n.lower() for k, n in zip(kernels, names)), names
+
+
+@pytest.mark.parametrize("B,N,D,Hl,seg", [(256, 64, 384, 3, 0), (256, 40, 384, 3, 0),
+                                          (32, 66, 1024, 8, 0), (256, 65, 768, 6, 0),
+                                          (32, 68, 768, 6, 17), (3, 65, 384, 3, 0),
+                                          (3, 64, 384, 3, 16), (3, 49, 384, 4, 0),
+                                          (3, 49, 256, 2, 0), (3, 49, 384, 2, 0),
+                                          (3, 1, 384, 1, 64)])
+def test_tp_forward_path_rule_equals_its_python_copy(dev, B, N, D, Hl, seg):
+    """K2 TP's bf16 forward path rule as the C source computes it
+    (``sky_attn_block_tp_fwd_path``) equals the Python copy at the shipped
+    TP legs' shapes and at the rule's limits."""
+    assert tab.tp_fwd_path_cuda(B, N, D, 64 * Hl, Hl, seg) == tab.tp_fwd_path(
+        N, D, 64 * Hl, Hl, seg, torch.bfloat16)
+
+
+@pytest.mark.parametrize("D", [384, 768, 1024, 1280])
+def test_held_row_layernorm_gives_the_multi_pass_bits(dev, D):
+    """The LN that holds the row in registers (the TP forms' chains and the
+    fused half's arithmetic) gives the bits of the multi-pass LN the whole
+    blocks keep, at ViT-S, ViT-B, ViT-L and ViT-H widths over ragged rows."""
+    x, scale, bias = _block_args(dev, 7, 33, D, (8, 8), (8, 8), seed=D)[:3]
+    x = (x.float() * 3.0 + 0.25).to(torch.bfloat16)  # a mean off zero
+    held = tmb.layernorm_cuda(x, scale, bias, True)
+    multi = tmb.layernorm_cuda(x, scale, bias, False)
+    torch.cuda.synchronize()
+    assert torch.equal(held, multi)

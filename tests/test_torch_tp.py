@@ -428,6 +428,78 @@ def test_tp_backward_forms_refuse_bf16_rows_wider_than_their_ln_holds(D, dtype, 
     assert tab.check_ln_held is tmb.check_ln_held
 
 
+@pytest.mark.parametrize("form", ["attn", "mlp"])
+@pytest.mark.parametrize("D,dtype,refused", [(1280, torch.bfloat16, False),
+                                             (1288, torch.bfloat16, True),
+                                             (1536, torch.float32, False)])
+def test_tp_forward_halves_refuse_bf16_rows_wider_than_their_ln_holds(form, D, dtype, refused):
+    """The bf16 TP forward halves' chains hold the LN row in registers too:
+    a wider bf16 row is refused by the wrapper before any library loads (on
+    meta tensors, which skip the plain path and never reach a launch)."""
+    meta = dict(dtype=dtype, device="meta")
+    x = torch.empty(1, 2, D, **meta)
+    ln = (torch.empty(D, dtype=torch.float32, device="meta"),) * 2
+    if form == "attn":
+        call = lambda: tab.attn_block_tp_fwd(  # noqa: E731
+            x, *ln, torch.empty(D, 3 * 64, **meta), torch.empty(3 * 64, device="meta"),
+            torch.empty(64, D, **meta), 1)
+    else:
+        call = lambda: tmb.mlp_block_tp_fwd(  # noqa: E731
+            x, *ln, torch.empty(D, 128, **meta), torch.empty(128, device="meta"),
+            torch.empty(128, D, **meta))
+    if refused:
+        with pytest.raises(ValueError, match="at most 1280"):
+            call()
+    else:
+        tmb.check_ln_held(x)
+
+
+# the block shapes the shipped TP legs split at tensor_parallel = 2 ((B, N, D,
+# local heads, seg_len, dtype) of a rank, from the configs: mim_32's ViT-L
+# with the RA/Dec token, z_struct_ft_512's ViT-B, the fp32 lp_1 and
+# mim_tiny / mae_tiny, jepa_struct's and jepa_1's ViT-S encoder over all 64
+# tokens and over a context subset) and the form K2 TP's half takes
+TP_LEG_PATHS = [
+    ("mim_32", (32, 66, 1024, 8, 0, torch.bfloat16), "chain"),
+    ("z_struct_ft_512", (256, 65, 768, 6, 0, torch.bfloat16), "chain"),
+    ("lp_1", (128, 65, 768, 6, 0, torch.float32), "chain"),
+    ("mim_tiny", (16, 17, 48, 6, 0, torch.float32), "chain"),
+    ("mae masked", (32, 68, 768, 6, 17, torch.bfloat16), "chain"),
+    ("jepa_struct target", (256, 64, 384, 3, 0, torch.bfloat16), "fused"),
+    ("jepa_struct context", (256, 40, 384, 3, 0, torch.bfloat16), "fused"),
+    ("jepa_1", (64, 64, 384, 3, 0, torch.bfloat16), "fused"),
+    # the limits: one token; a row block of 64 (N = 65 is two); a segment no
+    # shorter than N is no mask, a shorter one is; heads of 64 only, three at
+    # most; D = 384 only; bf16 only
+    ("N = 1", (3, 1, 384, 3, 0, torch.bfloat16), "fused"),
+    ("N = 65", (3, 65, 384, 3, 0, torch.bfloat16), "chain"),
+    ("seg_len = N", (3, 64, 384, 3, 64, torch.bfloat16), "fused"),
+    ("seg_len > N", (3, 49, 384, 3, 64, torch.bfloat16), "fused"),
+    ("seg_len < N", (3, 64, 384, 3, 16, torch.bfloat16), "chain"),
+    ("one head", (3, 49, 384, 1, 0, torch.bfloat16), "fused"),
+    ("two heads", (7, 17, 384, 2, 0, torch.bfloat16), "fused"),
+    ("four heads", (3, 49, 384, 4, 0, torch.bfloat16), "chain"),
+    ("heads of 32", (3, 49, 384, 6, 0, torch.bfloat16), "chain"),
+    ("D = 256", (3, 49, 256, 2, 0, torch.bfloat16), "chain"),
+    ("D = 512", (3, 49, 512, 4, 0, torch.bfloat16), "chain"),
+    ("ViT-B over 64 tokens", (256, 64, 768, 6, 0, torch.bfloat16), "chain"),
+    ("fp32 ViT-S", (256, 64, 384, 3, 0, torch.float32), "chain"),
+]
+
+
+@pytest.mark.parametrize("case,shape,path", TP_LEG_PATHS, ids=[c[0] for c in TP_LEG_PATHS])
+def test_tp_forward_path_rule_at_every_leg_shape_and_its_limits(case, shape, path):
+    """``attn_block.tp_fwd_path``, the Python copy of the C rule that picks
+    K2 TP's bf16 forward form (fused at the ViT-S shard, the chain
+    elsewhere), at every shape a shipped TP leg splits and at each limit of
+    the rule (the card compares it with the C rule, ``chip_smoke.py`` phase
+    5l and ``tests/test_torch_cuda.py``). K1 TP's half is its chain at every
+    shape."""
+    B_, N, D, Hl, seg, dtype = shape
+    hd = 64 if case != "heads of 32" else 32
+    assert tab.tp_fwd_path(N, D, Hl * hd, Hl, seg, dtype) == path
+
+
 # -- ranks -----------------------------------------------------------------------------
 
 def _jax_steps(jcfg, params, batches, maskings, simmim: bool):

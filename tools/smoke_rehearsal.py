@@ -12,7 +12,8 @@ token; the predictor configs at 16 x 16 and batch 8; ``jepa_struct`` and
 depth 2 (CosmicEmbeds at 16 x 16, D = 48; phase 5j at batch 8, its ranks
 started as this file's ``--dp-worker``, gloo on the CPU), stubs ``torch.cuda``, the
 profiler, ``nvidia-smi``, the nvcc build and the C-only helpers (the TMA encode timer, the group plan, kernel 12's
-bit-equality launch), and runs ``main()`` with ``check`` logging instead of
+bit-equality launch, K2 TP's forward path rule and chain and the LN
+launch), and runs ``main()`` with ``check`` logging instead of
 exiting. Phase 5k runs at batch 8, its queued runs as this file's
 ``--queue-worker``, its data stages at 20 000 sources and a 256^2 patch;
 phase 5l's TP forms at tiny shapes and ViT-S's, its legs on ``mim_tiny``,
@@ -46,6 +47,7 @@ from sky_embeddings_tpu_torch.ops.kernels import attention as tat  # noqa: E402
 from sky_embeddings_tpu_torch.ops.kernels import attn_block as tab  # noqa: E402
 from sky_embeddings_tpu_torch.ops.kernels import cuda_build  # noqa: E402
 from sky_embeddings_tpu_torch.ops.kernels import gemm as tg  # noqa: E402
+from sky_embeddings_tpu_torch.ops.kernels import mlp_block as tmb  # noqa: E402
 
 
 def shrink() -> None:
@@ -239,6 +241,12 @@ def stub() -> list:
         return out, qkv, probs, tat.attention_plain(qkv, H)
 
     tab._launch_fwd = launch_fwd
+    # K2 TP's bf16 forward C path rule and chain, and the LN launch
+    tab.tp_fwd_path_cuda = lambda B, N, D, Dl, Hl, seg: tab.tp_fwd_path(N, D, Dl, Hl, seg,
+                                                                        torch.bfloat16)
+    tab.attn_block_tp_fwd_chain = tab.attn_block_tp_fwd_plain
+    tmb.layernorm_cuda = lambda x, scale, bias, held: tmb.layer_norm(
+        x.float(), scale, bias).to(x.dtype)
     failed = []
 
     def check(ok, what):

@@ -1,22 +1,27 @@
 #!/usr/bin/env python3
-"""The tensor-parallel backward forms of kernels 4 and 8, launch by launch,
-on one CUDA card.
+"""The tensor-parallel forms of K2, kernel 4, K1 and kernel 8, launch by
+launch, on one CUDA card.
 
-    python3 tools/tp_bwd_breakdown.py [TREE ...]
+    python3 tools/tp_bwd_breakdown.py [--forward] [TREE ...]
 
 For each tree (a checkout of the repository; the one this file lies in when
 none is named), in the order given, a process of its own imports that
-tree's ``sky_embeddings_tpu_torch`` and times one rank's backward call of
-each form, its half and its finish (``attn_block_tp_bwd`` then
+tree's ``sky_embeddings_tpu_torch`` and times one rank's forward and
+backward call of each form, its half and its finish (``attn_block_tp_fwd``
+then ``attn_block_tp_finish``; ``mlp_block_tp_fwd`` then
+``mlp_block_tp_finish``; ``attn_block_tp_bwd`` then
 ``attn_block_tp_bwd_finish``; ``mlp_block_tp_bwd`` then
-``mlp_block_tp_bwd_finish``), in bf16 on a rank's shard at tensor_parallel
+``mlp_block_tp_bwd_finish``; and, where the tree has it, K2 TP's bf16
+chain forced at the same shape, ``attn_block_tp_fwd_chain`` then
+``attn_block_tp_finish``, beside its fused half), in bf16 on a rank's shard at tensor_parallel
 = 2 at the shapes ``chip_smoke.py`` times them (``TP_TIMED``): ``mim_32``
 (B=32, N=66, D=1 024, 8 local heads of 64, F/2 = 2 048) and
 ``jepa_struct``'s ViT-S encoder (B=256, N=64, D=384, 3 local heads of 64,
 F/2 = 768). For each call it prints:
 
-- the device µs of each launch, in launch order, from ``torch.profiler``
-  (the mean over 20 calls), and their sum;
+- the device µs a call of each kernel it launches, in order of first
+  launch, and its launches a call, from ``torch.profiler`` (20 calls), and
+  their sum;
 - the call's CUDA-event ms (the mean over 50 back-to-back calls);
 - the host µs a call takes to enqueue (the least of 5 means of 20 calls,
   no synchronisation inside);
@@ -24,7 +29,7 @@ F/2 = 768). For each call it prints:
   else "device".
 
 Where the tree has ``gemm.gemm_bwd_group``, it also times, by device
-time, the weight-gradient group of each form alone (the plan's schedule,
+time, the weight-gradient group of each backward form alone (the plan's schedule,
 and the split schedule forced at 1 and 2 slices), and each of GROUPS (the
 forms' ViT-S groups, ``jepa_struct``'s whole kernel 3 and 8 groups and a
 group of the card sweep's, ``mim_1`` B=64's kernel 8) under the plan, the
@@ -32,8 +37,9 @@ split schedule at 1 and 2 slices, stream-K at each tile width and the
 split schedule forced at 4, 6 and 8 slices at BN 128 and 192, each warm
 (back to back) and cold (L2 flushed by a 128 MB fill before each launch,
 the fill's time left out). Give the same tree twice, around
-another, to read the spread (parent, change, change, parent). One JSON
-line a tree, then a table. Needs the card; imports nothing of JAX.
+another, to read the spread (parent, change, change, parent). With
+``--forward`` only the forward calls are timed (no backward, no group).
+One JSON line a tree, then a table. Needs the card; imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -56,23 +62,30 @@ GROUPS = (("4 TP jepa_struct", [(384, 576, 16384), (192, 384, 16384)]),
 
 
 def _kernel_rows(prof, reps):
-    """Device µs of each launch of one call, in launch order: the kernels
-    of ``reps`` calls split into ``reps`` equal runs and averaged by
-    position."""
-    evs = [e for e in prof.events() if str(getattr(e, "device_type", "")).endswith("CUDA")
-           and not getattr(e, "is_user_annotation", False)]
-    evs.sort(key=lambda e: e.time_range.start)
-    if not evs or len(evs) % reps:
-        return None
-    per = len(evs) // reps
-    rows = []
-    for i in range(per):
-        us = [evs[r * per + i].time_range.elapsed_us() for r in range(reps)]
-        rows.append([evs[i].name[:90], sum(us) / reps])
-    return rows
+    """Device µs a call of each kernel (by name, in order of first launch)
+    and its launches a call, from the profiler's device records of ``reps``
+    calls: a kernel's mean over its records times its launches a call, the
+    nearest whole number to its records over ``reps`` (a trace may miss the
+    first call's records). None when the trace holds no device time."""
+    rows, first = {}, {}
+    for e in prof.events():
+        if not str(getattr(e, "device_type", "")).endswith("CUDA") or getattr(
+                e, "is_user_annotation", False):
+            continue
+        name = e.name[:90]
+        row = rows.setdefault(name, [0.0, 0])
+        row[0] += e.time_range.elapsed_us()
+        row[1] += 1
+        first[name] = min(first.get(name, e.time_range.start), e.time_range.start)
+    out = []
+    for name in sorted(rows, key=first.get):
+        total, count = rows[name]
+        per = max(1, round(count / reps))
+        out.append([name, total / count * per, per])
+    return out or None
 
 
-def one(tree: str) -> dict:
+def one(tree: str, forward: bool = False) -> dict:
     sys.path.insert(0, tree)
     import time
 
@@ -83,7 +96,7 @@ def one(tree: str) -> dict:
     from sky_embeddings_tpu_torch.ops.kernels import cuda_build, gemm
     from sky_embeddings_tpu_torch.ops.kernels import mlp_block as mb
 
-    cuda_build.build(["attn_block_tp", "mlp_block_bwd"])
+    cuda_build.build(["attn_block_tp", "mlp_block"] + ["mlp_block_bwd"] * (not forward))
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(26)
     bf = torch.bfloat16
@@ -134,24 +147,34 @@ def one(tree: str) -> dict:
         scale, bias = 1 + rnd(D, s=0.1), rnd(D, s=0.1)
         attn = (rnd(D, 3 * Dl, s=D ** -0.5, dt=bf), rnd(3 * Dl, s=0.01), rnd(Dl, D, s=D ** -0.5, dt=bf))
         mlp = (rnd(D, Fl, s=D ** -0.5, dt=bf), rnd(Fl, s=0.01), rnd(Fl, D, s=Fl ** -0.5, dt=bf))
+        b_out = rnd(D, s=0.01)
         calls = {
+            "attn_block_tp_fwd": lambda: ab.attn_block_tp_finish(
+                x, ab.attn_block_tp_fwd(x, scale, bias, *attn, Hl), b_out),
+            "mlp_block_tp_fwd": lambda: mb.mlp_block_tp_finish(
+                x, mb.mlp_block_tp_fwd(x, scale, bias, *mlp), b_out),
             "attn_block_tp_bwd": lambda: ab.attn_block_tp_bwd_finish(
                 x, scale, bias, g, ab.attn_block_tp_bwd(x, scale, bias, *attn, g, Hl)[0]),
             "mlp_block_tp_bwd": lambda: mb.mlp_block_tp_bwd_finish(
                 x, scale, bias, g, mb.mlp_block_tp_bwd(x, scale, bias, *mlp, g)[0]),
         }
+        if hasattr(ab, "attn_block_tp_fwd_chain"):
+            calls["attn_block_tp_fwd_chain"] = lambda: ab.attn_block_tp_finish(
+                x, ab.attn_block_tp_fwd_chain(x, scale, bias, *attn, Hl), b_out)
+        if forward:
+            calls = {k: v for k, v in calls.items() if "_fwd" in k}
         groups = {"attn_block_tp_bwd": [((M, D), (M, 3 * Dl)), ((M, Dl), (M, D))],
                   "mlp_block_tp_bwd": [((M, D), (M, Fl)), ((M, Fl), (M, D))]}
         res = {}
         for name, fn in calls.items():
             rows = by_launch(fn)
-            dev_sum = sum(us for _, us in rows) if rows else None
+            dev_sum = sum(r[1] for r in rows) if rows else None
             ev = events_ms(fn)
             r = {"launches": rows, "device_sum_us": dev_sum, "event_ms": ev,
                  "host_us": host_us(fn),
                  "paced": None if dev_sum is None else
                  ("host" if ev * 1e3 > PACED * dev_sum else "device")}
-            if hasattr(gemm, "gemm_bwd_group"):
+            if name in groups and hasattr(gemm, "gemm_bwd_group"):
                 ops = [(rnd(*sa, dt=bf), rnd(*sb, dt=bf)) for sa, sb in groups[name]]
                 r["group"] = {}
                 for label, kw in (("plan", {}), ("split 1", {"splits": 1}),
@@ -159,11 +182,11 @@ def one(tree: str) -> dict:
                     rows_g = by_launch(lambda: gemm.gemm_bwd_group(ops, **kw))
                     r["group"][label] = {
                         "plan": str(gemm.gemm_bwd_group_plan(ops, **kw)[0]),
-                        "device_us": sum(us for _, us in rows_g) if rows_g else None}
+                        "device_us": sum(r[1] for r in rows_g) if rows_g else None}
             res[name] = r
             torch.cuda.empty_cache()
         out["shapes"][tag] = res
-    if hasattr(gemm, "gemm_bwd_group"):
+    if hasattr(gemm, "gemm_bwd_group") and not forward:
         flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
         out["groups"] = {}
         for label, dims in GROUPS:
@@ -179,8 +202,8 @@ def one(tree: str) -> dict:
                 # the group's own kernels summed
                 rows_c = by_launch(lambda: (flush.zero_(), gemm.gemm_bwd_group(ops, **kw)))
                 res[case] = {"plan": str(gemm.gemm_bwd_group_plan(ops, **kw)[0]),
-                             "device_us": sum(us for _, us in rows_g) if rows_g else None,
-                             "cold_device_us": sum(us for n, us in rows_c or [] if "sky::" in n)
+                             "device_us": sum(r[1] for r in rows_g) if rows_g else None,
+                             "cold_device_us": sum(r[1] for r in rows_c or [] if "sky::" in r[0])
                              or None}
             out["groups"][label] = res
             torch.cuda.empty_cache()
@@ -188,16 +211,18 @@ def one(tree: str) -> dict:
 
 
 def main(argv: list[str]) -> int:
-    if len(argv) == 2 and argv[0] == "--one":
-        print(json.dumps(one(os.path.abspath(argv[1]))), flush=True)
+    if argv[:1] == ["--one"]:
+        print(json.dumps(one(os.path.abspath(argv[1]), "--forward" in argv)), flush=True)
         return 0
+    forward = "--forward" in argv
+    argv = [a for a in argv if a != "--forward"]
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
     print(smi, flush=True)
     results, status = [], 0
     for tree in [os.path.abspath(t) for t in argv or [HERE]]:
-        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--one", tree],
-                              capture_output=True, text=True, cwd=tree)
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--one", tree]
+                              + ["--forward"] * forward, capture_output=True, text=True, cwd=tree)
         if proc.returncode:
             print(f"{tree}: exit {proc.returncode}\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}",
                   flush=True)
@@ -212,8 +237,8 @@ def main(argv: list[str]) -> int:
                 print(f"{res['tree']} {tag} {name}: event {r['event_ms']:.4f} ms, device sum "
                       f"{r['device_sum_us']} us, host {r['host_us']:.1f} us a call, paced "
                       f"{r['paced']}", flush=True)
-                for kname, us in r["launches"] or []:
-                    print(f"    {us:9.2f} us  {kname}", flush=True)
+                for kname, us, n in r["launches"] or []:
+                    print(f"    {us:9.2f} us  x{n}  {kname}", flush=True)
                 for label, gr in r.get("group", {}).items():
                     print(f"    group {label}: {gr['plan']} {gr['device_us']} us", flush=True)
         for label, cases in res.get("groups", {}).items():
